@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's ResNet-50 forward goes, on one CUDA card.
 
-    python3 chip_profile.py [--batch 32] [--iters 5]
+    python3 chip_profile.py
 
 Builds the same seeded full-width ResNet-50 as ``chip_smoke.py`` (f32,
-TF32 off), warms it up, then traces ``--iters`` forwards of one batch
-already on the card with ``torch.profiler``.  Prints the card's name and
-power limit, the forward's wall time from CUDA events, the device time
+TF32 off), warms it up, then traces ``ITERS`` forwards of one batch of
+``chip_smoke.BATCH`` images already on the card with ``torch.profiler``.
+Prints the card's name and power limit, the forward's wall time from
+CUDA events, the device time
 per category of kernel (this repo's ``matmul_bn_act``, convolutions,
 elementwise, copies, pooling and reductions, other) per forward, the
 busy share of the device over the traced window, and the 15 kernels
@@ -16,12 +17,13 @@ with the most device time.  Writes the same to
 
 from __future__ import annotations
 
-import argparse
 import json
 import sys
 import time
 
 import chip_smoke
+
+ITERS = 5
 
 CATEGORIES = (
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
@@ -42,11 +44,6 @@ def category(name: str) -> str:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batch", type=int, default=32)
-    parser.add_argument("--iters", type=int, default=5)
-    args = parser.parse_args()
-
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
@@ -59,13 +56,13 @@ def main() -> int:
 
     net = chip_smoke.build_net()
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    x = torch.randn(args.batch, 224, 224, 3, device="cuda", generator=gen)
-    fwd_ms = chip_smoke.cuda_ms(lambda: net.output(x), reps=args.iters, warmup=3)
+    x = torch.randn(chip_smoke.BATCH, 224, 224, 3, device="cuda", generator=gen)
+    fwd_ms = chip_smoke.cuda_ms(lambda: net.output(x), reps=ITERS, warmup=3)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.iters):
+        for _ in range(ITERS):
             net.output(x)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
@@ -76,20 +73,20 @@ def main() -> int:
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / args.iters
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / ITERS
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     by_cat: dict[str, float] = {}
     for name, ms in kernels.items():
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
     device_ms = sum(kernels.values())
-    result = {"card": card, "batch": args.batch, "iters": args.iters,
-              "forward_ms": fwd_ms, "images_per_s": args.batch / fwd_ms * 1e3,
+    result = {"card": card, "batch": chip_smoke.BATCH, "iters": ITERS,
+              "forward_ms": fwd_ms, "images_per_s": chip_smoke.BATCH / fwd_ms * 1e3,
               "device_ms_per_forward": device_ms,
-              "busy_share": device_ms * args.iters / window_ms,
+              "busy_share": device_ms * ITERS / window_ms,
               "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
               "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
-    print(f"forward at batch {args.batch} on {card}: {fwd_ms:.3f} ms "
+    print(f"forward at batch {chip_smoke.BATCH} on {card}: {fwd_ms:.3f} ms "
           f"({result['images_per_s']:.1f} images/s); device time {device_ms:.3f} ms "
           f"per forward, busy {result['busy_share']:.1%} of the traced window")
     for cat, ms in result["categories_ms"].items():

@@ -17,8 +17,11 @@ no result line:
    bottlenecks, seeded weights) through ``InferenceEngine(max_batch=32)``:
    16 requests of 1-8 images from 4 threads.  Every answer must match a
    direct forward of the same images, the whole forward through the
-   kernel must match the same net with the plain version, and the kernel
-   must have launched 36 times per dispatched batch;
+   kernel must match the same net with the plain version (in log
+   probabilities), and the kernel must have launched 36 times per
+   dispatched batch.  The 16 requests are a smoke reading of the engine,
+   not a throughput metric: the forward alone at batch 32 is timed for
+   that;
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
@@ -50,7 +53,12 @@ PEAK_BYTES = 3.35e12
 TOL = {"float32": {"y": 1e-5, "s1": 1e-5, "s2": 1e-5},
        "bfloat16": {"y": 8e-3, "s1": 1e-4, "s2": 1e-4}}
 SERVE_TOL = 1e-5      # engine answer vs direct forward of the same images
-PLAIN_FWD_TOL = 2e-4  # forward through the kernel vs through the plain version
+# forward through the kernel vs through the plain version, as max |diff| of
+# log probabilities: logits up to a per-row shift, i.e. each probability's
+# error over its own size.  The probabilities sit near 1/1000, so an absolute
+# limit on them would let a wiring fault of the layer through; f32 sum order
+# alone stays far below this limit over the 16 blocks.
+PLAIN_FWD_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -183,12 +191,21 @@ def build_net():
     random weights keep activations O(1) and the softmax unsaturated:
     otherwise every comparison below would compare one-hot vectors."""
     from deeplearning4j_tpu_torch.models import resnet50
-    net = resnet50(fused=True, device="cuda").init(seed=SEED)
+    return damp_residual_gammas(resnet50(fused=True, device="cuda").init(seed=SEED))
+
+
+def damp_residual_gammas(net, factor: float = 0.3):
     for d in net.params_.values():
         for key in ("gamma_c", "gamma_proj"):
             if key in d:
-                d[key].mul_(0.3)
+                d[key].mul_(factor)
     return net
+
+
+def log_prob_err(p, q) -> float:
+    """max |log p - log q| of two softmax outputs: their logits' difference
+    up to a per-row shift, each probability's error over its own size."""
+    return (p.log() - q.log()).abs().max().item()
 
 
 def serve(net, card: str) -> dict:
@@ -257,9 +274,10 @@ def serve(net, card: str) -> dict:
         plain_fwd_ms = cuda_ms(lambda: net.output(x), reps=5)
     finally:
         fused_mod.matmul_bn_act = saved
-    fwd_err = (y_kernel - y_plain).abs().max().item()
+    fwd_err = log_prob_err(y_kernel, y_plain)
     if not fwd_err <= PLAIN_FWD_TOL:
-        raise AssertionError(f"kernel forward differs from plain forward by {fwd_err}")
+        raise AssertionError(f"kernel forward differs from plain forward by {fwd_err} "
+                             f"in log probabilities")
     top = y_kernel.max(dim=1).values
     if not (torch.isfinite(y_kernel).all() and top.max().item() < 0.99):
         raise AssertionError("forward is non-finite or saturated")
@@ -269,17 +287,17 @@ def serve(net, card: str) -> dict:
     result = {"card": card, "requests": len(sizes), "images": int(sum(sizes)),
               "batches": batches, "launches": launches,
               "images_per_s": sum(sizes) / wall, "wall_s": wall,
-              "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
-              "serve_max_abs_err": serve_err, "plain_forward_max_abs_err": fwd_err,
+              "p50_ms": float(np.percentile(lat, 50)), "max_ms": float(lat.max()),
+              "serve_max_abs_err": serve_err, "plain_forward_max_log_prob_err": fwd_err,
               "forward_ms_batch32": kernel_fwd_ms, "plain_forward_ms_batch32": plain_fwd_ms,
               "forward_images_per_s_batch32": BATCH / kernel_fwd_ms * 1e3}
-    log(f"serve on {card}: {result['images']} images in {len(sizes)} requests, "
+    log(f"serve smoke on {card}: {result['images']} images in {len(sizes)} requests, "
         f"{batches} batches, {launches} kernel launches; "
-        f"{result['images_per_s']:.1f} images/s, p50 {result['p50_ms']:.1f} ms, "
-        f"p99 {result['p99_ms']:.1f} ms; forward at batch {BATCH}: "
+        f"{result['images_per_s']:.1f} images/s, latency p50 {result['p50_ms']:.1f} ms, "
+        f"p99 = max of {len(sizes)} {result['max_ms']:.1f} ms; forward at batch {BATCH}: "
         f"{kernel_fwd_ms:.2f} ms ({result['forward_images_per_s_batch32']:.1f} images/s), "
         f"with the plain version {plain_fwd_ms:.2f} ms; errors: engine {serve_err:.2e}, "
-        f"kernel vs plain forward {fwd_err:.2e}")
+        f"kernel vs plain forward {fwd_err:.2e} (log probabilities)")
     return result
 
 

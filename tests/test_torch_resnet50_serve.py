@@ -17,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deeplearning4j_tpu.models import zoo as jzoo
 
 from deeplearning4j_tpu_torch.interop import load_jax_params
 from deeplearning4j_tpu_torch.models import resnet50
+from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.serve import EngineClosed, InferenceEngine, Overloaded
 
@@ -185,3 +187,37 @@ def test_engine_device_must_match_model():
     model.device = torch.device("cuda")
     with pytest.raises(ValueError, match="lives on"):
         InferenceEngine(model, device="cpu")
+
+
+def _drop_relu_in(x, w, a=None, b=None, relu_in=False):
+    return _KERNEL(x, w, a, b, relu_in=False)
+
+
+def _swap_prologue(x, w, a=None, b=None, relu_in=False):
+    return _KERNEL(x, w, b, a, relu_in=relu_in)
+
+
+_KERNEL = fused_mod.matmul_bn_act
+
+
+@pytest.mark.parametrize("fault", ["relu_in_dropped", "prologue_a_b_swapped",
+                                   "expand_projection_swapped"])
+def test_smoke_forward_check_catches_wiring_faults(fault, monkeypatch):
+    """chip_smoke.py holds the forward through the kernel to the forward
+    through the plain version in log probabilities at PLAIN_FWD_TOL.  With
+    1000 classes the probabilities sit near 1e-3, so an absolute limit on
+    them would miss a fault in how the layer wires the kernel; this check
+    sees each such fault at 100x its limit."""
+    net = resnet50(height=32, width=32, num_classes=1000, fused=True, device="cpu")
+    net = chip_smoke.damp_residual_gammas(net.init(seed=chip_smoke.SEED))
+    x = np.random.default_rng(3).normal(size=(4, 32, 32, 3)).astype(np.float32)
+    p0 = net.output(x)
+    assert chip_smoke.log_prob_err(net.output(x), p0) <= chip_smoke.PLAIN_FWD_TOL
+    if fault == "relu_in_dropped":
+        monkeypatch.setattr(fused_mod, "matmul_bn_act", _drop_relu_in)
+    elif fault == "prologue_a_b_swapped":
+        monkeypatch.setattr(fused_mod, "matmul_bn_act", _swap_prologue)
+    else:   # res2_0 is the one block whose W_c and W_proj have one shape
+        d = net.params_["res2_0"]
+        d["W_c"], d["W_proj"] = d["W_proj"], d["W_c"]
+    assert chip_smoke.log_prob_err(net.output(x), p0) > 100 * chip_smoke.PLAIN_FWD_TOL
