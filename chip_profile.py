@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 forward goes, on one CUDA card.
+"""Where the time of the port's ResNet-50 forward and training step goes,
+on one CUDA card.
 
     python3 chip_profile.py
 
 Builds the same seeded full-width ResNet-50 as ``chip_smoke.py`` (f32,
-TF32 off), warms it up, then traces ``ITERS`` forwards of one batch of
-``chip_smoke.BATCH`` images already on the card with ``torch.profiler``.
-Prints the card's name and power limit, the forward's wall time from
-CUDA events, the device time
-per category of kernel (this repo's ``matmul_bn_act``, convolutions,
-elementwise, copies, pooling and reductions, other) per forward, the
-busy share of the device over the traced window, and the 15 kernels
-with the most device time.  Writes the same to
-``chiprun_out/chip_profile.json``.
+TF32 off) and, for each of two workloads on one batch of
+``chip_smoke.BATCH`` images already on the card, warms it up, times it
+with CUDA events (both workloads before any tracing) and traces ``ITERS``
+runs with ``torch.profiler``:
+
+- ``forward``: ``net.output`` (the serving forward);
+- ``train_step``: ``Trainer.fit_batch`` (forward, backward, update) at
+  ``chip_smoke.TRAIN_LR``.
+
+Prints the card's name and power limit and, per workload, its wall time
+from CUDA events, the device time per category of kernel (this repo's
+``matmul_bn_act`` forward and backward, convolutions, elementwise,
+copies, pooling and reductions, other) per run, the busy share of the
+device over the traced window, and the 15 kernels with the most device
+time.  Writes the same to ``chiprun_out/chip_profile.json``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ ITERS = 5
 
 CATEGORIES = (
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
+    ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",
+                           "bwd_dw_bf16_kernel", "colsum_kernel")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft", "sm90")),
     ("copy", ("memcpy", "copy", "memset")),
     ("pooling", ("pool",)),
@@ -43,27 +52,15 @@ def category(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def profile(card: str, name: str, fn, run_ms: float) -> dict:
+    """Trace ITERS runs of ``fn`` (warm already, timed at ``run_ms``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = chip_smoke.card_line()
-    print(card, flush=True)
-
-    net = chip_smoke.build_net()
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    x = torch.randn(chip_smoke.BATCH, 224, 224, 3, device="cuda", generator=gen)
-    fwd_ms = chip_smoke.cuda_ms(lambda: net.output(x), reps=ITERS, warmup=3)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            net.output(x)
+            fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -77,25 +74,52 @@ def main() -> int:
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     by_cat: dict[str, float] = {}
-    for name, ms in kernels.items():
-        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
+    for kname, ms in kernels.items():
+        by_cat[category(kname)] = by_cat.get(category(kname), 0.0) + ms
     device_ms = sum(kernels.values())
-    result = {"card": card, "batch": chip_smoke.BATCH, "iters": ITERS,
-              "forward_ms": fwd_ms, "images_per_s": chip_smoke.BATCH / fwd_ms * 1e3,
-              "device_ms_per_forward": device_ms,
-              "busy_share": device_ms * ITERS / window_ms,
+    result = {"workload": name, "card": card, "batch": chip_smoke.BATCH, "iters": ITERS,
+              "ms": run_ms, "images_per_s": chip_smoke.BATCH / run_ms * 1e3,
+              "device_ms": device_ms, "busy_share": device_ms * ITERS / window_ms,
               "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
               "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
-    print(f"forward at batch {chip_smoke.BATCH} on {card}: {fwd_ms:.3f} ms "
+    print(f"{name} at batch {chip_smoke.BATCH} on {card}: {run_ms:.3f} ms "
           f"({result['images_per_s']:.1f} images/s); device time {device_ms:.3f} ms "
-          f"per forward, busy {result['busy_share']:.1%} of the traced window")
+          f"per run, busy {result['busy_share']:.1%} of the traced window")
     for cat, ms in result["categories_ms"].items():
-        print(f"  {cat:14s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
-    for name, ms in result["top_kernels_ms"].items():
-        print(f"  {ms:8.3f} ms  {name[:110]}")
+        print(f"  {cat:18s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
+    for kname, ms in result["top_kernels_ms"].items():
+        print(f"  {ms:8.3f} ms  {kname[:110]}")
+    return result
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA card", file=sys.stderr)
+        return 2
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Nesterovs, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+
+    net = chip_smoke.build_net(Nesterovs(chip_smoke.TRAIN_LR, 0.9))
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    x = torch.randn(chip_smoke.BATCH, 224, 224, 3, device="cuda", generator=gen)
+    labels = torch.eye(1000, device="cuda")[torch.randint(0, 1000, (chip_smoke.BATCH,),
+                                                          device="cuda", generator=gen)]
+    trainer, batch = Trainer(net), DataSet(x, labels)
+    workloads = {"forward": lambda: net.output(x),
+                 "train_step": lambda: trainer.fit_batch(batch)}
+    # every timing before the first trace: a profiler session leaves the
+    # launch path slower for the rest of the process
+    run_ms = {name: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3)
+              for name, fn in workloads.items()}
+    results = [profile(card, name, fn, run_ms[name]) for name, fn in workloads.items()]
     out = chip_smoke.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_profile.json").write_text(json.dumps(result, indent=1))
+    (out / "chip_profile.json").write_text(json.dumps(results, indent=1))
     return 0
 
 

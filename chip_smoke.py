@@ -7,12 +7,13 @@ Phases, in order; any failure ends the run with a nonzero exit code and
 no result line:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel from the sources in this checkout;
-3. for each distinct (K, N, prologue) of the 36 ``matmul_bn_act`` calls
-   of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the kernel
-   to ``matmul_bn_act_plain`` on the card, and time the kernel, the plain
-   version and one library yardstick (``torch.matmul`` with the prologue
-   and the statistics as torch ops);
+2. build every CUDA kernel from the sources in this checkout (one
+   ``nvcc`` per source, all started together);
+3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
+   of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
+   kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
+   plain version and one library yardstick (``torch.matmul`` with the
+   prologue and the statistics as torch ops);
 4. serve full-width ResNet-50 (224x224x3, 1000 classes, 16 fused
    bottlenecks, seeded weights) through ``InferenceEngine(max_batch=32)``:
    16 requests of 1-8 images from 4 threads.  Every answer must match a
@@ -22,12 +23,28 @@ no result line:
    dispatched batch.  The 16 requests are a smoke reading of the engine,
    not a throughput metric: the forward alone at batch 32 is timed for
    that;
-5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. the same shapes for the merged backward, in f32 and bf16 with random
+   O(1) dy, ds1, ds2: hold the backward kernel's dx, dW, da, db to
+   ``matmul_bn_act_bwd_plain``, show that dropping either cotangent term
+   of dyt would move that check far past its limit, and time the kernel, the plain version and
+   a library yardstick (two ``torch.matmul`` with the elementwise work as
+   torch ops);
+6. train full-width ResNet-50 in f32 at batch 32 for 3 steps of
+   ``Trainer.fit_batch`` (``Nesterovs(TRAIN_LR, 0.9)``) through the
+   kernels, then 3 steps from the same start with both plain versions in
+   their place: every step launches each kernel 36 times, step 0's loss
+   and every param's step-0 update (its gradient, scaled) agree with the
+   plain run, and so do the later losses;
+7. the headline training configuration: bf16 policy, batch 256,
+   ``Nesterovs(0.1, 0.9)``, a few timed steps (a smaller power-of-two
+   batch, said so, if 256 does not fit the card); then phases 3 and 5
+   again, in bf16, at every distinct shape of the headline's batch;
+8. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
 convolutions around the kernel compute in f32 as the JAX package's
-HIGHEST precision does.  The per-shape table goes to
+HIGHEST precision does.  The per-shape tables go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -59,6 +76,31 @@ SERVE_TOL = 1e-5      # engine answer vs direct forward of the same images
 # limit on them would let a wiring fault of the layer through; f32 sum order
 # alone stays far below this limit over the 16 blocks.
 PLAIN_FWD_TOL = 1e-5
+# backward kernel vs plain, max |diff| over max |plain| per output, with dy,
+# ds1, ds2 all O(1) (as a train-mode BN's cotangents are).  f32: sum order
+# only (read at most 1.9e-6 on the H100); bf16: dx and dW round to bf16
+# (2^-8 relative; read at most 4.0e-3 at batch 32, 6.6e-3 at the headline's
+# batch 256), da/db are f32 sums (read 2.4e-6).
+TOL_BWD = {"float32": {"dx": 2e-5, "dw": 2e-5, "da": 2e-5, "db": 2e-5},
+           "bfloat16": {"dx": 1.6e-2, "dw": 1.6e-2, "da": 2e-5, "db": 2e-5}}
+# the check must see a fault in dyt = dy + ds1 + 2*y*ds2: with either term
+# dropped, the plain backward's dx and dW move by this many times their limit
+BWD_FAULT_MARGIN = 10
+TRAIN_LR = 0.003       # f32 check: three steps stay finite and O(1)
+TRAIN_STEPS = 3
+# training through the kernels vs through the plain versions, same start,
+# as read on the H100: step 0's loss, relative (read 9.4e-8); every param's
+# step-0 update, max over params of |u_kernel - u_plain| / |u_plain| in norm
+# (read 3.5e-2, median 2.5e-2: the train-mode BN backward amplifies sum-order
+# rounding block over block, as f32 against f64 does on the CPU; a wiring
+# fault of the backward reads above 100, tests/test_torch_resnet50_train.py);
+# the later losses, relative (read 6.7e-4 at step 2: the two runs' updates
+# differ by ~2.5%, so their losses drift apart by ~2.5% of the loss's change)
+TRAIN_LOSS0_TOL = 1e-5
+TRAIN_UPDATE_TOL = 0.25
+TRAIN_LOSS_TOL = 5e-3
+HEADLINE_BATCH = 256   # bench.py's ResNet-50 training configuration
+HEADLINE_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -127,12 +169,12 @@ def library_matmul_bn_act(x, w, a, b):
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
-def check_kernels(calls) -> list[dict]:
+def check_kernels(calls, dtypes) -> list[dict]:
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         dname = str(dtype).split(".")[1]
         for (m, k, n, pro) in sorted(set(calls)):
             x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
@@ -175,7 +217,7 @@ def check_kernels(calls) -> list[dict]:
 
 
 def per_forward(rows, dname: str) -> dict:
-    """Sums over the 36 launches of one batch-32 forward."""
+    """Sums over the 36 launches of one batch-32 forward (or backward)."""
     sel = [r for r in rows if r["dtype"] == dname]
     tot = {key: sum(r[key] * r["count"] for r in sel)
            for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
@@ -185,13 +227,14 @@ def per_forward(rows, dname: str) -> dict:
     return tot
 
 
-def build_net():
+def build_net(updater=None):
     """Full-width ResNet-50 with seeded weights.  The residual-branch BN
     gammas are damped (x0.3, as in the CPU tests) so that 16 blocks of
     random weights keep activations O(1) and the softmax unsaturated:
     otherwise every comparison below would compare one-hot vectors."""
     from deeplearning4j_tpu_torch.models import resnet50
-    return damp_residual_gammas(resnet50(fused=True, device="cuda").init(seed=SEED))
+    return damp_residual_gammas(resnet50(fused=True, device="cuda",
+                                         updater=updater).init(seed=SEED))
 
 
 def damp_residual_gammas(net, factor: float = 0.3):
@@ -301,6 +344,265 @@ def serve(net, card: str) -> dict:
     return result
 
 
+class _PlainMatmulBnAct:
+    """Comparison only, never on the port's path: ``matmul_bn_act`` with the
+    plain forward and the plain backward, whatever the device."""
+
+    def __init__(self):
+        import torch
+        from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, w, a, b, relu_in):
+                y, s1, s2 = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
+                ctx.save_for_backward(x, w, a, b, y)
+                ctx.relu_in = relu_in
+                return y, s1, s2
+
+            @staticmethod
+            def backward(ctx, dy, ds1, ds2):
+                x, w, a, b, y = ctx.saved_tensors
+                return conv_bn.matmul_bn_act_bwd_plain(x, w, a, b, y, dy, ds1, ds2,
+                                                       relu_in=ctx.relu_in) + (None,)
+
+        self.fn = Fn
+
+    def __call__(self, x, w, a=None, b=None, *, relu_in: bool = True):
+        return self.fn.apply(x, w, a, b, relu_in)
+
+
+def library_matmul_bn_act_bwd(x, w, a, b, y, dy, ds1, ds2):
+    """Yardstick only, never on the port's path: the backward as two
+    ``torch.matmul`` in x's dtype (cuBLAS) with the elementwise work and
+    the sums as torch ops (relu_in on)."""
+    import torch
+    dyt = (dy.float() + ds1 + 2.0 * y.float() * ds2).to(dy.dtype)
+    dxh = torch.matmul(dyt, w.t())
+    da = db = None
+    if a is not None:
+        xf = x.float()
+        pre = xf * a + b
+        xh = torch.relu(pre).to(x.dtype)
+        dpre = torch.where(pre > 0, dxh.float(), 0.0)
+        dx, da, db = (dpre * a).to(x.dtype), (dpre * xf).sum(0), dpre.sum(0)
+    else:
+        xh, dx = x, dxh
+    return dx, torch.matmul(xh.t(), dyt), da, db
+
+
+def bwd_errs(got, want) -> tuple[dict, float]:
+    """Per output of the backward, max |got - want| / max |want|; and the
+    largest max |got - want|."""
+    errs, abs_err = {}, 0.0
+    for name, g, e in zip(("dx", "dw", "da", "db"), got, want):
+        if e is None:
+            if g is not None:
+                raise AssertionError(f"backward {name} given without a prologue")
+            continue
+        diff = (g.float() - e.float()).abs().max().item()
+        abs_err = max(abs_err, diff)
+        errs[name] = diff / e.float().abs().max().item()
+    return errs, abs_err
+
+
+def check_bwd_kernels(calls, dtypes) -> list[dict]:
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for dtype in dtypes:
+        dname = str(dtype).split(".")[1]
+        for (m, k, n, pro) in sorted(set(calls)):
+            # as in the net: a call without a prologue reads a ReLU's output
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            x = (x if pro else x.relu()).to(dtype)
+            w = (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5).to(dtype)
+            a = torch.rand(k, device="cuda", generator=gen) + 0.5 if pro else None
+            b = torch.randn(k, device="cuda", generator=gen) * 0.2 if pro else None
+            y = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=True)[0]
+            dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+            # 2*y*ds2 is O(1) beside dy: y is O(1) here
+            ds1 = torch.randn(n, device="cuda", generator=gen)
+            ds2 = torch.randn(n, device="cuda", generator=gen) * 0.5
+            args = (x, w, a, b, y, dy, ds1, ds2)
+            got = conv_bn.matmul_bn_act_bwd(*args, relu_in=True)
+            torch.cuda.synchronize()
+            want = conv_bn.matmul_bn_act_bwd_plain(*args, relu_in=True)
+            errs, abs_err = bwd_errs(got, want)
+            bad = {key: v for key, v in errs.items() if not v <= TOL_BWD[dname][key]}
+            if bad:
+                raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n} "
+                                     f"prologue={pro}: errors {bad} over {TOL_BWD[dname]}")
+            fault_errs = {}
+            for term, fargs in (("ds1", (x, w, a, b, y, dy, torch.zeros_like(ds1), ds2)),
+                                ("2*y*ds2", (x, w, a, b, y, dy, ds1, torch.zeros_like(ds2)))):
+                moved = bwd_errs(conv_bn.matmul_bn_act_bwd_plain(*fargs, relu_in=True), want)[0]
+                for key in ("dx", "dw"):
+                    fault_errs[f"{term} dropped: {key}"] = moved[key] / TOL_BWD[dname][key]
+            weak = {key: v for key, v in fault_errs.items() if not v >= BWD_FAULT_MARGIN}
+            if weak:
+                raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n}: "
+                                     f"a dropped dyt term moves the check by only {weak} "
+                                     f"times its limit")
+            isz = x.element_size()
+            nbytes = ((2 * m * k + 2 * m * n + 2 * k * n) * isz
+                      + (4 * k * 4 if pro else 0) + 2 * n * 4)
+            flops = 4 * m * k * n
+            row = {"dtype": dname, "M": m, "K": k, "N": n, "prologue": pro,
+                   "count": calls.count((m, k, n, pro)), "max_abs_err": abs_err,
+                   "rel_err": errs, "fault_over_limit_min": min(fault_errs.values()),
+                   "ms": cuda_ms(lambda: conv_bn.matmul_bn_act_bwd(*args, relu_in=True)),
+                   "plain_ms": cuda_ms(lambda: conv_bn.matmul_bn_act_bwd_plain(*args,
+                                                                               relu_in=True)),
+                   "library_ms": cuda_ms(lambda: library_matmul_bn_act_bwd(*args)),
+                   "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                   "ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            rows.append(row)
+            log(f"  {dname:8s} M={m:6d} K={k:4d} N={n:4d} pro={int(pro)} x{row['count']}: "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}), rel err "
+                + " ".join(f"{key} {v:.2e}" for key, v in errs.items())
+                + f"; a dropped dyt term reads >= {row['fault_over_limit_min']:.0f}x the limit")
+            del x, w, y, dy, got, want
+    return rows
+
+
+def train_steps(net, batch, steps: int) -> dict:
+    """``steps`` steps of ``Trainer(net).fit_batch``, each driven with the
+    launch counts set to 0 just before it and read just after; returns the
+    losses, each step's counts and seconds (synchronized), and the step-0
+    update of every param."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    from deeplearning4j_tpu_torch.train import Trainer
+    trainer = Trainer(net)
+    p0 = {v: {k: t.clone() for k, t in d.items()} for v, d in net.params_.items()}
+    out = {"losses": [], "launches": [], "seconds": []}
+    for step in range(steps):
+        conv_bn.launches = conv_bn.bwd_launches = 0
+        if net.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.fit_batch(batch)
+        out["losses"].append(loss.item())   # waits for the step
+        out["seconds"].append(time.perf_counter() - t0)
+        out["launches"].append((conv_bn.launches, conv_bn.bwd_launches))
+        if step == 0:
+            out["update0"] = {v: {k: net.params_[v][k] - t for k, t in d.items()}
+                              for v, d in p0.items()}
+    return out
+
+
+def update_errs(got: dict, want: dict) -> dict:
+    """Per param, |u_got - u_want| / |u_want| in norm: the relative error
+    of that param's gradient (same learning rate and momentum)."""
+    return {f"{v}.{k}": ((u - want[v][k]).norm() / want[v][k].norm()).item()
+            for v, d in got.items() for k, u in d.items()}
+
+
+def train_check(card: str) -> dict:
+    """Phase 6: full-width f32 training, kernels vs plain versions."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.train import Nesterovs
+
+    rng = np.random.default_rng(SEED + 3)
+    batch = DataSet(torch.from_numpy(rng.normal(size=(BATCH, 224, 224, 3)).astype(np.float32))
+                    .cuda(), torch.eye(1000, device="cuda")[rng.integers(0, 1000, BATCH)])
+    kernel = train_steps(build_net(Nesterovs(TRAIN_LR, 0.9)), batch, TRAIN_STEPS)
+    saved = fused_mod.matmul_bn_act
+    fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+    try:
+        plain = train_steps(build_net(Nesterovs(TRAIN_LR, 0.9)), batch, TRAIN_STEPS)
+    finally:
+        fused_mod.matmul_bn_act = saved
+    if any(c != (36, 36) for c in kernel["launches"]):
+        raise AssertionError(f"training launched (forward, backward) kernels "
+                             f"{kernel['launches']} per step, not (36, 36)")
+    if any(c != (0, 0) for c in plain["launches"]):
+        raise AssertionError("the plain run launched a kernel")
+    if not all(np.isfinite(kernel["losses"] + plain["losses"])):
+        raise AssertionError(f"non-finite loss: {kernel['losses']} vs {plain['losses']}")
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
+    if not loss_errs[0] <= TRAIN_LOSS0_TOL:
+        raise AssertionError(f"step-0 loss {kernel['losses'][0]} vs plain "
+                             f"{plain['losses'][0]}: {loss_errs[0]:.2e} relative")
+    if not max(loss_errs[1:]) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"later losses {kernel['losses']} vs plain {plain['losses']}")
+    errs = update_errs(kernel["update0"], plain["update0"])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    if not worst[0][1] <= TRAIN_UPDATE_TOL:
+        raise AssertionError(f"step-0 updates differ from the plain run's: {worst[:5]}")
+    step_s = float(np.mean(kernel["seconds"][1:]))
+    plain_step_s = float(np.mean(plain["seconds"][1:]))
+    result = {"card": card, "batch": BATCH, "lr": TRAIN_LR, "losses": kernel["losses"],
+              "plain_losses": plain["losses"], "loss_rel_errs": loss_errs,
+              "launches_per_step": kernel["launches"],
+              "update_rel_err_max": worst[0][1], "update_rel_err_worst": worst[:5],
+              "update_rel_err_median": float(np.median(list(errs.values()))),
+              "step_ms": step_s * 1e3, "plain_step_ms": plain_step_s * 1e3,
+              "images_per_s": BATCH / step_s}
+    log(f"train f32 batch {BATCH} on {card}: losses {kernel['losses']} "
+        f"(plain {plain['losses']}), step-0 loss rel err {loss_errs[0]:.2e}, "
+        f"update rel err max {worst[0][1]:.2e} ({worst[0][0]}), median "
+        f"{result['update_rel_err_median']:.2e}; (forward, backward) launches per step "
+        f"{kernel['launches']}; step {result['step_ms']:.1f} ms "
+        f"({result['images_per_s']:.1f} images/s), plain {result['plain_step_ms']:.1f} ms")
+    return result
+
+
+def headline(card: str) -> dict:
+    """Phase 7: bf16 policy, batch 256 (or the largest power of two that
+    fits), Nesterovs(0.1, 0.9): timed steps after one warm-up step."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Nesterovs
+
+    rng = np.random.default_rng(SEED + 4)
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        batch_size, run = HEADLINE_BATCH, None
+        while run is None:
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                batch = DataSet(torch.from_numpy(rng.normal(size=(batch_size, 224, 224, 3))
+                                                 .astype(np.float32)).cuda(),
+                                torch.eye(1000, device="cuda")[rng.integers(0, 1000,
+                                                                            batch_size)])
+                run = train_steps(build_net(Nesterovs(0.1, 0.9)), batch, 1 + HEADLINE_STEPS)
+            except torch.cuda.OutOfMemoryError:
+                if batch_size == 1:
+                    raise
+            if run is None:   # out of the handler, so the failed step's tensors are gone
+                batch = None
+                torch.cuda.empty_cache()
+                log(f"headline: batch {batch_size} does not fit the card; halving")
+                batch_size //= 2
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    if any(c != (36, 36) for c in run["launches"]):
+        raise AssertionError(f"headline launched {run['launches']} per step, not (36, 36)")
+    if not np.isfinite(run["losses"][0]):
+        raise AssertionError(f"headline step-0 loss {run['losses'][0]}")
+    step_s = float(np.mean(run["seconds"][1:]))
+    result = {"card": card, "policy": "bf16", "batch": batch_size,
+              "batch_is_headline": batch_size == HEADLINE_BATCH, "updater": "nesterovs(0.1, 0.9)",
+              "losses": run["losses"], "step_ms": step_s * 1e3,
+              "images_per_s": batch_size / step_s,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"headline train bf16 batch {batch_size} on {card}: step {result['step_ms']:.1f} ms "
+        f"({result['images_per_s']:.1f} images/s) over {HEADLINE_STEPS} steps after one "
+        f"warm-up, peak memory {result['peak_memory_gib']:.1f} GiB, losses {run['losses']}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -319,6 +621,7 @@ def main() -> int:
 
     card = card_line()
     log(card)
+    log(f"SMs: {torch.cuda.get_device_properties(0).multi_processor_count}")
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -334,29 +637,60 @@ def main() -> int:
         raise AssertionError(f"ResNet-50 makes {len(calls)} matmul_bn_act calls, not 36")
     log(f"kernel check: {len(set(calls))} distinct shapes of the 36 calls at batch {BATCH}, "
         f"{sum(2 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
-    rows = check_kernels(calls)
+    rows = check_kernels(calls, (torch.float32, torch.bfloat16))
 
     serving = serve(net, card)
+    del net
+
+    log(f"backward kernel check: {len(set(calls))} distinct shapes, "
+        f"{sum(4 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
+    bwd_rows = check_bwd_kernels(calls, (torch.float32, torch.bfloat16))
+    training = train_check(card)
+    head = headline(card)
+    # the headline ran both kernels at its own shapes: hold them there too
+    from deeplearning4j_tpu_torch.models import resnet50
+    head_calls = resnet50_calls(resnet50(fused=True, device="cuda"), head["batch"])
+    log(f"kernel checks at the headline's batch {head['batch']}, bf16: "
+        f"{len(set(head_calls))} distinct shapes")
+    head_rows = check_kernels(head_calls, (torch.bfloat16,))
+    head_bwd_rows = check_bwd_kernels(head_calls, (torch.bfloat16,))
+
+    def entry(name, source, replaces, tot, tot16, head16, launches, work):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": tot["bound_by"], "library_ms": tot["library_ms"], "work": work,
+                "bf16_ms": tot16["ms"], "bf16_plain_ms": tot16["plain_ms"],
+                "bf16_bound_ms": tot16["bound_ms"], "bf16_bound_by": tot16["bound_by"],
+                "bf16_library_ms": tot16["library_ms"], "bf16_max_abs_err": tot16["max_abs_err"],
+                "headline_bf16_ms": head16["ms"], "headline_bf16_max_abs_err": head16["max_abs_err"]}
 
     f32, bf16 = per_forward(rows, "float32"), per_forward(rows, "bfloat16")
+    b32, b16 = per_forward(bwd_rows, "float32"), per_forward(bwd_rows, "bfloat16")
+    h16, hb16 = per_forward(head_rows, "bfloat16"), per_forward(head_bwd_rows, "bfloat16")
+    train_launches = [sum(c[i] for c in training["launches_per_step"]) for i in (0, 1)]
+    work = (f"the 36 calls of one ResNet-50 {{}} at batch {BATCH}, f32 (bf16_*: bf16; "
+            f"headline_*: bf16 at batch {head['batch']})")
+    kernels = [
+        entry("matmul_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act.cu",
+              "deeplearning4j_tpu/ops/pallas/conv_bn.py:58", f32, bf16, h16, train_launches[0],
+              work.format("forward")) | {"serve_launches": serving["launches"]},
+        entry("matmul_bn_act_bwd",
+              "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act_bwd.cu",
+              "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],
+              work.format("backward")),
+    ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "shapes": rows, "per_forward": {"float32": f32, "bfloat16": bf16},
-         "serve": serving, "seconds": time.perf_counter() - t_start}, indent=1))
-
-    kernel = {"name": "matmul_bn_act", "route": "cuda",
-              "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act.cu",
-              "replaces": "deeplearning4j_tpu/ops/pallas/conv_bn.py:58",
-              "launches": serving["launches"], "max_abs_err": f32["max_abs_err"],
-              "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-              "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-              "work": f"the 36 calls of one ResNet-50 forward at batch {BATCH}, f32",
-              "bf16_ms": bf16["ms"], "bf16_plain_ms": bf16["plain_ms"],
-              "bf16_bound_ms": bf16["bound_ms"], "bf16_library_ms": bf16["library_ms"],
-              "bf16_max_abs_err": bf16["max_abs_err"]}
+         "bwd_shapes": bwd_rows, "per_backward": {"float32": b32, "bfloat16": b16},
+         "headline_shapes": head_rows, "headline_bwd_shapes": head_bwd_rows,
+         "per_headline_step": {"forward": h16, "backward": hb16},
+         "serve": serving, "train": training, "headline": head, "kernels": kernels,
+         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

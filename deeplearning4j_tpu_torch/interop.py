@@ -6,12 +6,20 @@ in the JAX layouts: NHWC activations, HWIO conv kernels, dense
 ``W [nIn, nOut]``) and fills the port's net with the same values.  The
 port keeps those layouts, so this is a checked copy: every vertex and
 every key must match the port's own, with the same shapes.
+
+``load_jax_opt_state(net, opt_state)`` carries a JAX net's optimizer
+state (``net.opt_state``, the optax state of its updater) into the
+port, so that training continues where the JAX run stopped: the
+``trace`` of ``Nesterovs``, the ``count``/``mu``/``nu`` of ``Adam``.
+The optax state is read by its field names alone (no optax import).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.train.updaters import from_dict
 
 
 def _fill(name: str, ours: dict, theirs: dict) -> dict:
@@ -33,6 +41,37 @@ def _fill(name: str, ours: dict, theirs: dict) -> dict:
     if extra:
         raise KeyError(f"{name}: vertices {sorted(extra)} are not in the port's net")
     return out
+
+
+def _optax_fields(node, out: dict) -> dict:
+    """The fields of every named tuple in an optax state (nested tuples of
+    named tuples, e.g. ``(EmptyState(), (TraceState(trace=...), ...))``)."""
+    if hasattr(node, "_asdict"):
+        out.update(node._asdict())
+    elif isinstance(node, (list, tuple)):
+        for item in node:
+            _optax_fields(item, out)
+    return out
+
+
+def load_jax_opt_state(net, opt_state):
+    """Fill ``net.opt_state`` from a JAX optimizer state; the port's
+    updater (from ``net.conf``) says which fields it needs.  Returns
+    ``net``."""
+    fields = _optax_fields(opt_state, {})
+    ours = from_dict(net.conf.updater).init(net.params_)
+    out = {}
+    for key, tree in ours.items():
+        if key not in fields:
+            raise KeyError(f"opt_state: field {key!r} missing from the JAX state "
+                           f"(it has {sorted(fields)})")
+        if key == "count":
+            out[key] = torch.as_tensor(np.asarray(fields[key]), dtype=tree.dtype,
+                                       device=tree.device).reshape(())
+        else:
+            out[key] = _fill(f"opt_state[{key!r}]", tree, fields[key])
+    net.opt_state = out
+    return net
 
 
 def load_jax_params(net, params: dict, state: dict):

@@ -16,10 +16,10 @@ from deeplearning4j_tpu_torch.nn.layers import (
     GlobalPoolingLayer, OutputLayer, SubsamplingLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.train.updaters import Nesterovs
 
-# The JAX package's default ResNet-50 updater, Nesterovs(0.1, 0.9), in its
-# JSON form: the port carries updaters as JSON until training is ported.
-_NESTEROVS = {"type": "nesterovs", "learning_rate": 0.1, "momentum": 0.9}
+# The JAX package's default ResNet-50 updater, Nesterovs(0.1, 0.9)
+_NESTEROVS = Nesterovs(0.1, 0.9)
 
 
 def _conv_bn(gb, name, n_out, kernel, stride, input_name, activation="identity",
@@ -51,11 +51,13 @@ def _bottleneck(gb, name, in_name, filters, stride, project):
 
 
 def resnet50(seed: int = 123, num_classes: int = 1000, height: int = 224,
-             width: int = 224, channels: int = 3, updater: dict | None = None,
+             width: int = 224, channels: int = 3, updater: Any = None,
              fused: bool | None = None, device: Any = DEFAULT_DEVICE) -> ComputationGraph:
     """ResNet-50 v1 ([3, 4, 6, 3] bottlenecks, NHWC) as a
     ``ComputationGraph`` on ``device`` (the CUDA card by default; raises
-    without one unless ``device="cpu"``).  ``fused=True`` builds each
+    without one unless ``device="cpu"``), trained by ``updater`` (an
+    updater of ``train.updaters`` or its JSON; ``Nesterovs(0.1, 0.9)`` by
+    default) with l2 1e-4.  ``fused=True`` builds each
     block as one :class:`FusedBottleneck` (its 1x1 convs run through the
     ``matmul_bn_act`` kernel), ``False`` as ConvolutionLayer +
     BatchNormalization nodes; ``None`` follows ``config.fused_conv``."""
@@ -63,7 +65,7 @@ def resnet50(seed: int = 123, num_classes: int = 1000, height: int = 224,
         fused = bool(get_config().fused_conv)
     gb = (NeuralNetConfiguration.builder()
           .seed(seed)
-          .updater(updater or dict(_NESTEROVS))
+          .updater(updater or _NESTEROVS)
           .weight_init("relu")
           .l2(1e-4)
           .graph()

@@ -1,6 +1,6 @@
 """Activation registry (port of ``deeplearning4j_tpu/nn/activations.py``).
 
-Only the activations that the serving slice uses are registered so far;
+Only the activations that the ported slices use are registered so far;
 names match case-insensitively, and a callable passes through.
 """
 
@@ -38,3 +38,4 @@ def names() -> list[str]:
 register("identity")(lambda x: x)
 register("relu")(torch.relu)
 register("softmax")(lambda x: torch.softmax(x, dim=-1))
+register("sigmoid")(torch.sigmoid)

@@ -3,7 +3,9 @@
 Network-level defaults (activation, weight init, l1/l2, dropout, ...)
 cascade into layers that leave them unset, and ``.graph()`` opens a
 :class:`~deeplearning4j_tpu_torch.nn.graph.GraphBuilder`.  The updater
-is carried as its JSON dict: the serving slice builds no optimizer.
+is held as its JSON dict (the JAX package's form), which
+:func:`deeplearning4j_tpu_torch.train.updaters.from_dict` turns into an
+updater when training starts.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ class Builder:
         return self
 
     def updater(self, updater) -> "Builder":
-        self._updater = updater
+        """An updater (``train.updaters``) or its JSON dict."""
+        self._updater = updater.to_dict() if hasattr(updater, "to_dict") else updater
         return self
 
     def activation(self, act) -> "Builder":

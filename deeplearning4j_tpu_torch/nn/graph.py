@@ -1,5 +1,6 @@
 """ComputationGraph — the DAG network (port of
-``deeplearning4j_tpu/nn/graph.py``), inference only.
+``deeplearning4j_tpu/nn/graph.py``): inference (``output``) and training
+(``fit``, through :class:`deeplearning4j_tpu_torch.train.Trainer`).
 
 Named vertices (layers or combinator vertices) run in a topological
 order computed once at build.  The configuration's JSON form is the JAX
@@ -201,6 +202,18 @@ class ComputationGraph:
         self._arriving, self._known = conf.types()
         self.params_: Optional[dict] = None
         self.state_: Optional[dict] = None
+        self.opt_state: Optional[dict] = None
+        self.iteration = 0
+        self.epoch = 0
+        self._score = float("nan")
+
+    # Trainer interface: the layer objects and their params, in topo order
+    @property
+    def layers(self) -> list:
+        return [s.obj for s in self._topo if s.kind == "layer"]
+
+    def layer_params(self, params) -> list:
+        return [params[s.name] for s in self._topo if s.kind == "layer"]
 
     # ------------------------------------------------------------- init
     def init(self, seed: Optional[int] = None, device: Any = None) -> "ComputationGraph":
@@ -227,15 +240,24 @@ class ComputationGraph:
         return {v: {k: t.to(self.device) for k, t in d.items()} for v, d in tree.items()}
 
     # ---------------------------------------------------------- forward
-    def _forward(self, params, state, features, *, train: bool = False, mask=None):
-        """features: a tensor (single input) or a list of tensors.
-        Returns (outputs, new_state); outputs is a tensor for a single
-        graph output, else a list."""
+    def _forward(self, params, state, features, *, train: bool = False, mask=None,
+                 labels=None):
+        """features: a tensor (single input) or a list of tensors; labels:
+        a tensor or a list aligned with ``conf.outputs``.  Returns
+        (outputs, new_state, score_array): outputs is a tensor for a single
+        graph output, else a list; score_array is the per-example loss
+        summed over the output layers that have one, None without
+        labels."""
         feats = list(features) if isinstance(features, (list, tuple)) else [features]
         masks = list(mask) if isinstance(mask, (list, tuple)) else [mask] * len(feats)
+        label_list = None
+        if labels is not None:
+            label_list = (list(labels) if isinstance(labels, (list, tuple))
+                          else [labels] * len(self.conf.outputs))
         acts: dict[str, Any] = dict(zip(self.conf.inputs, feats))
         act_masks: dict[str, Any] = dict(zip(self.conf.inputs, masks))
         new_state = {}
+        score_array = None
         for spec in self._topo:
             in_acts = [acts[i] for i in spec.inputs]
             in_mask = next((act_masks.get(i) for i in spec.inputs
@@ -243,15 +265,23 @@ class ComputationGraph:
             if spec.kind == "layer":
                 x = preprocessors.adapt_array(in_acts[0], self._known[spec.inputs[0]],
                                               spec.obj)
-                y, new_state[spec.name] = spec.obj.apply(
-                    params[spec.name], state[spec.name], x, train=train, mask=in_mask)
+                if (label_list is not None and spec.name in self.conf.outputs
+                        and hasattr(spec.obj, "apply_and_score")):
+                    y, new_state[spec.name], scores = spec.obj.apply_and_score(
+                        params[spec.name], state[spec.name], x,
+                        label_list[self.conf.outputs.index(spec.name)],
+                        train=train, mask=in_mask)
+                    score_array = scores if score_array is None else score_array + scores
+                else:
+                    y, new_state[spec.name] = spec.obj.apply(
+                        params[spec.name], state[spec.name], x, train=train, mask=in_mask)
             else:
                 y = spec.obj.apply(in_acts)
                 new_state[spec.name] = state[spec.name]
             acts[spec.name] = y
             act_masks[spec.name] = in_mask
         outs = [acts[name] for name in self.conf.outputs]
-        return (outs[0] if len(outs) == 1 else outs), new_state
+        return (outs[0] if len(outs) == 1 else outs), new_state, score_array
 
     def _as_tensor(self, a):
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
@@ -265,7 +295,18 @@ class ComputationGraph:
             mask = ([self._as_tensor(m) for m in mask] if isinstance(mask, (list, tuple))
                     else self._as_tensor(mask))
         with torch.inference_mode():
-            y, _ = self._forward(self.params_, self.state_,
-                                 feats[0] if len(feats) == 1 else feats,
-                                 train=False, mask=mask)
+            y = self._forward(self.params_, self.state_,
+                              feats[0] if len(feats) == 1 else feats,
+                              train=False, mask=mask)[0]
         return y
+
+    # ---------------------------------------------------------- training
+    def score(self) -> float:
+        """The loss of the last training step (reading it waits for the
+        card)."""
+        return float(self._score)
+
+    def fit(self, iterator, epochs: int = 1) -> "ComputationGraph":
+        from deeplearning4j_tpu_torch.train.trainer import Trainer
+        Trainer(self).fit(iterator, epochs)
+        return self

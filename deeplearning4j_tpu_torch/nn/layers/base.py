@@ -10,8 +10,9 @@ tensors:
 - ``apply(params, state, x, *, train, mask) -> (y, new_state)``.
 
 Field names and JSON type names are the JAX package's, so a config that
-package wrote loads here.  ``updater`` and ``weight_noise`` are carried
-through the JSON untouched: the serving slice does not train.
+package wrote loads here.  ``regularization_penalty`` gives the layer's
+l1/l2 score term for training; ``updater`` (per-layer updaters) and
+``weight_noise`` are carried through the JSON but not ported.
 """
 
 from __future__ import annotations
@@ -109,8 +110,24 @@ class Layer:
         value = self.bias_init if self.bias_init is not None else 0.0
         return torch.full(tuple(shape), float(value), dtype=self._param_dtype())
 
-    def _inference_only(self, train: bool) -> None:
-        if train:
+    def regularization_penalty(self, params: dict) -> torch.Tensor:
+        """L1/L2 penalty for this layer's params (DL4J applies l2*w to the
+        gradient, i.e. a 0.5*l2*||w||^2 score term); biases (``b``,
+        ``*_b``, ``*bias*``) use the ``*_bias`` coefficients, every other
+        param (BN gamma/beta included) ``l1``/``l2``."""
+        penalty = torch.zeros((), dtype=torch.float32,
+                              device=next(iter(params.values())).device)
+        for pname, arr in params.items():
+            is_bias = pname == "b" or pname.endswith("_b") or "bias" in pname
+            l1 = (self.l1_bias if is_bias else self.l1) or 0.0
+            l2 = (self.l2_bias if is_bias else self.l2) or 0.0
+            if l1:
+                penalty = penalty + l1 * arr.abs().sum()
+            if l2:
+                penalty = penalty + 0.5 * l2 * (arr * arr).sum()
+        return penalty
+
+    def _no_dropout(self, train: bool) -> None:
+        if train and self.dropout is not None and self.dropout < 1.0:
             raise NotImplementedError(
-                f"{type(self).__name__}: the PyTorch port runs inference "
-                f"only so far (train=True is not ported)")
+                f"{type(self).__name__}: dropout is not ported yet")

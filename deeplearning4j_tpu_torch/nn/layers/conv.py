@@ -1,7 +1,9 @@
 """Convolutional, pooling and spatial layers (port of
 ``deeplearning4j_tpu/nn/layers/conv.py``): ``ConvolutionLayer``
 ("truncate" and "same"), ``SubsamplingLayer`` (max), ``ZeroPaddingLayer``
-and ``GlobalPoolingLayer`` (avg).
+and ``GlobalPoolingLayer`` (avg), in eval and train mode (autograd,
+through cuDNN on the card, gives their backward; the JAX package leaves
+these to XLA too).
 
 Activations stay NHWC and conv weights HWIO, as in the JAX package.  At
 the torch op the NHWC tensor is viewed as NCHW with ``permute`` (a
@@ -87,7 +89,7 @@ class ConvolutionLayer(Layer):
         return params
 
     def apply(self, params, state, x, *, train=False, mask=None):
-        self._inference_only(train)
+        self._no_dropout(train)
         (kh, kw), stride, pad, dilation = self._dims()
         cdt = dtype_policy().compute_dtype
         x = x.to(cdt)

@@ -1,11 +1,13 @@
-"""Core feed-forward layers, inference only (port of
+"""Core feed-forward layers (port of
 ``deeplearning4j_tpu/nn/layers/core.py``): ``DenseLayer``,
-``OutputLayer``, ``ActivationLayer`` and ``BatchNormalization`` (which
-the JAX package also keeps in its ``core.py``).
+``OutputLayer`` (with its loss, ``compute_score_array``),
+``ActivationLayer`` and ``BatchNormalization`` (which the JAX package
+also keeps in its ``core.py``), in eval and train mode.
 
 Dense weights keep the JAX layout ``W [nIn, nOut]``; the product is
-``x @ W + b`` in the policy's compute dtype.  The int8 ``W_q`` branch
-of the JAX ``DenseLayer`` is not ported yet.
+``x @ W + b`` in the policy's compute dtype.  Not ported yet: the int8
+``W_q`` branch of the JAX ``DenseLayer`` and dropout (a training pass
+with ``dropout`` set raises).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any
 import torch
 
 from deeplearning4j_tpu_torch.config import dtype_policy
-from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
@@ -41,7 +43,8 @@ class DenseLayer(Layer):
             params["b"] = self._init_bias((self.n_out,))
         return params
 
-    def pre_output(self, params, state, x):
+    def pre_output(self, params, state, x, *, train=False):
+        self._no_dropout(train)
         policy = dtype_policy()
         n_in = params["W"].shape[0]
         if x.ndim > 2 and x.shape[-1] != n_in:
@@ -53,16 +56,16 @@ class DenseLayer(Layer):
         return y.to(policy.output_dtype)
 
     def apply(self, params, state, x, *, train=False, mask=None):
-        self._inference_only(train)
-        z = self.pre_output(params, state, x)
+        z = self.pre_output(params, state, x, train=train)
         return activations.get(self.activation or "identity")(z), state
 
 
 @register_layer("output")
 @dataclasses.dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head; ``apply`` returns the activated output.  The
-    loss name is kept for the config and used by no inference path."""
+    """Dense + loss head; ``apply`` returns the activated output,
+    ``compute_score_array`` pairs the pre-activation with the loss, and
+    ``apply_and_score`` (a training forward) does both from one product."""
 
     loss: Any = "mcxent"
 
@@ -72,6 +75,23 @@ class OutputLayer(DenseLayer):
                 "OutputLayer cannot follow a recurrent layer — use "
                 "RnnOutputLayer for per-timestep output")
         return InputType.feed_forward(self.n_out)
+
+    def compute_score_array(self, params, state, x, labels, *, train=False, mask=None):
+        """Per-example loss."""
+        return self._score(self.pre_output(params, state, x, train=train), labels, mask)
+
+    def apply_and_score(self, params, state, x, labels, *, train=False, mask=None):
+        """``apply`` and ``compute_score_array`` from one pre-activation:
+        ``(output, state, per-example loss)``."""
+        z = self.pre_output(params, state, x, train=train)
+        y = activations.get(self.activation or "identity")(z)
+        return y, state, self._score(z, labels, mask)
+
+    def _score(self, z, labels, mask):
+        """The loss math (softmax, log) runs in at least f32, so a bf16
+        output policy keeps the score path exact."""
+        z = z.to(torch.promote_types(z.dtype, torch.float32))
+        return losses.get(self.loss)(labels, z, self.activation or "identity", mask)
 
 
 @register_layer("activation")
@@ -89,9 +109,11 @@ class ActivationLayer(Layer):
 @register_layer("batch_norm")
 @dataclasses.dataclass
 class BatchNormalization(Layer):
-    """Batch normalization over the channel (last) axis, eval mode: the
-    running mean/var fold into a per-channel scale/shift in f32, applied
-    in x's own dtype."""
+    """Batch normalization over the channel (last) axis.  Train mode uses
+    the batch's mean and biased variance (in at least f32) and returns the
+    running statistics moved by ``decay`` (detached, values only); eval
+    mode uses the running statistics.  Mean/var fold into a per-channel
+    scale/shift in f32, applied in x's own dtype."""
 
     decay: float = 0.9
     eps: float = 1e-5
@@ -116,9 +138,17 @@ class BatchNormalization(Layer):
         return {"mean": torch.zeros(n, dtype=dt), "var": torch.ones(n, dtype=dt)}
 
     def apply(self, params, state, x, *, train=False, mask=None):
-        self._inference_only(train)
-        scale = torch.rsqrt(state["var"].float() + self.eps)
-        shift = -state["mean"].float() * scale
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = x32.mean(dim=axes)
+            var = x32.var(dim=axes, unbiased=False)
+            state = {"mean": (self.decay * state["mean"] + (1.0 - self.decay) * mean).detach(),
+                     "var": (self.decay * state["var"] + (1.0 - self.decay) * var).detach()}
+        else:
+            mean, var = state["mean"].float(), state["var"].float()
+        scale = torch.rsqrt(var + self.eps)
+        shift = -mean * scale
         if params:
             gamma = params["gamma"].float()
             scale = scale * gamma

@@ -1,4 +1,4 @@
-"""Fused ResNet v1 bottleneck, eval mode (port of
+"""Fused ResNet v1 bottleneck (port of
 ``deeplearning4j_tpu/nn/layers/fused.py``).
 
 1x1 reduce → 3x3 → 1x1 expand (+ optional 1x1 projection shortcut) as one
@@ -10,9 +10,12 @@ layer, so that the three (or four) 1x1 convs run through
 
 A stride lands as the strided slice ``x[:, ::sh, ::sw, :]`` before the
 1x1 reduce, as in the JAX layer; the 3x3 is a plain ``conv2d`` at
-stride 1.  Only the eval branch is ported: BN uses the running
-mean/var held in the layer state, and the statistics the kernel emits
-are left unused until the training slice.  Param and state keys are the
+stride 1.  In train mode each BN uses its batch statistics: the 1x1
+convs' come from the kernel's s1/s2 epilogue (so gradients flow back
+through them into the kernel's backward), the 3x3's from one reduction
+of its output; the variance is the one-pass E[y^2] - E[y]^2 clamped at
+0, and the running mean/var move by ``decay`` (returned detached).  In
+eval mode BN uses the running statistics.  Param and state keys are the
 JAX layer's (``W_a``, ``gamma_a``, ``mean_a``, ...).
 """
 
@@ -78,8 +81,21 @@ class FusedBottleneck(Layer):
             state[f"var_{name}"] = torch.ones(shape[-1], dtype=dt)
         return state
 
+    def _stats(self, name, s1, s2, m, state, new_state, train):
+        """Batch (train) or running (eval) mean/var; train also moves the
+        running statistics in ``new_state``."""
+        if not train:
+            return state[f"mean_{name}"], state[f"var_{name}"]
+        mean = s1 / m
+        # one-pass E[y^2] - E[y]^2 can go slightly negative from f32
+        # cancellation on a near-constant channel; clamp before the rsqrt
+        var = torch.clamp_min(s2 / m - mean * mean, 0.0)
+        for stat, batch in (("mean", mean), ("var", var)):
+            key = f"{stat}_{name}"
+            new_state[key] = (self.decay * state[key] + (1.0 - self.decay) * batch).detach()
+        return mean, var
+
     def apply(self, params, state, x, *, train=False, mask=None):
-        self._inference_only(train)
         policy = dtype_policy()
         cdt = policy.compute_dtype
         sdt = torch.float64 if cdt == torch.float64 else torch.float32
@@ -93,31 +109,38 @@ class FusedBottleneck(Layer):
         def W(name):
             return params[f"W_{name}"].to(cdt).contiguous()
 
-        def bn_fold(name):
-            return _fold(state[f"mean_{name}"].to(sdt), state[f"var_{name}"].to(sdt),
-                         params[f"gamma_{name}"].to(sdt), params[f"beta_{name}"].to(sdt),
-                         self.eps)
+        new_state = dict(state)
+
+        def bn_fold(name, s1, s2):
+            mean, var = self._stats(name, s1, s2, m, state, new_state, train)
+            return _fold(mean.to(sdt), var.to(sdt), params[f"gamma_{name}"].to(sdt),
+                         params[f"beta_{name}"].to(sdt), self.eps)
 
         # ---- 1x1 reduce; its BN+ReLU is one pass ahead of the 3x3 conv
-        y1, _, _ = matmul_bn_act(x2d, W("a"))
-        a1, b1 = bn_fold("a")
+        y1, s1a, s2a = matmul_bn_act(x2d, W("a"))
+        a1, b1 = bn_fold("a", s1a, s2a)
         z1 = torch.relu(y1 * a1.to(cdt) + b1.to(cdt)).reshape(n, hb, wb, f1)
 
-        # ---- 3x3, stride 1, SAME (symmetric for an odd kernel)
+        # ---- 3x3, stride 1, SAME (symmetric for an odd kernel); its
+        # batch statistics are one reduction of its output in the stats dtype
         y2 = F.conv2d(z1.permute(0, 3, 1, 2), W("b3").permute(3, 2, 0, 1), padding=1)
         y2 = y2.permute(0, 2, 3, 1).reshape(m, f2).contiguous()
-        a2, b2 = bn_fold("b3")
+        s1b = s2b = None
+        if train:
+            y2f = y2.to(sdt)
+            s1b, s2b = y2f.sum(0), (y2f * y2f).sum(0)
+        a2, b2 = bn_fold("b3", s1b, s2b)
 
         # ---- 1x1 expand: the 3x3's BN+ReLU rides the kernel prologue
-        y3, _, _ = matmul_bn_act(y2, W("c"), a2, b2, relu_in=True)
-        a3, b3 = bn_fold("c")
+        y3, s1c, s2c = matmul_bn_act(y2, W("c"), a2, b2, relu_in=True)
+        a3, b3 = bn_fold("c", s1c, s2c)
 
         # ---- shortcut, then expand/proj BN + residual add + ReLU
         if self.project:
-            yp, _, _ = matmul_bn_act(x2d, W("proj"))
-            ap, bp = bn_fold("proj")
+            yp, s1p, s2p = matmul_bn_act(x2d, W("proj"))
+            ap, bp = bn_fold("proj", s1p, s2p)
             sc = yp * ap.to(cdt) + bp.to(cdt)
         else:
             sc = x2d
         out = torch.relu(y3 * a3.to(cdt) + b3.to(cdt) + sc)
-        return out.reshape(n, hb, wb, f3).to(policy.output_dtype), state
+        return out.reshape(n, hb, wb, f3).to(policy.output_dtype), new_state

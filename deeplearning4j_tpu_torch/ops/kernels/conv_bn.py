@@ -1,34 +1,47 @@
-"""Fused 1x1-conv + BatchNorm forward (port of
-``deeplearning4j_tpu/ops/pallas/conv_bn.py::matmul_bn_act``, forward
-only).
+"""Fused 1x1-conv + BatchNorm, forward and merged backward (port of
+``deeplearning4j_tpu/ops/pallas/conv_bn.py::matmul_bn_act``).
 
 ``matmul_bn_act(x, w, a, b, relu_in=...)`` computes::
 
     y  = act(x * a + b) @ w        x [M, K], w [K, N], a/b [K] f32 or None
     s1 = sum_m y,  s2 = sum_m y*y  [N] f32, over the M rows
 
-with y in x's dtype.  On a CUDA tensor in f32 or bf16 it launches the
-hand-written Hopper kernel ``csrc/matmul_bn_act.cu`` (whose header says
-what bounds it and how it is built), or raises.  On a CPU tensor, and
-for f64 (the JAX function's exact branch), it runs
-:func:`matmul_bn_act_plain`, the same arithmetic in plain PyTorch.
+with y in x's dtype, and is differentiable through all three outputs
+(the BN-training chain feeds the batch statistics from s1/s2).  It is a
+``torch.autograd.Function``: on a CUDA tensor in f32 or bf16 its forward
+launches the hand-written Hopper kernel ``csrc/matmul_bn_act.cu`` and its
+backward ``csrc/matmul_bn_act_bwd.cu`` (whose headers say what bounds
+them and how they are built), or raises.  On a CPU tensor the same
+Function runs :func:`matmul_bn_act_plain` and
+:func:`matmul_bn_act_bwd_plain`, the same arithmetic in plain PyTorch.
+f64 (the JAX function's exact branch) is plain autograd through
+:func:`matmul_bn_act_plain`.
 
-``launches`` counts kernel launches; nothing else changes it.
+``launches`` and ``bwd_launches`` count kernel launches of the forward
+and the backward; nothing else changes them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from deeplearning4j_tpu_torch.ops.kernels import _build
 
 launches = 0
+bwd_launches = 0
+
+DW_SPLIT_STEP = 32   # a dW split's rows are a multiple of the bf16 kernel's M step
 
 _KERNEL_DTYPES = {torch.float32: "matmul_bn_act_f32", torch.bfloat16: "matmul_bn_act_bf16"}
+_BWD_KERNEL_DTYPES = {torch.float32: "matmul_bn_act_bwd_f32",
+                      torch.bfloat16: "matmul_bn_act_bwd_bf16"}
 _C_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_C_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _bound = None
+_bwd_bound = None
 
 
 def matmul_bn_act_plain(x, w, a=None, b=None, *, relu_in: bool = True):
@@ -47,22 +60,78 @@ def matmul_bn_act_plain(x, w, a=None, b=None, *, relu_in: bool = True):
     return y.to(x.dtype), y.sum(0), (y * y).sum(0)
 
 
+def matmul_bn_act_bwd_plain(x, w, a, b, y, dy, ds1, ds2, *, relu_in: bool = True):
+    """Plain PyTorch version of the merged backward; returns
+    ``(dx, dw, da, db)`` (da/db None without a prologue).  Each rounding
+    is the JAX kernel's: ``dyt = dy + ds1 + 2*y*ds2`` in f32 rounded to
+    dy's dtype, xhat rounded to x's dtype, dx to x's dtype, and dW summed
+    in f32 and then rounded to w's dtype."""
+    acc = torch.float32
+    dyt = (dy.to(acc) + ds1 + 2.0 * y.to(acc) * ds2).to(dy.dtype)
+    dxhat = torch.matmul(dyt.to(acc), w.to(acc).t())
+    da = db = None
+    if a is not None:
+        xf = x.to(acc)
+        pre = xf * a + b
+        xh = (torch.relu(pre) if relu_in else pre).to(x.dtype)
+        dpre = torch.where(pre > 0, dxhat, 0.0) if relu_in else dxhat
+        dx = (dpre * a).to(x.dtype)
+        da, db = (dpre * xf).sum(0), dpre.sum(0)
+    else:
+        xh, dx = x, dxhat.to(x.dtype)
+    dw = torch.matmul(xh.to(acc).t(), dyt.to(acc)).to(w.dtype)
+    return dx, dw, da, db
+
+
+class _MatmulBnAct(torch.autograd.Function):
+    """The kernel pair (CPU tensors: the plain pair) as one differentiable
+    op; saves the JAX function's residuals ``x, w, a, b, y``."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, relu_in):
+        if x.device.type == "cpu":
+            y, s1, s2 = matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
+        else:
+            _check(x, w, a, b)
+            with torch.cuda.device(x.device):
+                y, s1, s2 = _launch(_lib(), x, w, a, b, relu_in,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+        ctx.save_for_backward(x, w, a, b, y)
+        ctx.relu_in = relu_in
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        x, w, a, b, y = ctx.saved_tensors
+        dx, dw, da, db = matmul_bn_act_bwd(x, w, a, b, y, dy, ds1, ds2, relu_in=ctx.relu_in)
+        return dx, dw, da, db, None
+
+
 def matmul_bn_act(x, w, a=None, b=None, *, relu_in: bool = True):
     """Fused ``y = act(x*a + b) @ w`` with the BN-statistics epilogue;
     returns ``(y, s1, s2)``.  ``a``/``b`` None skips the prologue."""
     if (a is None) != (b is None):
         raise ValueError("matmul_bn_act: pass both a and b, or neither")
-    if x.device.type == "cpu" or x.dtype == torch.float64:
+    if x.dtype == torch.float64:
         return matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
-    _check(x, w, a, b)
+    return _MatmulBnAct.apply(x, w, a, b, relu_in)
+
+
+def matmul_bn_act_bwd(x, w, a, b, y, dy, ds1, ds2, *, relu_in: bool = True):
+    """The merged backward, ``(dx, dw, da, db)``: the CUDA kernel for a
+    CUDA tensor (it raises on what the kernel does not take), the plain
+    version for a CPU tensor.  Cotangents may be strided or expanded."""
+    if x.device.type == "cpu":
+        return matmul_bn_act_bwd_plain(x, w, a, b, y, dy, ds1, ds2, relu_in=relu_in)
+    dy, ds1, ds2 = dy.contiguous(), ds1.contiguous(), ds2.contiguous()
+    _check_bwd(x, w, a, b, y, dy, ds1, ds2)
     with torch.cuda.device(x.device):
-        return _launch(_lib(), x, w, a, b, relu_in,
-                       torch.cuda.current_stream(x.device).cuda_stream)
+        return _launch_bwd(_bwd_lib(), x, w, a, b, y, dy, ds1, ds2, relu_in,
+                           torch.cuda.current_stream(x.device).cuda_stream,
+                           _sm_count(x.device.index))
 
 
 def _check(x, w, a, b) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_bn_act: unsupported device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"matmul_bn_act: kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
@@ -85,6 +154,48 @@ def _check(x, w, a, b) -> None:
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (k,)
                               or t.device != x.device):
             raise ValueError(f"matmul_bn_act: {name} must be float32 [{k}] on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_bn_act: unsupported device {x.device}")
+
+
+def _check_bwd(x, w, a, b, y, dy, ds1, ds2) -> None:
+    """What the backward kernel takes, on top of the forward's checks:
+    y and dy [M, N] in x's dtype, ds1/ds2 float32 [N], all on x's card,
+    contiguous and 16-byte aligned."""
+    m, n = x.shape[0], w.shape[-1]
+    for name, t in (("y", y), ("dy", dy)):
+        if t.dtype != x.dtype or tuple(t.shape) != (m, n) or t.device != x.device:
+            raise ValueError(f"matmul_bn_act backward: {name} must be {x.dtype} [{m}, {n}] "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in (("ds1", ds1), ("ds2", ds2)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != x.device:
+            raise ValueError(f"matmul_bn_act backward: {name} must be float32 [{n}] "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in (("y", y), ("dy", dy), ("ds1", ds1), ("ds2", ds2)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"matmul_bn_act backward: {name} must be contiguous "
+                             f"and 16-byte aligned")
+    _check(x, w, a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index``: what the dW split fills."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dw_splits(m: int, k: int, n: int, tile: int, sms: int) -> tuple[int, int]:
+    """(splits, rows per split) of M for the dW kernel: enough splits for
+    about two blocks per SM (``sms`` of them) over the
+    ``ceil(K/tile) * ceil(N/tile)`` output tiles, each split a multiple of
+    ``DW_SPLIT_STEP`` rows."""
+    want = _cdiv(2 * sms, _cdiv(k, tile) * _cdiv(n, tile))
+    chunk = _cdiv(_cdiv(m, want), DW_SPLIT_STEP) * DW_SPLIT_STEP
+    return _cdiv(m, chunk), chunk
+
+
+def _cdiv(p: int, q: int) -> int:
+    return -(-p // q)
 
 
 def _lib():
@@ -97,6 +208,19 @@ def _lib():
         lib.matmul_bn_act_tile_m.argtypes, lib.matmul_bn_act_tile_m.restype = [], ctypes.c_int
         _bound = lib
     return _bound
+
+
+def _bwd_lib():
+    global _bwd_bound
+    if _bwd_bound is None:
+        lib = _build.load("matmul_bn_act_bwd")
+        for fname in _BWD_KERNEL_DTYPES.values():
+            fn = getattr(lib, fname)
+            fn.argtypes, fn.restype = _BWD_C_ARGS, ctypes.c_int
+        lib.matmul_bn_act_bwd_tile.argtypes = []
+        lib.matmul_bn_act_bwd_tile.restype = ctypes.c_int
+        _bwd_bound = lib
+    return _bwd_bound
 
 
 def _ptr(t):
@@ -121,3 +245,36 @@ def _launch(lib, x, w, a, b, relu_in, stream):
         raise RuntimeError(f"matmul_bn_act: kernel launch failed, cudaGetLastError() = {rc}")
     launches += 1
     return y, stats[0], stats[1]
+
+
+def _launch_bwd(lib, x, w, a, b, y, dy, ds1, ds2, relu_in, stream, sms):
+    """Allocate dx, dW, da, db and the partial-sum scratch, launch on a
+    card with ``sms`` SMs, check the launch; returns ``(dx, dw, da, db)``
+    (da/db None without a)."""
+    global bwd_launches
+    m, k = x.shape
+    n = w.shape[1]
+    tile = lib.matmul_bn_act_bwd_tile()
+    tiles_m = -(-m // tile)
+    if tiles_m > 65535:
+        raise ValueError(f"matmul_bn_act backward: M={m} is past the kernel's grid")
+    splits, chunk = dw_splits(m, k, n, tile, sms)
+    dev = x.device
+    dx = torch.empty((m, k), dtype=x.dtype, device=dev)
+    dw = torch.empty((k, n), dtype=w.dtype, device=dev)
+    part_dw = torch.empty((splits, k, n), dtype=torch.float32, device=dev)
+    da = db = part = None
+    if a is not None:
+        da = torch.empty(k, dtype=torch.float32, device=dev)
+        db = torch.empty(k, dtype=torch.float32, device=dev)
+        part = torch.empty((2, tiles_m, k), dtype=torch.float32, device=dev)
+    rc = getattr(lib, _BWD_KERNEL_DTYPES[x.dtype])(
+        _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), _ptr(dy), _ptr(ds1), _ptr(ds2),
+        _ptr(dx), _ptr(dw), _ptr(da), _ptr(db),
+        None if part is None else _ptr(part[0]), None if part is None else _ptr(part[1]),
+        _ptr(part_dw), m, n, k, splits, chunk, int(a is not None), int(relu_in), stream)
+    if rc != 0:
+        raise RuntimeError(f"matmul_bn_act backward: kernel launch failed, "
+                           f"cudaGetLastError() = {rc}")
+    bwd_launches += 1
+    return dx, dw, da, db

@@ -297,8 +297,8 @@ class InferenceEngine:
         x = torch.as_tensor(features, device=self.device)
         m = None if mask is None else torch.as_tensor(mask, device=self.device)
         with torch.inference_mode():
-            y, _ = self.model._forward(self.model.params_, self.model.state_, x,
-                                       train=False, mask=m)
+            y = self.model._forward(self.model.params_, self.model.state_, x,
+                                    train=False, mask=m)[0]
         if y.dtype == torch.bfloat16:
             y = y.float()
         return y.cpu().numpy()

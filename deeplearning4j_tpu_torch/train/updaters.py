@@ -1,0 +1,157 @@
+"""Updaters (port of ``deeplearning4j_tpu/train/updaters.py``).
+
+Each updater is a dataclass with the JAX package's field names and JSON
+type name, and two plain tensor functions over a param tree (vertex ->
+name -> tensor):
+
+- ``init(params) -> state``: a dict of trees (and counters);
+- ``update(grads, state) -> (updates, new_state)``: the step to add to
+  each param, with optax's arithmetic (the JAX package's updaters are
+  optax transforms), so that a state carried across from the JAX package
+  continues its run.
+
+Not ``torch.optim``: its SGD applies Nesterov momentum in another form.
+Ported: ``Sgd``, ``Nesterovs``, ``Adam`` (f32 moments) and ``NoOp``, and
+the ``"none"`` gradient normalization.  The other updaters, the other
+normalizations and learning-rate schedules are not ported yet; their
+JSON raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+_REGISTRY: dict[str, type] = {}
+
+
+def register(name: str):
+    def deco(cls):
+        cls.TYPE_NAME = name
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def tree_map(fn: Callable, *trees: dict) -> dict:
+    """``fn`` over the leaves of param-shaped trees (vertex -> name -> tensor)."""
+    return {v: {k: fn(*(t[v][k] for t in trees)) for k in d} for v, d in trees[0].items()}
+
+
+def to_dict(updater) -> dict:
+    d = {"type": updater.TYPE_NAME}
+    for f in dataclasses.fields(updater):
+        d[f.name] = getattr(updater, f.name)
+    return d
+
+
+def from_dict(d: dict):
+    """The updater of a JSON dict the JAX package (or the port) wrote."""
+    d = dict(d)
+    type_name = d.pop("type")
+    cls = _REGISTRY.get(type_name)
+    if cls is None:
+        raise NotImplementedError(f"updater {type_name!r} is not ported yet; "
+                                  f"ported: {sorted(_REGISTRY)}")
+    known = {f.name for f in dataclasses.fields(cls)}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            raise NotImplementedError(f"updater {type_name!r}: {k} is a schedule, "
+                                      f"and schedules are not ported yet")
+    return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def gradient_normalization(kind: Optional[str]) -> Callable[[dict], dict]:
+    """The pre-updater normalization of the gradient tree; only
+    ``None``/``"none"`` (identity) is ported."""
+    if kind is None or str(kind).lower() == "none":
+        return lambda grads: grads
+    raise NotImplementedError(f"gradient normalization {kind!r} is not ported yet")
+
+
+class _UpdaterBase:
+    TYPE_NAME = "base"
+
+    def to_dict(self) -> dict:
+        return to_dict(self)
+
+
+@register("sgd")
+@dataclasses.dataclass
+class Sgd(_UpdaterBase):
+    """u = -lr * g (optax.sgd without momentum)."""
+
+    learning_rate: Any = 0.1
+
+    def init(self, params: dict) -> dict:
+        return {}
+
+    def update(self, grads: dict, state: dict):
+        return tree_map(lambda g: -self.learning_rate * g, grads), state
+
+
+@register("nesterovs")
+@dataclasses.dataclass
+class Nesterovs(_UpdaterBase):
+    """SGD with Nesterov momentum, as ``optax.sgd(lr, momentum,
+    nesterov=True)``: t = g + mu*t, u = -lr * (g + mu*t), t from zero."""
+
+    learning_rate: Any = 0.1
+    momentum: float = 0.9
+
+    def init(self, params: dict) -> dict:
+        return {"trace": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads: dict, state: dict):
+        mu, lr = self.momentum, self.learning_rate
+        trace = tree_map(lambda g, t: g + mu * t, grads, state["trace"])
+        updates = tree_map(lambda g, t: -lr * (g + mu * t), grads, trace)
+        return updates, {"trace": trace}
+
+
+@register("adam")
+@dataclasses.dataclass
+class Adam(_UpdaterBase):
+    """``optax.adam``: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
+    count += 1, u = -lr * mu_hat / (sqrt(nu_hat) + eps) with the bias
+    corrections 1 - b^count.  ``mu_dtype`` (a bf16 first moment) is not
+    ported."""
+
+    learning_rate: Any = 0.001
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+    mu_dtype: Any = None
+
+    def init(self, params: dict) -> dict:
+        if self.mu_dtype is not None:
+            raise NotImplementedError("Adam(mu_dtype=...) is not ported yet")
+        leaf = next(t for d in params.values() for t in d.values())
+        return {"count": torch.zeros((), dtype=torch.int32, device=leaf.device),
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads: dict, state: dict):
+        b1, b2, lr, eps = self.beta1, self.beta2, self.learning_rate, self.epsilon
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
+        count = state["count"] + 1
+        steps = count.to(torch.float32)
+        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=steps.device), steps)
+        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=steps.device), steps)
+        updates = tree_map(lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)), mu, nu)
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+@register("noop")
+@dataclasses.dataclass
+class NoOp(_UpdaterBase):
+    """No update (optax.set_to_zero)."""
+
+    def init(self, params: dict) -> dict:
+        return {}
+
+    def update(self, grads: dict, state: dict):
+        return tree_map(torch.zeros_like, grads), state

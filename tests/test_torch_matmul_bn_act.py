@@ -3,7 +3,10 @@
 The same numpy inputs, made from a seed, go through the JAX function (its
 Pallas kernel in interpret mode on the CPU) and through the port's plain
 PyTorch version.  Bands are the JAX kernel test's own: y at 1e-5, the
-per-column statistics at 1e-3, a whole bottleneck at 2e-4.
+per-column statistics at 1e-3, a whole bottleneck at 2e-4.  In train
+mode a bottleneck's output and running statistics are held at 1e-5 and
+the gradients of sum(out^2) at 1e-4 relative to each gradient's largest
+entry: both sides compute in f32, in other summation orders.
 """
 
 import jax.numpy as jnp
@@ -124,9 +127,8 @@ def test_fused_bottleneck_eval_matches_jax(project, stride):
                           torch.from_numpy(x), train=False)
     assert tuple(yt.shape) == tuple(yj.shape)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=2e-4, atol=2e-4)
-    with pytest.raises(NotImplementedError):
-        tlayer.apply({k: torch.from_numpy(v) for k, v in params.items()}, st,
-                     torch.from_numpy(x), train=True)
+    for k, v in st.items():   # eval leaves the running statistics as they were
+        np.testing.assert_array_equal(v.numpy(), state[k])
 
 
 def test_fused_bottleneck_bf16_policy_matches_jax():
@@ -159,3 +161,101 @@ def test_fused_bottleneck_bf16_policy_matches_jax():
     assert yt.dtype == torch.bfloat16 and yj.dtype == jnp.bfloat16
     np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("project,stride,cin", [(True, (1, 1), 16), (True, (2, 2), 32),
+                                                (False, (1, 1), 32)])
+def test_fused_bottleneck_train_matches_jax(project, stride, cin):
+    """Batch statistics from the kernel's s1/s2 (and the 3x3's reduction),
+    the running-statistics update, and gradients through the statistics
+    into the merged backward."""
+    import jax
+    rng = np.random.default_rng(30 + cin + stride[0] + project)
+    filters = (8, 8, 32)
+    itype = JInputType.convolutional(8, 8, cin)
+    jlayer = JFusedBottleneck(filters=filters, stride=stride, project=project)
+    params, state = _random_block_state(jlayer.init_params(jax.random.key(2), itype),
+                                        jlayer.init_state(itype), rng)
+    x = rng.normal(size=(4, 8, 8, cin)).astype(np.float32)
+    jstate = {k: jnp.asarray(v) for k, v in state.items()}
+
+    def jloss(p):
+        out, new_state = jlayer.apply(p, jstate, jnp.asarray(x), train=True)
+        return jnp.sum(out ** 2), (out, new_state)
+
+    jgrads, (yj, sj) = jax.grad(jloss, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in params.items()})
+
+    tlayer = FusedBottleneck(filters=filters, stride=stride, project=project)
+    tparams = {k: torch.from_numpy(v).requires_grad_(True) for k, v in params.items()}
+    tstate = {k: torch.from_numpy(v) for k, v in state.items()}
+    yt, st = tlayer.apply(tparams, tstate, torch.from_numpy(x), train=True)
+    tgrads = torch.autograd.grad((yt ** 2).sum(), list(tparams.values()))
+
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), rtol=1e-5, atol=1e-5)
+    assert set(st) == set(sj)
+    for k in st:
+        assert not st[k].requires_grad
+        np.testing.assert_allclose(st[k].numpy(), np.asarray(sj[k]), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+        assert not np.allclose(st[k].numpy(), state[k])   # the running stats moved
+    for k, g in zip(tparams, tgrads):
+        e = np.asarray(jgrads[k])
+        np.testing.assert_allclose(g.numpy(), e, rtol=0, atol=1e-4 * np.abs(e).max(),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("project,stride,cin", [(True, (1, 1), 16), (True, (2, 2), 32),
+                                                (False, (1, 1), 32)])
+def test_fused_bottleneck_train_bf16_matches_jax(project, stride, cin):
+    """The train branch under both packages' bf16 policy: one block, so
+    its bf16 roundings do not compound as they do over a whole net.
+    Bands: the output at 1e-2 of its largest entry (reads 0), the running
+    statistics at 1e-5 of theirs (f32 sums of the same products; reads
+    9e-8), and each param's gradient of sum(out^2) within 0.15 of its
+    norm (reads at most 8.3%, beta_b3; the reference's own bf16 gradients
+    lie up to 17% from the f64 ones)."""
+    import jax
+    from deeplearning4j_tpu import config as jconfig
+    from deeplearning4j_tpu_torch import config as tconfig
+
+    rng = np.random.default_rng(30 + cin + stride[0] + project)
+    filters = (8, 8, 32)
+    itype = JInputType.convolutional(8, 8, cin)
+    jlayer = JFusedBottleneck(filters=filters, stride=stride, project=project)
+    params, state = _random_block_state(jlayer.init_params(jax.random.key(2), itype),
+                                        jlayer.init_state(itype), rng)
+    x = rng.normal(size=(4, 8, 8, cin)).astype(np.float32)
+    jstate = {k: jnp.asarray(v) for k, v in state.items()}
+
+    def jloss(p):
+        out, new_state = jlayer.apply(p, jstate, jnp.asarray(x), train=True)
+        return jnp.sum(out.astype(jnp.float32) ** 2), (out, new_state)
+
+    jconfig.set_dtype_policy(jconfig.DTypePolicy.bf16())
+    tconfig.set_dtype_policy(tconfig.DTypePolicy.bf16())
+    try:
+        jgrads, (yj, sj) = jax.grad(jloss, has_aux=True)(
+            {k: jnp.asarray(v) for k, v in params.items()})
+        tlayer = FusedBottleneck(filters=filters, stride=stride, project=project)
+        tparams = {k: torch.from_numpy(v).requires_grad_(True) for k, v in params.items()}
+        yt, st = tlayer.apply(tparams, {k: torch.from_numpy(v) for k, v in state.items()},
+                              torch.from_numpy(x), train=True)
+        tgrads = torch.autograd.grad((yt.float() ** 2).sum(), list(tparams.values()))
+    finally:
+        jconfig.set_dtype_policy(jconfig.DTypePolicy.f32())
+        tconfig.set_dtype_policy(tconfig.DTypePolicy.f32())
+
+    assert yt.dtype == torch.bfloat16 and yj.dtype == jnp.bfloat16
+    e = np.asarray(yj, np.float32)
+    np.testing.assert_allclose(yt.detach().float().numpy(), e, rtol=0,
+                               atol=1e-2 * np.abs(e).max())
+    assert set(st) == set(sj)
+    for k in st:
+        e = np.asarray(sj[k])
+        np.testing.assert_allclose(st[k].numpy(), e, rtol=0, atol=1e-5 * np.abs(e).max(),
+                                   err_msg=k)
+    for k, g in zip(tparams, tgrads):
+        e = np.asarray(jgrads[k], np.float64)
+        err = np.linalg.norm(g.double().numpy() - e) / np.linalg.norm(e)
+        assert g.dtype == torch.float32 and err <= 0.15, f"{k}: {err:.3g} of its norm"

@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
 package, its entry points default to the CUDA card and raise without one,
-a CPU run never reaches the kernel loader, and a failed kernel launch
-raises."""
+a CPU run (serving or training) never reaches the kernel loader, the
+wrappers refuse what their kernels do not take, and a failed kernel
+launch raises and is not counted."""
 
 import ast
 from pathlib import Path
@@ -11,10 +12,12 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
+from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.models import resnet50
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn
 from deeplearning4j_tpu_torch.serve import InferenceEngine
+from deeplearning4j_tpu_torch.train import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(Path(deeplearning4j_tpu_torch.__file__).parent.rglob("*.py")) + [
@@ -58,6 +61,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
         net.init(device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(net)
+    net.device = torch.device("cuda")   # a net made where a card was
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(net)
 
 
 def test_cpu_run_never_touches_the_kernel_loader(monkeypatch):
@@ -73,7 +79,10 @@ def test_cpu_run_never_touches_the_kernel_loader(monkeypatch):
     assert tuple(y.shape) == (2, 10) and torch.isfinite(y).all()
     with InferenceEngine(net, max_batch=4, device="cpu") as engine:
         assert engine.predict(x, timeout_s=60).shape == (2, 10)
-    assert conv_bn.launches == before
+    bwd_before = conv_bn.bwd_launches
+    loss = Trainer(net).fit_batch(DataSet(x, np.eye(10, dtype=np.float32)[[1, 2]]))
+    assert loss.ndim == 0 and torch.isfinite(loss)
+    assert conv_bn.launches == before and conv_bn.bwd_launches == bwd_before
 
 
 class _StubLib:
@@ -111,3 +120,85 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         conv_bn.matmul_bn_act(meta, torch.empty(32, 32, device="meta"))
     with pytest.raises(ValueError, match="both a and b"):
         conv_bn.matmul_bn_act(torch.zeros(4, 32), torch.zeros(32, 32), torch.ones(32), None)
+
+
+class _StubBwdLib:
+    """The built backward library: a tile size, and ``rc`` from the launch."""
+
+    def __init__(self, rc):
+        self.rc = rc
+        self.args = None
+
+    def matmul_bn_act_bwd_tile(self):
+        return 128
+
+    def matmul_bn_act_bwd_f32(self, *args):
+        self.args = args
+        return self.rc
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_failed_backward_launch_raises_and_is_not_counted(prologue):
+    m, k, n = 300, 64, 96
+    x, w, y, dy = torch.zeros(m, k), torch.zeros(k, n), torch.zeros(m, n), torch.zeros(m, n)
+    a, b = (torch.ones(k), torch.zeros(k)) if prologue else (None, None)
+    ds = torch.zeros(n)
+    before = conv_bn.bwd_launches
+    lib = _StubBwdLib(rc=2)   # cudaErrorMemoryAllocation
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        conv_bn._launch_bwd(lib, x, w, a, b, y, dy, ds, ds, True, 0, 114)
+    assert conv_bn.bwd_launches == before
+    # pointers, then M, N, K, splits, rows per split, prologue, relu_in, stream
+    assert len(lib.args) == 23 and lib.args[15:18] == (m, n, k)
+    splits, chunk = lib.args[18:20]
+    assert (splits, chunk) == conv_bn.dw_splits(m, k, n, 128, 114)
+    assert (lib.args[11] is None) == (not prologue)       # db only with a prologue
+    dx, dw, da, db = conv_bn._launch_bwd(_StubBwdLib(rc=0), x, w, a, b, y, dy, ds, ds, True,
+                                        0, 114)
+    assert conv_bn.bwd_launches == before + 1
+    assert tuple(dx.shape) == (m, k) and tuple(dw.shape) == (k, n)
+    assert (da is None) == (not prologue) and (db is None) == (not prologue)
+    conv_bn.bwd_launches = before
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ({"x": _meta(64, 32, dtype=torch.float16), "w": _meta(32, 64, dtype=torch.float16),
+      "y": _meta(64, 64, dtype=torch.float16), "dy": _meta(64, 64, dtype=torch.float16)},
+     TypeError, "float32 or bfloat16"),
+    ({"dy": _meta(64, 48)}, ValueError, "dy must be"),
+    ({"y": _meta(64, 64, dtype=torch.bfloat16)}, ValueError, "y must be"),
+    ({"ds2": _meta(64, dtype=torch.float64)}, ValueError, "ds2 must be"),
+    ({"w": _meta(32, 48), "dy": _meta(64, 48), "y": _meta(64, 48),
+      "ds1": _meta(48), "ds2": _meta(48)}, ValueError, "multiples of 32"),
+    ({"a": _meta(16)}, ValueError, "a must be"),
+    ({}, ValueError, "unsupported device"),
+])
+def test_backward_wrapper_refuses_what_the_kernel_does_not_take(bad, error, match):
+    args = {"x": _meta(64, 32), "w": _meta(32, 64), "a": _meta(32), "b": _meta(32),
+            "y": _meta(64, 64), "dy": _meta(64, 64), "ds1": _meta(64), "ds2": _meta(64)}
+    args.update(bad)
+    with pytest.raises(error, match=match):
+        conv_bn.matmul_bn_act_bwd(**args, relu_in=True)
+
+
+def test_backward_wrapper_makes_cotangents_contiguous(monkeypatch):
+    """Autograd may hand the backward an expanded (stride-0) dy; the
+    wrapper copies it before any check or pointer is taken."""
+    seen = {}
+
+    def spy(x, w, a, b, y, dy, ds1, ds2):
+        seen.update(dy=dy.is_contiguous(), ds1=ds1.is_contiguous())
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(conv_bn, "_check_bwd", spy)
+    dy = _meta(1, 64).expand(64, 64)
+    ds1 = _meta(1).expand(64)
+    assert not dy.is_contiguous()
+    with pytest.raises(RuntimeError, match="stop"):
+        conv_bn.matmul_bn_act_bwd(_meta(64, 32), _meta(32, 64), None, None, _meta(64, 64),
+                                  dy, ds1, _meta(64), relu_in=True)
+    assert seen == {"dy": True, "ds1": True}
