@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 forward and training step goes,
-on one CUDA card.
+"""Where the time of the port's ResNet-50 forward and training step, and
+of its BERT fine-tune step, goes on one CUDA card.
 
     python3 chip_profile.py
 
-Builds the same seeded full-width ResNet-50 as ``chip_smoke.py`` (f32,
-TF32 off) and, for each of two workloads on one batch of
-``chip_smoke.BATCH`` images already on the card, warms it up, times it
-with CUDA events (both workloads before any tracing) and traces ``ITERS``
-runs with ``torch.profiler``:
+Builds the same seeded models as ``chip_smoke.py`` (TF32 off) and, for
+each workload, warms it up, times it with CUDA events (every workload
+before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
 
-- ``forward``: ``net.output`` (the serving forward);
-- ``train_step``: ``Trainer.fit_batch`` (forward, backward, update) at
-  ``chip_smoke.TRAIN_LR``.
+- ``forward``: ResNet-50 ``net.output`` on ``chip_smoke.BATCH`` images
+  (the serving forward), f32;
+- ``train_step``: ResNet-50 ``Trainer.fit_batch`` (forward, backward,
+  update) at ``chip_smoke.TRAIN_LR``, f32;
+- ``bert_finetune_step``: one ``BertForMaskedLM.fit`` step of bench.py's
+  long-sequence configuration (4 layers of BERT-base, batch 2 x 4096,
+  bf16 policy, flash attention, ``Adam(2e-5)``).
 
 Prints the card's name and power limit and, per workload, its wall time
 from CUDA events, the device time per category of kernel (this repo's
-``matmul_bn_act`` forward and backward, convolutions, elementwise,
-copies, pooling and reductions, other) per run, the busy share of the
-device over the traced window, and the 15 kernels with the most device
-time.  Writes the same to ``chiprun_out/chip_profile.json``.
+``matmul_bn_act`` and flash attention kernels, convolutions, matmuls,
+softmax, elementwise, copies, pooling and reductions, other) per run,
+the busy share of the device over the traced window, and the 15 kernels
+with the most device time.  Writes the same to
+``chiprun_out/chip_profile.json``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,11 @@ CATEGORIES = (
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
     ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",
                            "bwd_dw_bf16_kernel", "colsum_kernel")),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft", "sm90")),
+    ("flash_attention", ("fa_fwd_f32_kernel", "fa_fwd_bf16_kernel")),
+    ("flash_attention_bwd", ("fa_bwd_f32_kernel", "fa_bwd_bf16_kernel", "dq_reduce_kernel")),
+    ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")),
+    ("matmul", ("gemm", "cutlass", "xmma", "sm90")),
+    ("softmax", ("softmax",)),
     ("copy", ("memcpy", "copy", "memset")),
     ("pooling", ("pool",)),
     ("reduction", ("reduce",)),
@@ -52,8 +59,9 @@ def category(name: str) -> str:
     return "other"
 
 
-def profile(card: str, name: str, fn, run_ms: float) -> dict:
-    """Trace ITERS runs of ``fn`` (warm already, timed at ``run_ms``)."""
+def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> dict:
+    """Trace ITERS runs of ``fn`` (warm already, timed at ``run_ms``), each
+    of ``items`` images or tokens (``unit``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -77,13 +85,13 @@ def profile(card: str, name: str, fn, run_ms: float) -> dict:
     for kname, ms in kernels.items():
         by_cat[category(kname)] = by_cat.get(category(kname), 0.0) + ms
     device_ms = sum(kernels.values())
-    result = {"workload": name, "card": card, "batch": chip_smoke.BATCH, "iters": ITERS,
-              "ms": run_ms, "images_per_s": chip_smoke.BATCH / run_ms * 1e3,
+    result = {"workload": name, "card": card, "items": items, "unit": unit, "iters": ITERS,
+              "ms": run_ms, f"{unit}_per_s": items / run_ms * 1e3,
               "device_ms": device_ms, "busy_share": device_ms * ITERS / window_ms,
               "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
               "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
-    print(f"{name} at batch {chip_smoke.BATCH} on {card}: {run_ms:.3f} ms "
-          f"({result['images_per_s']:.1f} images/s); device time {device_ms:.3f} ms "
+    print(f"{name}, {items} {unit} on {card}: {run_ms:.3f} ms "
+          f"({result[f'{unit}_per_s']:.1f} {unit}/s); device time {device_ms:.3f} ms "
           f"per run, busy {result['busy_share']:.1%} of the traced window")
     for cat, ms in result["categories_ms"].items():
         print(f"  {cat:18s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
@@ -97,8 +105,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA card", file=sys.stderr)
         return 2
+    from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.train import Nesterovs, Trainer
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
@@ -110,13 +120,31 @@ def main() -> int:
     labels = torch.eye(1000, device="cuda")[torch.randint(0, 1000, (chip_smoke.BATCH,),
                                                           device="cuda", generator=gen)]
     trainer, batch = Trainer(net), DataSet(x, labels)
-    workloads = {"forward": lambda: net.output(x),
-                 "train_step": lambda: trainer.fit_batch(batch)}
+    bert = BertForMaskedLM(chip_smoke.bert_config(chip_smoke.BERT_TRAIN_LAYERS, use_flash=True),
+                           seed=0, device="cuda")
+    bert_batch = chip_smoke.bert_batch(bert.config.vocab_size)
+    adam = Adam(chip_smoke.BERT_TRAIN_LR)
+    tokens = chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
+    # name: (run, items per run, unit, dtype policy)
+    workloads = {"forward": (lambda: net.output(x), chip_smoke.BATCH, "images", "f32"),
+                 "train_step": (lambda: trainer.fit_batch(batch), chip_smoke.BATCH, "images",
+                                "f32"),
+                 "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam), tokens,
+                                        "tokens", "bf16")}
+
+    def in_policy(policy, fn):
+        config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
+        try:
+            return fn()
+        finally:
+            config.set_dtype_policy(config.DTypePolicy.f32())
+
     # every timing before the first trace: a profiler session leaves the
     # launch path slower for the rest of the process
-    run_ms = {name: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3)
-              for name, fn in workloads.items()}
-    results = [profile(card, name, fn, run_ms[name]) for name, fn in workloads.items()]
+    run_ms = {name: in_policy(policy, lambda: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3))
+              for name, (fn, _, _, policy) in workloads.items()}
+    results = [in_policy(policy, lambda: profile(card, name, fn, run_ms[name], items, unit))
+               for name, (fn, items, unit, policy) in workloads.items()]
     out = chip_smoke.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_profile.json").write_text(json.dumps(results, indent=1))

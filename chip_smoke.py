@@ -39,7 +39,30 @@ no result line:
    ``Nesterovs(0.1, 0.9)``, a few timed steps (a smaller power-of-two
    batch, said so, if 256 does not fit the card); then phases 3 and 5
    again, in bf16, at every distinct shape of the headline's batch;
-8. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+8. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
+   4096, 64), in f32 and bf16: no mask; a key mask with valid lengths 4096
+   and 2500; causal at offsets (1024, 512); Tq = 1000 against Tk = 4096; a
+   batch row whose mask is all zeros (dead rows).  Both kernels are held to
+   their plain versions (o, m, l; the normalized output and lse; dq, dk, dv
+   with O(1) cotangents), a planted fault (the lse shift or delta dropped)
+   must move the check far past its limit, and each is timed against the
+   plain version and ``scaled_dot_product_attention`` (forward and autograd
+   backward, a yardstick only);
+9. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
+   ``max_position=4096``, ``use_flash=None``, seeded weights) through
+   ``predict_mlm`` on 2 x 4096 seeded ids, under the f32 and the bf16
+   policy: 12 forward flash launches per call, the kernel path against
+   the plain path in log-softmax, and a seq-512 call that takes the einsum
+   path (no launch);
+10. fine-tune ``bench.py``'s long-sequence configuration (4 layers of
+   BERT-base, seq 4096, batch 2, bf16 policy, ``use_flash=True``,
+   ``Adam(2e-5)``, its seeded ids, labels and weights) through
+   ``BertForMaskedLM.fit``: one warm-up step, then 3 timed steps, each with
+   4 forward and 4 backward flash launches; peak memory;
+11. the same fine-tune in f32 through the kernels and through both plain
+   versions from one set of weights and the same dropout masks: step-0
+   loss, every param's step-0 update and the later losses agree;
+12. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
@@ -603,6 +626,443 @@ def headline(card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ BERT
+FLASH_SEED = SEED + 10
+# (name, B, H, Tq, Tk, causal, key-mask valid lengths or None, q_offset, k_offset)
+FLASH_CASES = (
+    ("base", 2, 12, 4096, 4096, False, None, 0, 0),
+    ("key_mask", 2, 12, 4096, 4096, False, (4096, 2500), 0, 0),
+    ("causal_offsets", 2, 12, 4096, 4096, True, None, 1024, 512),
+    ("cross", 2, 12, 1000, 4096, False, None, 0, 0),
+    ("dead_rows", 2, 12, 4096, 4096, False, (4096, 0), 0, 0),
+)
+# flash kernel vs plain on the same inputs, max |diff| over the largest
+# |plain| of each output (m and lse over live rows); dead rows must be
+# exactly o = 0, m = NEG_INF, l = 0.  f32: sum order only (read at most
+# 3.1e-6 over the five cases on the H100); bf16: p is rounded to bf16
+# against the running max in the kernel and against the final max in the
+# plain version (o read 2.3e-3), out is bf16 itself (one ulp is 3.9e-3 of
+# the largest entry; read 5.8e-3), p and ds round to bf16 before the
+# backward's products (read 1.3e-3).
+FLASH_TOL = {"float32": {"o": 2e-5, "m": 1e-5, "l": 1e-5, "out": 2e-5, "lse": 1e-5,
+                         "dq": 2e-5, "dk": 2e-5, "dv": 2e-5},
+             "bfloat16": {"o": 1e-2, "m": 1e-5, "l": 1e-5, "out": 1.6e-2, "lse": 1e-5,
+                          "dq": 1e-2, "dk": 1e-2, "dv": 1e-2}}
+# the check must see a fault: with the lse shift dropped from p, the plain
+# backward's dq, dk and dv move by at least this many times their limits;
+# with delta dropped from ds, dq and dk do in f32 (in bf16 a dropped delta
+# moves dq by a few percent, within reach of the bf16 limit: it is read,
+# not gated)
+FLASH_FAULT_MARGIN = 10
+BERT_SEQ, BERT_BATCH = 4096, 2
+# serving through the kernels vs through the plain versions, max |diff| of
+# log-softmax over the 30522-word vocab, 12 layers at seq 4096, as read on
+# the H100: f32 4.8e-6 (sum order); bf16 2.5e-2 (the two attentions'
+# bf16 roundings differ, and 12 bf16 layers carry the difference on)
+BERT_SERVE_TOL = {"float32": 5e-5, "bfloat16": 1e-1}
+BERT_TRAIN_LAYERS, BERT_TRAIN_LR, BERT_TRAIN_STEPS = 4, 2e-5, 3
+# fine-tuning through the kernels vs through the plain versions, f32, TF32
+# off, one start, the same dropout masks, as read on the H100: step-0 loss
+# relative (read 9.1e-8); every param's step-0 update, |u_kernel - u_plain|
+# / |u_plain| in norm (read at most 3.2e-4, median 5.9e-6; Adam's first
+# update is -lr g/(|g|+eps), which keeps each gradient's sign); later
+# losses relative (read 0).  The attention key biases are left out of the
+# update check: softmax is shift-invariant in each row's scores, so their
+# gradient is exactly zero and their Adam updates are rounding noise in
+# both runs; they are held to |u| <= lr.
+BERT_LOSS0_TOL, BERT_UPDATE_TOL, BERT_LOSS_TOL = 1e-5, 5e-3, 1e-5
+
+
+def flash_inputs(case, dtype, gen):
+    import torch
+    name, b, h, tq, tk, causal, lengths, qo, ko = case
+    q = torch.randn(b, h, tq, 64, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, tk, 64, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, tk, 64, device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(b, h, tq, 64, device="cuda", generator=gen).to(dtype)
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(tk, device="cuda")[None, :]
+                < torch.tensor(lengths, device="cuda")[:, None]).float()
+    return q, k, v, dout, mask, dict(scale=0.125, causal=causal, key_mask=mask, q_offset=qo,
+                                     k_offset=ko)
+
+
+def rel_max(got, want, rows=None) -> float:
+    got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    if want.numel() == 0:
+        return 0.0
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def library_attention(q, k, v, kw):
+    """Yardstick only, never on the port's path: PyTorch's fused
+    scaled_dot_product_attention with the same visibility as a bool mask."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    mask = None
+    if kw["key_mask"] is not None or kw["causal"]:
+        mask = fa._visible(q.shape[0], q.shape[2], k.shape[2], q.device, kw["causal"],
+                           kw["key_mask"], kw["q_offset"], kw["k_offset"])
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=kw["scale"])
+
+
+def check_flash(dtypes) -> list[dict]:
+    """Both flash kernels against their plain versions at every case, in
+    each dtype, with a planted fault; times the kernel, the plain version
+    and the library yardstick."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    rows = []
+    for dtype in dtypes:
+        dname = str(dtype).split(".")[1]
+        tol = FLASH_TOL[dname]
+        for case in FLASH_CASES:
+            name, b, h, tq, tk = case[:5]
+            q, k, v, dout, mask, kw = flash_inputs(case, dtype, gen)
+            o, m, l = fa.flash_attention_block(q, k, v, **kw)
+            torch.cuda.synchronize()
+            oe, me, le = fa.flash_attention_block_plain(q, k, v, **kw)
+            dead, live = le == 0, le > 0
+            if name == "dead_rows" and not dead.any():
+                raise AssertionError("flash dead_rows case has no dead row")
+            if not (bool((o[dead] == 0).all()) and bool((l[dead] == 0).all())
+                    and bool((m[dead] == fa.NEG_INF).all()) and bool((l[live] > 0).all())):
+                raise AssertionError(f"flash {dname} {name}: dead rows are not o=0, m=NEG_INF, l=0")
+            errs = {"o": rel_max(o, oe), "m": rel_max(m, me, live), "l": rel_max(l, le)}
+            out, lse = fa._forward(q, k, v, mask, kw["scale"], kw["causal"], kw["q_offset"],
+                                   kw["k_offset"], normalize=True)
+            oute = (oe / torch.clamp(le[..., None], min=1e-20)).to(dtype)
+            lsee = fa.flash_lse(me, le)
+            errs |= {"out": rel_max(out, oute), "lse": rel_max(lse, lsee, live)}
+            del o, m, l, oe, me, le
+            got = fa.flash_attention_block_bwd(q, k, v, oute, lsee, dout, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_block_bwd_plain(q, k, v, oute, lsee, dout, **kw)
+            for key, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[key] = rel_max(g, w)
+            bad = {key: e for key, e in errs.items() if not e <= tol[key]}
+            if bad:
+                raise AssertionError(f"flash {dname} {name}: errors {bad} over {tol}")
+            # planted faults: the lse shift dropped (lse = 0), delta dropped (out = 0)
+            faults = {}
+            for fault, fargs in (("lse", (oute, torch.zeros_like(lsee))),
+                                 ("delta", (torch.zeros_like(oute), lsee))):
+                moved = fa.flash_attention_block_bwd_plain(q, k, v, *fargs, dout, **kw)
+                for key, g, w in zip(("dq", "dk", "dv"), moved, want):
+                    faults[f"{fault} dropped: {key}"] = rel_max(g, w) / tol[key]
+                del moved
+            gated = [v for key, v in faults.items() if key.startswith("lse")
+                     or (dname == "float32" and key[-2:] in ("dq", "dk"))]
+            if not min(gated) >= FLASH_FAULT_MARGIN:
+                raise AssertionError(f"flash {dname} {name}: a planted fault moves the check "
+                                     f"by only {faults} times its limit")
+            bwd_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+            del got, want
+            # the work these inputs need: visible (query, key) pairs
+            vis = fa._visible(b, tq, tk, q.device, kw["causal"], mask, kw["q_offset"],
+                              kw["k_offset"])
+            pairs = int(vis.expand(b, 1, tq, tk).sum().item()) * h
+            isz = q.element_size()
+            fwd_bytes = (2 * b * h * tq * 64 + 2 * b * h * tk * 64) * isz + b * h * tq * 4 \
+                + (b * tk * 4 if mask is not None else 0)
+            bwd_bytes = ((3 * b * h * tq * 64 + 2 * b * h * tk * 64) * isz + b * h * tq * 4
+                         + (b * h * tq * 64 + 2 * b * h * tk * 64) * 4
+                         + (b * tk * 4 if mask is not None else 0))
+            args = (q, k, v, mask, kw["scale"], kw["causal"], kw["q_offset"], kw["k_offset"])
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            lib_out = library_attention(ql, kl, vl, kw)
+            row = {"case": name, "dtype": dname, "B": b, "H": h, "Tq": tq, "Tk": tk, "D": 64,
+                   "causal": kw["causal"], "q_offset": kw["q_offset"],
+                   "k_offset": kw["k_offset"], "visible_pairs": pairs, "rel_err": errs,
+                   "fault_over_limit": faults, "fault_over_limit_min": min(gated),
+                   "max_abs_err": (out.float() - oute.float()).abs().max().item(),
+                   "bwd_max_abs_err": bwd_abs,
+                   "ms": cuda_ms(lambda: fa._forward(*args, normalize=True), reps=5),
+                   "plain_ms": cuda_ms(lambda: fa.normalized_plain(*args[:6]), reps=3),
+                   "library_ms": cuda_ms(lambda: library_attention(q, k, v, kw), reps=5),
+                   "bytes_ms": fwd_bytes / PEAK_BYTES * 1e3,
+                   "ops_ms": 4 * 64 * pairs / PEAK_FLOPS[dname] * 1e3,
+                   "bwd_ms": cuda_ms(lambda: fa.flash_attention_block_bwd(
+                       q, k, v, oute, lsee, dout, **kw), reps=5),
+                   "bwd_plain_ms": cuda_ms(lambda: fa.flash_attention_block_bwd_plain(
+                       q, k, v, oute, lsee, dout, **kw), reps=3),
+                   "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                       lib_out, (ql, kl, vl), dout, retain_graph=True), reps=5),
+                   "bwd_bytes_ms": bwd_bytes / PEAK_BYTES * 1e3,
+                   "bwd_ops_ms": 10 * 64 * pairs / PEAK_FLOPS[dname] * 1e3}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bwd_bound_ms"] = max(row["bwd_bytes_ms"], row["bwd_ops_ms"])
+            rows.append(row)
+            log(f"  {dname:8s} {name:14s} B={b} H={h} Tq={tq} Tk={tk}: fwd kernel "
+                f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f}, library "
+                f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f}; bwd kernel "
+                f"{row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, library "
+                f"{row['bwd_library_ms']:.3f}, bound {row['bwd_bound_ms']:.3f}; rel err "
+                + " ".join(f"{key} {e:.1e}" for key, e in errs.items())
+                + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit")
+            del q, k, v, dout, oute, lsee, ql, kl, vl, lib_out
+            torch.cuda.empty_cache()
+    return rows
+
+
+class plain_flash:
+    """Comparison only, never on the port's path: inside the ``with``, the
+    flash Function runs the plain forward and backward on the card."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        self.fa, self.saved = fa, (fa._forward, fa.flash_attention_block_bwd)
+        fa._forward = lambda q, k, v, key_mask, scale, causal, qo, ko, *, normalize: \
+            fa.normalized_plain(q, k, v, key_mask, scale, causal)
+        fa.flash_attention_block_bwd = fa.flash_attention_block_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._forward, self.fa.flash_attention_block_bwd = self.saved
+
+
+def bert_config(layers: int, **changes):
+    from deeplearning4j_tpu_torch.models import BertConfig
+    import dataclasses
+    return dataclasses.replace(BertConfig.base(), num_layers=layers, max_position=BERT_SEQ,
+                               **changes)
+
+
+def bert_serve(card: str) -> dict:
+    """Phase: predict_mlm on 12-layer BERT-base at seq 4096, f32 and bf16
+    policy, through the kernels and through the plain versions."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+
+    model = BertForMaskedLM(bert_config(12, use_flash=None), seed=0, device="cuda")
+    ids = np.random.default_rng(SEED + 11).integers(0, model.config.vocab_size,
+                                                    (BERT_BATCH, BERT_SEQ))
+    result = {"card": card, "batch": BERT_BATCH, "seq": BERT_SEQ, "layers": 12,
+              "params": model.num_params()}
+    try:
+        for policy in ("f32", "bf16"):
+            config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
+            dname = "float32" if policy == "f32" else "bfloat16"
+            model.predict_mlm(ids)                       # warm-up
+            torch.cuda.synchronize()
+            fa.launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
+            logits = model.predict_mlm(ids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fa.launches
+            if launches != 12 or fa.bwd_launches:
+                raise AssertionError(f"BERT serve {policy}: {launches} forward flash launches "
+                                     f"(and {fa.bwd_launches} backward) for one call, not 12")
+            if tuple(logits.shape) != (BERT_BATCH, BERT_SEQ, model.config.vocab_size) \
+                    or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+                raise AssertionError(f"BERT serve {policy}: logits {tuple(logits.shape)} "
+                                     f"{logits.dtype} or non-finite")
+            ms = cuda_ms(lambda: model.predict_mlm(ids), reps=3, warmup=0)
+            fa.launches = 0
+            with plain_flash():
+                plain = model.predict_mlm(ids)
+                plain_ms = cuda_ms(lambda: model.predict_mlm(ids), reps=2, warmup=0)
+            if fa.launches:
+                raise AssertionError("the plain serving run launched a flash kernel")
+            err = (torch.log_softmax(logits, -1) - torch.log_softmax(plain, -1)).abs().max().item()
+            if not err <= BERT_SERVE_TOL[dname]:
+                raise AssertionError(f"BERT serve {policy}: kernel vs plain log-softmax differ "
+                                     f"by {err} (limit {BERT_SERVE_TOL[dname]})")
+            del logits, plain
+            fa.launches = 0
+            short = model.predict_mlm(ids[:, :512])
+            if fa.launches != 0 or tuple(short.shape)[:2] != (BERT_BATCH, 512):
+                raise AssertionError(f"BERT serve {policy} at seq 512 launched {fa.launches} "
+                                     f"flash kernels (the einsum path takes it)")
+            del short
+            result[policy] = {"launches": launches, "first_call_s": wall, "ms": ms,
+                              "tokens_per_s": BERT_BATCH * BERT_SEQ / ms * 1e3,
+                              "plain_ms": plain_ms, "max_log_softmax_err": err}
+            log(f"BERT-base serve {policy} on {card}: predict_mlm batch {BERT_BATCH} x "
+                f"{BERT_SEQ}, 12 layers: {ms:.1f} ms ({result[policy]['tokens_per_s']:.0f} "
+                f"tokens/s), plain {plain_ms:.1f} ms; {launches} flash launches per call; "
+                f"kernel vs plain log-softmax {err:.2e}; seq 512: 0 launches")
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    return result
+
+
+class StepWatch:
+    """A ``fit`` listener: per step, the seconds since the last step (host
+    clock; ``fit`` reads the loss, which waits for the step), the flash
+    launch counts (then set to 0), the loss, and after step 0 each
+    param's update against ``p0``."""
+
+    def __init__(self, p0=None):
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        self.fa, self.p0 = fa, p0
+        self.seconds, self.launches, self.losses, self.update0 = [], [], [], None
+        fa.launches = fa.bwd_launches = 0
+        self.t0 = time.perf_counter()
+
+    def iteration_done(self, model, iteration, epoch, score):
+        from deeplearning4j_tpu_torch.train.updaters import tree_map
+        now = time.perf_counter()
+        self.seconds.append(now - self.t0)
+        self.launches.append((self.fa.launches, self.fa.bwd_launches))
+        self.losses.append(score)
+        if iteration == 0 and self.p0 is not None:
+            self.update0 = tree_map(lambda p, q: p - q, model.params, self.p0)
+        self.fa.launches = self.fa.bwd_launches = 0
+        self.t0 = time.perf_counter()
+
+
+def bert_batch(vocab: int) -> dict:
+    """bench.py's long-sequence batch: ids, labels and weights from
+    ``default_rng(0)``, an all-ones attention mask."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (BERT_BATCH, BERT_SEQ))
+    labels = rng.integers(0, vocab, (BERT_BATCH, BERT_SEQ))
+    weights = (rng.random((BERT_BATCH, BERT_SEQ)) < 0.15).astype(np.float32)
+    return {"input_ids": ids, "labels": labels, "label_weights": weights,
+            "attention_mask": np.ones((BERT_BATCH, BERT_SEQ), np.float32)}
+
+
+def bert_finetune(card: str) -> dict:
+    """Phase: bench.py's long-sequence fine-tune (4 layers of BERT-base,
+    seq 4096, batch 2, bf16 policy, use_flash=True, Adam(2e-5)) through
+    ``BertForMaskedLM.fit``: one warm-up step, then timed steps."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam
+
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        model = BertForMaskedLM(bert_config(BERT_TRAIN_LAYERS, use_flash=True), seed=0,
+                                device="cuda")
+        batch = bert_batch(model.config.vocab_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        watch = StepWatch()
+        model.fit([batch] * (1 + BERT_TRAIN_STEPS), updater=Adam(BERT_TRAIN_LR),
+                  listeners=[watch])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    if any(c != (BERT_TRAIN_LAYERS, BERT_TRAIN_LAYERS) for c in watch.launches):
+        raise AssertionError(f"BERT fine-tune launched (forward, backward) flash kernels "
+                             f"{watch.launches} per step, not ({BERT_TRAIN_LAYERS}, "
+                             f"{BERT_TRAIN_LAYERS})")
+    if not all(np.isfinite(watch.losses)):
+        raise AssertionError(f"BERT fine-tune losses {watch.losses}")
+    step_s = float(np.mean(watch.seconds[1:]))
+    result = {"card": card, "policy": "bf16", "layers": BERT_TRAIN_LAYERS, "seq": BERT_SEQ,
+              "batch": BERT_BATCH, "updater": f"adam({BERT_TRAIN_LR})",
+              "params": model.num_params(), "losses": watch.losses,
+              "launches_per_step": watch.launches, "step_s": watch.seconds,
+              "step_ms": step_s * 1e3, "tokens_per_s": BERT_BATCH * BERT_SEQ / step_s,
+              "peak_memory_gib": peak}
+    log(f"BERT fine-tune bf16 on {card}: {BERT_TRAIN_LAYERS} layers, batch {BERT_BATCH} x "
+        f"{BERT_SEQ}: step {result['step_ms']:.1f} ms ({result['tokens_per_s']:.0f} tokens/s) "
+        f"over {BERT_TRAIN_STEPS} steps after one warm-up; (forward, backward) flash launches "
+        f"per step {watch.launches}; peak memory {peak:.1f} GiB; losses {watch.losses}")
+    return result
+
+
+def bert_train_check(card: str) -> dict:
+    """Phase: the fine-tune in f32 (TF32 off) through the kernels and
+    through the plain versions, from one set of weights, with the same
+    dropout masks (fit seeds its generator from the model's seed)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+
+    cfg = bert_config(BERT_TRAIN_LAYERS, use_flash=True)
+    runs = {}
+    for name in ("kernel", "plain"):
+        model = BertForMaskedLM(cfg, seed=0, device="cuda")
+        batch = bert_batch(cfg.vocab_size)
+        watch = StepWatch(tree_map(lambda p: p.clone(), model.params))
+        if name == "plain":
+            with plain_flash():
+                model.fit([batch] * BERT_TRAIN_STEPS, updater=Adam(BERT_TRAIN_LR),
+                          listeners=[watch])
+        else:
+            model.fit([batch] * BERT_TRAIN_STEPS, updater=Adam(BERT_TRAIN_LR), listeners=[watch])
+        runs[name] = watch
+        del model
+    kernel, plain = runs["kernel"], runs["plain"]
+    if any(c != (BERT_TRAIN_LAYERS, BERT_TRAIN_LAYERS) for c in kernel.launches):
+        raise AssertionError(f"f32 fine-tune launched {kernel.launches} per step")
+    if any(c != (0, 0) for c in plain.launches):
+        raise AssertionError("the plain fine-tune launched a flash kernel")
+    if not all(np.isfinite(kernel.losses + plain.losses)):
+        raise AssertionError(f"non-finite loss: {kernel.losses} vs {plain.losses}")
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(kernel.losses, plain.losses)]
+    if not loss_errs[0] <= BERT_LOSS0_TOL:
+        raise AssertionError(f"BERT step-0 loss {kernel.losses[0]} vs plain {plain.losses[0]}")
+    if not max(loss_errs[1:]) <= BERT_LOSS_TOL:
+        raise AssertionError(f"BERT later losses {kernel.losses} vs plain {plain.losses}")
+    errs, key_bias = bert_update_errs(kernel.update0, plain.update0)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    if not worst[0][1] <= BERT_UPDATE_TOL:
+        raise AssertionError(f"BERT step-0 updates differ from the plain run's: {worst[:5]}")
+    if not key_bias <= BERT_TRAIN_LR * (1 + 1e-6):
+        raise AssertionError(f"a key bias moved by {key_bias}, past lr {BERT_TRAIN_LR}")
+    result = {"card": card, "policy": "f32", "layers": BERT_TRAIN_LAYERS, "losses":
+              kernel.losses, "plain_losses": plain.losses, "loss_rel_errs": loss_errs,
+              "launches_per_step": kernel.launches, "update_rel_err_max": worst[0][1],
+              "update_rel_err_worst": worst[:5],
+              "update_rel_err_median": float(np.median(list(errs.values()))),
+              "key_bias_update_max": key_bias,
+              "step_ms": float(np.mean(kernel.seconds[1:])) * 1e3,
+              "plain_step_ms": float(np.mean(plain.seconds[1:])) * 1e3}
+    log(f"BERT fine-tune f32 kernel vs plain on {card}: losses {kernel.losses} (plain "
+        f"{plain.losses}), step-0 loss rel err {loss_errs[0]:.2e}, update rel err max "
+        f"{worst[0][1]:.2e} ({worst[0][0]}), median {result['update_rel_err_median']:.2e}; "
+        f"step {result['step_ms']:.1f} ms, plain {result['plain_step_ms']:.1f} ms")
+    return result
+
+
+def bert_update_errs(got: dict, want: dict) -> tuple[dict, float]:
+    """Per param but the attention key biases, |u_got - u_want| / |u_want|
+    in norm; and the largest |u| of a key bias in either tree."""
+    from deeplearning4j_tpu_torch.io.model_serializer import leaf_at, tree_paths
+    errs, key_bias = {}, 0.0
+    for path in tree_paths(want):
+        ug, uw = leaf_at(got, path), leaf_at(want, path)
+        if path[-2:] == ("key", "bias"):
+            key_bias = max(key_bias, ug.abs().max().item(), uw.abs().max().item())
+            continue
+        errs["/".join(path)] = ((ug - uw).norm() / uw.norm().clamp_min(1e-30)).item()
+    return errs, key_bias
+
+
+def flash_entry(name, source, replaces, rows, prefix, launches, work) -> dict:
+    """The kernels-line entry of one flash kernel (``prefix`` "" for the
+    forward, "bwd_" for the backward): f32 figures at the base case, bf16
+    ones beside them."""
+    def pick(dname):
+        r = next(r for r in rows if r["case"] == "base" and r["dtype"] == dname)
+        bound = {"bytes": r[f"{prefix}bytes_ms"], "operations": r[f"{prefix}ops_ms"]}
+        by = max(bound, key=bound.get)
+        return {"ms": r[f"{prefix}ms"], "plain_ms": r[f"{prefix}plain_ms"],
+                "bound_ms": bound[by], "bound_by": by, "library_ms": r[f"{prefix}library_ms"],
+                "max_abs_err": r[f"{prefix}max_abs_err"]}
+    bf16 = pick("bfloat16")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **pick("float32"), "work": work,
+            **{f"bf16_{k}": v for k, v in bf16.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -654,6 +1114,14 @@ def main() -> int:
         f"{len(set(head_calls))} distinct shapes")
     head_rows = check_kernels(head_calls, (torch.bfloat16,))
     head_bwd_rows = check_bwd_kernels(head_calls, (torch.bfloat16,))
+    torch.cuda.empty_cache()
+
+    log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
+        f"({BERT_BATCH}, 12, 64), f32 and bf16")
+    flash_rows = check_flash((torch.float32, torch.bfloat16))
+    bert_served = bert_serve(card)
+    bert_head = bert_finetune(card)
+    bert_check = bert_train_check(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -671,6 +1139,10 @@ def main() -> int:
     train_launches = [sum(c[i] for c in training["launches_per_step"]) for i in (0, 1)]
     work = (f"the 36 calls of one ResNet-50 {{}} at batch {BATCH}, f32 (bf16_*: bf16; "
             f"headline_*: bf16 at batch {head['batch']})")
+    flash_launches = [sum(c[i] for c in bert_head["launches_per_step"]) for i in (0, 1)]
+    flash_work = (f"one attention call of the BERT-base path, (B, H, T, D) = ({BERT_BATCH}, 12, "
+                  f"{BERT_SEQ}, 64), f32 (bf16_*: bf16); launches: the bf16 fine-tune's "
+                  f"{1 + BERT_TRAIN_STEPS} steps")
     kernels = [
         entry("matmul_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:58", f32, bf16, h16, train_launches[0],
@@ -679,6 +1151,15 @@ def main() -> int:
               "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act_bwd.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],
               work.format("backward")),
+        flash_entry("flash_attention",
+                    "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
+                    "deeplearning4j_tpu/ops/pallas/flash_attention.py:33", flash_rows, "",
+                    flash_launches[0], flash_work)
+        | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16"))},
+        flash_entry("flash_attention_bwd",
+                    "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+                    "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
+                    flash_launches[1], flash_work),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -687,7 +1168,9 @@ def main() -> int:
          "bwd_shapes": bwd_rows, "per_backward": {"float32": b32, "bfloat16": b16},
          "headline_shapes": head_rows, "headline_bwd_shapes": head_bwd_rows,
          "per_headline_step": {"forward": h16, "backward": hb16},
-         "serve": serving, "train": training, "headline": head, "kernels": kernels,
+         "serve": serving, "train": training, "headline": head,
+         "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
+         "bert_train_check": bert_check, "kernels": kernels,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

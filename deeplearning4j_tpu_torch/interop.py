@@ -12,6 +12,10 @@ state (``net.opt_state``, the optax state of its updater) into the
 port, so that training continues where the JAX run stopped: the
 ``trace`` of ``Nesterovs``, the ``count``/``mu``/``nu`` of ``Adam``.
 The optax state is read by its field names alone (no optax import).
+
+``load_jax_bert_params(model, params)`` fills a port ``BertForMaskedLM``
+from the JAX model's ``params`` (or the TF importer's tree) as nested
+dicts of numpy arrays, checked key by key and shape by shape.
 """
 
 from __future__ import annotations
@@ -23,23 +27,20 @@ from deeplearning4j_tpu_torch.train.updaters import from_dict
 
 
 def _fill(name: str, ours: dict, theirs: dict) -> dict:
+    """``ours`` (nested dicts of tensors, any depth) refilled from
+    ``theirs``: the same keys at every level and the same shapes."""
+    if not isinstance(theirs, dict) or set(theirs) != set(ours):
+        got = sorted(theirs) if isinstance(theirs, dict) else type(theirs).__name__
+        raise KeyError(f"{name}: keys {got} != {sorted(ours)}")
     out = {}
-    for vertex, tensors in ours.items():
-        given = theirs.get(vertex)
-        if given is None:
-            raise KeyError(f"{name}: vertex {vertex!r} missing from the JAX tree")
-        if set(given) != set(tensors):
-            raise KeyError(f"{name}[{vertex!r}]: keys {sorted(given)} != {sorted(tensors)}")
-        out[vertex] = {}
-        for key, t in tensors.items():
-            arr = np.asarray(given[key])
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{name}[{vertex!r}][{key!r}]: shape {arr.shape} "
-                                 f"!= {tuple(t.shape)}")
-            out[vertex][key] = torch.as_tensor(arr, dtype=t.dtype, device=t.device).clone()
-    extra = set(theirs) - set(ours)
-    if extra:
-        raise KeyError(f"{name}: vertices {sorted(extra)} are not in the port's net")
+    for key, t in ours.items():
+        if isinstance(t, dict):
+            out[key] = _fill(f"{name}/{key}", t, theirs[key])
+            continue
+        arr = np.array(theirs[key])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}/{key}: shape {arr.shape} != {tuple(t.shape)}")
+        out[key] = torch.as_tensor(arr, dtype=t.dtype, device=t.device)
     return out
 
 
@@ -82,3 +83,10 @@ def load_jax_params(net, params: dict, state: dict):
     net.params_ = _fill("params", net.params_, params)
     net.state_ = _fill("state", net.state_, state)
     return net
+
+
+def load_jax_bert_params(model, params: dict):
+    """Fill ``model.params`` (a port ``BertForMaskedLM``) from a JAX BERT
+    params tree; returns ``model``."""
+    model.params = _fill("params", model.params, params)
+    return model

@@ -1,0 +1,313 @@
+"""Flash attention, forward and merged backward (port of
+``deeplearning4j_tpu/ops/pallas/flash_attention.py``).
+
+``flash_attention_block(q, k, v, scale=...)`` computes, for q
+[B,H,Tq,D] and k/v [B,H,Tk,D], the UNNORMALIZED online-softmax result::
+
+    o [B,H,Tq,D] = sum_k exp(s - m) v      (f32)
+    m [B,H,Tq]   = max_k s                 (f32; NEG_INF on a dead row)
+    l [B,H,Tq]   = sum_k exp(s - m)        (f32; 0 on a dead row)
+
+with ``s = q.k * scale`` over the visible keys: key index below Tk, the
+[B, Tk] ``key_mask`` above 0 (broadcast over heads), and under ``causal``
+global query position ``q_offset + i`` at or after key position
+``k_offset + j``.  A row that sees no key (a dead row) ends with
+``o = 0, m = NEG_INF, l = 0``.  ``flash_attention_block_bwd`` is the
+backward of the normalized output ``o / l`` from the saved log-sum-exp
+(:func:`flash_lse`); it returns dq, dk, dv in f32.
+
+On a CUDA tensor in f32 or bf16 with head dim 64, both launch the
+hand-written Hopper kernels ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu`` (whose headers say what bounds them and
+how they are built), or raise.  On a CPU tensor they run
+:func:`flash_attention_block_plain` and
+:func:`flash_attention_block_bwd_plain`: the same function with the
+scores materialized, and the same roundings (in bf16, ``p`` is rounded
+to bf16 before ``p.v``, and ``p`` and ``ds`` before their products).
+
+:func:`flash_attention` is the differentiable [B, T, H*D] attention that
+``ops/attention.py`` routes long sequences to: a ``torch.autograd.Function``
+over (qh, kh, vh, key_mask) that saves q, k, v, the normalized output
+and the log-sum-exp (never ``p``) and whose backward is the merged
+backward above.
+
+``launches`` and ``bwd_launches`` count kernel launches of the forward
+and the backward; nothing else changes them.  The ``block_q``/``block_k``
+arguments are the TPU kernel's tiling knobs: they are accepted and do
+not change the result; the CUDA kernels use their own 64 x 64 tiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deeplearning4j_tpu_torch.ops.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64,)        # the head dims the kernels take
+TILE = 64                # rows of a q tile and of a k tile in both kernels
+
+launches = 0
+bwd_launches = 0
+
+_FWD = {torch.float32: "flash_attention_fwd_f32", torch.bfloat16: "flash_attention_fwd_bf16"}
+_BWD = {torch.float32: "flash_attention_bwd_f32", torch.bfloat16: "flash_attention_bwd_bf16"}
+# pointers q, k, v, key_mask, o, m, l, out, lse; ints bh, heads, tq, tk,
+# q_offset, k_offset, causal, normalize; scale; stream
+_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, dq_partial; ints
+# bh, heads, tq, tk, q_offset, k_offset, causal; scale; stream
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_bound = {}
+
+
+def _visible(b, tq, tk, device, causal, key_mask, q_offset, k_offset):
+    """Bool [B or 1, 1, Tq or 1, Tk]: which (query, key) pairs are seen."""
+    vis = torch.ones((1, 1, 1, tk), dtype=torch.bool, device=device)
+    if key_mask is not None:
+        vis = vis & (key_mask > 0)[:, None, None, :]
+    if causal:
+        qpos = q_offset + torch.arange(tq, device=device)
+        kpos = k_offset + torch.arange(tk, device=device)
+        vis = vis & (qpos[:, None] >= kpos[None, :])[None, None]
+    return vis
+
+
+def flash_attention_block_plain(q, k, v, *, scale: float, causal: bool = False,
+                                key_mask=None, q_offset: int = 0, k_offset: int = 0):
+    """Plain PyTorch version of the forward: ``(o, m, l)`` in f32 from
+    materialized f32 scores."""
+    b, _, tq, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    vis = _visible(b, tq, k.shape[2], q.device, causal, key_mask, q_offset, k_offset)
+    s = torch.where(vis, s, NEG_INF)
+    m = s.amax(-1)
+    alive = (m > NEG_INF / 2)[..., None]
+    p = torch.where(vis & alive, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    pv = p if q.dtype == torch.float32 else p.to(v.dtype)
+    return torch.matmul(pv.float(), v.float()), m, l
+
+
+def flash_attention_block_bwd_plain(q, k, v, out, lse, dout, *, scale: float,
+                                    causal: bool = False, key_mask=None,
+                                    q_offset: int = 0, k_offset: int = 0):
+    """Plain PyTorch version of the merged backward: ``(dq, dk, dv)`` in
+    f32, with ``p = exp(s - lse)`` over the visible keys of live rows,
+    ``ds = p * (dO.v - delta) * scale`` and ``delta = rowsum(dO * out)``.
+    dq is one f32 sum over all keys."""
+    b, _, tq, _ = q.shape
+    f32_in = q.dtype == torch.float32
+    delta = (dout.float() * out.float()).sum(-1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    vis = _visible(b, tq, k.shape[2], q.device, causal, key_mask, q_offset, k_offset)
+    alive = (lse > NEG_INF / 2)[..., None]
+    p = torch.where(vis & alive, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    if not f32_in:
+        p, ds = p.to(dout.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq, dk, dv
+
+
+def normalized_plain(q, k, v, key_mask, scale, causal):
+    """The plain forward's normalized output (q's dtype) and log-sum-exp,
+    as the kernel gives them in one pass."""
+    o, m, l = flash_attention_block_plain(q, k, v, scale=scale, causal=causal, key_mask=key_mask)
+    return (o / torch.clamp(l[..., None], min=1e-20)).to(q.dtype), flash_lse(m, l)
+
+
+def flash_lse(m, l):
+    """Log-sum-exp from the forward's (m, l); NEG_INF for dead rows."""
+    return torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-37)),
+                       torch.full_like(m, NEG_INF))
+
+
+def flash_attention_block(q, k, v, *, scale: float, causal: bool = False, key_mask=None,
+                          q_offset: int = 0, k_offset: int = 0, block_q: int = 128,
+                          block_k: int = 128):
+    """One flash pass, ``(o, m, l)`` as above: the CUDA kernel for a CUDA
+    tensor (it raises on what the kernel does not take), the plain version
+    for a CPU tensor.  ``key_mask``: optional [B, Tk] (1 = attend)."""
+    if q.device.type == "cpu":
+        return flash_attention_block_plain(q, k, v, scale=scale, causal=causal,
+                                           key_mask=key_mask, q_offset=q_offset,
+                                           k_offset=k_offset)
+    return _forward(q, k, v, key_mask, scale, causal, q_offset, k_offset, normalize=False)
+
+
+def flash_attention_block_bwd(q, k, v, out, lse, dout, *, scale: float, causal: bool = False,
+                              key_mask=None, q_offset: int = 0, k_offset: int = 0,
+                              block_q: int = 128, block_k: int = 128):
+    """Backward of the normalized attention ``out`` with cotangent ``dout``
+    and log-sum-exp ``lse`` [B,H,Tq]: ``(dq, dk, dv)`` in f32.  The CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_block_bwd_plain(q, k, v, out, lse, dout, scale=scale,
+                                               causal=causal, key_mask=key_mask,
+                                               q_offset=q_offset, k_offset=k_offset)
+    dout = dout.contiguous()
+    _check(q, k, v, key_mask, "flash_attention backward")
+    for name, t, dtype, shape in (("out", out, q.dtype, q.shape), ("dout", dout, q.dtype, q.shape),
+                                  ("lse", lse, torch.float32, q.shape[:3])):
+        if t.dtype != dtype or t.shape != shape or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be {dtype} "
+                             f"{tuple(shape)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be contiguous")
+    delta = (dout.float() * out.float()).sum(-1)
+    with torch.cuda.device(q.device):
+        return _launch_bwd(_bwd_lib(), q, k, v, key_mask, dout, lse, delta, scale, causal,
+                           q_offset, k_offset, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _forward(q, k, v, key_mask, scale, causal, q_offset, k_offset, *, normalize):
+    _check(q, k, v, key_mask, "flash_attention")
+    with torch.cuda.device(q.device):
+        return _launch_fwd(_fwd_lib(), q, k, v, key_mask, scale, causal, q_offset, k_offset,
+                           normalize, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Normalized attention of heads-layout q, k, v as one differentiable
+    op (the JAX ``_mha_core`` custom_vjp); saves q, k, v, the output and
+    its log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, key_mask, scale, causal):
+        if qh.device.type == "cpu":
+            out, lse = normalized_plain(qh, kh, vh, key_mask, scale, causal)
+        else:
+            out, lse = _forward(qh, kh, vh, key_mask, scale, causal, 0, 0, normalize=True)
+        ctx.save_for_backward(qh, kh, vh, key_mask, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qh, kh, vh, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_block_bwd(qh, kh, vh, out, lse, dout, scale=ctx.scale,
+                                               causal=ctx.causal, key_mask=key_mask)
+        return dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype), None, None, None
+
+
+def flash_attention(q, k, v, *, n_heads: int, causal: bool = False, key_mask=None,
+                    block_q: int = 1024, block_k: int = 1024):
+    """Single-device flash attention, [B, T, H*D] -> [B, T, H*D]:
+    ``softmax(q k^T / sqrt(D)) v`` with no [T, T] matrix on the card,
+    differentiable through the merged backward.  ``key_mask``: optional
+    [B, Tk] padding mask (1 = attend); Tk may differ from T."""
+    b, t, dm = q.shape
+    tk = k.shape[1]
+    dh = dm // n_heads
+    qh = q.reshape(b, t, n_heads, dh).transpose(1, 2).contiguous()
+    kh = k.reshape(b, tk, n_heads, dh).transpose(1, 2).contiguous()
+    vh = v.reshape(b, tk, n_heads, dh).transpose(1, 2).contiguous()
+    if key_mask is not None:
+        key_mask = torch.as_tensor(key_mask, dtype=torch.float32, device=q.device).contiguous()
+    out = _FlashAttention.apply(qh, kh, vh, key_mask, 1.0 / dh ** 0.5, causal)
+    return out.transpose(1, 2).reshape(b, t, dm).to(q.dtype)
+
+
+def _check(q, k, v, key_mask, what: str) -> None:
+    if q.dtype not in _FWD:
+        raise TypeError(f"{what}: kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not [B,H,Tq,D], [B,H,Tk,D], [B,H,Tk,D]")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what}: kernel takes head dim {HEAD_DIMS}, got {q.shape[3]}")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError(f"{what}: empty sequence")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{what}: {name} must match q's dtype and device")
+    for name, t in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if key_mask is not None and (key_mask.dtype != torch.float32 or key_mask.device != q.device
+                                 or tuple(key_mask.shape) != (q.shape[0], k.shape[2])):
+        raise ValueError(f"{what}: key_mask must be float32 [{q.shape[0]}, {k.shape[2]}] "
+                         f"on {q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+
+
+def _lib(name: str, fnames, argtypes):
+    lib = _bound.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        for fname in fnames:
+            fn = getattr(lib, fname)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _bound[name] = lib
+    return lib
+
+
+def _fwd_lib():
+    return _lib("flash_attention_fwd", _FWD.values(), _FWD_ARGS)
+
+
+def _bwd_lib():
+    return _lib("flash_attention_bwd", _BWD.values(), _BWD_ARGS)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(lib, q, k, v, key_mask, scale, causal, q_offset, k_offset, normalize, stream):
+    """Allocate the outputs, launch, check the launch.  Returns ``(out,
+    lse)`` when ``normalize`` (out in q's dtype), else ``(o, m, l)``."""
+    global launches
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    dev, f32 = q.device, torch.float32
+    if normalize:
+        o = m = l = None
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, tq), dtype=f32, device=dev)
+    else:
+        out = lse = None
+        o = torch.empty((b, h, tq, d), dtype=f32, device=dev)
+        m = torch.empty((b, h, tq), dtype=f32, device=dev)
+        l = torch.empty((b, h, tq), dtype=f32, device=dev)
+    rc = getattr(lib, _FWD[q.dtype])(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(o), _ptr(m), _ptr(l), _ptr(out),
+        _ptr(lse), b * h, h, tq, tk, int(q_offset), int(k_offset), int(causal), int(normalize),
+        float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed, cudaGetLastError() = {rc}")
+    launches += 1
+    return (out, lse) if normalize else (o, m, l)
+
+
+def _launch_bwd(lib, q, k, v, key_mask, dout, lse, delta, scale, causal, q_offset, k_offset,
+                stream):
+    """Allocate dq, dk, dv and the per-k-tile dq partials, launch, check
+    the launch; returns ``(dq, dk, dv)`` in f32."""
+    global bwd_launches
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    dev, f32 = q.device, torch.float32
+    n_kt, tq_pad = -(-tk // TILE), -(-tq // TILE) * TILE
+    dq = torch.empty((b, h, tq, d), dtype=f32, device=dev)
+    dk = torch.empty((b, h, tk, d), dtype=f32, device=dev)
+    dv = torch.empty((b, h, tk, d), dtype=f32, device=dev)
+    dq_part = torch.empty((n_kt, b * h, tq_pad, d), dtype=f32, device=dev)
+    rc = getattr(lib, _BWD[q.dtype])(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(dout), _ptr(lse), _ptr(delta),
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_part), b * h, h, tq, tk, int(q_offset),
+        int(k_offset), int(causal), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward: kernel launch failed, "
+                           f"cudaGetLastError() = {rc}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -1,8 +1,9 @@
 """Updaters (port of ``deeplearning4j_tpu/train/updaters.py``).
 
 Each updater is a dataclass with the JAX package's field names and JSON
-type name, and two plain tensor functions over a param tree (vertex ->
-name -> tensor):
+type name, and two plain tensor functions over a param tree: nested
+dicts of any depth with tensors at the leaves (a net's vertex -> name ->
+tensor; BERT's ``encoder/layer_N/attention/query/kernel``):
 
 - ``init(params) -> state``: a dict of trees (and counters);
 - ``update(grads, state) -> (updates, new_state)``: the step to add to
@@ -36,8 +37,19 @@ def register(name: str):
 
 
 def tree_map(fn: Callable, *trees: dict) -> dict:
-    """``fn`` over the leaves of param-shaped trees (vertex -> name -> tensor)."""
-    return {v: {k: fn(*(t[v][k] for t in trees)) for k in d} for v, d in trees[0].items()}
+    """``fn`` over the leaves of param-shaped trees: nested dicts of any
+    depth, the first tree's keys deciding the structure."""
+    return {k: tree_map(fn, *(t[k] for t in trees)) if isinstance(node, dict)
+            else fn(node, *(t[k] for t in trees[1:]))
+            for k, node in trees[0].items()}
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves of a nested-dict tree, in its key order."""
+    out = []
+    for node in tree.values():
+        out.extend(tree_leaves(node) if isinstance(node, dict) else [node])
+    return out
 
 
 def to_dict(updater) -> dict:
@@ -128,7 +140,7 @@ class Adam(_UpdaterBase):
     def init(self, params: dict) -> dict:
         if self.mu_dtype is not None:
             raise NotImplementedError("Adam(mu_dtype=...) is not ported yet")
-        leaf = next(t for d in params.values() for t in d.values())
+        leaf = tree_leaves(params)[0]
         return {"count": torch.zeros((), dtype=torch.int32, device=leaf.device),
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}

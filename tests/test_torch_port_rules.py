@@ -15,7 +15,8 @@ import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.models import resnet50
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn
+from deeplearning4j_tpu_torch.models import BertConfig, BertForMaskedLM
+from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn, flash_attention
 from deeplearning4j_tpu_torch.serve import InferenceEngine
 from deeplearning4j_tpu_torch.train import Trainer
 
@@ -64,6 +65,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
     net.device = torch.device("cuda")   # a net made where a card was
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertForMaskedLM(BertConfig.tiny())
 
 
 def test_cpu_run_never_touches_the_kernel_loader(monkeypatch):
@@ -83,6 +86,26 @@ def test_cpu_run_never_touches_the_kernel_loader(monkeypatch):
     loss = Trainer(net).fit_batch(DataSet(x, np.eye(10, dtype=np.float32)[[1, 2]]))
     assert loss.ndim == 0 and torch.isfinite(loss)
     assert conv_bn.launches == before and conv_bn.bwd_launches == bwd_before
+
+
+def test_cpu_bert_run_never_touches_the_kernel_loader(monkeypatch):
+    """BERT at the flash routing length serves and takes a training step
+    on the CPU through the plain versions: no build, no launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    cfg = BertConfig(vocab_size=50, hidden_size=16, num_layers=1, num_heads=2,
+                     intermediate_size=32, max_position=1024)
+    model = BertForMaskedLM(cfg, device="cpu")
+    ids = np.random.default_rng(0).integers(0, 50, (1, 1024))
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    assert tuple(model.predict_mlm(ids).shape) == (1, 1024, 50)
+    loss = model.fit([{"input_ids": ids, "labels": ids,
+                       "label_weights": np.ones((1, 1024), np.float32)}])
+    assert np.isfinite(loss)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == before
 
 
 class _StubLib:
@@ -202,3 +225,62 @@ def test_backward_wrapper_makes_cotangents_contiguous(monkeypatch):
         conv_bn.matmul_bn_act_bwd(_meta(64, 32), _meta(32, 64), None, None, _meta(64, 64),
                                   dy, ds1, _meta(64), relu_in=True)
     assert seen == {"dy": True, "ds1": True}
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ({"q": torch.zeros(1, 2, 8, 64, dtype=torch.float16)}, TypeError, "float32 or bfloat16"),
+    ({"q": torch.zeros(1, 2, 8, 32), "k": torch.zeros(1, 2, 8, 32)}, ValueError,
+     r"head dim \(64,\)"),
+    ({"k": torch.zeros(1, 3, 8, 64)}, ValueError, r"not \[B,H,Tq,D\]"),
+    ({"k": torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)}, TypeError, "k must match"),
+    ({"mask": torch.ones(1, 9)}, ValueError, "key_mask must be"),
+    ({"q": torch.zeros(1, 2, 64, 8).transpose(2, 3)}, ValueError, "contiguous"),
+    ({}, ValueError, "unsupported device"),
+])
+def test_flash_check_refuses_what_the_kernels_do_not_take(bad, error, match):
+    args = {"q": torch.zeros(1, 2, 8, 64), "k": torch.zeros(1, 2, 8, 64),
+            "mask": torch.ones(1, 8)}
+    args.update(bad)
+    with pytest.raises(error, match=match):
+        flash_attention._check(args["q"], args["k"], torch.zeros_like(args["k"]), args["mask"],
+                               "flash_attention")
+
+
+class _StubFlashLib:
+    """The built library: returns ``rc`` from the launch."""
+
+    def __init__(self, rc):
+        self.rc = rc
+        self.args = None
+
+    def _call(self, *args):
+        self.args = args
+        return self.rc
+
+    flash_attention_fwd_f32 = flash_attention_bwd_f32 = _call
+
+
+def test_failed_flash_launches_raise_and_are_not_counted():
+    q, k = torch.zeros(2, 3, 70, 64), torch.zeros(2, 3, 130, 64)
+    mask = torch.ones(2, 130)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    lib = _StubFlashLib(rc=9)   # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        flash_attention._launch_fwd(lib, q, k, k, mask, 0.125, False, 0, 0, False, 0)
+    # pointers, then bh, heads, tq, tk, q_offset, k_offset, causal, normalize; scale; stream
+    assert len(lib.args) == 19 and lib.args[9:17] == (6, 3, 70, 130, 0, 0, 0, 0)
+    lse = torch.zeros(2, 3, 70)
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        flash_attention._launch_bwd(lib, q, k, k, None, q, lse, lse, 0.125, True, 5, 0, 0)
+    assert len(lib.args) == 20 and lib.args[3] is None
+    assert lib.args[11:18] == (6, 3, 70, 130, 5, 0, 1)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == before
+    out, lse = flash_attention._launch_fwd(_StubFlashLib(rc=0), q, k, k, mask, 0.125, False, 0, 0,
+                                           True, 0)
+    assert out.shape == q.shape and out.dtype == q.dtype and lse.shape == (2, 3, 70)
+    dq, dk, dv = flash_attention._launch_bwd(_StubFlashLib(rc=0), q, k, k, mask, q, lse, lse,
+                                             0.125, False, 0, 0, 0)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    flash_attention.launches, flash_attention.bwd_launches = before

@@ -58,6 +58,101 @@ def test_updates_match_optax(conf):
         assert int(tstate["count"]) == int(jstate[0].count) == 3
 
 
+def _deep_tree(rng):
+    """BERT-shaped nesting: leaves four and five levels down, an empty
+    branch, a leaf beside a branch."""
+    return {"encoder": {"layer_0": {"attention": {"query": {
+                "kernel": rng.normal(size=(4, 4)).astype(np.float32),
+                "bias": rng.normal(size=4).astype(np.float32)}},
+            "output_layer_norm": {"gamma": rng.normal(size=4).astype(np.float32)}}},
+            "pooler": {},
+            "mlm": {"output_bias": rng.normal(size=6).astype(np.float32),
+                    "transform": {"kernel": rng.normal(size=(3, 2)).astype(np.float32)}}}
+
+
+def _torch_tree(tree):
+    return {k: _torch_tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("conf", JSON, ids=[c["type"] for c in JSON])
+def test_updates_match_optax_on_a_deep_tree(conf):
+    """Trees of any depth (BERT's ``encoder/layer_N/attention/query/kernel``):
+    three steps against optax at 1e-6, every leaf compared."""
+    jtx = jupdaters.from_dict(conf).to_optax()
+    tu = updaters.from_dict(conf)
+    rng = np.random.default_rng(5)
+    params = _deep_tree(rng)
+    jstate, tstate = jtx.init(params), tu.init(_torch_tree(params))
+    for step in range(3):
+        grads = _deep_tree(rng)
+        jup, jstate = jtx.update(grads, jstate, params)
+        tup, tstate = tu.update(_torch_tree(grads), tstate)
+        paths = [p for p, _ in _leaves(grads)]
+        assert [p for p, _ in _leaves(tup)] == paths and len(paths) == 5
+        for path in paths:
+            np.testing.assert_allclose(_get(tup, path).numpy(), np.asarray(_get(jup, path)),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"step {step} {path}")
+
+
+def _two_level_tree_map(fn, *trees):
+    """``tree_map`` as it was before trees of any depth: vertex -> name ->
+    tensor only."""
+    return {v: {k: fn(*(t[v][k] for t in trees)) for k in d} for v, d in trees[0].items()}
+
+
+@pytest.fixture(scope="module")
+def resnet_tree():
+    """A ResNet-50's param tree (vertex -> name -> tensor) and two seeded
+    gradient trees of its shapes."""
+    from deeplearning4j_tpu_torch.models import resnet50
+    params = resnet50(height=32, width=32, num_classes=10, device="cpu").init(seed=1).params_
+    gen = torch.Generator().manual_seed(2)
+    grads = [updaters.tree_map(lambda p: torch.randn(p.shape, generator=gen), params)
+             for _ in range(2)]
+    return params, grads
+
+
+@pytest.mark.parametrize("conf", JSON, ids=[c["type"] for c in JSON])
+def test_resnet_updates_are_unchanged_by_the_tree_repair(conf, resnet_tree, monkeypatch):
+    """On a ResNet-50's param tree the updaters give bit-identical updates
+    and state with the any-depth ``tree_map`` and with the two-level one
+    it replaced."""
+    params, grads = resnet_tree
+
+    def run():
+        tu = updaters.from_dict(conf)
+        state = tu.init(params)
+        outs = []
+        for g in grads:
+            u, state = tu.update(g, state)
+            outs.append((u, state))
+        return outs
+
+    new = run()
+    monkeypatch.setattr(updaters, "tree_map", _two_level_tree_map)
+    old = run()
+    for (un, sn), (uo, so) in zip(new, old):
+        for tree_new, tree_old in [(un, uo)] + [(sn[k], so[k]) for k in sn if k != "count"]:
+            for v, d in tree_old.items():
+                for k, t in d.items():
+                    assert torch.equal(tree_new[v][k], t), (v, k)
+
+
 def test_unported_updaters_and_normalizations_raise():
     with pytest.raises(NotImplementedError, match="rmsprop"):
         updaters.from_dict({"type": "rmsprop", "learning_rate": 0.1})
