@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 forward and training step, and
-of its BERT fine-tune step, goes on one CUDA card.
+"""Where the time of the port's ResNet-50 forward and training step, of
+its BERT fine-tune step and of its int8 VGG-16 serving forward goes on
+one CUDA card.
 
     python3 chip_profile.py
 
@@ -14,12 +15,18 @@ before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
   update) at ``chip_smoke.TRAIN_LR``, f32;
 - ``bert_finetune_step``: one ``BertForMaskedLM.fit`` step of bench.py's
   long-sequence configuration (4 layers of BERT-base, batch 2 x 4096,
-  bf16 policy, flash attention, ``Adam(2e-5)``).
+  bf16 policy, flash attention, ``Adam(2e-5)``);
+- ``vgg16_int8_forward``: ``qnet.output`` of VGG-16 quantized by
+  ``quantize_net``, on ``chip_smoke.VGG_BATCH`` images under the bf16
+  serving policy (bf16 params, compute and outputs), its three dense
+  layers through the int8 kernel and its convolutions' weights widened
+  on read.
 
 Prints the card's name and power limit and, per workload, its wall time
 from CUDA events, the device time per category of kernel (this repo's
-``matmul_bn_act`` and flash attention kernels, convolutions, matmuls,
-softmax, elementwise, copies, pooling and reductions, other) per run,
+``matmul_bn_act``, flash attention and int8 kernels, convolutions,
+matmuls, softmax, elementwise, copies and casts, pooling and reductions,
+other) per run,
 the busy share of the device over the traced window, and the 15 kernels
 with the most device time.  Writes the same to
 ``chiprun_out/chip_profile.json``.
@@ -36,6 +43,7 @@ import chip_smoke
 ITERS = 5
 
 CATEGORIES = (
+    ("int8_matmul", ("int8_mm_f32_kernel", "int8_mm_bf16_kernel", "int8_mm_reduce_kernel")),
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
     ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",
                            "bwd_dw_bf16_kernel", "colsum_kernel")),
@@ -107,7 +115,8 @@ def main() -> int:
         return 2
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM, vgg16
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_net
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -125,19 +134,28 @@ def main() -> int:
     bert_batch = chip_smoke.bert_batch(bert.config.vocab_size)
     adam = Adam(chip_smoke.BERT_TRAIN_LR)
     tokens = chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
-    # name: (run, items per run, unit, dtype policy)
-    workloads = {"forward": (lambda: net.output(x), chip_smoke.BATCH, "images", "f32"),
-                 "train_step": (lambda: trainer.fit_batch(batch), chip_smoke.BATCH, "images",
-                                "f32"),
-                 "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam), tokens,
-                                        "tokens", "bf16")}
+    serving = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                 output_dtype=torch.bfloat16)
 
     def in_policy(policy, fn):
-        config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
+        config.set_dtype_policy(policy)
         try:
             return fn()
         finally:
             config.set_dtype_policy(config.DTypePolicy.f32())
+
+    qnet = in_policy(serving,
+                     lambda: quantize_net(vgg16(device="cuda").init(seed=chip_smoke.SEED)))
+    images = torch.randn(chip_smoke.VGG_BATCH, 224, 224, 3, device="cuda", generator=gen)
+    f32, bf16 = config.DTypePolicy.f32(), config.DTypePolicy.bf16()
+    # name: (run, items per run, unit, dtype policy)
+    workloads = {"forward": (lambda: net.output(x), chip_smoke.BATCH, "images", f32),
+                 "train_step": (lambda: trainer.fit_batch(batch), chip_smoke.BATCH, "images",
+                                f32),
+                 "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam), tokens,
+                                        "tokens", bf16),
+                 "vgg16_int8_forward": (lambda: qnet.output(images), chip_smoke.VGG_BATCH,
+                                        "images", serving)}
 
     # every timing before the first trace: a profiler session leaves the
     # launch path slower for the rest of the process

@@ -62,7 +62,30 @@ no result line:
 11. the same fine-tune in f32 through the kernels and through both plain
    versions from one set of weights and the same dropout masks: step-0
    loss, every param's step-0 update and the later losses agree;
-12. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+12. the int8 dequant-matmul alone at every (K, N) it serves, VGG-16's
+   (25088, 4096), (4096, 4096), (4096, 1000) and ``bench_quantized``'s MLP
+   (1024, 1024), (1024, 10), at M = 1, 2, 4, 7, 8, 16 and 32 (every bucket
+   of the engine, and ragged rows), in f32 and bf16: held to
+   ``int8_matmul_plain`` (f32 within 1e-5 of max |y|, bf16 within one bf16
+   ulp per entry), two planted faults (the scale dropped, the last K split
+   skipped) at least 10x past the limit, and timed with the L2 flushed
+   against the plain version, a library yardstick and the bound;
+13. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
+   classes, seeded weights) under ``bench_quantized``'s serving policy
+   (bf16 params, compute and outputs), ``quantize_net`` with two seeded
+   calibration batches, 16 seeded requests of 1-32 images from 4 threads
+   through ``InferenceEngine(qnet, max_batch=32)``: 3 launches per batch,
+   every answer equal to ``qnet.output`` of the batch it was served in, the
+   int8 outputs within the report's calibrated band of the fp net's, the
+   forward through the kernel against the same qnet with
+   ``int8_matmul_plain`` in log probabilities, and the forward alone at
+   batch 32 timed for the fp and the int8 net;
+14. the same qnet under the f32 policy: 3 launches per forward; the
+   forward through the kernel against the same qnet with its dense
+   products exact (f64) at 1e-5 in log probabilities, and against
+   ``int8_matmul_plain`` at 1e-4 (cuBLAS's own f32 rounding, printed
+   against the exact product beside the kernel's);
+15. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
@@ -293,7 +316,7 @@ def serve(net, card: str) -> dict:
 
     answers, latency = {}, {}
     conv_bn.launches = 0
-    engine = InferenceEngine(net, max_batch=BATCH, max_latency_ms=5.0, device="cuda")
+    engine = InferenceEngine(net, max_batch=BATCH, max_latency_ms=5.0)
     try:
         def client(ids):
             for i in ids:
@@ -1046,6 +1069,382 @@ def bert_update_errs(got: dict, want: dict) -> tuple[dict, float]:
     return errs, key_bias
 
 
+# ------------------------------------------------------------ VGG-16 int8
+INT8_SEED = SEED + 20
+# (name, K, N) of every int8_matmul call: VGG-16's three dense layers and
+# bench/serving.py's bench_quantized MLP (hidden and output layers)
+INT8_SHAPES = (("vgg16_fc6", 25088, 4096), ("vgg16_fc7", 4096, 4096), ("vgg16_fc8", 4096, 1000),
+               ("mlp_hidden", 1024, 1024), ("mlp_out", 1024, 10))
+# every bucket the engine pads a batch to at max_batch 32 (each picks its own
+# template of the kernel by M), and 7 for ragged rows
+INT8_BATCHES = (1, 2, 4, 7, 8, 16, 32)
+# int8 kernel vs int8_matmul_plain on the same inputs: both sum in f32 and
+# differ in order only.  f32: max |diff| within 1e-5 of the largest |y|;
+# bf16: each entry within one bf16 ulp of its own size, |diff| <= 2^-7 |y| +
+# 1e-6 max |y| (the two f32 sums may round to neighbouring bf16 values).
+INT8_F32_TOL = 1e-5
+# a planted fault (scale dropped, or the last K split skipped) must move the
+# plain version's result this many times past the limit
+INT8_FAULT_MARGIN = 10
+VGG_BATCH, VGG_REQUESTS, VGG_CALIB = 32, 16, (2, 32)   # calibration: 2 batches of 32
+# VGG-16 forward through the kernel vs the same qnet with its dense products
+# exact (f64, rounded once to the layer's dtype), max |diff| of log
+# probabilities.  f32 (TF32 off): the kernel's f32 sum order only, held at
+# the 1e-5 of the ResNet and BERT checks.  The plain version is held to the
+# kernel too, and its gap to the exact product is printed: cuBLAS's f32 sum
+# reads 1e-6 of max |y| at fc6's K = 25088 against the kernel's 2e-7 (phase
+# 12 prints both), and the seeded VGG-16's large logits (top probability
+# ~0.92, log probabilities down to ~-39) carry that to 2.5e-5 (read on the
+# H100), so kernel vs plain is held at 1e-4.  bf16: a dense output may round
+# to the neighbouring bf16 value in one of the two, and fc8's bf16 logits (|z|
+# in [32, 64) have a bf16 ulp of 0.25) carry that to the log probabilities:
+# one such ulp; against the exact product it is printed only.
+VGG_EXACT_TOL = 1e-5
+VGG_PLAIN_TOL = {"float32": 1e-4, "bfloat16": 0.25}
+# engine answer vs qnet.output of the batch it was served in (the same images
+# at the same rows, the same bucket, so the same convolution algorithms and
+# the same kernels): equal.  Against the request's images alone the reading
+# is printed only: cuDNN picks its algorithms by batch size, and in bf16 two
+# algorithms may round an fc8 logit to neighbouring values (read 0.2513 in
+# log probabilities, one ulp of a logit in [32, 64)).
+VGG_SERVE_TOL = 0.0
+
+
+def int8_over_limit(y, ye, dname: str) -> float:
+    """max over entries of |y - ye| over that entry's limit (f32: 1e-5 max
+    |ye|; bf16: 2^-7 |ye| + 1e-6 max |ye|); at most 1 passes."""
+    yf, ef = y.float(), ye.float()
+    big = ef.abs().max()
+    lim = INT8_F32_TOL * big if dname == "float32" else 2.0 ** -7 * ef.abs() + 1e-6 * big
+    return ((yf - ef).abs() / lim.clamp_min(1e-30)).max().item()
+
+
+def cold_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device ms of ``fn`` with the 50 MB L2 flushed before each call
+    (a serving forward finds its dense weights cold): CUDA events around
+    each call alone."""
+    import torch
+    # 512 MB: its zeroing also keeps the card busy while the host enqueues the call
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def library_int8_matmul(x, w_q, scale):
+    """Yardstick only, never on the port's path: the weight widened to x's
+    dtype, torch.matmul (cuBLAS), the scale as a torch op."""
+    import torch
+    return (torch.matmul(x, w_q.to(x.dtype)) * scale).to(x.dtype)
+
+
+def check_int8(dtypes) -> list[dict]:
+    """Phase: the int8 kernel against its plain version at every shape and
+    batch, in each dtype, with two planted faults; times the kernel, the
+    plain version and the library yardstick, L2 cold."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_weight
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, k, n in INT8_SHAPES:
+        w_q, scale = quantize_weight(torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5)
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[1]
+            splits, per = qm.k_splits(k, n, sms, qm.TILE_N[dtype])
+            for m in INT8_BATCHES:
+                x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+                y = qm.int8_matmul(x, w_q, scale)
+                torch.cuda.synchronize()
+                ye = qm.int8_matmul_plain(x, w_q, scale)
+                over = int8_over_limit(y, ye, dname)
+                if y.dtype != dtype or tuple(y.shape) != (m, n) or not over <= 1.0:
+                    raise AssertionError(f"int8_matmul {dname} {name} M={m}: {over:.3g} times "
+                                         f"the limit ({y.dtype}, {tuple(y.shape)})")
+                skipped = x.clone()
+                skipped[:, (splits - 1) * per:] = 0
+                faults = {"scale dropped": int8_over_limit(
+                              qm.int8_matmul_plain(x, w_q, torch.ones_like(scale)), ye, dname),
+                          "last K split skipped": int8_over_limit(
+                              qm.int8_matmul_plain(skipped, w_q, scale), ye, dname)}
+                if not min(faults.values()) >= INT8_FAULT_MARGIN:
+                    raise AssertionError(f"int8_matmul {dname} {name} M={m}: a planted fault "
+                                         f"moves the check by only {faults} times its limit")
+                # reading only: both f32 sums against the f64 product, over max |y|
+                exact = (x.double() @ w_q.double()) * scale.double()
+                f64_err = {key: ((v.double() - exact).abs().max() / exact.abs().max()).item()
+                           for key, v in (("kernel", y), ("plain", ye))}
+                isz = x.element_size()
+                nbytes = k * n + (m * k + m * n) * isz + 4 * n
+                row = {"shape": name, "dtype": dname, "M": m, "K": k, "N": n, "splits": splits,
+                       "max_abs_err": (y.float() - ye.float()).abs().max().item(),
+                       "f64_rel_err": f64_err,
+                       "over_limit": over, "fault_over_limit": faults,
+                       "fault_over_limit_min": min(faults.values()),
+                       "ms": cold_ms(lambda: qm.int8_matmul(x, w_q, scale)),
+                       "plain_ms": cold_ms(lambda: qm.int8_matmul_plain(x, w_q, scale)),
+                       "library_ms": cold_ms(lambda: library_int8_matmul(x, w_q, scale)),
+                       "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                       "ops_ms": 2 * m * k * n / PEAK_FLOPS[dname] * 1e3}
+                row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+                row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+                rows.append(row)
+                log(f"  {dname:8s} {name:10s} M={m:2d} K={k:5d} N={n:4d} splits={splits:2d}: "
+                    f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+                    f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+                    f"error {over:.2f} of the limit (against f64: kernel "
+                    f"{f64_err['kernel']:.1e}, plain {f64_err['plain']:.1e}); a planted fault reads >= "
+                    f"{row['fault_over_limit_min']:.0f}x the limit")
+                del x, y, ye, skipped, exact
+        del w_q, scale
+    return rows
+
+
+def served_at(served, images) -> tuple[int, int]:
+    """(dispatch, row) at which ``images`` sit, whole, in the recorded
+    batches."""
+    import torch
+    n = images.shape[0]
+    for d, xb in enumerate(served):
+        for o in range(xb.shape[0] - n + 1):
+            if torch.equal(xb[o], images[0]) and torch.equal(xb[o:o + n], images):
+                return d, o
+    raise AssertionError("a request's images were not served in any batch")
+
+
+def exact_int8_matmul(x, w_q, scale):
+    """Comparison only: the dequant-matmul in f64, rounded once to x's
+    dtype."""
+    return ((x.double() @ w_q.double()) * scale.double()).to(x.dtype)
+
+
+class int8_swapped:
+    """Comparison only, never on the port's path: inside the ``with``, the
+    quantized dense layers run ``fn`` (int8_matmul_plain or
+    exact_int8_matmul) in place of the kernel."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+        self.qm, self.saved = qm, qm.int8_matmul
+        qm.int8_matmul = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        self.qm.int8_matmul = self.saved
+
+
+def int8_forward_check(qnet, x, dname: str) -> dict:
+    """The whole forward at batch 32 through the kernel (3 launches),
+    through the plain version and through the exact product (none), in log
+    probabilities; times the first two."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    qnet.output(x)                                 # warm-up
+    torch.cuda.synchronize()
+    qm.launches = 0
+    y_kernel = qnet.output(x)
+    torch.cuda.synchronize()
+    launches = qm.launches
+    if launches != 3:
+        raise AssertionError(f"VGG-16 {dname} forward launched int8_matmul {launches} "
+                             f"times, not 3")
+    ms = cuda_ms(lambda: qnet.output(x), reps=5)
+    qm.launches = 0
+    with int8_swapped(qm.int8_matmul_plain):
+        y_plain = qnet.output(x)
+        plain_ms = cuda_ms(lambda: qnet.output(x), reps=5)
+    with int8_swapped(exact_int8_matmul):
+        y_exact = qnet.output(x)
+    torch.cuda.synchronize()
+    if qm.launches:
+        raise AssertionError("the plain or exact int8 forward launched the kernel")
+    if not (torch.isfinite(y_kernel.float()).all() and tuple(y_kernel.shape) == (len(x), 1000)):
+        raise AssertionError(f"VGG-16 {dname} int8 forward: {tuple(y_kernel.shape)} or non-finite")
+    err = log_prob_err(y_kernel.float(), y_plain.float())
+    exact_err = {key: log_prob_err(y.float(), y_exact.float())
+                 for key, y in (("kernel", y_kernel), ("plain", y_plain))}
+    log(f"  {dname}: kernel vs plain {err:.3g} in log probabilities; vs the exact product: "
+        f"kernel {exact_err['kernel']:.3g}, plain {exact_err['plain']:.3g}; log probabilities "
+        f"reach {y_exact.float().log().min().item():.1f}")
+    if not err <= VGG_PLAIN_TOL[dname]:
+        raise AssertionError(f"VGG-16 {dname}: kernel vs plain forward differ by {err} in log "
+                             f"probabilities (limit {VGG_PLAIN_TOL[dname]})")
+    if dname == "float32" and not exact_err["kernel"] <= VGG_EXACT_TOL:
+        raise AssertionError(f"VGG-16 f32: the kernel's forward differs from the exact "
+                             f"product's by {exact_err['kernel']} in log probabilities "
+                             f"(limit {VGG_EXACT_TOL})")
+    return {"ms": ms, "plain_ms": plain_ms, "images_per_s": len(x) / ms * 1e3,
+            "kernel_vs_plain_log_prob_err": err,
+            "kernel_vs_exact_log_prob_err": exact_err["kernel"],
+            "plain_vs_exact_log_prob_err": exact_err["plain"], "launches_per_forward": launches}
+
+
+def vgg_serve(card: str) -> dict:
+    """Phase: full-width VGG-16 under bench_quantized's serving policy (bf16
+    params, compute and outputs), quantized by quantize_net with two
+    seeded calibration batches, served through InferenceEngine; then the
+    same qnet under the f32 policy, kernel against plain."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    from deeplearning4j_tpu_torch.serve import InferenceEngine
+
+    rng = np.random.default_rng(INT8_SEED)
+    sizes = [int(s) for s in rng.integers(1, VGG_BATCH + 1, size=VGG_REQUESTS)]
+    images = rng.normal(size=(sum(sizes), 224, 224, 3)).astype(np.float32)
+    offsets = np.cumsum([0] + sizes)
+    requests = [images[offsets[i]:offsets[i + 1]] for i in range(len(sizes))]
+    calib = [rng.normal(size=(VGG_CALIB[1], 224, 224, 3)).astype(np.float32)
+             for _ in range(VGG_CALIB[0])]
+    config.set_dtype_policy(config.DTypePolicy(param_dtype=torch.bfloat16,
+                                               compute_dtype=torch.bfloat16,
+                                               output_dtype=torch.bfloat16))
+    try:
+        net = vgg16(device="cuda").init(seed=SEED)
+        qnet = quantize_net(net, calibration=calib)
+        report = qnet.quantization_
+        x = torch.from_numpy(images[:VGG_BATCH]).cuda()
+        fp = net.output(x).float()
+        top = fp.max(dim=1).values
+        entropy = -(fp * fp.clamp_min(1e-30).log()).sum(dim=1)
+        fp_ms = cuda_ms(lambda: net.output(x), reps=5)
+
+        # comparison only: record the batch of every dispatch, so that each
+        # answer can be held to qnet.output of the very batch it was served in
+        served, forward = [], qnet._forward
+
+        def recording(params, state, xb, **kw):
+            served.append(xb.clone())
+            return forward(params, state, xb, **kw)
+
+        answers = {}
+        qm.launches = 0
+        qnet._forward = recording
+        engine = InferenceEngine(qnet, max_batch=VGG_BATCH, max_latency_ms=5.0)
+        try:
+            def client(ids):
+                for i in ids:
+                    answers[i] = engine.predict(requests[i], timeout_s=300)
+
+            threads = [threading.Thread(target=client, args=(list(range(j, len(sizes), 4)),))
+                       for j in range(4)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("VGG-16 serving clients did not finish")
+        finally:
+            engine.shutdown()
+            del qnet._forward
+        launches, batches = qm.launches, engine.batches
+        if engine.precision != "int8" or len(answers) != len(sizes):
+            raise AssertionError(f"engine precision {engine.precision!r}, {len(answers)} of "
+                                 f"{len(sizes)} requests answered")
+        if launches != 3 * batches or batches != len(served) or batches == 0:
+            raise AssertionError(f"int8_matmul launched {launches} times for {batches} batches")
+
+        direct = [qnet.output(xb).float().cpu() for xb in served]
+        serve_err = alone_err = band_err = 0.0
+        for i, req in enumerate(requests):
+            a = torch.from_numpy(answers[i])
+            if tuple(a.shape) != (sizes[i], 1000) or not torch.isfinite(a).all():
+                raise AssertionError(f"VGG-16 request {i}: answer {tuple(a.shape)} or non-finite")
+            d, o = served_at(served, torch.from_numpy(req).cuda())
+            serve_err = max(serve_err, (a - direct[d][o:o + sizes[i]]).abs().max().item())
+            alone = qnet.output(req).float()
+            alone_err = max(alone_err, log_prob_err(a, alone.cpu()))
+            band_err = max(band_err, (alone - net.output(req).float()).abs().max().item())
+        log(f"  readings: fp top prob max {top.max().item():.4f} mean {top.mean().item():.4f}, "
+            f"entropy {entropy.mean().item():.3f}; engine vs its batch {serve_err:.3g}, vs the "
+            f"request alone {alone_err:.4g} (log probabilities); int8 vs fp {band_err:.4g}, "
+            f"band {report.tolerance_band:.4g}")
+        if not serve_err <= VGG_SERVE_TOL:
+            raise AssertionError(f"engine answers differ from qnet.output of their batch by "
+                                 f"{serve_err} (limit {VGG_SERVE_TOL})")
+        if not band_err <= report.tolerance_band:
+            raise AssertionError(f"int8 outputs differ from fp by {band_err}, past the "
+                                 f"calibrated band {report.tolerance_band}")
+        bf16 = int8_forward_check(qnet, x, "bfloat16")
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    f32 = int8_forward_check(qnet, x, "float32")      # phase: the same qnet, f32 policy
+    result = {"card": card, "params": net.num_params(), "report": report.to_dict(),
+              "fp_top_prob_max": top.max().item(), "fp_top_prob_mean": top.mean().item(),
+              "fp_entropy_mean": entropy.mean().item(),
+              "requests": len(sizes), "images": int(sum(sizes)), "batches": batches,
+              "launches": launches, "wall_s": wall, "images_per_s": sum(sizes) / wall,
+              "serve_max_abs_err": serve_err, "alone_max_log_prob_err": alone_err,
+              "int8_vs_fp_max_abs": band_err,
+              "fp_forward_ms_batch32": fp_ms,
+              "fp_forward_images_per_s_batch32": VGG_BATCH / fp_ms * 1e3,
+              "bf16": bf16, "f32": f32}
+    log(f"VGG-16 int8 on {card}: {result['params']} params; quantize_net report "
+        f"{json.dumps(report.to_dict())}")
+    log(f"  fp softmax: largest probability {result['fp_top_prob_max']:.4f} (mean of the "
+        f"row maxima {result['fp_top_prob_mean']:.4f}), mean entropy "
+        f"{result['fp_entropy_mean']:.3f} nats (uniform: {np.log(1000):.3f})")
+    log(f"  engine: {result['images']} images in {len(sizes)} requests, {batches} batches, "
+        f"{launches} int8_matmul launches; {result['images_per_s']:.1f} images/s (smoke); "
+        f"answer vs qnet.output of its batch {serve_err:.2e}, of the request alone "
+        f"{alone_err:.2e} (log probabilities, bf16 convolution algorithms); int8 vs fp "
+        f"{band_err:.3e} within the band {report.tolerance_band:.3e}")
+    log(f"  forward at batch {VGG_BATCH}, bf16: fp {fp_ms:.2f} ms "
+        f"({result['fp_forward_images_per_s_batch32']:.1f} images/s), int8 {bf16['ms']:.2f} ms "
+        f"({bf16['images_per_s']:.1f} images/s), int8 with the plain version "
+        f"{bf16['plain_ms']:.2f} ms; kernel vs plain {bf16['kernel_vs_plain_log_prob_err']:.2e} "
+        f"(limit {VGG_PLAIN_TOL['bfloat16']})")
+    log(f"  f32 policy: int8 {f32['ms']:.2f} ms, plain {f32['plain_ms']:.2f} ms; kernel vs plain "
+        f"{f32['kernel_vs_plain_log_prob_err']:.2e} (limit {VGG_PLAIN_TOL['float32']}); against the exact product kernel "
+        f"{f32['kernel_vs_exact_log_prob_err']:.2e} (limit {VGG_EXACT_TOL}), plain "
+        f"{f32['plain_vs_exact_log_prob_err']:.2e}")
+    return result
+
+
+def int8_entry(rows, vgg: dict) -> dict:
+    """The kernels-line entry of int8_matmul: bf16 (the serving policy)
+    summed over VGG-16's three dense calls at batch 32, f32 beside it, and
+    every per-shape row."""
+    def pick(dname):
+        sel = [r for r in rows if r["dtype"] == dname and r["M"] == VGG_BATCH
+               and r["shape"].startswith("vgg16")]
+        tot = {key: sum(r[key] for r in sel)
+               for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+        by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+        return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
+                "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]), "bound_by": by,
+                "max_abs_err": max(r["max_abs_err"] for r in sel)}
+    shapes = [{key: r[key] for key in ("shape", "dtype", "M", "K", "N", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+              for r in rows]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
+            "replaces": "deeplearning4j_tpu/ops/pallas/quant_matmul.py:45",
+            "launches": vgg["launches"],
+            "launches_per_forward": vgg["bf16"]["launches_per_forward"], **pick("bfloat16"),
+            "work": f"VGG-16's three dense layers at batch {VGG_BATCH}, bf16, L2 cold (f32_*: "
+                    f"f32); launches: the 16 served requests",
+            **{f"f32_{k}": v for k, v in pick("float32").items()}, "shapes": shapes}
+
+
 def flash_entry(name, source, replaces, rows, prefix, launches, work) -> dict:
     """The kernels-line entry of one flash kernel (``prefix`` "" for the
     forward, "bwd_" for the backward): f32 figures at the base case, bf16
@@ -1122,6 +1521,12 @@ def main() -> int:
     bert_served = bert_serve(card)
     bert_head = bert_finetune(card)
     bert_check = bert_train_check(card)
+    torch.cuda.empty_cache()
+
+    log(f"int8_matmul kernel check: {len(INT8_SHAPES)} shapes at M in {INT8_BATCHES}, f32 and "
+        f"bf16, L2 cold")
+    int8_rows = check_int8((torch.float32, torch.bfloat16))
+    vgg = vgg_serve(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1160,6 +1565,7 @@ def main() -> int:
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
                     flash_launches[1], flash_work),
+        int8_entry(int8_rows, vgg),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1170,7 +1576,8 @@ def main() -> int:
          "per_headline_step": {"forward": h16, "backward": hb16},
          "serve": serving, "train": training, "headline": head,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
-         "bert_train_check": bert_check, "kernels": kernels,
+         "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
+         "kernels": kernels,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,14 @@
 """Carry weights from the JAX package into the port.
 
 ``load_jax_params(net, params, state)`` takes a JAX net's ``params_`` and
-``state_`` as nested dicts of numpy arrays (vertex name → name → array,
-in the JAX layouts: NHWC activations, HWIO conv kernels, dense
-``W [nIn, nOut]``) and fills the port's net with the same values.  The
-port keeps those layouts, so this is a checked copy: every vertex and
-every key must match the port's own, with the same shapes.
+``state_`` as numpy arrays in the JAX layouts (NHWC activations, HWIO
+conv kernels, dense ``W [nIn, nOut]``) and fills the port's net with the
+same values: nested dicts (vertex name → name → array) for a
+``ComputationGraph``, lists of per-layer dicts for a
+``MultiLayerNetwork``, including a quantized net's int8 ``W_q`` and f32
+``W_scale`` (quantize the port's net first, so that its keys match).
+The port keeps those layouts, so this is a checked copy: every vertex or
+layer and every key must match the port's own, with the same shapes.
 
 ``load_jax_opt_state(net, opt_state)`` carries a JAX net's optimizer
 state (``net.opt_state``, the optax state of its updater) into the
@@ -26,20 +29,30 @@ import torch
 from deeplearning4j_tpu_torch.train.updaters import from_dict
 
 
-def _fill(name: str, ours: dict, theirs: dict) -> dict:
-    """``ours`` (nested dicts of tensors, any depth) refilled from
-    ``theirs``: the same keys at every level and the same shapes."""
+def _fill(name: str, ours, theirs):
+    """``ours`` (nested dicts and lists of tensors, any depth) refilled
+    from ``theirs``: the same keys and lengths at every level, the same
+    shapes, and int8 only from int8."""
+    if isinstance(ours, list):
+        if not isinstance(theirs, (list, tuple)) or len(theirs) != len(ours):
+            got = len(theirs) if isinstance(theirs, (list, tuple)) else type(theirs).__name__
+            raise KeyError(f"{name}: {got} entries != {len(ours)}")
+        return [_fill(f"{name}[{i}]", t, th) for i, (t, th) in enumerate(zip(ours, theirs))]
     if not isinstance(theirs, dict) or set(theirs) != set(ours):
         got = sorted(theirs) if isinstance(theirs, dict) else type(theirs).__name__
         raise KeyError(f"{name}: keys {got} != {sorted(ours)}")
     out = {}
     for key, t in ours.items():
-        if isinstance(t, dict):
+        if isinstance(t, (dict, list)):
             out[key] = _fill(f"{name}/{key}", t, theirs[key])
             continue
         arr = np.array(theirs[key])
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{name}/{key}: shape {arr.shape} != {tuple(t.shape)}")
+        if (t.dtype == torch.int8) != (arr.dtype == np.int8):
+            raise TypeError(f"{name}/{key}: dtype {arr.dtype} cannot fill {t.dtype}")
+        if arr.dtype.name == "bfloat16":   # numpy's bf16 extension type: widen exactly
+            arr = arr.astype(np.float32)
         out[key] = torch.as_tensor(arr, dtype=t.dtype, device=t.device)
     return out
 

@@ -1,6 +1,6 @@
 """Zoo model builders (port of ``deeplearning4j_tpu/models/zoo.py``):
-ResNet-50 so far.  The configuration is the JAX package's, layer for
-layer, so its JSON matches the one that package writes.
+ResNet-50 and VGG-16 so far.  Each configuration is the JAX package's,
+layer for layer, so its JSON matches the one that package writes.
 """
 
 from __future__ import annotations
@@ -12,9 +12,10 @@ from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, FusedBottleneck,
+    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer, FusedBottleneck,
     GlobalPoolingLayer, OutputLayer, SubsamplingLayer, ZeroPaddingLayer,
 )
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.train.updaters import Nesterovs
 
@@ -101,3 +102,27 @@ def resnet50(seed: int = 123, num_classes: int = 1000, height: int = 224,
                                     loss="mcxent"), "avgpool")
     gb.set_outputs("out")
     return ComputationGraph(gb.build(), device=device)
+
+
+def vgg16(seed: int = 123, num_classes: int = 1000,
+          device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """VGG-16 (VGG16.java parity): 224x224x3 NHWC, 13 3x3 "same" convs in
+    5 blocks each closed by a 2x2 max pool, dense 4096, 4096 and the
+    softmax output, He-normal weights, ``Nesterovs(1e-2, 0.9)``; a
+    ``MultiLayerNetwork`` on ``device`` (the CUDA card by default; raises
+    without one unless ``device="cpu"``), not initialised yet."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed)
+         .updater(Nesterovs(1e-2, 0.9))
+         .weight_init("relu")
+         .list())
+    for n_out, convs in [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]:
+        for _ in range(convs):
+            b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                     convolution_mode="same", activation="relu"))
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+    b.layer(DenseLayer(n_out=4096, activation="relu"))
+    b.layer(DenseLayer(n_out=4096, activation="relu"))
+    b.layer(OutputLayer(n_out=num_classes, activation="softmax", loss="mcxent"))
+    b.set_input_type(InputType.convolutional(224, 224, 3))
+    return MultiLayerNetwork(b.build(), device=device)

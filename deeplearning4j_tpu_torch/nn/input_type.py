@@ -58,6 +58,18 @@ class InputType:
             return self.depth * self.height * self.width * self.channels
         raise ValueError(self.kind)
 
+    def batch_shape(self, batch: int = 1) -> tuple:
+        """Example array shape for a given batch size (NHWC / NTC)."""
+        if self.kind in ("ff", "cnn_flat"):
+            return (batch, self.flat_size())
+        if self.kind == "rnn":
+            return (batch, self.timesteps or 1, self.size)
+        if self.kind == "cnn":
+            return (batch, self.height, self.width, self.channels)
+        if self.kind == "cnn3d":
+            return (batch, self.depth, self.height, self.width, self.channels)
+        raise ValueError(self.kind)
+
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         return {k: v for k, v in d.items() if v not in (0, None) or k == "kind"}

@@ -7,7 +7,9 @@ these to XLA too).
 
 Activations stay NHWC and conv weights HWIO, as in the JAX package.  At
 the torch op the NHWC tensor is viewed as NCHW with ``permute`` (a
-channels-last view, no copy) and the weight is permuted to OIHW.
+channels-last view, no copy) and the weight is permuted to OIHW.  A
+quantized ``ConvolutionLayer`` (``nn/quantize.py``) widens its int8
+kernel to the compute dtype on read, as the JAX package does.
 
 JAX's "SAME" padding puts ``total // 2`` before and the rest after,
 which ``torch.nn`` cannot express when the two differ, so SAME pads are
@@ -27,6 +29,7 @@ from deeplearning4j_tpu_torch.config import dtype_policy
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.quantize import dequantize_weight
 
 
 def _pair(v) -> tuple:
@@ -88,6 +91,15 @@ class ConvolutionLayer(Layer):
             params["b"] = self._init_bias((self.n_out,))
         return params
 
+    def _weight(self, params):
+        """The HWIO kernel as stored, or widened from int8 ``W_q`` and its
+        per-channel ``W_scale`` to the compute dtype for a quantized net
+        (``nn/quantize.py``)."""
+        if "W_q" in params:
+            return dequantize_weight(params["W_q"], params["W_scale"],
+                                     dtype_policy().compute_dtype)
+        return params["W"]
+
     def apply(self, params, state, x, *, train=False, mask=None):
         self._no_dropout(train)
         (kh, kw), stride, pad, dilation = self._dims()
@@ -103,7 +115,7 @@ class ConvolutionLayer(Layer):
                 pad = (pt, pl)
         elif self.convolution_mode not in ("truncate", "strict"):
             raise NotImplementedError(f"convolution_mode {self.convolution_mode!r}")
-        y = _nhwc(F.conv2d(_nchw(x), params["W"].to(cdt).permute(3, 2, 0, 1),
+        y = _nhwc(F.conv2d(_nchw(x), self._weight(params).to(cdt).permute(3, 2, 0, 1),
                            stride=stride, padding=pad, dilation=dilation))
         if self.has_bias:
             y = y + params["b"].to(y.dtype)

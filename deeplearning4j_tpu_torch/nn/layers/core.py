@@ -5,9 +5,10 @@
 also keeps in its ``core.py``), in eval and train mode.
 
 Dense weights keep the JAX layout ``W [nIn, nOut]``; the product is
-``x @ W + b`` in the policy's compute dtype.  Not ported yet: the int8
-``W_q`` branch of the JAX ``DenseLayer`` and dropout (a training pass
-with ``dropout`` set raises).
+``x @ W + b`` in the policy's compute dtype.  A quantized layer
+(``nn/quantize.py``: int8 ``W_q`` and f32 ``W_scale`` in place of ``W``)
+runs its product through ``ops.kernels.quant_matmul.int8_matmul``.  Not
+ported yet: dropout (a training pass with ``dropout`` set raises).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from deeplearning4j_tpu_torch.config import dtype_policy
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.ops.kernels import quant_matmul
 
 
 @register_layer("dense")
@@ -46,11 +48,20 @@ class DenseLayer(Layer):
     def pre_output(self, params, state, x, *, train=False):
         self._no_dropout(train)
         policy = dtype_policy()
-        n_in = params["W"].shape[0]
+        quantized = "W_q" in params   # nn.quantize: per-channel int8 weights
+        n_in = (params["W_q"] if quantized else params["W"]).shape[0]
         if x.ndim > 2 and x.shape[-1] != n_in:
             x = x.reshape(x.shape[0], -1)  # CNN→FF flatten (NHWC order)
-        y = torch.matmul(x.to(policy.compute_dtype),
-                         params["W"].to(policy.compute_dtype))
+        if quantized:
+            # the int8 weight streams one byte per weight; the dequant is
+            # fused into the product (the CUDA kernel on the card)
+            xc = x.to(policy.compute_dtype)
+            y = quant_matmul.int8_matmul(xc.reshape(-1, n_in).contiguous(), params["W_q"],
+                                         params["W_scale"])
+            y = y.reshape(xc.shape[:-1] + (y.shape[-1],))
+        else:
+            y = torch.matmul(x.to(policy.compute_dtype),
+                             params["W"].to(policy.compute_dtype))
         if self.has_bias:
             y = y + params["b"].to(y.dtype)
         return y.to(policy.output_dtype)

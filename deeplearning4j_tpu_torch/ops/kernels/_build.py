@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("matmul_bn_act", "matmul_bn_act_bwd", "flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("matmul_bn_act", "matmul_bn_act_bwd", "flash_attention_fwd", "flash_attention_bwd",
+           "int8_matmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

@@ -30,12 +30,12 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from deeplearning4j_tpu_torch.config import resolve_device
 
 
 class Overloaded(RuntimeError):
@@ -169,26 +169,25 @@ class _BatchStage:
 
 
 class InferenceEngine:
-    """Micro-batching front end for one model on one device.
+    """Micro-batching front end for one model on the model's device.
 
-    ``model`` is a ``ComputationGraph`` (anything with ``_forward``,
-    ``params_``, ``state_`` and ``device``) whose parameters live on
-    ``device``, the CUDA card unless the caller says otherwise.
-    ``batches`` counts dispatched forwards.
+    ``model`` is a ``ComputationGraph`` or ``MultiLayerNetwork`` (anything
+    with ``_forward``, ``params_``, ``state_`` and ``device``); the engine
+    dispatches on ``model.device`` and raises if that is a CUDA card that
+    is absent.  ``batches`` counts dispatched forwards; ``precision`` is
+    ``"int8"`` for a quantized net (``nn/quantize.py``), else ``"fp"``.
     """
 
     _SHUTDOWN = object()
 
     def __init__(self, model, name: str = "default", max_batch: int = 32,
-                 max_latency_ms: float = 5.0, queue_limit: int = 128,
-                 device: Any = DEFAULT_DEVICE):
+                 max_latency_ms: float = 5.0, queue_limit: int = 128):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
-        self.device = resolve_device(device)
-        if model.device.type != self.device.type:
-            raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
+        self.device = resolve_device(model.device)
+        self.precision: str = getattr(model, "quantized_", None) or "fp"
         self.model = model
         self.name = name
         self.max_batch = int(max_batch)

@@ -13,10 +13,12 @@ import torch
 
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.data import DataSet
-from deeplearning4j_tpu_torch.models import resnet50
+from deeplearning4j_tpu_torch.models import resnet50, vgg16
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models import BertConfig, BertForMaskedLM
-from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn, flash_attention
+from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn, flash_attention, quant_matmul
 from deeplearning4j_tpu_torch.serve import InferenceEngine
 from deeplearning4j_tpu_torch.train import Trainer
 
@@ -42,6 +44,27 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_no_jax_scan_covers_the_int8_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("nn/conf.py", "nn/multilayer.py", "nn/quantize.py", "models/zoo.py",
+                   "ops/kernels/quant_matmul.py", "interop.py", "serve/engine.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+def test_profile_counts_every_kernel_of_the_port_in_its_own_category():
+    """chip_profile.py files each CUDA kernel of csrc/ under a named
+    category, never under "other" or a library category."""
+    import re
+    import chip_profile
+    ours = {"int8_matmul", "matmul_bn_act", "matmul_bn_act_bwd", "flash_attention",
+            "flash_attention_bwd"}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        names = re.findall(r"__global__.*?\b(\w+_kernel)\(", src.read_text(), re.S)
+        assert names, src.name
+        for name in names:
+            assert chip_profile.category(name) in ours, (src.name, name)
+
+
 def test_port_reads_no_dl4j_tpu_environment_variable():
     for path in PORT_FILES:
         assert "DL4J_TPU_" not in path.read_text(), path
@@ -60,11 +83,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
         ComputationGraph(net.conf)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         net.init(device="cuda")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        InferenceEngine(net)
     net.device = torch.device("cuda")   # a net made where a card was
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vgg16()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(vgg16(device="cpu").conf)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BertForMaskedLM(BertConfig.tiny())
 
@@ -80,7 +107,7 @@ def test_cpu_run_never_touches_the_kernel_loader(monkeypatch):
     x = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32)
     y = net.output(x)
     assert tuple(y.shape) == (2, 10) and torch.isfinite(y).all()
-    with InferenceEngine(net, max_batch=4, device="cpu") as engine:
+    with InferenceEngine(net, max_batch=4) as engine:
         assert engine.predict(x, timeout_s=60).shape == (2, 10)
     bwd_before = conv_bn.bwd_launches
     loss = Trainer(net).fit_batch(DataSet(x, np.eye(10, dtype=np.float32)[[1, 2]]))
@@ -284,3 +311,82 @@ def test_failed_flash_launches_raise_and_are_not_counted():
     assert (flash_attention.launches, flash_attention.bwd_launches) == (before[0] + 1,
                                                                         before[1] + 1)
     flash_attention.launches, flash_attention.bwd_launches = before
+
+
+def _tiny_vgg(device="cpu"):
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer, OutputLayer,
+                                                    SubsamplingLayer)
+    conf = (NeuralNetConfiguration.builder().seed(1).weight_init("relu").list()
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(3, 3), convolution_mode="same",
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=16, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(8, 8, 3)).build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def test_cpu_int8_run_never_touches_the_kernel_loader(monkeypatch):
+    """A quantized net serves on the CPU, directly and through the engine,
+    through int8_matmul_plain: no build, no launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    x = np.random.default_rng(0).normal(size=(3, 8, 8, 3)).astype(np.float32)
+    qnet = quantize_net(_tiny_vgg().init(seed=2), calibration=[x])
+    before = quant_matmul.launches
+    y = qnet.output(x)
+    assert tuple(y.shape) == (3, 10) and torch.isfinite(y).all()
+    with InferenceEngine(qnet, max_batch=4) as engine:
+        assert engine.precision == "int8"
+        assert engine.predict(x, timeout_s=60).shape == (3, 10)
+    assert quant_matmul.launches == before
+
+
+class _StubInt8Lib:
+    """The built library: returns ``rc`` from the launch."""
+
+    def __init__(self, rc):
+        self.rc = rc
+        self.args = None
+
+    def int8_matmul_f32(self, *args):
+        self.args = args
+        return self.rc
+
+
+def test_failed_int8_launch_raises_and_is_not_counted():
+    m, k, n = 7, 4096, 1000
+    x, w_q, scale = torch.zeros(m, k), torch.zeros(k, n, dtype=torch.int8), torch.ones(n)
+    before = quant_matmul.launches
+    lib = _StubInt8Lib(rc=9)   # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        quant_matmul._launch(lib, x, w_q, scale, 0, 132)
+    assert quant_matmul.launches == before
+    # pointers, then M, N, K, k rows per split, splits, word loads of w_q and of x, stream
+    splits, per = quant_matmul.k_splits(k, n, 132, quant_matmul.TILE_N[torch.float32])
+    assert len(lib.args) == 13 and lib.args[5:12] == (m, n, k, per, splits, 1, 1)
+    y = quant_matmul._launch(_StubInt8Lib(rc=0), x, w_q, scale, 0, 132)
+    assert tuple(y.shape) == (m, n) and y.dtype == x.dtype
+    assert quant_matmul.launches == before + 1
+    quant_matmul.launches = before
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ({"x": _meta(7, 96, dtype=torch.float16)}, TypeError, "float32 or bfloat16"),
+    ({"w_q": _meta(96, 48)}, TypeError, "w_q must be int8"),
+    ({"w_q": _meta(48, 96, dtype=torch.int8).t()}, ValueError, "w_q must be contiguous"),
+    ({"scale": _meta(48, dtype=torch.float64)}, ValueError, "scale must be float32"),
+    ({"scale": _meta(47)}, ValueError, "scale must be float32"),
+    ({"x": _meta(7, 95)}, ValueError, r"not \[M, K\]"),
+    ({"x": _meta(7, 96).t().contiguous().t()}, ValueError, "x must be contiguous"),
+    ({}, ValueError, "unsupported device"),
+])
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(bad, error, match):
+    args = {"x": _meta(7, 96), "w_q": _meta(96, 48, dtype=torch.int8), "scale": _meta(48)}
+    args.update(bad)
+    with pytest.raises(error, match=match):
+        quant_matmul.int8_matmul(**args)

@@ -95,7 +95,7 @@ def test_engine_requests_match_jax(carried):
     sizes = [1, 3, 2, 4, 2]            # 12 rows from five callers
     offsets = np.cumsum([0] + sizes)
     results = {}
-    with InferenceEngine(net, max_batch=8, max_latency_ms=20.0, device="cpu") as engine:
+    with InferenceEngine(net, max_batch=8, max_latency_ms=20.0) as engine:
         def call(i):
             results[i] = engine.predict(x[offsets[i]:offsets[i + 1]], timeout_s=60)
         threads = [threading.Thread(target=call, args=(i,)) for i in range(len(sizes))]
@@ -157,7 +157,7 @@ class _Doubler:
 
 def test_engine_pads_to_bucket_and_slices_rows():
     model = _Doubler()
-    with InferenceEngine(model, max_batch=8, max_latency_ms=1.0, device="cpu") as engine:
+    with InferenceEngine(model, max_batch=8, max_latency_ms=1.0) as engine:
         x = np.arange(15, dtype=np.float32).reshape(5, 3)
         np.testing.assert_array_equal(engine.predict(x, timeout_s=30), 2 * x)
     assert model.rows == [8]            # 5 rows padded to the bucket of 8
@@ -166,7 +166,7 @@ def test_engine_pads_to_bucket_and_slices_rows():
 def test_engine_sheds_when_full_and_refuses_after_shutdown():
     gate = threading.Event()
     engine = InferenceEngine(_Doubler(gate), max_batch=1, max_latency_ms=0.0,
-                             queue_limit=1, device="cpu")
+                             queue_limit=1)
     try:
         first = engine.submit(np.ones((1, 2), np.float32))
         futures = [first]
@@ -182,11 +182,23 @@ def test_engine_sheds_when_full_and_refuses_after_shutdown():
         engine.submit(np.ones((1, 2), np.float32))
 
 
-def test_engine_device_must_match_model():
-    model = _Doubler()
-    model.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="lives on"):
-        InferenceEngine(model, device="cpu")
+def test_engine_dispatches_on_the_model_device():
+    """The engine takes its device from the model: a CPU net's engine
+    stages its batches on the CPU and answers there."""
+    seen = []
+
+    class _Recorder(_Doubler):
+        def _forward(self, params, state, x, *, train, mask=None):
+            seen.append(x.device)
+            return super()._forward(params, state, x, train=train, mask=mask)
+
+    model = _Recorder()
+    with InferenceEngine(model, max_batch=4, max_latency_ms=1.0) as engine:
+        assert engine.device == model.device == torch.device("cpu")
+        assert engine.precision == "fp"
+        x = np.ones((3, 2), np.float32)
+        np.testing.assert_array_equal(engine.predict(x, timeout_s=30), 2 * x)
+    assert seen == [torch.device("cpu")]
 
 
 def _drop_relu_in(x, w, a=None, b=None, relu_in=False):
