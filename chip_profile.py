@@ -49,6 +49,8 @@ CATEGORIES = (
                            "bwd_dw_bf16_kernel", "colsum_kernel")),
     ("flash_attention", ("fa_fwd_f32_kernel", "fa_fwd_bf16_kernel")),
     ("flash_attention_bwd", ("fa_bwd_f32_kernel", "fa_bwd_bf16_kernel", "dq_reduce_kernel")),
+    ("flash_attention_bwd_split", ("fa_dq_f32_kernel", "fa_dq_bf16_kernel", "fa_dkv_f32_kernel",
+                                   "fa_dkv_bf16_kernel")),
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90")),
     ("softmax", ("softmax",)),

@@ -39,30 +39,49 @@ no result line:
    ``Nesterovs(0.1, 0.9)``, a few timed steps (a smaller power-of-two
    batch, said so, if 256 does not fit the card); then phases 3 and 5
    again, in bf16, at every distinct shape of the headline's batch;
-8. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
+8. phases 3 and 5 at K and N that are no multiples of 32 (``RAGGED_CALLS``,
+   M = 32 x 56 x 56), f32 and bf16, with planted faults for the ragged
+   tails (x's K tail zero-filled and still folded, act(b) in place of
+   act(x a + b); the forward's columns, the backward's dx and dW tails
+   left unwritten); then a graph of the reference's ragged bottlenecks
+   FusedBottleneck (4, 4, 8) and (8, 8, 32), f32: 8 requests through the
+   engine (6 launches per batch, answers equal to direct forwards), the
+   forward against the plain version, and one Trainer step against one
+   through both plain versions;
+9. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
    4096, 64), in f32 and bf16: no mask; a key mask with valid lengths 4096
    and 2500; causal at offsets (1024, 512); Tq = 1000 against Tk = 4096; a
-   batch row whose mask is all zeros (dead rows).  Both kernels are held to
-   their plain versions (o, m, l; the normalized output and lse; dq, dk, dv
-   with O(1) cotangents), a planted fault (the lse shift or delta dropped)
-   must move the check far past its limit, and each is timed against the
-   plain version and ``scaled_dot_product_attention`` (forward and autograd
-   backward, a yardstick only);
-9. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
+   batch row whose mask is all zeros (dead rows).  Both kernels and the
+   two-kernel backward (``merged=False``) are held to their plain versions
+   (o, m, l; the normalized output and lse; dq, dk, dv with O(1)
+   cotangents), the two backward forms to each other, a planted fault (the
+   lse shift or delta dropped) must move the check far past its limit, and
+   each is timed against the plain version and
+   ``scaled_dot_product_attention`` (forward and autograd backward, a
+   yardstick only); then one call of ``flash_attention_block_bwd(merged=
+   False)`` with every flash count set to 0 before it: 2 split launches;
+10. the same at head dims 32 (24 heads) and 128 (6 heads), BERT-base's
+   width, and the base case at 80 (12 heads, zero-padded to 128);
+11. both backward forms at (2, 12, 16384, 64), f32 and bf16, and the split
+   alone at (2, 12, 32768, 64), bf16, where the merged form's dq partials
+   would not fit the card: times, peak memory, split against merged on
+   all heads and against the plain version on two (batch, head) slices;
+12. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
    ``max_position=4096``, ``use_flash=None``, seeded weights) through
    ``predict_mlm`` on 2 x 4096 seeded ids, under the f32 and the bf16
    policy: 12 forward flash launches per call, the kernel path against
    the plain path in log-softmax, and a seq-512 call that takes the einsum
-   path (no launch);
-10. fine-tune ``bench.py``'s long-sequence configuration (4 layers of
+   path (no launch); then the same with 2 layers at 6 and at 24 heads
+   (head dims 128 and 32), 2 launches per call;
+13. fine-tune ``bench.py``'s long-sequence configuration (4 layers of
    BERT-base, seq 4096, batch 2, bf16 policy, ``use_flash=True``,
    ``Adam(2e-5)``, its seeded ids, labels and weights) through
    ``BertForMaskedLM.fit``: one warm-up step, then 3 timed steps, each with
    4 forward and 4 backward flash launches; peak memory;
-11. the same fine-tune in f32 through the kernels and through both plain
+14. the same fine-tune in f32 through the kernels and through both plain
    versions from one set of weights and the same dropout masks: step-0
    loss, every param's step-0 update and the later losses agree;
-12. the int8 dequant-matmul alone at every (K, N) it serves, VGG-16's
+15. the int8 dequant-matmul alone at every (K, N) it serves, VGG-16's
    (25088, 4096), (4096, 4096), (4096, 1000) and ``bench_quantized``'s MLP
    (1024, 1024), (1024, 10), at M = 1, 2, 4, 7, 8, 16 and 32 (every bucket
    of the engine, and ragged rows), in f32 and bf16: held to
@@ -70,7 +89,7 @@ no result line:
    ulp per entry), two planted faults (the scale dropped, the last K split
    skipped) at least 10x past the limit, and timed with the L2 flushed
    against the plain version, a library yardstick and the bound;
-13. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
+16. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
    classes, seeded weights) under ``bench_quantized``'s serving policy
    (bf16 params, compute and outputs), ``quantize_net`` with two seeded
    calibration batches, 16 seeded requests of 1-32 images from 4 threads
@@ -80,12 +99,12 @@ no result line:
    forward through the kernel against the same qnet with
    ``int8_matmul_plain`` in log probabilities, and the forward alone at
    batch 32 timed for the fp and the int8 net;
-14. the same qnet under the f32 policy: 3 launches per forward; the
+17. the same qnet under the f32 policy: 3 launches per forward; the
    forward through the kernel against the same qnet with its dense
    products exact (f64) at 1e-5 in log probabilities, and against
    ``int8_matmul_plain`` at 1e-4 (cuBLAS's own f32 rounding, printed
    against the exact product beside the kernel's);
-15. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+18. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
@@ -147,6 +166,18 @@ TRAIN_UPDATE_TOL = 0.25
 TRAIN_LOSS_TOL = 5e-3
 HEADLINE_BATCH = 256   # bench.py's ResNet-50 training configuration
 HEADLINE_STEPS = 3
+# matmul_bn_act at K and N that are no multiples of 32 (the ragged template),
+# at the M of a batch-32 56x56 plane, held to the limits of the ResNet shapes
+RAGGED_M = BATCH * 56 * 56
+RAGGED_CALLS = tuple((RAGGED_M, k, n, pro) for k, n, pro in (
+    (4, 8, True), (4, 8, False), (8, 4, True), (24, 100, True), (100, 24, False),
+    (200, 1000, True), (1000, 200, True)))
+# a planted fault (the forward's columns past the last multiple of 32 left
+# unwritten) must move the check this many times past its limit
+RAGGED_FAULT_MARGIN = 10
+# a ComputationGraph of the reference's own ragged bottlenecks
+# (tests/test_conv_bn_fused.py): FusedBottleneck (4, 4, 8) and (8, 8, 32)
+RAGGED_GRAPH_INPUT = (56, 56, 4)
 
 
 def log(msg: str) -> None:
@@ -161,15 +192,22 @@ def card_line() -> str:
 
 
 def ptxas_usage(name: str, nvcc_log: str) -> dict:
-    """Kernel name -> ptxas's "Used N registers, ... smem" line."""
+    """Kernel name with its template arguments -> ptxas's "Used N
+    registers, ... smem" line, after its spill line where it spills."""
     from deeplearning4j_tpu_torch.ops.kernels import _build
-    known = re.findall(r"\b(\w+_kernel)\(", (_build.CSRC / f"{name}.cu").read_text())
-    usage, kernel = {}, None
+    known = sorted({k for path in _build.source_files(name)
+                    for k in re.findall(r"\b(\w+_kernel)\(", path.read_text())},
+                   key=len, reverse=True)
+    usage, kernel, spill = {}, None, ""
     for line in nvcc_log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in known if k in line), line)
+            base = next((k for k in known if k in line), line)
+            args = re.findall(r"L[ib](\d+)E", line.split(base, 1)[-1])
+            kernel, spill = base + (f"<{', '.join(args)}>" if args else ""), ""
+        elif "spill" in line and kernel and not re.search(r"\b0 bytes spill stores", line):
+            spill = line.strip() + "; "
         elif "Used" in line and kernel:
-            usage[kernel] = line.split(":", 1)[1].strip()
+            usage[kernel] = spill + line.split(":", 1)[1].strip()
     return usage
 
 
@@ -215,6 +253,21 @@ def library_matmul_bn_act(x, w, a, b):
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+def fwd_errs(got, want) -> dict:
+    """The forward's (y, s1, s2) against the plain version's, each over its
+    scale: y over max |y|, s1 over max_n sum_m |y|, s2 over max |s2|."""
+    (y, s1, s2), (ye, s1e, s2e) = got, want
+    return {"y": rel_max(y, ye),
+            "s1": (s1 - s1e).abs().max().item() / ye.float().abs().sum(0).max().item(),
+            "s2": (s2 - s2e).abs().max().item() / s2e.abs().max().item()}
+
+
+def fwd_over_limit(got, want, dname: str) -> float:
+    """How far past its limit the forward check reads ``got``: the largest
+    of y, s1 and s2 over their limits."""
+    return max(v / TOL[dname][key] for key, v in fwd_errs(got, want).items())
+
+
 def check_kernels(calls, dtypes) -> list[dict]:
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
@@ -229,22 +282,43 @@ def check_kernels(calls, dtypes) -> list[dict]:
             b = torch.randn(k, device="cuda", generator=gen) * 0.2 if pro else None
             y, s1, s2 = conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)
             torch.cuda.synchronize()
-            ye, s1e, s2e = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=True)
+            want = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=True)
+            ye = want[0]
             yd = (y.float() - ye.float()).abs().max().item()
-            errs = {"y": yd / ye.float().abs().max().item(),
-                    "s1": (s1 - s1e).abs().max().item()
-                    / ye.float().abs().sum(0).max().item(),
-                    "s2": (s2 - s2e).abs().max().item() / s2e.abs().max().item()}
+            errs = fwd_errs((y, s1, s2), want)
             bad = {key: v for key, v in errs.items() if not v <= TOL[dname][key]}
             if bad:
                 raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n} "
                                      f"prologue={pro}: errors {bad} over {TOL[dname]}")
+            # planted faults of the ragged tails, each read as the check reads
+            # it: its largest error over the limit of y, s1 or s2
+            faults = {}
+            if n % 32:
+                # the columns past the last multiple of 32 left unwritten
+                yf = ye.float().clone()
+                yf[:, n // 32 * 32:] = 0.0
+                faults["N tail unwritten"] = fwd_over_limit((yf, yf.sum(0), (yf * yf).sum(0)),
+                                                            want, dname)
+            if k % 32 and pro:
+                # the trap of a ragged K: x's tail past the last multiple of 32
+                # zero-filled and still folded, each of its rows adding act(b) W
+                # in place of act(x a + b) W
+                xf = x.clone()
+                xf[:, k // 32 * 32:] = 0
+                faults["K tail folded"] = fwd_over_limit(
+                    conv_bn.matmul_bn_act_plain(xf, w, a, b, relu_in=True), want, dname)
+                del xf
+            fault = min(faults.values()) if faults else None
+            if faults and not fault >= RAGGED_FAULT_MARGIN:
+                raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n}: a tail fault "
+                                     f"moves the check by only {faults} times its limit")
             isz = x.element_size()
             nbytes = (m * k + k * n + m * n) * isz + (2 * k * 4 if pro else 0) + 2 * n * 4
             flops = 2 * m * k * n
             row = {"dtype": dname, "M": m, "K": k, "N": n, "prologue": pro,
                    "count": calls.count((m, k, n, pro)),
-                   "max_abs_err": yd, "rel_err": errs,
+                   "max_abs_err": yd, "rel_err": errs, "fault_over_limit": faults,
+                   "fault_over_limit_min": fault,
                    "ms": cuda_ms(lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)),
                    "plain_ms": cuda_ms(lambda: conv_bn.matmul_bn_act_plain(x, w, a, b,
                                                                            relu_in=True)),
@@ -257,8 +331,9 @@ def check_kernels(calls, dtypes) -> list[dict]:
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                 f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}), "
-                f"rel err y {errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}")
-            del x, w, y, ye
+                f"rel err y {errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}"
+                + "".join(f"; {key} reads {v:.0f}x the limit" for key, v in faults.items()))
+            del x, w, y, ye, want
     return rows
 
 
@@ -452,6 +527,12 @@ def bwd_errs(got, want) -> tuple[dict, float]:
     return errs, abs_err
 
 
+def bwd_over_limit(got, want, dname: str) -> float:
+    """How far past its limit the backward check reads ``got``: the
+    largest of dx, dW, da and db over their limits."""
+    return max(v / TOL_BWD[dname][key] for key, v in bwd_errs(got, want)[0].items())
+
+
 def check_bwd_kernels(calls, dtypes) -> list[dict]:
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
@@ -480,16 +561,46 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
             if bad:
                 raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n} "
                                      f"prologue={pro}: errors {bad} over {TOL_BWD[dname]}")
-            fault_errs = {}
+            fault_errs, seen = {}, {}
             for term, fargs in (("ds1", (x, w, a, b, y, dy, torch.zeros_like(ds1), ds2)),
                                 ("2*y*ds2", (x, w, a, b, y, dy, ds1, torch.zeros_like(ds2)))):
                 moved = bwd_errs(conv_bn.matmul_bn_act_bwd_plain(*fargs, relu_in=True), want)[0]
                 for key in ("dx", "dw"):
                     fault_errs[f"{term} dropped: {key}"] = moved[key] / TOL_BWD[dname][key]
-            weak = {key: v for key, v in fault_errs.items() if not v >= BWD_FAULT_MARGIN}
+                seen[f"{term} dropped"] = max(v / TOL_BWD[dname][key] for key, v in moved.items())
+            gated, ragged = dict(fault_errs), bool(k % 32 or n % 32)
+            if ragged:
+                # ragged shapes: every planted fault is gated as the check reads
+                # it, its largest error over the limits of dx, dW, da and db.
+                # With N of a few columns a dropped dyt term shifts every row of
+                # dx by one vector, a sum of N terms, beside max |dx| over M rows:
+                # a few times dx's bf16 limit, while dW moves far past its own.
+                tails = {}
+                if k % 32:
+                    kt = k // 32 * 32
+                    dxf, dwf = want[0].float().clone(), want[1].float().clone()
+                    dxf[:, kt:], dwf[kt:] = 0.0, 0.0
+                    tails |= {"K tail unwritten: dx": (dxf, *want[1:]),
+                              "K tail unwritten: dw": (want[0], dwf, *want[2:])}
+                    if pro:
+                        # the trap of a ragged K: x's tail zero-filled and still
+                        # folded, act(b) in place of act(x a + b)
+                        xf = x.clone()
+                        xf[:, kt:] = 0
+                        tails["K tail folded"] = conv_bn.matmul_bn_act_bwd_plain(
+                            xf, w, a, b, y, dy, ds1, ds2, relu_in=True)
+                        del xf
+                if n % 32:
+                    dwf = want[1].float().clone()
+                    dwf[:, n // 32 * 32:] = 0.0
+                    tails["N tail unwritten: dw"] = (want[0], dwf, *want[2:])
+                gated = seen | {key: bwd_over_limit(t, want, dname) for key, t in tails.items()}
+                fault_errs |= gated
+                del tails
+            weak = {key: v for key, v in gated.items() if not v >= BWD_FAULT_MARGIN}
             if weak:
                 raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n}: "
-                                     f"a dropped dyt term moves the check by only {weak} "
+                                     f"a planted fault moves the check by only {weak} "
                                      f"times its limit")
             isz = x.element_size()
             nbytes = ((2 * m * k + 2 * m * n + 2 * k * n) * isz
@@ -497,7 +608,8 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
             flops = 4 * m * k * n
             row = {"dtype": dname, "M": m, "K": k, "N": n, "prologue": pro,
                    "count": calls.count((m, k, n, pro)), "max_abs_err": abs_err,
-                   "rel_err": errs, "fault_over_limit_min": min(fault_errs.values()),
+                   "rel_err": errs, "fault_over_limit": fault_errs,
+                   "fault_over_limit_min": min(gated.values()),
                    "ms": cuda_ms(lambda: conv_bn.matmul_bn_act_bwd(*args, relu_in=True)),
                    "plain_ms": cuda_ms(lambda: conv_bn.matmul_bn_act_bwd_plain(*args,
                                                                                relu_in=True)),
@@ -511,7 +623,10 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
                 f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                 f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}), rel err "
                 + " ".join(f"{key} {v:.2e}" for key, v in errs.items())
-                + f"; a dropped dyt term reads >= {row['fault_over_limit_min']:.0f}x the limit")
+                + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit"
+                + ("" if not ragged else " (" + ", ".join(
+                    f"{key} {v:.1f}x" for key, v in gated.items()) + "; dx alone under a "
+                    f"dropped dyt term {min(fault_errs[f'{t} dropped: dx'] for t in ('ds1', '2*y*ds2')):.1f}x)"))
             del x, w, y, dy, got, want
     return rows
 
@@ -649,6 +764,103 @@ def headline(card: str) -> dict:
     return result
 
 
+def build_ragged_graph():
+    """FusedBottleneck (4, 4, 8), projected, then (8, 8, 32) at stride 2,
+    global average pooling and a 10-class softmax: every 1x1 conv at a K
+    or N that is no multiple of 32 but the last ones' N = 32."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (FusedBottleneck, GlobalPoolingLayer,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.train import Nesterovs
+    gb = (NeuralNetConfiguration.builder().seed(SEED).updater(Nesterovs(TRAIN_LR, 0.9))
+          .weight_init("relu").graph().add_inputs("in")
+          .set_input_types(InputType.convolutional(*RAGGED_GRAPH_INPUT)))
+    gb.add_layer("b1", FusedBottleneck(filters=(4, 4, 8), project=True), "in")
+    gb.add_layer("b2", FusedBottleneck(filters=(8, 8, 32), stride=(2, 2), project=True), "b1")
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), "b2")
+    gb.add_layer("out", OutputLayer(n_out=10, activation="softmax", loss="mcxent"), "pool")
+    gb.set_outputs("out")
+    return ComputationGraph(gb.build(), device="cuda").init(seed=SEED)
+
+
+def ragged_graph(card: str) -> dict:
+    """The ragged bottlenecks as a graph on the card, f32: 8 requests of
+    1-8 images served through the engine (6 forward launches per batch,
+    each answer equal to a direct forward), the forward at batch 32
+    through the kernel against the plain version in log probabilities,
+    and one Trainer step through the kernels against one through both
+    plain versions from the same start."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    from deeplearning4j_tpu_torch.serve import InferenceEngine
+
+    rng = np.random.default_rng(SEED + 6)
+    net = build_ragged_graph()
+    sizes = [int(n) for n in rng.integers(1, 9, size=8)]
+    requests = [rng.normal(size=(n, *RAGGED_GRAPH_INPUT)).astype(np.float32) for n in sizes]
+    conv_bn.launches = 0
+    with InferenceEngine(net, max_batch=BATCH) as engine:
+        answers = [engine.predict(r, timeout_s=120) for r in requests]
+        batches = engine.batches
+    launches = conv_bn.launches
+    if launches != 6 * batches or batches == 0:
+        raise AssertionError(f"ragged graph: matmul_bn_act launched {launches} times for "
+                             f"{batches} batches, not 6 per batch")
+    serve_err = max(float(np.abs(a - net.output(r).cpu().numpy()).max())
+                    for a, r in zip(answers, requests))
+    if not serve_err <= SERVE_TOL or any(a.shape != (len(r), 10) for a, r in zip(answers,
+                                                                                requests)):
+        raise AssertionError(f"ragged graph: engine answers differ from direct forwards by "
+                             f"{serve_err}")
+    x = torch.from_numpy(rng.normal(size=(BATCH, *RAGGED_GRAPH_INPUT)).astype(np.float32)).cuda()
+    conv_bn.launches = 0
+    y_kernel = net.output(x)
+    fwd_launches = conv_bn.launches
+    saved = fused_mod.matmul_bn_act
+    fused_mod.matmul_bn_act = conv_bn.matmul_bn_act_plain   # comparison only
+    try:
+        y_plain = net.output(x)
+    finally:
+        fused_mod.matmul_bn_act = saved
+    fwd_err = log_prob_err(y_kernel, y_plain)
+    if fwd_launches != 6 or not fwd_err <= PLAIN_FWD_TOL or not torch.isfinite(y_kernel).all():
+        raise AssertionError(f"ragged graph forward: {fwd_launches} launches, kernel vs plain "
+                             f"{fwd_err} in log probabilities")
+
+    batch = DataSet(x, torch.eye(10, device="cuda")[rng.integers(0, 10, BATCH)])
+    kernel = train_steps(build_ragged_graph(), batch, 1)
+    fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+    try:
+        plain = train_steps(build_ragged_graph(), batch, 1)
+    finally:
+        fused_mod.matmul_bn_act = saved
+    if kernel["launches"] != [(6, 6)] or plain["launches"] != [(0, 0)]:
+        raise AssertionError(f"ragged graph step launched {kernel['launches']} (plain "
+                             f"{plain['launches']}), not [(6, 6)] ([(0, 0)])")
+    loss_err = abs(kernel["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    errs = update_errs(kernel["update0"], plain["update0"])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    if not (loss_err <= TRAIN_LOSS0_TOL and worst[1] <= TRAIN_UPDATE_TOL):
+        raise AssertionError(f"ragged graph step: loss {kernel['losses']} vs plain "
+                             f"{plain['losses']} ({loss_err:.2e}), worst update {worst}")
+    result = {"card": card, "requests": len(sizes), "images": sum(sizes), "batches": batches,
+              "launches": launches, "serve_max_abs_err": serve_err,
+              "plain_forward_max_log_prob_err": fwd_err, "loss": kernel["losses"][0],
+              "loss_rel_err": loss_err, "update_rel_err_max": worst[1],
+              "update_rel_err_worst": worst[0]}
+    log(f"ragged FusedBottleneck (4, 4, 8) + (8, 8, 32) graph on {card}: {sum(sizes)} images in "
+        f"{len(sizes)} requests, {batches} batches, {launches} kernel launches, engine vs direct "
+        f"{serve_err:.2e}; forward at batch {BATCH} kernel vs plain {fwd_err:.2e} (log "
+        f"probabilities); one Trainer step: launches {kernel['launches'][0]}, loss "
+        f"{kernel['losses'][0]:.6f} vs plain {plain['losses'][0]:.6f} ({loss_err:.2e}), update "
+        f"rel err max {worst[1]:.2e} ({worst[0]})")
+    return result
+
+
 # ------------------------------------------------------------------ BERT
 FLASH_SEED = SEED + 10
 # (name, B, H, Tq, Tk, causal, key-mask valid lengths or None, q_offset, k_offset)
@@ -677,7 +889,14 @@ FLASH_TOL = {"float32": {"o": 2e-5, "m": 1e-5, "l": 1e-5, "out": 2e-5, "lse": 1e
 # moves dq by a few percent, within reach of the bf16 limit: it is read,
 # not gated)
 FLASH_FAULT_MARGIN = 10
+# head dims besides BERT-base's 64, each with BERT-base's width 768 where it
+# divides it: (head dim, heads, cases); 80 runs through the zero-padding
+FLASH_HEAD_DIMS = ((32, 24, None), (128, 6, None), (80, 12, ("base",)))
+# long sequences, no mask, (2, 12, T, 64): (T, dtypes)
+LONG_SEQS = ((16384, ("float32", "bfloat16")), (32768, ("bfloat16",)))
 BERT_SEQ, BERT_BATCH = 4096, 2
+# 2-layer BERT at BERT-base's width with 6 and 24 heads (head dims 128, 32)
+BERT_HEADS = (6, 24)
 # serving through the kernels vs through the plain versions, max |diff| of
 # log-softmax over the 30522-word vocab, 12 layers at seq 4096, as read on
 # the H100: f32 4.8e-6 (sum order); bf16 2.5e-2 (the two attentions'
@@ -696,19 +915,19 @@ BERT_TRAIN_LAYERS, BERT_TRAIN_LR, BERT_TRAIN_STEPS = 4, 2e-5, 3
 BERT_LOSS0_TOL, BERT_UPDATE_TOL, BERT_LOSS_TOL = 1e-5, 5e-3, 1e-5
 
 
-def flash_inputs(case, dtype, gen):
+def flash_inputs(case, dtype, gen, d: int = 64):
     import torch
     name, b, h, tq, tk, causal, lengths, qo, ko = case
-    q = torch.randn(b, h, tq, 64, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(b, h, tk, 64, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(b, h, tk, 64, device="cuda", generator=gen).to(dtype)
-    dout = torch.randn(b, h, tq, 64, device="cuda", generator=gen).to(dtype)
+    q = torch.randn(b, h, tq, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(b, h, tq, d, device="cuda", generator=gen).to(dtype)
     mask = None
     if lengths is not None:
         mask = (torch.arange(tk, device="cuda")[None, :]
                 < torch.tensor(lengths, device="cuda")[:, None]).float()
-    return q, k, v, dout, mask, dict(scale=0.125, causal=causal, key_mask=mask, q_offset=qo,
-                                     k_offset=ko)
+    return q, k, v, dout, mask, dict(scale=d ** -0.5, causal=causal, key_mask=mask,
+                                     q_offset=qo, k_offset=ko)
 
 
 def rel_max(got, want, rows=None) -> float:
@@ -732,20 +951,26 @@ def library_attention(q, k, v, kw):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=kw["scale"])
 
 
-def check_flash(dtypes) -> list[dict]:
-    """Both flash kernels against their plain versions at every case, in
-    each dtype, with a planted fault; times the kernel, the plain version
-    and the library yardstick."""
+def check_flash(dtypes, d: int = 64, heads: int | None = None,
+                cases=FLASH_CASES) -> list[dict]:
+    """Both flash kernels and the two-kernel backward against their plain
+    versions at every case, in each dtype, at head dim ``d`` (``heads``
+    in place of each case's H), with a planted fault; the two backward
+    forms against each other; times each kernel, the plain version and
+    the library yardstick."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    # D = 64 keeps the stream its earlier rows were read on
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED + d - 64)
     rows = []
     for dtype in dtypes:
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
-        for case in FLASH_CASES:
+        for case in cases:
+            if heads is not None:
+                case = (*case[:2], heads, *case[3:])
             name, b, h, tq, tk = case[:5]
-            q, k, v, dout, mask, kw = flash_inputs(case, dtype, gen)
+            q, k, v, dout, mask, kw = flash_inputs(case, dtype, gen, d)
             o, m, l = fa.flash_attention_block(q, k, v, **kw)
             torch.cuda.synchronize()
             oe, me, le = fa.flash_attention_block_plain(q, k, v, **kw)
@@ -763,13 +988,19 @@ def check_flash(dtypes) -> list[dict]:
             errs |= {"out": rel_max(out, oute), "lse": rel_max(lse, lsee, live)}
             del o, m, l, oe, me, le
             got = fa.flash_attention_block_bwd(q, k, v, oute, lsee, dout, **kw)
+            split = fa.flash_attention_block_bwd(q, k, v, oute, lsee, dout, merged=False, **kw)
             torch.cuda.synchronize()
             want = fa.flash_attention_block_bwd_plain(q, k, v, oute, lsee, dout, **kw)
-            for key, g, w in zip(("dq", "dk", "dv"), got, want):
+            for key, g, sp, w in zip(("dq", "dk", "dv"), got, split, want):
                 errs[key] = rel_max(g, w)
-            bad = {key: e for key, e in errs.items() if not e <= tol[key]}
+                errs[f"split_{key}"] = rel_max(sp, w)
+            bad = {key: e for key, e in errs.items() if not e <= tol[key.split("_")[-1]]}
+            # the two forms on the same inputs, within the same limits
+            vs_merged = {key: rel_max(sp, g) for key, sp, g in zip(("dq", "dk", "dv"), split, got)}
+            bad |= {f"split vs merged {key}": e for key, e in vs_merged.items()
+                    if not e <= tol[key]}
             if bad:
-                raise AssertionError(f"flash {dname} {name}: errors {bad} over {tol}")
+                raise AssertionError(f"flash {dname} {name} D={d}: errors {bad} over {tol}")
             # planted faults: the lse shift dropped (lse = 0), delta dropped (out = 0)
             faults = {}
             for fault, fargs in (("lse", (oute, torch.zeros_like(lsee))),
@@ -784,31 +1015,33 @@ def check_flash(dtypes) -> list[dict]:
                 raise AssertionError(f"flash {dname} {name}: a planted fault moves the check "
                                      f"by only {faults} times its limit")
             bwd_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
-            del got, want
+            split_abs = max((g - w).abs().max().item() for g, w in zip(split, want))
+            del got, split, want
             # the work these inputs need: visible (query, key) pairs
             vis = fa._visible(b, tq, tk, q.device, kw["causal"], mask, kw["q_offset"],
                               kw["k_offset"])
             pairs = int(vis.expand(b, 1, tq, tk).sum().item()) * h
             isz = q.element_size()
-            fwd_bytes = (2 * b * h * tq * 64 + 2 * b * h * tk * 64) * isz + b * h * tq * 4 \
+            fwd_bytes = (2 * b * h * tq * d + 2 * b * h * tk * d) * isz + b * h * tq * 4 \
                 + (b * tk * 4 if mask is not None else 0)
-            bwd_bytes = ((3 * b * h * tq * 64 + 2 * b * h * tk * 64) * isz + b * h * tq * 4
-                         + (b * h * tq * 64 + 2 * b * h * tk * 64) * 4
+            bwd_bytes = ((3 * b * h * tq * d + 2 * b * h * tk * d) * isz + b * h * tq * 4
+                         + (b * h * tq * d + 2 * b * h * tk * d) * 4
                          + (b * tk * 4 if mask is not None else 0))
             args = (q, k, v, mask, kw["scale"], kw["causal"], kw["q_offset"], kw["k_offset"])
             ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             lib_out = library_attention(ql, kl, vl, kw)
-            row = {"case": name, "dtype": dname, "B": b, "H": h, "Tq": tq, "Tk": tk, "D": 64,
+            row = {"case": name, "dtype": dname, "B": b, "H": h, "Tq": tq, "Tk": tk, "D": d,
                    "causal": kw["causal"], "q_offset": kw["q_offset"],
                    "k_offset": kw["k_offset"], "visible_pairs": pairs, "rel_err": errs,
+                   "split_vs_merged": vs_merged,
                    "fault_over_limit": faults, "fault_over_limit_min": min(gated),
                    "max_abs_err": (out.float() - oute.float()).abs().max().item(),
-                   "bwd_max_abs_err": bwd_abs,
+                   "bwd_max_abs_err": bwd_abs, "split_max_abs_err": split_abs,
                    "ms": cuda_ms(lambda: fa._forward(*args, normalize=True), reps=5),
                    "plain_ms": cuda_ms(lambda: fa.normalized_plain(*args[:6]), reps=3),
                    "library_ms": cuda_ms(lambda: library_attention(q, k, v, kw), reps=5),
                    "bytes_ms": fwd_bytes / PEAK_BYTES * 1e3,
-                   "ops_ms": 4 * 64 * pairs / PEAK_FLOPS[dname] * 1e3,
+                   "ops_ms": 4 * d * pairs / PEAK_FLOPS[dname] * 1e3,
                    "bwd_ms": cuda_ms(lambda: fa.flash_attention_block_bwd(
                        q, k, v, oute, lsee, dout, **kw), reps=5),
                    "bwd_plain_ms": cuda_ms(lambda: fa.flash_attention_block_bwd_plain(
@@ -816,18 +1049,125 @@ def check_flash(dtypes) -> list[dict]:
                    "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
                        lib_out, (ql, kl, vl), dout, retain_graph=True), reps=5),
                    "bwd_bytes_ms": bwd_bytes / PEAK_BYTES * 1e3,
-                   "bwd_ops_ms": 10 * 64 * pairs / PEAK_FLOPS[dname] * 1e3}
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            row["bwd_bound_ms"] = max(row["bwd_bytes_ms"], row["bwd_ops_ms"])
+                   "bwd_ops_ms": 10 * d * pairs / PEAK_FLOPS[dname] * 1e3,
+                   "split_ms": cuda_ms(lambda: fa.flash_attention_block_bwd(
+                       q, k, v, oute, lsee, dout, merged=False, **kw), reps=5),
+                   "split_bytes_ms": bwd_bytes / PEAK_BYTES * 1e3,
+                   # the function's five products, as the merged form's; the
+                   # split algorithm does seven (s and dp in both kernels)
+                   "split_ops_ms": 10 * d * pairs / PEAK_FLOPS[dname] * 1e3,
+                   "split_algo_ops_ms": 14 * d * pairs / PEAK_FLOPS[dname] * 1e3}
+            # one plain version and one yardstick serve both backward forms
+            row["split_plain_ms"], row["split_library_ms"] = row["bwd_plain_ms"], \
+                row["bwd_library_ms"]
+            for prefix in ("", "bwd_", "split_"):
+                row[f"{prefix}bound_ms"] = max(row[f"{prefix}bytes_ms"], row[f"{prefix}ops_ms"])
             rows.append(row)
-            log(f"  {dname:8s} {name:14s} B={b} H={h} Tq={tq} Tk={tk}: fwd kernel "
+            log(f"  {dname:8s} {name:14s} B={b} H={h} Tq={tq} Tk={tk} D={d}: fwd kernel "
                 f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f}, library "
                 f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f}; bwd kernel "
-                f"{row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, library "
-                f"{row['bwd_library_ms']:.3f}, bound {row['bwd_bound_ms']:.3f}; rel err "
+                f"{row['bwd_ms']:.3f} ms, split {row['split_ms']:.3f}, plain "
+                f"{row['bwd_plain_ms']:.3f}, library {row['bwd_library_ms']:.3f}, bound "
+                f"{row['bwd_bound_ms']:.3f} (the split's seven products "
+                f"{row['split_algo_ops_ms']:.3f}); rel err "
                 + " ".join(f"{key} {e:.1e}" for key, e in errs.items())
+                + "; split vs merged " + " ".join(f"{key} {e:.1e}" for key, e in vs_merged.items())
                 + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit")
             del q, k, v, dout, oute, lsee, ql, kl, vl, lib_out
+            torch.cuda.empty_cache()
+    return rows
+
+
+def split_main_path() -> dict:
+    """The two-kernel backward's path: one call of the public
+    ``flash_attention_block_bwd(merged=False)`` at BERT-base's attention
+    shape in bf16, with every flash count set to 0 just before it and read
+    just after: its two kernels, and nothing else."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    q, k, v, dout, mask, kw = flash_inputs(FLASH_CASES[0], torch.bfloat16, gen)
+    out, lse = fa._forward(q, k, v, mask, kw["scale"], kw["causal"], 0, 0, normalize=True)
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_launches = fa.split_launches = 0
+    dq, dk, dv = fa.flash_attention_block_bwd(q, k, v, out, lse, dout, merged=False, **kw)
+    torch.cuda.synchronize()
+    counts = (fa.launches, fa.bwd_launches, fa.split_launches)
+    if counts != (0, 0, 2):
+        raise AssertionError(f"the split backward's path launched (forward, merged, split) "
+                             f"{counts}, not (0, 0, 2)")
+    if not all(bool(torch.isfinite(g).all()) and g.shape == t.shape
+               for g, t in ((dq, q), (dk, k), (dv, v))):
+        raise AssertionError("the split backward's gradients are non-finite or misshapen")
+    return {"launches": counts[2]}
+
+
+def flash_long(card: str) -> list[dict]:
+    """Both backward forms at long sequences, no mask: time and peak
+    memory of each, split against merged on all heads, and each against
+    the plain version on two (batch, head) slices, whose [T, T] scores
+    take 1 GB per head in f32 at 16384.  Where the merged form's dq
+    partials would not fit the card, it is not run: their size is printed."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED + 1)
+    total = torch.cuda.mem_get_info()[1]
+    rows = []
+    for t, dnames in LONG_SEQS:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            tol = FLASH_TOL[dname]
+            case = ("long", BERT_BATCH, 12, t, t, False, None, 0, 0)
+            q, k, v, dout, mask, kw = flash_inputs(case, dtype, gen)
+            out, lse = fa._forward(q, k, v, None, kw["scale"], False, 0, 0, normalize=True)
+            torch.cuda.synchronize()
+            b, h, d = BERT_BATCH, 12, 64
+            scratch = 4 * d * b * h * (-(-t // 64) * 64) * -(-t // 64)
+            row = {"dtype": dname, "B": b, "H": h, "T": t, "D": d, "card": card,
+                   "merged_scratch_bytes": scratch}
+            runs = {}
+            for form, merged in (("split", False), ("merged", True)):
+                if merged and scratch > 0.8 * total:
+                    continue
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                runs[form] = fa.flash_attention_block_bwd(q, k, v, out, lse, dout,
+                                                          merged=merged, **kw)
+                torch.cuda.synchronize()
+                row[f"{form}_peak_bytes"] = torch.cuda.max_memory_allocated()
+                row[f"{form}_extra_bytes"] = torch.cuda.max_memory_allocated() - before
+                row[f"{form}_ms"] = cuda_ms(lambda: fa.flash_attention_block_bwd(
+                    q, k, v, out, lse, dout, merged=merged, **kw), reps=2, warmup=1)
+            errs = {}
+            if "merged" in runs:
+                errs |= {f"split vs merged {key}": rel_max(sp, g)
+                         for key, sp, g in zip(("dq", "dk", "dv"), runs["split"], runs["merged"])}
+            runs.pop("merged", None)
+            torch.cuda.empty_cache()
+            for bi, hi in ((0, 0), (b - 1, h - 1)):
+                sl = lambda x: x[bi:bi + 1, hi:hi + 1]   # noqa: E731
+                want = fa.flash_attention_block_bwd_plain(sl(q), sl(k), sl(v), sl(out), sl(lse),
+                                                          sl(dout), **kw)
+                for key, g, w in zip(("dq", "dk", "dv"), runs["split"], want):
+                    errs[f"split vs plain ({bi}, {hi}) {key}"] = rel_max(sl(g), w)
+                del want
+                torch.cuda.empty_cache()
+            bad = {key: e for key, e in errs.items() if not e <= tol[key[-2:]]}
+            if bad:
+                raise AssertionError(f"flash long {dname} T={t}: errors {bad} over {tol}")
+            row["rel_err"] = errs
+            rows.append(row)
+            merged_text = (f"merged {row['merged_ms']:.1f} ms, peak "
+                           f"{row['merged_peak_bytes'] / 1e9:.2f} GB"
+                           if "merged_ms" in row else
+                           f"merged not run: its dq partials alone would take "
+                           f"{scratch / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB")
+            log(f"  {dname:8s} (B, H, T, D) = ({b}, {h}, {t}, {d}) on {card}: split "
+                f"{row['split_ms']:.1f} ms, peak {row['split_peak_bytes'] / 1e9:.2f} GB "
+                f"({row['split_extra_bytes'] / 1e9:.2f} GB over the inputs); {merged_text}; "
+                f"rel err " + " ".join(f"{key} {e:.1e}" for key, e in errs.items()))
+            del q, k, v, dout, out, lse, runs
             torch.cuda.empty_cache()
     return rows
 
@@ -855,19 +1195,22 @@ def bert_config(layers: int, **changes):
                                **changes)
 
 
-def bert_serve(card: str) -> dict:
-    """Phase: predict_mlm on 12-layer BERT-base at seq 4096, f32 and bf16
-    policy, through the kernels and through the plain versions."""
+def bert_serve(card: str, layers: int = 12, heads: int = 12) -> dict:
+    """Phase: predict_mlm on BERT-base (``layers`` layers, ``heads`` heads)
+    at seq 4096, f32 and bf16 policy, through the kernels and through the
+    plain versions."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.models import BertForMaskedLM
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
 
-    model = BertForMaskedLM(bert_config(12, use_flash=None), seed=0, device="cuda")
+    model = BertForMaskedLM(bert_config(layers, use_flash=None, num_heads=heads), seed=0,
+                            device="cuda")
     ids = np.random.default_rng(SEED + 11).integers(0, model.config.vocab_size,
                                                     (BERT_BATCH, BERT_SEQ))
-    result = {"card": card, "batch": BERT_BATCH, "seq": BERT_SEQ, "layers": 12,
+    result = {"card": card, "batch": BERT_BATCH, "seq": BERT_SEQ, "layers": layers,
+              "heads": heads, "head_dim": model.config.hidden_size // heads,
               "params": model.num_params()}
     try:
         for policy in ("f32", "bf16"):
@@ -881,9 +1224,10 @@ def bert_serve(card: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = fa.launches
-            if launches != 12 or fa.bwd_launches:
+            if launches != layers or fa.bwd_launches:
                 raise AssertionError(f"BERT serve {policy}: {launches} forward flash launches "
-                                     f"(and {fa.bwd_launches} backward) for one call, not 12")
+                                     f"(and {fa.bwd_launches} backward) for one call, "
+                                     f"not {layers}")
             if tuple(logits.shape) != (BERT_BATCH, BERT_SEQ, model.config.vocab_size) \
                     or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
                 raise AssertionError(f"BERT serve {policy}: logits {tuple(logits.shape)} "
@@ -910,7 +1254,8 @@ def bert_serve(card: str) -> dict:
                               "tokens_per_s": BERT_BATCH * BERT_SEQ / ms * 1e3,
                               "plain_ms": plain_ms, "max_log_softmax_err": err}
             log(f"BERT-base serve {policy} on {card}: predict_mlm batch {BERT_BATCH} x "
-                f"{BERT_SEQ}, 12 layers: {ms:.1f} ms ({result[policy]['tokens_per_s']:.0f} "
+                f"{BERT_SEQ}, {layers} layers, {heads} heads of {result['head_dim']}: "
+                f"{ms:.1f} ms ({result[policy]['tokens_per_s']:.0f} "
                 f"tokens/s), plain {plain_ms:.1f} ms; {launches} flash launches per call; "
                 f"kernel vs plain log-softmax {err:.2e}; seq 512: 0 launches")
     finally:
@@ -1093,7 +1438,7 @@ VGG_BATCH, VGG_REQUESTS, VGG_CALIB = 32, 16, (2, 32)   # calibration: 2 batches 
 # the 1e-5 of the ResNet and BERT checks.  The plain version is held to the
 # kernel too, and its gap to the exact product is printed: cuBLAS's f32 sum
 # reads 1e-6 of max |y| at fc6's K = 25088 against the kernel's 2e-7 (phase
-# 12 prints both), and the seeded VGG-16's large logits (top probability
+# 15 prints both), and the seeded VGG-16's large logits (top probability
 # ~0.92, log probabilities down to ~-39) carry that to 2.5e-5 (read on the
 # H100), so kernel vs plain is held at 1e-4.  bf16: a dense output may round
 # to the neighbouring bf16 value in one of the two, and fc8's bf16 logits (|z|
@@ -1515,10 +1860,27 @@ def main() -> int:
     head_bwd_rows = check_bwd_kernels(head_calls, (torch.bfloat16,))
     torch.cuda.empty_cache()
 
+    log(f"ragged matmul_bn_act kernel check: M = {RAGGED_M}, (K, N, prologue) = "
+        f"{[c[1:] for c in RAGGED_CALLS]}, f32 and bf16")
+    ragged_rows = check_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
+    ragged_bwd_rows = check_bwd_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
+    ragged = ragged_graph(card)
+    torch.cuda.empty_cache()
+
     log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
         f"({BERT_BATCH}, 12, 64), f32 and bf16")
     flash_rows = check_flash((torch.float32, torch.bfloat16))
+    split_main = split_main_path()
+    flash_dim_rows = []
+    for d, heads, names in FLASH_HEAD_DIMS:
+        cases = tuple(c for c in FLASH_CASES if names is None or c[0] in names)
+        log(f"flash attention at head dim {d}: {len(cases)} cases at (B, H) = ({BERT_BATCH}, "
+            f"{heads}), f32 and bf16")
+        flash_dim_rows += check_flash((torch.float32, torch.bfloat16), d, heads, cases)
+    log(f"flash attention backward, both forms, at long sequences {LONG_SEQS}")
+    long_rows = flash_long(card)
     bert_served = bert_serve(card)
+    bert_heads = [bert_serve(card, 2, heads) for heads in BERT_HEADS]
     bert_head = bert_finetune(card)
     bert_check = bert_train_check(card)
     torch.cuda.empty_cache()
@@ -1565,6 +1927,14 @@ def main() -> int:
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
                     flash_launches[1], flash_work),
+        flash_entry("flash_attention_bwd_split",
+                    "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd_split.cu",
+                    "deeplearning4j_tpu/ops/pallas/flash_attention.py:266", flash_rows, "split_",
+                    split_main["launches"],
+                    flash_work.split("; launches")[0] + "; launches: one call of "
+                    "flash_attention_block_bwd(merged=False), its dq and its dk/dv kernel")
+        | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/flash_attention.py:266",
+                            "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"]},
         int8_entry(int8_rows, vgg),
     ]
     out_dir = ROOT / "chiprun_out"
@@ -1575,6 +1945,9 @@ def main() -> int:
          "headline_shapes": head_rows, "headline_bwd_shapes": head_bwd_rows,
          "per_headline_step": {"forward": h16, "backward": hb16},
          "serve": serving, "train": training, "headline": head,
+         "ragged_shapes": ragged_rows, "ragged_bwd_shapes": ragged_bwd_rows,
+         "ragged_graph": ragged, "flash_head_dim_shapes": flash_dim_rows,
+         "flash_long": long_rows, "bert_serve_heads": bert_heads,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "kernels": kernels,

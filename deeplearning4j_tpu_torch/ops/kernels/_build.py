@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use, into a shared library
 with a plain C interface under ``build/`` (listed in ``.gitignore``),
-named by a hash of its source so that an edit forces a rebuild::
+named by a hash of its source and of the ``csrc/`` headers it includes,
+so that an edit to either forces a rebuild::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("matmul_bn_act", "matmul_bn_act_bwd", "flash_attention_fwd", "flash_attention_bwd",
-           "int8_matmul")
+           "flash_attention_bwd_split", "int8_matmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -43,9 +45,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with
+    ``#include "..."``, directly or through another header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc for inc in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(),
+                                                  re.M)]
+    return files
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

@@ -6,8 +6,9 @@
     y  = act(x * a + b) @ w        x [M, K], w [K, N], a/b [K] f32 or None
     s1 = sum_m y,  s2 = sum_m y*y  [N] f32, over the M rows
 
-with y in x's dtype, and is differentiable through all three outputs
-(the BN-training chain feeds the batch statistics from s1/s2).  It is a
+with y in x's dtype, at any K and N, and is differentiable through all
+three outputs (the BN-training chain feeds the batch statistics from
+s1/s2).  It is a
 ``torch.autograd.Function``: on a CUDA tensor in f32 or bf16 its forward
 launches the hand-written Hopper kernel ``csrc/matmul_bn_act.cu`` and its
 backward ``csrc/matmul_bn_act_bwd.cu`` (whose headers say what bounds
@@ -141,8 +142,6 @@ def _check(x, w, a, b) -> None:
     n = w.shape[1]
     if w.dtype != x.dtype or w.device != x.device:
         raise TypeError("matmul_bn_act: w must match x's dtype and device")
-    if k % 32 or n % 32:
-        raise ValueError(f"matmul_bn_act: kernel needs K and N multiples of 32, got {k}, {n}")
     if m == 0:
         raise ValueError("matmul_bn_act: x has no rows")
     for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):

@@ -1,9 +1,9 @@
-// Flash attention forward for Hopper (sm_90a).  For q [BH, Tq, 64] and
-// k, v [BH, Tk, 64] (contiguous, heads flattened into BH = B*H), with
+// Flash attention forward for Hopper (sm_90a).  For q [BH, Tq, D] and
+// k, v [BH, Tk, D] (contiguous, heads flattened into BH = B*H), with
 // s = q.k * scale over the visible keys of each row:
 //
-//     o[BH,Tq,64] = sum_k exp(s - m) v     m[BH,Tq] = max_k s
-//     l[BH,Tq]    = sum_k exp(s - m)       (all f32; unnormalized)
+//     o[BH,Tq,D] = sum_k exp(s - m) v      m[BH,Tq] = max_k s
+//     l[BH,Tq]   = sum_k exp(s - m)        (all f32; unnormalized)
 //
 // or, when normalize is set, out = o / max(l, 1e-20) in the inputs' dtype
 // and lse = m + log(l) (NEG_INF where l == 0).  A key is visible to a row
@@ -15,8 +15,8 @@
 // (flash_attention_block -> _kernel), the inner step of every attention
 // at sequence 1024 and above (BERT at sequence 4096).
 //
-// What bounds it on the H100: 4 * Tq * Tk * 64 operations per head
-// against (Tq + 2 Tk) * 64 elements read, so at sequence 4096 it is bound
+// What bounds it on the H100: 4 * Tq * Tk * D operations per head
+// against (Tq + 2 Tk) * D elements read, so at sequence 4096 it is bound
 // by operations: in f32 by the CUDA cores (67 TFLOP/s; the JAX kernel asks
 // for Precision.HIGHEST, so no TF32), in bf16 by the tensor cores.
 //
@@ -27,30 +27,27 @@
 // running (m, l) and the accumulator in registers.  K tiles wholly in a
 // causal row tile's future are never loaded (the loop ends before them).
 //   * f32: 256 threads, each owning 4 rows x 4 columns (rows ty + 16 i,
-//     columns tx + 16 j, conflict-free on the 65-float padded rows) of the
-//     score tile and of the output, FMA in f32 on the CUDA cores.  The row
-//     max and sum are reduced over the 16 lanes that share a row; p goes
-//     through shared memory to the p.v product.
+//     columns tx + 16 j, conflict-free on the odd-length padded rows) of
+//     the score tile and 4 x D/16 of the output, FMA in f32 on the CUDA
+//     cores.  The row max and sum are reduced over the 16 lanes that share
+//     a row; p goes through shared memory to the p.v product.
 //   * bf16: 4 warps of mma.sync m16n8k16 (bf16 in, f32 accumulate), each
 //     owning 16 query rows.  Scores, p and the output stay in registers:
 //     the accumulator layout of q.k^T is the operand layout of p.v, so p
 //     is rounded to bf16 (as the JAX kernel does) and fed back directly.
+// Templated on the head dim D in {32, 64, 128} (flash_attention.cuh).
 // A simple kernel: no cp.async/TMA pipelining and no wgmma yet.
 //
-// Requirements checked by the Python wrapper: f32 or bf16, head dim 64,
-// contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask.
-// Every entry point returns cudaGetLastError() after its launch.
+// Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64
+// or 128 (it zero-pads others up to 128), contiguous 16-byte aligned
+// tensors, an f32 [B, Tk] key mask.  Every entry point returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for another D).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
 
 struct FwdArgs {
   const void* q;
@@ -73,40 +70,11 @@ __device__ __forceinline__ bool visible(const FwdArgs& a, const float* km, int q
   return true;
 }
 
-// Number of key tiles a query tile ending at row q_last has to visit: all
-// of them, or under causal those up to the last key position q_last sees.
-__device__ __forceinline__ int key_tiles(const FwdArgs& a, int q_last) {
-  int n = (a.tk + BK - 1) / BK;
-  if (a.causal) {
-    const long long last = (long long)a.q_offset + q_last - a.k_offset;
-    if (last < 0) return 0;
-    n = min(n, (int)(last / BK) + 1);
-  }
-  return n;
-}
-
 __device__ __forceinline__ float lse_of(float m, float l) {
   return l > 0.f ? m + logf(fmaxf(l, 1e-37f)) : NEG_INF;
 }
 
 // ------------------------------------------------------------------ f32
-constexpr int LDF = D + 1;   // padded f32 row: column reads by 16 rows hit 16 banks
-constexpr int F_THREADS = 256;
-
-// rows [row0, row0 + 64) of a [n_rows, 64] f32 matrix into dst[64][LDF]; zeros past n_rows
-__device__ __forceinline__ void load_rows_f32(float (*dst)[LDF], const float* src, int row0,
-                                              int n_rows, int tid) {
-  for (int idx = tid; idx < 64 * (D / 4); idx += F_THREADS) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    dst[r][c] = v.x;
-    dst[r][c + 1] = v.y;
-    dst[r][c + 2] = v.z;
-    dst[r][c + 3] = v.w;
-  }
-}
-
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -119,13 +87,20 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  return (size_t)(3 * 64 * (D + 1) + 64 * (BK + 1)) * sizeof(float);
+}
+
+template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 fa_fwd_f32_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_f32[];
-  float (*Qs)[LDF] = reinterpret_cast<float (*)[LDF]>(smem_f32);
-  float (*Ks)[LDF] = Qs + BQ;
-  float (*Vs)[LDF] = Ks + BK;
-  float (*Ps)[LDF] = Vs + BK;
+  constexpr int LD = D + 1, NJ = D / 16;
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  float (*Qs)[LD] = reinterpret_cast<float (*)[LD]>(flash_smem);
+  float (*Ks)[LD] = Qs + BQ;
+  float (*Vs)[LD] = Ks + BK;
+  float (*Ps)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(Vs + BK);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
@@ -134,23 +109,23 @@ fa_fwd_f32_kernel(FwdArgs a) {
   const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * D;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_f32(Qs, q, q0, a.tq, tid);
+  load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
 
-  float acc[4][4], mrow[4], lrow[4];
+  float acc[4][NJ], mrow[4], lrow[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     mrow[i] = NEG_INF;
     lrow[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_kt = key_tiles(a, min(q0 + BQ, a.tq) - 1);
+  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + BQ, a.tq) - 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the last tile's readers are done
-    load_rows_f32(Ks, k, k0, a.tk, tid);
-    load_rows_f32(Vs, v, k0, a.tk, tid);
+    load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
+    load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
     __syncthreads();
 
     float s[4][4];
@@ -195,21 +170,21 @@ fa_fwd_f32_kernel(FwdArgs a) {
       lrow[i] = lrow[i] * corr + half_warp_sum(rs);
       mrow[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
     }
     __syncthreads();                 // the whole p tile is written
 
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      float pa[4], vb[4];
+      float pa[4], vb[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = Ps[ty + 16 * i][kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vb[j] = Vs[kk][tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vb[j] = Vs[kk][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
     }
   }
 
@@ -222,11 +197,11 @@ fa_fwd_f32_kernel(FwdArgs a) {
       float* out = static_cast<float*>(a.out) + row * D;
       const float den = fmaxf(lrow[i], 1e-20f);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[tx + 16 * j] = acc[i][j] / den;
+      for (int j = 0; j < NJ; ++j) out[tx + 16 * j] = acc[i][j] / den;
       if (tx == 0) a.lse[row] = lse_of(mrow[i], lrow[i]);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a.o[row * D + tx + 16 * j] = acc[i][j];
+      for (int j = 0; j < NJ; ++j) a.o[row * D + tx + 16 * j] = acc[i][j];
       if (tx == 0) {
         a.m[row] = mrow[i];
         a.l[row] = lrow[i];
@@ -236,50 +211,9 @@ fa_fwd_f32_kernel(FwdArgs a) {
 }
 
 // ----------------------------------------------------------------- bf16
-using bf16 = __nv_bfloat16;
-constexpr int LDH = D + 8;   // 144-byte rows: the 8 rows of an ldmatrix hit distinct banks
-constexpr int H_THREADS = 128;
-
-// the 16-bit shared-memory matrix ops and the bf16 tensor-core product
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d (16x8, f32) += a (16x16, bf16, row-major) * b (16x8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + 64) of a [n_rows, 64] bf16 matrix into dst[64][LDH]; zeros past n_rows
-__device__ __forceinline__ void load_rows_bf16(bf16 (*dst)[LDH], const bf16* src, int row0,
-                                               int n_rows, int tid) {
-  for (int idx = tid; idx < 64 * (D / 8); idx += H_THREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-  }
+template <int D>
+constexpr size_t fwd_bf16_smem() {
+  return (size_t)3 * 64 * (D + 8) * sizeof(bf16) + BK;
 }
 
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t): an accumulator holds
@@ -287,12 +221,15 @@ __device__ __forceinline__ void load_rows_bf16(bf16 (*dst)[LDH], const bf16* src
 // two query rows, and p's accumulators become the A operand of p.v in
 // registers.  K rows are loaded as the column-major k^T (ldmatrix), V rows
 // transposed (ldmatrix.trans).
+template <int D>
 __global__ void __launch_bounds__(H_THREADS)
 fa_fwd_bf16_kernel(FwdArgs a) {
-  __shared__ __align__(128) bf16 Qs[BQ][LDH];
-  __shared__ __align__(128) bf16 Ks[BK][LDH];
-  __shared__ __align__(128) bf16 Vs[BK][LDH];
-  __shared__ bool key_ok[BK];                     // the tile's keys: below Tk and unmasked
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  bf16 (*Qs)[LD] = reinterpret_cast<bf16 (*)[LD]>(flash_smem);
+  bf16 (*Ks)[LD] = Qs + BQ;
+  bf16 (*Vs)[LD] = Ks + BK;
+  bool* key_ok = reinterpret_cast<bool*>(Vs + BK);   // the tile's keys: below Tk and unmasked
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -304,23 +241,23 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * D;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_bf16(Qs, q, q0, a.tq, tid);
+  load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
   __syncthreads();
   uint32_t qa[D / 16][4];                         // q rows as A fragments, per 16 of D
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], &Qs[m0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+  for (int kk = 0; kk < D / 16; ++kk) a_frag<LD>(qa[kk], Qs, m0, kk * 16, lane);
 
   float o[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
-  const int n_kt = key_tiles(a, min(q0 + BQ, a.tq) - 1);
+  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + BQ, a.tq) - 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the last tile's readers are done
-    load_rows_bf16(Ks, k, k0, a.tk, tid);
-    load_rows_bf16(Vs, v, k0, a.tk, tid);
+    load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
+    load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
     if (tid < BK) key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
     __syncthreads();
 
@@ -332,7 +269,7 @@ fa_fwd_bf16_kernel(FwdArgs a) {
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t b[4];
-        ldsm_x4(b, &Ks[np * 16 + (lane & 7) + ((lane >> 4) << 3)][kk * 16 + ((lane >> 3) & 1) * 8]);
+        bt_frag<LD>(b, Ks, np * 16, kk * 16, lane);
         mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
         mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
       }
@@ -396,7 +333,7 @@ fa_fwd_bf16_kernel(FwdArgs a) {
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
-        ldsm_x4_t(b, &Vs[kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8][dp * 16 + (lane >> 4) * 8]);
+        b_frag<LD>(b, Vs, kk * 16, dp * 16, lane);
         mma_bf16(o[2 * dp], pa, b[0], b[1]);
         mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
       }
@@ -427,14 +364,10 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k, const void* v,
-           const void* kmask, void* o, void* m, void* l, void* out, void* lse, int bh, int heads,
-           int tq, int tk, int q_offset, int k_offset, int causal, int normalize, float scale,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int D, bool BF16>
+int launch(const void* q, const void* k, const void* v, const void* kmask, void* o, void* m,
+           void* l, void* out, void* lse, int bh, int heads, int tq, int tk, int q_offset,
+           int k_offset, int causal, int normalize, float scale, void* stream) {
   FwdArgs a;
   a.q = q;
   a.k = k;
@@ -453,9 +386,30 @@ int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k
   a.causal = causal;
   a.normalize = normalize;
   a.scale = scale;
-  dim3 grid((tq + BQ - 1) / BQ, bh);
-  kernel<<<grid, threads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((tq + BQ - 1) / BQ, bh);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if constexpr (BF16)
+    return launch_kernel(fa_fwd_bf16_kernel<D>, grid, H_THREADS, fwd_bf16_smem<D>(), s, a);
+  else
+    return launch_kernel(fa_fwd_f32_kernel<D>, grid, F_THREADS, fwd_f32_smem<D>(), s, a);
+}
+
+template <bool BF16>
+int dispatch(int d, const void* q, const void* k, const void* v, const void* kmask, void* o,
+             void* m, void* l, void* out, void* lse, int bh, int heads, int tq, int tk,
+             int q_offset, int k_offset, int causal, int normalize, float scale, void* stream) {
+  switch (d) {
+    case 32:
+      return launch<32, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
+                              k_offset, causal, normalize, scale, stream);
+    case 64:
+      return launch<64, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
+                              k_offset, causal, normalize, scale, stream);
+    case 128:
+      return launch<128, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
+                               k_offset, causal, normalize, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -465,18 +419,17 @@ extern "C" {
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, const void* kmask,
                             void* o, void* m, void* l, void* out, void* lse, int bh, int heads,
                             int tq, int tk, int q_offset, int k_offset, int causal,
-                            int normalize, float scale, void* stream) {
-  return launch(fa_fwd_f32_kernel, F_THREADS, (size_t)(BQ + 3 * BK) * LDF * sizeof(float),
-                q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset, k_offset,
-                causal, normalize, scale, stream);
+                            int normalize, int d, float scale, void* stream) {
+  return dispatch<false>(d, q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
+                         k_offset, causal, normalize, scale, stream);
 }
 
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, const void* kmask,
                              void* o, void* m, void* l, void* out, void* lse, int bh, int heads,
                              int tq, int tk, int q_offset, int k_offset, int causal,
-                             int normalize, float scale, void* stream) {
-  return launch(fa_fwd_bf16_kernel, H_THREADS, 0, q, k, v, kmask, o, m, l, out, lse, bh,
-                heads, tq, tk, q_offset, k_offset, causal, normalize, scale, stream);
+                             int normalize, int d, float scale, void* stream) {
+  return dispatch<true>(d, q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
+                        k_offset, causal, normalize, scale, stream);
 }
 
 }  // extern "C"

@@ -28,9 +28,15 @@
 //     masked out of both.  Each block writes its partials to its own row of
 //     a [tiles_m, N] scratch; a second small kernel sums the rows in a fixed
 //     order, so the result is deterministic (no atomics).
+//   * Any K and N.  When both are multiples of 32 (every ResNet-50 shape)
+//     the loaders move 16 bytes a thread.  Otherwise the RAGGED template
+//     loads and stores element by element (rows of a ragged K or N need not
+//     be 16-byte aligned) and guards the tails: x and W give zeros past K,
+//     so the K tail adds exactly nothing (a folded zero would add
+//     act(b) * W), W gives zeros past N, and nothing past N is written.
 //
 // Requirements checked by the Python wrapper: contiguous row-major tensors,
-// K and N multiples of 32, 16-byte aligned pointers, M < 65536 * 128.
+// 16-byte aligned base pointers, M < 65536 * 128.
 // Every entry point returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
@@ -53,6 +59,7 @@ __device__ __forceinline__ float fold(float v, float a, float b, int relu_in) {
 // ------------------------------------------------------------------ f32
 constexpr int F_BK = 8;
 
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 mba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ a, const float* __restrict__ b,
@@ -85,22 +92,36 @@ mba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int k0 = 0; k0 < K; k0 += F_BK) {
     float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (a_live) {
-      av = *reinterpret_cast<const float4*>(xp + k0);
-      if (has_prologue) {
-        const int k = k0 + a_k;
-        av.x = fold(av.x, a[k + 0], b[k + 0], relu_in);
-        av.y = fold(av.y, a[k + 1], b[k + 1], relu_in);
-        av.z = fold(av.z, a[k + 2], b[k + 2], relu_in);
-        av.w = fold(av.w, a[k + 3], b[k + 3], relu_in);
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (!RAGGED) {
+      if (a_live) {
+        av = *reinterpret_cast<const float4*>(xp + k0);
+        if (has_prologue) {
+          const int k = k0 + a_k;
+          av.x = fold(av.x, a[k + 0], b[k + 0], relu_in);
+          av.y = fold(av.y, a[k + 1], b[k + 1], relu_in);
+          av.z = fold(av.z, a[k + 2], b[k + 2], relu_in);
+          av.w = fold(av.w, a[k + 3], b[k + 3], relu_in);
+        }
+      }
+      if (b_live) bv = *reinterpret_cast<const float4*>(wp + (size_t)k0 * N);
+    } else {
+      float* ae = &av.x;
+      float* be = &bv.x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + a_k + q, n = n0 + b_n + q;
+        if (a_live && k < K) {
+          const float v = x[(size_t)(m0 + a_row) * K + k];
+          ae[q] = has_prologue ? fold(v, a[k], b[k], relu_in) : v;
+        }
+        if (n < N && k0 + b_row < K) be[q] = w[(size_t)(k0 + b_row) * N + n];
       }
     }
     As[a_k + 0][a_row] = av.x;
     As[a_k + 1][a_row] = av.y;
     As[a_k + 2][a_row] = av.z;
     As[a_k + 3][a_row] = av.w;
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b_live) bv = *reinterpret_cast<const float4*>(wp + (size_t)k0 * N);
     *reinterpret_cast<float4*>(&Bs[b_row][b_n]) = bv;
     __syncthreads();
 
@@ -131,9 +152,15 @@ mba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int gn = n0 + h * 64 + tx * 4;
-        if (gn < N)
-          *reinterpret_cast<float4*>(y + (size_t)gm * N + gn) = make_float4(
-              acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+        if constexpr (!RAGGED) {
+          if (gn < N)
+            *reinterpret_cast<float4*>(y + (size_t)gm * N + gn) = make_float4(
+                acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (gn + q < N) y[(size_t)gm * N + gn + q] = acc[i][h * 4 + q];
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -164,6 +191,7 @@ constexpr int H_BK = 32;
 constexpr int A_LD = H_BK + 8;     // padded leading dims (multiples of 8)
 constexpr int B_LD = TILE_N + 8;
 
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 mba_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                 const float* __restrict__ a, const float* __restrict__ b,
@@ -194,7 +222,18 @@ mba_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       const int row = idx >> 2, kc = (idx & 3) * 8;
       const int gm = m0 + row;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M) {
+      if (RAGGED && gm < M) {
+        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int k = k0 + kc + q;
+          if (k >= K) continue;
+          const __nv_bfloat16 xv = x[(size_t)gm * K + k];
+          h[q] = has_prologue
+                     ? __float2bfloat16_rn(fold(__bfloat162float(xv), a[k], b[k], relu_in))
+                     : xv;
+        }
+      } else if (gm < M) {
         v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + kc);
         if (has_prologue) {
           __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
@@ -216,8 +255,14 @@ mba_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       const int idx = tid + it * THREADS;
       const int krow = idx >> 4, nc = (idx & 15) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + nc < N)
+      if (RAGGED) {
+        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (k0 + krow < K && n0 + nc + q < N) h[q] = w[(size_t)(k0 + krow) * N + n0 + nc + q];
+      } else if (n0 + nc < N) {
         v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + krow) * N + n0 + nc);
+      }
       *reinterpret_cast<uint4*>(&Bs[krow][nc]) = v;
     }
     __syncthreads();
@@ -313,13 +358,14 @@ __global__ void stats_reduce_kernel(const float* __restrict__ part1,
 }
 
 template <typename T, typename Kernel>
-int launch(Kernel kernel, const void* x, const void* w, const void* a, const void* b,
-           void* y, void* part1, void* part2, void* s1, void* s2,
+int launch(Kernel kernel, Kernel ragged_kernel, const void* x, const void* w, const void* a,
+           const void* b, void* y, void* part1, void* part2, void* s1, void* s2,
            int M, int N, int K, int has_prologue, int relu_in, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int tiles_m = (M + TILE_M - 1) / TILE_M;
   dim3 grid((N + TILE_N - 1) / TILE_N, tiles_m);
-  kernel<<<grid, THREADS, 0, s>>>(
+  Kernel k = (K % 32 || N % 32) ? ragged_kernel : kernel;
+  k<<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<T*>(y),
       static_cast<float*>(part1), static_cast<float*>(part2), M, N, K, has_prologue, relu_in);
@@ -338,15 +384,15 @@ int matmul_bn_act_tile_m(void) { return TILE_M; }
 int matmul_bn_act_f32(const void* x, const void* w, const void* a, const void* b,
                       void* y, void* part1, void* part2, void* s1, void* s2,
                       int M, int N, int K, int has_prologue, int relu_in, void* stream) {
-  return launch<float>(mba_f32_kernel, x, w, a, b, y, part1, part2, s1, s2,
-                       M, N, K, has_prologue, relu_in, stream);
+  return launch<float>(mba_f32_kernel<false>, mba_f32_kernel<true>, x, w, a, b, y, part1,
+                       part2, s1, s2, M, N, K, has_prologue, relu_in, stream);
 }
 
 int matmul_bn_act_bf16(const void* x, const void* w, const void* a, const void* b,
                        void* y, void* part1, void* part2, void* s1, void* s2,
                        int M, int N, int K, int has_prologue, int relu_in, void* stream) {
-  return launch<__nv_bfloat16>(mba_bf16_kernel, x, w, a, b, y, part1, part2, s1, s2,
-                               M, N, K, has_prologue, relu_in, stream);
+  return launch<__nv_bfloat16>(mba_bf16_kernel<false>, mba_bf16_kernel<true>, x, w, a, b, y,
+                               part1, part2, s1, s2, M, N, K, has_prologue, relu_in, stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,11 @@
 //     dW, da and db are the same on every run (no atomics).
 //
 // Rows past M are never loaded: the loaders give zeros there, so they add
-// nothing to dW, da or db, and dx is not stored for them.
+// nothing to dW, da or db, and dx is not stored for them.  Any K and N:
+// when both are multiples of 32 (every ResNet-50 shape) the loaders move 16
+// bytes a thread; otherwise each kernel's RAGGED template loads and stores
+// element by element (rows of a ragged K or N need not be 16-byte aligned),
+// gives zeros past K and N in every operand, and writes nothing past them.
 //
 // What bounds it on the H100: twice the forward's operations (4*M*K*N).
 // f32 accumulates in full f32 on the CUDA cores (the JAX kernel asks for
@@ -41,8 +45,8 @@
 // no wgmma/TMA.
 //
 // Requirements checked by the Python wrapper: contiguous row-major tensors,
-// K and N multiples of 32, 16-byte aligned pointers, M < 65536 * 128, a
-// split length that is a multiple of 32.  Every entry point returns
+// 16-byte aligned base pointers, M < 65536 * 128, a split length that is a
+// multiple of 32.  Every entry point returns
 // cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
@@ -96,6 +100,7 @@ __device__ __forceinline__ int tile_row(int i, int t) {
 }
 
 // dx tile [128 rows of M] x [128 columns of K], contracting N 8 at a time.
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 bwd_dx_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ a, const float* __restrict__ b,
@@ -128,21 +133,33 @@ bwd_dx_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int n0 = 0; n0 < N; n0 += F_BK) {
     float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (a_live) {
-      const float4 d = *reinterpret_cast<const float4*>(dy + a_off + n0);
-      const float4 yv = *reinterpret_cast<const float4*>(y + a_off + n0);
-      const int n = n0 + l_n;
-      av.x = dy_total(d.x, yv.x, ds1[n + 0], ds2[n + 0]);
-      av.y = dy_total(d.y, yv.y, ds1[n + 1], ds2[n + 1]);
-      av.z = dy_total(d.z, yv.z, ds1[n + 2], ds2[n + 2]);
-      av.w = dy_total(d.w, yv.w, ds1[n + 3], ds2[n + 3]);
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (!RAGGED) {
+      if (a_live) {
+        const float4 d = *reinterpret_cast<const float4*>(dy + a_off + n0);
+        const float4 yv = *reinterpret_cast<const float4*>(y + a_off + n0);
+        const int n = n0 + l_n;
+        av.x = dy_total(d.x, yv.x, ds1[n + 0], ds2[n + 0]);
+        av.y = dy_total(d.y, yv.y, ds1[n + 1], ds2[n + 1]);
+        av.z = dy_total(d.z, yv.z, ds1[n + 2], ds2[n + 2]);
+        av.w = dy_total(d.w, yv.w, ds1[n + 3], ds2[n + 3]);
+      }
+      if (b_live) bv = *reinterpret_cast<const float4*>(wp + n0);
+    } else {
+      float* ae = &av.x;
+      float* be = &bv.x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = n0 + l_n + q;
+        if (n >= N) continue;
+        if (a_live) ae[q] = dy_total(dy[a_off + n0 + q], y[a_off + n0 + q], ds1[n], ds2[n]);
+        if (b_live) be[q] = wp[n0 + q];
+      }
     }
     As[l_n + 0][l_row] = av.x;
     As[l_n + 1][l_row] = av.y;
     As[l_n + 2][l_row] = av.z;
     As[l_n + 3][l_row] = av.w;
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b_live) bv = *reinterpret_cast<const float4*>(wp + n0);
     Bs[l_n + 0][l_row] = bv.x;
     Bs[l_n + 1][l_row] = bv.y;
     Bs[l_n + 2][l_row] = bv.z;
@@ -166,6 +183,22 @@ bwd_dx_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (gk >= K) continue;
       float v[4] = {acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
                     acc[i][h * 4 + 3]};
+      if constexpr (RAGGED) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (gk + q >= K) continue;
+          const size_t off = (size_t)gm * K + gk + q;
+          if (has_prologue) {
+            const float xq = x[off], ak = a[gk + q];
+            if (relu_in && !(pre_act(xq, ak, b[gk + q]) > 0.f)) v[q] = 0.f;
+            cda[h * 4 + q] += v[q] * xq;
+            cdb[h * 4 + q] += v[q];
+            v[q] = __fmul_rn(v[q], ak);
+          }
+          dx[off] = v[q];
+        }
+        continue;
+      }
       if (has_prologue) {
         const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)gm * K + gk);
         const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
@@ -201,6 +234,7 @@ bwd_dx_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // dW partial tile [128 rows of K] x [128 columns of N] over the rows
 // [split * chunk, (split + 1) * chunk) of M, 8 at a time.
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
                   const float* __restrict__ b, const float* __restrict__ y,
@@ -231,7 +265,24 @@ bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
     const int gm = mm + l_r;
     const bool row_live = gm < mend;
     float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_live && a_live) {
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (RAGGED && row_live) {
+      float* ae = &av.x;
+      float* be = &bv.x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + l_c + q, n = n0 + l_c + q;
+        if (k < K) {
+          const float v = x[(size_t)gm * K + k];
+          ae[q] = has_prologue ? xhat_of(v, a[k], b[k], relu_in) : v;
+        }
+        if (n < N) {
+          const size_t off = (size_t)gm * N + n;
+          be[q] = dy_total(dy[off], y[off], ds1[n], ds2[n]);
+        }
+      }
+    }
+    if (!RAGGED && row_live && a_live) {
       av = *reinterpret_cast<const float4*>(x + (size_t)gm * K + k0 + l_c);
       if (has_prologue) {
         const int k = k0 + l_c;
@@ -242,8 +293,7 @@ bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
       }
     }
     *reinterpret_cast<float4*>(&As[l_r][l_c]) = av;
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_live && b_live) {
+    if (!RAGGED && row_live && b_live) {
       const size_t off = (size_t)gm * N + n0 + l_c;
       const float4 d = *reinterpret_cast<const float4*>(dy + off);
       const float4 yv = *reinterpret_cast<const float4*>(y + off);
@@ -267,9 +317,14 @@ bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gn = n0 + h * 64 + tx * 4;
-      if (gn < N)
+      if constexpr (RAGGED) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (gn + q < N) out[(size_t)gk * N + gn + q] = acc[i][h * 4 + q];
+      } else if (gn < N) {
         *reinterpret_cast<float4*>(out + (size_t)gk * N + gn) = make_float4(
             acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+      }
     }
   }
 }
@@ -300,8 +355,32 @@ __device__ __forceinline__ uint4 dyt8(const bf16* dy, const bf16* y, const float
   return d;
 }
 
+// The same 8 entries, one at a time: columns n.. past N give zeros
+__device__ __forceinline__ uint4 dyt8_ragged(const bf16* dy, const bf16* y, const float* ds1,
+                                             const float* ds2, int n, int N) {
+  uint4 d = make_uint4(0u, 0u, 0u, 0u);
+  bf16* dh = reinterpret_cast<bf16*>(&d);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (n + q < N)
+      dh[q] = __float2bfloat16_rn(dy_total(__bfloat162float(dy[q]), __bfloat162float(y[q]),
+                                           ds1[n + q], ds2[n + q]));
+  return d;
+}
+
+// 8 bf16 of row src from column c, zeros from column `end` on
+__device__ __forceinline__ uint4 load8_ragged(const bf16* src, int c, int end) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  bf16* h = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (c + q < end) h[q] = src[q];
+  return v;
+}
+
 // dx tile [128 rows of M] x [128 columns of K], contracting N 32 at a time:
 // 8 warps as 2 x 4, 64 x 32 outputs each.
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 bwd_dx_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ a, const float* __restrict__ b,
@@ -336,11 +415,15 @@ bwd_dx_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (gm < M) {
         const size_t off = (size_t)gm * N + n0 + nc;
-        v = dyt8(dy + off, y + off, ds1, ds2, n0 + nc);
+        v = RAGGED ? dyt8_ragged(dy + off, y + off, ds1, ds2, n0 + nc, N)
+                   : dyt8(dy + off, y + off, ds1, ds2, n0 + nc);
       }
       *reinterpret_cast<uint4*>(&As[row][nc]) = v;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < K) u = *reinterpret_cast<const uint4*>(w + (size_t)gk * N + n0 + nc);
+      if (gk < K) {
+        const bf16* src = w + (size_t)gk * N + n0 + nc;
+        u = RAGGED ? load8_ragged(src, n0 + nc, N) : *reinterpret_cast<const uint4*>(src);
+      }
       *reinterpret_cast<uint4*>(&Bs[row][nc]) = u;
     }
     __syncthreads();
@@ -414,7 +497,10 @@ bwd_dx_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // dW partial tile [128 rows of K] x [128 columns of N] over the rows
-// [split * chunk, (split + 1) * chunk) of M, 32 at a time.
+// [split * chunk, (split + 1) * chunk) of M, 32 at a time.  The RAGGED
+// template stores each 16x16 product through a per-warp staging tile, so
+// that nothing past K or N is written.
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
                    const float* __restrict__ b, const bf16* __restrict__ y,
@@ -424,8 +510,9 @@ bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
   using namespace nvcuda;
   __shared__ __align__(128) bf16 As[H_BK][W_LD];   // xhat: As[m][k], read col-major
   __shared__ __align__(128) bf16 Bs[H_BK][W_LD];   // dyt:  Bs[m][n]
+  __shared__ __align__(128) float stage[RAGGED ? THREADS / 32 : 1][16 * 16];
 
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
   const int mbeg = blockIdx.z * chunk;
@@ -445,7 +532,18 @@ bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
       const int row = idx >> 4, cc = (idx & 15) * 8;
       const int gm = mm + row;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < mend && k0 + cc < K) {
+      if (RAGGED && gm < mend) {
+        bf16* h = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int k = k0 + cc + q;
+          if (k >= K) continue;
+          const bf16 xv = x[(size_t)gm * K + k];
+          h[q] = has_prologue
+                     ? __float2bfloat16_rn(xhat_of(__bfloat162float(xv), a[k], b[k], relu_in))
+                     : xv;
+        }
+      } else if (gm < mend && k0 + cc < K) {
         v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + cc);
         if (has_prologue) {
           bf162* h = reinterpret_cast<bf162*>(&v);
@@ -462,7 +560,8 @@ bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
       if (gm < mend && n0 + cc < N) {
         const size_t off = (size_t)gm * N + n0 + cc;
-        u = dyt8(dy + off, y + off, ds1, ds2, n0 + cc);
+        u = RAGGED ? dyt8_ragged(dy + off, y + off, ds1, ds2, n0 + cc, N)
+                   : dyt8(dy + off, y + off, ds1, ds2, n0 + cc);
       }
       *reinterpret_cast<uint4*>(&Bs[row][cc]) = u;
     }
@@ -493,8 +592,19 @@ bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int gn = n0 + wn * 32 + j * 16;
-      if (gk < K && gn < N)
+      if (gk >= K || gn >= N) continue;    // uniform over the warp
+      if constexpr (RAGGED) {
+        float* st = stage[warp];
+        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 16 * 16; e += 32) {
+          const int r = e >> 4, c = e & 15;
+          if (gk + r < K && gn + c < N) out[(size_t)(gk + r) * N + gn + c] = st[e];
+        }
+        __syncwarp();
+      } else {
         wmma::store_matrix_sync(out + (size_t)gk * N + gn, acc[i][j], N, wmma::mem_row_major);
+      }
     }
   }
 }
@@ -529,8 +639,9 @@ void colsum(const float* part, T* out, int R, long long L, cudaStream_t s) {
 }
 
 template <typename T, typename DxKernel, typename DwKernel>
-int launch(DxKernel dx_kernel, DwKernel dw_kernel, const void* x, const void* w,
-           const void* a, const void* b, const void* y, const void* dy, const void* ds1,
+int launch(DxKernel dx_kernel, DwKernel dw_kernel, DxKernel dx_ragged, DwKernel dw_ragged,
+           const void* x, const void* w, const void* a, const void* b, const void* y,
+           const void* dy, const void* ds1,
            const void* ds2, void* dx, void* dw, void* da, void* db, void* part_da,
            void* part_db, void* part_dw, int M, int N, int K, int splits, int chunk,
            int has_prologue, int relu_in, void* stream) {
@@ -542,6 +653,10 @@ int launch(DxKernel dx_kernel, DwKernel dw_kernel, const void* x, const void* w,
   const float* bf = static_cast<const float*>(b);
   const float* s1 = static_cast<const float*>(ds1);
   const float* s2 = static_cast<const float*>(ds2);
+  if (K % 32 || N % 32) {
+    dx_kernel = dx_ragged;
+    dw_kernel = dw_ragged;
+  }
   dx_kernel<<<dim3(tiles_k, tiles_m), THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), af, bf, static_cast<const T*>(y),
       static_cast<const T*>(dy), s1, s2, static_cast<T*>(dx), static_cast<float*>(part_da),
@@ -568,9 +683,10 @@ int matmul_bn_act_bwd_f32(const void* x, const void* w, const void* a, const voi
                           void* dx, void* dw, void* da, void* db, void* part_da,
                           void* part_db, void* part_dw, int M, int N, int K, int splits,
                           int chunk, int has_prologue, int relu_in, void* stream) {
-  return launch<float>(bwd_dx_f32_kernel, bwd_dw_f32_kernel, x, w, a, b, y, dy, ds1, ds2,
-                       dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits, chunk,
-                       has_prologue, relu_in, stream);
+  return launch<float>(bwd_dx_f32_kernel<false>, bwd_dw_f32_kernel<false>,
+                       bwd_dx_f32_kernel<true>, bwd_dw_f32_kernel<true>, x, w, a, b, y, dy,
+                       ds1, ds2, dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits,
+                       chunk, has_prologue, relu_in, stream);
 }
 
 int matmul_bn_act_bwd_bf16(const void* x, const void* w, const void* a, const void* b,
@@ -578,9 +694,10 @@ int matmul_bn_act_bwd_bf16(const void* x, const void* w, const void* a, const vo
                            void* dx, void* dw, void* da, void* db, void* part_da,
                            void* part_db, void* part_dw, int M, int N, int K, int splits,
                            int chunk, int has_prologue, int relu_in, void* stream) {
-  return launch<bf16>(bwd_dx_bf16_kernel, bwd_dw_bf16_kernel, x, w, a, b, y, dy, ds1, ds2,
-                      dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits, chunk,
-                      has_prologue, relu_in, stream);
+  return launch<bf16>(bwd_dx_bf16_kernel<false>, bwd_dw_bf16_kernel<false>,
+                      bwd_dx_bf16_kernel<true>, bwd_dw_bf16_kernel<true>, x, w, a, b, y, dy,
+                      ds1, ds2, dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits,
+                      chunk, has_prologue, relu_in, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Flash attention, forward and merged backward (port of
+"""Flash attention, forward and backward (port of
 ``deeplearning4j_tpu/ops/pallas/flash_attention.py``).
 
 ``flash_attention_block(q, k, v, scale=...)`` computes, for q
@@ -14,12 +14,19 @@ global query position ``q_offset + i`` at or after key position
 ``k_offset + j``.  A row that sees no key (a dead row) ends with
 ``o = 0, m = NEG_INF, l = 0``.  ``flash_attention_block_bwd`` is the
 backward of the normalized output ``o / l`` from the saved log-sum-exp
-(:func:`flash_lse`); it returns dq, dk, dv in f32.
+(:func:`flash_lse`); it returns dq, dk, dv in f32, from the merged
+form (``merged=True``, the reference's default) or the two-kernel form.
 
-On a CUDA tensor in f32 or bf16 with head dim 64, both launch the
-hand-written Hopper kernels ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu`` (whose headers say what bounds them and
-how they are built), or raise.  On a CPU tensor they run
+On a CUDA tensor in f32 or bf16 with a head dim up to 128, they launch
+the hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu`` (merged) and
+``csrc/flash_attention_bwd_split.cu`` (two kernels, no dq partials), whose
+headers say what bounds them and how they are built, or raise.  The
+kernels are templated on head dims 32, 64 and 128; any other head dim is
+zero-padded up to the next of these (:func:`pad_head_dim`) and the
+outputs sliced back, which is exact: ``scale`` is passed as it is, zero
+columns add nothing to ``q.k`` or ``dout.v``, and the padded columns of
+the outputs are dropped.  On a CPU tensor they run
 :func:`flash_attention_block_plain` and
 :func:`flash_attention_block_bwd_plain`: the same function with the
 scores materialized, and the same roundings (in bf16, ``p`` is rounded
@@ -32,7 +39,9 @@ and the log-sum-exp (never ``p``) and whose backward is the merged
 backward above.
 
 ``launches`` and ``bwd_launches`` count kernel launches of the forward
-and the backward; nothing else changes them.  The ``block_q``/``block_k``
+and the merged backward, ``split_launches`` those of the two-kernel
+backward (two per call: its dq kernel and its dk/dv kernel); nothing else
+changes them.  The ``block_q``/``block_k``
 arguments are the TPU kernel's tiling knobs: they are accepted and do
 not change the result; the CUDA kernels use their own 64 x 64 tiles.
 """
@@ -46,21 +55,46 @@ import torch
 from deeplearning4j_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)        # the head dims the kernels take
-TILE = 64                # rows of a q tile and of a k tile in both kernels
+HEAD_DIMS = (32, 64, 128)   # the kernels' head-dim templates; others are zero-padded
+TILE = 64                   # rows of a q tile and of a k tile in the kernels
 
 launches = 0
 bwd_launches = 0
+split_launches = 0
 
 _FWD = {torch.float32: "flash_attention_fwd_f32", torch.bfloat16: "flash_attention_fwd_bf16"}
 _BWD = {torch.float32: "flash_attention_bwd_f32", torch.bfloat16: "flash_attention_bwd_bf16"}
+_SPLIT = {torch.float32: "flash_attention_bwd_split_f32",
+          torch.bfloat16: "flash_attention_bwd_split_bf16"}
 # pointers q, k, v, key_mask, o, m, l, out, lse; ints bh, heads, tq, tk,
-# q_offset, k_offset, causal, normalize; scale; stream
-_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# q_offset, k_offset, causal, normalize, head dim; scale; stream
+_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 # pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, dq_partial; ints
-# bh, heads, tq, tk, q_offset, k_offset, causal; scale; stream
-_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# bh, heads, tq, tk, q_offset, k_offset, causal, head dim; scale; stream
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# the same without dq_partial
+_SPLIT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _bound = {}
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head-dim template a head dim ``d`` runs in: the smallest of
+    HEAD_DIMS at or above it.  Raises past the largest."""
+    for t in HEAD_DIMS:
+        if d <= t:
+            return t
+    raise ValueError(f"flash_attention: kernels take head dims up to {HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(tensors, d: int):
+    """Each tensor's last (head) dim zero-padded to ``d``, contiguous."""
+    return [t if t.shape[-1] == d else
+            torch.nn.functional.pad(t, (0, d - t.shape[-1])).contiguous() for t in tensors]
+
+
+def unpad_head_dim(tensors, d: int):
+    """Each tensor's first ``d`` columns of its last dim, contiguous."""
+    return [t if t.shape[-1] == d else t[..., :d].contiguous() for t in tensors]
 
 
 def _visible(b, tq, tk, device, causal, key_mask, q_offset, k_offset):
@@ -94,10 +128,11 @@ def flash_attention_block_plain(q, k, v, *, scale: float, causal: bool = False,
 def flash_attention_block_bwd_plain(q, k, v, out, lse, dout, *, scale: float,
                                     causal: bool = False, key_mask=None,
                                     q_offset: int = 0, k_offset: int = 0):
-    """Plain PyTorch version of the merged backward: ``(dq, dk, dv)`` in
-    f32, with ``p = exp(s - lse)`` over the visible keys of live rows,
-    ``ds = p * (dO.v - delta) * scale`` and ``delta = rowsum(dO * out)``.
-    dq is one f32 sum over all keys."""
+    """Plain PyTorch version of the backward, of both forms: ``(dq, dk,
+    dv)`` in f32, with ``p = exp(s - lse)`` over the visible keys of live
+    rows, ``ds = p * (dO.v - delta) * scale`` and ``delta = rowsum(dO *
+    out)``.  dq is one f32 sum over all keys: the two-kernel form's
+    arithmetic, and the merged form's with its partials in f32."""
     b, _, tq, _ = q.shape
     f32_in = q.dtype == torch.float32
     delta = (dout.float() * out.float()).sum(-1)
@@ -143,10 +178,13 @@ def flash_attention_block(q, k, v, *, scale: float, causal: bool = False, key_ma
 
 def flash_attention_block_bwd(q, k, v, out, lse, dout, *, scale: float, causal: bool = False,
                               key_mask=None, q_offset: int = 0, k_offset: int = 0,
-                              block_q: int = 128, block_k: int = 128):
+                              block_q: int = 128, block_k: int = 128, merged: bool = True):
     """Backward of the normalized attention ``out`` with cotangent ``dout``
-    and log-sum-exp ``lse`` [B,H,Tq]: ``(dq, dk, dv)`` in f32.  The CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    and log-sum-exp ``lse`` [B,H,Tq]: ``(dq, dk, dv)`` in f32.  For a CUDA
+    tensor the merged kernel (``merged=True``: one pass, f32 dq partials
+    summed after) or the two-kernel form (``merged=False``: a dq kernel
+    over key tiles and a dk/dv kernel over query tiles, no partials); the
+    plain version for a CPU tensor, whatever ``merged`` is."""
     if q.device.type == "cpu":
         return flash_attention_block_bwd_plain(q, k, v, out, lse, dout, scale=scale,
                                                causal=causal, key_mask=key_mask,
@@ -162,16 +200,28 @@ def flash_attention_block_bwd(q, k, v, out, lse, dout, *, scale: float, causal: 
         if not t.is_contiguous():
             raise ValueError(f"flash_attention backward: {name} must be contiguous")
     delta = (dout.float() * out.float()).sum(-1)
+    d = q.shape[3]
+    q, k, v, dout = pad_head_dim((q, k, v, dout), kernel_head_dim(d))
     with torch.cuda.device(q.device):
-        return _launch_bwd(_bwd_lib(), q, k, v, key_mask, dout, lse, delta, scale, causal,
-                           q_offset, k_offset, torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if merged:
+            grads = _launch_bwd(_bwd_lib(), q, k, v, key_mask, dout, lse, delta, scale, causal,
+                                q_offset, k_offset, stream)
+        else:
+            grads = _launch_bwd_split(_split_lib(), q, k, v, key_mask, dout, lse, delta, scale,
+                                      causal, q_offset, k_offset, stream)
+    return tuple(unpad_head_dim(grads, d))
 
 
 def _forward(q, k, v, key_mask, scale, causal, q_offset, k_offset, *, normalize):
     _check(q, k, v, key_mask, "flash_attention")
+    d = q.shape[3]
+    q, k, v = pad_head_dim((q, k, v), kernel_head_dim(d))
     with torch.cuda.device(q.device):
-        return _launch_fwd(_fwd_lib(), q, k, v, key_mask, scale, causal, q_offset, k_offset,
+        outs = _launch_fwd(_fwd_lib(), q, k, v, key_mask, scale, causal, q_offset, k_offset,
                            normalize, torch.cuda.current_stream(q.device).cuda_stream)
+    # out (or o) sliced back to the head dim; lse (or m, l) have none
+    return (*unpad_head_dim(outs[:1], d), *outs[1:])
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -222,8 +272,7 @@ def _check(q, k, v, key_mask, what: str) -> None:
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not [B,H,Tq,D], [B,H,Tk,D], [B,H,Tk,D]")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{what}: kernel takes head dim {HEAD_DIMS}, got {q.shape[3]}")
+    kernel_head_dim(q.shape[3])   # raises past the largest template
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError(f"{what}: empty sequence")
     for name, t in (("k", k), ("v", v)):
@@ -259,6 +308,10 @@ def _bwd_lib():
     return _lib("flash_attention_bwd", _BWD.values(), _BWD_ARGS)
 
 
+def _split_lib():
+    return _lib("flash_attention_bwd_split", _SPLIT.values(), _SPLIT_ARGS)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -282,7 +335,7 @@ def _launch_fwd(lib, q, k, v, key_mask, scale, causal, q_offset, k_offset, norma
     rc = getattr(lib, _FWD[q.dtype])(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(o), _ptr(m), _ptr(l), _ptr(out),
         _ptr(lse), b * h, h, tq, tk, int(q_offset), int(k_offset), int(causal), int(normalize),
-        float(scale), stream)
+        d, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed, cudaGetLastError() = {rc}")
     launches += 1
@@ -305,9 +358,31 @@ def _launch_bwd(lib, q, k, v, key_mask, dout, lse, delta, scale, causal, q_offse
     rc = getattr(lib, _BWD[q.dtype])(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(dout), _ptr(lse), _ptr(delta),
         _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_part), b * h, h, tq, tk, int(q_offset),
-        int(k_offset), int(causal), float(scale), stream)
+        int(k_offset), int(causal), d, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: kernel launch failed, "
                            f"cudaGetLastError() = {rc}")
     bwd_launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd_split(lib, q, k, v, key_mask, dout, lse, delta, scale, causal, q_offset,
+                      k_offset, stream):
+    """Allocate dq, dk, dv, launch the dq and the dk/dv kernel, check the
+    launches; returns ``(dq, dk, dv)`` in f32."""
+    global split_launches
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    dev, f32 = q.device, torch.float32
+    dq = torch.empty((b, h, tq, d), dtype=f32, device=dev)
+    dk = torch.empty((b, h, tk, d), dtype=f32, device=dev)
+    dv = torch.empty((b, h, tk, d), dtype=f32, device=dev)
+    rc = getattr(lib, _SPLIT[q.dtype])(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(dout), _ptr(lse), _ptr(delta),
+        _ptr(dq), _ptr(dk), _ptr(dv), b * h, h, tq, tk, int(q_offset), int(k_offset),
+        int(causal), d, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention split backward: kernel launch failed, "
+                           f"cudaGetLastError() = {rc}")
+    split_launches += 2
     return dq, dk, dv

@@ -57,7 +57,7 @@ def test_profile_counts_every_kernel_of_the_port_in_its_own_category():
     import re
     import chip_profile
     ours = {"int8_matmul", "matmul_bn_act", "matmul_bn_act_bwd", "flash_attention",
-            "flash_attention_bwd"}
+            "flash_attention_bwd", "flash_attention_bwd_split"}
     for src in sorted(_build.CSRC.glob("*.cu")):
         names = re.findall(r"__global__.*?\b(\w+_kernel)\(", src.read_text(), re.S)
         assert names, src.name
@@ -222,8 +222,9 @@ def _meta(*shape, dtype=torch.float32):
     ({"dy": _meta(64, 48)}, ValueError, "dy must be"),
     ({"y": _meta(64, 64, dtype=torch.bfloat16)}, ValueError, "y must be"),
     ({"ds2": _meta(64, dtype=torch.float64)}, ValueError, "ds2 must be"),
+    # any K and N: a ragged N passes the shape checks and stops at the device
     ({"w": _meta(32, 48), "dy": _meta(64, 48), "y": _meta(64, 48),
-      "ds1": _meta(48), "ds2": _meta(48)}, ValueError, "multiples of 32"),
+      "ds1": _meta(48), "ds2": _meta(48)}, ValueError, "unsupported device"),
     ({"a": _meta(16)}, ValueError, "a must be"),
     ({}, ValueError, "unsupported device"),
 ])
@@ -256,8 +257,11 @@ def test_backward_wrapper_makes_cotangents_contiguous(monkeypatch):
 
 @pytest.mark.parametrize("bad,error,match", [
     ({"q": torch.zeros(1, 2, 8, 64, dtype=torch.float16)}, TypeError, "float32 or bfloat16"),
+    # head dims up to 128 pass the shape checks and stop at the device
     ({"q": torch.zeros(1, 2, 8, 32), "k": torch.zeros(1, 2, 8, 32)}, ValueError,
-     r"head dim \(64,\)"),
+     "unsupported device"),
+    ({"q": torch.zeros(1, 2, 8, 192), "k": torch.zeros(1, 2, 8, 192)}, ValueError,
+     "head dims up to 128"),
     ({"k": torch.zeros(1, 3, 8, 64)}, ValueError, r"not \[B,H,Tq,D\]"),
     ({"k": torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)}, TypeError, "k must match"),
     ({"mask": torch.ones(1, 9)}, ValueError, "key_mask must be"),
@@ -284,7 +288,7 @@ class _StubFlashLib:
         self.args = args
         return self.rc
 
-    flash_attention_fwd_f32 = flash_attention_bwd_f32 = _call
+    flash_attention_fwd_f32 = flash_attention_bwd_f32 = flash_attention_bwd_split_f32 = _call
 
 
 def test_failed_flash_launches_raise_and_are_not_counted():
@@ -294,13 +298,14 @@ def test_failed_flash_launches_raise_and_are_not_counted():
     lib = _StubFlashLib(rc=9)   # cudaErrorInvalidConfiguration
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
         flash_attention._launch_fwd(lib, q, k, k, mask, 0.125, False, 0, 0, False, 0)
-    # pointers, then bh, heads, tq, tk, q_offset, k_offset, causal, normalize; scale; stream
-    assert len(lib.args) == 19 and lib.args[9:17] == (6, 3, 70, 130, 0, 0, 0, 0)
+    # pointers, then bh, heads, tq, tk, q_offset, k_offset, causal, normalize, head dim;
+    # scale; stream
+    assert len(lib.args) == 20 and lib.args[9:18] == (6, 3, 70, 130, 0, 0, 0, 0, 64)
     lse = torch.zeros(2, 3, 70)
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
         flash_attention._launch_bwd(lib, q, k, k, None, q, lse, lse, 0.125, True, 5, 0, 0)
-    assert len(lib.args) == 20 and lib.args[3] is None
-    assert lib.args[11:18] == (6, 3, 70, 130, 5, 0, 1)
+    assert len(lib.args) == 21 and lib.args[3] is None
+    assert lib.args[11:19] == (6, 3, 70, 130, 5, 0, 1, 64)
     assert (flash_attention.launches, flash_attention.bwd_launches) == before
     out, lse = flash_attention._launch_fwd(_StubFlashLib(rc=0), q, k, k, mask, 0.125, False, 0, 0,
                                            True, 0)
@@ -311,6 +316,39 @@ def test_failed_flash_launches_raise_and_are_not_counted():
     assert (flash_attention.launches, flash_attention.bwd_launches) == (before[0] + 1,
                                                                         before[1] + 1)
     flash_attention.launches, flash_attention.bwd_launches = before
+
+
+def test_failed_split_backward_launch_raises_and_is_not_counted():
+    """The two-kernel backward: no dq scratch among its pointers, the head
+    dim among its ints, two launches counted per call that succeeds."""
+    q, k = torch.zeros(2, 3, 70, 32), torch.zeros(2, 3, 130, 32)
+    lse = torch.zeros(2, 3, 70)
+    before = (flash_attention.bwd_launches, flash_attention.split_launches)
+    lib = _StubFlashLib(rc=9)
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        flash_attention._launch_bwd_split(lib, q, k, k, None, q, lse, lse, 0.125, True, 5, 0, 0)
+    # pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, then bh, heads,
+    # tq, tk, q_offset, k_offset, causal, head dim; scale; stream
+    assert len(lib.args) == 20 and lib.args[3] is None
+    assert lib.args[10:18] == (6, 3, 70, 130, 5, 0, 1, 32)
+    assert (flash_attention.bwd_launches, flash_attention.split_launches) == before
+    dq, dk, dv = flash_attention._launch_bwd_split(_StubFlashLib(rc=0), q, k, k, None, q, lse,
+                                                   lse, 0.125, False, 0, 0, 0)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape and dq.dtype == torch.float32
+    assert (flash_attention.bwd_launches, flash_attention.split_launches) == (before[0],
+                                                                              before[1] + 2)
+    flash_attention.split_launches = before[1]
+
+
+@pytest.mark.parametrize("merged", [True, False])
+def test_flash_backward_refuses_a_bad_dtype_on_either_form(merged):
+    """A tensor off the CPU that the kernels do not take raises before any
+    launch, in both forms of the backward."""
+    q = _meta(1, 2, 8, 64, dtype=torch.float16)
+    lse = _meta(1, 2, 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_block_bwd(q, q, q, q, lse, q, scale=0.125,
+                                                  merged=merged)
 
 
 def _tiny_vgg(device="cpu"):
