@@ -48,7 +48,25 @@ no result line:
    engine (6 launches per batch, answers equal to direct forwards), the
    forward against the plain version, and one Trainer step against one
    through both plain versions;
-9. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
+9. the fused 3x3 conv + BN statistics ``conv3x3_bn_act``, which no model
+   calls: (a) the kernel against ``conv3x3_bn_act_plain`` at ResNet-50's
+   four 3x3 shapes at batch 32 (56x56x64, 28x28x128, 14x14x256, 7x7x512,
+   C = Cout), with the prologue and relu_in, without relu_in and without
+   the prologue, then at ``CONV3_RAGGED`` (the reference test's case, C !=
+   Cout, C = 3, planes over 1 MB), f32 and bf16, three planted faults
+   (border taps act(b), neighbours across row and image seams, a tap
+   dropped) each at least 10x past the limit; (b) its path: the 16 3x3
+   stages of a train-mode forward of the seeded full-width ResNet-50,
+   captured through ``fused.conv3x3_stage`` at batch 32 in f32 and at the
+   headline's batch in bf16, each run through the op with the counts set
+   to 0 just before (16 launches, 16 reduces) and held to the stage's own
+   outputs and to the plain version; (c) autograd through the op against
+   ``conv3x3_reference`` at the four shapes (no kernel launched by the
+   backward); (d) times of the kernel, the plain version and the layer's
+   own chain (normalize pass, cuDNN, sums; a yardstick only) per shape
+   and per pass of 16 calls at batch 32 (f32, bf16) and the headline's
+   batch (bf16), beside the bound;
+10. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
    4096, 64), in f32 and bf16: no mask; a key mask with valid lengths 4096
    and 2500; causal at offsets (1024, 512); Tq = 1000 against Tk = 4096; a
    batch row whose mask is all zeros (dead rows).  Both kernels and the
@@ -60,28 +78,30 @@ no result line:
    ``scaled_dot_product_attention`` (forward and autograd backward, a
    yardstick only); then one call of ``flash_attention_block_bwd(merged=
    False)`` with every flash count set to 0 before it: 2 split launches;
-10. the same at head dims 32 (24 heads) and 128 (6 heads), BERT-base's
-   width, and the base case at 80 (12 heads, zero-padded to 128);
-11. both backward forms at (2, 12, 16384, 64), f32 and bf16, and the split
+11. the same at head dims 32 (24 heads) and 128 (6 heads), BERT-base's
+   width, the base case at 80 (12 heads, zero-padded to 128), and the
+   base, key-mask, causal and dead-row cases at 256 (3 heads) and 192 (4
+   heads, zero-padded to 256), which run in column slabs;
+12. both backward forms at (2, 12, 16384, 64), f32 and bf16, and the split
    alone at (2, 12, 32768, 64), bf16, where the merged form's dq partials
    would not fit the card: times, peak memory, split against merged on
    all heads and against the plain version on two (batch, head) slices;
-12. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
+13. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
    ``max_position=4096``, ``use_flash=None``, seeded weights) through
    ``predict_mlm`` on 2 x 4096 seeded ids, under the f32 and the bf16
    policy: 12 forward flash launches per call, the kernel path against
    the plain path in log-softmax, and a seq-512 call that takes the einsum
-   path (no launch); then the same with 2 layers at 6 and at 24 heads
-   (head dims 128 and 32), 2 launches per call;
-13. fine-tune ``bench.py``'s long-sequence configuration (4 layers of
+   path (no launch); then the same with 2 layers at 6, 24 and 3 heads
+   (head dims 128, 32 and 256), 2 launches per call;
+14. fine-tune ``bench.py``'s long-sequence configuration (4 layers of
    BERT-base, seq 4096, batch 2, bf16 policy, ``use_flash=True``,
    ``Adam(2e-5)``, its seeded ids, labels and weights) through
    ``BertForMaskedLM.fit``: one warm-up step, then 3 timed steps, each with
    4 forward and 4 backward flash launches; peak memory;
-14. the same fine-tune in f32 through the kernels and through both plain
+15. the same fine-tune in f32 through the kernels and through both plain
    versions from one set of weights and the same dropout masks: step-0
    loss, every param's step-0 update and the later losses agree;
-15. the int8 dequant-matmul alone at every (K, N) it serves, VGG-16's
+16. the int8 dequant-matmul alone at every (K, N) it serves, VGG-16's
    (25088, 4096), (4096, 4096), (4096, 1000) and ``bench_quantized``'s MLP
    (1024, 1024), (1024, 10), at M = 1, 2, 4, 7, 8, 16 and 32 (every bucket
    of the engine, and ragged rows), in f32 and bf16: held to
@@ -89,7 +109,7 @@ no result line:
    ulp per entry), two planted faults (the scale dropped, the last K split
    skipped) at least 10x past the limit, and timed with the L2 flushed
    against the plain version, a library yardstick and the bound;
-16. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
+17. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
    classes, seeded weights) under ``bench_quantized``'s serving policy
    (bf16 params, compute and outputs), ``quantize_net`` with two seeded
    calibration batches, 16 seeded requests of 1-32 images from 4 threads
@@ -99,17 +119,17 @@ no result line:
    forward through the kernel against the same qnet with
    ``int8_matmul_plain`` in log probabilities, and the forward alone at
    batch 32 timed for the fp and the int8 net;
-17. the same qnet under the f32 policy: 3 launches per forward; the
+18. the same qnet under the f32 policy: 3 launches per forward; the
    forward through the kernel against the same qnet with its dense
    products exact (f64) at 1e-5 in log probabilities, and against
    ``int8_matmul_plain`` at 1e-4 (cuBLAS's own f32 rounding, printed
    against the exact product beside the kernel's);
-18. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+19. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
 convolutions around the kernel compute in f32 as the JAX package's
-HIGHEST precision does.  The per-shape tables go to
+HIGHEST precision does.  The printed lines and the per-shape tables go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -131,7 +151,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 # kernel vs plain on the same inputs, max |diff| over a scale of the result:
 # y against max|y|; s1 against max_n sum_m |y|; s2 against max|s2|.  f32: sum
-# order only (K up to 2048 terms); bf16: y rounds to bf16 (2^-8 relative).
+# order only (K up to 2048 terms; 4608 for conv3x3_bn_act, read at most
+# 3.2e-6 (y), 2.1e-7 (s1), 4.9e-7 (s2) on the H100); bf16: y rounds to bf16
+# (2^-8 relative; conv3x3_bn_act read 5.5e-3, s1 and s2 8.3e-6).
 TOL = {"float32": {"y": 1e-5, "s1": 1e-5, "s2": 1e-5},
        "bfloat16": {"y": 8e-3, "s1": 1e-4, "s2": 1e-4}}
 SERVE_TOL = 1e-5      # engine answer vs direct forward of the same images
@@ -180,8 +202,12 @@ RAGGED_FAULT_MARGIN = 10
 RAGGED_GRAPH_INPUT = (56, 56, 4)
 
 
+LOG_LINES: list[str] = []   # every line printed, kept for the result file
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    LOG_LINES.append(msg)
 
 
 def card_line() -> str:
@@ -338,7 +364,8 @@ def check_kernels(calls, dtypes) -> list[dict]:
 
 
 def per_forward(rows, dname: str) -> dict:
-    """Sums over the 36 launches of one batch-32 forward (or backward)."""
+    """Sums over the launches of one pass (each row times its ``count``):
+    the 36 of one forward (or backward), the 16 3x3 calls."""
     sel = [r for r in rows if r["dtype"] == dname]
     tot = {key: sum(r[key] * r["count"] for r in sel)
            for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
@@ -861,6 +888,296 @@ def ragged_graph(card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------- 3x3 conv + BN
+CONV3_SEED = SEED + 20
+# ResNet-50 v1's 3x3 stages, every one stride 1 with C = Cout (the stride
+# sits on the first 1x1): (H = W, C, calls per pass)
+CONV3_STAGES = ((56, 64, 3), (28, 128, 4), (14, 256, 6), (7, 512, 3))
+# at the ResNet shapes: (prologue, relu_in), the first the path's and timed
+CONV3_VARIANTS = ((True, True), (True, False), (False, True))
+# shapes the path does not give, f32 and bf16, prologue and relu_in on:
+# (N, H, W, C, Cout)
+CONV3_RAGGED = (
+    (2, 8, 7, 16, 16),          # the reference test's case
+    (BATCH, 28, 28, 24, 40),    # C != Cout, neither a multiple of 8 or 32
+    (BATCH, 56, 56, 3, 5),      # C = 3 -> 5: the element-by-element template
+    (8, 112, 112, 64, 64),      # a plane over 1 MB with H % 8 == 0 (the TPU's tiled body)
+    (6, 113, 97, 64, 64),       # over 1 MB, H % 8 != 0 (the reference refuses it); H*W
+                                # no multiple of the kernel's 128-pixel tile, so tiles
+                                # cross row and image seams
+)
+# kernel vs plain: TOL, as fwd_errs reads it on y as [N*H*W, Cout]; kernel
+# vs the layer's own chain (fused.conv3x3_stage: relu(y1*a1 + b1) in
+# the compute dtype, cuDNN, the sums of its y) on the 16 captured stages.
+# f32: the same function, sum order only.  bf16: the chain folds in bf16
+# arithmetic (a1 and b1 rounded to bf16, then each op), where the kernel
+# folds in f32 and rounds once: where y1 a1 and b1 nearly cancel (BN centres
+# the channel), 2^-9 of |b1| is a percent of the folded value, in the same
+# direction for a whole channel; cuDNN rounds y, and the chain's sums are
+# of the rounded y.  (Read on the H100 at batch 256: 7.5e-3 (y), 7.5e-3
+# (s1), 4.8e-3 (s2).)  A wiring fault (a tap, a fold, the weights) reads
+# O(1).
+CONV3_LAYER_TOL = {"float32": TOL["float32"],
+                   "bfloat16": {"y": 4e-2, "s1": 4e-2, "s2": 4e-2}}
+# gradients of x, w, a, b through the op (autograd of conv3x3_reference at
+# the kernel's outputs) vs through conv3x3_reference, max |diff| over max
+# |grad|: the two differ only through ds1 = 2 s1 (the kernel's s1 against
+# the reference's, sum order) and cuDNN's own sum order
+CONV3_GRAD_TOL = 1e-4
+CONV3_FAULT_MARGIN = 10
+
+
+def conv3_calls(batch: int) -> list[tuple]:
+    """(N, H, W, C, Cout) of each of the 16 3x3 calls of one pass."""
+    return [(batch, h, h, c, c) for h, c, count in CONV3_STAGES for _ in range(count)]
+
+
+def conv3_work(n, h, w, c, cout, isz, prologue=True) -> tuple[int, int]:
+    """(bytes, operations) of one call: x and w read once, a and b, y and
+    the two statistics written once; 2 N H W 9C Cout operations."""
+    m = n * h * w
+    nbytes = (m * c + 9 * c * cout + m * cout) * isz + (2 * c * 4 if prologue else 0) + 2 * cout * 4
+    return nbytes, 2 * m * 9 * c * cout
+
+
+def conv3_flat(outs):
+    """(y, s1, s2) with y as [N*H*W, Cout], as fwd_errs reads it."""
+    y, s1, s2 = outs
+    return y.reshape(-1, y.shape[-1]), s1, s2
+
+
+def library_conv3(x, w, a, b):
+    """Yardstick only, never the op's path: the port's own chain
+    (``fused.conv3x3_stage``: relu(x*a + b) in x's dtype, ``F.conv2d``
+    through cuDNN, the two sums)."""
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    n, h, wd, c = x.shape
+    return fused_mod.conv3x3_stage(x.reshape(-1, c), a, b, w, (n, h, wd), train=True)
+
+
+def conv3_faults(x, w, a, b, relu_in, want, dname) -> dict:
+    """Each planted fault, read as the check reads it (its largest error
+    over the limits of y, s1 and s2): (a) the taps outside the image filled
+    with act(0 a + b), the fold applied after the zero padding (prologue
+    only); (b) the flattened neighbours taken across row and image seams;
+    (c) the last tap dropped."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
+
+    def fold(t):
+        if a is None:
+            return t.float()
+        h = t.float() * a + b
+        return (torch.relu(h) if relu_in else h).to(x.dtype).float()
+
+    def finish(y):
+        return y.to(x.dtype), y.sum((0, 1, 2)), (y * y).sum((0, 1, 2))
+
+    def over(got):
+        return fwd_over_limit(conv3_flat(got), conv3_flat(want), dname)
+
+    n, h, wd, c = x.shape
+    wf = w.float()
+    faults = {}
+    if a is not None:
+        xp = fold(F.pad(x, (0, 0, 1, 1, 1, 1)))
+        faults["border taps act(b)"] = over(finish(F.conv2d(
+            xp.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)))
+    flat = F.pad(fold(x).reshape(-1, c), (0, 0, wd + 1, wd + 1))
+    m = n * h * wd
+    y = sum(flat[wd + 1 + (di - 1) * wd + dj - 1:][:m] @ wf[di, dj]
+            for di in range(3) for dj in range(3))
+    faults["neighbours across seams"] = over(finish(y.reshape(n, h, wd, -1)))
+    w_drop = w.clone()
+    w_drop[2, 2] = 0
+    faults["last tap dropped"] = over(conv3_bn.conv3x3_bn_act_plain(x, w_drop, a, b,
+                                                                   relu_in=relu_in))
+    return faults
+
+
+def check_conv3(shapes, dtypes, variants, timed: bool = True) -> list[dict]:
+    """The kernel against its plain version at each (N, H, W, C, Cout) and
+    (prologue, relu_in), with the planted faults; times the first variant
+    (kernel, plain, the library yardstick: one warm-up, 10 calls each)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
+    gen = torch.Generator(device="cuda").manual_seed(CONV3_SEED)
+    rows = []
+    for dtype in dtypes:
+        dname = str(dtype).split(".")[1]
+        for shape in sorted(set(shapes)):
+            n, h, wd, c, cout = shape
+            x = torch.randn(n, h, wd, c, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(3, 3, c, cout, device="cuda", generator=gen)
+                 / (9 * c) ** 0.5).to(dtype)
+            a0 = torch.rand(c, device="cuda", generator=gen) + 0.5
+            b0 = torch.randn(c, device="cuda", generator=gen) * 0.2
+            for vi, (pro, relu_in) in enumerate(variants):
+                a, b = (a0, b0) if pro else (None, None)
+                got = conv3_bn.conv3x3_bn_act(x, w, a, b, relu_in=relu_in)
+                torch.cuda.synchronize()
+                want = conv3_bn.conv3x3_bn_act_plain(x, w, a, b, relu_in=relu_in)
+                errs = fwd_errs(conv3_flat(got), conv3_flat(want))
+                bad = {key: v for key, v in errs.items() if not v <= TOL[dname][key]}
+                if bad:
+                    raise AssertionError(f"conv3x3_bn_act {dname} {shape} prologue={pro} "
+                                         f"relu_in={relu_in}: errors {bad} over {TOL[dname]}")
+                faults = conv3_faults(x, w, a, b, relu_in, want, dname)
+                weak = {key: v for key, v in faults.items() if not v >= CONV3_FAULT_MARGIN}
+                if weak:
+                    raise AssertionError(f"conv3x3_bn_act {dname} {shape} prologue={pro} "
+                                         f"relu_in={relu_in}: a planted fault moves the check "
+                                         f"by only {weak} times its limit")
+                nbytes, flops = conv3_work(*shape, x.element_size(), pro)
+                row = {"dtype": dname, "N": n, "H": h, "W": wd, "C": c, "Cout": cout,
+                       "prologue": pro, "relu_in": relu_in, "count": shapes.count(shape),
+                       "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+                       "rel_err": errs, "fault_over_limit": faults,
+                       "fault_over_limit_min": min(faults.values()),
+                       "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                       "ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
+                row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+                row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+                text = ""
+                if timed and vi == 0:
+                    row |= {"ms": cuda_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b),
+                                          warmup=1),
+                            "plain_ms": cuda_ms(lambda: conv3_bn.conv3x3_bn_act_plain(x, w, a, b),
+                                                warmup=1),
+                            "library_ms": cuda_ms(lambda: library_conv3(x, w, a, b), warmup=1)}
+                    text = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+                            f"{row['library_ms']:.4f}, ")
+                rows.append(row)
+                log(f"  {dname:8s} {shape} pro={int(pro)} relu={int(relu_in)} x{row['count']}: "
+                    f"{text}bound {row['bound_ms']:.4f} ({row['bound_by']}), rel err y "
+                    f"{errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}; faults "
+                    + ", ".join(f"{key} {v:.0f}x" for key, v in faults.items()))
+                del got, want
+            del x, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def conv3_path(card: str, batch: int, policy: str) -> dict:
+    """The op's path: one train-mode forward of the seeded full-width
+    ResNet-50 at ``batch`` under ``policy``, its 16 3x3 stages captured
+    through ``fused.conv3x3_stage``; then, with the counts set to 0 just
+    before, ``conv3x3_bn_act(y1, W_b3, a1, b1, relu_in=True)`` on each
+    stage's inputs, held to the stage's own outputs and to the plain
+    version.  The model itself never calls the op."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
+
+    dname = "float32" if policy == "f32" else "bfloat16"
+    rng = np.random.default_rng(CONV3_SEED + batch)
+    x = torch.from_numpy(rng.normal(size=(batch, 224, 224, 3)).astype(np.float32)).cuda()
+    net = build_net()
+    stage, captured = fused_mod.conv3x3_stage, []
+
+    def watch(y1, a1, b1, w, shape, *, train):
+        out = stage(y1, a1, b1, w, shape, train=train)
+        captured.append(((y1, a1, b1, w, shape), out))
+        return out
+
+    config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
+    fused_mod.conv3x3_stage = watch
+    try:
+        with torch.no_grad():
+            net._forward(net.params_, net.state_, x, train=True)
+    finally:
+        fused_mod.conv3x3_stage = stage
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    del net, x
+    shapes = [(*shape, w.shape[2], w.shape[3]) for (_, _, _, w, shape), _ in captured]
+    if shapes != conv3_calls(batch):
+        raise AssertionError(f"captured 3x3 stages {shapes}, not {conv3_calls(batch)}")
+    torch.cuda.synchronize()
+    conv3_bn.launches = conv3_bn.reduce_launches = 0
+    outs = [conv3_bn.conv3x3_bn_act(y1.reshape(*shape, -1), w, a1.float(), b1.float(),
+                                    relu_in=True) for (y1, a1, b1, w, shape), _ in captured]
+    torch.cuda.synchronize()
+    launches = (conv3_bn.launches, conv3_bn.reduce_launches)
+    if launches != (16, 16):
+        raise AssertionError(f"the 16 stages launched (conv, reduce) {launches}, not (16, 16)")
+    layer_errs, plain_errs = [], []
+    for ((y1, a1, b1, w, shape), (y2, s1b, s2b)), got in zip(captured, outs):
+        if got[0].dtype != y1.dtype or not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"3x3 stage {shape}: kernel output non-finite or {got[0].dtype}")
+        layer = fwd_errs(conv3_flat(got), (y2, s1b, s2b))
+        plain = fwd_errs(conv3_flat(got), conv3_flat(conv3_bn.conv3x3_bn_act_plain(
+            y1.reshape(*shape, -1), w, a1.float(), b1.float(), relu_in=True)))
+        for errs, tol, what in ((layer, CONV3_LAYER_TOL, "the layer's chain"),
+                                (plain, TOL, "the plain version")):
+            bad = {key: v for key, v in errs.items() if not v <= tol[dname][key]}
+            if bad:
+                raise AssertionError(f"3x3 stage {shape} {dname}: kernel vs {what}: {bad} over "
+                                     f"{tol[dname]}")
+        layer_errs.append(layer)
+        plain_errs.append(plain)
+    worst = {src: {key: max(e[key] for e in errs) for key in ("y", "s1", "s2")}
+             for src, errs in (("layer", layer_errs), ("plain", plain_errs))}
+    result = {"card": card, "batch": batch, "policy": policy, "stages": len(captured),
+              "launches": launches[0], "reduce_launches": launches[1],
+              "vs_layer_rel_err_max": worst["layer"], "vs_plain_rel_err_max": worst["plain"]}
+    log(f"3x3 path {policy} batch {batch} on {card}: 16 stages captured from a train-mode "
+        f"ResNet-50 forward; (conv, reduce) launches {launches}; kernel vs the layer's chain "
+        + " ".join(f"{k} {v:.2e}" for k, v in worst["layer"].items()) + "; vs plain "
+        + " ".join(f"{k} {v:.2e}" for k, v in worst["plain"].items()))
+    return result
+
+
+def conv3_autograd(card: str) -> dict:
+    """The reference test's loss y.sum() + (s1*s1).sum() + s2.sum() at each
+    ResNet 3x3 shape, batch 32, f32: gradients of x, w, a, b through the op
+    against those through ``conv3x3_reference``; the backward launches no
+    kernel of the port."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn, conv_bn, flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul
+
+    def counts():
+        return (conv3_bn.launches, conv3_bn.reduce_launches, conv_bn.launches,
+                conv_bn.bwd_launches, fa.launches, fa.bwd_launches, fa.split_launches,
+                quant_matmul.launches)
+
+    gen = torch.Generator(device="cuda").manual_seed(CONV3_SEED + 1)
+    errs = {}
+    for h, c, _ in CONV3_STAGES:
+        x = torch.randn(BATCH, h, h, c, device="cuda", generator=gen)
+        w = torch.randn(3, 3, c, c, device="cuda", generator=gen) / (9 * c) ** 0.5
+        a = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.2
+        grads = []
+        for through in ("op", "reference"):
+            prims = [t.detach().clone().requires_grad_(True) for t in (x, w, a, b)]
+            if through == "op":
+                y, s1, s2 = conv3_bn.conv3x3_bn_act(*prims, relu_in=True)
+            else:
+                y, s1, s2 = conv3_bn.conv3x3_reference(*prims, has_prologue=True, relu_in=True)
+            loss = y.sum() + (s1 * s1).sum() + s2.sum()
+            torch.cuda.synchronize()
+            before = counts()
+            grads.append(torch.autograd.grad(loss, prims))
+            torch.cuda.synchronize()
+            if counts() != before:
+                raise AssertionError(f"the 3x3 backward ({through}) launched a port kernel")
+        shape_errs = {name: rel_max(g, e) for name, g, e in zip("xwab", *grads)}
+        bad = {k: v for k, v in shape_errs.items() if not v <= CONV3_GRAD_TOL}
+        if bad or not all(bool(torch.isfinite(g).all()) for g in grads[0]):
+            raise AssertionError(f"3x3 autograd ({BATCH}, {h}, {h}, {c}): gradients through "
+                                 f"the op vs conv3x3_reference {bad} over {CONV3_GRAD_TOL}")
+        errs[f"{h}x{h}x{c}"] = shape_errs
+        del x, w, a, b, grads
+    log(f"3x3 autograd on {card}: gradients through conv3x3_bn_act vs conv3x3_reference, "
+        f"batch {BATCH} f32, max over x, w, a, b: "
+        + ", ".join(f"{k} {max(v.values()):.2e}" for k, v in errs.items()))
+    return {"card": card, "rel_err": errs}
+
+
 # ------------------------------------------------------------------ BERT
 FLASH_SEED = SEED + 10
 # (name, B, H, Tq, Tk, causal, key-mask valid lengths or None, q_offset, k_offset)
@@ -890,13 +1207,17 @@ FLASH_TOL = {"float32": {"o": 2e-5, "m": 1e-5, "l": 1e-5, "out": 2e-5, "lse": 1e
 # not gated)
 FLASH_FAULT_MARGIN = 10
 # head dims besides BERT-base's 64, each with BERT-base's width 768 where it
-# divides it: (head dim, heads, cases); 80 runs through the zero-padding
-FLASH_HEAD_DIMS = ((32, 24, None), (128, 6, None), (80, 12, ("base",)))
+# divides it: (head dim, heads, cases); 80 runs through the zero-padding, 192
+# and 256 in column slabs (192 padded to 256)
+FLASH_WIDE_CASES = ("base", "key_mask", "causal_offsets", "dead_rows")
+FLASH_HEAD_DIMS = ((32, 24, None), (128, 6, None), (80, 12, ("base",)),
+                   (256, 3, FLASH_WIDE_CASES), (192, 4, FLASH_WIDE_CASES))
 # long sequences, no mask, (2, 12, T, 64): (T, dtypes)
 LONG_SEQS = ((16384, ("float32", "bfloat16")), (32768, ("bfloat16",)))
 BERT_SEQ, BERT_BATCH = 4096, 2
-# 2-layer BERT at BERT-base's width with 6 and 24 heads (head dims 128, 32)
-BERT_HEADS = (6, 24)
+# 2-layer BERT at BERT-base's width with 6, 24 and 3 heads (head dims 128, 32
+# and 256)
+BERT_HEADS = (6, 24, 3)
 # serving through the kernels vs through the plain versions, max |diff| of
 # log-softmax over the 30522-word vocab, 12 layers at seq 4096, as read on
 # the H100: f32 4.8e-6 (sum order); bf16 2.5e-2 (the two attentions'
@@ -1867,6 +2188,27 @@ def main() -> int:
     ragged = ragged_graph(card)
     torch.cuda.empty_cache()
 
+    log(f"conv3x3_bn_act kernel check: ResNet-50's four 3x3 shapes at batch {BATCH}, (prologue, "
+        f"relu_in) in {CONV3_VARIANTS}, then {len(CONV3_RAGGED)} other shapes, f32 and bf16")
+    conv3_rows = check_conv3(conv3_calls(BATCH), (torch.float32, torch.bfloat16), CONV3_VARIANTS)
+    conv3_ragged_rows = check_conv3(list(CONV3_RAGGED), (torch.float32, torch.bfloat16),
+                                    CONV3_VARIANTS[:1], timed=False)
+    conv3_paths = [conv3_path(card, BATCH, "f32"), conv3_path(card, head["batch"], "bf16")]
+    conv3_grads = conv3_autograd(card)
+    log(f"conv3x3_bn_act at the headline's batch {head['batch']}, bf16")
+    conv3_head_rows = check_conv3(conv3_calls(head["batch"]), (torch.bfloat16,),
+                                  CONV3_VARIANTS[:1])
+    timed = [r for r in conv3_rows if "ms" in r]
+    c3f32, c3bf16 = per_forward(timed, "float32"), per_forward(timed, "bfloat16")
+    c3h16 = per_forward(conv3_head_rows, "bfloat16")
+    for name, tot in ((f"batch {BATCH} f32", c3f32), (f"batch {BATCH} bf16", c3bf16),
+                      (f"batch {head['batch']} bf16", c3h16)):
+        log(f"  the 16 3x3 calls of one pass, {name}: kernel {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f}, library (the layer's chain) {tot['library_ms']:.3f}, bound "
+            f"{tot['bound_ms']:.3f} ({tot['bound_by']}; bytes {tot['bytes_ms']:.3f}, operations "
+            f"{tot['ops_ms']:.3f})")
+    torch.cuda.empty_cache()
+
     log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
         f"({BERT_BATCH}, 12, 64), f32 and bf16")
     flash_rows = check_flash((torch.float32, torch.bfloat16))
@@ -1936,6 +2278,16 @@ def main() -> int:
         | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/flash_attention.py:266",
                             "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"]},
         int8_entry(int8_rows, vgg),
+        entry("conv3x3_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/conv3x3_bn_act.cu",
+              "deeplearning4j_tpu/ops/pallas/conv3_bn.py:37", c3f32, c3bf16, c3h16,
+              sum(path["launches"] for path in conv3_paths),
+              f"the 16 3x3 calls of one ResNet-50 pass at batch {BATCH}, f32 (bf16_*: bf16; "
+              f"headline_*: bf16 at batch {head['batch']}); no model calls it; launches: the "
+              f"16 stages captured from a train-mode forward at batch {BATCH} (f32) and "
+              f"{head['batch']} (bf16)")
+        | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/conv3_bn.py:37",
+                            "deeplearning4j_tpu/ops/pallas/conv3_bn.py:84"],
+           "reduce_launches": sum(path["reduce_launches"] for path in conv3_paths)},
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1946,11 +2298,15 @@ def main() -> int:
          "per_headline_step": {"forward": h16, "backward": hb16},
          "serve": serving, "train": training, "headline": head,
          "ragged_shapes": ragged_rows, "ragged_bwd_shapes": ragged_bwd_rows,
-         "ragged_graph": ragged, "flash_head_dim_shapes": flash_dim_rows,
+         "ragged_graph": ragged, "conv3_shapes": conv3_rows,
+         "conv3_ragged_shapes": conv3_ragged_rows, "conv3_headline_shapes": conv3_head_rows,
+         "conv3_per_pass": {"float32": c3f32, "bfloat16": c3bf16, "headline_bfloat16": c3h16},
+         "conv3_paths": conv3_paths, "conv3_autograd": conv3_grads,
+         "flash_head_dim_shapes": flash_dim_rows,
          "flash_long": long_rows, "bert_serve_heads": bert_heads,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
-         "kernels": kernels,
+         "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,11 +10,13 @@ layer, so that the three (or four) 1x1 convs run through
 
 A stride lands as the strided slice ``x[:, ::sh, ::sw, :]`` before the
 1x1 reduce, as in the JAX layer; the 3x3 is a plain ``conv2d`` at
-stride 1.  In train mode each BN uses its batch statistics: the 1x1
-convs' come from the kernel's s1/s2 epilogue (so gradients flow back
-through them into the kernel's backward), the 3x3's from one reduction
-of its output; the variance is the one-pass E[y^2] - E[y]^2 clamped at
-0, and the running mean/var move by ``decay`` (returned detached).  In
+stride 1 (:func:`conv3x3_stage`, one function so that a caller can watch
+the stage's inputs and outputs).  In train mode each BN uses its batch
+statistics: the 1x1 convs' come from the kernel's s1/s2 epilogue (so
+gradients flow back through them into the kernel's backward), the 3x3's
+from one reduction of its output; the variance is the one-pass
+E[y^2] - E[y]^2 clamped at 0, and the running mean/var move by ``decay``
+(returned detached).  In
 eval mode BN uses the running statistics.  Param and state keys are the
 JAX layer's (``W_a``, ``gamma_a``, ``mean_a``, ...).
 """
@@ -37,6 +39,26 @@ def _fold(mean, var, gamma, beta, eps):
     """(mean, var, gamma, beta) → per-channel (a, b): bn(x) = x*a + b."""
     a = gamma * torch.rsqrt(var + eps)
     return a, beta - mean * a
+
+
+def conv3x3_stage(y1, a1, b1, w, shape, *, train: bool):
+    """The bottleneck's 3x3 stage, the function of the ``conv3x3_bn_act``
+    kernel, as the JAX layer computes it: the normalize pass
+    ``relu(y1*a1 + b1)`` in y1's dtype, the stride-1 SAME 3x3 conv with
+    ``w`` (HWIO; symmetric padding for an odd kernel), and in train mode
+    the batch statistics Σy, Σy² as one reduction of its output in the
+    stats dtype.  ``y1`` is the reduce conv's output [m, C] over an
+    (n, h, w) = ``shape`` grid; returns y2 [m, Cout] (contiguous) and
+    (s1, s2), None in eval mode."""
+    n, hb, wb = shape
+    cdt = y1.dtype
+    z1 = torch.relu(y1 * a1.to(cdt) + b1.to(cdt)).reshape(n, hb, wb, -1)
+    y2 = F.conv2d(z1.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    y2 = y2.permute(0, 2, 3, 1).reshape(n * hb * wb, w.shape[-1]).contiguous()
+    if not train:
+        return y2, None, None
+    y2f = y2.to(torch.float64 if cdt == torch.float64 else torch.float32)
+    return y2, y2f.sum(0), (y2f * y2f).sum(0)
 
 
 @register_layer("fused_bottleneck")
@@ -99,7 +121,7 @@ class FusedBottleneck(Layer):
         policy = dtype_policy()
         cdt = policy.compute_dtype
         sdt = torch.float64 if cdt == torch.float64 else torch.float32
-        f1, f2, f3 = self.filters
+        f3 = self.filters[2]
         sh, sw = self.stride
         xs = x[:, ::sh, ::sw, :] if (sh, sw) != (1, 1) else x
         n, hb, wb, c_in = xs.shape
@@ -119,16 +141,9 @@ class FusedBottleneck(Layer):
         # ---- 1x1 reduce; its BN+ReLU is one pass ahead of the 3x3 conv
         y1, s1a, s2a = matmul_bn_act(x2d, W("a"))
         a1, b1 = bn_fold("a", s1a, s2a)
-        z1 = torch.relu(y1 * a1.to(cdt) + b1.to(cdt)).reshape(n, hb, wb, f1)
 
-        # ---- 3x3, stride 1, SAME (symmetric for an odd kernel); its
-        # batch statistics are one reduction of its output in the stats dtype
-        y2 = F.conv2d(z1.permute(0, 3, 1, 2), W("b3").permute(3, 2, 0, 1), padding=1)
-        y2 = y2.permute(0, 2, 3, 1).reshape(m, f2).contiguous()
-        s1b = s2b = None
-        if train:
-            y2f = y2.to(sdt)
-            s1b, s2b = y2f.sum(0), (y2f * y2f).sum(0)
+        # ---- 3x3 with the reduce conv's BN+ReLU ahead of it
+        y2, s1b, s2b = conv3x3_stage(y1, a1, b1, W("b3"), (n, hb, wb), train=train)
         a2, b2 = bn_fold("b3", s1b, s2b)
 
         # ---- 1x1 expand: the 3x3's BN+ReLU rides the kernel prologue

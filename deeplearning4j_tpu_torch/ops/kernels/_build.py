@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("matmul_bn_act", "matmul_bn_act_bwd", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_bwd_split", "int8_matmul")
+           "flash_attention_bwd_split", "int8_matmul", "conv3x3_bn_act")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

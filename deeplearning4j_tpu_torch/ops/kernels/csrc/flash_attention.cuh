@@ -5,9 +5,19 @@
 // with its dq partials and the split backward's dk/dv kernel without.
 //
 // Every kernel is templated on the head dim D in {32, 64, 128}; the wrapper
-// zero-pads any other head dim up to the next of these.  All tiles live in
-// dynamic shared memory (the launchers raise the 48 KB default where a
-// template needs more).
+// zero-pads any other head dim up to 128 to the next of these.  A head dim
+// past 128 is zero-padded to a multiple of 128 (the row length ld in device
+// memory) and runs in the WIDE form of the D = 128 template (of D = 64 for
+// the bf16 merged backward): the output columns are split into slabs of D,
+// one slab per block (blockIdx.z). Each block computes the scores s = q.k
+// (and dp = dout.v in the backward) over the whole head dim, looping over it
+// in D-column slabs of q, k, v and dout in shared memory, always in the same
+// order, and accumulates only its own D columns of o (forward), or of dk, dv
+// and dq (backward). So the accumulators and tiles stay those of the
+// template, s and dp are recomputed once per slab, and m, l and lse come out
+// the same in every slab (slab 0 writes them). All tiles live in dynamic
+// shared memory (the launchers raise the 48 KB default where a template needs
+// more).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,16 +34,17 @@ constexpr int H_THREADS = 128;   // bf16 kernels: 4 warps of mma.sync
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------- loaders
-// rows [row0, row0 + n) of a [n_rows, D] f32 matrix into dst[n][D + 1];
-// zeros past n_rows.  The odd row length keeps a column read by 16 rows on
-// 16 banks.
+// rows [row0, row0 + n) of a [n_rows, ld] f32 matrix, D columns from src,
+// into dst[n][D + 1]; zeros past n_rows.  The odd row length keeps a column
+// read by 16 rows on 16 banks.
 template <int D>
 __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const float* src, int row0,
-                                              int n, int n_rows, int tid, int threads) {
+                                              int n, int n_rows, int tid, int threads,
+                                              int ld = D) {
   for (int idx = tid; idx < n * (D / 4); idx += threads) {
     const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    if (row0 + r < n_rows) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld + c);
     dst[r][c] = v.x;
     dst[r][c + 1] = v.y;
     dst[r][c + 2] = v.z;
@@ -45,11 +56,12 @@ __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const float* 
 // 8 rows of an ldmatrix hit distinct banks
 template <int D>
 __device__ __forceinline__ void load_rows_bf16(bf16 (*dst)[D + 8], const bf16* src, int row0,
-                                               int n, int n_rows, int tid, int threads) {
+                                               int n, int n_rows, int tid, int threads,
+                                               int ld = D) {
   for (int idx = tid; idx < n * (D / 8); idx += threads) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+    if (row0 + r < n_rows) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
     *reinterpret_cast<uint4*>(&dst[r][c]) = v;
   }
 }
@@ -129,6 +141,7 @@ struct BwdArgs {
   float* dv;            // [BH, Tk, D]
   float* dq_part;       // [n_kt, BH, tq_pad, D]    (merged backward)
   int bh, heads, tq, tk, tq_pad, q_offset, k_offset, causal;
+  int ld;               // the (padded) head dim: every D above is this row length
   float scale;
 };
 
@@ -153,19 +166,12 @@ __device__ __forceinline__ float2 p_ds(float s, float dp, float lse, float delta
 
 // The f32 score tile of 64 query rows (q0..) against a 64-key tile (k0..),
 // from padded rows in shared memory: the thread's rows ty + 16 i and keys
-// tx + 16 j of s = q k^T and dp = dout v^T by FMA on the CUDA cores, then
-// their p and ds.
+// tx + 16 j of s = q k^T and dp = dout v^T by FMA on the CUDA cores, added
+// to p and ds (score_dots_f32), then their p and ds (score_finish_f32).
 template <int D>
-__device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km,
-                                               float (*Qs)[D + 1], float (*dOs)[D + 1],
-                                               float (*Ks)[D + 1], float (*Vs)[D + 1],
-                                               const float* lse_s, const float* delta_s, int q0,
-                                               int k0, int tx, int ty, float (&p)[4][4],
-                                               float (&ds)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+__device__ __forceinline__ void score_dots_f32(float (*Qs)[D + 1], float (*dOs)[D + 1],
+                                               float (*Ks)[D + 1], float (*Vs)[D + 1], int tx,
+                                               int ty, float (&p)[4][4], float (&ds)[4][4]) {
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     float qa[4], oa[4], kb[4], vb[4];
@@ -187,6 +193,12 @@ __device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km
         ds[i][j] = fmaf(oa[i], vb[j], ds[i][j]);    // dp
       }
   }
+}
+
+__device__ __forceinline__ void score_finish_f32(const BwdArgs& a, const float* km,
+                                                 const float* lse_s, const float* delta_s,
+                                                 int q0, int k0, int tx, int ty,
+                                                 float (&p)[4][4], float (&ds)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -199,6 +211,29 @@ __device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km
       ds[i][j] = pd.y;
     }
   }
+}
+
+template <int D>
+__device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km,
+                                               float (*Qs)[D + 1], float (*dOs)[D + 1],
+                                               float (*Ks)[D + 1], float (*Vs)[D + 1],
+                                               const float* lse_s, const float* delta_s, int q0,
+                                               int k0, int tx, int ty, float (&p)[4][4],
+                                               float (&ds)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+  score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
+  score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
+}
+
+// The dq partial of a skipped query tile: BQ rows of D zeros, rows ld apart.
+template <int D, int BQ>
+__device__ __forceinline__ void zero_part(float* part, int ld, int tid, int threads) {
+  for (int idx = tid; idx < BQ * D / 4; idx += threads)
+    reinterpret_cast<float4*>(part + (size_t)(idx / (D / 4)) * ld)[idx % (D / 4)] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // Under causal, a query tile whose last row comes before the key tile's
@@ -249,8 +284,11 @@ constexpr size_t bwd_bf16_smem() {
 // its own [64, D] slice of dq_part, zeros for a skipped tile.  f32: each of
 // 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i, keys
 // tx + 16 j) and 4 x D/16 of dk, dv and the dq partial, FMA on the CUDA
-// cores from padded rows.
-template <int D, bool DQ>
+// cores from padded rows.  WIDE: the block's slab of D columns (blockIdx.z)
+// of rows a.ld long; the score tile sums over every slab (k and v tiles
+// reloaded per slab with q and dout), then q, dout and k are reloaded at
+// the block's own slab for the products.
+template <int D, bool DQ, bool WIDE = false>
 __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
   constexpr int LD = D + 1, NJ = D / 16, BQ = 64;
   extern __shared__ __align__(128) unsigned char flash_smem[];
@@ -265,16 +303,19 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y, kt = blockIdx.x, k0 = kt * BK;
-  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * D;
-  const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * D;
-  const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * D;
-  const float* dout = static_cast<const float*>(a.dout) + (size_t)bh * a.tq * D;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
+  const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
+  const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
+  const float* dout = static_cast<const float*>(a.dout) + (size_t)bh * a.tq * ld;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
-  load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
+  if constexpr (!WIDE) {
+    load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
+    load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
+  }
 
-  float dk[4][NJ], dv[4][NJ];     // key rows ty + 16 i, columns tx + 16 j
+  float dk[4][NJ], dv[4][NJ];     // key rows ty + 16 i, columns col0 + tx + 16 j
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -283,25 +324,56 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
   const int n_qt = (a.tq + BQ - 1) / BQ;
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    float* part = DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * D : nullptr;
+    float* part =
+        DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * ld + col0 : nullptr;
     if (skipped(a, q0, BQ, k0)) {
-      if constexpr (DQ)
+      if constexpr (DQ && WIDE) {
+        zero_part<D, BQ>(part, ld, tid, F_THREADS);
+      } else if constexpr (DQ) {
         for (int idx = tid; idx < BQ * D / 4; idx += F_THREADS)
           reinterpret_cast<float4*>(part)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
       continue;
     }
     __syncthreads();                 // the last tile's readers are done
-    load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
-    load_rows_f32<D>(dOs, dout, q0, BQ, a.tq, tid, F_THREADS);
-    if (tid < BQ) {
-      const bool real = q0 + tid < a.tq;
-      lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
-      delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
     float p[4][4], ds[4][4];         // query rows ty + 16 i, key columns tx + 16 j
-    score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
+    if constexpr (WIDE) {
+      if (tid < BQ) {
+        const bool real = q0 + tid < a.tq;
+        lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
+        delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+      for (int c = 0; c < ld; c += D) {
+        if (c) __syncthreads();      // the last slab's readers are done
+        load_rows_f32<D>(Ks, k + c, k0, BK, a.tk, tid, F_THREADS, ld);
+        load_rows_f32<D>(Vs, v + c, k0, BK, a.tk, tid, F_THREADS, ld);
+        load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
+        load_rows_f32<D>(dOs, dout + c, q0, BQ, a.tq, tid, F_THREADS, ld);
+        __syncthreads();
+        score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
+      }
+      score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
+      if (col0 + D != ld) {          // the products take the block's own slab
+        __syncthreads();
+        load_rows_f32<D>(Qs, q + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
+        load_rows_f32<D>(dOs, dout + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
+        if constexpr (DQ) load_rows_f32<D>(Ks, k + col0, k0, BK, a.tk, tid, F_THREADS, ld);
+      }
+    } else {
+      load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
+      load_rows_f32<D>(dOs, dout, q0, BQ, a.tq, tid, F_THREADS);
+      if (tid < BQ) {
+        const bool real = q0 + tid < a.tq;
+        lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
+        delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -355,7 +427,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = dq[i][j];
+        for (int j = 0; j < NJ; ++j) part[(ty + 16 * i) * ld + tx + 16 * j] = dq[i][j];
     }
   }
 
@@ -363,11 +435,49 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
   for (int i = 0; i < 4; ++i) {
     const int kg = k0 + ty + 16 * i;
     if (kg >= a.tk) continue;
-    const size_t row = ((size_t)bh * a.tk + kg) * D;
+    const size_t row = ((size_t)bh * a.tk + kg) * ld + col0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       a.dk[row + tx + 16 * j] = dk[i][j];
       a.dv[row + tx + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+// s^T += k q^T and dp^T += v dout^T over the D columns of the tiles in shared
+// memory, the query rows read as column-major q^T, dout^T: this warp's 16
+// keys (w0..) against the BQ queries, its k and v rows from the A fragments
+// ka, va where KEEP holds them in registers, else from Ks, Vs.
+template <int D, int BQ, bool KEEP>
+__device__ __forceinline__ void score_dots_t_bf16(float (&st)[BQ / 8][4], float (&dpt)[BQ / 8][4],
+                                                  const uint32_t (&ka)[KEEP ? D / 16 : 1][4],
+                                                  const uint32_t (&va)[KEEP ? D / 16 : 1][4],
+                                                  bf16 (*Ks)[D + 8], bf16 (*Vs)[D + 8],
+                                                  bf16 (*Qs)[D + 8], bf16 (*dOs)[D + 8], int w0,
+                                                  int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t kf[4], vf[4];
+    if constexpr (KEEP) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kf[e] = ka[kk][e];
+        vf[e] = va[kk][e];
+      }
+    } else {
+      a_frag<LD>(kf, Ks, w0, kk * 16, lane);
+      a_frag<LD>(vf, Vs, w0, kk * 16, lane);
+    }
+#pragma unroll
+    for (int np = 0; np < BQ / 16; ++np) {
+      uint32_t b[4];
+      bt_frag<LD>(b, Qs, np * 16, kk * 16, lane);
+      mma_bf16(st[2 * np], kf, b[0], b[1]);
+      mma_bf16(st[2 * np + 1], kf, b[2], b[3]);
+      bt_frag<LD>(b, dOs, np * 16, kk * 16, lane);
+      mma_bf16(dpt[2 * np], vf, b[0], b[1]);
+      mma_bf16(dpt[2 * np + 1], vf, b[2], b[3]);
     }
   }
 }
@@ -383,11 +493,12 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
 // read from shared memory at each use.  With DQ, ds^T also goes to shared
 // memory, where the warps read it back transposed as the A operand of the
 // dq partial ds k: BQ / 16 blocks of 16 query rows, each split over
-// 4 / (BQ / 16) warps by columns of D.
-template <int D, bool DQ>
+// 4 / (BQ / 16) warps by columns of D.  WIDE: the block's slab of D columns
+// (blockIdx.z) of rows a.ld long, as in bwd_f32_body.
+template <int D, bool DQ, bool WIDE = false>
 __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
   constexpr int LD = D + 8, BQ = bwd_bf16_bq<D>(), LDS = BQ + 8;
-  constexpr bool KEEP = D <= 64;
+  constexpr bool KEEP = D <= 64 && !WIDE;
   extern __shared__ __align__(128) unsigned char flash_smem[];
   bf16 (*Ks)[LD] = reinterpret_cast<bf16 (*)[LD]>(flash_smem);
   bf16 (*Vs)[LD] = Ks + BK;
@@ -403,14 +514,17 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
   const int w0 = warp * 16;                       // this warp's 16 keys
   const int kl[2] = {w0 + g, w0 + g + 8};         // this thread's two keys (in the tile)
   bool key_ok[2];                                 // each below Tk and unmasked
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * D;
-  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * D;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * D;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + (size_t)bh * a.tq * D;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * ld;
+  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * ld;
+  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * ld;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + (size_t)bh * a.tq * ld;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
-  load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
+  if constexpr (!WIDE) {
+    load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
+    load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kg = k0 + kl[h];
@@ -434,22 +548,27 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
   const int n_qt = (a.tq + BQ - 1) / BQ;
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    float* part = DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * D : nullptr;
+    float* part =
+        DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * ld + col0 : nullptr;
     if (skipped(a, q0, BQ, k0)) {
-      if constexpr (DQ)
+      if constexpr (DQ && WIDE) {
+        zero_part<D, BQ>(part, ld, tid, H_THREADS);
+      } else if constexpr (DQ) {
         for (int idx = tid; idx < BQ * D / 4; idx += H_THREADS)
           reinterpret_cast<float4*>(part)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
       continue;
     }
     __syncthreads();                 // the last tile's readers are done
-    load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
-    load_rows_bf16<D>(dOs, dout, q0, BQ, a.tq, tid, H_THREADS);
+    if constexpr (!WIDE) {
+      load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
+      load_rows_bf16<D>(dOs, dout, q0, BQ, a.tq, tid, H_THREADS);
+    }
     if (tid < BQ) {
       const bool real = q0 + tid < a.tq;
       lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
       delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
     }
-    __syncthreads();
 
     // s^T = k q^T and dp^T = v dout^T: query rows read as column-major q^T, dout^T
     float st[BQ / 8][4], dpt[BQ / 8][4];
@@ -457,29 +576,26 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
     for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kf[4], vf[4];
-      if constexpr (KEEP) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          kf[e] = ka[kk][e];
-          vf[e] = va[kk][e];
-        }
-      } else {
-        a_frag<LD>(kf, Ks, w0, kk * 16, lane);
-        a_frag<LD>(vf, Vs, w0, kk * 16, lane);
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += D) {
+        if (c) __syncthreads();      // the last slab's readers are done
+        load_rows_bf16<D>(Ks, k + c, k0, BK, a.tk, tid, H_THREADS, ld);
+        load_rows_bf16<D>(Vs, v + c, k0, BK, a.tk, tid, H_THREADS, ld);
+        load_rows_bf16<D>(Qs, q + c, q0, BQ, a.tq, tid, H_THREADS, ld);
+        load_rows_bf16<D>(dOs, dout + c, q0, BQ, a.tq, tid, H_THREADS, ld);
+        __syncthreads();
+        score_dots_t_bf16<D, BQ, KEEP>(st, dpt, ka, va, Ks, Vs, Qs, dOs, w0, lane);
       }
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t b[4];
-        bt_frag<LD>(b, Qs, np * 16, kk * 16, lane);
-        mma_bf16(st[2 * np], kf, b[0], b[1]);
-        mma_bf16(st[2 * np + 1], kf, b[2], b[3]);
-        bt_frag<LD>(b, dOs, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], vf, b[0], b[1]);
-        mma_bf16(dpt[2 * np + 1], vf, b[2], b[3]);
+      if (col0 + D != ld) {          // the products take the block's own slab
+        __syncthreads();
+        load_rows_bf16<D>(Qs, q + col0, q0, BQ, a.tq, tid, H_THREADS, ld);
+        load_rows_bf16<D>(dOs, dout + col0, q0, BQ, a.tq, tid, H_THREADS, ld);
+        if constexpr (DQ) load_rows_bf16<D>(Ks, k + col0, k0, BK, a.tk, tid, H_THREADS, ld);
+        __syncthreads();
       }
+    } else {
+      __syncthreads();
+      score_dots_t_bf16<D, BQ, KEEP>(st, dpt, ka, va, Ks, Vs, Qs, dOs, w0, lane);
     }
 
     // p^T and ds^T in place: st[n][e] is key kl[e >> 1], query n*8 + 2t + (e & 1)
@@ -528,30 +644,37 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
     if constexpr (DQ) {
       __syncthreads();               // every warp's keys of ds^T are written
       // dq partial = ds k: this warp's 16 query rows (r0..) and DW columns
-      // (c0..); ds^T read transposed as the A operand, k rows as B
-      constexpr int RB = BQ / 16, DW = D / (4 / RB);
-      const int r0 = (warp % RB) * 16, c0 = (warp / RB) * DW;
-      float dq[DW / 8][4];
+      // (c0..), in WIDE in two halves of DH columns, which keeps the slab
+      // loop's 64-row tile within 255 registers; ds^T read transposed as the
+      // A operand, k rows as B
+      constexpr int RB = BQ / 16, DW = D / (4 / RB), HALVES = WIDE ? 2 : 1, DH = DW / HALVES;
+      const int r0 = (warp % RB) * 16;
+#pragma unroll 1
+      for (int hf = 0; hf < HALVES; ++hf) {
+        const int c0 = (warp / RB) * DW + hf * DH;
+        float dq[DH / 8][4];
 #pragma unroll
-      for (int n = 0; n < DW / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+        for (int n = 0; n < DH / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t sa[4];
-        ldsm_x4_t(sa, &dSTs[kk * 16 + (lane & 7) + (lane >> 4) * 8][r0 + ((lane >> 3) & 1) * 8]);
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t sa[4];
+          ldsm_x4_t(sa,
+                    &dSTs[kk * 16 + (lane & 7) + (lane >> 4) * 8][r0 + ((lane >> 3) & 1) * 8]);
 #pragma unroll
-        for (int dp = 0; dp < DW / 16; ++dp) {
-          uint32_t b[4];
-          b_frag<LD>(b, Ks, kk * 16, c0 + dp * 16, lane);
-          mma_bf16(dq[2 * dp], sa, b[0], b[1]);
-          mma_bf16(dq[2 * dp + 1], sa, b[2], b[3]);
+          for (int dp = 0; dp < DH / 16; ++dp) {
+            uint32_t b[4];
+            b_frag<LD>(b, Ks, kk * 16, c0 + dp * 16, lane);
+            mma_bf16(dq[2 * dp], sa, b[0], b[1]);
+            mma_bf16(dq[2 * dp + 1], sa, b[2], b[3]);
+          }
         }
-      }
 #pragma unroll
-      for (int n = 0; n < DW / 8; ++n) {
-        *reinterpret_cast<float2*>(part + (r0 + g) * D + c0 + n * 8 + 2 * t) =
-            make_float2(dq[n][0], dq[n][1]);
-        *reinterpret_cast<float2*>(part + (r0 + g + 8) * D + c0 + n * 8 + 2 * t) =
-            make_float2(dq[n][2], dq[n][3]);
+        for (int n = 0; n < DH / 8; ++n) {
+          *reinterpret_cast<float2*>(part + (r0 + g) * ld + c0 + n * 8 + 2 * t) =
+              make_float2(dq[n][0], dq[n][1]);
+          *reinterpret_cast<float2*>(part + (r0 + g + 8) * ld + c0 + n * 8 + 2 * t) =
+              make_float2(dq[n][2], dq[n][3]);
+        }
       }
     }
   }
@@ -560,7 +683,7 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
   for (int h = 0; h < 2; ++h) {
     const int kg = k0 + kl[h];
     if (kg >= a.tk) continue;
-    const size_t row = ((size_t)bh * a.tk + kg) * D;
+    const size_t row = ((size_t)bh * a.tk + kg) * ld + col0;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<float2*>(a.dk + row + n * 8 + 2 * t) =
@@ -570,6 +693,10 @@ __device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
     }
   }
 }
+
+// Whether head dim d runs in the WIDE form of the templates: past 128, a
+// multiple of 128 (the wrapper pads it so), one block per slab (grid z).
+inline bool wide_head_dim(int d) { return d > 128 && d % 128 == 0; }
 
 // Raise the kernel's dynamic shared memory to what it needs, launch, and
 // return the launch's error.
@@ -586,7 +713,7 @@ int launch_kernel(void (*kernel)(Args), dim3 grid, int threads, size_t smem, cud
 BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* kmask,
                  const void* dout, const void* lse, const void* delta, void* dq, void* dk,
                  void* dv, void* dq_part, int bh, int heads, int tq, int tk, int q_offset,
-                 int k_offset, int causal, float scale) {
+                 int k_offset, int causal, int d, float scale) {
   BwdArgs a;
   a.q = q;
   a.k = k;
@@ -607,6 +734,7 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* kmask,
   a.q_offset = q_offset;
   a.k_offset = k_offset;
   a.causal = causal;
+  a.ld = d;
   a.scale = scale;
   return a;
 }

@@ -36,39 +36,42 @@
 // (flash_attention_bwd_split.cu needs none).
 // A simple kernel: no cp.async/TMA pipelining and no wgmma yet.
 //
-// Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64
-// or 128 (it zero-pads others up to 128), contiguous 16-byte aligned
-// tensors, an f32 [B, Tk] key mask, a partial scratch of [ceil(Tk/64), BH,
-// ceil(Tq/64)*64, D] f32.  Every entry point returns cudaGetLastError()
-// after its launches (cudaErrorInvalidValue for another D).
+// Head dims past 128 run in column slabs (flash_attention.cuh): of 128
+// columns in f32, of 64 in bf16, where the 128-column slab spills.
+//
+// Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64,
+// 128 or a larger multiple of 128 (it zero-pads others up to the next),
+// contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask, a partial
+// scratch of [ceil(Tk/64), BH, ceil(Tq/64)*64, D] f32.  Every entry point
+// returns cudaGetLastError() after its launches (cudaErrorInvalidValue for
+// another D).
 
 #include "flash_attention.cuh"
 
 namespace {
 
-template <int D>
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(F_THREADS)
 fa_bwd_f32_kernel(BwdArgs a) {
-  bwd_f32_body<D, true>(a);
+  bwd_f32_body<D, true, WIDE>(a);
 }
 
-template <int D>
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(H_THREADS)
 fa_bwd_bf16_kernel(BwdArgs a) {
-  bwd_bf16_body<D, true>(a);
+  bwd_bf16_body<D, true, WIDE>(a);
 }
 
-// dq[bh, t, :] = sum over key tiles, in order, of the partials; one float4
-// per thread.
-template <int D>
+// dq[bh, t, :] = sum over key tiles, in order, of the partials, rows of d4
+// float4; one float4 per thread.
 __global__ void dq_reduce_kernel(const float4* __restrict__ part, float4* __restrict__ dq,
-                                 int n_kt, int bh, int tq, int tq_pad) {
-  const size_t per_head = (size_t)tq * (D / 4);
+                                 int n_kt, int bh, int tq, int tq_pad, int d4) {
+  const size_t per_head = (size_t)tq * d4;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= per_head * bh) return;
   const size_t head = idx / per_head, rest = idx % per_head;
-  const size_t stride = (size_t)bh * tq_pad * (D / 4);
-  const float4* src = part + head * tq_pad * (D / 4) + rest;
+  const size_t stride = (size_t)bh * tq_pad * d4;
+  const float4* src = part + head * tq_pad * d4 + rest;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t = 0; t < n_kt; ++t) {
     const float4 x = src[t * stride];
@@ -80,19 +83,21 @@ __global__ void dq_reduce_kernel(const float4* __restrict__ part, float4* __rest
   dq[idx] = s;
 }
 
-template <int D, bool BF16>
+template <int D, bool BF16, bool WIDE = false>
 int launch(const BwdArgs& a, void* dq, cudaStream_t s) {
   const int n_kt = (a.tk + BK - 1) / BK;
-  const dim3 grid(n_kt, a.bh);
-  const int rc = BF16 ? launch_kernel(fa_bwd_bf16_kernel<D>, grid, H_THREADS,
-                                      bwd_bf16_smem<D, true>(), s, a)
-                      : launch_kernel(fa_bwd_f32_kernel<D>, grid, F_THREADS, bwd_f32_smem<D>(),
-                                      s, a);
+  const dim3 grid(n_kt, a.bh, WIDE ? a.ld / D : 1);
+  int rc;
+  if constexpr (BF16)
+    rc = launch_kernel(fa_bwd_bf16_kernel<D, WIDE>, grid, H_THREADS,
+                       bwd_bf16_smem<D, true>(), s, a);
+  else
+    rc = launch_kernel(fa_bwd_f32_kernel<D, WIDE>, grid, F_THREADS, bwd_f32_smem<D>(), s, a);
   if (rc != 0) return rc;
-  const size_t n4 = (size_t)a.bh * a.tq * (D / 4);
-  dq_reduce_kernel<D><<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
+  const size_t n4 = (size_t)a.bh * a.tq * (a.ld / 4);
+  dq_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
       reinterpret_cast<const float4*>(a.dq_part), static_cast<float4*>(dq), n_kt, a.bh, a.tq,
-      a.tq_pad);
+      a.tq_pad, a.ld / 4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,6 +109,9 @@ int dispatch(int d, const BwdArgs& a, void* dq, void* stream) {
     case 64: return launch<64, BF16>(a, dq, s);
     case 128: return launch<128, BF16>(a, dq, s);
   }
+  // past 128 in slabs: of 64 columns in bf16, where the 128-column slab's
+  // dk, dv and dq-partial state spills past 255 registers, else of 128
+  if (wide_head_dim(d)) return launch<BF16 ? 64 : 128, BF16, true>(a, dq, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -117,7 +125,7 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
                             int q_offset, int k_offset, int causal, int d, float scale,
                             void* stream) {
   return dispatch<false>(d, bwd_args(q, k, v, kmask, dout, lse, delta, nullptr, dk, dv, dq_part,
-                                     bh, heads, tq, tk, q_offset, k_offset, causal, scale),
+                                     bh, heads, tq, tk, q_offset, k_offset, causal, d, scale),
                          dq, stream);
 }
 
@@ -127,7 +135,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const 
                              int tk, int q_offset, int k_offset, int causal, int d, float scale,
                              void* stream) {
   return dispatch<true>(d, bwd_args(q, k, v, kmask, dout, lse, delta, nullptr, dk, dv, dq_part,
-                                    bh, heads, tq, tk, q_offset, k_offset, causal, scale),
+                                    bh, heads, tq, tk, q_offset, k_offset, causal, d, scale),
                         dq, stream);
 }
 

@@ -35,13 +35,15 @@
 //     owning 16 query rows.  Scores, p and the output stay in registers:
 //     the accumulator layout of q.k^T is the operand layout of p.v, so p
 //     is rounded to bf16 (as the JAX kernel does) and fed back directly.
-// Templated on the head dim D in {32, 64, 128} (flash_attention.cuh).
-// A simple kernel: no cp.async/TMA pipelining and no wgmma yet.
+// Templated on the head dim D in {32, 64, 128}; head dims past 128 run in
+// 128-column slabs (flash_attention.cuh).  A simple kernel: no
+// cp.async/TMA pipelining and no wgmma yet.
 //
-// Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64
-// or 128 (it zero-pads others up to 128), contiguous 16-byte aligned
-// tensors, an f32 [B, Tk] key mask.  Every entry point returns
-// cudaGetLastError() after its launch (cudaErrorInvalidValue for another D).
+// Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64,
+// 128 or a larger multiple of 128 (it zero-pads others up to the next),
+// contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask.  Every entry
+// point returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for another D).
 
 #include "flash_attention.cuh"
 
@@ -60,6 +62,7 @@ struct FwdArgs {
   void* out;            // [BH, Tq, D] in the inputs' dtype (normalize == 1)
   float* lse;           // [BH, Tq]     (normalize == 1)
   int heads, tq, tk, q_offset, k_offset, causal, normalize;
+  int ld;               // the (padded) head dim: the row length of q, k, v, o, out
   float scale;
 };
 
@@ -87,12 +90,34 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// s += q k^T over the D columns of the tiles: the thread's rows ty + 16 i
+// and keys tx + 16 j.
+template <int D>
+__device__ __forceinline__ void qk_dots_f32(float (*Qs)[D + 1], float (*Ks)[D + 1], int tx,
+                                            int ty, float (&s)[4][4]) {
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float qa[4], kb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[i] = Qs[ty + 16 * i][d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kb[j] = Ks[tx + 16 * j][d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+  }
+}
+
 template <int D>
 constexpr size_t fwd_f32_smem() {
   return (size_t)(3 * 64 * (D + 1) + 64 * (BK + 1)) * sizeof(float);
 }
 
-template <int D>
+// WIDE: the block's slab of D columns (blockIdx.z) of rows a.ld long; the
+// scores sum over every slab (q and k tiles reloaded per slab), v is loaded
+// at the block's own slab, and slab 0 writes m, l (or lse).
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(F_THREADS)
 fa_fwd_f32_kernel(FwdArgs a) {
   constexpr int LD = D + 1, NJ = D / 16;
@@ -104,12 +129,13 @@ fa_fwd_f32_kernel(FwdArgs a) {
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * D;
-  const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * D;
-  const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * D;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
+  const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
+  const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
+  if constexpr (!WIDE) load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
 
   float acc[4][NJ], mrow[4], lrow[4];
 #pragma unroll
@@ -124,26 +150,25 @@ fa_fwd_f32_kernel(FwdArgs a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the last tile's readers are done
-    load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
-    load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[ty + 16 * i][d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[tx + 16 * j][d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += D) {
+        if (c) __syncthreads();      // the last slab's readers are done
+        load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
+        load_rows_f32<D>(Ks, k + c, k0, BK, a.tk, tid, F_THREADS, ld);
+        if (c + D == ld) load_rows_f32<D>(Vs, v + col0, k0, BK, a.tk, tid, F_THREADS, ld);
+        __syncthreads();
+        qk_dots_f32<D>(Qs, Ks, tx, ty, s);
+      }
+    } else {
+      load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
+      load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
+      __syncthreads();
+      qk_dots_f32<D>(Qs, Ks, tx, ty, s);
     }
 
 #pragma unroll
@@ -193,16 +218,17 @@ fa_fwd_f32_kernel(FwdArgs a) {
     const int qg = q0 + ty + 16 * i;
     if (qg >= a.tq) continue;
     const size_t row = (size_t)bh * a.tq + qg;
+    const bool stats = tx == 0 && (!WIDE || blockIdx.z == 0);
     if (a.normalize) {
-      float* out = static_cast<float*>(a.out) + row * D;
+      float* out = static_cast<float*>(a.out) + row * ld + col0;
       const float den = fmaxf(lrow[i], 1e-20f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) out[tx + 16 * j] = acc[i][j] / den;
-      if (tx == 0) a.lse[row] = lse_of(mrow[i], lrow[i]);
+      if (stats) a.lse[row] = lse_of(mrow[i], lrow[i]);
     } else {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) a.o[row * D + tx + 16 * j] = acc[i][j];
-      if (tx == 0) {
+      for (int j = 0; j < NJ; ++j) a.o[row * ld + col0 + tx + 16 * j] = acc[i][j];
+      if (stats) {
         a.m[row] = mrow[i];
         a.l[row] = lrow[i];
       }
@@ -211,6 +237,20 @@ fa_fwd_f32_kernel(FwdArgs a) {
 }
 
 // ----------------------------------------------------------------- bf16
+// s += q k^T over columns [16 kk, 16 kk + 16) of the tiles, for this warp's
+// 16 query rows (their A fragment qf): the key rows read as column-major k^T.
+template <int D>
+__device__ __forceinline__ void qk_dots_bf16(float (&s)[BK / 8][4], const uint32_t (&qf)[4],
+                                             bf16 (*Ks)[D + 8], int kk, int lane) {
+#pragma unroll
+  for (int np = 0; np < BK / 16; ++np) {
+    uint32_t b[4];
+    bt_frag<D + 8>(b, Ks, np * 16, kk * 16, lane);
+    mma_bf16(s[2 * np], qf, b[0], b[1]);
+    mma_bf16(s[2 * np + 1], qf, b[2], b[3]);
+  }
+}
+
 template <int D>
 constexpr size_t fwd_bf16_smem() {
   return (size_t)3 * 64 * (D + 8) * sizeof(bf16) + BK;
@@ -220,8 +260,10 @@ constexpr size_t fwd_bf16_smem() {
 // rows g and g + 8, columns 2t and 2t + 1 of its 16x8 tile; so a thread owns
 // two query rows, and p's accumulators become the A operand of p.v in
 // registers.  K rows are loaded as the column-major k^T (ldmatrix), V rows
-// transposed (ldmatrix.trans).
-template <int D>
+// transposed (ldmatrix.trans).  WIDE: the block's slab of D columns
+// (blockIdx.z), as in the f32 kernel; q rows are then read from shared
+// memory at each use, one slab at a time.
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(H_THREADS)
 fa_fwd_bf16_kernel(FwdArgs a) {
   constexpr int LD = D + 8;
@@ -236,16 +278,19 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int m0 = warp * 16;                       // this warp's 16 query rows
   const int qg[2] = {q0 + m0 + g, q0 + m0 + g + 8};
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * D;
-  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * D;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * D;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * ld;
+  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * ld;
+  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * ld;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
 
-  load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
-  __syncthreads();
-  uint32_t qa[D / 16][4];                         // q rows as A fragments, per 16 of D
+  uint32_t qa[WIDE ? 1 : D / 16][4];              // q rows as A fragments, per 16 of D
+  if constexpr (!WIDE) {
+    load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) a_frag<LD>(qa[kk], Qs, m0, kk * 16, lane);
+    for (int kk = 0; kk < D / 16; ++kk) a_frag<LD>(qa[kk], Qs, m0, kk * 16, lane);
+  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -256,23 +301,33 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the last tile's readers are done
-    load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
-    load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
-    if (tid < BK) key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
-    __syncthreads();
-
     float s[BK / 8][4];
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += D) {
+        if (c) __syncthreads();      // the last slab's readers are done
+        load_rows_bf16<D>(Qs, q + c, q0, BQ, a.tq, tid, H_THREADS, ld);
+        load_rows_bf16<D>(Ks, k + c, k0, BK, a.tk, tid, H_THREADS, ld);
+        if (c == 0 && tid < BK)
+          key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
+        if (c + D == ld) load_rows_bf16<D>(Vs, v + col0, k0, BK, a.tk, tid, H_THREADS, ld);
+        __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
-        bt_frag<LD>(b, Ks, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qf[4];
+          a_frag<LD>(qf, Qs, m0, kk * 16, lane);
+          qk_dots_bf16<D>(s, qf, Ks, kk, lane);
+        }
       }
+    } else {
+      load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
+      load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
+      if (tid < BK) key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) qk_dots_bf16<D>(s, qa[kk], Ks, kk, lane);
+    }
 
     // mask, scale and the online softmax on rows qg[0], qg[1]
     float mx[2] = {NEG_INF, NEG_INF};
@@ -344,19 +399,20 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   for (int h = 0; h < 2; ++h) {
     if (qg[h] >= a.tq) continue;
     const size_t row = (size_t)bh * a.tq + qg[h];
+    const bool stats = t == 0 && (!WIDE || blockIdx.z == 0);
     if (a.normalize) {
-      uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.out) + row * D);
+      uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.out) + row * ld + col0);
       const float den = fmaxf(l_run[h], 1e-20f);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         out[(n * 8 + 2 * t) / 2] = pack_bf16(o[n][2 * h] / den, o[n][2 * h + 1] / den);
-      if (t == 0) a.lse[row] = lse_of(m_run[h], l_run[h]);
+      if (stats) a.lse[row] = lse_of(m_run[h], l_run[h]);
     } else {
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(a.o + row * D + n * 8 + 2 * t) =
+        *reinterpret_cast<float2*>(a.o + row * ld + col0 + n * 8 + 2 * t) =
             make_float2(o[n][2 * h], o[n][2 * h + 1]);
-      if (t == 0) {
+      if (stats) {
         a.m[row] = m_run[h];
         a.l[row] = l_run[h];
       }
@@ -364,10 +420,10 @@ fa_fwd_bf16_kernel(FwdArgs a) {
   }
 }
 
-template <int D, bool BF16>
+template <int D, bool BF16, bool WIDE = false>
 int launch(const void* q, const void* k, const void* v, const void* kmask, void* o, void* m,
            void* l, void* out, void* lse, int bh, int heads, int tq, int tk, int q_offset,
-           int k_offset, int causal, int normalize, float scale, void* stream) {
+           int k_offset, int causal, int normalize, int ld, float scale, void* stream) {
   FwdArgs a;
   a.q = q;
   a.k = k;
@@ -385,13 +441,14 @@ int launch(const void* q, const void* k, const void* v, const void* kmask, void*
   a.k_offset = k_offset;
   a.causal = causal;
   a.normalize = normalize;
+  a.ld = ld;
   a.scale = scale;
-  const dim3 grid((tq + BQ - 1) / BQ, bh);
+  const dim3 grid((tq + BQ - 1) / BQ, bh, WIDE ? ld / D : 1);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if constexpr (BF16)
-    return launch_kernel(fa_fwd_bf16_kernel<D>, grid, H_THREADS, fwd_bf16_smem<D>(), s, a);
+    return launch_kernel(fa_fwd_bf16_kernel<D, WIDE>, grid, H_THREADS, fwd_bf16_smem<D>(), s, a);
   else
-    return launch_kernel(fa_fwd_f32_kernel<D>, grid, F_THREADS, fwd_f32_smem<D>(), s, a);
+    return launch_kernel(fa_fwd_f32_kernel<D, WIDE>, grid, F_THREADS, fwd_f32_smem<D>(), s, a);
 }
 
 template <bool BF16>
@@ -401,14 +458,17 @@ int dispatch(int d, const void* q, const void* k, const void* v, const void* kma
   switch (d) {
     case 32:
       return launch<32, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
-                              k_offset, causal, normalize, scale, stream);
+                              k_offset, causal, normalize, d, scale, stream);
     case 64:
       return launch<64, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
-                              k_offset, causal, normalize, scale, stream);
+                              k_offset, causal, normalize, d, scale, stream);
     case 128:
       return launch<128, BF16>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk, q_offset,
-                               k_offset, causal, normalize, scale, stream);
+                               k_offset, causal, normalize, d, scale, stream);
   }
+  if (wide_head_dim(d))
+    return launch<128, BF16, true>(q, k, v, kmask, o, m, l, out, lse, bh, heads, tq, tk,
+                                   q_offset, k_offset, causal, normalize, d, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

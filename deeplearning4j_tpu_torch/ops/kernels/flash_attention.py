@@ -17,16 +17,20 @@ backward of the normalized output ``o / l`` from the saved log-sum-exp
 (:func:`flash_lse`); it returns dq, dk, dv in f32, from the merged
 form (``merged=True``, the reference's default) or the two-kernel form.
 
-On a CUDA tensor in f32 or bf16 with a head dim up to 128, they launch
-the hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
+On a CUDA tensor in f32 or bf16, at any head dim, they launch the
+hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu`` (merged) and
 ``csrc/flash_attention_bwd_split.cu`` (two kernels, no dq partials), whose
 headers say what bounds them and how they are built, or raise.  The
-kernels are templated on head dims 32, 64 and 128; any other head dim is
-zero-padded up to the next of these (:func:`pad_head_dim`) and the
-outputs sliced back, which is exact: ``scale`` is passed as it is, zero
-columns add nothing to ``q.k`` or ``dout.v``, and the padded columns of
-the outputs are dropped.  On a CPU tensor they run
+kernels are templated on head dims 32, 64 and 128, and run a head dim
+past 128 in column slabs of the output (128 columns, 64 in the bf16
+merged backward), one block per slab, each computing the scores over the
+whole head dim (``csrc/flash_attention.cuh``).
+Any other head dim is zero-padded up to the next template, or past 128 to
+the next multiple of 128 (:func:`kernel_head_dim`, :func:`pad_head_dim`),
+and the outputs sliced back, which is exact: ``scale`` is passed as it
+is, zero columns add nothing to ``q.k`` or ``dout.v``, and the padded
+columns of the outputs are dropped.  On a CPU tensor they run
 :func:`flash_attention_block_plain` and
 :func:`flash_attention_block_bwd_plain`: the same function with the
 scores materialized, and the same roundings (in bf16, ``p`` is rounded
@@ -56,6 +60,7 @@ from deeplearning4j_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)   # the kernels' head-dim templates; others are zero-padded
+SLAB = 128                  # past the largest template: columns per slab
 TILE = 64                   # rows of a q tile and of a k tile in the kernels
 
 launches = 0
@@ -78,12 +83,13 @@ _bound = {}
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head-dim template a head dim ``d`` runs in: the smallest of
-    HEAD_DIMS at or above it.  Raises past the largest."""
+    """The head dim the kernels run ``d`` at: the smallest of HEAD_DIMS at
+    or above it, or past the largest the next multiple of SLAB (the
+    slabbed form of the largest template)."""
     for t in HEAD_DIMS:
         if d <= t:
             return t
-    raise ValueError(f"flash_attention: kernels take head dims up to {HEAD_DIMS[-1]}, got {d}")
+    return -(-d // SLAB) * SLAB
 
 
 def pad_head_dim(tensors, d: int):
@@ -272,7 +278,6 @@ def _check(q, k, v, key_mask, what: str) -> None:
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not [B,H,Tq,D], [B,H,Tk,D], [B,H,Tk,D]")
-    kernel_head_dim(q.shape[3])   # raises past the largest template
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError(f"{what}: empty sequence")
     for name, t in (("k", k), ("v", v)):

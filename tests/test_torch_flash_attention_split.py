@@ -16,11 +16,12 @@ rounding; 1.2e-7), and dq at 1e-4 (2.0e-7): the JAX dq kernel keeps dq
 in f32 across the key blocks as the plain version does, where the merged
 kernel's bf16 dq partials need 8e-3.
 
-The padding: the kernels take head dims 32, 64 and 128, and the wrappers
-zero-pad any other head dim up to the next of these and slice the
-outputs back.  Through the plain versions, padded inputs give the
-unpadded result to 1e-6 of its largest entry (f32 matmuls over a longer
-row may block differently; reads 0 here).
+The padding: the kernels take head dims 32, 64 and 128, and multiples of
+128 past it in column slabs; the wrappers zero-pad any other head dim up
+to the next of these (192 to 256) and slice the outputs back.  Through
+the plain versions, padded inputs give the unpadded result to 1e-6 of its
+largest entry (f32 matmuls over a longer row may block differently; reads
+0 here).
 """
 
 import functools
@@ -46,6 +47,8 @@ CASES = {
     "ragged": (1, 3, 21, 19, 8, False, "ragged", 0, 0),
     "dead_mask": (2, 2, 16, 16, 8, False, "dead", 0, 0),
     "dead_causal": (1, 2, 16, 24, 8, True, None, 0, 10),
+    "head_dim_192": (1, 2, 20, 24, 192, False, "random", 0, 0),
+    "head_dim_256": (2, 2, 24, 20, 256, True, "dead", 8, 0),
 }
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 SPLIT_TOL = {"f32": {"dq": 1e-5, "dk": 1e-5, "dv": 1e-5},
@@ -137,18 +140,25 @@ def test_both_forms_are_the_plain_backward_on_the_cpu(dtype):
 
 
 @pytest.mark.parametrize("d,template", [(1, 32), (8, 32), (32, 32), (33, 64), (64, 64),
-                                        (80, 128), (100, 128), (128, 128)])
+                                        (80, 128), (100, 128), (128, 128), (129, 256),
+                                        (192, 256), (256, 256), (257, 384)])
 def test_kernel_head_dim_is_the_next_template(d, template):
     assert flash.kernel_head_dim(d) == template
 
 
 def test_head_dims_past_the_largest_template_are_refused():
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        flash.kernel_head_dim(129)
+    """No longer: past the largest template a head dim is padded to the
+    next multiple of the slab width, and the checks pass it on to the
+    device check."""
+    for d in (129, 192, 256, 300):
+        assert flash.kernel_head_dim(d) == -(-d // flash.SLAB) * flash.SLAB
+        q = torch.zeros(1, 2, 8, d, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            flash._check(q, q, q, None, "flash_attention")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", ["key_mask", "causal_offsets", "ragged"])
+@pytest.mark.parametrize("case", ["key_mask", "causal_offsets", "ragged", "head_dim_192"])
 def test_head_dim_padding_gives_the_unpadded_result(case, dtype):
     """Forward and both backward outputs through the plain versions, with
     q, k, v and dout zero-padded to the next template and the outputs

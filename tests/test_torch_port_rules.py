@@ -18,7 +18,8 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models import BertConfig, BertForMaskedLM
 from deeplearning4j_tpu_torch.nn.quantize import quantize_net
-from deeplearning4j_tpu_torch.ops.kernels import _build, conv_bn, flash_attention, quant_matmul
+from deeplearning4j_tpu_torch.ops.kernels import (_build, conv3_bn, conv_bn, flash_attention,
+                                                  quant_matmul)
 from deeplearning4j_tpu_torch.serve import InferenceEngine
 from deeplearning4j_tpu_torch.train import Trainer
 
@@ -57,12 +58,18 @@ def test_profile_counts_every_kernel_of_the_port_in_its_own_category():
     import re
     import chip_profile
     ours = {"int8_matmul", "matmul_bn_act", "matmul_bn_act_bwd", "flash_attention",
-            "flash_attention_bwd", "flash_attention_bwd_split"}
+            "flash_attention_bwd", "flash_attention_bwd_split", "conv3x3_bn_act"}
     for src in sorted(_build.CSRC.glob("*.cu")):
         names = re.findall(r"__global__.*?\b(\w+_kernel)\(", src.read_text(), re.S)
         assert names, src.name
         for name in names:
             assert chip_profile.category(name) in ours, (src.name, name)
+
+
+def test_no_jax_scan_covers_the_conv3_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("ops/kernels/conv3_bn.py", "nn/layers/fused.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
 
 
 def test_port_reads_no_dl4j_tpu_environment_variable():
@@ -257,11 +264,11 @@ def test_backward_wrapper_makes_cotangents_contiguous(monkeypatch):
 
 @pytest.mark.parametrize("bad,error,match", [
     ({"q": torch.zeros(1, 2, 8, 64, dtype=torch.float16)}, TypeError, "float32 or bfloat16"),
-    # head dims up to 128 pass the shape checks and stop at the device
+    # any head dim passes the shape checks and stops at the device
     ({"q": torch.zeros(1, 2, 8, 32), "k": torch.zeros(1, 2, 8, 32)}, ValueError,
      "unsupported device"),
     ({"q": torch.zeros(1, 2, 8, 192), "k": torch.zeros(1, 2, 8, 192)}, ValueError,
-     "head dims up to 128"),
+     "unsupported device"),
     ({"k": torch.zeros(1, 3, 8, 64)}, ValueError, r"not \[B,H,Tq,D\]"),
     ({"k": torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)}, TypeError, "k must match"),
     ({"mask": torch.ones(1, 9)}, ValueError, "key_mask must be"),
@@ -428,3 +435,89 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(bad, error, match):
     args.update(bad)
     with pytest.raises(error, match=match):
         quant_matmul.int8_matmul(**args)
+
+
+def test_cpu_conv3_run_never_touches_the_kernel_loader(monkeypatch):
+    """The 3x3 op forward and backward on CPU tensors: the plain version
+    and autograd of the reference, no build, no launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    x = torch.randn(2, 5, 4, 8, requires_grad=True)
+    w = torch.randn(3, 3, 8, 6, requires_grad=True)
+    before = (conv3_bn.launches, conv3_bn.reduce_launches)
+    y, s1, s2 = conv3_bn.conv3x3_bn_act(x, w, torch.ones(8), torch.zeros(8))
+    (y.sum() + s1.sum() + s2.sum()).backward()
+    assert tuple(y.shape) == (2, 5, 4, 6) and x.grad is not None and w.grad is not None
+    assert (conv3_bn.launches, conv3_bn.reduce_launches) == before
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ({"x": _meta(2, 6, 5, 16, dtype=torch.float16), "w": _meta(3, 3, 16, 24, dtype=torch.float16)},
+     TypeError, "float32 or bfloat16"),
+    ({"w": _meta(3, 3, 16, 24, dtype=torch.bfloat16)}, TypeError, "w must match"),
+    ({"w": _meta(1, 1, 16, 24)}, ValueError, r"not \[N, H, W, C\] and \[3, 3, C, Cout\]"),
+    ({"w": _meta(3, 3, 8, 24)}, ValueError, r"not \[N, H, W, C\] and \[3, 3, C, Cout\]"),
+    ({"x": _meta(2, 6, 16, 5).transpose(2, 3)}, ValueError, "x must be contiguous"),
+    ({"w": _meta(3, 3, 24, 16).transpose(2, 3)}, ValueError, "w must be contiguous"),
+    ({"a": _meta(15), "b": _meta(15)}, ValueError, "a must be float32"),
+    ({"b": _meta(16, dtype=torch.float64)}, ValueError, "b must be float32"),
+    ({"b": None}, ValueError, "both a and b"),
+    # any N, H, W, C and Cout pass the shape checks and stop at the device
+    ({"x": _meta(3, 7, 5, 3), "w": _meta(3, 3, 3, 5), "a": _meta(3), "b": _meta(3)}, ValueError,
+     "unsupported device"),
+    ({"a": None, "b": None}, ValueError, "unsupported device"),
+    ({}, ValueError, "unsupported device"),
+])
+def test_conv3_wrapper_refuses_what_the_kernel_does_not_take(bad, error, match):
+    args = {"x": _meta(2, 6, 5, 16), "w": _meta(3, 3, 16, 24), "a": _meta(16), "b": _meta(16)}
+    args.update(bad)
+    before = conv3_bn.launches
+    with pytest.raises(error, match=match):
+        conv3_bn.conv3x3_bn_act(args["x"], args["w"], args["a"], args["b"], relu_in=True)
+    assert conv3_bn.launches == before
+
+
+class _StubConv3Lib:
+    """The built library: a tile size, and ``rc`` from the launch."""
+
+    def __init__(self, rc):
+        self.rc = rc
+        self.args = None
+
+    def conv3x3_bn_act_tile_m(self):
+        return 128
+
+    def conv3x3_bn_act_f32(self, *args):
+        self.args = args
+        return self.rc
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_failed_conv3_launch_raises_and_is_not_counted(prologue):
+    x, w = torch.zeros(3, 9, 11, 24), torch.zeros(3, 3, 24, 40)
+    a, b = (torch.ones(24), torch.zeros(24)) if prologue else (None, None)
+    before = (conv3_bn.launches, conv3_bn.reduce_launches)
+    lib = _StubConv3Lib(rc=9)   # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="cudaGetLastError"):
+        conv3_bn._launch(lib, x, w, a, b, True, 0)
+    assert (conv3_bn.launches, conv3_bn.reduce_launches) == before
+    # pointers x, w, a, b, y, part1, part2, s1, s2, then N, H, W, C, Cout,
+    # prologue, relu_in, stream
+    assert len(lib.args) == 17 and lib.args[9:16] == (3, 9, 11, 24, 40, int(prologue), 1)
+    assert (lib.args[2] is None) == (not prologue)
+    y, s1, s2 = conv3_bn._launch(_StubConv3Lib(rc=0), x, w, a, b, False, 0)
+    assert tuple(y.shape) == (3, 9, 11, 40) and y.dtype == x.dtype
+    assert s1.shape == s2.shape == (40,) and s1.dtype == torch.float32
+    assert (conv3_bn.launches, conv3_bn.reduce_launches) == (before[0] + 1, before[1] + 1)
+    conv3_bn.launches, conv3_bn.reduce_launches = before
+
+
+def test_conv3_grid_limit_is_refused():
+    lib = _StubConv3Lib(rc=0)
+    x = torch.empty(1, 128 * 65536 + 1, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="past the kernel's grid"):
+        conv3_bn._launch(lib, x, torch.empty(3, 3, 8, 8, device="meta"), None, None, True, 0)
+    assert lib.args is None
