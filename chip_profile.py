@@ -50,7 +50,7 @@ CATEGORIES = (
     ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",
                            "bwd_dw_bf16_kernel", "colsum_kernel")),
     ("flash_attention", ("fa_fwd_f32_kernel", "fa_fwd_bf16_kernel")),
-    ("flash_attention_bwd", ("fa_bwd_f32_kernel", "fa_bwd_bf16_kernel", "dq_reduce_kernel")),
+    ("flash_attention_bwd", ("fa_bwd_f32_kernel", "fa_bwd_bf16_kernel")),
     ("flash_attention_bwd_split", ("fa_dq_f32_kernel", "fa_dq_bf16_kernel", "fa_dkv_f32_kernel",
                                    "fa_dkv_bf16_kernel")),
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")),

@@ -2,13 +2,17 @@
 """Drive the PyTorch port (deeplearning4j_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab PARENT_TREE    # the A/B call, below
 
 Phases, in order; any failure ends the run with a nonzero exit code and
 no result line:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in this checkout (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together); no flash template may
+   spill (ptxas), and every bf16 kernel of the flash backward must hold
+   wgmma and TMA loads (``HGMMA`` and ``UTMALDG`` in ``cuobjdump -sass``;
+   the counts are printed);
 3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
    of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
    kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
@@ -76,16 +80,19 @@ no result line:
    lse shift or delta dropped) must move the check far past its limit, and
    each is timed against the plain version and
    ``scaled_dot_product_attention`` (forward and autograd backward, a
-   yardstick only); then one call of ``flash_attention_block_bwd(merged=
-   False)`` with every flash count set to 0 before it: 2 split launches;
+   yardstick only); at the base case both backward forms run twice and
+   must give the same bits; the merged form's scratch beside dq is printed
+   and held to ``MERGED_SCRATCH_LIMIT``; then one call of
+   ``flash_attention_block_bwd(merged=False)`` with every flash count set
+   to 0 before it: 2 split launches;
 11. the same at head dims 32 (24 heads) and 128 (6 heads), BERT-base's
    width, the base case at 80 (12 heads, zero-padded to 128), and the
    base, key-mask, causal and dead-row cases at 256 (3 heads) and 192 (4
    heads, zero-padded to 256), which run in column slabs;
-12. both backward forms at (2, 12, 16384, 64), f32 and bf16, and the split
-   alone at (2, 12, 32768, 64), bf16, where the merged form's dq partials
-   would not fit the card: times, peak memory, split against merged on
-   all heads and against the plain version on two (batch, head) slices;
+12. both backward forms at (2, 12, 16384, 64), f32 and bf16, and at
+   (2, 12, 32768, 64), bf16: times, peak memory, split against merged on
+   all heads and the split against the plain version on two (batch,
+   head) slices;
 13. serve 12-layer BERT-base MLM at seq 4096 (``BertConfig.base()``,
    ``max_position=4096``, ``use_flash=None``, seeded weights) through
    ``predict_mlm`` on 2 x 4096 seeded ids, under the f32 and the bf16
@@ -125,6 +132,14 @@ no result line:
    ``int8_matmul_plain`` at 1e-4 (cuBLAS's own f32 rounding, printed
    against the exact product beside the kernel's);
 19. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+
+The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
+e.g. the parent commit unpacked with ``git archive``) runs none of the
+phases: it times both flash backward forms at the base case of every
+head dim in ``AB_HEAD_DIMS``, f32 and bf16, the BERT fine-tune step and
+the BERT serving call, in the other tree and in this one, each in its own
+process, in the order parent, change, change, parent, and prints the
+times side by side (``chiprun_out/chip_ab.json``).
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
 (``allow_tf32 = False``) for the whole run, so the plain versions and the
@@ -235,6 +250,53 @@ def ptxas_usage(name: str, nvcc_log: str) -> dict:
         elif "Used" in line and kernel:
             usage[kernel] = spill + line.split(":", 1)[1].strip()
     return usage
+
+
+# the flash backward libraries, whose bf16 kernels must run on Hopper's
+# tensor-core path: wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG)
+FLASH_BWD_LIBS = ("flash_attention_bwd", "flash_attention_bwd_split")
+
+
+def sass_counts(name: str) -> dict:
+    """Kernel name with its template arguments -> its (HGMMA, UTMALDG)
+    instruction counts in the built library's SASS (``cuobjdump -sass``)."""
+    from deeplearning4j_tpu_torch.ops.kernels import _build
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = re.search(r"(fa_\w+?_kernel)ILi(\d+)ELb(\d)E", line)
+            kernel = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else line.split(": ", 1)[1]
+            counts[kernel] = [0, 0]
+        elif kernel is not None:
+            counts[kernel][0] += "HGMMA" in line
+            counts[kernel][1] += "UTMALDG" in line
+    return {k: tuple(c) for k, c in counts.items()}
+
+
+def check_hopper_path(built: dict) -> dict:
+    """Every bf16 flash backward kernel holds wgmma and TMA loads in its
+    SASS, and no flash template spills (ptxas's report of this build)."""
+    result = {}
+    for name in FLASH_BWD_LIBS:
+        counts = sass_counts(name)
+        bf16 = {k: c for k, c in counts.items() if "bf16" in k}
+        for kernel, (hgmma, utmaldg) in sorted(bf16.items()):
+            log(f"  {name}: {kernel}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+        missing = [k for k, (hgmma, utmaldg) in bf16.items() if not (hgmma and utmaldg)]
+        if not bf16 or missing:
+            raise AssertionError(f"{name}: bf16 kernels without wgmma or TMA loads: "
+                                 f"{missing or 'none found'}")
+        result[name] = {k: {"hgmma": c[0], "utmaldg": c[1]} for k, c in bf16.items()}
+    for name, info in built.items():
+        if not name.startswith("flash_attention"):
+            continue
+        spills = {k: u for k, u in ptxas_usage(name, info["log"]).items() if "spill" in u}
+        if spills:
+            raise AssertionError(f"{name}: templates spill: {spills}")
+    return result
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1335,6 +1397,16 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
             if not min(gated) >= FLASH_FAULT_MARGIN:
                 raise AssertionError(f"flash {dname} {name}: a planted fault moves the check "
                                      f"by only {faults} times its limit")
+            if name == "base":
+                # both forms give the same bits on a second run (a fixed order of
+                # every sum, no free-running atomics)
+                for form, first in (("merged", got), ("split", split)):
+                    again = fa.flash_attention_block_bwd(q, k, v, oute, lsee, dout,
+                                                         merged=form == "merged", **kw)
+                    if not all(bool(torch.equal(x, y)) for x, y in zip(first, again)):
+                        raise AssertionError(f"flash {dname} D={d}: the {form} backward gave "
+                                             f"other bits on a second run")
+                    del again
             bwd_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
             split_abs = max((g - w).abs().max().item() for g, w in zip(split, want))
             del got, split, want
@@ -1356,6 +1428,7 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                    "k_offset": kw["k_offset"], "visible_pairs": pairs, "rel_err": errs,
                    "split_vs_merged": vs_merged,
                    "fault_over_limit": faults, "fault_over_limit_min": min(gated),
+                   "second_run_bits_checked": name == "base",
                    "max_abs_err": (out.float() - oute.float()).abs().max().item(),
                    "bwd_max_abs_err": bwd_abs, "split_max_abs_err": split_abs,
                    "ms": cuda_ms(lambda: fa._forward(*args, normalize=True), reps=5),
@@ -1425,10 +1498,10 @@ def split_main_path() -> dict:
 
 def flash_long(card: str) -> list[dict]:
     """Both backward forms at long sequences, no mask: time and peak
-    memory of each, split against merged on all heads, and each against
-    the plain version on two (batch, head) slices, whose [T, T] scores
-    take 1 GB per head in f32 at 16384.  Where the merged form's dq
-    partials would not fit the card, it is not run: their size is printed."""
+    memory of each, split against merged on all heads, and the split
+    against the plain version on two (batch, head) slices, whose [T, T]
+    scores take 1 GB per head in f32 at 16384.  Where the merged form's
+    scratch would not fit the card, it is not run: its size is printed."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED + 1)
@@ -1443,7 +1516,7 @@ def flash_long(card: str) -> list[dict]:
             out, lse = fa._forward(q, k, v, None, kw["scale"], False, 0, 0, normalize=True)
             torch.cuda.synchronize()
             b, h, d = BERT_BATCH, 12, 64
-            scratch = 4 * d * b * h * (-(-t // 64) * 64) * -(-t // 64)
+            scratch = fa.merged_scratch_bytes(b, h, t, d)   # beside dq: the ordered sum's flags
             row = {"dtype": dname, "B": b, "H": h, "T": t, "D": d, "card": card,
                    "merged_scratch_bytes": scratch}
             runs = {}
@@ -1480,9 +1553,11 @@ def flash_long(card: str) -> list[dict]:
             row["rel_err"] = errs
             rows.append(row)
             merged_text = (f"merged {row['merged_ms']:.1f} ms, peak "
-                           f"{row['merged_peak_bytes'] / 1e9:.2f} GB"
+                           f"{row['merged_peak_bytes'] / 1e9:.2f} GB "
+                           f"({row['merged_extra_bytes'] / 1e9:.2f} GB over the inputs; "
+                           f"{scratch} bytes of scratch beside dq)"
                            if "merged_ms" in row else
-                           f"merged not run: its dq partials alone would take "
+                           f"merged not run: its scratch alone would take "
                            f"{scratch / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB")
             log(f"  {dname:8s} (B, H, T, D) = ({b}, {h}, {t}, {d}) on {card}: split "
                 f"{row['split_ms']:.1f} ms, peak {row['split_peak_bytes'] / 1e9:.2f} GB "
@@ -2111,6 +2186,103 @@ def int8_entry(rows, vgg: dict) -> dict:
             **{f"f32_{k}": v for k, v in pick("float32").items()}, "shapes": shapes}
 
 
+# ------------------------------------------------------------------- A/B
+# the merged backward's scratch beside dq at the base case, at most (the
+# per-key-tile f32 partials of the design before the ordered sum took
+# 4 D BH Tq ceil(Tk/64) = 1.61 GB there)
+MERGED_SCRATCH_LIMIT = 0.2e9
+# the A/B call's head dims at BERT-base's width: (D, heads)
+AB_HEAD_DIMS = ((64, 12), (32, 24), (128, 6), (80, 12), (256, 3), (192, 4))
+
+
+def ab_times() -> dict:
+    """Times of whichever ``deeplearning4j_tpu_torch`` is first on the
+    path: both backward forms at the base case of every AB head dim, f32
+    and bf16, and the BERT-base fine-tune step (bf16, 4 layers, 2 x 4096)
+    and serving call (bf16, 12 layers)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.ops.kernels import _build
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.train import Adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(("flash_attention_fwd",) + FLASH_BWD_LIBS)
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    rows = []
+    for d, heads in AB_HEAD_DIMS:
+        for dname in ("float32", "bfloat16"):
+            case = ("base", BERT_BATCH, heads, BERT_SEQ, BERT_SEQ, False, None, 0, 0)
+            q, k, v, dout, _, kw = flash_inputs(case, getattr(torch, dname), gen, d)
+            out, lse = fa._forward(q, k, v, None, kw["scale"], False, 0, 0, normalize=True)
+            row = {"D": d, "H": heads, "dtype": dname}
+            for form in ("merged", "split"):
+                row[f"{form}_ms"] = cuda_ms(lambda: fa.flash_attention_block_bwd(
+                    q, k, v, out, lse, dout, merged=form == "merged", **kw), reps=5)
+            rows.append(row)
+            del q, k, v, dout, out, lse
+            torch.cuda.empty_cache()
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        model = BertForMaskedLM(bert_config(BERT_TRAIN_LAYERS, use_flash=True), seed=0,
+                                device="cuda")
+        watch = StepWatch()
+        model.fit([bert_batch(model.config.vocab_size)] * (1 + BERT_TRAIN_STEPS),
+                  updater=Adam(BERT_TRAIN_LR), listeners=[watch])
+        step_ms = float(np.mean(watch.seconds[1:])) * 1e3
+        del model
+        model = BertForMaskedLM(bert_config(12, use_flash=None), seed=0, device="cuda")
+        ids = np.random.default_rng(SEED + 11).integers(0, model.config.vocab_size,
+                                                        (BERT_BATCH, BERT_SEQ))
+        serve_ms = cuda_ms(lambda: model.predict_mlm(ids), reps=3, warmup=1)
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    return {"flash_bwd": rows, "bert_finetune_step_ms": step_ms, "bert_serve_ms": serve_ms}
+
+
+def ab(parent: Path) -> int:
+    """The A/B call: ``ab_times`` of the tree at ``parent`` and of this
+    one, each in its own process, in the order parent, change, change,
+    parent; prints both trees' times side by side and writes them to
+    ``chiprun_out/chip_ab.json``."""
+    card = card_line()
+    log(card)
+    runs = []
+    for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--times",
+                               str(tree)], capture_output=True, text=True, timeout=1800)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+        log(f"  {label} run {len(runs)} done")
+    times = {label: [r for lab, r in runs if lab == label] for label in ("parent", "change")}
+
+    def pair(label, pick):
+        return ", ".join(f"{pick(r):.3f}" for r in times[label])
+
+    for i, row in enumerate(runs[0][1]["flash_bwd"]):
+        for form in ("merged", "split"):
+            def pick(r, form=form):
+                return r["flash_bwd"][i][f"{form}_ms"]
+            gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
+            log(f"  D={row['D']} H={row['H']} {row['dtype']:8s} {form:6s} backward: parent "
+                f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.2f}x)")
+    for key, what in (("bert_finetune_step_ms", "BERT fine-tune step (bf16, 4 layers)"),
+                      ("bert_serve_ms", "BERT serve (bf16, 12 layers)")):
+        log(f"  {what}: parent {pair('parent', lambda r: r[key])} ms; change "
+            f"{pair('change', lambda r: r[key])} ms")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_ab.json").write_text(json.dumps(
+        {"card": card, "order": [label for label, _ in runs], "runs": [r for _, r in runs],
+         "log": LOG_LINES}, indent=1))
+    return 0
+
+
 def flash_entry(name, source, replaces, rows, prefix, launches, work) -> dict:
     """The kernels-line entry of one flash kernel (``prefix`` "" for the
     forward, "bwd_" for the backward): f32 figures at the base case, bf16
@@ -2129,6 +2301,10 @@ def flash_entry(name, source, replaces, rows, prefix, launches, work) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--times"]:           # one run of the A/B call, in the tree given
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(ab_times()))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2138,6 +2314,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(Path(sys.argv[2]).resolve())
     from deeplearning4j_tpu_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2155,6 +2333,8 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for kernel, usage in ptxas_usage(name, info["log"]).items():
             log(f"    {kernel}: {usage}")
+    log("the flash backward's bf16 kernels in SASS (cuobjdump -sass):")
+    hopper = check_hopper_path(built)
 
     net = build_net()
     calls = resnet50_calls(net, BATCH)
@@ -2212,6 +2392,14 @@ def main() -> int:
     log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
         f"({BERT_BATCH}, 12, 64), f32 and bf16")
     flash_rows = check_flash((torch.float32, torch.bfloat16))
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    scratch = fa.merged_scratch_bytes(BERT_BATCH, 12, BERT_SEQ, 64)
+    log(f"merged backward's scratch beside dq at ({BERT_BATCH}, 12, {BERT_SEQ}, 64): {scratch} "
+        f"bytes ({scratch / 1e9:.6f} GB; limit {MERGED_SCRATCH_LIMIT / 1e9} GB); both forms gave "
+        f"the same bits on a second run at the base case of every head dim, f32 and bf16")
+    if scratch > MERGED_SCRATCH_LIMIT:
+        raise AssertionError(f"the merged backward's scratch {scratch} bytes is over "
+                             f"{MERGED_SCRATCH_LIMIT}")
     split_main = split_main_path()
     flash_dim_rows = []
     for d, heads, names in FLASH_HEAD_DIMS:
@@ -2268,7 +2456,8 @@ def main() -> int:
         flash_entry("flash_attention_bwd",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
-                    flash_launches[1], flash_work),
+                    flash_launches[1], flash_work)
+        | {"bf16_sass": hopper["flash_attention_bwd"], "merged_scratch_bytes": scratch},
         flash_entry("flash_attention_bwd_split",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd_split.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:266", flash_rows, "split_",
@@ -2276,7 +2465,8 @@ def main() -> int:
                     flash_work.split("; launches")[0] + "; launches: one call of "
                     "flash_attention_block_bwd(merged=False), its dq and its dk/dv kernel")
         | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/flash_attention.py:266",
-                            "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"]},
+                            "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"],
+           "bf16_sass": hopper["flash_attention_bwd_split"]},
         int8_entry(int8_rows, vgg),
         entry("conv3x3_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/conv3x3_bn_act.cu",
               "deeplearning4j_tpu/ops/pallas/conv3_bn.py:37", c3f32, c3bf16, c3h16,
@@ -2303,7 +2493,7 @@ def main() -> int:
          "conv3_per_pass": {"float32": c3f32, "bfloat16": c3bf16, "headline_bfloat16": c3h16},
          "conv3_paths": conv3_paths, "conv3_autograd": conv3_grads,
          "flash_head_dim_shapes": flash_dim_rows,
-         "flash_long": long_rows, "bert_serve_heads": bert_heads,
+         "flash_long": long_rows, "bert_serve_heads": bert_heads, "flash_bwd_sass": hopper,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "kernels": kernels, "log": LOG_LINES,

@@ -6,9 +6,11 @@ named by a hash of its source and of the ``csrc/`` headers it includes,
 so that an edit to either forces a rebuild::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu -lcuda
 
-and is loaded with ``ctypes``.  Nothing here runs at import: the CPU
+and is loaded with ``ctypes`` (``-lcuda``: the bf16 flash backward
+encodes its TMA tensor maps with the CUDA driver's ``cuTensorMapEncodeTiled``).
+Nothing here runs at import: the CPU
 path of every wrapper never calls :func:`load`.
 """
 
@@ -81,7 +83,7 @@ def build(names=SOURCES) -> dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu"), "-lcuda"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     failures = []

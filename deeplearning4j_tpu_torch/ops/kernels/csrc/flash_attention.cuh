@@ -1,25 +1,27 @@
 // Device code shared by the flash attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu, flash_attention_bwd_split.cu): the bf16 tensor-core
-// helpers, tile loaders, the backward's arguments and visibility rule, and
-// the body of the backward's key-tile kernel, which the merged backward runs
-// with its dq partials and the split backward's dk/dv kernel without.
+// helpers and tile loaders of the forward, the backward's arguments and
+// visibility rule, its ordered dq sum, and the f32 body of the backward's
+// key-tile kernel, which the merged backward runs with its dq products and
+// the split backward's dk/dv kernel without.  The bf16 backward kernels are
+// built on Hopper's wgmma and TMA (flash_attention_sm90.cuh).
 //
 // Every kernel is templated on the head dim D in {32, 64, 128}; the wrapper
 // zero-pads any other head dim up to 128 to the next of these.  A head dim
 // past 128 is zero-padded to a multiple of 128 (the row length ld in device
-// memory) and runs in the WIDE form of the D = 128 template (of D = 64 for
-// the bf16 merged backward): the output columns are split into slabs of D,
-// one slab per block (blockIdx.z). Each block computes the scores s = q.k
-// (and dp = dout.v in the backward) over the whole head dim, looping over it
-// in D-column slabs of q, k, v and dout in shared memory, always in the same
-// order, and accumulates only its own D columns of o (forward), or of dk, dv
-// and dq (backward). So the accumulators and tiles stay those of the
-// template, s and dp are recomputed once per slab, and m, l and lse come out
-// the same in every slab (slab 0 writes them). All tiles live in dynamic
-// shared memory (the launchers raise the 48 KB default where a template needs
-// more).
+// memory) and runs in the WIDE form of a template (of D = 128, or 64 in the
+// bf16 key-tile kernels): the output
+// columns are split into slabs of D, one slab per block. Each block computes
+// the scores s = q.k (and dp = dout.v in the backward) over the whole head
+// dim, always in the same order, and accumulates only its own D columns of o
+// (forward), or of dk, dv and dq (backward). So the accumulators and tiles
+// stay those of the template, s and dp are recomputed once per slab, and m,
+// l and lse come out the same in every slab (slab 0 writes them). All tiles
+// live in dynamic shared memory (the launchers raise the 48 KB default where
+// a template needs more).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -29,7 +31,7 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64;           // keys per tile
 constexpr int F_THREADS = 256;   // f32 kernels: 16 x 16 threads over a 64 x 64 tile
-constexpr int H_THREADS = 128;   // bf16 kernels: 4 warps of mma.sync
+constexpr int H_THREADS = 128;   // bf16 forward: 4 warps of mma.sync
 
 using bf16 = __nv_bfloat16;
 
@@ -136,13 +138,24 @@ struct BwdArgs {
   const void* dout;     // [BH, Tq, D], the inputs' dtype
   const float* lse;     // [BH, Tq]
   const float* delta;   // [BH, Tq]
-  float* dq;            // [BH, Tq, D]              (split backward)
+  float* dq;            // [BH, Tq, D]; zeros on entry to the merged backward
   float* dk;            // [BH, Tk, D]
   float* dv;            // [BH, Tk, D]
-  float* dq_part;       // [n_kt, BH, tq_pad, D]    (merged backward)
-  int bh, heads, tq, tk, tq_pad, q_offset, k_offset, causal;
+  int* flags;           // merged backward: zeros on entry, [1 + BH * slabs * n_qt]
+  int bh, heads, tq, tk, q_offset, k_offset, causal;
   int ld;               // the (padded) head dim: every D above is this row length
+  int slabs;            // merged backward: column slabs of a head (set by its launcher)
+  int n_qt;             // 64-row query tiles of a head
   float scale;
+};
+
+// The backward's tensor maps and arguments: one __grid_constant__
+// parameter (the maps of q, k, v, dout for the bf16 kernels, of dq for the
+// merged kernels' adds).
+struct alignas(64) TmaArgs {
+  CUtensorMap q, k, v, dout;    // bf16 [BH, T, ld], boxes [1, 64, BX]
+  CUtensorMap dq;               // f32 [BH, Tq, ld]
+  BwdArgs a;
 };
 
 __device__ __forceinline__ bool causal_ok(const BwdArgs& a, int qg, int kg) {
@@ -228,12 +241,99 @@ __device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km
   score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
 }
 
-// The dq partial of a skipped query tile: BQ rows of D zeros, rows ld apart.
-template <int D, int BQ>
-__device__ __forceinline__ void zero_part(float* part, int ld, int tid, int threads) {
-  for (int idx = tid; idx < BQ * D / 4; idx += threads)
-    reinterpret_cast<float4*>(part + (size_t)(idx / (D / 4)) * ld)[idx % (D / 4)] =
-        make_float4(0.f, 0.f, 0.f, 0.f);
+// The merged backward's dq sum.  dq starts at zero and every key tile adds
+// its contribution ds k of each query tile into it, in key-tile order: the
+// block of key tile kt waits until the flag of (head, slab, query tile) reads
+// kt, adds, and sets it to kt + 1.  So every run adds in the same order and
+// dq comes out bit for bit the same, with no per-key-tile partials.  The
+// key tiles a query tile sees are a prefix 0..n-1 (a causal tile skips the
+// query tiles wholly before it, and so does every later key tile), so no
+// block waits on a flag that will not move.  flags[0] hands out the blocks'
+// tiles in that order (ticket): a block takes its tile when it starts, so
+// the tile it waits on belongs to a block that started earlier and runs.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+// A wait that has not ended after WAIT_LIMIT_NS traps: a fault in the
+// pipeline ends the launch with an error instead of hanging the card.
+constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void wait_guard(unsigned long long& t0) {
+  const unsigned long long now = global_ns();
+  if (t0 == 0) {
+    t0 = now;
+  } else if (now - t0 > WAIT_LIMIT_NS) {
+    __trap();
+  }
+}
+
+// The ordered sum's wait for flag == value.
+__device__ __forceinline__ void flag_wait(const int* flag, int value) {
+  unsigned long long t0 = 0;
+  while (ld_acquire(flag) != value) wait_guard(t0);
+}
+
+__device__ __forceinline__ int* dq_flag(const BwdArgs& a, int bh, int z, int qt) {
+  return a.flags + 1 + ((size_t)bh * a.slabs + z) * a.n_qt + qt;
+}
+
+// The adds themselves: dq[bh, row.., col..] += a box of f32 in shared
+// memory, by the TMA unit (rows past Tq are dropped); a block issues them,
+// commits, and later waits until they are done, when it may set the flag
+// and reuse the box.
+__device__ __forceinline__ void tma_add_box(const CUtensorMap* map, uint32_t src, int col, int row,
+                                            int bh) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_adds_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_adds_done() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");   // before the flag's release
+}
+
+// The merged backward's map of dq: f32 [BH, Tq, ld] in boxes of 64 rows x
+// `box` columns, 128-byte swizzled (box = 32) or in plain rows.
+inline bool encode_dq_map(CUtensorMap* map, float* dq, int bh, int rows, int ld, int box,
+                          bool swizzle) {
+  cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)bh};
+  cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)rows * ld * 4};
+  cuuint32_t boxes[3] = {(cuuint32_t)box, 64, 1};
+  cuuint32_t one[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dq, dims, strides, boxes,
+                                one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tile of the merged kernel's block: ticket t, key tile slowest.
+struct KeyTileIdx {
+  int kt, bh, z;
+};
+
+__device__ __forceinline__ KeyTileIdx key_tile_of(const BwdArgs& a, int t) {
+  return {t / (a.slabs * a.bh), (t / a.slabs) % a.bh, t % a.slabs};
 }
 
 // Under causal, a query tile whose last row comes before the key tile's
@@ -255,41 +355,31 @@ __device__ __forceinline__ int key_tiles(int tk, int causal, int q_offset, int k
   return n;
 }
 
-// The bf16 key-tile kernel's query tile: 64 rows, 32 at D = 128, where each
-// warp's dk and dv accumulators alone take 128 registers a thread.
-template <int D>
-__host__ __device__ constexpr int bwd_bf16_bq() { return D > 64 ? 32 : 64; }
-
 template <int D>
 constexpr size_t bwd_f32_smem() {
   return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float);
 }
 
-template <int D, bool DQ>
-constexpr size_t bwd_bf16_smem() {
-  constexpr int BQ = bwd_bf16_bq<D>();
-  return (size_t)(2 * BK * (D + 8) + 2 * BQ * (D + 8) + (DQ ? BK * (BQ + 8) : 0)) * sizeof(bf16)
-         + 2 * BQ * sizeof(float);
-}
-
-// One block owns a 64-key tile of one (batch, head) (blockIdx.x, blockIdx.y)
-// and walks the 64-row query tiles, carrying dk and dv in registers (the TPU
+// One block owns a 64-key tile kt of one (batch, head) bh (and slab z) and
+// walks the 64-row query tiles, carrying dk and dv in registers (the TPU
 // kernels' VMEM scratch):
 //
 //     p  = exp(q.k * scale - lse)   on visible keys of live rows, else 0
 //     ds = p * (dout.v - delta) * scale
 //     dv += p^T dout,  dk += ds^T q              (f32)
 //
-// With DQ (the merged backward) it also writes ds k of each query tile to
-// its own [64, D] slice of dq_part, zeros for a skipped tile.  f32: each of
+// With DQ (the merged backward) it also adds ds k of each query tile into dq
+// in key-tile order (the ordered sum), by the TMA while it computes the
+// next query tile.  f32: each of
 // 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i, keys
 // tx + 16 j) and 4 x D/16 of dk, dv and the dq partial, FMA on the CUDA
-// cores from padded rows.  WIDE: the block's slab of D columns (blockIdx.z)
-// of rows a.ld long; the score tile sums over every slab (k and v tiles
+// cores from padded rows.  WIDE: the block's slab z of D columns of rows
+// a.ld long; the score tile sums over every slab (k and v tiles
 // reloaded per slab with q and dout), then q, dout and k are reloaded at
 // the block's own slab for the products.
 template <int D, bool DQ, bool WIDE = false>
-__device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
+__device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap* dq_map, int kt,
+                                             int bh, int z) {
   constexpr int LD = D + 1, NJ = D / 16, BQ = 64;
   extern __shared__ __align__(128) unsigned char flash_smem[];
   float (*Ks)[LD] = reinterpret_cast<float (*)[LD]>(flash_smem);
@@ -300,10 +390,24 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
   float (*dSs)[BK + 1] = Ps + BQ;
   float* lse_s = &dSs[BQ][0];
   float* delta_s = lse_s + BQ;
+  // DQ: the dq of the last query tile, [64][D] rows over Ps and dSs, whose
+  // add into dq (by the TMA, in key-tile order: the ordered sum) runs while
+  // the next tile's rows load; `pending` is its query tile until the add is
+  // done and its flag moves on
+  float* dq_s = &Ps[0][0];
+  int pending = -1;
+  auto release = [&]() {
+    if constexpr (DQ) {
+      if (threadIdx.x == 0 && pending >= 0) {
+        tma_adds_done();
+        st_release(dq_flag(a, bh, z, pending), kt + 1);
+      }
+      pending = -1;
+    }
+  };
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, kt = blockIdx.x, k0 = kt * BK;
-  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, k0 = kt * BK;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? z * D : 0;
   const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
   const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
   const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
@@ -324,17 +428,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
   const int n_qt = (a.tq + BQ - 1) / BQ;
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    float* part =
-        DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * ld + col0 : nullptr;
-    if (skipped(a, q0, BQ, k0)) {
-      if constexpr (DQ && WIDE) {
-        zero_part<D, BQ>(part, ld, tid, F_THREADS);
-      } else if constexpr (DQ) {
-        for (int idx = tid; idx < BQ * D / 4; idx += F_THREADS)
-          reinterpret_cast<float4*>(part)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      continue;
-    }
+    if (skipped(a, q0, BQ, k0)) continue;
     __syncthreads();                 // the last tile's readers are done
     float p[4][4], ds[4][4];         // query rows ty + 16 i, key columns tx + 16 j
     if constexpr (WIDE) {
@@ -353,6 +447,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
         load_rows_f32<D>(Vs, v + c, k0, BK, a.tk, tid, F_THREADS, ld);
         load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
         load_rows_f32<D>(dOs, dout + c, q0, BQ, a.tq, tid, F_THREADS, ld);
+        if (c == 0) release();
         __syncthreads();
         score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
       }
@@ -371,6 +466,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
         lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
         delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
       }
+      release();
       __syncthreads();
       score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
     }
@@ -406,7 +502,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
         }
     }
     if constexpr (DQ) {
-      // dq partial = ds k: query rows ty + 16 i, columns tx + 16 j
+      // ds k: query rows ty + 16 i, columns tx + 16 j, added to dq in order
       float dq[4][NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -424,12 +520,23 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
 #pragma unroll
           for (int j = 0; j < NJ; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
       }
+      __syncthreads();                 // every reader of Ps and dSs is done
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) part[(ty + 16 * i) * ld + tx + 16 * j] = dq[i][j];
+        for (int j = 0; j < NJ; ++j) dq_s[(ty + 16 * i) * D + tx + 16 * j] = dq[i][j];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        flag_wait(dq_flag(a, bh, z, qt), kt);
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        tma_add_box(dq_map, smem_u32(dq_s), col0, q0, bh);
+        tma_adds_commit();
+      }
+      pending = qt;
     }
   }
+  release();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -440,256 +547,6 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a) {
     for (int j = 0; j < NJ; ++j) {
       a.dk[row + tx + 16 * j] = dk[i][j];
       a.dv[row + tx + 16 * j] = dv[i][j];
-    }
-  }
-}
-
-// s^T += k q^T and dp^T += v dout^T over the D columns of the tiles in shared
-// memory, the query rows read as column-major q^T, dout^T: this warp's 16
-// keys (w0..) against the BQ queries, its k and v rows from the A fragments
-// ka, va where KEEP holds them in registers, else from Ks, Vs.
-template <int D, int BQ, bool KEEP>
-__device__ __forceinline__ void score_dots_t_bf16(float (&st)[BQ / 8][4], float (&dpt)[BQ / 8][4],
-                                                  const uint32_t (&ka)[KEEP ? D / 16 : 1][4],
-                                                  const uint32_t (&va)[KEEP ? D / 16 : 1][4],
-                                                  bf16 (*Ks)[D + 8], bf16 (*Vs)[D + 8],
-                                                  bf16 (*Qs)[D + 8], bf16 (*dOs)[D + 8], int w0,
-                                                  int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t kf[4], vf[4];
-    if constexpr (KEEP) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kf[e] = ka[kk][e];
-        vf[e] = va[kk][e];
-      }
-    } else {
-      a_frag<LD>(kf, Ks, w0, kk * 16, lane);
-      a_frag<LD>(vf, Vs, w0, kk * 16, lane);
-    }
-#pragma unroll
-    for (int np = 0; np < BQ / 16; ++np) {
-      uint32_t b[4];
-      bt_frag<LD>(b, Qs, np * 16, kk * 16, lane);
-      mma_bf16(st[2 * np], kf, b[0], b[1]);
-      mma_bf16(st[2 * np + 1], kf, b[2], b[3]);
-      bt_frag<LD>(b, dOs, np * 16, kk * 16, lane);
-      mma_bf16(dpt[2 * np], vf, b[0], b[1]);
-      mma_bf16(dpt[2 * np + 1], vf, b[2], b[3]);
-    }
-  }
-}
-
-// The bf16 form: 4 warps of mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// Transposed products keep p and ds in registers: warp w computes s^T = k q^T
-// and dp^T = v dout^T for its 16 keys (16 w..) against the BQ queries of the
-// tile, so p^T and ds^T come out in the accumulator layout (a thread owns
-// keys g and g + 8, queries 2t and 2t + 1 of each 8-query tile, lane = 4 g +
-// t), which is the A operand layout of dv += p^T dout and dk += ds^T q; p and
-// ds are rounded to bf16 there, as the JAX kernels do.  The warp's k and v
-// rows stay in registers as A fragments up to D = 64; at D = 128 they are
-// read from shared memory at each use.  With DQ, ds^T also goes to shared
-// memory, where the warps read it back transposed as the A operand of the
-// dq partial ds k: BQ / 16 blocks of 16 query rows, each split over
-// 4 / (BQ / 16) warps by columns of D.  WIDE: the block's slab of D columns
-// (blockIdx.z) of rows a.ld long, as in bwd_f32_body.
-template <int D, bool DQ, bool WIDE = false>
-__device__ __forceinline__ void bwd_bf16_body(const BwdArgs& a) {
-  constexpr int LD = D + 8, BQ = bwd_bf16_bq<D>(), LDS = BQ + 8;
-  constexpr bool KEEP = D <= 64 && !WIDE;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16 (*Ks)[LD] = reinterpret_cast<bf16 (*)[LD]>(flash_smem);
-  bf16 (*Vs)[LD] = Ks + BK;
-  bf16 (*Qs)[LD] = Vs + BK;
-  bf16 (*dOs)[LD] = Qs + BQ;
-  bf16 (*dSTs)[LDS] = reinterpret_cast<bf16 (*)[LDS]>(dOs + BQ);   // ds^T: [key][query]
-  float* lse_s = reinterpret_cast<float*>(DQ ? &dSTs[BK][0] : &dSTs[0][0]);
-  float* delta_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, kt = blockIdx.x, k0 = kt * BK;
-  const int w0 = warp * 16;                       // this warp's 16 keys
-  const int kl[2] = {w0 + g, w0 + g + 8};         // this thread's two keys (in the tile)
-  bool key_ok[2];                                 // each below Tk and unmasked
-  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * ld;
-  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * ld;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * ld;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + (size_t)bh * a.tq * ld;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
-
-  if constexpr (!WIDE) {
-    load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
-    load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kg = k0 + kl[h];
-    key_ok[h] = kg < a.tk && (km == nullptr || km[kg] > 0.f);
-  }
-  __syncthreads();
-  uint32_t ka[KEEP ? D / 16 : 1][4], va[KEEP ? D / 16 : 1][4];
-  if constexpr (KEEP) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      a_frag<LD>(ka[kk], Ks, w0, kk * 16, lane);
-      a_frag<LD>(va[kk], Vs, w0, kk * 16, lane);
-    }
-  }
-  float dk[D / 8][4], dv[D / 8][4];               // keys kl[0], kl[1]; columns of D
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const int n_qt = (a.tq + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    float* part =
-        DQ ? a.dq_part + (((size_t)kt * a.bh + bh) * a.tq_pad + q0) * ld + col0 : nullptr;
-    if (skipped(a, q0, BQ, k0)) {
-      if constexpr (DQ && WIDE) {
-        zero_part<D, BQ>(part, ld, tid, H_THREADS);
-      } else if constexpr (DQ) {
-        for (int idx = tid; idx < BQ * D / 4; idx += H_THREADS)
-          reinterpret_cast<float4*>(part)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      continue;
-    }
-    __syncthreads();                 // the last tile's readers are done
-    if constexpr (!WIDE) {
-      load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
-      load_rows_bf16<D>(dOs, dout, q0, BQ, a.tq, tid, H_THREADS);
-    }
-    if (tid < BQ) {
-      const bool real = q0 + tid < a.tq;
-      lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
-      delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
-    }
-
-    // s^T = k q^T and dp^T = v dout^T: query rows read as column-major q^T, dout^T
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    if constexpr (WIDE) {
-      for (int c = 0; c < ld; c += D) {
-        if (c) __syncthreads();      // the last slab's readers are done
-        load_rows_bf16<D>(Ks, k + c, k0, BK, a.tk, tid, H_THREADS, ld);
-        load_rows_bf16<D>(Vs, v + c, k0, BK, a.tk, tid, H_THREADS, ld);
-        load_rows_bf16<D>(Qs, q + c, q0, BQ, a.tq, tid, H_THREADS, ld);
-        load_rows_bf16<D>(dOs, dout + c, q0, BQ, a.tq, tid, H_THREADS, ld);
-        __syncthreads();
-        score_dots_t_bf16<D, BQ, KEEP>(st, dpt, ka, va, Ks, Vs, Qs, dOs, w0, lane);
-      }
-      if (col0 + D != ld) {          // the products take the block's own slab
-        __syncthreads();
-        load_rows_bf16<D>(Qs, q + col0, q0, BQ, a.tq, tid, H_THREADS, ld);
-        load_rows_bf16<D>(dOs, dout + col0, q0, BQ, a.tq, tid, H_THREADS, ld);
-        if constexpr (DQ) load_rows_bf16<D>(Ks, k + col0, k0, BK, a.tk, tid, H_THREADS, ld);
-        __syncthreads();
-      }
-    } else {
-      __syncthreads();
-      score_dots_t_bf16<D, BQ, KEEP>(st, dpt, ka, va, Ks, Vs, Qs, dOs, w0, lane);
-    }
-
-    // p^T and ds^T in place: st[n][e] is key kl[e >> 1], query n*8 + 2t + (e & 1)
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t + (e & 1);
-        const float2 pd = p_ds(st[n][e], dpt[n][e], lse_s[ql], delta_s[ql],
-                               key_ok[e >> 1] && causal_ok(a, q0 + ql, k0 + kl[e >> 1]), a.scale);
-        st[n][e] = pd.x;
-        dpt[n][e] = pd.y;
-      }
-    if constexpr (DQ) {
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(&dSTs[kl[0]][n * 8 + 2 * t]) = pack_bf16(dpt[n][0], dpt[n][1]);
-        *reinterpret_cast<uint32_t*>(&dSTs[kl[1]][n * 8 + 2 * t]) = pack_bf16(dpt[n][2], dpt[n][3]);
-      }
-    }
-
-    // dv += p^T dout, dk += ds^T q, p and ds rounded to bf16; dout and q rows
-    // read transposed as the B operand
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        b_frag<LD>(b, dOs, kk * 16, dp * 16, lane);
-        mma_bf16(dv[2 * dp], pa, b[0], b[1]);
-        mma_bf16(dv[2 * dp + 1], pa, b[2], b[3]);
-        b_frag<LD>(b, Qs, kk * 16, dp * 16, lane);
-        mma_bf16(dk[2 * dp], sa, b[0], b[1]);
-        mma_bf16(dk[2 * dp + 1], sa, b[2], b[3]);
-      }
-    }
-
-    if constexpr (DQ) {
-      __syncthreads();               // every warp's keys of ds^T are written
-      // dq partial = ds k: this warp's 16 query rows (r0..) and DW columns
-      // (c0..), in WIDE in two halves of DH columns, which keeps the slab
-      // loop's 64-row tile within 255 registers; ds^T read transposed as the
-      // A operand, k rows as B
-      constexpr int RB = BQ / 16, DW = D / (4 / RB), HALVES = WIDE ? 2 : 1, DH = DW / HALVES;
-      const int r0 = (warp % RB) * 16;
-#pragma unroll 1
-      for (int hf = 0; hf < HALVES; ++hf) {
-        const int c0 = (warp / RB) * DW + hf * DH;
-        float dq[DH / 8][4];
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          uint32_t sa[4];
-          ldsm_x4_t(sa,
-                    &dSTs[kk * 16 + (lane & 7) + (lane >> 4) * 8][r0 + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-          for (int dp = 0; dp < DH / 16; ++dp) {
-            uint32_t b[4];
-            b_frag<LD>(b, Ks, kk * 16, c0 + dp * 16, lane);
-            mma_bf16(dq[2 * dp], sa, b[0], b[1]);
-            mma_bf16(dq[2 * dp + 1], sa, b[2], b[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          *reinterpret_cast<float2*>(part + (r0 + g) * ld + c0 + n * 8 + 2 * t) =
-              make_float2(dq[n][0], dq[n][1]);
-          *reinterpret_cast<float2*>(part + (r0 + g + 8) * ld + c0 + n * 8 + 2 * t) =
-              make_float2(dq[n][2], dq[n][3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kg = k0 + kl[h];
-    if (kg >= a.tk) continue;
-    const size_t row = ((size_t)bh * a.tk + kg) * ld + col0;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(a.dk + row + n * 8 + 2 * t) =
-          make_float2(dk[n][2 * h], dk[n][2 * h + 1]);
-      *reinterpret_cast<float2*>(a.dv + row + n * 8 + 2 * t) =
-          make_float2(dv[n][2 * h], dv[n][2 * h + 1]);
     }
   }
 }
@@ -712,7 +569,7 @@ int launch_kernel(void (*kernel)(Args), dim3 grid, int threads, size_t smem, cud
 
 BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* kmask,
                  const void* dout, const void* lse, const void* delta, void* dq, void* dk,
-                 void* dv, void* dq_part, int bh, int heads, int tq, int tk, int q_offset,
+                 void* dv, void* flags, int bh, int heads, int tq, int tk, int q_offset,
                  int k_offset, int causal, int d, float scale) {
   BwdArgs a;
   a.q = q;
@@ -725,16 +582,17 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* kmask,
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
-  a.dq_part = static_cast<float*>(dq_part);
+  a.flags = static_cast<int*>(flags);
   a.bh = bh;
   a.heads = heads;
   a.tq = tq;
   a.tk = tk;
-  a.tq_pad = (tq + 63) / 64 * 64;
   a.q_offset = q_offset;
   a.k_offset = k_offset;
   a.causal = causal;
   a.ld = d;
+  a.slabs = 1;
+  a.n_qt = (tq + 63) / 64;
   a.scale = scale;
   return a;
 }

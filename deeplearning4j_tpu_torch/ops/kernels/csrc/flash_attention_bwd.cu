@@ -22,96 +22,100 @@
 // cores.
 //
 // What the design does about it: one pass recomputes the score tile from
-// lse, never storing p.  As in the TPU kernel, one program owns a 64-key
-// tile of one (batch, head) and walks the query tiles, carrying dk and dv
-// on chip (the TPU's VMEM scratch; registers here), and writes one dq
-// partial per (key tile, query tile): bwd_f32_body / bwd_bf16_body of
-// flash_attention.cuh with DQ on.  On the TPU those partials are bf16 for
-// bf16 inputs and summed outside; here blocks run in parallel and in no
-// order, so each block writes f32 partials to its own slice of a
-// [Tk/64, BH, Tq', D] scratch and a second kernel sums them in key-tile
-// order: deterministic, no atomics.  Query tiles wholly before a causal
-// key tile are skipped and write zero partials, as the JAX kernel does.
-// The scratch takes 4 D BH Tq' Tk/64 bytes: quadratic in the sequence
-// (flash_attention_bwd_split.cu needs none).
-// A simple kernel: no cp.async/TMA pipelining and no wgmma yet.
+// lse, never storing p.  As in the TPU kernel, a block owns a key tile of
+// one (batch, head) and walks the query tiles, carrying dk and dv on chip
+// (the TPU's VMEM scratch; registers here).  On the TPU the dq partials of
+// the key tiles are summed outside the kernel; here every key tile adds
+// its ds k of a query tile into dq itself, by the TMA's reduce-add, in
+// key-tile order behind one flag per (head, slab, query tile)
+// (flash_attention.cuh, the ordered sum): dq comes out the same on every
+// run, and the only scratch beside dq is the flags, 4 (1 + BH Tq/64) bytes
+// a slab.  Query tiles wholly before a causal key
+// tile are skipped, as in the JAX kernel.
+//
+//   * bf16: the key-tile body of flash_attention_sm90.cuh on Hopper's
+//     tensor-core path: 128 keys per block, one per consumer warpgroup's
+//     wgmma M; q, dout, lse and delta stream in by TMA through a ring
+//     while the consumers multiply; s^T and dp^T come out of wgmma in the
+//     layout of the A operand that dv += p^T dout and dk += ds^T q take
+//     from registers; ds^T goes to shared memory once for dq = ds k,
+//     whose tile a writer warp adds into dq while the consumers go on.
+//   * f32: 256 threads over a 64-key tile, FMA on the CUDA cores from
+//     padded rows (bwd_f32_body), no TF32; its adds into dq go by TMA too.
 //
 // Head dims past 128 run in column slabs (flash_attention.cuh): of 128
-// columns in f32, of 64 in bf16, where the 128-column slab spills.
+// columns in f32, of 64 in bf16, where D = 128 also takes two 64-column
+// slabs (key_tile_slab, flash_attention_sm90.cuh).
 //
 // Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64,
 // 128 or a larger multiple of 128 (it zero-pads others up to the next),
-// contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask, a partial
-// scratch of [ceil(Tk/64), BH, ceil(Tq/64)*64, D] f32.  Every entry point
-// returns cudaGetLastError() after its launches (cudaErrorInvalidValue for
-// another D).
+// contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask, dq and the
+// int32 flags [1 + BH * slabs * ceil(Tq/64)] zeroed (slabs: ld / 64 past
+// 64).  Every entry point returns cudaGetLastError() after its launch (cudaErrorInvalidValue for
+// another D, or for tensor maps the CUDA driver refuses).
 
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
+// The block's tile comes from the ticket flags[0] (the ordered sum).  The
+// least number of blocks per SM holds ptxas to registers that fit as many
+// blocks as shared memory allows: three at D = 32 (80 registers; left to
+// itself it takes more and loses the third block), one at D = 128 (where
+// left to itself it picks 128 registers, and runs slower); 0 sets none.
 template <int D, bool WIDE>
-__global__ void __launch_bounds__(F_THREADS)
-fa_bwd_f32_kernel(BwdArgs a) {
-  bwd_f32_body<D, true, WIDE>(a);
+__global__ void __launch_bounds__(F_THREADS, WIDE ? 0 : D == 32 ? 3 : 1)
+fa_bwd_f32_kernel(const __grid_constant__ TmaArgs p) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(p.a.flags, 1);
+  __syncthreads();
+  const KeyTileIdx i = key_tile_of(p.a, ticket);
+  bwd_f32_body<D, true, WIDE>(p.a, &p.dq, i.kt, i.bh, WIDE ? i.z : 0);   // one slab up to 128
 }
 
 template <int D, bool WIDE>
-__global__ void __launch_bounds__(H_THREADS)
-fa_bwd_bf16_kernel(BwdArgs a) {
-  bwd_bf16_body<D, true, WIDE>(a);
-}
-
-// dq[bh, t, :] = sum over key tiles, in order, of the partials, rows of d4
-// float4; one float4 per thread.
-__global__ void dq_reduce_kernel(const float4* __restrict__ part, float4* __restrict__ dq,
-                                 int n_kt, int bh, int tq, int tq_pad, int d4) {
-  const size_t per_head = (size_t)tq * d4;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= per_head * bh) return;
-  const size_t head = idx / per_head, rest = idx % per_head;
-  const size_t stride = (size_t)bh * tq_pad * d4;
-  const float4* src = part + head * tq_pad * d4 + rest;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int t = 0; t < n_kt; ++t) {
-    const float4 x = src[t * stride];
-    s.x += x.x;
-    s.y += x.y;
-    s.z += x.z;
-    s.w += x.w;
-  }
-  dq[idx] = s;
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+fa_bwd_bf16_kernel(const __grid_constant__ TmaArgs p) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(p.a.flags, 1);
+  __syncthreads();
+  const KeyTileIdx i = key_tile_of(p.a, ticket);
+  key_tile_body<D, true, WIDE>(p, i.kt, i.bh, i.z);
 }
 
 template <int D, bool BF16, bool WIDE = false>
-int launch(const BwdArgs& a, void* dq, cudaStream_t s) {
-  const int n_kt = (a.tk + BK - 1) / BK;
-  const dim3 grid(n_kt, a.bh, WIDE ? a.ld / D : 1);
-  int rc;
-  if constexpr (BF16)
-    rc = launch_kernel(fa_bwd_bf16_kernel<D, WIDE>, grid, H_THREADS,
-                       bwd_bf16_smem<D, true>(), s, a);
-  else
-    rc = launch_kernel(fa_bwd_f32_kernel<D, WIDE>, grid, F_THREADS, bwd_f32_smem<D>(), s, a);
-  if (rc != 0) return rc;
-  const size_t n4 = (size_t)a.bh * a.tq * (a.ld / 4);
-  dq_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
-      reinterpret_cast<const float4*>(a.dq_part), static_cast<float4*>(dq), n_kt, a.bh, a.tq,
-      a.tq_pad, a.ld / 4);
-  return static_cast<int>(cudaGetLastError());
+int launch(const BwdArgs& args, cudaStream_t s) {
+  BwdArgs a = args;
+  a.slabs = a.ld / (BF16 ? key_tile_slab<D, WIDE>() : D);
+  const int keys = BF16 ? KeyTileSmem<D, true, WIDE>::KB : BK;
+  const dim3 grid(((a.tk + keys - 1) / keys) * a.bh * a.slabs);
+  if constexpr (BF16) {
+    TmaArgs p;
+    const int rc = tma_args(p, a, true);
+    if (rc != 0) return rc;
+    return launch_kernel(fa_bwd_bf16_kernel<D, WIDE>, grid, SM90_THREADS,
+                         KeyTileSmem<D, true, WIDE>::BYTES, s, p);
+  } else {
+    // the dq map only: rows of D f32 columns in plain layout, as dq_s holds them
+    TmaArgs p;
+    p.a = a;
+    if (!encode_dq_map(&p.dq, a.dq, a.bh, a.tq, a.ld, D, false))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_kernel(fa_bwd_f32_kernel<D, WIDE>, grid, F_THREADS, bwd_f32_smem<D>(), s, p);
+  }
 }
 
 template <bool BF16>
-int dispatch(int d, const BwdArgs& a, void* dq, void* stream) {
+int dispatch(int d, const BwdArgs& a, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<32, BF16>(a, dq, s);
-    case 64: return launch<64, BF16>(a, dq, s);
-    case 128: return launch<128, BF16>(a, dq, s);
+    case 32: return launch<32, BF16>(a, s);
+    case 64: return launch<64, BF16>(a, s);
+    case 128: return launch<128, BF16>(a, s);
   }
-  // past 128 in slabs: of 64 columns in bf16, where the 128-column slab's
-  // dk, dv and dq-partial state spills past 255 registers, else of 128
-  if (wide_head_dim(d)) return launch<BF16 ? 64 : 128, BF16, true>(a, dq, s);
+  // past 128 in column slabs: of 64 in bf16 (key_tile_slab), else of 128
+  if (wide_head_dim(d)) return launch<BF16 ? 64 : 128, BF16, true>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -121,22 +125,22 @@ extern "C" {
 
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* kmask,
                             const void* dout, const void* lse, const void* delta, void* dq,
-                            void* dk, void* dv, void* dq_part, int bh, int heads, int tq, int tk,
+                            void* dk, void* dv, void* flags, int bh, int heads, int tq, int tk,
                             int q_offset, int k_offset, int causal, int d, float scale,
                             void* stream) {
-  return dispatch<false>(d, bwd_args(q, k, v, kmask, dout, lse, delta, nullptr, dk, dv, dq_part,
-                                     bh, heads, tq, tk, q_offset, k_offset, causal, d, scale),
-                         dq, stream);
+  return dispatch<false>(d, bwd_args(q, k, v, kmask, dout, lse, delta, dq, dk, dv, flags, bh,
+                                     heads, tq, tk, q_offset, k_offset, causal, d, scale),
+                         stream);
 }
 
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* kmask,
                              const void* dout, const void* lse, const void* delta, void* dq,
-                             void* dk, void* dv, void* dq_part, int bh, int heads, int tq,
-                             int tk, int q_offset, int k_offset, int causal, int d, float scale,
+                             void* dk, void* dv, void* flags, int bh, int heads, int tq, int tk,
+                             int q_offset, int k_offset, int causal, int d, float scale,
                              void* stream) {
-  return dispatch<true>(d, bwd_args(q, k, v, kmask, dout, lse, delta, nullptr, dk, dv, dq_part,
-                                    bh, heads, tq, tk, q_offset, k_offset, causal, d, scale),
-                        dq, stream);
+  return dispatch<true>(d, bwd_args(q, k, v, kmask, dout, lse, delta, dq, dk, dv, flags, bh,
+                                    heads, tq, tk, q_offset, k_offset, causal, d, scale),
+                        stream);
 }
 
 }  // extern "C"

@@ -12,15 +12,16 @@
 // (flash_attention_block_bwd(merged=False)): _bwd_dq_kernel and
 // _bwd_dkv_kernel.
 //
-//   * dq kernel (fa_dq_*): one block per (64-query tile, batch*head) walks
-//     the key tiles, recomputes p and ds, and accumulates dq = ds k in
-//     registers in f32 (the TPU kernel's dq_scr), written once.  Key tiles
-//     wholly in a causal query tile's future are never visited.  In bf16
-//     ds is rounded to bf16 before ds k and p is not, as the JAX kernel does.
-//   * dk/dv kernel (fa_dkv_*): one block per (64-key tile, batch*head)
-//     walks the query tiles: the merged kernel's body (flash_attention.cuh,
-//     bwd_*_body with DQ off), skipping the query tiles wholly before a
-//     causal key tile.  In bf16 p and ds are rounded before their products.
+//   * dq kernel (fa_dq_*): a block owns a tile of query rows of one
+//     (batch, head), walks the key tiles, recomputes p and ds, and
+//     accumulates dq = ds k in registers in f32 (the TPU kernel's dq_scr),
+//     written once.  Key tiles wholly in a causal query tile's future are
+//     never visited.  In bf16 ds is rounded to bf16 before ds k and p is
+//     not, as the JAX kernel does.
+//   * dk/dv kernel (fa_dkv_*): a block owns a key tile and walks the query
+//     tiles: the merged kernel's body with its dq products compiled out,
+//     skipping the query tiles wholly before a causal key tile.  In bf16 p
+//     and ds are rounded before their products.
 //
 // What bounds it on the H100: the function needs 10 * Tq * Tk * D
 // operations per head (five products, as the merged form) against
@@ -28,33 +29,37 @@
 // sequence 4096 it is bound by operations: in f32 by the CUDA cores
 // (67 TFLOP/s, no TF32), in bf16 by the tensor cores.  This algorithm does
 // 14 (s and dp are computed in both kernels): two more products per tile
-// than the merged form, and no dq scratch (the merged one writes
-// 4 D BH Tq Tk/64 bytes of partials: 103 GB at (B, H, T, D) =
-// (2, 12, 32768, 64), past the card's memory).
+// than the merged form, and no scratch at all.
 //
-//   * f32: 256 threads; in the dq kernel each owns 4 x 4 entries of the
-//     score tile (query rows ty + 16 i, keys tx + 16 j) and 4 x D/16 of dq,
-//     FMA on the CUDA cores from padded rows; ds goes through shared memory.
-//   * bf16: 4 warps of mma.sync m16n8k16 (bf16 in, f32 accumulate); in the
-//     dq kernel warp w owns query rows 16 w..: s = q k^T and dp = dout v^T
-//     in registers, whose accumulator layout is the A operand layout of
-//     ds k, with k rows read transposed as the B operand.  The warp's q and
-//     dout rows stay in registers as A fragments up to D = 64.
+// What the design does about it:
+//   * bf16: Hopper's tensor-core path (flash_attention_sm90.cuh).  The dq
+//     kernel's block holds 128 query rows, 64 per consumer warpgroup as the
+//     M of its wgmma, with q and dout loaded once by TMA; a producer warp
+//     streams the 64-key k and v tiles through a ring of stages behind
+//     mbarriers; s = q k^T and dp = dout v^T run as wgmma from shared
+//     memory, and ds, rounded in the accumulator registers, is the register
+//     A operand of dq += ds k.  The dk/dv kernel is the merged form's
+//     key-tile body without dq (flash_attention_sm90.cuh).
+//   * f32: 256 threads, FMA on the CUDA cores from padded rows; in the dq
+//     kernel each owns 4 x 4 entries of the score tile (query rows
+//     ty + 16 i, keys tx + 16 j) and 4 x D/16 of dq; ds goes through shared
+//     memory.  The dk/dv kernel is bwd_f32_body with DQ off.
 // Templated on the head dim D in {32, 64, 128}; head dims past 128 run in
-// 128-column slabs (flash_attention.cuh).  A simple kernel: no
-// cp.async/TMA pipelining and no wgmma yet.
+// 128-column slabs (flash_attention.cuh); the bf16 dk/dv kernel writes
+// 64-column slabs past D = 64 (key_tile_slab, flash_attention_sm90.cuh).
 //
 // Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64,
 // 128 or a larger multiple of 128 (it zero-pads others up to the next),
 // contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask.  Every entry
 // point returns cudaGetLastError() after its launches (cudaErrorInvalidValue
-// for another D).
+// for another D, or for tensor maps the CUDA driver refuses).
 
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per dq block
+constexpr int BQ = 64;       // query rows per f32 dq block
 
 // ------------------------------------------------------------------ f32
 template <int D>
@@ -161,198 +166,38 @@ fa_dq_f32_kernel(BwdArgs a) {
   }
 }
 
-// ----------------------------------------------------------------- bf16
-template <int D>
-constexpr size_t dq_bf16_smem() {
-  return (size_t)4 * 64 * (D + 8) * sizeof(bf16) + BK;
-}
-
-// s += q k^T and dp += dout v^T over the D columns of the tiles in shared
-// memory, k and v rows read as column-major k^T, v^T: this warp's 16 query
-// rows (m0..), its q and dout rows from the A fragments qa, oa where KEEP
-// holds them in registers, else from Qs, dOs.
-template <int D, bool KEEP>
-__device__ __forceinline__ void score_dots_bf16(float (&s)[BK / 8][4], float (&dp)[BK / 8][4],
-                                                const uint32_t (&qa)[KEEP ? D / 16 : 1][4],
-                                                const uint32_t (&oa)[KEEP ? D / 16 : 1][4],
-                                                bf16 (*Qs)[D + 8], bf16 (*dOs)[D + 8],
-                                                bf16 (*Ks)[D + 8], bf16 (*Vs)[D + 8], int m0,
-                                                int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qf[4], of[4];
-    if constexpr (KEEP) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        qf[e] = qa[kk][e];
-        of[e] = oa[kk][e];
-      }
-    } else {
-      a_frag<LD>(qf, Qs, m0, kk * 16, lane);
-      a_frag<LD>(of, dOs, m0, kk * 16, lane);
-    }
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t b[4];
-      bt_frag<LD>(b, Ks, np * 16, kk * 16, lane);
-      mma_bf16(s[2 * np], qf, b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qf, b[2], b[3]);
-      bt_frag<LD>(b, Vs, np * 16, kk * 16, lane);
-      mma_bf16(dp[2 * np], of, b[0], b[1]);
-      mma_bf16(dp[2 * np + 1], of, b[2], b[3]);
-    }
-  }
-}
-
-template <int D, bool WIDE>
-__global__ void __launch_bounds__(H_THREADS)
-fa_dq_bf16_kernel(BwdArgs a) {
-  constexpr int LD = D + 8;
-  constexpr bool KEEP = D <= 64 && !WIDE;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16 (*Qs)[LD] = reinterpret_cast<bf16 (*)[LD]>(flash_smem);
-  bf16 (*dOs)[LD] = Qs + BQ;
-  bf16 (*Ks)[LD] = dOs + BQ;
-  bf16 (*Vs)[LD] = Ks + BK;
-  bool* key_ok = reinterpret_cast<bool*>(Vs + BK);   // the tile's keys: below Tk and unmasked
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int m0 = warp * 16;                       // this warp's 16 query rows
-  const int qg[2] = {q0 + m0 + g, q0 + m0 + g + 8};
-  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * ld;
-  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * ld;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * ld;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + (size_t)bh * a.tq * ld;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
-
-  float lse[2], delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool real = qg[h] < a.tq;
-    lse[h] = real ? a.lse[(size_t)bh * a.tq + qg[h]] : NEG_INF;
-    delta[h] = real ? a.delta[(size_t)bh * a.tq + qg[h]] : 0.f;
-  }
-  uint32_t qa[KEEP ? D / 16 : 1][4], oa[KEEP ? D / 16 : 1][4];
-  if constexpr (!WIDE) {
-    load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
-    load_rows_bf16<D>(dOs, dout, q0, BQ, a.tq, tid, H_THREADS);
-    __syncthreads();
-  }
-  if constexpr (KEEP) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      a_frag<LD>(qa[kk], Qs, m0, kk * 16, lane);
-      a_frag<LD>(oa[kk], dOs, m0, kk * 16, lane);
-    }
-  }
-
-  float dq[D / 8][4];             // rows qg[0], qg[1]; columns col0.. of D
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + BQ, a.tq) - 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                 // the last tile's readers are done
-    // s = q k^T and dp = dout v^T: k and v rows read as column-major k^T, v^T
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    if constexpr (WIDE) {
-      // the scores over every slab, then k at the block's own slab for ds k
-      for (int c = 0; c < ld; c += D) {
-        if (c) __syncthreads();      // the last slab's readers are done
-        load_rows_bf16<D>(Qs, q + c, q0, BQ, a.tq, tid, H_THREADS, ld);
-        load_rows_bf16<D>(dOs, dout + c, q0, BQ, a.tq, tid, H_THREADS, ld);
-        load_rows_bf16<D>(Ks, k + c, k0, BK, a.tk, tid, H_THREADS, ld);
-        load_rows_bf16<D>(Vs, v + c, k0, BK, a.tk, tid, H_THREADS, ld);
-        if (c == 0 && tid < BK)
-          key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
-        __syncthreads();
-        score_dots_bf16<D, KEEP>(s, dp, qa, oa, Qs, dOs, Ks, Vs, m0, lane);
-      }
-      if (col0 + D != ld) {
-        __syncthreads();
-        load_rows_bf16<D>(Ks, k + col0, k0, BK, a.tk, tid, H_THREADS, ld);
-        __syncthreads();
-      }
-    } else {
-      load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
-      load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
-      if (tid < BK) key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
-      __syncthreads();
-      score_dots_bf16<D, KEEP>(s, dp, qa, oa, Qs, dOs, Ks, Vs, m0, lane);
-    }
-
-    // ds in place of s: s[n][e] is row qg[e >> 1], key n*8 + 2t + (e & 1)
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, kl = n * 8 + 2 * t + (e & 1);
-        s[n][e] = p_ds(s[n][e], dp[n][e], lse[h], delta[h],
-                       key_ok[kl] && causal_ok(a, qg[h], k0 + kl), a.scale).y;
-      }
-
-    // dq += ds k, ds rounded to bf16: two 8-key accumulator tiles make one
-    // 16-key A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp_ = 0; dp_ < D / 16; ++dp_) {
-        uint32_t b[4];
-        b_frag<LD>(b, Ks, kk * 16, dp_ * 16, lane);
-        mma_bf16(dq[2 * dp_], da, b[0], b[1]);
-        mma_bf16(dq[2 * dp_ + 1], da, b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (qg[h] >= a.tq) continue;
-    const size_t row = ((size_t)bh * a.tq + qg[h]) * ld + col0;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(a.dq + row + n * 8 + 2 * t) =
-          make_float2(dq[n][2 * h], dq[n][2 * h + 1]);
-  }
-}
-
 // ---------------------------------------------------------- dk/dv kernel
 template <int D, bool WIDE>
 __global__ void __launch_bounds__(F_THREADS)
 fa_dkv_f32_kernel(BwdArgs a) {
-  bwd_f32_body<D, false, WIDE>(a);
+  bwd_f32_body<D, false, WIDE>(a, nullptr, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int D, bool WIDE>
-__global__ void __launch_bounds__(H_THREADS)
-fa_dkv_bf16_kernel(BwdArgs a) {
-  bwd_bf16_body<D, false, WIDE>(a);
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+fa_dkv_bf16_kernel(const __grid_constant__ TmaArgs p) {
+  key_tile_body<D, false, WIDE>(p, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int D, bool BF16, bool WIDE = false>
 int launch(const BwdArgs& a, cudaStream_t s) {
-  const int slabs = WIDE ? a.ld / D : 1;
-  const dim3 q_grid((a.tq + BQ - 1) / BQ, a.bh, slabs), k_grid((a.tk + BK - 1) / BK, a.bh, slabs);
   int rc;
+  const int slabs = WIDE ? a.ld / D : 1;
   if constexpr (BF16) {
-    rc = launch_kernel(fa_dq_bf16_kernel<D, WIDE>, q_grid, H_THREADS, dq_bf16_smem<D>(), s, a);
+    // past 128 the dk/dv kernel runs the merged body's 64-column slabs
+    constexpr int DKV = WIDE ? 64 : D;
+    using QL = QTileSmem<D, WIDE>;
+    using KL = KeyTileSmem<DKV, false, WIDE>;
+    TmaArgs p;
+    rc = tma_args(p, a, false);
+    const dim3 q_grid((a.tq + QL::QB - 1) / QL::QB, a.bh, slabs),
+        k_grid((a.tk + KL::KB - 1) / KL::KB, a.bh, a.ld / key_tile_slab<DKV, WIDE>());
     if (rc == 0)
-      rc = launch_kernel(fa_dkv_bf16_kernel<D, WIDE>, k_grid, H_THREADS,
-                         bwd_bf16_smem<D, false>(), s, a);
+      rc = launch_kernel(fa_dq_bf16_kernel<D, WIDE>, q_grid, SM90_THREADS, QL::BYTES, s, p);
+    if (rc == 0)
+      rc = launch_kernel(fa_dkv_bf16_kernel<DKV, WIDE>, k_grid, SM90_THREADS, KL::BYTES, s, p);
   } else {
+    const dim3 q_grid((a.tq + BQ - 1) / BQ, a.bh, slabs), k_grid((a.tk + BK - 1) / BK, a.bh, slabs);
     rc = launch_kernel(fa_dq_f32_kernel<D, WIDE>, q_grid, F_THREADS, dq_f32_smem<D>(), s, a);
     if (rc == 0)
       rc = launch_kernel(fa_dkv_f32_kernel<D, WIDE>, k_grid, F_THREADS, bwd_f32_smem<D>(), s,

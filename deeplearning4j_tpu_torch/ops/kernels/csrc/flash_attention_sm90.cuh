@@ -1,0 +1,904 @@
+// Hopper (sm_90a) form of the bf16 flash backward: the key-tile kernel of
+// the merged backward (with ds k added to dq) and of the split backward's
+// dk/dv kernel (without), and the split backward's dq kernel.
+//
+// A block is one producer warpgroup and two consumer warpgroups (NWG).  One
+// warp of the producer keeps TMA loads in flight: 3-D tensor maps over
+// [BH, T, ld], so rows past T (a tail tile) come in as zeros and never from
+// the next head, in boxes of 64 rows x 64 columns (32 at D = 32) that the
+// TMA writes in the 128-byte (64-byte) swizzled layout that wgmma's
+// descriptors name.  Tiles that stay (k and v of a key tile, q and dout of a
+// query tile) load once; the streamed tiles go through a ring of STAGES
+// buffers behind full and empty mbarriers, with lse and delta of their rows
+// (read by the producer's lanes ahead of the wait for a free stage).
+// setmaxnreg moves registers from the producer (40) to the consumers (232).
+// Each consumer warpgroup owns 64 rows of the block's tile (keys, or query
+// rows) as the M of its wgmma:
+//
+//   key tile:   s^T = k q^T, dp^T = v dout^T    (wgmma, both from shared memory)
+//               p^T, ds^T in the accumulators (p_ds2), rounded to bf16 there
+//               dv += p^T dout, dk += ds^T q    (wgmma, A from registers)
+//               DQ: ds^T to shared memory, dq_tile = ds k (wgmma, the two
+//               warpgroups split its columns), handed to a writer warp of
+//               the producer warpgroup, which adds it into dq by TMA
+//               reduce-add in key-tile order (the ordered sum,
+//               flash_attention.cuh) while the consumers go on
+//   dq kernel:  s = q k^T, dp = dout v^T; ds rounded to bf16 in registers;
+//               dq += ds k (A from registers), dq in f32 registers
+//
+// The accumulator of an m64nN wgmma holds, in thread (warp w, lane 4 g + t)
+// of the warpgroup, rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t and
+// 8 j + 2 t + 1 (entries 4 j + 2 h + e), which rounded to bf16 pairs is the
+// register A operand of the next product (k16 step kk: entries 8 kk..8 kk + 7).
+// p and ds come from exp2 with scale log2(e) and lse log2(e) folded in, and
+// the per-entry visibility rule runs only on tiles that the Tk tail, the key
+// mask or the causal rule cut.
+//
+// The key-tile kernels write 64 output columns per block (key_tile_slab):
+// at D = 128 two blocks share a key tile, each computing s and dp over all
+// 128 columns, because 128-column dk and dv beside s^T and dp^T leave wgmma
+// too few registers (ptxas serializes and spills).  Past D = 128 (WIDE) the
+// scores run over every CH-column chunk of the head dim, each chunk streamed
+// through the ring with its k and v (dq kernel: q and dout) rows, and one
+// more stage brings the block's slab for the products (64 columns in the
+// key-tile kernels, 128 in the dq kernel).
+#pragma once
+
+#include "flash_attention.cuh"
+
+namespace {
+
+constexpr int WG_THREADS = 128;                       // a warpgroup
+constexpr int NWG = 2;                                // consumer warpgroups of a block
+constexpr int CONSUMERS = NWG * WG_THREADS;
+constexpr int SM90_THREADS = CONSUMERS + WG_THREADS;  // and the producer warpgroup
+constexpr int TR = 64;                                // rows of a box, and of a wgmma's M
+constexpr int CH = 64;                                // WIDE: columns of a score chunk
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int SMEM_BUDGET = 225 * 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The four tensor maps and the arguments: one __grid_constant__ parameter.
+
+
+// A tile W columns wide in shared memory: W / BX boxes of BX columns, each
+// its rows' BX columns in one 128-byte (64-byte at W = 32) swizzled row.
+template <int W>
+struct Box {
+  static constexpr int BX = W < 64 ? W : 64;
+  static constexpr int ROW = BX * 2;                  // bytes of a row in a box
+  static constexpr int N = W / BX;
+  static constexpr uint64_t LAYOUT = BX == 64 ? 1 : 2;   // wgmma: 128B or 64B swizzle
+};
+
+constexpr int round_kb(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+constexpr int stages_for(int fixed, int stage) {
+  return (SMEM_BUDGET - fixed) / stage < 4 ? (SMEM_BUDGET - fixed) / stage : 4;
+}
+
+// ------------------------------------------------------------ mbarriers
+// mbarriers, and the tiles below, are named by 32-bit shared-memory
+// addresses: half the registers of generic pointers.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Expect `bytes` more of TMA traffic in the barrier's phase, without arriving.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    wait_guard(t0);
+  }
+}
+
+// ------------------------------------------------------------------ TMA
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+         "r"(bh)
+      : "memory");
+}
+
+// Rows [row0, row0 + R) and columns [col0, col0 + W) of head bh into an
+// R-row tile at dst: box b, rows 64 h.. at dst + (b R + 64 h) ROW.
+template <int W, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col0, int row0, int bh) {
+  using B = Box<W>;
+#pragma unroll
+  for (int b = 0; b < B::N; ++b)
+#pragma unroll
+    for (int h = 0; h < R / TR; ++h)
+      tma_load(dst + (b * R + h * TR) * B::ROW, map, bar, col0 + b * B::BX, row0 + h * TR, bh);
+}
+
+// ---------------------------------------------------------------- wgmma
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [r0, r0 + 64) of an R-row W-wide tile at base, the
+// contraction over columns [c, c + 16)
+template <int W, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int r0, int c) {
+  using B = Box<W>;
+  return gmma_desc(base + ((c / B::BX) * R + r0) * B::ROW + (c % B::BX) * 2, 16, 8 * B::ROW,
+                   B::LAYOUT);
+}
+
+// N-major operand (B of a product whose contraction runs down the rows):
+// rows [r, r + 16) of an R-row W-wide tile at base, its columns from c on
+template <int W, int R>
+__device__ __forceinline__ uint64_t desc_n(uint32_t base, int r, int c) {
+  using B = Box<W>;
+  return gmma_desc(base + ((c / B::BX) * R + r) * B::ROW + (c % B::BX) * 2, R * B::ROW,
+                   8 * B::ROW, B::LAYOUT);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of registers that an asynchronous
+// wgmma reads or writes across its wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// lse and delta of a row in the form the fast p_ds takes: lse log2(e) (+inf
+// on a dead row or a row past Tq, so that p = 0 there) and delta scale.
+__device__ __forceinline__ float2 row_terms(const BwdArgs& a, int bh, int qg) {
+  if (qg >= a.tq) return make_float2(INFINITY, 0.f);
+  const float lse = a.lse[(size_t)bh * a.tq + qg];
+  return make_float2(lse > NEG_INF * 0.5f ? lse * LOG2E : INFINITY,
+                     a.delta[(size_t)bh * a.tq + qg] * a.scale);
+}
+
+// p_ds (flash_attention.cuh) from row_terms: p = 2^(s scale log2(e) - lse
+// log2(e)), ds = p (dp scale - delta scale); `seen` as there.
+__device__ __forceinline__ float2 p_ds2(float s, float dp, float2 row, float sl2, float scale,
+                                        bool seen) {
+  const float p = seen ? ex2(fmaf(s, sl2, -row.x)) : 0.f;
+  return make_float2(p, p * fmaf(dp, scale, -row.y));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// The four k16 steps of an m64n64 accumulator as bf16 A operands.
+__device__ __forceinline__ void a_operands(uint32_t (&r)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
+}
+
+// The thread's warpgroup, as a value the compiler knows is the same across
+// the warp (setmaxnreg needs each branch warpgroup-uniform).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / WG_THREADS, 0);
+}
+
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// d (64 x 64) += a (64 x 16, K-major) . b (16 x 64, K-major): both from shared memory
+__device__ __forceinline__ void wgmma_kk(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 16) += a (64 x 16, M-major) . b (16 x 16, N-major): both from shared memory
+__device__ __forceinline__ void wgmma_mn(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 32) += a (64 x 16, M-major) . b (16 x 32, N-major): both from shared memory
+__device__ __forceinline__ void wgmma_mn(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 32) += a (64 x 16, registers) . b (16 x 32, N-major, shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, N-major, shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// d (64 x 128) += a (64 x 16, registers) . b (16 x 128, N-major, shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+
+// ------------------------------------------------------- key-tile kernel
+// The output columns of a key-tile block: all of D up to 64; a 64-column
+// slab past that (blockIdx / ticket slab z), where dk and dv of 128 columns
+// beside s^T and dp^T leave wgmma too few registers to pipeline (ptxas
+// serializes and spills).  The block still computes s and dp over all of D
+// (WIDE: over every CH-column chunk of the head dim).
+template <int D, bool WIDE>
+__host__ __device__ constexpr int key_tile_slab() { return WIDE ? D : (D > 64 ? 64 : D); }
+
+// Shared memory of the key-tile kernel: the resident k and v tiles (WIDE:
+// the k slab, for dq), ds^T (DQ), the ring, the barriers.  A product stage
+// holds q and dout (at all D columns; WIDE: at the block's slab) and
+// lse log2(e), delta scale of the query tile; a WIDE chunk stage holds q,
+// dout, k and v at CH columns.
+template <int D, bool DQ, bool WIDE>
+struct KeyTileSmem {
+  static constexpr int KB = TR * NWG;                        // keys of a block
+  static constexpr int PROD = 2 * TR * D * 2;
+  static constexpr int CHUNK = WIDE ? (2 * TR + 2 * KB) * CH * 2 : 0;
+  static constexpr int AUX = PROD > CHUNK ? PROD : CHUNK;    // lse, delta within a stage
+  static constexpr int STAGE = round_kb(AUX + 2 * TR * 4);
+  static constexpr int RES = WIDE ? (DQ ? KB * D * 2 : 0) : 2 * KB * D * 2;
+  static constexpr int DS = DQ ? KB * TR * 2 : 0;
+  // DQ: two f32 dq tiles [64, slab] for the writer, in 128-byte swizzled
+  // boxes of 32 columns, as the TMA reads them
+  static constexpr int DQT = TR * key_tile_slab<D, WIDE>() * 4;
+  static constexpr int DQB = DQ ? 2 * DQT : 0;
+  static constexpr int STAGES = stages_for(RES + DS + DQB + 2048, STAGE);
+  static constexpr int BARS = 2 * STAGES + 1 + (DQ ? 4 : 0);
+  static constexpr size_t BYTES = 1024 + RES + DS + DQB + STAGES * STAGE + 8 * BARS;
+};
+
+// One block owns KB = 128 keys (kt) of one (batch, head) bh, and slab z of
+// the output columns, and walks the 64-row query tiles, skipping those
+// wholly before a causal key tile, with dk and dv in the consumers'
+// registers.  With DQ it adds each query tile's ds k into dq in key-tile
+// order (ordered sum, flash_attention.cuh).
+template <int D, bool DQ, bool WIDE>
+__device__ __forceinline__ void key_tile_body(const TmaArgs& p, int kt, int bh, int z) {
+  using L = KeyTileSmem<D, DQ, WIDE>;
+  // SL: the block's output columns; NQ: a warpgroup's columns of dq
+  constexpr int KB = L::KB, SL = key_tile_slab<D, WIDE>(), NQ = SL / NWG;
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  unsigned char* smem = smem_1024(flash_smem);
+  const BwdArgs& a = p.a;
+  const uint32_t res = smem_u32(smem), ds_t = res + L::RES, dq_t = ds_t + L::DS,
+                 ring = dq_t + L::DQB;
+  unsigned char* ring_p = smem + L::RES + L::DS + L::DQB;
+  const uint32_t full = ring + L::STAGES * L::STAGE;   // barriers, 8 bytes each
+  const uint32_t empty = full + 8 * L::STAGES;
+  const uint32_t res_bar = empty + 8 * L::STAGES;
+  const uint32_t dq_full = res_bar + 8;        // DQ: a dq tile is written; it is added
+  const uint32_t dq_free = dq_full + 16;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ld = WIDE ? a.ld : D, col0 = z * SL, k0 = kt * KB;
+  // the block's columns within a product stage's q and dout, and within the resident k
+  const int pc = WIDE ? 0 : col0;
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, NWG * 4);
+    }
+    mbar_init(res_bar, 1);
+    if constexpr (DQ) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(dq_full + 8 * b, CONSUMERS);
+        mbar_init(dq_free + 8 * b, 1);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == NWG) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if constexpr (DQ) {
+      if (tid == CONSUMERS + 32) {
+        // the writer: each query tile's dq tile added into dq in key-tile
+        // order (ordered sum, flash_attention.cuh), by TMA reduce-add
+        int n = 0;
+        for (int qt = 0; qt < a.n_qt; ++qt) {
+          if (skipped(a, qt * TR, TR, k0)) continue;
+          const int b = n & 1;
+          mbar_wait(dq_full + 8 * b, (n >> 1) & 1);
+          int* flag = dq_flag(a, bh, z, qt);
+          flag_wait(flag, kt);
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+#pragma unroll
+          for (int x = 0; x < SL / 32; ++x)
+            tma_add_box(&p.dq, dq_t + b * L::DQT + x * TR * 128, col0 + 32 * x, qt * TR, bh);
+          tma_adds_commit();
+          tma_adds_done();
+          st_release(flag, kt + 1);
+          mbar_arrive(dq_free + 8 * b);
+          ++n;
+        }
+      }
+    }
+    if (tid >= CONSUMERS + 32) return;
+    if (lane == 0) {
+      if constexpr (!WIDE) {
+        mbar_expect_tx(res_bar, L::RES);
+        tma_tile<D, KB>(res, &p.k, res_bar, 0, k0, bh);
+        tma_tile<D, KB>(res + KB * D * 2, &p.v, res_bar, 0, k0, bh);
+      } else if constexpr (DQ) {
+        mbar_expect_tx(res_bar, L::RES);
+        tma_tile<D, KB>(res, &p.k, res_bar, col0, k0, bh);
+      } else {
+        mbar_arrive(res_bar);
+      }
+    }
+    int it = 0;
+    for (int qt = 0; qt < a.n_qt; ++qt) {
+      const int q0 = qt * TR;
+      if (skipped(a, q0, TR, k0)) continue;
+      // the query tile's lse and delta, read before the wait for a free stage
+      const float2 rows[2] = {row_terms(a, bh, q0 + lane), row_terms(a, bh, q0 + lane + 32)};
+      if constexpr (WIDE) {
+        for (int c = 0; c < ld; c += CH, ++it) {
+          const int s = it % L::STAGES;
+          const uint32_t st = ring + s * L::STAGE;
+          mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full + 8 * s, L::CHUNK);
+            tma_tile<CH, TR>(st, &p.q, full + 8 * s, c, q0, bh);
+            tma_tile<CH, TR>(st + TR * CH * 2, &p.dout, full + 8 * s, c, q0, bh);
+            tma_tile<CH, KB>(st + 2 * TR * CH * 2, &p.k, full + 8 * s, c, k0, bh);
+            tma_tile<CH, KB>(st + (2 * TR + KB) * CH * 2, &p.v, full + 8 * s, c, k0, bh);
+          } else {
+            mbar_arrive(full + 8 * s);
+          }
+        }
+      }
+      const int s = it % L::STAGES;
+      const uint32_t st = ring + s * L::STAGE;
+      mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect(full + 8 * s, L::PROD);
+        tma_tile<D, TR>(st, &p.q, full + 8 * s, WIDE ? col0 : 0, q0, bh);
+        tma_tile<D, TR>(st + TR * D * 2, &p.dout, full + 8 * s, WIDE ? col0 : 0, q0, bh);
+      }
+      float* aux = reinterpret_cast<float*>(ring_p + s * L::STAGE + L::AUX);
+      aux[lane] = rows[0].x;
+      aux[lane + 32] = rows[1].x;
+      aux[TR + lane] = rows[0].y;
+      aux[TR + lane + 32] = rows[1].y;
+      mbar_arrive(full + 8 * s);
+      ++it;
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warpgroup(), wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
+  int kg[2];                                   // this thread's two keys
+  bool key_ok[2];                              // each below Tk and unmasked
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kg[h] = k0 + 64 * wg + 16 * wq + g + 8 * h;
+    key_ok[h] = kg[h] < a.tk && (km == nullptr || km[kg[h]] > 0.f);
+  }
+  // whether every key of this warp's 16 is below Tk and unmasked, and the
+  // last of them (a tile the causal rule cuts needs the per-entry rule)
+  const bool keys_all = __all_sync(0xffffffffu, key_ok[0] && key_ok[1]);
+  const int k_last = k0 + 64 * wg + 16 * wq + 15;
+  const float sl2 = a.scale * LOG2E;
+  // this thread's first ds^T entry (its key row, query 2 t) and dq tile entry
+  // (row 16 wq + g, column 2 t within its 16-byte chunk), before swizzling
+  const uint32_t ds_row = ds_t + (64 * wg + 16 * wq + g) * 128 + 4 * t;
+  const uint32_t dq_row = dq_t + (16 * wq + g) * 128 + 8 * (t & 1);
+  float dk[SL / 2], dv[SL / 2];                // keys kg[h], columns col0 + 8 j + 2 t + e
+  zero(dk);
+  zero(dv);
+  mbar_wait(res_bar, 0);
+  int it = 0, n = 0;                           // n: dq tiles handed to the writer
+  for (int qt = 0; qt < a.n_qt; ++qt) {
+    const int q0 = qt * TR;
+    if (skipped(a, q0, TR, k0)) continue;
+    // s^T = k q^T and dp^T = v dout^T: keys kg[h], queries 8 j + 2 t + e
+    float st[32], dpt[32];
+    zero(st);
+    zero(dpt);
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += CH, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t sa = ring + s * L::STAGE;
+        mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
+        reg_fence(st);
+        reg_fence(dpt);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma_kk(st, desc_k<CH, KB>(sa + 2 * TR * CH * 2, 64 * wg, kk * 16),
+                   desc_k<CH, TR>(sa, 0, kk * 16), 1);
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma_kk(dpt, desc_k<CH, KB>(sa + (2 * TR + KB) * CH * 2, 64 * wg, kk * 16),
+                   desc_k<CH, TR>(sa + TR * CH * 2, 0, kk * 16), 1);
+        wg_commit();
+        wg_wait();
+        reg_fence(st);
+        reg_fence(dpt);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+    }
+    const int s = it % L::STAGES;
+    const uint32_t sa = ring + s * L::STAGE;
+    mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
+    if constexpr (!WIDE) {
+      reg_fence(st);
+      reg_fence(dpt);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_kk(st, desc_k<D, KB>(res, 64 * wg, kk * 16), desc_k<D, TR>(sa, 0, kk * 16), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_kk(dpt, desc_k<D, KB>(res + KB * D * 2, 64 * wg, kk * 16),
+                 desc_k<D, TR>(sa + TR * D * 2, 0, kk * 16), 1);
+      wg_commit();
+      wg_wait();
+      reg_fence(st);
+      reg_fence(dpt);
+    }
+
+    // p^T and ds^T in place, rounded to bf16 as the A operands of the products
+    const float* aux = reinterpret_cast<const float*>(ring_p + s * L::STAGE + L::AUX);
+    const bool exact = keys_all && (!a.causal || a.q_offset + q0 >= a.k_offset + k_last);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const bool seen = exact || (key_ok[h] && causal_ok(a, q0 + ql, kg[h]));
+        const float2 pd = p_ds2(st[4 * j + e], dpt[4 * j + e], make_float2(aux[ql], aux[TR + ql]),
+                                sl2, a.scale, seen);
+        st[4 * j + e] = pd.x;
+        dpt[4 * j + e] = pd.y;
+      }
+    uint32_t pa[4][4], da[4][4];
+    a_operands(pa, st);
+    a_operands(da, dpt);
+
+    // dv += p^T dout, dk += ds^T q: the stage's q and dout rows as N-major B,
+    // at the block's columns
+    reg_fence(dk);
+    reg_fence(dv);
+    reg_fence(pa);
+    reg_fence(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dv, pa[kk], desc_n<D, TR>(sa + TR * D * 2, kk * 16, pc), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, da[kk], desc_n<D, TR>(sa, kk * 16, pc), 1);
+    wg_commit();
+
+    if constexpr (DQ) {
+      // ds^T [key][query] into 128-byte swizzled rows, read back as the
+      // M-major A of dq_tile = ds k; this warpgroup's NQ columns
+      consumers_sync(1);                       // the last tile's dq products are done
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // key row 64 wg + 16 wq + g + 8 (e & 1), queries 16 kk + 8 (e >> 1) + 2 t, +1
+          st_shared(ds_row + 1024 * (e & 1) + (((2 * kk + (e >> 1)) ^ g) << 4), da[kk][e]);
+        }
+      // dk, dv done: p^T and ds^T leave the registers before dq comes in
+      wg_wait();
+      reg_fence(dk);
+      reg_fence(dv);
+      reg_fence(pa);
+      reg_fence(da);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync(1);
+      float dq[NQ / 2];   // queries 16 wq + g + 8 h, columns wg NQ + 8 j + 2 t + e
+      zero(dq);
+      reg_fence(dq);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk)
+        wgmma_mn(dq, gmma_desc(ds_t + kk * 16 * 128, KB * 128, 1024, 1),
+                 desc_n<D, KB>(res, kk * 16, pc + wg * NQ), 1);
+      wg_commit();
+      wg_wait();
+      reg_fence(dq);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      ++it;
+      // to the writer: queries 16 wq + g + 8 h, columns wg NQ + 8 j + 2 t + e
+      const int b = n & 1;
+      mbar_wait(dq_free + 8 * b, ((n >> 1) & 1) ^ 1);
+      const uint32_t tile = dq_row + b * L::DQT;
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // row 16 wq + g + 8 h, column wg NQ + 8 j + 2 t: its box of 32 columns, and
+          // within it the 16-byte chunk (8 j + 2 t) / 4 % 8, swizzled by the row
+          const int c = wg * NQ + 8 * j + 2 * t;
+          st_shared(tile + (c >> 5) * TR * 128 + 1024 * h + ((((c & 31) >> 2) ^ g) << 4),
+                    dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(dq_full + 8 * b);
+      ++n;
+    } else {
+      wg_wait();
+      reg_fence(dk);
+      reg_fence(dv);
+      reg_fence(pa);
+      reg_fence(da);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      ++it;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kg[h] >= a.tk) continue;
+    const size_t row = ((size_t)bh * a.tk + kg[h]) * ld + col0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < SL / 8; ++j) {
+      *reinterpret_cast<float2*>(a.dk + row + 8 * j) =
+          make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(a.dv + row + 8 * j) =
+          make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- dq kernel
+// Shared memory of the split backward's dq kernel: the resident q and dout
+// rows of the block (not WIDE), the ring, the barriers.  A product stage
+// holds k (and v, not WIDE) of a 64-key tile and its keys' visibility; a
+// WIDE chunk stage holds q, dout, k and v at CH columns.
+template <int D, bool WIDE>
+struct QTileSmem {
+  static constexpr int QB = TR * NWG;                         // query rows of a block
+  static constexpr int PROD = (WIDE ? 1 : 2) * TR * D * 2;
+  static constexpr int CHUNK = WIDE ? (2 * QB + 2 * TR) * CH * 2 : 0;
+  static constexpr int AUX = PROD > CHUNK ? PROD : CHUNK;
+  static constexpr int STAGE = round_kb(AUX + (TR + 1) * 4);
+  static constexpr int RES = WIDE ? 0 : 2 * QB * D * 2;
+  static constexpr int STAGES = stages_for(RES + 2048, STAGE);
+  static constexpr size_t BYTES = 1024 + RES + STAGES * STAGE + 8 * (2 * STAGES + 1);
+};
+
+// One block owns QB = 128 query rows (blockIdx.x) of one (batch, head)
+// (blockIdx.y) and slab blockIdx.z of dq, and walks the 64-key tiles up to
+// the last one its rows see, with dq in the consumers' registers; in bf16
+// ds is rounded before ds k and p is not, as the JAX kernel does.
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
+  using L = QTileSmem<D, WIDE>;
+  constexpr int QB = L::QB;
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  unsigned char* smem = smem_1024(flash_smem);
+  const BwdArgs& a = p.a;
+  const uint32_t res = smem_u32(smem), ring = res + L::RES;
+  const uint32_t full = ring + L::STAGES * L::STAGE;   // barriers, 8 bytes each
+  const uint32_t empty = full + 8 * L::STAGES;
+  const uint32_t res_bar = empty + 8 * L::STAGES;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int bh = blockIdx.y, q0 = blockIdx.x * QB;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + QB, a.tq) - 1);
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, NWG * 4);
+    }
+    mbar_init(res_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == NWG) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (tid >= CONSUMERS + 32) return;
+    const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
+    if (lane == 0) {
+      if constexpr (!WIDE) {
+        mbar_expect_tx(res_bar, L::RES);
+        tma_tile<D, QB>(res, &p.q, res_bar, 0, q0, bh);
+        tma_tile<D, QB>(res + QB * D * 2, &p.dout, res_bar, 0, q0, bh);
+      } else {
+        mbar_arrive(res_bar);
+      }
+    }
+    int it = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * TR;
+      bool vis[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kg = k0 + lane + 32 * h;
+        vis[h] = kg < a.tk && (km == nullptr || km[kg] > 0.f);
+      }
+      if constexpr (WIDE) {
+        for (int c = 0; c < ld; c += CH, ++it) {
+          const int s = it % L::STAGES;
+          const uint32_t st = ring + s * L::STAGE;
+          mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full + 8 * s, L::CHUNK);
+            tma_tile<CH, QB>(st, &p.q, full + 8 * s, c, q0, bh);
+            tma_tile<CH, QB>(st + QB * CH * 2, &p.dout, full + 8 * s, c, q0, bh);
+            tma_tile<CH, TR>(st + 2 * QB * CH * 2, &p.k, full + 8 * s, c, k0, bh);
+            tma_tile<CH, TR>(st + (2 * QB + TR) * CH * 2, &p.v, full + 8 * s, c, k0, bh);
+          } else {
+            mbar_arrive(full + 8 * s);
+          }
+        }
+      }
+      const int s = it % L::STAGES;
+      const uint32_t st = ring + s * L::STAGE;
+      mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect(full + 8 * s, L::PROD);
+        tma_tile<D, TR>(st, &p.k, full + 8 * s, col0, k0, bh);
+        if constexpr (!WIDE) tma_tile<D, TR>(st + TR * D * 2, &p.v, full + 8 * s, 0, k0, bh);
+      }
+      // which of the tile's keys are seen (below Tk, unmasked), and whether all are
+      float* aux = reinterpret_cast<float*>(smem + L::RES + s * L::STAGE + L::AUX);
+      const bool all = __all_sync(0xffffffffu, vis[0] && vis[1]);
+      aux[lane] = vis[0] ? 1.f : 0.f;
+      aux[lane + 32] = vis[1] ? 1.f : 0.f;
+      if (lane == 0) aux[TR] = all ? 1.f : 0.f;
+      mbar_arrive(full + 8 * s);
+      ++it;
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warpgroup(), wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  int qg[2];
+  float2 rows[2];                               // row_terms of rows qg[h]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qg[h] = q0 + 64 * wg + 16 * wq + g + 8 * h;
+    rows[h] = row_terms(a, bh, qg[h]);
+  }
+  const int q_first = q0 + 64 * wg + 16 * wq;   // this warp's first row
+  const float sl2 = a.scale * LOG2E;
+  float dq[D / 2];                              // rows qg[h], columns 8 j + 2 t + e
+  zero(dq);
+  mbar_wait(res_bar, 0);
+  int it = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TR;
+    // s = q k^T and dp = dout v^T: rows qg[h], keys 8 j + 2 t + e
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += CH, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t sa = ring + s * L::STAGE;
+        mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
+        reg_fence(sc);
+        reg_fence(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma_kk(sc, desc_k<CH, QB>(sa, 64 * wg, kk * 16),
+                   desc_k<CH, TR>(sa + 2 * QB * CH * 2, 0, kk * 16), 1);
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma_kk(dp, desc_k<CH, QB>(sa + QB * CH * 2, 64 * wg, kk * 16),
+                   desc_k<CH, TR>(sa + (2 * QB + TR) * CH * 2, 0, kk * 16), 1);
+        wg_commit();
+        wg_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+    }
+    const int s = it % L::STAGES;
+    const uint32_t sa = ring + s * L::STAGE;
+    mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
+    if constexpr (!WIDE) {
+      reg_fence(sc);
+      reg_fence(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_kk(sc, desc_k<D, QB>(res, 64 * wg, kk * 16), desc_k<D, TR>(sa, 0, kk * 16), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_kk(dp, desc_k<D, QB>(res + QB * D * 2, 64 * wg, kk * 16),
+                 desc_k<D, TR>(sa + TR * D * 2, 0, kk * 16), 1);
+      wg_commit();
+      wg_wait();
+      reg_fence(sc);
+      reg_fence(dp);
+    }
+    // ds in place of s, rounded to bf16 as the A operand of dq += ds k
+    const float* aux = reinterpret_cast<const float*>(smem + L::RES + s * L::STAGE + L::AUX);
+    const bool exact =
+        aux[TR] > 0.f && (!a.causal || a.q_offset + q_first >= a.k_offset + k0 + TR - 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const bool seen = exact || (aux[kl] > 0.f && causal_ok(a, qg[h], k0 + kl));
+        sc[4 * j + e] = p_ds2(sc[4 * j + e], dp[4 * j + e], rows[h], sl2, a.scale, seen).y;
+      }
+    uint32_t da[4][4];
+    a_operands(da, sc);
+    reg_fence(dq);
+    reg_fence(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, da[kk], desc_n<D, TR>(sa, kk * 16, 0), 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(dq);
+    reg_fence(da);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    ++it;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qg[h] >= a.tq) continue;
+    const size_t row = ((size_t)bh * a.tq + qg[h]) * ld + col0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(a.dq + row + 8 * j) =
+          make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+  }
+}
+
+// ------------------------------------------------------------------ host
+// A 3-D map over [BH, rows, ld] bf16 (innermost first), boxes of 64 rows x
+// BX columns, swizzled for wgmma; rows past `rows` read as zeros.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int bh, int rows, int ld) {
+  const int bx = ld < 64 ? ld : 64;
+  cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)bh};
+  cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)rows * ld * 2};
+  cuuint32_t box[3] = {(cuuint32_t)bx, (cuuint32_t)TR, 1};
+  cuuint32_t one[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                bx == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of q, k, v and dout (and, for the merged backward, dq) beside the
+// arguments; cudaErrorInvalidValue when the CUDA driver refuses one.
+inline int tma_args(TmaArgs& p, const BwdArgs& a, bool merged) {
+  p.a = a;
+  const bool ok = encode_map(&p.q, a.q, a.bh, a.tq, a.ld) &&
+                  encode_map(&p.k, a.k, a.bh, a.tk, a.ld) &&
+                  encode_map(&p.v, a.v, a.bh, a.tk, a.ld) &&
+                  encode_map(&p.dout, a.dout, a.bh, a.tq, a.ld) &&
+                  (!merged || encode_dq_map(&p.dq, a.dq, a.bh, a.tq, a.ld, 32, true));
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace

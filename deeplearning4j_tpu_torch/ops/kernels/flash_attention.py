@@ -20,12 +20,15 @@ form (``merged=True``, the reference's default) or the two-kernel form.
 On a CUDA tensor in f32 or bf16, at any head dim, they launch the
 hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu`` (merged) and
-``csrc/flash_attention_bwd_split.cu`` (two kernels, no dq partials), whose
-headers say what bounds them and how they are built, or raise.  The
-kernels are templated on head dims 32, 64 and 128, and run a head dim
-past 128 in column slabs of the output (128 columns, 64 in the bf16
-merged backward), one block per slab, each computing the scores over the
-whole head dim (``csrc/flash_attention.cuh``).
+``csrc/flash_attention_bwd_split.cu`` (two kernels), whose headers say
+what bounds them and how they are built, or raise; the bf16 backward
+kernels run on wgmma fed by TMA (``csrc/flash_attention_sm90.cuh``).  The
+merged form adds each key tile's share of dq into dq in key-tile order
+(deterministic), with a few int32 flags as its only scratch
+(:func:`merged_scratch_bytes`).  The kernels are templated on head dims
+32, 64 and 128, and run a head dim past 128 in column slabs of the output
+(128 columns, 64 in the bf16 key-tile kernels), one block per slab, each
+computing the scores over the whole head dim (``csrc/flash_attention.cuh``).
 Any other head dim is zero-padded up to the next template, or past 128 to
 the next multiple of 128 (:func:`kernel_head_dim`, :func:`pad_head_dim`),
 and the outputs sliced back, which is exact: ``scale`` is passed as it
@@ -74,10 +77,10 @@ _SPLIT = {torch.float32: "flash_attention_bwd_split_f32",
 # pointers q, k, v, key_mask, o, m, l, out, lse; ints bh, heads, tq, tk,
 # q_offset, k_offset, causal, normalize, head dim; scale; stream
 _FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-# pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, dq_partial; ints
-# bh, heads, tq, tk, q_offset, k_offset, causal, head dim; scale; stream
+# pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, flags; ints bh,
+# heads, tq, tk, q_offset, k_offset, causal, head dim; scale; stream
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-# the same without dq_partial
+# the same without flags
 _SPLIT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _bound = {}
 
@@ -90,6 +93,15 @@ def kernel_head_dim(d: int) -> int:
         if d <= t:
             return t
     return -(-d // SLAB) * SLAB
+
+
+def merged_scratch_bytes(b: int, h: int, tq: int, d: int) -> int:
+    """Bytes of the merged backward's scratch beside dq at padded head dim
+    ``d``: one int32 ticket and one int32 flag per (batch, head, column
+    slab, 64-row query tile), which order the key tiles' adds into dq;
+    past 64 columns, room for 64-column slabs (the bf16 kernel's)."""
+    slabs = d // TILE if d > TILE else 1
+    return 4 * (1 + b * h * slabs * -(-tq // TILE))
 
 
 def pad_head_dim(tensors, d: int):
@@ -187,10 +199,11 @@ def flash_attention_block_bwd(q, k, v, out, lse, dout, *, scale: float, causal: 
                               block_q: int = 128, block_k: int = 128, merged: bool = True):
     """Backward of the normalized attention ``out`` with cotangent ``dout``
     and log-sum-exp ``lse`` [B,H,Tq]: ``(dq, dk, dv)`` in f32.  For a CUDA
-    tensor the merged kernel (``merged=True``: one pass, f32 dq partials
-    summed after) or the two-kernel form (``merged=False``: a dq kernel
-    over key tiles and a dk/dv kernel over query tiles, no partials); the
-    plain version for a CPU tensor, whatever ``merged`` is."""
+    tensor the merged kernel (``merged=True``: one pass, each key tile
+    adding into dq in key-tile order) or the two-kernel form
+    (``merged=False``: a dq kernel over key tiles and a dk/dv kernel over
+    query tiles); the plain version for a CPU tensor, whatever ``merged``
+    is."""
     if q.device.type == "cpu":
         return flash_attention_block_bwd_plain(q, k, v, out, lse, dout, scale=scale,
                                                causal=causal, key_mask=key_mask,
@@ -349,20 +362,20 @@ def _launch_fwd(lib, q, k, v, key_mask, scale, causal, q_offset, k_offset, norma
 
 def _launch_bwd(lib, q, k, v, key_mask, dout, lse, delta, scale, causal, q_offset, k_offset,
                 stream):
-    """Allocate dq, dk, dv and the per-k-tile dq partials, launch, check
-    the launch; returns ``(dq, dk, dv)`` in f32."""
+    """Allocate dq (zeros: the key tiles add into it), dk, dv and the
+    zeroed flags that order the adds, launch, check the launch; returns
+    ``(dq, dk, dv)`` in f32."""
     global bwd_launches
     b, h, tq, d = q.shape
     tk = k.shape[2]
     dev, f32 = q.device, torch.float32
-    n_kt, tq_pad = -(-tk // TILE), -(-tq // TILE) * TILE
-    dq = torch.empty((b, h, tq, d), dtype=f32, device=dev)
+    dq = torch.zeros((b, h, tq, d), dtype=f32, device=dev)
     dk = torch.empty((b, h, tk, d), dtype=f32, device=dev)
     dv = torch.empty((b, h, tk, d), dtype=f32, device=dev)
-    dq_part = torch.empty((n_kt, b * h, tq_pad, d), dtype=f32, device=dev)
+    flags = torch.zeros(merged_scratch_bytes(b, h, tq, d) // 4, dtype=torch.int32, device=dev)
     rc = getattr(lib, _BWD[q.dtype])(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_mask), _ptr(dout), _ptr(lse), _ptr(delta),
-        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_part), b * h, h, tq, tk, int(q_offset),
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(flags), b * h, h, tq, tk, int(q_offset),
         int(k_offset), int(causal), d, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: kernel launch failed, "

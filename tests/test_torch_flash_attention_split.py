@@ -157,6 +157,29 @@ def test_head_dims_past_the_largest_template_are_refused():
             flash._check(q, q, q, None, "flash_attention")
 
 
+# (B, H, Tq, padded head dim) -> the merged backward's scratch beside dq:
+# one int32 ticket and one int32 flag per (batch, head, column slab, 64-row
+# query tile); slabs of 64 columns past 64 (the bf16 key-tile kernels')
+@pytest.mark.parametrize("b,h,tq,d,flags", [
+    (2, 12, 4096, 64, 2 * 12 * 64), (2, 12, 1000, 64, 2 * 12 * 16),
+    (2, 24, 4096, 32, 2 * 24 * 64), (2, 6, 4096, 128, 2 * 6 * 2 * 64),
+    (2, 3, 4096, 256, 2 * 3 * 4 * 64), (1, 1, 1, 32, 1)])
+def test_merged_scratch_is_the_ordered_sums_flags(b, h, tq, d, flags):
+    assert flash.merged_scratch_bytes(b, h, tq, d) == 4 * (1 + flags)
+
+
+def test_merged_scratch_is_no_quadratic_partials():
+    """At the base case the scratch beside dq is far under an eighth of
+    the per-key-tile f32 partials (4 D BH Tq Tk/64 bytes, 1.61 GB), and at
+    (2, 12, 32768, 64) it stays a few hundred KB: the merged form runs
+    where the partials (103 GB) could not."""
+    partials = 4 * 64 * 2 * 12 * 4096 * (4096 // 64)
+    assert partials == 1_610_612_736
+    assert flash.merged_scratch_bytes(2, 12, 4096, 64) <= partials / 8
+    assert flash.merged_scratch_bytes(2, 12, 4096, 64) <= 0.2e9
+    assert flash.merged_scratch_bytes(2, 12, 32768, 64) < 1e6
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", ["key_mask", "causal_offsets", "ragged", "head_dim_192"])
 def test_head_dim_padding_gives_the_unpadded_result(case, dtype):

@@ -298,7 +298,7 @@ class _StubFlashLib:
     flash_attention_fwd_f32 = flash_attention_bwd_f32 = flash_attention_bwd_split_f32 = _call
 
 
-def test_failed_flash_launches_raise_and_are_not_counted():
+def test_failed_flash_launches_raise_and_are_not_counted(monkeypatch):
     q, k = torch.zeros(2, 3, 70, 64), torch.zeros(2, 3, 130, 64)
     mask = torch.ones(2, 130)
     before = (flash_attention.launches, flash_attention.bwd_launches)
@@ -309,10 +309,24 @@ def test_failed_flash_launches_raise_and_are_not_counted():
     # scale; stream
     assert len(lib.args) == 20 and lib.args[9:18] == (6, 3, 70, 130, 0, 0, 0, 0, 64)
     lse = torch.zeros(2, 3, 70)
-    with pytest.raises(RuntimeError, match="cudaGetLastError"):
-        flash_attention._launch_bwd(lib, q, k, k, None, q, lse, lse, 0.125, True, 5, 0, 0)
+    allocated = []
+    real_zeros = torch.zeros
+    with monkeypatch.context() as m:   # see what the merged form allocates
+        m.setattr(torch, "zeros", lambda *a, **kw: allocated.append(real_zeros(*a, **kw))
+                  or allocated[-1])
+        with pytest.raises(RuntimeError, match="cudaGetLastError"):
+            flash_attention._launch_bwd(lib, q, k, k, None, q, lse, lse, 0.125, True, 5, 0, 0)
+    # pointers q, k, v, key_mask, dout, lse, delta, dq, dk, dv, flags, then bh,
+    # heads, tq, tk, q_offset, k_offset, causal, head dim; scale; stream
     assert len(lib.args) == 21 and lib.args[3] is None
     assert lib.args[11:19] == (6, 3, 70, 130, 5, 0, 1, 64)
+    # dq starts at zero (the key tiles add into it) and the flags that order
+    # the adds are the only scratch: one ticket and one flag per (batch, head,
+    # 64-row query tile), no per-key-tile partials
+    dq, flags = allocated
+    assert dq.shape == q.shape and dq.dtype == torch.float32 and not dq.any()
+    assert flags.dtype == torch.int32 and flags.numel() == 1 + 6 * 2 and not flags.any()
+    assert lib.args[7] == dq.data_ptr() and lib.args[10] == flags.data_ptr()
     assert (flash_attention.launches, flash_attention.bwd_launches) == before
     out, lse = flash_attention._launch_fwd(_StubFlashLib(rc=0), q, k, k, mask, 0.125, False, 0, 0,
                                            True, 0)
@@ -326,7 +340,7 @@ def test_failed_flash_launches_raise_and_are_not_counted():
 
 
 def test_failed_split_backward_launch_raises_and_is_not_counted():
-    """The two-kernel backward: no dq scratch among its pointers, the head
+    """The two-kernel backward: no scratch among its pointers, the head
     dim among its ints, two launches counted per call that succeeds."""
     q, k = torch.zeros(2, 3, 70, 32), torch.zeros(2, 3, 130, 32)
     lse = torch.zeros(2, 3, 70)
