@@ -10,9 +10,9 @@ no result line:
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in this checkout (one
    ``nvcc`` per source, all started together); no flash template may
-   spill (ptxas), and every bf16 kernel of the flash backward must hold
-   wgmma and TMA loads (``HGMMA`` and ``UTMALDG`` in ``cuobjdump -sass``;
-   the counts are printed);
+   spill (ptxas), and every bf16 flash kernel, forward and backward, must
+   hold wgmma and TMA loads (``HGMMA`` and ``UTMALDG`` in
+   ``cuobjdump -sass``; the counts are printed);
 3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
    of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
    kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
@@ -73,7 +73,9 @@ no result line:
 10. flash attention at BERT-base's attention shape (B, H, T, D) = (2, 12,
    4096, 64), in f32 and bf16: no mask; a key mask with valid lengths 4096
    and 2500; causal at offsets (1024, 512); Tq = 1000 against Tk = 4096; a
-   batch row whose mask is all zeros (dead rows).  Both kernels and the
+   batch row whose mask is all zeros (dead rows); tails of both the query
+   and the key tiles (Tq = 1000, Tk = 2999) under causal at offsets (300,
+   0) with a key mask of valid lengths 2999 and 2000.  Both kernels and the
    two-kernel backward (``merged=False``) are held to their plain versions
    (o, m, l; the normalized output and lse; dq, dk, dv with O(1)
    cotangents), the two backward forms to each other, a planted fault (the
@@ -135,8 +137,9 @@ no result line:
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
-phases: it times both flash backward forms at the base case of every
-head dim in ``AB_HEAD_DIMS``, f32 and bf16, the BERT fine-tune step and
+phases: it times the flash forward (normalized) and both backward forms
+at the base case of every head dim in ``AB_HEAD_DIMS``, f32 and bf16, the
+BERT fine-tune step and
 the BERT serving call, in the other tree and in this one, each in its own
 process, in the order parent, change, change, parent, and prints the
 times side by side (``chiprun_out/chip_ab.json``).
@@ -252,9 +255,9 @@ def ptxas_usage(name: str, nvcc_log: str) -> dict:
     return usage
 
 
-# the flash backward libraries, whose bf16 kernels must run on Hopper's
-# tensor-core path: wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG)
-FLASH_BWD_LIBS = ("flash_attention_bwd", "flash_attention_bwd_split")
+# the flash libraries, whose bf16 kernels must run on Hopper's tensor-core
+# path: wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG)
+FLASH_LIBS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split")
 
 
 def sass_counts(name: str) -> dict:
@@ -277,10 +280,10 @@ def sass_counts(name: str) -> dict:
 
 
 def check_hopper_path(built: dict) -> dict:
-    """Every bf16 flash backward kernel holds wgmma and TMA loads in its
-    SASS, and no flash template spills (ptxas's report of this build)."""
+    """Every bf16 flash kernel holds wgmma and TMA loads in its SASS, and
+    no flash template spills (ptxas's report of this build)."""
     result = {}
-    for name in FLASH_BWD_LIBS:
+    for name in FLASH_LIBS:
         counts = sass_counts(name)
         bf16 = {k: c for k, c in counts.items() if "bf16" in k}
         for kernel, (hgmma, utmaldg) in sorted(bf16.items()):
@@ -1249,6 +1252,7 @@ FLASH_CASES = (
     ("causal_offsets", 2, 12, 4096, 4096, True, None, 1024, 512),
     ("cross", 2, 12, 1000, 4096, False, None, 0, 0),
     ("dead_rows", 2, 12, 4096, 4096, False, (4096, 0), 0, 0),
+    ("ragged", 2, 12, 1000, 2999, True, (2999, 2000), 300, 0),
 )
 # flash kernel vs plain on the same inputs, max |diff| over the largest
 # |plain| of each output (m and lse over live rows); dead rows must be
@@ -2197,9 +2201,10 @@ AB_HEAD_DIMS = ((64, 12), (32, 24), (128, 6), (80, 12), (256, 3), (192, 4))
 
 def ab_times() -> dict:
     """Times of whichever ``deeplearning4j_tpu_torch`` is first on the
-    path: both backward forms at the base case of every AB head dim, f32
-    and bf16, and the BERT-base fine-tune step (bf16, 4 layers, 2 x 4096)
-    and serving call (bf16, 12 layers)."""
+    path: the forward (normalized) and both backward forms at the base case
+    of every AB head dim, f32 and bf16, the merged backward at the causal
+    case with offsets as well, and the BERT-base fine-tune step
+    (bf16, 4 layers, 2 x 4096) and serving call (bf16, 12 layers)."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch import config
@@ -2209,7 +2214,7 @@ def ab_times() -> dict:
     from deeplearning4j_tpu_torch.train import Adam
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build(("flash_attention_fwd",) + FLASH_BWD_LIBS)
+    _build.build(FLASH_LIBS)
     gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
     rows = []
     for d, heads in AB_HEAD_DIMS:
@@ -2217,10 +2222,17 @@ def ab_times() -> dict:
             case = ("base", BERT_BATCH, heads, BERT_SEQ, BERT_SEQ, False, None, 0, 0)
             q, k, v, dout, _, kw = flash_inputs(case, getattr(torch, dname), gen, d)
             out, lse = fa._forward(q, k, v, None, kw["scale"], False, 0, 0, normalize=True)
-            row = {"D": d, "H": heads, "dtype": dname}
+            row = {"D": d, "H": heads, "dtype": dname,
+                   "forward_ms": cuda_ms(lambda: fa._forward(q, k, v, None, kw["scale"], False,
+                                                             0, 0, normalize=True), reps=5)}
             for form in ("merged", "split"):
                 row[f"{form}_ms"] = cuda_ms(lambda: fa.flash_attention_block_bwd(
                     q, k, v, out, lse, dout, merged=form == "merged", **kw), reps=5)
+            case = ("causal_offsets", BERT_BATCH, heads, BERT_SEQ, BERT_SEQ, True, None, 1024, 512)
+            q, k, v, dout, _, kw = flash_inputs(case, getattr(torch, dname), gen, d)
+            out, lse = fa._forward(q, k, v, None, kw["scale"], True, 1024, 512, normalize=True)
+            row["merged_causal_ms"] = cuda_ms(lambda: fa.flash_attention_block_bwd(
+                q, k, v, out, lse, dout, merged=True, **kw), reps=5)
             rows.append(row)
             del q, k, v, dout, out, lse
             torch.cuda.empty_cache()
@@ -2265,12 +2277,13 @@ def ab(parent: Path) -> int:
         return ", ".join(f"{pick(r):.3f}" for r in times[label])
 
     for i, row in enumerate(runs[0][1]["flash_bwd"]):
-        for form in ("merged", "split"):
+        for form, what in (("forward", "forward"), ("merged", "merged backward"),
+                           ("split", "split backward"), ("merged_causal", "merged, causal")):
             def pick(r, form=form):
                 return r["flash_bwd"][i][f"{form}_ms"]
             gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
-            log(f"  D={row['D']} H={row['H']} {row['dtype']:8s} {form:6s} backward: parent "
-                f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.2f}x)")
+            log(f"  D={row['D']} H={row['H']} {row['dtype']:8s} {what:15s}: parent "
+                f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.3f}x)")
     for key, what in (("bert_finetune_step_ms", "BERT fine-tune step (bf16, 4 layers)"),
                       ("bert_serve_ms", "BERT serve (bf16, 12 layers)")):
         log(f"  {what}: parent {pair('parent', lambda r: r[key])} ms; change "
@@ -2333,7 +2346,7 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for kernel, usage in ptxas_usage(name, info["log"]).items():
             log(f"    {kernel}: {usage}")
-    log("the flash backward's bf16 kernels in SASS (cuobjdump -sass):")
+    log("the flash kernels' bf16 templates in SASS (cuobjdump -sass):")
     hopper = check_hopper_path(built)
 
     net = build_net()
@@ -2452,7 +2465,8 @@ def main() -> int:
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:33", flash_rows, "",
                     flash_launches[0], flash_work)
-        | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16"))},
+        | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16")),
+           "bf16_sass": hopper["flash_attention_fwd"]},
         flash_entry("flash_attention_bwd",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",

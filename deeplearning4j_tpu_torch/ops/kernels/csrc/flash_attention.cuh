@@ -1,19 +1,19 @@
 // Device code shared by the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, flash_attention_bwd_split.cu): the bf16 tensor-core
-// helpers and tile loaders of the forward, the backward's arguments and
-// visibility rule, its ordered dq sum, and the f32 body of the backward's
-// key-tile kernel, which the merged backward runs with its dq products and
-// the split backward's dk/dv kernel without.  The bf16 backward kernels are
-// built on Hopper's wgmma and TMA (flash_attention_sm90.cuh).
+// flash_attention_bwd.cu, flash_attention_bwd_split.cu): the f32 tile
+// loader, mbarriers, the backward's arguments and visibility rule, its
+// ordered dq sum, and the f32 body of the backward's key-tile kernel, which
+// the merged backward runs with its dq products and the split backward's
+// dk/dv kernel without.  Every bf16 kernel, forward and backward, is built
+// on Hopper's wgmma and TMA (flash_attention_sm90.cuh).
 //
 // Every kernel is templated on the head dim D in {32, 64, 128}; the wrapper
 // zero-pads any other head dim up to 128 to the next of these.  A head dim
 // past 128 is zero-padded to a multiple of 128 (the row length ld in device
 // memory) and runs in the WIDE form of a template (of D = 128, or 64 in the
-// bf16 key-tile kernels): the output
-// columns are split into slabs of D, one slab per block. Each block computes
-// the scores s = q.k (and dp = dout.v in the backward) over the whole head
-// dim, always in the same order, and accumulates only its own D columns of o
+// bf16 key-tile kernels): the output columns are split into slabs of D, one
+// slab per block. Each block computes the scores s = q.k (and dp = dout.v in
+// the backward) over the whole head dim, always in the same order, and
+// accumulates only its own D columns of o
 // (forward), or of dk, dv and dq (backward). So the accumulators and tiles
 // stay those of the template, s and dp are recomputed once per slab, and m,
 // l and lse come out the same in every slab (slab 0 writes them). All tiles
@@ -31,7 +31,9 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64;           // keys per tile
 constexpr int F_THREADS = 256;   // f32 kernels: 16 x 16 threads over a 64 x 64 tile
-constexpr int H_THREADS = 128;   // bf16 forward: 4 warps of mma.sync
+constexpr int WG_THREADS = 128;  // a warpgroup
+// setmaxnreg: a warpgroup that only moves data gives registers to those that compute
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 using bf16 = __nv_bfloat16;
 
@@ -54,74 +56,21 @@ __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const float* 
   }
 }
 
-// the same for bf16 into dst[n][D + 8]: rows of 80, 144 or 272 bytes, so the
-// 8 rows of an ldmatrix hit distinct banks
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(bf16 (*dst)[D + 8], const bf16* src, int row0,
-                                               int n, int n_rows, int tid, int threads,
-                                               int ld = D) {
-  for (int idx = tid; idx < n * (D / 8); idx += threads) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-  }
-}
-
-// ------------------------------------------- bf16 tensor-core helpers
+// ------------------------------------------------------------- helpers
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d (16x8, f32) += a (16x16, bf16, row-major) * b (16x8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The thread's warpgroup, as a value the compiler knows is the same across
+// the warp (setmaxnreg needs each branch warpgroup-uniform).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / WG_THREADS, 0);
 }
 
 // two floats rounded to bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragment of rows [row0, row0 + 16) x columns [c0, c0 + 16) of a
-// bf16 tile, as mma.m16n8k16 takes it.
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t (&r)[4], bf16 (*tile)[LD], int row0, int c0,
-                                       int lane) {
-  ldsm_x4(r, &tile[row0 + (lane & 15)][c0 + (lane >> 4) * 8]);
-}
-
-// The B fragments of two 8-column tiles of the column-major product
-// tile^T: rows [row0, row0 + 16) of the tile are the columns, columns
-// [c0, c0 + 16) the contraction.  r[0..1] feed the first 8, r[2..3] the next.
-template <int LD>
-__device__ __forceinline__ void bt_frag(uint32_t (&r)[4], bf16 (*tile)[LD], int row0, int c0,
-                                        int lane) {
-  ldsm_x4(r, &tile[row0 + (lane & 7) + ((lane >> 4) << 3)][c0 + ((lane >> 3) & 1) * 8]);
-}
-
-// The B fragments of two 8-column tiles of the row-major tile itself:
-// rows [k0, k0 + 16) are the contraction, columns [c0, c0 + 16) the output.
-template <int LD>
-__device__ __forceinline__ void b_frag(uint32_t (&r)[4], bf16 (*tile)[LD], int k0, int c0,
-                                       int lane) {
-  ldsm_x4_t(r, &tile[k0 + (lane & 7) + ((lane >> 3) & 1) * 8][c0 + (lane >> 4) * 8]);
 }
 
 // ------------------------------------------------------------ backward
@@ -280,6 +229,43 @@ __device__ __forceinline__ void wait_guard(unsigned long long& t0) {
   }
 }
 
+// ------------------------------------------------------------ mbarriers
+// mbarriers (and the tiles of flash_attention_sm90.cuh) are named by 32-bit
+// shared-memory addresses: half the registers of generic pointers.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Expect `bytes` more of TMA traffic in the barrier's phase, without arriving.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    wait_guard(t0);
+  }
+}
+
 // The ordered sum's wait for flag == value.
 __device__ __forceinline__ void flag_wait(const int* flag, int value) {
   unsigned long long t0 = 0;
@@ -312,6 +298,18 @@ __device__ __forceinline__ void tma_adds_done() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");   // before the flag's release
 }
 
+// One step of the ordered sum for a dq tile in one box at src: wait until
+// its flag reads kt, add it, wait for the add, move the flag on.
+__device__ __forceinline__ void ordered_add(const CUtensorMap* map, uint32_t src, int* flag,
+                                            int kt, int col, int row, int bh) {
+  flag_wait(flag, kt);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  tma_add_box(map, src, col, row, bh);
+  tma_adds_commit();
+  tma_adds_done();
+  st_release(flag, kt + 1);
+}
+
 // The merged backward's map of dq: f32 [BH, Tq, ld] in boxes of 64 rows x
 // `box` columns, 128-byte swizzled (box = 32) or in plain rows.
 inline bool encode_dq_map(CUtensorMap* map, float* dq, int bh, int rows, int ld, int box,
@@ -342,22 +340,51 @@ __device__ __forceinline__ bool skipped(const BwdArgs& a, int q0, int bq, int k0
   return a.causal && a.q_offset + min(q0 + bq, a.tq) - 1 < a.k_offset + k0;
 }
 
-// Key tiles a query tile ending at row q_last visits: all of them, or under
-// causal those up to the last key position q_last sees.
+// Key tiles of bk keys a query tile ending at row q_last visits: all of
+// them, or under causal those up to the last key position q_last sees.
 __device__ __forceinline__ int key_tiles(int tk, int causal, int q_offset, int k_offset,
-                                         int q_last) {
-  int n = (tk + BK - 1) / BK;
+                                         int q_last, int bk = BK) {
+  int n = (tk + bk - 1) / bk;
   if (causal) {
     const long long last = (long long)q_offset + q_last - k_offset;
     if (last < 0) return 0;
-    n = min(n, (int)(last / BK) + 1);
+    n = min(n, (int)(last / bk) + 1);
   }
   return n;
 }
 
-template <int D>
-constexpr size_t bwd_f32_smem() {
-  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float);
+// The f32 key-tile kernels' tiles, and with a writer the two mbarriers of
+// the dq hand-off.
+template <int D, bool WRITER>
+__host__ __device__ constexpr size_t bwd_f32_smem() {
+  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float) +
+         (WRITER ? 16 : 0);
+}
+
+// How the merged f32 kernel hands its dq tiles to the TMA.  At D = 128
+// (one block per SM) a writer warpgroup beside the compute threads waits
+// and adds, and gives them its registers (setmaxnreg).  Below that, where
+// two or three blocks share an SM and hide each other's waits, thread 0 of
+// the compute threads does it, because one more warp would cost a block
+// per SM (the registers of 256 threads fill the SM exactly at D = 64); and
+// so it does in the WIDE form, which ran slower with a writer.
+template <int D, bool WIDE>
+__host__ __device__ constexpr bool f32_writer() { return D == 128 && !WIDE; }
+
+template <int D, bool WIDE>
+__host__ __device__ constexpr int f32_merged_threads() {
+  return F_THREADS + (f32_writer<D, WIDE>() ? WG_THREADS : 0);
+}
+
+// A barrier of the f32 compute threads: a named one that the writer
+// warpgroup never joins (NAMED), else __syncthreads, which the compiler
+// knows well enough to move global accesses across it.
+template <bool NAMED>
+__device__ __forceinline__ void compute_sync() {
+  if constexpr (NAMED)
+    asm volatile("bar.sync 1, %0;\n" :: "n"(F_THREADS) : "memory");
+  else
+    __syncthreads();
 }
 
 // One block owns a 64-key tile kt of one (batch, head) bh (and slab z) and
@@ -369,8 +396,13 @@ constexpr size_t bwd_f32_smem() {
 //     dv += p^T dout,  dk += ds^T q              (f32)
 //
 // With DQ (the merged backward) it also adds ds k of each query tile into dq
-// in key-tile order (the ordered sum), by the TMA while it computes the
-// next query tile.  f32: each of
+// in key-tile order (the ordered sum): the compute threads leave the tile in
+// shared memory, where the TMA adds it into dq after the tile's flag reads
+// kt.  With a writer (f32_writer) the compute threads hand it over and go
+// on with the next query tile, and wait for the writer only before they
+// overwrite its tile; the writer waits for the flag, adds, waits for the
+// add and moves the flag on.  Without, thread 0 does the same while the
+// others go on to load the next tile's rows.  f32: each of
 // 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i, keys
 // tx + 16 j) and 4 x D/16 of dk, dv and the dq partial, FMA on the CUDA
 // cores from padded rows.  WIDE: the block's slab z of D columns of rows
@@ -390,24 +422,39 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
   float (*dSs)[BK + 1] = Ps + BQ;
   float* lse_s = &dSs[BQ][0];
   float* delta_s = lse_s + BQ;
-  // DQ: the dq of the last query tile, [64][D] rows over Ps and dSs, whose
-  // add into dq (by the TMA, in key-tile order: the ordered sum) runs while
-  // the next tile's rows load; `pending` is its query tile until the add is
-  // done and its flag moves on
+  constexpr bool WRITER = DQ && f32_writer<D, WIDE>();
+  // DQ: the dq tile of a query tile, [64][D] rows over Ps and dSs; with a
+  // writer it is handed over (dq_full) and handed back once its add is done
+  // (dq_free)
   float* dq_s = &Ps[0][0];
-  int pending = -1;
-  auto release = [&]() {
-    if constexpr (DQ) {
-      if (threadIdx.x == 0 && pending >= 0) {
-        tma_adds_done();
-        st_release(dq_flag(a, bh, z, pending), kt + 1);
-      }
-      pending = -1;
-    }
-  };
-
+  const uint32_t dq_full = smem_u32(flash_smem) + bwd_f32_smem<D, false>(), dq_free = dq_full + 8;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, k0 = kt * BK;
   const int ld = WIDE ? a.ld : D, col0 = WIDE ? z * D : 0;
+  const int n_qt = (a.tq + BQ - 1) / BQ;
+  if constexpr (WRITER) {
+    if (tid == 0) {
+      mbar_init(dq_full, F_THREADS);
+      mbar_init(dq_free, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (warpgroup() == F_THREADS / WG_THREADS) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+      if (tid == F_THREADS) {
+        // the writer: each query tile's dq tile added into dq in key-tile order
+        int n = 0;
+        for (int qt = 0; qt < n_qt; ++qt) {
+          if (skipped(a, qt * BQ, BQ, k0)) continue;
+          mbar_wait(dq_full, n & 1);
+          ordered_add(dq_map, smem_u32(dq_s), dq_flag(a, bh, z, qt), kt, col0, qt * BQ, bh);
+          mbar_arrive(dq_free);
+          ++n;
+        }
+      }
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  }
   const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
   const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
   const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
@@ -425,11 +472,13 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int n_qt = (a.tq + BQ - 1) / BQ;
+  int n = 0;                         // dq tiles handed to the writer
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     if (skipped(a, q0, BQ, k0)) continue;
-    __syncthreads();                 // the last tile's readers are done
+    // the last tile's readers are done (with DQ, the barrier before its dq
+    // tile was written saw to that)
+    if constexpr (!DQ) compute_sync<WRITER>();
     float p[4][4], ds[4][4];         // query rows ty + 16 i, key columns tx + 16 j
     if constexpr (WIDE) {
       if (tid < BQ) {
@@ -442,18 +491,17 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
 #pragma unroll
         for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
       for (int c = 0; c < ld; c += D) {
-        if (c) __syncthreads();      // the last slab's readers are done
+        if (c) compute_sync<WRITER>();   // the last slab's readers are done
         load_rows_f32<D>(Ks, k + c, k0, BK, a.tk, tid, F_THREADS, ld);
         load_rows_f32<D>(Vs, v + c, k0, BK, a.tk, tid, F_THREADS, ld);
         load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
         load_rows_f32<D>(dOs, dout + c, q0, BQ, a.tq, tid, F_THREADS, ld);
-        if (c == 0) release();
-        __syncthreads();
+        compute_sync<WRITER>();
         score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
       }
       score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
       if (col0 + D != ld) {          // the products take the block's own slab
-        __syncthreads();
+        compute_sync<WRITER>();
         load_rows_f32<D>(Qs, q + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
         load_rows_f32<D>(dOs, dout + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
         if constexpr (DQ) load_rows_f32<D>(Ks, k + col0, k0, BK, a.tk, tid, F_THREADS, ld);
@@ -466,10 +514,10 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
         lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
         delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
       }
-      release();
-      __syncthreads();
+      compute_sync<WRITER>();
       score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
     }
+    if constexpr (WRITER) mbar_wait(dq_free, (n & 1) ^ 1);   // the last dq tile is added
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -477,7 +525,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
         Ps[ty + 16 * i][tx + 16 * j] = p[i][j];
         dSs[ty + 16 * i][tx + 16 * j] = ds[i][j];
       }
-    __syncthreads();                 // p and ds complete
+    compute_sync<WRITER>();          // p and ds complete
 
     // dv += p^T dout, dk += ds^T q: key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 4
@@ -520,23 +568,25 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
 #pragma unroll
           for (int j = 0; j < NJ; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
       }
-      __syncthreads();                 // every reader of Ps and dSs is done
+      compute_sync<WRITER>();          // every reader of Ps and dSs is done
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) dq_s[(ty + 16 * i) * D + tx + 16 * j] = dq[i][j];
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-      if (tid == 0) {
-        flag_wait(dq_flag(a, bh, z, qt), kt);
-        asm volatile("fence.proxy.async.global;\n" ::: "memory");
-        tma_add_box(dq_map, smem_u32(dq_s), col0, q0, bh);
-        tma_adds_commit();
+      if constexpr (WRITER) {
+        mbar_arrive(dq_full);          // to the writer
+        ++n;
+      } else {
+        compute_sync<WRITER>();
+        // the flag moves on as soon as the add is done: a later release
+        // delays the next key tile's add of this tile, and ptxas then gives
+        // the WIDE form fewer registers
+        if (tid == 0)
+          ordered_add(dq_map, smem_u32(dq_s), dq_flag(a, bh, z, qt), kt, col0, q0, bh);
       }
-      pending = qt;
     }
   }
-  release();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

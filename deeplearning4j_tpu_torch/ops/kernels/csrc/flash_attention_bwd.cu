@@ -41,7 +41,8 @@
 //     from registers; ds^T goes to shared memory once for dq = ds k,
 //     whose tile a writer warp adds into dq while the consumers go on.
 //   * f32: 256 threads over a 64-key tile, FMA on the CUDA cores from
-//     padded rows (bwd_f32_body), no TF32; its adds into dq go by TMA too.
+//     padded rows (bwd_f32_body), no TF32; its adds into dq go by TMA too,
+//     at D = 128 through a writer warpgroup while the 256 go on.
 //
 // Head dims past 128 run in column slabs (flash_attention.cuh): of 128
 // columns in f32, of 64 in bf16, where D = 128 also takes two 64-column
@@ -61,11 +62,11 @@ namespace {
 
 // The block's tile comes from the ticket flags[0] (the ordered sum).  The
 // least number of blocks per SM holds ptxas to registers that fit as many
-// blocks as shared memory allows: three at D = 32 (80 registers; left to
-// itself it takes more and loses the third block), one at D = 128 (where
-// left to itself it picks 128 registers, and runs slower); 0 sets none.
+// blocks as shared memory allows: three at D = 32 (left to itself it takes
+// more and loses the third block), one elsewhere (at D = 128, left to
+// itself it picks 128 registers, and runs slower).
 template <int D, bool WIDE>
-__global__ void __launch_bounds__(F_THREADS, WIDE ? 0 : D == 32 ? 3 : 1)
+__global__ void __launch_bounds__(f32_merged_threads<D, WIDE>(), !WIDE && D == 32 ? 3 : 1)
 fa_bwd_f32_kernel(const __grid_constant__ TmaArgs p) {
   __shared__ int ticket;
   if (threadIdx.x == 0) ticket = atomicAdd(p.a.flags, 1);
@@ -102,7 +103,8 @@ int launch(const BwdArgs& args, cudaStream_t s) {
     p.a = a;
     if (!encode_dq_map(&p.dq, a.dq, a.bh, a.tq, a.ld, D, false))
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_kernel(fa_bwd_f32_kernel<D, WIDE>, grid, F_THREADS, bwd_f32_smem<D>(), s, p);
+    return launch_kernel(fa_bwd_f32_kernel<D, WIDE>, grid, f32_merged_threads<D, WIDE>(),
+                         bwd_f32_smem<D, f32_writer<D, WIDE>()>(), s, p);
   }
 }
 

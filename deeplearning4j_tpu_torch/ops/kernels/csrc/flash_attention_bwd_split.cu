@@ -186,7 +186,7 @@ int launch(const BwdArgs& a, cudaStream_t s) {
   if constexpr (BF16) {
     // past 128 the dk/dv kernel runs the merged body's 64-column slabs
     constexpr int DKV = WIDE ? 64 : D;
-    using QL = QTileSmem<D, WIDE>;
+    using QL = QTileSmem<D, WIDE, 2>;
     using KL = KeyTileSmem<DKV, false, WIDE>;
     TmaArgs p;
     rc = tma_args(p, a, false);
@@ -200,8 +200,8 @@ int launch(const BwdArgs& a, cudaStream_t s) {
     const dim3 q_grid((a.tq + BQ - 1) / BQ, a.bh, slabs), k_grid((a.tk + BK - 1) / BK, a.bh, slabs);
     rc = launch_kernel(fa_dq_f32_kernel<D, WIDE>, q_grid, F_THREADS, dq_f32_smem<D>(), s, a);
     if (rc == 0)
-      rc = launch_kernel(fa_dkv_f32_kernel<D, WIDE>, k_grid, F_THREADS, bwd_f32_smem<D>(), s,
-                         a);
+      rc = launch_kernel(fa_dkv_f32_kernel<D, WIDE>, k_grid, F_THREADS, bwd_f32_smem<D, false>(),
+                         s, a);
   }
   return rc;
 }

@@ -22,34 +22,44 @@
 //
 // What the design does about it: the [Tq, Tk] scores never leave the SM.
 // The TPU kernel walks the K blocks as a sequential grid axis and carries
-// (acc, m, l) in VMEM scratch; here one thread block owns a 64-row tile of
-// queries of one (batch, head) and loops over 64-key tiles itself, with the
-// running (m, l) and the accumulator in registers.  K tiles wholly in a
-// causal row tile's future are never loaded (the loop ends before them).
-//   * f32: 256 threads, each owning 4 rows x 4 columns (rows ty + 16 i,
-//     columns tx + 16 j, conflict-free on the odd-length padded rows) of
-//     the score tile and 4 x D/16 of the output, FMA in f32 on the CUDA
-//     cores.  The row max and sum are reduced over the 16 lanes that share
-//     a row; p goes through shared memory to the p.v product.
-//   * bf16: 4 warps of mma.sync m16n8k16 (bf16 in, f32 accumulate), each
-//     owning 16 query rows.  Scores, p and the output stay in registers:
-//     the accumulator layout of q.k^T is the operand layout of p.v, so p
-//     is rounded to bf16 (as the JAX kernel does) and fed back directly.
+// (acc, m, l) in VMEM scratch; here one thread block owns a tile of queries
+// of one (batch, head) and loops over the key tiles itself (of 64 keys; of
+// 128 in bf16 below D = 128), with the running (m, l) and the accumulator in
+// registers.  K tiles wholly in a causal row tile's future are never loaded
+// (the loop ends before them).
+//   * f32: 64 query rows a block, 256 threads, each owning 4 rows x 4
+//     columns (rows ty + 16 i, columns tx + 16 j, conflict-free on the
+//     odd-length padded rows) of the score tile and 4 x D/16 of the output,
+//     FMA in f32 on the CUDA cores.  The row max and sum are reduced over
+//     the 16 lanes that share a row; p goes through shared memory to the
+//     p.v product.
+//   * bf16: Hopper's tensor-core path, on flash_attention_sm90.cuh's query-
+//     tile blocks: 128 query rows a block, one producer warpgroup and two
+//     consumer warpgroups of 64 rows each.  The producer brings q in once by
+//     TMA and streams k and v of every key tile through a ring of stages
+//     behind mbarriers, with the tile's key visibility; the consumers run
+//     s = q k^T as wgmma from swizzled shared memory, the online softmax in
+//     the accumulator registers (exp2 with scale log2(e) folded in, the
+//     per-entry visibility rule only on tiles the Tk tail, the key mask or
+//     the causal rule cut), and o += p v as wgmma with p, rounded to bf16
+//     (as the JAX kernel does), as the register A operand.  The two
+//     warpgroups run apart, so one's softmax overlaps the other's products.
 // Templated on the head dim D in {32, 64, 128}; head dims past 128 run in
-// 128-column slabs (flash_attention.cuh).  A simple kernel: no
-// cp.async/TMA pipelining and no wgmma yet.
+// 128-column slabs (flash_attention.cuh; in bf16 the scores then sum over
+// 64-column chunks of q and k streamed through the ring).
 //
 // Requirements checked by the Python wrapper: f32 or bf16, head dim 32, 64,
 // 128 or a larger multiple of 128 (it zero-pads others up to the next),
 // contiguous 16-byte aligned tensors, an f32 [B, Tk] key mask.  Every entry
 // point returns cudaGetLastError() after its launch (cudaErrorInvalidValue
-// for another D).
+// for another D, or for tensor maps cuTensorMapEncodeTiled refuses).
 
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
+constexpr int BQ = 64;       // query rows per f32 block
 
 struct FwdArgs {
   const void* q;
@@ -66,11 +76,14 @@ struct FwdArgs {
   float scale;
 };
 
+__device__ __forceinline__ bool causal_ok(const FwdArgs& a, int qg, int kg) {
+  return !a.causal || a.q_offset + qg >= a.k_offset + kg;
+}
+
 __device__ __forceinline__ bool visible(const FwdArgs& a, const float* km, int qg, int kg) {
   if (kg >= a.tk) return false;
   if (km != nullptr && !(km[kg] > 0.f)) return false;
-  if (a.causal && a.q_offset + qg < a.k_offset + kg) return false;
-  return true;
+  return causal_ok(a, qg, kg);
 }
 
 __device__ __forceinline__ float lse_of(float m, float l) {
@@ -237,184 +250,232 @@ fa_fwd_f32_kernel(FwdArgs a) {
 }
 
 // ----------------------------------------------------------------- bf16
-// s += q k^T over columns [16 kk, 16 kk + 16) of the tiles, for this warp's
-// 16 query rows (their A fragment qf): the key rows read as column-major k^T.
-template <int D>
-__device__ __forceinline__ void qk_dots_bf16(float (&s)[BK / 8][4], const uint32_t (&qf)[4],
-                                             bf16 (*Ks)[D + 8], int kk, int lane) {
+// The forward's tensor maps (q, k, v: bf16 [BH, T, ld]) and arguments.
+struct alignas(64) FwdTmaArgs {
+  CUtensorMap q, k, v;
+  FwdArgs a;
+};
+
+// The max (or min) of s over each of the thread's two rows (entries 4 j +
+// 2 h + e), across the four lanes that share the rows; in four partials a
+// row, for shorter chains.
+template <bool MAX>
+__device__ __forceinline__ float pick(float x, float y) { return MAX ? fmaxf(x, y) : fminf(x, y); }
+
+template <bool MAX, int N>
+__device__ __forceinline__ float2 row_extremes(const float (&sc)[N]) {
+  float m[2][4];
 #pragma unroll
-  for (int np = 0; np < BK / 16; ++np) {
-    uint32_t b[4];
-    bt_frag<D + 8>(b, Ks, np * 16, kk * 16, lane);
-    mma_bf16(s[2 * np], qf, b[0], b[1]);
-    mma_bf16(s[2 * np + 1], qf, b[2], b[3]);
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, u = 2 * (j & 1) + (e & 1);
+      m[h][u] = j < 2 ? sc[4 * j + e] : pick<MAX>(m[h][u], sc[4 * j + e]);
+    }
+  float r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    r[h] = pick<MAX>(pick<MAX>(m[h][0], m[h][1]), pick<MAX>(m[h][2], m[h][3]));
+    r[h] = pick<MAX>(r[h], __shfl_xor_sync(0xffffffffu, r[h], 1));
+    r[h] = pick<MAX>(r[h], __shfl_xor_sync(0xffffffffu, r[h], 2));
   }
+  return make_float2(r[0], r[1]);
 }
 
-template <int D>
-constexpr size_t fwd_bf16_smem() {
-  return (size_t)3 * 64 * (D + 8) * sizeof(bf16) + BK;
-}
-
-// Fragment layout of mma.m16n8k16 (lane = 4 * g + t): an accumulator holds
-// rows g and g + 8, columns 2t and 2t + 1 of its 16x8 tile; so a thread owns
-// two query rows, and p's accumulators become the A operand of p.v in
-// registers.  K rows are loaded as the column-major k^T (ldmatrix), V rows
-// transposed (ldmatrix.trans).  WIDE: the block's slab of D columns
-// (blockIdx.z), as in the f32 kernel; q rows are then read from shared
-// memory at each use, one slab at a time.
+// Keys of a tile in the bf16 kernel: 128, which halves the tiles (and their
+// waits) of 64; 64 at D = 128, where a stage of 128 keys would leave room
+// for two stages only, and where (WIDE) o of 128 columns beside s of 128
+// keys spills and ptxas serializes the wgmma.
 template <int D, bool WIDE>
-__global__ void __launch_bounds__(H_THREADS)
-fa_fwd_bf16_kernel(FwdArgs a) {
-  constexpr int LD = D + 8;
+__host__ __device__ constexpr int fwd_keys() { return D == 128 ? 64 : 128; }
+
+// One block owns QB = 128 query rows (blockIdx.x) of one (batch, head)
+// (blockIdx.y) and slab blockIdx.z of the output columns, and walks the
+// tiles of KN keys up to the last one its rows see; each consumer warpgroup
+// owns 64 of the rows, with o, the running max m (of the scaled scores, in
+// natural units) and its share of l in registers.  Per key tile:
+//   s = q k^T                 wgmma, both operands from shared memory
+//                             (WIDE: summed over the CH-column chunks)
+//   m_new = max(m, max_k s scale), p = 2^(s scale log2(e) - m_new log2(e))
+//   o = o 2^((m - m_new) log2(e)) + p v    (p rounded to bf16 in the
+//                             registers: the A operand of wgmma; v the
+//                             N-major B from shared memory)
+// A warpgroup whose rows all lie past Tq, or before the tile's first key
+// under causal, only passes the tile on: it would add nothing.
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+fa_fwd_bf16_kernel(const __grid_constant__ FwdTmaArgs p) {
+  constexpr int KN = fwd_keys<D, WIDE>(), NS = KN / 2;   // NS: a thread's entries of s
+  using L = QTileSmem<D, WIDE, 1, KN>;
+  constexpr int QB = L::QB;
   extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16 (*Qs)[LD] = reinterpret_cast<bf16 (*)[LD]>(flash_smem);
-  bf16 (*Ks)[LD] = Qs + BQ;
-  bf16 (*Vs)[LD] = Ks + BK;
-  bool* key_ok = reinterpret_cast<bool*>(Vs + BK);   // the tile's keys: below Tk and unmasked
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int m0 = warp * 16;                       // this warp's 16 query rows
-  const int qg[2] = {q0 + m0 + g, q0 + m0 + g + 8};
+  const QTileRing<L> r(smem_1024(flash_smem));
+  const FwdArgs& a = p.a;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int bh = blockIdx.y, q0 = blockIdx.x * QB;
   const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.tq * ld;
-  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bh * a.tk * ld;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bh * a.tk * ld;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
+  const int n_kt =
+      key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + QB, a.tq) - 1, KN);
+  if (tid == 0) r.init();
+  __syncthreads();
 
-  uint32_t qa[WIDE ? 1 : D / 16][4];              // q rows as A fragments, per 16 of D
-  if constexpr (!WIDE) {
-    load_rows_bf16<D>(Qs, q, q0, BQ, a.tq, tid, H_THREADS);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) a_frag<LD>(qa[kk], Qs, m0, kk * 16, lane);
+  if (warpgroup() == NWG) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (tid >= CONSUMERS + 32) return;
+    const CUtensorMap* const qm[1] = {&p.q};
+    const CUtensorMap* const km[1] = {&p.k};
+    q_tile_producer<D, WIDE, 1, KN>(r, qm, km, &p.k, &p.v, &p.v,
+                                    a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr,
+                                    a.tk, n_kt, q0, bh, col0, ld);
+    return;
   }
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-
-  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + BQ, a.tq) - 1);
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warpgroup(), wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  const int qg[2] = {q0 + 64 * wg + 16 * wq + g, q0 + 64 * wg + 16 * wq + g + 8};
+  const int q_first = q0 + 64 * wg + 16 * wq;   // this warp's first row
+  // this warpgroup's rows: none below Tq, or the last of them
+  const bool no_rows = q0 + 64 * wg >= a.tq;
+  const int wg_last = min(q0 + 64 * wg + 63, a.tq - 1);
+  float o[D / 2];                               // rows qg[h], columns 8 j + 2 t + e
+  zero(o);
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};   // l: this thread's keys
+  const bool pos = a.scale > 0.f;
+  const float sl2 = a.scale * LOG2E, unseen = pos ? -INFINITY : INFINITY;
+  mbar_wait(r.res_bar, 0);
+  int it = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                 // the last tile's readers are done
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const int k0 = kt * KN;
+    const bool idle = no_rows || (a.causal && a.q_offset + wg_last < a.k_offset + k0);
+    // s = q k^T: rows qg[h], keys 8 j + 2 t + e (the first product of a
+    // tile overwrites sc)
+    float sc[NS];
     if constexpr (WIDE) {
-      for (int c = 0; c < ld; c += D) {
-        if (c) __syncthreads();      // the last slab's readers are done
-        load_rows_bf16<D>(Qs, q + c, q0, BQ, a.tq, tid, H_THREADS, ld);
-        load_rows_bf16<D>(Ks, k + c, k0, BK, a.tk, tid, H_THREADS, ld);
-        if (c == 0 && tid < BK)
-          key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
-        if (c + D == ld) load_rows_bf16<D>(Vs, v + col0, k0, BK, a.tk, tid, H_THREADS, ld);
-        __syncthreads();
+      for (int c = 0; c < ld; c += CH, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t sa = r.stage(s);
+        mbar_wait(r.full + 8 * s, (it / L::STAGES) & 1);
+        if (!idle) {
+          reg_fence(sc);
+          wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t qf[4];
-          a_frag<LD>(qf, Qs, m0, kk * 16, lane);
-          qk_dots_bf16<D>(s, qf, Ks, kk, lane);
+          for (int kk = 0; kk < CH / 16; ++kk)
+            wgmma_kk(sc, desc_k<CH, QB>(sa, 64 * wg, kk * 16),
+                     desc_k<CH, KN>(sa + QB * CH * 2, 0, kk * 16), c > 0 || kk > 0);
+          wg_commit();
+          wg_wait();
+          reg_fence(sc);
         }
-      }
-    } else {
-      load_rows_bf16<D>(Ks, k, k0, BK, a.tk, tid, H_THREADS);
-      load_rows_bf16<D>(Vs, v, k0, BK, a.tk, tid, H_THREADS);
-      if (tid < BK) key_ok[tid] = k0 + tid < a.tk && (km == nullptr || km[k0 + tid] > 0.f);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) qk_dots_bf16<D>(s, qa[kk], Ks, kk, lane);
-    }
-
-    // mask, scale and the online softmax on rows qg[0], qg[1]
-    float mx[2] = {NEG_INF, NEG_INF};
-    unsigned vis[2] = {0u, 0u};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, kl = n * 8 + 2 * t + (e & 1);
-        const bool seen = key_ok[kl] && !(a.causal && a.q_offset + qg[h] < a.k_offset + k0 + kl);
-        vis[h] |= (seen ? 1u : 0u) << (2 * n + (e & 1));
-        s[n][e] = seen ? s[n][e] * a.scale : NEG_INF;
-        mx[h] = fmaxf(mx[h], s[n][e]);
-      }
-    float m_new[2], corr[2], rs[2] = {0.f, 0.f};
-    bool alive[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      m_new[h] = fmaxf(m_run[h], mx[h]);
-      alive[h] = m_new[h] > NEG_INF * 0.5f;
-      corr[h] = alive[h] ? expf(m_run[h] - m_new[h]) : 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float p = (((vis[h] >> (2 * n + (e & 1))) & 1u) && alive[h])
-                            ? expf(s[n][e] - m_new[h]) : 0.f;
-        s[n][e] = p;
-        rs[h] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-      l_run[h] = l_run[h] * corr[h] + rs[h];
-      m_run[h] = m_new[h];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // o += p v, p rounded to bf16: two 8-key accumulator tiles make one
-    // 16-key A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        b_frag<LD>(b, Vs, kk * 16, dp * 16, lane);
-        mma_bf16(o[2 * dp], pa, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+        if (lane == 0) mbar_arrive(r.empty + 8 * s);
       }
     }
+    const int s = it % L::STAGES;
+    const uint32_t sa = r.stage(s);
+    const uint32_t vt = WIDE ? sa : sa + KN * D * 2;   // v's rows at the block's columns
+    mbar_wait(r.full + 8 * s, (it / L::STAGES) & 1);
+    if (!idle) {
+      if constexpr (!WIDE) {
+        reg_fence(sc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_kk(sc, desc_k<D, QB>(r.res, 64 * wg, kk * 16), desc_k<D, KN>(sa, 0, kk * 16),
+                   kk > 0);
+        wg_commit();
+        wg_wait();
+        reg_fence(sc);
+      }
+      // the raw scores s, -inf where a key is not seen (+inf under a negative
+      // scale, so that s scale is -inf): the per-entry rule only on a tile
+      // that the Tk tail, the key mask or the causal rule cuts.  The tile's
+      // max of s scale is scale times the max of s (the min under a negative
+      // scale), and p = 2^(s scale log2(e) - m log2(e)) one FMA and one exp2
+      const float* aux = r.aux(s);
+      const bool exact =
+          aux[KN] > 0.f && (!a.causal || a.q_offset + q_first >= a.k_offset + k0 + KN - 1);
+      if (!exact) {
+#pragma unroll
+        for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = 8 * j + 2 * t + (e & 1);
+            if (!(aux[kl] > 0.f && causal_ok(a, qg[e >> 1], k0 + kl))) sc[4 * j + e] = unseen;
+          }
+      }
+      const float2 ext = pos ? row_extremes<true>(sc) : row_extremes<false>(sc);
+      // the online softmax: a row that has seen no key yet keeps m = NEG_INF
+      // and takes p = 0 (its scores are -inf against a shift of 0)
+      float corr[2], shift[2], ls[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // -inf times scale where the row sees no key of the tile
+        const float m_new = fmaxf(m_run[h], (h ? ext.y : ext.x) * a.scale);
+        corr[h] = ex2((m_run[h] - m_new) * LOG2E);
+        shift[h] = m_new > NEG_INF * 0.5f ? m_new * LOG2E : 0.f;
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, i = 4 * j + e, u = 2 * (j & 1) + (e & 1);
+          const float pe = ex2(fmaf(sc[i], sl2, -shift[h]));
+          sc[i] = pe;
+          ls[h][u] = j < 2 ? pe : ls[h][u] + pe;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l_run[h] = l_run[h] * corr[h] + ((ls[h][0] + ls[h][1]) + (ls[h][2] + ls[h][3]));
+      // o keeps its scale in the common case that no row's max moved
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+      }
+      uint32_t pa[KN / 16][4];
+      a_operands<KN>(pa, sc);
+      // o += p v
+      reg_fence(o);
+      reg_fence(pa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        wgmma_rs(o, pa[kk], desc_n<D, KN>(vt, kk * 16, 0), 1);
+      wg_commit();
+      wg_wait();
+      reg_fence(o);
+      reg_fence(pa);
+    }
+    if (lane == 0) mbar_arrive(r.empty + 8 * s);
+    ++it;
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (qg[h] >= a.tq) continue;
     const size_t row = (size_t)bh * a.tq + qg[h];
     const bool stats = t == 0 && (!WIDE || blockIdx.z == 0);
     if (a.normalize) {
       uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.out) + row * ld + col0);
-      const float den = fmaxf(l_run[h], 1e-20f);
+      const float den = fmaxf(l, 1e-20f);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        out[(n * 8 + 2 * t) / 2] = pack_bf16(o[n][2 * h] / den, o[n][2 * h + 1] / den);
-      if (stats) a.lse[row] = lse_of(m_run[h], l_run[h]);
+      for (int j = 0; j < D / 8; ++j)
+        out[4 * j + t] = pack_bf16(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
+      if (stats) a.lse[row] = lse_of(m_run[h], l);
     } else {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(a.o + row * ld + col0 + n * 8 + 2 * t) =
-            make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(a.o + row * ld + col0 + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
       if (stats) {
         a.m[row] = m_run[h];
-        a.l[row] = l_run[h];
+        a.l[row] = l;
       }
     }
   }
@@ -443,12 +504,20 @@ int launch(const void* q, const void* k, const void* v, const void* kmask, void*
   a.normalize = normalize;
   a.ld = ld;
   a.scale = scale;
-  const dim3 grid((tq + BQ - 1) / BQ, bh, WIDE ? ld / D : 1);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if constexpr (BF16)
-    return launch_kernel(fa_fwd_bf16_kernel<D, WIDE>, grid, H_THREADS, fwd_bf16_smem<D>(), s, a);
-  else
+  if constexpr (BF16) {
+    using L = QTileSmem<D, WIDE, 1, fwd_keys<D, WIDE>()>;
+    FwdTmaArgs p;
+    p.a = a;
+    if (!(encode_map(&p.q, q, bh, tq, ld) && encode_map(&p.k, k, bh, tk, ld) &&
+          encode_map(&p.v, v, bh, tk, ld)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((tq + L::QB - 1) / L::QB, bh, WIDE ? ld / D : 1);
+    return launch_kernel(fa_fwd_bf16_kernel<D, WIDE>, grid, SM90_THREADS, L::BYTES, s, p);
+  } else {
+    const dim3 grid((tq + BQ - 1) / BQ, bh, WIDE ? ld / D : 1);
     return launch_kernel(fa_fwd_f32_kernel<D, WIDE>, grid, F_THREADS, fwd_f32_smem<D>(), s, a);
+  }
 }
 
 template <bool BF16>

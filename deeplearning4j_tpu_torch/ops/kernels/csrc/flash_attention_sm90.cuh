@@ -1,6 +1,8 @@
-// Hopper (sm_90a) form of the bf16 flash backward: the key-tile kernel of
+// Hopper (sm_90a) blocks of the bf16 flash kernels: the key-tile kernel of
 // the merged backward (with ds k added to dq) and of the split backward's
-// dk/dv kernel (without), and the split backward's dq kernel.
+// dk/dv kernel (without); and the query-tile ring and producer that the
+// split backward's dq kernel (here) and the forward
+// (flash_attention_fwd.cu) share.
 //
 // A block is one producer warpgroup and two consumer warpgroups (NWG).  One
 // warp of the producer keeps TMA loads in flight: 3-D tensor maps over
@@ -25,6 +27,8 @@
 //               flash_attention.cuh) while the consumers go on
 //   dq kernel:  s = q k^T, dp = dout v^T; ds rounded to bf16 in registers;
 //               dq += ds k (A from registers), dq in f32 registers
+//   forward:    s = q k^T; the online softmax in registers; o += p v (A
+//               from registers), o in f32 registers
 //
 // The accumulator of an m64nN wgmma holds, in thread (warp w, lane 4 g + t)
 // of the warpgroup, rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t and
@@ -39,22 +43,20 @@
 // 128 columns, because 128-column dk and dv beside s^T and dp^T leave wgmma
 // too few registers (ptxas serializes and spills).  Past D = 128 (WIDE) the
 // scores run over every CH-column chunk of the head dim, each chunk streamed
-// through the ring with its k and v (dq kernel: q and dout) rows, and one
-// more stage brings the block's slab for the products (64 columns in the
-// key-tile kernels, 128 in the dq kernel).
+// through the ring with its k and v (query-tile kernels: q, and dout) rows,
+// and one more stage brings the block's slab for the products (64 columns
+// in the key-tile kernels, 128 in the query-tile kernels).
 #pragma once
 
 #include "flash_attention.cuh"
 
 namespace {
 
-constexpr int WG_THREADS = 128;                       // a warpgroup
 constexpr int NWG = 2;                                // consumer warpgroups of a block
 constexpr int CONSUMERS = NWG * WG_THREADS;
 constexpr int SM90_THREADS = CONSUMERS + WG_THREADS;  // and the producer warpgroup
 constexpr int TR = 64;                                // rows of a box, and of a wgmma's M
 constexpr int CH = 64;                                // WIDE: columns of a score chunk
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int SMEM_BUDGET = 225 * 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -74,43 +76,6 @@ struct Box {
 constexpr int round_kb(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 constexpr int stages_for(int fixed, int stage) {
   return (SMEM_BUDGET - fixed) / stage < 4 ? (SMEM_BUDGET - fixed) / stage : 4;
-}
-
-// ------------------------------------------------------------ mbarriers
-// mbarriers, and the tiles below, are named by 32-bit shared-memory
-// addresses: half the registers of generic pointers.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Expect `bytes` more of TMA traffic in the barrier's phase, without arriving.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
-  unsigned long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n" : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    wait_guard(t0);
-  }
 }
 
 // ------------------------------------------------------------------ TMA
@@ -217,10 +182,11 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
-// The four k16 steps of an m64n64 accumulator as bf16 A operands.
-__device__ __forceinline__ void a_operands(uint32_t (&r)[4][4], const float (&d)[32]) {
+// The k16 steps of an m64nN accumulator (N / 16 of them) as bf16 A operands.
+template <int N>
+__device__ __forceinline__ void a_operands(uint32_t (&r)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) r[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
 }
@@ -235,12 +201,6 @@ __device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
 
 __device__ __forceinline__ void consumers_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
-}
-
-// The thread's warpgroup, as a value the compiler knows is the same across
-// the warp (setmaxnreg needs each branch warpgroup-uniform).
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, (int)threadIdx.x / WG_THREADS, 0);
 }
 
 __device__ __forceinline__ unsigned char* smem_1024(unsigned char* p) {
@@ -258,6 +218,26 @@ __device__ __forceinline__ void wgmma_kk(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 128) += a (64 x 16, K-major) . b (16 x 128, K-major): both from shared memory
+__device__ __forceinline__ void wgmma_kk(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -574,8 +554,8 @@ __device__ __forceinline__ void key_tile_body(const TmaArgs& p, int kt, int bh, 
         dpt[4 * j + e] = pd.y;
       }
     uint32_t pa[4][4], da[4][4];
-    a_operands(pa, st);
-    a_operands(da, dpt);
+    a_operands<64>(pa, st);
+    a_operands<64>(da, dpt);
 
     // dv += p^T dout, dk += ds^T q: the stage's q and dout rows as N-major B,
     // at the block's columns
@@ -665,44 +645,48 @@ __device__ __forceinline__ void key_tile_body(const TmaArgs& p, int kt, int bh, 
   }
 }
 
-// ------------------------------------------------------------- dq kernel
-// Shared memory of the split backward's dq kernel: the resident q and dout
-// rows of the block (not WIDE), the ring, the barriers.  A product stage
-// holds k (and v, not WIDE) of a 64-key tile and its keys' visibility; a
-// WIDE chunk stage holds q, dout, k and v at CH columns.
-template <int D, bool WIDE>
+// ---------------------------------------------------- query-tile kernels
+// Shared memory of a query-tile kernel, whose block owns QB = 128 query rows
+// of one (batch, head) and walks the tiles of KN keys: the split backward's
+// dq kernel (NR = 2 query-side tensors, q and dout, with k and v as their
+// key-side partners; KN = 64) and the forward (NR = 1: q, with k).  Not
+// WIDE, the query-side rows stay resident and a product stage holds k and
+// v of a key tile; WIDE, a chunk stage holds the query-side rows and their
+// partners at CH columns, and the product stage one key-side tensor at the
+// block's slab.  Each product stage ends with its keys' visibility (below
+// Tk, unmasked) and whether all are seen.
+template <int D, bool WIDE, int NR, int KN = TR>
 struct QTileSmem {
   static constexpr int QB = TR * NWG;                         // query rows of a block
-  static constexpr int PROD = (WIDE ? 1 : 2) * TR * D * 2;
-  static constexpr int CHUNK = WIDE ? (2 * QB + 2 * TR) * CH * 2 : 0;
+  static constexpr int PROD = (WIDE ? 1 : 2) * KN * D * 2;
+  static constexpr int CHUNK = WIDE ? NR * (QB + KN) * CH * 2 : 0;
   static constexpr int AUX = PROD > CHUNK ? PROD : CHUNK;
-  static constexpr int STAGE = round_kb(AUX + (TR + 1) * 4);
-  static constexpr int RES = WIDE ? 0 : 2 * QB * D * 2;
+  static constexpr int STAGE = round_kb(AUX + (KN + 1) * 4);
+  static constexpr int RES = WIDE ? 0 : NR * QB * D * 2;
   static constexpr int STAGES = stages_for(RES + 2048, STAGE);
   static constexpr size_t BYTES = 1024 + RES + STAGES * STAGE + 8 * (2 * STAGES + 1);
 };
 
-// One block owns QB = 128 query rows (blockIdx.x) of one (batch, head)
-// (blockIdx.y) and slab blockIdx.z of dq, and walks the 64-key tiles up to
-// the last one its rows see, with dq in the consumers' registers; in bf16
-// ds is rounded before ds k and p is not, as the JAX kernel does.
-template <int D, bool WIDE>
-__global__ void __launch_bounds__(SM90_THREADS, 1)
-fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
-  using L = QTileSmem<D, WIDE>;
-  constexpr int QB = L::QB;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  unsigned char* smem = smem_1024(flash_smem);
-  const BwdArgs& a = p.a;
-  const uint32_t res = smem_u32(smem), ring = res + L::RES;
-  const uint32_t full = ring + L::STAGES * L::STAGE;   // barriers, 8 bytes each
-  const uint32_t empty = full + 8 * L::STAGES;
-  const uint32_t res_bar = empty + 8 * L::STAGES;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int bh = blockIdx.y, q0 = blockIdx.x * QB;
-  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
-  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + QB, a.tq) - 1);
-  if (tid == 0) {
+// The addresses of a query-tile kernel's resident rows, ring and barriers
+// (8 bytes each: full and empty of every stage, then the resident rows').
+template <class L>
+struct QTileRing {
+  unsigned char* smem;
+  uint32_t res, ring, full, empty, res_bar;
+
+  __device__ explicit QTileRing(unsigned char* base) : smem(base) {
+    res = smem_u32(base);
+    ring = res + L::RES;
+    full = ring + L::STAGES * L::STAGE;
+    empty = full + 8 * L::STAGES;
+    res_bar = empty + 8 * L::STAGES;
+  }
+  __device__ uint32_t stage(int s) const { return ring + s * L::STAGE; }
+  // the visibility of stage s's keys, and after them whether all are seen
+  __device__ float* aux(int s) const {
+    return reinterpret_cast<float*>(smem + L::RES + s * L::STAGE + L::AUX);
+  }
+  __device__ void init() const {
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(full + 8 * s, 32);
       mbar_init(empty + 8 * s, NWG * 4);
@@ -710,64 +694,113 @@ fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
     mbar_init(res_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+};
+
+// The producer warp of a query-tile kernel: the block's rows of the query-
+// side maps qm (resident; WIDE: streamed per key tile in CH-column chunks
+// with their key-side partners km), then per key tile the product stage
+// (k and v; WIDE: the map `slab` at the block's columns col0) with its keys'
+// visibility (kmask: the batch row of the key mask, or null).
+template <int D, bool WIDE, int NR, int KN>
+__device__ __forceinline__ void q_tile_producer(const QTileRing<QTileSmem<D, WIDE, NR, KN>>& r,
+                                                const CUtensorMap* const (&qm)[NR],
+                                                const CUtensorMap* const (&km)[NR],
+                                                const CUtensorMap* k, const CUtensorMap* v,
+                                                const CUtensorMap* slab, const float* kmask,
+                                                int tk, int n_kt, int q0, int bh, int col0,
+                                                int ld) {
+  using L = QTileSmem<D, WIDE, NR, KN>;
+  constexpr int QB = L::QB, KV = KN / 32;   // KV: keys of a lane
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    if constexpr (!WIDE) {
+      mbar_expect_tx(r.res_bar, L::RES);
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+        tma_tile<D, QB>(r.res + i * QB * D * 2, qm[i], r.res_bar, 0, q0, bh);
+    } else {
+      mbar_arrive(r.res_bar);
+    }
+  }
+  int it = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * KN;
+    bool vis[KV], mine = true;
+#pragma unroll
+    for (int h = 0; h < KV; ++h) {
+      const int kg = k0 + lane + 32 * h;
+      vis[h] = kg < tk && (kmask == nullptr || kmask[kg] > 0.f);
+      mine = mine && vis[h];
+    }
+    if constexpr (WIDE) {
+      for (int c = 0; c < ld; c += CH, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t st = r.stage(s), bar = r.full + 8 * s;
+        mbar_wait(r.empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(bar, L::CHUNK);
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            tma_tile<CH, QB>(st + i * QB * CH * 2, qm[i], bar, c, q0, bh);
+            tma_tile<CH, KN>(st + (NR * QB + i * KN) * CH * 2, km[i], bar, c, k0, bh);
+          }
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    const int s = it % L::STAGES;
+    const uint32_t st = r.stage(s), bar = r.full + 8 * s;
+    mbar_wait(r.empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect(bar, L::PROD);
+      if constexpr (WIDE) {
+        tma_tile<D, KN>(st, slab, bar, col0, k0, bh);
+      } else {
+        tma_tile<D, KN>(st, k, bar, 0, k0, bh);
+        tma_tile<D, KN>(st + KN * D * 2, v, bar, 0, k0, bh);
+      }
+    }
+    float* aux = r.aux(s);
+    const bool all = __all_sync(0xffffffffu, mine);
+#pragma unroll
+    for (int h = 0; h < KV; ++h) aux[lane + 32 * h] = vis[h] ? 1.f : 0.f;
+    if (lane == 0) aux[KN] = all ? 1.f : 0.f;
+    mbar_arrive(bar);
+    ++it;
+  }
+}
+
+// ------------------------------------------------------------- dq kernel
+// One block owns QB = 128 query rows (blockIdx.x) of one (batch, head)
+// (blockIdx.y) and slab blockIdx.z of dq, and walks the 64-key tiles up to
+// the last one its rows see, with dq in the consumers' registers; in bf16
+// ds is rounded before ds k and p is not, as the JAX kernel does.
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
+  using L = QTileSmem<D, WIDE, 2>;
+  constexpr int QB = L::QB;
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  const QTileRing<L> r(smem_1024(flash_smem));
+  const BwdArgs& a = p.a;
+  const uint32_t res = r.res, ring = r.ring, full = r.full, empty = r.empty;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int bh = blockIdx.y, q0 = blockIdx.x * QB;
+  const int ld = WIDE ? a.ld : D, col0 = WIDE ? blockIdx.z * D : 0;
+  const int n_kt = key_tiles(a.tk, a.causal, a.q_offset, a.k_offset, min(q0 + QB, a.tq) - 1);
+  if (tid == 0) r.init();
   __syncthreads();
 
   if (warpgroup() == NWG) {
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
     if (tid >= CONSUMERS + 32) return;
-    const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
-    if (lane == 0) {
-      if constexpr (!WIDE) {
-        mbar_expect_tx(res_bar, L::RES);
-        tma_tile<D, QB>(res, &p.q, res_bar, 0, q0, bh);
-        tma_tile<D, QB>(res + QB * D * 2, &p.dout, res_bar, 0, q0, bh);
-      } else {
-        mbar_arrive(res_bar);
-      }
-    }
-    int it = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int k0 = kt * TR;
-      bool vis[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kg = k0 + lane + 32 * h;
-        vis[h] = kg < a.tk && (km == nullptr || km[kg] > 0.f);
-      }
-      if constexpr (WIDE) {
-        for (int c = 0; c < ld; c += CH, ++it) {
-          const int s = it % L::STAGES;
-          const uint32_t st = ring + s * L::STAGE;
-          mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
-          if (lane == 0) {
-            mbar_expect_tx(full + 8 * s, L::CHUNK);
-            tma_tile<CH, QB>(st, &p.q, full + 8 * s, c, q0, bh);
-            tma_tile<CH, QB>(st + QB * CH * 2, &p.dout, full + 8 * s, c, q0, bh);
-            tma_tile<CH, TR>(st + 2 * QB * CH * 2, &p.k, full + 8 * s, c, k0, bh);
-            tma_tile<CH, TR>(st + (2 * QB + TR) * CH * 2, &p.v, full + 8 * s, c, k0, bh);
-          } else {
-            mbar_arrive(full + 8 * s);
-          }
-        }
-      }
-      const int s = it % L::STAGES;
-      const uint32_t st = ring + s * L::STAGE;
-      mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_expect(full + 8 * s, L::PROD);
-        tma_tile<D, TR>(st, &p.k, full + 8 * s, col0, k0, bh);
-        if constexpr (!WIDE) tma_tile<D, TR>(st + TR * D * 2, &p.v, full + 8 * s, 0, k0, bh);
-      }
-      // which of the tile's keys are seen (below Tk, unmasked), and whether all are
-      float* aux = reinterpret_cast<float*>(smem + L::RES + s * L::STAGE + L::AUX);
-      const bool all = __all_sync(0xffffffffu, vis[0] && vis[1]);
-      aux[lane] = vis[0] ? 1.f : 0.f;
-      aux[lane + 32] = vis[1] ? 1.f : 0.f;
-      if (lane == 0) aux[TR] = all ? 1.f : 0.f;
-      mbar_arrive(full + 8 * s);
-      ++it;
-    }
+    const CUtensorMap* const qm[2] = {&p.q, &p.dout};
+    const CUtensorMap* const km[2] = {&p.k, &p.v};
+    q_tile_producer<D, WIDE, 2, TR>(r, qm, km, &p.k, &p.v, &p.k,
+                                a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr,
+                                a.tk, n_kt, q0, bh, col0, ld);
     return;
   }
 
@@ -785,7 +818,7 @@ fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
   const float sl2 = a.scale * LOG2E;
   float dq[D / 2];                              // rows qg[h], columns 8 j + 2 t + e
   zero(dq);
-  mbar_wait(res_bar, 0);
+  mbar_wait(r.res_bar, 0);
   int it = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TR;
@@ -836,7 +869,7 @@ fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
       reg_fence(dp);
     }
     // ds in place of s, rounded to bf16 as the A operand of dq += ds k
-    const float* aux = reinterpret_cast<const float*>(smem + L::RES + s * L::STAGE + L::AUX);
+    const float* aux = r.aux(s);
     const bool exact =
         aux[TR] > 0.f && (!a.causal || a.q_offset + q_first >= a.k_offset + k0 + TR - 1);
 #pragma unroll
@@ -848,7 +881,7 @@ fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
         sc[4 * j + e] = p_ds2(sc[4 * j + e], dp[4 * j + e], rows[h], sl2, a.scale, seen).y;
       }
     uint32_t da[4][4];
-    a_operands(da, sc);
+    a_operands<64>(da, sc);
     reg_fence(dq);
     reg_fence(da);
     wg_fence();

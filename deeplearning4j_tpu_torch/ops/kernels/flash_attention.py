@@ -21,8 +21,9 @@ On a CUDA tensor in f32 or bf16, at any head dim, they launch the
 hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu`` (merged) and
 ``csrc/flash_attention_bwd_split.cu`` (two kernels), whose headers say
-what bounds them and how they are built, or raise; the bf16 backward
-kernels run on wgmma fed by TMA (``csrc/flash_attention_sm90.cuh``).  The
+what bounds them and how they are built, or raise; every bf16 kernel,
+forward and backward, runs on wgmma fed by TMA
+(``csrc/flash_attention_sm90.cuh``).  The
 merged form adds each key tile's share of dq into dq in key-tile order
 (deterministic), with a few int32 flags as its only scratch
 (:func:`merged_scratch_bytes`).  The kernels are templated on head dims
@@ -50,7 +51,9 @@ and the merged backward, ``split_launches`` those of the two-kernel
 backward (two per call: its dq kernel and its dk/dv kernel); nothing else
 changes them.  The ``block_q``/``block_k``
 arguments are the TPU kernel's tiling knobs: they are accepted and do
-not change the result; the CUDA kernels use their own 64 x 64 tiles.
+not change the result; the CUDA kernels use their own tiles: 64 query
+rows and 64 keys in f32; in the bf16 forward, 128 query rows a block and
+tiles of 128 keys below D = 128, of 64 keys from D = 128 on.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from deeplearning4j_tpu_torch.ops.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)   # the kernels' head-dim templates; others are zero-padded
 SLAB = 128                  # past the largest template: columns per slab
-TILE = 64                   # rows of a q tile and of a k tile in the kernels
+TILE = 64                   # rows of a key tile, and of a query tile in the backward
 
 launches = 0
 bwd_launches = 0

@@ -6,7 +6,8 @@ in interpret mode on the CPU, 8 x 8 blocks) and through the port's plain
 versions, which the port's wrappers run for CPU tensors.  Cases: no mask,
 a key mask, causal at global offsets, Tq != Tk, lengths that are no
 multiple of the block, dead rows (all keys masked, or all in the causal
-future), and head dims past 128 (192 with a key mask; 256 causal with a
+future), query and key tails under causal offsets with a key mask, and
+head dims past 128 (192 with a key mask; 256 causal with a
 dead batch row), which the kernels run in column slabs.
 
 Bands (read at most, in brackets).  f32: 1e-5 for o, m, l (7.2e-7) and
@@ -49,6 +50,9 @@ CASES = {
     "dead_causal": (1, 2, 16, 24, 8, True, None, 0, 10),
     "head_dim_192": (1, 2, 20, 24, 192, False, "random", 0, 0),
     "head_dim_256": (2, 2, 24, 20, 256, True, "dead", 8, 0),
+    # tails of both the query and the key tiles, causal at offsets, and a
+    # batch row whose keys end early (the card's ragged case, made small)
+    "ragged_causal_mask": (2, 2, 70, 131, 16, True, "tail", 40, 0),
 }
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 FWD_TOL = {"f32": {"o": 1e-5, "m": 1e-5, "l": 1e-5}, "bf16": {"o": 5e-3, "m": 1e-5, "l": 1e-4}}
@@ -68,6 +72,8 @@ def _mask(kind, b, tk, rng):
         m[0, 13:] = 0.0
     elif kind == "dead":
         m[1] = 0.0
+    elif kind == "tail":
+        m[1, 90:] = 0.0
     return m
 
 

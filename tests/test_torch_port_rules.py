@@ -339,6 +339,40 @@ def test_failed_flash_launches_raise_and_are_not_counted(monkeypatch):
     flash_attention.launches, flash_attention.bwd_launches = before
 
 
+def test_flash_sources_name_every_header_they_include():
+    """The forward and both backward libraries are hashed with the shared
+    header and the Hopper one (wgmma, TMA, the query-tile ring), so an edit
+    to either rebuilds every flash library."""
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split"):
+        names = {p.name for p in _build.source_files(name)}
+        assert names == {f"{name}.cu", "flash_attention.cuh", "flash_attention_sm90.cuh"}
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_flash_forward_passes_its_outputs_and_no_scratch(monkeypatch, normalize):
+    """The forward's 20 arguments: its outputs (out and lse, or o, m and l)
+    are the only buffers it is handed beside q, k, v and the mask, and it
+    allocates nothing else."""
+    q, k = torch.zeros(2, 3, 70, 64), torch.zeros(2, 3, 130, 64)
+    allocated = []
+    real_empty, real_empty_like = torch.empty, torch.empty_like
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: allocated.append(real_empty(*a, **kw))
+                        or allocated[-1])
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda *a, **kw: allocated.append(real_empty_like(*a, **kw))
+                        or allocated[-1])
+    lib = _StubFlashLib(rc=0)
+    outs = flash_attention._launch_fwd(lib, q, k, k, None, 0.125, True, 3, 0, normalize, 0)
+    monkeypatch.undo()
+    flash_attention.launches -= 1
+    assert len(lib.args) == 20 and lib.args[9:18] == (6, 3, 70, 130, 3, 0, 1, int(normalize), 64)
+    assert [t.data_ptr() for t in allocated] == [t.data_ptr() for t in outs]
+    # pointers q, k, v, key_mask, o, m, l, out, lse
+    given = lib.args[4:7] if not normalize else lib.args[7:9]
+    assert list(given) == [t.data_ptr() for t in outs]
+    assert all(p is None for p in (lib.args[7:9] if not normalize else lib.args[4:7]))
+
+
 def test_failed_split_backward_launch_raises_and_is_not_counted():
     """The two-kernel backward: no scratch among its pointers, the head
     dim among its ints, two launches counted per call that succeeds."""
