@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's ResNet-50 forward and training step, of
-its BERT fine-tune step and of its int8 VGG-16 serving forward goes on
-one CUDA card.
+its BERT fine-tune steps (bf16 and f32) and of its int8 VGG-16 serving
+forward goes on one CUDA card.
 
     python3 chip_profile.py
 
@@ -16,6 +16,8 @@ before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
 - ``bert_finetune_step``: one ``BertForMaskedLM.fit`` step of bench.py's
   long-sequence configuration (4 layers of BERT-base, batch 2 x 4096,
   bf16 policy, flash attention, ``Adam(2e-5)``);
+- ``bert_finetune_step_f32``: the same step under the f32 policy (its own
+  model and updater), where the flash kernels run three TF32 passes;
 - ``vgg16_int8_forward``: ``qnet.output`` of VGG-16 quantized by
   ``quantize_net``, on ``chip_smoke.VGG_BATCH`` images under the bf16
   serving policy (bf16 params, compute and outputs), its three dense
@@ -137,6 +139,9 @@ def main() -> int:
                            seed=0, device="cuda")
     bert_batch = chip_smoke.bert_batch(bert.config.vocab_size)
     adam = Adam(chip_smoke.BERT_TRAIN_LR)
+    bert32 = BertForMaskedLM(chip_smoke.bert_config(chip_smoke.BERT_TRAIN_LAYERS, use_flash=True),
+                             seed=0, device="cuda")
+    adam32 = Adam(chip_smoke.BERT_TRAIN_LR)
     tokens = chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
     serving = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                                  output_dtype=torch.bfloat16)
@@ -158,6 +163,8 @@ def main() -> int:
                                 f32),
                  "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam), tokens,
                                         "tokens", bf16),
+                 "bert_finetune_step_f32": (lambda: bert32.fit([bert_batch], updater=adam32),
+                                            tokens, "tokens", f32),
                  "vgg16_int8_forward": (lambda: qnet.output(images), chip_smoke.VGG_BATCH,
                                         "images", serving)}
 

@@ -1,24 +1,24 @@
 // Device code shared by the flash attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu, flash_attention_bwd_split.cu): the f32 tile
 // loader, mbarriers, the backward's arguments and visibility rule, its
-// ordered dq sum, and the f32 body of the backward's key-tile kernel, which
-// the merged backward runs with its dq products and the split backward's
-// dk/dv kernel without.  Every bf16 kernel, forward and backward, is built
-// on Hopper's wgmma and TMA (flash_attention_sm90.cuh).
+// ordered dq sum, the f32 tensor maps, and the f32 body of the split
+// backward's dk/dv kernel (FMA on the CUDA cores).  Every bf16 kernel, and
+// the f32 forward and merged backward, are built on Hopper's wgmma and TMA
+// (flash_attention_sm90.cuh; f32 in three TF32 passes a product).
 //
 // Every kernel is templated on the head dim D in {32, 64, 128}; the wrapper
 // zero-pads any other head dim up to 128 to the next of these.  A head dim
 // past 128 is zero-padded to a multiple of 128 (the row length ld in device
-// memory) and runs in the WIDE form of a template (of D = 128, or 64 in the
-// bf16 key-tile kernels): the output columns are split into slabs of D, one
-// slab per block. Each block computes the scores s = q.k (and dp = dout.v in
-// the backward) over the whole head dim, always in the same order, and
-// accumulates only its own D columns of o
-// (forward), or of dk, dv and dq (backward). So the accumulators and tiles
-// stay those of the template, s and dp are recomputed once per slab, and m,
-// l and lse come out the same in every slab (slab 0 writes them). All tiles
-// live in dynamic shared memory (the launchers raise the 48 KB default where
-// a template needs more).
+// memory) and runs in the WIDE form of a template: the output columns are
+// split into slabs, one slab per block (of 128 columns in the split f32
+// kernels and the bf16 forward, of 64 in the bf16 key-tile kernels and the
+// f32 forward and merged backward). Each block computes the scores s = q.k
+// (and dp = dout.v in the backward) over the whole head dim, always in the
+// same order, and accumulates only its own columns of o (forward), or of
+// dk, dv and dq (backward). So the accumulators stay those of one slab, s
+// and dp are recomputed once per slab, and m, l and lse come out the same in
+// every slab (slab 0 writes them). All tiles live in dynamic shared memory
+// (the launchers raise the 48 KB default where a template needs more).
 #pragma once
 
 #include <cuda.h>
@@ -298,30 +298,17 @@ __device__ __forceinline__ void tma_adds_done() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");   // before the flag's release
 }
 
-// One step of the ordered sum for a dq tile in one box at src: wait until
-// its flag reads kt, add it, wait for the add, move the flag on.
-__device__ __forceinline__ void ordered_add(const CUtensorMap* map, uint32_t src, int* flag,
-                                            int kt, int col, int row, int bh) {
-  flag_wait(flag, kt);
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-  tma_add_box(map, src, col, row, bh);
-  tma_adds_commit();
-  tma_adds_done();
-  st_release(flag, kt + 1);
-}
-
-// The merged backward's map of dq: f32 [BH, Tq, ld] in boxes of 64 rows x
-// `box` columns, 128-byte swizzled (box = 32) or in plain rows.
-inline bool encode_dq_map(CUtensorMap* map, float* dq, int bh, int rows, int ld, int box,
-                          bool swizzle) {
+// A 3-D map over f32 [BH, rows, ld] (innermost first) in boxes of 64 rows x
+// 32 columns, 128-byte swizzled: the merged backward's dq (the adds) and the
+// f32 kernels' inputs.  Rows past `rows` read as zeros.
+inline bool encode_f32_map(CUtensorMap* map, const void* ptr, int bh, int rows, int ld) {
   cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)bh};
   cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)rows * ld * 4};
-  cuuint32_t boxes[3] = {(cuuint32_t)box, 64, 1};
+  cuuint32_t boxes[3] = {32, 64, 1};
   cuuint32_t one[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dq, dims, strides, boxes,
-                                one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+                                dims, strides, boxes, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -353,65 +340,28 @@ __device__ __forceinline__ int key_tiles(int tk, int causal, int q_offset, int k
   return n;
 }
 
-// The f32 key-tile kernels' tiles, and with a writer the two mbarriers of
-// the dq hand-off.
-template <int D, bool WRITER>
+// The f32 dk/dv kernel's tiles (the split backward's, flash_attention_bwd_split.cu).
+template <int D>
 __host__ __device__ constexpr size_t bwd_f32_smem() {
-  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float) +
-         (WRITER ? 16 : 0);
+  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float);
 }
 
-// How the merged f32 kernel hands its dq tiles to the TMA.  At D = 128
-// (one block per SM) a writer warpgroup beside the compute threads waits
-// and adds, and gives them its registers (setmaxnreg).  Below that, where
-// two or three blocks share an SM and hide each other's waits, thread 0 of
-// the compute threads does it, because one more warp would cost a block
-// per SM (the registers of 256 threads fill the SM exactly at D = 64); and
-// so it does in the WIDE form, which ran slower with a writer.
-template <int D, bool WIDE>
-__host__ __device__ constexpr bool f32_writer() { return D == 128 && !WIDE; }
-
-template <int D, bool WIDE>
-__host__ __device__ constexpr int f32_merged_threads() {
-  return F_THREADS + (f32_writer<D, WIDE>() ? WG_THREADS : 0);
-}
-
-// A barrier of the f32 compute threads: a named one that the writer
-// warpgroup never joins (NAMED), else __syncthreads, which the compiler
-// knows well enough to move global accesses across it.
-template <bool NAMED>
-__device__ __forceinline__ void compute_sync() {
-  if constexpr (NAMED)
-    asm volatile("bar.sync 1, %0;\n" :: "n"(F_THREADS) : "memory");
-  else
-    __syncthreads();
-}
-
-// One block owns a 64-key tile kt of one (batch, head) bh (and slab z) and
-// walks the 64-row query tiles, carrying dk and dv in registers (the TPU
-// kernels' VMEM scratch):
+// The split backward's dk/dv block: a 64-key tile kt of one (batch, head)
+// bh (and slab z) walks the 64-row query tiles, carrying dk and dv in
+// registers (the TPU kernels' VMEM scratch):
 //
 //     p  = exp(q.k * scale - lse)   on visible keys of live rows, else 0
 //     ds = p * (dout.v - delta) * scale
 //     dv += p^T dout,  dk += ds^T q              (f32)
 //
-// With DQ (the merged backward) it also adds ds k of each query tile into dq
-// in key-tile order (the ordered sum): the compute threads leave the tile in
-// shared memory, where the TMA adds it into dq after the tile's flag reads
-// kt.  With a writer (f32_writer) the compute threads hand it over and go
-// on with the next query tile, and wait for the writer only before they
-// overwrite its tile; the writer waits for the flag, adds, waits for the
-// add and moves the flag on.  Without, thread 0 does the same while the
-// others go on to load the next tile's rows.  f32: each of
-// 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i, keys
-// tx + 16 j) and 4 x D/16 of dk, dv and the dq partial, FMA on the CUDA
-// cores from padded rows.  WIDE: the block's slab z of D columns of rows
-// a.ld long; the score tile sums over every slab (k and v tiles
-// reloaded per slab with q and dout), then q, dout and k are reloaded at
-// the block's own slab for the products.
-template <int D, bool DQ, bool WIDE = false>
-__device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap* dq_map, int kt,
-                                             int bh, int z) {
+// Each of 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i,
+// keys tx + 16 j) and 4 x D/16 of dk and dv, FMA on the CUDA cores from
+// padded rows.  WIDE: the block's slab z of D columns of rows a.ld long; the
+// score tile sums over every slab (k and v tiles reloaded per slab with q
+// and dout), then q and dout are reloaded at the block's own slab for the
+// products.
+template <int D, bool WIDE = false>
+__device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, int kt, int bh, int z) {
   constexpr int LD = D + 1, NJ = D / 16, BQ = 64;
   extern __shared__ __align__(128) unsigned char flash_smem[];
   float (*Ks)[LD] = reinterpret_cast<float (*)[LD]>(flash_smem);
@@ -422,39 +372,9 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
   float (*dSs)[BK + 1] = Ps + BQ;
   float* lse_s = &dSs[BQ][0];
   float* delta_s = lse_s + BQ;
-  constexpr bool WRITER = DQ && f32_writer<D, WIDE>();
-  // DQ: the dq tile of a query tile, [64][D] rows over Ps and dSs; with a
-  // writer it is handed over (dq_full) and handed back once its add is done
-  // (dq_free)
-  float* dq_s = &Ps[0][0];
-  const uint32_t dq_full = smem_u32(flash_smem) + bwd_f32_smem<D, false>(), dq_free = dq_full + 8;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, k0 = kt * BK;
   const int ld = WIDE ? a.ld : D, col0 = WIDE ? z * D : 0;
   const int n_qt = (a.tq + BQ - 1) / BQ;
-  if constexpr (WRITER) {
-    if (tid == 0) {
-      mbar_init(dq_full, F_THREADS);
-      mbar_init(dq_free, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (warpgroup() == F_THREADS / WG_THREADS) {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
-      if (tid == F_THREADS) {
-        // the writer: each query tile's dq tile added into dq in key-tile order
-        int n = 0;
-        for (int qt = 0; qt < n_qt; ++qt) {
-          if (skipped(a, qt * BQ, BQ, k0)) continue;
-          mbar_wait(dq_full, n & 1);
-          ordered_add(dq_map, smem_u32(dq_s), dq_flag(a, bh, z, qt), kt, col0, qt * BQ, bh);
-          mbar_arrive(dq_free);
-          ++n;
-        }
-      }
-      return;
-    }
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
-  }
   const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
   const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
   const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
@@ -472,13 +392,10 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  int n = 0;                         // dq tiles handed to the writer
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     if (skipped(a, q0, BQ, k0)) continue;
-    // the last tile's readers are done (with DQ, the barrier before its dq
-    // tile was written saw to that)
-    if constexpr (!DQ) compute_sync<WRITER>();
+    __syncthreads();                 // the last tile's readers are done
     float p[4][4], ds[4][4];         // query rows ty + 16 i, key columns tx + 16 j
     if constexpr (WIDE) {
       if (tid < BQ) {
@@ -491,20 +408,19 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
 #pragma unroll
         for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
       for (int c = 0; c < ld; c += D) {
-        if (c) compute_sync<WRITER>();   // the last slab's readers are done
+        if (c) __syncthreads();      // the last slab's readers are done
         load_rows_f32<D>(Ks, k + c, k0, BK, a.tk, tid, F_THREADS, ld);
         load_rows_f32<D>(Vs, v + c, k0, BK, a.tk, tid, F_THREADS, ld);
         load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
         load_rows_f32<D>(dOs, dout + c, q0, BQ, a.tq, tid, F_THREADS, ld);
-        compute_sync<WRITER>();
+        __syncthreads();
         score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
       }
       score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
       if (col0 + D != ld) {          // the products take the block's own slab
-        compute_sync<WRITER>();
+        __syncthreads();
         load_rows_f32<D>(Qs, q + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
         load_rows_f32<D>(dOs, dout + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
-        if constexpr (DQ) load_rows_f32<D>(Ks, k + col0, k0, BK, a.tk, tid, F_THREADS, ld);
       }
     } else {
       load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
@@ -514,10 +430,9 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
         lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
         delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
       }
-      compute_sync<WRITER>();
+      __syncthreads();
       score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
     }
-    if constexpr (WRITER) mbar_wait(dq_free, (n & 1) ^ 1);   // the last dq tile is added
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -525,7 +440,7 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
         Ps[ty + 16 * i][tx + 16 * j] = p[i][j];
         dSs[ty + 16 * i][tx + 16 * j] = ds[i][j];
       }
-    compute_sync<WRITER>();          // p and ds complete
+    __syncthreads();                 // p and ds complete
 
     // dv += p^T dout, dk += ds^T q: key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 4
@@ -548,43 +463,6 @@ __device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, const CUtensorMap
           dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
           dk[i][j] = fmaf(sa[i], qb[j], dk[i][j]);
         }
-    }
-    if constexpr (DQ) {
-      // ds k: query rows ty + 16 i, columns tx + 16 j, added to dq in order
-      float dq[4][NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < BK; ++c) {
-        float sa[4], kb[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sa[i] = dSs[ty + 16 * i][c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) kb[j] = Ks[c][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
-      }
-      compute_sync<WRITER>();          // every reader of Ps and dSs is done
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq_s[(ty + 16 * i) * D + tx + 16 * j] = dq[i][j];
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      if constexpr (WRITER) {
-        mbar_arrive(dq_full);          // to the writer
-        ++n;
-      } else {
-        compute_sync<WRITER>();
-        // the flag moves on as soon as the add is done: a later release
-        // delays the next key tile's add of this tile, and ptxas then gives
-        // the WIDE form fewer registers
-        if (tid == 0)
-          ordered_add(dq_map, smem_u32(dq_s), dq_flag(a, bh, z, qt), kt, col0, q0, bh);
-      }
     }
   }
 

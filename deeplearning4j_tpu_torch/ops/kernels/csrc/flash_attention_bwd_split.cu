@@ -43,7 +43,7 @@
 //   * f32: 256 threads, FMA on the CUDA cores from padded rows; in the dq
 //     kernel each owns 4 x 4 entries of the score tile (query rows
 //     ty + 16 i, keys tx + 16 j) and 4 x D/16 of dq; ds goes through shared
-//     memory.  The dk/dv kernel is bwd_f32_body with DQ off.
+//     memory.  The dk/dv kernel is bwd_f32_body (flash_attention.cuh).
 // Templated on the head dim D in {32, 64, 128}; head dims past 128 run in
 // 128-column slabs (flash_attention.cuh); the bf16 dk/dv kernel writes
 // 64-column slabs past D = 64 (key_tile_slab, flash_attention_sm90.cuh).
@@ -170,7 +170,7 @@ fa_dq_f32_kernel(BwdArgs a) {
 template <int D, bool WIDE>
 __global__ void __launch_bounds__(F_THREADS)
 fa_dkv_f32_kernel(BwdArgs a) {
-  bwd_f32_body<D, false, WIDE>(a, nullptr, blockIdx.x, blockIdx.y, blockIdx.z);
+  bwd_f32_body<D, WIDE>(a, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int D, bool WIDE>
@@ -200,7 +200,7 @@ int launch(const BwdArgs& a, cudaStream_t s) {
     const dim3 q_grid((a.tq + BQ - 1) / BQ, a.bh, slabs), k_grid((a.tk + BK - 1) / BK, a.bh, slabs);
     rc = launch_kernel(fa_dq_f32_kernel<D, WIDE>, q_grid, F_THREADS, dq_f32_smem<D>(), s, a);
     if (rc == 0)
-      rc = launch_kernel(fa_dkv_f32_kernel<D, WIDE>, k_grid, F_THREADS, bwd_f32_smem<D, false>(),
+      rc = launch_kernel(fa_dkv_f32_kernel<D, WIDE>, k_grid, F_THREADS, bwd_f32_smem<D>(),
                          s, a);
   }
   return rc;

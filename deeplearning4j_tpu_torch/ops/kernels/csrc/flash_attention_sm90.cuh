@@ -2,7 +2,9 @@
 // the merged backward (with ds k added to dq) and of the split backward's
 // dk/dv kernel (without); and the query-tile ring and producer that the
 // split backward's dq kernel (here) and the forward
-// (flash_attention_fwd.cu) share.
+// (flash_attention_fwd.cu) share.  At the end, the pieces of the f32
+// forward and merged backward: f32 tiles, tensor maps and TMA boxes, the
+// TF32 split and the three-pass wgmma.
 //
 // A block is one producer warpgroup and two consumer warpgroups (NWG).  One
 // warp of the producer keeps TMA loads in flight: 3-D tensor maps over
@@ -906,6 +908,219 @@ fa_dq_bf16_kernel(const __grid_constant__ TmaArgs p) {
   }
 }
 
+// ------------------------------------------------- f32: three TF32 passes
+// The f32 forward (flash_attention_fwd.cu) and merged backward
+// (flash_attention_bwd.cu) run every product a.b on the tensor cores as
+// three TF32 passes into one f32 accumulator,
+//
+//     a.b ~ a_hi.b_lo + a_lo.b_hi + a_hi.b_hi,
+//
+// where x_hi is x rounded to TF32 (cvt.rna.tf32.f32: to nearest, ties away
+// from zero, the low 13 bits of the f32 word zero) and x_lo = x - x_hi,
+// exact in f32 (|x_lo| <= 2^-11 |x|).  The tensor core reads x_lo as TF32
+// by dropping its low 13 bits, which moves a term by less than 2^-21 |a b|,
+// and the term a_lo.b_lo left out is below 2^-22 |a b|: each product keeps
+// about 2^-20 of sum |a_i b_i| (the JAX kernels' Precision.HIGHEST), where a
+// single TF32 pass keeps 2^-11.  No product runs in one pass.
+//
+// TF32 wgmma takes both shared-memory operands K-major (the transpose flags
+// exist for 16-bit types only).  Here A always comes from registers, read
+// from shared memory in whatever layout its tile has (so A needs no
+// transposed copy) and split there; every B is a K-major tile whose hi and
+// lo halves lie in shared memory.  The kernels take q, k, v and dout as they
+// are: the spare warps of the producer warpgroup (prep) turn each tile the
+// TMA brought into the B tiles a product needs, in place (x -> x_hi, x_lo
+// beside it) or transposed (v^T for the forward's o += p v, k^T for the
+// backward's dq = ds k), between the TMA's full barrier and the consumers'
+// ready barrier.
+//
+// An f32 tile of R rows and W columns is W / 32 boxes of R rows x 32
+// columns, each row one 128-byte line in the TMA's 128-byte swizzle (the
+// 16-byte chunk j of row r at chunk j ^ r % 8), as the TMA writes boxes of
+// 32 columns x 64 rows and as wgmma's K-major descriptors read them.
+constexpr int SMEM_MAX = 227 * 1024;          // shared memory a block can have
+
+// Byte offset of element (r, c) in an f32 tile of R rows.
+template <int R>
+__device__ __forceinline__ uint32_t f32_at(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// K-major operand: all R rows of an f32 tile at base, the 8-column k-step at column c
+template <int R>
+__device__ __forceinline__ uint64_t desc_f32(uint32_t base, int c) {
+  return gmma_desc(base + (c >> 5) * (R * 128) + ((c & 31) << 2), 16, 1024, 1);
+}
+
+// Rows [row0, row0 + R) and columns [col0, col0 + W) of head bh of an f32
+// map (boxes of 32 columns x 64 rows) into an R-row tile at dst.
+template <int W, int R>
+__device__ __forceinline__ void tma_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                        int col0, int row0, int bh) {
+#pragma unroll
+  for (int b = 0; b < W / 32; ++b)
+#pragma unroll
+    for (int h = 0; h < R / TR; ++h)
+      tma_load(dst + (b * R + h * TR) * 128, map, bar, col0 + 32 * b, row0 + h * TR, bh);
+}
+
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_hi(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float ld_f32(const unsigned char* tile, uint32_t off) {
+  return *reinterpret_cast<const float*>(tile + off);
+}
+
+// The A operand of one k-step (CUTLASS's tf32 ALayout_64x8): register i of
+// lane 4 g + t of warp wq holds A(m + 8 (i & 1), k + 4 (i >> 1)), with m =
+// m0 + 16 wq + g and k = k0 + t.  From an R-row tile whose row m, column k
+// holds A(m, k), or (TRANS) whose row k, column m does: split into hi and lo
+// here (a_split), or read from a tile's hi and lo halves lo_off bytes apart
+// (a_pair).
+template <int R, bool TRANS>
+__device__ __forceinline__ uint32_t a_off(int m, int k) {
+  return TRANS ? f32_at<R>(k, m) : f32_at<R>(m, k);
+}
+
+template <int R, bool TRANS>
+__device__ __forceinline__ void a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const unsigned char* tile, int m, int k) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(ld_f32(tile, a_off<R, TRANS>(m + 8 * (i & 1), k + 4 * (i >> 1))), hi[i], lo[i]);
+}
+
+template <int R, bool TRANS>
+__device__ __forceinline__ void a_pair(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const unsigned char* tile, int lo_off, int m, int k) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t off = a_off<R, TRANS>(m + 8 * (i & 1), k + 4 * (i >> 1));
+    hi[i] = __float_as_uint(ld_f32(tile, off));
+    lo[i] = __float_as_uint(ld_f32(tile + lo_off, off));
+  }
+}
+
+// The same from an R-row tile at the shared address `tile` whose row m,
+// column k holds A(m, k), by one ldmatrix: its four 8 x 8 blocks of 16-bit
+// words are four 8-row x 4-column blocks of f32 (rows m0 + 8 (j & 1), columns
+// k0 + 4 (j >> 1) for block j; lane 8 j + r names row r of block j), and
+// lane 4 g + t receives row g, column t of each: A's registers i = j.  m0:
+// the warp's first row.
+template <int R>
+__device__ __forceinline__ void a_split_rows(uint32_t (&hi)[4], uint32_t (&lo)[4], uint32_t tile,
+                                             int m0, int k0, int lane) {
+  const int j = lane >> 3;
+  uint32_t x[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(tile + f32_at<R>(m0 + (lane & 7) + 8 * (j & 1), k0 + 4 * (j >> 1)))
+               : "memory");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// d (64 x N) += a (64 x 8, TF32 in registers) . b (8 x N, K-major TF32 in shared memory)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a . b over one k-step in three TF32 passes, the two small terms first
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N], const uint32_t (&a_hi)[4],
+                                     const uint32_t (&a_lo)[4], uint64_t b_hi, uint64_t b_lo) {
+  wgmma_tf32(d, a_hi, b_lo);
+  wgmma_tf32(d, a_lo, b_hi);
+  wgmma_tf32(d, a_hi, b_hi);
+}
+
+// prep: the f32 words of a tile (bytes long) -> x_hi in place and x_lo at
+// lo, 16 bytes a step over threads i0, i0 + step, ... (the split is
+// elementwise, so the swizzle does not matter)
+__device__ __forceinline__ void split_in_place(unsigned char* tile, unsigned char* lo, int bytes,
+                                               int i0, int step) {
+  for (int i = 16 * i0; i < bytes; i += 16 * step) {
+    const float4 x = *reinterpret_cast<const float4*>(tile + i);
+    float4 h;
+    h.x = __uint_as_float(tf32_hi(x.x));
+    h.y = __uint_as_float(tf32_hi(x.y));
+    h.z = __uint_as_float(tf32_hi(x.z));
+    h.w = __uint_as_float(tf32_hi(x.w));
+    *reinterpret_cast<float4*>(tile + i) = h;
+    *reinterpret_cast<float4*>(lo + i) = make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  }
+}
+
+// The position of row r of a tile (a key) among the K columns of its
+// transpose: r itself, or (PERM) permuted within each group of 8 so that
+// the keys 2 t and 2 t + 1 that lane t holds in an accumulator (columns
+// 8 j + 2 t + e) sit at the A operand's columns t and t + 4.
+template <bool PERM>
+__device__ __forceinline__ int key_column(int r) {
+  return PERM ? (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1) : r;
+}
+
+// prep: an R-row, W-column tile at src -> its transpose (W rows, R columns),
+// split into hi and lo tiles, element (r, c) at row c, column key_column(r)
+template <int R, int W, bool PERM>
+__device__ __forceinline__ void transpose_split(const unsigned char* src, unsigned char* hi,
+                                                unsigned char* lo, int i0, int step) {
+  for (int i = i0; i < R * W; i += step) {
+    const int r = i % R, c = i / R;   // neighbouring threads: neighbouring rows
+    const float x = ld_f32(src, f32_at<R>(r, c));
+    const float h = __uint_as_float(tf32_hi(x));
+    const uint32_t off = f32_at<W>(c, key_column<PERM>(r));
+    *reinterpret_cast<float*>(hi + off) = h;
+    *reinterpret_cast<float*>(lo + off) = x - h;
+  }
+}
+
 // ------------------------------------------------------------------ host
 // A 3-D map over [BH, rows, ld] bf16 (innermost first), boxes of 64 rows x
 // BX columns, swizzled for wgmma; rows past `rows` read as zeros.
@@ -930,7 +1145,7 @@ inline int tma_args(TmaArgs& p, const BwdArgs& a, bool merged) {
                   encode_map(&p.k, a.k, a.bh, a.tk, a.ld) &&
                   encode_map(&p.v, a.v, a.bh, a.tk, a.ld) &&
                   encode_map(&p.dout, a.dout, a.bh, a.tq, a.ld) &&
-                  (!merged || encode_dq_map(&p.dq, a.dq, a.bh, a.tq, a.ld, 32, true));
+                  (!merged || encode_f32_map(&p.dq, a.dq, a.bh, a.tq, a.ld));
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,8 +22,10 @@ hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu`` (merged) and
 ``csrc/flash_attention_bwd_split.cu`` (two kernels), whose headers say
 what bounds them and how they are built, or raise; every bf16 kernel,
-forward and backward, runs on wgmma fed by TMA
-(``csrc/flash_attention_sm90.cuh``).  The
+forward and backward, and the f32 forward and merged backward run on
+wgmma fed by TMA (``csrc/flash_attention_sm90.cuh``), f32 in three TF32
+passes a product (:func:`tf32_three_pass_matmul` is that arithmetic in
+plain PyTorch); the f32 split backward runs on the CUDA cores.  The
 merged form adds each key tile's share of dq into dq in key-tile order
 (deterministic), with a few int32 flags as its only scratch
 (:func:`merged_scratch_bytes`).  The kernels are templated on head dims
@@ -51,9 +53,10 @@ and the merged backward, ``split_launches`` those of the two-kernel
 backward (two per call: its dq kernel and its dk/dv kernel); nothing else
 changes them.  The ``block_q``/``block_k``
 arguments are the TPU kernel's tiling knobs: they are accepted and do
-not change the result; the CUDA kernels use their own tiles: 64 query
-rows and 64 keys in f32; in the bf16 forward, 128 query rows a block and
-tiles of 128 keys below D = 128, of 64 keys from D = 128 on.
+not change the result; the CUDA kernels use their own tiles: in the
+forward 128 query rows a block and tiles of 64 keys (bf16: 128 keys below
+D = 128); in the merged backward 64 keys a block in f32 and 128 in bf16,
+and query tiles of 64 rows.
 """
 
 from __future__ import annotations
@@ -169,6 +172,31 @@ def flash_attention_block_bwd_plain(q, k, v, out, lse, dout, *, scale: float,
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dq = torch.matmul(ds, k.float())
     return dq, dk, dv
+
+
+def tf32_split(x):
+    """``(hi, lo)``: f32 ``x`` split as the f32 kernels split an operand
+    of their three TF32 passes: ``hi`` is ``x`` rounded to TF32 (to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits
+    of the f32 word zero) and ``lo = x - hi``, exact in f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x.float() - hi
+
+
+def tf32_cut(x):
+    """f32 ``x`` as a tensor core reads an f32 word as TF32: its low 13
+    bits dropped (one TF32 pass reads its operands so)."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_three_pass_matmul(a, b):
+    """``a @ b`` the way the f32 kernels compute every product: three TF32
+    passes ``a_hi b_lo + a_lo b_hi + a_hi b_hi`` (the lo terms read as
+    TF32 by the tensor core), summed in f32."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ tf32_cut(bl) + tf32_cut(al) @ bh + ah @ bh
 
 
 def normalized_plain(q, k, v, key_mask, scale, causal):
