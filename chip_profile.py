@@ -45,8 +45,7 @@ import chip_smoke
 ITERS = 5
 
 CATEGORIES = (
-    # before matmul_bn_act: its reduce kernel's name holds "stats_reduce_kernel"
-    ("conv3x3_bn_act", ("c3_f32_kernel", "c3_bf16_kernel", "c3_stats_reduce_kernel")),
+    ("conv3x3_bn_act", ("c3_f32_kernel", "c3_bf16_kernel")),
     ("int8_matmul", ("int8_mm_f32_kernel", "int8_mm_bf16_kernel", "int8_mm_reduce_kernel")),
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
     ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",

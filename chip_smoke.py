@@ -9,10 +9,11 @@ no result line:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in this checkout (one
-   ``nvcc`` per source, all started together); no flash template may
-   spill (ptxas), and every bf16 flash kernel, forward and backward, must
-   hold wgmma and TMA loads (``HGMMA`` and ``UTMALDG`` in
-   ``cuobjdump -sass``; the counts are printed);
+   ``nvcc`` per source, all started together); every kernel of the flash
+   libraries (forward, merged and two-kernel backward) and of
+   ``conv3x3_bn_act``, f32 and bf16, must hold wgmma and TMA loads
+   (``HGMMA`` and ``UTMALDG`` in ``cuobjdump -sass``; the counts are
+   printed), and none of their templates may spill (ptxas);
 3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
    of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
    kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
@@ -57,13 +58,15 @@ no result line:
    four 3x3 shapes at batch 32 (56x56x64, 28x28x128, 14x14x256, 7x7x512,
    C = Cout), with the prologue and relu_in, without relu_in and without
    the prologue, then at ``CONV3_RAGGED`` (the reference test's case, C !=
-   Cout, C = 3, planes over 1 MB), f32 and bf16, three planted faults
-   (border taps act(b), neighbours across row and image seams, a tap
-   dropped) each at least 10x past the limit; (b) its path: the 16 3x3
+   Cout, C = 3, planes over 1 MB), f32 and bf16, planted faults (border
+   taps act(b), neighbours across row and image seams, a tap dropped; in
+   f32 one TF32 pass in place of three) each at least 10x past the limit,
+   and a second call giving the same bits (K split over blocks at 7x7x512
+   batch 32: the split-K repeat); (b) its path: the 16 3x3
    stages of a train-mode forward of the seeded full-width ResNet-50,
    captured through ``fused.conv3x3_stage`` at batch 32 in f32 and at the
-   headline's batch in bf16, each run through the op with the counts set
-   to 0 just before (16 launches, 16 reduces) and held to the stage's own
+   headline's batch in bf16, each run through the op with the count set
+   to 0 just before (16 launches) and held to the stage's own
    outputs and to the plain version; (c) autograd through the op against
    ``conv3x3_reference`` at the four shapes (no kernel launched by the
    backward); (d) times of the kernel, the plain version and the layer's
@@ -78,8 +81,10 @@ no result line:
    0) with a key mask of valid lengths 2999 and 2000.  Both kernels and the
    two-kernel backward (``merged=False``) are held to their plain versions
    (o, m, l; the normalized output and lse; dq, dk, dv with O(1)
-   cotangents), the two backward forms to each other, a planted fault (the
-   lse shift or delta dropped) must move the check far past its limit, and
+   cotangents), the two backward forms to each other, planted faults (the
+   lse shift or delta dropped; in f32 one TF32 pass in place of three, for
+   the forward and both backward forms) must move the check far past its
+   limit, and
    each is timed against the plain version and
    ``scaled_dot_product_attention`` (forward and autograd backward, a
    yardstick only); at the base case both backward forms run twice and
@@ -139,8 +144,9 @@ The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
 phases: it times the flash forward (normalized) and both backward forms
 at the base case of every head dim in ``AB_HEAD_DIMS``, f32 and bf16, the
-BERT fine-tune step and
-the BERT serving call, in the other tree and in this one, each in its own
+16-call ``conv3x3_bn_act`` pass (f32 at batch 32, bf16 at batch 32 and
+256) beside the layer's chain, the BERT fine-tune step and the BERT
+serving call, in the other tree and in this one, each in its own
 process, in the order parent, change, change, parent, and prints the
 times side by side (``chiprun_out/chip_ab.json``).
 
@@ -258,15 +264,12 @@ def ptxas_usage(name: str, nvcc_log: str) -> dict:
     return usage
 
 
-# the flash libraries, whose bf16 kernels and f32 forward and merged backward
-# must run on Hopper's tensor-core path: wgmma (HGMMA in SASS) fed by TMA
-# loads (UTMALDG); the f32 split backward's kernels run on the CUDA cores
-FLASH_LIBS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split")
-
-
-def on_tensor_cores(name: str, kernel: str) -> bool:
-    """Whether a flash kernel must hold wgmma and TMA loads in its SASS."""
-    return "bf16" in kernel or ("f32" in kernel and name != "flash_attention_bwd_split")
+# the libraries every kernel of which must run on Hopper's tensor-core path,
+# wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG), in f32 and bf16, with no
+# template spilling: the flash kernels and the fused 3x3 conv
+HOPPER_LIBS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split",
+               "conv3x3_bn_act")
+FLASH_LIBS = HOPPER_LIBS[:3]
 
 
 def sass_counts(name: str) -> dict:
@@ -279,8 +282,16 @@ def sass_counts(name: str) -> dict:
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            m = re.search(r"(fa_\w+?_kernel)ILi(\d+)ELb(\d)E", line)
-            kernel = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else line.split(": ", 1)[1]
+            # the mangled kernel name: its length, then the name (a hash of the
+            # anonymous namespace before it may hold "fa_" too), then its
+            # template arguments
+            kernel = line.split(": ", 1)[1]
+            for m in re.finditer(r"(?=((?:fa|c3)_\w*?_kernel)(I(?:L[ib]\d+E)+E)?)", line):
+                name = m.group(1)
+                if line[:m.start()].endswith(str(len(name))):
+                    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+                    kernel = name + (f"<{', '.join(args)}>" if args else "")
+                    break
             counts[kernel] = [0, 0]
         elif kernel is not None:
             counts[kernel][0] += "HGMMA" in line
@@ -289,25 +300,20 @@ def sass_counts(name: str) -> dict:
 
 
 def check_hopper_path(built: dict) -> dict:
-    """Every bf16 flash kernel, and every f32 forward and merged backward
-    template, holds wgmma and TMA loads in its SASS, and no flash template
-    spills (ptxas's report of this build)."""
+    """Every kernel of the flash libraries and of ``conv3x3_bn_act``, f32
+    and bf16, holds wgmma and TMA loads in its SASS, and no template of
+    them spills (ptxas's report of this build)."""
     result = {}
-    for name in FLASH_LIBS:
+    for name in HOPPER_LIBS:
         counts = sass_counts(name)
-        gated = {k: c for k, c in counts.items() if on_tensor_cores(name, k)}
-        for kernel, (hgmma, utmaldg) in sorted(gated.items()):
+        for kernel, (hgmma, utmaldg) in sorted(counts.items()):
             log(f"  {name}: {kernel}: {hgmma} HGMMA, {utmaldg} UTMALDG")
-        missing = [k for k, (hgmma, utmaldg) in gated.items() if not (hgmma and utmaldg)]
-        f32 = [k for k in gated if "f32" in k]
-        if not gated or missing or (name != "flash_attention_bwd_split" and not f32):
-            raise AssertionError(f"{name}: kernels without wgmma or TMA loads: "
-                                 f"{missing or 'none found'}")
-        result[name] = {k: {"hgmma": c[0], "utmaldg": c[1]} for k, c in gated.items()}
-    for name, info in built.items():
-        if not name.startswith("flash_attention"):
-            continue
-        spills = {k: u for k, u in ptxas_usage(name, info["log"]).items() if "spill" in u}
+        missing = [k for k, (hgmma, utmaldg) in counts.items() if not (hgmma and utmaldg)]
+        if missing or not any("f32" in k for k in counts) or not any("bf16" in k for k in counts):
+            raise AssertionError(f"{name}: kernels without wgmma or TMA loads, or no f32 and "
+                                 f"bf16 kernels: {missing or sorted(counts)}")
+        result[name] = {k: {"hgmma": c[0], "utmaldg": c[1]} for k, c in counts.items()}
+        spills = {k: u for k, u in ptxas_usage(name, built[name]["log"]).items() if "spill" in u}
         if spills:
             raise AssertionError(f"{name}: templates spill: {spills}")
     return result
@@ -325,6 +331,23 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 3) -> float:
+    """The device time of the CUDA kernels one call of ``fn`` launches (all
+    of them, summed; torch.profiler over ``reps`` calls after a warm-up),
+    without the host's time between them that ``cuda_ms`` also sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                for e in prof.key_averages())
+    return total / reps / 1e3
 
 
 def resnet50_calls(net, batch: int) -> list[tuple]:
@@ -1036,10 +1059,13 @@ def conv3_faults(x, w, a, b, relu_in, want, dname) -> dict:
     over the limits of y, s1 and s2): (a) the taps outside the image filled
     with act(0 a + b), the fold applied after the zero padding (prologue
     only); (b) the flattened neighbours taken across row and image seams;
-    (c) the last tap dropped."""
+    (c) the last tap dropped; (d) f32: one TF32 pass in place of three (the
+    folded input and the weights cut to TF32, as the tensor core reads f32
+    words)."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
+    from deeplearning4j_tpu_torch.ops.kernels.flash_attention import tf32_cut
 
     def fold(t):
         if a is None:
@@ -1069,13 +1095,20 @@ def conv3_faults(x, w, a, b, relu_in, want, dname) -> dict:
     w_drop[2, 2] = 0
     faults["last tap dropped"] = over(conv3_bn.conv3x3_bn_act_plain(x, w_drop, a, b,
                                                                    relu_in=relu_in))
+    if dname == "float32":
+        y = F.conv2d(tf32_cut(fold(x)).permute(0, 3, 1, 2), tf32_cut(wf).permute(3, 2, 0, 1),
+                     padding=1).permute(0, 2, 3, 1)
+        faults["one TF32 pass"] = over(finish(y))
     return faults
 
 
 def check_conv3(shapes, dtypes, variants, timed: bool = True) -> list[dict]:
     """The kernel against its plain version at each (N, H, W, C, Cout) and
-    (prologue, relu_in), with the planted faults; times the first variant
-    (kernel, plain, the library yardstick: one warm-up, 10 calls each)."""
+    (prologue, relu_in), with the planted faults, and a second call that
+    must give the same bits (where the plan splits K too); times the first
+    variant (kernel, plain, the library yardstick: one warm-up, 10 calls
+    each).  The f32 bound is three TF32 passes' (the kernel's design), the
+    CUDA cores' beside it."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
     gen = torch.Generator(device="cuda").manual_seed(CONV3_SEED)
@@ -1105,14 +1138,22 @@ def check_conv3(shapes, dtypes, variants, timed: bool = True) -> list[dict]:
                     raise AssertionError(f"conv3x3_bn_act {dname} {shape} prologue={pro} "
                                          f"relu_in={relu_in}: a planted fault moves the check "
                                          f"by only {weak} times its limit")
+                again = conv3_bn.conv3x3_bn_act(x, w, a, b, relu_in=relu_in)
+                if not all(bool(torch.equal(u, v)) for u, v in zip(got, again)):
+                    raise AssertionError(f"conv3x3_bn_act {dname} {shape} prologue={pro} "
+                                         f"relu_in={relu_in}: a second call gave other bits")
+                del again
+                splits = conv3_bn.plan(n * h * wd, cout, 9 * c, dtype)["splits"]
                 nbytes, flops = conv3_work(*shape, x.element_size(), pro)
+                peak = PEAK_F32_TF32X3 if dname == "float32" else PEAK_FLOPS[dname]
                 row = {"dtype": dname, "N": n, "H": h, "W": wd, "C": c, "Cout": cout,
                        "prologue": pro, "relu_in": relu_in, "count": shapes.count(shape),
+                       "k_splits": splits, "second_call_bits_equal": True,
                        "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
                        "rel_err": errs, "fault_over_limit": faults,
                        "fault_over_limit_min": min(faults.values()),
-                       "bytes_ms": nbytes / PEAK_BYTES * 1e3,
-                       "ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
+                       "bytes_ms": nbytes / PEAK_BYTES * 1e3, "ops_ms": flops / peak * 1e3,
+                       "fma_ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
                 row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
                 row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
                 text = ""
@@ -1121,13 +1162,15 @@ def check_conv3(shapes, dtypes, variants, timed: bool = True) -> list[dict]:
                                           warmup=1),
                             "plain_ms": cuda_ms(lambda: conv3_bn.conv3x3_bn_act_plain(x, w, a, b),
                                                 warmup=1),
-                            "library_ms": cuda_ms(lambda: library_conv3(x, w, a, b), warmup=1)}
-                    text = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
-                            f"{row['library_ms']:.4f}, ")
+                            "library_ms": cuda_ms(lambda: library_conv3(x, w, a, b), warmup=1),
+                            "device_ms": device_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b))}
+                    text = (f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+                            f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, ")
                 rows.append(row)
                 log(f"  {dname:8s} {shape} pro={int(pro)} relu={int(relu_in)} x{row['count']}: "
-                    f"{text}bound {row['bound_ms']:.4f} ({row['bound_by']}), rel err y "
-                    f"{errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}; faults "
+                    f"{text}bound {row['bound_ms']:.4f} ({row['bound_by']}; FMA "
+                    f"{row['fma_ops_ms']:.4f}), K splits {splits}, second call same bits; rel "
+                    f"err y {errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}; faults "
                     + ", ".join(f"{key} {v:.0f}x" for key, v in faults.items()))
                 del got, want
             del x, w
@@ -1172,13 +1215,13 @@ def conv3_path(card: str, batch: int, policy: str) -> dict:
     if shapes != conv3_calls(batch):
         raise AssertionError(f"captured 3x3 stages {shapes}, not {conv3_calls(batch)}")
     torch.cuda.synchronize()
-    conv3_bn.launches = conv3_bn.reduce_launches = 0
+    conv3_bn.launches = 0
     outs = [conv3_bn.conv3x3_bn_act(y1.reshape(*shape, -1), w, a1.float(), b1.float(),
                                     relu_in=True) for (y1, a1, b1, w, shape), _ in captured]
     torch.cuda.synchronize()
-    launches = (conv3_bn.launches, conv3_bn.reduce_launches)
-    if launches != (16, 16):
-        raise AssertionError(f"the 16 stages launched (conv, reduce) {launches}, not (16, 16)")
+    launches = conv3_bn.launches
+    if launches != 16:
+        raise AssertionError(f"the 16 stages launched the kernel {launches} times, not 16")
     layer_errs, plain_errs = [], []
     for ((y1, a1, b1, w, shape), (y2, s1b, s2b)), got in zip(captured, outs):
         if got[0].dtype != y1.dtype or not all(bool(torch.isfinite(t).all()) for t in got):
@@ -1197,10 +1240,10 @@ def conv3_path(card: str, batch: int, policy: str) -> dict:
     worst = {src: {key: max(e[key] for e in errs) for key in ("y", "s1", "s2")}
              for src, errs in (("layer", layer_errs), ("plain", plain_errs))}
     result = {"card": card, "batch": batch, "policy": policy, "stages": len(captured),
-              "launches": launches[0], "reduce_launches": launches[1],
+              "launches": launches,
               "vs_layer_rel_err_max": worst["layer"], "vs_plain_rel_err_max": worst["plain"]}
     log(f"3x3 path {policy} batch {batch} on {card}: 16 stages captured from a train-mode "
-        f"ResNet-50 forward; (conv, reduce) launches {launches}; kernel vs the layer's chain "
+        f"ResNet-50 forward; launches {launches}; kernel vs the layer's chain "
         + " ".join(f"{k} {v:.2e}" for k, v in worst["layer"].items()) + "; vs plain "
         + " ".join(f"{k} {v:.2e}" for k, v in worst["plain"].items()))
     return result
@@ -1216,7 +1259,7 @@ def conv3_autograd(card: str) -> dict:
     from deeplearning4j_tpu_torch.ops.kernels import quant_matmul
 
     def counts():
-        return (conv3_bn.launches, conv3_bn.reduce_launches, conv_bn.launches,
+        return (conv3_bn.launches, conv_bn.launches,
                 conv_bn.bwd_launches, fa.launches, fa.bwd_launches, fa.split_launches,
                 quant_matmul.launches)
 
@@ -1422,9 +1465,11 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                 raise AssertionError(f"flash {dname} {name}: a planted fault moves the check "
                                      f"by only {faults} times its limit")
             if cut is not None:
+                # one TF32 pass in either backward form: both are held to the
+                # same plain dq, dk, dv at the same limits
                 moved = fa.flash_attention_block_bwd_plain(*cut[:3], oute, lsee, cut[3], **kw)
                 for key, g, w in zip(("dq", "dk", "dv"), moved, want):
-                    one_pass[key] = rel_max(g, w) / tol[key]
+                    one_pass[key] = one_pass[f"split_{key}"] = rel_max(g, w) / tol[key]
                 del moved, cut
                 if not min(one_pass.values()) >= FLASH_FAULT_MARGIN:
                     raise AssertionError(f"flash {dname} {name} D={d}: one TF32 pass moves the "
@@ -1453,8 +1498,7 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                          + (b * h * tq * d + 2 * b * h * tk * d) * 4
                          + (b * tk * 4 if mask is not None else 0))
             args = (q, k, v, mask, kw["scale"], kw["causal"], kw["q_offset"], kw["k_offset"])
-            # the forward and merged backward run on the tensor cores (f32 in
-            # three TF32 passes); the split's f32 kernels on the CUDA cores
+            # every kernel runs on the tensor cores, f32 in three TF32 passes
             tensor_peak = PEAK_F32_TF32X3 if dname == "float32" else PEAK_FLOPS[dname]
             ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             lib_out = library_attention(ql, kl, vl, kw)
@@ -1487,8 +1531,9 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                    "split_bytes_ms": bwd_bytes / PEAK_BYTES * 1e3,
                    # the function's five products, as the merged form's; the
                    # split algorithm does seven (s and dp in both kernels)
-                   "split_ops_ms": 10 * d * pairs / PEAK_FLOPS[dname] * 1e3,
-                   "split_algo_ops_ms": 14 * d * pairs / PEAK_FLOPS[dname] * 1e3}
+                   "split_ops_ms": 10 * d * pairs / tensor_peak * 1e3,
+                   "split_fma_ops_ms": 10 * d * pairs / PEAK_FLOPS[dname] * 1e3,
+                   "split_algo_ops_ms": 14 * d * pairs / tensor_peak * 1e3}
             # one plain version and one yardstick serve both backward forms
             row["split_plain_ms"], row["split_library_ms"] = row["bwd_plain_ms"], \
                 row["bwd_library_ms"]
@@ -1507,8 +1552,9 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                 + " ".join(f"{key} {e:.1e}" for key, e in errs.items())
                 + "; split vs merged " + " ".join(f"{key} {e:.1e}" for key, e in vs_merged.items())
                 + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit"
-                + ("; one TF32 pass reads " + " ".join(f"{k} {v:.0f}x" for k, v in one_pass.items())
-                   if one_pass else ""))
+                + ("; one TF32 pass reads " + " ".join(f"{k} {v:.0f}x" for k, v in one_pass.items()
+                                                       if not k.startswith("split_"))
+                   + " (either backward form)" if one_pass else ""))
             del q, k, v, dout, oute, lsee, ql, kl, vl, lib_out
             torch.cuda.empty_cache()
     return rows
@@ -2235,15 +2281,43 @@ def int8_entry(rows, vgg: dict) -> dict:
 MERGED_SCRATCH_LIMIT = 0.2e9
 # the A/B call's head dims at BERT-base's width: (D, heads)
 AB_HEAD_DIMS = ((64, 12), (32, 24), (128, 6), (80, 12), (256, 3), (192, 4))
+# the A/B call's 16-call conv3x3_bn_act passes: (batch, dtype)
+AB_CONV3 = ((BATCH, "float32"), (BATCH, "bfloat16"), (HEADLINE_BATCH, "bfloat16"))
+
+
+def conv3_pass_ms(batch: int, dname: str) -> dict:
+    """The 16 3x3 calls of one ResNet-50 pass at ``batch``: the kernel's ms
+    and the layer's chain's (a yardstick), each stage timed on seeded
+    inputs with the prologue and relu_in and counted once per call, by
+    CUDA events around back-to-back calls and as device time alone (the
+    small stages' calls can be shorter than the host's work per call)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
+    gen = torch.Generator(device="cuda").manual_seed(CONV3_SEED + batch)
+    dtype = getattr(torch, dname)
+    out = {"batch": batch, "dtype": dname, "ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+           "library_device_ms": 0.0}
+    for h, c, count in CONV3_STAGES:
+        x = torch.randn(batch, h, h, c, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(3, 3, c, c, device="cuda", generator=gen) / (9 * c) ** 0.5).to(dtype)
+        a = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.2
+        out["ms"] += count * cuda_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b), warmup=1)
+        out["library_ms"] += count * cuda_ms(lambda: library_conv3(x, w, a, b), warmup=1)
+        out["device_ms"] += count * device_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b))
+        out["library_device_ms"] += count * device_ms(lambda: library_conv3(x, w, a, b))
+        del x, w
+    torch.cuda.empty_cache()
+    return out
 
 
 def ab_times() -> dict:
     """Times of whichever ``deeplearning4j_tpu_torch`` is first on the
     path: the forward (normalized) and both backward forms at the base case
     of every AB head dim, f32 and bf16, the forward and the merged backward
-    at the causal case with offsets as well, and the BERT-base fine-tune
-    step (4 layers, 2 x 4096) and serving call (12 layers), in bf16 and
-    f32."""
+    at the causal case with offsets as well, the ``AB_CONV3`` passes of
+    ``conv3x3_bn_act``, and the BERT-base fine-tune step (4 layers, 2 x
+    4096) and serving call (12 layers), in bf16 and f32."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch import config
@@ -2253,7 +2327,7 @@ def ab_times() -> dict:
     from deeplearning4j_tpu_torch.train import Adam
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build(FLASH_LIBS)
+    _build.build((*FLASH_LIBS, "conv3x3_bn_act"))
     gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
     rows = []
     for d, heads in AB_HEAD_DIMS:
@@ -2277,6 +2351,7 @@ def ab_times() -> dict:
             rows.append(row)
             del q, k, v, dout, out, lse
             torch.cuda.empty_cache()
+    conv3 = [conv3_pass_ms(batch, dname) for batch, dname in AB_CONV3]
     bert = {}
     for policy in ("bf16", "f32"):
         config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
@@ -2297,7 +2372,7 @@ def ab_times() -> dict:
             torch.cuda.empty_cache()
         finally:
             config.set_dtype_policy(config.DTypePolicy.f32())
-    return {"flash_bwd": rows, **bert}
+    return {"flash_bwd": rows, "conv3": conv3, **bert}
 
 
 def ab(parent: Path) -> int:
@@ -2331,6 +2406,16 @@ def ab(parent: Path) -> int:
             gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
             log(f"  D={row['D']} H={row['H']} {row['dtype']:8s} {what:15s}: parent "
                 f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.3f}x)")
+    for i, row in enumerate(runs[0][1]["conv3"]):
+        for key, what in (("ms", "kernel"), ("library_ms", "the layer's chain"),
+                          ("device_ms", "kernel, device time"),
+                          ("library_device_ms", "the chain, device time")):
+            def pick(r, key=key):
+                return r["conv3"][i][key]
+            gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
+            log(f"  conv3x3_bn_act 16-call pass, batch {row['batch']} {row['dtype']:8s} {what}: "
+                f"parent {pair('parent', pick)} ms; change {pair('change', pick)} ms "
+                f"({gain:.3f}x)")
     for key, what in (("bert_finetune_step_bf16_ms", "BERT fine-tune step (bf16, 4 layers)"),
                       ("bert_serve_bf16_ms", "BERT serve (bf16, 12 layers)"),
                       ("bert_finetune_step_f32_ms", "BERT fine-tune step (f32, 4 layers)"),
@@ -2395,8 +2480,7 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for kernel, usage in ptxas_usage(name, info["log"]).items():
             log(f"    {kernel}: {usage}")
-    log("the flash kernels' bf16 templates and f32 forward and merged backward templates in "
-        "SASS (cuobjdump -sass):")
+    log("the flash and conv3x3_bn_act kernels in SASS (cuobjdump -sass):")
     hopper = check_hopper_path(built)
 
     net = build_net()
@@ -2444,12 +2528,16 @@ def main() -> int:
     timed = [r for r in conv3_rows if "ms" in r]
     c3f32, c3bf16 = per_forward(timed, "float32"), per_forward(timed, "bfloat16")
     c3h16 = per_forward(conv3_head_rows, "bfloat16")
-    for name, tot in ((f"batch {BATCH} f32", c3f32), (f"batch {BATCH} bf16", c3bf16),
-                      (f"batch {head['batch']} bf16", c3h16)):
-        log(f"  the 16 3x3 calls of one pass, {name}: kernel {tot['ms']:.3f} ms, plain "
+    for name, tot, sel in ((f"batch {BATCH} f32", c3f32, (timed, "float32")),
+                           (f"batch {BATCH} bf16", c3bf16, (timed, "bfloat16")),
+                           (f"batch {head['batch']} bf16", c3h16, (conv3_head_rows, "bfloat16"))):
+        fma = sum(r["fma_ops_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
+        dev = sum(r["device_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
+        log(f"  the 16 3x3 calls of one pass, {name}: kernel {tot['ms']:.3f} ms (device time "
+            f"{dev:.3f}), plain "
             f"{tot['plain_ms']:.3f}, library (the layer's chain) {tot['library_ms']:.3f}, bound "
             f"{tot['bound_ms']:.3f} ({tot['bound_by']}; bytes {tot['bytes_ms']:.3f}, operations "
-            f"{tot['ops_ms']:.3f})")
+            f"{tot['ops_ms']:.3f}; on the CUDA cores {fma:.3f})")
     torch.cuda.empty_cache()
 
     log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
@@ -2546,7 +2634,7 @@ def main() -> int:
               f"{head['batch']} (bf16)")
         | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/conv3_bn.py:37",
                             "deeplearning4j_tpu/ops/pallas/conv3_bn.py:84"],
-           "reduce_launches": sum(path["reduce_launches"] for path in conv3_paths)},
+           "sass": hopper["conv3x3_bn_act"]},
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,7 +1,9 @@
 """Convolutional, pooling and spatial layers (port of
 ``deeplearning4j_tpu/nn/layers/conv.py``): ``ConvolutionLayer``
-("truncate" and "same"), ``SubsamplingLayer`` (max), ``ZeroPaddingLayer``
-and ``GlobalPoolingLayer`` (avg), in eval and train mode (autograd,
+("truncate", "strict", "causal" and "same"), ``SubsamplingLayer`` and
+``GlobalPoolingLayer`` (max, avg, sum and pnorm; global pooling with the
+JAX package's optional mask) and ``ZeroPaddingLayer``, in eval and train
+mode (autograd,
 through cuDNN on the card, gives their backward; the JAX package leaves
 these to XLA too).
 
@@ -13,8 +15,10 @@ kernel to the compute dtype on read, as the JAX package does.
 
 JAX's "SAME" padding puts ``total // 2`` before and the rest after,
 which ``torch.nn`` cannot express when the two differ, so SAME pads are
-applied explicitly with ``F.pad`` (``-inf`` for max pooling, as
-``lax.reduce_window`` pads with its init value).
+applied explicitly with ``F.pad``.  Pooling pads as ``lax.reduce_window``
+does, with its init value: ``-inf`` for max, 0 for the sums behind avg,
+sum and pnorm, so a pad never counts; avg divides by the window's size
+(``avg_pool_include_pad``) or by the count of real elements in it.
 """
 
 from __future__ import annotations
@@ -113,7 +117,8 @@ class ConvolutionLayer(Layer):
                 pad = (0, 0)
             else:
                 pad = (pt, pl)
-        elif self.convolution_mode not in ("truncate", "strict"):
+        elif self.convolution_mode not in ("truncate", "strict", "causal"):
+            # the 2-D layer pads every other mode explicitly and symmetrically
             raise NotImplementedError(f"convolution_mode {self.convolution_mode!r}")
         y = _nhwc(F.conv2d(_nchw(x), self._weight(params).to(cdt).permute(3, 2, 0, 1),
                            stride=stride, padding=pad, dilation=dilation))
@@ -126,7 +131,7 @@ class ConvolutionLayer(Layer):
 @register_layer("subsampling")
 @dataclasses.dataclass
 class SubsamplingLayer(Layer):
-    """2-D pooling; only ``pooling_type="max"`` is ported."""
+    """2-D pooling: max, avg, sum or pnorm over NHWC windows."""
 
     pooling_type: str = "max"  # max | avg | sum | pnorm
     kernel_size: Any = (2, 2)
@@ -146,8 +151,9 @@ class SubsamplingLayer(Layer):
         return InputType.convolutional(h, w, input_type.channels)
 
     def apply(self, params, state, x, *, train=False, mask=None):
-        if self.pooling_type.lower() != "max":
-            raise NotImplementedError(f"pooling_type {self.pooling_type!r}")
+        kind = self.pooling_type.lower()
+        if kind not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(f"unknown pooling type {self.pooling_type}")
         (kh, kw), (sh, sw) = _pair(self.kernel_size), _pair(self.stride)
         if self.convolution_mode == "same":
             pt, pb = _same_pads(x.shape[1], kh, sh)
@@ -155,10 +161,25 @@ class SubsamplingLayer(Layer):
         else:
             ph, pw = _pair(self.padding)
             pt, pb, pl, pr = ph, ph, pw, pw
-        if pt or pb or pl or pr:
-            x = F.pad(x, (0, 0, pl, pr, pt, pb), value=float("-inf"))
-        y = _nhwc(F.max_pool2d(_nchw(x), (kh, kw), (sh, sw)))
-        return y, state
+        pads = (0, 0, pl, pr, pt, pb)
+        if kind == "max":
+            y = F.max_pool2d(_nchw(F.pad(x, pads, value=float("-inf"))), (kh, kw), (sh, sw))
+            return _nhwc(y), state
+
+        def window_sum(t):
+            return F.avg_pool2d(_nchw(F.pad(t, pads)), (kh, kw), (sh, sw), divisor_override=1)
+
+        if kind == "pnorm":
+            p = float(self.pnorm)
+            return _nhwc(window_sum(x.abs() ** p) ** (1.0 / p)), state
+        y = window_sum(x)
+        if kind == "avg":
+            if self.avg_pool_include_pad:
+                y = y / (kh * kw)
+            else:
+                # the count of real (non-pad) elements in each window
+                y = y / window_sum(torch.ones_like(x[:1, :, :, :1])).clamp_min(1.0)
+        return _nhwc(y), state
 
 
 @register_layer("zero_padding")
@@ -192,8 +213,9 @@ class ZeroPaddingLayer(Layer):
 @register_layer("global_pooling")
 @dataclasses.dataclass
 class GlobalPoolingLayer(Layer):
-    """Global pooling over the spatial dims; only ``pooling_type="avg"``
-    is ported, with the JAX package's optional mask."""
+    """Global pooling over the spatial (or time) dims: max, avg, sum or
+    pnorm, with the JAX package's optional mask (masked max over ``-inf``
+    fill)."""
 
     pooling_type: str = "max"  # max | avg | sum | pnorm
     pnorm: int = 2
@@ -210,12 +232,26 @@ class GlobalPoolingLayer(Layer):
         return input_type
 
     def apply(self, params, state, x, *, train=False, mask=None):
-        if self.pooling_type.lower() != "avg":
-            raise NotImplementedError(f"pooling_type {self.pooling_type!r}")
+        kind = self.pooling_type.lower()
+        if kind not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(f"unknown pooling type {self.pooling_type}")
         axes = tuple(range(1, x.ndim - 1))
+        p = float(self.pnorm)
         if mask is None:
-            return x.mean(dim=axes), state
+            if kind == "max":
+                return x.amax(dim=axes), state
+            if kind == "avg":
+                return x.mean(dim=axes), state
+            if kind == "sum":
+                return x.sum(dim=axes), state
+            return (x.abs() ** p).sum(dim=axes) ** (1.0 / p), state
         m = mask.to(x.dtype)
         while m.ndim < x.ndim:
             m = m[..., None]
-        return (x * m).sum(dim=axes) / m.sum(dim=axes).clamp_min(1.0), state
+        if kind == "max":
+            return torch.where(m > 0, x, float("-inf")).amax(dim=axes), state
+        if kind == "avg":
+            return (x * m).sum(dim=axes) / m.sum(dim=axes).clamp_min(1.0), state
+        if kind == "sum":
+            return (x * m).sum(dim=axes), state
+        return ((x * m).abs() ** p).sum(dim=axes) ** (1.0 / p), state

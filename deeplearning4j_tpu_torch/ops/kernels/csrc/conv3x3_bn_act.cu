@@ -18,470 +18,588 @@
 //
 // What bounds it on the H100: 2 * N*H*W * 9C * Cout operations against
 // (N*H*W * (C + Cout) + 9 C Cout) elements moved, so at ResNet-50's 3x3
-// stages (C = Cout from 64 to 512) it is bound by operations: in f32 by the
-// CUDA cores (67 TFLOP/s; the JAX kernel asks for Precision.HIGHEST, so no
-// TF32), in bf16 by the tensor cores.
+// stages (C = Cout from 64 to 512) it is bound by operations, on the tensor
+// cores: in f32 three TF32 passes a product (the JAX kernel asks for
+// Precision.HIGHEST; 165 TFLOP/s of f32-accurate work, the CUDA cores' FMA
+// peak is 67), in bf16 989 TFLOP/s.
 //
-// What the design does about it: an implicit GEMM, with M = N*H*W output
-// pixels, K = 9C (tap-major: k = (3 di + dj) C + c, which is HWIO read as a
-// [9C, Cout] matrix) and N = Cout, on the tiles of csrc/matmul_bn_act.cu.
-//   * The A tile is gathered: for output pixel m = (n, h, w) and tap
-//     (di, dj) it reads the input pixel (h + di - 1, w + dj - 1) of the same
-//     image, at flattened index m + (di - 1) W + (dj - 1), and gives zero
-//     where that pixel lies outside the image (so neighbours never cross a
-//     row's or an image's edge).  The BN fold is applied while the tile is
-//     loaded, to the pixels inside the image only, so the normalised input
-//     never goes to device memory.
-//   * f32: 256 threads, 8x8 outputs per thread from registers, FMA in f32.
-//     bf16: 8 warps of WMMA 16x16x16 (bf16 in, f32 accumulate); the folded
-//     input is rounded to bf16 before the products, y once at the end.
-//   * y is written from registers, and the same f32 values feed per-column
-//     partial sums of the block (the statistics are sums of the f32
-//     accumulator, not of the rounded y).  Each block writes its partials to
-//     its own row of a [tiles_m, Cout] scratch; a second small kernel sums the
-//     rows in a fixed order (no atomics, the same result on every run).
-//   * Any N, H, W, C and Cout.  When C and Cout are multiples of 4 (f32) or
-//     8 (bf16), as at every ResNet-50 shape, one 16-byte load brings a run of
-//     channels of one tap; otherwise the RAGGED template loads and stores
-//     element by element.  Past K = 9C both operands give zeros.
-// A simple kernel: no cp.async/TMA pipelining, no wgmma, and no row tile
-// with halo in shared memory (each input pixel is read by up to 9 tiles'
-// gathers, from L2).
+// What the design does about it: an implicit GEMM on wgmma fed by TMA, with
+// M = N*H*W output pixels, K = 9C (tap-major: k = (3 di + dj) C + c, HWIO
+// read as [9C, Cout]) and N = Cout.  A block owns 128 consecutive output
+// pixels (rows and images may change inside them) and 64 output channels,
+// and walks K as channel chunks of 128 bytes (64 bf16, 32 f32) times the 9
+// taps.  One producer warpgroup and two consumer warpgroups of 64 pixels:
+//   * A, the TPU's tiled body rethought: per chunk, three bands of 136 input
+//     pixels come in once by TMA (the flattened pixels m0 + di W - 1 .. for
+//     di = -1, 0, 1; rows past the tensor read as zeros), and the prep warps
+//     apply the BN fold once per input pixel in place, only to pixels of the
+//     tensor (bf16: folded in f32, rounded to bf16 as before).  The 9 taps
+//     read these bands at shifted rows (tap (di, dj): band di, row r + dj
+//     for output row r), which meet no 8-row alignment, so A goes to wgmma
+//     from registers: one ldmatrix a k-step, each lane naming its own row's
+//     swizzled address, or a row of zeros where its pixel's tap leaves the
+//     image.  A is double-buffered across chunks.
+//   * B: per (chunk, tap) a tile of 64 output channels by TMA through a
+//     ring of 4 stages.  bf16 reads w as it is (HWIO is [9C, Cout]: the
+//     tile is N-major, which bf16 wgmma takes); TF32 wgmma takes only a
+//     K-major B, so in f32 the wrapper makes a [Cout, 9, C] copy, split
+//     into its TF32 hi and lo halves.
+//   * f32: every product in three TF32 passes (flash_attention_sm90.cuh: A
+//     split in registers, B's halves from the wrapper), each tap's product
+//     in a fresh accumulator added to y in f32: the tensor core's adds round
+//     toward zero, and chained over K = 9C that bias would reach the f32
+//     limit.  bf16: one pass, chained.
+//   * Split-K: where the (pixel, channel) tiles cannot fill the card's 132
+//     SMs, the chunks are split over gridDim.z blocks (conv3_bn.py's plan
+//     picks the count).  Each writes its f32 partial tile; the last of them
+//     to finish (an arrival count per tile) adds all partials in split order,
+//     so y repeats bit for bit.
+//   * The epilogue writes y from registers and sums the f32 accumulator
+//     (not the rounded y) per column over the tile's pixels, in a fixed
+//     order; the last tile of each group of 32 pixel tiles adds their sums,
+//     and the last group of each column block the groups' (arrival counts
+//     again; two levels, so that no one block reads thousands of rows),
+//     each in a fixed order: s1 and s2 come out of the one launch and
+//     repeat bit for bit.
+//   * bf16 keeps one unit's products (a tap of a chunk) in flight while the
+//     next unit's A loads; f32, whose fresh tile must land before it is
+//     added, waits for each unit.
+// The Hopper pieces (mbarriers, TMA, wgmma, the TF32 split) are the flash
+// kernels' (flash_attention.cuh, flash_attention_sm90.cuh).
 //
-// Requirements checked by the Python wrapper: contiguous tensors, 16-byte
-// aligned base pointers, N*H*W < 65536 * 128.
-// Every entry point returns cudaGetLastError() after its launches.
+// Requirements checked and met by the Python wrapper (conv3_bn.py): x
+// contiguous [M', C'] with C' a multiple of the chunk and M' >= 136 rows
+// (zero-padded copies where C or M fall short), a, b padded to C' with
+// zeros, w (bf16: HWIO [3, 3, C', Cout']; f32: the copies [Cout', 9, C'])
+// with Cout' a multiple of 64, and
+// the scratch of its plan: partials [S, M, Cout] when S > 1, the sums
+// [2, tiles_m + groups, Cout], and zeroed arrival counts.  Every entry point returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for tensor maps
+// the CUDA driver refuses).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-constexpr int TILE_M = 128;
-constexpr int TILE_N = 128;
-constexpr int THREADS = 256;
+constexpr int C3_BM = 128, C3_BN = 64;        // output pixels and channels of a block
+constexpr int C3_BAND = 136;                  // input pixels of a band: BM + 2, to 8
+constexpr int C3_BAND_BYTES = C3_BAND * 128;  // 17408: a multiple of 1024
+constexpr int C3_PREP = 96;                   // prep threads (a multiple of 8)
+constexpr int C3_ST = 4;                      // B stages
+constexpr int C3_GROUP = 32;                  // pixel tiles whose column sums are added first
+constexpr int C3_THREADS = CONSUMERS + WG_THREADS;
 
-struct ConvArgs {
-  const void* x;        // [M, C], M = N*H*W
-  const void* w;        // [9C, Cout]
-  const float* a;       // [C]
-  const float* b;       // [C]
+struct C3Args {
+  const float* a;       // [C'] or null (no prologue)
+  const float* b;       // [C']
   void* y;              // [M, Cout]
-  float* part1;         // [tiles_m, Cout]
-  float* part2;         // [tiles_m, Cout]
-  int M, H, W, C, Cout, K, has_prologue, relu_in;
+  float* part;          // [S, M, Cout]: split-K partials (S > 1)
+  float* stats;         // [2, tiles_m + groups, Cout]: column sums of y, y^2 of each
+                        // pixel tile, then of each group of C3_GROUP tiles
+  int* counts;          // zeros: [tiles_m * tiles_n] (S > 1), [tiles_n * groups], [tiles_n]
+  float* s1;            // [Cout]
+  float* s2;            // [Cout]
+  int M, H, W, C, Cout, chunks, splits, tiles_m, tiles_n, relu_in;
 };
 
-__device__ __forceinline__ float fold(float v, float a, float b, int relu_in) {
+struct alignas(64) C3Maps {
+  CUtensorMap x;        // [1, M', C'], boxes [1, 136, 128 bytes]
+  CUtensorMap w, w_lo;  // f32: [Cout', 9, C'], boxes [64, 1, 128 bytes], hi and lo halves;
+                        // bf16: HWIO as [1, 9C', Cout'], boxes [1, 64, 128 bytes]
+  C3Args a;
+};
+
+// Shared memory: two A buffers of three bands, the B ring (f32: hi | lo),
+// a 16-byte row of zeros, the column sums of the consumer warps, barriers.
+template <bool F32>
+struct C3Smem {
+  static constexpr int CK = F32 ? 32 : 64;                      // channels of a chunk
+  static constexpr int A_BUF = 3 * C3_BAND_BYTES;
+  static constexpr int B_TILE = C3_BN * 128, B_STAGE = (F32 ? 2 : 1) * B_TILE;
+  static constexpr int A0 = 0, B0 = 2 * A_BUF, ZERO = B0 + C3_ST * B_STAGE;
+  static constexpr int RED = ZERO + 128;                        // [2][8 warps][BN] f32
+  static constexpr int BARS = RED + 2 * 8 * C3_BN * 4;
+  static constexpr size_t BYTES = 1024 + BARS + 8 * (6 + 2 * C3_ST);
+};
+
+__device__ __forceinline__ float c3_fold(float v, float a, float b, int relu_in) {
   // no FMA contraction: x*a rounds, then +b rounds, as in the plain version
-  float h = __fadd_rn(__fmul_rn(v, a), b);
+  const float h = __fadd_rn(__fmul_rn(v, a), b);
   return (relu_in && !(h > 0.f)) ? 0.f : h;
 }
 
-// Output pixel m's row and column in its image.
-struct Pixel {
-  int h, w;
-  bool live;   // m < M
-};
-
-__device__ __forceinline__ Pixel pixel_of(const ConvArgs& p, int m) {
-  Pixel px{0, 0, m < p.M};
-  if (px.live) {
-    const int hw = m % (p.H * p.W);
-    px.h = hw / p.W;
-    px.w = hw - px.h * p.W;
+// prep: the fold applied in place to one A buffer (3 bands of 136 pixels x
+// 128 bytes, 128-byte swizzled), to the pixels of the tensor only.  Thread
+// pt takes the 16-byte chunks pt, pt + C3_PREP, ...: always the same logical
+// chunk of a row (C3_PREP % 8 == 0), so the same channels.
+template <bool F32>
+__device__ __forceinline__ void c3_fold_bands(unsigned char* buf, const C3Args& p, int c0,
+                                              int m0, int pt) {
+  constexpr int PER = F32 ? 4 : 8;             // channels of a 16-byte chunk
+  const int j = pt & 7, c = c0 + PER * j;
+  float fa[PER], fb[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    fa[e] = p.a[c + e];
+    fb[e] = p.b[c + e];
   }
-  return px;
-}
-
-// Whether tap t (one of the 9, else none) of output pixel px reads an input
-// pixel inside px's image; if so, that pixel's flattened offset from px in off.
-__device__ __forceinline__ bool tap_inside(const ConvArgs& p, const Pixel& px, int t, int& off) {
-  const int di = t / 3 - 1, dj = t % 3 - 1;
-  off = di * p.W + dj;
-  return px.live && t < 9 && (unsigned)(px.h + di) < (unsigned)p.H &&
-         (unsigned)(px.w + dj) < (unsigned)p.W;
-}
-
-// ------------------------------------------------------------------ f32
-constexpr int F_BK = 8;
-
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-c3_f32_kernel(ConvArgs p) {
-  __shared__ __align__(16) float As[F_BK][TILE_M];   // gathered input tile, k-major
-  __shared__ __align__(16) float Bs[F_BK][TILE_N];   // W tile
-  __shared__ float red1[16][TILE_N];
-  __shared__ float red2[16][TILE_N];
-
-  const float* x = static_cast<const float*>(p.x);
-  const float* w = static_cast<const float*>(p.w);
-  float* y = static_cast<float*>(p.y);
-  const int M = p.M, N = p.Cout, K = p.K, C = p.C;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * TILE_M, n0 = blockIdx.x * TILE_N;
-
-  // loaders: each thread brings 4 consecutive k of one output pixel and
-  // 4 consecutive n of one W row per k-step
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_n = (tid & 31) * 4;
-  const int gm = m0 + a_row;
-  const Pixel px = pixel_of(p, gm);
-  const bool b_live = (n0 + b_n) < N;
-  // the thread's k = k0 + a_k as (tap, channel), advanced by F_BK a step
-  int tap = a_k / C, ch = a_k % C;
-
-  float acc[8][8];
+  for (int i = pt; i < 3 * C3_BAND * 8; i += C3_PREP) {
+    const int row = i >> 3, di = row / C3_BAND;
+    const int pix = m0 + (di - 1) * p.W - 1 + (row - di * C3_BAND);
+    if (pix < 0 || pix >= p.M) continue;
+    uint4* at = reinterpret_cast<uint4*>(buf + row * 128 + ((j ^ (row & 7)) << 4));
+    uint4 v = *at;
+    if constexpr (F32) {
+      float* f = reinterpret_cast<float*>(&v);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (!RAGGED) {
-      // C % 4 == 0: the 4 k share one tap
-      int off;
-      if (tap_inside(p, px, tap, off)) {
-        av = *reinterpret_cast<const float4*>(x + (size_t)(gm + off) * C + ch);
-        if (p.has_prologue) {
-          av.x = fold(av.x, p.a[ch + 0], p.b[ch + 0], p.relu_in);
-          av.y = fold(av.y, p.a[ch + 1], p.b[ch + 1], p.relu_in);
-          av.z = fold(av.z, p.a[ch + 2], p.b[ch + 2], p.relu_in);
-          av.w = fold(av.w, p.a[ch + 3], p.b[ch + 3], p.relu_in);
-        }
-      }
-      if (b_live && k0 + b_row < K)
-        bv = *reinterpret_cast<const float4*>(w + (size_t)(k0 + b_row) * N + n0 + b_n);
-      ch += F_BK;
-      while (ch >= C) {
-        ch -= C;
-        ++tap;
-      }
+      for (int e = 0; e < 4; ++e) f[e] = c3_fold(f[e], fa[e], fb[e], p.relu_in);
     } else {
-      float* ae = &av.x;
-      float* be = &bv.x;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + a_k + q, n = n0 + b_n + q;
-        if (k < K) {
-          const int t = k / C, c = k - t * C;
-          int off;
-          if (tap_inside(p, px, t, off)) {
-            const float v = x[(size_t)(gm + off) * C + c];
-            ae[q] = p.has_prologue ? fold(v, p.a[c], p.b[c], p.relu_in) : v;
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        h[e] = __floats2bfloat162_rn(c3_fold(f.x, fa[2 * e], fb[2 * e], p.relu_in),
+                                     c3_fold(f.y, fa[2 * e + 1], fb[2 * e + 1], p.relu_in));
+      }
+    }
+    *at = v;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// Wait until at most one committed wgmma group is still in flight.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The sums of rows [r0, r1) of the two stats tables ([rows, Cout] each:
+// column sums of y, then of y^2) at the block's 64 channels, added in a
+// fixed order: thread tid (2 tables x 2 phases x 64 channels) keeps 8
+// running sums of every other row, which are then added in order, and the
+// two phases' totals through red.  The result is in the threads of phase 0
+// (tid % 128 < 64): table tid / 128, channel n0 + tid % 64.
+__device__ __forceinline__ float c3_sum_rows(const C3Args& a, float* red, int rows, int n0, int r0,
+                                             int r1, int tid) {
+  const int which = tid / (2 * C3_BN), c = tid % C3_BN, ph = (tid / C3_BN) & 1;
+  float part[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) part[k] = 0.f;
+  if (n0 + c < a.Cout) {
+    const float* col = a.stats + (size_t)which * rows * a.Cout + n0 + c;
+    int i = r0 + ph;
+    for (; i + 14 < r1; i += 16)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.Cout);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (i + 2 * k < r1) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.Cout);
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += part[k];
+  consumers_sync(1);           // red's last readers are done
+  red[tid] = sum;
+  consumers_sync(1);
+  return red[tid] + red[tid ^ C3_BN];
+}
+
+// One block: pixels [m0, m0 + 128) (blockIdx.y), channels [n0, n0 + 64)
+// (blockIdx.x) and the chunks of split blockIdx.z, [z chunks / S, (z + 1)
+// chunks / S).  Consumer warpgroup wg owns pixels m0 + 64 wg .. + 63: the
+// accumulator entry 4 j + 2 h + e of lane 4 g + t of its warp wq is pixel
+// m0 + 64 wg + 16 wq + g + 8 h, channel n0 + 8 j + 2 t + e.
+template <bool F32>
+__device__ __forceinline__ void c3_body(const C3Maps& p) {
+  using L = C3Smem<F32>;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  constexpr int CK = L::CK;
+  extern __shared__ __align__(128) unsigned char c3_smem[];
+  __shared__ int last;
+  unsigned char* sp = smem_1024(c3_smem);
+  const uint32_t su = smem_u32(sp);
+  const uint32_t a_full = su + L::BARS, a_ready = a_full + 16, a_empty = a_ready + 16,
+                 b_full = a_empty + 16, b_empty = b_full + 8 * C3_ST;
+  const C3Args& a = p.a;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nt = blockIdx.x, mt = blockIdx.y, z = blockIdx.z;
+  const int m0 = mt * C3_BM, n0 = nt * C3_BN;
+  const int c_begin = z * a.chunks / a.splits, n_chunks = (z + 1) * a.chunks / a.splits - c_begin;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(a_full + 8 * i, 1);
+      mbar_init(a_ready + 8 * i, C3_PREP);
+      mbar_init(a_empty + 8 * i, CONSUMERS / 32);
+    }
+    for (int s = 0; s < C3_ST; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 32) reinterpret_cast<float*>(sp + L::ZERO)[tid] = 0.f;
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    const int pw = tid - CONSUMERS;
+    if (pw == 0) {
+      // the weight tiles of every (chunk, tap) in the consumers' order
+      int u = 0;
+      for (int ci = 0; ci < n_chunks; ++ci)
+        for (int tap = 0; tap < 9; ++tap, ++u) {
+          const int s = u % C3_ST;
+          const uint32_t dst = su + L::B0 + s * L::B_STAGE, bar = b_full + 8 * s;
+          mbar_wait(b_empty + 8 * s, ((u / C3_ST) & 1) ^ 1);
+          mbar_expect_tx(bar, L::B_STAGE);
+          const int c0 = (c_begin + ci) * CK;
+          if constexpr (F32) {
+            tma_load(dst, &p.w, bar, c0, tap, n0);
+            tma_load(dst + L::B_TILE, &p.w_lo, bar, c0, tap, n0);
+          } else {
+            tma_load(dst, &p.w, bar, n0, tap * a.C + c0, 0);
           }
         }
-        if (n < N && k0 + b_row < K) be[q] = w[(size_t)(k0 + b_row) * N + n];
-      }
-    }
-    As[a_k + 0][a_row] = av.x;
-    As[a_k + 1][a_row] = av.y;
-    As[a_k + 2][a_row] = av.z;
-    As[a_k + 3][a_row] = av.w;
-    *reinterpret_cast<float4*>(&Bs[b_row][b_n]) = bv;
-    __syncthreads();
-
+    } else if (pw >= 32) {
+      // prep: each chunk's three bands (its first thread issues the loads),
+      // folded in place
+      const int pt = pw - 32;
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int ab = ci & 1, c0 = (c_begin + ci) * CK;
+        const uint32_t buf = su + L::A0 + ab * L::A_BUF;
+        mbar_wait(a_empty + 8 * ab, ((ci >> 1) & 1) ^ 1);
+        if (pt == 0) {
+          mbar_expect_tx(a_full + 8 * ab, L::A_BUF);
 #pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: rows ty*4+{0..3} and 64+ty*4+{0..3}; columns likewise with tx
-  float cs1[8], cs2[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) cs1[j] = cs2[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int om = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (om < M) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gn = n0 + h * 64 + tx * 4;
-        if constexpr (!RAGGED) {
-          if (gn < N)
-            *reinterpret_cast<float4*>(y + (size_t)om * N + gn) = make_float4(
-                acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (gn + q < N) y[(size_t)om * N + gn + q] = acc[i][h * 4 + q];
+          for (int di = 0; di < 3; ++di)
+            tma_load(buf + di * C3_BAND_BYTES, &p.x, a_full + 8 * ab, c0,
+                     m0 + (di - 1) * a.W - 1, 0);
         }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs1[j] += acc[i][j];
-        cs2[j] += acc[i][j] * acc[i][j];
+        mbar_wait(a_full + 8 * ab, (ci >> 1) & 1);
+        if (a.a != nullptr) c3_fold_bands<F32>(sp + L::A0 + ab * L::A_BUF, a, c0, m0, pt);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(a_ready + 8 * ab);
       }
     }
+    return;
   }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = tid / WG_THREADS, wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  // the pixel whose row this lane names to ldmatrix, and the taps of it
+  // that stay inside its image (bit 3 di + dj)
+  const int lrow = 64 * wg + 16 * wq + (lane & 7) + 8 * ((lane >> 3) & 1), k8 = lane >> 4;
+  uint32_t taps = 0;
+  {
+    const int pix = m0 + lrow;
+    if (pix < a.M) {
+      const int hw = pix % (a.H * a.W), hh = hw / a.W, ww = hw - hh * a.W;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-    red1[ty][c] = cs1[j];
-    red2[ty][c] = cs2[j];
+      for (int tap = 0; tap < 9; ++tap)
+        if ((unsigned)(hh + tap / 3 - 1) < (unsigned)a.H &&
+            (unsigned)(ww + tap % 3 - 1) < (unsigned)a.W)
+          taps |= 1u << tap;
+    }
   }
-  __syncthreads();
-  const int c = tid & (TILE_N - 1);
-  if (n0 + c < N) {
-    float (*red)[TILE_N] = tid < TILE_N ? red1 : red2;
-    float s = 0.f;
+  // unit u = 9 ci + tap: chunk ci (A buffer ci & 1, waited for at its first
+  // tap) and weight stage u % C3_ST
+  auto b_stage = [&](int u) {
+    mbar_wait(b_full + 8 * (u % C3_ST), (u / C3_ST) & 1);
+    return su + L::B0 + (u % C3_ST) * L::B_STAGE;
+  };
+  // the four k-steps' A fragments of unit u by ldmatrix: this lane's row of
+  // band di for tap (di, dj) is lrow + dj, or the zero row
+  auto load_a = [&](int u, uint32_t (&x)[4][4]) {
+    const int ci = u / 9, tap = u - 9 * ci;
+    const uint32_t buf = su + L::A0 + (ci & 1) * L::A_BUF;
+    if (tap == 0) mbar_wait(a_ready + 8 * (ci & 1), (ci >> 1) & 1);
+    const int row = lrow + tap % 3;
+    const uint32_t rbase = buf + (tap / 3) * C3_BAND_BYTES + row * 128;
+    const bool on = (taps >> tap) & 1;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) s += red[t][c];
-    (tid < TILE_N ? p.part1 : p.part2)[(size_t)blockIdx.y * N + n0 + c] = s;
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix4(x[kk], on ? rbase + (((2 * kk + k8) ^ (row & 7)) << 4) : su + L::ZERO);
+  };
+  // unit u's products are done: its weight stage, and after the last tap
+  // its A buffer, go back to the producers
+  auto retire = [&](int u) {
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(b_empty + 8 * (u % C3_ST));
+      if (u % 9 == 8) mbar_arrive(a_empty + 8 * ((u / 9) & 1));
+    }
+  };
+  const int units = 9 * n_chunks;
+  float acc[32];
+  zero(acc);
+  if constexpr (F32) {
+    // four 8-channel k-steps a unit, three TF32 passes, into a fresh tile
+    for (int u = 0; u < units; ++u) {
+      uint32_t x[4][4], ah[4][4], al[4][4];
+      load_a(u, x);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[kk][i]), ah[kk][i], al[kk][i]);
+      const uint32_t bs = b_stage(u);
+      float tile[32];
+      zero(tile);
+      reg_fence(tile);
+      reg_fence(ah);
+      reg_fence(al);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma3(tile, ah[kk], al[kk], desc_f32<C3_BN>(bs, 8 * kk),
+             desc_f32<C3_BN>(bs + L::B_TILE, 8 * kk));
+      wg_commit();
+      wg_wait();
+      reg_fence(tile);
+      reg_fence(ah);
+      reg_fence(al);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += tile[i];
+      retire(u);
+    }
+  } else {
+    // four 16-channel k-steps a unit, one pass chained in acc, one unit's
+    // products in flight while the next unit's A loads (two register sets)
+    uint32_t a0[4][4] = {}, a1[4][4] = {};
+    auto issue = [&](int u, uint32_t (&a)[4][4]) {
+      load_a(u, a);
+      const uint32_t bs = b_stage(u);
+      reg_fence(acc);
+      reg_fence(a);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, a[kk], desc_n<64, 64>(bs, 16 * kk, 0), 1);
+      wg_commit();
+    };
+    for (int u = 0; u < units; u += 2) {
+      issue(u, a0);
+      wg_wait1();
+      reg_fence(a1);             // unit u - 1 is done with a1
+      if (u > 0) retire(u - 1);
+      if (u + 1 < units) {
+        issue(u + 1, a1);
+        wg_wait1();
+        reg_fence(a0);           // unit u is done with a0
+        retire(u);
+      }
+    }
+    wg_wait();
+    reg_fence(acc);
+    reg_fence(a0);
+    reg_fence(a1);
+    if (units > 0) retire(units - 1);
   }
+
+  const int pix0 = m0 + 64 * wg + 16 * wq + g;   // this thread's pixels pix0, pix0 + 8
+  if (a.splits > 1) {
+    // this split's partial tile; the last split of the tile to arrive adds
+    // them all in split order
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (pix0 + 8 * h >= a.M) continue;
+      float* row = a.part + ((size_t)z * a.M + pix0 + 8 * h) * a.Cout;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (n0 + 8 * j + 2 * t + e < a.Cout) row[n0 + 8 * j + 2 * t + e] = acc[4 * j + 2 * h + e];
+    }
+    __threadfence();
+    consumers_sync(1);
+    if (tid == 0) last = atomicAdd(a.counts + mt * a.tiles_n + nt, 1) == a.splits - 1;
+    consumers_sync(1);
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (pix0 + 8 * h >= a.M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * j + 2 * t + e;
+          if (col >= a.Cout) continue;
+          float sum = 0.f;
+          for (int sp2 = 0; sp2 < a.splits; ++sp2)
+            sum += __ldcg(a.part + ((size_t)sp2 * a.M + pix0 + 8 * h) * a.Cout + col);
+          acc[4 * j + 2 * h + e] = sum;
+        }
+    }
+  }
+
+  // y, and the tile's column sums of the f32 accumulator over its pixels
+  T* y = static_cast<T*>(a.y);
+  float c1[16], c2[16];   // channel n0 + 8 j + 2 t + e at 2 j + e
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c1[i] = c2[i] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pix = pix0 + 8 * h;
+    if (pix >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + 2 * t + e;
+        const float v = acc[4 * j + 2 * h + e];
+        if (col < a.Cout) {
+          if constexpr (F32)
+            y[(size_t)pix * a.Cout + col] = v;
+          else
+            y[(size_t)pix * a.Cout + col] = __float2bfloat16_rn(v);
+        }
+        c1[2 * j + e] += v;
+        c2[2 * j + e] += v * v;
+      }
+  }
+  // over the warp's 8 g (lanes 4 g + t), then over the 8 consumer warps in order
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int x = 4; x < 32; x <<= 1) {
+      c1[i] += __shfl_xor_sync(0xffffffffu, c1[i], x);
+      c2[i] += __shfl_xor_sync(0xffffffffu, c2[i], x);
+    }
+  float* red = reinterpret_cast<float*>(sp + L::RED);   // [2][8][BN]
+  const int warp = tid / 32;
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp * C3_BN + 8 * j + 2 * t + e] = c1[2 * j + e];
+        red[(8 + warp) * C3_BN + 8 * j + 2 * t + e] = c2[2 * j + e];
+      }
+  }
+  consumers_sync(1);
+  const int rows = a.tiles_m + (a.tiles_m + C3_GROUP - 1) / C3_GROUP;   // of a stats table
+  if (tid < 2 * C3_BN) {
+    const int which = tid / C3_BN, c = tid % C3_BN;
+    float sum = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) sum += red[(8 * which + w8) * C3_BN + c];
+    if (n0 + c < a.Cout) a.stats[((size_t)which * rows + mt) * a.Cout + n0 + c] = sum;
+  }
+  // the last pixel tile of its group of C3_GROUP adds the group's sums in
+  // order, then the last group of this channel block adds the groups'
+  int* count = a.counts + (a.splits > 1 ? a.tiles_m * a.tiles_n : 0);
+  const int grp = mt / C3_GROUP, n_groups = rows - a.tiles_m;
+  const int g0 = grp * C3_GROUP, g1 = min(g0 + C3_GROUP, a.tiles_m);
+  __threadfence();
+  consumers_sync(1);
+  if (tid == 0) last = atomicAdd(count + nt * n_groups + grp, 1) == g1 - g0 - 1;
+  consumers_sync(1);
+  if (!last) return;
+  __threadfence();
+  float sum = c3_sum_rows(a, red, rows, n0, g0, g1, tid);
+  const int which = tid / (2 * C3_BN), c = tid % C3_BN;
+  const bool mine = tid % (2 * C3_BN) < C3_BN && n0 + c < a.Cout;
+  if (mine) a.stats[((size_t)which * rows + a.tiles_m + grp) * a.Cout + n0 + c] = sum;
+  __threadfence();
+  consumers_sync(1);
+  if (tid == 0) last = atomicAdd(count + a.tiles_n * n_groups + nt, 1) == n_groups - 1;
+  consumers_sync(1);
+  if (!last) return;
+  __threadfence();
+  sum = c3_sum_rows(a, red, rows, n0, a.tiles_m, rows, tid);
+  if (mine) (which ? a.s2 : a.s1)[n0 + c] = sum;
 }
 
-// ----------------------------------------------------------------- bf16
-constexpr int H_BK = 32;
-constexpr int A_LD = H_BK + 8;     // padded leading dims (multiples of 8)
-constexpr int B_LD = TILE_N + 8;
-
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-c3_bf16_kernel(ConvArgs p) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[TILE_M][A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[H_BK][B_LD];
-  __shared__ __align__(128) float stage[THREADS / 32][16 * 16];
-  __shared__ float colred[2][2][TILE_N];   // [s1|s2][warp row][column]
-
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
-  const int M = p.M, N = p.Cout, K = p.K, C = p.C;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * TILE_M, n0 = blockIdx.x * TILE_N;
-
-  // input tile: 128 pixels x 32 k = 512 chunks of 8 k, two per thread, at
-  // pixels (tid >> 2) and 64 + (tid >> 2), the same 8 k
-  const int kc = (tid & 3) * 8;
-  const int gm[2] = {m0 + (tid >> 2), m0 + 64 + (tid >> 2)};
-  const Pixel px[2] = {pixel_of(p, gm[0]), pixel_of(p, gm[1])};
-  int tap = kc / C, ch = kc % C;   // k = k0 + kc as (tap, channel), advanced by H_BK
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (RAGGED) {
-        __nv_bfloat16* hv = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int k = k0 + kc + q;
-          if (k >= K) continue;
-          const int t = k / C, c = k - t * C;
-          int off;
-          if (!tap_inside(p, px[it], t, off)) continue;
-          const __nv_bfloat16 xv = x[(size_t)(gm[it] + off) * C + c];
-          hv[q] = p.has_prologue
-                      ? __float2bfloat16_rn(fold(__bfloat162float(xv), p.a[c], p.b[c], p.relu_in))
-                      : xv;
-        }
-      } else {
-        // C % 8 == 0: the 8 k share one tap
-        int off;
-        if (tap_inside(p, px[it], tap, off)) {
-          v = *reinterpret_cast<const uint4*>(x + (size_t)(gm[it] + off) * C + ch);
-          if (p.has_prologue) {
-            __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int c = ch + 2 * q;
-              float2 f = __bfloat1622float2(hv[q]);
-              f.x = fold(f.x, p.a[c], p.b[c], p.relu_in);
-              f.y = fold(f.y, p.a[c + 1], p.b[c + 1], p.relu_in);
-              hv[q] = __floats2bfloat162_rn(f.x, f.y);
-            }
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(&As[(tid >> 2) + it * 64][kc]) = v;
-    }
-    if constexpr (!RAGGED) {
-      ch += H_BK;
-      while (ch >= C) {
-        ch -= C;
-        ++tap;
-      }
-    }
-    // W tile: 32 k x 128 n = 512 chunks of 8 bf16, two per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int krow = idx >> 4, nc = (idx & 15) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (RAGGED) {
-        __nv_bfloat16* hv = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (k0 + krow < K && n0 + nc + q < N) hv[q] = w[(size_t)(k0 + krow) * N + n0 + nc + q];
-      } else if (k0 + krow < K && n0 + nc < N) {
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + krow) * N + n0 + nc);
-      }
-      *reinterpret_cast<uint4*>(&Bs[krow][nc]) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &As[wm * 64 + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each 16x16 accumulator goes through the warp's staging tile;
-  // lane owns column (lane & 15) and rows (lane >> 4) * 8 + {0..7}
-  float* st = stage[warp];
-  const int c = lane & 15, rh = lane >> 4;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int col = wn * 32 + j * 16 + c;
-    const int gn = n0 + col;
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int row = rh * 8 + r;
-        const int om = m0 + wm * 64 + i * 16 + row;
-        const float v = st[row * 16 + c];
-        if (om < M && gn < N) {
-          y[(size_t)om * N + gn] = __float2bfloat16_rn(v);
-          s1 += v;
-          s2 += v * v;
-        }
-      }
-      __syncwarp();
-    }
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, 16);
-    if (rh == 0) {
-      colred[0][wm][col] = s1;
-      colred[1][wm][col] = s2;
-    }
-  }
-  __syncthreads();
-  const int cc = tid & (TILE_N - 1), which = tid >> 7;
-  if (n0 + cc < N)
-    (which ? p.part2 : p.part1)[(size_t)blockIdx.y * N + n0 + cc] =
-        colred[which][0][cc] + colred[which][1][cc];
+__global__ void __launch_bounds__(C3_THREADS, 1) c3_f32_kernel(const __grid_constant__ C3Maps p) {
+  c3_body<true>(p);
 }
 
-// ------------------------------------------------------ stats reduction
-// One column per threadIdx.x; the 32 threadIdx.y lanes take every 32nd tile
-// row, then thread y == 0 adds the 32 partials in order: fixed, so the
-// statistics are the same on every run (matmul_bn_act.cu's reduction).
-__global__ void c3_stats_reduce_kernel(const float* __restrict__ part1,
-                                       const float* __restrict__ part2,
-                                       float* __restrict__ s1, float* __restrict__ s2,
-                                       int tiles_m, int N) {
-  __shared__ float r1[32][33];
-  __shared__ float r2[32][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  float t1 = 0.f, t2 = 0.f;
-  if (n < N) {
-    for (int t = threadIdx.y; t < tiles_m; t += 32) {
-      t1 += part1[(size_t)t * N + n];
-      t2 += part2[(size_t)t * N + n];
-    }
-  }
-  r1[threadIdx.y][threadIdx.x] = t1;
-  r2[threadIdx.y][threadIdx.x] = t2;
-  __syncthreads();
-  if (threadIdx.y == 0 && n < N) {
-    float u1 = 0.f, u2 = 0.f;
-    for (int t = 0; t < 32; ++t) {
-      u1 += r1[t][threadIdx.x];
-      u2 += r2[t][threadIdx.x];
-    }
-    s1[n] = u1;
-    s2[n] = u2;
-  }
+__global__ void __launch_bounds__(C3_THREADS, 1) c3_bf16_kernel(const __grid_constant__ C3Maps p) {
+  c3_body<false>(p);
 }
 
-int launch(void (*kernel)(ConvArgs), const void* x, const void* w, const void* a,
-           const void* b, void* y, void* part1, void* part2, void* s1, void* s2, int n_img,
-           int H, int W, int C, int Cout, int has_prologue, int relu_in, void* stream) {
-  ConvArgs p;
-  p.x = x;
-  p.w = w;
-  p.a = static_cast<const float*>(a);
-  p.b = static_cast<const float*>(b);
-  p.y = y;
-  p.part1 = static_cast<float*>(part1);
-  p.part2 = static_cast<float*>(part2);
-  p.M = n_img * H * W;
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  p.Cout = Cout;
-  p.K = 9 * C;
-  p.has_prologue = has_prologue;
-  p.relu_in = relu_in;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles_m = (p.M + TILE_M - 1) / TILE_M;
-  kernel<<<dim3((Cout + TILE_N - 1) / TILE_N, tiles_m), THREADS, 0, s>>>(p);
-  c3_stats_reduce_kernel<<<(Cout + 31) / 32, dim3(32, 32), 0, s>>>(
-      p.part1, p.part2, static_cast<float*>(s1), static_cast<float*>(s2), tiles_m, Cout);
-  return static_cast<int>(cudaGetLastError());
+// A 3-D map over [d2, d1, d0] (innermost d0, row pitch d0 elements) in boxes
+// [b2, b1, 128 bytes], 128-byte swizzled; what lies past the tensor reads as
+// zeros.
+bool c3_map(CUtensorMap* map, const void* ptr, bool f32, int d0, int d1, int d2, int b1, int b2) {
+  const int esz = f32 ? 4 : 2;
+  cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  cuuint64_t strides[2] = {(cuuint64_t)d0 * esz, (cuuint64_t)d0 * d1 * esz};
+  cuuint32_t box[3] = {(cuuint32_t)(128 / esz), (cuuint32_t)b1, (cuuint32_t)b2};
+  cuuint32_t one[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool F32>
+int launch(const void* x, const void* w, const void* w_lo, const void* a, const void* b,
+           void* y, void* part, void* stats, void* counts, void* s1, void* s2, int n_img,
+           int H, int W, int C, int x_rows, int Cout, int cout_rows, int splits, int relu_in,
+           void* stream) {
+  using L = C3Smem<F32>;
+  C3Maps p;
+  C3Args& q = p.a;
+  q.a = static_cast<const float*>(a);
+  q.b = static_cast<const float*>(b);
+  q.y = y;
+  q.part = static_cast<float*>(part);
+  q.stats = static_cast<float*>(stats);
+  q.counts = static_cast<int*>(counts);
+  q.s1 = static_cast<float*>(s1);
+  q.s2 = static_cast<float*>(s2);
+  q.M = n_img * H * W;
+  q.H = H;
+  q.W = W;
+  q.C = C;
+  q.Cout = Cout;
+  q.chunks = C / L::CK;
+  q.splits = splits;
+  q.tiles_m = (q.M + C3_BM - 1) / C3_BM;
+  q.tiles_n = (Cout + C3_BN - 1) / C3_BN;
+  q.relu_in = relu_in;
+  if (!(c3_map(&p.x, x, F32, C, x_rows, 1, C3_BAND, 1) &&
+        (F32 ? c3_map(&p.w, w, F32, C, 9, cout_rows, 1, C3_BN) &&
+                   c3_map(&p.w_lo, w_lo, F32, C, 9, cout_rows, 1, C3_BN)
+             : c3_map(&p.w, w, F32, cout_rows, 9 * C, 1, 64, 1))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(q.tiles_n, q.tiles_m, splits);
+  return launch_kernel(F32 ? c3_f32_kernel : c3_bf16_kernel, grid, C3_THREADS, L::BYTES,
+                       reinterpret_cast<cudaStream_t>(stream), p);
 }
 
 }  // namespace
 
 extern "C" {
 
-int conv3x3_bn_act_tile_m(void) { return TILE_M; }
+// The tile and chunk sizes the wrapper's plan must use.
+int conv3x3_bn_act_tile_m(void) { return C3_BM; }
+int conv3x3_bn_act_tile_n(void) { return C3_BN; }
+int conv3x3_bn_act_chunk(int f32) { return f32 ? C3Smem<true>::CK : C3Smem<false>::CK; }
 
-int conv3x3_bn_act_f32(const void* x, const void* w, const void* a, const void* b, void* y,
-                       void* part1, void* part2, void* s1, void* s2, int n_img, int H, int W,
-                       int C, int Cout, int has_prologue, int relu_in, void* stream) {
-  const bool ragged = C % 4 || Cout % 4;
-  return launch(ragged ? &c3_f32_kernel<true> : &c3_f32_kernel<false>, x, w, a, b, y, part1,
-                part2, s1, s2, n_img, H, W, C, Cout, has_prologue, relu_in, stream);
+// x [x_rows, C] (C a multiple of the chunk); f32: w and w_lo [cout_rows, 9,
+// C]; bf16: w [3, 3, C, cout_rows]; the rest as C3Args.
+int conv3x3_bn_act_f32(const void* x, const void* w, const void* w_lo, const void* a,
+                       const void* b, void* y, void* part, void* stats, void* counts, void* s1,
+                       void* s2, int n_img, int H, int W, int C, int x_rows, int Cout,
+                       int cout_rows, int splits, int relu_in, void* stream) {
+  return launch<true>(x, w, w_lo, a, b, y, part, stats, counts, s1, s2, n_img, H, W, C, x_rows,
+                      Cout, cout_rows, splits, relu_in, stream);
 }
 
 int conv3x3_bn_act_bf16(const void* x, const void* w, const void* a, const void* b, void* y,
-                        void* part1, void* part2, void* s1, void* s2, int n_img, int H, int W,
-                        int C, int Cout, int has_prologue, int relu_in, void* stream) {
-  const bool ragged = C % 8 || Cout % 8;
-  return launch(ragged ? &c3_bf16_kernel<true> : &c3_bf16_kernel<false>, x, w, a, b, y, part1,
-                part2, s1, s2, n_img, H, W, C, Cout, has_prologue, relu_in, stream);
+                        void* part, void* stats, void* counts, void* s1, void* s2, int n_img,
+                        int H, int W, int C, int x_rows, int Cout, int cout_rows, int splits,
+                        int relu_in, void* stream) {
+  return launch<false>(x, w, nullptr, a, b, y, part, stats, counts, s1, s2, n_img, H, W, C,
+                       x_rows, Cout, cout_rows, splits, relu_in, stream);
 }
 
 }  // extern "C"

@@ -1,24 +1,22 @@
 // Device code shared by the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, flash_attention_bwd_split.cu): the f32 tile
-// loader, mbarriers, the backward's arguments and visibility rule, its
-// ordered dq sum, the f32 tensor maps, and the f32 body of the split
-// backward's dk/dv kernel (FMA on the CUDA cores).  Every bf16 kernel, and
-// the f32 forward and merged backward, are built on Hopper's wgmma and TMA
+// flash_attention_bwd.cu, flash_attention_bwd_split.cu): mbarriers, the
+// backward's arguments and visibility rule, its ordered dq sum and the f32
+// tensor maps.  Every kernel is built on Hopper's wgmma and TMA
 // (flash_attention_sm90.cuh; f32 in three TF32 passes a product).
 //
 // Every kernel is templated on the head dim D in {32, 64, 128}; the wrapper
 // zero-pads any other head dim up to 128 to the next of these.  A head dim
 // past 128 is zero-padded to a multiple of 128 (the row length ld in device
 // memory) and runs in the WIDE form of a template: the output columns are
-// split into slabs, one slab per block (of 128 columns in the split f32
-// kernels and the bf16 forward, of 64 in the bf16 key-tile kernels and the
-// f32 forward and merged backward). Each block computes the scores s = q.k
-// (and dp = dout.v in the backward) over the whole head dim, always in the
-// same order, and accumulates only its own columns of o (forward), or of
-// dk, dv and dq (backward). So the accumulators stay those of one slab, s
-// and dp are recomputed once per slab, and m, l and lse come out the same in
-// every slab (slab 0 writes them). All tiles live in dynamic shared memory
-// (the launchers raise the 48 KB default where a template needs more).
+// split into slabs, one slab per block (of 128 columns in the bf16 forward
+// and both dq kernels, of 64 in the key-tile kernels and the f32 forward).
+// Each block computes the scores s = q.k (and dp = dout.v in the backward)
+// over the whole head dim, always in the same order, and accumulates only
+// its own columns of o (forward), or of dk, dv and dq (backward). So the
+// accumulators stay those of one slab, s and dp are recomputed once per
+// slab, and m, l and lse come out the same in every slab (slab 0 writes
+// them). All tiles live in dynamic shared memory (the launchers raise the
+// 48 KB default where a template needs more).
 #pragma once
 
 #include <cuda.h>
@@ -30,31 +28,11 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64;           // keys per tile
-constexpr int F_THREADS = 256;   // f32 kernels: 16 x 16 threads over a 64 x 64 tile
 constexpr int WG_THREADS = 128;  // a warpgroup
 // setmaxnreg: a warpgroup that only moves data gives registers to those that compute
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------- loaders
-// rows [row0, row0 + n) of a [n_rows, ld] f32 matrix, D columns from src,
-// into dst[n][D + 1]; zeros past n_rows.  The odd row length keeps a column
-// read by 16 rows on 16 banks.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const float* src, int row0,
-                                              int n, int n_rows, int tid, int threads,
-                                              int ld = D) {
-  for (int idx = tid; idx < n * (D / 4); idx += threads) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld + c);
-    dst[r][c] = v.x;
-    dst[r][c + 1] = v.y;
-    dst[r][c + 2] = v.z;
-    dst[r][c + 3] = v.w;
-  }
-}
 
 // ------------------------------------------------------------- helpers
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -109,85 +87,6 @@ struct alignas(64) TmaArgs {
 
 __device__ __forceinline__ bool causal_ok(const BwdArgs& a, int qg, int kg) {
   return !a.causal || a.q_offset + qg >= a.k_offset + kg;
-}
-
-__device__ __forceinline__ bool visible(const BwdArgs& a, const float* km, int qg, int kg) {
-  if (kg >= a.tk) return false;
-  if (km != nullptr && !(km[kg] > 0.f)) return false;
-  return causal_ok(a, qg, kg);
-}
-
-// One score entry's p and ds from s = q.k and dp = dout.v:
-//     p  = exp(s * scale - lse)   on a visible key of a live row, else 0
-//     ds = p * (dp - delta) * scale
-__device__ __forceinline__ float2 p_ds(float s, float dp, float lse, float delta, bool seen,
-                                       float scale) {
-  const float p = (lse > NEG_INF * 0.5f && seen) ? expf(s * scale - lse) : 0.f;
-  return make_float2(p, p * (dp - delta) * scale);
-}
-
-// The f32 score tile of 64 query rows (q0..) against a 64-key tile (k0..),
-// from padded rows in shared memory: the thread's rows ty + 16 i and keys
-// tx + 16 j of s = q k^T and dp = dout v^T by FMA on the CUDA cores, added
-// to p and ds (score_dots_f32), then their p and ds (score_finish_f32).
-template <int D>
-__device__ __forceinline__ void score_dots_f32(float (*Qs)[D + 1], float (*dOs)[D + 1],
-                                               float (*Ks)[D + 1], float (*Vs)[D + 1], int tx,
-                                               int ty, float (&p)[4][4], float (&ds)[4][4]) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = Qs[ty + 16 * i][d];
-      oa[i] = dOs[ty + 16 * i][d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = Ks[tx + 16 * j][d];
-      vb[j] = Vs[tx + 16 * j][d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = fmaf(qa[i], kb[j], p[i][j]);      // s
-        ds[i][j] = fmaf(oa[i], vb[j], ds[i][j]);    // dp
-      }
-  }
-}
-
-__device__ __forceinline__ void score_finish_f32(const BwdArgs& a, const float* km,
-                                                 const float* lse_s, const float* delta_s,
-                                                 int q0, int k0, int tx, int ty,
-                                                 float (&p)[4][4], float (&ds)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const bool alive = lse_s[r] > NEG_INF * 0.5f;   // the key mask is read for live rows only
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 pd = p_ds(p[i][j], ds[i][j], lse_s[r], delta_s[r],
-                             alive && visible(a, km, q0 + r, k0 + tx + 16 * j), a.scale);
-      p[i][j] = pd.x;
-      ds[i][j] = pd.y;
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void score_tile_f32(const BwdArgs& a, const float* km,
-                                               float (*Qs)[D + 1], float (*dOs)[D + 1],
-                                               float (*Ks)[D + 1], float (*Vs)[D + 1],
-                                               const float* lse_s, const float* delta_s, int q0,
-                                               int k0, int tx, int ty, float (&p)[4][4],
-                                               float (&ds)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
-  score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
-  score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
 }
 
 // The merged backward's dq sum.  dq starts at zero and every key tile adds
@@ -338,145 +237,6 @@ __device__ __forceinline__ int key_tiles(int tk, int causal, int q_offset, int k
     n = min(n, (int)(last / bk) + 1);
   }
   return n;
-}
-
-// The f32 dk/dv kernel's tiles (the split backward's, flash_attention_bwd_split.cu).
-template <int D>
-__host__ __device__ constexpr size_t bwd_f32_smem() {
-  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64) * sizeof(float);
-}
-
-// The split backward's dk/dv block: a 64-key tile kt of one (batch, head)
-// bh (and slab z) walks the 64-row query tiles, carrying dk and dv in
-// registers (the TPU kernels' VMEM scratch):
-//
-//     p  = exp(q.k * scale - lse)   on visible keys of live rows, else 0
-//     ds = p * (dout.v - delta) * scale
-//     dv += p^T dout,  dk += ds^T q              (f32)
-//
-// Each of 256 threads owns 4 x 4 entries of the score tile (rows ty + 16 i,
-// keys tx + 16 j) and 4 x D/16 of dk and dv, FMA on the CUDA cores from
-// padded rows.  WIDE: the block's slab z of D columns of rows a.ld long; the
-// score tile sums over every slab (k and v tiles reloaded per slab with q
-// and dout), then q and dout are reloaded at the block's own slab for the
-// products.
-template <int D, bool WIDE = false>
-__device__ __forceinline__ void bwd_f32_body(const BwdArgs& a, int kt, int bh, int z) {
-  constexpr int LD = D + 1, NJ = D / 16, BQ = 64;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  float (*Ks)[LD] = reinterpret_cast<float (*)[LD]>(flash_smem);
-  float (*Vs)[LD] = Ks + BK;
-  float (*Qs)[LD] = Vs + BK;
-  float (*dOs)[LD] = Qs + BQ;
-  float (*Ps)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(dOs + BQ);
-  float (*dSs)[BK + 1] = Ps + BQ;
-  float* lse_s = &dSs[BQ][0];
-  float* delta_s = lse_s + BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, k0 = kt * BK;
-  const int ld = WIDE ? a.ld : D, col0 = WIDE ? z * D : 0;
-  const int n_qt = (a.tq + BQ - 1) / BQ;
-  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.tq * ld;
-  const float* k = static_cast<const float*>(a.k) + (size_t)bh * a.tk * ld;
-  const float* v = static_cast<const float*>(a.v) + (size_t)bh * a.tk * ld;
-  const float* dout = static_cast<const float*>(a.dout) + (size_t)bh * a.tq * ld;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.heads) * a.tk : nullptr;
-
-  if constexpr (!WIDE) {
-    load_rows_f32<D>(Ks, k, k0, BK, a.tk, tid, F_THREADS);
-    load_rows_f32<D>(Vs, v, k0, BK, a.tk, tid, F_THREADS);
-  }
-
-  float dk[4][NJ], dv[4][NJ];     // key rows ty + 16 i, columns col0 + tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    if (skipped(a, q0, BQ, k0)) continue;
-    __syncthreads();                 // the last tile's readers are done
-    float p[4][4], ds[4][4];         // query rows ty + 16 i, key columns tx + 16 j
-    if constexpr (WIDE) {
-      if (tid < BQ) {
-        const bool real = q0 + tid < a.tq;
-        lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
-        delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
-      for (int c = 0; c < ld; c += D) {
-        if (c) __syncthreads();      // the last slab's readers are done
-        load_rows_f32<D>(Ks, k + c, k0, BK, a.tk, tid, F_THREADS, ld);
-        load_rows_f32<D>(Vs, v + c, k0, BK, a.tk, tid, F_THREADS, ld);
-        load_rows_f32<D>(Qs, q + c, q0, BQ, a.tq, tid, F_THREADS, ld);
-        load_rows_f32<D>(dOs, dout + c, q0, BQ, a.tq, tid, F_THREADS, ld);
-        __syncthreads();
-        score_dots_f32<D>(Qs, dOs, Ks, Vs, tx, ty, p, ds);
-      }
-      score_finish_f32(a, km, lse_s, delta_s, q0, k0, tx, ty, p, ds);
-      if (col0 + D != ld) {          // the products take the block's own slab
-        __syncthreads();
-        load_rows_f32<D>(Qs, q + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
-        load_rows_f32<D>(dOs, dout + col0, q0, BQ, a.tq, tid, F_THREADS, ld);
-      }
-    } else {
-      load_rows_f32<D>(Qs, q, q0, BQ, a.tq, tid, F_THREADS);
-      load_rows_f32<D>(dOs, dout, q0, BQ, a.tq, tid, F_THREADS);
-      if (tid < BQ) {
-        const bool real = q0 + tid < a.tq;
-        lse_s[tid] = real ? a.lse[(size_t)bh * a.tq + q0 + tid] : NEG_INF;
-        delta_s[tid] = real ? a.delta[(size_t)bh * a.tq + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      score_tile_f32<D>(a, km, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, tx, ty, p, ds);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[ty + 16 * i][tx + 16 * j] = p[i][j];
-        dSs[ty + 16 * i][tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();                 // p and ds complete
-
-    // dv += p^T dout, dk += ds^T q: key rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pa[4], sa[4], ob[NJ], qb[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = Ps[r][ty + 16 * i];
-        sa[i] = dSs[r][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        ob[j] = dOs[r][tx + 16 * j];
-        qb[j] = Qs[r][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
-          dk[i][j] = fmaf(sa[i], qb[j], dk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kg = k0 + ty + 16 * i;
-    if (kg >= a.tk) continue;
-    const size_t row = ((size_t)bh * a.tk + kg) * ld + col0;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      a.dk[row + tx + 16 * j] = dk[i][j];
-      a.dv[row + tx + 16 * j] = dv[i][j];
-    }
-  }
 }
 
 // Whether head dim d runs in the WIDE form of the templates: past 128, a

@@ -21,16 +21,16 @@ On a CUDA tensor in f32 or bf16, at any head dim, they launch the
 hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu`` (merged) and
 ``csrc/flash_attention_bwd_split.cu`` (two kernels), whose headers say
-what bounds them and how they are built, or raise; every bf16 kernel,
-forward and backward, and the f32 forward and merged backward run on
-wgmma fed by TMA (``csrc/flash_attention_sm90.cuh``), f32 in three TF32
-passes a product (:func:`tf32_three_pass_matmul` is that arithmetic in
-plain PyTorch); the f32 split backward runs on the CUDA cores.  The
+what bounds them and how they are built, or raise; every kernel, forward
+and both backward forms, in f32 and bf16, runs on wgmma fed by TMA
+(``csrc/flash_attention_sm90.cuh``), f32 in three TF32 passes a product
+(:func:`tf32_three_pass_matmul` is that arithmetic in plain PyTorch).  The
 merged form adds each key tile's share of dq into dq in key-tile order
 (deterministic), with a few int32 flags as its only scratch
 (:func:`merged_scratch_bytes`).  The kernels are templated on head dims
 32, 64 and 128, and run a head dim past 128 in column slabs of the output
-(128 columns, 64 in the bf16 key-tile kernels), one block per slab, each
+(128 columns in the bf16 forward and both dq kernels, 64 in the
+key-tile kernels and the f32 forward), one block per slab, each
 computing the scores over the whole head dim (``csrc/flash_attention.cuh``).
 Any other head dim is zero-padded up to the next template, or past 128 to
 the next multiple of 128 (:func:`kernel_head_dim`, :func:`pad_head_dim`),
@@ -55,8 +55,9 @@ changes them.  The ``block_q``/``block_k``
 arguments are the TPU kernel's tiling knobs: they are accepted and do
 not change the result; the CUDA kernels use their own tiles: in the
 forward 128 query rows a block and tiles of 64 keys (bf16: 128 keys below
-D = 128); in the merged backward 64 keys a block in f32 and 128 in bf16,
-and query tiles of 64 rows.
+D = 128); in the key-tile backward kernels 64 keys a block in f32 and
+128 in bf16, and query tiles of 64 rows; in the split form's dq kernel 64
+query rows a block in f32 and 128 in bf16, and tiles of 64 keys.
 """
 
 from __future__ import annotations

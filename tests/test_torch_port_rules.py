@@ -495,11 +495,11 @@ def test_cpu_conv3_run_never_touches_the_kernel_loader(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
     x = torch.randn(2, 5, 4, 8, requires_grad=True)
     w = torch.randn(3, 3, 8, 6, requires_grad=True)
-    before = (conv3_bn.launches, conv3_bn.reduce_launches)
+    before = conv3_bn.launches
     y, s1, s2 = conv3_bn.conv3x3_bn_act(x, w, torch.ones(8), torch.zeros(8))
     (y.sum() + s1.sum() + s2.sum()).backward()
     assert tuple(y.shape) == (2, 5, 4, 6) and x.grad is not None and w.grad is not None
-    assert (conv3_bn.launches, conv3_bn.reduce_launches) == before
+    assert conv3_bn.launches == before
 
 
 @pytest.mark.parametrize("bad,error,match", [
@@ -529,14 +529,11 @@ def test_conv3_wrapper_refuses_what_the_kernel_does_not_take(bad, error, match):
 
 
 class _StubConv3Lib:
-    """The built library: a tile size, and ``rc`` from the launch."""
+    """The built library: ``rc`` from the launch."""
 
     def __init__(self, rc):
         self.rc = rc
         self.args = None
-
-    def conv3x3_bn_act_tile_m(self):
-        return 128
 
     def conv3x3_bn_act_f32(self, *args):
         self.args = args
@@ -547,20 +544,22 @@ class _StubConv3Lib:
 def test_failed_conv3_launch_raises_and_is_not_counted(prologue):
     x, w = torch.zeros(3, 9, 11, 24), torch.zeros(3, 3, 24, 40)
     a, b = (torch.ones(24), torch.zeros(24)) if prologue else (None, None)
-    before = (conv3_bn.launches, conv3_bn.reduce_launches)
+    before = conv3_bn.launches
     lib = _StubConv3Lib(rc=9)   # cudaErrorInvalidConfiguration
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
         conv3_bn._launch(lib, x, w, a, b, True, 0)
-    assert (conv3_bn.launches, conv3_bn.reduce_launches) == before
-    # pointers x, w, a, b, y, part1, part2, s1, s2, then N, H, W, C, Cout,
-    # prologue, relu_in, stream
-    assert len(lib.args) == 17 and lib.args[9:16] == (3, 9, 11, 24, 40, int(prologue), 1)
-    assert (lib.args[2] is None) == (not prologue)
+    assert conv3_bn.launches == before
+    # pointers x, w, w_lo, a, b, y, part, stats, counts, s1, s2, then N, H, W,
+    # C padded to the f32 chunk, x's rows, Cout, Cout padded to the tile,
+    # splits (297 pixels fill 3 tiles: K splits over its 1 chunk, so 1),
+    # relu_in, stream
+    assert len(lib.args) == 21 and lib.args[11:20] == (3, 9, 11, 32, 297, 40, 64, 1, 1)
+    assert (lib.args[3] is None) == (not prologue) and lib.args[6] is None
     y, s1, s2 = conv3_bn._launch(_StubConv3Lib(rc=0), x, w, a, b, False, 0)
     assert tuple(y.shape) == (3, 9, 11, 40) and y.dtype == x.dtype
     assert s1.shape == s2.shape == (40,) and s1.dtype == torch.float32
-    assert (conv3_bn.launches, conv3_bn.reduce_launches) == (before[0] + 1, before[1] + 1)
-    conv3_bn.launches, conv3_bn.reduce_launches = before
+    assert conv3_bn.launches == before + 1
+    conv3_bn.launches = before
 
 
 def test_conv3_grid_limit_is_refused():
