@@ -46,10 +46,10 @@ ITERS = 5
 
 CATEGORIES = (
     ("conv3x3_bn_act", ("c3_f32_kernel", "c3_bf16_kernel")),
-    ("int8_matmul", ("int8_mm_f32_kernel", "int8_mm_bf16_kernel", "int8_mm_reduce_kernel")),
+    ("int8_matmul", ("i8_f32_kernel", "i8_bf16_kernel")),
     ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
-    ("matmul_bn_act_bwd", ("bwd_dx_f32_kernel", "bwd_dw_f32_kernel", "bwd_dx_bf16_kernel",
-                           "bwd_dw_bf16_kernel", "colsum_kernel")),
+    ("matmul_bn_act_bwd", ("mbb_dx_f32_kernel", "mbb_dw_f32_kernel", "mbb_dx_bf16_kernel",
+                           "mbb_dw_bf16_kernel")),
     ("flash_attention", ("fa_fwd_f32_kernel", "fa_fwd_bf16_kernel")),
     ("flash_attention_bwd", ("fa_bwd_f32_kernel", "fa_bwd_bf16_kernel")),
     ("flash_attention_bwd_split", ("fa_dq_f32_kernel", "fa_dq_bf16_kernel", "fa_dkv_f32_kernel",

@@ -10,10 +10,11 @@ no result line:
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in this checkout (one
    ``nvcc`` per source, all started together); every kernel of the flash
-   libraries (forward, merged and two-kernel backward) and of
-   ``conv3x3_bn_act``, f32 and bf16, must hold wgmma and TMA loads
-   (``HGMMA`` and ``UTMALDG`` in ``cuobjdump -sass``; the counts are
-   printed), and none of their templates may spill (ptxas);
+   libraries (forward, merged and two-kernel backward), of
+   ``conv3x3_bn_act``, of the ``matmul_bn_act`` backward and of
+   ``int8_matmul``, f32 and bf16, must hold wgmma and TMA loads (``HGMMA``
+   and ``UTMALDG`` in ``cuobjdump -sass``; the counts are printed), and
+   none of their templates may spill (ptxas);
 3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
    of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
    kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
@@ -31,9 +32,11 @@ no result line:
 5. the same shapes for the merged backward, in f32 and bf16 with random
    O(1) dy, ds1, ds2: hold the backward kernel's dx, dW, da, db to
    ``matmul_bn_act_bwd_plain``, show that dropping either cotangent term
-   of dyt would move that check far past its limit, and time the kernel, the plain version and
-   a library yardstick (two ``torch.matmul`` with the elementwise work as
-   torch ops);
+   of dyt, or (f32) running one TF32 pass in place of the kernel's three,
+   would move that check far past its limit, call each shape twice for the
+   same bits (dW's M split over blocks), and time the kernel, the plain
+   version and a library yardstick (two ``torch.matmul`` with the
+   elementwise work as torch ops);
 6. train full-width ResNet-50 in f32 at batch 32 for 3 steps of
    ``Trainer.fit_batch`` (``Nesterovs(TRAIN_LR, 0.9)``) through the
    kernels, then 3 steps from the same start with both plain versions in
@@ -120,9 +123,12 @@ no result line:
    (1024, 1024), (1024, 10), at M = 1, 2, 4, 7, 8, 16 and 32 (every bucket
    of the engine, and ragged rows), in f32 and bf16: held to
    ``int8_matmul_plain`` (f32 within 1e-5 of max |y|, bf16 within one bf16
-   ulp per entry), two planted faults (the scale dropped, the last K split
-   skipped) at least 10x past the limit, and timed with the L2 flushed
-   against the plain version, a library yardstick and the bound;
+   ulp per entry), planted faults (the scale dropped, the last K split
+   skipped; in f32 one TF32 pass in place of the kernel's three, x cut to
+   its TF32 hi)
+   at least 10x past the limit, a second call giving the same bits, and
+   timed with the L2 flushed against the plain version, a library
+   yardstick and the bound;
 17. the headline of int8 serving: full-width VGG-16 (224x224x3, 1000
    classes, seeded weights) under ``bench_quantized``'s serving policy
    (bf16 params, compute and outputs), ``quantize_net`` with two seeded
@@ -145,9 +151,14 @@ e.g. the parent commit unpacked with ``git archive``) runs none of the
 phases: it times the flash forward (normalized) and both backward forms
 at the base case of every head dim in ``AB_HEAD_DIMS``, f32 and bf16, the
 16-call ``conv3x3_bn_act`` pass (f32 at batch 32, bf16 at batch 32 and
-256) beside the layer's chain, the BERT fine-tune step and the BERT
-serving call, in the other tree and in this one, each in its own
-process, in the order parent, change, change, parent, and prints the
+256) beside the layer's chain, with a checksum of y, s1 and s2 at each of
+its shapes, the 36-call ``matmul_bn_act`` pass of ResNet-50 (the
+backward beside its library yardstick, and the forward; f32 at batch 32,
+bf16 at 32 and 256; events and device time alone), the int8 kernel at
+VGG-16's fc6, fc7 and fc8 at M = 1, 8 and 32 (f32 and bf16, L2 cold,
+beside ``torch.matmul`` on the widened weight), the BERT fine-tune step
+and the BERT serving call, in the other tree and in this one, each in its
+own process, in the order parent, change, change, parent, and prints the
 times side by side (``chiprun_out/chip_ab.json``).
 
 f32 means full f32 here: TF32 is switched off for cuBLAS and cuDNN
@@ -173,7 +184,9 @@ SEED = 20261016
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # f32-accurate work on the tensor cores: three TF32 passes a product at
-# 495 TFLOP/s of TF32 (the f32 flash forward and merged backward)
+# 495 TFLOP/s of TF32 (the f32 flash kernels, conv3x3_bn_act, the
+# matmul_bn_act backward, and int8_matmul, whose weight is exact in TF32 and
+# x takes three parts)
 PEAK_F32_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 # kernel vs plain on the same inputs, max |diff| over a scale of the result:
@@ -266,9 +279,10 @@ def ptxas_usage(name: str, nvcc_log: str) -> dict:
 
 # the libraries every kernel of which must run on Hopper's tensor-core path,
 # wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG), in f32 and bf16, with no
-# template spilling: the flash kernels and the fused 3x3 conv
+# template spilling: the flash kernels, the fused 3x3 conv, the
+# matmul_bn_act backward and the int8 dequant-matmul
 HOPPER_LIBS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split",
-               "conv3x3_bn_act")
+               "conv3x3_bn_act", "matmul_bn_act_bwd", "int8_matmul")
 FLASH_LIBS = HOPPER_LIBS[:3]
 
 
@@ -286,7 +300,7 @@ def sass_counts(name: str) -> dict:
             # anonymous namespace before it may hold "fa_" too), then its
             # template arguments
             kernel = line.split(": ", 1)[1]
-            for m in re.finditer(r"(?=((?:fa|c3)_\w*?_kernel)(I(?:L[ib]\d+E)+E)?)", line):
+            for m in re.finditer(r"(?=((?:fa|c3|mbb|i8)_\w*?_kernel)(I(?:L[ib]\d+E)+E)?)", line):
                 name = m.group(1)
                 if line[:m.start()].endswith(str(len(name))):
                     args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
@@ -300,9 +314,10 @@ def sass_counts(name: str) -> dict:
 
 
 def check_hopper_path(built: dict) -> dict:
-    """Every kernel of the flash libraries and of ``conv3x3_bn_act``, f32
-    and bf16, holds wgmma and TMA loads in its SASS, and no template of
-    them spills (ptxas's report of this build)."""
+    """Every kernel of ``HOPPER_LIBS`` (the flash libraries,
+    ``conv3x3_bn_act``, the ``matmul_bn_act`` backward, ``int8_matmul``),
+    f32 and bf16, holds wgmma and TMA loads in its SASS, and no template
+    of them spills (ptxas's report of this build)."""
     result = {}
     for name in HOPPER_LIBS:
         counts = sass_counts(name)
@@ -659,7 +674,32 @@ def bwd_over_limit(got, want, dname: str) -> float:
     return max(v / TOL_BWD[dname][key] for key, v in bwd_errs(got, want)[0].items())
 
 
+def bwd_one_tf32_pass(x, w, a, b, y, dy, ds1, ds2):
+    """Comparison only: the f32 backward with one TF32 pass in place of
+    the kernel's three (each product's operands cut to TF32 as the tensor
+    core reads f32 words), the rest as ``matmul_bn_act_bwd_plain``
+    (relu_in on)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels.flash_attention import tf32_cut
+    dyt = dy.float() + ds1 + 2.0 * y.float() * ds2
+    dxh = tf32_cut(dyt) @ tf32_cut(w).t()
+    da = db = None
+    if a is not None:
+        pre = x.float() * a + b
+        xh = torch.relu(pre)
+        dpre = torch.where(pre > 0, dxh, 0.0)
+        dx, da, db = dpre * a, (dpre * x.float()).sum(0), dpre.sum(0)
+    else:
+        xh, dx = x.float(), dxh
+    return dx, tf32_cut(xh).t() @ tf32_cut(dyt), da, db
+
+
 def check_bwd_kernels(calls, dtypes) -> list[dict]:
+    """The backward kernel pair against its plain version at each (M, K, N,
+    prologue), with the planted faults, a second call that must give the
+    same bits, and times (kernel, plain, library yardstick).  The f32
+    bound is three TF32 passes' (the kernels' design), the CUDA cores'
+    beside it."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -694,6 +734,9 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
                 for key in ("dx", "dw"):
                     fault_errs[f"{term} dropped: {key}"] = moved[key] / TOL_BWD[dname][key]
                 seen[f"{term} dropped"] = max(v / TOL_BWD[dname][key] for key, v in moved.items())
+            if dname == "float32":
+                seen["one TF32 pass"] = fault_errs["one TF32 pass"] = bwd_over_limit(
+                    bwd_one_tf32_pass(*args), want, dname)
             gated, ragged = dict(fault_errs), bool(k % 32 or n % 32)
             if ragged:
                 # ragged shapes: every planted fault is gated as the check reads
@@ -728,12 +771,21 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
                 raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n}: "
                                      f"a planted fault moves the check by only {weak} "
                                      f"times its limit")
+            again = conv_bn.matmul_bn_act_bwd(*args, relu_in=True)
+            if not all(u is None and v is None or bool(torch.equal(u, v))
+                       for u, v in zip(got, again)):
+                raise AssertionError(f"matmul_bn_act backward {dname} M={m} K={k} N={n} "
+                                     f"prologue={pro}: a second call gave other bits")
+            del again
+            splits = conv_bn.bwd_plan(m, k, n, dtype)["splits"]
             isz = x.element_size()
             nbytes = ((2 * m * k + 2 * m * n + 2 * k * n) * isz
                       + (4 * k * 4 if pro else 0) + 2 * n * 4)
             flops = 4 * m * k * n
+            peak = PEAK_F32_TF32X3 if dname == "float32" else PEAK_FLOPS[dname]
             row = {"dtype": dname, "M": m, "K": k, "N": n, "prologue": pro,
                    "count": calls.count((m, k, n, pro)), "max_abs_err": abs_err,
+                   "m_splits": splits, "second_call_bits_equal": True,
                    "rel_err": errs, "fault_over_limit": fault_errs,
                    "fault_over_limit_min": min(gated.values()),
                    "ms": cuda_ms(lambda: conv_bn.matmul_bn_act_bwd(*args, relu_in=True)),
@@ -741,13 +793,16 @@ def check_bwd_kernels(calls, dtypes) -> list[dict]:
                                                                                relu_in=True)),
                    "library_ms": cuda_ms(lambda: library_matmul_bn_act_bwd(*args)),
                    "bytes_ms": nbytes / PEAK_BYTES * 1e3,
-                   "ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
+                   "ops_ms": flops / peak * 1e3,
+                   "fma_ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             rows.append(row)
             log(f"  {dname:8s} M={m:6d} K={k:4d} N={n:4d} pro={int(pro)} x{row['count']}: "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}), rel err "
+                f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}; FMA "
+                f"{max(row['bytes_ms'], row['fma_ops_ms']):.4f}), M splits {splits}, second "
+                f"call same bits; rel err "
                 + " ".join(f"{key} {v:.2e}" for key, v in errs.items())
                 + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit"
                 + ("" if not ragged else " (" + ", ".join(
@@ -1978,11 +2033,15 @@ def library_int8_matmul(x, w_q, scale):
 
 def check_int8(dtypes) -> list[dict]:
     """Phase: the int8 kernel against its plain version at every shape and
-    batch, in each dtype, with two planted faults; times the kernel, the
-    plain version and the library yardstick, L2 cold."""
+    batch, in each dtype, with the planted faults (f32: one TF32 pass in
+    place of its three, too) and a second call that must give the same
+    bits; times the kernel, the plain version and the library yardstick, L2
+    cold.  The f32 bound is three TF32 passes' (the kernel's design), the
+    CUDA cores' beside it."""
     import torch
     from deeplearning4j_tpu_torch.nn.quantize import quantize_weight
     from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    from deeplearning4j_tpu_torch.ops.kernels.flash_attention import tf32_split
     gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
@@ -2006,16 +2065,25 @@ def check_int8(dtypes) -> list[dict]:
                               qm.int8_matmul_plain(x, w_q, torch.ones_like(scale)), ye, dname),
                           "last K split skipped": int8_over_limit(
                               qm.int8_matmul_plain(skipped, w_q, scale), ye, dname)}
+                if dname == "float32":
+                    faults["one TF32 pass"] = int8_over_limit(
+                        qm.int8_matmul_plain(tf32_split(x)[0], w_q, scale), ye, dname)
                 if not min(faults.values()) >= INT8_FAULT_MARGIN:
                     raise AssertionError(f"int8_matmul {dname} {name} M={m}: a planted fault "
                                          f"moves the check by only {faults} times its limit")
+                if not torch.equal(qm.int8_matmul(x, w_q, scale), y):
+                    raise AssertionError(f"int8_matmul {dname} {name} M={m}: a second call gave "
+                                         f"other bits")
                 # reading only: both f32 sums against the f64 product, over max |y|
                 exact = (x.double() @ w_q.double()) * scale.double()
                 f64_err = {key: ((v.double() - exact).abs().max() / exact.abs().max()).item()
                            for key, v in (("kernel", y), ("plain", ye))}
                 isz = x.element_size()
                 nbytes = k * n + (m * k + m * n) * isz + 4 * n
+                flops = 2 * m * k * n
+                peak = PEAK_F32_TF32X3 if dname == "float32" else PEAK_FLOPS[dname]
                 row = {"shape": name, "dtype": dname, "M": m, "K": k, "N": n, "splits": splits,
+                       "second_call_bits_equal": True,
                        "max_abs_err": (y.float() - ye.float()).abs().max().item(),
                        "f64_rel_err": f64_err,
                        "over_limit": over, "fault_over_limit": faults,
@@ -2024,13 +2092,15 @@ def check_int8(dtypes) -> list[dict]:
                        "plain_ms": cold_ms(lambda: qm.int8_matmul_plain(x, w_q, scale)),
                        "library_ms": cold_ms(lambda: library_int8_matmul(x, w_q, scale)),
                        "bytes_ms": nbytes / PEAK_BYTES * 1e3,
-                       "ops_ms": 2 * m * k * n / PEAK_FLOPS[dname] * 1e3}
+                       "ops_ms": flops / peak * 1e3,
+                       "fma_ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
                 row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
                 row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
                 rows.append(row)
                 log(f"  {dname:8s} {name:10s} M={m:2d} K={k:5d} N={n:4d} splits={splits:2d}: "
                     f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
-                    f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+                    f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}; FMA "
+                    f"{max(row['bytes_ms'], row['fma_ops_ms']):.4f}), second call same bits; "
                     f"error {over:.2f} of the limit (against f64: kernel "
                     f"{f64_err['kernel']:.1e}, plain {f64_err['plain']:.1e}); a planted fault reads >= "
                     f"{row['fault_over_limit_min']:.0f}x the limit")
@@ -2290,18 +2360,20 @@ def conv3_pass_ms(batch: int, dname: str) -> dict:
     and the layer's chain's (a yardstick), each stage timed on seeded
     inputs with the prologue and relu_in and counted once per call, by
     CUDA events around back-to-back calls and as device time alone (the
-    small stages' calls can be shorter than the host's work per call)."""
+    small stages' calls can be shorter than the host's work per call);
+    the checksum of y, s1 and s2 at each stage's shape."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv3_bn
     gen = torch.Generator(device="cuda").manual_seed(CONV3_SEED + batch)
     dtype = getattr(torch, dname)
     out = {"batch": batch, "dtype": dname, "ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
-           "library_device_ms": 0.0}
+           "library_device_ms": 0.0, "checksums": {}}
     for h, c, count in CONV3_STAGES:
         x = torch.randn(batch, h, h, c, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(3, 3, c, c, device="cuda", generator=gen) / (9 * c) ** 0.5).to(dtype)
         a = torch.rand(c, device="cuda", generator=gen) + 0.5
         b = torch.randn(c, device="cuda", generator=gen) * 0.2
+        out["checksums"][f"{h}x{h}x{c}"] = checksum(*conv3_bn.conv3x3_bn_act(x, w, a, b))
         out["ms"] += count * cuda_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b), warmup=1)
         out["library_ms"] += count * cuda_ms(lambda: library_conv3(x, w, a, b), warmup=1)
         out["device_ms"] += count * device_ms(lambda: conv3_bn.conv3x3_bn_act(x, w, a, b))
@@ -2311,13 +2383,94 @@ def conv3_pass_ms(batch: int, dname: str) -> dict:
     return out
 
 
+# the A/B call's 36-call matmul_bn_act passes of ResNet-50: (batch, dtype)
+AB_MBA = ((BATCH, "float32"), (BATCH, "bfloat16"), (HEADLINE_BATCH, "bfloat16"))
+# the A/B call's int8 calls: VGG-16's dense layers at these batch sizes
+AB_INT8_BATCHES = (1, 8, 32)
+
+
+def checksum(*tensors) -> str:
+    """A digest of the tensors' bytes (None skipped): equal digests, equal
+    bits."""
+    import hashlib
+    import torch
+    digest = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            digest.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def mba_pass_ms(batch: int, dname: str) -> dict:
+    """The 36 matmul_bn_act calls of one ResNet-50 pass at ``batch``: the
+    backward kernel pair's ms and its library yardstick's, and the
+    forward kernel's, each distinct shape timed on seeded inputs (as
+    ``check_bwd_kernels`` makes them) and counted once per call, by CUDA
+    events around back-to-back calls and as device time alone; the
+    checksum of each shape's first backward."""
+    import torch
+    from deeplearning4j_tpu_torch.models import resnet50
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    calls = resnet50_calls(resnet50(fused=True, device="cuda"), batch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + batch)
+    dtype = getattr(torch, dname)
+    out = {"batch": batch, "dtype": dname, "calls": len(calls), "checksums": {}}
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "fwd_ms", "fwd_device_ms")
+    out |= {key: 0.0 for key in keys}
+    for (m, k, n, pro) in sorted(set(calls)):
+        count = calls.count((m, k, n, pro))
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        x = (x if pro else x.relu()).to(dtype)
+        w = (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5).to(dtype)
+        a = torch.rand(k, device="cuda", generator=gen) + 0.5 if pro else None
+        b = torch.randn(k, device="cuda", generator=gen) * 0.2 if pro else None
+        y = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=True)[0]
+        dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        ds1 = torch.randn(n, device="cuda", generator=gen)
+        ds2 = torch.randn(n, device="cuda", generator=gen) * 0.5
+        args = (x, w, a, b, y, dy, ds1, ds2)
+        out["checksums"][f"{m}x{k}x{n}x{int(pro)}"] = checksum(
+            *conv_bn.matmul_bn_act_bwd(*args, relu_in=True))
+        for key, fn in (("", lambda: conv_bn.matmul_bn_act_bwd(*args, relu_in=True)),
+                        ("library_", lambda: library_matmul_bn_act_bwd(*args)),
+                        ("fwd_", lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True))):
+            out[f"{key}ms"] += count * cuda_ms(fn, warmup=1)
+            out[f"{key}device_ms"] += count * device_ms(fn)
+        del x, w, y, dy, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_ab_ms() -> list[dict]:
+    """The int8 kernel and ``torch.matmul`` on the widened weight at
+    VGG-16's three dense shapes and ``AB_INT8_BATCHES``, f32 and bf16, L2
+    cold, on seeded inputs; the checksum of each first call."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_weight
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
+    rows = []
+    for name, k, n in INT8_SHAPES[:3]:
+        w_q, scale = quantize_weight(torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5)
+        for dname in ("float32", "bfloat16"):
+            for m in AB_INT8_BATCHES:
+                x = torch.randn(m, k, device="cuda", generator=gen).to(getattr(torch, dname))
+                rows.append({"shape": name, "dtype": dname, "M": m,
+                             "checksum": checksum(qm.int8_matmul(x, w_q, scale)),
+                             "ms": cold_ms(lambda: qm.int8_matmul(x, w_q, scale)),
+                             "library_ms": cold_ms(lambda: library_int8_matmul(x, w_q, scale))})
+    return rows
+
+
 def ab_times() -> dict:
     """Times of whichever ``deeplearning4j_tpu_torch`` is first on the
     path: the forward (normalized) and both backward forms at the base case
     of every AB head dim, f32 and bf16, the forward and the merged backward
     at the causal case with offsets as well, the ``AB_CONV3`` passes of
-    ``conv3x3_bn_act``, and the BERT-base fine-tune step (4 layers, 2 x
-    4096) and serving call (12 layers), in bf16 and f32."""
+    ``conv3x3_bn_act``, the ``AB_MBA`` passes of ``matmul_bn_act`` (its
+    backward and forward), the int8 kernel at VGG-16's dense shapes, and
+    the BERT-base fine-tune step (4 layers, 2 x 4096) and serving call (12
+    layers), in bf16 and f32."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch import config
@@ -2327,7 +2480,8 @@ def ab_times() -> dict:
     from deeplearning4j_tpu_torch.train import Adam
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build((*FLASH_LIBS, "conv3x3_bn_act"))
+    _build.build((*FLASH_LIBS, "conv3x3_bn_act", "matmul_bn_act", "matmul_bn_act_bwd",
+                  "int8_matmul"))
     gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
     rows = []
     for d, heads in AB_HEAD_DIMS:
@@ -2352,6 +2506,8 @@ def ab_times() -> dict:
             del q, k, v, dout, out, lse
             torch.cuda.empty_cache()
     conv3 = [conv3_pass_ms(batch, dname) for batch, dname in AB_CONV3]
+    mba = [mba_pass_ms(batch, dname) for batch, dname in AB_MBA]
+    int8 = int8_ab_ms()
     bert = {}
     for policy in ("bf16", "f32"):
         config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
@@ -2372,7 +2528,7 @@ def ab_times() -> dict:
             torch.cuda.empty_cache()
         finally:
             config.set_dtype_policy(config.DTypePolicy.f32())
-    return {"flash_bwd": rows, "conv3": conv3, **bert}
+    return {"flash_bwd": rows, "conv3": conv3, "mba": mba, "int8": int8, **bert}
 
 
 def ab(parent: Path) -> int:
@@ -2416,6 +2572,29 @@ def ab(parent: Path) -> int:
             log(f"  conv3x3_bn_act 16-call pass, batch {row['batch']} {row['dtype']:8s} {what}: "
                 f"parent {pair('parent', pick)} ms; change {pair('change', pick)} ms "
                 f"({gain:.3f}x)")
+    same = len({json.dumps([c["checksums"] for c in r["conv3"]], sort_keys=True)
+                for _, r in runs}) == 1
+    log(f"  conv3x3_bn_act checksums of y, s1 and s2 at the "
+        f"{sum(len(c['checksums']) for c in runs[0][1]['conv3'])} (pass, shape) pairs: "
+        f"{'equal in all four runs' if same else 'DIFFERENT between runs'}")
+    for i, row in enumerate(runs[0][1]["mba"]):
+        for key, what in (("ms", "backward kernels"), ("device_ms", "backward, device time"),
+                          ("library_ms", "backward library (cuBLAS + torch ops)"),
+                          ("library_device_ms", "backward library, device time"),
+                          ("fwd_ms", "forward kernel"), ("fwd_device_ms", "forward, device time")):
+            def pick(r, key=key):
+                return r["mba"][i][key]
+            gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
+            log(f"  matmul_bn_act {row['calls']}-call pass, batch {row['batch']} "
+                f"{row['dtype']:8s} {what}: parent {pair('parent', pick)} ms; change "
+                f"{pair('change', pick)} ms ({gain:.3f}x)")
+    for i, row in enumerate(runs[0][1]["int8"]):
+        for key, what in (("ms", "kernel"), ("library_ms", "library")):
+            def pick(r, key=key):
+                return r["int8"][i][key]
+            gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
+            log(f"  int8_matmul {row['shape']} M={row['M']:2d} {row['dtype']:8s} {what}: parent "
+                f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.3f}x)")
     for key, what in (("bert_finetune_step_bf16_ms", "BERT fine-tune step (bf16, 4 layers)"),
                       ("bert_serve_bf16_ms", "BERT serve (bf16, 12 layers)"),
                       ("bert_finetune_step_f32_ms", "BERT fine-tune step (f32, 4 layers)"),
@@ -2426,7 +2605,7 @@ def ab(parent: Path) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_ab.json").write_text(json.dumps(
         {"card": card, "order": [label for label, _ in runs], "runs": [r for _, r in runs],
-         "log": LOG_LINES}, indent=1))
+         "conv3_checksums_equal": same, "log": LOG_LINES}, indent=1))
     return 0
 
 
@@ -2480,7 +2659,7 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for kernel, usage in ptxas_usage(name, info["log"]).items():
             log(f"    {kernel}: {usage}")
-    log("the flash and conv3x3_bn_act kernels in SASS (cuobjdump -sass):")
+    log(f"the kernels of {', '.join(HOPPER_LIBS)} in SASS (cuobjdump -sass):")
     hopper = check_hopper_path(built)
 
     net = build_net()
@@ -2603,7 +2782,8 @@ def main() -> int:
         entry("matmul_bn_act_bwd",
               "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act_bwd.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],
-              work.format("backward")),
+              work.format("backward"))
+        | {"sass": hopper["matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:33", flash_rows, "",
@@ -2624,7 +2804,7 @@ def main() -> int:
         | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/flash_attention.py:266",
                             "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"],
            "sass": hopper["flash_attention_bwd_split"]},
-        int8_entry(int8_rows, vgg),
+        int8_entry(int8_rows, vgg) | {"sass": hopper["int8_matmul"]},
         entry("conv3x3_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/conv3x3_bn_act.cu",
               "deeplearning4j_tpu/ops/pallas/conv3_bn.py:37", c3f32, c3bf16, c3h16,
               sum(path["launches"] for path in conv3_paths),

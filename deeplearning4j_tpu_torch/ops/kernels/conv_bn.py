@@ -18,8 +18,13 @@ Function runs :func:`matmul_bn_act_plain` and
 f64 (the JAX function's exact branch) is plain autograd through
 :func:`matmul_bn_act_plain`.
 
-``launches`` and ``bwd_launches`` count kernel launches of the forward
-and the backward; nothing else changes them.
+The backward kernel pair (dx, then dW; ``csrc/matmul_bn_act_bwd.cu``) runs
+on wgmma fed by TMA, f32 as three TF32 passes; :func:`bwd_plan` is its
+launch's shape: the tiles of both kernels, the split of M over dW blocks
+where the (K, N) tiles alone cannot fill the card, and the scratch.
+
+``launches`` and ``bwd_launches`` count calls that launch the forward
+kernel and the backward pair; nothing else changes them.
 """
 
 from __future__ import annotations
@@ -34,13 +39,24 @@ from deeplearning4j_tpu_torch.ops.kernels import _build
 launches = 0
 bwd_launches = 0
 
-DW_SPLIT_STEP = 32   # a dW split's rows are a multiple of the bf16 kernel's M step
+# the backward kernels' blocks: dx (rows of M, columns of K) and dW (rows of
+# K, columns of N), and the rows of M a dW stage takes (a split's rows are
+# whole stages)
+DX_TILE_M, DX_TILE_K = 128, 128
+DW_TILE_K, DW_TILE_N = 128, 128
+SUM_COLS = 64        # columns of a dx column-sum block (two a dx tile)
+M_STEP = {torch.float32: 32, torch.bfloat16: 64}
+GROUP = 32           # dx row tiles whose da/db sums the kernel adds first
+SPLIT_GROUP = 8      # splits of a tile whose partials are added first (dW here, int8's K)
+MAX_TILES_M = 65535  # the dx grid's y
 
 _KERNEL_DTYPES = {torch.float32: "matmul_bn_act_f32", torch.bfloat16: "matmul_bn_act_bf16"}
 _BWD_KERNEL_DTYPES = {torch.float32: "matmul_bn_act_bwd_f32",
                       torch.bfloat16: "matmul_bn_act_bwd_bf16"}
 _C_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_C_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# pointers x, w, a, b, y, dy, ds1, ds2, dx, dw, da, db, part, stats, counts;
+# ints M, N, K, the row pitches of x, w and y/dy, splits, relu_in; stream
+_BWD_C_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _bound = None
 _bwd_bound = None
 
@@ -183,14 +199,57 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def dw_splits(m: int, k: int, n: int, tile: int, sms: int) -> tuple[int, int]:
-    """(splits, rows per split) of M for the dW kernel: enough splits for
-    about two blocks per SM (``sms`` of them) over the
-    ``ceil(K/tile) * ceil(N/tile)`` output tiles, each split a multiple of
-    ``DW_SPLIT_STEP`` rows."""
-    want = _cdiv(2 * sms, _cdiv(k, tile) * _cdiv(n, tile))
-    chunk = _cdiv(_cdiv(m, want), DW_SPLIT_STEP) * DW_SPLIT_STEP
-    return _cdiv(m, chunk), chunk
+@functools.lru_cache(maxsize=256)
+def bwd_plan(m: int, k: int, n: int, dtype, sms: int = 132) -> dict:
+    """The backward's launch for x [M, K], W [K, N] on a card with ``sms``
+    SMs: the dx kernel's tiles (``DX_TILE_M`` rows x ``DX_TILE_K``
+    columns of K, whose da/db sums run in blocks of ``SUM_COLS``
+    columns) and its groups of ``GROUP`` row tiles; the dW kernel's tiles
+    (``DW_TILE_K`` x ``DW_TILE_N``), its ``steps`` of ``M_STEP`` rows, and
+    the number of M splits (1 where the tiles fill the SMs, else as many
+    as one wave of blocks holds, at most one per step; split s takes
+    steps ``step_ranges[s]``); the shapes of the scratch: dW's f32
+    partials (``split_scratch``), the da/db sums of each row tile and then
+    of each group, and the int32 arrival counts (dx: per group and
+    column-sum block, then per column-sum block; dW: per tile when
+    split).  Cached: a call reads it, never changes it."""
+    if m <= 0 or k <= 0 or n <= 0:
+        raise ValueError(f"matmul_bn_act backward: no plan for M={m}, K={k}, N={n}")
+    tiles_m, tiles_kx = _cdiv(m, DX_TILE_M), _cdiv(k, DX_TILE_K)
+    groups = _cdiv(tiles_m, GROUP)
+    sum_blocks = tiles_kx * DX_TILE_K // SUM_COLS
+    tiles_k, tiles_n = _cdiv(k, DW_TILE_K), _cdiv(n, DW_TILE_N)
+    steps = _cdiv(m, M_STEP[dtype])
+    tiles = tiles_k * tiles_n
+    splits = 1 if tiles >= sms else min(steps, sms // tiles)
+    slices, per_tile = split_scratch(splits)
+    return {"tiles_m": tiles_m, "tiles_kx": tiles_kx, "groups": groups, "tiles_k": tiles_k,
+            "tiles_n": tiles_n, "steps": steps, "splits": splits,
+            "step_ranges": [(s * steps // splits, (s + 1) * steps // splits)
+                            for s in range(splits)],
+            "part": (slices, k, n) if splits > 1 else (0,),
+            "stats": (2, tiles_m + groups, k),
+            "counts": sum_blocks * (groups + 1) + (tiles * per_tile if splits > 1 else 0)}
+
+
+def split_scratch(splits: int, group: int = SPLIT_GROUP) -> tuple[int, int]:
+    """(partial slices, arrival counts) of one output tile split ``splits``
+    ways, as the kernels' split-K sum takes them: the splits' partials
+    and, past one group of ``group``, each group's sum; one count, or one
+    per group and one for the groups."""
+    groups = _cdiv(splits, group)
+    return (splits + groups, groups + 1) if groups > 1 else (splits, 1)
+
+
+def row_aligned(t):
+    """``t`` [rows, cols], or a copy whose rows are zero-padded to a
+    multiple of 16 bytes (the TMA's row pitch) where they are not."""
+    per = 16 // t.element_size()
+    if t.shape[1] % per == 0:
+        return t
+    out = t.new_zeros((t.shape[0], _cdiv(t.shape[1], per) * per))
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def _cdiv(p: int, q: int) -> int:
@@ -216,8 +275,13 @@ def _bwd_lib():
         for fname in _BWD_KERNEL_DTYPES.values():
             fn = getattr(lib, fname)
             fn.argtypes, fn.restype = _BWD_C_ARGS, ctypes.c_int
-        lib.matmul_bn_act_bwd_tile.argtypes = []
+        lib.matmul_bn_act_bwd_tile.argtypes = [ctypes.c_int]
         lib.matmul_bn_act_bwd_tile.restype = ctypes.c_int
+        sizes = tuple(lib.matmul_bn_act_bwd_tile(i) for i in range(6))
+        if sizes != (DX_TILE_M, DX_TILE_K, DW_TILE_K, DW_TILE_N, M_STEP[torch.float32],
+                     M_STEP[torch.bfloat16]):
+            raise RuntimeError(f"matmul_bn_act backward: the library's tiles {sizes} are not "
+                               f"the plan's")
         _bwd_bound = lib
     return _bwd_bound
 
@@ -247,31 +311,30 @@ def _launch(lib, x, w, a, b, relu_in, stream):
 
 
 def _launch_bwd(lib, x, w, a, b, y, dy, ds1, ds2, relu_in, stream, sms):
-    """Allocate dx, dW, da, db and the partial-sum scratch, launch on a
-    card with ``sms`` SMs, check the launch; returns ``(dx, dw, da, db)``
-    (da/db None without a)."""
+    """Allocate dx, dW, da, db and the scratch of the plan for a card with
+    ``sms`` SMs, pad rows to the TMA's pitch where needed, launch the pair,
+    check the launch; returns ``(dx, dw, da, db)`` (da/db None without a)."""
     global bwd_launches
     m, k = x.shape
     n = w.shape[1]
-    tile = lib.matmul_bn_act_bwd_tile()
-    tiles_m = -(-m // tile)
-    if tiles_m > 65535:
+    p = bwd_plan(m, k, n, x.dtype, sms)
+    if p["tiles_m"] > MAX_TILES_M:
         raise ValueError(f"matmul_bn_act backward: M={m} is past the kernel's grid")
-    splits, chunk = dw_splits(m, k, n, tile, sms)
     dev = x.device
+    xk, wk, yk, dyk = map(row_aligned, (x, w, y, dy))
     dx = torch.empty((m, k), dtype=x.dtype, device=dev)
     dw = torch.empty((k, n), dtype=w.dtype, device=dev)
-    part_dw = torch.empty((splits, k, n), dtype=torch.float32, device=dev)
-    da = db = part = None
+    part = torch.empty(p["part"], dtype=torch.float32, device=dev) if p["splits"] > 1 else None
+    counts = torch.zeros(p["counts"], dtype=torch.int32, device=dev)
+    da = db = stats = None
     if a is not None:
         da = torch.empty(k, dtype=torch.float32, device=dev)
         db = torch.empty(k, dtype=torch.float32, device=dev)
-        part = torch.empty((2, tiles_m, k), dtype=torch.float32, device=dev)
+        stats = torch.empty(p["stats"], dtype=torch.float32, device=dev)
     rc = getattr(lib, _BWD_KERNEL_DTYPES[x.dtype])(
-        _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), _ptr(dy), _ptr(ds1), _ptr(ds2),
-        _ptr(dx), _ptr(dw), _ptr(da), _ptr(db),
-        None if part is None else _ptr(part[0]), None if part is None else _ptr(part[1]),
-        _ptr(part_dw), m, n, k, splits, chunk, int(a is not None), int(relu_in), stream)
+        _ptr(xk), _ptr(wk), _ptr(a), _ptr(b), _ptr(yk), _ptr(dyk), _ptr(ds1), _ptr(ds2),
+        _ptr(dx), _ptr(dw), _ptr(da), _ptr(db), _ptr(part), _ptr(stats), _ptr(counts),
+        m, n, k, xk.shape[1], wk.shape[1], yk.shape[1], p["splits"], int(relu_in), stream)
     if rc != 0:
         raise RuntimeError(f"matmul_bn_act backward: kernel launch failed, "
                            f"cudaGetLastError() = {rc}")

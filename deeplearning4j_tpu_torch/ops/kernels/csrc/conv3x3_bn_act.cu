@@ -64,8 +64,11 @@
 //   * bf16 keeps one unit's products (a tap of a chunk) in flight while the
 //     next unit's A loads; f32, whose fresh tile must land before it is
 //     added, waits for each unit.
-// The Hopper pieces (mbarriers, TMA, wgmma, the TF32 split) are the flash
-// kernels' (flash_attention.cuh, flash_attention_sm90.cuh).
+// The GEMM core (the block's warpgroups and rings, the split-K sum, the
+// column sums; gemm_sm90.cuh) is shared with matmul_bn_act_bwd.cu and
+// int8_matmul.cu; the Hopper pieces below it (mbarriers, TMA, wgmma, the TF32
+// split) are the flash kernels' (flash_attention.cuh,
+// flash_attention_sm90.cuh).
 //
 // Requirements checked and met by the Python wrapper (conv3_bn.py): x
 // contiguous [M', C'] with C' a multiple of the chunk and M' >= 136 rows
@@ -79,17 +82,14 @@
 
 #include <type_traits>
 
-#include "flash_attention_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int C3_BM = 128, C3_BN = 64;        // output pixels and channels of a block
+constexpr int C3_BM = 128, C3_BN = GEMM_BN;   // output pixels and channels of a block
 constexpr int C3_BAND = 136;                  // input pixels of a band: BM + 2, to 8
 constexpr int C3_BAND_BYTES = C3_BAND * 128;  // 17408: a multiple of 1024
-constexpr int C3_PREP = 96;                   // prep threads (a multiple of 8)
 constexpr int C3_ST = 4;                      // B stages
-constexpr int C3_GROUP = 32;                  // pixel tiles whose column sums are added first
-constexpr int C3_THREADS = CONSUMERS + WG_THREADS;
 
 struct C3Args {
   const float* a;       // [C'] or null (no prologue)
@@ -97,7 +97,7 @@ struct C3Args {
   void* y;              // [M, Cout]
   float* part;          // [S, M, Cout]: split-K partials (S > 1)
   float* stats;         // [2, tiles_m + groups, Cout]: column sums of y, y^2 of each
-                        // pixel tile, then of each group of C3_GROUP tiles
+                        // pixel tile, then of each group of GEMM_GROUP tiles
   int* counts;          // zeros: [tiles_m * tiles_n] (S > 1), [tiles_n * groups], [tiles_n]
   float* s1;            // [Cout]
   float* s2;            // [Cout]
@@ -132,8 +132,8 @@ __device__ __forceinline__ float c3_fold(float v, float a, float b, int relu_in)
 
 // prep: the fold applied in place to one A buffer (3 bands of 136 pixels x
 // 128 bytes, 128-byte swizzled), to the pixels of the tensor only.  Thread
-// pt takes the 16-byte chunks pt, pt + C3_PREP, ...: always the same logical
-// chunk of a row (C3_PREP % 8 == 0), so the same channels.
+// pt takes the 16-byte chunks pt, pt + GEMM_PREP, ...: always the same logical
+// chunk of a row (GEMM_PREP % 8 == 0), so the same channels.
 template <bool F32>
 __device__ __forceinline__ void c3_fold_bands(unsigned char* buf, const C3Args& p, int c0,
                                               int m0, int pt) {
@@ -145,7 +145,7 @@ __device__ __forceinline__ void c3_fold_bands(unsigned char* buf, const C3Args& 
     fa[e] = p.a[c + e];
     fb[e] = p.b[c + e];
   }
-  for (int i = pt; i < 3 * C3_BAND * 8; i += C3_PREP) {
+  for (int i = pt; i < 3 * C3_BAND * 8; i += GEMM_PREP) {
     const int row = i >> 3, di = row / C3_BAND;
     const int pix = m0 + (di - 1) * p.W - 1 + (row - di * C3_BAND);
     if (pix < 0 || pix >= p.M) continue;
@@ -168,47 +168,6 @@ __device__ __forceinline__ void c3_fold_bands(unsigned char* buf, const C3Args& 
   }
 }
 
-__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// Wait until at most one committed wgmma group is still in flight.
-__device__ __forceinline__ void wg_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// The sums of rows [r0, r1) of the two stats tables ([rows, Cout] each:
-// column sums of y, then of y^2) at the block's 64 channels, added in a
-// fixed order: thread tid (2 tables x 2 phases x 64 channels) keeps 8
-// running sums of every other row, which are then added in order, and the
-// two phases' totals through red.  The result is in the threads of phase 0
-// (tid % 128 < 64): table tid / 128, channel n0 + tid % 64.
-__device__ __forceinline__ float c3_sum_rows(const C3Args& a, float* red, int rows, int n0, int r0,
-                                             int r1, int tid) {
-  const int which = tid / (2 * C3_BN), c = tid % C3_BN, ph = (tid / C3_BN) & 1;
-  float part[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) part[k] = 0.f;
-  if (n0 + c < a.Cout) {
-    const float* col = a.stats + (size_t)which * rows * a.Cout + n0 + c;
-    int i = r0 + ph;
-    for (; i + 14 < r1; i += 16)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.Cout);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (i + 2 * k < r1) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.Cout);
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) sum += part[k];
-  consumers_sync(1);           // red's last readers are done
-  red[tid] = sum;
-  consumers_sync(1);
-  return red[tid] + red[tid ^ C3_BN];
-}
-
 // One block: pixels [m0, m0 + 128) (blockIdx.y), channels [n0, n0 + 64)
 // (blockIdx.x) and the chunks of split blockIdx.z, [z chunks / S, (z + 1)
 // chunks / S).  Consumer warpgroup wg owns pixels m0 + 64 wg .. + 63: the
@@ -225,21 +184,16 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
   const uint32_t su = smem_u32(sp);
   const uint32_t a_full = su + L::BARS, a_ready = a_full + 16, a_empty = a_ready + 16,
                  b_full = a_empty + 16, b_empty = b_full + 8 * C3_ST;
+  const Ring<2> ar{a_full, a_ready, a_empty};       // A: the bands of a chunk
+  const Ring<C3_ST> br{b_full, 0, b_empty};         // B: the weights of a (chunk, tap)
   const C3Args& a = p.a;
   const int tid = threadIdx.x, lane = tid & 31;
   const int nt = blockIdx.x, mt = blockIdx.y, z = blockIdx.z;
   const int m0 = mt * C3_BM, n0 = nt * C3_BN;
   const int c_begin = z * a.chunks / a.splits, n_chunks = (z + 1) * a.chunks / a.splits - c_begin;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(a_full + 8 * i, 1);
-      mbar_init(a_ready + 8 * i, C3_PREP);
-      mbar_init(a_empty + 8 * i, CONSUMERS / 32);
-    }
-    for (int s = 0; s < C3_ST; ++s) {
-      mbar_init(b_full + 8 * s, 1);
-      mbar_init(b_empty + 8 * s, CONSUMERS / 32);
-    }
+    ar.init(GEMM_PREP);
+    br.init(0);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < 32) reinterpret_cast<float*>(sp + L::ZERO)[tid] = 0.f;
@@ -253,9 +207,8 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
       int u = 0;
       for (int ci = 0; ci < n_chunks; ++ci)
         for (int tap = 0; tap < 9; ++tap, ++u) {
-          const int s = u % C3_ST;
-          const uint32_t dst = su + L::B0 + s * L::B_STAGE, bar = b_full + 8 * s;
-          mbar_wait(b_empty + 8 * s, ((u / C3_ST) & 1) ^ 1);
+          const int s = br.acquire(u);
+          const uint32_t dst = su + L::B0 + s * L::B_STAGE, bar = br.full_bar(u);
           mbar_expect_tx(bar, L::B_STAGE);
           const int c0 = (c_begin + ci) * CK;
           if constexpr (F32) {
@@ -272,18 +225,18 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
       for (int ci = 0; ci < n_chunks; ++ci) {
         const int ab = ci & 1, c0 = (c_begin + ci) * CK;
         const uint32_t buf = su + L::A0 + ab * L::A_BUF;
-        mbar_wait(a_empty + 8 * ab, ((ci >> 1) & 1) ^ 1);
+        ar.acquire(ci);
         if (pt == 0) {
-          mbar_expect_tx(a_full + 8 * ab, L::A_BUF);
+          mbar_expect_tx(ar.full_bar(ci), L::A_BUF);
 #pragma unroll
           for (int di = 0; di < 3; ++di)
-            tma_load(buf + di * C3_BAND_BYTES, &p.x, a_full + 8 * ab, c0,
+            tma_load(buf + di * C3_BAND_BYTES, &p.x, ar.full_bar(ci), c0,
                      m0 + (di - 1) * a.W - 1, 0);
         }
-        mbar_wait(a_full + 8 * ab, (ci >> 1) & 1);
+        ar.wait_full(ci);
         if (a.a != nullptr) c3_fold_bands<F32>(sp + L::A0 + ab * L::A_BUF, a, c0, m0, pt);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_arrive(a_ready + 8 * ab);
+        ar.arrive_ready(ci);
       }
     }
     return;
@@ -308,16 +261,13 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
   }
   // unit u = 9 ci + tap: chunk ci (A buffer ci & 1, waited for at its first
   // tap) and weight stage u % C3_ST
-  auto b_stage = [&](int u) {
-    mbar_wait(b_full + 8 * (u % C3_ST), (u / C3_ST) & 1);
-    return su + L::B0 + (u % C3_ST) * L::B_STAGE;
-  };
+  auto b_stage = [&](int u) { return su + L::B0 + br.wait_full(u) * L::B_STAGE; };
   // the four k-steps' A fragments of unit u by ldmatrix: this lane's row of
   // band di for tap (di, dj) is lrow + dj, or the zero row
   auto load_a = [&](int u, uint32_t (&x)[4][4]) {
     const int ci = u / 9, tap = u - 9 * ci;
     const uint32_t buf = su + L::A0 + (ci & 1) * L::A_BUF;
-    if (tap == 0) mbar_wait(a_ready + 8 * (ci & 1), (ci >> 1) & 1);
+    if (tap == 0) ar.wait_ready(ci);
     const int row = lrow + tap % 3;
     const uint32_t rbase = buf + (tap / 3) * C3_BAND_BYTES + row * 128;
     const bool on = (taps >> tap) & 1;
@@ -330,8 +280,8 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
   auto retire = [&](int u) {
     __syncwarp();
     if (lane == 0) {
-      mbar_arrive(b_empty + 8 * (u % C3_ST));
-      if (u % 9 == 8) mbar_arrive(a_empty + 8 * ((u / 9) & 1));
+      br.arrive_empty(u);
+      if (u % 9 == 8) ar.arrive_empty(u / 9);
     }
   };
   const int units = 9 * n_chunks;
@@ -362,8 +312,7 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
       reg_fence(tile);
       reg_fence(ah);
       reg_fence(al);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += tile[i];
+      add_tile(acc, tile);
       retire(u);
     }
   } else {
@@ -403,7 +352,9 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
   const int pix0 = m0 + 64 * wg + 16 * wq + g;   // this thread's pixels pix0, pix0 + 8
   if (a.splits > 1) {
     // this split's partial tile; the last split of the tile to arrive adds
-    // them all in split order
+    // them all in split order (few splits: one level, entry by entry, as
+    // gemm_sm90.cuh's splitk_sum at width 1, without its second level,
+    // which the conv's registers would pay for)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (pix0 + 8 * h >= a.M) continue;
@@ -414,12 +365,7 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
         for (int e = 0; e < 2; ++e)
           if (n0 + 8 * j + 2 * t + e < a.Cout) row[n0 + 8 * j + 2 * t + e] = acc[4 * j + 2 * h + e];
     }
-    __threadfence();
-    consumers_sync(1);
-    if (tid == 0) last = atomicAdd(a.counts + mt * a.tiles_n + nt, 1) == a.splits - 1;
-    consumers_sync(1);
-    if (!last) return;
-    __threadfence();
+    if (!last_to_arrive(a.counts + mt * a.tiles_n + nt, a.splits, &last)) return;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (pix0 + 8 * h >= a.M) continue;
@@ -462,81 +408,18 @@ __device__ __forceinline__ void c3_body(const C3Maps& p) {
         c2[2 * j + e] += v * v;
       }
   }
-  // over the warp's 8 g (lanes 4 g + t), then over the 8 consumer warps in order
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-#pragma unroll
-    for (int x = 4; x < 32; x <<= 1) {
-      c1[i] += __shfl_xor_sync(0xffffffffu, c1[i], x);
-      c2[i] += __shfl_xor_sync(0xffffffffu, c2[i], x);
-    }
-  float* red = reinterpret_cast<float*>(sp + L::RED);   // [2][8][BN]
-  const int warp = tid / 32;
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[warp * C3_BN + 8 * j + 2 * t + e] = c1[2 * j + e];
-        red[(8 + warp) * C3_BN + 8 * j + 2 * t + e] = c2[2 * j + e];
-      }
-  }
-  consumers_sync(1);
-  const int rows = a.tiles_m + (a.tiles_m + C3_GROUP - 1) / C3_GROUP;   // of a stats table
-  if (tid < 2 * C3_BN) {
-    const int which = tid / C3_BN, c = tid % C3_BN;
-    float sum = 0.f;
-#pragma unroll
-    for (int w8 = 0; w8 < 8; ++w8) sum += red[(8 * which + w8) * C3_BN + c];
-    if (n0 + c < a.Cout) a.stats[((size_t)which * rows + mt) * a.Cout + n0 + c] = sum;
-  }
-  // the last pixel tile of its group of C3_GROUP adds the group's sums in
-  // order, then the last group of this channel block adds the groups'
-  int* count = a.counts + (a.splits > 1 ? a.tiles_m * a.tiles_n : 0);
-  const int grp = mt / C3_GROUP, n_groups = rows - a.tiles_m;
-  const int g0 = grp * C3_GROUP, g1 = min(g0 + C3_GROUP, a.tiles_m);
-  __threadfence();
-  consumers_sync(1);
-  if (tid == 0) last = atomicAdd(count + nt * n_groups + grp, 1) == g1 - g0 - 1;
-  consumers_sync(1);
-  if (!last) return;
-  __threadfence();
-  float sum = c3_sum_rows(a, red, rows, n0, g0, g1, tid);
-  const int which = tid / (2 * C3_BN), c = tid % C3_BN;
-  const bool mine = tid % (2 * C3_BN) < C3_BN && n0 + c < a.Cout;
-  if (mine) a.stats[((size_t)which * rows + a.tiles_m + grp) * a.Cout + n0 + c] = sum;
-  __threadfence();
-  consumers_sync(1);
-  if (tid == 0) last = atomicAdd(count + a.tiles_n * n_groups + nt, 1) == n_groups - 1;
-  consumers_sync(1);
-  if (!last) return;
-  __threadfence();
-  sum = c3_sum_rows(a, red, rows, n0, a.tiles_m, rows, tid);
-  if (mine) (which ? a.s2 : a.s1)[n0 + c] = sum;
+  // the column sums over the tile's pixels, then over the pixel tiles
+  const ColSums cs{a.stats, a.counts + (a.splits > 1 ? a.tiles_m * a.tiles_n : 0), a.s1, a.s2,
+                   a.Cout, a.tiles_m, a.tiles_n};
+  col_sums(c1, c2, reinterpret_cast<float*>(sp + L::RED), cs, mt, nt, &last);
 }
 
-__global__ void __launch_bounds__(C3_THREADS, 1) c3_f32_kernel(const __grid_constant__ C3Maps p) {
+__global__ void __launch_bounds__(GEMM_THREADS, 1) c3_f32_kernel(const __grid_constant__ C3Maps p) {
   c3_body<true>(p);
 }
 
-__global__ void __launch_bounds__(C3_THREADS, 1) c3_bf16_kernel(const __grid_constant__ C3Maps p) {
+__global__ void __launch_bounds__(GEMM_THREADS, 1) c3_bf16_kernel(const __grid_constant__ C3Maps p) {
   c3_body<false>(p);
-}
-
-// A 3-D map over [d2, d1, d0] (innermost d0, row pitch d0 elements) in boxes
-// [b2, b1, 128 bytes], 128-byte swizzled; what lies past the tensor reads as
-// zeros.
-bool c3_map(CUtensorMap* map, const void* ptr, bool f32, int d0, int d1, int d2, int b1, int b2) {
-  const int esz = f32 ? 4 : 2;
-  cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  cuuint64_t strides[2] = {(cuuint64_t)d0 * esz, (cuuint64_t)d0 * d1 * esz};
-  cuuint32_t box[3] = {(cuuint32_t)(128 / esz), (cuuint32_t)b1, (cuuint32_t)b2};
-  cuuint32_t one[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool F32>
@@ -565,13 +448,13 @@ int launch(const void* x, const void* w, const void* w_lo, const void* a, const 
   q.tiles_m = (q.M + C3_BM - 1) / C3_BM;
   q.tiles_n = (Cout + C3_BN - 1) / C3_BN;
   q.relu_in = relu_in;
-  if (!(c3_map(&p.x, x, F32, C, x_rows, 1, C3_BAND, 1) &&
-        (F32 ? c3_map(&p.w, w, F32, C, 9, cout_rows, 1, C3_BN) &&
-                   c3_map(&p.w_lo, w_lo, F32, C, 9, cout_rows, 1, C3_BN)
-             : c3_map(&p.w, w, F32, cout_rows, 9 * C, 1, 64, 1))))
+  if (!(tma_map_sw128(&p.x, x, F32, C, x_rows, 1, C3_BAND, 1) &&
+        (F32 ? tma_map_sw128(&p.w, w, F32, C, 9, cout_rows, 1, C3_BN) &&
+                   tma_map_sw128(&p.w_lo, w_lo, F32, C, 9, cout_rows, 1, C3_BN)
+             : tma_map_sw128(&p.w, w, F32, cout_rows, 9 * C, 1, 64, 1))))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(q.tiles_n, q.tiles_m, splits);
-  return launch_kernel(F32 ? c3_f32_kernel : c3_bf16_kernel, grid, C3_THREADS, L::BYTES,
+  return launch_kernel(F32 ? c3_f32_kernel : c3_bf16_kernel, grid, GEMM_THREADS, L::BYTES,
                        reinterpret_cast<cudaStream_t>(stream), p);
 }
 

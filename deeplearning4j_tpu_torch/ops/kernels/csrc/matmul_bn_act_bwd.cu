@@ -15,49 +15,98 @@
 // (_matmul_bn_bwd -> _bwd_kernel), the backward of every 1x1 conv of a
 // ResNet-50 bottleneck.  That kernel walks M in order on one core and
 // carries dW, da and db in VMEM from one grid step to the next.  Here
-// blocks run in parallel in no order, so the one TPU kernel becomes two:
+// blocks run in parallel in no order, so the one TPU kernel becomes two
+// launches, each summing across blocks in a fixed order in the same launch.
 //
-//   * dx kernel, grid (K tiles, M tiles): forms dyt while it loads the dy
-//     and y tiles, multiplies by W^T, recomputes pre from the x tile in its
-//     epilogue, writes dx, and writes each block's da/db column sums to its
-//     own row of a [tiles_m, K] scratch;
-//   * dW kernel, grid (N tiles, K tiles, M splits): recomputes xhat and
-//     dyt on load and writes each split's product to its own [K, N] slice
-//     of a [splits, K, N] f32 scratch.  Splitting M keeps the card's SMs
-//     busy (the wrapper reads their count) where K*N has few tiles (res2:
-//     K = N = 64, one tile);
-//   * a reduce kernel sums each scratch over its rows in a fixed order, so
-//     dW, da and db are the same on every run (no atomics).
+// What bounds it on the H100: 4 M K N operations (two products) against
+// 2 M K + 2 M N + 2 K N elements moved.  f32 runs every product in three
+// TF32 passes (the JAX kernel asks for Precision.HIGHEST: 165 TFLOP/s of
+// f32-accurate work on the tensor cores, where the CUDA cores' FMA peak is
+// 67), and ResNet-50's shapes are bound by those operations; bf16 (989
+// TFLOP/s) is bound by the bytes of x, y, dy and dx at most shapes.
 //
-// Rows past M are never loaded: the loaders give zeros there, so they add
-// nothing to dW, da or db, and dx is not stored for them.  Any K and N:
-// when both are multiples of 32 (every ResNet-50 shape) the loaders move 16
-// bytes a thread; otherwise each kernel's RAGGED template loads and stores
-// element by element (rows of a ragged K or N need not be 16-byte aligned),
-// gives zeros past K and N in every operand, and writes nothing past them.
+// What the design does about it: both kernels run on the GEMM core of
+// gemm_sm90.cuh (one producer warpgroup: a TMA thread and 96 prep threads;
+// two consumer warpgroups of 64 output rows; wgmma fed by TMA through a ring
+// of stages; f32 as three TF32 passes, each stage's product in a fresh tile
+// added in f32, since the tensor core's adds round toward zero):
 //
-// What bounds it on the H100: twice the forward's operations (4*M*K*N).
-// f32 accumulates in full f32 on the CUDA cores (the JAX kernel asks for
-// Precision.HIGHEST, so no TF32), 67 TFLOP/s: every ResNet-50 shape is
-// bound by operations.  bf16 runs on the tensor cores (WMMA 16x16x16, f32
-// accumulate), where most shapes are bound by the bytes of x, y, dy, dx.
-// This is the simple first design: 128x128 tiles, no double buffering,
-// no wgmma/TMA.
+//   * dx kernel, grid (K / 128, M / 128), contracting N in 128-byte chunks.
+//     A = dyt: the dy and y tiles and the chunk of ds1 and ds2 come by TMA,
+//     and each consumer lane forms its A fragment from them in registers
+//     (ldmatrix, then dyt per element with the plain version's rounding
+//     points; f32 split into TF32 hi and lo there).  B = W: [K, N] row-major
+//     is K-major for this product, as TF32 wgmma needs; in f32 the prep
+//     threads split each W tile in place into hi and lo.  f32 takes the
+//     block's 128 columns as two halves of 64, each product in a fresh tile.
+//     The epilogue recomputes pre from x at the same (row, column), applies
+//     the relu mask, writes dx and adds da and db over the block's rows,
+//     then over the M tiles in a fixed order (arrival counts, two levels:
+//     the column sums of gemm_sm90.cuh, in blocks of 64 columns).
+//   * dW kernel, grid (N / 128, K / 128, splits), contracting M in steps of
+//     32 (f32) or 64 (bf16) rows.  A = xhat^T from an x tile by TMA: A
+//     reaches wgmma transposed from registers (bf16: ldmatrix.trans; f32:
+//     read per lane and split), and each lane folds its elements there
+//     (x*a + b, relu; zeros past M, so that act(b) never enters): a lane's
+//     rows of K are fixed, so a and b sit in its registers, and each
+//     element is folded once.  B = dyt: bf16 takes it N-major as the prep
+//     threads write it in place into the dy tile; TF32 takes only a K-major
+//     B, so in f32 the prep threads write dyt transposed into hi and lo
+//     tiles, from dy and y tiles of a ring of their own that they release
+//     as soon as they have read them.  M splits over blocks where the (K,
+//     N) tiles cannot fill one wave of the card's SMs (conv_bn.bwd_plan);
+//     each split writes its f32 partial, and the last split of a tile to
+//     arrive adds them in a fixed order (two levels past 8 splits) and
+//     writes dW.
 //
-// Requirements checked by the Python wrapper: contiguous row-major tensors,
-// 16-byte aligned base pointers, M < 65536 * 128, a split length that is a
-// multiple of 32.  Every entry point returns
-// cudaGetLastError() after its launches.
+// Rows past M add nothing: the TMA gives zeros past the tensors, and zeros
+// are written where a fold or dyt would not give them (act(b), ds1); dx is
+// not stored for them.  Any K and N: tiles past them read zeros
+// and nothing past them is written.
+//
+// Requirements checked and met by the Python wrapper (conv_bn.py):
+// contiguous row-major tensors whose rows (ldx, ldw, ldn elements of x, W
+// and dy/y: zero-padded copies where a row's bytes are no multiple of 16)
+// and base pointers are 16-byte aligned; ds1, ds2 f32 [N]; the scratch of
+// its plan (partials [splits, K, N] when splits > 1, the column-sum tables
+// [2, tiles_m + groups, K], zeroed arrival counts); M / 128 < 65536.  Every
+// entry point returns cudaGetLastError() after its launches
+// (cudaErrorInvalidValue for tensor maps the CUDA driver refuses).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int TILE = 128;
-constexpr int THREADS = 256;
+constexpr int DX_BM = 128, DX_BN = 128;   // dx block: rows of M, columns of K (two column-sum blocks)
+constexpr int DW_BK = 128, DW_BN = 128;   // dW block: rows of K, columns of N
+constexpr int SPLIT_GROUP = 8;            // dW's M splits summed first in groups of this many
+
+struct MbbArgs {
+  const void* x;        // [M, ldx] (the dx epilogue's pre)
+  const float* a;       // [K] or null (no prologue)
+  const float* b;       // [K]
+  const float* ds1;     // [N]
+  const float* ds2;     // [N]
+  void* dx;             // [M, K]
+  void* dw;             // [K, N]
+  float* da;            // [K]
+  float* db;            // [K]
+  float* part;          // [splits (+ groups), K, N] (splits > 1)
+  float* stats;         // [2, tiles_m + groups, K]: da, db column sums
+  int* counts;          // zeros: dx's column sums, then dW's per tile (splits > 1)
+  int* dw_counts;       // counts + 2 tiles_kx * (groups + 1)
+  int M, N, K, ldx, splits, steps, relu_in;
+};
+
+struct alignas(64) MbbMaps {
+  CUtensorMap x;        // [M, ldx]: boxes [one M step, 128 bytes] (dW)
+  CUtensorMap w;        // [K, ldw]: boxes [128 rows, 128 bytes] (dx)
+  CUtensorMap dy, y;    // [M, ldn]: boxes as x's
+  CUtensorMap ds1, ds2; // [N] f32: boxes of one N chunk (dx)
+  MbbArgs a;
+};
 
 // no FMA contraction anywhere the plain version rounds each step
 __device__ __forceinline__ float pre_act(float v, float a, float b) {
@@ -73,631 +122,650 @@ __device__ __forceinline__ float dy_total(float dy, float y, float ds1, float ds
   return __fadd_rn(__fadd_rn(dy, ds1), __fmul_rn(__fmul_rn(2.f, y), ds2));
 }
 
-// ------------------------------------------------------------------ f32
-constexpr int F_BK = 8;
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
 
-// The 8x8 register tile of one thread: rows ty*4+{0..3}, 64+ty*4+{0..3} of
-// the block's 128 rows, columns likewise with tx, from As[k][row], Bs[k][col].
-__device__ __forceinline__ void fma_tile(float (*As)[TILE], float (*Bs)[TILE],
-                                         int tx, int ty, float (&acc)[8][8]) {
-#pragma unroll
-  for (int kk = 0; kk < F_BK; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+// ------------------------------------------------------------ dx kernel
+// Shared memory: ST stages of the dy and y tiles [128 rows, CK], the W tile
+// [128 rows, CK] (f32: hi | lo) and ds1, ds2 [CK]; the column sums of the
+// consumer warps; barriers.
+template <bool F32>
+struct DxSmem {
+  static constexpr int CK = F32 ? 32 : 64;                 // N columns of a stage
+  static constexpr int ST = F32 ? 3 : 4;
+  static constexpr int A_TILE = DX_BM * 128, B_TILE = DX_BN * 128;
+  static constexpr int DS0 = 2 * A_TILE + (F32 ? 2 : 1) * B_TILE;
+  static constexpr int STAGE = DS0 + 1024;
+  static constexpr int TX = 2 * A_TILE + B_TILE + 2 * CK * 4;   // the TMA's bytes of a stage
+  static constexpr int RED = ST * STAGE;
+  static constexpr int BARS = RED + 2 * 8 * GEMM_BN * 4;
+  static constexpr size_t BYTES = 1024 + BARS + 8 * 3 * ST;
+};
+
+// One block: rows [m0, m0 + 128) (blockIdx.y), columns [k0, k0 + 128) of K
+// (blockIdx.x), all of N.  Consumer warpgroup wg owns rows m0 + 64 wg ..
+// + 63: accumulator entry 4 j + 2 h + e of lane 4 g + t of its warp wq is row
+// m0 + 64 wg + 16 wq + g + 8 h, column k0 + 8 j + 2 t + e (j < 16).  f32
+// takes the two 64-column halves in turn, each in a fresh tile.
+template <bool F32>
+__device__ __forceinline__ void dx_body(const MbbMaps& p) {
+  using L = DxSmem<F32>;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  constexpr int CK = L::CK, ST = L::ST;
+  extern __shared__ __align__(128) unsigned char mbb_smem[];
+  __shared__ int last;
+  unsigned char* sp = smem_1024(mbb_smem);
+  const uint32_t su = smem_u32(sp);
+  const uint32_t bars = su + L::BARS;
+  const Ring<ST> ring{bars, F32 ? bars + 8 * ST : 0u, bars + 16 * ST};
+  const MbbArgs& a = p.a;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int kt = blockIdx.x, mt = blockIdx.y;
+  const int m0 = mt * DX_BM, k0 = kt * DX_BN;
+  const int chunks = (a.N + CK - 1) / CK;
+  const bool pro = a.a != nullptr;
+  if (tid == 0) {
+    ring.init(GEMM_PREP);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();
 
-__device__ __forceinline__ int tile_row(int i, int t) {
-  return i < 4 ? t * 4 + i : 64 + t * 4 + (i - 4);
-}
-
-// dx tile [128 rows of M] x [128 columns of K], contracting N 8 at a time.
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-bwd_dx_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ y, const float* __restrict__ dy,
-                  const float* __restrict__ ds1, const float* __restrict__ ds2,
-                  float* __restrict__ dx, float* __restrict__ part_da,
-                  float* __restrict__ part_db, int M, int N, int K,
-                  int has_prologue, int relu_in) {
-  __shared__ __align__(16) float As[F_BK][TILE];   // dyt, n-major: As[n][m]
-  __shared__ __align__(16) float Bs[F_BK][TILE];   // W^T: Bs[n][k] = w[k][n]
-  __shared__ float red1[16][TILE];
-  __shared__ float red2[16][TILE];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * TILE, k0 = blockIdx.x * TILE;
-
-  // loaders: 4 consecutive n of one dy/y row and of one W row per step
-  const int l_row = tid >> 1, l_n = (tid & 1) * 4;
-  const bool a_live = (m0 + l_row) < M;
-  const bool b_live = (k0 + l_row) < K;
-  const size_t a_off = (size_t)(a_live ? m0 + l_row : 0) * N + l_n;
-  const float* wp = w + (size_t)(b_live ? k0 + l_row : 0) * N + l_n;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += F_BK) {
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (!RAGGED) {
-      if (a_live) {
-        const float4 d = *reinterpret_cast<const float4*>(dy + a_off + n0);
-        const float4 yv = *reinterpret_cast<const float4*>(y + a_off + n0);
-        const int n = n0 + l_n;
-        av.x = dy_total(d.x, yv.x, ds1[n + 0], ds2[n + 0]);
-        av.y = dy_total(d.y, yv.y, ds1[n + 1], ds2[n + 1]);
-        av.z = dy_total(d.z, yv.z, ds1[n + 2], ds2[n + 2]);
-        av.w = dy_total(d.w, yv.w, ds1[n + 3], ds2[n + 3]);
+  if (tid >= CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    const int pw = tid - CONSUMERS;
+    if (pw == 0) {
+      for (int u = 0; u < chunks; ++u) {
+        const uint32_t base = su + ring.acquire(u) * L::STAGE, bar = ring.full_bar(u);
+        const int n = u * CK;
+        mbar_expect_tx(bar, L::TX);
+        tma_load(base, &p.dy, bar, n, m0, 0);
+        tma_load(base + L::A_TILE, &p.y, bar, n, m0, 0);
+        tma_load(base + 2 * L::A_TILE, &p.w, bar, n, k0, 0);
+        tma_load(base + L::DS0, &p.ds1, bar, n, 0, 0);
+        tma_load(base + L::DS0 + CK * 4, &p.ds2, bar, n, 0, 0);
       }
-      if (b_live) bv = *reinterpret_cast<const float4*>(wp + n0);
-    } else {
-      float* ae = &av.x;
-      float* be = &bv.x;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + l_n + q;
-        if (n >= N) continue;
-        if (a_live) ae[q] = dy_total(dy[a_off + n0 + q], y[a_off + n0 + q], ds1[n], ds2[n]);
-        if (b_live) be[q] = wp[n0 + q];
+    } else if (F32 && pw >= 32) {
+      // prep: each W tile split into TF32 hi (in place) and lo
+      const int pt = pw - 32;
+      for (int u = 0; u < chunks; ++u) {
+        unsigned char* wt = sp + ring.wait_full(u) * L::STAGE + 2 * L::A_TILE;
+        split_in_place(wt, wt + L::B_TILE, L::B_TILE, pt, GEMM_PREP);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        ring.arrive_ready(u);
       }
     }
-    As[l_n + 0][l_row] = av.x;
-    As[l_n + 1][l_row] = av.y;
-    As[l_n + 2][l_row] = av.z;
-    As[l_n + 3][l_row] = av.w;
-    Bs[l_n + 0][l_row] = bv.x;
-    Bs[l_n + 1][l_row] = bv.y;
-    Bs[l_n + 2][l_row] = bv.z;
-    Bs[l_n + 3][l_row] = bv.w;
-    __syncthreads();
-    fma_tile(As, Bs, tx, ty, acc);
-    __syncthreads();
+    return;
   }
 
-  // epilogue: dpre from the recomputed pre, dx, and the da/db column sums
-  float cda[8], cdb[8];
+  // ------------------------------------------------------------ consumers
+  const int wg = tid / WG_THREADS, wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * wq;   // the warp's first row of the tile
+  float acc[64];
+  zero(acc);
+  if constexpr (F32) {
+    // four 8-column k-steps a stage, three TF32 passes a half into a fresh
+    // tile; A(row r0 + g + 8 (i & 1), column t + 4 (i >> 1)) in register i
+    // (flash_attention_sm90.cuh's a_split_rows), dyt formed and split here
+    const int j8 = lane >> 3, lr = r0 + (lane & 7) + 8 * (j8 & 1);
+    const bool two = k0 + 64 < a.K;   // the second half holds columns of K
+    for (int u = 0; u < chunks; ++u) {
+      const int s = ring.wait_ready(u);
+      const uint32_t base = su + s * L::STAGE;
+      const float* ds = reinterpret_cast<const float*>(sp + s * L::STAGE + L::DS0);
+      uint32_t ah[4][4], al[4][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) cda[j] = cdb[j] = 0.f;
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t d[4], yv[4];
+        const uint32_t off = f32_at<DX_BM>(lr, 8 * kk + 4 * (j8 >> 1));
+        ldmatrix4(d, base + off);
+        ldmatrix4(yv, base + L::A_TILE + off);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + tile_row(i, ty);
-    if (gm >= M) continue;
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * kk + t + 4 * (i >> 1);
+          split_tf32(dy_total(__uint_as_float(d[i]), __uint_as_float(yv[i]), ds[c], ds[CK + c]),
+                     ah[kk][i], al[kk][i]);
+        }
+      }
+      const uint32_t wt = base + 2 * L::A_TILE;
+      auto half = [&](auto hc) {
+        constexpr int H = decltype(hc)::value;
+        float tile[32];
+        zero(tile);
+        reg_fence(tile);
+        reg_fence(ah);
+        reg_fence(al);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma3(tile, ah[kk], al[kk], desc_f32<DX_BN>(wt + H * 64 * 128, 8 * kk),
+               desc_f32<DX_BN>(wt + L::B_TILE + H * 64 * 128, 8 * kk));
+        wg_commit();
+        wg_wait();
+        reg_fence(tile);
+        reg_fence(ah);
+        reg_fence(al);
+        add_half<H>(acc, tile);
+      };
+      half(std::integral_constant<int, 0>());
+      if (two) half(std::integral_constant<int, 1>());
+      ring.release(u, lane);
+    }
+  } else {
+    // four 16-column k-steps a stage (m64n128), one pass chained in acc, one
+    // stage's products in flight while the next stage's A is formed (two
+    // register sets); the ldmatrix rows of the bf16 A fragment, dyt formed here
+    const int lrow = r0 + (lane & 7) + 8 * ((lane >> 3) & 1), k8 = lane >> 4;
+    auto issue = [&](int u, uint32_t (&av)[4][4]) {
+      const int s = ring.wait_full(u);
+      const uint32_t base = su + s * L::STAGE;
+      const float* ds = reinterpret_cast<const float*>(sp + s * L::STAGE + L::DS0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t d[4], yv[4];
+        const uint32_t off = lrow * 128 + (((2 * kk + k8) ^ (lrow & 7)) << 4);
+        ldmatrix4(d, base + off);
+        ldmatrix4(yv, base + L::A_TILE + off);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 16 * kk + 2 * t + 8 * (e >> 1);
+          const float2 df = bf2(d[e]), yf = bf2(yv[e]);
+          av[kk][e] = pack_bf16(dy_total(df.x, yf.x, ds[c], ds[CK + c]),
+                                dy_total(df.y, yf.y, ds[c + 1], ds[CK + c + 1]));
+        }
+      }
+      reg_fence(acc);
+      reg_fence(av);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_k(acc, av[kk], desc_sw128(base + 2 * L::A_TILE, 32 * kk), 1);
+      wg_commit();
+    };
+    uint32_t a0[4][4] = {}, a1[4][4] = {};
+    for (int u = 0; u < chunks; u += 2) {
+      issue(u, a0);
+      wg_wait1();
+      reg_fence(a1);             // stage u - 1 is done with a1
+      if (u > 0) ring.release(u - 1, lane);
+      if (u + 1 < chunks) {
+        issue(u + 1, a1);
+        wg_wait1();
+        reg_fence(a0);           // stage u is done with a0
+        ring.release(u, lane);
+      }
+    }
+    wg_wait();
+    reg_fence(acc);
+    reg_fence(a0);
+    reg_fence(a1);
+    if (chunks > 0) ring.release(chunks - 1, lane);
+  }
+
+  // dpre from pre recomputed at the same (row, column) of x, dx, and the
+  // da / db sums over the rows, one 64-column half at a time
+  const T* x = static_cast<const T*>(a.x);
+  T* dx = static_cast<T*>(a.dx);
+  const bool pairs = (a.K & 1) == 0;
+  const ColSums cs{a.stats, a.counts, a.da, a.db, a.K, (int)gridDim.y, 2 * (int)gridDim.x};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (k0 + 64 * hh >= a.K) continue;   // uniform over the block
+    float c1[16], c2[16];   // column k0 + 64 hh + 8 j + 2 t + e at 2 j + e
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c1[i] = c2[i] = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gk = k0 + h * 64 + tx * 4;
-      if (gk >= K) continue;
-      float v[4] = {acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
-                    acc[i][h * 4 + 3]};
-      if constexpr (RAGGED) {
+      const int row = m0 + r0 + g + 8 * h;
+      if (row >= a.M) continue;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (gk + q >= K) continue;
-          const size_t off = (size_t)gm * K + gk + q;
-          if (has_prologue) {
-            const float xq = x[off], ak = a[gk + q];
-            if (relu_in && !(pre_act(xq, ak, b[gk + q]) > 0.f)) v[q] = 0.f;
-            cda[h * 4 + q] += v[q] * xq;
-            cdb[h * 4 + q] += v[q];
-            v[q] = __fmul_rn(v[q], ak);
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + 64 * hh + 8 * j + 2 * t;
+        if (col >= a.K) continue;
+        float v[2] = {acc[32 * hh + 4 * j + 2 * h], acc[32 * hh + 4 * j + 2 * h + 1]};
+        if (pro) {
+          // x's rows are ldx >= K + 1 elements when K is odd: the pair is in them
+          float xs[2];
+          if constexpr (F32) {
+            const float2 xv = __ldg(reinterpret_cast<const float2*>(x + (size_t)row * a.ldx + col));
+            xs[0] = xv.x;
+            xs[1] = xv.y;
+          } else {
+            const float2 xv =
+                bf2(__ldg(reinterpret_cast<const unsigned int*>(x + (size_t)row * a.ldx + col)));
+            xs[0] = xv.x;
+            xs[1] = xv.y;
           }
-          dx[off] = v[q];
-        }
-        continue;
-      }
-      if (has_prologue) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)gm * K + gk);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float ak = a[gk + q];
-          if (relu_in && !(pre_act(xs[q], ak, b[gk + q]) > 0.f)) v[q] = 0.f;
-          cda[h * 4 + q] += v[q] * xs[q];
-          cdb[h * 4 + q] += v[q];
-          v[q] = __fmul_rn(v[q], ak);
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= a.K) continue;
+            const float ak = a.a[col + e];
+            if (a.relu_in && !(pre_act(xs[e], ak, a.b[col + e]) > 0.f)) v[e] = 0.f;
+            c1[2 * j + e] += v[e] * xs[e];
+            c2[2 * j + e] += v[e];
+            v[e] = __fmul_rn(v[e], ak);
+          }
+        }
+        T* out = dx + (size_t)row * a.K + col;
+        if (pairs && col + 1 < a.K) {
+          if constexpr (F32)
+            *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v[0], v[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col + e < a.K) out[e] = from_f32<T>(v[e]);
         }
       }
-      *reinterpret_cast<float4*>(dx + (size_t)gm * K + gk) = make_float4(v[0], v[1], v[2], v[3]);
     }
-  }
-  if (!has_prologue) return;   // uniform over the block
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = tile_row(j, tx);
-    red1[ty][c] = cda[j];
-    red2[ty][c] = cdb[j];
-  }
-  __syncthreads();
-  const int c = tid & (TILE - 1);
-  if (k0 + c < K) {
-    float (*red)[TILE] = tid < TILE ? red1 : red2;
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 16; ++t) s += red[t][c];
-    (tid < TILE ? part_da : part_db)[(size_t)blockIdx.y * K + k0 + c] = s;
+    if (pro) col_sums(c1, c2, reinterpret_cast<float*>(sp + L::RED), cs, mt, 2 * kt + hh, &last);
   }
 }
 
-// dW partial tile [128 rows of K] x [128 columns of N] over the rows
-// [split * chunk, (split + 1) * chunk) of M, 8 at a time.
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                  const float* __restrict__ b, const float* __restrict__ y,
-                  const float* __restrict__ dy, const float* __restrict__ ds1,
-                  const float* __restrict__ ds2, float* __restrict__ part_dw,
-                  int M, int N, int K, int chunk, int has_prologue, int relu_in) {
-  __shared__ __align__(16) float As[F_BK][TILE];   // xhat: As[m][k]
-  __shared__ __align__(16) float Bs[F_BK][TILE];   // dyt:  Bs[m][n]
+// ------------------------------------------------------------ dW kernel
+// Shared memory: ds1, ds2 at the block's 128 columns; the stages.  bf16:
+// one ring of the x tile [MS rows, 128 columns of K] and the dy and y tiles
+// [MS rows, 128 columns of N] (dyt in place in dy).  f32: a ring of the x
+// tile and the dyt^T hi and lo tiles [128 rows of N, MS columns] that the
+// consumers read, and a ring of the dy and y tiles that only prep reads and
+// releases as soon as it has written dyt^T.
+template <bool F32>
+struct DwSmem {
+  static constexpr int MS = F32 ? 32 : 64;                 // rows of M a stage takes
+  static constexpr int BX = F32 ? 32 : 64;                 // columns of a box
+  static constexpr int XT = MS * DW_BK * (F32 ? 4 : 2), YT = MS * DW_BN * (F32 ? 4 : 2);
+  static constexpr int BT = F32 ? DW_BN * MS * 4 : 0;
+  static constexpr int ST = F32 ? 3 : 4, STP = F32 ? 2 : 0;   // stages of the two rings
+  static constexpr int STAGE = F32 ? XT + 2 * BT : XT + 2 * YT;
+  static constexpr int PSTAGE = F32 ? 2 * YT : 0;
+  static constexpr int RING0 = 1024, PRING0 = RING0 + ST * STAGE;
+  static constexpr int BARS = PRING0 + STP * PSTAGE;
+  static constexpr size_t BYTES = 1024 + BARS + 8 * 3 * (ST + STP);
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
-  const int mbeg = blockIdx.z * chunk;
-  const int mend = min(M, mbeg + chunk);
+// One block: rows [k0, k0 + 128) of K (blockIdx.y), columns [n0, n0 + 128)
+// of N (blockIdx.x), and the M steps of split blockIdx.z, [z steps / S,
+// (z + 1) steps / S).  Consumer warpgroup wg owns rows k0 + 64 wg .. + 63
+// (accumulator entry 4 j + 2 h + e: row + 16 wq + g + 8 h, column n0 + 8 j +
+// 2 t + e, j < 16).
+template <bool F32>
+__device__ __forceinline__ void dw_body(const MbbMaps& p) {
+  using L = DwSmem<F32>;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  constexpr int MS = L::MS, ST = L::ST, BX = L::BX;
+  extern __shared__ __align__(128) unsigned char mbb_smem[];
+  __shared__ int last;
+  unsigned char* sp = smem_1024(mbb_smem);
+  const uint32_t su = smem_u32(sp);
+  const uint32_t bars = su + L::BARS, pbars = bars + 24 * ST;
+  const Ring<ST> ring{bars, bars + 8 * ST, bars + 16 * ST};
+  const Ring<F32 ? L::STP : 1> pring{pbars, 0u, pbars + 16 * L::STP};
+  const MbbArgs& a = p.a;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nt = blockIdx.x, kt = blockIdx.y, z = blockIdx.z;
+  const int n0 = nt * DW_BN, k0 = kt * DW_BK;
+  const int u0 = z * a.steps / a.splits, units = (z + 1) * a.steps / a.splits - u0;
+  const bool pro = a.a != nullptr;
+  if (tid == 0) {
+    ring.init(GEMM_PREP);
+    if (F32) pring.init(0, GEMM_PREP / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // loaders: row l_r of the step, 4 consecutive columns l_c of x and of dy/y
-  const int l_r = tid >> 5, l_c = (tid & 31) * 4;
-  const bool a_live = (k0 + l_c) < K;
-  const bool b_live = (n0 + l_c) < N;
-
-  float acc[8][8];
+  if (tid >= CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    const int pw = tid - CONSUMERS;
+    if (pw == 0) {
+      for (int u = 0; u < units; ++u) {
+        const int m = (u0 + u) * MS;
+        const uint32_t base = su + L::RING0 + ring.acquire(u) * L::STAGE, bar = ring.full_bar(u);
+        mbar_expect_tx(bar, F32 ? L::XT : L::XT + 2 * L::YT);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int mm = mbeg; mm < mend; mm += F_BK) {
-    const int gm = mm + l_r;
-    const bool row_live = gm < mend;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (RAGGED && row_live) {
-      float* ae = &av.x;
-      float* be = &bv.x;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + l_c + q, n = n0 + l_c + q;
-        if (k < K) {
-          const float v = x[(size_t)gm * K + k];
-          ae[q] = has_prologue ? xhat_of(v, a[k], b[k], relu_in) : v;
+        for (int bx = 0; bx < DW_BK / BX; ++bx)
+          tma_load(base + bx * MS * 128, &p.x, bar, k0 + bx * BX, m, 0);
+        uint32_t ybase = base + L::XT, ybar = bar;
+        if (F32) {
+          ybase = su + L::PRING0 + pring.acquire(u) * L::PSTAGE;
+          ybar = pring.full_bar(u);
+          mbar_expect_tx(ybar, 2 * L::YT);
         }
-        if (n < N) {
-          const size_t off = (size_t)gm * N + n;
-          be[q] = dy_total(dy[off], y[off], ds1[n], ds2[n]);
+#pragma unroll
+        for (int bx = 0; bx < DW_BN / BX; ++bx) {
+          tma_load(ybase + bx * MS * 128, &p.dy, ybar, n0 + bx * BX, m, 0);
+          tma_load(ybase + L::YT + bx * MS * 128, &p.y, ybar, n0 + bx * BX, m, 0);
         }
       }
-    }
-    if (!RAGGED && row_live && a_live) {
-      av = *reinterpret_cast<const float4*>(x + (size_t)gm * K + k0 + l_c);
-      if (has_prologue) {
-        const int k = k0 + l_c;
-        av.x = xhat_of(av.x, a[k + 0], b[k + 0], relu_in);
-        av.y = xhat_of(av.y, a[k + 1], b[k + 1], relu_in);
-        av.z = xhat_of(av.z, a[k + 2], b[k + 2], relu_in);
-        av.w = xhat_of(av.w, a[k + 3], b[k + 3], relu_in);
+    } else if (pw >= 32) {
+      // prep: dyt, zeros past M and N (bf16: in place in dy; f32:
+      // transposed into hi and lo)
+      const int pt = pw - 32;
+      float* dss = reinterpret_cast<float*>(sp);   // ds1 | ds2 at the block's columns
+      for (int i = pt; i < DW_BN; i += GEMM_PREP) {
+        const bool on = n0 + i < a.N;
+        dss[i] = on ? a.ds1[n0 + i] : 0.f;
+        dss[DW_BN + i] = on ? a.ds2[n0 + i] : 0.f;
+      }
+      prep_sync();
+      for (int u = 0; u < units; ++u) {
+        unsigned char* base = sp + L::RING0 + ring.wait_full(u) * L::STAGE;
+        const int m = (u0 + u) * MS;
+        if constexpr (F32) {
+          // dyt^T: a 16-byte chunk of dy and y (row r, columns 4 q ..) a
+          // step, each of its 4 values to row 4 q + e, column r of hi and lo
+          const unsigned char* yb = sp + L::PRING0 + pring.wait_full(u) * L::PSTAGE;
+          unsigned char* hi = base + L::XT;
+          for (int i = pt; i < MS * DW_BN / 4; i += GEMM_PREP) {
+            const int r = i % MS, q = i / MS;   // neighbouring threads: neighbouring rows
+            const uint32_t at = (q >> 3) * MS * 128 + r * 128 + (((q & 7) ^ (r & 7)) << 4);
+            const float4 d = *reinterpret_cast<const float4*>(yb + at);
+            const float4 yv = *reinterpret_cast<const float4*>(yb + L::YT + at);
+            const float ds_[4] = {d.x, d.y, d.z, d.w}, ys_[4] = {yv.x, yv.y, yv.z, yv.w};
+            const bool live = m + r < a.M;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 4 * q + e;
+              const float v = live ? dy_total(ds_[e], ys_[e], dss[c], dss[DW_BN + c]) : 0.f;
+              const float h = __uint_as_float(tf32_hi(v));
+              const uint32_t to = f32_at<DW_BN>(c, r);
+              *reinterpret_cast<float*>(hi + to) = h;
+              *reinterpret_cast<float*>(hi + L::BT + to) = v - h;
+            }
+          }
+          pring.release(u, lane);
+        } else {
+          // the thread's logical chunk lc of every row: columns 64 bx + 8 lc ..
+          const int lc = pt & 7;
+          float s1[2][8], s2[2][8];
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              s1[bx][e] = dss[64 * bx + 8 * lc + e];
+              s2[bx][e] = dss[DW_BN + 64 * bx + 8 * lc + e];
+            }
+          unsigned char* dyp = base + L::XT;
+          const unsigned char* yp = dyp + L::YT;
+#pragma unroll 2
+          for (int i = pt; i < L::YT / 16; i += GEMM_PREP) {
+            const int bx = i / (MS * 8), row = (i >> 3) % MS;
+            const uint32_t off = bx * MS * 128 + row * 128 + ((lc ^ (row & 7)) << 4);
+            uint4 d = *reinterpret_cast<const uint4*>(dyp + off);
+            const uint4 yy = *reinterpret_cast<const uint4*>(yp + off);
+            __nv_bfloat162* dh = reinterpret_cast<__nv_bfloat162*>(&d);
+            const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&yy);
+            if (m + row < a.M) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 df = __bfloat1622float2(dh[e]), yf = __bfloat1622float2(yh[e]);
+                const float v0 = bx ? dy_total(df.x, yf.x, s1[1][2 * e], s2[1][2 * e])
+                                    : dy_total(df.x, yf.x, s1[0][2 * e], s2[0][2 * e]);
+                const float v1 = bx ? dy_total(df.y, yf.y, s1[1][2 * e + 1], s2[1][2 * e + 1])
+                                    : dy_total(df.y, yf.y, s1[0][2 * e + 1], s2[0][2 * e + 1]);
+                dh[e] = __floats2bfloat162_rn(v0, v1);
+              }
+            } else {
+              d = make_uint4(0u, 0u, 0u, 0u);
+            }
+            *reinterpret_cast<uint4*>(dyp + off) = d;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        ring.arrive_ready(u);
       }
     }
-    *reinterpret_cast<float4*>(&As[l_r][l_c]) = av;
-    if (!RAGGED && row_live && b_live) {
-      const size_t off = (size_t)gm * N + n0 + l_c;
-      const float4 d = *reinterpret_cast<const float4*>(dy + off);
-      const float4 yv = *reinterpret_cast<const float4*>(y + off);
-      const int n = n0 + l_c;
-      bv.x = dy_total(d.x, yv.x, ds1[n + 0], ds2[n + 0]);
-      bv.y = dy_total(d.y, yv.y, ds1[n + 1], ds2[n + 1]);
-      bv.z = dy_total(d.z, yv.z, ds1[n + 2], ds2[n + 2]);
-      bv.w = dy_total(d.w, yv.w, ds1[n + 3], ds2[n + 3]);
-    }
-    *reinterpret_cast<float4*>(&Bs[l_r][l_c]) = bv;
-    __syncthreads();
-    fma_tile(As, Bs, tx, ty, acc);
-    __syncthreads();
+    return;
   }
 
-  float* out = part_dw + (size_t)blockIdx.z * K * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gk = k0 + tile_row(i, ty);
-    if (gk >= K) continue;
+  // ------------------------------------------------------------ consumers
+  const int wg = tid / WG_THREADS, wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * wq;   // the warp's first row of K in the block
+  const bool rows = k0 + 64 * wg < a.K;   // the warpgroup's rows hold rows of K
+  // the fold of this lane's two rows of K (g, g + 8): a and b, zeros past K
+  // (x is zero there); applied as the lane reads its A, once per element
+  float fa[2] = {0.f, 0.f}, fb[2] = {0.f, 0.f};
+  if (pro) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + h * 64 + tx * 4;
-      if constexpr (RAGGED) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (gn + q < N) out[(size_t)gk * N + gn + q] = acc[i][h * 4 + q];
-      } else if (gn < N) {
-        *reinterpret_cast<float4*>(out + (size_t)gk * N + gn) = make_float4(
-            acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+      const int k = k0 + r0 + g + 8 * h;
+      if (k < a.K) {
+        fa[h] = a.a[k];
+        fb[h] = a.b[k];
       }
     }
   }
-}
-
-// ----------------------------------------------------------------- bf16
-constexpr int H_BK = 32;
-constexpr int S_LD = H_BK + 8;     // padded leading dims (multiples of 8)
-constexpr int W_LD = TILE + 8;
-
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
-
-// 8 bf16 of dy and y -> 8 bf16 of dyt (f32 arithmetic, one rounding)
-__device__ __forceinline__ uint4 dyt8(const bf16* dy, const bf16* y, const float* ds1,
-                                      const float* ds2, int n) {
-  uint4 d = *reinterpret_cast<const uint4*>(dy);
-  const uint4 yy = *reinterpret_cast<const uint4*>(y);
-  bf162* dh = reinterpret_cast<bf162*>(&d);
-  const bf162* yh = reinterpret_cast<const bf162*>(&yy);
+  float acc[64];
+  zero(acc);
+  if constexpr (F32) {
+    // four 8-row k-steps a stage, three TF32 passes a half into a fresh
+    // tile; A = xhat^T read per lane from the x tile (register i: row of K
+    // r0 + g + 8 (i & 1), row of M 8 kk + t + 4 (i >> 1)), folded and split
+    // here
+    const bool two = n0 + 64 < a.N;
+    for (int u = 0; u < units; ++u) {
+      const int s = ring.wait_ready(u);
+      if (rows) {
+        const unsigned char* xt = sp + L::RING0 + s * L::STAGE;
+        const uint32_t hi = su + L::RING0 + s * L::STAGE + L::XT;
+        const int live = a.M - (u0 + u) * MS;   // rows of the step inside M
+        uint32_t ah[4][4], al[4][4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 df = __bfloat1622float2(dh[q]);
-    const float2 yf = __bfloat1622float2(yh[q]);
-    const int c = n + 2 * q;
-    dh[q] = __floats2bfloat162_rn(dy_total(df.x, yf.x, ds1[c], ds2[c]),
-                                  dy_total(df.y, yf.y, ds1[c + 1], ds2[c + 1]));
-  }
-  return d;
-}
-
-// The same 8 entries, one at a time: columns n.. past N give zeros
-__device__ __forceinline__ uint4 dyt8_ragged(const bf16* dy, const bf16* y, const float* ds1,
-                                             const float* ds2, int n, int N) {
-  uint4 d = make_uint4(0u, 0u, 0u, 0u);
-  bf16* dh = reinterpret_cast<bf16*>(&d);
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (n + q < N)
-      dh[q] = __float2bfloat16_rn(dy_total(__bfloat162float(dy[q]), __bfloat162float(y[q]),
-                                           ds1[n + q], ds2[n + q]));
-  return d;
-}
-
-// 8 bf16 of row src from column c, zeros from column `end` on
-__device__ __forceinline__ uint4 load8_ragged(const bf16* src, int c, int end) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  bf16* h = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (c + q < end) h[q] = src[q];
-  return v;
-}
-
-// dx tile [128 rows of M] x [128 columns of K], contracting N 32 at a time:
-// 8 warps as 2 x 4, 64 x 32 outputs each.
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-bwd_dx_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ a, const float* __restrict__ b,
-                   const bf16* __restrict__ y, const bf16* __restrict__ dy,
-                   const float* __restrict__ ds1, const float* __restrict__ ds2,
-                   bf16* __restrict__ dx, float* __restrict__ part_da,
-                   float* __restrict__ part_db, int M, int N, int K,
-                   int has_prologue, int relu_in) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[TILE][S_LD];   // dyt: As[m][n]
-  __shared__ __align__(128) bf16 Bs[TILE][S_LD];   // W:   Bs[k][n], W^T read col-major
-  __shared__ __align__(128) float stage[THREADS / 32][16 * 16];
-  __shared__ float colred[2][2][TILE];             // [da|db][warp row][column]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * TILE, k0 = blockIdx.x * TILE;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int n0 = 0; n0 < N; n0 += H_BK) {
-    // 128 rows x 32 n of dyt, and of W: 512 chunks of 8 each, two per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int row = idx >> 2, nc = (idx & 3) * 8;
-      const int gm = m0 + row, gk = k0 + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M) {
-        const size_t off = (size_t)gm * N + n0 + nc;
-        v = RAGGED ? dyt8_ragged(dy + off, y + off, ds1, ds2, n0 + nc, N)
-                   : dyt8(dy + off, y + off, ds1, ds2, n0 + nc);
-      }
-      *reinterpret_cast<uint4*>(&As[row][nc]) = v;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < K) {
-        const bf16* src = w + (size_t)gk * N + n0 + nc;
-        u = RAGGED ? load8_ragged(src, n0 + nc, N) : *reinterpret_cast<const uint4*>(src);
-      }
-      *reinterpret_cast<uint4*>(&Bs[row][nc]) = u;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &As[wm * 64 + i * 16][kk], S_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[wn * 32 + j * 16][kk], S_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue through the warp's staging tile: lane owns column (lane & 15)
-  // and rows (lane >> 4) * 8 + {0..7} of each 16x16 accumulator
-  float* st = stage[warp];
-  const int c = lane & 15, rh = lane >> 4;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int col = wn * 32 + j * 16 + c;
-    const int gk = k0 + col;
-    const bool k_live = gk < K;
-    const float ak = (has_prologue && k_live) ? a[gk] : 0.f;
-    const float bk = (has_prologue && k_live) ? b[gk] : 0.f;
-    float sda = 0.f, sdb = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int row = rh * 8 + r;
-        const int gm = m0 + wm * 64 + i * 16 + row;
-        float v = st[row * 16 + c];
-        if (gm < M && k_live) {
-          const size_t off = (size_t)gm * K + gk;
-          if (has_prologue) {
-            const float xv = __bfloat162float(x[off]);
-            if (relu_in && !(pre_act(xv, ak, bk) > 0.f)) v = 0.f;
-            sda += v * xv;
-            sdb += v;
-            v = __fmul_rn(v, ak);
+          for (int i = 0; i < 4; ++i) {
+            const int rm = 8 * kk + t + 4 * (i >> 1);
+            float v = ld_f32(xt, f32_at<MS>(rm, r0 + g + 8 * (i & 1)));
+            if (pro) v = rm < live ? xhat_of(v, fa[i & 1], fb[i & 1], a.relu_in) : 0.f;
+            split_tf32(v, ah[kk][i], al[kk][i]);
           }
-          dx[off] = __float2bfloat16_rn(v);
-        }
+        auto half = [&](auto hc) {
+          constexpr int H = decltype(hc)::value;
+          float tile[32];
+          zero(tile);
+          reg_fence(tile);
+          reg_fence(ah);
+          reg_fence(al);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma3(tile, ah[kk], al[kk], desc_f32<DW_BN>(hi + H * 64 * 128, 8 * kk),
+                 desc_f32<DW_BN>(hi + L::BT + H * 64 * 128, 8 * kk));
+          wg_commit();
+          wg_wait();
+          reg_fence(tile);
+          reg_fence(ah);
+          reg_fence(al);
+          add_half<H>(acc, tile);
+        };
+        half(std::integral_constant<int, 0>());
+        if (two) half(std::integral_constant<int, 1>());
       }
-      __syncwarp();
+      ring.release(u, lane);
     }
-    sda += __shfl_xor_sync(0xffffffffu, sda, 16);
-    sdb += __shfl_xor_sync(0xffffffffu, sdb, 16);
-    if (rh == 0) {
-      colred[0][wm][col] = sda;
-      colred[1][wm][col] = sdb;
-    }
-  }
-  if (!has_prologue) return;   // uniform over the block
-  __syncthreads();
-  const int cc = tid & (TILE - 1), which = tid >> 7;
-  if (k0 + cc < K)
-    (which ? part_db : part_da)[(size_t)blockIdx.y * K + k0 + cc] =
-        colred[which][0][cc] + colred[which][1][cc];
-}
-
-// dW partial tile [128 rows of K] x [128 columns of N] over the rows
-// [split * chunk, (split + 1) * chunk) of M, 32 at a time.  The RAGGED
-// template stores each 16x16 product through a per-warp staging tile, so
-// that nothing past K or N is written.
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-bwd_dw_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, const bf16* __restrict__ y,
-                   const bf16* __restrict__ dy, const float* __restrict__ ds1,
-                   const float* __restrict__ ds2, float* __restrict__ part_dw,
-                   int M, int N, int K, int chunk, int has_prologue, int relu_in) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[H_BK][W_LD];   // xhat: As[m][k], read col-major
-  __shared__ __align__(128) bf16 Bs[H_BK][W_LD];   // dyt:  Bs[m][n]
-  __shared__ __align__(128) float stage[RAGGED ? THREADS / 32 : 1][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
-  const int mbeg = blockIdx.z * chunk;
-  const int mend = min(M, mbeg + chunk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  } else {
+    // four 16-row k-steps a stage (m64n128), one pass chained in acc, one
+    // stage in flight; A = xhat^T by ldmatrix.trans: lane 8 j + r names row
+    // 16 kk + r + 8 (j >> 1) of the x tile at the columns r0 + 8 (j & 1) ..
+    const int j8 = lane >> 3, kc = r0 + 8 * (j8 & 1);
+    const int xb = kc >> 6, ch = (kc & 63) >> 3;
+    // A register e holds row of K r0 + g + 8 (e & 1), rows of M 16 kk + 2 t +
+    // 8 (e >> 1) and the next: folded here, rounded to bf16 again
+    auto issue = [&](int u, uint32_t (&av)[4][4]) {
+      const uint32_t base = su + L::RING0 + ring.wait_ready(u) * L::STAGE;
+      if (!rows) return;
+      const int live = a.M - (u0 + u) * MS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < 4; ++kk) {
+        const int row = 16 * kk + (lane & 7) + 8 * (j8 >> 1);
+        ldmatrix4_trans(av[kk], base + xb * MS * 128 + row * 128 + ((ch ^ (row & 7)) << 4));
+        if (pro) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int mm = mbeg; mm < mend; mm += H_BK) {
-    // 32 rows x 128 columns of xhat and of dyt: 512 chunks of 8 each
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int row = idx >> 4, cc = (idx & 15) * 8;
-      const int gm = mm + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (RAGGED && gm < mend) {
-        bf16* h = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int k = k0 + cc + q;
-          if (k >= K) continue;
-          const bf16 xv = x[(size_t)gm * K + k];
-          h[q] = has_prologue
-                     ? __float2bfloat16_rn(xhat_of(__bfloat162float(xv), a[k], b[k], relu_in))
-                     : xv;
-        }
-      } else if (gm < mend && k0 + cc < K) {
-        v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + cc);
-        if (has_prologue) {
-          bf162* h = reinterpret_cast<bf162*>(&v);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int k = k0 + cc + 2 * q;
-            const float2 f = __bfloat1622float2(h[q]);
-            h[q] = __floats2bfloat162_rn(xhat_of(f.x, a[k], b[k], relu_in),
-                                         xhat_of(f.y, a[k + 1], b[k + 1], relu_in));
+          for (int e = 0; e < 4; ++e) {
+            const int rm = 16 * kk + 2 * t + 8 * (e >> 1);
+            const float2 f = bf2(av[kk][e]);
+            av[kk][e] = pack_bf16(rm < live ? xhat_of(f.x, fa[e & 1], fb[e & 1], a.relu_in) : 0.f,
+                                  rm + 1 < live ? xhat_of(f.y, fa[e & 1], fb[e & 1], a.relu_in) : 0.f);
           }
         }
       }
-      *reinterpret_cast<uint4*>(&As[row][cc]) = v;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < mend && n0 + cc < N) {
-        const size_t off = (size_t)gm * N + n0 + cc;
-        u = RAGGED ? dyt8_ragged(dy + off, y + off, ds1, ds2, n0 + cc, N)
-                   : dyt8(dy + off, y + off, ds1, ds2, n0 + cc);
-      }
-      *reinterpret_cast<uint4*>(&Bs[row][cc]) = u;
-    }
-    __syncthreads();
-
+      reg_fence(acc);
+      reg_fence(av);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &As[kk][wm * 64 + i * 16], W_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], W_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part_dw + (size_t)blockIdx.z * K * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + wm * 64 + i * 16;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gn = n0 + wn * 32 + j * 16;
-      if (gk >= K || gn >= N) continue;    // uniform over the warp
-      if constexpr (RAGGED) {
-        float* st = stage[warp];
-        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 16 * 16; e += 32) {
-          const int r = e >> 4, c = e & 15;
-          if (gk + r < K && gn + c < N) out[(size_t)(gk + r) * N + gn + c] = st[e];
-        }
-        __syncwarp();
-      } else {
-        wmma::store_matrix_sync(out + (size_t)gk * N + gn, acc[i][j], N, wmma::mem_row_major);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, av[kk], desc_n<DW_BN, MS>(base + L::XT, 16 * kk, 0), 1);
+      wg_commit();
+    };
+    uint32_t a0[4][4] = {}, a1[4][4] = {};
+    for (int u = 0; u < units; u += 2) {
+      issue(u, a0);
+      if (rows) wg_wait1();
+      reg_fence(a1);
+      if (u > 0) ring.release(u - 1, lane);
+      if (u + 1 < units) {
+        issue(u + 1, a1);
+        if (rows) wg_wait1();
+        reg_fence(a0);
+        ring.release(u, lane);
       }
     }
+    if (rows) wg_wait();
+    reg_fence(acc);
+    reg_fence(a0);
+    reg_fence(a1);
+    if (units > 0) ring.release(units - 1, lane);
+  }
+
+  const int kr = k0 + r0 + g;   // this thread's rows of dW: kr, kr + 8
+  if (a.splits > 1) {
+    const int per_tile = a.splits > SPLIT_GROUP ? (a.splits + SPLIT_GROUP - 1) / SPLIT_GROUP + 1 : 1;
+    const bool mine = splitk_sum<32, SPLIT_GROUP>(acc, a.part, (size_t)a.K * a.N, z, a.splits,
+                                 a.dw_counts + (kt * gridDim.x + nt) * per_tile, &last,
+                                 [&](int i) -> long long {
+      const int k = kr + 8 * ((i >> 1) & 1), n = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      return k < a.K && n < a.N ? (long long)k * a.N + n : -1;
+    });
+    if (!mine) return;
+  }
+  T* dw = static_cast<T*>(a.dw);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int k = kr + 8 * ((i >> 1) & 1), n = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    if (k < a.K && n < a.N) dw[(size_t)k * a.N + n] = from_f32<T>(acc[i]);
   }
 }
 
-// ------------------------------------------------------------ reduction
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// out[l] = sum over r of part[r][l]: one column per threadIdx.x, the 32
-// threadIdx.y lanes take every 32nd row, then thread y == 0 adds the 32
-// lane sums in order.  Fixed, so the result is the same on every run.
-template <typename OutT>
-__global__ void colsum_kernel(const float* __restrict__ part, OutT* __restrict__ out,
-                              int R, long long L) {
-  __shared__ float red[32][33];
-  const long long l = (long long)blockIdx.x * 32 + threadIdx.x;
-  float t = 0.f;
-  if (l < L)
-    for (int r = threadIdx.y; r < R; r += 32) t += part[(size_t)r * L + l];
-  red[threadIdx.y][threadIdx.x] = t;
-  __syncthreads();
-  if (threadIdx.y == 0 && l < L) {
-    float u = 0.f;
-    for (int r = 0; r < 32; ++r) u += red[r][threadIdx.x];
-    put(out + l, u);
-  }
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dx_f32_kernel(const __grid_constant__ MbbMaps p) {
+  dx_body<true>(p);
 }
 
-template <typename T>
-void colsum(const float* part, T* out, int R, long long L, cudaStream_t s) {
-  colsum_kernel<T><<<(unsigned)((L + 31) / 32), dim3(32, 32), 0, s>>>(part, out, R, L);
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dx_bf16_kernel(const __grid_constant__ MbbMaps p) {
+  dx_body<false>(p);
 }
 
-template <typename T, typename DxKernel, typename DwKernel>
-int launch(DxKernel dx_kernel, DwKernel dw_kernel, DxKernel dx_ragged, DwKernel dw_ragged,
-           const void* x, const void* w, const void* a, const void* b, const void* y,
-           const void* dy, const void* ds1,
-           const void* ds2, void* dx, void* dw, void* da, void* db, void* part_da,
-           void* part_db, void* part_dw, int M, int N, int K, int splits, int chunk,
-           int has_prologue, int relu_in, void* stream) {
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dw_f32_kernel(const __grid_constant__ MbbMaps p) {
+  dw_body<true>(p);
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dw_bf16_kernel(const __grid_constant__ MbbMaps p) {
+  dw_body<false>(p);
+}
+
+// A vector of n f32 as a map in boxes of `box` (no swizzle; the row
+// pitches of its unit dims are only rounded to what cuTensorMapEncodeTiled takes).
+bool vec_map(CUtensorMap* map, const void* ptr, int n, int box) {
+  cuuint64_t dims[3] = {(cuuint64_t)n, 1, 1};
+  const cuuint64_t pitch = ((cuuint64_t)n * 4 + 15) / 16 * 16;
+  cuuint64_t strides[2] = {pitch, pitch};
+  cuuint32_t boxes[3] = {(cuuint32_t)box, 1, 1};
+  cuuint32_t one[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+                                dims, strides, boxes, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool F32>
+int launch(const void* x, const void* w, const void* a, const void* b, const void* y,
+           const void* dy, const void* ds1, const void* ds2, void* dx, void* dw, void* da,
+           void* db, void* part, void* stats, void* counts, int M, int N, int K, int ldx,
+           int ldw, int ldn, int splits, int relu_in, void* stream) {
+  using LX = DxSmem<F32>;
+  using LW = DwSmem<F32>;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles_m = (M + TILE - 1) / TILE;
-  const int tiles_k = (K + TILE - 1) / TILE;
-  const int tiles_n = (N + TILE - 1) / TILE;
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  const float* s1 = static_cast<const float*>(ds1);
-  const float* s2 = static_cast<const float*>(ds2);
-  if (K % 32 || N % 32) {
-    dx_kernel = dx_ragged;
-    dw_kernel = dw_ragged;
-  }
-  dx_kernel<<<dim3(tiles_k, tiles_m), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), af, bf, static_cast<const T*>(y),
-      static_cast<const T*>(dy), s1, s2, static_cast<T*>(dx), static_cast<float*>(part_da),
-      static_cast<float*>(part_db), M, N, K, has_prologue, relu_in);
-  dw_kernel<<<dim3(tiles_n, tiles_k, splits), THREADS, 0, s>>>(
-      static_cast<const T*>(x), af, bf, static_cast<const T*>(y), static_cast<const T*>(dy),
-      s1, s2, static_cast<float*>(part_dw), M, N, K, chunk, has_prologue, relu_in);
-  if (has_prologue) {
-    colsum(static_cast<const float*>(part_da), static_cast<float*>(da), tiles_m, K, s);
-    colsum(static_cast<const float*>(part_db), static_cast<float*>(db), tiles_m, K, s);
-  }
-  colsum(static_cast<const float*>(part_dw), static_cast<T*>(dw), splits, (long long)K * N, s);
-  return static_cast<int>(cudaGetLastError());
+  const int tiles_m = (M + DX_BM - 1) / DX_BM, tiles_kx = (K + DX_BN - 1) / DX_BN;
+  const int groups = (tiles_m + GEMM_GROUP - 1) / GEMM_GROUP;
+  MbbArgs q;
+  q.x = x;
+  q.a = static_cast<const float*>(a);
+  q.b = static_cast<const float*>(b);
+  q.ds1 = static_cast<const float*>(ds1);
+  q.ds2 = static_cast<const float*>(ds2);
+  q.dx = dx;
+  q.dw = dw;
+  q.da = static_cast<float*>(da);
+  q.db = static_cast<float*>(db);
+  q.part = static_cast<float*>(part);
+  q.stats = static_cast<float*>(stats);
+  q.counts = static_cast<int*>(counts);
+  q.dw_counts = q.counts + 2 * tiles_kx * (groups + 1);
+  q.M = M;
+  q.N = N;
+  q.K = K;
+  q.ldx = ldx;
+  q.splits = splits;
+  q.steps = (M + LW::MS - 1) / LW::MS;
+  q.relu_in = relu_in;
+  MbbMaps px, pw;
+  px.a = pw.a = q;
+  if (!(tma_map_sw128(&px.w, w, F32, ldw, K, 1, DX_BN, 1) &&
+        tma_map_sw128(&px.dy, dy, F32, ldn, M, 1, DX_BM, 1) &&
+        tma_map_sw128(&px.y, y, F32, ldn, M, 1, DX_BM, 1) &&
+        vec_map(&px.ds1, ds1, N, LX::CK) && vec_map(&px.ds2, ds2, N, LX::CK) &&
+        tma_map_sw128(&pw.x, x, F32, ldx, M, 1, LW::MS, 1) &&
+        tma_map_sw128(&pw.dy, dy, F32, ldn, M, 1, LW::MS, 1) &&
+        tma_map_sw128(&pw.y, y, F32, ldn, M, 1, LW::MS, 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_kernel(F32 ? mbb_dx_f32_kernel : mbb_dx_bf16_kernel, dim3(tiles_kx, tiles_m),
+                               GEMM_THREADS, LX::BYTES, s, px);
+  if (rc != 0) return rc;
+  return launch_kernel(F32 ? mbb_dw_f32_kernel : mbb_dw_bf16_kernel,
+                       dim3((N + DW_BN - 1) / DW_BN, (K + DW_BK - 1) / DW_BK, splits),
+                       GEMM_THREADS, LW::BYTES, s, pw);
 }
 
 }  // namespace
 
 extern "C" {
 
-int matmul_bn_act_bwd_tile(void) { return TILE; }
+// The kernels' tiles, which the wrapper's plan must use: the dx block's
+// rows and columns, the dW block's rows and columns, and the rows of M a
+// dW stage takes in f32 and in bf16 (i = 0..5).
+int matmul_bn_act_bwd_tile(int i) {
+  const int sizes[6] = {DX_BM, DX_BN, DW_BK, DW_BN, DwSmem<true>::MS, DwSmem<false>::MS};
+  return i >= 0 && i < 6 ? sizes[i] : -1;
+}
 
+// x [M, ldx], W [K, ldw], y and dy [M, ldn] (rows zero past K, N), a, b
+// [K] or null, ds1, ds2 [N]; dx [M, K], dW [K, N], da, db [K]; the scratch
+// of the plan.
 int matmul_bn_act_bwd_f32(const void* x, const void* w, const void* a, const void* b,
                           const void* y, const void* dy, const void* ds1, const void* ds2,
-                          void* dx, void* dw, void* da, void* db, void* part_da,
-                          void* part_db, void* part_dw, int M, int N, int K, int splits,
-                          int chunk, int has_prologue, int relu_in, void* stream) {
-  return launch<float>(bwd_dx_f32_kernel<false>, bwd_dw_f32_kernel<false>,
-                       bwd_dx_f32_kernel<true>, bwd_dw_f32_kernel<true>, x, w, a, b, y, dy,
-                       ds1, ds2, dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits,
-                       chunk, has_prologue, relu_in, stream);
+                          void* dx, void* dw, void* da, void* db, void* part, void* stats,
+                          void* counts, int M, int N, int K, int ldx, int ldw, int ldn,
+                          int splits, int relu_in, void* stream) {
+  return launch<true>(x, w, a, b, y, dy, ds1, ds2, dx, dw, da, db, part, stats, counts, M, N, K,
+                      ldx, ldw, ldn, splits, relu_in, stream);
 }
 
 int matmul_bn_act_bwd_bf16(const void* x, const void* w, const void* a, const void* b,
                            const void* y, const void* dy, const void* ds1, const void* ds2,
-                           void* dx, void* dw, void* da, void* db, void* part_da,
-                           void* part_db, void* part_dw, int M, int N, int K, int splits,
-                           int chunk, int has_prologue, int relu_in, void* stream) {
-  return launch<bf16>(bwd_dx_bf16_kernel<false>, bwd_dw_bf16_kernel<false>,
-                      bwd_dx_bf16_kernel<true>, bwd_dw_bf16_kernel<true>, x, w, a, b, y, dy,
-                      ds1, ds2, dx, dw, da, db, part_da, part_db, part_dw, M, N, K, splits,
-                      chunk, has_prologue, relu_in, stream);
+                           void* dx, void* dw, void* da, void* db, void* part, void* stats,
+                           void* counts, int M, int N, int K, int ldx, int ldw, int ldn,
+                           int splits, int relu_in, void* stream) {
+  return launch<false>(x, w, a, b, y, dy, ds1, ds2, dx, dw, da, db, part, stats, counts, M, N, K,
+                       ldx, ldw, ldn, splits, relu_in, stream);
 }
 
 }  // extern "C"

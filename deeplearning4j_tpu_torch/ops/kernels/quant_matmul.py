@@ -14,8 +14,11 @@ and how it is built), or raises.  On a CPU tensor, and for f64, it runs
 ``int8_matmul_reference``.  Inference only: there is no backward, as in
 the JAX package.
 
-``launches`` counts kernel launches (one per call, the partial-sum
-kernel and its reduce together); nothing else changes it.
+The kernel runs on wgmma fed by TMA (f32 as three TF32 passes, x in three
+parts against the exact int8 weight) and sums its K splits in the same
+launch.
+``launches`` counts its launches (one per call); nothing else changes
+it.
 """
 
 from __future__ import annotations
@@ -26,19 +29,19 @@ import functools
 import torch
 
 from deeplearning4j_tpu_torch.ops.kernels import _build
+from deeplearning4j_tpu_torch.ops.kernels.conv_bn import row_aligned, split_scratch
 
 launches = 0
 
-KC = 64            # a split's K range is a multiple of this
-TILE_N = {torch.float32: 128, torch.bfloat16: 64}   # columns per block of each kernel
+KC = 128           # a split's K range is a multiple of this
+TILE_N = {torch.float32: 128, torch.bfloat16: 128}   # weight columns per block
 MIN_SPLIT_K = 256  # no split takes fewer k rows than this
-BLOCKS_PER_SM = 4  # the K split aims at this many blocks per SM (weight loads in flight)
-# bytes a weight word takes: w_q's rows are read in such words when N and its
-# address allow, else byte by byte
-_W_WORD = {torch.float32: 4, torch.bfloat16: 8}
+BLOCKS_PER_SM = 1  # the K split aims at one wave: this many blocks per SM at most
 
 _KERNEL_DTYPES = {torch.float32: "int8_matmul_f32", torch.bfloat16: "int8_matmul_bf16"}
-_C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# pointers x, w_q, scale, y, part, counts; ints M, N, K, the row pitches of x
+# and w_q, k rows per split, splits; stream
+_C_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _bound = None
 
 
@@ -99,15 +102,37 @@ def _sm_count(index: int) -> int:
 
 
 def k_splits(k: int, n: int, sms: int, tile_n: int) -> tuple[int, int]:
-    """(splits, k rows per split) of K: enough splits for about
-    ``BLOCKS_PER_SM`` blocks on each of the ``sms`` SMs over the
-    ``ceil(N / tile_n)`` column tiles, each split at least ``MIN_SPLIT_K``
-    rows and a multiple of ``KC``.  M does not enter, so a row's sum order
-    does not depend on its batch."""
-    want = _cdiv(BLOCKS_PER_SM * sms, _cdiv(n, tile_n))
+    """(splits, k rows per split) of K: as many splits as the ``sms`` SMs
+    hold at ``BLOCKS_PER_SM`` blocks each over the ``ceil(N / tile_n)``
+    column tiles (one wave, each block streaming a long K range), each
+    split at least ``MIN_SPLIT_K`` rows and a multiple of ``KC``.  M does
+    not enter, so a row's sum order does not depend on its batch."""
+    want = max(1, BLOCKS_PER_SM * sms // _cdiv(n, tile_n))
     splits = max(1, min(want, _cdiv(k, MIN_SPLIT_K)))
     per = _cdiv(_cdiv(k, splits), KC) * KC
     return _cdiv(k, per), per
+
+
+def tma_weight(w_q):
+    """``(w, ldw)``: w_q as the kernel's TMA takes it, rows of ``ldw``
+    bytes (a multiple of 16) from a 16-byte-aligned address: w_q itself
+    where it is so, else a copy with rows zero-padded to 16 bytes (VGG-16's
+    fc8, N = 1000).  The copy is made once and kept on w_q: a quantized
+    net's weights are made once and read at every call (a change to w_q in
+    place makes a new copy)."""
+    if w_q.shape[1] % 16 == 0 and w_q.data_ptr() % 16 == 0:
+        return w_q, w_q.shape[1]
+    held = getattr(w_q, "_tma_rows", None)
+    if held is None or held[0] != w_q._version:
+        held = (w_q._version, row_aligned(w_q.clone()))   # a fresh, aligned allocation
+        w_q._tma_rows = held
+    return held[1], held[1].shape[1]
+
+
+def tile_m(m: int) -> int:
+    """Rows of x a block takes (wgmma's N): the smallest of 8, 16 and 32
+    that holds min(M, 32)."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32
 
 
 def _cdiv(p: int, q: int) -> int:
@@ -133,22 +158,32 @@ def _lib():
 
 
 def _launch(lib, x, w_q, scale, stream, sms):
-    """Allocate y and the partial-sum scratch, launch on a card with
-    ``sms`` SMs, check the launch; returns y."""
+    """Allocate y and the split-K scratch, pad x's rows to the TMA's pitch
+    where needed, launch on a card with ``sms`` SMs, check the launch;
+    returns y."""
     global launches
     m, k = x.shape
     n = w_q.shape[1]
     if _cdiv(m, 32) > 65535:
         raise ValueError(f"int8_matmul: M={m} is past the kernel's grid")
     splits, per = k_splits(k, n, sms, TILE_N[x.dtype])
-    word = _W_WORD[x.dtype]
-    wvec = int(n % word == 0 and w_q.data_ptr() % word == 0)
-    xvec = int(k % 4 == 0 and x.data_ptr() % 8 == 0)
+    xk = row_aligned(x)
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    wk, ldw = tma_weight(w_q)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    part = counts = None
+    if splits > 1:
+        slices, per_tile = split_scratch(splits)
+        # the f32 kernel keeps its sums in f64 past its tiles
+        part = torch.empty((slices, m, n), device=x.device,
+                           dtype=torch.float64 if x.dtype == torch.float32 else torch.float32)
+        counts = torch.zeros(_cdiv(m, tile_m(m)) * _cdiv(n, TILE_N[x.dtype]) * per_tile,
+                             dtype=torch.int32, device=x.device)
     rc = getattr(lib, _KERNEL_DTYPES[x.dtype])(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), part.data_ptr(),
-        m, n, k, per, splits, wvec, xvec, stream)
+        xk.data_ptr(), wk.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), None if counts is None else counts.data_ptr(),
+        m, n, k, xk.shape[1], ldw, per, splits, stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul: kernel launch failed, cudaGetLastError() = {rc}")
     launches += 1

@@ -110,6 +110,89 @@ def test_k_splits_cover_k_in_whole_chunks(k, n, sms, dname):
     assert splits * -(-n // tile) <= qm.BLOCKS_PER_SM * sms + -(-n // tile)
 
 
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_int8_plan_does_not_depend_on_m(dname):
+    """The wrapper launches the same K split at every batch size (a row's
+    sum order does not depend on its batchmates), one launch a call, with
+    the split-K scratch sized by the kernel's row tile of 8, 16 or 32."""
+    calls = []
+
+    class Stub:
+        def int8_matmul_f32(self, *args):
+            calls.append(args)
+            return 0
+
+        int8_matmul_bf16 = int8_matmul_f32
+
+    k, n = 4096, 1000
+    w_q, scale = torch.zeros(k, n, dtype=torch.int8), torch.ones(n)
+    before = qm.launches
+    for m in (1, 2, 7, 8, 9, 16, 17, 32, 33, 100):
+        y = qm._launch(Stub(), torch.zeros(m, k, dtype=DTYPES[dname][0]), w_q, scale, 0, 132)
+        assert tuple(y.shape) == (m, n)
+    assert qm.launches == before + 10
+    qm.launches = before
+    assert len({args[10:13] for args in calls}) == 1          # w_q's row pitch, k split
+    assert [qm.tile_m(m) for m in (1, 8, 9, 16, 17, 32, 33)] == [8, 8, 16, 16, 32, 32, 32]
+
+
+@pytest.mark.parametrize("n", [4096, 1000, 10])
+def test_tma_weight_pads_ragged_rows_once(n):
+    """The kernel's weight: w_q itself where its rows are a multiple of 16
+    bytes, else a copy padded with zeros, made once per weight and made
+    again after a change in place."""
+    w_q = torch.randint(-127, 128, (64, n), dtype=torch.int8)
+    w, ldw = qm.tma_weight(w_q)
+    assert ldw % 16 == 0 and tuple(w.shape) == (64, ldw)
+    assert torch.equal(w[:, :n], w_q) and not w[:, n:].any()
+    assert (w is w_q) == (n % 16 == 0)
+    assert qm.tma_weight(w_q)[0] is w
+    w_q[0, 0] += 1
+    again, _ = qm.tma_weight(w_q)
+    assert torch.equal(again[:, :n], w_q) and (again is w) == (n % 16 == 0)
+
+
+def _chunked_tf32_passes(x, w_q, scale, passes, chunk=16):
+    """The f32 kernel's sum emulated in plain PyTorch: x split into TF32
+    parts (the last read as TF32 by the tensor core: hi and lo in two
+    passes, three parts in the kernel's three), each pass against the
+    exact int8 weight, each k-chunk's products (the kernel's 16-k tile)
+    summed exactly into a fresh f32 tile, the tiles added in order in f32
+    with the kernel's compensation, then scaled."""
+    from deeplearning4j_tpu_torch.ops.kernels.flash_attention import tf32_cut, tf32_split
+    hi, lo = tf32_split(x)
+    mid, rest = tf32_split(lo)
+    parts = {1: [hi], 2: [hi, tf32_cut(lo)], 3: [hi, mid, tf32_cut(rest)]}[passes]
+    m, k = x.shape
+    w = w_q.double().reshape(k // chunk, chunk, -1)
+    tiles = sum(torch.einsum("mck,ckn->cmn", p.double().reshape(m, k // chunk, chunk), w)
+                for p in parts).float()
+    acc = torch.zeros(tiles.shape[1:], dtype=torch.float32)
+    comp = torch.zeros_like(acc)
+    for c in range(tiles.shape[0]):   # the kernel's compensated (Kahan) sum
+        y = tiles[c] - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return (acc - comp) * scale
+
+
+def test_two_tf32_passes_hold_the_f32_limit_at_vgg16_fc6():
+    """At fc6's K = 25088 (a slice of its columns), two TF32 passes of x
+    against the exact int8 weight, a fresh sum per 16-k chunk, stay within
+    chip_smoke.py's f32 limit of the f64 product, and the kernel's three
+    closer still; one pass (x's lo parts dropped, the planted fault) reads
+    at least 10x past it."""
+    (x, w_q, scale), _ = _operands(32, 25088, 256, "float32", seed=6)
+    exact = (x.double() @ w_q.double()) * scale.double()
+    reading = {}
+    for passes in (1, 2, 3):
+        got = _chunked_tf32_passes(x, w_q, scale, passes)
+        reading[passes] = chip_smoke.int8_over_limit(got, exact.float(), "float32")
+    assert reading[3] <= reading[2] <= 0.1, reading
+    assert reading[1] >= chip_smoke.INT8_FAULT_MARGIN, reading
+
+
 def _weights(shape, dname, seed):
     rng = np.random.default_rng(seed)
     w = rng.normal(size=shape).astype(np.float32) * 0.05

@@ -98,10 +98,55 @@ def test_function_gradients_equal_plain_backward(prologue, relu_in, stats_cotang
 
 @pytest.mark.parametrize("sms", [132, 114])   # H100 SXM, H100 PCIe
 def test_dw_splits_cover_m_and_fill_the_card(sms):
-    for m, k, n in [(100352, 64, 64), (1568, 2048, 512), (1568, 1024, 2048), (300, 32, 48),
-                    (7, 64, 64)]:
-        splits, chunk = conv_bn.dw_splits(m, k, n, 128, sms)
-        assert chunk % conv_bn.DW_SPLIT_STEP == 0
-        assert (splits - 1) * chunk < m <= splits * chunk
-        blocks = splits * -(-k // 128) * -(-n // 128)
-        assert blocks >= min(sms, -(-m // conv_bn.DW_SPLIT_STEP))
+    """The backward's plan (``bwd_plan``): the dW kernel's M splits cover M
+    in whole stages, in order, and with the (K, N) tiles fill one wave of
+    the card's SMs where M allows, no more; the dx tiles, the da/db tables
+    and the arrival counts fit the tiles."""
+    for dtype in (torch.float32, torch.bfloat16):
+        step = conv_bn.M_STEP[dtype]
+        for m, k, n in [(100352, 64, 64), (1568, 2048, 512), (1568, 1024, 2048), (300, 32, 48),
+                        (7, 64, 64), (802816, 64, 256), (100352, 1000, 200)]:
+            p = conv_bn.bwd_plan(m, k, n, dtype, sms)
+            assert p["steps"] == -(-m // step)
+            ranges = p["step_ranges"]
+            assert len(ranges) == p["splits"] and ranges[0][0] == 0 and ranges[-1][1] == p["steps"]
+            assert all(r0 < r1 for r0, r1 in ranges)
+            assert all(u[1] == v[0] for u, v in zip(ranges, ranges[1:]))
+            assert (p["tiles_k"], p["tiles_n"]) == (-(-k // conv_bn.DW_TILE_K),
+                                                    -(-n // conv_bn.DW_TILE_N))
+            tiles = p["tiles_k"] * p["tiles_n"]
+            # one wave: as many splits as the card holds, no more
+            assert p["splits"] * tiles <= max(sms, tiles)
+            assert p["splits"] == 1 or p["splits"] == p["steps"] or (p["splits"] + 1) * tiles > sms
+            slices, per_tile = conv_bn.split_scratch(p["splits"])
+            assert p["part"] == ((slices, k, n) if p["splits"] > 1 else (0,))
+            tiles_m = -(-m // conv_bn.DX_TILE_M)
+            groups = -(-tiles_m // conv_bn.GROUP)
+            assert (p["tiles_m"], p["groups"], p["tiles_kx"]) == (tiles_m, groups,
+                                                                  -(-k // conv_bn.DX_TILE_K))
+            assert p["stats"] == (2, tiles_m + groups, k)
+            sum_blocks = 2 * p["tiles_kx"]
+            assert sum_blocks * conv_bn.SUM_COLS == p["tiles_kx"] * conv_bn.DX_TILE_K
+            assert p["counts"] == sum_blocks * (groups + 1) + (tiles * per_tile
+                                                                if p["splits"] > 1 else 0)
+
+
+@pytest.mark.parametrize("splits,want", [(1, (1, 1)), (2, (2, 1)), (8, (8, 1)), (9, (11, 3)),
+                                         (66, (75, 10)), (132, (149, 18))])
+def test_split_scratch_adds_groups_past_one_group(splits, want):
+    """A tile split past one group of ``SPLIT_GROUP`` gets a slice and an
+    arrival count per group beside the splits' own, and one more count."""
+    assert conv_bn.split_scratch(splits) == want
+
+
+@pytest.mark.parametrize("k,n", [(4, 8), (100, 24), (1000, 200), (64, 256)])
+def test_rows_are_padded_to_the_tma_pitch(k, n):
+    """``row_aligned`` pads a row to a multiple of 16 bytes with zeros (the
+    kernels' TMA maps need that row pitch), and leaves aligned rows alone."""
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.randn(5, k).to(dtype)
+        got = conv_bn.row_aligned(t)
+        per = 16 // t.element_size()
+        assert got.shape[1] % per == 0 and got.shape[1] - k < per
+        assert torch.equal(got[:, :k], t) and not got[:, k:].any()
+        assert (got is t) == (k % per == 0)

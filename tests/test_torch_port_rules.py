@@ -180,14 +180,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 class _StubBwdLib:
-    """The built backward library: a tile size, and ``rc`` from the launch."""
+    """The built backward library: ``rc`` from the launch."""
 
     def __init__(self, rc):
         self.rc = rc
         self.args = None
-
-    def matmul_bn_act_bwd_tile(self):
-        return 128
 
     def matmul_bn_act_bwd_f32(self, *args):
         self.args = args
@@ -205,11 +202,13 @@ def test_failed_backward_launch_raises_and_is_not_counted(prologue):
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
         conv_bn._launch_bwd(lib, x, w, a, b, y, dy, ds, ds, True, 0, 114)
     assert conv_bn.bwd_launches == before
-    # pointers, then M, N, K, splits, rows per split, prologue, relu_in, stream
-    assert len(lib.args) == 23 and lib.args[15:18] == (m, n, k)
-    splits, chunk = lib.args[18:20]
-    assert (splits, chunk) == conv_bn.dw_splits(m, k, n, 128, 114)
+    # pointers, then M, N, K, the row pitches of x, w and y/dy, splits,
+    # relu_in, stream; one launch of the pair, no reduce kernels
+    assert len(lib.args) == 24 and lib.args[15:18] == (m, n, k)
+    assert lib.args[18:21] == (k, n, n)                    # rows already 16-byte multiples
+    assert lib.args[21] == conv_bn.bwd_plan(m, k, n, torch.float32, 114)["splits"]
     assert (lib.args[11] is None) == (not prologue)       # db only with a prologue
+    assert (lib.args[13] is None) == (not prologue)       # so are the da/db sums
     dx, dw, da, db = conv_bn._launch_bwd(_StubBwdLib(rc=0), x, w, a, b, y, dy, ds, ds, True,
                                         0, 114)
     assert conv_bn.bwd_launches == before + 1
@@ -348,6 +347,15 @@ def test_flash_sources_name_every_header_they_include():
         assert names == {f"{name}.cu", "flash_attention.cuh", "flash_attention_sm90.cuh"}
 
 
+@pytest.mark.parametrize("name", ["conv3x3_bn_act", "matmul_bn_act_bwd", "int8_matmul"])
+def test_gemm_sources_name_the_shared_core(name):
+    """The libraries on the GEMM core are hashed with it and with the
+    Hopper headers below it, so an edit to any rebuilds all three."""
+    names = {p.name for p in _build.source_files(name)}
+    assert names == {f"{name}.cu", "gemm_sm90.cuh", "flash_attention.cuh",
+                     "flash_attention_sm90.cuh"}
+
+
 @pytest.mark.parametrize("normalize", [True, False])
 def test_flash_forward_passes_its_outputs_and_no_scratch(monkeypatch, normalize):
     """The forward's 20 arguments: its outputs (out and lse, or o, m and l)
@@ -459,9 +467,12 @@ def test_failed_int8_launch_raises_and_is_not_counted():
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
         quant_matmul._launch(lib, x, w_q, scale, 0, 132)
     assert quant_matmul.launches == before
-    # pointers, then M, N, K, k rows per split, splits, word loads of w_q and of x, stream
+    # pointers (x, w_q, scale, y, the split partials and arrival counts), then
+    # M, N, K, the row pitches of x and w_q (N = 1000 is no multiple of 16
+    # bytes: a copy with rows padded to 1008), k rows per split, splits, stream
     splits, per = quant_matmul.k_splits(k, n, 132, quant_matmul.TILE_N[torch.float32])
-    assert len(lib.args) == 13 and lib.args[5:12] == (m, n, k, per, splits, 1, 1)
+    assert len(lib.args) == 14 and lib.args[6:13] == (m, n, k, k, 1008, per, splits)
+    assert (lib.args[4] is None) == (lib.args[5] is None) == (splits == 1)
     y = quant_matmul._launch(_StubInt8Lib(rc=0), x, w_q, scale, 0, 132)
     assert tuple(y.shape) == (m, n) and y.dtype == x.dtype
     assert quant_matmul.launches == before + 1
