@@ -47,7 +47,7 @@ ITERS = 5
 CATEGORIES = (
     ("conv3x3_bn_act", ("c3_f32_kernel", "c3_bf16_kernel")),
     ("int8_matmul", ("i8_f32_kernel", "i8_bf16_kernel")),
-    ("matmul_bn_act", ("mba_f32_kernel", "mba_bf16_kernel", "stats_reduce_kernel")),
+    ("matmul_bn_act", ("mbf_f32_kernel", "mbf_bf16_kernel", "mbf_wt_kernel")),
     ("matmul_bn_act_bwd", ("mbb_dx_f32_kernel", "mbb_dw_f32_kernel", "mbb_dx_bf16_kernel",
                            "mbb_dw_bf16_kernel")),
     ("flash_attention", ("fa_fwd_f32_kernel", "fa_fwd_bf16_kernel")),

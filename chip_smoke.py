@@ -11,15 +11,21 @@ no result line:
 2. build every CUDA kernel from the sources in this checkout (one
    ``nvcc`` per source, all started together); every kernel of the flash
    libraries (forward, merged and two-kernel backward), of
-   ``conv3x3_bn_act``, of the ``matmul_bn_act`` backward and of
+   ``conv3x3_bn_act``, of the ``matmul_bn_act`` backward and forward and of
    ``int8_matmul``, f32 and bf16, must hold wgmma and TMA loads (``HGMMA``
-   and ``UTMALDG`` in ``cuobjdump -sass``; the counts are printed), and
-   none of their templates may spill (ptxas);
+   and ``UTMALDG`` in ``cuobjdump -sass``; the counts are printed; the
+   forward's f32 weight transpose, a copy, no wgmma), and none of their
+   templates may spill (ptxas);
 3. for each distinct (M, K, N, prologue) of the 36 ``matmul_bn_act`` calls
    of ResNet-50 at batch 32 x 224 x 224, in f32 and bf16: hold the forward
-   kernel to ``matmul_bn_act_plain`` on the card, and time the kernel, the
-   plain version and one library yardstick (``torch.matmul`` with the
-   prologue and the statistics as torch ops);
+   kernel to ``matmul_bn_act_plain`` on the card, show that planted faults
+   (in f32 one TF32 pass in place of the kernel's three; rows past M
+   counted in s1 and s2 where M is no multiple of 128 with a prologue)
+   move that check at least 10x past its limit, call each shape twice for
+   the same bits (K split over blocks at M = 1568), and time the kernel,
+   the plain version and one library yardstick (``torch.matmul`` with the
+   prologue and the statistics as torch ops) beside the bound (f32: three
+   TF32 passes', the CUDA cores' beside it);
 4. serve full-width ResNet-50 (224x224x3, 1000 classes, 16 fused
    bottlenecks, seeded weights) through ``InferenceEngine(max_batch=32)``:
    16 requests of 1-8 images from 4 threads.  Every answer must match a
@@ -153,8 +159,11 @@ at the base case of every head dim in ``AB_HEAD_DIMS``, f32 and bf16, the
 16-call ``conv3x3_bn_act`` pass (f32 at batch 32, bf16 at batch 32 and
 256) beside the layer's chain, with a checksum of y, s1 and s2 at each of
 its shapes, the 36-call ``matmul_bn_act`` pass of ResNet-50 (the
-backward beside its library yardstick, and the forward; f32 at batch 32,
-bf16 at 32 and 256; events and device time alone), the int8 kernel at
+backward beside its library yardstick, and the forward with its host
+microseconds per call and a checksum of y, s1 and s2 per shape; f32 at
+batch 32, bf16 at 32 and 256; events and device time alone), where the
+forward wrapper's host time goes (``mba_host_us``), ResNet-50's f32
+served forward and training step at batch 32, the int8 kernel at
 VGG-16's fc6, fc7 and fc8 at M = 1, 8 and 32 (f32 and bf16, L2 cold,
 beside ``torch.matmul`` on the widened weight), the BERT fine-tune step
 and the BERT serving call, in the other tree and in this one, each in its
@@ -234,9 +243,11 @@ RAGGED_M = BATCH * 56 * 56
 RAGGED_CALLS = tuple((RAGGED_M, k, n, pro) for k, n, pro in (
     (4, 8, True), (4, 8, False), (8, 4, True), (24, 100, True), (100, 24, False),
     (200, 1000, True), (1000, 200, True)))
-# a planted fault (the forward's columns past the last multiple of 32 left
-# unwritten) must move the check this many times past its limit
-RAGGED_FAULT_MARGIN = 10
+# every planted fault of the forward check (in f32 one TF32 pass in place of
+# three; rows past M counted in s1 and s2; at ragged shapes the columns past
+# the last multiple of 32 left unwritten, x's K tail folded) must move the
+# check this many times past its limit
+FWD_FAULT_MARGIN = 10
 # a ComputationGraph of the reference's own ragged bottlenecks
 # (tests/test_conv_bn_fused.py): FusedBottleneck (4, 4, 8) and (8, 8, 32)
 RAGGED_GRAPH_INPUT = (56, 56, 4)
@@ -280,10 +291,14 @@ def ptxas_usage(name: str, nvcc_log: str) -> dict:
 # the libraries every kernel of which must run on Hopper's tensor-core path,
 # wgmma (HGMMA in SASS) fed by TMA loads (UTMALDG), in f32 and bf16, with no
 # template spilling: the flash kernels, the fused 3x3 conv, the
-# matmul_bn_act backward and the int8 dequant-matmul
+# matmul_bn_act backward and forward and the int8 dequant-matmul
 HOPPER_LIBS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_split",
-               "conv3x3_bn_act", "matmul_bn_act_bwd", "int8_matmul")
+               "conv3x3_bn_act", "matmul_bn_act_bwd", "int8_matmul", "matmul_bn_act")
 FLASH_LIBS = HOPPER_LIBS[:3]
+# kernels of those libraries that compute no product and are held to no
+# wgmma: the matmul_bn_act forward's f32 weight transpose (W^T, a copy made
+# once a call before the GEMM kernel, which reads it by TMA)
+HOPPER_COPIES = {"mbf_wt_kernel"}
 
 
 def sass_counts(name: str) -> dict:
@@ -300,7 +315,8 @@ def sass_counts(name: str) -> dict:
             # anonymous namespace before it may hold "fa_" too), then its
             # template arguments
             kernel = line.split(": ", 1)[1]
-            for m in re.finditer(r"(?=((?:fa|c3|mbb|i8)_\w*?_kernel)(I(?:L[ib]\d+E)+E)?)", line):
+            for m in re.finditer(r"(?=((?:fa|c3|mbb|mbf|i8)_\w*?_kernel)(I(?:L[ib]\d+E)+E)?)",
+                                 line):
                 name = m.group(1)
                 if line[:m.start()].endswith(str(len(name))):
                     args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
@@ -315,15 +331,18 @@ def sass_counts(name: str) -> dict:
 
 def check_hopper_path(built: dict) -> dict:
     """Every kernel of ``HOPPER_LIBS`` (the flash libraries,
-    ``conv3x3_bn_act``, the ``matmul_bn_act`` backward, ``int8_matmul``),
-    f32 and bf16, holds wgmma and TMA loads in its SASS, and no template
-    of them spills (ptxas's report of this build)."""
+    ``conv3x3_bn_act``, the ``matmul_bn_act`` backward and forward,
+    ``int8_matmul``), f32 and bf16, holds wgmma and TMA loads in its SASS
+    (the copies of ``HOPPER_COPIES`` no wgmma: they compute no product),
+    and no template of them spills (ptxas's report of this build)."""
     result = {}
     for name in HOPPER_LIBS:
         counts = sass_counts(name)
         for kernel, (hgmma, utmaldg) in sorted(counts.items()):
-            log(f"  {name}: {kernel}: {hgmma} HGMMA, {utmaldg} UTMALDG")
-        missing = [k for k, (hgmma, utmaldg) in counts.items() if not (hgmma and utmaldg)]
+            log(f"  {name}: {kernel}: {hgmma} HGMMA, {utmaldg} UTMALDG"
+                + (" (a copy: no product)" if kernel in HOPPER_COPIES else ""))
+        missing = [k for k, (hgmma, utmaldg) in counts.items()
+                   if k not in HOPPER_COPIES and not (hgmma and utmaldg)]
         if missing or not any("f32" in k for k in counts) or not any("bf16" in k for k in counts):
             raise AssertionError(f"{name}: kernels without wgmma or TMA loads, or no f32 and "
                                  f"bf16 kernels: {missing or sorted(counts)}")
@@ -408,7 +427,37 @@ def fwd_over_limit(got, want, dname: str) -> float:
     return max(v / TOL[dname][key] for key, v in fwd_errs(got, want).items())
 
 
+def fwd_one_tf32_pass(x, w, a, b):
+    """Comparison only: the f32 forward with one TF32 pass in place of the
+    kernel's three (xhat and W cut to TF32 as the tensor core reads f32
+    words), the rest as ``matmul_bn_act_plain`` (relu_in on)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels.flash_attention import tf32_cut
+    xh = x.float() if a is None else torch.relu(x.float() * a + b)
+    y = tf32_cut(xh) @ tf32_cut(w)
+    return y, y.sum(0), (y * y).sum(0)
+
+
+def fwd_rows_past_m(x, w, a, b):
+    """Comparison only: the forward with the rows past M of the last
+    128-row tile counted in s1 and s2 (zero rows of x, which a prologue
+    folds to act(b)), y of the real rows (relu_in on)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    m = x.shape[0]
+    xp = torch.zeros(-(-m // conv_bn.TILE_M) * conv_bn.TILE_M, x.shape[1], dtype=x.dtype,
+                     device=x.device)
+    xp[:m] = x
+    y, s1, s2 = conv_bn.matmul_bn_act_plain(xp, w, a, b, relu_in=True)
+    return y[:m], s1, s2
+
+
 def check_kernels(calls, dtypes) -> list[dict]:
+    """The forward kernel against its plain version at each (M, K, N,
+    prologue), with the planted faults, a second call that must give the
+    same bits (K split over blocks at the small-M shapes), and times
+    (kernel, plain, library yardstick).  The f32 bound is three TF32
+    passes' (the kernel's design), the CUDA cores' beside it."""
     import torch
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -420,19 +469,25 @@ def check_kernels(calls, dtypes) -> list[dict]:
             w = (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5).to(dtype)
             a = torch.rand(k, device="cuda", generator=gen) + 0.5 if pro else None
             b = torch.randn(k, device="cuda", generator=gen) * 0.2 if pro else None
-            y, s1, s2 = conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)
+            got = conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)
             torch.cuda.synchronize()
             want = conv_bn.matmul_bn_act_plain(x, w, a, b, relu_in=True)
             ye = want[0]
-            yd = (y.float() - ye.float()).abs().max().item()
-            errs = fwd_errs((y, s1, s2), want)
+            yd = (got[0].float() - ye.float()).abs().max().item()
+            errs = fwd_errs(got, want)
             bad = {key: v for key, v in errs.items() if not v <= TOL[dname][key]}
             if bad:
                 raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n} "
                                      f"prologue={pro}: errors {bad} over {TOL[dname]}")
-            # planted faults of the ragged tails, each read as the check reads
-            # it: its largest error over the limit of y, s1 or s2
+            # planted faults, each read as the check reads it: its largest
+            # error over the limit of y, s1 or s2
             faults = {}
+            if dname == "float32":
+                faults["one TF32 pass"] = fwd_over_limit(fwd_one_tf32_pass(x, w, a, b), want,
+                                                         dname)
+            if m % conv_bn.TILE_M and pro:
+                faults["rows past M counted"] = fwd_over_limit(fwd_rows_past_m(x, w, a, b),
+                                                               want, dname)
             if n % 32:
                 # the columns past the last multiple of 32 left unwritten
                 yf = ye.float().clone()
@@ -449,14 +504,22 @@ def check_kernels(calls, dtypes) -> list[dict]:
                     conv_bn.matmul_bn_act_plain(xf, w, a, b, relu_in=True), want, dname)
                 del xf
             fault = min(faults.values()) if faults else None
-            if faults and not fault >= RAGGED_FAULT_MARGIN:
-                raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n}: a tail fault "
+            if faults and not fault >= FWD_FAULT_MARGIN:
+                raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n}: a planted fault "
                                      f"moves the check by only {faults} times its limit")
+            again = conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)
+            if not all(bool(torch.equal(u, v)) for u, v in zip(got, again)):
+                raise AssertionError(f"matmul_bn_act {dname} M={m} K={k} N={n} "
+                                     f"prologue={pro}: a second call gave other bits")
+            del again
+            splits = conv_bn.fwd_plan(m, k, n, dtype)["splits"]
             isz = x.element_size()
             nbytes = (m * k + k * n + m * n) * isz + (2 * k * 4 if pro else 0) + 2 * n * 4
             flops = 2 * m * k * n
+            peak = PEAK_F32_TF32X3 if dname == "float32" else PEAK_FLOPS[dname]
             row = {"dtype": dname, "M": m, "K": k, "N": n, "prologue": pro,
-                   "count": calls.count((m, k, n, pro)),
+                   "count": calls.count((m, k, n, pro)), "k_splits": splits,
+                   "second_call_bits_equal": True,
                    "max_abs_err": yd, "rel_err": errs, "fault_over_limit": faults,
                    "fault_over_limit_min": fault,
                    "ms": cuda_ms(lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)),
@@ -464,16 +527,19 @@ def check_kernels(calls, dtypes) -> list[dict]:
                                                                            relu_in=True)),
                    "library_ms": cuda_ms(lambda: library_matmul_bn_act(x, w, a, b)),
                    "bytes_ms": nbytes / PEAK_BYTES * 1e3,
-                   "ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
+                   "ops_ms": flops / peak * 1e3,
+                   "fma_ops_ms": flops / PEAK_FLOPS[dname] * 1e3}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             rows.append(row)
             log(f"  {dname:8s} M={m:6d} K={k:4d} N={n:4d} pro={int(pro)} x{row['count']}: "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}), "
-                f"rel err y {errs['y']:.2e} s1 {errs['s1']:.2e} s2 {errs['s2']:.2e}"
+                f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'operations'}; FMA "
+                f"{max(row['bytes_ms'], row['fma_ops_ms']):.4f}), K splits {splits}, second "
+                f"call same bits; rel err y {errs['y']:.2e} s1 {errs['s1']:.2e} "
+                f"s2 {errs['s2']:.2e}"
                 + "".join(f"; {key} reads {v:.0f}x the limit" for key, v in faults.items()))
-            del x, w, y, ye, want
+            del x, w, got, ye, want
     return rows
 
 
@@ -2401,20 +2467,38 @@ def checksum(*tensors) -> str:
     return digest.hexdigest()[:16]
 
 
+def host_us(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Host microseconds per call of ``fn``: the time the calling thread
+    spends in it, the device's work excluded (no synchronize inside the
+    timed loop; the launch queue holds the few calls it runs ahead)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
 def mba_pass_ms(batch: int, dname: str) -> dict:
     """The 36 matmul_bn_act calls of one ResNet-50 pass at ``batch``: the
     backward kernel pair's ms and its library yardstick's, and the
     forward kernel's, each distinct shape timed on seeded inputs (as
     ``check_bwd_kernels`` makes them) and counted once per call, by CUDA
-    events around back-to-back calls and as device time alone; the
-    checksum of each shape's first backward."""
+    events around back-to-back calls and as device time alone, and the
+    forward's host microseconds per call (averaged over the 36 calls); the
+    checksum of each shape's first backward and first forward."""
     import torch
     from deeplearning4j_tpu_torch.models import resnet50
     from deeplearning4j_tpu_torch.ops.kernels import conv_bn
     calls = resnet50_calls(resnet50(fused=True, device="cuda"), batch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + batch)
     dtype = getattr(torch, dname)
-    out = {"batch": batch, "dtype": dname, "calls": len(calls), "checksums": {}}
+    out = {"batch": batch, "dtype": dname, "calls": len(calls), "checksums": {},
+           "fwd_checksums": {}, "fwd_host_us": 0.0}
     keys = ("ms", "device_ms", "library_ms", "library_device_ms", "fwd_ms", "fwd_device_ms")
     out |= {key: 0.0 for key in keys}
     for (m, k, n, pro) in sorted(set(calls)):
@@ -2429,15 +2513,76 @@ def mba_pass_ms(batch: int, dname: str) -> dict:
         ds1 = torch.randn(n, device="cuda", generator=gen)
         ds2 = torch.randn(n, device="cuda", generator=gen) * 0.5
         args = (x, w, a, b, y, dy, ds1, ds2)
-        out["checksums"][f"{m}x{k}x{n}x{int(pro)}"] = checksum(
-            *conv_bn.matmul_bn_act_bwd(*args, relu_in=True))
+        shape = f"{m}x{k}x{n}x{int(pro)}"
+        out["checksums"][shape] = checksum(*conv_bn.matmul_bn_act_bwd(*args, relu_in=True))
+        out["fwd_checksums"][shape] = checksum(*conv_bn.matmul_bn_act(x, w, a, b, relu_in=True))
         for key, fn in (("", lambda: conv_bn.matmul_bn_act_bwd(*args, relu_in=True)),
                         ("library_", lambda: library_matmul_bn_act_bwd(*args)),
                         ("fwd_", lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True))):
             out[f"{key}ms"] += count * cuda_ms(fn, warmup=1)
             out[f"{key}device_ms"] += count * device_ms(fn)
+        out["fwd_host_us"] += count * host_us(
+            lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True)) / len(calls)
         del x, w, y, dy, args
     torch.cuda.empty_cache()
+    return out
+
+
+# the shape of the forward's host breakdown: a 1x1 call of ResNet-50 at batch
+# 32 with a prologue (the last stage's c conv)
+MBA_HOST_SHAPE = (BATCH * 7 * 7, 512, 2048)
+
+
+def mba_host_us(dname: str) -> dict:
+    """Host microseconds per call of the ``matmul_bn_act`` forward's wrapper
+    and of its parts, at ``MBA_HOST_SHAPE`` with a prologue, in whichever
+    tree is first on the path: the call where no gradient is asked for and
+    where x requires one (``autograd.Function.apply``), the checks, the
+    ``torch.cuda.device`` context, the stream lookups (public and raw), and
+    ``_launch`` with and without its library call (allocations, pointers,
+    the plan, tensor maps and launches: the difference is the library
+    call)."""
+    import inspect
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    m, k, n = MBA_HOST_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dtype = getattr(torch, dname)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5).to(dtype)
+    a = torch.rand(k, device="cuda", generator=gen) + 0.5
+    b = torch.randn(k, device="cuda", generator=gen) * 0.2
+    xg = x.clone().requires_grad_(True)
+    dev, lib = x.device, conv_bn._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    extra = ((conv_bn._sm_count(dev.index),)
+             if "sms" in inspect.signature(conv_bn._launch).parameters else ())
+
+    class NoLaunch:
+        """The library with its kernel entry points answering 0 unlaunched."""
+
+        def __getattr__(self, name):
+            if name in ("matmul_bn_act_f32", "matmul_bn_act_bf16"):
+                return lambda *args: 0
+            return getattr(lib, name)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {"call": lambda: conv_bn.matmul_bn_act(x, w, a, b, relu_in=True),
+             "call_autograd": lambda: conv_bn.matmul_bn_act(xg, w, a, b, relu_in=True),
+             "check": lambda: conv_bn._check(x, w, a, b),
+             "device_context": context,
+             "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+             "launch": lambda: conv_bn._launch(lib, x, w, a, b, True, stream, *extra),
+             "launch_no_call": lambda: conv_bn._launch(NoLaunch(), x, w, a, b, True, stream,
+                                                       *extra)}
+    before = conv_bn.launches
+    out = {key: host_us(fn, reps=200, warmup=10) for key, fn in parts.items()}
+    conv_bn.launches = before
+    out["library_call"] = out["launch"] - out["launch_no_call"]
     return out
 
 
@@ -2462,15 +2607,37 @@ def int8_ab_ms() -> list[dict]:
     return rows
 
 
+def resnet_ab_ms() -> dict:
+    """ResNet-50 in f32 at batch 32, seeded: the served forward
+    (``net.output``, 10 runs after 3 warm-ups) and one training step
+    (``Trainer.fit_batch``, ``Nesterovs(TRAIN_LR, 0.9)``, 5 steps after 3),
+    wall ms by CUDA events."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Nesterovs, Trainer
+    net = build_net(Nesterovs(TRAIN_LR, 0.9))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(BATCH, 224, 224, 3, device="cuda", generator=gen)
+    labels = torch.eye(1000, device="cuda")[torch.randint(0, 1000, (BATCH,), device="cuda",
+                                                          generator=gen)]
+    trainer, batch = Trainer(net), DataSet(x, labels)
+    out = {"resnet_forward_f32_ms": cuda_ms(lambda: net.output(x), reps=10, warmup=3),
+           "resnet_step_f32_ms": cuda_ms(lambda: trainer.fit_batch(batch), reps=5, warmup=3)}
+    del net, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def ab_times() -> dict:
     """Times of whichever ``deeplearning4j_tpu_torch`` is first on the
     path: the forward (normalized) and both backward forms at the base case
     of every AB head dim, f32 and bf16, the forward and the merged backward
     at the causal case with offsets as well, the ``AB_CONV3`` passes of
     ``conv3x3_bn_act``, the ``AB_MBA`` passes of ``matmul_bn_act`` (its
-    backward and forward), the int8 kernel at VGG-16's dense shapes, and
-    the BERT-base fine-tune step (4 layers, 2 x 4096) and serving call (12
-    layers), in bf16 and f32."""
+    backward and forward, and where the forward wrapper's host time goes),
+    the int8 kernel at VGG-16's dense shapes, ResNet-50's f32 served
+    forward and training step, and the BERT-base fine-tune step (4 layers,
+    2 x 4096) and serving call (12 layers), in bf16 and f32."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch import config
@@ -2507,7 +2674,9 @@ def ab_times() -> dict:
             torch.cuda.empty_cache()
     conv3 = [conv3_pass_ms(batch, dname) for batch, dname in AB_CONV3]
     mba = [mba_pass_ms(batch, dname) for batch, dname in AB_MBA]
+    mba_host = {dname: mba_host_us(dname) for dname in ("float32", "bfloat16")}
     int8 = int8_ab_ms()
+    resnet = resnet_ab_ms()
     bert = {}
     for policy in ("bf16", "f32"):
         config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
@@ -2528,7 +2697,8 @@ def ab_times() -> dict:
             torch.cuda.empty_cache()
         finally:
             config.set_dtype_policy(config.DTypePolicy.f32())
-    return {"flash_bwd": rows, "conv3": conv3, "mba": mba, "int8": int8, **bert}
+    return {"flash_bwd": rows, "conv3": conv3, "mba": mba, "mba_host": mba_host, "int8": int8,
+            **resnet, **bert}
 
 
 def ab(parent: Path) -> int:
@@ -2588,6 +2758,23 @@ def ab(parent: Path) -> int:
             log(f"  matmul_bn_act {row['calls']}-call pass, batch {row['batch']} "
                 f"{row['dtype']:8s} {what}: parent {pair('parent', pick)} ms; change "
                 f"{pair('change', pick)} ms ({gain:.3f}x)")
+    for i, row in enumerate(runs[0][1]["mba"]):
+        def pick(r, i=i):
+            return r["mba"][i]["fwd_host_us"]
+        log(f"  matmul_bn_act forward, host us per call (mean of the {row['calls']} calls), batch "
+            f"{row['batch']} {row['dtype']:8s}: parent {pair('parent', pick)}; change "
+            f"{pair('change', pick)}")
+    for label in ("parent", "change"):
+        same = len({json.dumps([m["fwd_checksums"] for m in r["mba"]], sort_keys=True)
+                    for r in times[label]}) == 1
+        log(f"  matmul_bn_act forward checksums of y, s1 and s2 at every shape of the "
+            f"{len(AB_MBA)} passes: {'equal' if same else 'DIFFERENT'} in the two {label} runs")
+    for dname in ("float32", "bfloat16"):
+        for key in runs[0][1]["mba_host"][dname]:
+            def pick(r, key=key, dname=dname):
+                return r["mba_host"][dname][key]
+            log(f"  matmul_bn_act forward host us per call at {MBA_HOST_SHAPE}, {dname:8s} "
+                f"{key}: parent {pair('parent', pick)}; change {pair('change', pick)}")
     for i, row in enumerate(runs[0][1]["int8"]):
         for key, what in (("ms", "kernel"), ("library_ms", "library")):
             def pick(r, key=key):
@@ -2595,7 +2782,9 @@ def ab(parent: Path) -> int:
             gain = (sum(map(pick, times["parent"])) / sum(map(pick, times["change"])))
             log(f"  int8_matmul {row['shape']} M={row['M']:2d} {row['dtype']:8s} {what}: parent "
                 f"{pair('parent', pick)} ms; change {pair('change', pick)} ms ({gain:.3f}x)")
-    for key, what in (("bert_finetune_step_bf16_ms", "BERT fine-tune step (bf16, 4 layers)"),
+    for key, what in (("resnet_forward_f32_ms", "ResNet-50 served forward (f32, batch 32)"),
+                      ("resnet_step_f32_ms", "ResNet-50 training step (f32, batch 32)"),
+                      ("bert_finetune_step_bf16_ms", "BERT fine-tune step (bf16, 4 layers)"),
                       ("bert_serve_bf16_ms", "BERT serve (bf16, 12 layers)"),
                       ("bert_finetune_step_f32_ms", "BERT fine-tune step (f32, 4 layers)"),
                       ("bert_serve_f32_ms", "BERT serve (f32, 12 layers)")):
@@ -2766,6 +2955,12 @@ def main() -> int:
                 "headline_bf16_ms": head16["ms"], "headline_bf16_max_abs_err": head16["max_abs_err"]}
 
     f32, bf16 = per_forward(rows, "float32"), per_forward(rows, "bfloat16")
+    for dname, tot in (("float32", f32), ("bfloat16", bf16)):
+        fma = sum(r["fma_ops_ms"] * r["count"] for r in rows if r["dtype"] == dname)
+        log(f"  the 36 matmul_bn_act forward calls of one pass, batch {BATCH} {dname}: kernel "
+            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, library {tot['library_ms']:.3f}, "
+            f"bound {tot['bound_ms']:.3f} ({tot['bound_by']}; bytes {tot['bytes_ms']:.3f}, "
+            f"operations {tot['ops_ms']:.3f}; on the CUDA cores {fma:.3f})")
     b32, b16 = per_forward(bwd_rows, "float32"), per_forward(bwd_rows, "bfloat16")
     h16, hb16 = per_forward(head_rows, "bfloat16"), per_forward(head_bwd_rows, "bfloat16")
     train_launches = [sum(c[i] for c in training["launches_per_step"]) for i in (0, 1)]
@@ -2778,7 +2973,14 @@ def main() -> int:
     kernels = [
         entry("matmul_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:58", f32, bf16, h16, train_launches[0],
-              work.format("forward")) | {"serve_launches": serving["launches"]},
+              work.format("forward"))
+        | {"serve_launches": serving["launches"], "sass": hopper["matmul_bn_act"],
+           "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
+                     "column tile: wgmma fed by TMA, x folded in place by prep threads (bf16: A "
+                     "from shared memory; f32: A split in registers into TF32 hi and lo, three "
+                     "passes, W^T written once a call by mbf_wt_kernel and split in place by "
+                     "prep), K split where the tiles do not fill the card, y (TMA stores), s1, "
+                     "s2 from one launch (running column sums, arrival counts, fixed order)"},
         entry("matmul_bn_act_bwd",
               "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act_bwd.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],

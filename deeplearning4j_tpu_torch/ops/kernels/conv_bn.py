@@ -15,13 +15,20 @@ backward ``csrc/matmul_bn_act_bwd.cu`` (whose headers say what bounds
 them and how they are built), or raises.  On a CPU tensor the same
 Function runs :func:`matmul_bn_act_plain` and
 :func:`matmul_bn_act_bwd_plain`, the same arithmetic in plain PyTorch.
+Where no input needs a gradient (serving) the forward runs without the
+Function, which only adds host time there.
 f64 (the JAX function's exact branch) is plain autograd through
 :func:`matmul_bn_act_plain`.
 
-The backward kernel pair (dx, then dW; ``csrc/matmul_bn_act_bwd.cu``) runs
-on wgmma fed by TMA, f32 as three TF32 passes; :func:`bwd_plan` is its
-launch's shape: the tiles of both kernels, the split of M over dW blocks
-where the (K, N) tiles alone cannot fill the card, and the scratch.
+The forward kernel and the backward kernel pair (dx, then dW;
+``csrc/matmul_bn_act_bwd.cu``) run on wgmma fed by TMA, f32 as three TF32
+passes.  :func:`fwd_plan` is the forward launch's shape: its tiles, the
+split of K over blocks where the (M, N) tiles alone cannot fill the card,
+and its scratch, all in one f32 buffer beside y (the statistics, the
+column-sum tables, the split-K partials, the f32 weight's transpose and
+the arrival counts).  :func:`bwd_plan` is the backward's: the tiles of
+both kernels, the split of M over dW blocks where the (K, N) tiles alone
+cannot fill the card, and the scratch.
 
 ``launches`` and ``bwd_launches`` count calls that launch the forward
 kernel and the backward pair; nothing else changes them.
@@ -29,8 +36,10 @@ kernel and the backward pair; nothing else changes them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -39,6 +48,11 @@ from deeplearning4j_tpu_torch.ops.kernels import _build
 launches = 0
 bwd_launches = 0
 
+# the forward kernel's block (rows of M, columns of N) and the columns of K
+# one stage takes (128 bytes of a row of x)
+TILE_M, TILE_N = 128, 128
+CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+
 # the backward kernels' blocks: dx (rows of M, columns of K) and dW (rows of
 # K, columns of N), and the rows of M a dW stage takes (a split's rows are
 # whole stages)
@@ -46,14 +60,17 @@ DX_TILE_M, DX_TILE_K = 128, 128
 DW_TILE_K, DW_TILE_N = 128, 128
 SUM_COLS = 64        # columns of a dx column-sum block (two a dx tile)
 M_STEP = {torch.float32: 32, torch.bfloat16: 64}
-GROUP = 32           # dx row tiles whose da/db sums the kernel adds first
-SPLIT_GROUP = 8      # splits of a tile whose partials are added first (dW here, int8's K)
-MAX_TILES_M = 65535  # the dx grid's y
+GROUP = 32           # row tiles whose column sums the kernels add first (forward, dx)
+SPLIT_GROUP = 8      # splits of a tile whose partials are added first (forward, dW, int8's K)
+MAX_TILES_M = 65535  # the dx kernel's grid y
 
 _KERNEL_DTYPES = {torch.float32: "matmul_bn_act_f32", torch.bfloat16: "matmul_bn_act_bf16"}
 _BWD_KERNEL_DTYPES = {torch.float32: "matmul_bn_act_bwd_f32",
                       torch.bfloat16: "matmul_bn_act_bwd_bf16"}
-_C_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# pointers x, w, a, b, y, then the plan's sums, stats, part, wt and counts;
+# ints n_counts, M, N, K, the row pitches of x and w, splits, blocks, rows,
+# relu_in; stream
+_C_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # pointers x, w, a, b, y, dy, ds1, ds2, dx, dw, da, db, part, stats, counts;
 # ints M, N, K, the row pitches of x, w and y/dy, splits, relu_in; stream
 _BWD_C_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -106,13 +123,7 @@ class _MatmulBnAct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, a, b, relu_in):
-        if x.device.type == "cpu":
-            y, s1, s2 = matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
-        else:
-            _check(x, w, a, b)
-            with torch.cuda.device(x.device):
-                y, s1, s2 = _launch(_lib(), x, w, a, b, relu_in,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
+        y, s1, s2 = _forward(x, w, a, b, relu_in)
         ctx.save_for_backward(x, w, a, b, y)
         ctx.relu_in = relu_in
         return y, s1, s2
@@ -124,6 +135,20 @@ class _MatmulBnAct(torch.autograd.Function):
         return dx, dw, da, db, None
 
 
+def _forward(x, w, a, b, relu_in):
+    """The forward on x's device: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor (it raises on what the kernel does not take)."""
+    if x.device.type == "cpu":
+        return matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
+    _check(x, w, a, b)
+    index = x.device.index
+    # the launch goes to the current card: switch only where x is elsewhere
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        return _launch(_lib(), x, w, a, b, relu_in, torch._C._cuda_getCurrentRawStream(index),
+                       _sm_count(index))
+
+
 def matmul_bn_act(x, w, a=None, b=None, *, relu_in: bool = True):
     """Fused ``y = act(x*a + b) @ w`` with the BN-statistics epilogue;
     returns ``(y, s1, s2)``.  ``a``/``b`` None skips the prologue."""
@@ -131,7 +156,10 @@ def matmul_bn_act(x, w, a=None, b=None, *, relu_in: bool = True):
         raise ValueError("matmul_bn_act: pass both a and b, or neither")
     if x.dtype == torch.float64:
         return matmul_bn_act_plain(x, w, a, b, relu_in=relu_in)
-    return _MatmulBnAct.apply(x, w, a, b, relu_in)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            a is not None and (a.requires_grad or b.requires_grad))):
+        return _MatmulBnAct.apply(x, w, a, b, relu_in)
+    return _forward(x, w, a, b, relu_in)   # no gradient asked for: the same outputs
 
 
 def matmul_bn_act_bwd(x, w, a, b, y, dy, ds1, ds2, *, relu_in: bool = True):
@@ -149,28 +177,28 @@ def matmul_bn_act_bwd(x, w, a, b, y, dy, ds1, ds2, *, relu_in: bool = True):
 
 
 def _check(x, w, a, b) -> None:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"matmul_bn_act: kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
-        raise ValueError(f"matmul_bn_act: shapes x {tuple(x.shape)} and w {tuple(w.shape)} "
+    """What the kernels take (each attribute read once: this runs on every
+    call's host path)."""
+    dtype, dev = x.dtype, x.device
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"matmul_bn_act: kernel takes float32 or bfloat16, got {dtype}")
+    xs, ws = x.shape, w.shape
+    if len(xs) != 2 or len(ws) != 2 or ws[0] != xs[1]:
+        raise ValueError(f"matmul_bn_act: shapes x {tuple(xs)} and w {tuple(ws)} "
                          f"are not [M, K] and [K, N]")
-    m, k = x.shape
-    n = w.shape[1]
-    if w.dtype != x.dtype or w.device != x.device:
+    if w.dtype != dtype or w.device != dev:
         raise TypeError("matmul_bn_act: w must match x's dtype and device")
-    if m == 0:
+    if xs[0] == 0:
         raise ValueError("matmul_bn_act: x has no rows")
     for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
-        if t is None:
-            continue
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"matmul_bn_act: {name} must be contiguous and 16-byte aligned")
+    k = xs[1]
     for name, t in (("a", a), ("b", b)):
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (k,)
-                              or t.device != x.device):
-            raise ValueError(f"matmul_bn_act: {name} must be float32 [{k}] on {x.device}")
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_bn_act: unsupported device {x.device}")
+        if t is not None and (t.dtype != torch.float32 or t.shape != (k,) or t.device != dev):
+            raise ValueError(f"matmul_bn_act: {name} must be float32 [{k}] on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"matmul_bn_act: unsupported device {dev}")
 
 
 def _check_bwd(x, w, a, b, y, dy, ds1, ds2) -> None:
@@ -195,8 +223,52 @@ def _check_bwd(x, w, a, b, y, dy, ds1, ds2) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA card ``index``: what the dW split fills."""
+    """Streaming multiprocessors of CUDA card ``index``: what the splits fill."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(m: int, k: int, n: int, dtype, sms: int = 132) -> dict:
+    """The forward's launch for x [M, K], W [K, N] on a card with ``sms``
+    SMs: the kernel's tiles (``TILE_M`` x ``TILE_N``), the ``chunks`` of
+    ``CHUNK`` columns of K, the number of K splits (1 where the (M, N)
+    tiles fill the SMs, else as many as one wave of blocks holds, at most
+    one per chunk; split s takes chunks ``chunk_ranges[s]``), and its
+    persistent ``blocks``: one a tile's split where the tiles do not fill
+    the SMs; else ``rows`` blocks for each column tile (as many as the SMs
+    hold), each of which keeps its column tile and walks the row tiles
+    ``rows`` apart.  The scratch is one f32 buffer of ``floats`` entries
+    holding, at element offsets ``at`` (each a multiple of 64), the
+    sections ``shapes``: s1 and s2 (``sums``), the column sums of each of
+    the ``rows`` blocks of a column tile (each row tile's where split) and
+    then of each group of ``GROUP`` (``stats``), the split-K partials
+    (``part``, when split), W^T with rows of K' = K rounded up to 4 (``wt``,
+    f32), and the int32 arrival counts (``counts``: per tile and split
+    group when split, then per group and column tile, then per column
+    tile).  Cached: a call reads it, never changes it."""
+    if m <= 0 or k <= 0 or n <= 0:
+        raise ValueError(f"matmul_bn_act: no plan for M={m}, K={k}, N={n}")
+    tiles_m, tiles_n = _cdiv(m, TILE_M), _cdiv(n, TILE_N)
+    chunks = _cdiv(k, CHUNK[dtype])
+    tiles = tiles_m * tiles_n
+    splits = 1 if tiles >= sms else min(chunks, sms // tiles)
+    rows = tiles_m if tiles <= sms else min(tiles_m, max(1, sms // tiles_n))
+    slices, per_tile = split_scratch(splits)
+    groups = _cdiv(rows, GROUP)
+    counts = (tiles * per_tile if splits > 1 else 0) + tiles_n * (groups + 1)
+    shapes = {"sums": (2, n), "stats": (2, rows + groups, n),
+              "part": (slices, m, n) if splits > 1 else (0,),
+              "wt": (n, _cdiv(k, 4) * 4) if dtype == torch.float32 else (0,),
+              "counts": (counts,)}
+    at, floats = {}, 0
+    for name, shape in shapes.items():
+        at[name] = floats
+        floats += _cdiv(math.prod(shape), 64) * 64
+    return {"tiles_m": tiles_m, "tiles_n": tiles_n, "chunks": chunks, "splits": splits,
+            "chunk_ranges": [(s * chunks // splits, (s + 1) * chunks // splits)
+                             for s in range(splits)],
+            "rows": rows, "blocks": rows * tiles_n * splits, "shapes": shapes, "at": at,
+            "floats": floats}
 
 
 @functools.lru_cache(maxsize=256)
@@ -263,7 +335,11 @@ def _lib():
         for fname in _KERNEL_DTYPES.values():
             fn = getattr(lib, fname)
             fn.argtypes, fn.restype = _C_ARGS, ctypes.c_int
-        lib.matmul_bn_act_tile_m.argtypes, lib.matmul_bn_act_tile_m.restype = [], ctypes.c_int
+        lib.matmul_bn_act_tile.argtypes = [ctypes.c_int]
+        lib.matmul_bn_act_tile.restype = ctypes.c_int
+        sizes = tuple(lib.matmul_bn_act_tile(i) for i in range(4))
+        if sizes != (TILE_M, TILE_N, CHUNK[torch.float32], CHUNK[torch.bfloat16]):
+            raise RuntimeError(f"matmul_bn_act: the library's tiles {sizes} are not the plan's")
         _bound = lib
     return _bound
 
@@ -290,24 +366,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(lib, x, w, a, b, relu_in, stream):
-    """Allocate the outputs and scratch, launch, check the launch."""
+def _launch(lib, x, w, a, b, relu_in, stream, sms):
+    """Allocate y and the one scratch buffer of the plan for a card with
+    ``sms`` SMs, pad rows to the TMA's pitch where needed (x; bf16 W), make
+    the one library call (it zeroes the counts, transposes the f32 weight and
+    launches the kernel), check it; returns ``(y, s1, s2)``."""
     global launches
     m, k = x.shape
     n = w.shape[1]
-    tiles_m = -(-m // lib.matmul_bn_act_tile_m())
-    if tiles_m > 65535:
-        raise ValueError(f"matmul_bn_act: M={m} is past the kernel's grid")
+    p = fwd_plan(m, k, n, x.dtype, sms)
+    f32 = x.dtype == torch.float32
+    xk, wk = row_aligned(x), (w if f32 else row_aligned(w))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, tiles_m, n), dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    buf = torch.empty(p["floats"], dtype=torch.float32, device=x.device)
+    base, at = buf.data_ptr(), p["at"]
     rc = getattr(lib, _KERNEL_DTYPES[x.dtype])(
-        _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), _ptr(part[0]), _ptr(part[1]),
-        _ptr(stats[0]), _ptr(stats[1]), m, n, k, int(a is not None), int(relu_in), stream)
+        xk.data_ptr(), wk.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(), base,
+        base + 4 * at["stats"], base + 4 * at["part"] if p["splits"] > 1 else None,
+        base + 4 * at["wt"] if f32 else None, base + 4 * at["counts"],
+        p["shapes"]["counts"][0], m, n, k, xk.shape[1], wk.shape[1], p["splits"], p["blocks"],
+        p["rows"], int(relu_in), stream)
     if rc != 0:
         raise RuntimeError(f"matmul_bn_act: kernel launch failed, cudaGetLastError() = {rc}")
     launches += 1
-    return y, stats[0], stats[1]
+    return y, buf[:n], buf[n:2 * n]
 
 
 def _launch_bwd(lib, x, w, a, b, y, dy, ds1, ds2, relu_in, stream, sms):

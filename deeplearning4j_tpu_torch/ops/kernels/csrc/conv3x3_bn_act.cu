@@ -65,10 +65,10 @@
 //     next unit's A loads; f32, whose fresh tile must land before it is
 //     added, waits for each unit.
 // The GEMM core (the block's warpgroups and rings, the split-K sum, the
-// column sums; gemm_sm90.cuh) is shared with matmul_bn_act_bwd.cu and
-// int8_matmul.cu; the Hopper pieces below it (mbarriers, TMA, wgmma, the TF32
-// split) are the flash kernels' (flash_attention.cuh,
-// flash_attention_sm90.cuh).
+// column sums, the BatchNorm fold; gemm_sm90.cuh) is shared with
+// matmul_bn_act.cu, matmul_bn_act_bwd.cu and int8_matmul.cu; the Hopper
+// pieces below it (mbarriers, TMA, wgmma, the TF32 split) are the flash
+// kernels' (flash_attention.cuh, flash_attention_sm90.cuh).
 //
 // Requirements checked and met by the Python wrapper (conv3_bn.py): x
 // contiguous [M', C'] with C' a multiple of the chunk and M' >= 136 rows
@@ -124,12 +124,6 @@ struct C3Smem {
   static constexpr size_t BYTES = 1024 + BARS + 8 * (6 + 2 * C3_ST);
 };
 
-__device__ __forceinline__ float c3_fold(float v, float a, float b, int relu_in) {
-  // no FMA contraction: x*a rounds, then +b rounds, as in the plain version
-  const float h = __fadd_rn(__fmul_rn(v, a), b);
-  return (relu_in && !(h > 0.f)) ? 0.f : h;
-}
-
 // prep: the fold applied in place to one A buffer (3 bands of 136 pixels x
 // 128 bytes, 128-byte swizzled), to the pixels of the tensor only.  Thread
 // pt takes the 16-byte chunks pt, pt + GEMM_PREP, ...: always the same logical
@@ -154,14 +148,14 @@ __device__ __forceinline__ void c3_fold_bands(unsigned char* buf, const C3Args& 
     if constexpr (F32) {
       float* f = reinterpret_cast<float*>(&v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = c3_fold(f[e], fa[e], fb[e], p.relu_in);
+      for (int e = 0; e < 4; ++e) f[e] = xhat_of(f[e], fa[e], fb[e], p.relu_in);
     } else {
       __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float2 f = __bfloat1622float2(h[e]);
-        h[e] = __floats2bfloat162_rn(c3_fold(f.x, fa[2 * e], fb[2 * e], p.relu_in),
-                                     c3_fold(f.y, fa[2 * e + 1], fb[2 * e + 1], p.relu_in));
+        h[e] = __floats2bfloat162_rn(xhat_of(f.x, fa[2 * e], fb[2 * e], p.relu_in),
+                                     xhat_of(f.y, fa[2 * e + 1], fb[2 * e + 1], p.relu_in));
       }
     }
     *at = v;

@@ -1,6 +1,7 @@
 // The GEMM core of the port's Hopper (sm_90a) kernels that are plain or
 // implicit GEMMs with a prologue or an epilogue: conv3x3_bn_act.cu (where it
-// was first written), matmul_bn_act_bwd.cu and int8_matmul.cu.
+// was first written), matmul_bn_act.cu, matmul_bn_act_bwd.cu and
+// int8_matmul.cu.
 //
 //   * The block: one producer warpgroup and two consumer warpgroups of 64
 //     output rows (CONSUMERS, flash_attention_sm90.cuh; GEMM_THREADS in all).
@@ -20,14 +21,18 @@
 //     zero, and chained over a long contraction that bias would reach the f32
 //     limits.
 //   * wgmma forms the flash kernels lack: bf16 with A from registers and a
-//     K-major B (wgmma_rs_k, N = 8, 16, 32, 128), TF32 at N = 8 and 16.
+//     K-major B (wgmma_rs_k, N = 8, 16, 32, 128), bf16 with a K-major A and an
+//     N-major B both in shared memory (wgmma_ss_kn, N = 128), TF32 at N = 8
+//     and 16.
+//   * A tile of the output stored from shared memory by the TMA (tma_store).
 //   * Split-K in the same launch (splitk_sum): each split writes its f32
 //     partial, and the last split of a tile to arrive adds all partials in
 //     split order (past a group of splits, in two fixed levels), so the
 //     result repeats bit for bit.
-//   * Column sums of two quantities over the block's rows, then over the row
-//     tiles of a column block (col_sums): two levels of arrival counts, each
-//     level added in a fixed order.
+//   * Column sums of two quantities over the block's rows (or running sums
+//     over several tiles of a persistent block), then over the row tiles of a
+//     column block of 64 or 128 (col_sums, col_sums_warp, col_sums_tables):
+//     two levels of arrival counts, each level added in a fixed order.
 #pragma once
 
 #include "flash_attention_sm90.cuh"
@@ -79,6 +84,22 @@ __device__ __forceinline__ T from_f32(float v) {
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The BatchNorm fold of the 1x1 and 3x3 kernels, x a + b then (relu_in)
+// relu: no FMA contraction, each step rounded as the plain version rounds it.
+__device__ __forceinline__ float pre_act(float v, float a, float b) {
+  return __fadd_rn(__fmul_rn(v, a), b);
+}
+
+__device__ __forceinline__ float xhat_of(float v, float a, float b, int relu_in) {
+  const float h = pre_act(v, a, b);
+  return (relu_in && !(h > 0.f)) ? 0.f : h;
+}
+
+// a bf16 pair (the first in the low half) as two floats
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 template <int N>
@@ -199,6 +220,27 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d (64 x 128) += a (64 x 16, K-major) . b (16 x 128, N-major): both bf16 in
+// shared memory (acc 0: d afresh)
+__device__ __forceinline__ void wgmma_ss_kn(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // d (64 x N) += a (64 x 8, TF32 registers) . b (8 x N, K-major TF32), N = 8, 16
 // (N = 32, 64, 128: flash_attention_sm90.cuh)
 __device__ __forceinline__ void wgmma_tf32(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
@@ -316,8 +358,10 @@ __device__ __forceinline__ bool splitk_sum(P (&acc)[N], P* part, size_t slice, i
 // ----------------------------------------------------------- column sums
 // The column sums of two quantities over every row, in a fixed order:
 // stats holds two tables ([2, tiles_m + groups, ncols]: the sums of each
-// row tile, then of each group of GEMM_GROUP row tiles), counts the arrival
-// counts (zeros before the launch: [tiles_n * groups], then [tiles_n]).
+// row tile (or of each persistent block's tiles), then of each group of
+// GEMM_GROUP of them), counts the arrival counts (zeros before the launch:
+// [tiles_n * groups], then [tiles_n]; tiles_n column blocks of 64 or 128, as
+// col_sums is called).
 struct ColSums {
   float* stats;
   int* counts;
@@ -326,71 +370,86 @@ struct ColSums {
   int ncols, tiles_m, tiles_n;
 };
 
-// The sums of rows [r0, r1) of the two tables at the block's GEMM_BN
-// columns, added in a fixed order: thread tid (2 tables x 2 phases x 64
-// columns) keeps 8 running sums of every other row, which are then added in
-// order, and the two phases' totals through red.  The result is in the
-// threads of phase 0 (tid % 128 < 64): table tid / 128, column n0 + tid % 64.
+// The sums of rows [r0, r1) of the two tables at the block's BN columns (BN
+// = 64 or 128), added in a fixed order: thread tid (2 tables x PH phases x
+// BN columns, PH = 256 / (2 BN)) keeps 8 running sums of every PH-th row,
+// which are then added in order, and at PH = 2 the two phases' totals
+// through red.  The result is in the threads of phase 0: table tid / (PH BN),
+// column n0 + tid % BN.
+template <int BN>
 __device__ __forceinline__ float col_sum_rows(const ColSums& a, float* red, int rows, int n0,
                                               int r0, int r1, int tid) {
-  const int which = tid / (2 * GEMM_BN), c = tid % GEMM_BN, ph = (tid / GEMM_BN) & 1;
+  constexpr int PH = CONSUMERS / (2 * BN);
+  const int which = tid / (PH * BN), c = tid % BN, ph = (tid / BN) % PH;
   float part[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) part[k] = 0.f;
   if (n0 + c < a.ncols) {
     const float* col = a.stats + (size_t)which * rows * a.ncols + n0 + c;
     int i = r0 + ph;
-    for (; i + 14 < r1; i += 16)
+    for (; i + 7 * PH < r1; i += 8 * PH)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.ncols);
+      for (int k = 0; k < 8; ++k) part[k] += __ldcg(col + (size_t)(i + PH * k) * a.ncols);
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      if (i + 2 * k < r1) part[k] += __ldcg(col + (size_t)(i + 2 * k) * a.ncols);
+      if (i + PH * k < r1) part[k] += __ldcg(col + (size_t)(i + PH * k) * a.ncols);
   }
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) sum += part[k];
+  if constexpr (PH == 1) return sum;
   consumers_sync(1);           // red's last readers are done
   red[tid] = sum;
   consumers_sync(1);
-  return red[tid] + red[tid ^ GEMM_BN];
+  return red[tid] + red[tid ^ BN];
 }
 
-// The block (row tile mt, column block nt of GEMM_BN columns) adds c1 and
-// c2 (this thread's sums over its rows at columns n0 + 8 j + 2 t + e, entry
-// 2 j + e) over the warp's 8 g, then over the 8 consumer warps in order (red:
-// [2][8][GEMM_BN] f32 of shared memory), and writes them to row mt of the
-// tables; the last tile of its group to arrive adds the group's rows in
-// order, and the last group of the column block the groups' into out1 and
-// out2.  Consumer threads only; `last` is a shared int.
-__device__ __forceinline__ void col_sums(float (&c1)[16], float (&c2)[16], float* red,
-                                         const ColSums& a, int mt, int nt, int* last) {
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = nt * GEMM_BN;
+// c1 and c2 (this thread's sums over its rows at columns 8 j + 2 t + e of a
+// block of BN = 4 E columns, entry 2 j + e) added over the warp's 8 g, then
+// written to the warp's rows of red ([2][8][BN] f32 of shared memory), or
+// (ADD) added to what they hold: each warp owns its rows, so a block can
+// keep running sums there over several tiles.
+template <bool ADD, int E>
+__device__ __forceinline__ void col_sums_warp(float (&c1)[E], float (&c2)[E], float* red) {
+  constexpr int BN = 4 * E;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x / 32;
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < E; ++i)
 #pragma unroll
     for (int x = 4; x < 32; x <<= 1) {
       c1[i] += __shfl_xor_sync(0xffffffffu, c1[i], x);
       c2[i] += __shfl_xor_sync(0xffffffffu, c2[i], x);
     }
-  const int warp = tid / 32;
   if (g == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < E / 2; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        red[warp * GEMM_BN + 8 * j + 2 * t + e] = c1[2 * j + e];
-        red[(8 + warp) * GEMM_BN + 8 * j + 2 * t + e] = c2[2 * j + e];
+        float* r1 = red + warp * BN + 8 * j + 2 * t + e;
+        float* r2 = red + (8 + warp) * BN + 8 * j + 2 * t + e;
+        *r1 = ADD ? *r1 + c1[2 * j + e] : c1[2 * j + e];
+        *r2 = ADD ? *r2 + c2[2 * j + e] : c2[2 * j + e];
       }
   }
-  consumers_sync(1);
+}
+
+// The block's sums in red (row mt of the tables, column block nt of BN
+// columns) added over the 8 consumer warps in order and written to row mt
+// of the tables; the last row of its group to arrive adds the group's rows
+// in order, and the last group of the column block the groups' into out1
+// and out2.  Consumer threads only, after a consumers_sync that follows
+// red's last writes; `last` is a shared int.
+template <int BN>
+__device__ __forceinline__ void col_sums_tables(float* red, const ColSums& a, int mt, int nt,
+                                                int* last) {
+  constexpr int PH = CONSUMERS / (2 * BN);
+  const int tid = threadIdx.x, n0 = nt * BN;
   const int rows = a.tiles_m + (a.tiles_m + GEMM_GROUP - 1) / GEMM_GROUP;   // of a table
-  if (tid < 2 * GEMM_BN) {
-    const int which = tid / GEMM_BN, c = tid % GEMM_BN;
+  if (tid < 2 * BN) {
+    const int which = tid / BN, c = tid % BN;
     float sum = 0.f;
 #pragma unroll
-    for (int w8 = 0; w8 < 8; ++w8) sum += red[(8 * which + w8) * GEMM_BN + c];
+    for (int w8 = 0; w8 < 8; ++w8) sum += red[(8 * which + w8) * BN + c];
     if (n0 + c < a.ncols) a.stats[((size_t)which * rows + mt) * a.ncols + n0 + c] = sum;
   }
   const int grp = mt / GEMM_GROUP, n_groups = rows - a.tiles_m;
@@ -401,9 +460,9 @@ __device__ __forceinline__ void col_sums(float (&c1)[16], float (&c2)[16], float
   consumers_sync(1);
   if (!*last) return;
   __threadfence();
-  float sum = col_sum_rows(a, red, rows, n0, g0, g1, tid);
-  const int which = tid / (2 * GEMM_BN), c = tid % GEMM_BN;
-  const bool mine = tid % (2 * GEMM_BN) < GEMM_BN && n0 + c < a.ncols;
+  float sum = col_sum_rows<BN>(a, red, rows, n0, g0, g1, tid);
+  const int which = tid / (PH * BN), c = tid % BN;
+  const bool mine = (tid / BN) % PH == 0 && n0 + c < a.ncols;
   if (mine) a.stats[((size_t)which * rows + a.tiles_m + grp) * a.ncols + n0 + c] = sum;
   __threadfence();
   consumers_sync(1);
@@ -411,8 +470,37 @@ __device__ __forceinline__ void col_sums(float (&c1)[16], float (&c2)[16], float
   consumers_sync(1);
   if (!*last) return;
   __threadfence();
-  sum = col_sum_rows(a, red, rows, n0, a.tiles_m, rows, tid);
+  sum = col_sum_rows<BN>(a, red, rows, n0, a.tiles_m, rows, tid);
   if (mine) (which ? a.out2 : a.out1)[n0 + c] = sum;
+}
+
+// The block (row tile mt, column block nt of BN = 4 E columns: 64 or 128)
+// adds c1 and c2 over its rows (col_sums_warp, then col_sums_tables).
+// Consumer threads only; `last` is a shared int.
+template <int E>
+__device__ __forceinline__ void col_sums(float (&c1)[E], float (&c2)[E], float* red,
+                                         const ColSums& a, int mt, int nt, int* last) {
+  consumers_sync(1);   // red's last readers (a previous call's col_sum_rows) are done
+  col_sums_warp<false>(c1, c2, red);
+  consumers_sync(1);
+  col_sums_tables<4 * E>(red, a, mt, nt, last);
+}
+
+// ------------------------------------------------------------ TMA store
+// A box of shared memory at src stored to the tensor of `map` at (col, row,
+// z) by the TMA unit; what lies past the tensor is not written.  The issuing
+// thread commits (tma_adds_commit) and, before src is written again or the
+// block ends, waits until the unit has read it (tma_store_read).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int row,
+                                          int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------- tensor maps
@@ -437,6 +525,21 @@ inline bool tma_map_sw128(CUtensorMap* map, const void* ptr, bool f32, int d0, i
                           int b1, int b2) {
   return tma_map(map, ptr, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                  f32 ? 4 : 2, d0, d1, d2, f32 ? 32 : 64, b1, b2);
+}
+
+// A vector of n f32 as a map in boxes of `box` (no swizzle; the row
+// pitches of its unit dims are only rounded to what cuTensorMapEncodeTiled
+// takes); what lies past n reads as zeros.
+inline bool vec_map(CUtensorMap* map, const void* ptr, int n, int box) {
+  cuuint64_t dims[3] = {(cuuint64_t)n, 1, 1};
+  const cuuint64_t pitch = ((cuuint64_t)n * 4 + 15) / 16 * 16;
+  cuuint64_t strides[2] = {pitch, pitch};
+  cuuint32_t boxes[3] = {(cuuint32_t)box, 1, 1};
+  cuuint32_t one[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+                                dims, strides, boxes, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -5,394 +5,558 @@
 //     s1[N]   = sum over the M real rows of y      (f32)
 //     s2[N]   = sum over the M real rows of y*y    (f32)
 //
+// with y in x's dtype and s1, s2 sums of the unrounded f32 product.  The
+// prologue is folded in f32 and rounded to x's dtype before the product.
+//
 // Replaces the TPU kernel deeplearning4j_tpu/ops/pallas/conv_bn.py
 // (_fwd_impl -> _fwd_kernel), which runs the 1x1 convs of every ResNet-50
-// bottleneck.  A 1x1 conv over NHWC is [N*H*W, Cin] @ [Cin, Cout].
+// bottleneck.  A 1x1 conv over NHWC is [N*H*W, Cin] @ [Cin, Cout].  That
+// kernel walks M in order on one core and carries s1 and s2 in VMEM from one
+// grid step to the next; here blocks run in parallel in no order, and the
+// statistics are summed across blocks in a fixed order in the same launch.
 //
-// What bounds it on the H100: in f32 the product is accumulated in full f32
-// on the CUDA cores (the JAX kernel asks for Precision.HIGHEST, so no TF32),
-// whose peak is 67 TFLOP/s; at ResNet-50's channel widths (K, N from 64 to
-// 2048) most shapes are then bound by operations, the K=N=64 ones by bytes.
-// In bf16 the tensor cores (989 TFLOP/s) leave most shapes bound by the
-// bytes of x and y.
+// What bounds it on the H100: 2 M K N operations against M K + K N + M N
+// elements moved.  f32 runs every product in three TF32 passes (the JAX
+// kernel asks for Precision.HIGHEST: 165 TFLOP/s of f32-accurate work on the
+// tensor cores, where the CUDA cores' FMA peak is 67), and most of
+// ResNet-50's shapes are bound by those operations; bf16 (989 TFLOP/s) is
+// bound by the bytes of x and y.
 //
-// What the design does about it: one pass over x and one write of y.
-//   * Shared-memory tiles of x (128 rows) and W (128 columns).  The
-//     previous BN's fold act(x*a+b) is applied while the x tile is loaded,
-//     so the normalised activation never goes to device memory.
-//   * f32: 256 threads, 8x8 outputs per thread from registers, FMA in f32.
-//     bf16: 8 warps of WMMA 16x16x16 (bf16 in, f32 accumulate).
-//   * y is written from registers (via a per-warp 16x16 staging tile for
-//     WMMA), and the same f32 values feed the per-column partial sums of the
-//     block, so the statistics cost no second read of y.  Rows past M are
-//     masked out of both.  Each block writes its partials to its own row of
-//     a [tiles_m, N] scratch; a second small kernel sums the rows in a fixed
-//     order, so the result is deterministic (no atomics).
-//   * Any K and N.  When both are multiples of 32 (every ResNet-50 shape)
-//     the loaders move 16 bytes a thread.  Otherwise the RAGGED template
-//     loads and stores element by element (rows of a ragged K or N need not
-//     be 16-byte aligned) and guards the tails: x and W give zeros past K,
-//     so the K tail adds exactly nothing (a folded zero would add
-//     act(b) * W), W gives zeros past N, and nothing past N is written.
+// What the design does about it: the GEMM core of gemm_sm90.cuh (one
+// producer warpgroup: a TMA thread and 96 prep threads; two consumer
+// warpgroups of 64 rows; wgmma fed by TMA through a ring of stages) on tiles
+// of 128 rows x 128 columns, each contracting its share of K in 128-byte
+// chunks (32 f32, 64 bf16 columns of x):
 //
-// Requirements checked by the Python wrapper: contiguous row-major tensors,
-// 16-byte aligned base pointers, M < 65536 * 128.
-// Every entry point returns cudaGetLastError() after its launches.
+//   * Persistent blocks, one an SM at most (conv_bn.fwd_plan): a block keeps
+//     one column tile and walks row tiles R apart, and its producer loads the
+//     next tile's first stages while the consumers store the last one's y.
+//     At ResNet-50's small K (64-256) a tile is a few stages, and a block per
+//     tile spent most of its time starting and ending.
+//   * A = xhat: the x tile and the chunk of a and b come by TMA, and the prep
+//     threads fold the tile in place (x a + b with the plain version's
+//     rounding points, relu; bf16 rounded to bf16 again), once per 128
+//     columns of N.  bf16 wgmma reads A from shared memory; f32 takes each
+//     lane's fragment by ldmatrix and splits it into TF32 hi and lo in
+//     registers (a fold there too left the persistent loop no registers:
+//     ptxas spilled it).
+//   * B = W.  bf16 wgmma takes W [K, N] N-major as it is, two boxes of 64
+//     columns a stage.  TF32 wgmma takes only a K-major B, so in f32 a small
+//     kernel of this library (mbf_wt_kernel, launched first by the same
+//     entry point) writes W^T [N, K'] once a call, every row tile reads it by
+//     TMA (a transpose per stage would redo it in each of the M / 128 row
+//     tiles), and the prep threads split each tile in place into TF32 hi and
+//     lo (split halves in device memory would double W's traffic through L2,
+//     which bounds the f32 loop beside the tensor cores).
+//   * f32: three TF32 passes a product (mma3), the tile's 128 columns as two
+//     halves of 64, each stage's half in a fresh tile added in f32 (the
+//     tensor core's adds round toward zero, and chained over K that bias
+//     would reach the f32 limit).  bf16: one pass, chained, one stage's
+//     products in flight while the next stage's are issued.
+//   * Split-K: where the (M, N) tiles do not fill one wave of the card's SMs,
+//     a block takes one tile's share of the chunks instead; the last split of
+//     a tile to arrive adds the partials in split order (gemm_sm90.cuh's
+//     splitk_sum) before the epilogue, so y repeats bit for bit.
+//   * Epilogue: s1 and s2 from the unrounded accumulator, over the tile's
+//     rows by a reduce-scatter across each warp's lanes into running sums in
+//     shared memory, then, once a block, over the blocks of a column tile by
+//     two levels of arrival counts, each level in a fixed order
+//     (col_sums_tables): the statistics come out of the one launch and repeat
+//     bit for bit on a card.  y goes through a staging tile in shared memory
+//     and out by TMA stores (from registers where its rows are no multiple of
+//     16 bytes).  At K = 64 these two steps are most of a tile's time: with
+//     three shuffles per sum and 4-byte stores from registers they took 7 of
+//     the 8 us of a bf16 tile on the H100.
+//
+// Any K and N, any M: the TMA gives zeros past the tensors.  Past K, x, W
+// and the chunk of a and b read zeros, so the tail folds to exactly 0 and
+// never adds act(b) W.  Rows past M read zeros and fold to act(b): they are
+// neither stored nor counted in s1 and s2.  Nothing past N is written.
+//
+// Requirements checked and met by the Python wrapper (conv_bn.py):
+// contiguous row-major x (rows of ldx elements, a multiple of 16 bytes,
+// zero past K) and W (bf16: rows of ldw elements, a multiple of 16 bytes,
+// zero past N; f32: any ldw >= N), 16-byte aligned, a and b [K] f32 or
+// null; the plan's blocks, K splits and the rows of its column-sum tables;
+// its scratch, all in one f32 buffer: s1 and s2 [2, N], the column-sum
+// tables [2, rows + groups, N], the partials [slices, M, N] when split, W^T
+// [N, K'] in f32 (K' = K rounded up to 4), and n_counts int32 arrival
+// counts, which the entry point zeroes.  Every entry point returns
+// cudaGetLastError() after its launches (cudaErrorInvalidValue for tensor
+// maps the CUDA driver refuses).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int TILE_M = 128;
-constexpr int TILE_N = 128;
-constexpr int THREADS = 256;
+constexpr int MF_BM = 128, MF_BN = 128;   // tile: rows of M, columns of N (one column-sum block)
+constexpr int MF_SPLIT_GROUP = 8;         // K splits summed first in groups of this many
+constexpr int MF_WT = 32;                 // the weight transpose's square tile
 
-__device__ __forceinline__ float fold(float v, float a, float b, int relu_in) {
-  // no FMA contraction: x*a rounds, then +b rounds, as in the plain version
-  float h = __fadd_rn(__fmul_rn(v, a), b);
-  return (relu_in && !(h > 0.f)) ? 0.f : h;
-}
+struct MfArgs {
+  const float* a;       // [K] or null (no prologue)
+  void* y;              // [M, N]
+  float* part;          // [slices, M, N] (splits > 1)
+  float* stats;         // [2, rows + groups, N]: column sums of each block, then group
+  int* counts;          // zeros: split-K per tile (splits > 1), then the column sums'
+  float* s1;            // [N]
+  float* s2;            // [N]
+  int M, N, K, chunks, splits, tiles_m, tiles_n, rows, relu_in;
+  int tma_y;            // y's rows are a multiple of 16 bytes: y by TMA stores
+};
 
-// ------------------------------------------------------------------ f32
-constexpr int F_BK = 8;
+struct alignas(64) MfMaps {
+  CUtensorMap x;        // [M, ldx]: boxes [128 rows, 128 bytes]
+  CUtensorMap w;        // bf16: W [K, ldw], boxes [64 rows, 128 bytes];
+                        // f32: W^T [N, K'], boxes [128 rows, 128 bytes]
+  CUtensorMap a, b;     // [K] f32: boxes of one chunk
+  CUtensorMap y;        // [M, N] (tma_y): boxes [128 rows, 128 bytes]
+  MfArgs p;
+};
 
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-mba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ y, float* __restrict__ part1,
-               float* __restrict__ part2, int M, int N, int K,
-               int has_prologue, int relu_in) {
-  __shared__ __align__(16) float As[F_BK][TILE_M];   // x tile, k-major
-  __shared__ __align__(16) float Bs[F_BK][TILE_N];   // W tile
-  __shared__ float red1[16][TILE_N];
-  __shared__ float red2[16][TILE_N];
+// Shared memory: ST stages of the x tile [128 rows, CK], the W tile (f32: W^T
+// [128 rows of N, CK] split in place by prep, its lo beside it; bf16: [CK
+// rows of K, 128 columns]) and a, b [CK]; the running column sums of the
+// consumer warps; the y tile [128 rows, 128 columns] in the TMA's boxes of
+// 128-byte rows; barriers.
+template <bool F32>
+struct MfSmem {
+  static constexpr int CK = F32 ? 32 : 64;                 // K columns of a stage
+  static constexpr int ST = F32 ? 3 : 4;
+  static constexpr int A_TILE = MF_BM * 128, B_TILE = MF_BN * 128;
+  static constexpr int B0 = A_TILE, AB0 = B0 + (F32 ? 2 : 1) * B_TILE;
+  static constexpr int TX = A_TILE + B_TILE;               // the TMA's bytes, a and b aside
+  static constexpr int STAGE = AB0 + 1024;
+  static constexpr int RED = ST * STAGE;
+  static constexpr int Y0 = RED + 2 * 8 * MF_BN * 4;
+  static constexpr int BARS = Y0 + MF_BM * MF_BN * (F32 ? 4 : 2);
+  static constexpr size_t BYTES = 1024 + BARS + 8 * 3 * ST;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * TILE_M, n0 = blockIdx.x * TILE_N;
-
-  // loaders: each thread brings 4 consecutive k of one x row and
-  // 4 consecutive n of one W row per k-step
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_n = (tid & 31) * 4;
-  const bool a_live = (m0 + a_row) < M;
-  const bool b_live = (n0 + b_n) < N;
-  const float* xp = x + (size_t)(a_live ? m0 + a_row : 0) * K + a_k;
-  const float* wp = w + (size_t)b_row * N + (b_live ? n0 + b_n : 0);
-
-  float acc[8][8];
+// The column sums v of a 32-column quarter q of the tile over a thread's
+// rows (v[i], i < 8: the sum of column 32 q + 8 (i >> 1) + 2 t + (i & 1); v[8
+// + i]: of its squares) added over the warp's 8 g by a reduce-scatter, each
+// step keeping half of the values and adding the partner's (14 shuffles,
+// each sum in a fixed order), then to the warp's running sums in red
+// ([2][8 warps][128]): lane g ends with values 8 b0 + 4 b1 + 2 b2 + i (b: the
+// bits of g, i < 2).
+__device__ __forceinline__ void mf_sums_quarter(const float (&v)[16], float* red, int q, int warp,
+                                                int g, int t) {
+  const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+  float w[8], x[4], z[2];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
+    w[i] = (b0 ? v[8 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, b0 ? v[i] : v[8 + i], 4);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (!RAGGED) {
-      if (a_live) {
-        av = *reinterpret_cast<const float4*>(xp + k0);
-        if (has_prologue) {
-          const int k = k0 + a_k;
-          av.x = fold(av.x, a[k + 0], b[k + 0], relu_in);
-          av.y = fold(av.y, a[k + 1], b[k + 1], relu_in);
-          av.z = fold(av.z, a[k + 2], b[k + 2], relu_in);
-          av.w = fold(av.w, a[k + 3], b[k + 3], relu_in);
-        }
-      }
-      if (b_live) bv = *reinterpret_cast<const float4*>(wp + (size_t)k0 * N);
-    } else {
-      float* ae = &av.x;
-      float* be = &bv.x;
+  for (int i = 0; i < 4; ++i)
+    x[i] = (b1 ? w[4 + i] : w[i]) + __shfl_xor_sync(0xffffffffu, b1 ? w[i] : w[4 + i], 8);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + a_k + q, n = n0 + b_n + q;
-        if (a_live && k < K) {
-          const float v = x[(size_t)(m0 + a_row) * K + k];
-          ae[q] = has_prologue ? fold(v, a[k], b[k], relu_in) : v;
-        }
-        if (n < N && k0 + b_row < K) be[q] = w[(size_t)(k0 + b_row) * N + n];
-      }
-    }
-    As[a_k + 0][a_row] = av.x;
-    As[a_k + 1][a_row] = av.y;
-    As[a_k + 2][a_row] = av.z;
-    As[a_k + 3][a_row] = av.w;
-    *reinterpret_cast<float4*>(&Bs[b_row][b_n]) = bv;
-    __syncthreads();
-
+  for (int i = 0; i < 2; ++i)
+    z[i] = (b2 ? x[2 + i] : x[i]) + __shfl_xor_sync(0xffffffffu, b2 ? x[i] : x[2 + i], 16);
+  const int base = 8 * b0 + 4 * b1 + 2 * b2;
 #pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: rows ty*4+{0..3} and 64+ty*4+{0..3}; columns likewise with tx
-  float cs1[8], cs2[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) cs1[j] = cs2[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (gm < M) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gn = n0 + h * 64 + tx * 4;
-        if constexpr (!RAGGED) {
-          if (gn < N)
-            *reinterpret_cast<float4*>(y + (size_t)gm * N + gn) = make_float4(
-                acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (gn + q < N) y[(size_t)gm * N + gn + q] = acc[i][h * 4 + q];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs1[j] += acc[i][j];
-        cs2[j] += acc[i][j] * acc[i][j];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-    red1[ty][c] = cs1[j];
-    red2[ty][c] = cs2[j];
-  }
-  __syncthreads();
-  const int c = tid & (TILE_N - 1);
-  if (n0 + c < N) {
-    float (*red)[TILE_N] = tid < TILE_N ? red1 : red2;
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 16; ++t) s += red[t][c];
-    (tid < TILE_N ? part1 : part2)[(size_t)blockIdx.y * N + n0 + c] = s;
+  for (int i = 0; i < 2; ++i) {
+    const int vi = base + i, k = vi & 7;
+    red[(8 * (vi >> 3) + warp) * MF_BN + 32 * q + 8 * (k >> 1) + 2 * t + (k & 1)] += z[i];
   }
 }
 
-// ----------------------------------------------------------------- bf16
-constexpr int H_BK = 32;
-constexpr int A_LD = H_BK + 8;     // padded leading dims (multiples of 8)
-constexpr int B_LD = TILE_N + 8;
+// prep: one stage's x tile [128 rows, CK] folded in place (x a + b, relu;
+// bf16 rounded to bf16 again), ab: a | b of the chunk.  Thread pt takes the
+// 16-byte chunks pt, pt + GEMM_PREP, ...: always the same logical chunk j of
+// a row (GEMM_PREP % 8 == 0), so the same columns of a and b.
+template <bool F32>
+__device__ __forceinline__ void mf_fold(unsigned char* xt, const float* ab, int relu_in, int pt) {
+  constexpr int PER = F32 ? 4 : 8, CK = F32 ? 32 : 64;   // columns of a chunk, of the tile
+  const int j = pt & 7;
+  float fa[PER], fb[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    fa[e] = ab[PER * j + e];
+    fb[e] = ab[CK + PER * j + e];
+  }
+  for (int q = pt; q < MF_BM * 8; q += GEMM_PREP) {
+    const int row = q >> 3;
+    uint4* at = reinterpret_cast<uint4*>(xt + row * 128 + ((j ^ (row & 7)) << 4));
+    uint4 v = *at;
+    if constexpr (F32) {
+      float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = xhat_of(f[e], fa[e], fb[e], relu_in);
+    } else {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        h[e] = __floats2bfloat162_rn(xhat_of(f.x, fa[2 * e], fb[2 * e], relu_in),
+                                     xhat_of(f.y, fa[2 * e + 1], fb[2 * e + 1], relu_in));
+      }
+    }
+    *at = v;
+  }
+}
 
-template <bool RAGGED>
-__global__ void __launch_bounds__(THREADS)
-mba_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                const float* __restrict__ a, const float* __restrict__ b,
-                __nv_bfloat16* __restrict__ y, float* __restrict__ part1,
-                float* __restrict__ part2, int M, int N, int K,
-                int has_prologue, int relu_in) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[TILE_M][A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[H_BK][B_LD];
-  __shared__ __align__(128) float stage[THREADS / 32][16 * 16];
-  __shared__ float colred[2][2][TILE_N];   // [s1|s2][warp row][column]
+// Work item i: tile (mt, nt) and K split z (tiles in row order, the splits
+// of a tile a wave of tiles apart), its chunks [c0, c0 + units).
+struct MfItem {
+  int mt, nt, z, c0, units;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * TILE_M, n0 = blockIdx.x * TILE_N;
+__device__ __forceinline__ MfItem mf_item(const MfArgs& a, int i) {
+  const int tiles = a.tiles_m * a.tiles_n;
+  const int z = i / tiles, r = i - z * tiles, mt = r / a.tiles_n;
+  const int c0 = z * a.chunks / a.splits;
+  return {mt, r - mt * a.tiles_n, z, c0, (z + 1) * a.chunks / a.splits - c0};
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// A split tile's arrival counts: splitk_sum's one, or past a group of
+// splits one per group and one more.
+__device__ __forceinline__ int mf_per_tile(const MfArgs& a) {
+  return a.splits > MF_SPLIT_GROUP ? (a.splits + MF_SPLIT_GROUP - 1) / MF_SPLIT_GROUP + 1 : 1;
+}
 
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-    // x tile: 128 rows x 32 k = 512 chunks of 8 bf16, two per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int row = idx >> 2, kc = (idx & 3) * 8;
-      const int gm = m0 + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (RAGGED && gm < M) {
-        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int k = k0 + kc + q;
-          if (k >= K) continue;
-          const __nv_bfloat16 xv = x[(size_t)gm * K + k];
-          h[q] = has_prologue
-                     ? __float2bfloat16_rn(fold(__bfloat162float(xv), a[k], b[k], relu_in))
-                     : xv;
-        }
-      } else if (gm < M) {
-        v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + kc);
-        if (has_prologue) {
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int k = k0 + kc + 2 * q;
-            float2 f = __bfloat1622float2(h[q]);
-            f.x = fold(f.x, a[k], b[k], relu_in);
-            f.y = fold(f.y, a[k + 1], b[k + 1], relu_in);
-            h[q] = __floats2bfloat162_rn(f.x, f.y);
+// Block blockIdx.x takes work items blockIdx.x, blockIdx.x + gridDim.x, ...:
+// with a grid of rows x tiles_n blocks, one column tile nt and the row tiles
+// mt = blockIdx.x / tiles_n + R k (R = rows); split, one item.  The ring's
+// units count on across items.  Item (mt, nt): rows [m0, m0 + 128), columns
+// [n0, n0 + 128).  Consumer warpgroup wg owns rows m0 + 64 wg .. + 63:
+// accumulator entry 4 j + 2 h + e of lane 4 g + t of its warp wq is row m0 +
+// 64 wg + 16 wq + g + 8 h, column n0 + 8 j + 2 t + e (j < 16).
+template <bool F32>
+__device__ __forceinline__ void mf_body(const MfMaps& p) {
+  using L = MfSmem<F32>;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  constexpr int CK = L::CK, ST = L::ST;
+  extern __shared__ __align__(128) unsigned char mf_smem[];
+  __shared__ int last;
+  unsigned char* sp = smem_1024(mf_smem);
+  const uint32_t su = smem_u32(sp);
+  const uint32_t bars = su + L::BARS;
+  const Ring<ST> ring{bars, bars + 8 * ST, bars + 16 * ST};
+  const MfArgs& a = p.p;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int items = a.tiles_m * a.tiles_n * a.splits;
+  const bool pro = a.a != nullptr;
+  if (tid == 0) {
+    ring.init(GEMM_PREP);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* red = reinterpret_cast<float*>(sp + L::RED);
+  for (int i = tid; i < 2 * 8 * MF_BN; i += blockDim.x) red[i] = 0.f;
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    const int pw = tid - CONSUMERS;
+    if (pw == 0) {
+      // ------------------------------------------------------- producer
+      const uint32_t tx = L::TX + (pro ? 2 * CK * 4 : 0);
+      int u = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const MfItem it = mf_item(a, i);
+        for (int c = 0; c < it.units; ++c, ++u) {
+          const uint32_t base = su + ring.acquire(u) * L::STAGE, bar = ring.full_bar(u);
+          const int k = (it.c0 + c) * CK, n0 = it.nt * MF_BN;
+          mbar_expect_tx(bar, tx);
+          tma_load(base, &p.x, bar, k, it.mt * MF_BM, 0);
+          if constexpr (F32) {
+            tma_load(base + L::B0, &p.w, bar, k, n0, 0);
+          } else {
+            tma_load(base + L::B0, &p.w, bar, n0, k, 0);
+            tma_load(base + L::B0 + CK * 128, &p.w, bar, n0 + 64, k, 0);
+          }
+          if (pro) {
+            tma_load(base + L::AB0, &p.a, bar, k, 0, 0);
+            tma_load(base + L::AB0 + CK * 4, &p.b, bar, k, 0, 0);
           }
         }
       }
-      *reinterpret_cast<uint4*>(&As[row][kc]) = v;
-    }
-    // W tile: 32 k x 128 n = 512 chunks of 8 bf16, two per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int krow = idx >> 4, nc = (idx & 15) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (RAGGED) {
-        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (k0 + krow < K && n0 + nc + q < N) h[q] = w[(size_t)(k0 + krow) * N + n0 + nc + q];
-      } else if (n0 + nc < N) {
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + krow) * N + n0 + nc);
-      }
-      *reinterpret_cast<uint4*>(&Bs[krow][nc]) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &As[wm * 64 + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each 16x16 accumulator goes through the warp's staging tile;
-  // lane owns column (lane & 15) and rows (lane >> 4) * 8 + {0..7}
-  float* st = stage[warp];
-  const int c = lane & 15, rh = lane >> 4;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int col = wn * 32 + j * 16 + c;
-    const int gn = n0 + col;
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int row = rh * 8 + r;
-        const int gm = m0 + wm * 64 + i * 16 + row;
-        const float v = st[row * 16 + c];
-        if (gm < M && gn < N) {
-          y[(size_t)gm * N + gn] = __float2bfloat16_rn(v);
-          s1 += v;
-          s2 += v * v;
+    } else if (pw >= 32) {
+      // ----------------------------------------------------------- prep
+      // x folded in place; f32: W^T split in place into TF32 hi and lo
+      int u = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const int units = mf_item(a, i).units;
+        for (int c = 0; c < units; ++c, ++u) {
+          unsigned char* st = sp + ring.wait_full(u) * L::STAGE;
+          if (pro)
+            mf_fold<F32>(st, reinterpret_cast<const float*>(st + L::AB0), a.relu_in, pw - 32);
+          if constexpr (F32)
+            split_in_place(st + L::B0, st + L::B0 + L::B_TILE, L::B_TILE, pw - 32, GEMM_PREP);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          ring.arrive_ready(u);
         }
       }
-      __syncwarp();
     }
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, 16);
-    if (rh == 0) {
-      colred[0][wm][col] = s1;
-      colred[1][wm][col] = s2;
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = tid / WG_THREADS, wq = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
+  const int warp = tid / 32, r0 = 64 * wg + 16 * wq;   // the warp's first row of a tile
+  bool owns = false;                  // some tile's sums are in red
+  int u = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const MfItem it = mf_item(a, i);
+    const int n0 = it.nt * MF_BN, u0 = u;
+    float acc[64];
+    zero(acc);
+    if constexpr (F32) {
+      // four 8-column k-steps a stage, three TF32 passes a half into a fresh
+      // tile; A(row r0 + g + 8 (i & 1), column t + 4 (i >> 1)) in register i
+      // (flash_attention_sm90.cuh's a_split_rows), split here
+      const int j8 = lane >> 3, lr = r0 + (lane & 7) + 8 * (j8 & 1);
+      const bool two = n0 + 64 < a.N;   // the second half holds columns of N
+      for (int c = 0; c < it.units; ++c) {
+        const uint32_t base = su + ring.wait_ready(u0 + c) * L::STAGE;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t d[4];
+          ldmatrix4(d, base + f32_at<MF_BM>(lr, 8 * kk + 4 * (j8 >> 1)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(d[e]), ah[kk][e], al[kk][e]);
+        }
+        const uint32_t wt = base + L::B0;
+        auto half = [&](auto hc) {
+          constexpr int H = decltype(hc)::value;
+          float tile[32];
+          zero(tile);
+          reg_fence(tile);
+          reg_fence(ah);
+          reg_fence(al);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma3(tile, ah[kk], al[kk], desc_f32<MF_BN>(wt + H * 64 * 128, 8 * kk),
+                 desc_f32<MF_BN>(wt + L::B_TILE + H * 64 * 128, 8 * kk));
+          wg_commit();
+          wg_wait();
+          reg_fence(tile);
+          reg_fence(ah);
+          reg_fence(al);
+          add_half<H>(acc, tile);
+        };
+        half(std::integral_constant<int, 0>());
+        if (two) half(std::integral_constant<int, 1>());
+        ring.release(u0 + c, lane);
+      }
+    } else {
+      // four 16-column k-steps a stage (m64n128), one pass chained in acc, A
+      // (the warpgroup's 64 rows of the folded x tile) and B from shared
+      // memory, one stage's products in flight while the next is issued
+      for (int c = 0; c < it.units; ++c) {
+        const uint32_t base = su + ring.wait_ready(u0 + c) * L::STAGE;
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_kn(acc, desc_sw128(base + wg * 64 * 128, 32 * kk),
+                      desc_n<MF_BN, CK>(base + L::B0, 16 * kk, 0), 1);
+        wg_commit();
+        wg_wait1();
+        if (c > 0) ring.release(u0 + c - 1, lane);   // its products are done
+      }
+      wg_wait();
+      reg_fence(acc);
+      ring.release(u0 + it.units - 1, lane);
+    }
+    u += it.units;
+
+    const int mr = it.mt * MF_BM + r0 + g;   // this thread's rows: mr, mr + 8
+    if (a.splits > 1) {
+      const bool mine = splitk_sum<8, MF_SPLIT_GROUP>(
+          acc, a.part, (size_t)a.M * a.N, it.z, a.splits,
+          a.counts + (it.mt * a.tiles_n + it.nt) * mf_per_tile(a), &last, [&](int e) -> long long {
+            const int m = mr + 8 * ((e >> 1) & 1), n = n0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            return m < a.M && n < a.N ? (long long)m * a.N + n : -1;
+          });
+      if (!mine) continue;
+    }
+    owns = true;
+    // the column sums of the f32 accumulator over the tile's real rows, a
+    // 32-column quarter at a time, added to the warp's running sums
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (mr + 8 * h >= a.M) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = acc[16 * q + 4 * (e >> 1) + 2 * h + (e & 1)];
+          v[e] += x;
+          v[8 + e] += x * x;
+        }
+      }
+      mf_sums_quarter(v, red, q, warp, g, t);
+    }
+    if (a.tma_y) {
+      // y through the staging tile (its rows and columns past M and N are
+      // not stored), written once the last tile's store has read it
+      if (tid == 0) tma_store_read();
+      consumers_sync(1);
+      const uint32_t yt = su + L::Y0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (F32)
+            st_shared(yt + f32_at<MF_BM>(r, c), v0, v1);
+          else
+            st_shared(yt + (c >> 6) * (MF_BM * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+                          ((c & 7) << 1),
+                      pack_bf16(v0, v1));
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync(1);
+      if (tid == 0) {
+        constexpr int BX = F32 ? 32 : 64;   // columns of a box
+#pragma unroll
+        for (int bx = 0; bx < MF_BN / BX; ++bx)
+          if (n0 + BX * bx < a.N)
+            tma_store(&p.y, yt + bx * MF_BM * 128, n0 + BX * bx, it.mt * MF_BM, 0);
+        tma_adds_commit();
+      }
+    } else {
+      // rows of y that are no multiple of 16 bytes: stored from registers
+      T* y = static_cast<T*>(a.y);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mr + 8 * h;
+        if (row >= a.M) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = n0 + 8 * j + 2 * t;
+          if (col >= a.N) continue;
+          T* out = y + (size_t)row * a.N + col;
+          out[0] = from_f32<T>(acc[4 * j + 2 * h]);
+          if (col + 1 < a.N) out[1] = from_f32<T>(acc[4 * j + 2 * h + 1]);
+        }
+      }
     }
   }
-  __syncthreads();
-  const int cc = tid & (TILE_N - 1), which = tid >> 7;
-  if (n0 + cc < N)
-    (which ? part2 : part1)[(size_t)blockIdx.y * N + n0 + cc] =
-        colred[which][0][cc] + colred[which][1][cc];
+  if (tid == 0) tma_store_read();   // the block's smem stays until the last store has read it
+  if (!owns) return;   // uniform over the block (splitk_sum's answer)
+  // the block's sums over its tiles: row `first.mt` of the tables (split,
+  // the tile's; else the block's, blockIdx.x / tiles_n)
+  const MfItem first = mf_item(a, blockIdx.x);
+  const int split_counts = a.splits > 1 ? a.tiles_m * a.tiles_n * mf_per_tile(a) : 0;
+  const ColSums cs{a.stats, a.counts + split_counts, a.s1, a.s2, a.N, a.rows, a.tiles_n};
+  consumers_sync(1);
+  col_sums_tables<MF_BN>(red, cs, first.mt, first.nt, &last);
 }
 
-// ------------------------------------------------------ stats reduction
-// One column per threadIdx.x; the 32 threadIdx.y lanes take every 32nd tile
-// row, then thread y == 0 adds the 32 partials in order: fixed, so the
-// statistics are the same on every run.
-__global__ void stats_reduce_kernel(const float* __restrict__ part1,
-                                    const float* __restrict__ part2,
-                                    float* __restrict__ s1, float* __restrict__ s2,
-                                    int tiles_m, int N) {
-  __shared__ float r1[32][33];
-  __shared__ float r2[32][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  float t1 = 0.f, t2 = 0.f;
-  if (n < N) {
-    for (int t = threadIdx.y; t < tiles_m; t += 32) {
-      t1 += part1[(size_t)t * N + n];
-      t2 += part2[(size_t)t * N + n];
-    }
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbf_f32_kernel(const __grid_constant__ MfMaps p) {
+  mf_body<true>(p);
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS, 1) mbf_bf16_kernel(const __grid_constant__ MfMaps p) {
+  mf_body<false>(p);
+}
+
+// The f32 weight as TF32 wgmma takes it: W [K, ldw] -> W^T [N, ldk], zeros
+// in the columns past K.  A block transposes a 32 x 32 tile (rows k0..,
+// columns n0.. of W) through shared memory, reading and writing whole rows.
+// A copy, no product: the GEMM's operand in the layout the tensor core
+// needs, once a call.
+__global__ void __launch_bounds__(256) mbf_wt_kernel(const float* __restrict__ w,
+                                                     float* __restrict__ wt, int K, int N,
+                                                     int ldw, int ldk) {
+  __shared__ float tile[MF_WT][MF_WT + 1];
+  const int k0 = blockIdx.x * MF_WT, n0 = blockIdx.y * MF_WT;
+  const int tx = threadIdx.x % MF_WT, ty = threadIdx.x / MF_WT;
+  for (int r = ty; r < MF_WT; r += 256 / MF_WT) {
+    const int k = k0 + r, n = n0 + tx;
+    tile[r][tx] = k < K && n < N ? w[(size_t)k * ldw + n] : 0.f;
   }
-  r1[threadIdx.y][threadIdx.x] = t1;
-  r2[threadIdx.y][threadIdx.x] = t2;
   __syncthreads();
-  if (threadIdx.y == 0 && n < N) {
-    float u1 = 0.f, u2 = 0.f;
-    for (int t = 0; t < 32; ++t) {
-      u1 += r1[t][threadIdx.x];
-      u2 += r2[t][threadIdx.x];
-    }
-    s1[n] = u1;
-    s2[n] = u2;
+  for (int r = ty; r < MF_WT; r += 256 / MF_WT) {
+    const int n = n0 + r, k = k0 + tx;
+    if (n < N && k < ldk) wt[(size_t)n * ldk + k] = tile[tx][r];
   }
 }
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, Kernel ragged_kernel, const void* x, const void* w, const void* a,
-           const void* b, void* y, void* part1, void* part2, void* s1, void* s2,
-           int M, int N, int K, int has_prologue, int relu_in, void* stream) {
+template <bool F32>
+int launch(const void* x, const void* w, const void* a, const void* b, void* y, void* sums,
+           void* stats, void* part, void* wt, void* counts, int n_counts, int M, int N, int K,
+           int ldx, int ldw, int splits, int blocks, int rows, int relu_in, void* stream) {
+  using L = MfSmem<F32>;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles_m = (M + TILE_M - 1) / TILE_M;
-  dim3 grid((N + TILE_N - 1) / TILE_N, tiles_m);
-  Kernel k = (K % 32 || N % 32) ? ragged_kernel : kernel;
-  k<<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<T*>(y),
-      static_cast<float*>(part1), static_cast<float*>(part2), M, N, K, has_prologue, relu_in);
-  stats_reduce_kernel<<<(N + 31) / 32, dim3(32, 32), 0, s>>>(
-      static_cast<const float*>(part1), static_cast<const float*>(part2),
-      static_cast<float*>(s1), static_cast<float*>(s2), tiles_m, N);
-  return static_cast<int>(cudaGetLastError());
+  const int ldk = (K + 3) / 4 * 4;
+  MfMaps p;
+  MfArgs& q = p.p;
+  q.a = static_cast<const float*>(a);
+  q.y = y;
+  q.part = static_cast<float*>(part);
+  q.stats = static_cast<float*>(stats);
+  q.counts = static_cast<int*>(counts);
+  q.s1 = static_cast<float*>(sums);
+  q.s2 = q.s1 + N;
+  q.M = M;
+  q.N = N;
+  q.K = K;
+  q.chunks = (K + L::CK - 1) / L::CK;
+  q.splits = splits;
+  q.tiles_m = (M + MF_BM - 1) / MF_BM;
+  q.tiles_n = (N + MF_BN - 1) / MF_BN;
+  q.rows = rows;
+  q.relu_in = relu_in;
+  q.tma_y = (size_t)N * (F32 ? 4 : 2) % 16 == 0;
+  if (!(tma_map_sw128(&p.x, x, F32, ldx, M, 1, MF_BM, 1) &&
+        (F32 ? tma_map_sw128(&p.w, wt, true, ldk, N, 1, MF_BN, 1)
+             : tma_map_sw128(&p.w, w, false, ldw, K, 1, L::CK, 1)) &&
+        (a == nullptr || (vec_map(&p.a, a, K, L::CK) && vec_map(&p.b, b, K, L::CK))) &&
+        (!q.tma_y || tma_map_sw128(&p.y, y, F32, N, M, 1, MF_BM, 1))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counts, 0, (size_t)n_counts * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (F32) {
+    mbf_wt_kernel<<<dim3((ldk + MF_WT - 1) / MF_WT, (N + MF_WT - 1) / MF_WT), 256, 0, s>>>(
+        static_cast<const float*>(w), static_cast<float*>(wt), K, N, ldw, ldk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch_kernel(F32 ? mbf_f32_kernel : mbf_bf16_kernel, dim3(blocks), GEMM_THREADS,
+                       L::BYTES, s, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-int matmul_bn_act_tile_m(void) { return TILE_M; }
-
-int matmul_bn_act_f32(const void* x, const void* w, const void* a, const void* b,
-                      void* y, void* part1, void* part2, void* s1, void* s2,
-                      int M, int N, int K, int has_prologue, int relu_in, void* stream) {
-  return launch<float>(mba_f32_kernel<false>, mba_f32_kernel<true>, x, w, a, b, y, part1,
-                       part2, s1, s2, M, N, K, has_prologue, relu_in, stream);
+// The kernel's tiles, which the wrapper's plan must use: the tile's rows and
+// columns, and the K columns of a stage in f32 and in bf16 (i = 0..3).
+int matmul_bn_act_tile(int i) {
+  const int sizes[4] = {MF_BM, MF_BN, MfSmem<true>::CK, MfSmem<false>::CK};
+  return i >= 0 && i < 4 ? sizes[i] : -1;
 }
 
-int matmul_bn_act_bf16(const void* x, const void* w, const void* a, const void* b,
-                       void* y, void* part1, void* part2, void* s1, void* s2,
-                       int M, int N, int K, int has_prologue, int relu_in, void* stream) {
-  return launch<__nv_bfloat16>(mba_bf16_kernel<false>, mba_bf16_kernel<true>, x, w, a, b, y,
-                               part1, part2, s1, s2, M, N, K, has_prologue, relu_in, stream);
+// x [M, ldx], W [K, ldw] (rows zero past K, N), a, b [K] or null; y [M, N];
+// the scratch of the plan: sums [2, N] (s1, s2), stats, part (splits > 1),
+// wt (f32: W^T), counts [n_counts] (zeroed here); the plan's K splits,
+// blocks and column-sum table rows.
+int matmul_bn_act_f32(const void* x, const void* w, const void* a, const void* b, void* y,
+                      void* sums, void* stats, void* part, void* wt, void* counts, int n_counts,
+                      int M, int N, int K, int ldx, int ldw, int splits, int blocks, int rows,
+                      int relu_in, void* stream) {
+  return launch<true>(x, w, a, b, y, sums, stats, part, wt, counts, n_counts, M, N, K, ldx, ldw,
+                      splits, blocks, rows, relu_in, stream);
+}
+
+int matmul_bn_act_bf16(const void* x, const void* w, const void* a, const void* b, void* y,
+                       void* sums, void* stats, void* part, void* wt, void* counts, int n_counts,
+                       int M, int N, int K, int ldx, int ldw, int splits, int blocks, int rows,
+                       int relu_in, void* stream) {
+  return launch<false>(x, w, a, b, y, sums, stats, part, wt, counts, n_counts, M, N, K, ldx, ldw,
+                       splits, blocks, rows, relu_in, stream);
 }
 
 }  // extern "C"

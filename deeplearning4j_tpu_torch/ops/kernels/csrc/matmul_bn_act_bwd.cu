@@ -108,22 +108,9 @@ struct alignas(64) MbbMaps {
   MbbArgs a;
 };
 
-// no FMA contraction anywhere the plain version rounds each step
-__device__ __forceinline__ float pre_act(float v, float a, float b) {
-  return __fadd_rn(__fmul_rn(v, a), b);
-}
-
-__device__ __forceinline__ float xhat_of(float v, float a, float b, int relu_in) {
-  const float h = pre_act(v, a, b);
-  return (relu_in && !(h > 0.f)) ? 0.f : h;
-}
-
+// dy + ds1 + 2 y ds2, each step rounded as the plain version rounds it
 __device__ __forceinline__ float dy_total(float dy, float y, float ds1, float ds2) {
   return __fadd_rn(__fadd_rn(dy, ds1), __fmul_rn(__fmul_rn(2.f, y), ds2));
-}
-
-__device__ __forceinline__ float2 bf2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // ------------------------------------------------------------ dx kernel
@@ -670,20 +657,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dw_f32_kernel(const __gri
 
 __global__ void __launch_bounds__(GEMM_THREADS, 1) mbb_dw_bf16_kernel(const __grid_constant__ MbbMaps p) {
   dw_body<false>(p);
-}
-
-// A vector of n f32 as a map in boxes of `box` (no swizzle; the row
-// pitches of its unit dims are only rounded to what cuTensorMapEncodeTiled takes).
-bool vec_map(CUtensorMap* map, const void* ptr, int n, int box) {
-  cuuint64_t dims[3] = {(cuuint64_t)n, 1, 1};
-  const cuuint64_t pitch = ((cuuint64_t)n * 4 + 15) / 16 * 16;
-  cuuint64_t strides[2] = {pitch, pitch};
-  cuuint32_t boxes[3] = {(cuuint32_t)box, 1, 1};
-  cuuint32_t one[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
-                                dims, strides, boxes, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool F32>

@@ -143,20 +143,18 @@ def test_cpu_bert_run_never_touches_the_kernel_loader(monkeypatch):
 
 
 class _StubLib:
-    """Stands in for the built library: reports a tile size and returns
-    ``rc`` from the launch, as cudaGetLastError() would."""
+    """Stands in for the built library: returns ``rc`` from the launch, as
+    cudaGetLastError() would, and keeps the arguments of each call."""
 
     def __init__(self, rc):
         self.rc = rc
-        self.calls = 0
-
-    def matmul_bn_act_tile_m(self):
-        return 128
+        self.calls = []
 
     def matmul_bn_act_f32(self, *args):
-        self.calls += 1
-        assert len(args) == 15 and args[-1] == 0   # pointers, sizes, flags, stream
+        self.calls.append(args)
         return self.rc
+
+    matmul_bn_act_bf16 = matmul_bn_act_f32
 
 
 def test_failed_launch_raises_and_is_not_counted():
@@ -164,11 +162,57 @@ def test_failed_launch_raises_and_is_not_counted():
     before = conv_bn.launches
     lib = _StubLib(rc=9)   # cudaErrorInvalidConfiguration
     with pytest.raises(RuntimeError, match="cudaGetLastError"):
-        conv_bn._launch(lib, x, w, None, None, True, 0)
-    assert lib.calls == 1 and conv_bn.launches == before
-    conv_bn._launch(_StubLib(rc=0), x, w, None, None, True, 0)
+        conv_bn._launch(lib, x, w, None, None, True, 0, 132)
+    assert len(lib.calls) == 1 and conv_bn.launches == before
+    conv_bn._launch(_StubLib(rc=0), x, w, None, None, True, 0, 132)
     assert conv_bn.launches == before + 1
     conv_bn.launches = before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,prologue", [(1568, 2048, 512, True), (300, 100, 24, False),
+                                            (100352, 64, 256, False)])
+def test_forward_makes_one_call_and_allocates_y_and_one_buffer(monkeypatch, dtype, m, k, n,
+                                                                prologue):
+    """The forward's one library call: x, w, a, b and y, then pointers into
+    one f32 buffer at the plan's offsets (sums, stats, part when split, the
+    f32 weight's transpose), the plan's count of arrival counts, M, N, K,
+    the row pitches, the splits, blocks and table rows, relu_in, the
+    stream; beside row-padded copies of x and W where the TMA needs them,
+    it allocates y and the buffer and nothing else, and s1, s2 are the
+    buffer's first 2N entries."""
+    x, w = torch.zeros(m, k, dtype=dtype), torch.zeros(k, n, dtype=dtype)
+    a, b = (torch.ones(k), torch.zeros(k)) if prologue else (None, None)
+    xk, wk = conv_bn.row_aligned(x), (w if dtype == torch.float32 else conv_bn.row_aligned(w))
+    allocated = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a_, **kw: allocated.append(real_empty(*a_, **kw))
+                        or allocated[-1])
+    lib = _StubLib(rc=0)
+    before = conv_bn.launches
+    y, s1, s2 = conv_bn._launch(lib, x, w, a, b, False, 7, 132)
+    monkeypatch.undo()
+    conv_bn.launches = before
+    p = conv_bn.fwd_plan(m, k, n, dtype, 132)
+    assert [tuple(t.shape) for t in allocated] == [(m, n), (p["floats"],)]
+    y_, buf = allocated
+    assert y_ is y and y.dtype == dtype and buf.dtype == torch.float32
+    assert s1.data_ptr() == buf.data_ptr() and s2.data_ptr() == buf.data_ptr() + 4 * n
+    assert tuple(s1.shape) == tuple(s2.shape) == (n,)
+    (args,) = lib.calls
+    at = {key: buf.data_ptr() + 4 * off for key, off in p["at"].items()}
+    assert len(args) == 21 and args[-1] == 7
+    assert args[2:5] == (a.data_ptr() if prologue else None, b.data_ptr() if prologue else None,
+                         y.data_ptr())
+    assert args[5:8] == (at["sums"], at["stats"], at["part"] if p["splits"] > 1 else None)
+    assert args[8] == (at["wt"] if dtype == torch.float32 else None)
+    assert args[9] == at["counts"] and args[10] == p["shapes"]["counts"][0]
+    assert args[11:20] == (m, n, k, xk.shape[1], wk.shape[1], p["splits"], p["blocks"],
+                           p["rows"], 0)
+    if xk is x:
+        assert args[0] == x.data_ptr()
+    if wk is w:
+        assert args[1] == w.data_ptr()
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -347,10 +391,11 @@ def test_flash_sources_name_every_header_they_include():
         assert names == {f"{name}.cu", "flash_attention.cuh", "flash_attention_sm90.cuh"}
 
 
-@pytest.mark.parametrize("name", ["conv3x3_bn_act", "matmul_bn_act_bwd", "int8_matmul"])
+@pytest.mark.parametrize("name", ["conv3x3_bn_act", "matmul_bn_act", "matmul_bn_act_bwd",
+                                  "int8_matmul"])
 def test_gemm_sources_name_the_shared_core(name):
     """The libraries on the GEMM core are hashed with it and with the
-    Hopper headers below it, so an edit to any rebuilds all three."""
+    Hopper headers below it, so an edit to any rebuilds all four."""
     names = {p.name for p in _build.source_files(name)}
     assert names == {f"{name}.cu", "gemm_sm90.cuh", "flash_attention.cuh",
                      "flash_attention_sm90.cuh"}
