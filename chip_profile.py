@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's ResNet-50 forward and training step, of
-its BERT fine-tune steps (bf16 and f32) and of its int8 VGG-16 serving
-forward goes on one CUDA card.
+its BERT fine-tune steps (bf16 and f32), of its int8 VGG-16 serving
+forward and of the MLP-MNIST and LeNet training steps goes on one CUDA
+card.
 
     python3 chip_profile.py
 
@@ -22,10 +23,14 @@ before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
   ``quantize_net``, on ``chip_smoke.VGG_BATCH`` images under the bf16
   serving policy (bf16 params, compute and outputs), its three dense
   layers through the int8 kernel and its convolutions' weights widened
-  on read.
+  on read;
+- ``mlp_mnist_step`` and ``lenet_cifar10_step``: ``Trainer.fit_batch`` of
+  ``mlp_mnist()`` and of ``lenet(32, 32, 3)`` at batch 128 (f32), on
+  ``bench.py``'s ``bench_workload_steps`` data (``chip_smoke.small_nets``).
 
 Prints the card's name and power limit and, per workload, its wall time
-from CUDA events, the device time per category of kernel (this repo's
+from CUDA events, the kernels and copies it runs on the device per run,
+the device time per category of kernel (this repo's
 ``matmul_bn_act``, flash attention and int8 kernels, convolutions,
 matmuls, softmax, elementwise, copies and casts, pooling and reductions,
 other) per run,
@@ -85,13 +90,14 @@ def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> d
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = {}
+    kernels, launches = {}, 0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / ITERS
+            launches += evt.count
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     by_cat: dict[str, float] = {}
@@ -101,11 +107,13 @@ def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> d
     result = {"workload": name, "card": card, "items": items, "unit": unit, "iters": ITERS,
               "ms": run_ms, f"{unit}_per_s": items / run_ms * 1e3,
               "device_ms": device_ms, "busy_share": device_ms * ITERS / window_ms,
+              "device_ops_per_run": launches / ITERS,
               "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
               "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
     print(f"{name}, {items} {unit} on {card}: {run_ms:.3f} ms "
           f"({result[f'{unit}_per_s']:.1f} {unit}/s); device time {device_ms:.3f} ms "
-          f"per run, busy {result['busy_share']:.1%} of the traced window")
+          f"per run in {result['device_ops_per_run']:.0f} kernels and copies, busy "
+          f"{result['busy_share']:.1%} of the traced window")
     for cat, ms in result["categories_ms"].items():
         print(f"  {cat:18s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
     for kname, ms in result["top_kernels_ms"].items():
@@ -114,13 +122,14 @@ def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> d
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA card", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.models import BertForMaskedLM, vgg16
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM, lenet, mlp_mnist, vgg16
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,6 +164,17 @@ def main() -> int:
     qnet = in_policy(serving,
                      lambda: quantize_net(vgg16(device="cuda").init(seed=chip_smoke.SEED)))
     images = torch.randn(chip_smoke.VGG_BATCH, 224, 224, 3, device="cuda", generator=gen)
+    rng = np.random.default_rng(0)      # bench.py's bench_workload_steps data
+    small = {}
+    for name, factory, kwargs, shape in (
+            ("mlp_mnist_step", mlp_mnist, {}, (784,)),
+            ("lenet_cifar10_step", lenet, {"height": 32, "width": 32, "channels": 3},
+             (32, 32, 3))):
+        features = rng.normal(size=(chip_smoke.SMALL_BATCH,) + shape).astype(np.float32)
+        onehot = np.eye(10, dtype=np.float32)[rng.integers(0, 10, chip_smoke.SMALL_BATCH)]
+        small[name] = (Trainer(factory(device="cuda", **kwargs).init(seed=chip_smoke.SMALL_SEED)),
+                       DataSet(torch.from_numpy(features).cuda(),
+                               torch.from_numpy(onehot).cuda()))
     f32, bf16 = config.DTypePolicy.f32(), config.DTypePolicy.bf16()
     # name: (run, items per run, unit, dtype policy)
     workloads = {"forward": (lambda: net.output(x), chip_smoke.BATCH, "images", f32),
@@ -166,6 +186,9 @@ def main() -> int:
                                             tokens, "tokens", f32),
                  "vgg16_int8_forward": (lambda: qnet.output(images), chip_smoke.VGG_BATCH,
                                         "images", serving)}
+    for name, (small_trainer, small_batch) in small.items():
+        workloads[name] = (lambda t=small_trainer, b=small_batch: t.fit_batch(b),
+                           chip_smoke.SMALL_BATCH, "images", f32)
 
     # every timing before the first trace: a profiler session leaves the
     # launch path slower for the rest of the process

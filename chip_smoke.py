@@ -150,7 +150,24 @@ no result line:
    products exact (f64) at 1e-5 in log probabilities, and against
    ``int8_matmul_plain`` at 1e-4 (cuBLAS's own f32 rounding, printed
    against the exact product beside the kernel's);
-19. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+19. the zoo's ``MultiLayerNetwork`` entries, f32, which run no kernel of
+   this repo: (a) ``mlp_mnist()`` and ``lenet(32, 32, 3)`` at batch 128 on
+   ``bench.py``'s ``bench_workload_steps`` data, step 0 of
+   ``Trainer.fit_batch`` on the card and on the CPU from the same weights
+   (the loss; every param's gradient, and its update under an updater
+   linear in it), then 20 steps timed, with the device time alone and the
+   busy share; (b) the examples' flow, ``datasets.mnist`` into 2 epochs of
+   ``mlp_mnist().fit`` (its accuracy above 0.9) and ``datasets.cifar10``
+   into 1 epoch of ``lenet``, each evaluated on the card and, with the
+   same weights, on the CPU (at most 0.1% of the predictions differ);
+   (c) ``simple_cnn`` (48x48x3) and ``alexnet`` (224x224x3) with their
+   dropout and LRN: 3 steps at batch 32 with every mask recorded (each
+   keep share within 5 sigma of its retain probability, each step's masks
+   new, a second step 0 from the same weights drawing the same masks) and the inference forward
+   at batch 2 against the CPU's; (d) ``vgg19``'s forward timed at batch 32
+   and at batch 2 against the CPU's (each forward in f32 and in f64 on
+   both devices, held as ``ZOO_FWD_TOL``'s comment says);
+20. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -2815,6 +2832,328 @@ def flash_entry(name, source, replaces, rows, prefix, launches, work) -> dict:
             **{f"bf16_{k}": v for k, v in bf16.items()}}
 
 
+# ---------------------------------------------------------------- small nets
+# MultiLayerNetwork's training path (the zoo's small nets, the canned
+# datasets, evaluation, dropout, LRN); no kernel of this repo runs on it
+SMALL_SEED = SEED + 30
+SMALL_BATCH = 128        # bench.py's bench_workload_steps
+SMALL_STEPS = 20         # timed steps after step 0
+# card against the CPU from the same weights and batch, as read there: step
+# 0's loss, relative; each param's step-0 gradient (and, under an updater
+# linear in it, its update), max |card - cpu| over max |cpu|: f32 sum order
+# only (the CPU's f32 against its f64 read at most 1.2e-6).  Adam's first
+# update is lr * g / (|g| + eps): where |g| nears eps it carries the
+# gradient's rounding on at full size (on the CPU, f32 against f64: 163 of
+# LeNet's 1.6 M dense weights past 1e-4), so Adam's update is printed, not held
+SMALL_LOSS0_TOL, SMALL_STEP0_TOL = 1e-5, 1e-4
+LINEAR_UPDATERS = ("sgd", "nesterovs")
+MNIST_ACCURACY = 0.9     # the verify recipe's bar for 2 epochs of MLP-MNIST
+# card-trained weights evaluated on the card and on the CPU: predictions
+# that may differ (argmax near-ties), as a share of the test set
+EVAL_DIFFER_SHARE = 1e-3
+DROPOUT_STEPS, DROPOUT_BATCH, DROPOUT_SIGMA = 3, 32, 5
+# the zoo's inference forwards at batch 2, card against CPU, max |diff| of
+# log probabilities.  In f64 both compute the same function (read at most
+# 1.0e-13 on the H100).  In f32 AlexNet and SimpleCNN read 6.6e-6 and
+# 7.7e-6, held to ZOO_FWD_TOL.  VGG-19's log probabilities reach -31, and
+# f32 itself is 4.6e-5 (card) and 5.9e-5 (CPU) from the f64 forward there,
+# so its f32 pair is printed, and the card's f32 forward is held to the
+# f64 one within twice the CPU's own f32 error (ZOO_FWD_TOL at least)
+ZOO_FWD_TOL, ZOO_F64_TOL = 1e-5, 1e-10
+
+
+class _Recorded:
+    """A trainer's updater that keeps the gradient and the update of its
+    last step (comparison only)."""
+
+    def __init__(self, updater):
+        self.updater, self.grads, self.updates = updater, None, None
+
+    def init(self, params):
+        return self.updater.init(params)
+
+    def update(self, grads, state):
+        updates, state = self.updater.update(grads, state)
+        self.grads, self.updates = grads, updates
+        return updates, state
+
+
+def cpu_twin(net, factory, **kwargs):
+    """The same net on the CPU, with a copy of ``net``'s params and state."""
+    twin = factory(device="cpu", **kwargs)
+    twin.set_params([{k: t.cpu() for k, t in d.items()} for d in net.params_])
+    twin.state_ = [{k: t.cpu() for k, t in d.items()} for d in net.state_]
+    return twin
+
+
+def tree_errs(got, want) -> dict:
+    """Per param (layer index.name): max |got - want| over max |want|."""
+    return {f"{i}.{k}": ((g.cpu() - want[i][k]).abs().max() / want[i][k].abs().max()).item()
+            for i, d in enumerate(got) for k, g in d.items() if want[i][k].abs().max() > 0}
+
+
+def small_step(card, name, factory, kwargs, x, y) -> dict:
+    """Step 0 of ``Trainer.fit_batch`` on the card and on the CPU from the
+    same weights and batch, then ``SMALL_STEPS`` timed steps on the card:
+    their mean (synchronized), the device time of one step alone
+    (torch.profiler) and the busy share."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Trainer
+    net = factory(device="cuda", **kwargs).init(seed=SMALL_SEED)
+    twin = cpu_twin(net, factory, **kwargs)
+    batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    runs = []
+    for model, data in ((net, batch), (twin, DataSet(x, y))):
+        trainer = Trainer(model)
+        trainer.updater = rec = _Recorded(trainer.updater)
+        runs.append((trainer, rec, trainer.fit_batch(data).item()))
+    (trainer, rec, loss), (_, rec_cpu, loss_cpu) = runs
+    loss_err = abs(loss - loss_cpu) / abs(loss_cpu)
+    grad_errs = tree_errs(rec.grads, rec_cpu.grads)
+    upd_errs = tree_errs(rec.updates, rec_cpu.updates)
+    kind = net.conf.updater["type"]
+    held = grad_errs | (upd_errs if kind in LINEAR_UPDATERS else {})
+    if not (loss_err <= SMALL_LOSS0_TOL and max(held.values()) <= SMALL_STEP0_TOL):
+        raise AssertionError(f"{name} step 0, card vs CPU: loss {loss} vs {loss_cpu} "
+                             f"({loss_err:.2e}); gradients {grad_errs}; updates {upd_errs}")
+    off = sum(int(((u.cpu() - rec_cpu.updates[i][k]).abs()
+                   > SMALL_STEP0_TOL * rec_cpu.updates[i][k].abs().max()).sum())
+              for i, d in enumerate(rec.updates) for k, u in d.items())
+    trainer.updater = rec.updater
+
+    def step():
+        return trainer.fit_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SMALL_STEPS):
+        last = step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SMALL_STEPS * 1e3
+    dev = device_ms(step)
+    result = {"card": card, "batch": len(x), "updater": kind, "loss0": loss,
+              "loss0_cpu": loss_cpu, "loss0_rel_err": loss_err,
+              "grad_rel_err_max": max(grad_errs.values()),
+              "update_rel_err_max": max(upd_errs.values()), "update_entries_off": off,
+              "update_held": kind in LINEAR_UPDATERS, "last_loss": last.item(),
+              "step_ms": step_ms, "images_per_s": len(x) / step_ms * 1e3,
+              "device_ms": dev, "busy_share": dev / step_ms}
+    log(f"{name} train f32 batch {len(x)} on {card}: step 0 vs CPU loss {loss:.6f} "
+        f"({loss_err:.2e} rel), gradients {result['grad_rel_err_max']:.2e}, {kind} updates "
+        f"{result['update_rel_err_max']:.2e} ({off} entries past {SMALL_STEP0_TOL} of their "
+        f"largest{'' if result['update_held'] else '; not held'}); step {step_ms:.3f} ms "
+        f"({result['images_per_s']:.1f} images/s) over {SMALL_STEPS} steps after step 0, "
+        f"device time {dev:.3f} ms, busy {result['busy_share']:.1%}")
+    return result
+
+
+def predictions_differ(net, twin, features) -> int:
+    """Test examples whose argmax differs between ``net`` (the card) and
+    ``twin`` (the CPU)."""
+    return int((net.output(features).argmax(-1).cpu() != twin.output(features).argmax(-1))
+               .sum())
+
+
+def small_flow(card, name, factory, kwargs, train_it, test_it, epochs) -> dict:
+    """The examples' flow on the card: zoo -> dataset -> net.fit ->
+    net.evaluate; the card-trained weights also evaluated on the CPU."""
+    import torch
+    net = factory(device="cuda", **kwargs).init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(train_it, epochs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ev = net.evaluate(test_it)
+    twin = cpu_twin(net, factory, **kwargs)
+    ev_cpu = twin.evaluate(test_it)
+    differ = predictions_differ(net, twin, test_it.features)
+    cm_differ = int(abs(ev.confusion_matrix() - ev_cpu.confusion_matrix()).sum()) // 2
+    limit = int(EVAL_DIFFER_SHARE * ev.total)
+    result = {"card": card, "epochs": epochs, "steps": net.iteration, "fit_s": fit_s,
+              "train_synthetic": train_it.synthetic, "test_synthetic": test_it.synthetic,
+              "train_examples": len(train_it.features), "test_examples": ev.total,
+              "accuracy": ev.accuracy(), "cpu_accuracy": ev_cpu.accuracy(),
+              "predictions_differ": differ, "confusion_entries_differ": cm_differ,
+              "differ_limit": limit, "score": net.score(), "stats": ev.stats()}
+    log(f"{name} flow on {card}: {epochs} epoch(s) of net.fit over {result['train_examples']} "
+        f"examples (synthetic {train_it.synthetic}; test synthetic {test_it.synthetic}) in "
+        f"{fit_s:.2f} s, {net.iteration} steps, last loss {result['score']:.4f}; accuracy "
+        f"{ev.accuracy():.4f} on the card, {ev_cpu.accuracy():.4f} with the same weights on "
+        f"the CPU; {differ} of {ev.total} predictions differ (limit {limit}; confusion "
+        f"matrices {cm_differ})")
+    if differ > limit or cm_differ > differ:
+        raise AssertionError(f"{name}: {differ} predictions differ between card and CPU "
+                             f"(limit {limit}), confusion matrices {cm_differ}")
+    return result
+
+
+def forward_vs_cpu(net, factory, x, hold_f32_pair: bool) -> dict:
+    """``net``'s inference forward on ``x`` (batch 2, on the card) against
+    the CPU's, in log probabilities: the f32 pair, the same net in f64 on
+    both devices, and each f32 forward against the CPU's f64 one."""
+    import torch
+    from deeplearning4j_tpu_torch import config
+
+    def log_p(model, device, dtype):
+        return model.output(x.to(device, dtype)).cpu().double().log()
+
+    f32 = {"cuda": log_p(net, "cuda", torch.float32),
+           "cpu": log_p(cpu_twin(net, factory), "cpu", torch.float32)}
+    config.set_dtype_policy(config.DTypePolicy(torch.float64, torch.float64, torch.float64))
+    try:
+        f64 = {}
+        for device in ("cuda", "cpu"):
+            twin = factory(device=device)
+            twin.set_params([{k: t.to(device, torch.float64) for k, t in d.items()}
+                             for d in net.params_])
+            twin.state_ = [{k: t.to(device, torch.float64) for k, t in d.items()}
+                           for d in net.state_]
+            f64[device] = log_p(twin, device, torch.float64)
+            del twin
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    errs = {"f32_card_vs_cpu": (f32["cuda"] - f32["cpu"]).abs().max().item(),
+            "f64_card_vs_cpu": (f64["cuda"] - f64["cpu"]).abs().max().item(),
+            "f32_card_vs_f64": (f32["cuda"] - f64["cpu"]).abs().max().item(),
+            "f32_cpu_vs_f64": (f32["cpu"] - f64["cpu"]).abs().max().item(),
+            "log_p_min": f64["cpu"].min().item(), "f32_pair_held": hold_f32_pair}
+    limit = max(ZOO_FWD_TOL, 2 * errs["f32_cpu_vs_f64"])
+    if not (errs["f64_card_vs_cpu"] <= ZOO_F64_TOL and errs["f32_card_vs_f64"] <= limit
+            and (errs["f32_card_vs_cpu"] <= ZOO_FWD_TOL or not hold_f32_pair)):
+        raise AssertionError(f"inference forward, card vs CPU: {errs}")
+    return errs
+
+
+def fwd_line(errs: dict) -> str:
+    return (f"card vs CPU {errs['f32_card_vs_cpu']:.2e} in log probabilities"
+            f"{'' if errs['f32_pair_held'] else ' (printed, not held)'}, f64 "
+            f"{errs['f64_card_vs_cpu']:.2e}; f32 against f64: card "
+            f"{errs['f32_card_vs_f64']:.2e}, CPU {errs['f32_cpu_vs_f64']:.2e} (log p down to "
+            f"{errs['log_p_min']:.1f})")
+
+
+class masks_recorded:
+    """Every dropout mask the port draws (``base._keep_mask``), kept with
+    its retain probability, while the context is open."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn.layers import base
+        self.base, self.draw, self.masks = base, base._keep_mask, []
+
+        def record(shape, p, gen, device):
+            mask = self.draw(shape, p, gen, device)
+            self.masks.append((mask, p))
+            return mask
+        base._keep_mask = record
+        return self
+
+    def __exit__(self, *exc):
+        self.base._keep_mask = self.draw
+
+
+def dropout_net(card, name, factory, shape, classes) -> dict:
+    """``DROPOUT_STEPS`` training steps at batch ``DROPOUT_BATCH`` on the
+    card, every dropout mask recorded: finite losses, each mask's keep
+    share within ``DROPOUT_SIGMA`` sigma of its retain probability, and a
+    second step 0 from the same weights and stream seed drawing the same
+    masks; then the inference forward at batch 2 against the CPU."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Trainer
+    rng = np.random.default_rng(SMALL_SEED + classes)
+    x = rng.normal(size=(DROPOUT_BATCH,) + shape).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, DROPOUT_BATCH)]
+    batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    net = factory(device="cuda").init(seed=SMALL_SEED)
+    with masks_recorded() as infer:
+        fwd = forward_vs_cpu(net, factory, torch.from_numpy(x[:2]), hold_f32_pair=True)
+    p0 = [{k: t.clone() for k, t in d.items()} for d in net.params_]
+    s0 = [{k: t.clone() for k, t in d.items()} for d in net.state_]
+    with masks_recorded() as run:
+        trainer = Trainer(net)
+        losses = [trainer.fit_batch(batch).item() for _ in range(DROPOUT_STEPS)]
+    per_step = len(run.masks) // DROPOUT_STEPS
+    net.set_params(p0)
+    net.state_, net.opt_state = s0, None
+    with masks_recorded() as again:
+        loss0 = Trainer(net).fit_batch(batch).item()
+    sigmas = [abs(m.float().mean().item() - p) / np.sqrt(p * (1 - p) / m.numel())
+              for m, p in run.masks]
+    same = len(again.masks) == per_step and all(
+        torch.equal(a, b) for (a, _), (b, _) in zip(again.masks, run.masks[:per_step]))
+    # the stream moves on: no mask repeats the one of the step before
+    moved = all(not torch.equal(a, b) for (a, _), (b, _) in zip(run.masks[per_step:],
+                                                                run.masks))
+    result = {"card": card, "batch": DROPOUT_BATCH, "losses": losses, "repeat_loss0": loss0,
+              "masks_per_step": per_step, "mask_shapes": [list(m.shape) for m, _ in
+                                                          run.masks[:per_step]],
+              "retain": [p for _, p in run.masks[:per_step]], "keep_share_sigmas": sigmas,
+              "repeat_same_masks": same, "masks_move_step_to_step": moved,
+              "inference_draws": len(infer.masks),
+              "forward": fwd}
+    log(f"{name} dropout on {card}: {DROPOUT_STEPS} steps at batch {DROPOUT_BATCH}, losses "
+        f"{losses}; {per_step} masks a step {result['mask_shapes']} at retain "
+        f"{result['retain']}, keep shares within {max(sigmas):.2f} sigma; a second step 0 "
+        f"drew the same masks: {same} (loss {loss0:.6f}), each step new ones: {moved}; "
+        f"inference forward at batch 2 "
+        f"({len(infer.masks)} masks drawn): {fwd_line(fwd)}")
+    if not (all(np.isfinite(losses + [loss0])) and per_step and max(sigmas) <= DROPOUT_SIGMA
+            and same and moved and not infer.masks
+            and len(run.masks) == per_step * DROPOUT_STEPS):
+        raise AssertionError(f"{name} dropout check failed: {result}")
+    return result
+
+
+def vgg19_forward(card) -> dict:
+    """Full-width VGG-19: the forward at batch 32 timed on the card, and at
+    batch 2 against the CPU (``forward_vs_cpu``)."""
+    import torch
+    from deeplearning4j_tpu_torch.models import vgg19
+    net = vgg19(device="cuda").init(seed=SMALL_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SMALL_SEED)
+    x = torch.randn(BATCH, 224, 224, 3, device="cuda", generator=gen)
+    ms = cuda_ms(lambda: net.output(x), reps=5, warmup=2)
+    fwd = forward_vs_cpu(net, vgg19, x[:2], hold_f32_pair=False)
+    result = {"card": card, "batch": BATCH, "forward_ms": ms, "images_per_s": BATCH / ms * 1e3,
+              "params": net.num_params(), "forward": fwd}
+    log(f"vgg19 forward f32 batch {BATCH} on {card}: {ms:.3f} ms "
+        f"({result['images_per_s']:.1f} images/s), {net.num_params()} params; batch 2: "
+        f"{fwd_line(fwd)}")
+    return result
+
+
+def small_nets(card: str) -> dict:
+    """Phase 19: the zoo's MultiLayerNetwork entries on the card, f32."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data import datasets
+    from deeplearning4j_tpu_torch.models import alexnet, lenet, mlp_mnist, simple_cnn
+    # bench.py's bench_workload_steps data: one numpy stream, seed 0
+    rng = np.random.default_rng(0)
+    xm = rng.normal(size=(SMALL_BATCH, 784)).astype(np.float32)
+    ym = np.eye(10, dtype=np.float32)[rng.integers(0, 10, SMALL_BATCH)]
+    xl = rng.normal(size=(SMALL_BATCH, 32, 32, 3)).astype(np.float32)
+    yl = np.eye(10, dtype=np.float32)[rng.integers(0, 10, SMALL_BATCH)]
+    cifar = {"height": 32, "width": 32, "channels": 3}
+    out = {"mlp_mnist_step": small_step(card, "mlp_mnist", mlp_mnist, {}, xm, ym),
+           "lenet_cifar10_step": small_step(card, "lenet", lenet, cifar, xl, yl)}
+    out["mlp_mnist_flow"] = small_flow(
+        card, "mlp_mnist", mlp_mnist, {}, datasets.mnist(batch_size=128, n_synthetic=6000),
+        datasets.mnist(batch_size=256, train=False, n_synthetic=6000), 2)
+    if not out["mlp_mnist_flow"]["accuracy"] > MNIST_ACCURACY:
+        raise AssertionError(f"mlp_mnist accuracy {out['mlp_mnist_flow']['accuracy']} after 2 "
+                             f"epochs, not above {MNIST_ACCURACY}")
+    out["lenet_cifar10_flow"] = small_flow(
+        card, "lenet", lenet, cifar, datasets.cifar10(n_synthetic=2000),
+        datasets.cifar10(train=False, n_synthetic=2000), 1)
+    log("lenet cifar10 evaluation on the card:\n" + out["lenet_cifar10_flow"]["stats"])
+    out["simple_cnn_dropout"] = dropout_net(card, "simple_cnn", simple_cnn, (48, 48, 3), 10)
+    out["alexnet_dropout"] = dropout_net(card, "alexnet", alexnet, (224, 224, 3), 1000)
+    out["vgg19_forward"] = vgg19_forward(card)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--times"]:           # one run of the A/B call, in the tree given
         sys.path.insert(0, sys.argv[2])
@@ -2943,6 +3282,8 @@ def main() -> int:
         f"bf16, L2 cold")
     int8_rows = check_int8((torch.float32, torch.bfloat16))
     vgg = vgg_serve(card)
+    torch.cuda.empty_cache()
+    small = small_nets(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3035,6 +3376,7 @@ def main() -> int:
          "flash_long": long_rows, "bert_serve_heads": bert_heads, "flash_sass": hopper,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
+         "small_nets": small,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,7 @@
 from deeplearning4j_tpu_torch.models.bert import BertConfig, BertForMaskedLM
-from deeplearning4j_tpu_torch.models.zoo import resnet50, vgg16
+from deeplearning4j_tpu_torch.models.zoo import (
+    alexnet, lenet, mlp_mnist, resnet50, simple_cnn, vgg16, vgg19,
+)
 
-__all__ = ["resnet50", "vgg16", "BertConfig", "BertForMaskedLM"]
+__all__ = ["mlp_mnist", "lenet", "simple_cnn", "alexnet", "resnet50", "vgg16", "vgg19",
+           "BertConfig", "BertForMaskedLM"]

@@ -1,6 +1,9 @@
 """Zoo model builders (port of ``deeplearning4j_tpu/models/zoo.py``):
-ResNet-50 and VGG-16 so far.  Each configuration is the JAX package's,
-layer for layer, so its JSON matches the one that package writes.
+MLP-MNIST, LeNet, SimpleCNN, AlexNet, VGG-16, VGG-19 and ResNet-50 so
+far.  Each configuration is the JAX package's, layer for layer, so its
+JSON matches the one that package writes.  Each factory takes
+``device=``: the CUDA card by default, raising without one unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -12,15 +15,117 @@ from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer, FusedBottleneck,
-    GlobalPoolingLayer, OutputLayer, SubsamplingLayer, ZeroPaddingLayer,
+    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
+    FusedBottleneck, GlobalPoolingLayer, LocalResponseNormalization, OutputLayer,
+    SubsamplingLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
-from deeplearning4j_tpu_torch.train.updaters import Nesterovs
+from deeplearning4j_tpu_torch.train.updaters import Adam, Nesterovs
 
 # The JAX package's default ResNet-50 updater, Nesterovs(0.1, 0.9)
 _NESTEROVS = Nesterovs(0.1, 0.9)
+
+
+def mlp_mnist(seed: int = 123, hidden: int = 500, hidden2: int = 100, updater: Any = None,
+              device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """The dl4j-examples two-layer MNIST MLP: 784 -> dense ``hidden`` ->
+    dense ``hidden2`` (relu) -> softmax 10, Xavier weights, l2 1e-4,
+    ``Nesterovs(0.0015, 0.98)`` unless ``updater`` is given."""
+    return MultiLayerNetwork(
+        NeuralNetConfiguration.builder()
+        .seed(seed)
+        .updater(updater or Nesterovs(0.0015, 0.98))
+        .weight_init("xavier")
+        .l2(1e-4)
+        .list()
+        .layer(DenseLayer(n_out=hidden, activation="relu"))
+        .layer(DenseLayer(n_out=hidden2, activation="relu"))
+        .layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+        .set_input_type(InputType.feed_forward(784))
+        .build(), device=device)
+
+
+def lenet(seed: int = 123, height: int = 28, width: int = 28, channels: int = 1,
+          num_classes: int = 10, updater: Any = None,
+          device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """DL4J's LeNet (zoo ``LeNet.java``): conv 5x5x20 -> max pool 2 ->
+    conv 5x5x50 -> max pool 2 -> dense 500 (relu) -> softmax, "same"
+    convolutions, Xavier weights, ``Adam(1e-3)`` unless ``updater`` is
+    given."""
+    return MultiLayerNetwork(
+        NeuralNetConfiguration.builder()
+        .seed(seed)
+        .updater(updater or Adam(1e-3))
+        .weight_init("xavier")
+        .list()
+        .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
+                                convolution_mode="same", activation="identity"))
+        .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+        .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), stride=(1, 1),
+                                convolution_mode="same", activation="identity"))
+        .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+        .layer(DenseLayer(n_out=500, activation="relu"))
+        .layer(OutputLayer(n_out=num_classes, activation="softmax", loss="mcxent"))
+        .set_input_type(InputType.convolutional(height, width, channels))
+        .build(), device=device)
+
+
+def simple_cnn(seed: int = 123, height: int = 48, width: int = 48, channels: int = 3,
+               num_classes: int = 10, device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """DL4J's SimpleCNN: three blocks of 3x3 "same" conv (16, 32, 64;
+    relu), BatchNormalization and a 2x2 max pool, then a ``DropoutLayer``
+    (retain 0.5), dense 256 and the softmax, He weights, ``Adam(1e-3)``."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed)
+         .updater(Adam(1e-3))
+         .weight_init("relu")
+         .list())
+    for n_out in (16, 32, 64):
+        b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                 convolution_mode="same", activation="relu"))
+        b.layer(BatchNormalization())
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+    b.layer(DropoutLayer(dropout=0.5))
+    b.layer(DenseLayer(n_out=256, activation="relu"))
+    b.layer(OutputLayer(n_out=num_classes, activation="softmax", loss="mcxent"))
+    b.set_input_type(InputType.convolutional(height, width, channels))
+    return MultiLayerNetwork(b.build(), device=device)
+
+
+def alexnet(seed: int = 123, num_classes: int = 1000,
+            device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """DL4J's one-tower AlexNet (zoo ``AlexNet.java``) on 224x224x3: five
+    convolutions with LRN after the first two, three max pools, two
+    dense 4096 with dropout (retain 0.5) on their inputs, the softmax;
+    normal weights, l2 5e-4, ``Nesterovs(1e-2, 0.9)``."""
+    return MultiLayerNetwork(
+        NeuralNetConfiguration.builder()
+        .seed(seed)
+        .updater(Nesterovs(1e-2, 0.9))
+        .weight_init("normal")
+        .l2(5e-4)
+        .list()
+        .layer(ConvolutionLayer(n_out=96, kernel_size=(11, 11), stride=(4, 4),
+                                activation="relu"))
+        .layer(LocalResponseNormalization())
+        .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+        .layer(ConvolutionLayer(n_out=256, kernel_size=(5, 5), convolution_mode="same",
+                                activation="relu", bias_init=1.0))
+        .layer(LocalResponseNormalization())
+        .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+        .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), convolution_mode="same",
+                                activation="relu"))
+        .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), convolution_mode="same",
+                                activation="relu", bias_init=1.0))
+        .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), convolution_mode="same",
+                                activation="relu", bias_init=1.0))
+        .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+        .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5, bias_init=1.0))
+        .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5, bias_init=1.0))
+        .layer(OutputLayer(n_out=num_classes, activation="softmax", loss="mcxent"))
+        .set_input_type(InputType.convolutional(224, 224, 3))
+        .build(), device=device)
 
 
 def _conv_bn(gb, name, n_out, kernel, stride, input_name, activation="identity",
@@ -104,19 +209,17 @@ def resnet50(seed: int = 123, num_classes: int = 1000, height: int = 224,
     return ComputationGraph(gb.build(), device=device)
 
 
-def vgg16(seed: int = 123, num_classes: int = 1000,
-          device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
-    """VGG-16 (VGG16.java parity): 224x224x3 NHWC, 13 3x3 "same" convs in
-    5 blocks each closed by a 2x2 max pool, dense 4096, 4096 and the
-    softmax output, He-normal weights, ``Nesterovs(1e-2, 0.9)``; a
-    ``MultiLayerNetwork`` on ``device`` (the CUDA card by default; raises
-    without one unless ``device="cpu"``), not initialised yet."""
+def _vgg(convs_per_block, seed: int, num_classes: int, device: Any) -> MultiLayerNetwork:
+    """224x224x3 NHWC, five blocks of 3x3 "same" convs (64, 128, 256, 512
+    and 512 channels, ``convs_per_block`` each) each closed by a 2x2 max
+    pool, dense 4096, 4096 and the softmax output, He-normal weights,
+    ``Nesterovs(1e-2, 0.9)``; not initialised yet."""
     b = (NeuralNetConfiguration.builder()
          .seed(seed)
          .updater(Nesterovs(1e-2, 0.9))
          .weight_init("relu")
          .list())
-    for n_out, convs in [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]:
+    for n_out, convs in zip((64, 128, 256, 512, 512), convs_per_block):
         for _ in range(convs):
             b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
                                      convolution_mode="same", activation="relu"))
@@ -126,3 +229,18 @@ def vgg16(seed: int = 123, num_classes: int = 1000,
     b.layer(OutputLayer(n_out=num_classes, activation="softmax", loss="mcxent"))
     b.set_input_type(InputType.convolutional(224, 224, 3))
     return MultiLayerNetwork(b.build(), device=device)
+
+
+def vgg16(seed: int = 123, num_classes: int = 1000,
+          device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """VGG-16 (VGG16.java parity): 13 convs, two or three a block
+    (``_vgg``); a ``MultiLayerNetwork`` on ``device`` (the CUDA card by
+    default; raises without one unless ``device="cpu"``)."""
+    return _vgg((2, 2, 3, 3, 3), seed, num_classes, device)
+
+
+def vgg19(seed: int = 123, num_classes: int = 1000,
+          device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """VGG-19 (VGG19.java parity): VGG-16 with four convs in each of the
+    256- and 512-channel blocks."""
+    return _vgg((2, 2, 4, 4, 4), seed, num_classes, device)

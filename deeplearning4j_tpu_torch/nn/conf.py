@@ -136,6 +136,7 @@ class Builder:
         self._grad_norm: Optional[str] = None
         self._grad_norm_threshold = 1.0
         self._mini_batch = True
+        self._dtype = "float32"
 
     def seed(self, seed: int) -> "Builder":
         self._seed = int(seed)
@@ -187,6 +188,11 @@ class Builder:
         self._mini_batch = v
         return self
 
+    def dtype(self, dt: str) -> "Builder":
+        """The network's dtype name, carried in the configuration's JSON."""
+        self._dtype = dt
+        return self
+
     def list(self) -> "ListBuilder":
         return ListBuilder(self)
 
@@ -225,4 +231,4 @@ class ListBuilder:
             layers=self._layers, input_type=self._input_type, seed=p._seed,
             updater=p._updater, gradient_normalization=p._grad_norm,
             gradient_normalization_threshold=p._grad_norm_threshold,
-            mini_batch=p._mini_batch)
+            mini_batch=p._mini_batch, dtype=p._dtype)

@@ -1,6 +1,8 @@
 """ComputationGraph — the DAG network (port of
-``deeplearning4j_tpu/nn/graph.py``): inference (``output``) and training
-(``fit``, through :class:`deeplearning4j_tpu_torch.train.Trainer`).
+``deeplearning4j_tpu/nn/graph.py``): inference (``output``), training
+(``fit``, through :class:`deeplearning4j_tpu_torch.train.Trainer`),
+``evaluate``, the flat parameter vector (``params``), ``num_params`` and
+``summary``.
 
 Named vertices (layers or combinator vertices) run in a topological
 order computed once at build.  The configuration's JSON form is the JAX
@@ -21,6 +23,7 @@ import torch
 from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from deeplearning4j_tpu_torch.nn import preprocessors
 from deeplearning4j_tpu_torch.nn.conf import ShapeInferenceError
+from deeplearning4j_tpu_torch.nn.multilayer import flat_param_vector, to_host
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.vertices import GraphVertex, vertex_from_dict
@@ -239,15 +242,25 @@ class ComputationGraph:
     def _to_device(self, tree: dict) -> dict:
         return {v: {k: t.to(self.device) for k, t in d.items()} for v, d in tree.items()}
 
+    def num_params(self) -> int:
+        return sum(t.numel() for d in self.params_.values() for t in d.values())
+
+    def params(self) -> torch.Tensor:
+        """The flat parameter vector on the graph's device, in the JAX
+        package's leaf order: vertex names sorted, then each vertex's keys
+        sorted, each tensor raveled in C order."""
+        return flat_param_vector(self.params_, self.device)
+
     # ---------------------------------------------------------- forward
-    def _forward(self, params, state, features, *, train: bool = False, mask=None,
+    def _forward(self, params, state, features, *, train: bool = False, rng=None, mask=None,
                  labels=None):
         """features: a tensor (single input) or a list of tensors; labels:
         a tensor or a list aligned with ``conf.outputs``.  Returns
         (outputs, new_state, score_array): outputs is a tensor for a single
         graph output, else a list; score_array is the per-example loss
         summed over the output layers that have one, None without
-        labels."""
+        labels.  ``rng``, the step's stream, feeds each layer's dropout in
+        topological order."""
         feats = list(features) if isinstance(features, (list, tuple)) else [features]
         masks = list(mask) if isinstance(mask, (list, tuple)) else [mask] * len(feats)
         label_list = None
@@ -270,11 +283,12 @@ class ComputationGraph:
                     y, new_state[spec.name], scores = spec.obj.apply_and_score(
                         params[spec.name], state[spec.name], x,
                         label_list[self.conf.outputs.index(spec.name)],
-                        train=train, mask=in_mask)
+                        train=train, rng=rng, mask=in_mask)
                     score_array = scores if score_array is None else score_array + scores
                 else:
                     y, new_state[spec.name] = spec.obj.apply(
-                        params[spec.name], state[spec.name], x, train=train, mask=in_mask)
+                        params[spec.name], state[spec.name], x, train=train, rng=rng,
+                        mask=in_mask)
             else:
                 y = spec.obj.apply(in_acts)
                 new_state[spec.name] = state[spec.name]
@@ -310,3 +324,27 @@ class ComputationGraph:
         from deeplearning4j_tpu_torch.train.trainer import Trainer
         Trainer(self).fit(iterator, epochs)
         return self
+
+    def evaluate(self, iterator, top_n: int = 1):
+        """Classification evaluation of the first output against the first
+        labels, each batch's output read back to the host once."""
+        from deeplearning4j_tpu_torch.evaluation.classification import Evaluation
+        evaluation = Evaluation(top_n=top_n)
+        for batch in iterator:
+            feats = batch.features
+            out = self.output(*(feats if isinstance(feats, (list, tuple)) else [feats]),
+                              mask=batch.features_mask)
+            out0 = out[0] if isinstance(out, list) else out
+            labels = batch.labels[0] if isinstance(batch.labels, (list, tuple)) else batch.labels
+            evaluation.eval(to_host(labels), to_host(out0), mask=to_host(batch.labels_mask))
+        return evaluation
+
+    def summary(self) -> str:
+        lines = [f"{'name':<20}{'kind':<22}{'inputs':<28}{'params':<10}"]
+        for spec in self._topo:
+            n = (sum(t.numel() for t in self.params_[spec.name].values())
+                 if self.params_ else 0)
+            lines.append(f"{spec.name:<20}{spec.obj.TYPE_NAME:<22}"
+                         f"{','.join(spec.inputs):<28}{n:<10}")
+        lines.append(f"Total params: {self.num_params() if self.params_ else 0}")
+        return "\n".join(lines)

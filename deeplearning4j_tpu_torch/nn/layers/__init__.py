@@ -10,6 +10,7 @@ from deeplearning4j_tpu_torch.nn.layers.core import (
     DenseLayer,
     OutputLayer,
     ActivationLayer,
+    DropoutLayer,
     BatchNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.conv import (
@@ -17,12 +18,14 @@ from deeplearning4j_tpu_torch.nn.layers.conv import (
     SubsamplingLayer,
     ZeroPaddingLayer,
     GlobalPoolingLayer,
+    LocalResponseNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneck
 
 __all__ = [
     "Layer", "register_layer", "layer_from_dict",
-    "DenseLayer", "OutputLayer", "ActivationLayer", "BatchNormalization",
+    "DenseLayer", "OutputLayer", "ActivationLayer", "DropoutLayer", "BatchNormalization",
     "ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
+    "LocalResponseNormalization",
     "FusedBottleneck",
 ]

@@ -7,12 +7,16 @@ tensors:
 - ``init_params(gen, input_type) -> params``: a dict of CPU tensors drawn
   from the ``torch.Generator`` it is given (the graph moves them to its
   device);
-- ``apply(params, state, x, *, train, mask) -> (y, new_state)``.
+- ``apply(params, state, x, *, train, rng, mask) -> (y, new_state)``;
+  ``rng`` is the training step's random stream, a ``torch.Generator`` on
+  the activations' device (``None`` at inference).
 
 Field names and JSON type names are the JAX package's, so a config that
-package wrote loads here.  ``regularization_penalty`` gives the layer's
-l1/l2 score term for training; ``updater`` (per-layer updaters) and
-``weight_noise`` are carried through the JSON but not ported.
+package wrote loads here.  ``dropout`` is DL4J's retain probability,
+applied to the input of the layers that take it on training passes
+(:meth:`Layer._maybe_dropout`).  ``regularization_penalty`` gives the
+layer's l1/l2 score term for training; ``updater`` (per-layer updaters)
+and ``weight_noise`` are carried through the JSON but not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ from deeplearning4j_tpu_torch.nn import weights as weight_inits
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 
 _LAYER_REGISTRY: dict[str, type] = {}
+
+
+def _keep_mask(shape: tuple, p: float, gen: torch.Generator, device) -> torch.Tensor:
+    """Dropout's keep mask: each entry True with probability ``p``, drawn
+    from ``gen`` on ``device`` (a generator on another device raises)."""
+    return torch.rand(shape, generator=gen, device=device) < p
 
 
 def register_layer(type_name: str):
@@ -94,7 +104,8 @@ class Layer:
         return {}
 
     def apply(self, params: dict, state: dict, x: torch.Tensor, *,
-              train: bool = False, mask: Optional[torch.Tensor] = None):
+              train: bool = False, rng: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None):
         raise NotImplementedError
 
     # ---- shared helpers ---------------------------------------------
@@ -127,7 +138,13 @@ class Layer:
                 penalty = penalty + 0.5 * l2 * (arr * arr).sum()
         return penalty
 
-    def _no_dropout(self, train: bool) -> None:
-        if train and self.dropout is not None and self.dropout < 1.0:
-            raise NotImplementedError(
-                f"{type(self).__name__}: dropout is not ported yet")
+    def _maybe_dropout(self, x: torch.Tensor, train: bool,
+                       rng: Optional[torch.Generator]) -> torch.Tensor:
+        """Input dropout with DL4J's retain probability p: keep each entry
+        with probability p and scale it by 1/p, zero the rest; x as is at
+        p >= 1, at inference or without a stream."""
+        p = self.dropout
+        if not train or p is None or p >= 1.0 or rng is None:
+            return x
+        keep = _keep_mask(tuple(x.shape), p, rng, x.device)
+        return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype, device=x.device))

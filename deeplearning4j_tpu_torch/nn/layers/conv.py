@@ -1,9 +1,10 @@
 """Convolutional, pooling and spatial layers (port of
 ``deeplearning4j_tpu/nn/layers/conv.py``): ``ConvolutionLayer``
-("truncate", "strict", "causal" and "same"), ``SubsamplingLayer`` and
-``GlobalPoolingLayer`` (max, avg, sum and pnorm; global pooling with the
-JAX package's optional mask) and ``ZeroPaddingLayer``, in eval and train
-mode (autograd,
+("truncate", "strict", "causal" and "same"; input dropout on training
+passes), ``SubsamplingLayer`` and ``GlobalPoolingLayer`` (max, avg, sum
+and pnorm; global pooling with the JAX package's optional mask),
+``ZeroPaddingLayer`` and ``LocalResponseNormalization``, in eval and
+train mode (autograd,
 through cuDNN on the card, gives their backward; the JAX package leaves
 these to XLA too).
 
@@ -104,8 +105,8 @@ class ConvolutionLayer(Layer):
                                      dtype_policy().compute_dtype)
         return params["W"]
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self._no_dropout(train)
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self._maybe_dropout(x, train, rng)
         (kh, kw), stride, pad, dilation = self._dims()
         cdt = dtype_policy().compute_dtype
         x = x.to(cdt)
@@ -150,7 +151,7 @@ class SubsamplingLayer(Layer):
         w = _out_dim(input_type.width, kw, sw, pw, 1, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         kind = self.pooling_type.lower()
         if kind not in ("max", "avg", "sum", "pnorm"):
             raise ValueError(f"unknown pooling type {self.pooling_type}")
@@ -205,7 +206,7 @@ class ZeroPaddingLayer(Layer):
         return InputType.convolutional(input_type.height + t + b, input_type.width + l + r,
                                        input_type.channels)
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         t, b, l, r = self._pads()
         return F.pad(x, (0, 0, l, r, t, b)), state
 
@@ -231,7 +232,7 @@ class GlobalPoolingLayer(Layer):
             return InputType.feed_forward(input_type.size)
         return input_type
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         kind = self.pooling_type.lower()
         if kind not in ("max", "avg", "sum", "pnorm"):
             raise ValueError(f"unknown pooling type {self.pooling_type}")
@@ -255,3 +256,29 @@ class GlobalPoolingLayer(Layer):
         if kind == "sum":
             return (x * m).sum(dim=axes), state
         return ((x * m).abs() ** p).sum(dim=axes) ** (1.0 / p), state
+
+
+@register_layer("lrn")
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Local response normalization across the channels of NHWC input:
+    ``x / (k + alpha * sum)^beta``, the sum of x^2 over a window of ``n``
+    channels centred on each channel, zero-padded by ``n // 2`` (alpha is
+    not divided by n, unlike ``F.local_response_norm``).  DL4J's
+    defaults: k=2, n=5, alpha=1e-4, beta=0.75."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def has_params(self) -> bool:
+        return False
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        half, c = self.n // 2, x.shape[-1]
+        sq = F.pad(x * x, (half, half))
+        summed = sq[..., 0:c]
+        for i in range(1, self.n):
+            summed = summed + sq[..., i:i + c]
+        return x / (self.k + self.alpha * summed) ** self.beta, state

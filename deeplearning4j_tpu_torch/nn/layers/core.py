@@ -1,14 +1,15 @@
 """Core feed-forward layers (port of
 ``deeplearning4j_tpu/nn/layers/core.py``): ``DenseLayer``,
 ``OutputLayer`` (with its loss, ``compute_score_array``),
-``ActivationLayer`` and ``BatchNormalization`` (which the JAX package
-also keeps in its ``core.py``), in eval and train mode.
+``ActivationLayer``, ``DropoutLayer`` and ``BatchNormalization`` (which
+the JAX package also keeps in its ``core.py``), in eval and train mode.
 
 Dense weights keep the JAX layout ``W [nIn, nOut]``; the product is
 ``x @ W + b`` in the policy's compute dtype.  A quantized layer
 (``nn/quantize.py``: int8 ``W_q`` and f32 ``W_scale`` in place of ``W``)
-runs its product through ``ops.kernels.quant_matmul.int8_matmul``.  Not
-ported yet: dropout (a training pass with ``dropout`` set raises).
+runs its product through ``ops.kernels.quant_matmul.int8_matmul``.  A
+dense layer with ``dropout`` set drops its input on training passes
+(DL4J's retain probability, ``Layer._maybe_dropout``).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ class DenseLayer(Layer):
             params["b"] = self._init_bias((self.n_out,))
         return params
 
-    def pre_output(self, params, state, x, *, train=False):
-        self._no_dropout(train)
+    def pre_output(self, params, state, x, *, train=False, rng=None):
+        x = self._maybe_dropout(x, train, rng)
         policy = dtype_policy()
         quantized = "W_q" in params   # nn.quantize: per-channel int8 weights
         n_in = (params["W_q"] if quantized else params["W"]).shape[0]
@@ -66,8 +67,8 @@ class DenseLayer(Layer):
             y = y + params["b"].to(y.dtype)
         return y.to(policy.output_dtype)
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        z = self.pre_output(params, state, x, train=train)
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        z = self.pre_output(params, state, x, train=train, rng=rng)
         return activations.get(self.activation or "identity")(z), state
 
 
@@ -76,7 +77,8 @@ class DenseLayer(Layer):
 class OutputLayer(DenseLayer):
     """Dense + loss head; ``apply`` returns the activated output,
     ``compute_score_array`` pairs the pre-activation with the loss, and
-    ``apply_and_score`` (a training forward) does both from one product."""
+    ``apply_and_score`` (a training forward) does both from one product,
+    and so from one dropout mask."""
 
     loss: Any = "mcxent"
 
@@ -87,14 +89,16 @@ class OutputLayer(DenseLayer):
                 "RnnOutputLayer for per-timestep output")
         return InputType.feed_forward(self.n_out)
 
-    def compute_score_array(self, params, state, x, labels, *, train=False, mask=None):
+    def compute_score_array(self, params, state, x, labels, *, train=False, rng=None,
+                            mask=None):
         """Per-example loss."""
-        return self._score(self.pre_output(params, state, x, train=train), labels, mask)
+        return self._score(self.pre_output(params, state, x, train=train, rng=rng), labels,
+                           mask)
 
-    def apply_and_score(self, params, state, x, labels, *, train=False, mask=None):
+    def apply_and_score(self, params, state, x, labels, *, train=False, rng=None, mask=None):
         """``apply`` and ``compute_score_array`` from one pre-activation:
         ``(output, state, per-example loss)``."""
-        z = self.pre_output(params, state, x, train=train)
+        z = self.pre_output(params, state, x, train=train, rng=rng)
         y = activations.get(self.activation or "identity")(z)
         return y, state, self._score(z, labels, mask)
 
@@ -113,8 +117,21 @@ class ActivationLayer(Layer):
     def has_params(self) -> bool:
         return False
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return activations.get(self.activation or "identity")(x), state
+
+
+@register_layer("dropout")
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout; ``dropout`` is the retain probability, as in
+    DL4J."""
+
+    def has_params(self) -> bool:
+        return False
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return self._maybe_dropout(x, train, rng), state
 
 
 @register_layer("batch_norm")
@@ -124,7 +141,8 @@ class BatchNormalization(Layer):
     the batch's mean and biased variance (in at least f32) and returns the
     running statistics moved by ``decay`` (detached, values only); eval
     mode uses the running statistics.  Mean/var fold into a per-channel
-    scale/shift in f32, applied in x's own dtype."""
+    scale/shift in at least f32 (f64 under an f64 policy), applied in x's
+    own dtype."""
 
     decay: float = 0.9
     eps: float = 1e-5
@@ -148,7 +166,7 @@ class BatchNormalization(Layer):
         dt = self._param_dtype()
         return {"mean": torch.zeros(n, dtype=dt), "var": torch.ones(n, dtype=dt)}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         if train:
             axes = tuple(range(x.ndim - 1))
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -157,12 +175,13 @@ class BatchNormalization(Layer):
             state = {"mean": (self.decay * state["mean"] + (1.0 - self.decay) * mean).detach(),
                      "var": (self.decay * state["var"] + (1.0 - self.decay) * var).detach()}
         else:
-            mean, var = state["mean"].float(), state["var"].float()
-        scale = torch.rsqrt(var + self.eps)
-        shift = -mean * scale
+            mean, var = state["mean"], state["var"]
+        sdt = torch.promote_types(mean.dtype, torch.float32)
+        scale = torch.rsqrt(var.to(sdt) + self.eps)
+        shift = -mean.to(sdt) * scale
         if params:
-            gamma = params["gamma"].float()
+            gamma = params["gamma"].to(sdt)
             scale = scale * gamma
-            shift = shift * gamma + params["beta"].float()
+            shift = shift * gamma + params["beta"].to(sdt)
         y = x * scale.to(x.dtype) + shift.to(x.dtype)
         return activations.get(self.activation or "identity")(y), state

@@ -117,7 +117,7 @@ class FusedBottleneck(Layer):
             new_state[key] = (self.decay * state[key] + (1.0 - self.decay) * batch).detach()
         return mean, var
 
-    def apply(self, params, state, x, *, train=False, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         policy = dtype_policy()
         cdt = policy.compute_dtype
         sdt = torch.float64 if cdt == torch.float64 else torch.float32

@@ -1,14 +1,20 @@
 """MultiLayerNetwork — the linear-stack network (port of
-``deeplearning4j_tpu/nn/multilayer.py``): init and inference
-(``output``, ``feed_forward``), parameter count, deep copy and summary.
+``deeplearning4j_tpu/nn/multilayer.py``): init, inference (``output``,
+``feed_forward``), training (``fit``, through
+:class:`deeplearning4j_tpu_torch.train.Trainer`; ``score``), evaluation
+(``evaluate``, ``evaluate_regression``, ``evaluate_roc``), the flat
+parameter vector (``params``, ``set_params``), parameter count, deep copy
+and summary.
 
 Parameters and state are lists of per-layer dicts of tensors (the JAX
 package's layout: NHWC activations, HWIO conv kernels, dense
 ``W [nIn, nOut]``) on the net's device.  A post-training-quantized net
 (``nn/quantize.py``) is the same class with ``W_q``/``W_scale`` in place
-of ``W`` and ``quantized_ == "int8"``.  Not ported yet: ``fit``,
-``evaluate``, ``rnn_time_step``, ``save``/``load`` and recurrent layers
-(a configuration with tBPTT raises).
+of ``W`` and ``quantized_ == "int8"``.  Evaluation reads each batch's
+output back to the host once and accumulates in numpy
+(``deeplearning4j_tpu_torch.evaluation``).  Not ported yet:
+``trace_attrs``, ``rnn_time_step``, ``save``/``load`` and recurrent
+layers (a configuration with tBPTT raises).
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ class MultiLayerNetwork:
         self.state_: Optional[list] = None      # per-layer state dicts
         self.quantized_: Optional[str] = None   # "int8" after nn.quantize.quantize_net
         self.quantization_ = None               # its QuantizationReport
+        self.opt_state = None                   # the updater's state, once trained
+        self.iteration = 0
+        self.epoch = 0
+        self._score = float("nan")              # the last step's loss (a device scalar)
 
     # ------------------------------------------------------------- init
     def init(self, seed: Optional[int] = None, device: Any = None) -> "MultiLayerNetwork":
@@ -59,20 +69,33 @@ class MultiLayerNetwork:
     def num_params(self) -> int:
         return sum(t.numel() for d in self.params_ for t in d.values())
 
+    def params(self) -> torch.Tensor:
+        """The flat parameter vector (``MultiLayerNetwork.params()``) on the
+        net's device, in the JAX package's leaf order: layers in order,
+        each layer's keys sorted, each tensor raveled in C order."""
+        return flat_param_vector(self.params_, self.device)
+
+    def set_params(self, params: list) -> None:
+        """Replace the parameters with ``params``, a list of per-layer
+        dicts (tensors or arrays), placed on the net's device."""
+        self.params_ = [{k: self._as_tensor(v) for k, v in d.items()} for d in params]
+
     # ---------------------------------------------------------- forward
-    def _forward(self, params, state, x, *, train: bool = False, mask=None, labels=None):
+    def _forward(self, params, state, x, *, train: bool = False, rng=None, mask=None,
+                 labels=None):
         """Full forward pass; returns ``(output, new_state, score_array)``,
         the score array (per-example loss of the last layer) None without
-        labels."""
+        labels.  ``rng``, the step's stream, feeds each layer's dropout in
+        turn."""
         new_state, score_array = [], None
         last = len(self.layers) - 1
         for i, (layer, itype) in enumerate(zip(self.layers, self._types)):
             x = preprocessors.adapt_array(x, itype_before(self, i, self._types), layer)
             if i == last and labels is not None and hasattr(layer, "apply_and_score"):
                 x, s, score_array = layer.apply_and_score(params[i], state[i], x, labels,
-                                                          train=train, mask=mask)
+                                                          train=train, rng=rng, mask=mask)
             else:
-                x, s = layer.apply(params[i], state[i], x, train=train, mask=mask)
+                x, s = layer.apply(params[i], state[i], x, train=train, rng=rng, mask=mask)
             new_state.append(s)
         return x, new_state, score_array
 
@@ -97,6 +120,41 @@ class MultiLayerNetwork:
                 acts.append(x)
         return acts
 
+    # ---------------------------------------------------------- training
+    def score(self) -> float:
+        """The loss of the last training step (reading it waits for the
+        card)."""
+        return float(self._score)
+
+    def fit(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+        from deeplearning4j_tpu_torch.train.trainer import Trainer
+        Trainer(self).fit(iterator, epochs)
+        return self
+
+    # ---------------------------------------------------------- evaluation
+    def _accumulate(self, evaluation, iterator):
+        """Feed ``evaluation`` every batch's labels, output and labels mask,
+        each read back to the host once."""
+        for batch in iterator:
+            out = self.output(batch.features, mask=batch.features_mask)
+            evaluation.eval(to_host(batch.labels), to_host(out),
+                            mask=to_host(batch.labels_mask))
+        return evaluation
+
+    def evaluate(self, iterator, top_n: int = 1):
+        from deeplearning4j_tpu_torch.evaluation.classification import Evaluation
+        return self._accumulate(Evaluation(top_n=top_n), iterator)
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation.regression import RegressionEvaluation
+        return self._accumulate(RegressionEvaluation(), iterator)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        from deeplearning4j_tpu_torch.evaluation.roc import ROC, ROCMultiClass
+        n_out = self.conf.output_type().flat_size()
+        roc = ROC(threshold_steps) if n_out <= 2 else ROCMultiClass(threshold_steps)
+        return self._accumulate(roc, iterator)
+
     # ---------------------------------------------------------- misc
     def summary(self) -> str:
         lines = [f"{'idx':<4}{'type':<24}{'out shape':<20}{'params':<10}"]
@@ -116,6 +174,29 @@ class MultiLayerNetwork:
             net.params_ = [{k: t.clone() for k, t in d.items()} for d in self.params_]
             net.state_ = [{k: t.clone() for k, t in d.items()} for d in self.state_]
         return net
+
+
+def to_host(a):
+    """A tensor as a numpy array (bf16 widened to f32; numpy has no bf16);
+    anything else as it is."""
+    if not torch.is_tensor(a):
+        return a
+    a = a.detach().cpu()
+    return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+
+
+def flat_param_vector(params, device) -> torch.Tensor:
+    """Every leaf of a list of per-layer dicts or a dict of per-vertex
+    dicts, raveled (C order) and concatenated in JAX's leaf order: dict
+    keys sorted at every level, lists in order."""
+    def leaves(node):
+        if isinstance(node, dict):
+            return [leaf for k in sorted(node) for leaf in leaves(node[k])]
+        if isinstance(node, list):
+            return [leaf for item in node for leaf in leaves(item)]
+        return [node.reshape(-1)]
+    flat = leaves(params)
+    return torch.cat(flat) if flat else torch.zeros(0, device=device)
 
 
 def itype_before(net: MultiLayerNetwork, i: int, types: list) -> Any:

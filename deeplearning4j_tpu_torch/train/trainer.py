@@ -9,6 +9,12 @@ the config's updater (``train.updaters``) after the gradient
 normalization.  ``fit_batch`` returns the loss as a 0-dim tensor on the
 device without waiting for it; ``net.score()`` reads it.
 
+A step's random stream (dropout's masks) is a ``torch.Generator`` on the
+net's device.  ``fit`` makes one per call, seeded with ``conf.seed +
+7919`` as the JAX package seeds its key, so a run repeats bit for bit;
+``fit_batch`` without a generator draws from the trainer's own stream.
+The two packages' streams differ, so their masks do too.
+
 Not ported yet: parallel layouts, listeners, the compiled-step cache,
 the artifact store, resume from a checkpoint, and tBPTT.
 """
@@ -24,17 +30,21 @@ import torch
 from deeplearning4j_tpu_torch.config import resolve_device
 from deeplearning4j_tpu_torch.nn.losses import mean_score
 from deeplearning4j_tpu_torch.train import updaters as updater_mod
-from deeplearning4j_tpu_torch.train.updaters import tree_map
+from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+# the step stream's seed is the config's seed plus this (the JAX package's key)
+STREAM_SEED_OFFSET = 7919
 
 
 def make_loss_fn(net, train: bool = True):
-    """``(params, state, features, labels, features_mask, labels_mask) ->
-    (loss, new_state)``; ``train=False`` scores in inference mode (BN
-    uses its running statistics and leaves them)."""
+    """``(params, state, features, labels, features_mask, labels_mask, rng)
+    -> (loss, new_state)``, ``rng`` the step's stream (the layers draw
+    from it in order); ``train=False`` scores in inference mode (no
+    dropout; BN uses its running statistics and leaves them)."""
 
-    def loss_fn(params, state, features, labels, features_mask, labels_mask):
+    def loss_fn(params, state, features, labels, features_mask, labels_mask, rng=None):
         _, new_state, score_array = net._forward(params, state, features, train=train,
-                                                 mask=features_mask, labels=labels)
+                                                 rng=rng, mask=features_mask, labels=labels)
         if score_array is None:
             raise ValueError("the net has no output layer with a loss — use "
                              "OutputLayer as the final layer for fit()")
@@ -44,7 +54,8 @@ def make_loss_fn(net, train: bool = True):
             if labels_mask is not None:
                 score_array = score_array * labels_mask.reshape(score_array.shape)
             loss = score_array.sum()
-        for layer, p in zip(net.layers, net.layer_params(params)):
+        layer_params = net.layer_params(params) if hasattr(net, "layer_params") else params
+        for layer, p in zip(net.layers, layer_params):
             if p:
                 loss = loss + layer.regularization_penalty(p)
         return loss, new_state
@@ -72,6 +83,11 @@ class Trainer:
             net.init()
         self._loss = make_loss_fn(net, train=True)
         self._eval_loss = make_loss_fn(net, train=False)
+        self._stream: Optional[torch.Generator] = None
+
+    def _new_stream(self) -> torch.Generator:
+        return torch.Generator(device=self.net.device).manual_seed(
+            self.net.conf.seed + STREAM_SEED_OFFSET)
 
     def _place(self, batch):
         dev = self.net.device
@@ -86,24 +102,33 @@ class Trainer:
 
     def fit_batch(self, batch, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """One optimization step on one batch; returns the loss as a 0-dim
-        tensor on the device.  ``rng`` is the step's random stream (no
-        ported layer draws from it yet: dropout is not ported)."""
-        if rng is not None and not isinstance(rng, torch.Generator):
-            raise TypeError(f"rng must be a torch.Generator or None, got {type(rng).__name__}")
+        tensor on the device.  ``rng`` is the step's random stream, a
+        ``torch.Generator`` on the net's device (the trainer's own stream
+        when None): a generator elsewhere is refused, since drawing on
+        the host would copy every mask to the card."""
         net = self.net
+        if rng is None:
+            if self._stream is None:
+                self._stream = self._new_stream()
+            rng = self._stream
+        elif not isinstance(rng, torch.Generator):
+            raise TypeError(f"rng must be a torch.Generator or None, got {type(rng).__name__}")
+        elif rng.device.type != net.device.type:
+            raise ValueError(f"rng is a generator on {rng.device.type}, the net is on "
+                             f"{net.device.type}: make it with torch.Generator(device=...) "
+                             f"on the net's device")
         batch = self._place(batch)
         if net.opt_state is None:
             net.opt_state = self.updater.init(net.params_)
         params = tree_map(lambda p: p.detach().requires_grad_(True), net.params_)
-        names = [(v, k) for v, d in params.items() for k in d]
+        leaves = tree_leaves(params)
         with torch.enable_grad():
             loss, new_state = self._loss(params, net.state_, batch.features, batch.labels,
-                                         batch.features_mask, batch.labels_mask)
-            flat = torch.autograd.grad(loss, [params[v][k] for v, k in names],
-                                       allow_unused=True)
-        grads = {v: {} for v in params}
-        for (v, k), g in zip(names, flat):   # a param the loss never reads has no grad
-            grads[v][k] = torch.zeros_like(params[v][k]) if g is None else g
+                                         batch.features_mask, batch.labels_mask, rng)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a param the loss never reads has no grad
+        flat = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, flat)])
+        grads = tree_map(lambda _: next(flat), params)
         with torch.no_grad():
             updates, net.opt_state = self.updater.update(self._normalize(grads), net.opt_state)
             net.params_ = tree_map(lambda p, u: p + u, params, updates)
@@ -120,9 +145,11 @@ class Trainer:
         return loss
 
     def fit(self, iterator, epochs: int = 1):
-        """``epochs`` passes over ``iterator`` (reset before each); the
-        net's ``iteration``, ``epoch`` and score follow."""
+        """``epochs`` passes over ``iterator`` (reset before each), drawing
+        from a stream made anew from the config's seed; the net's
+        ``iteration``, ``epoch`` and score follow."""
         net = self.net
+        self._stream = self._new_stream()
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()

@@ -2,8 +2,9 @@
 
 Each updater is a dataclass with the JAX package's field names and JSON
 type name, and two plain tensor functions over a param tree: nested
-dicts of any depth with tensors at the leaves (a net's vertex -> name ->
-tensor; BERT's ``encoder/layer_N/attention/query/kernel``):
+dicts and lists of any depth with tensors at the leaves (a graph's vertex
+-> name -> tensor; a layer stack's list of per-layer dicts; BERT's
+``encoder/layer_N/attention/query/kernel``):
 
 - ``init(params) -> state``: a dict of trees (and counters);
 - ``update(grads, state) -> (updates, new_state)``: the step to add to
@@ -36,20 +37,26 @@ def register(name: str):
     return deco
 
 
-def tree_map(fn: Callable, *trees: dict) -> dict:
-    """``fn`` over the leaves of param-shaped trees: nested dicts of any
-    depth, the first tree's keys deciding the structure."""
-    return {k: tree_map(fn, *(t[k] for t in trees)) if isinstance(node, dict)
-            else fn(node, *(t[k] for t in trees[1:]))
-            for k, node in trees[0].items()}
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of param-shaped trees: nested dicts and lists
+    of any depth, the first tree's keys and lengths deciding the
+    structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *nodes) for nodes in zip(*trees)]
+    return fn(*trees)
 
 
-def tree_leaves(tree: dict) -> list:
-    """The leaves of a nested-dict tree, in its key order."""
-    out = []
-    for node in tree.values():
-        out.extend(tree_leaves(node) if isinstance(node, dict) else [node])
-    return out
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts and lists, in its key and list
+    order (``tree_map``'s order)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
+    return [tree]
 
 
 def to_dict(updater) -> dict:

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.data import DataSet
-from deeplearning4j_tpu_torch.models import resnet50, vgg16
+from deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DataSet
+from deeplearning4j_tpu_torch.models import (alexnet, lenet, mlp_mnist, resnet50, simple_cnn,
+                                             vgg16, vgg19)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models import BertConfig, BertForMaskedLM
@@ -48,7 +49,9 @@ def test_no_jax_or_jax_package_import(path):
 def test_no_jax_scan_covers_the_int8_slice():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("nn/conf.py", "nn/multilayer.py", "nn/quantize.py", "models/zoo.py",
-                   "ops/kernels/quant_matmul.py", "interop.py", "serve/engine.py"):
+                   "ops/kernels/quant_matmul.py", "interop.py", "serve/engine.py",
+                   "data/datasets.py", "evaluation/classification.py", "evaluation/roc.py",
+                   "evaluation/regression.py", "evaluation/calibration.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names
 
 
@@ -140,6 +143,47 @@ def test_cpu_bert_run_never_touches_the_kernel_loader(monkeypatch):
                        "label_weights": np.ones((1, 1024), np.float32)}])
     assert np.isfinite(loss)
     assert (flash_attention.launches, flash_attention.bwd_launches) == before
+
+
+
+@pytest.mark.parametrize("factory", [mlp_mnist, lenet, simple_cnn, alexnet, vgg19],
+                         ids=lambda f: f.__name__)
+def test_small_zoo_entries_default_to_the_card_and_raise_without_one(no_card, factory):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        factory()
+    assert factory(device="cpu").device == torch.device("cpu")
+
+
+def test_cpu_lenet_fit_never_touches_the_kernel_loader(monkeypatch):
+    """LeNet trains and evaluates on the CPU through plain torch ops: no
+    build, no launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    net = lenet(device="cpu").init()
+    net.fit(ArrayDataSetIterator(x, y, 4), 1)
+    assert net.iteration == 2 and np.isfinite(net.score())
+    assert net.evaluate(ArrayDataSetIterator(x, y, 4)).total == 8
+
+
+def test_dropout_step_on_a_card_net_refuses_a_host_generator(monkeypatch):
+    """A CUDA-placed net with dropout set takes its masks from a generator
+    on the card: a CPU generator is refused before anything is drawn."""
+    net = alexnet(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    net.device = torch.device("cuda")     # a net made where a card was
+    net.params_, net.state_ = [{} for _ in net.layers], [{} for _ in net.layers]
+    trainer = Trainer(net)
+    batch = DataSet(np.zeros((1, 224, 224, 3), np.float32), np.eye(1000, dtype=np.float32)[:1])
+    with pytest.raises(ValueError, match="generator on cpu"):
+        trainer.fit_batch(batch, torch.Generator())
+    with pytest.raises(TypeError, match="torch.Generator"):
+        trainer.fit_batch(batch, 0)
 
 
 class _StubLib:
