@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's ResNet-50 forward and training step, of
-its BERT fine-tune steps (bf16 and f32), of its int8 VGG-16 serving
-forward and of the MLP-MNIST and LeNet training steps goes on one CUDA
-card.
+its BERT fine-tune steps (bf16 and f32) and seq-128 headline step, of
+its int8 VGG-16 serving forward and of the MLP-MNIST and LeNet training
+steps goes on one CUDA card.
 
     python3 chip_profile.py
 
@@ -19,6 +19,10 @@ before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
   bf16 policy, flash attention, ``Adam(2e-5)``);
 - ``bert_finetune_step_f32``: the same step under the f32 policy (its own
   model and updater), where the flash kernels run three TF32 passes;
+- ``bert_headline_step_seq128``: one ``make_train_step`` step of BERT-base
+  MLM's seq-128 headline (``bench.py:181-230``: 12 layers, batch 32 x
+  128, ``max_predictions=32``, bf16 policy, ``Adam(2e-5,
+  mu_dtype="bf16")``; einsum attention, no kernel of this repo);
 - ``vgg16_int8_forward``: ``qnet.output`` of VGG-16 quantized by
   ``quantize_net``, on ``chip_smoke.VGG_BATCH`` images under the bf16
   serving policy (bf16 params, compute and outputs), its three dense
@@ -60,7 +64,7 @@ CATEGORIES = (
     ("flash_attention_bwd_split", ("fa_dq_f32_kernel", "fa_dq_bf16_kernel", "fa_dkv_f32_kernel",
                                    "fa_dkv_bf16_kernel")),
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")),
-    ("matmul", ("gemm", "cutlass", "xmma", "sm90")),
+    ("matmul", ("gemm", "cutlass", "xmma", "sm90", "nvjet")),
     ("softmax", ("softmax",)),
     ("copy", ("memcpy", "copy", "memset")),
     ("pooling", ("pool",)),
@@ -151,6 +155,25 @@ def main() -> int:
                              seed=0, device="cuda")
     adam32 = Adam(chip_smoke.BERT_TRAIN_LR)
     tokens = chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
+    set_policy = config.set_dtype_policy
+    set_policy(config.DTypePolicy.bf16())
+    try:       # the seq-128 headline's model, state and batch (chip_smoke phase 20)
+        head = BertForMaskedLM(chip_smoke.headline_config(), seed=0, device="cuda")
+        head_adam = Adam(chip_smoke.HEADLINE_LR, mu_dtype="bf16")
+        head_step = head.make_train_step(head_adam)
+        hb = chip_smoke.headline_batch(head.config.vocab_size)
+        head_args = [torch.as_tensor(hb[k], device="cuda").to(dt) for k, dt in
+                     (("input_ids", torch.long), ("labels", torch.long),
+                      ("label_weights", torch.float32), ("attention_mask", torch.float32))]
+        head_state = [head.params, head_adam.init(head.params)]
+        head_gen = torch.Generator(device="cuda").manual_seed(0)
+    finally:
+        set_policy(config.DTypePolicy.f32())
+
+    def headline_step():
+        head_state[0], head_state[1], loss = head_step(head_state[0], head_state[1],
+                                                       *head_args, head_gen)
+        return loss
     serving = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                                  output_dtype=torch.bfloat16)
 
@@ -184,6 +207,8 @@ def main() -> int:
                                         "tokens", bf16),
                  "bert_finetune_step_f32": (lambda: bert32.fit([bert_batch], updater=adam32),
                                             tokens, "tokens", f32),
+                 "bert_headline_step_seq128": (headline_step, chip_smoke.HEADLINE_SEQS
+                                               * chip_smoke.HEADLINE_SEQ, "tokens", bf16),
                  "vgg16_int8_forward": (lambda: qnet.output(images), chip_smoke.VGG_BATCH,
                                         "images", serving)}
     for name, (small_trainer, small_batch) in small.items():

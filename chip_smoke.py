@@ -167,7 +167,30 @@ no result line:
    at batch 2 against the CPU's; (d) ``vgg19``'s forward timed at batch 32
    and at batch 2 against the CPU's (each forward in f32 and in f64 on
    both devices, held as ``ZOO_FWD_TOL``'s comment says);
-20. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+20. BERT-base MLM's seq-128 headline at ``bench.py:181-230``'s
+   configuration: ``BertConfig.base()`` with ``max_predictions=32``, the
+   bf16 policy, batch 32 x 128, 12 layers, ``Adam(2e-5, mu_dtype="bf16")``,
+   its ids, labels and 15% weights from ``default_rng(0)`` and an all-ones
+   attention mask: 3 warm-up steps of ``make_train_step``, then 20 timed
+   (step ms, sequences/s, tokens/s, device time alone, busy share; no
+   flash launch: the einsum path), then 10 steps through ``fit`` (its
+   ``DeviceFeeder`` and ``ListenerBus``); at 2 layers and batch 4 (f32
+   policy, dropout 0, one set of weights) the card against the CPU:
+   step 0's loss and every gradient, Adam's bf16 mu within one bf16 ulp,
+   3 later losses; and the feeder's CUDA staging (a refilled host buffer,
+   a busy consumer: no batch overwritten in flight);
+21. the config-first encoder at BERT-base's width (an
+   ``EmbeddingSequenceLayer``, 4 blocks of ``SelfAttentionLayer(n_heads=12,
+   has_bias=True)``, residual adds, ``LayerNormalization``, Dense(3072,
+   gelu) -> Dense(768); average pooling, a 2-class softmax) at 2 x 4096
+   with a features mask, bf16 params and compute: one ``output`` with 4
+   forward flash launches, a warm-up and 3 timed ``Trainer.fit_batch``
+   steps with 4 forward and 4 backward launches each, a seq-512 call with
+   none; the same net in f32 through the kernels and through the flash
+   plain versions from one set of weights (served log probabilities,
+   step-0 loss and every param's gradient, phases 13-15's limits); an
+   ``AttentionVertex`` graph at 2 x 4096 (one launch per forward);
+22. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -3154,6 +3177,476 @@ def small_nets(card: str) -> dict:
     return out
 
 
+# ------------------------------------------ BERT-base MLM, the seq-128 headline
+HEADLINE_SEQ, HEADLINE_SEQS = 128, 32      # bench.py:181's batch and sequence
+HEADLINE_WARMUP, HEADLINE_TIMED, HEADLINE_FIT_STEPS = 3, 20, 10
+HEADLINE_LR, HEADLINE_MAX_PREDICTIONS = 2e-5, 32
+# card against the CPU, 2 layers, batch 4, f32 policy (TF32 off), dropout 0,
+# one set of weights: step 0's loss, relative; each param's step-0 gradient,
+# max |card - cpu| over max |cpu| (the small nets' SMALL_STEP0_TOL); Adam's
+# bf16 first moment per entry within one bf16 ulp of the CPU's, where the
+# card's updater runs on the CPU's gradients (the rounding order itself) and
+# after each device's own step (there an entry whose gradient is below the
+# gradient band may differ by the band: it is rounding noise on both
+# devices); the 3 later losses, relative
+HEADLINE_CHECK_LAYERS, HEADLINE_CHECK_SEQS = 2, 4
+HEADLINE_LOSS_TOL, HEADLINE_GRAD_TOL, HEADLINE_UPDATE_TOL = 1e-5, 1e-4, 1e-6
+FEEDER_BATCHES = 8
+
+
+def headline_config(**changes):
+    import dataclasses
+    from deeplearning4j_tpu_torch.models import BertConfig
+    return dataclasses.replace(BertConfig.base(), max_predictions=HEADLINE_MAX_PREDICTIONS,
+                               **changes)
+
+
+def headline_batch(vocab: int) -> dict:
+    """bench.py's seq-128 batch: ids, labels and 15% weights from
+    ``default_rng(0)``, an all-ones attention mask."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shape = (HEADLINE_SEQS, HEADLINE_SEQ)
+    ids = rng.integers(0, vocab, shape)
+    labels = rng.integers(0, vocab, shape)
+    weights = (rng.random(shape) < 0.15).astype(np.float32)
+    return {"input_ids": ids, "labels": labels, "label_weights": weights,
+            "attention_mask": np.ones(shape, np.float32)}
+
+
+def bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of |want| (at least the smallest normal's),
+    per entry, as an f32 tensor."""
+    import torch
+    want = want.float()
+    _, exp = torch.frexp(want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    return (got.float() - want).abs() / torch.ldexp(torch.ones_like(want), exp - 8)
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The key path of each leaf of a nested dict, in ``tree_leaves``'
+    order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def headline_check(card: str) -> dict:
+    """Phase 20's card-against-CPU check of the headline's step at 2 layers
+    and batch 4 (f32 policy, dropout 0, one set of weights)."""
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM, bert
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+    cfg = headline_config(num_layers=HEADLINE_CHECK_LAYERS, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    data = {k: v[:HEADLINE_CHECK_SEQS] for k, v in headline_batch(cfg.vocab_size).items()}
+    config.set_dtype_policy(config.DTypePolicy.f32())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = BertForMaskedLM(cfg, seed=0, device=dev)
+        args = [torch.as_tensor(data[k], device=dev).to(dt) for k, dt in
+                (("input_ids", torch.long), ("labels", torch.long),
+                 ("label_weights", torch.float32), ("attention_mask", torch.float32))]
+        params = tree_map(lambda p: p.detach().requires_grad_(True), model.params)
+        loss = bert.mlm_loss(params, cfg, args[0], args[1], args[2], attention_mask=args[3],
+                             train=True)
+        grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+        updater = Adam(HEADLINE_LR, mu_dtype="bf16")
+        step = model.make_train_step(updater)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p, state, losses = model.params, updater.init(model.params), []
+        for i in range(4):
+            p, state, step_loss = step(p, state, *args, gen)
+            losses.append(step_loss.item())
+            if i == 0:
+                mu0 = state["mu"]
+        runs[dev] = {"loss": loss.item(), "grads": [None if g is None else g.detach()
+                                                     for g in grads],
+                     "mu0": tree_leaves(mu0), "losses": losses, "params": model.params}
+    card_run, cpu = runs["cuda"], runs["cpu"]
+    names = leaf_names(cpu["params"])
+    loss_err = abs(card_run["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    # softmax ignores a shift of a row's scores: a key bias's gradient is
+    # zero but for rounding on both devices, held against its layer's value
+    # bias gradient and left out of the per-entry checks (as phase 15 does)
+    grad_errs, key_bias = {}, 0.0
+    for name, g, w in zip(names, card_run["grads"], cpu["grads"]):
+        if w is None:
+            continue
+        if name.endswith("key/bias"):
+            ref = cpu["grads"][names.index(name.replace("key/bias", "value/bias"))].norm()
+            key_bias = max(key_bias, max(g.norm().item(), w.norm().item()) / ref.item())
+            continue
+        grad_errs[name] = ((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    worst = max(grad_errs.items(), key=lambda kv: kv[1])
+    # the rounding order alone: the card's updater on the CPU's gradients
+    updater = Adam(HEADLINE_LR, mu_dtype="bf16")
+    g_cpu = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(tree_leaves(cpu["params"]), cpu["grads"])]
+    on_card = updater.update([g.cuda() for g in g_cpu], updater.init([g.cuda() for g in g_cpu]))
+    on_cpu = updater.update(g_cpu, updater.init(g_cpu))
+    rounding_ulps = max(bf16_ulps(m.cpu(), w).max().item()
+                        for m, w in zip(on_card[1]["mu"], on_cpu[1]["mu"]))
+    update_err = max(((u.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                     for u, w in zip(on_card[0], on_cpu[0]))
+    # after each device's own step 0
+    step_ulps, noise = 0.0, 0
+    for name, m, w, g in zip(names, card_run["mu0"], cpu["mu0"], g_cpu):
+        if name.endswith("key/bias") or not g.abs().max() > 0:
+            continue
+        ulps = bf16_ulps(m.cpu(), w)
+        band = 0.1 * HEADLINE_GRAD_TOL * g.abs().max()   # mu = 0.1 g at step 0
+        below = (m.cpu().float() - w.float()).abs() <= band
+        step_ulps = max(step_ulps, ulps[~below].max().item() if (~below).any() else 0.0)
+        noise += int(((ulps > 1) & below).sum())
+    later = [abs(a - b) / abs(b) for a, b in zip(card_run["losses"][1:], cpu["losses"][1:])]
+    result = {"layers": HEADLINE_CHECK_LAYERS, "seqs": HEADLINE_CHECK_SEQS,
+              "loss0": card_run["loss"], "loss0_cpu": cpu["loss"], "loss0_rel_err": loss_err,
+              "grad_rel_err_max": worst[1], "grad_rel_err_worst": worst[0],
+              "key_bias_grad_max": key_bias, "mu_rounding_ulps_max": rounding_ulps,
+              "update_rel_err_max": update_err, "mu_step0_ulps_max": step_ulps,
+              "mu_step0_noise_entries": noise, "losses": card_run["losses"],
+              "losses_cpu": cpu["losses"], "later_loss_rel_errs": later}
+    log(f"seq-128 headline check, card vs CPU ({HEADLINE_CHECK_LAYERS} layers, batch "
+        f"{HEADLINE_CHECK_SEQS}, f32, dropout 0) on {card}: step-0 loss {loss_err:.2e} rel, "
+        f"gradients {worst[1]:.2e} ({worst[0]}; key biases {key_bias:.1e} of the value "
+        f"bias's), bf16 mu on the CPU's gradients {rounding_ulps:.0f} "
+        f"ulp (updates {update_err:.2e}), mu after each device's step 0 {step_ulps:.0f} ulp "
+        f"({noise} entries past 1 ulp inside the gradient band), later losses "
+        f"{max(later):.2e} rel")
+    if not (loss_err <= HEADLINE_LOSS_TOL and worst[1] <= HEADLINE_GRAD_TOL
+            and key_bias <= 1e-2 and rounding_ulps <= 1 and update_err <= HEADLINE_UPDATE_TOL and step_ulps <= 1
+            and max(later) <= HEADLINE_LOSS_TOL):
+        raise AssertionError(f"seq-128 headline check failed: {result}")
+    return result
+
+
+def feeder_check(card: str) -> dict:
+    """The feeder's CUDA staging: an iterator that refills one host buffer
+    for every batch, a consumer that keeps the card busy before it reads
+    each batch and holds them all; every batch keeps its own values."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.device_pipeline import DeviceFeeder
+    buf = np.zeros((HEADLINE_SEQS, HEADLINE_SEQ), np.int64)
+
+    def refilled():
+        for i in range(FEEDER_BATCHES):
+            buf[:] = i
+            yield {"input_ids": buf}
+
+    feeder = DeviceFeeder(depth=2, bucketing=False, device="cuda")
+    busy = torch.randn(4096, 4096, device="cuda")
+    held = []
+    for fed in feeder.feed(refilled()):
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy * 1e-3)   # the consumer's stream is busy
+        held.append(fed.batch["input_ids"] + 0)
+    torch.cuda.synchronize()
+    values = [(int(t.min()), int(t.max())) for t in held]
+    ok = (values == [(i, i) for i in range(FEEDER_BATCHES)] and feeder.slots >= 2
+          and all(t.is_cuda for t in held))
+    log(f"DeviceFeeder on {card}: {FEEDER_BATCHES} batches through a ring of {feeder.slots} "
+        f"page-locked slots and a side stream, each batch's (min, max) {values}")
+    if not ok:
+        raise AssertionError(f"the feeder overwrote a batch in flight: {values}")
+    return {"batches": FEEDER_BATCHES, "slots": feeder.slots, "values": values}
+
+
+def bert_headline(card: str) -> dict:
+    """Phase 20: BERT-base MLM's seq-128 headline at bench.py:181-230's
+    configuration on the card (einsum attention, no flash launch), its
+    check against the CPU, and the feeder's staging."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        cfg = headline_config()
+        model = BertForMaskedLM(cfg, seed=0, device="cuda")
+        batch = headline_batch(cfg.vocab_size)
+        args = [torch.as_tensor(batch[k], device="cuda").to(dt) for k, dt in
+                (("input_ids", torch.long), ("labels", torch.long),
+                 ("label_weights", torch.float32), ("attention_mask", torch.float32))]
+        updater = Adam(HEADLINE_LR, mu_dtype="bf16")
+        step = model.make_train_step(updater)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = [model.params, updater.init(model.params)]
+
+        def run():
+            state[0], state[1], loss = step(state[0], state[1], *args, gen)
+            return loss
+
+        for _ in range(HEADLINE_WARMUP):
+            loss = run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        for _ in range(HEADLINE_TIMED):
+            loss = run()
+        last = loss.item()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / HEADLINE_TIMED
+        launches = (fa.launches, fa.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the same steps, each read back as fit reads its loss (no feeder)
+        t0 = time.perf_counter()
+        for _ in range(HEADLINE_FIT_STEPS):
+            run().item()
+        sync_s = (time.perf_counter() - t0) / HEADLINE_FIT_STEPS
+        dev = device_ms(run)
+        mu_bf16 = all(m.dtype == torch.bfloat16 for m in tree_leaves(state[1]["mu"]))
+        fit_model = BertForMaskedLM(cfg, seed=0, device="cuda")
+        watch = StepWatch()
+        fit_loss = fit_model.fit([batch] * HEADLINE_FIT_STEPS,
+                                 updater=Adam(HEADLINE_LR, mu_dtype="bf16"), listeners=[watch])
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    if launches != (0, 0) or any(c != (0, 0) for c in watch.launches):
+        raise AssertionError(f"the seq-128 headline launched flash kernels: {launches}, "
+                             f"fit {watch.launches}")
+    if not (np.isfinite(last) and np.isfinite(fit_loss) and mu_bf16):
+        raise AssertionError(f"seq-128 headline: loss {last}, fit loss {fit_loss}, "
+                             f"bf16 mu {mu_bf16}")
+    tokens = HEADLINE_SEQS * HEADLINE_SEQ
+    fit_s = float(np.mean(watch.seconds[1:]))
+    result = {"card": card, "policy": "bf16", "layers": cfg.num_layers, "seqs": HEADLINE_SEQS,
+              "seq": HEADLINE_SEQ, "max_predictions": cfg.max_predictions,
+              "updater": f"adam({HEADLINE_LR}, mu_dtype=bf16)", "params": model.num_params(),
+              "flash_launches": launches, "warmup_steps": HEADLINE_WARMUP,
+              "timed_steps": HEADLINE_TIMED, "step_ms": step_s * 1e3,
+              "sequences_per_s": HEADLINE_SEQS / step_s, "tokens_per_s": tokens / step_s,
+              "device_ms": dev, "busy_share": dev / (step_s * 1e3), "last_loss": last,
+              "peak_memory_gib": peak, "fit_steps": HEADLINE_FIT_STEPS,
+              "fit_step_ms": fit_s * 1e3, "fit_tokens_per_s": tokens / fit_s,
+              "synced_step_ms": sync_s * 1e3,
+              "fit_losses": watch.losses}
+    log(f"BERT-base MLM seq-128 headline on {card}: bf16, {cfg.num_layers} layers, batch "
+        f"{HEADLINE_SEQS} x {HEADLINE_SEQ}, max_predictions {cfg.max_predictions}, "
+        f"Adam({HEADLINE_LR}, mu_dtype=bf16): step {result['step_ms']:.2f} ms over "
+        f"{HEADLINE_TIMED} steps after {HEADLINE_WARMUP} warm-ups "
+        f"({result['sequences_per_s']:.1f} sequences/s, {result['tokens_per_s']:.0f} "
+        f"tokens/s), device time {dev:.2f} ms, busy {result['busy_share']:.1%}; flash "
+        f"launches {launches}; peak memory {peak:.2f} GiB; through fit (DeviceFeeder, "
+        f"ListenerBus) {result['fit_step_ms']:.2f} ms a step over {HEADLINE_FIT_STEPS - 1} "
+        f"steps after the first, make_train_step reading each loss {sync_s * 1e3:.2f} ms; last "
+        f"loss {last:.4f}")
+    result["check"] = headline_check(card)
+    result["feeder"] = feeder_check(card)
+    return result
+
+
+# ------------------------------ the config-first encoder through the flash kernels
+STACK_BLOCKS, STACK_CLASSES, STACK_STEPS, STACK_LR = 4, 2, 3, 1e-4
+STACK_VALID = (BERT_SEQ, 3000)     # the features mask's valid lengths
+# the encoder in f32 through the kernels against the flash plain versions,
+# one set of weights, held to phases 13-15's limits: the served log
+# probabilities at BERT_SERVE_TOL (5e-5, max |diff|), the step-0 loss at
+# BERT_LOSS0_TOL (1e-5 relative), each param's step-0 gradient at
+# BERT_UPDATE_TOL (5e-3 relative, in norm); the key biases, whose gradient
+# is zero but for rounding, at 1e-2 of their block's value-bias gradient
+# (read on the H100: 1.2e-7, 0, 1.4e-5 and 3.9e-7)
+
+
+def stack_conf():
+    """BERT-base's width as a config-first ComputationGraph: a token
+    embedding, ``STACK_BLOCKS`` transformer blocks (self attention with biases,
+    residual add, layer norm, Dense(3072, gelu) -> Dense(768), add, layer
+    norm), average pooling and a 2-class softmax."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+    from deeplearning4j_tpu_torch.train import Adam
+    g = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(STACK_LR)).graph()
+         .add_inputs("ids").set_input_types(InputType.recurrent(1, BERT_SEQ))
+         .add_layer("emb", L.EmbeddingSequenceLayer(n_in=30522, n_out=768), "ids"))
+    prev = "emb"
+    for i in range(STACK_BLOCKS):
+        g = (g.add_layer(f"att{i}", L.SelfAttentionLayer(n_heads=12, has_bias=True), prev)
+             .add_vertex(f"res{i}a", ElementWiseVertex(op="add"), prev, f"att{i}")
+             .add_layer(f"ln{i}a", L.LayerNormalization(), f"res{i}a")
+             .add_layer(f"ff{i}", L.DenseLayer(n_out=3072, activation="gelu"), f"ln{i}a")
+             .add_layer(f"proj{i}", L.DenseLayer(n_out=768), f"ff{i}")
+             .add_vertex(f"res{i}b", ElementWiseVertex(op="add"), f"ln{i}a", f"proj{i}")
+             .add_layer(f"ln{i}b", L.LayerNormalization(), f"res{i}b"))
+        prev = f"ln{i}b"
+    return (g.add_layer("pool", L.GlobalPoolingLayer(pooling_type="avg"), prev)
+            .add_layer("out", L.OutputLayer(n_out=STACK_CLASSES, activation="softmax",
+                                            loss="mcxent"), "pool")
+            .set_outputs("out").build())
+
+
+def vertex_conf():
+    """Three Dense projections into ``AttentionVertex(n_heads=12)``, pooled
+    into a 2-class softmax."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.vertices import AttentionVertex
+    g = (NeuralNetConfiguration.builder().seed(SEED).graph()
+         .add_inputs("x").set_input_types(InputType.recurrent(768, BERT_SEQ)))
+    for name in ("q", "k", "v"):
+        g = g.add_layer(name, L.DenseLayer(n_out=768), "x")
+    return (g.add_vertex("attn", AttentionVertex(n_heads=12), "q", "k", "v")
+            .add_layer("pool", L.GlobalPoolingLayer(pooling_type="avg"), "attn")
+            .add_layer("out", L.OutputLayer(n_out=STACK_CLASSES, activation="softmax"), "pool")
+            .set_outputs("out").build())
+
+
+def stack_batch():
+    """Seeded ids [2, 4096, 1], one-hot labels and a features mask of
+    valid lengths ``STACK_VALID``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 40)
+    ids = rng.integers(0, 30522, (BERT_BATCH, BERT_SEQ, 1)).astype(np.float32)
+    labels = np.eye(STACK_CLASSES, dtype=np.float32)[rng.integers(0, STACK_CLASSES, BERT_BATCH)]
+    mask = (np.arange(BERT_SEQ)[None] < np.array(STACK_VALID)[:, None]).astype(np.float32)
+    return ids, labels, mask
+
+
+def graph_step0(net, batch):
+    """One forward and backward of ``Trainer.fit_batch``'s loss (no
+    update): the loss, each param's gradient, and the flash launches."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.train.trainer import make_loss_fn
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+    batch = Trainer(net)._place(batch)
+    params = tree_map(lambda p: p.detach().requires_grad_(True), net.params_)
+    fa.launches = fa.bwd_launches = 0
+    loss, _ = make_loss_fn(net)(params, net.state_, batch.features, batch.labels,
+                                batch.features_mask, batch.labels_mask)
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    names = [f"{v}.{k}" for v, d in params.items() for k in d]
+    return loss.item(), dict(zip(names, grads)), (fa.launches, fa.bwd_launches)
+
+
+def attention_stack(card: str) -> dict:
+    """Phase 21: the config-first encoder at BERT-base's width through the
+    flash kernels, and the AttentionVertex graph."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.train import Trainer
+
+    ids, labels, mask = stack_batch()
+    x, m = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    batch = DataSet(x, torch.from_numpy(labels).cuda(), m)
+    # bf16 throughout: with the bf16 policy's f32 params the attention's q,
+    # k, v promote to f32, as in JAX; bf16 params keep them bf16
+    bf16 = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                              output_dtype=torch.bfloat16)
+    config.set_dtype_policy(bf16)
+    try:
+        net = ComputationGraph(stack_conf(), device="cuda").init()
+        net.output(x, mask=m)
+        torch.cuda.synchronize()
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        out = net.output(x, mask=m)
+        torch.cuda.synchronize()
+        out_ms = (time.perf_counter() - t0) * 1e3
+        out_launches = (fa.launches, fa.bwd_launches)
+        trainer = Trainer(net)
+        losses, step_launches, seconds = [], [], []
+        for _ in range(1 + STACK_STEPS):          # a warm-up step, then the timed ones
+            fa.launches = fa.bwd_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.fit_batch(batch).item())
+            seconds.append(time.perf_counter() - t0)
+            step_launches.append((fa.launches, fa.bwd_launches))
+        fa.launches = fa.bwd_launches = 0
+        short = net.output(x[:, :512], mask=m[:, :512])
+        short_launches = fa.launches + fa.bwd_launches
+        vnet = ComputationGraph(vertex_conf(), device="cuda").init()
+        xv = torch.randn(BERT_BATCH, BERT_SEQ, 768, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED))
+        vnet.output(xv)
+        fa.launches = fa.bwd_launches = 0
+        vout = vnet.output(xv)
+        vertex_launches = (fa.launches, fa.bwd_launches)
+        bf16_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (BERT_BATCH, STACK_CLASSES)
+                   and bool(torch.isfinite(out.float()).all())
+                   and bool(torch.isfinite(vout.float()).all()) and tuple(short.shape) ==
+                   (BERT_BATCH, STACK_CLASSES))
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    want = (STACK_BLOCKS, 0)
+    if (out_launches != want or any(c != (STACK_BLOCKS, STACK_BLOCKS) for c in step_launches)
+            or short_launches or vertex_launches != (1, 0)):
+        raise AssertionError(f"config-first encoder flash launches: output {out_launches}, "
+                             f"steps {step_launches}, seq 512 {short_launches}, "
+                             f"AttentionVertex {vertex_launches}")
+    if not (bf16_ok and np.isfinite(losses).all()):
+        raise AssertionError(f"config-first encoder bf16: output {out}, losses {losses}")
+    del net, trainer, vnet
+
+    # f32 (TF32 off), one set of weights: through the kernels and through the
+    # flash plain versions
+    net = ComputationGraph(stack_conf(), device="cuda").init()
+    served = torch.log(net.output(x, mask=m))
+    loss, grads, f32_launches = graph_step0(net, batch)
+    with plain_flash():
+        fa.launches = 0
+        served_plain = torch.log(net.output(x, mask=m))
+        loss_plain, grads_plain, plain_launches = graph_step0(net, batch)
+    if f32_launches != (STACK_BLOCKS, STACK_BLOCKS) or plain_launches != (0, 0):
+        raise AssertionError(f"f32 encoder launches {f32_launches}, plain {plain_launches}")
+    served_err = (served - served_plain).abs().max().item()
+    loss_err = abs(loss - loss_plain) / abs(loss_plain)
+    errs, key_bias = {}, {}
+    for name, g in grads.items():
+        w = grads_plain[name]
+        if name.endswith(".bk"):
+            # softmax ignores a shift of a row's scores: the key bias's
+            # gradient is zero but for rounding, held against its block's
+            # value-bias gradient
+            ref = grads_plain[name[:-1] + "v"].norm()
+            key_bias[name] = max(g.norm().item(), w.norm().item()) / ref.item()
+            continue
+        errs[name] = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    result = {"card": card, "blocks": STACK_BLOCKS, "batch": BERT_BATCH, "seq": BERT_SEQ,
+              "valid_lengths": STACK_VALID, "params": net.num_params(),
+              "bf16_output_ms": out_ms, "bf16_output_launches": out_launches,
+              "bf16_losses": losses, "bf16_step_launches": step_launches,
+              "bf16_step_s": seconds, "bf16_step_ms": float(np.mean(seconds[1:])) * 1e3,
+              "seq512_launches": short_launches, "vertex_launches": vertex_launches,
+              "f32_launches": f32_launches, "served_log_prob_err": served_err,
+              "loss0": loss, "loss0_plain": loss_plain, "loss0_rel_err": loss_err,
+              "grad_rel_err_max": worst[1], "grad_rel_err_worst": worst[0],
+              "grad_rel_err_median": float(np.median(list(errs.values()))),
+              "key_bias_grad_max": max(key_bias.values())}
+    log(f"config-first encoder on {card}: {STACK_BLOCKS} blocks at BERT-base's width, batch "
+        f"{BERT_BATCH} x {BERT_SEQ} (valid {STACK_VALID}), {net.num_params()} params; bf16: "
+        f"output {out_ms:.1f} ms with (forward, backward) flash launches {out_launches}, "
+        f"Trainer.fit_batch {result['bf16_step_ms']:.1f} ms a step over {STACK_STEPS} after a "
+        f"warm-up, launches {step_launches}, losses {losses}; seq 512: {short_launches} "
+        f"launches; AttentionVertex graph {vertex_launches}; f32 kernels vs plain: served "
+        f"log-probabilities {served_err:.2e}, step-0 loss {loss_err:.2e} rel, gradients "
+        f"{worst[1]:.2e} ({worst[0]}; median {result['grad_rel_err_median']:.2e}), key-bias "
+        f"gradients {result['key_bias_grad_max']:.1e} of the value bias's")
+    if not (served_err <= BERT_SERVE_TOL["float32"] and loss_err <= BERT_LOSS0_TOL
+            and worst[1] <= BERT_UPDATE_TOL and result["key_bias_grad_max"] <= 1e-2):
+        raise AssertionError(f"config-first encoder f32, kernels vs plain: {result}")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--times"]:           # one run of the A/B call, in the tree given
         sys.path.insert(0, sys.argv[2])
@@ -3284,6 +3777,10 @@ def main() -> int:
     vgg = vgg_serve(card)
     torch.cuda.empty_cache()
     small = small_nets(card)
+    torch.cuda.empty_cache()
+    headline128 = bert_headline(card)
+    torch.cuda.empty_cache()
+    stack = attention_stack(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3332,12 +3829,14 @@ def main() -> int:
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:33", flash_rows, "",
                     flash_launches[0], flash_work)
         | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16")),
+           "config_first_launches_per_forward": stack["bf16_output_launches"][0],
            "sass": hopper["flash_attention_fwd"]},
         flash_entry("flash_attention_bwd",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
                     flash_launches[1], flash_work)
-        | {"sass": hopper["flash_attention_bwd"], "merged_scratch_bytes": scratch},
+        | {"sass": hopper["flash_attention_bwd"], "merged_scratch_bytes": scratch,
+           "config_first_launches_per_step": stack["bf16_step_launches"][-1][1]},
         flash_entry("flash_attention_bwd_split",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd_split.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:266", flash_rows, "split_",
@@ -3376,7 +3875,7 @@ def main() -> int:
          "flash_long": long_rows, "bert_serve_heads": bert_heads, "flash_sass": hopper,
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
-         "small_nets": small,
+         "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -13,9 +13,14 @@ while q, k, v are bf16, so attention runs in bf16.  From sequence 1024 on
 
 :class:`BertForMaskedLM` serves (``predict_mlm``) and fine-tunes (``fit``)
 on the CUDA card unless it is given ``device="cpu"``.  Dropout draws from
-an explicit ``torch.Generator``; its numbers differ from JAX's.  Not
-ported yet: the device feeder and observability of ``fit``, and the
-pipeline-parallel stages.
+an explicit ``torch.Generator``; its numbers differ from JAX's.  ``fit``
+stages each batch through ``data.device_pipeline.DeviceFeeder`` (batch
+N+1 crosses to the card while step N runs) and reports every step
+through an ``obs.listeners.ListenerBus``.  :func:`pipeline_stages` splits
+the model into stage functions for a pipeline-parallel step, with
+:func:`merge_tied_embedding_grads` and :func:`mlm_loss_from_logits`
+beside them; the pipeline schedule itself (``parallel/``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -247,6 +252,72 @@ def mlm_loss(params: dict, config: BertConfig, input_ids, labels, label_weights,
     return _weighted_mlm_ce(mlm_logits(params, config, hidden), labels, label_weights)
 
 
+def pipeline_stages(config: BertConfig, params: dict, n_stages: int):
+    """Split the MLM model into ``n_stages`` pipeline stages: stage 0
+    owns the embeddings and the first encoder layers, the middle stages
+    their layers, the last stage its layers and the MLM head, whose tied
+    decode uses a copy of the word embeddings (``decode_embeddings``;
+    :func:`merge_tied_embedding_grads` keeps the two tied under
+    training).  Returns ``(stage_fns, stage_params)``; ``fn(p, h)`` runs
+    one stage in inference mode.  Stage 0's input is ``input_ids`` as
+    float32 ([B, T]), the last stage's output the MLM logits ([B, T, V],
+    f32)."""
+    n_layers = config.num_layers
+    if n_stages < 2 or n_layers % n_stages:
+        raise ValueError(f"{n_layers} layers not divisible into {n_stages} stages")
+    per = n_layers // n_stages
+    stage_params, stage_fns = [], []
+    for s in range(n_stages):
+        sp = {"layers": {f"layer_{i}": params["encoder"][f"layer_{i}"]
+                         for i in range(s * per, (s + 1) * per)}}
+        if s == 0:
+            sp["embeddings"] = params["embeddings"]
+        if s == n_stages - 1:
+            sp["mlm"] = params["mlm"]
+            sp["decode_embeddings"] = params["embeddings"]["word_embeddings"]
+        stage_params.append(sp)
+
+        def fn(p, h, s=s):
+            x = embed(p, config, h.detach().to(torch.int32)) if s == 0 else h
+            for i in range(s * per, (s + 1) * per):
+                x = encoder_layer(p["layers"][f"layer_{i}"], config, x)
+            if s < n_stages - 1:
+                return x
+            y = _gelu(_dense(p["mlm"]["transform"], x))
+            y = _layer_norm(p["mlm"]["transform_layer_norm"], y, config.layer_norm_eps)
+            policy = dtype_policy()
+            logits = torch.matmul(y.to(policy.compute_dtype),
+                                  p["decode_embeddings"].to(policy.compute_dtype).t())
+            logits = logits + p["mlm"]["output_bias"].to(logits.dtype)
+            return logits.to(torch.float32)
+
+        stage_fns.append(fn)
+    return stage_fns, stage_params
+
+
+def merge_tied_embedding_grads(stage_grads):
+    """Re-tie the pipelined decode weights to stage 0's embedding table:
+    the sum of the two gradients (stage 0's ``embeddings/word_embeddings``
+    and the last stage's ``decode_embeddings``) goes into both leaves, so
+    that under any per-leaf updater the two copies, equal at the start,
+    stay equal.  Returns a tuple of the stages' gradient trees."""
+    grads = list(stage_grads)
+    first, last = dict(grads[0]), dict(grads[-1])
+    emb = dict(first["embeddings"])
+    total = emb["word_embeddings"] + last["decode_embeddings"]
+    emb["word_embeddings"] = total
+    first["embeddings"] = emb
+    last["decode_embeddings"] = total
+    grads[0], grads[-1] = first, last
+    return tuple(grads)
+
+
+def mlm_loss_from_logits(logits, packed_labels):
+    """Loss head of the pipelined model: ``packed_labels`` [B, T, 2] holds
+    (labels, label_weights) on its last axis."""
+    return _weighted_mlm_ce(logits, packed_labels[..., 0], packed_labels[..., 1])
+
+
 class BertForMaskedLM:
     """BERT MLM workload: its params, serving and fine-tuning on one
     device (the card unless ``device="cpu"``)."""
@@ -293,9 +364,14 @@ class BertForMaskedLM:
         """Fine-tune over ``batches`` (dicts of ``input_ids``, ``labels``,
         ``label_weights`` and optionally ``attention_mask``, as
         ``BertIterator`` yields them) for ``epochs``, with ``updater``
-        (default ``Adam(2e-5)``).  Each listener's
-        ``iteration_done(model, iteration, epoch, score)`` is called after
-        every step.  Returns the last loss."""
+        (default ``Adam(2e-5)``).  Batches reach the device through a
+        ``DeviceFeeder`` (no bucketing: they are fixed-shape); after every
+        step ``iteration_done(model, iteration, epoch, score)`` goes
+        through ``listeners``, a ``ListenerBus`` or a list.  Returns the
+        last loss."""
+        from deeplearning4j_tpu_torch.data.device_pipeline import DeviceFeeder
+        from deeplearning4j_tpu_torch.obs.listeners import ListenerBus
+        bus = listeners if isinstance(listeners, ListenerBus) else ListenerBus(listeners)
         updater = updater or updater_mod.Adam(2e-5)
         if self.opt_state is None:
             self.opt_state = updater.init(self.params)
@@ -303,18 +379,25 @@ class BertForMaskedLM:
             self._step = self.make_train_step(updater)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 31)
         last = float("nan")
+
+        def _place(batch):
+            """Host tensors of the step's dtypes; the feeder stages them."""
+            attn = batch.get("attention_mask")
+            return (torch.as_tensor(batch["input_ids"]).long(),
+                    torch.as_tensor(batch["labels"]).long(),
+                    torch.as_tensor(batch["label_weights"]).float(),
+                    None if attn is None else torch.as_tensor(attn).float())
+
+        feeder = DeviceFeeder(_place, bucketing=False, device=self.device)
         for epoch in range(epochs):
             if hasattr(batches, "reset"):
                 batches.reset()
-            for batch in batches:
+            for fed in feeder.feed(batches):
+                ids, labels, weights, attn = fed.batch
                 self.params, self.opt_state, loss = self._step(
-                    self.params, self.opt_state, self._tensor(batch["input_ids"], torch.long),
-                    self._tensor(batch["labels"], torch.long),
-                    self._tensor(batch["label_weights"], torch.float32),
-                    self._tensor(batch.get("attention_mask"), torch.float32), gen)
+                    self.params, self.opt_state, ids, labels, weights, attn, gen)
                 last = loss.item()
-                for listener in listeners or ():
-                    listener.iteration_done(self, self.iteration, epoch, last)
+                bus.dispatch("iteration_done", self, self.iteration, epoch, last)
                 self.iteration += 1
         return last
 

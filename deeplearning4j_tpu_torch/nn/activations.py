@@ -39,3 +39,6 @@ register("identity")(lambda x: x)
 register("relu")(torch.relu)
 register("softmax")(lambda x: torch.softmax(x, dim=-1))
 register("sigmoid")(torch.sigmoid)
+register("tanh")(torch.tanh)
+# jax.nn.gelu's default: the tanh approximation
+register("gelu")(lambda x: torch.nn.functional.gelu(x, approximate="tanh"))

@@ -11,6 +11,8 @@ from deeplearning4j_tpu_torch.nn.layers.core import (
     OutputLayer,
     ActivationLayer,
     DropoutLayer,
+    EmbeddingLayer,
+    EmbeddingSequenceLayer,
     BatchNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.conv import (
@@ -21,11 +23,18 @@ from deeplearning4j_tpu_torch.nn.layers.conv import (
     LocalResponseNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneck
+from deeplearning4j_tpu_torch.nn.layers.norm import LayerNormalization, PReLULayer
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    SelfAttentionLayer,
+    LearnedSelfAttentionLayer,
+)
 
 __all__ = [
     "Layer", "register_layer", "layer_from_dict",
-    "DenseLayer", "OutputLayer", "ActivationLayer", "DropoutLayer", "BatchNormalization",
+    "DenseLayer", "OutputLayer", "ActivationLayer", "DropoutLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "BatchNormalization",
     "ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
     "LocalResponseNormalization",
-    "FusedBottleneck",
+    "FusedBottleneck", "LayerNormalization", "PReLULayer", "SelfAttentionLayer",
+    "LearnedSelfAttentionLayer",
 ]

@@ -246,7 +246,9 @@ class GlobalPoolingLayer(Layer):
             if kind == "sum":
                 return x.sum(dim=axes), state
             return (x.abs() ** p).sum(dim=axes) ** (1.0 / p), state
-        m = mask.to(x.dtype)
+        # the mask as given (f32 under a bf16 x promotes the sums to f32,
+        # as in JAX): a bf16 mask would round a count such as 3000
+        m = mask
         while m.ndim < x.ndim:
             m = m[..., None]
         if kind == "max":

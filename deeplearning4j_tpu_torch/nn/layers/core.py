@@ -1,8 +1,9 @@
 """Core feed-forward layers (port of
 ``deeplearning4j_tpu/nn/layers/core.py``): ``DenseLayer``,
 ``OutputLayer`` (with its loss, ``compute_score_array``),
-``ActivationLayer``, ``DropoutLayer`` and ``BatchNormalization`` (which
-the JAX package also keeps in its ``core.py``), in eval and train mode.
+``ActivationLayer``, ``DropoutLayer``, ``EmbeddingLayer``,
+``EmbeddingSequenceLayer`` and ``BatchNormalization`` (which the JAX
+package also keeps in its ``core.py``), in eval and train mode.
 
 Dense weights keep the JAX layout ``W [nIn, nOut]``; the product is
 ``x @ W + b`` in the policy's compute dtype.  A quantized layer
@@ -132,6 +133,60 @@ class DropoutLayer(Layer):
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return self._maybe_dropout(x, train, rng), state
+
+
+@register_layer("embedding")
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Index -> vector lookup, a Dense over one-hot run as a gather of the
+    rows of ``W [n_in, n_out]`` (in the table's dtype), plus ``b`` and the
+    activation.  Indices of shape [B] or [B, 1] give [B, n_out]; [B, T]
+    gives [B, T, n_out].  A quantized table (``W_q``, the JAX package's
+    int8 gather) is not ported: it raises."""
+
+    n_in: int = 0   # vocab size
+    n_out: int = 0
+    has_bias: bool = True
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, gen, input_type):
+        n_in = self.n_in or input_type.flat_size()
+        params = {"W": self._init_weight(gen, (n_in, self.n_out), n_in, self.n_out)}
+        if self.has_bias:
+            params["b"] = self._init_bias((self.n_out,))
+        return params
+
+    def _lookup(self, params, idx):
+        if "W_q" in params:
+            raise NotImplementedError(
+                "a quantized embedding table (W_q) is not ported yet: its int8 gather is "
+                "ROADMAP queue A item 4")
+        return torch.nn.functional.embedding(idx, params["W"])
+
+    def _embed(self, params, idx):
+        y = self._lookup(params, idx.long())
+        if self.has_bias:
+            y = y + params["b"]
+        return activations.get(self.activation or "identity")(y)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        idx = x if x.ndim != 2 or x.shape[-1] != 1 else x[..., 0]
+        return self._embed(params, idx), state
+
+
+@register_layer("embedding_sequence")
+@dataclasses.dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """A sequence of indices, [B, T] or [B, T, 1], -> [B, T, n_out] (NTC)."""
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timesteps)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        idx = x if x.ndim != 3 or x.shape[-1] != 1 else x[..., 0]
+        return self._embed(params, idx), state
 
 
 @register_layer("batch_norm")

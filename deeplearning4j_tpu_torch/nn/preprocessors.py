@@ -15,7 +15,10 @@ from deeplearning4j_tpu_torch.nn.input_type import InputType
 
 def expected_kind(layer) -> Optional[str]:
     """What input kind a layer wants; None = any."""
+    from deeplearning4j_tpu_torch.nn.layers import attention as attn_mod
     from deeplearning4j_tpu_torch.nn.layers import conv as conv_mod
+    if isinstance(layer, attn_mod.SelfAttentionLayer):
+        return "rnn"
     if isinstance(layer, (conv_mod.ConvolutionLayer, conv_mod.SubsamplingLayer,
                           conv_mod.ZeroPaddingLayer)):
         return "cnn"
@@ -33,6 +36,8 @@ def adapt_type(current: InputType, layer) -> InputType:
         raise ValueError(
             "cannot infer CNN dims from flat feed-forward input — use "
             "InputType.convolutional_flat(h, w, c) as the network input type")
+    if want == "rnn" and current.kind == "ff":
+        return InputType.recurrent(current.size, 1)
     raise ValueError(f"no preprocessor from {current.kind} to {want}")
 
 
@@ -43,4 +48,6 @@ def adapt_array(x: torch.Tensor, current: InputType, layer) -> torch.Tensor:
         return x
     if want == "cnn" and current.kind == "cnn_flat":
         return x.reshape(x.shape[0], current.height, current.width, current.channels)
+    if want == "rnn" and current.kind == "ff":
+        return x[:, None, :]
     raise ValueError(f"no preprocessor from {current.kind} to {want}")

@@ -1,15 +1,17 @@
 """Graph vertices (port of ``deeplearning4j_tpu/nn/vertices.py``): the
-``GraphVertex`` base, its JSON registry and ``ElementWiseVertex``, the
-ResNet skip-connection vertex.
+``GraphVertex`` base, its JSON registry, ``ElementWiseVertex`` (the
+residual adds) and ``AttentionVertex``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.input_type import InputType
+from deeplearning4j_tpu_torch.ops.attention import multi_head_attention
 
 _VERTEX_REGISTRY: dict[str, type] = {}
 
@@ -81,3 +83,32 @@ class ElementWiseVertex(GraphVertex):
         else:
             raise ValueError(f"unknown elementwise op '{self.op}'")
         return out
+
+
+@register_vertex("attention")
+@dataclasses.dataclass
+class AttentionVertex(GraphVertex):
+    """Multi-head dot-product attention without projections (they are
+    the Dense layers before it): 1 input is self attention over
+    [B, T, H*Dh], 3 are (queries, keys, values).  ``causal`` adds the
+    autoregressive mask; ``use_flash`` None routes by sequence length
+    (the flash kernels from 1024), an explicit value wins."""
+
+    n_heads: int = 1
+    causal: bool = False
+    use_flash: Optional[bool] = None
+    flash_block: int = 0
+
+    def apply(self, inputs):
+        if len(inputs) == 1:
+            q = k = v = inputs[0]
+        elif len(inputs) == 3:
+            q, k, v = inputs
+        else:
+            raise ValueError("AttentionVertex takes 1 (self) or 3 (q,k,v) inputs")
+        return multi_head_attention(q, k, v, n_heads=self.n_heads, causal=self.causal,
+                                    use_flash=self.use_flash, flash_block=self.flash_block)
+
+    def get_output_type(self, input_types):
+        q, v = input_types[0], input_types[-1]
+        return InputType.recurrent(v.size, q.timesteps)   # q's steps, v's width

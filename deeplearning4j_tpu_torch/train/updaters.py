@@ -13,8 +13,9 @@ dicts and lists of any depth with tensors at the leaves (a graph's vertex
   continues its run.
 
 Not ``torch.optim``: its SGD applies Nesterov momentum in another form.
-Ported: ``Sgd``, ``Nesterovs``, ``Adam`` (f32 moments) and ``NoOp``, and
-the ``"none"`` gradient normalization.  The other updaters, the other
+Ported: ``Sgd``, ``Nesterovs``, ``Adam`` (f32 moments, or a bf16 first
+moment with ``mu_dtype="bf16"``) and ``NoOp``, and the ``"none"``
+gradient normalization.  The other updaters, the other
 normalizations and learning-rate schedules are not ported yet; their
 JSON raises.
 """
@@ -27,6 +28,10 @@ from typing import Any, Callable, Optional
 import torch
 
 _REGISTRY: dict[str, type] = {}
+
+# the names of a bf16 first moment that ``Adam(mu_dtype=...)`` takes, as
+# the JAX package writes them
+MU_DTYPES = ("bf16", "bfloat16")
 
 
 def register(name: str):
@@ -135,8 +140,14 @@ class Nesterovs(_UpdaterBase):
 class Adam(_UpdaterBase):
     """``optax.adam``: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
     count += 1, u = -lr * mu_hat / (sqrt(nu_hat) + eps) with the bias
-    corrections 1 - b^count.  ``mu_dtype`` (a bf16 first moment) is not
-    ported."""
+    corrections 1 - b^count.
+
+    ``mu_dtype="bf16"`` (or ``"bfloat16"``) keeps the first moment in
+    bf16 between steps, in optax 0.2.6's order: ``b1 * mu`` is rounded
+    in bf16 (b1 itself taken to bf16 first, as JAX does) and promoted to
+    f32 by the sum, nu stays f32, the update
+    comes from the unrounded f32 mu, and the state keeps that mu cast to
+    bf16."""
 
     learning_rate: Any = 0.001
     beta1: float = 0.9
@@ -144,23 +155,37 @@ class Adam(_UpdaterBase):
     epsilon: float = 1e-8
     mu_dtype: Any = None
 
+    def _mu_dtype(self):
+        if self.mu_dtype is None:
+            return None
+        if self.mu_dtype in MU_DTYPES:
+            return torch.bfloat16
+        raise NotImplementedError(f"Adam(mu_dtype={self.mu_dtype!r}) is not ported; "
+                                  f"ported: None, {', '.join(map(repr, MU_DTYPES))}")
+
     def init(self, params: dict) -> dict:
-        if self.mu_dtype is not None:
-            raise NotImplementedError("Adam(mu_dtype=...) is not ported yet")
+        mu_dtype = self._mu_dtype()
         leaf = tree_leaves(params)[0]
         return {"count": torch.zeros((), dtype=torch.int32, device=leaf.device),
-                "mu": tree_map(torch.zeros_like, params),
+                "mu": tree_map(lambda p: torch.zeros_like(p, dtype=mu_dtype), params),
                 "nu": tree_map(torch.zeros_like, params)}
 
     def update(self, grads: dict, state: dict):
         b1, b2, lr, eps = self.beta1, self.beta2, self.learning_rate, self.epsilon
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+        mu_dtype = self._mu_dtype()
+        # JAX takes b1 into a bf16 mu's dtype first (0.9 -> 0.8984375) and
+        # rounds the product to bf16; the product of two bf16 values is
+        # exact in f32, so torch's rounding of it is the same
+        b1m = b1 if mu_dtype is None else float(torch.tensor(b1, dtype=mu_dtype))
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1m * m, grads, state["mu"])
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
         count = state["count"] + 1
         steps = count.to(torch.float32)
         c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=steps.device), steps)
         c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=steps.device), steps)
         updates = tree_map(lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)), mu, nu)
+        if mu_dtype is not None:
+            mu = tree_map(lambda m: m.to(mu_dtype), mu)
         return updates, {"count": count, "mu": mu, "nu": nu}
 
 

@@ -138,6 +138,64 @@ def _tf32_forward(xh, w, passes, chunk=32):
     return y
 
 
+def _rz_add_bits(acc, p):
+    """``_rz_add`` by bits: the f64 sum's mantissa cut to f32's 23 bits is
+    the sum rounded toward zero, exact in f32 from f32's smallest normal
+    (2^-126) up; a sum below that (zero aside) raises instead."""
+    bits = (acc.double() + p).view(torch.int64)
+    mag = bits & 0x7FFFFFFFFFFFFFFF
+    if bool(((mag > 0) & (mag < (897 << 52))).any()):   # f64 exponent field of 2^-126
+        raise AssertionError("a tile's sum is below f32's normal range")
+    return (bits & ~0x1FFFFFFF).view(torch.float64).float()
+
+
+def _tf32_forward_batched(xh, w, passes, chunk=32, group=16):
+    """``_tf32_forward``'s arithmetic, bit for bit, with every chunk's tile
+    formed at once: K zero-padded to whole chunks (a zero product adds
+    nothing toward zero), the tiles of ``group`` chunks as one [group, m,
+    n] tensor taking the k-steps' products one pass after another (the
+    same sequence of round-toward-zero adds per entry, ``_rz_add_bits``),
+    then added into y in chunk order."""
+    xh_hi, xh_lo = tf32_split(xh)
+    w_hi, w_lo = tf32_split(w)
+    if passes == 3:
+        pairs = ((xh_hi, tf32_cut(w_lo)), (tf32_cut(xh_lo), w_hi), (xh_hi, w_hi))
+    else:
+        pairs = ((tf32_cut(xh), tf32_cut(w)),)
+    m, k = xh.shape
+    n = w.shape[1]
+    chunks, steps = -(-k // chunk), chunk // 8
+    pad = chunks * chunk - k
+    # a: [chunks, steps, m, 8], b: [chunks, steps, 8, n], exact in f64
+    pairs = [(torch.nn.functional.pad(a.double(), (0, pad)).reshape(m, chunks, steps, 8)
+              .permute(1, 2, 0, 3),
+              torch.nn.functional.pad(b.double(), (0, 0, 0, pad)).reshape(chunks, steps, 8, n))
+             for a, b in pairs]
+    y = torch.zeros(m, n, dtype=torch.float32)
+    for g0 in range(0, chunks, group):
+        g1 = min(g0 + group, chunks)
+        tile = torch.zeros(g1 - g0, m, n, dtype=torch.float32)
+        for j in range(steps):
+            for a, b in pairs:
+                tile = _rz_add_bits(tile, a[g0:g1, j] @ b[g0:g1, j])
+        for t in tile:
+            y = y + t
+    return y
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("k,n", [(72, 40), (64, 24)])
+def test_batched_tf32_emulation_is_bit_equal_to_the_loop(k, n, passes):
+    """The batched emulation the shape test uses gives the loop's bits,
+    K a whole number of chunks or not."""
+    rng = np.random.default_rng(k + n)
+    xh = torch.from_numpy(rng.normal(size=(48, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
+    want = _tf32_forward(xh, w, passes)
+    for group in (1, 2, 16):
+        assert torch.equal(_tf32_forward_batched(xh, w, passes, group=group), want)
+
+
 KN = sorted({(k, n) for k, n in ((c[1], c[2]) for c in CALLS[32])})
 
 
@@ -158,7 +216,7 @@ def test_three_tf32_passes_hold_the_f32_limit_at_every_resnet50_shape(k, n):
     want = (exact.float(), exact.sum(0).float(), (exact * exact).sum(0).float())
     reading = {}
     for passes in (1, 3):
-        y = _tf32_forward(xh, w, passes)
+        y = _tf32_forward_batched(xh, w, passes)
         reading[passes] = chip_smoke.fwd_over_limit((y, y.sum(0), (y * y).sum(0)), want,
                                                     "float32")
     assert reading[3] <= 0.1, reading

@@ -75,6 +75,17 @@ def test_no_jax_scan_covers_the_conv3_slice():
         assert f"deeplearning4j_tpu_torch/{module}" in names
 
 
+def test_no_jax_scan_covers_the_bert_headline_slice():
+    """The obs/ subpackage and the modules of the seq-128 headline and the
+    config-first attention stack are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("obs/__init__.py", "obs/listeners.py", "data/device_pipeline.py",
+                   "nn/layers/attention.py", "nn/layers/norm.py", "nn/layers/core.py",
+                   "nn/vertices.py", "nn/preprocessors.py", "train/updaters.py",
+                   "models/bert.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
 def test_port_reads_no_dl4j_tpu_environment_variable():
     for path in PORT_FILES:
         assert "DL4J_TPU_" not in path.read_text(), path

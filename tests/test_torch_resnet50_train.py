@@ -197,31 +197,49 @@ def _padded_rows_in_dw(x, w, a, b, y, dy, ds1, ds2, *, relu_in=True):
     return dx, dw, da, db
 
 
+SMOKE_CLASSES = 10
+
+
+def _smoke_net():
+    import chip_smoke
+    n = resnet50(height=32, width=32, num_classes=SMOKE_CLASSES, fused=True, device="cpu",
+                 updater=Nesterovs(chip_smoke.TRAIN_LR, 0.9))
+    return chip_smoke.damp_residual_gammas(n.init(seed=chip_smoke.SEED))
+
+
+@pytest.fixture(scope="module")
+def smoke_runs():
+    """The step that every fault case is held to, through the plain pair,
+    and the clean step through the layer's own path (the plain pair on the
+    CPU), run once for the module."""
+    import chip_smoke
+    rng = np.random.default_rng(4)
+    batch = DataSet(rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
+                    np.eye(SMOKE_CLASSES, dtype=np.float32)[rng.integers(0, SMOKE_CLASSES, 4)])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_mod, "matmul_bn_act", chip_smoke._PlainMatmulBnAct())
+        plain = chip_smoke.train_steps(_smoke_net(), batch, 1)
+    clean = chip_smoke.train_steps(_smoke_net(), batch, 1)
+    return {"batch": batch, "plain": plain, "clean": clean}
+
+
 @pytest.mark.parametrize("fault", [_drop_ds2, _da_over_xhat, _padded_rows_in_dw],
                          ids=["ds2_term_dropped", "da_over_xhat", "padded_rows_in_dw"])
-def test_smoke_training_check_catches_backward_wiring_faults(fault, monkeypatch):
+def test_smoke_training_check_catches_backward_wiring_faults(fault, monkeypatch, smoke_runs):
     """chip_smoke.py holds each param's step-0 update through the kernels
     to the one through the plain versions at TRAIN_UPDATE_TOL (relative,
     in norm).  A fault in the backward's wiring moves that reading by far
     more than the limit; without one, on the CPU (where the kernel path
-    runs the plain pair) it reads 0."""
+    runs the plain pair) it reads 0.  The net has a 10-class head: the
+    faults are in the bottlenecks' 1x1 convs, and each reads as far past
+    the limit as with chip_smoke.py's 1000 classes (at least 1800x, where
+    1000 classes read at least 3000x)."""
     import chip_smoke
-
-    def net():
-        n = resnet50(height=32, width=32, num_classes=1000, fused=True, device="cpu",
-                     updater=Nesterovs(chip_smoke.TRAIN_LR, 0.9))
-        return chip_smoke.damp_residual_gammas(n.init(seed=chip_smoke.SEED))
-
-    rng = np.random.default_rng(4)
-    batch = DataSet(rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
-                    np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 4)])
-    monkeypatch.setattr(fused_mod, "matmul_bn_act", chip_smoke._PlainMatmulBnAct())
-    plain = chip_smoke.train_steps(net(), batch, 1)
-    monkeypatch.undo()
-    clean = chip_smoke.train_steps(net(), batch, 1)
-    assert max(chip_smoke.update_errs(clean["update0"], plain["update0"]).values()) == 0.0
+    plain = smoke_runs["plain"]
+    errs = chip_smoke.update_errs(smoke_runs["clean"]["update0"], plain["update0"])
+    assert max(errs.values()) == 0.0
     monkeypatch.setattr(conv_bn, "matmul_bn_act_bwd", fault)
-    faulty = chip_smoke.train_steps(net(), batch, 1)
+    faulty = chip_smoke.train_steps(_smoke_net(), smoke_runs["batch"], 1)
     errs = chip_smoke.update_errs(faulty["update0"], plain["update0"])
     assert max(errs.values()) > 100 * chip_smoke.TRAIN_UPDATE_TOL
 
