@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the port's ResNet-50 forward and training step, of
-its BERT fine-tune steps (bf16 and f32) and seq-128 headline step, of
-its int8 VGG-16 serving forward and of the MLP-MNIST and LeNet training
-steps goes on one CUDA card.
+its BERT fine-tune steps (bf16 and f32) and seq-128 headline step (by
+itself and through ``fit``), of its int8 VGG-16 serving forward and of
+the MLP-MNIST and LeNet training steps goes on one CUDA card, each run
+eagerly (``train.capture.eager()``) and as the captured step the port
+runs by default (CUDA graphs, ``train/capture.py``).
 
     python3 chip_profile.py
 
 Builds the same seeded models as ``chip_smoke.py`` (TF32 off) and, for
-each workload, warms it up, times it with CUDA events (every workload
-before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
+each workload and mode, warms it up (the captured mode: two eager calls
+and the capture), times it with CUDA events (every workload and mode
+before any tracing), reads the host's time over runs of about
+``HOST_WINDOW_MS`` in all, each from an idle card (before any tracing
+too), and traces ``ITERS`` runs with ``torch.profiler``, back to back
+for the device, one at a time for the launch calls:
 
-- ``forward``: ResNet-50 ``net.output`` on ``chip_smoke.BATCH`` images
-  (the serving forward), f32;
+- ``forward``: ResNet-50's inference forward on ``chip_smoke.BATCH``
+  images, f32: ``net.output`` eager, the serving engine's cached forward
+  (``serve.engine``) captured;
 - ``train_step``: ResNet-50 ``Trainer.fit_batch`` (forward, backward,
   update) at ``chip_smoke.TRAIN_LR``, f32;
 - ``bert_finetune_step``: one ``BertForMaskedLM.fit`` step of bench.py's
@@ -23,17 +30,28 @@ before any tracing) and traces ``ITERS`` runs with ``torch.profiler``:
   MLM's seq-128 headline (``bench.py:181-230``: 12 layers, batch 32 x
   128, ``max_predictions=32``, bf16 policy, ``Adam(2e-5,
   mu_dtype="bf16")``; einsum attention, no kernel of this repo);
-- ``vgg16_int8_forward``: ``qnet.output`` of VGG-16 quantized by
-  ``quantize_net``, on ``chip_smoke.VGG_BATCH`` images under the bf16
-  serving policy (bf16 params, compute and outputs), its three dense
-  layers through the int8 kernel and its convolutions' weights widened
-  on read;
+- ``bert_headline_fit_seq128``: ``FIT_STEPS`` steps of the same through
+  ``BertForMaskedLM.fit`` (its ``DeviceFeeder`` thread and listener bus;
+  ``fit`` reads every step's loss, so the host waits for the card);
+- ``vgg16_int8_forward``: VGG-16 quantized by ``quantize_net``, on
+  ``chip_smoke.VGG_BATCH`` images under the bf16 serving policy (bf16
+  params, compute and outputs), its three dense layers through the int8
+  kernel and its convolutions' weights widened on read (``qnet.output``
+  eager, the engine's cached forward captured);
 - ``mlp_mnist_step`` and ``lenet_cifar10_step``: ``Trainer.fit_batch`` of
   ``mlp_mnist()`` and of ``lenet(32, 32, 3)`` at batch 128 (f32), on
   ``bench.py``'s ``bench_workload_steps`` data (``chip_smoke.small_nets``).
 
-Prints the card's name and power limit and, per workload, its wall time
-from CUDA events, the kernels and copies it runs on the device per run,
+Prints the card's name and power limit and, per workload and mode, its
+wall time from CUDA events; the host side, each run from an idle card:
+the time until the call returns and the CPU time of all threads
+meanwhile (``time.process_time``), the feeder thread's share
+(``time.thread_time`` at the end of each of its staging calls), the
+number of kernel launches (``cudaLaunchKernel``, ``cuLaunchKernel``) and
+of graph launches (``cudaGraphLaunch``) and the time in them (traced),
+and the rest of the CPU time (Python, PyTorch's dispatch, the autograd
+engine, and the waits of a call that reads its loss); the kernels and
+copies it runs on the device per run,
 the device time per category of kernel (this repo's
 ``matmul_bn_act``, flash attention and int8 kernels, convolutions,
 matmuls, softmax, elementwise, copies and casts, pooling and reductions,
@@ -45,13 +63,20 @@ with the most device time.  Writes the same to
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import sys
+import threading
 import time
 
 import chip_smoke
 
 ITERS = 5
+# runs for the host's time: enough for about this many ms (the process
+# and thread CPU clocks may tick as coarsely as every 10 ms)
+HOST_WINDOW_MS = 3000
+FIT_STEPS = 5           # steps of the headline through fit per run
 
 CATEGORIES = (
     ("conv3x3_bn_act", ("c3_f32_kernel", "c3_bf16_kernel")),
@@ -81,9 +106,11 @@ def category(name: str) -> str:
     return "other"
 
 
-def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> dict:
-    """Trace ITERS runs of ``fn`` (warm already, timed at ``run_ms``), each
-    of ``items`` images or tokens (``unit``)."""
+def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str,
+            host: dict) -> dict:
+    """Trace ITERS runs of ``fn`` (warm already, timed at ``run_ms``, its
+    host CPU time read as ``host``), each of ``items`` images or tokens
+    (``unit``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -108,21 +135,97 @@ def profile(card: str, name: str, fn, run_ms: float, items: int, unit: str) -> d
     for kname, ms in kernels.items():
         by_cat[category(kname)] = by_cat.get(category(kname), 0.0) + ms
     device_ms = sum(kernels.values())
+    api_ms = host["kernel_launch_api_ms"] + host["graph_launch_api_ms"]
     result = {"workload": name, "card": card, "items": items, "unit": unit, "iters": ITERS,
               "ms": run_ms, f"{unit}_per_s": items / run_ms * 1e3,
               "device_ms": device_ms, "busy_share": device_ms * ITERS / window_ms,
-              "device_ops_per_run": launches / ITERS,
+              "device_ops_per_run": launches / ITERS, **host,
+              "rest_of_host_cpu_ms": host["cpu_ms"] - host["feeder_cpu_ms"] - api_ms,
               "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
               "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
     print(f"{name}, {items} {unit} on {card}: {run_ms:.3f} ms "
           f"({result[f'{unit}_per_s']:.1f} {unit}/s); device time {device_ms:.3f} ms "
           f"per run in {result['device_ops_per_run']:.0f} kernels and copies, busy "
           f"{result['busy_share']:.1%} of the traced window")
+    print(f"  host, from an idle card: {host['host_ms']:.3f} ms a run until it returns, CPU "
+          f"{host['cpu_ms']:.3f} ms (all threads; the feeder {host['feeder_cpu_ms']:.3f}); "
+          f"traced: {host['kernel_launches']:.0f} kernel launches "
+          f"({host['kernel_launch_api_ms']:.3f} ms) and {host['graph_launches']:.0f} graph "
+          f"launches ({host['graph_launch_api_ms']:.3f} ms); the rest of the CPU time (Python, "
+          f"dispatch, autograd, waits) {result['rest_of_host_cpu_ms']:.3f} ms")
     for cat, ms in result["categories_ms"].items():
         print(f"  {cat:18s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
     for kname, ms in result["top_kernels_ms"].items():
         print(f"  {ms:8.3f} ms  {kname[:110]}")
     return result
+
+
+class FeederClock:
+    """While open, keeps the CPU time of every ``DeviceFeeder`` producer
+    thread as of the end of its last staging call (``time.thread_time``
+    read in that thread), summed by ``seconds()``."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.data.device_pipeline import DeviceFeeder
+        self.cls, self.stage, self.by_thread = DeviceFeeder, DeviceFeeder.stage, {}
+        stage = self.stage
+
+        def timed(feeder, batch):
+            out = stage(feeder, batch)
+            self.by_thread[threading.get_ident()] = time.thread_time()
+            return out
+        DeviceFeeder.stage = timed
+        return self
+
+    def seconds(self) -> float:
+        return sum(self.by_thread.values())
+
+    def __exit__(self, *exc):
+        self.cls.stage = self.stage
+
+
+def host_time(fn, runs: int) -> dict:
+    """``runs`` calls of ``fn`` (warm already), each from an idle card, so
+    that nothing waits on a full launch queue: per run the wall time until
+    the call returns (the host's work before the card has it all) and the
+    CPU time of all threads meanwhile (the process clock), and the feeder
+    threads' CPU time (their whole life: each feeds one ``fit`` call)."""
+    import torch
+    wall = cpu = 0.0
+    with FeederClock() as clock:
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            cpu0, t0 = time.process_time(), time.perf_counter()
+            fn()
+            wall += time.perf_counter() - t0
+            cpu += time.process_time() - cpu0
+        torch.cuda.synchronize()
+    return {"host_ms": wall / runs * 1e3, "cpu_ms": cpu / runs * 1e3,
+            "feeder_cpu_ms": clock.seconds() / runs * 1e3, "host_runs": runs}
+
+
+def launch_api(fn) -> dict:
+    """``ITERS`` calls of ``fn`` traced, each from an idle card: the kernel
+    launches and graph launches the host made per call and the time it
+    spent in them (CUPTI's callbacks lengthen each call: an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            torch.cuda.synchronize()
+            fn()
+        torch.cuda.synchronize()
+    api = {"kernel_launches": 0, "kernel_launch_api_ms": 0.0, "graph_launches": 0,
+           "graph_launch_api_ms": 0.0}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
+            continue
+        kind = ("graph" if chip_smoke.GRAPH_LAUNCH_API in evt.key else
+                "kernel" if chip_smoke.KERNEL_LAUNCH_API in evt.key else None)
+        if kind:
+            api[f"{kind}_launches"] += evt.count / ITERS
+            api[f"{kind}_launch_api_ms"] += evt.cpu_time_total / 1e3 / ITERS
+    return api
 
 
 def main() -> int:
@@ -135,7 +238,8 @@ def main() -> int:
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.models import BertForMaskedLM, lenet, mlp_mnist, vgg16
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
-    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer
+    from deeplearning4j_tpu_torch.serve.engine import _build_forward
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer, capture
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
@@ -176,6 +280,7 @@ def main() -> int:
         return loss
     serving = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                                  output_dtype=torch.bfloat16)
+    f32, bf16 = config.DTypePolicy.f32(), config.DTypePolicy.bf16()
 
     def in_policy(policy, fn):
         config.set_dtype_policy(policy)
@@ -187,6 +292,15 @@ def main() -> int:
     qnet = in_policy(serving,
                      lambda: quantize_net(vgg16(device="cuda").init(seed=chip_smoke.SEED)))
     images = torch.randn(chip_smoke.VGG_BATCH, 224, 224, 3, device="cuda", generator=gen)
+    forward, qforward = _build_forward(net), _build_forward(qnet)
+
+    def served(step, model, inputs):
+        with torch.inference_mode():
+            return step(model.params_, model.state_, inputs, None)
+    head_fit = in_policy(bf16, lambda: BertForMaskedLM(chip_smoke.headline_config(), seed=0,
+                                                       device="cuda"))
+    head_fit_batch = chip_smoke.headline_batch(head_fit.config.vocab_size)
+    head_fit_adam = Adam(chip_smoke.HEADLINE_LR, mu_dtype="bf16")
     rng = np.random.default_rng(0)      # bench.py's bench_workload_steps data
     small = {}
     for name, factory, kwargs, shape in (
@@ -198,29 +312,53 @@ def main() -> int:
         small[name] = (Trainer(factory(device="cuda", **kwargs).init(seed=chip_smoke.SMALL_SEED)),
                        DataSet(torch.from_numpy(features).cuda(),
                                torch.from_numpy(onehot).cuda()))
-    f32, bf16 = config.DTypePolicy.f32(), config.DTypePolicy.bf16()
-    # name: (run, items per run, unit, dtype policy)
-    workloads = {"forward": (lambda: net.output(x), chip_smoke.BATCH, "images", f32),
-                 "train_step": (lambda: trainer.fit_batch(batch), chip_smoke.BATCH, "images",
-                                f32),
-                 "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam), tokens,
-                                        "tokens", bf16),
-                 "bert_finetune_step_f32": (lambda: bert32.fit([bert_batch], updater=adam32),
-                                            tokens, "tokens", f32),
-                 "bert_headline_step_seq128": (headline_step, chip_smoke.HEADLINE_SEQS
-                                               * chip_smoke.HEADLINE_SEQ, "tokens", bf16),
-                 "vgg16_int8_forward": (lambda: qnet.output(images), chip_smoke.VGG_BATCH,
-                                        "images", serving)}
+    # name: (eager run, captured run, items per run, unit, dtype policy)
+    workloads = {
+        "forward": (lambda: net.output(x), lambda: served(forward, net, x), chip_smoke.BATCH,
+                    "images", f32),
+        "train_step": (lambda: trainer.fit_batch(batch),) * 2 + (chip_smoke.BATCH, "images",
+                                                                 f32),
+        "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam),) * 2
+        + (tokens, "tokens", bf16),
+        "bert_finetune_step_f32": (lambda: bert32.fit([bert_batch], updater=adam32),) * 2
+        + (tokens, "tokens", f32),
+        "bert_headline_step_seq128": (headline_step,) * 2 + (chip_smoke.HEADLINE_SEQS
+                                                             * chip_smoke.HEADLINE_SEQ, "tokens",
+                                                             bf16),
+        "bert_headline_fit_seq128": (lambda: head_fit.fit([head_fit_batch] * FIT_STEPS,
+                                                          updater=head_fit_adam),) * 2
+        + (FIT_STEPS * chip_smoke.HEADLINE_SEQS * chip_smoke.HEADLINE_SEQ, "tokens", bf16),
+        "vgg16_int8_forward": (lambda: qnet.output(images), lambda: served(qforward, qnet, images),
+                               chip_smoke.VGG_BATCH, "images", serving)}
     for name, (small_trainer, small_batch) in small.items():
-        workloads[name] = (lambda t=small_trainer, b=small_batch: t.fit_batch(b),
-                           chip_smoke.SMALL_BATCH, "images", f32)
+        workloads[name] = ((lambda t=small_trainer, b=small_batch: t.fit_batch(b),) * 2
+                           + (chip_smoke.SMALL_BATCH, "images", f32))
+    modes = {"eager": capture.eager, "captured": contextlib.nullcontext}
 
-    # every timing before the first trace: a profiler session leaves the
-    # launch path slower for the rest of the process
-    run_ms = {name: in_policy(policy, lambda: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3))
-              for name, (fn, _, _, policy) in workloads.items()}
-    results = [in_policy(policy, lambda: profile(card, name, fn, run_ms[name], items, unit))
-               for name, (fn, items, unit, policy) in workloads.items()]
+    def measure(name, mode, what):
+        eager_fn, captured_fn, items, unit, policy = workloads[name]
+        fn = eager_fn if mode == "eager" else captured_fn
+
+        def go():
+            with modes[mode]():
+                return what(fn, items, unit)
+        return in_policy(policy, go)
+
+    # every timing and host reading before the first trace: a profiler
+    # session leaves the launch path slower for the rest of the process
+    keys = [(name, mode) for name in workloads for mode in modes]
+    run_ms = {k: measure(*k, lambda fn, *_: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3))
+              for k in keys}
+    host = {k: measure(*k, lambda fn, *_, k=k: host_time(
+        fn, max(ITERS, math.ceil(HOST_WINDOW_MS / run_ms[k])))) for k in keys}
+    for k in keys:
+        host[k].update(measure(*k, lambda fn, *_: launch_api(fn)))
+    results = {}
+    for name, mode in keys:
+        print(f"[{mode}]", flush=True)
+        results.setdefault(name, {})[mode] = measure(
+            name, mode, lambda fn, items, unit: profile(card, name, fn, run_ms[name, mode],
+                                                        items, unit, host[name, mode]))
     out = chip_smoke.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_profile.json").write_text(json.dumps(results, indent=1))

@@ -190,7 +190,34 @@ no result line:
    plain versions from one set of weights (served log probabilities,
    step-0 loss and every param's gradient, phases 13-15's limits); an
    ``AttentionVertex`` graph at 2 x 4096 (one launch per forward);
-22. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+22. the captured steps (``train/capture.py``, ``train/step_cache.py``):
+   phases 3-21 run their steps eagerly (``capture.eager()``), and here
+   each training and serving path runs twice from the same start, eager
+   and through the step cache as CUDA graphs, in one call: MLP-MNIST and
+   LeNet ``fit`` at batch 128 (``bench.py:484-496``), ResNet-50's f32
+   ``Trainer.fit_batch`` at batch 32 (its graph holds the 36 + 36
+   ``matmul_bn_act`` launches), the seq-128 headline's ``make_train_step``
+   (phase 20's configuration, not cut), the config-first encoder's
+   ``fit_batch`` at 2 x 4096 with bf16 params (4 + 4 flash launches), the
+   engine serving ResNet-50 f32 and VGG-16 int8 at batch 32: 5 steps (or
+   requests) that must give the same bits (losses or answers, params,
+   state, updater state), the kernel launches of the capture call equal
+   to an eager step's and none counted on a replay, one graph; then step
+   ms (mean of 20), device ms and busy share, device operations and the
+   host's kernel and graph launches per step (torch.profiler), peak
+   memory, per mode.  Then MLP-MNIST with dropout (retain 0.8): 5
+   captured steps against eager ones, masks included, two replays
+   drawing different masks; two nets of one configuration interleaved on
+   one graph, each against its eager twin; the cache's hits and misses
+   over two ``fit`` and two ``eval_loss`` calls (one miss per kind);
+   planted faults that must fail loudly: a graph captured without the
+   generator registered (raises) and replays without the new batch copied
+   in (the bits differ); two int8 MLPs of one configuration (N = 10: the
+   int8 kernel's row-padded weight copy) behind two engines that share one
+   captured forward, served in turns, each answer equal to the eager one;
+   and the headline through ``BertForMaskedLM.fit`` (feeder and bus),
+   eager against captured;
+23. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -219,6 +246,7 @@ HIGHEST precision does.  The printed lines and the per-shape tables go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -2678,13 +2706,9 @@ def ab_times() -> dict:
     the int8 kernel at VGG-16's dense shapes, ResNet-50's f32 served
     forward and training step, and the BERT-base fine-tune step (4 layers,
     2 x 4096) and serving call (12 layers), in bf16 and f32."""
-    import numpy as np
     import torch
-    from deeplearning4j_tpu_torch import config
-    from deeplearning4j_tpu_torch.models import BertForMaskedLM
     from deeplearning4j_tpu_torch.ops.kernels import _build
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-    from deeplearning4j_tpu_torch.train import Adam
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build((*FLASH_LIBS, "conv3x3_bn_act", "matmul_bn_act", "matmul_bn_act_bwd",
@@ -2716,7 +2740,25 @@ def ab_times() -> dict:
     mba = [mba_pass_ms(batch, dname) for batch, dname in AB_MBA]
     mba_host = {dname: mba_host_us(dname) for dname in ("float32", "bfloat16")}
     int8 = int8_ab_ms()
-    resnet = resnet_ab_ms()
+    try:
+        from deeplearning4j_tpu_torch.train.capture import eager
+    except ImportError:     # a tree from before the captured steps: they are eager there
+        eager = contextlib.nullcontext
+    with eager():
+        resnet = resnet_ab_ms()
+        bert = bert_ab_ms()
+    return {"flash_bwd": rows, "conv3": conv3, "mba": mba, "mba_host": mba_host, "int8": int8,
+            **resnet, **bert}
+
+
+def bert_ab_ms() -> dict:
+    """The BERT-base fine-tune step (4 layers, 2 x 4096, through ``fit``)
+    and serving call (12 layers), bf16 and f32."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam
     bert = {}
     for policy in ("bf16", "f32"):
         config.set_dtype_policy(getattr(config.DTypePolicy, policy)())
@@ -2737,8 +2779,7 @@ def ab_times() -> dict:
             torch.cuda.empty_cache()
         finally:
             config.set_dtype_policy(config.DTypePolicy.f32())
-    return {"flash_bwd": rows, "conv3": conv3, "mba": mba, "mba_host": mba_host, "int8": int8,
-            **resnet, **bert}
+    return bert
 
 
 def ab(parent: Path) -> int:
@@ -2922,12 +2963,15 @@ def small_step(card, name, factory, kwargs, x, y) -> dict:
     (torch.profiler) and the busy share."""
     import torch
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.train import Trainer, step_cache
     net = factory(device="cuda", **kwargs).init(seed=SMALL_SEED)
     twin = cpu_twin(net, factory, **kwargs)
     batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
     runs = []
     for model, data in ((net, batch), (twin, DataSet(x, y))):
+        # the twins share a configuration, so a step cached by the first
+        # would record into the first's updater: each builds its own
+        step_cache.clear_step_cache()
         trainer = Trainer(model)
         trainer.updater = rec = _Recorded(trainer.updater)
         runs.append((trainer, rec, trainer.fit_batch(data).item()))
@@ -2943,7 +2987,8 @@ def small_step(card, name, factory, kwargs, x, y) -> dict:
     off = sum(int(((u.cpu() - rec_cpu.updates[i][k]).abs()
                    > SMALL_STEP0_TOL * rec_cpu.updates[i][k].abs().max()).sum())
               for i, d in enumerate(rec.updates) for k, u in d.items())
-    trainer.updater = rec.updater
+    step_cache.clear_step_cache()
+    trainer = Trainer(net)     # a step without the recorder for the timed steps
 
     def step():
         return trainer.fit_batch(batch)
@@ -3261,11 +3306,11 @@ def headline_check(card: str) -> dict:
         for i in range(4):
             p, state, step_loss = step(p, state, *args, gen)
             losses.append(step_loss.item())
-            if i == 0:
-                mu0 = state["mu"]
+            if i == 0:     # the later steps update mu in place
+                mu0 = [m.clone() for m in tree_leaves(state["mu"])]
         runs[dev] = {"loss": loss.item(), "grads": [None if g is None else g.detach()
                                                      for g in grads],
-                     "mu0": tree_leaves(mu0), "losses": losses, "params": model.params}
+                     "mu0": mu0, "losses": losses, "params": model.params}
     card_run, cpu = runs["cuda"], runs["cpu"]
     names = leaf_names(cpu["params"])
     loss_err = abs(card_run["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -3647,6 +3692,643 @@ def attention_stack(card: str) -> dict:
     return result
 
 
+# ------------------------------ phase 22: the captured steps (train/capture.py)
+# each path is run twice from the same start, eager (capture.eager()) and
+# through the step cache (CUDA graphs): CAPTURE_STEPS steps that must give
+# the same bits (losses or outputs, params, state, updater state), then
+# CAPTURE_TIMED timed steps and CAPTURE_PROFILED traced ones
+CAPTURE_STEPS, CAPTURE_TIMED, CAPTURE_PROFILED = 5, 20, 3
+CAPTURE_DROPOUT = 0.8     # the dropout MLP's retain probability
+CAPTURE_SEED = SEED + 50
+# the host-side launch calls of the CUDA runtime and driver, as the profiler
+# names them: a kernel launch, and a graph launch
+KERNEL_LAUNCH_API, GRAPH_LAUNCH_API = "LaunchKernel", "GraphLaunch"
+
+
+def kernel_counts(zero: bool = False) -> dict:
+    """Every kernel wrapper's launch count (each set to 0 after reading
+    when ``zero``), by the kernel's name in the ``kernels`` line."""
+    from deeplearning4j_tpu_torch.ops.kernels import conv3_bn, conv_bn, quant_matmul
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    attrs = {"matmul_bn_act": (conv_bn, "launches"), "matmul_bn_act_bwd": (conv_bn, "bwd_launches"),
+             "flash_attention": (fa, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
+             "flash_attention_bwd_split": (fa, "split_launches"),
+             "int8_matmul": (quant_matmul, "launches"), "conv3x3_bn_act": (conv3_bn, "launches")}
+    counts = {}
+    for name, (module, attr) in attrs.items():
+        counts[name] = getattr(module, attr)
+        if zero:
+            setattr(module, attr, 0)
+    return counts
+
+
+def launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def host_copy(*trees) -> list:
+    """Every leaf of ``trees`` (nested dicts and lists of tensors), copied
+    to the host, in order."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    return [t.detach().to("cpu", copy=True) for tree in trees for t in tree_leaves(tree)]
+
+
+def step_profile(fn, reps: int = CAPTURE_PROFILED) -> dict:
+    """``reps`` calls of ``fn`` traced (torch.profiler, CPU and CUDA): per
+    call the device time of every kernel, copy and memset, their number,
+    the kernel launches and graph launches the host made and the host time
+    they took; and the device's busy share of the traced window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    out = {"device_ms": 0.0, "device_ops": 0, "kernel_launches": 0, "graph_launches": 0,
+           "kernel_launch_api_ms": 0.0, "graph_launch_api_ms": 0.0}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU:
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0)
+            out["device_ms"] += dev_us / 1e3
+            out["device_ops"] += e.count
+        elif GRAPH_LAUNCH_API in e.key:
+            out["graph_launches"] += e.count
+            out["graph_launch_api_ms"] += e.cpu_time_total / 1e3
+        elif KERNEL_LAUNCH_API in e.key:
+            out["kernel_launches"] += e.count
+            out["kernel_launch_api_ms"] += e.cpu_time_total / 1e3
+    return {k: v / reps for k, v in out.items()} | {"busy_share": out["device_ms"] / window_ms}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` while open: cuDNN's
+    convolution backward and the scatter-add behind a gather's backward
+    otherwise sum in an order that varies from run to run, so two eager
+    runs of ResNet-50, LeNet or the seq-128 headline differ in their last
+    bits.  cuBLAS takes it with its workspace set as ``:4096:8`` (the
+    default size on Hopper)."""
+    import os
+    import torch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def capture_mode(captured: bool, make, policy=None, deterministic: bool = False,
+                 timed: bool = True) -> dict:
+    """One mode of a path, from a cleared step cache: ``make()`` gives
+    ``(run, snapshot, close, steps)``; ``run(i, n)`` takes steps i..i+n-1
+    (its outputs as tensors), ``snapshot()`` copies the trees it updates
+    to the host, ``steps()`` are the captured steps it holds outside the
+    step cache.  The first ``WARMUP_CALLS`` steps, the next one (the
+    capture) and the rest of ``CAPTURE_STEPS`` run with the launch counts
+    read between them; then, if ``timed``, ``CAPTURE_TIMED`` timed steps
+    and ``CAPTURE_PROFILED`` traced ones."""
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.train import capture, step_cache
+    step_cache.clear_step_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts0 = step_cache.counters()
+    if policy is not None:
+        config.set_dtype_policy(policy)
+    out = {"captured": captured, "deterministic": deterministic}
+    try:
+        with (contextlib.nullcontext() if captured else capture.eager()), \
+                (deterministic_algorithms() if deterministic else contextlib.nullcontext()):
+            run, snapshot, close, extra_steps = make()
+            try:
+                w = capture.WARMUP_CALLS
+                kernel_counts(zero=True)
+                outs = run(0, w)
+                out["launches_warmup"] = launched(kernel_counts(zero=True))
+                outs += run(w, 1)
+                out["launches_capture_call"] = launched(kernel_counts(zero=True))
+                outs += run(w + 1, CAPTURE_STEPS - w - 1)
+                out["launches_after_capture"] = launched(kernel_counts(zero=True))
+                out["final"] = [o.detach().to("cpu", copy=True) for o in outs] + snapshot()
+                if timed:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(CAPTURE_STEPS, CAPTURE_TIMED)
+                    torch.cuda.synchronize()
+                    out["step_ms"] = (time.perf_counter() - t0) / CAPTURE_TIMED * 1e3
+                    out["launches_timed"] = launched(kernel_counts(zero=True))
+                    out.update(step_profile(lambda: run(CAPTURE_STEPS + CAPTURE_TIMED, 1)))
+                    # the traced device time over the untraced step: the busy
+                    # share without the profiler's cost on each launch
+                    out["device_share_of_step"] = out["device_ms"] / out["step_ms"]
+                    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                out["graphs"] = step_cache.captured_graphs(*step_cache.cached_steps(),
+                                                           *extra_steps())
+            finally:
+                close()
+    finally:
+        if policy is not None:
+            config.set_dtype_policy(config.DTypePolicy.f32())
+    counts = step_cache.counters()
+    out["cache_hits"] = counts[step_cache.HITS] - counts0[step_cache.HITS]
+    out["cache_misses"] = counts[step_cache.MISSES] - counts0[step_cache.MISSES]
+    return out
+
+
+def restarted(build):
+    """``build()``'s net, made once; every call gives it back with copies
+    of its first params and state and no updater state."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    made = []
+
+    def again():
+        if not made:
+            net = build()
+            made.append((net, tree_map(lambda t: t.clone(), net.params_),
+                         tree_map(lambda t: t.clone(), net.state_)))
+        net, p0, s0 = made[0]
+        net.params_, net.state_ = (tree_map(lambda t: t.clone(), t) for t in (p0, s0))
+        net.opt_state = None
+        return net
+    return again
+
+
+def fit_path(build, batches):
+    """``make`` of a ``MultiLayerNetwork.fit`` path: ``run(i, n)`` is one
+    ``fit`` call over batches i..i+n-1 (a fresh Trainer each call, as fit
+    builds), its output the last step's loss."""
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    start = restarted(build)
+
+    def make():
+        net = start()
+
+        def run(i, n):
+            net.fit(ListDataSetIterator([batches[(i + j) % len(batches)] for j in range(n)]))
+            return [net._score]
+        return (run, lambda: host_copy(net.params_, net.state_, net.opt_state), lambda: None,
+                lambda: [])
+    return make
+
+
+def trainer_path(build, batches, seed):
+    """``make`` of a ``Trainer.fit_batch`` path on ``build()``'s net, with a
+    generator seeded ``seed``: ``run(i, n)`` is n steps on batches i..."""
+    import torch
+    from deeplearning4j_tpu_torch.train import Trainer
+    start = restarted(build)
+
+    def make():
+        net = start()
+        trainer = Trainer(net)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def run(i, n):
+            return [trainer.fit_batch(batches[(i + j) % len(batches)], gen) for j in range(n)]
+        return (run, lambda: host_copy(net.params_, net.state_, net.opt_state), lambda: None,
+                lambda: [])
+    return make
+
+
+def engine_path(net, requests):
+    """``make`` of a serving path: an ``InferenceEngine(net, max_batch=32)``,
+    ``run(i, n)`` n blocking requests of 32 images each, their answers."""
+    import torch
+    from deeplearning4j_tpu_torch.serve import InferenceEngine
+
+    def make():
+        engine = InferenceEngine(net, max_batch=BATCH)
+
+        def run(i, n):
+            return [torch.from_numpy(engine.predict(requests[(i + j) % len(requests)]))
+                    for j in range(n)]
+        return run, lambda: [], engine.shutdown, lambda: []
+    return make
+
+
+def bert_path(batches):
+    """``make`` of the seq-128 headline's ``make_train_step`` path (phase
+    20's configuration, dropout 0.1): ``run(i, n)`` n steps."""
+    import torch
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam
+
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    made = []
+
+    def make():
+        if not made:       # one init (~8 s on the host); each mode starts from its params
+            made.append(BertForMaskedLM(headline_config(), seed=0, device="cuda"))
+            made.append(tree_map(lambda t: t.clone(), made[0].params))
+        model = made[0]
+        model.params = tree_map(lambda t: t.clone(), made[1])
+        updater = Adam(HEADLINE_LR, mu_dtype="bf16")
+        step = model.make_train_step(updater)
+        opt = [updater.init(model.params)]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def run(i, n):
+            losses = []
+            for j in range(n):
+                model.params, opt[0], loss = step(model.params, opt[0],
+                                                  *batches[(i + j) % len(batches)], gen)
+                losses.append(loss)
+            return losses
+        return run, lambda: host_copy(model.params, opt[0]), lambda: None, lambda: [step]
+    return make
+
+
+def capture_path(card, name, make, policy=None, expect=None) -> dict:
+    """A path eager and captured in one call.  Under
+    ``deterministic_algorithms()`` the two must give the same bits over
+    ``CAPTURE_STEPS`` steps (losses or answers, params, state, updater
+    state).  Then, in the default mode: the kernel launches of the capture
+    call equal to an eager step's (``expect``, where given) and none
+    counted on a replay, one graph and one graph launch a replayed step;
+    step ms, device ms, busy share, device operations and the host's
+    launches per step, peak memory; and the tensors in which the captured
+    run, and a second eager run, differ from the eager one there."""
+    pair = [capture_mode(c, make, policy, deterministic=True, timed=False) for c in (False, True)]
+    eager, graph = (capture_mode(c, make, policy) for c in (False, True))
+    again = capture_mode(False, make, policy, timed=False)
+
+    def differing(got, want):
+        return [i for i, (a, b) in enumerate(zip(got["final"], want["final"]))
+                if not same_bits(a, b)]
+    differ = differing(pair[1], pair[0])
+    result = {"path": name, "card": card, "steps_compared": CAPTURE_STEPS,
+              "tensors_compared": len(pair[0]["final"]), "tensors_differ": len(differ),
+              "default_mode_captured_differ": len(differing(graph, eager)),
+              "default_mode_eager_rerun_differ": len(differing(again, eager))}
+    for mode, r in (("eager", eager), ("captured", graph)):
+        result[mode] = {k: v for k, v in r.items() if k != "final"}
+    log(f"{name} on {card}: eager {eager['step_ms']:.3f} ms a step (device "
+        f"{eager['device_ms']:.3f} ms, {eager['device_share_of_step']:.1%} of the step, busy "
+        f"{eager['busy_share']:.1%} of the traced window, "
+        f"{eager['device_ops']:.0f} device ops, {eager['kernel_launches']:.0f} kernel launches, "
+        f"peak {eager['peak_memory_gib']:.2f} GiB); captured {graph['step_ms']:.3f} ms (device "
+        f"{graph['device_ms']:.3f} ms, {graph['device_share_of_step']:.1%} of the step, busy "
+        f"{graph['busy_share']:.1%} of the traced window, "
+        f"{graph['device_ops']:.0f} device ops, {graph['graph_launches']:.0f} graph and "
+        f"{graph['kernel_launches']:.0f} kernel launches, peak {graph['peak_memory_gib']:.2f} "
+        f"GiB), {graph['graphs']} graph; kernels at the capture call "
+        f"{graph['launches_capture_call']}, an eager step {eager['launches_capture_call']}, "
+        f"replays {graph['launches_after_capture']}; deterministic algorithms: "
+        f"{len(pair[0]['final'])} tensors over {CAPTURE_STEPS} steps, {len(differ)} differ; "
+        f"default mode: captured {result['default_mode_captured_differ']}, a second eager run "
+        f"{result['default_mode_eager_rerun_differ']} differ")
+    if differ:
+        raise AssertionError(f"{name}: captured steps differ from eager ones in tensors "
+                             f"{differ[:10]}")
+    want = eager["launches_capture_call"] if expect is None else expect
+    if (graph["launches_capture_call"] != want or eager["launches_capture_call"] != want
+            or graph["launches_after_capture"] or graph["launches_timed"] or graph["graphs"] != 1
+            or pair[1]["graphs"] != 1 or graph["graph_launches"] != 1
+            or eager["graph_launches"]):
+        raise AssertionError(f"{name}: launches or graphs off: {result}")
+    return result
+
+
+def dropout_mlp(seed: int = SMALL_SEED):
+    """``mlp_mnist()`` with every layer's input dropout at retain
+    probability ``CAPTURE_DROPOUT`` (its own configuration, so its own key)."""
+    from deeplearning4j_tpu_torch.models import mlp_mnist
+    net = mlp_mnist(device="cuda")
+    for layer in net.layers:
+        layer.dropout = CAPTURE_DROPOUT
+    return net.init(seed=seed)
+
+
+def mask_steps(net, batches, seed: int, steps: int) -> tuple:
+    """``steps`` ``Trainer.fit_batch`` steps of ``net`` (a generator seeded
+    ``seed``) with every dropout mask recorded; returns the losses, each
+    step's masks and the trees after the last step, on the host.  A step
+    that draws (eager, or the capture) records its masks; a replay draws
+    into the masks recorded at the capture, so those are read again."""
+    import torch
+    from deeplearning4j_tpu_torch.train import Trainer
+    trainer = Trainer(net)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    losses, masks, current = [], [], []
+    with masks_recorded() as rec:
+        for i in range(steps):
+            before = len(rec.masks)
+            losses.append(trainer.fit_batch(batches[i % len(batches)], gen).cpu())
+            if len(rec.masks) > before:
+                current = rec.masks[before:]
+            masks.append([m.cpu() for m, _ in current])
+    return losses, masks, host_copy(net.params_, net.state_, net.opt_state), trainer
+
+
+def bits_differ(got: list, want: list) -> int:
+    return sum(not same_bits(a, b) for a, b in zip(got, want)) + abs(len(got) - len(want))
+
+
+def capture_checks(card: str, batches) -> dict:
+    """The dropout MLP (retain ``CAPTURE_DROPOUT``) on ``batches``:
+    ``CAPTURE_STEPS`` captured steps against eager ones, masks included
+    (the same bits; two replays draw different masks); two nets of one
+    configuration on one captured step, each against its eager twin; the
+    cache's hits and misses over two ``fit`` calls and two ``eval_loss``
+    calls; and two planted faults that must fail loudly: a capture
+    without the generator registered (it raises), and replays without the
+    new batch copied in (the bits differ)."""
+    import torch
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.train import Trainer, capture, step_cache
+    seed = CAPTURE_SEED
+    step_cache.clear_step_cache()
+    with capture.eager():
+        e_loss, e_masks, e_trees, _ = mask_steps(dropout_mlp(), batches, seed, CAPTURE_STEPS)
+    step_cache.clear_step_cache()
+    c_loss, c_masks, c_trees, trainer = mask_steps(dropout_mlp(), batches, seed, CAPTURE_STEPS)
+    graphs = step_cache.captured_graphs(trainer._step)
+    w = capture.WARMUP_CALLS
+    masks_differ = sum(bits_differ(c, e) for c, e in zip(c_masks, e_masks))
+    fresh = bits_differ(c_masks[w], c_masks[w + 1])
+    differ = bits_differ(c_loss + c_trees, e_loss + e_trees)
+
+    # two nets of one configuration through one step, interleaved, each
+    # against an eager twin on the same schedule
+    schedule = ((0, 0, w + 1), (1, 0, w + 1), (0, w + 1, CAPTURE_STEPS), (1, w + 1, CAPTURE_STEPS))
+
+    def two_nets():
+        nets = [dropout_mlp(SMALL_SEED + k) for k in (1, 2)]
+        trainers = [Trainer(n) for n in nets]
+        gens = [torch.Generator(device="cuda").manual_seed(seed + k) for k in (1, 2)]
+        losses = [[], []]
+        for k, i0, i1 in schedule:
+            losses[k] += [trainers[k].fit_batch(batches[i], gens[k]).cpu() for i in range(i0, i1)]
+        return [losses[k] + host_copy(n.params_, n.state_, n.opt_state)
+                for k, n in enumerate(nets)], trainers
+    step_cache.clear_step_cache()
+    with capture.eager():
+        twins, _ = two_nets()
+    step_cache.clear_step_cache()
+    pair, trainers = two_nets()
+    shared = trainers[0]._step is trainers[1]._step
+    pair_graphs = step_cache.captured_graphs(trainers[0]._step)
+    pair_differ = [bits_differ(a, b) for a, b in zip(pair, twins)]
+
+    # the cache over two fit calls and two eval_loss calls
+    step_cache.clear_step_cache()
+    net = dropout_mlp()
+    counts = [step_cache.counters()]
+    for _ in range(2):
+        net.fit(ListDataSetIterator(batches[:w + 2]))
+        counts.append(step_cache.counters())
+    for _ in range(2):
+        Trainer(net).eval_loss(batches[0])
+        counts.append(step_cache.counters())
+    deltas = [(c[step_cache.HITS] - counts[0][step_cache.HITS],
+               c[step_cache.MISSES] - counts[0][step_cache.MISSES]) for c in counts[1:]]
+    cache_ok = deltas == [(0, 1), (1, 1), (1, 2), (2, 2)] and step_cache.cache_size() == 2
+
+    # planted fault 1: the generator not registered with the graph
+    step_cache.clear_step_cache()
+    register = torch.cuda.CUDAGraph.register_generator_state
+    torch.cuda.CUDAGraph.register_generator_state = lambda self, gen: None
+    try:
+        mask_steps(dropout_mlp(), batches, seed, w + 1)
+        unregistered = "no error"
+    except capture.CaptureError as e:
+        unregistered = str(e)
+    finally:
+        torch.cuda.CUDAGraph.register_generator_state = register
+    # planted fault 2: replays without the new batch copied in
+    step_cache.clear_step_cache()
+    copy_in = capture.CapturedStep._copy_in
+    capture.CapturedStep._copy_in = lambda self, static, rest: None
+    try:
+        f_loss, _, f_trees, _ = mask_steps(dropout_mlp(), batches, seed, CAPTURE_STEPS)
+    finally:
+        capture.CapturedStep._copy_in = copy_in
+    stale_differ = bits_differ(f_loss + f_trees, e_loss + e_trees)
+    step_cache.clear_step_cache()
+
+    result = {"card": card, "retain": CAPTURE_DROPOUT, "steps": CAPTURE_STEPS,
+              "masks_per_step": [len(m) for m in c_masks], "masks_differ": masks_differ,
+              "tensors_differ": differ, "replay_masks_fresh": fresh, "graphs": graphs,
+              "two_nets_share_step": shared, "two_nets_graphs": pair_graphs,
+              "two_nets_differ": pair_differ, "cache_deltas_hits_misses": deltas,
+              "fault_unregistered_generator": unregistered,
+              "fault_no_copy_in_tensors_differ": stale_differ}
+    log(f"captured dropout MLP on {card} (retain {CAPTURE_DROPOUT}): {CAPTURE_STEPS} steps, "
+        f"{len(e_trees) + len(e_loss)} tensors and {sum(len(m) for m in e_masks)} masks against "
+        f"eager, {differ} and {masks_differ} differ; two replays' masks differ in {fresh} of "
+        f"{len(c_masks[w])}; {graphs} graph; two nets share one step: {shared} ({pair_graphs} "
+        f"graph), tensors differing from their eager twins {pair_differ}; cache (hits, misses) "
+        f"after fit, fit, eval_loss, eval_loss: {deltas}; planted faults: no generator "
+        f"registered -> {unregistered[:120]!r}; no copy-in -> {stale_differ} tensors differ")
+    if differ or masks_differ or fresh != len(c_masks[w]) or graphs != 1:
+        raise AssertionError(f"captured dropout steps: {result}")
+    if not shared or pair_graphs != 1 or any(pair_differ):
+        raise AssertionError(f"two nets on one captured step: {result}")
+    if not cache_ok:
+        raise AssertionError(f"step cache hits and misses: {result}")
+    if unregistered == "no error" or not stale_differ:
+        raise AssertionError(f"a planted fault went unseen: {result}")
+    return result
+
+
+def shared_int8_forward(card: str) -> dict:
+    """Two int8 nets of one configuration (bench_quantized's MLP shapes,
+    1024 -> 1024 -> 10, whose output layer's N = 10 makes the int8 kernel
+    read a row-padded copy of its weight) behind two engines that share
+    one cached forward, served in turns: every answer the same bits as the
+    same request served eagerly, one graph."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+    from deeplearning4j_tpu_torch.serve import InferenceEngine
+    from deeplearning4j_tpu_torch.train import capture, step_cache
+    conf = (NeuralNetConfiguration.builder().seed(SEED).list()
+            .layer(L.DenseLayer(n_out=1024, activation="relu"))
+            .layer(L.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(1024)).build())
+    rng = np.random.default_rng(SEED + 60)
+    requests = [rng.normal(size=(BATCH, 1024)).astype(np.float32) for _ in range(CAPTURE_STEPS)]
+    config.set_dtype_policy(config.DTypePolicy(param_dtype=torch.bfloat16,
+                                               compute_dtype=torch.bfloat16,
+                                               output_dtype=torch.bfloat16))
+    try:
+        nets = [quantize_net(MultiLayerNetwork(conf, device="cuda").init(seed=SEED + k),
+                             calibration=requests[:1]) for k in (1, 2)]
+
+        def serve_in_turns():
+            engines = [InferenceEngine(net, max_batch=BATCH) for net in nets]
+            try:
+                answers = [[e.predict(x) for e in engines] for x in requests]
+            finally:
+                for e in engines:
+                    e.shutdown()
+            return answers, engines
+        step_cache.clear_step_cache()
+        with capture.eager():
+            want, _ = serve_in_turns()
+        step_cache.clear_step_cache()
+        got, engines = serve_in_turns()
+        shared = engines[0]._fwd is engines[1]._fwd
+        graphs = step_cache.captured_graphs(engines[0]._fwd)
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+        step_cache.clear_step_cache()
+    differ = sum(not np.array_equal(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    nets_differ = not np.array_equal(want[0][0], want[0][1])
+    result = {"card": card, "requests": len(requests), "engines": 2, "answers_differ": differ,
+              "share_one_forward": shared, "graphs": graphs, "nets_answer_differently": nets_differ}
+    log(f"two int8 MLPs (1024 -> 1024 -> 10, bf16) of one configuration on {card}: two engines "
+        f"served in turns share one forward: {shared} ({graphs} graph); {differ} of "
+        f"{2 * len(requests)} answers differ from the eager ones; the two nets answer "
+        f"differently: {nets_differ}")
+    if differ or not shared or graphs != 1 or not nets_differ:
+        raise AssertionError(f"two int8 nets on one captured forward: {result}")
+    return result
+
+
+def captured_steps(card: str) -> dict:
+    """Phase 22: every training and serving step of the port through the
+    step cache as CUDA graphs, against the same steps eager (module
+    docstring)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import lenet, mlp_mnist, vgg16
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+    from deeplearning4j_tpu_torch.train import Nesterovs
+    n = CAPTURE_STEPS
+    rng = np.random.default_rng(0)      # bench.py's bench_workload_steps data first
+
+    def small(shape, size=SMALL_BATCH):
+        return [DataSet(torch.from_numpy(rng.normal(size=(size,) + shape).astype(np.float32))
+                        .cuda(), torch.eye(10, device="cuda")[rng.integers(0, 10, size)])
+                for _ in range(n)]
+    mlp_batches, lenet_batches = small((784,)), small((32, 32, 3))
+    gen = torch.Generator(device="cuda").manual_seed(CAPTURE_SEED)
+    images = [torch.randn(BATCH, 224, 224, 3, device="cuda", generator=gen) for _ in range(n)]
+    labels = [torch.eye(1000, device="cuda")[torch.randint(0, 1000, (BATCH,), device="cuda",
+                                                           generator=gen)] for _ in range(n)]
+    hb = headline_batch(headline_config().vocab_size)
+    bert_batches = [[torch.as_tensor(np.roll(hb[k], i, axis=0), device="cuda").to(dt) for k, dt in
+                     (("input_ids", torch.long), ("labels", torch.long),
+                      ("label_weights", torch.float32), ("attention_mask", torch.float32))]
+                    for i in range(n)]
+    ids, stack_labels, stack_mask = stack_batch()
+    stack_batches = [DataSet(torch.from_numpy(np.roll(ids, 97 * i, axis=1)).cuda(),
+                             torch.from_numpy(stack_labels).cuda(),
+                             torch.from_numpy(stack_mask).cuda()) for i in range(n)]
+    bf16_params = config.DTypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                     output_dtype=torch.bfloat16)
+    paths = [
+        capture_path(card, f"MLP-MNIST fit, batch {SMALL_BATCH}",
+                     fit_path(lambda: mlp_mnist(device="cuda").init(seed=SMALL_SEED),
+                              mlp_batches), expect={}),
+        capture_path(card, f"LeNet(32, 32, 3) fit, batch {SMALL_BATCH}",
+                     fit_path(lambda: lenet(height=32, width=32, channels=3, device="cuda")
+                              .init(seed=SMALL_SEED),
+                              lenet_batches),
+                     expect={}),
+        capture_path(card, f"ResNet-50 f32 Trainer.fit_batch, batch {BATCH}",
+                     trainer_path(lambda: build_net(Nesterovs(TRAIN_LR, 0.9)),
+                                  [DataSet(x, y) for x, y in zip(images, labels)], CAPTURE_SEED),
+                     expect={"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}),
+        capture_path(card, f"BERT-base MLM seq-128 headline make_train_step, {HEADLINE_SEQS} x "
+                     f"{HEADLINE_SEQ}, bf16", bert_path(bert_batches),
+                     policy=config.DTypePolicy.bf16(), expect={}),
+        capture_path(card, f"config-first encoder Trainer.fit_batch, {BERT_BATCH} x {BERT_SEQ}, "
+                     f"bf16 params", trainer_path(
+                         lambda: ComputationGraph(stack_conf(), device="cuda").init(),
+                         stack_batches, CAPTURE_SEED), policy=bf16_params,
+                     expect={"flash_attention": STACK_BLOCKS, "flash_attention_bwd": STACK_BLOCKS}),
+    ]
+    del images, labels, bert_batches, stack_batches
+    requests = [rng.normal(size=(BATCH, 224, 224, 3)).astype(np.float32) for _ in range(n)]
+    net = build_net()
+    paths.append(capture_path(card, f"ResNet-50 f32 served, batch {BATCH}",
+                              engine_path(net, requests), expect={"matmul_bn_act": 36}))
+    del net
+    config.set_dtype_policy(bf16_params)     # bench_quantized's serving policy, as phase 17
+    try:
+        calib = [rng.normal(size=(VGG_CALIB[1], 224, 224, 3)).astype(np.float32)
+                 for _ in range(VGG_CALIB[0])]
+        qnet = quantize_net(vgg16(device="cuda").init(seed=SEED), calibration=calib)
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    paths.append(capture_path(card, f"VGG-16 int8 served, batch {BATCH}, bf16",
+                              engine_path(qnet, requests), policy=bf16_params,
+                              expect={"int8_matmul": 3}))
+    del qnet
+    checks = capture_checks(card, small((784,)))
+    shared = shared_int8_forward(card)
+    fit = bert_fit_modes(card)
+    return {"paths": paths, "checks": checks, "shared_int8_forward": shared, "bert_fit": fit}
+
+
+def bert_fit_modes(card: str) -> dict:
+    """``BertForMaskedLM.fit`` of the seq-128 headline (its feeder and
+    bus), eager and captured: step ms after the first ``w + 1`` steps (the
+    warm-up calls and the capture), the graph its step holds, finite
+    losses (the bits are held by ``capture_path``'s run of its step)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.train import Adam, capture
+    import contextlib
+    w = capture.WARMUP_CALLS
+    batch = headline_batch(headline_config().vocab_size)
+    out = {}
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        for mode in ("eager", "captured"):
+            with capture.eager() if mode == "eager" else contextlib.nullcontext():
+                model = BertForMaskedLM(headline_config(), seed=0, device="cuda")
+                watch = StepWatch()
+                model.fit([batch] * (w + 1 + CAPTURE_STEPS), listeners=[watch],
+                          updater=Adam(HEADLINE_LR, mu_dtype="bf16"))
+                out[mode] = {"step_ms": float(np.mean(watch.seconds[w + 1:])) * 1e3,
+                             "losses": watch.losses, "graphs": model._step.graph_count}
+                del model
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    log(f"BERT-base seq-128 headline through fit (DeviceFeeder, ListenerBus) on {card}: "
+        f"eager {out['eager']['step_ms']:.2f} ms a step, captured {out['captured']['step_ms']:.2f} "
+        f"ms ({out['captured']['graphs']} graph), over {CAPTURE_STEPS} steps after {w + 1} "
+        f"(default mode, so the losses are not held to each other: "
+        f"{out['eager']['losses']} and {out['captured']['losses']})")
+    if out["captured"]["graphs"] != 1 or not np.isfinite(out["captured"]["losses"]).all():
+        raise AssertionError(f"BERT fit captured: {out}")
+    return out
+
+
+def release() -> None:
+    """Drop the cached steps (the nets and graphs they hold) and return the
+    allocator's free memory to the card, between phases."""
+    import torch
+    from deeplearning4j_tpu_torch.train import step_cache
+    step_cache.clear_step_cache()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--times"]:           # one run of the A/B call, in the tree given
         sys.path.insert(0, sys.argv[2])
@@ -3664,6 +4346,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--ab"]:
         return ab(Path(sys.argv[2]).resolve())
     from deeplearning4j_tpu_torch.ops.kernels import _build
+    from deeplearning4j_tpu_torch.train import capture
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3683,104 +4366,114 @@ def main() -> int:
     log(f"the kernels of {', '.join(HOPPER_LIBS)} in SASS (cuobjdump -sass):")
     hopper = check_hopper_path(built)
 
-    net = build_net()
-    calls = resnet50_calls(net, BATCH)
-    if len(calls) != 36:
-        raise AssertionError(f"ResNet-50 makes {len(calls)} matmul_bn_act calls, not 36")
-    log(f"kernel check: {len(set(calls))} distinct shapes of the 36 calls at batch {BATCH}, "
-        f"{sum(2 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
-    rows = check_kernels(calls, (torch.float32, torch.bfloat16))
+    # phases 3-21 hold the kernels per step and against their plain versions
+    # on the eager steps (capture.eager()); phase 22 captures the same paths
+    with capture.eager():
+        net = build_net()
+        calls = resnet50_calls(net, BATCH)
+        if len(calls) != 36:
+            raise AssertionError(f"ResNet-50 makes {len(calls)} matmul_bn_act calls, not 36")
+        log(f"kernel check: {len(set(calls))} distinct shapes of the 36 calls at batch {BATCH}, "
+            f"{sum(2 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
+        rows = check_kernels(calls, (torch.float32, torch.bfloat16))
 
-    serving = serve(net, card)
-    del net
+        serving = serve(net, card)
+        del net
+        release()
 
-    log(f"backward kernel check: {len(set(calls))} distinct shapes, "
-        f"{sum(4 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
-    bwd_rows = check_bwd_kernels(calls, (torch.float32, torch.bfloat16))
-    training = train_check(card)
-    head = headline(card)
-    # the headline ran both kernels at its own shapes: hold them there too
-    from deeplearning4j_tpu_torch.models import resnet50
-    head_calls = resnet50_calls(resnet50(fused=True, device="cuda"), head["batch"])
-    log(f"kernel checks at the headline's batch {head['batch']}, bf16: "
-        f"{len(set(head_calls))} distinct shapes")
-    head_rows = check_kernels(head_calls, (torch.bfloat16,))
-    head_bwd_rows = check_bwd_kernels(head_calls, (torch.bfloat16,))
-    torch.cuda.empty_cache()
+        log(f"backward kernel check: {len(set(calls))} distinct shapes, "
+            f"{sum(4 * m * k * n for m, k, n, _ in calls) / BATCH / 1e9:.3f} GFLOP per image")
+        bwd_rows = check_bwd_kernels(calls, (torch.float32, torch.bfloat16))
+        training = train_check(card)
+        head = headline(card)
+        # the headline ran both kernels at its own shapes: hold them there too
+        from deeplearning4j_tpu_torch.models import resnet50
+        head_calls = resnet50_calls(resnet50(fused=True, device="cuda"), head["batch"])
+        log(f"kernel checks at the headline's batch {head['batch']}, bf16: "
+            f"{len(set(head_calls))} distinct shapes")
+        head_rows = check_kernels(head_calls, (torch.bfloat16,))
+        head_bwd_rows = check_bwd_kernels(head_calls, (torch.bfloat16,))
+        release()
 
-    log(f"ragged matmul_bn_act kernel check: M = {RAGGED_M}, (K, N, prologue) = "
-        f"{[c[1:] for c in RAGGED_CALLS]}, f32 and bf16")
-    ragged_rows = check_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
-    ragged_bwd_rows = check_bwd_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
-    ragged = ragged_graph(card)
-    torch.cuda.empty_cache()
+        log(f"ragged matmul_bn_act kernel check: M = {RAGGED_M}, (K, N, prologue) = "
+            f"{[c[1:] for c in RAGGED_CALLS]}, f32 and bf16")
+        ragged_rows = check_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
+        ragged_bwd_rows = check_bwd_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
+        ragged = ragged_graph(card)
+        release()
 
-    log(f"conv3x3_bn_act kernel check: ResNet-50's four 3x3 shapes at batch {BATCH}, (prologue, "
-        f"relu_in) in {CONV3_VARIANTS}, then {len(CONV3_RAGGED)} other shapes, f32 and bf16")
-    conv3_rows = check_conv3(conv3_calls(BATCH), (torch.float32, torch.bfloat16), CONV3_VARIANTS)
-    conv3_ragged_rows = check_conv3(list(CONV3_RAGGED), (torch.float32, torch.bfloat16),
-                                    CONV3_VARIANTS[:1], timed=False)
-    conv3_paths = [conv3_path(card, BATCH, "f32"), conv3_path(card, head["batch"], "bf16")]
-    conv3_grads = conv3_autograd(card)
-    log(f"conv3x3_bn_act at the headline's batch {head['batch']}, bf16")
-    conv3_head_rows = check_conv3(conv3_calls(head["batch"]), (torch.bfloat16,),
-                                  CONV3_VARIANTS[:1])
-    timed = [r for r in conv3_rows if "ms" in r]
-    c3f32, c3bf16 = per_forward(timed, "float32"), per_forward(timed, "bfloat16")
-    c3h16 = per_forward(conv3_head_rows, "bfloat16")
-    for name, tot, sel in ((f"batch {BATCH} f32", c3f32, (timed, "float32")),
-                           (f"batch {BATCH} bf16", c3bf16, (timed, "bfloat16")),
-                           (f"batch {head['batch']} bf16", c3h16, (conv3_head_rows, "bfloat16"))):
-        fma = sum(r["fma_ops_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
-        dev = sum(r["device_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
-        log(f"  the 16 3x3 calls of one pass, {name}: kernel {tot['ms']:.3f} ms (device time "
-            f"{dev:.3f}), plain "
-            f"{tot['plain_ms']:.3f}, library (the layer's chain) {tot['library_ms']:.3f}, bound "
-            f"{tot['bound_ms']:.3f} ({tot['bound_by']}; bytes {tot['bytes_ms']:.3f}, operations "
-            f"{tot['ops_ms']:.3f}; on the CUDA cores {fma:.3f})")
-    torch.cuda.empty_cache()
+        log(f"conv3x3_bn_act kernel check: ResNet-50's four 3x3 shapes at batch {BATCH}, "
+            f"(prologue, "
+            f"relu_in) in {CONV3_VARIANTS}, then {len(CONV3_RAGGED)} other shapes, f32 and bf16")
+        conv3_rows = check_conv3(conv3_calls(BATCH), (torch.float32, torch.bfloat16),
+                                 CONV3_VARIANTS)
+        conv3_ragged_rows = check_conv3(list(CONV3_RAGGED), (torch.float32, torch.bfloat16),
+                                        CONV3_VARIANTS[:1], timed=False)
+        conv3_paths = [conv3_path(card, BATCH, "f32"), conv3_path(card, head["batch"], "bf16")]
+        conv3_grads = conv3_autograd(card)
+        log(f"conv3x3_bn_act at the headline's batch {head['batch']}, bf16")
+        conv3_head_rows = check_conv3(conv3_calls(head["batch"]), (torch.bfloat16,),
+                                      CONV3_VARIANTS[:1])
+        timed = [r for r in conv3_rows if "ms" in r]
+        c3f32, c3bf16 = per_forward(timed, "float32"), per_forward(timed, "bfloat16")
+        c3h16 = per_forward(conv3_head_rows, "bfloat16")
+        for name, tot, sel in ((f"batch {BATCH} f32", c3f32, (timed, "float32")),
+                               (f"batch {BATCH} bf16", c3bf16, (timed, "bfloat16")),
+                               (f"batch {head['batch']} bf16", c3h16, (conv3_head_rows, "bfloat16"))):
+            fma = sum(r["fma_ops_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
+            dev = sum(r["device_ms"] * r["count"] for r in sel[0] if r["dtype"] == sel[1])
+            log(f"  the 16 3x3 calls of one pass, {name}: kernel {tot['ms']:.3f} ms (device time "
+                f"{dev:.3f}), plain "
+                f"{tot['plain_ms']:.3f}, library (the layer's chain) {tot['library_ms']:.3f}, "
+                f"bound {tot['bound_ms']:.3f} ({tot['bound_by']}; bytes {tot['bytes_ms']:.3f}, "
+                f"operations "
+                f"{tot['ops_ms']:.3f}; on the CUDA cores {fma:.3f})")
+        release()
 
-    log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
-        f"({BERT_BATCH}, 12, 64), f32 and bf16")
-    flash_rows = check_flash((torch.float32, torch.bfloat16))
-    f32_worst = max(e for r in flash_rows if r["dtype"] == "float32"
-                    for e in list(r["rel_err"].values()) + list(r["split_vs_merged"].values()))
-    log(f"f32 flash errors at D = 64 (three TF32 passes): at most {f32_worst:.2e} over every "
-        f"case and output (the CUDA-core kernels before them read at most 3.1e-6; limits "
-        f"{FLASH_TOL['float32']})")
-    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-    scratch = fa.merged_scratch_bytes(BERT_BATCH, 12, BERT_SEQ, 64)
-    log(f"merged backward's scratch beside dq at ({BERT_BATCH}, 12, {BERT_SEQ}, 64): {scratch} "
-        f"bytes ({scratch / 1e9:.6f} GB; limit {MERGED_SCRATCH_LIMIT / 1e9} GB); both forms gave "
-        f"the same bits on a second run at the base case of every head dim, f32 and bf16")
-    if scratch > MERGED_SCRATCH_LIMIT:
-        raise AssertionError(f"the merged backward's scratch {scratch} bytes is over "
-                             f"{MERGED_SCRATCH_LIMIT}")
-    split_main = split_main_path()
-    flash_dim_rows = []
-    for d, heads, names in FLASH_HEAD_DIMS:
-        cases = tuple(c for c in FLASH_CASES if names is None or c[0] in names)
-        log(f"flash attention at head dim {d}: {len(cases)} cases at (B, H) = ({BERT_BATCH}, "
-            f"{heads}), f32 and bf16")
-        flash_dim_rows += check_flash((torch.float32, torch.bfloat16), d, heads, cases)
-    log(f"flash attention backward, both forms, at long sequences {LONG_SEQS}")
-    long_rows = flash_long(card)
-    bert_served = bert_serve(card)
-    bert_heads = [bert_serve(card, 2, heads) for heads in BERT_HEADS]
-    bert_head = bert_finetune(card)
-    bert_check = bert_train_check(card)
-    torch.cuda.empty_cache()
+        log(f"flash attention kernel check: {len(FLASH_CASES)} cases at (B, H, D) = "
+            f"({BERT_BATCH}, 12, 64), f32 and bf16")
+        flash_rows = check_flash((torch.float32, torch.bfloat16))
+        f32_worst = max(e for r in flash_rows if r["dtype"] == "float32"
+                        for e in list(r["rel_err"].values()) + list(r["split_vs_merged"].values()))
+        log(f"f32 flash errors at D = 64 (three TF32 passes): at most {f32_worst:.2e} over every "
+            f"case and output (the CUDA-core kernels before them read at most 3.1e-6; limits "
+            f"{FLASH_TOL['float32']})")
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        scratch = fa.merged_scratch_bytes(BERT_BATCH, 12, BERT_SEQ, 64)
+        log(f"merged backward's scratch beside dq at ({BERT_BATCH}, 12, {BERT_SEQ}, 64): {scratch} "
+            f"bytes ({scratch / 1e9:.6f} GB; limit {MERGED_SCRATCH_LIMIT / 1e9} GB); both forms "
+            f"gave "
+            f"the same bits on a second run at the base case of every head dim, f32 and bf16")
+        if scratch > MERGED_SCRATCH_LIMIT:
+            raise AssertionError(f"the merged backward's scratch {scratch} bytes is over "
+                                 f"{MERGED_SCRATCH_LIMIT}")
+        split_main = split_main_path()
+        flash_dim_rows = []
+        for d, heads, names in FLASH_HEAD_DIMS:
+            cases = tuple(c for c in FLASH_CASES if names is None or c[0] in names)
+            log(f"flash attention at head dim {d}: {len(cases)} cases at (B, H) = ({BERT_BATCH}, "
+                f"{heads}), f32 and bf16")
+            flash_dim_rows += check_flash((torch.float32, torch.bfloat16), d, heads, cases)
+        log(f"flash attention backward, both forms, at long sequences {LONG_SEQS}")
+        long_rows = flash_long(card)
+        bert_served = bert_serve(card)
+        bert_heads = [bert_serve(card, 2, heads) for heads in BERT_HEADS]
+        bert_head = bert_finetune(card)
+        bert_check = bert_train_check(card)
+        release()
 
-    log(f"int8_matmul kernel check: {len(INT8_SHAPES)} shapes at M in {INT8_BATCHES}, f32 and "
-        f"bf16, L2 cold")
-    int8_rows = check_int8((torch.float32, torch.bfloat16))
-    vgg = vgg_serve(card)
-    torch.cuda.empty_cache()
-    small = small_nets(card)
-    torch.cuda.empty_cache()
-    headline128 = bert_headline(card)
-    torch.cuda.empty_cache()
-    stack = attention_stack(card)
+        log(f"int8_matmul kernel check: {len(INT8_SHAPES)} shapes at M in {INT8_BATCHES}, f32 and "
+            f"bf16, L2 cold")
+        int8_rows = check_int8((torch.float32, torch.bfloat16))
+        vgg = vgg_serve(card)
+        release()
+        small = small_nets(card)
+        release()
+        headline128 = bert_headline(card)
+        release()
+        stack = attention_stack(card)
+    release()
+    captured = captured_steps(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3876,6 +4569,7 @@ def main() -> int:
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
+         "captured_steps": captured,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

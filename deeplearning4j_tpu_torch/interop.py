@@ -80,7 +80,7 @@ def load_jax_opt_state(net, opt_state):
             raise KeyError(f"opt_state: field {key!r} missing from the JAX state "
                            f"(it has {sorted(fields)})")
         if key == "count":
-            out[key] = torch.as_tensor(np.asarray(fields[key]), dtype=tree.dtype,
+            out[key] = torch.as_tensor(np.array(fields[key]), dtype=tree.dtype,
                                        device=tree.device).reshape(())
         else:
             out[key] = _fill(f"opt_state[{key!r}]", tree, fields[key])

@@ -16,7 +16,9 @@ on the CUDA card unless it is given ``device="cpu"``.  Dropout draws from
 an explicit ``torch.Generator``; its numbers differ from JAX's.  ``fit``
 stages each batch through ``data.device_pipeline.DeviceFeeder`` (batch
 N+1 crosses to the card while step N runs) and reports every step
-through an ``obs.listeners.ListenerBus``.  :func:`pipeline_stages` splits
+through an ``obs.listeners.ListenerBus``; its train step updates params
+and updater state in place and, on the card, replays a CUDA graph after
+two eager steps (``train/capture.py``).  :func:`pipeline_stages` splits
 the model into stage functions for a pipeline-parallel step, with
 :func:`merge_tied_embedding_grads` and :func:`mlm_loss_from_logits`
 beside them; the pipeline schedule itself (``parallel/``) is not ported
@@ -38,6 +40,7 @@ from deeplearning4j_tpu_torch.io.model_serializer import (
     _npz_bytes_to_leaves, _rebuild_like, _tree_to_npz_bytes)
 from deeplearning4j_tpu_torch.ops.attention import multi_head_attention
 from deeplearning4j_tpu_torch.train import updaters as updater_mod
+from deeplearning4j_tpu_torch.train.capture import CapturedStep, write_into
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
 
 
@@ -340,25 +343,36 @@ class BertForMaskedLM:
     def make_train_step(self, updater):
         """The MLM train step for a port updater (``train/updaters.py``):
         ``step(params, opt_state, input_ids, labels, label_weights,
-        attention_mask, gen) -> (params, opt_state, loss)`` with a 0-dim
-        device loss.  New tensors are returned; the inputs are not changed."""
+        attention_mask, gen) -> (params, opt_state, loss)`` with a fresh
+        0-dim device loss.
+
+        DONATION CONTRACT, as in the JAX package: the step updates the
+        ``params`` and ``opt_state`` trees it is given in place and returns
+        them, so callers rebind to what it returns (``model.params,
+        model.opt_state, loss = step(model.params, model.opt_state, ...)``,
+        as :meth:`fit` does), and a tree kept from before the step holds
+        the new values.  On the card the step runs as CUDA graphs
+        (``train/capture.py``): eager for its first calls, then captured
+        once and replayed."""
         config = self.config
 
         def step(params, opt_state, input_ids, labels, label_weights, attention_mask, gen):
-            params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            loss = mlm_loss(params, config, input_ids, labels, label_weights,
-                            attention_mask=attention_mask, train=True, gen=gen)
-            leaves = tree_leaves(params)
-            # the pooler is not on the MLM path: its gradient is zero, as in JAX
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grad_params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                loss = mlm_loss(grad_params, config, input_ids, labels, label_weights,
+                                attention_mask=attention_mask, train=True, gen=gen)
+                leaves = tree_leaves(grad_params)
+                # the pooler is not on the MLM path: its gradient is zero, as in JAX
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
             grads = tree_map(lambda _: next(grads), params)
             with torch.no_grad():
-                updates, opt_state = updater.update(grads, opt_state)
-                params = tree_map(lambda p, u: p.detach() + u, params, updates)
+                updates, new_opt_state = updater.update(grads, opt_state)
+                tree_map(lambda p, u: p.add_(u), params, updates)
+                write_into(opt_state, new_opt_state)
             return params, opt_state, loss.detach()
 
-        return step
+        return CapturedStep(step, n_trees=2, name=f"{type(self).__name__}.train_step")
 
     def fit(self, batches, updater=None, epochs: int = 1, listeners=None):
         """Fine-tune over ``batches`` (dicts of ``input_ids``, ``labels``,

@@ -76,9 +76,10 @@ class MultiLayerNetwork:
         return flat_param_vector(self.params_, self.device)
 
     def set_params(self, params: list) -> None:
-        """Replace the parameters with ``params``, a list of per-layer
-        dicts (tensors or arrays), placed on the net's device."""
-        self.params_ = [{k: self._as_tensor(v) for k, v in d.items()} for d in params]
+        """Replace the parameters with copies of ``params``, a list of
+        per-layer dicts (tensors or arrays), on the net's device: training
+        updates the net's tensors in place, so the caller's stay as given."""
+        self.params_ = [{k: self._as_tensor(v).clone() for k, v in d.items()} for d in params]
 
     # ---------------------------------------------------------- forward
     def _forward(self, params, state, x, *, train: bool = False, rng=None, mask=None,

@@ -119,14 +119,25 @@ def tma_weight(w_q):
     where it is so, else a copy with rows zero-padded to 16 bytes (VGG-16's
     fc8, N = 1000).  The copy is made once and kept on w_q: a quantized
     net's weights are made once and read at every call (a change to w_q in
-    place makes a new copy)."""
+    place makes a new copy).  While a CUDA graph is being captured the copy
+    is made in the graph instead, so that every replay copies what w_q
+    holds then: a captured step takes another net's weights into the same
+    buffers (``train/capture.py``)."""
     if w_q.shape[1] % 16 == 0 and w_q.data_ptr() % 16 == 0:
         return w_q, w_q.shape[1]
+    if _capturing(w_q):
+        aligned = row_aligned(w_q.clone())
+        return aligned, aligned.shape[1]
     held = getattr(w_q, "_tma_rows", None)
     if held is None or held[0] != w_q._version:
         held = (w_q._version, row_aligned(w_q.clone()))   # a fresh, aligned allocation
         w_q._tma_rows = held
     return held[1], held[1].shape[1]
+
+
+def _capturing(t) -> bool:
+    """Whether work on ``t``'s device is being captured into a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def tile_m(m: int) -> int:

@@ -19,8 +19,14 @@ forms batches and runs the model's forward on its device under
 
 Rows are copied into a persistent host staging buffer per request
 signature (:class:`_BatchStage`) as requests are admitted, so staging
-overlaps the batching window.  The JAX engine's observability, fault
-and step-cache hooks are not ported yet.
+overlaps the batching window.  The forward is a captured step
+(``train/capture.py``: a CUDA graph per bucket on the card, after two
+eager calls) cached process-wide under the model's
+``step_cache.net_signature`` plus ``"serve_forward"``, so engines of one
+configuration share it, as in the JAX package; unlike the JAX package's
+engine the port captures the ``ComputationGraph`` family too, since both
+families' forward is a function of ``(params, state, x, mask)``.  The JAX
+engine's observability and fault hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.config import resolve_device
+from deeplearning4j_tpu_torch.train import step_cache
+from deeplearning4j_tpu_torch.train.capture import CapturedStep
 
 
 class Overloaded(RuntimeError):
@@ -168,6 +176,17 @@ class _BatchStage:
         return self.mask[:bucket]
 
 
+def _build_forward(net, name="") -> CapturedStep:
+    """The inference forward ``(params, state, x, mask) -> y`` of ``net``'s
+    configuration, captured per bucket; it reads params and state as
+    arguments, so every net of the configuration can share it."""
+
+    def forward(params, state, x, mask):
+        return net._forward(params, state, x, train=False, mask=mask)[0]
+
+    return CapturedStep(forward, n_trees=2, name=name)
+
+
 class InferenceEngine:
     """Micro-batching front end for one model on the model's device.
 
@@ -176,6 +195,9 @@ class InferenceEngine:
     dispatches on ``model.device`` and raises if that is a CUDA card that
     is absent.  ``batches`` counts dispatched forwards; ``precision`` is
     ``"int8"`` for a quantized net (``nn/quantize.py``), else ``"fp"``.
+    A quantized net keeps its full-precision sibling's configuration, so
+    the two share the cached forward, each with graphs of its own params'
+    shapes and dtypes.
     """
 
     _SHUTDOWN = object()
@@ -198,6 +220,9 @@ class InferenceEngine:
         self._queue: queue.Queue = queue.Queue(maxsize=self.queue_limit)
         self._closed = threading.Event()
         self._stages: dict[tuple, _BatchStage] = {}
+        sig = step_cache.net_signature(model)
+        key = sig + ("serve_forward",) if sig is not None else None
+        self._fwd = step_cache.get_or_build(key, lambda: _build_forward(model, key))
         self._worker = threading.Thread(
             target=self._run, daemon=True, name=f"tpudl-serve-{name}")
         self._worker.start()
@@ -296,8 +321,7 @@ class InferenceEngine:
         x = torch.as_tensor(features, device=self.device)
         m = None if mask is None else torch.as_tensor(mask, device=self.device)
         with torch.inference_mode():
-            y = self.model._forward(self.model.params_, self.model.state_, x,
-                                    train=False, mask=m)[0]
+            y = self._fwd(self.model.params_, self.model.state_, x, m)
         if y.dtype == torch.bfloat16:
             y = y.float()
         return y.cpu().numpy()

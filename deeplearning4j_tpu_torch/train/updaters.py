@@ -180,9 +180,12 @@ class Adam(_UpdaterBase):
         mu = tree_map(lambda g, m: (1 - b1) * g + b1m * m, grads, state["mu"])
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
         count = state["count"] + 1
+        # the bias corrections from the device count alone (no host copy, so
+        # the step can be captured); the float base is taken to f32, as JAX
+        # takes ``b ** count``
         steps = count.to(torch.float32)
-        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=steps.device), steps)
-        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=steps.device), steps)
+        c1 = 1 - torch.pow(b1, steps)
+        c2 = 1 - torch.pow(b2, steps)
         updates = tree_map(lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)), mu, nu)
         if mu_dtype is not None:
             mu = tree_map(lambda m: m.to(mu_dtype), mu)

@@ -267,7 +267,8 @@ def test_f32_step_is_within_the_band_of_an_f64_step(size, batch):
         try:
             net = resnet50(height=size, width=size, num_classes=10, device="cpu",
                            updater=Nesterovs(LR, MOMENTUM))
-            net.params_, net.state_ = ({v: {k: t.to(tdtype) for k, t in d.items()}
+            # copies: the step updates the net's tensors in place
+            net.params_, net.state_ = ({v: {k: t.to(tdtype, copy=True) for k, t in d.items()}
                                         for v, d in tree.items()}
                                        for tree in (start.params_, start.state_))
             Trainer(net).fit_batch(DataSet(x.astype(dtype), y.astype(dtype)))
