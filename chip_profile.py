@@ -2,7 +2,8 @@
 """Where the time of the port's ResNet-50 forward and training step, of
 its BERT fine-tune steps (bf16 and f32) and seq-128 headline step (by
 itself and through ``fit``), of its int8 VGG-16 serving forward and of
-the MLP-MNIST and LeNet training steps goes on one CUDA card, each run
+the MLP-MNIST, LeNet and UCI-HAR LSTM training steps goes on one CUDA
+card, each run
 eagerly (``train.capture.eager()``) and as the captured step the port
 runs by default (CUDA graphs, ``train/capture.py``).
 
@@ -40,7 +41,10 @@ for the device, one at a time for the launch calls:
   eager, the engine's cached forward captured);
 - ``mlp_mnist_step`` and ``lenet_cifar10_step``: ``Trainer.fit_batch`` of
   ``mlp_mnist()`` and of ``lenet(32, 32, 3)`` at batch 128 (f32), on
-  ``bench.py``'s ``bench_workload_steps`` data (``chip_smoke.small_nets``).
+  ``bench.py``'s ``bench_workload_steps`` data (``chip_smoke.small_nets``);
+- ``lstm_har_step``: ``Trainer.fit_batch`` of ``lstm_classifier()`` at
+  batch 64 x 128 x 9 (f32), the same stream's next arrays
+  (``chip_smoke.har_batches``, ``bench.py:499-502``).
 
 Prints the card's name and power limit and, per workload and mode, its
 wall time from CUDA events; the host side, each run from an idle card:
@@ -236,7 +240,8 @@ def main() -> int:
         return 2
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.models import BertForMaskedLM, lenet, mlp_mnist, vgg16
+    from deeplearning4j_tpu_torch.models import (BertForMaskedLM, lenet, lstm_classifier,
+                                                 mlp_mnist, vgg16)
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
     from deeplearning4j_tpu_torch.serve.engine import _build_forward
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer, capture
@@ -311,7 +316,14 @@ def main() -> int:
         onehot = np.eye(10, dtype=np.float32)[rng.integers(0, 10, chip_smoke.SMALL_BATCH)]
         small[name] = (Trainer(factory(device="cuda", **kwargs).init(seed=chip_smoke.SMALL_SEED)),
                        DataSet(torch.from_numpy(features).cuda(),
-                               torch.from_numpy(onehot).cuda()))
+                               torch.from_numpy(onehot).cuda()),
+                       chip_smoke.SMALL_BATCH, "images")
+    har_x, har_y = chip_smoke.har_batches(1)[0]
+    small["lstm_har_step"] = (Trainer(lstm_classifier(device="cuda")
+                                      .init(seed=chip_smoke.SMALL_SEED)),
+                              DataSet(torch.from_numpy(har_x).cuda(),
+                                      torch.from_numpy(har_y).cuda()), chip_smoke.HAR_BATCH,
+                              "sequences")
     # name: (eager run, captured run, items per run, unit, dtype policy)
     workloads = {
         "forward": (lambda: net.output(x), lambda: served(forward, net, x), chip_smoke.BATCH,
@@ -330,9 +342,9 @@ def main() -> int:
         + (FIT_STEPS * chip_smoke.HEADLINE_SEQS * chip_smoke.HEADLINE_SEQ, "tokens", bf16),
         "vgg16_int8_forward": (lambda: qnet.output(images), lambda: served(qforward, qnet, images),
                                chip_smoke.VGG_BATCH, "images", serving)}
-    for name, (small_trainer, small_batch) in small.items():
+    for name, (small_trainer, small_batch, size, unit) in small.items():
         workloads[name] = ((lambda t=small_trainer, b=small_batch: t.fit_batch(b),) * 2
-                           + (chip_smoke.SMALL_BATCH, "images", f32))
+                           + (size, unit, f32))
     modes = {"eager": capture.eager, "captured": contextlib.nullcontext}
 
     def measure(name, mode, what):

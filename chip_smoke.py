@@ -199,14 +199,17 @@ no result line:
    ``matmul_bn_act`` launches), the seq-128 headline's ``make_train_step``
    (phase 20's configuration, not cut), the config-first encoder's
    ``fit_batch`` at 2 x 4096 with bf16 params (4 + 4 flash launches), the
-   engine serving ResNet-50 f32 and VGG-16 int8 at batch 32: 5 steps (or
-   requests) that must give the same bits (losses or answers, params,
-   state, updater state), the kernel launches of the capture call equal
-   to an eager step's and none counted on a replay, one graph; then step
-   ms (mean of 20), device ms and busy share, device operations and the
-   host's kernel and graph launches per step (torch.profiler), peak
-   memory, per mode.  Then MLP-MNIST with dropout (retain 0.8): 5
-   captured steps against eager ones, masks included, two replays
+   engine serving ResNet-50 f32 and VGG-16 int8 at batch 32, the UCI-HAR
+   ``lstm_classifier``'s ``Trainer.fit_batch`` at 64 x 128 x 9 and the
+   char-RNN's tBPTT ``fit`` at 32 x 250 (5 segments, so 5 graph launches a
+   batch): 5 steps (or requests, or batches) that must give the same bits
+   (losses or answers, params, state, updater state), the kernel launches
+   of the capture call equal to an eager step's and none counted on a
+   replay, one graph; then step ms (mean of 20; 3 char-RNN batches),
+   device ms and busy share, device operations and the host's kernel and
+   graph launches per step (torch.profiler), peak memory, per mode.  Then
+   MLP-MNIST with dropout (retain 0.8): 5 captured steps against eager
+   ones, masks included, two replays
    drawing different masks; two nets of one configuration interleaved on
    one graph, each against its eager twin; the cache's hits and misses
    over two ``fit`` and two ``eval_loss`` calls (one miss per kind);
@@ -217,7 +220,23 @@ no result line:
    captured forward, served in turns, each answer equal to the eager one;
    and the headline through ``BertForMaskedLM.fit`` (feeder and bus),
    eager against captured;
-23. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+23. the recurrent nets, which run no kernel of this repo: (a)
+   ``bench.py:499-502``'s UCI-HAR step, ``lstm_classifier(timesteps=128)``
+   (GravesLSTM(128), LastTimeStep, softmax over 6; Adam(5e-3), gradients
+   clipped element-wise at 0.5) by ``Trainer.fit_batch`` at 64 x 128 x 9:
+   step 0 on the card against the CPU from the same weights (the loss and
+   every clipped gradient held, Adam's updates printed), 20 eager steps
+   timed with device time, busy share and kernels per step, beside phase
+   22's captured reading; (b) ``datasets.uci_har`` (synthetic) into 2
+   epochs of ``fit`` and ``evaluate`` on the card and, with the same
+   weights, on the CPU (accuracy above ``HAR_ACCURACY``, no prediction
+   differing); (c) ``text_gen_lstm()`` (2 x GravesLSTM(256), vocab 77,
+   tBPTT 50/50) through 4 ``fit`` calls on seeded 32 x 1000 sequences of a
+   Markov chain: the loss falls, 20 segments a batch, one graph, ms per
+   batch (and one batch eager); then 200 characters sampled one at a
+   time through ``rnn_time_step``, held to ``output`` of the whole sampled
+   sequence;
+24. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -2999,19 +3018,24 @@ def small_step(card, name, factory, kwargs, x, y) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / SMALL_STEPS * 1e3
     dev = device_ms(step)
+    ops = step_profile(step, reps=1)
     result = {"card": card, "batch": len(x), "updater": kind, "loss0": loss,
               "loss0_cpu": loss_cpu, "loss0_rel_err": loss_err,
               "grad_rel_err_max": max(grad_errs.values()),
               "update_rel_err_max": max(upd_errs.values()), "update_entries_off": off,
               "update_held": kind in LINEAR_UPDATERS, "last_loss": last.item(),
               "step_ms": step_ms, "images_per_s": len(x) / step_ms * 1e3,
-              "device_ms": dev, "busy_share": dev / step_ms}
+              "device_ms": dev, "busy_share": dev / step_ms,
+              "device_ops_per_step": ops["device_ops"],
+              "kernel_launches_per_step": ops["kernel_launches"]}
     log(f"{name} train f32 batch {len(x)} on {card}: step 0 vs CPU loss {loss:.6f} "
         f"({loss_err:.2e} rel), gradients {result['grad_rel_err_max']:.2e}, {kind} updates "
         f"{result['update_rel_err_max']:.2e} ({off} entries past {SMALL_STEP0_TOL} of their "
         f"largest{'' if result['update_held'] else '; not held'}); step {step_ms:.3f} ms "
         f"({result['images_per_s']:.1f} images/s) over {SMALL_STEPS} steps after step 0, "
-        f"device time {dev:.3f} ms, busy {result['busy_share']:.1%}")
+        f"device time {dev:.3f} ms, busy {result['busy_share']:.1%}, "
+        f"{ops['device_ops']:.0f} kernels and copies a step ({ops['kernel_launches']:.0f} "
+        f"kernel launches)")
     return result
 
 
@@ -3790,15 +3814,16 @@ def deterministic_algorithms():
 
 
 def capture_mode(captured: bool, make, policy=None, deterministic: bool = False,
-                 timed: bool = True) -> dict:
+                 timed: bool = True, timed_steps: int = CAPTURE_TIMED,
+                 profiled: int = CAPTURE_PROFILED) -> dict:
     """One mode of a path, from a cleared step cache: ``make()`` gives
     ``(run, snapshot, close, steps)``; ``run(i, n)`` takes steps i..i+n-1
     (its outputs as tensors), ``snapshot()`` copies the trees it updates
     to the host, ``steps()`` are the captured steps it holds outside the
     step cache.  The first ``WARMUP_CALLS`` steps, the next one (the
     capture) and the rest of ``CAPTURE_STEPS`` run with the launch counts
-    read between them; then, if ``timed``, ``CAPTURE_TIMED`` timed steps
-    and ``CAPTURE_PROFILED`` traced ones."""
+    read between them; then, if ``timed``, ``timed_steps`` timed steps
+    and ``profiled`` traced ones."""
     import torch
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.train import capture, step_cache
@@ -3827,11 +3852,12 @@ def capture_mode(captured: bool, make, policy=None, deterministic: bool = False,
                 if timed:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    run(CAPTURE_STEPS, CAPTURE_TIMED)
+                    run(CAPTURE_STEPS, timed_steps)
                     torch.cuda.synchronize()
-                    out["step_ms"] = (time.perf_counter() - t0) / CAPTURE_TIMED * 1e3
+                    out["step_ms"] = (time.perf_counter() - t0) / timed_steps * 1e3
                     out["launches_timed"] = launched(kernel_counts(zero=True))
-                    out.update(step_profile(lambda: run(CAPTURE_STEPS + CAPTURE_TIMED, 1)))
+                    out.update(step_profile(lambda: run(CAPTURE_STEPS + timed_steps, 1),
+                                            reps=profiled))
                     # the traced device time over the untraced step: the busy
                     # share without the profiler's cost on each launch
                     out["device_share_of_step"] = out["device_ms"] / out["step_ms"]
@@ -3952,18 +3978,22 @@ def bert_path(batches):
     return make
 
 
-def capture_path(card, name, make, policy=None, expect=None) -> dict:
-    """A path eager and captured in one call.  Under
+def capture_path(card, name, make, policy=None, expect=None, graph_launches: int = 1,
+                 timed_steps: int = CAPTURE_TIMED, profiled: int = CAPTURE_PROFILED) -> dict:
+    """A path eager and captured in one call (``timed_steps`` timed steps
+    and ``profiled`` traced ones per mode).  Under
     ``deterministic_algorithms()`` the two must give the same bits over
     ``CAPTURE_STEPS`` steps (losses or answers, params, state, updater
     state).  Then, in the default mode: the kernel launches of the capture
     call equal to an eager step's (``expect``, where given) and none
-    counted on a replay, one graph and one graph launch a replayed step;
+    counted on a replay, one graph and ``graph_launches`` graph launches a
+    replayed step (a tBPTT batch replays its graph once a segment);
     step ms, device ms, busy share, device operations and the host's
     launches per step, peak memory; and the tensors in which the captured
     run, and a second eager run, differ from the eager one there."""
     pair = [capture_mode(c, make, policy, deterministic=True, timed=False) for c in (False, True)]
-    eager, graph = (capture_mode(c, make, policy) for c in (False, True))
+    eager, graph = (capture_mode(c, make, policy, timed_steps=timed_steps, profiled=profiled)
+                    for c in (False, True))
     again = capture_mode(False, make, policy, timed=False)
 
     def differing(got, want):
@@ -3997,7 +4027,7 @@ def capture_path(card, name, make, policy=None, expect=None) -> dict:
     want = eager["launches_capture_call"] if expect is None else expect
     if (graph["launches_capture_call"] != want or eager["launches_capture_call"] != want
             or graph["launches_after_capture"] or graph["launches_timed"] or graph["graphs"] != 1
-            or pair[1]["graphs"] != 1 or graph["graph_launches"] != 1
+            or pair[1]["graphs"] != 1 or graph["graph_launches"] != graph_launches
             or eager["graph_launches"]):
         raise AssertionError(f"{name}: launches or graphs off: {result}")
     return result
@@ -4212,7 +4242,8 @@ def captured_steps(card: str) -> dict:
     import torch
     from deeplearning4j_tpu_torch import config
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.models import lenet, mlp_mnist, vgg16
+    from deeplearning4j_tpu_torch.models import (lenet, lstm_classifier, mlp_mnist,
+                                                 text_gen_lstm, vgg16)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
     from deeplearning4j_tpu_torch.train import Nesterovs
@@ -4278,6 +4309,23 @@ def captured_steps(card: str) -> dict:
                               engine_path(qnet, requests), policy=bf16_params,
                               expect={"int8_matmul": 3}))
     del qnet
+    har = [DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+           for x, y in har_batches(n)]
+    paths.append(capture_path(card, f"UCI-HAR lstm_classifier Trainer.fit_batch, {HAR_BATCH} x "
+                              f"{HAR_T} x {HAR_CHANNELS}",
+                              trainer_path(lambda: lstm_classifier(device="cuda")
+                                           .init(seed=SMALL_SEED), har, CAPTURE_SEED),
+                              expect={}))
+    del har
+    chars = char_batches(n, CHAR_CAPTURE_T)
+    segments = CHAR_CAPTURE_T // CHAR_SEGMENT
+    paths.append(capture_path(card, f"char-RNN text_gen_lstm tBPTT fit, {CHAR_BATCH} x "
+                              f"{CHAR_CAPTURE_T} ({segments} segments)",
+                              fit_path(lambda: text_gen_lstm(device="cuda")
+                                       .init(seed=SMALL_SEED), chars),
+                              expect={}, graph_launches=segments,
+                              timed_steps=CHAR_TIMED, profiled=1))
+    del chars
     checks = capture_checks(card, small((784,)))
     shared = shared_int8_forward(card)
     fit = bert_fit_modes(card)
@@ -4317,6 +4365,201 @@ def bert_fit_modes(card: str) -> dict:
         f"{out['eager']['losses']} and {out['captured']['losses']})")
     if out["captured"]["graphs"] != 1 or not np.isfinite(out["captured"]["losses"]).all():
         raise AssertionError(f"BERT fit captured: {out}")
+    return out
+
+
+# ------------------------------ phase 23: the recurrent nets (nn/layers/recurrent.py)
+# BASELINE config 3 at bench.py:499-502's shape: lstm_classifier(timesteps=128)
+# (GravesLSTM(128) -> LastTimeStep -> OutputLayer(6)), batch 64 x 128 x 9 from
+# bench_workload_steps' numpy stream after MLP-MNIST's and LeNet's arrays
+HAR_BATCH, HAR_T, HAR_CHANNELS, HAR_CLASSES = 64, 128, 9, 6
+HAR_EPOCHS = 2
+# synthetic UCI-HAR after 2 epochs (126 steps): chance is 1/6, and the bar is
+# 3x chance.  Adam(5e-3) on this data spikes now and then (loss 0.03 -> 1.19 in
+# 2 steps); the card and the CPU agree to 4 digits for ~20 steps and then
+# spike at other steps: the CPU ended at loss 0.02, accuracy 1.0000, the H100
+# (eager and captured bit for bit equal over all 126 steps) inside a spike at
+# loss 0.94, accuracy 0.8200.  The bar holds what a spike leaves
+HAR_ACCURACY = 0.5
+# the char-RNN: text_gen_lstm() at its defaults (vocab 77, 2 x GravesLSTM(256),
+# tBPTT 50/50) on DL4J's char-modelling example's shape, 32 sequences of 1000
+# characters, so 20 segments a batch.  The text is a seeded Markov chain in
+# which each character is followed by one of CHAR_BRANCH others: the loss can
+# fall from ln 77 = 4.34 towards ln 3 = 1.10
+CHAR_VOCAB, CHAR_BATCH, CHAR_T, CHAR_SEGMENT = 77, 32, 1000, 50
+CHAR_SEGMENTS = CHAR_T // CHAR_SEGMENT
+CHAR_BRANCH, CHAR_SEED = 3, SEED + 60
+CHAR_FITS = 4            # net.fit calls, one batch each
+# phase 22 holds the tBPTT fit eager against captured on sequences of 250 (5
+# segments a batch: an eager batch of 1000 takes ~3.6 s on the H100, and the
+# path runs 19 of them eagerly), with CHAR_TIMED timed fit calls per mode
+CHAR_CAPTURE_T, CHAR_TIMED = 250, 3
+CHAR_SAMPLE = 200        # characters sampled through rnn_time_step
+# rnn_time_step one step at a time against output of the whole sequence, max
+# |diff| of the probabilities: the cells run the same arithmetic; only the
+# input projection's product is one row against 200 (cuBLAS may sum K in
+# another order), and that rounding goes through 200 steps of the recurrence
+RNN_STEP_TOL = 1e-5
+
+
+def har_batches(n: int) -> list:
+    """``n`` batches of ``HAR_BATCH`` sequences, bench.py's stream: the
+    first is ``lstm_har_step_ms``'s batch."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for shape in ((784,), (32, 32, 3)):       # MLP-MNIST's and LeNet's draws first
+        rng.normal(size=(SMALL_BATCH,) + shape)
+        rng.integers(0, 10, SMALL_BATCH)
+    out = []
+    for _ in range(n):
+        x = rng.normal(size=(HAR_BATCH, HAR_T, HAR_CHANNELS)).astype(np.float32)
+        out.append((x, np.eye(HAR_CLASSES, dtype=np.float32)[rng.integers(0, HAR_CLASSES,
+                                                                          HAR_BATCH)]))
+    return out
+
+
+def char_chain():
+    """The Markov chain's table: row c lists the ``CHAR_BRANCH`` characters
+    that may follow c."""
+    import numpy as np
+    return np.random.default_rng(CHAR_SEED).integers(0, CHAR_VOCAB, (CHAR_VOCAB, CHAR_BRANCH))
+
+
+def char_batches(n: int, t: int = CHAR_T) -> list:
+    """``n`` batches of ``CHAR_BATCH`` one-hot sequences of ``t``
+    characters from :func:`char_chain` on the card, labels the next
+    character."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    follow = char_chain()
+    rng = np.random.default_rng(CHAR_SEED + 1)
+    eye = torch.eye(CHAR_VOCAB, device="cuda")
+    out = []
+    for _ in range(n):
+        ids = np.empty((CHAR_BATCH, t + 1), np.int64)
+        ids[:, 0] = rng.integers(0, CHAR_VOCAB, CHAR_BATCH)
+        pick = rng.integers(0, CHAR_BRANCH, (CHAR_BATCH, t))
+        for j in range(t):
+            ids[:, j + 1] = follow[ids[:, j], pick[:, j]]
+        ids = torch.from_numpy(ids).cuda()
+        out.append(DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    return out
+
+
+def har_step(card: str, captured: dict) -> dict:
+    """``lstm_har_step_ms``'s step: step 0 on the card against the CPU from
+    the same weights (``small_step``: the loss, every gradient after the
+    clip, Adam's updates printed), then 20 eager steps timed with device
+    time, busy share and kernels per step; beside them phase 22's reading
+    of the same step captured (``captured``)."""
+    from deeplearning4j_tpu_torch.models import lstm_classifier
+    from deeplearning4j_tpu_torch.train import capture
+    x, y = har_batches(1)[0]
+    with capture.eager():
+        out = small_step(card, "lstm_classifier", lstm_classifier, {}, x, y)
+    keep = ("step_ms", "device_ms", "busy_share", "device_share_of_step", "device_ops",
+            "kernel_launches", "graph_launches", "peak_memory_gib")
+    out["captured"] = {k: captured["captured"][k] for k in keep}
+    out["eager_phase22"] = {k: captured["eager"][k] for k in keep}
+    c = out["captured"]
+    log(f"lstm_classifier step at {HAR_BATCH} x {HAR_T} x {HAR_CHANNELS} on {card}: eager "
+        f"{out['step_ms']:.3f} ms (device {out['device_ms']:.3f} ms, busy "
+        f"{out['busy_share']:.1%}, {out['device_ops_per_step']:.0f} kernels and copies); "
+        f"captured (phase 22) {c['step_ms']:.3f} ms (device {c['device_ms']:.3f} ms, "
+        f"{c['device_share_of_step']:.1%} of the step, {c['device_ops']:.0f} kernels and "
+        f"copies in {c['graph_launches']:.0f} graph launch)")
+    return out
+
+
+def char_rnn(card: str) -> dict:
+    """The char-RNN through ``net.fit``: ``CHAR_FITS`` calls on batches of
+    ``CHAR_BATCH`` x ``CHAR_T`` (the loss of each call's last segment must
+    fall from the first call to the last; each batch ``CHAR_SEGMENTS``
+    segments, one captured graph; ms per batch), one more batch eagerly,
+    then ``CHAR_SAMPLE`` characters sampled one at a time through
+    ``rnn_time_step``, held to ``output`` of the whole sampled sequence."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import text_gen_lstm
+    from deeplearning4j_tpu_torch.train import capture, step_cache
+    step_cache.clear_step_cache()
+    batches = char_batches(CHAR_FITS + 1)
+    net = text_gen_lstm(device="cuda").init(seed=SMALL_SEED)
+    losses, ms, segments = [], [], []
+    for i in range(CHAR_FITS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator([batches[i]]))
+        losses.append(net.score())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        (step,) = step_cache.cached_steps()
+        segments.append(step.calls - sum(segments))
+    graphs = step_cache.captured_graphs(step)
+    with capture.eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator([batches[-1]]))
+        eager_loss = net.score()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+    # sampling: one stream, seeded, from character 0
+    gen = torch.Generator(device="cuda").manual_seed(CHAR_SEED)
+    eye = torch.eye(CHAR_VOCAB, device="cuda")
+    net.rnn_clear_previous_state()
+    ids, probs = [0], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CHAR_SAMPLE):
+        p = net.rnn_time_step(eye[ids[-1]][None])
+        probs.append(p)
+        ids.append(int(torch.multinomial(p[0], 1, generator=gen)))
+    sample_ms = (time.perf_counter() - t0) * 1e3 / CHAR_SAMPLE
+    steps = torch.stack(probs, 1)
+    whole = net.output(eye[torch.tensor(ids[:-1], device="cuda")][None])
+    step_err = (steps - whole).abs().max().item()
+    follow = char_chain()
+    legal = float(np.mean([b in follow[a] for a, b in zip(ids[:-1], ids[1:])]))
+    result = {"card": card, "batch": CHAR_BATCH, "timesteps": CHAR_T,
+              "segment": net.conf.tbptt_fwd_length, "losses_per_fit": losses,
+              "ms_per_batch": ms, "segments_per_batch": segments, "graphs": graphs,
+              "eager_ms_per_batch": eager_ms, "eager_loss": eager_loss,
+              "sampled": ids[1:], "sample_ms_per_char": sample_ms,
+              "rnn_time_step_vs_output_max_abs": step_err, "sampled_legal_share": legal,
+              "chance_legal_share": CHAR_BRANCH / CHAR_VOCAB}
+    log(f"char-RNN text_gen_lstm (vocab {CHAR_VOCAB}, 2 x GravesLSTM(256)) tBPTT on {card}: "
+        f"{CHAR_FITS} fit calls of {CHAR_BATCH} x {CHAR_T}, losses "
+        f"{[round(v, 4) for v in losses]}, "
+        f"segments a batch {segments}, {graphs} graph, ms per batch "
+        f"{[round(v, 1) for v in ms]} (eager {eager_ms:.1f}); rnn_time_step: {CHAR_SAMPLE} "
+        f"characters sampled at {sample_ms:.3f} ms each, {legal:.1%} of them a transition "
+        f"of the chain (chance {CHAR_BRANCH / CHAR_VOCAB:.1%}), against output of the whole "
+        f"sequence max |diff| {step_err:.2e} (limit {RNN_STEP_TOL})")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and graphs == 1
+            and segments == [CHAR_SEGMENTS] * CHAR_FITS
+            and step_err <= RNN_STEP_TOL):
+        raise AssertionError(f"char-RNN check failed: {result}")
+    return result
+
+
+def recurrent_nets(card: str, captured: list) -> dict:
+    """Phase 23: the UCI-HAR classifier's step (``har_step``) and its
+    examples' flow (``datasets.uci_har`` into 2 epochs of ``fit``, then
+    ``evaluate`` on the card and, with the same weights, on the CPU), and
+    the char-RNN (``char_rnn``)."""
+    from deeplearning4j_tpu_torch.data import datasets
+    from deeplearning4j_tpu_torch.models import lstm_classifier
+    path = next(p for p in captured if p["path"].startswith("UCI-HAR"))
+    out = {"step": har_step(card, path)}
+    release()
+    out["flow"] = small_flow(card, "lstm_classifier", lstm_classifier, {},
+                             datasets.uci_har(batch_size=HAR_BATCH),
+                             datasets.uci_har(batch_size=HAR_BATCH, train=False), HAR_EPOCHS)
+    if not out["flow"]["accuracy"] > HAR_ACCURACY:
+        raise AssertionError(f"lstm_classifier accuracy {out['flow']['accuracy']} on synthetic "
+                             f"UCI-HAR after {HAR_EPOCHS} epochs, not above {HAR_ACCURACY}")
+    release()
+    out["char_rnn"] = char_rnn(card)
     return out
 
 
@@ -4474,6 +4717,8 @@ def main() -> int:
         stack = attention_stack(card)
     release()
     captured = captured_steps(card)
+    release()
+    recurrent = recurrent_nets(card, captured["paths"])
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4569,7 +4814,7 @@ def main() -> int:
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
-         "captured_steps": captured,
+         "captured_steps": captured, "recurrent_nets": recurrent,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

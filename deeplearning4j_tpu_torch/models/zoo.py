@@ -1,5 +1,6 @@
 """Zoo model builders (port of ``deeplearning4j_tpu/models/zoo.py``):
-MLP-MNIST, LeNet, SimpleCNN, AlexNet, VGG-16, VGG-19 and ResNet-50 so
+MLP-MNIST, LeNet, SimpleCNN, AlexNet, VGG-16, VGG-19, ResNet-50 and the
+two recurrent nets (the UCI-HAR LSTM classifier and the char-RNN) so
 far.  Each configuration is the JAX package's, layer for layer, so its
 JSON matches the one that package writes.  Each factory takes
 ``device=``: the CUDA card by default, raising without one unless the
@@ -8,16 +9,16 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, get_config
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
-    FusedBottleneck, GlobalPoolingLayer, LocalResponseNormalization, OutputLayer,
-    SubsamplingLayer, ZeroPaddingLayer,
+    LSTM, ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
+    FusedBottleneck, GlobalPoolingLayer, GravesLSTM, LastTimeStep, LocalResponseNormalization,
+    OutputLayer, RnnOutputLayer, SubsamplingLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
@@ -244,3 +245,46 @@ def vgg19(seed: int = 123, num_classes: int = 1000,
     """VGG-19 (VGG19.java parity): VGG-16 with four convs in each of the
     256- and 512-channel blocks."""
     return _vgg((2, 2, 4, 4, 4), seed, num_classes, device)
+
+
+# ------------------------------------------------------------------ RNN zoo
+def lstm_classifier(seed: int = 123, n_in: int = 9, n_classes: int = 6,
+                    timesteps: Optional[int] = 128, hidden: int = 128, graves: bool = True,
+                    updater: Any = None, device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """The UCI-HAR sequence classifier (BASELINE config 3): GravesLSTM (or
+    LSTM) -> LastTimeStep -> OutputLayer(softmax, MCXENT), Adam(5e-3),
+    gradients clipped element-wise at 0.5; a ``MultiLayerNetwork`` on
+    ``device``."""
+    cell = GravesLSTM(n_out=hidden) if graves else LSTM(n_out=hidden)
+    return MultiLayerNetwork(
+        NeuralNetConfiguration.builder()
+        .seed(seed)
+        .updater(updater or Adam(5e-3))
+        .weight_init("xavier")
+        .gradient_normalization("clip_element_wise_absolute_value", 0.5)
+        .list()
+        .layer(LastTimeStep(underlying=cell))
+        .layer(OutputLayer(n_out=n_classes, activation="softmax", loss="mcxent"))
+        .set_input_type(InputType.recurrent(n_in, timesteps))
+        .build(), device=device)
+
+
+def text_gen_lstm(seed: int = 123, vocab_size: int = 77, hidden: int = 256,
+                  timesteps: Optional[int] = None, layers: int = 2,
+                  device: Any = DEFAULT_DEVICE) -> MultiLayerNetwork:
+    """The char-RNN (DL4J's TextGenerationLSTM): ``layers`` stacked
+    GravesLSTM and a per-timestep softmax, Adam(2e-3), gradients clipped
+    element-wise at 1.0, trained by tBPTT over segments of 50 steps; a
+    ``MultiLayerNetwork`` on ``device``."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed)
+         .updater(Adam(2e-3))
+         .weight_init("xavier")
+         .gradient_normalization("clip_element_wise_absolute_value", 1.0)
+         .list())
+    for _ in range(layers):
+        b.layer(GravesLSTM(n_out=hidden, activation="tanh"))
+    b.layer(RnnOutputLayer(n_out=vocab_size, activation="softmax", loss="mcxent"))
+    b.set_input_type(InputType.recurrent(vocab_size, timesteps))
+    b.backprop_type("tbptt", 50, 50)
+    return MultiLayerNetwork(b.build(), device=device)

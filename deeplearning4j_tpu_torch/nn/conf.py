@@ -208,6 +208,9 @@ class ListBuilder:
         self.parent = parent
         self._layers: list[Layer] = []
         self._input_type: Optional[InputType] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, layer: Layer) -> "ListBuilder":
         self._layers.append(layer)
@@ -219,8 +222,11 @@ class ListBuilder:
 
     def backprop_type(self, kind: str, fwd_length: int = 20,
                       back_length: int = 20) -> "ListBuilder":
-        if kind != "standard":
-            raise NotImplementedError(f"backprop_type {kind!r} waits for the recurrent layers")
+        """``"standard"`` or ``"tbptt"`` (truncated BPTT over segments of
+        ``fwd_length`` steps)."""
+        self._backprop_type = kind
+        self._tbptt_fwd = fwd_length
+        self._tbptt_back = back_length
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -231,4 +237,6 @@ class ListBuilder:
             layers=self._layers, input_type=self._input_type, seed=p._seed,
             updater=p._updater, gradient_normalization=p._grad_norm,
             gradient_normalization_threshold=p._grad_norm_threshold,
-            mini_batch=p._mini_batch, dtype=p._dtype)
+            mini_batch=p._mini_batch, backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd, tbptt_back_length=self._tbptt_back,
+            dtype=p._dtype)

@@ -28,6 +28,19 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     SelfAttentionLayer,
     LearnedSelfAttentionLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    BaseRecurrentLayer,
+    LSTM,
+    GravesLSTM,
+    SimpleRnn,
+    GRU,
+    Bidirectional,
+    BidirectionalLastStep,
+    LastTimeStep,
+    TimeDistributed,
+    RnnOutputLayer,
+    RnnLossLayer,
+)
 
 __all__ = [
     "Layer", "register_layer", "layer_from_dict",
@@ -37,4 +50,7 @@ __all__ = [
     "LocalResponseNormalization",
     "FusedBottleneck", "LayerNormalization", "PReLULayer", "SelfAttentionLayer",
     "LearnedSelfAttentionLayer",
+    "BaseRecurrentLayer", "LSTM", "GravesLSTM", "SimpleRnn", "GRU", "Bidirectional",
+    "BidirectionalLastStep", "LastTimeStep", "TimeDistributed", "RnnOutputLayer",
+    "RnnLossLayer",
 ]

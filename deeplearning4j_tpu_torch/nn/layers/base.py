@@ -9,7 +9,8 @@ tensors:
   device);
 - ``apply(params, state, x, *, train, rng, mask) -> (y, new_state)``;
   ``rng`` is the training step's random stream, a ``torch.Generator`` on
-  the activations' device (``None`` at inference).
+  the activations' device (``None`` at inference);
+- ``transform_mask(mask)``: the per-timestep mask the next layer sees.
 
 Field names and JSON type names are the JAX package's, so a config that
 package wrote loads here.  ``dropout`` is DL4J's retain probability,
@@ -107,6 +108,12 @@ class Layer:
               train: bool = False, rng: Optional[torch.Generator] = None,
               mask: Optional[torch.Tensor] = None):
         raise NotImplementedError
+
+    def transform_mask(self, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The ``[B, T]`` mask that reaches the next layer
+        (``feedForwardMaskArray``): unchanged by default; a layer that
+        consumes the time axis returns None."""
+        return mask
 
     # ---- shared helpers ---------------------------------------------
     def _param_dtype(self):

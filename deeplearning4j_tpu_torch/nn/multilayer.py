@@ -12,9 +12,11 @@ package's layout: NHWC activations, HWIO conv kernels, dense
 (``nn/quantize.py``) is the same class with ``W_q``/``W_scale`` in place
 of ``W`` and ``quantized_ == "int8"``.  Evaluation reads each batch's
 output back to the host once and accumulates in numpy
-(``deeplearning4j_tpu_torch.evaluation``).  Not ported yet:
-``trace_attrs``, ``rnn_time_step``, ``save``/``load`` and recurrent
-layers (a configuration with tBPTT raises).
+(``deeplearning4j_tpu_torch.evaluation``).  A per-timestep mask goes
+through each layer's ``transform_mask`` on its way down the stack; the
+recurrent layers' carries thread through :meth:`MultiLayerNetwork._forward_impl`
+(tBPTT) and :meth:`MultiLayerNetwork.rnn_time_step` (streaming).  Not
+ported yet: ``trace_attrs`` and ``save``/``load``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from deeplearning4j_tpu_torch.nn import preprocessors
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
+from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
 
 
 class MultiLayerNetwork:
@@ -34,9 +38,6 @@ class MultiLayerNetwork:
     otherwise; raises when that card is absent)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device: Any = DEFAULT_DEVICE):
-        if conf.backprop_type != "standard":
-            raise NotImplementedError(
-                f"backprop_type {conf.backprop_type!r} waits for the recurrent layers")
         self.conf = conf
         self.layers = conf.layers
         self.device = resolve_device(device)
@@ -49,6 +50,7 @@ class MultiLayerNetwork:
         self.iteration = 0
         self.epoch = 0
         self._score = float("nan")              # the last step's loss (a device scalar)
+        self._rnn_carries: Optional[list] = None  # rnn_time_step's stored state
 
     # ------------------------------------------------------------- init
     def init(self, seed: Optional[int] = None, device: Any = None) -> "MultiLayerNetwork":
@@ -62,12 +64,12 @@ class MultiLayerNetwork:
         for layer, itype in zip(self.layers, self._types):
             params.append(layer.init_params(gen, itype) if layer.has_params() else {})
             state.append(layer.init_state(itype))
-        self.params_ = [{k: t.to(self.device) for k, t in d.items()} for d in params]
-        self.state_ = [{k: t.to(self.device) for k, t in d.items()} for d in state]
+        self.params_ = tree_map(lambda t: t.to(self.device), params)
+        self.state_ = tree_map(lambda t: t.to(self.device), state)
         return self
 
     def num_params(self) -> int:
-        return sum(t.numel() for d in self.params_ for t in d.values())
+        return sum(t.numel() for t in tree_leaves(self.params_))
 
     def params(self) -> torch.Tensor:
         """The flat parameter vector (``MultiLayerNetwork.params()``) on the
@@ -79,7 +81,7 @@ class MultiLayerNetwork:
         """Replace the parameters with copies of ``params``, a list of
         per-layer dicts (tensors or arrays), on the net's device: training
         updates the net's tensors in place, so the caller's stay as given."""
-        self.params_ = [{k: self._as_tensor(v).clone() for k, v in d.items()} for d in params]
+        self.params_ = tree_map(lambda v: self._as_tensor(v).clone(), list(params))
 
     # ---------------------------------------------------------- forward
     def _forward(self, params, state, x, *, train: bool = False, rng=None, mask=None,
@@ -88,17 +90,40 @@ class MultiLayerNetwork:
         the score array (per-example loss of the last layer) None without
         labels.  ``rng``, the step's stream, feeds each layer's dropout in
         turn."""
+        out, new_state, score_array, _ = self._forward_impl(
+            params, state, x, None, train=train, rng=rng, mask=mask, labels=labels)
+        return out, new_state, score_array
+
+    def _forward_impl(self, params, state, x, carries, *, train: bool = False, rng=None,
+                      mask=None, labels=None):
+        """The forward with the recurrent carries threaded through:
+        ``carries`` is a per-layer list (entries of other layers are
+        ignored), or None to start every recurrent layer from zeros.  A
+        recurrent layer starts from its carry detached, so state flows
+        across tBPTT segments and gradients stop at their boundary.  The
+        mask reaches each layer through the ``transform_mask`` of the layer
+        before.  Returns ``(output, new_state, score_array, new_carries)``,
+        ``new_carries`` None where a layer is not recurrent or ``carries``
+        is None."""
         new_state, score_array = [], None
+        new_carries = [None] * len(self.layers)
         last = len(self.layers) - 1
         for i, (layer, itype) in enumerate(zip(self.layers, self._types)):
             x = preprocessors.adapt_array(x, itype_before(self, i, self._types), layer)
             if i == last and labels is not None and hasattr(layer, "apply_and_score"):
                 x, s, score_array = layer.apply_and_score(params[i], state[i], x, labels,
                                                           train=train, rng=rng, mask=mask)
+            elif carries is not None and isinstance(layer, BaseRecurrentLayer):
+                carry = carries[i]
+                if carry is not None:
+                    carry = tree_map(torch.Tensor.detach, carry)
+                x, s, new_carries[i] = layer.apply_with_carry(
+                    params[i], state[i], x, carry, train=train, rng=rng, mask=mask)
             else:
                 x, s = layer.apply(params[i], state[i], x, train=train, rng=rng, mask=mask)
             new_state.append(s)
-        return x, new_state, score_array
+            mask = layer.transform_mask(mask)
+        return x, new_state, score_array, new_carries
 
     def _as_tensor(self, a):
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
@@ -120,6 +145,34 @@ class MultiLayerNetwork:
                 x, _ = layer.apply(self.params_[i], self.state_[i], x, train=train)
                 acts.append(x)
         return acts
+
+    # ---------------------------------------------------------- rnn API
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Streaming inference with stored state (``rnnTimeStep``): ``x`` is
+        ``[B, T, C]``, or ``[B, C]`` for one step (then the output is
+        ``[B, nOut]``); each recurrent layer's carry goes on from the call
+        before.  The cells run as in training, without dropout and
+        without the output cast, their carries in x's dtype."""
+        x = self._as_tensor(x)
+        single = x.ndim == 2
+        if single:
+            x = x[:, None, :]
+        if self._rnn_carries is None:
+            self._rnn_carries = [None] * len(self.layers)
+        with torch.inference_mode():
+            for i, layer in enumerate(self.layers):
+                x = preprocessors.adapt_array(x, itype_before(self, i, self._types), layer)
+                if isinstance(layer, BaseRecurrentLayer):
+                    carry = self._rnn_carries[i]
+                    if carry is None:
+                        carry = layer.init_carry(x.shape[0], x.dtype, x.device)
+                    x, self._rnn_carries[i] = layer._scan(self.params_[i], x, None, carry)
+                else:
+                    x, _ = layer.apply(self.params_[i], self.state_[i], x, train=False)
+        return x[:, -1, :] if single and x.ndim == 3 else x
 
     # ---------------------------------------------------------- training
     def score(self) -> float:
@@ -161,7 +214,7 @@ class MultiLayerNetwork:
         lines = [f"{'idx':<4}{'type':<24}{'out shape':<20}{'params':<10}"]
         for i, (layer, itype) in enumerate(zip(self.layers, self._types)):
             out = layer.get_output_type(itype)
-            n = sum(t.numel() for t in self.params_[i].values()) if self.params_ else 0
+            n = sum(t.numel() for t in tree_leaves(self.params_[i])) if self.params_ else 0
             lines.append(f"{i:<4}{layer.TYPE_NAME:<24}{str(out.batch_shape()):<20}{n:<10}")
         lines.append(f"Total params: {self.num_params() if self.params_ else 0}")
         return "\n".join(lines)
@@ -172,8 +225,8 @@ class MultiLayerNetwork:
         net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(self.conf.to_dict()),
                                 device=self.device)
         if self.params_ is not None:
-            net.params_ = [{k: t.clone() for k, t in d.items()} for d in self.params_]
-            net.state_ = [{k: t.clone() for k, t in d.items()} for d in self.state_]
+            net.params_ = tree_map(torch.Tensor.clone, self.params_)
+            net.state_ = tree_map(torch.Tensor.clone, self.state_)
         return net
 
 

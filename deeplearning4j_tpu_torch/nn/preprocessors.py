@@ -17,7 +17,12 @@ def expected_kind(layer) -> Optional[str]:
     """What input kind a layer wants; None = any."""
     from deeplearning4j_tpu_torch.nn.layers import attention as attn_mod
     from deeplearning4j_tpu_torch.nn.layers import conv as conv_mod
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as rnn_mod
     if isinstance(layer, attn_mod.SelfAttentionLayer):
+        return "rnn"
+    if isinstance(layer, (rnn_mod.BaseRecurrentLayer, rnn_mod.Bidirectional,
+                          rnn_mod.LastTimeStep, rnn_mod.TimeDistributed,
+                          rnn_mod.RnnOutputLayer, rnn_mod.RnnLossLayer)):
         return "rnn"
     if isinstance(layer, (conv_mod.ConvolutionLayer, conv_mod.SubsamplingLayer,
                           conv_mod.ZeroPaddingLayer)):
@@ -38,6 +43,9 @@ def adapt_type(current: InputType, layer) -> InputType:
             "InputType.convolutional_flat(h, w, c) as the network input type")
     if want == "rnn" and current.kind == "ff":
         return InputType.recurrent(current.size, 1)
+    if want == "rnn" and current.kind == "cnn":
+        # CnnToRnn: rows become time, each row's W*C values a step's features
+        return InputType.recurrent(current.width * current.channels, current.height)
     raise ValueError(f"no preprocessor from {current.kind} to {want}")
 
 
@@ -50,4 +58,7 @@ def adapt_array(x: torch.Tensor, current: InputType, layer) -> torch.Tensor:
         return x.reshape(x.shape[0], current.height, current.width, current.channels)
     if want == "rnn" and current.kind == "ff":
         return x[:, None, :]
+    if want == "rnn" and current.kind == "cnn":
+        b, h, w, c = x.shape
+        return x.reshape(b, h, w * c)
     raise ValueError(f"no preprocessor from {current.kind} to {want}")

@@ -139,6 +139,7 @@ class CapturedStep:
         self._pool = None
         self._side: Optional[torch.cuda.Stream] = None
         self._lock = threading.Lock()
+        self.calls = 0          # every call, eager, captured or replayed
 
     @property
     def graph_count(self) -> int:
@@ -146,6 +147,7 @@ class CapturedStep:
         return sum(len(b.graphs) for b in self._bindings.values())
 
     def __call__(self, *args):
+        self.calls += 1
         leaves = [leaf for tree in args[:self.n_trees] for leaf in tree_leaves(tree)]
         if _eager_depth or not (leaves and torch.is_tensor(leaves[0])
                                 and leaves[0].device.type == "cuda"):

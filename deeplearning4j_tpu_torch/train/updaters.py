@@ -14,10 +14,9 @@ dicts and lists of any depth with tensors at the leaves (a graph's vertex
 
 Not ``torch.optim``: its SGD applies Nesterov momentum in another form.
 Ported: ``Sgd``, ``Nesterovs``, ``Adam`` (f32 moments, or a bf16 first
-moment with ``mu_dtype="bf16"``) and ``NoOp``, and the ``"none"``
-gradient normalization.  The other updaters, the other
-normalizations and learning-rate schedules are not ported yet; their
-JSON raises.
+moment with ``mu_dtype="bf16"``) and ``NoOp``, and every gradient
+normalization (:func:`gradient_normalization`).  The other updaters and
+learning-rate schedules are not ported yet; their JSON raises.
 """
 
 from __future__ import annotations
@@ -43,23 +42,23 @@ def register(name: str):
 
 
 def tree_map(fn: Callable, *trees):
-    """``fn`` over the leaves of param-shaped trees: nested dicts and lists
-    of any depth, the first tree's keys and lengths deciding the
-    structure."""
+    """``fn`` over the leaves of param-shaped trees: nested dicts, lists
+    and tuples of any depth, the first tree's keys and lengths deciding
+    the structure."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, list):
-        return [tree_map(fn, *nodes) for nodes in zip(*trees)]
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *nodes) for nodes in zip(*trees))
     return fn(*trees)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a tree of nested dicts and lists, in its key and list
-    order (``tree_map``'s order)."""
+    """The leaves of a tree of nested dicts, lists and tuples, in its key
+    and list order (``tree_map``'s order)."""
     if isinstance(tree, dict):
         tree = list(tree.values())
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
@@ -87,12 +86,60 @@ def from_dict(d: dict):
     return cls(**{k: v for k, v in d.items() if k in known})
 
 
-def gradient_normalization(kind: Optional[str]) -> Callable[[dict], dict]:
-    """The pre-updater normalization of the gradient tree; only
-    ``None``/``"none"`` (identity) is ported."""
+def _per_layer_map(fn: Callable, tree):
+    """``fn`` on each top-level entry of a gradient tree: a layer stack's
+    list elements, a graph's dict values."""
+    if isinstance(tree, list):
+        return [fn(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: fn(t) for k, t in tree.items()}
+    return fn(tree)
+
+
+def _l2(tree) -> torch.Tensor:
+    """The L2 norm of all the leaves of ``tree`` together."""
+    return torch.sqrt(sum((g * g).sum() for g in tree_leaves(tree)))
+
+
+def gradient_normalization(kind: Optional[str],
+                           threshold: float = 1.0) -> Callable[[Any], Any]:
+    """The pre-updater normalization of the gradient tree (DL4J's
+    ``GradientNormalization``), as the JAX package's optax transform
+    computes it: ``None``/``"none"``, ``renormalize_l2_per_layer``,
+    ``renormalize_l2_per_param_type``, ``clip_element_wise_absolute_value``,
+    ``clip_l2_per_layer`` or ``clip_l2_per_param_type``.  A layer is a
+    top-level entry of the tree, a param type one leaf.  The scales stay
+    on the device (no host read), so the step can be captured."""
     if kind is None or str(kind).lower() == "none":
         return lambda grads: grads
-    raise NotImplementedError(f"gradient normalization {kind!r} is not ported yet")
+    kind = str(kind).lower()
+
+    def per_layer(scale_of):
+        def apply(layer):
+            if not tree_leaves(layer):
+                return layer
+            scale = scale_of(_l2(layer))
+            return tree_map(lambda g: g * scale, layer)
+        return lambda grads: _per_layer_map(apply, grads)
+
+    def renormalize(n):
+        return 1.0 / torch.clamp_min(n, 1e-8)
+
+    def clip(n):
+        return torch.where(n > threshold, threshold / (n + 1e-12), torch.ones_like(n))
+
+    if kind == "renormalize_l2_per_layer":
+        return per_layer(renormalize)
+    if kind == "renormalize_l2_per_param_type":
+        return lambda grads: tree_map(
+            lambda g: g / torch.clamp_min(torch.sqrt((g * g).sum()), 1e-8), grads)
+    if kind == "clip_element_wise_absolute_value":
+        return lambda grads: tree_map(lambda g: torch.clamp(g, -threshold, threshold), grads)
+    if kind == "clip_l2_per_layer":
+        return per_layer(clip)
+    if kind == "clip_l2_per_param_type":
+        return lambda grads: tree_map(lambda g: g * clip(torch.sqrt((g * g).sum())), grads)
+    raise ValueError(f"unknown gradient normalization {kind!r}")
 
 
 class _UpdaterBase:

@@ -13,8 +13,8 @@ import torch
 
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DataSet
-from deeplearning4j_tpu_torch.models import (alexnet, lenet, mlp_mnist, resnet50, simple_cnn,
-                                             vgg16, vgg19)
+from deeplearning4j_tpu_torch.models import (alexnet, lenet, lstm_classifier, mlp_mnist,
+                                             resnet50, simple_cnn, text_gen_lstm, vgg16, vgg19)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models import BertConfig, BertForMaskedLM
@@ -51,7 +51,8 @@ def test_no_jax_scan_covers_the_int8_slice():
     for module in ("nn/conf.py", "nn/multilayer.py", "nn/quantize.py", "models/zoo.py",
                    "ops/kernels/quant_matmul.py", "interop.py", "serve/engine.py",
                    "data/datasets.py", "evaluation/classification.py", "evaluation/roc.py",
-                   "evaluation/regression.py", "evaluation/calibration.py"):
+                   "evaluation/regression.py", "evaluation/calibration.py",
+                   "nn/layers/recurrent.py", "train/trainer.py", "train/updaters.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names
 
 
@@ -157,7 +158,8 @@ def test_cpu_bert_run_never_touches_the_kernel_loader(monkeypatch):
 
 
 
-@pytest.mark.parametrize("factory", [mlp_mnist, lenet, simple_cnn, alexnet, vgg19],
+@pytest.mark.parametrize("factory", [mlp_mnist, lenet, simple_cnn, alexnet, vgg19,
+                                     lstm_classifier, text_gen_lstm],
                          ids=lambda f: f.__name__)
 def test_small_zoo_entries_default_to_the_card_and_raise_without_one(no_card, factory):
     with pytest.raises(RuntimeError, match="device='cpu'"):

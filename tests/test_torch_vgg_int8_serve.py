@@ -256,9 +256,13 @@ def test_vgg16_param_shapes_match_jax_without_allocating():
 
 
 def test_tbptt_waits_for_the_recurrent_layers():
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        NeuralNetConfiguration.builder().list().backprop_type("tbptt")
-    conf = _port_conf()
-    conf.backprop_type = "tbptt"
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        MultiLayerNetwork(conf, device="cpu")
+    """tBPTT came with the recurrent layers: the builder records it as the
+    JAX package's does, and a net is built on such a configuration."""
+    lb = NeuralNetConfiguration.builder().list()
+    assert lb.backprop_type("tbptt", 7, 5) is lb
+    conf = lb.layer(DenseLayer(n_out=3)).set_input_type(InputType.feed_forward(4)).build()
+    jconf = (JNeuralNetConfiguration.builder().list().backprop_type("tbptt", 7, 5)
+             .layer(JDenseLayer(n_out=3)).set_input_type(JInputType.feed_forward(4)).build())
+    assert (conf.backprop_type, conf.tbptt_fwd_length, conf.tbptt_back_length) == ("tbptt", 7, 5)
+    assert conf.to_dict() == json.loads(jconf.to_json())
+    assert MultiLayerNetwork(conf, device="cpu").conf.backprop_type == "tbptt"
