@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 forward and training step, of
+"""Where the time of the port's ResNet-50 forward, training step and
+frozen fine-tune step, of
 its BERT fine-tune steps (bf16 and f32) and seq-128 headline step (by
 itself and through ``fit``), of its int8 VGG-16 serving forward and of
 the MLP-MNIST, LeNet and UCI-HAR LSTM training steps goes on one CUDA
@@ -22,6 +23,9 @@ for the device, one at a time for the launch calls:
   (``serve.engine``) captured;
 - ``train_step``: ResNet-50 ``Trainer.fit_batch`` (forward, backward,
   update) at ``chip_smoke.TRAIN_LR``, f32;
+- ``resnet50_finetune_frozen``: ``Trainer.fit_batch`` of
+  ``chip_smoke.finetune_net`` (stem and res2-res4 frozen, the head on an
+  AdamW of its own, both rates scheduled; 5 classes), f32;
 - ``bert_finetune_step``: one ``BertForMaskedLM.fit`` step of bench.py's
   long-sequence configuration (4 layers of BERT-base, batch 2 x 4096,
   bf16 policy, flash attention, ``Adam(2e-5)``);
@@ -256,6 +260,9 @@ def main() -> int:
     labels = torch.eye(1000, device="cuda")[torch.randint(0, 1000, (chip_smoke.BATCH,),
                                                           device="cuda", generator=gen)]
     trainer, batch = Trainer(net), DataSet(x, labels)
+    ft_trainer = Trainer(chip_smoke.finetune_net(net))     # its own step: frozen layers
+    ft_batch = DataSet(x, torch.eye(chip_smoke.FT_CLASSES, device="cuda")[torch.randint(
+        0, chip_smoke.FT_CLASSES, (chip_smoke.BATCH,), device="cuda", generator=gen)])
     bert = BertForMaskedLM(chip_smoke.bert_config(chip_smoke.BERT_TRAIN_LAYERS, use_flash=True),
                            seed=0, device="cuda")
     bert_batch = chip_smoke.bert_batch(bert.config.vocab_size)
@@ -330,6 +337,8 @@ def main() -> int:
                     "images", f32),
         "train_step": (lambda: trainer.fit_batch(batch),) * 2 + (chip_smoke.BATCH, "images",
                                                                  f32),
+        "resnet50_finetune_frozen": (lambda: ft_trainer.fit_batch(ft_batch),) * 2
+        + (chip_smoke.BATCH, "images", f32),
         "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam),) * 2
         + (tokens, "tokens", bf16),
         "bert_finetune_step_f32": (lambda: bert32.fit([bert_batch], updater=adam32),) * 2

@@ -199,7 +199,9 @@ no result line:
    ``matmul_bn_act`` launches), the seq-128 headline's ``make_train_step``
    (phase 20's configuration, not cut), the config-first encoder's
    ``fit_batch`` at 2 x 4096 with bf16 params (4 + 4 flash launches), the
-   engine serving ResNet-50 f32 and VGG-16 int8 at batch 32, the UCI-HAR
+   engine serving ResNet-50 f32 and VGG-16 int8 at batch 32, phase 24's
+   frozen fine-tune's ``fit_batch`` (its own step: frozen layers and a
+   per-layer updater keep a net out of the step cache), the UCI-HAR
    ``lstm_classifier``'s ``Trainer.fit_batch`` at 64 x 128 x 9 and the
    char-RNN's tBPTT ``fit`` at 32 x 250 (5 segments, so 5 graph launches a
    batch): 5 steps (or requests, or batches) that must give the same bits
@@ -236,7 +238,38 @@ no result line:
    batch (and one batch eager); then 200 characters sampled one at a
    time through ``rnn_time_step``, held to ``output`` of the whole sampled
    sequence;
-24. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+24. fine-tune ResNet-50 as DL4J's transfer-learning examples do
+   (``finetune_net``): the seeded 1000-class net of the other phases as
+   the "pretrained" backbone, its params and state carried into a 5-class
+   net whose stem and res2-res4 (13 ``FusedBottleneck`` s) are frozen,
+   the head on ``AdamW(RampSchedule(ExponentialSchedule))`` of its own, the
+   rest on ``Nesterovs(StepSchedule)`` whose rate halves every 8 steps;
+   f32, batch 32, 12 training and 2 validation batches of seeded images.
+   (a) ``EarlyStoppingTrainer`` (validation loss, at most 3 epochs,
+   patience 1, ``LocalFileModelSaver``) with a ``CheckpointListener``
+   (every 5 iterations, keep 2): the reason, best epoch, scores, ms per
+   step, a validation pass, a checkpoint's write and restore; frozen
+   params bit-unchanged, a frozen block's BN running statistics moved,
+   res5 and the head changed; (b) under deterministic algorithms,
+   captured: a 2-epoch ``Trainer.fit`` over a ``ResumableIterator``, the
+   same run stopped after iteration 17 (mid-epoch 1) by a listener, and a
+   fresh net resumed from the checkpoint directory, its losses and final
+   trees bit-equal to the uninterrupted run's; the planted fault of a
+   damaged newest zip, where the resume falls back to the one before it
+   and still matches; (c) 10 steps captured against eager across the
+   rate's halving at step 8 (the same bits), 36 + 36 ``matmul_bn_act``
+   launches per eager step, and the planted fault of rates read from a
+   host count (captured then differs from eager); (d) 3 steps through the
+   kernels against 3 through the plain versions (phase 6's limits); (e)
+   VGG-16's ``EditLastLayerOthersFrozen`` through ``TransferLearning``
+   (``Nesterovs(5e-5)``, layers 0-19 frozen, a new 5-class output): 5
+   steps on one batch,
+   frozen params unchanged, the loss falling, ``save``/``load`` with the
+   same output bits; (f) the dropout MLP's 2-epoch ``fit`` stopped after
+   iteration 8 and resumed, captured: its random stream restored, every
+   loss and tensor the same bits; (g) a two-input graph through ``fit`` on
+   ``MultiDataSet`` s, captured against eager (the same bits);
+25. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -267,6 +300,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2946,17 +2980,17 @@ ZOO_FWD_TOL, ZOO_F64_TOL = 1e-5, 1e-10
 
 
 class _Recorded:
-    """A trainer's updater that keeps the gradient and the update of its
-    last step (comparison only)."""
+    """A trainer's optimizer (``Trainer.tx``) that keeps the gradient and
+    the update of its last step (comparison only)."""
 
-    def __init__(self, updater):
-        self.updater, self.grads, self.updates = updater, None, None
+    def __init__(self, tx):
+        self.tx, self.grads, self.updates = tx, None, None
 
     def init(self, params):
-        return self.updater.init(params)
+        return self.tx.init(params)
 
-    def update(self, grads, state):
-        updates, state = self.updater.update(grads, state)
+    def update(self, grads, state, params=None):
+        updates, state = self.tx.update(grads, state, params)
         self.grads, self.updates = grads, updates
         return updates, state
 
@@ -2992,7 +3026,7 @@ def small_step(card, name, factory, kwargs, x, y) -> dict:
         # would record into the first's updater: each builds its own
         step_cache.clear_step_cache()
         trainer = Trainer(model)
-        trainer.updater = rec = _Recorded(trainer.updater)
+        trainer.tx = rec = _Recorded(trainer.tx)
         runs.append((trainer, rec, trainer.fit_batch(data).item()))
     (trainer, rec, loss), (_, rec_cpu, loss_cpu) = runs
     loss_err = abs(loss - loss_cpu) / abs(loss_cpu)
@@ -3913,7 +3947,9 @@ def fit_path(build, batches):
 
 def trainer_path(build, batches, seed):
     """``make`` of a ``Trainer.fit_batch`` path on ``build()``'s net, with a
-    generator seeded ``seed``: ``run(i, n)`` is n steps on batches i..."""
+    generator seeded ``seed``: ``run(i, n)`` is n steps on batches i...
+    (a net that the step cache does not key, with frozen layers or
+    per-layer updaters, holds its step on its trainer)."""
     import torch
     from deeplearning4j_tpu_torch.train import Trainer
     start = restarted(build)
@@ -3926,7 +3962,7 @@ def trainer_path(build, batches, seed):
         def run(i, n):
             return [trainer.fit_batch(batches[(i + j) % len(batches)], gen) for j in range(n)]
         return (run, lambda: host_copy(net.params_, net.state_, net.opt_state), lambda: None,
-                lambda: [])
+                lambda: [] if trainer._cache_sig is not None else [trainer._step])
     return make
 
 
@@ -4260,6 +4296,8 @@ def captured_steps(card: str) -> dict:
     labels = [torch.eye(1000, device="cuda")[torch.randint(0, 1000, (BATCH,), device="cuda",
                                                            generator=gen)] for _ in range(n)]
     hb = headline_batch(headline_config().vocab_size)
+    ft_labels = [torch.eye(FT_CLASSES, device="cuda")[torch.randint(
+        0, FT_CLASSES, (BATCH,), device="cuda", generator=gen)] for _ in range(n)]
     bert_batches = [[torch.as_tensor(np.roll(hb[k], i, axis=0), device="cuda").to(dt) for k, dt in
                      (("input_ids", torch.long), ("labels", torch.long),
                       ("label_weights", torch.float32), ("attention_mask", torch.float32))]
@@ -4283,6 +4321,11 @@ def captured_steps(card: str) -> dict:
                      trainer_path(lambda: build_net(Nesterovs(TRAIN_LR, 0.9)),
                                   [DataSet(x, y) for x, y in zip(images, labels)], CAPTURE_SEED),
                      expect={"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}),
+        capture_path(card, f"ResNet-50 frozen fine-tune Trainer.fit_batch (stem-res4 frozen, "
+                     f"AdamW head, schedules), batch {BATCH}",
+                     trainer_path(lambda: finetune_net(finetune_backbone()),
+                                  [DataSet(x, y) for x, y in zip(images, ft_labels)],
+                                  CAPTURE_SEED), expect=FT_LAUNCHES),
         capture_path(card, f"BERT-base MLM seq-128 headline make_train_step, {HEADLINE_SEQS} x "
                      f"{HEADLINE_SEQ}, bf16", bert_path(bert_batches),
                      policy=config.DTypePolicy.bf16(), expect={}),
@@ -4292,7 +4335,7 @@ def captured_steps(card: str) -> dict:
                          stack_batches, CAPTURE_SEED), policy=bf16_params,
                      expect={"flash_attention": STACK_BLOCKS, "flash_attention_bwd": STACK_BLOCKS}),
     ]
-    del images, labels, bert_batches, stack_batches
+    del images, labels, ft_labels, bert_batches, stack_batches
     requests = [rng.normal(size=(BATCH, 224, 224, 3)).astype(np.float32) for _ in range(n)]
     net = build_net()
     paths.append(capture_path(card, f"ResNet-50 f32 served, batch {BATCH}",
@@ -4563,6 +4606,533 @@ def recurrent_nets(card: str, captured: list) -> dict:
     return out
 
 
+# Phase 24: fine-tune ResNet-50 with early stopping, checkpoints and a resume.
+# The fine-tune (DL4J's transfer-learning recipe): a seeded 1000-class
+# backbone's params and state carried into a 5-class net, its stem and
+# res2-res4 (13 FusedBottlenecks) frozen, the head on an AdamW of its own
+# (a 4-step ramp over a decaying rate), the rest on the net's Nesterovs
+# whose rate halves every FT_BOUNDARY steps; f32, batch 32, seeded images.
+FT_CLASSES, FT_TRAIN, FT_VAL = 5, 12, 2       # classes; training and validation batches
+FT_EPOCHS, FT_PATIENCE = 3, 1                 # MaxEpochs, ScoreImprovement
+FT_EVERY, FT_KEEP = 5, 2                      # checkpoint every 5 iterations, keep 2
+FT_RESUME_EPOCHS, FT_STOP = 2, 17             # the interrupted run: 2 epochs, stopped after 17
+FT_BOUNDARY = 8                               # the Nesterovs rate halves every 8 steps
+FT_SEED = SEED + 70
+FT_FROZEN = ("stem", "res2_", "res3_", "res4_")
+FT_CHECK_STEPS = 10                           # captured against eager, across step 8
+FT_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per eager step
+VGG_FT_FROZEN, VGG_FT_STEPS = 19, 5           # EditLastLayerOthersFrozen: layers 0-19 frozen
+VGG_FT_LR = 5e-5       # the example's Nesterovs rate (VGG-16's own 1e-2 diverges on the new head)
+
+
+class _Preempted(Exception):
+    """The interrupted run's stop, raised by a listener after ``FT_STOP``."""
+
+
+def finetune_backbone():
+    """The "pretrained" backbone: the seeded 1000-class ResNet-50 of the
+    other phases (residual gammas damped)."""
+    return build_net()
+
+
+def finetune_net(backbone):
+    """The fine-tune net (phase 24's comment) with ``backbone``'s params and
+    state copied into every vertex but the head."""
+    from deeplearning4j_tpu_torch.models import resnet50
+    from deeplearning4j_tpu_torch.train import (AdamW, ExponentialSchedule, Nesterovs,
+                                                RampSchedule, StepSchedule)
+    net = resnet50(num_classes=FT_CLASSES, fused=True, device="cuda", updater=Nesterovs(
+        StepSchedule(initial_value=1e-2, decay_rate=0.5, step=FT_BOUNDARY), 0.9))
+    for spec in net._topo:
+        if spec.kind == "layer":
+            spec.obj.frozen = spec.name.startswith(FT_FROZEN)
+            if spec.name == "out":
+                spec.obj.updater = AdamW(RampSchedule(
+                    underlying=ExponentialSchedule(initial_value=1e-3, gamma=0.99),
+                    num_iterations=4))
+    net.init(seed=FT_SEED)
+    for tree, source in ((net.params_, backbone.params_), (net.state_, backbone.state_)):
+        for name, d in source.items():
+            if name != "out":
+                for k, t in d.items():
+                    tree[name][k].copy_(t)
+    return net
+
+
+def finetune_data():
+    """``FT_TRAIN`` training and ``FT_VAL`` validation batches of seeded
+    images (host arrays; the trainer's feeder stages them)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data import DataSet
+    rng = np.random.default_rng(FT_SEED)
+
+    def batch():
+        return DataSet(rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32),
+                       np.eye(FT_CLASSES, dtype=np.float32)[rng.integers(0, FT_CLASSES, BATCH)])
+    return [batch() for _ in range(FT_TRAIN)], [batch() for _ in range(FT_VAL)]
+
+
+def flip_byte(path: str) -> None:
+    """The planted fault of a damaged checkpoint: one byte in the middle."""
+    with open(path, "r+b") as f:
+        f.seek(0, 2)
+        f.seek(f.tell() // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+class _HostCountSchedules:
+    """The planted fault of the schedule module: each schedule's rate from a
+    count kept on the host (a Python float made from it), as code reading
+    the updater's count with ``.item()`` would; a captured step bakes the
+    rate of the capture call into every replay."""
+
+    def __enter__(self):
+        import torch
+        from deeplearning4j_tpu_torch.train import schedules
+        self.cls, self.call, counts = schedules.BaseSchedule, schedules.BaseSchedule.__call__, {}
+        call = self.call
+
+        def on_host(sched, count):
+            n = counts.get(id(sched), 0)
+            counts[id(sched)] = n + 1
+            rate = float(call(sched, torch.tensor(n, dtype=torch.int32)))
+            return torch.full((), rate, dtype=torch.float32, device=count.device)
+        self.cls.__call__ = on_host
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.call
+
+
+def finetune_steps(backbone, batches, steps: int, eager: bool) -> tuple:
+    """``steps`` ``Trainer.fit_batch`` steps of a fresh fine-tune net, eager
+    or captured: the losses and the trees after the last step on the host,
+    each eager step's launch counts, and the step ms after the capture
+    call (synchronized per step)."""
+    import torch
+    from deeplearning4j_tpu_torch.train import Trainer, capture
+    net = finetune_net(backbone)
+    trainer = Trainer(net)
+    losses, counts, seconds = [], [], []
+    with capture.eager() if eager else contextlib.nullcontext():
+        for i in range(steps):
+            kernel_counts(zero=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.fit_batch(batches[i % len(batches)]).cpu())
+            seconds.append(time.perf_counter() - t0)
+            counts.append(launched(kernel_counts(zero=True)))
+    out = losses + host_copy(net.params_, net.state_, net.opt_state)
+    device = (None if eager else
+              step_profile(lambda: trainer.fit_batch(batches[0]), reps=1)["device_ms"])
+    del trainer, net
+    torch.cuda.empty_cache()
+    w = 2 if eager else 3          # the warm-up calls and the capture
+    return out, counts, sum(seconds[w:]) / len(seconds[w:]) * 1e3, device
+
+
+def finetune_vs_plain(backbone, batch) -> dict:
+    """The fine-tune step through the kernels against the same steps
+    through both plain versions, from one start (phase 6's limits; the
+    frozen params' updates are zero in both)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.train import capture
+    with capture.eager():
+        kernel = train_steps(finetune_net(backbone), batch, TRAIN_STEPS)
+        saved = fused_mod.matmul_bn_act
+        fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+        try:
+            plain = train_steps(finetune_net(backbone), batch, TRAIN_STEPS)
+        finally:
+            fused_mod.matmul_bn_act = saved
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
+    moved = {v: {k: u for k, u in d.items() if plain["update0"][v][k].norm() > 0}
+             for v, d in kernel["update0"].items()}
+    errs = update_errs(moved, plain["update0"])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    result = {"losses": kernel["losses"], "plain_losses": plain["losses"],
+              "loss_rel_errs": loss_errs, "update_rel_err_max": worst[1],
+              "update_rel_err_worst": worst[0], "params_compared": len(errs),
+              "launches_per_step": kernel["launches"], "plain_launches": plain["launches"]}
+    if not (loss_errs[0] <= TRAIN_LOSS0_TOL and max(loss_errs[1:]) <= TRAIN_LOSS_TOL
+            and worst[1] <= TRAIN_UPDATE_TOL and np.isfinite(kernel["losses"]).all()
+            and all(c == (0, 0) for c in plain["launches"])):
+        raise AssertionError(f"fine-tune step through the kernels vs plain: {result}")
+    return result
+
+
+def finetune(card: str) -> dict:
+    """Phase 24: fine-tune ResNet-50 (``finetune_net``) with early stopping,
+    checkpoints and a resume, its checks, and VGG-16's transfer recipe."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import (DataSet, EarlyTerminationIterator,
+                                               ListDataSetIterator, ResumableIterator)
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.io.model_serializer import read_training_state, restore_into
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener, TrainingListener
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.train import early_stopping as es
+
+    class Preempt(TrainingListener):
+        def iteration_done(self, model, iteration, epoch, score):
+            if iteration == FT_STOP:
+                raise _Preempted(iteration)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    out: dict = {"card": card}
+    try:
+        backbone = finetune_backbone()
+        train, val = finetune_data()
+        frozen0 = {name: {k: t.detach().to("cpu", copy=True) for k, t in d.items()}
+                   for name, d in backbone.params_.items() if name.startswith(FT_FROZEN)}
+        stats0 = {k: t.detach().to("cpu", copy=True)
+                  for k, t in backbone.state_["res2_0"].items()}
+
+        # the run through early stopping, checkpoints and a score listener
+        net = finetune_net(backbone)
+        head0 = {k: t.clone() for k, t in net.params_["out"].items()}
+        scores = CollectScoresListener()
+        listener = CheckpointListener(str(tmp / "es"), save_every_n_iterations=FT_EVERY,
+                                      keep_last=FT_KEEP)
+        conf = es.EarlyStoppingConfiguration(
+            score_calculator=es.DataSetLossCalculator(ListDataSetIterator(val)),
+            epoch_termination_conditions=[es.MaxEpochsTerminationCondition(FT_EPOCHS),
+                                          es.ScoreImprovementEpochTerminationCondition(
+                                              FT_PATIENCE)],
+            model_saver=es.LocalFileModelSaver(str(tmp / "best")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = es.EarlyStoppingTrainer(conf, net, ListDataSetIterator(train),
+                                         listeners=[listener, scores]).fit()
+        torch.cuda.synchronize()
+        es_s = time.perf_counter() - t0
+        steps = len(scores.scores)
+        # what the run cost beside its steps
+        t0 = time.perf_counter()
+        val_score = conf.score_calculator.calculate_score(net)
+        val_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        path = listener.save_now(net)
+        write_s = time.perf_counter() - t0
+        fresh = finetune_net(backbone)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_into(fresh, path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+        zip_gb = os.path.getsize(path) / 1e9
+        best = result.best_model
+        best_out = best.output(val[0].features)
+        checks = {
+            "frozen_unchanged": all(torch.equal(net.params_[n][k].cpu(), t)
+                                    for n, d in frozen0.items() for k, t in d.items()),
+            "frozen_bn_moved": sum(not torch.equal(net.state_["res2_0"][k].cpu(), t)
+                                   for k, t in stats0.items()),
+            "frozen_bn_stats": len(stats0),
+            "trained_changed": sum(not torch.equal(net.params_[n][k].cpu(),
+                                                   backbone.params_[n][k].cpu())
+                                   for n in net.params_ if n.startswith("res5_")
+                                   for k in net.params_[n]),
+            "trained_params": sum(len(net.params_[n]) for n in net.params_
+                                  if n.startswith("res5_")),
+            "head_changed": all(not torch.equal(t, head0[k])
+                                for k, t in net.params_["out"].items()),
+            "best_model_finite": bool(torch.isfinite(best_out).all()),
+        }
+        out["early_stopping"] = {
+            "termination_reason": result.termination_reason,
+            "termination_details": result.termination_details,
+            "best_model_epoch": result.best_model_epoch,
+            "best_model_score": result.best_model_score, "total_epochs": result.total_epochs,
+            "score_vs_epoch": result.score_vs_epoch, "steps": steps, "losses": scores.scores,
+            "ms_per_step": es_s / steps * 1e3, "run_s": es_s, "val_pass_ms": val_ms,
+            "val_score": val_score, "checkpoint_write_s": write_s,
+            "checkpoint_restore_s": restore_s, "checkpoint_gb": zip_gb,
+            "checkpoints_kept": sorted(os.path.basename(p) for p in listener._saved)} | checks
+        log(f"fine-tune ResNet-50 (stem-res4 frozen, AdamW head, schedules) on {card}: "
+            f"{result.termination_reason} ({result.termination_details}) after "
+            f"{result.total_epochs} epochs, best epoch {result.best_model_epoch} "
+            f"(score {result.best_model_score:.6f}); scores {result.score_vs_epoch}; {steps} "
+            f"steps, {es_s / steps * 1e3:.1f} ms a step with validation and checkpoints; a "
+            f"validation pass {val_ms:.1f} ms; a checkpoint ({zip_gb:.3f} GB) written in "
+            f"{write_s:.2f} s, restored in {restore_s:.2f} s; frozen params unchanged: "
+            f"{checks['frozen_unchanged']}; res2_0's BN statistics moved "
+            f"{checks['frozen_bn_moved']} of {checks['frozen_bn_stats']}; res5 params changed "
+            f"{checks['trained_changed']} of {checks['trained_params']}; head changed: "
+            f"{checks['head_changed']}")
+        if not (checks["frozen_unchanged"] and checks["frozen_bn_moved"] == len(stats0)
+                and checks["trained_changed"] == checks["trained_params"]
+                and checks["head_changed"] and checks["best_model_finite"]
+                and np.isfinite(scores.scores).all()):
+            raise AssertionError(f"fine-tune checks: {out['early_stopping']}")
+        del net, best, result, conf, listener
+        torch.cuda.empty_cache()
+
+        # the uninterrupted fit, an interrupted one and its resumes, captured
+        # and under deterministic algorithms
+        with deterministic_algorithms():
+            whole, whole_scores = finetune_net(backbone), CollectScoresListener()
+            Trainer(whole, [whole_scores]).fit(ResumableIterator(ListDataSetIterator(train)),
+                                               epochs=FT_RESUME_EPOCHS)
+            want = whole_scores.scores
+            want_trees = host_copy(whole.params_, whole.state_, whole.opt_state)
+            del whole
+            torch.cuda.empty_cache()
+            run_dir = str(tmp / "run")
+            cut = finetune_net(backbone)
+            try:
+                Trainer(cut, [CheckpointListener(run_dir, save_every_n_iterations=FT_EVERY,
+                                                 keep_last=FT_KEEP), Preempt()]).fit(
+                    ResumableIterator(ListDataSetIterator(train)), epochs=FT_RESUME_EPOCHS)
+                raise AssertionError("the interrupted run was not interrupted")
+            except _Preempted:
+                pass
+            del cut
+            torch.cuda.empty_cache()
+
+            def resume(expect_zip):
+                newest = CheckpointListener.last_checkpoint_in(run_dir)
+                start = read_training_state(newest)["iteration"]
+                net = finetune_net(backbone)
+                got = CollectScoresListener()
+                Trainer(net, [got]).fit(ResumableIterator(ListDataSetIterator(train)),
+                                        epochs=FT_RESUME_EPOCHS, resume_from=run_dir)
+                trees = host_copy(net.params_, net.state_, net.opt_state)
+                differ = (sum(a != b for a, b in zip(got.scores, want[start:]))
+                          + abs(len(got.scores) - len(want[start:])))
+                del net
+                torch.cuda.empty_cache()
+                return {"checkpoint": os.path.basename(newest), "expected": expect_zip,
+                        "start_iteration": start, "steps": len(got.scores),
+                        "losses_differ": differ,
+                        "tensors_differ": bits_differ(trees, want_trees)}
+            resumed = resume(f"checkpoint_iter{FT_STOP // FT_EVERY * FT_EVERY}_epoch1.zip")
+            # the planted fault: the newest zip damaged, the one before it taken
+            flip_byte(CheckpointListener.last_checkpoint_in(run_dir))
+            fallback = resume(f"checkpoint_iter{(FT_STOP // FT_EVERY - 1) * FT_EVERY}"
+                              f"_epoch{((FT_STOP // FT_EVERY - 1) * FT_EVERY) // FT_TRAIN}.zip")
+        out["resume"] = {"uninterrupted_losses": want, "resumed": resumed,
+                         "damaged_newest": fallback}
+        log(f"interrupted after iteration {FT_STOP} (mid-epoch 1), resumed from "
+            f"{resumed['checkpoint']} at iteration {resumed['start_iteration']}: "
+            f"{resumed['steps']} steps, {resumed['losses_differ']} losses and "
+            f"{resumed['tensors_differ']} of {len(want_trees)} tensors differ from the "
+            f"uninterrupted fit (deterministic algorithms, captured); planted fault, the newest "
+            f"zip damaged: resumed from {fallback['checkpoint']} at iteration "
+            f"{fallback['start_iteration']}, {fallback['losses_differ']} losses and "
+            f"{fallback['tensors_differ']} tensors differ")
+        for r in (resumed, fallback):
+            if r["checkpoint"] != r["expected"] or r["losses_differ"] or r["tensors_differ"]:
+                raise AssertionError(f"resume: {out['resume']}")
+
+        # captured against eager across the schedule's boundary, the launches
+        # per eager step, and the planted fault of a rate read on the host
+        batches = [DataSet(torch.from_numpy(b.features).cuda(), torch.from_numpy(b.labels).cuda())
+                   for b in train[:FT_CHECK_STEPS]]
+        with deterministic_algorithms():
+            eager, eager_counts, eager_ms, _ = finetune_steps(backbone, batches, FT_CHECK_STEPS,
+                                                              eager=True)
+            graph, _, graph_ms, device_ms = finetune_steps(backbone, batches, FT_CHECK_STEPS,
+                                                           eager=False)
+            with _HostCountSchedules():
+                f_eager = finetune_steps(backbone, batches, FT_CHECK_STEPS, eager=True)[0]
+                f_graph = finetune_steps(backbone, batches, FT_CHECK_STEPS, eager=False)[0]
+        out["capture"] = {"steps": FT_CHECK_STEPS, "tensors": len(eager),
+                          "differ": bits_differ(graph, eager),
+                          "fault_host_rate_differ": bits_differ(f_graph, f_eager),
+                          "eager_launches_per_step": eager_counts,
+                          "eager_step_ms": eager_ms, "captured_step_ms": graph_ms,
+                          "captured_device_ms": device_ms}
+        c = out["capture"]
+        log(f"fine-tune step on {card}: eager {eager_ms:.3f} ms, captured {graph_ms:.3f} ms "
+            f"(device {device_ms:.3f} ms); captured against eager over {FT_CHECK_STEPS} steps "
+            f"across the rate's halving at step {FT_BOUNDARY} (deterministic algorithms): "
+            f"{c['differ']} of {len(eager)} tensors differ; planted fault, the rate from a "
+            f"host count: {c['fault_host_rate_differ']} differ; launches per eager step "
+            f"{eager_counts[0]}")
+        if c["differ"] or not c["fault_host_rate_differ"] or any(
+                counts != FT_LAUNCHES for counts in eager_counts):
+            raise AssertionError(f"fine-tune capture checks: {c}")
+        out["vs_plain"] = finetune_vs_plain(backbone, batches[0])
+        v = out["vs_plain"]
+        log(f"fine-tune step through the kernels vs the plain versions: losses "
+            f"{v['losses']} (plain {v['plain_losses']}), step-0 loss {v['loss_rel_errs'][0]:.2e}"
+            f", updates of {v['params_compared']} moving params at most "
+            f"{v['update_rel_err_max']:.2e} ({v['update_rel_err_worst']}); limits "
+            f"{TRAIN_LOSS0_TOL}, {TRAIN_UPDATE_TOL}, {TRAIN_LOSS_TOL}")
+        del backbone, batches, train, val
+        torch.cuda.empty_cache()
+        out["dropout_resume"] = dropout_resume(card, tmp)
+        out["multi_input"] = multi_input_graph(card)
+        out["vgg16"] = vgg_transfer(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def dropout_resume(card: str, tmp: Path) -> dict:
+    """The dropout MLP (retain ``CAPTURE_DROPOUT``) through 2 epochs of
+    ``fit`` over a ``ResumableIterator``, against the same run stopped after
+    iteration 8 and resumed by a fresh net from its checkpoints: the
+    random stream restored into the new trainer's generator, which its
+    captured step registers, so the masks and every loss repeat bit for
+    bit (deterministic algorithms)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator, ResumableIterator
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener, TrainingListener
+    from deeplearning4j_tpu_torch.train import Trainer
+    stop = 8
+
+    class Preempt(TrainingListener):
+        def iteration_done(self, model, iteration, epoch, score):
+            if iteration == stop:
+                raise _Preempted(iteration)
+    rng = np.random.default_rng(FT_SEED + 3)
+    data = [DataSet(rng.standard_normal((SMALL_BATCH, 784), dtype=np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, SMALL_BATCH)])
+            for _ in range(6)]
+
+    def run(listeners, resume_from=None):
+        net, scores = dropout_mlp(), CollectScoresListener()
+        Trainer(net, [*listeners, scores]).fit(ResumableIterator(ListDataSetIterator(data)),
+                                               epochs=2, resume_from=resume_from)
+        return scores.scores, host_copy(net.params_, net.opt_state)
+    run_dir = str(tmp / "dropout")
+    with deterministic_algorithms():
+        want, want_trees = run([])
+        try:
+            run([CheckpointListener(run_dir, save_every_n_iterations=3), Preempt()])
+            raise AssertionError("the interrupted run was not interrupted")
+        except _Preempted:
+            pass
+        got, got_trees = run([], resume_from=run_dir)
+    differ = sum(a != b for a, b in zip(got, want[-len(got):])) + bits_differ(got_trees,
+                                                                               want_trees)
+    result = {"card": card, "steps": len(want), "resumed_steps": len(got), "differ": differ}
+    log(f"dropout MLP (retain {CAPTURE_DROPOUT}) interrupted after iteration {stop} and "
+        f"resumed, captured: {len(got)} steps, {differ} losses and tensors differ from the "
+        f"uninterrupted run")
+    if differ or len(got) != len(want) - 7:
+        raise AssertionError(f"dropout resume: {result}")
+    return result
+
+
+def multi_input_graph(card: str) -> dict:
+    """A two-input graph (dense branches added, softmax) through ``fit`` on
+    ``MultiDataSet`` s, whose features are a list: captured against eager
+    over ``FT_CHECK_STEPS`` steps, the same bits."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator, MultiDataSet
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+    from deeplearning4j_tpu_torch.train import Adam, capture, step_cache
+    rng = np.random.default_rng(FT_SEED + 2)
+    data = [MultiDataSet([rng.standard_normal((BATCH, 64), dtype=np.float32),
+                          rng.standard_normal((BATCH, 32), dtype=np.float32)],
+                         [np.eye(FT_CLASSES, dtype=np.float32)[rng.integers(0, FT_CLASSES, BATCH)]])
+            for _ in range(FT_CHECK_STEPS)]
+
+    def run(eager: bool) -> list:
+        g = (NeuralNetConfiguration.builder().seed(FT_SEED).updater(Adam(1e-3)).graph()
+             .add_inputs("a", "b")
+             .set_input_types(InputType.feed_forward(64), InputType.feed_forward(32)))
+        g.add_layer("da", DenseLayer(n_out=128, activation="relu"), "a")
+        g.add_layer("db", DenseLayer(n_out=128, activation="relu"), "b")
+        g.add_vertex("sum", ElementWiseVertex(op="add"), "da", "db")
+        g.add_layer("out", OutputLayer(n_out=FT_CLASSES, activation="softmax", loss="mcxent"),
+                    "sum")
+        net = ComputationGraph(g.set_outputs("out").build(), device="cuda").init()
+        step_cache.clear_step_cache()
+        losses = []
+        with capture.eager() if eager else contextlib.nullcontext():
+            for batch in data:
+                net.fit(ListDataSetIterator([batch]))
+                losses.append(net._score.cpu())
+        graphs = step_cache.captured_graphs(*step_cache.cached_steps())
+        return losses + host_copy(net.params_, net.opt_state), graphs
+    with deterministic_algorithms():
+        eager, _ = run(True)
+        graph, graphs = run(False)
+    result = {"card": card, "steps": FT_CHECK_STEPS, "tensors": len(eager),
+              "differ": bits_differ(graph, eager), "graphs": graphs}
+    log(f"two-input graph fit on MultiDataSets on {card}: captured against eager over "
+        f"{FT_CHECK_STEPS} steps, {result['differ']} of {len(eager)} tensors differ; "
+        f"{graphs} graph")
+    if result["differ"] or graphs != 1:
+        raise AssertionError(f"two-input graph: {result}")
+    return result
+
+
+def vgg_transfer(card: str, tmp: Path) -> dict:
+    """VGG-16's ``EditLastLayerOthersFrozen``: a ``FineTuneConfiguration``
+    with the example's ``Nesterovs(5e-5)``, layers 0-19 frozen, the output
+    layer replaced by a 5-class one; ``VGG_FT_STEPS`` steps at
+    batch 32 on one batch (frozen params unchanged, the loss falling),
+    then a save and load with the same output bits."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.transfer import FineTuneConfiguration, TransferLearning
+    from deeplearning4j_tpu_torch.train import Nesterovs, Trainer
+    base = vgg16(device="cuda").init(seed=SEED)
+    net = (TransferLearning.builder(base)
+           .fine_tune_configuration(FineTuneConfiguration(updater=Nesterovs(VGG_FT_LR, 0.9)))
+           .set_feature_extractor(VGG_FT_FROZEN)
+           .remove_output_layer()
+           .add_layer(OutputLayer(n_out=FT_CLASSES, activation="softmax", loss="mcxent"))
+           .build())
+    del base
+    torch.cuda.empty_cache()
+    frozen = host_copy(net.params_[:VGG_FT_FROZEN + 1])
+    rng = np.random.default_rng(FT_SEED + 1)
+    batch = DataSet(torch.from_numpy(rng.standard_normal((BATCH, 224, 224, 3),
+                                                         dtype=np.float32)).cuda(),
+                    torch.eye(FT_CLASSES, device="cuda")[rng.integers(0, FT_CLASSES, BATCH)])
+    trainer = Trainer(net)
+    losses = [trainer.fit_batch(batch).item() for _ in range(VGG_FT_STEPS)]
+    del trainer
+    unchanged = bits_differ(host_copy(net.params_[:VGG_FT_FROZEN + 1]), frozen) == 0
+    path = str(tmp / "vgg16_transfer.zip")
+    t0 = time.perf_counter()
+    net.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = MultiLayerNetwork.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with deterministic_algorithms():
+        same = same_bits(net.output(batch.features), back.output(batch.features))
+    result = {"card": card, "frozen_layers": VGG_FT_FROZEN + 1, "losses": losses,
+              "frozen_unchanged": unchanged, "save_s": save_s, "load_s": load_s,
+              "zip_gb": os.path.getsize(path) / 1e9, "output_same_bits": same,
+              "iteration_after_load": back.iteration}
+    log(f"VGG-16 transfer (layers 0-{VGG_FT_FROZEN} frozen, a new 5-class output) on {card}: "
+        f"losses {[round(v, 6) for v in losses]}, frozen params unchanged: {unchanged}; "
+        f"save {save_s:.2f} s ({result['zip_gb']:.3f} GB), load {load_s:.2f} s, output "
+        f"after load the same bits: {same}")
+    if not (unchanged and same and losses[-1] < losses[0] and np.isfinite(losses).all()):
+        raise AssertionError(f"VGG-16 transfer: {result}")
+    del net, back
+    torch.cuda.empty_cache()
+    return result
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -4719,6 +5289,8 @@ def main() -> int:
     captured = captured_steps(card)
     release()
     recurrent = recurrent_nets(card, captured["paths"])
+    release()
+    tuned = finetune(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4751,6 +5323,8 @@ def main() -> int:
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:58", f32, bf16, h16, train_launches[0],
               work.format("forward"))
         | {"serve_launches": serving["launches"], "sass": hopper["matmul_bn_act"],
+           "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
+               "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
                      "column tile: wgmma fed by TMA, x folded in place by prep threads (bf16: A "
                      "from shared memory; f32: A split in registers into TF32 hi and lo, three "
@@ -4761,7 +5335,9 @@ def main() -> int:
               "deeplearning4j_tpu_torch/ops/kernels/csrc/matmul_bn_act_bwd.cu",
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],
               work.format("backward"))
-        | {"sass": hopper["matmul_bn_act_bwd"]},
+        | {"sass": hopper["matmul_bn_act_bwd"],
+           "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
+               "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:33", flash_rows, "",
@@ -4814,7 +5390,7 @@ def main() -> int:
          "flash_shapes": flash_rows, "bert_serve": bert_served, "bert_finetune": bert_head,
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
-         "captured_steps": captured, "recurrent_nets": recurrent,
+         "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -43,12 +43,20 @@ class DTypePolicy:
 
 @dataclasses.dataclass
 class Config:
-    """Runtime knobs.  ``fused_conv``: build the zoo's ResNet bottlenecks
-    as ``FusedBottleneck`` layers, whose 1x1 convs run through the
-    ``matmul_bn_act`` kernel (on by default, as in the JAX package); an
-    explicit ``fused=`` argument to a zoo factory wins."""
+    """Runtime knobs, with the JAX package's names and defaults.
+
+    - ``fused_conv``: build the zoo's ResNet bottlenecks as
+      ``FusedBottleneck`` layers, whose 1x1 convs run through the
+      ``matmul_bn_act`` kernel; an explicit ``fused=`` argument to a zoo
+      factory wins.
+    - ``device_feed``: ``Trainer.fit`` stages each batch on the device
+      through a ``DeviceFeeder`` (host work and the copy of batch N+1
+      overlap step N).
+    - ``prefetch_size``: how many staged batches that feeder keeps ready."""
 
     fused_conv: bool = True
+    device_feed: bool = True
+    prefetch_size: int = 2
 
 
 _config = Config()

@@ -145,11 +145,11 @@ def pad_segment(seg, length: int):
 # ------------------------------------------------------------ device feeder
 def _map_tensors(fn: Callable, obj):
     """``fn`` over the tensors and numpy arrays of a staged batch (a
-    tensor, an array, a DataSet, a dict, a list or tuple of them; None
-    and other leaves pass through)."""
+    tensor, an array, a DataSet or MultiDataSet, a dict, a list or tuple
+    of them; None and other leaves pass through)."""
     if torch.is_tensor(obj) or isinstance(obj, np.ndarray):
         return fn(obj)
-    if isinstance(obj, DataSet):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{f.name: _map_tensors(fn, getattr(obj, f.name))
                                            for f in dataclasses.fields(obj)})
     if isinstance(obj, dict):

@@ -11,10 +11,13 @@ The port keeps those layouts, so this is a checked copy: every vertex or
 layer and every key must match the port's own, with the same shapes.
 
 ``load_jax_opt_state(net, opt_state)`` carries a JAX net's optimizer
-state (``net.opt_state``, the optax state of its updater) into the
-port, so that training continues where the JAX run stopped: the
-``trace`` of ``Nesterovs``, the ``count``/``mu``/``nu`` of ``Adam``.
-The optax state is read by its field names alone (no optax import).
+state (``net.opt_state``, the optax state of its trainer's transform)
+into the port, so that training continues where the JAX run stopped:
+every updater's fields, a schedule's own count, and the per-label states
+of per-layer updaters (``optax.multi_transform``).  The optax state is
+read as its leaves in ``jax.tree_util``'s flatten order, walked by hand
+(named tuples field by field, dict keys sorted; no optax import), and
+handed to the port's optimizer (``Trainer.tx``), which lays them out.
 
 ``load_jax_bert_params(model, params)`` fills a port ``BertForMaskedLM``
 from the JAX model's ``params`` (or the TF importer's tree) as nested
@@ -26,7 +29,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.train.updaters import from_dict
 
 
 def _fill(name: str, ours, theirs):
@@ -57,34 +59,31 @@ def _fill(name: str, ours, theirs):
     return out
 
 
-def _optax_fields(node, out: dict) -> dict:
-    """The fields of every named tuple in an optax state (nested tuples of
-    named tuples, e.g. ``(EmptyState(), (TraceState(trace=...), ...))``)."""
-    if hasattr(node, "_asdict"):
-        out.update(node._asdict())
-    elif isinstance(node, (list, tuple)):
-        for item in node:
-            _optax_fields(item, out)
-    return out
+def optax_leaves(node) -> list:
+    """The array leaves of an optax state in ``jax.tree_util``'s flatten
+    order: a named tuple's fields in order (``EmptyState`` and
+    ``MaskedNode`` have none), tuples and lists in order, dict keys
+    sorted; None is no leaf."""
+    if node is None:
+        return []
+    if hasattr(node, "_fields"):
+        return [leaf for f in node._fields for leaf in optax_leaves(getattr(node, f))]
+    if isinstance(node, dict):
+        return [leaf for k in sorted(node) for leaf in optax_leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [leaf for item in node for leaf in optax_leaves(item)]
+    return [np.array(node)]
 
 
 def load_jax_opt_state(net, opt_state):
-    """Fill ``net.opt_state`` from a JAX optimizer state; the port's
-    updater (from ``net.conf``) says which fields it needs.  Returns
-    ``net``."""
-    fields = _optax_fields(opt_state, {})
-    ours = from_dict(net.conf.updater).init(net.params_)
-    out = {}
-    for key, tree in ours.items():
-        if key not in fields:
-            raise KeyError(f"opt_state: field {key!r} missing from the JAX state "
-                           f"(it has {sorted(fields)})")
-        if key == "count":
-            out[key] = torch.as_tensor(np.array(fields[key]), dtype=tree.dtype,
-                                       device=tree.device).reshape(())
-        else:
-            out[key] = _fill(f"opt_state[{key!r}]", tree, fields[key])
-    net.opt_state = out
+    """Fill ``net.opt_state`` from a JAX trainer's optimizer state; the
+    port's optimizer for ``net`` (its updater, per-layer updaters and
+    frozen layers, from ``net.conf``) says where each leaf goes.
+    Returns ``net``."""
+    from deeplearning4j_tpu_torch.train.trainer import net_optimizer
+    if net.params_ is None:
+        net.init()
+    net.opt_state = net_optimizer(net).state_from_leaves(net.params_, optax_leaves(opt_state))
     return net
 
 

@@ -1,1 +1,2 @@
-"""Serialization: the npz helpers that model zips are written with."""
+"""Model files: the serializer (``model_serializer.py``) and the
+checkpoint listener (``checkpoint.py``)."""

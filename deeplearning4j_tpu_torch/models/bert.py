@@ -367,7 +367,7 @@ class BertForMaskedLM:
             grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
             grads = tree_map(lambda _: next(grads), params)
             with torch.no_grad():
-                updates, new_opt_state = updater.update(grads, opt_state)
+                updates, new_opt_state = updater.update(grads, opt_state, params)
                 tree_map(lambda p, u: p.add_(u), params, updates)
                 write_into(opt_state, new_opt_state)
             return params, opt_state, loss.detach()

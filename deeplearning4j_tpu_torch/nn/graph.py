@@ -1,8 +1,8 @@
 """ComputationGraph — the DAG network (port of
 ``deeplearning4j_tpu/nn/graph.py``): inference (``output``), training
 (``fit``, through :class:`deeplearning4j_tpu_torch.train.Trainer`),
-``evaluate``, the flat parameter vector (``params``), ``num_params`` and
-``summary``.
+``evaluate``, the flat parameter vector (``params``), ``num_params``,
+``summary`` and the model zip (``save``/``load``).
 
 Named vertices (layers or combinator vertices) run in a topological
 order computed once at build.  The configuration's JSON form is the JAX
@@ -320,10 +320,27 @@ class ComputationGraph:
         card)."""
         return float(self._score)
 
-    def fit(self, iterator, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, iterator, epochs: int = 1, listeners=None,
+            resume_from=None) -> "ComputationGraph":
+        """``Trainer(self, listeners).fit(iterator, epochs, resume_from)``."""
         from deeplearning4j_tpu_torch.train.trainer import Trainer
-        Trainer(self).fit(iterator, epochs)
+        Trainer(self, listeners=listeners).fit(iterator, epochs, resume_from=resume_from)
         return self
+
+    def save(self, path: str, save_updater: bool = True, iterator_state=None,
+             normalizer=None) -> None:
+        """The model zip (``io.model_serializer.write_model``), which the
+        JAX package restores too."""
+        from deeplearning4j_tpu_torch.io.model_serializer import write_model
+        write_model(self, path, save_updater=save_updater, iterator_state=iterator_state,
+                    normalizer=normalizer)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device: Any = DEFAULT_DEVICE) -> "ComputationGraph":
+        """The graph of a model zip either package wrote, on ``device``."""
+        from deeplearning4j_tpu_torch.io.model_serializer import restore_computation_graph
+        return restore_computation_graph(path, load_updater=load_updater, device=device)
 
     def evaluate(self, iterator, top_n: int = 1):
         """Classification evaluation of the first output against the first

@@ -16,8 +16,10 @@ Field names and JSON type names are the JAX package's, so a config that
 package wrote loads here.  ``dropout`` is DL4J's retain probability,
 applied to the input of the layers that take it on training passes
 (:meth:`Layer._maybe_dropout`).  ``regularization_penalty`` gives the
-layer's l1/l2 score term for training; ``updater`` (per-layer updaters)
-and ``weight_noise`` are carried through the JSON but not ported.
+layer's l1/l2 score term for training.  ``updater`` (a per-layer
+updater, or its JSON dict) and ``frozen`` are read by the trainer (a
+frozen layer still runs in training mode: only its updates are zeroed);
+``weight_noise`` is carried through the JSON but not ported.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class Layer:
             v = getattr(self, f.name)
             if v is None or callable(v):
                 continue
-            out[f.name] = v
+            out[f.name] = v.to_dict() if hasattr(v, "to_dict") else v
         return out
 
     # ---- impl API ----------------------------------------------------

@@ -15,8 +15,9 @@ output back to the host once and accumulates in numpy
 (``deeplearning4j_tpu_torch.evaluation``).  A per-timestep mask goes
 through each layer's ``transform_mask`` on its way down the stack; the
 recurrent layers' carries thread through :meth:`MultiLayerNetwork._forward_impl`
-(tBPTT) and :meth:`MultiLayerNetwork.rnn_time_step` (streaming).  Not
-ported yet: ``trace_attrs`` and ``save``/``load``.
+(tBPTT) and :meth:`MultiLayerNetwork.rnn_time_step` (streaming).
+``save``/``load`` write and read the JAX package's model zip
+(``io/model_serializer.py``).  Not ported yet: ``trace_attrs``.
 """
 
 from __future__ import annotations
@@ -180,10 +181,29 @@ class MultiLayerNetwork:
         card)."""
         return float(self._score)
 
-    def fit(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+    def fit(self, iterator, epochs: int = 1, listeners=None,
+            resume_from=None) -> "MultiLayerNetwork":
+        """``Trainer(self, listeners).fit(iterator, epochs, resume_from)``."""
         from deeplearning4j_tpu_torch.train.trainer import Trainer
-        Trainer(self).fit(iterator, epochs)
+        Trainer(self, listeners=listeners).fit(iterator, epochs, resume_from=resume_from)
         return self
+
+    # ---------------------------------------------------------- serde
+    def save(self, path: str, save_updater: bool = True,
+             iterator_state: Optional[dict] = None, normalizer=None) -> None:
+        """The model zip (``io.model_serializer.write_model``), which the
+        JAX package restores too."""
+        from deeplearning4j_tpu_torch.io.model_serializer import write_model
+        write_model(self, path, save_updater=save_updater, iterator_state=iterator_state,
+                    normalizer=normalizer)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device: Any = DEFAULT_DEVICE) -> "MultiLayerNetwork":
+        """The network of a model zip either package wrote, on ``device``
+        (verified first; a damaged zip raises ``CheckpointCorruptError``)."""
+        from deeplearning4j_tpu_torch.io.model_serializer import restore_multi_layer_network
+        return restore_multi_layer_network(path, load_updater=load_updater, device=device)
 
     # ---------------------------------------------------------- evaluation
     def _accumulate(self, evaluation, iterator):

@@ -5,8 +5,9 @@ one compiled program whose params, state and updater state are donated
 (their buffers reused for the results).  Here a step is a plain function
 ``fn(*trees, *batch)``: the first ``n_trees`` arguments are trees of
 tensors (nested dicts and lists) that the step updates in place, which
-is the donation; the rest are batch tensors, ``None`` (a mask left out)
-or ``torch.Generator`` s (the step's random streams); it returns a tensor
+is the donation; the rest are batch tensors (or lists of them: a
+``MultiDataSet``'s fields), ``None`` (a mask left out) or
+``torch.Generator`` s (the step's random streams); it returns a tensor
 or a tuple of tensors and of its own tree arguments.  On a CUDA card
 :class:`CapturedStep` runs it as a ``torch.cuda.CUDAGraph`` per batch
 signature (the shapes and dtypes of the batch, and which of its entries
@@ -98,10 +99,30 @@ def _batch_signature(args) -> tuple:
             sig.append((tuple(a.shape), a.dtype, a.device))
         elif isinstance(a, torch.Generator):
             sig.append(("generator", a.device))
+        elif isinstance(a, (list, tuple)) and all(x is None or torch.is_tensor(x) for x in a):
+            sig.append(("list",) + _batch_signature(a))
         else:
-            raise TypeError(f"a captured step takes tensors, None or torch.Generator after "
-                            f"its trees, got {type(a).__name__}")
+            raise TypeError(f"a captured step takes tensors (or lists of them), None or "
+                            f"torch.Generator after its trees, got {type(a).__name__}")
     return tuple(sig)
+
+
+def _static_copy(a):
+    """A batch argument's static buffer: a clone of a tensor (of each
+    tensor of a list); anything else as it is."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, (list, tuple)):
+        return [_static_copy(x) for x in a]
+    return a
+
+
+def _copy_into(buf, a) -> None:
+    if torch.is_tensor(buf):
+        buf.copy_(a)
+    elif isinstance(buf, list):
+        for b, x in zip(buf, a):
+            _copy_into(b, x)
 
 
 def _tree_signature(leaves) -> tuple:
@@ -201,7 +222,7 @@ class CapturedStep:
     def _capture(self, args, batch_sig) -> _Graph:
         trees, rest = args[:self.n_trees], args[self.n_trees:]
         with torch.no_grad(), torch.inference_mode(False):
-            static = [a.clone() if torch.is_tensor(a) else a for a in rest]
+            static = [_static_copy(a) for a in rest]
         generators = tuple(a for a in rest if isinstance(a, torch.Generator))
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
@@ -230,8 +251,7 @@ class CapturedStep:
         current stream."""
         with torch.no_grad():
             for buf, a in zip(static, rest):
-                if torch.is_tensor(buf):
-                    buf.copy_(a)
+                _copy_into(buf, a)
 
     def _replay(self, g: _Graph, args):
         rest = args[self.n_trees:]

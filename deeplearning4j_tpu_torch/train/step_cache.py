@@ -74,7 +74,7 @@ def updater_signature(conf) -> Optional[str]:
     updater = getattr(conf, "updater", None)
     try:
         d = updater_mod.to_dict(updater_mod.from_dict(updater)) if updater is not None else None
-    except (KeyError, TypeError, NotImplementedError):
+    except (KeyError, TypeError, ValueError, NotImplementedError):
         return None
     return json.dumps([d, getattr(conf, "gradient_normalization", None),
                        getattr(conf, "gradient_normalization_threshold", None)],

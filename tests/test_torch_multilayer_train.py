@@ -93,19 +93,15 @@ class _Losses:
 
 
 class _Watch:
-    """The port's side: an iterator that reads the net's score after each
-    step it fed."""
+    """The port's side: a listener that keeps each step's score (``fit``
+    stages batches ahead through its feeder, so an iterator cannot tell
+    when a step has run)."""
 
-    def __init__(self, it, net):
-        self.it, self.net, self.losses = it, net, []
+    def __init__(self):
+        self.losses = []
 
-    def reset(self):
-        self.it.reset()
-
-    def __iter__(self):
-        for batch in self.it:
-            yield batch
-            self.losses.append(self.net.score())
+    def iteration_done(self, model, iteration, epoch, score):
+        self.losses.append(float(score))
 
 
 @pytest.fixture(scope="module", params=sorted(NETS))
@@ -161,12 +157,13 @@ def _fit(ref, policy=None):
         config.set_dtype_policy(policy)
     try:
         net = _port(ref)
-        it = _Watch(ArrayDataSetIterator(ref["x"].astype(dt), ref["y"].astype(dt), ref["batch"],
-                                         shuffle=True, seed=5), net)
-        assert net.fit(it, 1) is net
+        it = ArrayDataSetIterator(ref["x"].astype(dt), ref["y"].astype(dt), ref["batch"],
+                                  shuffle=True, seed=5)
+        watch = _Watch()
+        assert net.fit(it, 1, listeners=[watch]) is net
     finally:
         config.set_dtype_policy(config.DTypePolicy.f32())
-    return net, it.losses
+    return net, watch.losses
 
 
 def test_fit_matches_jax_at_every_step(reference):

@@ -92,6 +92,106 @@ def test_port_reads_no_dl4j_tpu_environment_variable():
         assert "DL4J_TPU_" not in path.read_text(), path
 
 
+def test_no_jax_scan_covers_the_training_slice():
+    """The schedules, early stopping, transfer learning, the checkpoint
+    modules and the resilience subpackage are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("train/schedules.py", "train/early_stopping.py", "nn/transfer.py",
+                   "io/model_serializer.py", "io/checkpoint.py", "resilience/__init__.py",
+                   "resilience/checkpoint.py", "data/dataset.py", "data/iterators.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_module_reads_the_resume_pointer(path):
+    """The JAX package's supervisor hands a respawned worker its checkpoint
+    through an environment variable that ``Trainer.fit`` reads; the port
+    reads no environment for a resume (nothing of ``os.environ`` or
+    ``getenv`` names it, and ``fit`` resumes only from ``resume_from``)."""
+    text = path.read_text()
+    assert "DL4J_TPU_RESUME_FROM" not in text and "RESUME_ENV" not in text, path
+    for node in ast.walk(ast.parse(text, filename=str(path))):
+        reads_env = (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
+                     or isinstance(node, ast.Name) and node.id in ("environ", "getenv"))
+        if reads_env:
+            line = text.splitlines()[node.lineno - 1]
+            assert "RESUME" not in line.upper(), (path, node.lineno, line)
+
+
+def test_fit_ignores_a_resume_pointer_in_the_environment(monkeypatch, tmp_path):
+    rng = np.random.default_rng(1)
+    x = rng.random((8, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    net = mlp_mnist(hidden=8, hidden2=4, device="cpu").init()
+    net.fit(ArrayDataSetIterator(x, y, 4), 1)
+    net.save(str(tmp_path / "c.zip"))
+    monkeypatch.setenv("DL4J_TPU_RESUME_FROM", str(tmp_path / "c.zip"))
+    fresh = mlp_mnist(hidden=8, hidden2=4, device="cpu").init()
+    fresh.fit(ArrayDataSetIterator(x, y, 4), 1)
+    assert (fresh.iteration, fresh.epoch) == (2, 1)     # a fresh run, not a resumed one
+
+
+def test_model_loads_default_to_the_card_and_raise_without_one(no_card, tmp_path):
+    from deeplearning4j_tpu_torch.io.model_serializer import restore_model
+    path = str(tmp_path / "m.zip")
+    mlp_mnist(hidden=8, hidden2=4, device="cpu").init().save(path)
+    for load in (MultiLayerNetwork.load, restore_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(path)
+    assert MultiLayerNetwork.load(path, device="cpu").device == torch.device("cpu")
+    graph = str(tmp_path / "g.zip")
+    ComputationGraph(_tiny_graph_conf(), device="cpu").init().save(graph)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ComputationGraph.load(graph)
+    assert ComputationGraph.load(graph, device="cpu").device == torch.device("cpu")
+
+
+def _tiny_graph_conf():
+    """A two-layer graph configuration (dense, softmax)."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    g = (NeuralNetConfiguration.builder().seed(1).graph().add_inputs("in")
+         .set_input_types(InputType.feed_forward(6)))
+    g.add_layer("d", DenseLayer(n_out=5, activation="relu"), "in")
+    g.add_layer("out", OutputLayer(n_out=3, activation="softmax", loss="mcxent"), "d")
+    return g.set_outputs("out").build()
+
+
+def test_cpu_frozen_fine_tune_with_checkpoints_never_touches_the_kernel_loader(
+        monkeypatch, tmp_path):
+    """A ResNet-50 (32x32) with its stem and res2-res4 frozen and its own
+    head updater fine-tunes, checkpoints and resumes on the CPU through the
+    plain versions: no build, no launch."""
+    from deeplearning4j_tpu_torch.data import ResumableIterator
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train import AdamW, ExponentialSchedule, RampSchedule
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    before = (conv_bn.launches, conv_bn.bwd_launches)
+    net = resnet50(height=32, width=32, num_classes=5, device="cpu")
+    for spec in net._topo:
+        if spec.kind == "layer" and spec.name.startswith(("stem", "res2_", "res3_", "res4_")):
+            spec.obj.frozen = True
+    net.layers[-1].updater = AdamW(RampSchedule(underlying=ExponentialSchedule(
+        initial_value=1e-3, gamma=0.99), num_iterations=4))
+    net.init(seed=2)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 32, 32, 3)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 8)]
+    frozen = net.params_["res4_5"]["W_a"].clone()
+    net.fit(ResumableIterator(ArrayDataSetIterator(x, y, 4)), 1,
+            listeners=[CheckpointListener(str(tmp_path), save_every_n_epochs=1)])
+    assert torch.equal(net.params_["res4_5"]["W_a"], frozen) and np.isfinite(net.score())
+    again = ComputationGraph(net.conf, device="cpu").init(seed=2)
+    again.fit(ResumableIterator(ArrayDataSetIterator(x, y, 4)), 2, resume_from=str(tmp_path))
+    assert (again.iteration, again.epoch) == (4, 2)
+    assert (conv_bn.launches, conv_bn.bwd_launches) == before
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -148,7 +148,7 @@ def test_a_conf_without_json_or_with_an_unported_updater_is_not_cached():
         conf = None
     assert step_cache.net_signature(Bare()) is None
     conf = _conf("torch", "base")
-    conf.updater = {"type": "rmsprop", "learning_rate": 1e-3}
+    conf.updater = {"type": "lars", "learning_rate": 1e-3}    # no such updater
     assert step_cache.updater_signature(conf) is None
     assert step_cache.sharding_signature(None) == ""
     with pytest.raises(NotImplementedError, match="parallel"):

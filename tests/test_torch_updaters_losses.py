@@ -154,10 +154,13 @@ def test_resnet_updates_are_unchanged_by_the_tree_repair(conf, resnet_tree, monk
 
 
 def test_unported_updaters_and_normalizations_raise():
-    with pytest.raises(NotImplementedError, match="rmsprop"):
-        updaters.from_dict({"type": "rmsprop", "learning_rate": 0.1})
-    with pytest.raises(NotImplementedError, match="schedule"):
-        updaters.from_dict({"type": "sgd", "learning_rate": {"type": "step", "initial": 0.1}})
+    # every updater and schedule of the reference is ported; a name the
+    # reference does not know raises
+    with pytest.raises(ValueError, match="unknown updater 'lars'"):
+        updaters.from_dict({"type": "lars", "learning_rate": 0.1})
+    sched = updaters.from_dict({"type": "sgd", "learning_rate": {"type": "step",
+                                                                 "initial_value": 0.1}})
+    assert sched.scheduled and sched.to_dict()["learning_rate"]["type"] == "step"
     # every normalization is ported; a name the reference does not know raises
     with pytest.raises(ValueError, match="unknown gradient normalization"):
         updaters.gradient_normalization("clip_l2_per_everything")
