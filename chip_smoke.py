@@ -269,7 +269,45 @@ no result line:
    iteration 8 and resumed, captured: its random stream restored, every
    loss and tensor the same bits; (g) a two-input graph through ``fit`` on
    ``MultiDataSet`` s, captured against eager (the same bits);
-25. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+25. the serving stack (``serve/``, ``online/``, ``obs/``,
+   ``resilience/faults.py``), every part but the captured round of (c) and
+   the online round of (e) eager: (a) the seeded VGG-16 (f32 params) and
+   ResNet-50 written as model zips; ``ModelRegistry().deploy("vgg16",
+   precision="int8")`` under bench_quantized's bf16 serving policy with 2
+   seeded calibration batches of 32, the three
+   ``tpudl_serve_quantized_*`` gauges equal to the net's report; (b)
+   ``ModelServer`` on loopback: 8 client threads POST 64 requests of 1-4
+   images (JSON bodies encoded before the clock starts), each answer
+   equal to its version's output of the batch it was served in,
+   ``/metrics`` counting every request ok, ``/healthz`` 200, 3
+   ``int8_matmul`` launches a batch; requests/s and latency, and the same
+   requests through the engine alone; (c) under the clients' load a hot
+   swap to the fp VGG-16 and a rollback to int8: no request fails, each
+   answer is its version's, ``/healthz`` reads 503 only inside the
+   registry's swap windows; then captured: one bucket of each precision
+   warmed, and a second round int8 -> fp that captures no new graph (the
+   tree switches on the shared graph printed); (e) ``GatedDeployer``
+   scores an int8 candidate against the fp incumbent (eval loss on 2
+   seeded held-out batches), a truncated candidate is refused with the
+   incumbent serving, a ``DeployWatch`` window over live requests; (f)
+   planted faults: ``serve.dispatch@2:error`` fails its batch's request
+   with ``error_status``'s code and no other, the errors counted equal
+   the planted ones, a flight-recorder dump (``chiprun_out/``, read by
+   ``read_dump``) holds the ``serve_error`` event and the ``serve`` spans
+   with their device-sync time; a refused ``int8_matmul`` launch answers
+   a 5xx and the plain version is never called; (d) ResNet-50 f32 behind
+   ``ReplicaRouter(replicas=2)`` with two lanes and a tenant quota: 36
+   ``matmul_bn_act`` launches a batch, each answer within phase 4's
+   ``SERVE_TOL`` of the net's output of its request alone, the quota's
+   ``QuotaExceeded``, a lane shed, a fan-out deploy, the registry's
+   ``RoutedModelError``, the autoscaler from 1 to 2 replicas and back;
+   images/s and latency through the router and the engine alone; (e)
+   ``examples/online_learning.py``'s flow: a classifier served,
+   ``:feedback`` into a ``FeedbackLog``, ``OnlineTrainer.run_once``
+   deploying a gated version 2 while the server answers requests (its
+   training step captured under that load), and the same round on an
+   idle card, captured anew, with the same candidate bits;
+26. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -5133,6 +5171,917 @@ def vgg_transfer(card: str, tmp: Path) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 25
+SS_SEED = SEED + 40
+SS_HW = 224                  # the served images' side
+# (b): client threads, requests, images a request (1 to this many)
+SS_CLIENTS, SS_REQUESTS, SS_MAX_IMAGES = 8, 64, 4
+# (c): the captured rounds send one request of this many images at a time (one
+# bucket), this many times a version (two eager calls and the capture)
+SS_WARM_IMAGES, SS_WARM_CALLS = 4, 3
+# (c): client threads posting the one-image requests of (b) through the swaps (a
+# thread decoding a body holds the interpreter lock the deploy needs too: under 2
+# clients a deploy took 17-20 s, idle 4 s)
+SS_SWAP_CLIENTS = 1
+# (d): requests of this many images through the router and the engine alone
+SS_ROUTER_REQUESTS, SS_ROUTER_IMAGES = 32, 8
+# (e): the gate's held-out batches of VGG-16 images, and the online classifier
+SS_HOLDOUT = (2, 16)
+ONLINE_IN, ONLINE_CLASSES, ONLINE_RECORDS = 12, 3, 64
+
+
+def serving_vgg16():
+    """Phase 25's VGG-16: full width, seeded (the other phases' seed)."""
+    from deeplearning4j_tpu_torch.models import vgg16
+    return vgg16(device="cuda").init(seed=SEED)
+
+
+def serving_resnet50():
+    """Phase 25's ResNet-50: phase 3's seeded, fused net."""
+    return build_net()
+
+
+def http_call(port: int, method: str, path: str, body=None, headers=None,
+              timeout: float = 300.0):
+    """(status, body bytes) of one request to the loopback server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def ok_count(port: int) -> float:
+    """``tpudl_serve_requests_total{status="ok"}`` read from /metrics."""
+    status, raw = http_call(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    m = re.search(r'^tpudl_serve_requests_total\{status="ok"\} (\S+)$', raw.decode(), re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+class dispatches_recorded:
+    """Comparison only: every engine dispatch's model, staged batch (a host
+    copy) and output, so that each answer is held to the output of the
+    very batch it was served in (phase 17's check)."""
+
+    def __enter__(self):
+        import numpy as np
+        from deeplearning4j_tpu_torch.serve.engine import InferenceEngine
+        self.cls, saved = InferenceEngine, InferenceEngine._forward
+        self.saved, records, lock = saved, [], threading.Lock()
+        self.records = records
+
+        def recording(engine, features, mask):
+            y = saved(engine, features, mask)
+            with lock:
+                records.append((engine.model, np.array(features), y.clone()))
+            return y
+
+        InferenceEngine._forward = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._forward = self.saved
+
+
+def hold_answers(records, answers, models) -> dict:
+    """Each recorded dispatch's output equal to ``model.output`` of its
+    staged batch, and each answer ``(version, images, predictions)`` equal
+    to the rows of the dispatch of that version's model that served its
+    images."""
+    import numpy as np
+    import torch
+    index = {}
+    for r, (model, x, y) in enumerate(records):
+        direct = model.output(x)
+        if not torch.equal(direct, y):
+            raise AssertionError(f"dispatch {r}: the engine's output differs from output() of "
+                                 f"its batch by {(direct.float() - y.float()).abs().max().item()}")
+        for row in range(x.shape[0]):
+            index.setdefault((id(model), x[row].tobytes()), []).append((r, row))
+    for version, images, preds in answers:
+        n, found = images.shape[0], False
+        for r, row in index.get((id(models[version]), images[0].tobytes()), ()):
+            x, y = records[r][1], records[r][2]
+            if row + n <= x.shape[0] and np.array_equal(x[row:row + n], images):
+                found = True
+                if np.array_equal(preds, y[row:row + n].float().cpu().numpy()):
+                    break
+        else:
+            # the images may sit in several dispatches (the engine-alone pass
+            # repeats them beside other batchmates): one must give the answer
+            raise AssertionError(f"an answer of version {version} equals the rows of no dispatch "
+                                 f"of that version's model that served its images "
+                                 f"(served: {found})")
+    return {"dispatches": len(records), "answers": len(answers)}
+
+
+def percentiles(seconds) -> dict:
+    import numpy as np
+    ms = np.asarray(seconds) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def vgg_requests(rng, count: int, max_images: int):
+    """``count`` seeded requests of 1 to ``max_images`` VGG images, and their
+    JSON bodies, encoded before any clock starts.  Every image is one
+    seeded N(0, 1) base image with a row of its own (row 0), so that each
+    image is distinct (an answer is found by its images) while the client
+    encodes the shared rows once; the server decodes every body whole."""
+    import numpy as np
+    base = rng.normal(size=(SS_HW, SS_HW, 3)).astype(np.float32)
+    rest = json.dumps(base[1:].tolist())[1:-1]
+    images, bodies = [], []
+    for n in rng.integers(1, max_images + 1, size=count):
+        x = np.repeat(base[None], int(n), axis=0)
+        x[:, 0] = rng.normal(size=(int(n), SS_HW, 3)).astype(np.float32)
+        rows = ",".join(f"[{json.dumps(img[0].tolist())},{rest}]" for img in x)
+        images.append(x)
+        bodies.append(f'{{"instances": [{rows}]}}'.encode())
+    return images, bodies
+
+
+def post_clients(port, images, bodies, threads: int, answers: list, failures: list,
+                 stop=None, path: str = "/v1/models/vgg16:predict"):
+    """``threads`` clients POST the bodies (each thread every ``threads``-th,
+    round after round while ``stop`` is given and not set); each answer is
+    appended as (version, images, predictions, seconds), each other status
+    to ``failures``.  Returns the wall seconds."""
+    import numpy as np
+    lock = threading.Lock()
+
+    def client(j):
+        while True:
+            for i in range(j, len(bodies), threads):
+                t0 = time.perf_counter()
+                status, raw = http_call(port, "POST", path, bodies[i])
+                dt = time.perf_counter() - t0
+                with lock:
+                    if status != 200:
+                        failures.append((status, raw[:300]))
+                    else:
+                        body = json.loads(raw)
+                        answers.append((body["model_version"], images[i],
+                                        np.asarray(body["predictions"], np.float32), dt))
+                if stop is not None and stop.is_set():
+                    return
+            if stop is None:
+                return
+
+    workers = [threading.Thread(target=client, args=(j,)) for j in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("HTTP clients did not finish")
+    return time.perf_counter() - t0
+
+
+class HealthPoller:
+    """GET /healthz every 10 ms from a thread; ``readings`` are (sent,
+    answered, status) on the monotonic clock."""
+
+    def __init__(self, port: int):
+        self.port, self.readings = port, []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.is_set():
+            t0 = time.monotonic()
+            status, _ = http_call(self.port, "GET", "/healthz")
+            self.readings.append((t0, time.monotonic(), status))
+            self.stop.wait(0.01)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=60)
+
+
+def record_swaps(registry) -> list:
+    """Comparison only: the registry's readiness windows (monotonic
+    start, end), appended as each swap ends."""
+    windows, saved = [], registry._swap
+
+    @contextlib.contextmanager
+    def swap():
+        t0 = time.monotonic()
+        with saved():
+            yield
+        windows.append((t0, time.monotonic()))
+
+    registry._swap = swap
+    return windows
+
+
+def vgg_http(card, registry, server, models, images, bodies, counters) -> dict:
+    """25 (b): the clients over HTTP against the int8 VGG-16, then the same
+    requests through its engine alone."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    reg = counters["metrics"]
+    batches0, launches0 = reg.counter("tpudl_serve_batches_total").value, qm.launches
+    answers, failed = [], []
+    wall = post_clients(server.port, images, bodies, SS_CLIENTS, answers, failed)
+    if failed:
+        raise AssertionError(f"HTTP requests failed: {failed[:3]}")
+    batches = reg.counter("tpudl_serve_batches_total").value - batches0
+    launches = qm.launches - launches0
+    ok = ok_count(server.port)
+    status, _ = http_call(server.port, "GET", "/healthz")
+    if ok != len(bodies) or status != 200:
+        raise AssertionError(f"/metrics counts {ok} ok of {len(bodies)} requests sent; /healthz "
+                             f"{status}")
+    if launches != 3 * batches or batches == 0:
+        raise AssertionError(f"int8_matmul launched {launches} times for {batches} batches")
+    engine = registry.get("vgg16").engine
+    alone: list = []
+
+    def client(j):
+        for i in range(j, len(images), SS_CLIENTS):
+            t0 = time.perf_counter()
+            engine.predict(images[i], timeout_s=300)
+            alone.append(time.perf_counter() - t0)
+
+    workers = [threading.Thread(target=client, args=(j,)) for j in range(SS_CLIENTS)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    alone_wall = time.perf_counter() - t0
+    n_images = int(sum(x.shape[0] for x in images))
+    result = {"requests": len(bodies), "images": n_images, "batches": int(batches),
+              "launches": int(launches), "wall_s": wall,
+              "requests_per_s": len(bodies) / wall, "images_per_s": n_images / wall,
+              **percentiles([a[3] for a in answers]),
+              "body_mb_mean": float(np.mean([len(b) for b in bodies]) / 1e6),
+              "engine_alone": {"wall_s": alone_wall, "requests_per_s": len(images) / alone_wall,
+                               "images_per_s": n_images / alone_wall, **percentiles(alone)}}
+    log(f"  (b) HTTP on {card}: {len(bodies)} requests ({n_images} images, JSON bodies of "
+        f"{result['body_mb_mean']:.2f} MB on average) from {SS_CLIENTS} threads in "
+        f"{wall:.2f} s: {result['requests_per_s']:.2f} requests/s, "
+        f"{result['images_per_s']:.1f} images/s, latency p50 {result['p50_ms']:.1f} ms, p99 "
+        f"{result['p99_ms']:.1f} ms; {int(batches)} batches, {int(launches)} int8_matmul "
+        f"launches; /metrics ok {ok:.0f}, /healthz {status}")
+    log(f"      the same requests through the engine alone: "
+        f"{result['engine_alone']['requests_per_s']:.2f} requests/s, "
+        f"{result['engine_alone']['images_per_s']:.1f} images/s, p50 "
+        f"{result['engine_alone']['p50_ms']:.1f} ms, p99 {result['engine_alone']['p99_ms']:.1f} ms")
+    return result, [(v, x, p) for v, x, p, _ in answers]
+
+
+def timed_deploy(registry, name, models, *args, **kw):
+    """``registry.deploy`` (or ``rollback`` with no path), its seconds and
+    the new version's model noted in ``models``."""
+    t0 = time.perf_counter()
+    entry = (registry.deploy(name, *args, **kw) if args else registry.rollback(name))
+    seconds = time.perf_counter() - t0
+    models[entry.version] = entry.engine.model
+    return entry, seconds
+
+
+def vgg_swaps(card, registry, server, models, images, bodies, vgg_zip) -> dict:
+    """25 (c): a hot swap to the full-precision VGG-16 and a rollback to int8
+    under the clients' load, /healthz polled throughout; no request may
+    fail and each answer must be its version's."""
+    answers, failures, stop = [], [], threading.Event()
+    windows = record_swaps(registry)
+    poller = HealthPoller(server.port)
+    ones = [i for i, x in enumerate(images) if x.shape[0] == 1]
+    load = threading.Thread(target=lambda: post_clients(
+        server.port, [images[i] for i in ones], [bodies[i] for i in ones], SS_SWAP_CLIENTS,
+        answers, failures, stop=stop))
+    load.start()
+
+    def wait_for(version, count):
+        deadline = time.monotonic() + 300
+        while sum(1 for a in answers if version is None or a[0] == version) < count:
+            if failures or time.monotonic() > deadline:
+                raise AssertionError(f"waiting for {count} answers of version {version}: "
+                                     f"{len(answers)} answers, failures {failures[:3]}")
+            time.sleep(0.05)
+
+    try:
+        wait_for(None, 8)
+        fp, fp_s = timed_deploy(registry, "vgg16", models, vgg_zip)
+        n_fp = len(answers)
+        wait_for(fp.version, 8)
+        back, back_s = timed_deploy(registry, "vgg16", models)
+        n_back = len(answers)
+        wait_for(back.version, 8)
+    finally:
+        stop.set()
+        load.join(timeout=900)
+        poller.close()
+    del registry._swap
+    if failures:
+        raise AssertionError(f"{len(failures)} requests failed across the swaps: {failures[:3]}")
+    if back.precision != "int8" or fp.precision != "bf16":
+        raise AssertionError(f"swap precisions {fp.precision}, {back.precision}")
+    outside = [(t0, t1) for t0, t1, s in poller.readings if s == 503
+               and not any(t0 <= w1 and t1 >= w0 for w0, w1 in windows)]
+    unready = sum(1 for *_, s in poller.readings if s == 503)
+    if outside or any(s not in (200, 503) for *_, s in poller.readings):
+        raise AssertionError(f"/healthz read 503 outside the swap windows {outside[:3]}")
+    versions = sorted({a[0] for a in answers})
+    result = {"answers": len(answers), "versions": versions, "failed": 0,
+              "deploy_fp_s": fp_s, "rollback_int8_s": back_s,
+              "swap_windows_s": [w1 - w0 for w0, w1 in windows],
+              "healthz_readings": len(poller.readings), "healthz_503": unready,
+              "answers_during": {"int8_before": n_fp, "after_rollback": len(answers) - n_back}}
+    log(f"  (c) hot swap under load ({SS_SWAP_CLIENTS} clients posting one-image requests) on "
+        f"{card}: {len(answers)} answers from versions {versions}, "
+        f"none failed; deploy fp (load, verify, engine, flip, drain) {fp_s:.2f} s, rollback to "
+        f"int8 (load, verify, quantize, flip, drain) {back_s:.2f} s; readiness windows "
+        f"{[round(w, 3) for w in result['swap_windows_s']]} s; /healthz {unready} x 503 of "
+        f"{len(poller.readings)} readings, all inside them")
+    return result, [(v, x, p) for v, x, p, _ in answers]
+
+
+def vgg_captured_rounds(card, registry, server, models, vgg_zip, rng, counters) -> dict:
+    """25 (c), captured: one bucket of int8 and of fp warmed (captured), then
+    a second round int8 -> fp through rollback and deploy that must capture
+    no new graph; each switch of trees on the shared graph is counted."""
+    import numpy as np
+    reg = counters["metrics"]
+    x = rng.normal(size=(SS_WARM_IMAGES, SS_HW, SS_HW, 3)).astype(np.float32)
+    body = json.dumps({"instances": x.tolist()}).encode()
+    answers = []
+
+    def calls(n):
+        for _ in range(n):
+            status, raw = http_call(server.port, "POST", "/v1/models/vgg16:predict", body)
+            if status != 200:
+                raise AssertionError(f"captured round: {status} {raw[:300]}")
+            out = json.loads(raw)
+            answers.append((out["model_version"], x, np.asarray(out["predictions"], np.float32)))
+
+    calls(SS_WARM_CALLS)                                   # the int8 version: its graph
+    timed_deploy(registry, "vgg16", models, vgg_zip)
+    calls(SS_WARM_CALLS)                                   # the fp version: its graph
+    step = registry.get("vgg16").engine._fwd
+    graphs0, switches0 = step.graph_count, step.switches
+    recaptures0 = reg.counter("tpudl_serve_recompiles_total").value
+    back, back_s = timed_deploy(registry, "vgg16", models)         # int8 again
+    calls(SS_WARM_CALLS)
+    fp, fp_s = timed_deploy(registry, "vgg16", models, vgg_zip)    # fp again
+    calls(SS_WARM_CALLS)
+    engine = registry.get("vgg16").engine
+    result = {"graphs_before": graphs0, "graphs_after": engine.compiled_programs,
+              "recaptures": reg.counter("tpudl_serve_recompiles_total").value - recaptures0,
+              "switches": step.switches - switches0, "rollback_s": back_s, "deploy_s": fp_s,
+              "versions": [back.version, fp.version]}
+    log(f"  (c) captured second round int8 -> fp (versions {result['versions']}) on {card}: "
+        f"graphs {graphs0} -> {result['graphs_after']}, new captures "
+        f"{result['recaptures']:.0f}, tree switches on the shared graph {result['switches']} "
+        f"(each a copy of one net's trees into the graph's buffers); rollback {back_s:.2f} s, "
+        f"deploy {fp_s:.2f} s")
+    if result["graphs_after"] != graphs0 or result["recaptures"] or graphs0 < 2 \
+            or step is not engine._fwd:
+        raise AssertionError(f"the second round captured a new graph: {result}")
+    return result, answers
+
+
+def vgg_faults(card, registry, server, rng, counters) -> dict:
+    """25 (f): a planted dispatch fault (its batch's requests fail with
+    error_status's code, the next batch succeeds, the errors counted equal
+    the planted ones, and a flight-recorder dump holds the serve_error
+    event and the serve spans with their device-sync time); and a planted
+    int8 launch failure (a 5xx, no answer from the plain version)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.obs import flight_recorder, tracing
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.serve.server import error_status
+    reg = counters["metrics"]
+    if registry.get("vgg16").precision != "int8":
+        raise AssertionError("the fault checks need the int8 version serving")
+    x = rng.normal(size=(2, SS_HW, SS_HW, 3)).astype(np.float32)
+    body = json.dumps({"instances": x.tolist()}).encode()
+    requests = reg.labeled_counter("tpudl_serve_requests_total")
+    errors0 = requests.labeled_value(status="error")
+    flight_recorder.get_recorder().clear()
+    config.set_config(tracing=True)
+    tracer = tracing.Tracer()
+    try:
+        with tracing.use_tracer(tracer), faults.inject("serve.dispatch@2:error"):
+            statuses = [http_call(server.port, "POST", "/v1/models/vgg16:predict", body)[0]
+                        for _ in range(4)]
+    finally:
+        config.set_config(tracing=False)
+    errors = requests.labeled_value(status="error") - errors0
+    want = error_status(faults.InjectedFault("x"))
+    if statuses != [200, 200, want, 200] or errors != 1:
+        raise AssertionError(f"planted dispatch fault: statuses {statuses} (want the third "
+                             f"{want}), {errors} errors counted for 1 planted")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    dump = out_dir / "flight_phase25.jsonl"
+    dump.unlink(missing_ok=True)
+    flight_recorder.dump(str(dump), reason="phase 25 planted dispatch fault")
+    lines = flight_recorder.read_dump(str(dump))
+    events = [ln for ln in lines if ln.get("type") == "event"]
+    serve_errors = [e for e in events if e["kind"] == "serve_error"]
+    spans = [e for e in events if e["kind"] == "span" and e["name"] == "serve"]
+    if [ln["type"] for ln in lines[:2]] != ["header", "liveness"] or len(serve_errors) != 1 \
+            or len(spans) != 3 or not all(s["device_sync_ms"] > 0 for s in spans) \
+            or len(tracer.find("serve")) != 3:
+        raise AssertionError(f"the flight dump holds {len(serve_errors)} serve_error events and "
+                             f"{len(spans)} serve spans ({[s['device_sync_ms'] for s in spans]} "
+                             f"ms of device sync)")
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("planted fault: the int8_matmul launch failed")
+
+    plain_calls, plain = [], qm.int8_matmul_plain
+
+    def counted_plain(*args):
+        plain_calls.append(1)
+        return plain(*args)
+
+    saved_launch, launches0 = qm._launch, qm.launches
+    qm._launch, qm.int8_matmul_plain = refuse, counted_plain
+    try:
+        status, raw = http_call(server.port, "POST", "/v1/models/vgg16:predict", body)
+    finally:
+        qm._launch, qm.int8_matmul_plain = saved_launch, plain
+    launched = qm.launches - launches0
+    after, _ = http_call(server.port, "POST", "/v1/models/vgg16:predict", body)
+    if not 500 <= status < 600 or b"planted fault" not in raw or plain_calls \
+            or launched or after != 200:
+        raise AssertionError(f"planted int8 launch failure: status {status} {raw[:200]}, plain "
+                             f"version called {len(plain_calls)} times, next request {after}")
+    result = {"dispatch_fault_statuses": statuses, "errors_counted": errors,
+              "dump_lines": len(lines), "serve_spans_device_sync_ms":
+              [s["device_sync_ms"] for s in spans], "launch_fault_status": status}
+    log(f"  (f) planted faults on {card}: serve.dispatch@2:error gave {statuses}, {errors:.0f} "
+        f"error counted; the dump ({len(lines)} lines) holds the serve_error event and 3 serve "
+        f"spans with {result['serve_spans_device_sync_ms']} ms of device sync; a refused int8 "
+        f"launch answered {status}, the plain version never called")
+    return result
+
+
+def vgg_gate(card, registry, server, models, vgg_zip, tmp, rng, calib) -> dict:
+    """25 (e): the gate scores a VGG-16 int8 candidate against the serving
+    fp incumbent (eval loss on held-out seeded batches); a truncated
+    candidate is refused and the incumbent keeps serving; a DeployWatch
+    window runs over live requests."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.io.model_serializer import restore_model
+    from deeplearning4j_tpu_torch.online import DeployWatch, EvalGate, GatedDeployer
+    from deeplearning4j_tpu_torch.resilience.checkpoint import CheckpointCorruptError
+    incumbent = registry.get("vgg16")
+    if incumbent.precision == "int8":
+        raise AssertionError("the gate check needs the fp version serving")
+    holdout = ListDataSetIterator([
+        DataSet(rng.normal(size=(SS_HOLDOUT[1], SS_HW, SS_HW, 3)).astype(np.float32),
+                np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, SS_HOLDOUT[1])])
+        for _ in range(SS_HOLDOUT[0])])
+    deployer = GatedDeployer(registry, EvalGate(holdout, metric="loss"))
+    t0 = time.perf_counter()
+    decision = deployer.deploy_if_better("vgg16", vgg_zip, precision="int8", calibration=calib)
+    gate_s = time.perf_counter() - t0
+    if decision.deploy:
+        models[decision.version] = registry.get("vgg16").engine.model
+    if not (np.isfinite(decision.candidate_score) and np.isfinite(decision.incumbent_score)):
+        raise AssertionError(f"gate scores are not finite: {decision.to_dict()}")
+    torn = str(tmp / "torn.zip")
+    with open(vgg_zip, "rb") as src, open(torn, "wb") as dst:
+        dst.write(src.read(min(os.path.getsize(vgg_zip) // 2, 64 * 2 ** 20)))
+    serving = registry.get("vgg16").version
+    refused = deployer.deploy_if_better("vgg16", torn, precision="int8")
+    try:
+        restore_model(torn)
+        raise AssertionError("a truncated zip restored")
+    except CheckpointCorruptError:
+        pass
+    x = rng.normal(size=(1, SS_HW, SS_HW, 3)).astype(np.float32)
+    body = json.dumps({"instances": x.tolist()}).encode()
+    status, raw = http_call(server.port, "POST", "/v1/models/vgg16:predict", body)
+    if refused.deploy or "failed verification" not in refused.reason or status != 200 \
+            or json.loads(raw)["model_version"] != serving:
+        raise AssertionError(f"truncated candidate: {refused.to_dict()}, then {status}")
+    stop, answers, failures = threading.Event(), [], []
+    load = threading.Thread(target=lambda: post_clients(
+        server.port, [x], [body], 1, answers, failures, stop=stop))
+    load.start()
+    try:
+        verdict = DeployWatch(registry, "vgg16", window_s=0.8, poll_s=0.05,
+                              min_requests=2).run()
+    finally:
+        stop.set()
+        load.join(timeout=300)
+    if verdict["rolled_back"] or failures:
+        raise AssertionError(f"the watch rolled a clean deploy back: {verdict}, {failures[:3]}")
+    result = {"decision": decision.to_dict(), "gate_s": gate_s,
+              "truncated": refused.reason[:200], "watch": verdict,
+              "watch_answers": len(answers)}
+    log(f"  (e) gate on {card}: int8 candidate eval loss {decision.candidate_score:.6f} vs the fp "
+        f"incumbent's {decision.incumbent_score:.6f} (delta {decision.delta:.3g}): "
+        f"{'deployed as version ' + str(decision.version) if decision.deploy else 'refused'} "
+        f"({decision.reason[:80]}) in {gate_s:.2f} s; a truncated candidate refused "
+        f"({refused.reason[:60]}...), version {serving} kept serving; DeployWatch over "
+        f"{len(answers)} live answers: {verdict['reason']}")
+    return result
+
+
+def online_round(card, tmp) -> dict:
+    """25 (e): examples/online_learning.py's flow on the card: a small
+    classifier served, ``:feedback`` POSTs into a FeedbackLog, and
+    ``OnlineTrainer.run_once`` training (its step captured while the
+    server answers requests) and deploying a gated version 2; then the
+    same round on an idle card, captured anew, must give the same
+    candidate bits."""
+    import shutil
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.io.model_serializer import restore_model
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.online import EvalGate, OnlineConfig, OnlineTrainer
+    from deeplearning4j_tpu_torch.serve import FeedbackLog, ModelRegistry, ModelServer
+    from deeplearning4j_tpu_torch.train import Adam
+    rng = np.random.default_rng(SS_SEED + 7)
+    w = rng.normal(size=(ONLINE_IN, ONLINE_CLASSES)).astype(np.float32)
+
+    def make_xy(n, seed):
+        x = np.random.default_rng(seed).normal(size=(n, ONLINE_IN)).astype(np.float32)
+        return x, np.eye(ONLINE_CLASSES, dtype=np.float32)[np.argmax(x @ w, -1)]
+
+    conf = (NeuralNetConfiguration.builder().seed(5).updater(Adam(1e-2)).list()
+            .layer(DenseLayer(n_out=24, activation="relu"))
+            .layer(OutputLayer(n_out=ONLINE_CLASSES, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(ONLINE_IN)).build())
+    net = MultiLayerNetwork(conf).init()
+    x0, y0 = make_xy(32, 1)
+    net.fit(ListDataSetIterator([DataSet(x0, y0)]), epochs=1)
+    base = str(tmp / "clf_base.zip")
+    net.save(base)
+    hx, hy = make_xy(128, 3)
+    spool = str(tmp / "spool")
+    feedback = FeedbackLog(spool)
+    registry = ModelRegistry(max_batch=8, max_latency_ms=2.0)
+    registry.deploy("clf", base)
+    server = ModelServer(registry, feedback=feedback)
+    xq, yq = make_xy(ONLINE_RECORDS, 2)
+
+    def post(path, body):
+        status, raw = http_call(server.port, "POST", path, json.dumps(body).encode())
+        return status, json.loads(raw)
+
+    stop, served, failures = threading.Event(), [], []
+    client = None
+    try:
+        status, body = post("/v1/models/clf:predict", {"instances": xq[:8].tolist(),
+                                                       "labels": yq[:8].tolist()})
+        status2, body2 = post("/v1/models/clf:feedback", {"instances": xq[8:].tolist(),
+                                                          "labels": yq[8:].tolist()})
+        if status != 200 or status2 != 200 or body2["accepted"] != ONLINE_RECORDS - 8:
+            raise AssertionError(f"feedback intake: {status} {status2} {body2}")
+        if not feedback.flush():
+            raise AssertionError("the feedback spool did not drain")
+        shutil.copytree(spool, str(tmp / "spool_idle"))     # round stamps live in the spool
+
+        def load():
+            while not stop.is_set():
+                s, b = post("/v1/models/clf:predict", {"instances": xq[:4].tolist()})
+                (served if s == 200 else failures).append(b.get("model_version", s))
+
+        client = threading.Thread(target=load)
+        client.start()
+        trainer = OnlineTrainer(
+            registry, "clf", spool, str(tmp / "online"),
+            EvalGate(ListDataSetIterator([DataSet(hx, hy)]), metric="accuracy"), base,
+            config=OnlineConfig(min_records=ONLINE_RECORDS, batch_size=16,
+                                max_records_per_round=ONLINE_RECORDS, epochs_per_round=2))
+        t0 = time.perf_counter()
+        decision = trainer.run_once()
+        round_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while sum(1 for v in served if v == 2) < 4 and not failures \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        if client is not None:
+            client.join(timeout=60)
+        server.stop()
+        feedback.close()
+        registry.close()
+    if decision["status"] != "deployed" or decision["gate"]["version"] != 2 or failures:
+        raise AssertionError(f"online round: {decision}, failures {failures[:3]}")
+    release()                                         # the idle round captures anew
+    idle_registry = ModelRegistry(max_batch=8, max_latency_ms=2.0)
+    idle_registry.deploy("clf", base)
+    try:
+        idle = OnlineTrainer(
+            idle_registry, "clf", str(tmp / "spool_idle"), str(tmp / "online_idle"),
+            EvalGate(ListDataSetIterator([DataSet(hx, hy)]), metric="accuracy"), base,
+            config=OnlineConfig(min_records=ONLINE_RECORDS, batch_size=16,
+                                max_records_per_round=ONLINE_RECORDS, epochs_per_round=2))
+        idle_decision = idle.run_once()
+    finally:
+        idle_registry.close()
+    a = restore_model(str(tmp / "online" / "round-0" / "candidate.zip"))
+    b = restore_model(str(tmp / "online_idle" / "round-0" / "candidate.zip"))
+    same = all(torch.equal(p, q) for la, lb in zip(a.params_, b.params_)
+               for p, q in zip(la.values(), lb.values()))
+    result = {"decision": {k: decision[k] for k in ("status", "round")},
+              "gate": decision["gate"], "round_s": round_s,
+              "answers_during": len(served), "versions_served": sorted(set(served)),
+              "idle_status": idle_decision["status"], "same_bits_as_idle": same}
+    log(f"  (e) online round on {card}: {ONLINE_RECORDS} feedback records, run_once "
+        f"{decision['status']} version {decision['gate']['version']} in {round_s:.2f} s (gate "
+        f"accuracy {decision['gate']['candidate_score']:.4f} vs "
+        f"{decision['gate']['incumbent_score']:.4f}) while {len(served)} requests were answered "
+        f"(versions {result['versions_served']}); the same round on an idle card, captured "
+        f"anew: {idle_decision['status']}, candidate the same bits: {same}")
+    if not same or sorted(set(served)) != [1, 2]:
+        raise AssertionError(f"online round: {result}")
+    return result
+
+
+def resnet_router(card, tmp, counters) -> dict:
+    """25 (d): ResNet-50 (f32) behind a two-replica ReplicaRouter with two
+    priority lanes and a tenant quota: answers held to the net's output of
+    each request alone (phase 4's SERVE_TOL), 36 matmul_bn_act launches a
+    served batch, quota and lane sheds, a fan-out deploy, the registry's
+    refusal of a routed name, the autoscaler from 1 to 2 replicas and
+    back, all eager; images/s and latency through the router and the
+    engine alone, each path warm, eager and captured."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    from deeplearning4j_tpu_torch.train import capture
+    from deeplearning4j_tpu_torch.serve import (AdmissionControl, AutoscaleConfig, Autoscaler,
+                                                InferenceEngine, Lane, ModelRegistry,
+                                                Overloaded, QuotaExceeded, ReplicaRouter,
+                                                RoutedModelError, TenantQuota)
+    reg = counters["metrics"]
+    net = serving_resnet50()
+    path = str(tmp / "resnet50.zip")
+    net.save(path, save_updater=False)
+    rng = np.random.default_rng(SS_SEED + 3)
+    requests = [rng.normal(size=(SS_ROUTER_IMAGES, SS_HW, SS_HW, 3)).astype(np.float32)
+                for _ in range(SS_ROUTER_REQUESTS)]
+    registry = ModelRegistry(max_batch=BATCH, max_latency_ms=5.0)
+    registry.deploy("resnet50", path)
+    admission = AdmissionControl(lanes=[Lane("interactive", 0, 1.0), Lane("batch", 1, 0.5)],
+                                 default_lane="interactive",
+                                 quotas={"metered": TenantQuota(rate=1e-3, burst=2)})
+    router = ReplicaRouter(registry, "resnet50", replicas=2, min_replicas=1, admission=admission)
+
+    def drive(predict):
+        answers, latency = {}, {}
+
+        def client(j):
+            for i in range(j, len(requests), 4):
+                t0 = time.perf_counter()
+                answers[i] = predict(requests[i])
+                latency[i] = time.perf_counter() - t0
+
+        workers = [threading.Thread(target=client, args=(j,)) for j in range(4)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if len(answers) != len(requests):
+            raise AssertionError(f"{len(answers)} of {len(requests)} requests answered")
+        n = len(requests) * SS_ROUTER_IMAGES
+        return answers, {"wall_s": wall, "images_per_s": n / wall,
+                         **percentiles(list(latency.values()))}
+
+    def timed(predict) -> dict:
+        """Eager and captured readings of ``predict``, each after warm passes
+        (the captured one's capture each bucket)."""
+        out = {}
+        for mode in ("eager", "captured"):
+            with capture.eager() if mode == "eager" else contextlib.nullcontext():
+                for _ in range(1 if mode == "eager" else 2):
+                    drive(predict)
+                b0 = reg.counter("tpudl_serve_batches_total").value
+                out[mode] = drive(predict)[1]
+                out[mode]["batches"] = int(reg.counter("tpudl_serve_batches_total").value - b0)
+        return out
+
+    def routed(x):
+        return router.predict(x, timeout_s=300, tenant="open", lane="interactive")
+
+    try:
+        with capture.eager():
+            batches0, launches0 = reg.counter("tpudl_serve_batches_total").value, conv_bn.launches
+            answers, _ = drive(routed)
+            batches = reg.counter("tpudl_serve_batches_total").value - batches0
+            launches = conv_bn.launches - launches0
+            if launches != 36 * batches or batches == 0:
+                raise AssertionError(f"matmul_bn_act launched {launches} times for {batches} "
+                                     f"batches through the router")
+            dispatch = reg.labeled_counter("tpudl_router_dispatch_total",
+                                           label_names=("replica",))
+            per_replica = {k[0]: v for k, v in dispatch.child_values().items()}
+            err = max(float(np.abs(answers[i] - net.output(x).cpu().numpy()).max())
+                      for i, x in enumerate(requests))
+            if not err <= SERVE_TOL:
+                raise AssertionError(f"router answers differ from output() of each request "
+                                     f"alone by {err} (phase 4's SERVE_TOL {SERVE_TOL})")
+        through = timed(routed)
+        with capture.eager():
+            one = requests[0][:1]
+            metered = []
+            for _ in range(3):
+                try:
+                    router.predict(one, timeout_s=300, tenant="metered")
+                    metered.append("ok")
+                except QuotaExceeded:
+                    metered.append("quota")
+            fill, router.queue_fill = router.queue_fill, lambda: 0.6
+            lanes = {}
+            for lane in ("batch", "interactive"):
+                try:
+                    router.predict(one, timeout_s=300, lane=lane)
+                    lanes[lane] = "ok"
+                except QuotaExceeded:
+                    lanes[lane] = "quota"
+                except Overloaded:
+                    lanes[lane] = "shed"
+            router.queue_fill = fill
+            if metered != ["ok", "ok", "quota"] or lanes != {"batch": "shed", "interactive": "ok"}:
+                raise AssertionError(f"admission: metered tenant {metered}, lanes at 60% fill "
+                                     f"{lanes}")
+            entry = router.deploy(path)
+            fanned = [r["version"] for r in router.replica_stats()]
+            try:
+                registry.deploy("resnet50", path)
+                raise AssertionError("the registry deployed onto a router-managed name")
+            except RoutedModelError:
+                pass
+            if fanned != [entry.version] * 2 or entry.version != 2:
+                raise AssertionError(f"fan-out deploy: version {entry.version}, replicas "
+                                     f"{fanned}")
+            router.retire_replica()
+            scaler = Autoscaler(router, AutoscaleConfig(scale_up_at=2.0, scale_down_at=-1.0,
+                                                        poll_s=3600.0))
+            scaler.close()            # its loop's first poll could not scale
+            scaler.config = AutoscaleConfig(scale_up_at=0.25, scale_down_at=0.02, poll_s=3600.0,
+                                            up_cooldown_s=0.0, down_cooldown_s=0.0, window=1)
+            script = iter([0.5, 0.0])
+            router.queue_fill = lambda: next(script)
+            sizes = [router.replicas]
+            for _ in range(2):
+                scaler.step()
+                sizes.append(router.replicas)
+            router.queue_fill = fill
+            if sizes != [1, 2, 1]:
+                raise AssertionError(f"autoscaler replicas {sizes}, not 1 -> 2 -> 1")
+    finally:
+        registry.close()
+    with InferenceEngine(net, max_batch=BATCH, max_latency_ms=5.0) as engine:
+        alone = timed(lambda x: engine.predict(x, timeout_s=300))
+    result = {"batches": int(batches), "launches": int(launches), "max_abs_err": err,
+              "per_replica_dispatches": per_replica, "router": through, "engine_alone": alone,
+              "metered": metered, "lanes_at_60_percent": lanes, "fan_out": fanned,
+              "autoscale": sizes}
+    log(f"  (d) ResNet-50 f32 behind a 2-replica router on {card}: "
+        f"{len(requests)} requests of {SS_ROUTER_IMAGES} images from 4 threads, "
+        f"{int(batches)} batches, {int(launches)} matmul_bn_act launches (36 a batch), "
+        f"dispatches {per_replica}; answers vs output() alone {err:.2e} (limit {SERVE_TOL})")
+    for mode in ("eager", "captured"):
+        r, a = through[mode], alone[mode]
+        log(f"      {mode}, warm: router {r['images_per_s']:.1f} images/s in {r['batches']} "
+            f"batches, p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms; engine alone "
+            f"{a['images_per_s']:.1f} images/s in {a['batches']} batches, p50 "
+            f"{a['p50_ms']:.1f} ms, p99 {a['p99_ms']:.1f} ms (max_batch {BATCH})")
+    log(f"      metered tenant {metered}, lanes at 60% fill {lanes}, fan-out to version "
+        f"{entry.version} on replicas {fanned}, a direct registry deploy refused, autoscaler "
+        f"{sizes}")
+    return result
+
+
+def serving_stack(card: str) -> dict:
+    """Phase 25: the serving stack (module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    from deeplearning4j_tpu_torch.ops.kernels import quant_matmul as qm
+    from deeplearning4j_tpu_torch.serve import ModelRegistry, ModelServer
+    from deeplearning4j_tpu_torch.train import capture
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    metrics = MetricsRegistry()
+    prev = set_registry(metrics)
+    counters = {"metrics": metrics}
+    rng = np.random.default_rng(SS_SEED)
+    out: dict = {"card": card, "part_s": {}}
+    t_phase = t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        out["part_s"][name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    try:
+        vgg_zip = str(tmp / "vgg16.zip")
+        net = serving_vgg16()
+        t0 = time.perf_counter()
+        net.save(vgg_zip, save_updater=False)
+        out["vgg16_zip"] = {"gb": os.path.getsize(vgg_zip) / 1e9,
+                            "save_s": time.perf_counter() - t0, "params": net.num_params()}
+        del net
+        torch.cuda.empty_cache()
+        calib = [rng.normal(size=(VGG_CALIB[1], SS_HW, SS_HW, 3)).astype(np.float32)
+                 for _ in range(VGG_CALIB[0])]
+        images, bodies = vgg_requests(rng, SS_REQUESTS, SS_MAX_IMAGES)
+        models: dict = {}
+        config.set_dtype_policy(config.DTypePolicy(param_dtype=torch.bfloat16,
+                                                   compute_dtype=torch.bfloat16,
+                                                   output_dtype=torch.bfloat16))
+        registry = ModelRegistry(max_batch=VGG_BATCH, max_latency_ms=5.0)
+        server = ModelServer(registry)
+        try:
+            with capture.eager(), dispatches_recorded() as rec:
+                entry, deploy_s = timed_deploy(registry, "vgg16", models, vgg_zip,
+                                               precision="int8", calibration=calib)
+                report = entry.engine.model.quantization_
+                gauges = {name: metrics.gauge(f"tpudl_serve_quantized_{name}").value
+                          for name in ("weight_bytes", "compression_ratio", "max_abs_err")}
+                want = {"weight_bytes": report.quantized_weight_bytes,
+                        "compression_ratio": report.compression_ratio,
+                        "max_abs_err": report.max_abs_err}
+                if gauges != want or entry.precision != "int8":
+                    raise AssertionError(f"quantized gauges {gauges} differ from the report "
+                                         f"{want}")
+                out["deploy_int8"] = {"seconds": deploy_s, "gauges": gauges,
+                                      "report": report.to_dict()}
+                log(f"  (a) deployed VGG-16 ({out['vgg16_zip']['params']} params, a "
+                    f"{out['vgg16_zip']['gb']:.3f} GB f32 zip) as int8 on {card} in "
+                    f"{deploy_s:.2f} s (load, verify, quantize, calibrate on "
+                    f"{VGG_CALIB[0]} x {VGG_CALIB[1]}); gauges {gauges}")
+                part("a")
+                out["http"], answers = vgg_http(card, registry, server, models, images, bodies,
+                                                counters)
+                part("b")
+                out["swap"], more = vgg_swaps(card, registry, server, models, images, bodies,
+                                              vgg_zip)
+                answers += more
+                part("c")
+            held = hold_answers(rec.records, answers, models)
+            del rec
+            part("held")
+            with dispatches_recorded() as rec:         # captured (no capture.eager())
+                out["captured_round"], more = vgg_captured_rounds(
+                    card, registry, server, models, vgg_zip, rng, counters)
+            part("c_captured")
+            with capture.eager():
+                held_captured = hold_answers(rec.records, more, models)
+                del rec
+                out["held"] = {"eager": held, "captured": held_captured}
+                log(f"  each answer equal to its version's output of the batch it was served "
+                    f"in: {held['answers']} answers over {held['dispatches']} dispatches "
+                    f"(eager), {held_captured['answers']} over "
+                    f"{held_captured['dispatches']} (captured)")
+                out["gate"] = vgg_gate(card, registry, server, models, vgg_zip, tmp, rng, calib)
+                part("e_gate")
+                if registry.get("vgg16").precision != "int8":
+                    timed_deploy(registry, "vgg16", models, vgg_zip, precision="int8")
+                out["faults"] = vgg_faults(card, registry, server, rng, counters)
+                part("f")
+            out["int8_launches"] = out["http"]["launches"]
+        finally:
+            server.stop()
+            registry.close()
+            config.set_dtype_policy(config.DTypePolicy.f32())
+        models.clear()
+        release()
+        out["router"] = resnet_router(card, tmp, counters)
+        part("d")
+        release()
+        out["online"] = online_round(card, tmp)
+        part("e_online")
+    finally:
+        set_registry(prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serving stack (phase 25) on {card}: {out['seconds']:.1f} s; seconds by part "
+        f"{ {k: round(v, 1) for k, v in out['part_s'].items()} }")
+    return out
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -5291,6 +6240,8 @@ def main() -> int:
     recurrent = recurrent_nets(card, captured["paths"])
     release()
     tuned = finetune(card)
+    release()
+    stack_run = serving_stack(card)
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5323,6 +6274,7 @@ def main() -> int:
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:58", f32, bf16, h16, train_launches[0],
               work.format("forward"))
         | {"serve_launches": serving["launches"], "sass": hopper["matmul_bn_act"],
+           "serving_stack_launches": stack_run["router"]["launches"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -5360,7 +6312,8 @@ def main() -> int:
         | {"replaces_all": ["deeplearning4j_tpu/ops/pallas/flash_attention.py:266",
                             "deeplearning4j_tpu/ops/pallas/flash_attention.py:318"],
            "sass": hopper["flash_attention_bwd_split"]},
-        int8_entry(int8_rows, vgg) | {"sass": hopper["int8_matmul"]},
+        int8_entry(int8_rows, vgg) | {"sass": hopper["int8_matmul"],
+                                      "serving_stack_launches": stack_run["int8_launches"]},
         entry("conv3x3_bn_act", "deeplearning4j_tpu_torch/ops/kernels/csrc/conv3x3_bn_act.cu",
               "deeplearning4j_tpu/ops/pallas/conv3_bn.py:37", c3f32, c3bf16, c3h16,
               sum(path["launches"] for path in conv3_paths),
@@ -5391,6 +6344,7 @@ def main() -> int:
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
          "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
+         "serving_stack": stack_run,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

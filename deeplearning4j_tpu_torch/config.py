@@ -52,11 +52,18 @@ class Config:
     - ``device_feed``: ``Trainer.fit`` stages each batch on the device
       through a ``DeviceFeeder`` (host work and the copy of batch N+1
       overlap step N).
-    - ``prefetch_size``: how many staged batches that feeder keeps ready."""
+    - ``prefetch_size``: how many staged batches that feeder keeps ready.
+    - ``tracing``: enable span-based tracing (``obs.tracing``); a traced
+      span waits on the card's stream where it attributes device time,
+      so it is off by default.
+    - ``trace_dir``: where span exports and flight-recorder dumps land
+      when no path is given."""
 
     fused_conv: bool = True
     device_feed: bool = True
     prefetch_size: int = 2
+    tracing: bool = False
+    trace_dir: str = "traces"
 
 
 _config = Config()

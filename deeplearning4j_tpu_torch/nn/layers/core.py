@@ -141,8 +141,10 @@ class EmbeddingLayer(Layer):
     """Index -> vector lookup, a Dense over one-hot run as a gather of the
     rows of ``W [n_in, n_out]`` (in the table's dtype), plus ``b`` and the
     activation.  Indices of shape [B] or [B, 1] give [B, n_out]; [B, T]
-    gives [B, T, n_out].  A quantized table (``W_q``, the JAX package's
-    int8 gather) is not ported: it raises."""
+    gives [B, T, n_out].  A quantized table (``W_q`` int8 rows, per-column
+    ``W_scale``, from ``nn.quantize``) gathers int8 rows, widens them to
+    f32, scales them and casts to the policy's compute dtype, as the JAX
+    package's gather does."""
 
     n_in: int = 0   # vocab size
     n_out: int = 0
@@ -160,9 +162,8 @@ class EmbeddingLayer(Layer):
 
     def _lookup(self, params, idx):
         if "W_q" in params:
-            raise NotImplementedError(
-                "a quantized embedding table (W_q) is not ported yet: its int8 gather is "
-                "ROADMAP queue A item 4")
+            y = params["W_q"][idx].to(torch.float32) * params["W_scale"].to(torch.float32)
+            return y.to(dtype_policy().compute_dtype)
         return torch.nn.functional.embedding(idx, params["W"])
 
     def _embed(self, params, idx):

@@ -1,19 +1,21 @@
 """Post-training quantization (port of ``deeplearning4j_tpu/nn/quantize.py``).
 
-Converts a net's dense and conv weights to **per-output-channel int8**
-(symmetric, scale = amax/127 per channel) while activations stay in the
-policy's compute dtype.  A quantized ``DenseLayer`` (hence
-``OutputLayer``) runs its product through the int8 dequant-matmul
-(:mod:`deeplearning4j_tpu_torch.ops.kernels.quant_matmul`); a quantized
-``ConvolutionLayer`` widens its kernel on read.  The quantized net is the
+Converts a net's dense, embedding and conv weights to
+**per-output-channel int8** (symmetric, scale = amax/127 per channel)
+while activations stay in the policy's compute dtype.  A quantized
+``DenseLayer`` (hence ``OutputLayer``) runs its product through the int8
+dequant-matmul (:mod:`deeplearning4j_tpu_torch.ops.kernels.quant_matmul`);
+a quantized ``EmbeddingLayer`` (hence ``EmbeddingSequenceLayer``)
+gathers int8 rows and scales them; a quantized ``ConvolutionLayer``
+widens its kernel on read.  The quantized net is the
 same ``MultiLayerNetwork`` class with the same configuration: its param
 dicts carry ``W_q``/``W_scale`` in place of ``W``.
 
 **Calibration** (:func:`calibrate`) runs holdout batches through the
 full-precision and the quantized forwards and records the observed
 output deviation; the :class:`QuantizationReport` carries the calibrated
-``tolerance_band`` that the quantized net is held to.  The JAX package's
-deploy gate and its ``EmbeddingLayer`` int8 gather are not ported yet.
+``tolerance_band`` that the quantized net is held to.  The deploy gate
+that scores a quantized candidate is ``online.gate.GatedDeployer``.
 """
 
 from __future__ import annotations
@@ -70,13 +72,13 @@ def dequantize_weight(w_q, scale, dtype=torch.float32) -> torch.Tensor:
 
 def _quantizable(layer) -> bool:
     from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer
-    from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
-    return isinstance(layer, (DenseLayer, ConvolutionLayer))
+    from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, EmbeddingLayer
+    return isinstance(layer, (DenseLayer, EmbeddingLayer, ConvolutionLayer))
 
 
 def quantize_net(net, calibration=None, safety_factor: float = 2.0):
     """Post-training-quantize a ``MultiLayerNetwork``: per-channel int8
-    weights for every dense and conv layer, biases untouched, activations
+    weights for every dense, embedding and conv layer, biases untouched, activations
     on the policy's compute dtype.
 
     Returns a NEW net (a deep copy; ``net`` keeps serving) with

@@ -9,13 +9,15 @@ forms batches and runs the model's forward on its device under
    ``max_batch`` rows are queued (size flush) or ``max_latency_ms`` after
    its oldest request (deadline flush).
 2. **Buckets**: ragged batches pad up to a fixed set of sizes (powers of
-   two up to ``max_batch``); a request larger than every
+   two up to ``max_batch``, or ``buckets=``); a request larger than every
    bucket defines a new, sticky one.  Padded rows are sliced off before
    results go back, so a batched answer equals the per-request one
    (inference is row-independent: no dropout, BN uses running stats).
+   ``bucketing=False`` runs each batch at its own row count.
 3. **Backpressure**: the queue is bounded; a submit against a full queue
-   fails at once with :class:`Overloaded`, and a request may carry a
-   deadline after which it is failed instead of dispatched.
+   fails at once with :class:`Overloaded` (or blocks, with ``block=True``),
+   and a request may carry a deadline after which it is failed instead of
+   dispatched.
 
 Rows are copied into a persistent host staging buffer per request
 signature (:class:`_BatchStage`) as requests are admitted, so staging
@@ -25,8 +27,18 @@ eager calls) cached process-wide under the model's
 ``step_cache.net_signature`` plus ``"serve_forward"``, so engines of one
 configuration share it, as in the JAX package; unlike the JAX package's
 engine the port captures the ``ComputationGraph`` family too, since both
-families' forward is a function of ``(params, state, x, mask)``.  The JAX
-engine's observability and fault hooks are not ported yet.
+families' forward is a function of ``(params, state, x, mask)``.
+
+Observability, as in the JAX package: a ``serve`` span per dispatched
+batch (queue wait, and the wait on the card's stream as its device-sync
+time), ``serve`` / ``serve_error`` flight-recorder events, the
+``tpudl_serve_*`` metrics (requests by status, shed, queue depth,
+batches, batch size, latency, stage reuse, recompiles, quantized
+batches) and the ``serve.dispatch`` fault site.  ``compiled_programs``
+counts this engine's captured CUDA graphs, and ``recompiles_total`` a
+newly captured one.  Not ported yet: the cost-model hooks (the JAX
+package's ``obs/costmodel.py``) and warm starts from a compiled-artifact
+store (``train/artifact_store.py``), so ``warm_programs`` reads 0.
 """
 
 from __future__ import annotations
@@ -42,6 +54,9 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.config import resolve_device
+from deeplearning4j_tpu_torch.obs import flight_recorder, tracing
+from deeplearning4j_tpu_torch.obs.registry import get_registry
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.train import step_cache
 from deeplearning4j_tpu_torch.train.capture import CapturedStep
 
@@ -81,6 +96,7 @@ class _Request:
     future: Future
     t_submit: float                   # perf_counter at submit
     deadline: Optional[float]         # absolute perf_counter deadline
+    trace_id: Optional[str] = None    # X-Trace-Id carried end to end
 
     @property
     def n(self) -> int:
@@ -109,7 +125,7 @@ class _BatchStage:
     reuses it.
     """
 
-    __slots__ = ("features", "mask", "dirty", "mask_dirty", "has_mask")
+    __slots__ = ("features", "mask", "dirty", "mask_dirty", "has_mask", "uses")
 
     def __init__(self, capacity: int, tail: tuple, dtype):
         self.features = np.zeros((capacity,) + tail, dtype)
@@ -117,6 +133,7 @@ class _BatchStage:
         self.dirty = 0
         self.mask_dirty = 0
         self.has_mask = False
+        self.uses = 0           # flushes served from this buffer
 
     @property
     def capacity(self) -> int:
@@ -195,6 +212,8 @@ class InferenceEngine:
     dispatches on ``model.device`` and raises if that is a CUDA card that
     is absent.  ``batches`` counts dispatched forwards; ``precision`` is
     ``"int8"`` for a quantized net (``nn/quantize.py``), else ``"fp"``.
+    ``buckets`` replaces the default bucket set; ``bucketing=False``
+    pads nothing (one graph per distinct row count).
     A quantized net keeps its full-precision sibling's configuration, so
     the two share the cached forward, each with graphs of its own params'
     shapes and dtypes.
@@ -203,7 +222,8 @@ class InferenceEngine:
     _SHUTDOWN = object()
 
     def __init__(self, model, name: str = "default", max_batch: int = 32,
-                 max_latency_ms: float = 5.0, queue_limit: int = 128):
+                 max_latency_ms: float = 5.0, queue_limit: int = 128,
+                 buckets: Optional[Sequence[int]] = None, bucketing: bool = True):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if queue_limit < 1:
@@ -215,7 +235,10 @@ class InferenceEngine:
         self.max_batch = int(max_batch)
         self.max_latency_s = float(max_latency_ms) / 1e3
         self.queue_limit = int(queue_limit)
-        self.buckets = _default_buckets(self.max_batch)
+        self.bucketing = bool(bucketing)
+        self.buckets: tuple[int, ...] = (
+            tuple(sorted(int(b) for b in buckets)) if buckets
+            else _default_buckets(self.max_batch))
         self.batches = 0
         self._queue: queue.Queue = queue.Queue(maxsize=self.queue_limit)
         self._closed = threading.Event()
@@ -228,10 +251,18 @@ class InferenceEngine:
         self._worker.start()
 
     # ------------------------------------------------------------- submit
-    def submit(self, x, mask=None, deadline_ms: Optional[float] = None) -> Future:
+    def submit(self, x, mask=None, deadline_ms: Optional[float] = None,
+               block: bool = False, timeout_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> Future:
         """Enqueue one request of ``[n, ...]`` examples; returns a Future
-        resolving to the ``[n, ...]`` outputs as numpy.  A full queue sheds
-        at once with :class:`Overloaded`."""
+        resolving to the ``[n, ...]`` outputs as numpy.
+
+        A full queue sheds at once with :class:`Overloaded`; with
+        ``block=True`` the submit waits for room instead (up to
+        ``timeout_s``, then sheds).  ``deadline_ms`` bounds the time the
+        request may wait before dispatch.  ``trace_id`` (the HTTP
+        layer's ``X-Trace-Id``) rides into the ``serve`` span and the
+        flight-recorder ring."""
         if self._closed.is_set():
             raise EngineClosed(f"engine {self.name!r} is shut down")
         x = np.asarray(x)
@@ -239,21 +270,32 @@ class InferenceEngine:
             raise ValueError("request must have a leading example dim")
         now = time.perf_counter()
         req = _Request(x, None if mask is None else np.asarray(mask), Future(), now,
-                       None if deadline_ms is None else now + float(deadline_ms) / 1e3)
+                       None if deadline_ms is None else now + float(deadline_ms) / 1e3,
+                       trace_id=trace_id)
+        reg = get_registry()
         try:
-            self._queue.put_nowait(req)
+            if block:
+                self._queue.put(req, timeout=timeout_s)
+            else:
+                self._queue.put_nowait(req)
         except queue.Full:
+            reg.counter("tpudl_serve_shed_total").inc()
+            reg.labeled_counter("tpudl_serve_requests_total").inc(status="shed")
             raise Overloaded(f"engine {self.name!r} queue full "
                              f"({self.queue_limit} waiting)") from None
         # a submit that lost the race with shutdown fails its leftovers
         if self._closed.is_set() and not self._worker.is_alive():
             self._fail_leftovers()
+        if not req.future.done():
+            reg.gauge("tpudl_serve_queue_depth").set(self._queue.qsize())
         return req.future
 
     def predict(self, x, mask=None, deadline_ms: Optional[float] = None,
-                timeout_s: Optional[float] = None) -> np.ndarray:
+                timeout_s: Optional[float] = None,
+                trace_id: Optional[str] = None) -> np.ndarray:
         """Blocking submit + wait."""
-        return self.submit(x, mask=mask, deadline_ms=deadline_ms).result(timeout=timeout_s)
+        return self.submit(x, mask=mask, deadline_ms=deadline_ms,
+                           trace_id=trace_id).result(timeout=timeout_s)
 
     # ------------------------------------------------------------- worker
     def _stage_for(self, req: _Request) -> Optional[_BatchStage]:
@@ -317,11 +359,15 @@ class InferenceEngine:
                  else np.ones((r.n,) + tail, np.float32) for r in live]
         return np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
 
-    def _forward(self, features: np.ndarray, mask: Optional[np.ndarray]) -> np.ndarray:
+    def _forward(self, features: np.ndarray, mask: Optional[np.ndarray]) -> torch.Tensor:
+        """The forward's output on the device (its launch queued)."""
         x = torch.as_tensor(features, device=self.device)
         m = None if mask is None else torch.as_tensor(mask, device=self.device)
         with torch.inference_mode():
-            y = self._fwd(self.model.params_, self.model.state_, x, m)
+            return self._fwd(self.model.params_, self.model.state_, x, m)
+
+    @staticmethod
+    def _host(y: torch.Tensor) -> np.ndarray:
         if y.dtype == torch.bfloat16:
             y = y.float()
         return y.cpu().numpy()
@@ -330,20 +376,31 @@ class InferenceEngine:
         """Run one micro-batch; every future in ``batch`` is resolved
         (result, deadline error, cancellation, or the forward's error),
         and the worker itself never dies."""
+        reg = get_registry()
+        requests_c = reg.labeled_counter("tpudl_serve_requests_total")
         now = time.perf_counter()
         live = []
         for req in batch:
             if req.deadline is not None and now > req.deadline:
+                requests_c.inc(status="expired")
                 req.future.set_exception(DeadlineExceeded(
                     f"request expired in queue after "
                     f"{1e3 * (now - req.t_submit):.1f} ms"))
-            elif req.future.set_running_or_notify_cancel():
+            elif not req.future.set_running_or_notify_cancel():
+                requests_c.inc(status="cancelled")
+            else:
                 live.append(req)
         if not live:
             return
         rows = sum(r.n for r in live)
+        queue_wait_s = now - min(r.t_submit for r in live)
         try:
-            bucket = self._bucket_for(rows)
+            # an injected dispatch fault takes the real error path below
+            faults.fire("serve.dispatch")
+            bucket, padded = rows, 0
+            if self.bucketing:
+                bucket = self._bucket_for(rows)
+                padded = bucket - rows
             if stage is not None and bucket > stage.capacity:
                 stage = None    # sticky bucket outgrew the buffer
             if stage is not None:
@@ -355,23 +412,91 @@ class InferenceEngine:
                 features = (np.concatenate([r.x for r in live], axis=0)
                             if len(live) > 1 else live[0].x)
                 mask = self._concat_masks(live)
-                if bucket > rows:
+                if padded:
                     features = _pad_rows(features, bucket)
                     if mask is not None:
                         mask = _pad_rows(mask, bucket)
-            out = self._forward(features, mask)
+            trace_ids = [r.trace_id for r in live if r.trace_id]
+            graphs_before = step_cache.captured_graphs(self._fwd)
+            with tracing.span("serve", model=self.name, rows=rows,
+                              requests=len(live), bucket=bucket,
+                              queue_wait_ms=round(queue_wait_s * 1e3, 3)) as sp:
+                if trace_ids:
+                    sp.set_attribute("trace_ids", ",".join(trace_ids))
+                t0 = time.perf_counter()
+                out = self._host(tracing.device_sync(self._forward(features, mask)))
+                device_s = time.perf_counter() - t0
+                sp.set_attribute("device_ms", round(device_s * 1e3, 3))
+                if padded:
+                    sp.set_attribute("padded", padded)
             self.batches += 1
-        except Exception as e:
+        except BaseException as e:
+            flight_recorder.record("serve_error", model=self.name,
+                                   requests=len(live), error=repr(e)[:200])
             for req in live:
+                requests_c.inc(status="error")
                 if not req.future.done():
                     req.future.set_exception(e)
             return
+        end = time.perf_counter()
+        try:
+            # telemetry before the results (a caller returning from
+            # result() sees the batch's metrics settled), guarded so that
+            # every future still resolves if it fails
+            captured = step_cache.captured_graphs(self._fwd) - graphs_before
+            if captured > 0:
+                reg.counter("tpudl_serve_recompiles_total").inc(captured)
+            if stage is not None:
+                stage.uses += 1
+                if stage.uses > 1:   # served from a reused staging buffer
+                    reg.counter("tpudl_serve_stage_reuse_total").inc()
+            if self.precision != "fp":
+                reg.counter("tpudl_serve_quantized_batches_total").inc()
+            flight_recorder.progress("serve.dispatch")
+            flight_recorder.record(
+                "serve", model=self.name, rows=rows, requests=len(live),
+                bucket=bucket, device_ms=round(device_s * 1e3, 3),
+                queue_wait_ms=round(queue_wait_s * 1e3, 3),
+                **({"trace_ids": trace_ids} if trace_ids else {}))
+            reg.counter("tpudl_serve_batches_total").inc()
+            reg.gauge("tpudl_serve_batch_size").set(bucket)
+            latency_h = reg.histogram("tpudl_serve_latency_seconds")
+            for req in live:
+                requests_c.inc(status="ok")
+                latency_h.observe(end - req.t_submit)
+        except Exception:
+            pass
         offset = 0
         for req in live:
             req.future.set_result(out[offset:offset + req.n])
             offset += req.n
 
     # ----------------------------------------------------------- lifecycle
+    @property
+    def queue_depth(self) -> int:
+        """Requests currently waiting (the router's least-queue-depth
+        dispatch signal: cheap, lock-free, approximate)."""
+        return self._queue.qsize()
+
+    @property
+    def healthy(self) -> bool:
+        """True while the worker thread is alive and the engine accepts
+        submits: the router's per-replica health signal."""
+        return self._worker.is_alive() and not self._closed.is_set()
+
+    @property
+    def compiled_programs(self) -> int:
+        """CUDA graphs captured behind this engine's forward (shared with
+        every engine of the configuration; 0 on the CPU, where nothing
+        is captured)."""
+        return step_cache.captured_graphs(self._fwd)
+
+    @property
+    def warm_programs(self) -> int:
+        """Signatures served from a compiled-artifact store: always 0, as
+        the port has no artifact store yet."""
+        return 0
+
     def shutdown(self, drain: bool = True, timeout_s: float = 30.0) -> None:
         """Stop the engine.  ``drain=True`` serves everything already
         queued first; ``drain=False`` fails it with :class:`EngineClosed`.
@@ -381,12 +506,14 @@ class InferenceEngine:
             return
         self._closed.set()
         if not drain:
+            requests_c = get_registry().labeled_counter("tpudl_serve_requests_total")
             while True:
                 try:
                     req = self._queue.get_nowait()
                 except queue.Empty:
                     break
                 if req is not self._SHUTDOWN:
+                    requests_c.inc(status="error")
                     req.future.set_exception(
                         EngineClosed(f"engine {self.name!r} shut down"))
         self._queue.put(self._SHUTDOWN)
@@ -402,6 +529,7 @@ class InferenceEngine:
                 return
             if req is self._SHUTDOWN or req.future.done():
                 continue
+            get_registry().labeled_counter("tpudl_serve_requests_total").inc(status="error")
             req.future.set_exception(EngineClosed(f"engine {self.name!r} shut down"))
 
     def __enter__(self) -> "InferenceEngine":

@@ -24,7 +24,7 @@ are ``None``):
   net of the same configuration) has its values copied into the buffers,
   and its tensors are made to share the buffers' memory (``Tensor.set_``)
   while the previous holder's tensors get a copy of their own, so that
-  both stay right;
+  both stay right (``switches`` counts these moves);
 - the batch is copied into static input buffers before each replay, on
   the caller's current stream (after whatever that stream waits on, such
   as a ``DeviceFeeder`` copy's event), outside the graph;
@@ -161,6 +161,7 @@ class CapturedStep:
         self._side: Optional[torch.cuda.Stream] = None
         self._lock = threading.Lock()
         self.calls = 0          # every call, eager, captured or replayed
+        self.switches = 0       # replays that first moved other trees into the buffers
 
     @property
     def graph_count(self) -> int:
@@ -191,6 +192,7 @@ class CapturedStep:
                     [leaf.detach() for leaf in leaves], list(leaves))
             else:
                 self._adopt(binding, leaves)
+                self.switches += 1
             if batch_sig not in binding.graphs:
                 binding.graphs[batch_sig] = self._capture(args, batch_sig)
             return self._replay(binding.graphs[batch_sig], args)

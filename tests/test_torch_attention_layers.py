@@ -184,10 +184,16 @@ def test_embedding_layers_match_jax(layer, ids):
 
 
 def test_quantized_embedding_table_raises_and_points_at_the_queue():
-    layer = layers.EmbeddingLayer(n_in=VOCAB, n_out=D)
-    params = {"W_q": torch.zeros(VOCAB, D, dtype=torch.int8), "W_scale": torch.ones(D)}
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        layer.apply(params, {}, torch.zeros(B, dtype=torch.long))
+    """The quantized table that raised before the int8 gather was ported
+    now gathers: int8 rows widened to f32 and scaled per column (the
+    gather's parity with the JAX package is held in
+    test_torch_embedding_int8.py)."""
+    layer = layers.EmbeddingLayer(n_in=VOCAB, n_out=D, has_bias=False)
+    w_q = torch.arange(VOCAB * D, dtype=torch.int64).reshape(VOCAB, D).remainder(255).sub(127)
+    params = {"W_q": w_q.to(torch.int8), "W_scale": torch.full((D,), 0.5)}
+    ids = torch.tensor([0, VOCAB - 1], dtype=torch.long)
+    y, _ = layer.apply(params, {}, ids)
+    torch.testing.assert_close(y, w_q[ids].float() * 0.5, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("jlayer,jtype", [

@@ -781,3 +781,82 @@ def test_conv3_grid_limit_is_refused():
     with pytest.raises(ValueError, match="past the kernel's grid"):
         conv3_bn._launch(lib, x, torch.empty(3, 3, 8, 8, device="meta"), None, None, True, 0)
     assert lib.args is None
+
+
+SERVING_STACK = ("obs/registry.py", "obs/tracing.py", "obs/flight_recorder.py",
+                 "resilience/faults.py", "obs/health.py", "serve/engine.py",
+                 "serve/registry.py", "serve/router.py", "serve/autoscale.py",
+                 "serve/feedback.py", "serve/server.py", "online/source.py",
+                 "online/gate.py", "online/loop.py", "online/__init__.py")
+
+
+def test_no_jax_scan_covers_the_serving_stack():
+    """The serving stack's modules are scanned for JAX imports and for
+    ``DL4J_TPU_`` (the two tests above run over every file listed here)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in SERVING_STACK + ("serve/__init__.py", "nn/layers/core.py", "nn/quantize.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+        text = (ROOT / "deeplearning4j_tpu_torch" / module).read_text()
+        assert "DL4J_TPU_" not in text and "os.environ" not in text, module
+
+
+def test_model_registry_defaults_to_the_card_and_raises_without_one(no_card, tmp_path):
+    from deeplearning4j_tpu_torch.online import GatedDeployer, EvalGate
+    from deeplearning4j_tpu_torch.serve import ModelRegistry
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRegistry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRegistry(device="cuda", max_batch=4)
+    reg = ModelRegistry(device="cpu")
+    assert reg.device == torch.device("cpu")
+    path = str(tmp_path / "m.zip")
+    mlp_mnist(hidden=8, hidden2=4, device="cpu").init().save(path)
+    from deeplearning4j_tpu_torch.serve.registry import load_for_serving
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_for_serving(path)                       # the registry's load: the card by default
+    reg.deploy("m", path)
+    assert reg.get("m").engine.model.device == torch.device("cpu")
+    assert GatedDeployer(reg, EvalGate([]))._device() == torch.device("cpu")
+    reg.close()
+
+
+def test_cpu_serving_stack_run_never_touches_the_kernel_loader(monkeypatch, tmp_path):
+    """Deploy fp and int8 through the registry on the CPU, serve over HTTP
+    and through a two-replica router, with tracing on: the plain versions,
+    no build, no launch."""
+    import http.client
+    import json
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.obs import tracing
+    from deeplearning4j_tpu_torch.serve import ModelRegistry, ModelServer, ReplicaRouter
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    x = np.random.default_rng(0).normal(size=(3, 8, 8, 3)).astype(np.float32)
+    path = str(tmp_path / "vgg.zip")
+    _tiny_vgg().init(seed=2).save(path, save_updater=False)
+    before = quant_matmul.launches
+    reg = ModelRegistry(device="cpu", max_batch=4, max_latency_ms=1)
+    config.set_config(tracing=True)
+    try:
+        with tracing.use_tracer(tracing.Tracer()) as tracer:
+            reg.deploy("v", path, precision="int8", calibration=[x])
+            reg.deploy("w", path)
+            with ModelServer(reg) as srv:
+                conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+                conn.request("POST", "/v1/models/v:predict",
+                             json.dumps({"instances": x.tolist()}))
+                r = conn.getresponse()
+                body = json.loads(r.read())
+                assert r.status == 200 and np.asarray(body["predictions"]).shape == (3, 10)
+            router = ReplicaRouter(reg, "w", replicas=2)
+            assert router.predict(x, timeout_s=60).shape == (3, 10)
+            reg.close()
+        serves = tracer.find("serve")
+        assert len(serves) == 2 and all(s.attributes["rows"] == 3 for s in serves)
+    finally:
+        config.set_config(tracing=False)
+    assert quant_matmul.launches == before
