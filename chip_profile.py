@@ -8,7 +8,8 @@ card, each run
 eagerly (``train.capture.eager()``) and as the captured step the port
 runs by default (CUDA graphs, ``train/capture.py``).
 
-    python3 chip_profile.py
+    python3 chip_profile.py                  # every workload
+    python3 chip_profile.py NAME [NAME ...]  # only these (the names below)
 
 Builds the same seeded models as ``chip_smoke.py`` (TF32 off) and, for
 each workload and mode, warms it up (the captured mode: two eager calls
@@ -48,7 +49,12 @@ for the device, one at a time for the launch calls:
   ``bench.py``'s ``bench_workload_steps`` data (``chip_smoke.small_nets``);
 - ``lstm_har_step``: ``Trainer.fit_batch`` of ``lstm_classifier()`` at
   batch 64 x 128 x 9 (f32), the same stream's next arrays
-  (``chip_smoke.har_batches``, ``bench.py:499-502``).
+  (``chip_smoke.har_batches``, ``bench.py:499-502``);
+- ``resnet50_two_slice_step``: one ``MultiSliceTrainer.fit_batch`` of
+  ``chip_smoke`` phase 26's configuration (ResNet-50 f32 across 2 slices
+  x batch 16 on the one card, ``Sgd(0.01)``, the device codec,
+  synchronous): both slices' gradient, residual and encode steps, the
+  exchange and both decode-and-apply steps.
 
 Prints the card's name and power limit and, per workload and mode, its
 wall time from CUDA events; the host side, each run from an idle card:
@@ -62,8 +68,8 @@ engine, and the waits of a call that reads its loss); the kernels and
 copies it runs on the device per run,
 the device time per category of kernel (this repo's
 ``matmul_bn_act``, flash attention and int8 kernels, convolutions,
-matmuls, softmax, elementwise, copies and casts, pooling and reductions,
-other) per run,
+matmuls, softmax, the codec's top-k and sorts, elementwise, copies and
+casts, pooling and reductions, other) per run,
 the busy share of the device over the traced window, and the 15 kernels
 with the most device time.  Writes the same to
 ``chiprun_out/chip_profile.json``.
@@ -99,6 +105,7 @@ CATEGORIES = (
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90", "nvjet")),
     ("softmax", ("softmax",)),
+    ("topk_sort", ("mbtopk", "radixsort")),
     ("copy", ("memcpy", "copy", "memset")),
     ("pooling", ("pool",)),
     ("reduction", ("reduce",)),
@@ -247,8 +254,9 @@ def main() -> int:
     from deeplearning4j_tpu_torch.models import (BertForMaskedLM, lenet, lstm_classifier,
                                                  mlp_mnist, vgg16)
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm, MultiSliceTrainer
     from deeplearning4j_tpu_torch.serve.engine import _build_forward
-    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Trainer, capture
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Sgd, Trainer, capture
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
@@ -331,6 +339,12 @@ def main() -> int:
                               DataSet(torch.from_numpy(har_x).cuda(),
                                       torch.from_numpy(har_y).cuda()), chip_smoke.HAR_BATCH,
                               "sequences")
+    dcn_x, dcn_y = chip_smoke.dcn_batch(chip_smoke.DCN_SLICES * chip_smoke.DCN_BATCH)
+    dcn_data = DataSet(torch.from_numpy(dcn_x).cuda(), torch.from_numpy(dcn_y).cuda())
+    dcn = MultiSliceTrainer(chip_smoke.build_net(Sgd(chip_smoke.DCN_LR)), chip_smoke.DCN_SLICES,
+                            devices=["cuda"] * chip_smoke.DCN_SLICES,
+                            algorithm=AdaptiveThresholdAlgorithm(
+                                initial_threshold=chip_smoke.DCN_TAU0))
     # name: (eager run, captured run, items per run, unit, dtype policy)
     workloads = {
         "forward": (lambda: net.output(x), lambda: served(forward, net, x), chip_smoke.BATCH,
@@ -350,7 +364,9 @@ def main() -> int:
                                                           updater=head_fit_adam),) * 2
         + (FIT_STEPS * chip_smoke.HEADLINE_SEQS * chip_smoke.HEADLINE_SEQ, "tokens", bf16),
         "vgg16_int8_forward": (lambda: qnet.output(images), lambda: served(qforward, qnet, images),
-                               chip_smoke.VGG_BATCH, "images", serving)}
+                               chip_smoke.VGG_BATCH, "images", serving),
+        "resnet50_two_slice_step": (lambda: dcn.fit_batch(dcn_data),) * 2
+        + (chip_smoke.DCN_SLICES * chip_smoke.DCN_BATCH, "images", f32)}
     for name, (small_trainer, small_batch, size, unit) in small.items():
         workloads[name] = ((lambda t=small_trainer, b=small_batch: t.fit_batch(b),) * 2
                            + (size, unit, f32))
@@ -367,7 +383,13 @@ def main() -> int:
 
     # every timing and host reading before the first trace: a profiler
     # session leaves the launch path slower for the rest of the process
-    keys = [(name, mode) for name in workloads for mode in modes]
+    chosen = sys.argv[1:] or list(workloads)
+    unknown = sorted(set(chosen) - set(workloads))
+    if unknown:
+        print(f"chip_profile: unknown workloads {unknown}; known: {list(workloads)}",
+              file=sys.stderr)
+        return 2
+    keys = [(name, mode) for name in chosen for mode in modes]
     run_ms = {k: measure(*k, lambda fn, *_: chip_smoke.cuda_ms(fn, reps=ITERS, warmup=3))
               for k in keys}
     host = {k: measure(*k, lambda fn, *_, k=k: host_time(
@@ -383,6 +405,7 @@ def main() -> int:
     out = chip_smoke.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_profile.json").write_text(json.dumps(results, indent=1))
+    dcn.close()
     return 0
 
 

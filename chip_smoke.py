@@ -307,7 +307,32 @@ no result line:
    deploying a gated version 2 while the server answers requests (its
    training step captured under that load), and the same round on an
    idle card, captured anew, with the same candidate bits;
-26. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+26. gradient sharing (``parallel/``), BASELINE config 5's path
+   (``bench.py:331-413``): (a) full-width fused ResNet-50 (f32,
+   ``Sgd(0.01)``, seeded weights) trained across 2 slices x batch 16 on
+   the one card (``MultiSliceTrainer(devices=[card] * 2)``, the device
+   codec, value-coded, the default capacity, an initial threshold of
+   1.0), 6 burn-in and 6 timed steps synchronous, then the same
+   overlapped, captured: the slices' divergence 0.0 after every step,
+   each slice's wire and D2H bytes under the dense gradient, 36 + 36
+   ``matmul_bn_act`` launches per slice step on the eager calls and the
+   capture, none on a replay; step 0 through the kernels against step 0
+   through both plain versions with every coordinate on the wire (phase
+   6's limits); 4 steps captured against eager, the same bits under
+   deterministic algorithms; (b) the host codec (``device_encode=False``,
+   the numpy oracle) against the device codec for 3 steps from one start
+   (losses and params within rtol 1e-5, ``tests/test_dcn.py:434-436``);
+   (c) ``examples/multiprocess_dcn_fit.py``'s flow through
+   ``spawn_local_cluster``: 2 processes on the card, a ring
+   ``SocketTransport`` on loopback, overlapped, world size 2, on a
+   smaller net (two fused bottlenecks): a full run, a run whose rank 1
+   dies at step 4 (it must fail), and a resume from the step-2 checkpoint
+   and codec state, whose params must equal the full run's, every run's
+   ranks byte-equal; (d) the plain ``Trainer`` step at batch 16, the
+   2-slice step synchronous and overlapped with its overhead over twice
+   the plain step, the codec's encode and decode-and-sum (CUDA events),
+   the exchange (wall), and the dense, wire and D2H bytes per slice step;
+27. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -6082,6 +6107,497 @@ def serving_stack(card: str) -> dict:
     return out
 
 
+# Phase 26: gradient sharing (parallel/), BASELINE config 5's path: full-width
+# ResNet-50 trained across two slices on the one card through
+# MultiSliceTrainer (bench.py:331-413 bench_dcn_multislice: 2 slices on one
+# device, Sgd(0.01), an initial threshold of 1.0 and 6 burn-in steps), then
+# across two processes on the card over a loopback SocketTransport.
+DCN_SEED = SEED + 90
+DCN_SLICES, DCN_BATCH = 2, 16        # slices on the one card, images per slice
+DCN_LR, DCN_TAU0 = 0.01, 1.0         # bench_dcn_multislice's Sgd rate and initial threshold
+DCN_BURN_IN, DCN_TIMED = 6, 6        # the threshold's burn-in steps, then timed steps
+DCN_CHECK_STEPS = 4                  # captured against eager: 2 eager calls, the capture, a replay
+DCN_PLAIN_TIMED = 6                  # the plain Trainer's timed steps at DCN_BATCH
+# the device path against the host codec's (the oracle), from one start:
+# tests/test_dcn.py:434-436's own limits
+DCN_ORACLE_STEPS, DCN_ORACLE_RTOL, DCN_ORACLE_ATOL = 3, 1e-5, 1e-7
+DCN_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per slice step, eager
+# (c) the multi-process flow of examples/multiprocess_dcn_fit.py and
+# tests/cluster_workers.py:151-233 (6 global batches of 8, a checkpoint
+# after step 2, rank 1 killed at step 4, a resume) on a smaller net than
+# ResNet-50, to keep three runs of two fresh processes short: two fused
+# bottlenecks, ResNet-50's res2 block (64 -> 256 channels, projected) and a
+# res3-wide block at stride 2, on 16x16x64 inputs, 10 classes, 4 images a
+# process (each new process pays its own first calls: a ResNet-50 there
+# took ~11 s of steps per run)
+MP_HW, MP_CHANNELS, MP_CLASSES, MP_BATCH, MP_STEPS = 16, 64, 10, 8, 6
+MP_CKPT, MP_FAIL = 2, 4
+MP_TAU0 = 2e-2
+MP_SEED = SEED + 91
+MP_PORT, MP_RING_PORT = 12755, 23855
+MP_TIMEOUT = 300.0
+
+
+def dcn_batch(n: int, hw: int = 224, classes: int = 1000, seed: int = DCN_SEED,
+              channels: int = 3):
+    """``n`` seeded images in [0, 1) and one-hot labels (bench_dcn_multislice's
+    data at full size), as numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, hw, hw, channels)).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+
+
+def dcn_trainer(net, card_dev, **kw):
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm, MultiSliceTrainer
+    kw.setdefault("algorithm", AdaptiveThresholdAlgorithm(initial_threshold=DCN_TAU0))
+    return MultiSliceTrainer(net, DCN_SLICES, devices=[card_dev] * DCN_SLICES, **kw)
+
+
+def dcn_snapshot(tr) -> list:
+    """The slices' params, state, updater state and residuals on the host."""
+    trees = [*tr.slice_params, *tr.slice_state, *tr.slice_opt]
+    if tr.device_encode:
+        trees += tr.slice_residual
+    return host_copy(*trees)
+
+
+def dcn_steps(tr, batch, steps: int, check: bool = True) -> dict:
+    """``steps`` steps of ``tr.fit_batch``, each with the launch counts set
+    to 0 just before it and read just after, timed (synchronized), the
+    slices' divergence read after it (must be 0.0) and its wire held under
+    the dense gradient."""
+    import torch
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    hist = get_registry().histogram("tpudl_dcn_exchange_seconds")
+    out = {"losses": [], "launches": [], "ms": [], "divergence": [], "wire": [],
+           "exchange_s": [], "exchanges": []}
+    for _ in range(steps):
+        kernel_counts(zero=True)
+        s0, c0 = hist.sum, hist.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(tr.fit_batch(batch))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(launched(kernel_counts(zero=True)))
+        out["exchange_s"].append(hist.sum - s0)
+        out["exchanges"].append(hist.count - c0)
+        out["wire"].append(tr.last_wire_stats)
+        if check:
+            out["divergence"].append(tr.max_param_divergence())
+            if out["divergence"][-1] != 0.0:
+                raise AssertionError(f"slices diverged after step {len(out['losses']) - 1}: "
+                                     f"{out['divergence'][-1]}")
+            for ws in tr.last_wire_stats:
+                if not (ws["wire_bytes"] < ws["dense_bytes"] and (
+                        not tr.device_encode or ws["d2h_bytes"] < ws["dense_bytes"])):
+                    raise AssertionError(f"a slice's wire is not under the dense gradient: {ws}")
+    return out
+
+
+def dcn_codec_ms(tr) -> dict:
+    """The device codec alone on one slice's accumulated gradient (its
+    residual after the run, plus a seeded gradient-sized vector): the
+    value encode and the decode-and-sum of ``world`` messages, CUDA events."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import compression as comp
+    res = tr.slice_residual[0][0]
+    gen = torch.Generator(device=res.device).manual_seed(DCN_SEED)
+    acc = res + 1e-3 * torch.randn(res.shape, device=res.device, generator=gen)
+    tau = torch.full((), tr.algorithms[0].current(), device=res.device)
+    cap, size = tr.capacity, tr.grad_size
+    msg = comp.threshold_encode_values_device(acc, tau, cap)
+    stack = torch.stack([msg] * tr.world_size)
+
+    def decode():
+        return comp.decode_sum_device(stack, size, cap, value_coded=True)
+    return {"encode_ms": cuda_ms(lambda: comp.threshold_encode_values_device(acc, tau, cap)),
+            "decode_sum_ms": cuda_ms(decode), "encoded": int(msg[0].item())}
+
+
+def dcn_modes(card_dev, net, batch, steps: int, **kw) -> dict:
+    """The same ``steps`` from one start, eager and captured, each from a
+    cleared step cache, under deterministic algorithms: the launch counts
+    per step and a host copy of every slice tree and the losses."""
+    from deeplearning4j_tpu_torch.train import capture
+    out = {}
+    with deterministic_algorithms():
+        for mode in ("eager", "captured"):
+            release()
+            with capture.eager() if mode == "eager" else contextlib.nullcontext():
+                tr = dcn_trainer(net, card_dev, **kw)
+                try:
+                    run = dcn_steps(tr, batch, steps)
+                    out[mode] = {"losses": run["losses"], "launches": run["launches"],
+                                 "trees": dcn_snapshot(tr)}
+                finally:
+                    tr.close()
+    return out
+
+
+def dcn_step0_vs_plain(card_dev, net, batch) -> dict:
+    """Step 0 of two slices through the kernels against step 0 through both
+    plain versions, eager, from one start, with every nonzero coordinate of
+    the gradient on the wire (capacity = the param count, threshold 1e-30:
+    no selection, the values exact), so each param's update is its mean
+    gradient's, held to phase 6's limits."""
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm
+    from deeplearning4j_tpu_torch.train import capture
+    from deeplearning4j_tpu_torch.utils.pytree import param_count
+    runs = {}
+    for name in ("kernel", "plain"):
+        release()
+        saved = fused_mod.matmul_bn_act
+        if name == "plain":
+            fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+        try:
+            with capture.eager():
+                tr = dcn_trainer(net, card_dev, capacity=param_count(net.params_),
+                                 algorithm=AdaptiveThresholdAlgorithm(initial_threshold=1e-30))
+                try:
+                    kernel_counts(zero=True)
+                    loss = tr.fit_batch(batch)
+                    launches = launched(kernel_counts(zero=True))
+                    update = {v: {k: tr.slice_params[0][v][k] - t for k, t in d.items()}
+                              for v, d in net.params_.items()}
+                    runs[name] = (loss, launches, update, tr.last_wire_stats[0]["encoded"])
+                finally:
+                    tr.close()
+        finally:
+            fused_mod.matmul_bn_act = saved
+    loss_err = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    errs = update_errs(runs["kernel"][2], runs["plain"][2])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    want = {k: 2 * v for k, v in DCN_LAUNCHES.items()}
+    if runs["kernel"][1] != want or runs["plain"][1]:
+        raise AssertionError(f"step 0 launched {runs['kernel'][1]} through the kernels (want "
+                             f"{want}) and {runs['plain'][1]} through the plain versions")
+    if not (loss_err <= TRAIN_LOSS0_TOL and worst[0][1] <= TRAIN_UPDATE_TOL):
+        raise AssertionError(f"2-slice step 0 through the kernels vs the plain versions: loss "
+                             f"{loss_err:.2e} relative (limit {TRAIN_LOSS0_TOL}), updates "
+                             f"{worst[:5]} (limit {TRAIN_UPDATE_TOL})")
+    return {"loss": runs["kernel"][0], "plain_loss": runs["plain"][0], "loss_rel_err": loss_err,
+            "update_rel_err_max": worst[0][1], "update_rel_err_worst": worst[:3],
+            "encoded": runs["kernel"][3], "launches": runs["kernel"][1]}
+
+
+def dcn_process_net():
+    """(c)'s net: res2's first bottleneck and a res3-wide one (module comment)."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (FusedBottleneck, GlobalPoolingLayer,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.train import Sgd
+    gb = (NeuralNetConfiguration.builder().seed(MP_SEED).updater(Sgd(DCN_LR))
+          .weight_init("relu").graph().add_inputs("in")
+          .set_input_types(InputType.convolutional(MP_HW, MP_HW, MP_CHANNELS)))
+    gb.add_layer("b1", FusedBottleneck(filters=(64, 64, 256), project=True), "in")
+    gb.add_layer("b2", FusedBottleneck(filters=(128, 128, 512), stride=(2, 2), project=True),
+                 "b1")
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), "b2")
+    gb.add_layer("out", OutputLayer(n_out=MP_CLASSES, activation="softmax", loss="mcxent"),
+                 "pool")
+    gb.set_outputs("out")
+    return damp_residual_gammas(ComputationGraph(gb.build(), device="cuda").init(seed=MP_SEED))
+
+
+def dcn_process_worker(pid: int, n: int, phase: str, workdir: str) -> dict:
+    """One slice leader of (c) (tests/cluster_workers.py:151-233 in the
+    port): MultiSliceTrainer(world_size=n) over a ring SocketTransport, the
+    device codec and the overlapped exchange, on the card the launcher set.
+    phase "full": MP_STEPS steps, a checkpoint after step MP_CKPT; "fail":
+    the same, rank 1 killed at step MP_FAIL; "resume": the net, the
+    iterator and the codec state restored, the rest of the steps."""
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator, ResumableIterator
+    from deeplearning4j_tpu_torch.io.model_serializer import read_iterator_state
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.kernels import conv_bn
+    from deeplearning4j_tpu_torch.parallel import (AdaptiveThresholdAlgorithm,
+                                                   MultiSliceTrainer, SocketTransport)
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)   # so that a resumed run repeats the bits
+    t0 = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    x, y = dcn_batch(MP_STEPS * MP_BATCH, MP_HW, MP_CLASSES, MP_SEED, MP_CHANNELS)
+    # rank r owns rows r::n of each global batch
+    batches = [DataSet(x[i:i + MP_BATCH][pid::n], y[i:i + MP_BATCH][pid::n])
+               for i in range(0, MP_STEPS * MP_BATCH, MP_BATCH)]
+    iterator = ResumableIterator(ListDataSetIterator(batches))
+    ckpt = os.path.join(workdir, "dcn_ckpt.zip")
+    codec_path = os.path.join(workdir, f"dcn_codec_{pid}.pkl")
+    if phase == "resume":
+        net = ComputationGraph.load(ckpt, device="cuda")
+        iterator.set_state(read_iterator_state(ckpt))
+        start = iterator.batch_index
+    else:
+        net = dcn_process_net()
+        start = 0
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t)
+        return parts
+
+    first = flat_param_vector(net.params_).cpu()
+    same_start = all(torch.equal(p, first) for p in gathered(first))
+    transport = SocketTransport(pid, n, port=MP_RING_PORT + {"full": 0, "fail": 10,
+                                                             "resume": 20}[phase], timeout=60.0)
+    trainer = MultiSliceTrainer(net, n_slices=1, world_size=n, rank_offset=pid,
+                                transports=[transport], device_encode=True, overlap=True,
+                                devices=["cuda"],
+                                algorithm=AdaptiveThresholdAlgorithm(initial_threshold=MP_TAU0))
+    if phase == "resume":
+        with open(codec_path, "rb") as f:
+            trainer.load_codec_state(pickle.load(f))
+    t1 = time.perf_counter()
+    conv_bn.launches = conv_bn.bwd_launches = 0
+    try:
+        for i, batch in enumerate(iterator, start=start):
+            trainer.fit_batch(batch, rng=MP_SEED + i)
+            if phase != "resume" and i == MP_CKPT:
+                # every rank keeps its codec state; rank 0 the model (the
+                # params are the same on every rank)
+                with open(codec_path, "wb") as f:
+                    pickle.dump(trainer.codec_state(), f)
+                if pid == 0:
+                    trainer.collect()
+                    net.save(ckpt, iterator_state=iterator.state())
+            if phase == "fail" and i == MP_FAIL and pid == 1:
+                os._exit(3)      # the planted fault: this process dies
+        trainer.collect()
+    finally:
+        trainer.close()
+        transport.close()
+    flat = flat_param_vector(net.params_).cpu()
+    return {"pid": pid, "params": flat.numpy(), "same_start": same_start,
+            "all_equal": all(torch.equal(p, flat) for p in gathered(flat)),
+            "batches_seen": iterator.batch_index - start, "bytes_sent": transport.bytes_sent,
+            "dense_bytes_per_step": trainer.grad_size * 4, "capacity": trainer.capacity,
+            "wire": trainer.last_wire_stats[0], "setup_s": t1 - t0,
+            "steps_s": time.perf_counter() - t1, "entered_at": entered, "left_at": time.time(),
+            "launches": [conv_bn.launches, conv_bn.bwd_launches]}
+
+
+def dcn_processes(card: str) -> dict:
+    """(c): the full, failed and resumed runs of two processes on the card."""
+    import functools
+    import tempfile
+    import numpy as np
+    import chip_smoke as module     # the worker pickles by this name, for the children
+    from deeplearning4j_tpu_torch.parallel.dcn import _FRAME
+    from deeplearning4j_tpu_torch.parallel.launcher import spawn_local_cluster
+    wd = Path(tempfile.mkdtemp(prefix="chip_smoke_dcn_"))
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+    def run(phase, sub, port, **kw):
+        t0 = time.time()
+        out = spawn_local_cluster(
+            functools.partial(module.dcn_process_worker, phase=phase, workdir=str(wd / sub)),
+            n_processes=2, port=port, device="cuda", extra_env=env, timeout=MP_TIMEOUT, **kw)
+        t1 = time.time()
+        for r in out:   # the child's start-up (interpreter, imports, the card, the
+            # process group) before the worker, and its teardown after it
+            r["start_s"], r["teardown_s"] = r["entered_at"] - t0, t1 - r["left_at"]
+        return sorted(out, key=lambda r: r["pid"]), t1 - t0
+
+    full, full_s = run("full", "full", MP_PORT)
+    t0 = time.perf_counter()
+    try:
+        run("fail", "fail", MP_PORT + 2, startup_retries=0)
+    except RuntimeError as e:
+        fail_msg = str(e).splitlines()[:3]
+    else:
+        raise AssertionError("the run with rank 1 killed at step "
+                             f"{MP_FAIL} did not fail")
+    fail_s = time.perf_counter() - t0
+    if not (wd / "fail" / "dcn_ckpt.zip").exists():
+        raise AssertionError("the failed run left no checkpoint from before the fault")
+    resumed, resume_s = run("resume", "fail", MP_PORT + 4)
+    grad_size = full[0]["dense_bytes_per_step"] // 4
+    cap_msg_bytes = (3 + 2 * full[0]["capacity"]) * 4
+    diff = float(np.abs(resumed[0]["params"] - full[0]["params"]).max())
+    out = {"card": card, "full_s": full_s, "fail_s": fail_s, "resume_s": resume_s,
+           "fail_message": fail_msg, "grad_size": grad_size,
+           "setup_s": [r["setup_s"] for r in full], "steps_s": [r["steps_s"] for r in full],
+           "start_s": [r["start_s"] for r in full + resumed],
+           "teardown_s": [r["teardown_s"] for r in full + resumed],
+           "launches": [r["launches"] for r in full],
+           "bytes_sent": [r["bytes_sent"] for r in full],
+           "bytes_bound": (cap_msg_bytes + _FRAME.size) * MP_STEPS,
+           "wire": full[0]["wire"], "batches_seen": [full[0]["batches_seen"],
+                                                     resumed[0]["batches_seen"]],
+           "resumed_vs_full_max_abs": diff,
+           "resumed_equals_full": bool(np.array_equal(resumed[0]["params"].view(np.int32),
+                                                      full[0]["params"].view(np.int32)))}
+    ok = (all(r["all_equal"] and r["same_start"] for r in full + resumed)
+          and out["batches_seen"] == [MP_STEPS, MP_STEPS - MP_CKPT - 1]
+          and out["resumed_equals_full"]
+          and all(0 < b <= out["bytes_bound"] for b in out["bytes_sent"])
+          and all(fwd > 0 and bwd > 0 for fwd, bwd in out["launches"]))
+    log(f"two processes on {card} (two fused bottlenecks, {MP_HW}x{MP_HW}x{MP_CHANNELS}, "
+        f"{MP_CLASSES} classes, {MP_BATCH // 2} images a process, {grad_size} params; ring "
+        f"SocketTransport on loopback, overlapped): full run {full_s:.1f} s (child start-up "
+        f"{out['start_s']} s, set-up {out['setup_s']}, steps {out['steps_s']}, teardown "
+        f"{out['teardown_s']}; (forward, backward) launches {out['launches']}), ranks byte-equal {[r['all_equal'] for r in full]}; rank 1 "
+        f"killed at step {MP_FAIL}: {fail_s:.1f} s, {fail_msg[:1]}; resumed from the step-"
+        f"{MP_CKPT} checkpoint and codec state in {resume_s:.1f} s, {out['batches_seen'][1]} "
+        f"batches, params equal to the uninterrupted run's: {out['resumed_equals_full']} (max "
+        f"|diff| {diff}); bytes sent {out['bytes_sent']} (bound {out['bytes_bound']})")
+    if not ok:
+        raise AssertionError(f"the two-process run failed its checks: "
+                             f"{ {k: v for k, v in out.items() if k != 'wire'} }")
+    return out
+
+
+def gradient_sharing(card: str) -> dict:
+    """Phase 26: BASELINE config 5's gradient-sharing path (module comment)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Sgd, Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x, y = dcn_batch(DCN_SLICES * DCN_BATCH)
+    batch = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    net = build_net(Sgd(DCN_LR))
+    out = {"card": card, "slices": DCN_SLICES, "batch_per_slice": DCN_BATCH}
+    # (a) sync, then overlapped: a fresh trainer each, burn-in then timed steps
+    for overlap in (False, True):
+        release()
+        tr = dcn_trainer(net, dev, overlap=overlap)
+        try:
+            run = dcn_steps(tr, batch, DCN_BURN_IN + DCN_TIMED)
+            tr.finish()
+            if tr.max_param_divergence() != 0.0:
+                raise AssertionError("the slices diverged after the drain")
+            label = "overlap" if overlap else "sync"
+            timed = run["ms"][DCN_BURN_IN:]
+            ex = sum(run["exchange_s"][DCN_BURN_IN:]) / max(1, sum(run["exchanges"][DCN_BURN_IN:]))
+            ws = run["wire"][-1]
+            out[label] = {"losses": run["losses"], "launches": run["launches"],
+                          "step_ms": float(np.mean(timed)), "step_ms_all": run["ms"],
+                          "exchange_ms": ex * 1e3, "wire": ws, "capacity": tr.capacity,
+                          "grad_size": tr.grad_size,
+                          "thresholds": [w[0]["threshold"] for w in run["wire"]],
+                          "encoded": [[s["encoded"] for s in w] for w in run["wire"]],
+                          "graphs": tr._steps["dcn_grad_encode"].graph_count
+                          + tr._steps["dcn_decode_apply"].graph_count,
+                          "switches": tr._steps["dcn_grad_encode"].switches
+                          + tr._steps["dcn_decode_apply"].switches}
+            if not overlap:
+                out["codec"] = dcn_codec_ms(tr)
+        finally:
+            tr.close()
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"non-finite 2-slice loss: {run['losses']}")
+    # captured: each trainer's first three steps launch (two eager calls and
+    # the capture, per slice), the rest replay
+    per_step = {k: DCN_SLICES * v for k, v in DCN_LAUNCHES.items()}
+    want = [per_step] * 3 + [{}] * (DCN_BURN_IN + DCN_TIMED - 3)
+    if out["sync"]["launches"] != want or out["overlap"]["launches"] != want:
+        raise AssertionError(f"launches per 2-slice step: sync {out['sync']['launches']} "
+                             f"(want {want}), overlapped {out['overlap']['launches']}")
+    # step 0 through the kernels against the plain versions
+    out["step0_vs_plain"] = dcn_step0_vs_plain(dev, net, batch)
+    # captured against eager, the same bits under deterministic algorithms
+    modes = dcn_modes(dev, net, batch, DCN_CHECK_STEPS)
+    differ = bits_differ(modes["captured"]["trees"], modes["eager"]["trees"])
+    eager_launches = modes["eager"]["launches"]
+    if differ or modes["captured"]["losses"] != modes["eager"]["losses"] \
+            or eager_launches != [per_step] * DCN_CHECK_STEPS:
+        raise AssertionError(f"2-slice steps captured vs eager: {differ} tensors differ, losses "
+                             f"{modes['captured']['losses']} vs {modes['eager']['losses']}, "
+                             f"eager launches {eager_launches} (want {per_step} a step)")
+    out["captured_vs_eager"] = {"tensors_differ": differ, "steps": DCN_CHECK_STEPS,
+                                "eager_launches_per_step": eager_launches[0]}
+    # (b) the device codec against the host codec (the numpy oracle)
+    oracle = {}
+    with deterministic_algorithms():
+        for device_encode in (True, False):
+            release()
+            tr = dcn_trainer(net, dev, device_encode=device_encode)
+            try:
+                run = dcn_steps(tr, batch, DCN_ORACLE_STEPS)
+                oracle[device_encode] = (run["losses"],
+                                         flat_param_vector(tr.slice_params[0]).cpu().numpy(),
+                                         run["wire"][-1], float(np.mean(run["ms"][1:])))
+            finally:
+                tr.close()
+    (dl, dp, dw, dms), (hl, hp, hw, hms) = oracle[True], oracle[False]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dl, hl))
+    param_excess = float(np.max(np.abs(dp - hp) - (DCN_ORACLE_ATOL + DCN_ORACLE_RTOL * np.abs(hp))))
+    out["oracle"] = {"steps": DCN_ORACLE_STEPS, "losses": dl, "host_losses": hl,
+                     "loss_rel_err": loss_err, "param_max_abs": float(np.abs(dp - hp).max()),
+                     "params_equal": bool(np.array_equal(dp.view(np.int32), hp.view(np.int32))),
+                     "host_wire": hw, "device_step_ms": dms, "host_step_ms": hms}
+    if not (loss_err <= DCN_ORACLE_RTOL and param_excess <= 0.0):
+        raise AssertionError(f"device codec vs the host codec over {DCN_ORACLE_STEPS} steps: "
+                             f"losses {dl} vs {hl}, params {out['oracle']['param_max_abs']} "
+                             f"apart (limits rtol {DCN_ORACLE_RTOL}, atol {DCN_ORACLE_ATOL})")
+    release()
+    # (c) two processes on the card
+    out["processes"] = dcn_processes(card)
+    # (d) the plain Trainer at one slice's batch, captured
+    release()
+    small = DataSet(batch.features[:DCN_BATCH], batch.labels[:DCN_BATCH])
+    plain = Trainer(net)
+    for _ in range(3):      # two eager calls and the capture
+        plain.fit_batch(small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DCN_PLAIN_TIMED):
+        plain.fit_batch(small)
+    torch.cuda.synchronize()
+    out["plain_step_ms"] = (time.perf_counter() - t0) / DCN_PLAIN_TIMED * 1e3
+    release()
+    for label in ("sync", "overlap"):
+        out[label]["overhead_ms"] = out[label]["step_ms"] - 2 * out["plain_step_ms"]
+    ws = out["sync"]["wire"][0]
+    out["bytes"] = {"dense": ws["dense_bytes"], "wire": ws["wire_bytes"], "d2h": ws["d2h_bytes"],
+                    "wire_ratio": ws["dense_bytes"] / ws["wire_bytes"],
+                    "d2h_ratio": ws["dense_bytes"] / ws["d2h_bytes"]}
+    s, o, c = out["sync"], out["overlap"], out["codec"]
+    log(f"gradient sharing on {card}: full-width ResNet-50 f32, {DCN_SLICES} slices x batch "
+        f"{DCN_BATCH} on one card, Sgd({DCN_LR}), {s['grad_size']} params, capacity "
+        f"{s['capacity']}: divergence 0.0 after every step; launches per 2-slice step (sync, "
+        f"captured) {s['launches'][:4]}...; losses sync {[round(v, 4) for v in s['losses']]}, "
+        f"overlapped {[round(v, 4) for v in o['losses']]}; thresholds "
+        f"{[round(v, 5) for v in s['thresholds']]}")
+    log(f"  on {card}, step ms (mean of {DCN_TIMED} after {DCN_BURN_IN} burn-in): plain Trainer "
+        f"at batch "
+        f"{DCN_BATCH} {out['plain_step_ms']:.3f}, 2-slice sync {s['step_ms']:.3f} (overhead "
+        f"{s['overhead_ms']:.3f}), overlapped {o['step_ms']:.3f} (overhead "
+        f"{o['overhead_ms']:.3f}); encode {c['encode_ms']:.3f} ms, decode-and-sum of "
+        f"{DCN_SLICES} messages {c['decode_sum_ms']:.3f} ms (CUDA events); exchange "
+        f"{s['exchange_ms']:.3f} ms sync, {o['exchange_ms']:.3f} overlapped (wall); bytes per "
+        f"slice step: dense {out['bytes']['dense']}, wire {out['bytes']['wire']} "
+        f"({out['bytes']['wire_ratio']:.1f}x), D2H {out['bytes']['d2h']} "
+        f"({out['bytes']['d2h_ratio']:.1f}x); graphs {s['graphs']}, tree switches "
+        f"{o['switches']}")
+    p0 = out["step0_vs_plain"]
+    log(f"  step 0 kernels vs plain (every coordinate on the wire): loss rel err "
+        f"{p0['loss_rel_err']:.2e}, update rel err max {p0['update_rel_err_max']:.2e}; "
+        f"captured vs eager ({DCN_CHECK_STEPS} steps, deterministic): 0 tensors differ, "
+        f"{out['captured_vs_eager']['eager_launches_per_step']} launches per eager step; "
+        f"device codec vs host codec ({DCN_ORACLE_STEPS} steps): loss rel err {loss_err:.2e}, "
+        f"params max |diff| {out['oracle']['param_max_abs']:.2e} (same bits: "
+        f"{out['oracle']['params_equal']}), step ms device {dms:.1f}, host {hms:.1f}")
+    out["launches"] = {k: sum(step.get(k, 0) for run in (s, o) for step in run["launches"])
+                       for k in DCN_LAUNCHES}
+    for run in (s, o):
+        run.pop("wire")
+    return out
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -6118,6 +6634,9 @@ def main() -> int:
     log(card)
     log(f"SMs: {torch.cuda.get_device_properties(0).multi_processor_count}")
 
+    def clock(done: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {done} done")
+
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -6140,6 +6659,7 @@ def main() -> int:
         rows = check_kernels(calls, (torch.float32, torch.bfloat16))
 
         serving = serve(net, card)
+        clock("phases 3-4")
         del net
         release()
 
@@ -6148,6 +6668,7 @@ def main() -> int:
         bwd_rows = check_bwd_kernels(calls, (torch.float32, torch.bfloat16))
         training = train_check(card)
         head = headline(card)
+        clock("phases 5-7")
         # the headline ran both kernels at its own shapes: hold them there too
         from deeplearning4j_tpu_torch.models import resnet50
         head_calls = resnet50_calls(resnet50(fused=True, device="cuda"), head["batch"])
@@ -6162,6 +6683,7 @@ def main() -> int:
         ragged_rows = check_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
         ragged_bwd_rows = check_bwd_kernels(list(RAGGED_CALLS), (torch.float32, torch.bfloat16))
         ragged = ragged_graph(card)
+        clock("phase 8")
         release()
 
         log(f"conv3x3_bn_act kernel check: ResNet-50's four 3x3 shapes at batch {BATCH}, "
@@ -6173,6 +6695,7 @@ def main() -> int:
                                         CONV3_VARIANTS[:1], timed=False)
         conv3_paths = [conv3_path(card, BATCH, "f32"), conv3_path(card, head["batch"], "bf16")]
         conv3_grads = conv3_autograd(card)
+        clock("phase 9 (a-c)")
         log(f"conv3x3_bn_act at the headline's batch {head['batch']}, bf16")
         conv3_head_rows = check_conv3(conv3_calls(head["batch"]), (torch.bfloat16,),
                                       CONV3_VARIANTS[:1])
@@ -6210,6 +6733,7 @@ def main() -> int:
             raise AssertionError(f"the merged backward's scratch {scratch} bytes is over "
                                  f"{MERGED_SCRATCH_LIMIT}")
         split_main = split_main_path()
+        clock("phase 10")
         flash_dim_rows = []
         for d, heads, names in FLASH_HEAD_DIMS:
             cases = tuple(c for c in FLASH_CASES if names is None or c[0] in names)
@@ -6218,30 +6742,43 @@ def main() -> int:
             flash_dim_rows += check_flash((torch.float32, torch.bfloat16), d, heads, cases)
         log(f"flash attention backward, both forms, at long sequences {LONG_SEQS}")
         long_rows = flash_long(card)
+        clock("phases 11-12")
         bert_served = bert_serve(card)
         bert_heads = [bert_serve(card, 2, heads) for heads in BERT_HEADS]
         bert_head = bert_finetune(card)
         bert_check = bert_train_check(card)
+        clock("phases 13-15")
         release()
 
         log(f"int8_matmul kernel check: {len(INT8_SHAPES)} shapes at M in {INT8_BATCHES}, f32 and "
             f"bf16, L2 cold")
         int8_rows = check_int8((torch.float32, torch.bfloat16))
         vgg = vgg_serve(card)
+        clock("phases 16-18")
         release()
         small = small_nets(card)
+        clock("phase 19")
         release()
         headline128 = bert_headline(card)
+        clock("phase 20")
         release()
         stack = attention_stack(card)
+        clock("phase 21")
     release()
     captured = captured_steps(card)
+    clock("phase 22")
     release()
     recurrent = recurrent_nets(card, captured["paths"])
+    clock("phase 23")
     release()
     tuned = finetune(card)
+    clock("phase 24")
     release()
     stack_run = serving_stack(card)
+    clock("phase 25")
+    release()
+    sharing = gradient_sharing(card)
+    clock("phase 26")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6275,6 +6812,7 @@ def main() -> int:
               work.format("forward"))
         | {"serve_launches": serving["launches"], "sass": hopper["matmul_bn_act"],
            "serving_stack_launches": stack_run["router"]["launches"],
+           "gradient_sharing_launches": sharing["launches"]["matmul_bn_act"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -6288,6 +6826,7 @@ def main() -> int:
               "deeplearning4j_tpu/ops/pallas/conv_bn.py:92", b32, b16, hb16, train_launches[1],
               work.format("backward"))
         | {"sass": hopper["matmul_bn_act_bwd"],
+           "gradient_sharing_launches": sharing["launches"]["matmul_bn_act_bwd"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
@@ -6344,7 +6883,7 @@ def main() -> int:
          "bert_train_check": bert_check, "int8_shapes": int8_rows, "vgg16_int8": vgg,
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
          "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
-         "serving_stack": stack_run,
+         "serving_stack": stack_run, "gradient_sharing": sharing,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

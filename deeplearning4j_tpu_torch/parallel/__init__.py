@@ -1,0 +1,73 @@
+"""Distributed training and parallelism (port of
+``deeplearning4j_tpu/parallel/``), as far as it is ported:
+
+- ``mesh``        — the axis constants and ``MeshSpec`` (the layout flag's
+                    parse);
+- ``compression`` — the threshold and bitmap gradient codecs (numpy, and
+                    their torch device twins), the residual accumulator and
+                    the adaptive threshold;
+- ``dcn``         — the in-process and socket ring transports and the
+                    compressed allreduce;
+- ``dcn_trainer`` — ``MultiSliceTrainer``, the gradient-sharing path;
+- ``launcher``    — ``torch.distributed`` initialisation and local
+                    multi-process gangs;
+- ``inference``   — ``ParallelInference``, a shim over the serving engine.
+
+Not ported yet: ``unified``, ``data_parallel`` (``ParallelWrapper``),
+``tensor_parallel``, ``pipeline``, ``pipeline_stages``,
+``context_parallel``, ``expert_parallel``, ``MeshLayout``,
+``resolve_layout`` and ``make_mesh``.  Their names raise an
+``AttributeError``, and their modules an ``ImportError``, that says so.
+"""
+
+from deeplearning4j_tpu_torch.parallel.compression import (
+    AdaptiveThresholdAlgorithm, EncodedGradientsAccumulator, bitmap_decode,
+    bitmap_decode_device, bitmap_encode, bitmap_encode_device, threshold_decode,
+    threshold_decode_device, threshold_encode, threshold_encode_device,
+)
+from deeplearning4j_tpu_torch.parallel.dcn import (
+    CompressedAllReducer, InProcessTransport, SocketTransport,
+)
+from deeplearning4j_tpu_torch.parallel.dcn_trainer import MultiSliceTrainer
+from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+from deeplearning4j_tpu_torch.parallel.launcher import initialize, spawn_local_cluster
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, DATA_AXES, MESH_AXES, MeshSpec,
+)
+
+__all__ = [
+    "AXIS_DATA", "AXIS_EXPERT", "AXIS_MODEL", "AXIS_PIPE", "AXIS_SEQ", "MESH_AXES", "DATA_AXES",
+    "MeshSpec", "threshold_encode", "threshold_decode", "bitmap_encode", "bitmap_decode",
+    "threshold_encode_device", "threshold_decode_device", "bitmap_encode_device",
+    "bitmap_decode_device", "EncodedGradientsAccumulator", "AdaptiveThresholdAlgorithm",
+    "InProcessTransport", "SocketTransport", "CompressedAllReducer", "MultiSliceTrainer",
+    "ParallelInference", "initialize", "spawn_local_cluster",
+]
+
+# the JAX package's parallel names that wait for a later slice
+NOT_PORTED = {
+    "ParallelWrapper": "data_parallel", "MeshLayout": "mesh", "resolve_layout": "mesh",
+    "make_mesh": "mesh", "make_multislice_mesh": "dcn", "moe_ffn": "unified",
+    "moe_ffn_dense": "unified", "init_moe_params": "unified", "shard_moe_params": "unified",
+    "ring_attention": "unified", "ulysses_attention": "unified",
+    "reference_attention": "unified",
+}
+NOT_PORTED_MODULES = ("unified", "data_parallel", "tensor_parallel", "pipeline",
+                      "pipeline_stages", "context_parallel", "expert_parallel")
+
+
+def not_ported(module: str) -> None:
+    """Raise the ``ImportError`` of a parallel module that waits for a
+    later slice (each such module calls this at import)."""
+    name = module.rsplit(".", 1)[-1]
+    raise ImportError(f"{module} is not ported yet (the JAX package's parallel/{name}.py); "
+                      f"the port's parallel package has {', '.join(__all__)}")
+
+
+def __getattr__(name):
+    if name in NOT_PORTED or name in NOT_PORTED_MODULES:
+        where = NOT_PORTED.get(name, name)
+        raise AttributeError(
+            f"deeplearning4j_tpu_torch.parallel.{name} is not ported yet (the JAX package's "
+            f"parallel/{where}.py); the port's parallel package has {', '.join(__all__)}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

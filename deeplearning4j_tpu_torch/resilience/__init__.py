@@ -1,4 +1,4 @@
-"""Fault tolerance: durable checkpoint files (``checkpoint.py``) and
-deterministic fault injection (``faults.py``).  The rest of the JAX
-package's ``resilience/`` (retries, the supervisor, elastic gangs) is not
-ported yet."""
+"""Fault tolerance: durable checkpoint files (``checkpoint.py``),
+deterministic fault injection (``faults.py``) and the retry policy
+(``retry.py``).  The rest of the JAX package's ``resilience/`` (the
+supervisor, elastic gangs, the device-pool arbiter) is not ported yet."""

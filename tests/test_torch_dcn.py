@@ -1,0 +1,528 @@
+"""The port's gradient sharing (``parallel/``) held to the JAX package's.
+
+Two nets, each initialised by the JAX package and carried into the port
+with ``interop.load_jax_params``: ``tests/test_dcn.py``'s Dense(16, tanh) +
+softmax(3) net on 8 features (batch 64), and a narrow fused graph (two
+``FusedBottleneck(4, 4, 8)`` on 8x8x8 inputs, average pooling, softmax(3);
+batch 8), whose Pallas kernels the JAX package runs in f32 in interpret
+mode.  Both packages train them across two slices (``MultiSliceTrainer``,
+one device per slice: ``jax.devices()[:2]`` and ``["cpu"] * 2``) with an
+initial threshold of 3e-2, so that the codec really quantizes.
+
+Tolerances: each step's mean loss within 1e-5 relative of the JAX
+trainer's; the slices' divergence exactly 0.0; params within 1e-6 of
+the JAX trainer's, plus, at each coordinate that some step's messages
+sent in one package and not the other, the size of what was sent there.
+The two packages' gradients agree to rounding, not bit for bit, and the
+encoder is discontinuous at τ: such coordinates are counted (at most 1%
+of the entries sent) and each one's sent value must lie within 1e-4
+relative of τ (it was a near tie with the threshold); the values sent at
+the coordinates both sent agree within 1e-5 relative.  Inside the port,
+its device codec against its host codec: losses and params within
+``tests/test_dcn.py:434-436``'s rtol 1e-5 (they read the same bits here).
+"""
+
+import threading
+
+import jax
+import jax.flatten_util
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.data.dataset import DataSet as JDataSet
+from deeplearning4j_tpu.nn import InputType as JInputType
+from deeplearning4j_tpu.nn import NeuralNetConfiguration as JConf
+from deeplearning4j_tpu.nn import layers as jlayers
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMultiLayerNetwork
+from deeplearning4j_tpu.parallel import dcn as jdcn
+from deeplearning4j_tpu.parallel import dcn_trainer as jdcn_trainer
+from deeplearning4j_tpu.parallel.compression import AdaptiveThresholdAlgorithm as JAlgorithm
+from deeplearning4j_tpu.parallel.mesh import MeshSpec as JMeshSpec
+from deeplearning4j_tpu.resilience.retry import RetryPolicy as JRetryPolicy
+from deeplearning4j_tpu.train import Sgd as JSgd
+from deeplearning4j_tpu.utils.pytree import flat_param_vector as jax_flat_param_vector
+
+from deeplearning4j_tpu_torch import parallel
+from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+from deeplearning4j_tpu_torch.interop import load_jax_params
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.obs import flight_recorder, tracing
+from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+from deeplearning4j_tpu_torch.parallel import dcn_trainer, mesh
+from deeplearning4j_tpu_torch.parallel.compression import AdaptiveThresholdAlgorithm
+from deeplearning4j_tpu_torch.parallel.dcn import (CompressedAllReducer, InProcessTransport,
+                                                   SocketTransport)
+from deeplearning4j_tpu_torch.parallel.dcn_trainer import MultiSliceTrainer
+from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.resilience.faults import InjectedCrash
+from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, with_retries
+from deeplearning4j_tpu_torch.utils.pytree import (flat_param_vector, param_count,
+                                                   unflatten_param_vector)
+
+TAU0, STEPS = 3e-2, 6
+LOSS_RTOL, PARAM_ATOL, VALUE_RTOL, NEAR_TAU, MISMATCH_SHARE = 1e-5, 1e-6, 1e-5, 1e-4, 0.01
+
+
+def _dense_conf():
+    return (JConf.builder().seed(77).updater(JSgd(0.1)).weight_init("xavier").list()
+            .layer(jlayers.DenseLayer(n_out=16, activation="tanh"))
+            .layer(jlayers.OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(JInputType.feed_forward(8)).build())
+
+
+def _fused_conf():
+    g = (JConf.builder().seed(4).updater(JSgd(0.05)).weight_init("relu").graph()
+         .add_inputs("in").set_input_types(JInputType.convolutional(8, 8, 8)))
+    g.add_layer("b1", jlayers.FusedBottleneck(filters=(4, 4, 8)), "in")
+    g.add_layer("b2", jlayers.FusedBottleneck(filters=(4, 4, 8)), "b1")
+    g.add_layer("pool", jlayers.GlobalPoolingLayer(pooling_type="avg"), "b2")
+    g.add_layer("out", jlayers.OutputLayer(n_out=3, activation="softmax", loss="mcxent"),
+                "pool")
+    g.set_outputs("out")
+    return g.build()
+
+
+def _data(kind):
+    rng = np.random.default_rng(5)
+    n = 64 if kind == "dense" else 8
+    shape = (n, 8) if kind == "dense" else (n, 8, 8, 8)
+    x = rng.normal(size=shape).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)]
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return np.array(tree)
+
+
+class _Recorder:
+    """Records every compact wire message, in call order (a step's two
+    slices before the next step's)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.lock = fn, [], threading.Lock()
+
+    def __call__(self, msg, capacity):
+        out = self.fn(msg, capacity)
+        with self.lock:
+            self.calls.append(np.array(out))
+        return out
+
+
+def _jax_net(kind):
+    conf = _dense_conf() if kind == "dense" else _fused_conf()
+    net = (JMultiLayerNetwork if kind == "dense" else JGraph)(conf).init()
+    return net, _np_tree(net.params_), _np_tree(net.state_), conf
+
+
+def _port_net(kind, conf, p0, s0):
+    if kind == "dense":
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf.to_json()), device="cpu")
+    else:
+        net = ComputationGraph(ComputationGraphConfiguration.from_json(conf.to_json()),
+                               device="cpu")
+    return load_jax_params(net, p0, s0)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both packages' 2-slice runs of both nets (sync; the dense net also
+    overlapped), the compact messages of every slice step recorded."""
+    out = {}
+    for kind, overlap in (("dense", False), ("dense", True), ("fused", False)):
+        jnet, p0, s0, conf = _jax_net(kind)
+        x, y = _data(kind)
+        rec_j = _Recorder(jdcn_trainer.compact_device_message)
+        rec_t = _Recorder(dcn_trainer.compact_device_message)
+        jdcn_trainer.compact_device_message, dcn_trainer.compact_device_message = rec_j, rec_t
+        try:
+            jt = jdcn_trainer.MultiSliceTrainer(jnet, n_slices=2, devices=jax.devices()[:2],
+                                                overlap=overlap,
+                                                algorithm=JAlgorithm(initial_threshold=TAU0))
+            jl = [jt.fit_batch(JDataSet(x, y), jax.random.key(3)) for _ in range(STEPS)]
+            jt.finish()
+            net = _port_net(kind, conf, p0, s0)
+            tt = MultiSliceTrainer(net, 2, devices=["cpu"] * 2, overlap=overlap,
+                                   algorithm=AdaptiveThresholdAlgorithm(initial_threshold=TAU0))
+            tl, div = [], []
+            for _ in range(STEPS):
+                tl.append(tt.fit_batch(DataSet(x, y)))
+                div.append(tt.max_param_divergence())
+            tt.finish()
+            div.append(tt.max_param_divergence())
+        finally:
+            jdcn_trainer.compact_device_message = rec_j.fn
+            dcn_trainer.compact_device_message = rec_t.fn
+        jflat = np.asarray(jax_flat_param_vector(jt.slice_params[0]))
+        tflat = flat_param_vector(tt.slice_params[0]).numpy()
+        jstate, tstate = _np_tree(jt.collect().state_), _np_tree(tt.collect().state_)
+        out[(kind, overlap)] = {
+            "jax_losses": jl, "losses": tl, "divergence": div, "jax_params": jflat,
+            "params": tflat, "jax_state": jstate, "state": tstate, "p0": p0, "s0": s0,
+            "conf": conf, "x": x, "y": y,
+            "jax_messages": rec_j.calls, "messages": rec_t.calls, "wire": tt.last_wire_stats,
+            "capacity": (jt.capacity, tt.capacity)}
+        jt.close()
+        tt.close()
+    return out
+
+
+def _entries(m):
+    c = int(m[0])
+    return dict(zip(m[3:3 + c].tolist(), m[3 + c:3 + 2 * c].view(np.float32).tolist()))
+
+
+def _compare_messages(jax_msgs, port_msgs):
+    """(coordinates sent by one package only, entries sent in all, worst
+    relative value error where both sent), checking that every one-sided
+    coordinate's value is within NEAR_TAU of its threshold.  A step's two
+    messages (one per slice, in the order the threads got there) are
+    paired by their overlap."""
+    one_sided, total, worst = 0, 0, 0.0
+    assert len(jax_msgs) == len(port_msgs) == 2 * STEPS
+    for s in range(0, len(jax_msgs), 2):
+        js = [_entries(m) for m in jax_msgs[s:s + 2]]
+        ts = [(_entries(m), float(m[2:3].view(np.float32)[0])) for m in port_msgs[s:s + 2]]
+        for a in js:
+            b, tau = max(ts, key=lambda t: len(set(a) & set(t[0])))
+            total += len(a)
+            for k in set(a) ^ set(b):
+                v = a.get(k, b.get(k))
+                assert abs(v) <= tau * (1 + NEAR_TAU), (k, v, tau)
+                one_sided += 1
+            for k in set(a) & set(b):
+                worst = max(worst, abs(a[k] - b[k]) / abs(a[k]))
+    return one_sided, total, worst
+
+
+@pytest.mark.parametrize("kind,overlap", [("dense", False), ("dense", True), ("fused", False)])
+def test_multislice_trainer_follows_the_jax_trainer(runs, kind, overlap):
+    r = runs[(kind, overlap)]
+    assert r["capacity"][0] == r["capacity"][1]
+    assert r["divergence"] == [0.0] * (STEPS + 1)
+    np.testing.assert_allclose(r["losses"], r["jax_losses"], rtol=LOSS_RTOL)
+    one_sided, total, worst = _compare_messages(r["jax_messages"], r["messages"])
+    assert total > 0 and one_sided <= MISMATCH_SHARE * total, (one_sided, total)
+    assert worst <= VALUE_RTOL
+    # params: tight except where a message was one-sided (that coordinate
+    # then moved by what was sent there, lr x ~tau, and its residual kept it)
+    diff = np.abs(r["params"] - r["jax_params"])
+    assert np.sum(diff > PARAM_ATOL) <= one_sided
+    lr = 0.1 if kind == "dense" else 0.05
+    assert diff.max() <= PARAM_ATOL + lr * TAU0 * 2 * STEPS
+    for ws in r["wire"]:
+        assert 0 < ws["wire_bytes"] and ws["d2h_bytes"] < ws["dense_bytes"]
+        assert ws["residual_linf"] > 0.0
+
+
+def test_collect_averages_the_slices_bn_statistics_as_jax(runs):
+    r = runs[("fused", False)]
+    for v, d in r["jax_state"].items():
+        for k, want in d.items():
+            got = r["state"][v][k]
+            assert not np.array_equal(want, r["s0"][v][k])      # the statistics moved
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=f"{v}/{k}")
+
+
+@pytest.mark.parametrize("kind", ["dense", "fused"])
+def test_device_codec_matches_host_codec(runs, kind):
+    r = runs[(kind, False)]
+    got = {}
+    for device_encode in (True, False):
+        net = _port_net(kind, r["conf"], r["p0"], r["s0"])
+        tr = MultiSliceTrainer(net, 2, devices=["cpu"] * 2, device_encode=device_encode,
+                               algorithm=AdaptiveThresholdAlgorithm(initial_threshold=TAU0))
+        losses = [tr.fit_batch(DataSet(r["x"], r["y"])) for _ in range(STEPS)]
+        assert tr.max_param_divergence() == 0.0
+        got[device_encode] = (losses, flat_param_vector(tr.slice_params[0]).numpy(),
+                              tr.last_wire_stats)
+        tr.close()
+    np.testing.assert_allclose(got[True][0], got[False][0], rtol=1e-5)
+    np.testing.assert_allclose(got[True][1], got[False][1], rtol=1e-5, atol=1e-7)
+    for ws in got[True][2]:
+        assert ws["d2h_bytes"] < ws["dense_bytes"]
+    for ws in got[False][2]:
+        assert "d2h_bytes" not in ws and ws["wire_bytes"] > 0
+
+
+def test_codec_state_round_trip_continues_the_run(runs):
+    """Stop after 3 steps (collect + codec_state), rebuild, restore and run 3
+    more: the same bits as 6 uninterrupted steps."""
+    r = runs[("dense", True)]
+
+    def trainer(net):
+        return MultiSliceTrainer(net, 2, devices=["cpu"] * 2, overlap=True,
+                                 algorithm=AdaptiveThresholdAlgorithm(initial_threshold=TAU0))
+    batch = DataSet(r["x"], r["y"])
+    whole = trainer(_port_net("dense", r["conf"], r["p0"], r["s0"]))
+    for i in range(6):
+        whole.fit_batch(batch)
+        if i == 2:
+            whole.finish()      # the drain the interrupted run makes in codec_state()
+    want = flat_param_vector(whole.collect().params_).numpy()
+    first = trainer(_port_net("dense", r["conf"], r["p0"], r["s0"]))
+    for _ in range(3):
+        first.fit_batch(batch)
+    state = first.codec_state()
+    net = first.collect()
+    first.close()
+    second = trainer(net)
+    second.load_codec_state(state)
+    assert second.algorithms[0].current() == state[0]["threshold"]
+    for _ in range(3):
+        second.fit_batch(batch)
+    got = flat_param_vector(second.collect().params_).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    second.close()
+    whole.close()
+
+
+def _one_slice(r):
+    net = _port_net("dense", r["conf"], r["p0"], r["s0"])
+    return MultiSliceTrainer(net, 1, devices=["cpu"],
+                             retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0,
+                                                      retryable=dcn_trainer._exchange_retryable))
+
+
+def test_exchange_fault_is_retried_and_an_injected_crash_is_not(runs):
+    r = runs[("dense", False)]
+    batch = DataSet(r["x"], r["y"])
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    try:
+        tr = _one_slice(r)
+        with faults.inject("dcn.exchange@0:error"):
+            tr.fit_batch(batch)
+        assert reg.counter("tpudl_resilience_retries_total").value == 1
+        assert reg.counter("tpudl_dcn_steps_total").value == 1
+        with faults.inject("dcn.exchange@0:crash"), pytest.raises(InjectedCrash):
+            tr.fit_batch(batch)
+        assert reg.counter("tpudl_resilience_retries_total").value == 1
+        assert tr.iteration == 1             # the crashed step did not count
+        with faults.inject("trainer.step@1:crash"), pytest.raises(InjectedCrash):
+            tr.fit_batch(batch)
+        assert tr.iteration == 1
+        tr.close()
+        # a timeout inside the transport is not retried: the ring moved on
+        assert not dcn_trainer._exchange_retryable(TimeoutError("peer"))
+        assert dcn_trainer._exchange_retryable(faults.InjectedFault("x"))
+    finally:
+        set_registry(prev)
+
+
+def test_spans_metrics_listeners_and_flight_events(runs):
+    from deeplearning4j_tpu_torch import config
+    r = runs[("dense", True)]
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    calls = []
+
+    class Listener:
+        def iteration_done(self, net, iteration, epoch, score):
+            calls.append((iteration, epoch, score))
+
+        def on_fit_start(self, net):
+            calls.append("start")
+
+        def on_fit_end(self, net):
+            calls.append("end")
+
+    config.set_config(tracing=True)
+    try:
+        with tracing.use_tracer(tracing.Tracer()) as tracer:
+            tr = MultiSliceTrainer(_port_net("dense", r["conf"], r["p0"], r["s0"]), 2,
+                                   devices=["cpu"] * 2, overlap=True, listeners=[Listener()])
+            half = len(r["x"]) // 2
+            it = ListDataSetIterator([DataSet(r["x"][:half], r["y"][:half]),
+                                      DataSet(r["x"][half:], r["y"][half:])])
+            last = tr.fit(it, epochs=2)
+            tr.close()
+        assert np.isfinite(last) and calls[0] == "start" and calls[-1] == "end"
+        assert [c[0] for c in calls[1:-1]] == [0, 1, 2, 3]
+        assert len(tracer.find("step")) == 4 and len(tracer.find("fit")) == 1
+        assert len(tracer.find("slice")) == 8 and len(tracer.find("encode")) == 8
+        assert len(tracer.find("exchange")) == 8 and len(tracer.find("apply")) == 6
+        step_ids = {s.context().span_id for s in tracer.find("step")}
+        assert all(s.parent_id in step_ids for s in tracer.find("slice"))
+        assert reg.counter("tpudl_dcn_steps_total").value == 8
+        assert reg.counter("tpudl_dcn_drained_exchanges_total").value == 2
+        assert reg.counter("tpudl_dcn_wire_bytes_total").value > 0
+        assert reg.counter("tpudl_dcn_d2h_bytes_total").value > 0
+        assert reg.histogram("tpudl_dcn_exchange_seconds").count == 8
+        kinds = [e["kind"] for e in flight_recorder.get_recorder().events()]
+        assert "exchange" in kinds and "step" in kinds
+        assert flight_recorder.get_recorder().last_progress()[0] in ("trainer.step",
+                                                                      "dcn.exchange")
+    finally:
+        config.set_config(tracing=False)
+        set_registry(prev)
+
+
+def test_layouts_devices_and_refusals(runs):
+    r = runs[("dense", False)]
+
+    def net():
+        return _port_net("dense", r["conf"], r["p0"], r["s0"])
+    tr = MultiSliceTrainer(net(), 2, devices=["cpu"] * 2, layout="dp1")
+    assert tr.devices == [torch.device("cpu")] * 2
+    tr.close()
+    with pytest.raises(NotImplementedError, match="DCN × data"):
+        MultiSliceTrainer(net(), 2, devices=["cpu"] * 2, layout="dp2xtp2")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        MultiSliceTrainer(net(), 2, devices=["cpu"] * 4, data_per_slice=2)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        MultiSliceTrainer(net(), 2)              # a CPU net: one device unless asked
+    with pytest.raises(ValueError, match="explicit per-slice transports"):
+        MultiSliceTrainer(net(), 1, devices=["cpu"], world_size=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        tr = MultiSliceTrainer(net(), 2, devices=["cpu"] * 2)
+        try:
+            tr.fit_batch(DataSet(r["x"][:3], r["y"][:3]))
+        finally:
+            tr.close()
+    # the reference's default capacity: 4x the target sparsity, at least 1024,
+    # under the dense bound
+    assert tr.capacity == (param_count(tr.slice_params[0]) - 4) // 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiSliceTrainer(net(), 2, devices=["cuda"] * 2)
+
+
+@pytest.mark.parametrize("layout", ["dp2", "dp2xtp2xpp2", "data2_model2", "dp1xsp4xep2",
+                                    "pp3"])
+def test_mesh_spec_matches_jax(layout):
+    a, b = mesh.MeshSpec.parse(layout), JMeshSpec.parse(layout)
+    assert a.describe() == b.describe() and a.total() == b.total()
+    assert a.sizes() == b.sizes()
+    assert mesh.MESH_AXES == ("pipe", "data", "seq", "expert", "model")
+    assert mesh.DATA_AXES == ("data",)
+    for bad in ("", "dp", "dp2xdp2", "zz2", "dp0"):
+        with pytest.raises(ValueError):
+            mesh.MeshSpec.parse(bad)
+
+
+def test_flat_param_vector_matches_ravel_pytree(runs):
+    for kind in ("dense", "fused"):
+        r = runs[(kind, False)]
+        net = _port_net(kind, r["conf"], r["p0"], r["s0"])
+        flat = flat_param_vector(net.params_)
+        want = np.asarray(jax.flatten_util.ravel_pytree(
+            jax.tree_util.tree_map(jnp.asarray, r["p0"]))[0])
+        assert np.array_equal(flat.numpy(), want)
+        assert param_count(net.params_) == want.size
+        back = unflatten_param_vector(flat * 2, net.params_)
+        assert all(torch.equal(b, 2 * p) for b, p in
+                   zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(net.params_)))
+        with pytest.raises(ValueError, match="template size"):
+            unflatten_param_vector(flat[1:], net.params_)
+
+
+def _thread_ranks(fns):
+    out = [None] * len(fns)
+
+    def run(i):
+        out[i] = fns[i]()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def test_in_process_transport_rounds_never_mix():
+    transport = InProcessTransport(2)
+    got = _thread_ranks([
+        lambda: [transport.exchange(0, np.array([10.0]))[0][0],
+                 transport.exchange(0, np.array([20.0]))[0][0]],
+        lambda: [transport.exchange(1, np.array([11.0]))[0][0],
+                 __import__("time").sleep(0.2), transport.exchange(1, np.array([21.0]))[0][0]]])
+    assert got[0] == [11.0, 21.0] and got[1][0] == 10.0 and got[1][2] == 20.0
+
+
+@pytest.mark.parametrize("value_coded", [False, True])
+def test_reducers_over_the_socket_ring_match_jax(value_coded):
+    """Three ranks: the port's reducers over a loopback SocketTransport ring
+    against the JAX package's over its InProcessTransport (its default, the
+    native sign codec where built): the same messages and the same sums,
+    bit for bit, on every rank; the ring's traffic split evenly."""
+    n, size, steps = 3, 384, 4
+    rng = np.random.default_rng(100)
+    grads = [[rng.normal(0, 0.05, size).astype(np.float32) for _ in range(n)]
+             for _ in range(steps)]
+    port = 23411 + 10 * int(value_coded)
+    transports = _thread_ranks([lambda r=r: SocketTransport(r, n, port=port) for r in range(n)])
+    ours = [CompressedAllReducer(r, size, transports[r], value_coded=value_coded)
+            for r in range(n)]
+    jt = jdcn.InProcessTransport(n)
+    theirs = [jdcn.CompressedAllReducer(r, size, jt, value_coded=value_coded) for r in range(n)]
+    sums = [[None] * n for _ in range(2)]
+
+    def run(reducers, sink, r):
+        msgs = []
+        for s in range(steps):
+            sums_r = reducers[r].allreduce(grads[s][r])
+            msgs.append(reducers[r].last_message)
+        sink[r] = (sums_r, msgs, reducers[r].accumulator.residual.copy())
+    _thread_ranks([lambda r=r: run(ours, sums[0], r) for r in range(n)])
+    _thread_ranks([lambda r=r: run(theirs, sums[1], r) for r in range(n)])
+    for r in range(n):
+        (a, ma, ra), (b, mb, rb) = sums[0][r], sums[1][r]
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+        assert np.array_equal(a, sums[0][0][0])
+        assert all(np.array_equal(x, y) for x, y in zip(ma, mb))
+        assert np.array_equal(ra.view(np.int32), rb.view(np.int32))
+    total = sum(t.bytes_sent for t in transports)
+    for t in transports:
+        assert 0 < t.bytes_sent < total * 2 / n and t.bytes_received > 0
+        t.close()
+    stats = ours[0].wire_stats(ours[0].last_message)
+    assert stats == theirs[0].wire_stats(theirs[0].last_message)
+    with pytest.raises(ValueError, match="gradient size"):
+        ours[0].allreduce(np.zeros(8, np.float32))
+
+
+def test_retry_policy_matches_jax():
+    for attempt in range(1, 6):
+        for site in ("dcn.exchange", "launcher.spawn"):
+            assert RetryPolicy().delay_for(attempt, site) == \
+                JRetryPolicy().delay_for(attempt, site)
+    slept, calls = [], []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise ConnectionError("flake")
+        return "ok"
+    assert with_retries(flaky, policy=RetryPolicy(max_attempts=3), site="s",
+                        sleep=slept.append) == "ok"
+    assert slept == [RetryPolicy().delay_for(1, "s"), RetryPolicy().delay_for(2, "s")]
+    with pytest.raises(InjectedCrash):
+        with_retries(lambda: (_ for _ in ()).throw(InjectedCrash("x")), sleep=slept.append)
+    with pytest.raises(ConnectionError):      # the deadline gives up before sleeping past it
+        with_retries(lambda: (_ for _ in ()).throw(ConnectionError("x")),
+                     policy=RetryPolicy(max_attempts=9, deadline_s=0.01, base_delay_s=1.0),
+                     sleep=slept.append)
+
+
+def test_parallel_inference_shim_and_the_names_not_ported(runs):
+    r = runs[("dense", False)]
+    net = _port_net("dense", r["conf"], r["p0"], r["s0"])
+    with parallel.ParallelInference(net, batch_limit=8) as pi:
+        got = pi.output(r["x"][:3])
+    np.testing.assert_allclose(got, net.output(torch.from_numpy(r["x"][:3])).numpy(), rtol=1e-6)
+    for name in ("ParallelWrapper", "MeshLayout", "ring_attention", "make_multislice_mesh"):
+        with pytest.raises(AttributeError, match="not ported yet"):
+            getattr(parallel, name)
+    with pytest.raises(ImportError, match="not ported yet"):
+        from deeplearning4j_tpu_torch.parallel import unified  # noqa: F401
+    with pytest.raises(ImportError, match="not ported yet"):
+        import deeplearning4j_tpu_torch.parallel.data_parallel  # noqa: F401

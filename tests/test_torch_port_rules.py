@@ -860,3 +860,73 @@ def test_cpu_serving_stack_run_never_touches_the_kernel_loader(monkeypatch, tmp_
     finally:
         config.set_config(tracing=False)
     assert quant_matmul.launches == before
+
+
+GRADIENT_SHARING = ("parallel/__init__.py", "parallel/mesh.py", "parallel/compression.py",
+                    "parallel/dcn.py", "parallel/dcn_trainer.py", "parallel/launcher.py",
+                    "parallel/inference.py", "resilience/retry.py", "utils/__init__.py",
+                    "utils/pytree.py")
+
+
+@pytest.mark.parametrize("module", GRADIENT_SHARING)
+def test_gradient_sharing_modules_are_scanned_and_read_no_environment(module):
+    """The gradient-sharing modules are scanned for JAX imports and for
+    ``DL4J_TPU_`` (the first tests of this file run over every file listed
+    here), and their code reads no environment: a launched child gets its
+    rank, world size, port and device in its pickled call (the child's
+    bootstrap, a string in the launcher, applies only what the caller
+    passes as ``extra_env``)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert f"deeplearning4j_tpu_torch/{module}" in names
+    path = ROOT / "deeplearning4j_tpu_torch" / module
+    text = path.read_text()
+    assert "DL4J_TPU_" not in text
+    for node in ast.walk(ast.parse(text, filename=str(path))):
+        reads_env = (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
+                     or isinstance(node, ast.Name) and node.id in ("environ", "getenv"))
+        assert not reads_env, (module, node.lineno)
+
+
+def test_gradient_sharing_defaults_to_the_card_and_raises_without_one(no_card):
+    from deeplearning4j_tpu_torch.parallel import MultiSliceTrainer, spawn_local_cluster
+    net = mlp_mnist(hidden=8, hidden2=4, device="cpu").init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiSliceTrainer(net, 2, devices=["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn_local_cluster(print, n_processes=2, device="cuda")
+    # a CPU net's slices default to its device (one); two must be asked for
+    with pytest.raises(ValueError, match="need 2 devices"):
+        MultiSliceTrainer(net, 2)
+    tr = MultiSliceTrainer(net, 2, devices=["cpu", "cpu"])
+    assert tr.devices == [torch.device("cpu")] * 2
+    tr.close()
+
+
+def test_cpu_gradient_sharing_never_touches_the_kernel_loader(monkeypatch):
+    """Two slices of a fused graph on the CPU, device codec and host codec:
+    the plain versions, no build, no launch."""
+    from deeplearning4j_tpu_torch.parallel import MultiSliceTrainer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel loader reached on a CPU run")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import FusedBottleneck, GlobalPoolingLayer, OutputLayer
+    before = (conv_bn.launches, conv_bn.bwd_launches)
+    gb = (NeuralNetConfiguration.builder().seed(3).graph().add_inputs("in")
+          .set_input_types(InputType.convolutional(8, 8, 8)))
+    gb.add_layer("b", FusedBottleneck(filters=(4, 4, 8)), "in")
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), "b")
+    gb.add_layer("out", OutputLayer(n_out=3, activation="softmax", loss="mcxent"), "pool")
+    gb.set_outputs("out")
+    net = ComputationGraph(gb.build(), device="cpu").init()
+    rng = np.random.default_rng(0)
+    batch = DataSet(rng.normal(size=(4, 8, 8, 8)).astype(np.float32),
+                    np.eye(3, dtype=np.float32)[rng.integers(0, 3, 4)])
+    for device_encode in (True, False):
+        tr = MultiSliceTrainer(net, 2, devices=["cpu"] * 2, device_encode=device_encode)
+        assert np.isfinite(tr.fit_batch(batch)) and tr.max_param_divergence() == 0.0
+        tr.close()
+    assert (conv_bn.launches, conv_bn.bwd_launches) == before
