@@ -24,6 +24,11 @@ for the device, one at a time for the launch calls:
   (``serve.engine``) captured;
 - ``train_step``: ResNet-50 ``Trainer.fit_batch`` (forward, backward,
   update) at ``chip_smoke.TRAIN_LR``, f32;
+- ``resnet50_stats_step``: the same ``fit_batch`` sampled by a
+  ``StatsListener`` (``chip_smoke`` phase 27): the statistics step
+  (``make_train_step(with_stats=True)``: per-layer statistics and 20-bin
+  histograms of the params, gradients and updates), the copy of its
+  packed statistics to the host and ``stats_ready``;
 - ``resnet50_finetune_frozen``: ``Trainer.fit_batch`` of
   ``chip_smoke.finetune_net`` (stem and res2-res4 frozen, the head on an
   AdamW of its own, both rates scheduled; 5 classes), f32;
@@ -254,6 +259,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.models import (BertForMaskedLM, lenet, lstm_classifier,
                                                  mlp_mnist, vgg16)
     from deeplearning4j_tpu_torch.nn.quantize import quantize_net
+    from deeplearning4j_tpu_torch.obs.stats import InMemoryStatsStorage, StatsListener
     from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm, MultiSliceTrainer
     from deeplearning4j_tpu_torch.serve.engine import _build_forward
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Sgd, Trainer, capture
@@ -268,6 +274,7 @@ def main() -> int:
     labels = torch.eye(1000, device="cuda")[torch.randint(0, 1000, (chip_smoke.BATCH,),
                                                           device="cuda", generator=gen)]
     trainer, batch = Trainer(net), DataSet(x, labels)
+    stats_trainer = Trainer(net, listeners=[StatsListener(InMemoryStatsStorage(), frequency=1)])
     ft_trainer = Trainer(chip_smoke.finetune_net(net))     # its own step: frozen layers
     ft_batch = DataSet(x, torch.eye(chip_smoke.FT_CLASSES, device="cuda")[torch.randint(
         0, chip_smoke.FT_CLASSES, (chip_smoke.BATCH,), device="cuda", generator=gen)])
@@ -351,6 +358,8 @@ def main() -> int:
                     "images", f32),
         "train_step": (lambda: trainer.fit_batch(batch),) * 2 + (chip_smoke.BATCH, "images",
                                                                  f32),
+        "resnet50_stats_step": (lambda: stats_trainer.fit_batch(batch),) * 2
+        + (chip_smoke.BATCH, "images", f32),
         "resnet50_finetune_frozen": (lambda: ft_trainer.fit_batch(ft_batch),) * 2
         + (chip_smoke.BATCH, "images", f32),
         "bert_finetune_step": (lambda: bert.fit([bert_batch], updater=adam),) * 2

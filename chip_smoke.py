@@ -332,7 +332,31 @@ no result line:
    2-slice step synchronous and overlapped with its overhead over twice
    the plain step, the codec's encode and decode-and-sum (CUDA events),
    the exchange (wall), and the dense, wire and D2H bytes per slice step;
-27. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+27. the training telemetry (``obs/stats.py``, ``obs/profiler.py``,
+   ``obs/metrics.py``, the trainer's series, spans and fault sites) on
+   full-width fused ResNet-50 f32 at batch 32, ``Nesterovs(TRAIN_LR,
+   0.9)``: (b, c) ``ComputationGraph.fit``, 2 epochs of 6 seeded batches,
+   traced, with ``StatsListener`` and ``HealthMonitor`` sampling every 4th
+   step and a ``MetricsWriter``: the registry's counts equal to the steps,
+   examples, epochs and call signatures run (2: the plain and the
+   statistics step), 36 + 36 ``matmul_bn_act`` launches on each launching
+   call (each step's two eager calls and its capture), the spans, records
+   and flight events; the captured statistics step's time against the
+   plain step's, and ``stats_ready``'s host side; (a) the captured step
+   alone, under ``step_batch`` with the registry, and traced, in rounds;
+   the seq-128 headline's captured step alone and its ``fit`` traced and
+   not; under deterministic algorithms, 4 steps of the statistics step
+   captured against eager (the same bits, trees and statistics), the plain
+   step's trees equal to the statistics step's, and the params statistics
+   against ``device_layer_stats`` of the same params on the CPU; the first
+   statistics step through the kernels against both plain versions (phase
+   6's limits); (c) ``trainer.step@3:nan`` caught by a ``HealthMonitor``
+   as ``non_finite_loss`` at iteration 3, ``nan_panic`` raising on a
+   planted NaN param, a checkpoint truncated by ``checkpoint.write@1:
+   truncate:300`` counted corrupt and skipped; (d) a 4-step ``fit`` under
+   ``config.profiling`` from a cleared step cache: the trace's size and
+   its events of rows 1-2's kernels;
+28. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -4600,7 +4624,8 @@ def char_rnn(card: str) -> dict:
         net.fit(ListDataSetIterator([batches[i]]))
         losses.append(net.score())
         ms.append((time.perf_counter() - t0) * 1e3)
-        (step,) = step_cache.cached_steps()
+        # the trainer's tBPTT step (its plain step is built too, and never called)
+        (step,) = [s for s in step_cache.cached_steps() if s.n_trees == 4]
         segments.append(step.calls - sum(segments))
     graphs = step_cache.captured_graphs(step)
     with capture.eager():
@@ -6598,6 +6623,595 @@ def gradient_sharing(card: str) -> dict:
     return out
 
 
+# ------------------------------ phase 27: training telemetry (obs/stats.py, obs/profiler.py)
+TT_SEED = SEED + 100
+TT_BATCHES, TT_EPOCHS = 6, 2           # the phase's fit: 12 steps of batch 32
+TT_FREQUENCY = 4                       # StatsListener and HealthMonitor sample every 4th step
+TT_TIMED = 15                          # timed captured steps per telemetry mode and round
+TT_CHECK_STEPS = 4                     # two eager calls, the capture, a replay
+TT_HEADLINE_FIT = 10                   # seq-128 headline steps per fit
+# the statistics on the card against device_layer_stats of the same tensors
+# on the CPU: min, max and the histogram's bounds exactly; the other
+# scalars within this of the larger of their value and the layer's mean
+# magnitude (reductions in other orders over up to 2.4 M entries); the
+# counts exactly but for entries within one f32 ulp of a bin edge
+TT_STATS_RTOL = 1e-5
+# the first statistics step through the kernels against the plain versions:
+# the loss as phase 6 holds it (TRAIN_LOSS0_TOL), each layer's gradient and
+# update norm to phase 6's update limit (TRAIN_UPDATE_TOL)
+TT_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per launching step
+
+
+def tt_batches(n: int = TT_BATCHES) -> list:
+    """Seeded host batches of 32 images (224x224x3) and 1000-class labels."""
+    import numpy as np
+    rng = np.random.default_rng(TT_SEED)
+    return [(rng.normal(size=(BATCH, 224, 224, 3)).astype(np.float32),
+             np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)]) for _ in range(n)]
+
+
+def tt_reset(net, start) -> None:
+    """``net`` back to ``start`` (its params and layer state, cloned into new
+    tensors) with no updater state and its counters at 0."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    net.params_, net.state_ = (tree_map(lambda t: t.clone(), tree) for tree in start)
+    net.opt_state = None
+    net.iteration = net.epoch = 0
+
+
+def tt_registry():
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    return set_registry(MetricsRegistry())
+
+
+def tt_series(reg) -> dict:
+    names = ("tpudl_train_steps_total", "tpudl_train_examples_total", "tpudl_train_epochs_total",
+             "tpudl_train_recompiles_total", "tpudl_train_step_cache_hits_total",
+             "tpudl_train_step_cache_misses_total")
+    out = {n: reg.counter(n).value for n in names}
+    for n in ("tpudl_train_step_seconds", "tpudl_train_epoch_seconds",
+              "tpudl_data_etl_wait_seconds"):
+        h = reg.histogram(n)
+        out[n] = {"count": h.count, "sum": h.sum}
+    out["tpudl_train_compile_seconds"] = reg.gauge("tpudl_train_compile_seconds").value
+    return out
+
+
+def tt_layer_errs(got: dict, want: dict, vec) -> dict:
+    """One layer's statistics from the card (``got``) against the CPU's
+    (``want``) over the same entries ``vec`` (a CPU tensor): TT_STATS_RTOL's
+    rules; returns the worst scalar error and the counts moved."""
+    import torch
+    from deeplearning4j_tpu_torch.obs.stats import NUM_BINS
+    scale = max(abs(want["mean_magnitude"]), 1e-30)
+    worst, worst_stat, exact_off = 0.0, None, []
+    for k, w in want.items():
+        if k == "hist_counts":
+            continue
+        if k in ("min", "max", "hist_min", "hist_max"):
+            if got[k] != w:
+                exact_off.append(k)
+        elif abs(got[k] - w) / max(abs(w), scale) > worst:
+            worst, worst_stat = abs(got[k] - w) / max(abs(w), scale), k
+    moved = sum(abs(a - b) for a, b in zip(got["hist_counts"], want["hist_counts"]))
+    near = 0
+    if moved:
+        lo, top = torch.tensor(want["hist_min"]), torch.tensor(want["hist_max"])
+        frac = torch.arange(NUM_BINS + 1, dtype=torch.float32) / NUM_BINS
+        edges = lo * (1 - frac) + top * frac
+        ulp = torch.nextafter(edges.abs(), torch.tensor(float("inf"))) - edges.abs()
+        near = int(sum(((vec - e).abs() <= u).sum() for e, u in zip(edges, ulp)))
+    return {"scalar_err": worst, "worst_stat": worst_stat, "exact_off": exact_off,
+            "counts_moved": moved, "near_edges": near}
+
+
+def tt_stats_vs_cpu(stats_params: dict, params) -> dict:
+    """The statistics step's ``params`` group against ``device_layer_stats``
+    of the same params copied to the CPU."""
+    import torch
+    from deeplearning4j_tpu_torch.obs import stats
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    host = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    want = stats._host(stats.device_layer_stats(host))
+    if set(want) != set(stats_params):
+        raise AssertionError(f"statistics layers {sorted(stats_params)} vs {sorted(want)}")
+    errs = {}
+    for key, st in want.items():
+        vec = stats._leaf_concat(host[key])
+        errs[key] = tt_layer_errs(stats_params[key], st, vec)
+    bad = {k: e for k, e in errs.items()
+           if e["scalar_err"] > TT_STATS_RTOL or e["exact_off"]
+           or e["counts_moved"] > 2 * e["near_edges"]}
+    out = {"layers": len(errs), "scalar_err_max": max(e["scalar_err"] for e in errs.values()),
+           "counts_moved": sum(e["counts_moved"] for e in errs.values()),
+           "near_edges": sum(e["near_edges"] for e in errs.values())}
+    if bad:
+        raise AssertionError(f"statistics on the card vs the CPU: {dict(list(bad.items())[:5])}")
+    return out
+
+
+def tt_deterministic(net, start, host) -> dict:
+    """Under deterministic algorithms, from one start, TT_CHECK_STEPS steps
+    three times: the statistics step eager (``capture.eager()``), the
+    statistics step captured, the plain step captured (every step sampled by
+    a StatsListener, or none).  The captured statistics step must give the
+    eager one's bits (trees and every step's statistics), and the plain
+    step the statistics step's trees; the last step's params statistics are
+    held to the CPU's."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Trainer, capture, step_cache
+
+    class Packed:
+        wants_model_stats = True
+
+        def __init__(self):
+            self.samples = []
+
+        def wants_stats_now(self, iteration):
+            return True
+
+        def stats_ready(self, model, iteration, epoch, score, st):
+            self.samples.append(st)
+
+    dev = [DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+           for x, y in host[:TT_CHECK_STEPS]]
+    runs = {}
+    with deterministic_algorithms():
+        for name, sampled, captured in (("stats_eager", True, False),
+                                        ("stats_captured", True, True),
+                                        ("plain_captured", False, True)):
+            release()
+            tt_reset(net, start)
+            listener = Packed()
+            trainer = Trainer(net, listeners=[listener] if sampled else [])
+            gen = torch.Generator(device="cuda").manual_seed(TT_SEED)
+            with (contextlib.nullcontext() if captured else capture.eager()):
+                losses = [trainer.fit_batch(b, gen) for b in dev]
+            runs[name] = {"trees": host_copy(net.params_, net.state_, net.opt_state),
+                          "losses": [float(v) for v in losses], "samples": listener.samples,
+                          "graphs": step_cache.captured_graphs(*step_cache.cached_steps())}
+            if name == "stats_captured":
+                cpu_check = tt_stats_vs_cpu(listener.samples[-1]["params"], net.params_)
+    differ = bits_differ(runs["stats_captured"]["trees"], runs["stats_eager"]["trees"])
+    plain_differ = bits_differ(runs["plain_captured"]["trees"], runs["stats_captured"]["trees"])
+    stats_same = runs["stats_captured"]["samples"] == runs["stats_eager"]["samples"]
+    if differ or plain_differ or not stats_same \
+            or runs["stats_captured"]["losses"] != runs["plain_captured"]["losses"] \
+            or runs["stats_captured"]["graphs"] != 1 or runs["plain_captured"]["graphs"] != 1:
+        raise AssertionError(
+            f"deterministic runs: captured vs eager statistics step {differ} tensors differ, "
+            f"statistics equal {stats_same}; plain vs statistics step {plain_differ} differ, "
+            f"losses {runs['stats_captured']['losses']} vs {runs['plain_captured']['losses']}; "
+            f"graphs {runs['stats_captured']['graphs']}, {runs['plain_captured']['graphs']}")
+    return {"steps": TT_CHECK_STEPS, "tensors": len(runs["stats_eager"]["trees"]),
+            "captured_vs_eager_differ": differ, "statistics_equal": stats_same,
+            "plain_vs_stats_differ": plain_differ,
+            "losses": runs["stats_captured"]["losses"], "vs_cpu": cpu_check}
+
+
+def tt_vs_plain(net, start, host) -> dict:
+    """The first statistics step, eager, through the kernels and through both
+    plain versions from one start: launches, the loss, and every layer's
+    gradient and update norms."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.obs import stats
+    from deeplearning4j_tpu_torch.train import Trainer, capture
+    x, y = host[0]
+    batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    runs = {}
+    for name in ("kernel", "plain"):
+        release()
+        tt_reset(net, start)
+        storage = stats.InMemoryStatsStorage()
+        trainer = Trainer(net, listeners=[stats.StatsListener(storage, frequency=1)])
+        saved = fused_mod.matmul_bn_act
+        if name == "plain":
+            fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+        try:
+            kernel_counts(zero=True)
+            with capture.eager():
+                loss = trainer.fit_batch(batch, torch.Generator(device="cuda").manual_seed(1))
+            counts = launched(kernel_counts(zero=True))
+        finally:
+            fused_mod.matmul_bn_act = saved
+        sample = [r for r in storage.all() if r["type"] == "stats"][0]
+        runs[name] = {"loss": float(loss), "launches": counts, "sample": sample}
+    k, p = runs["kernel"], runs["plain"]
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    norm_errs = {f"{g}.{layer}": abs(st["norm"] - p["sample"][g][layer]["norm"])
+                 / max(abs(p["sample"][g][layer]["norm"]), 1e-30)
+                 for g in ("gradients", "updates") for layer, st in k["sample"][g].items()}
+    worst = max(norm_errs.items(), key=lambda kv: kv[1])
+    if k["launches"] != TT_LAUNCHES or p["launches"] or loss_err > TRAIN_LOSS0_TOL \
+            or worst[1] > TRAIN_UPDATE_TOL:
+        raise AssertionError(f"the statistics step through the kernels vs the plain versions: "
+                             f"launches {k['launches']} and {p['launches']}, loss rel err "
+                             f"{loss_err:.2e}, worst norm rel err {worst}")
+    return {"launches": k["launches"], "loss_rel_err": loss_err, "norm_rel_err_max": worst[1],
+            "norm_rel_err_worst": worst[0],
+            "norm_rel_err_median": sorted(norm_errs.values())[len(norm_errs) // 2]}
+
+
+def tt_telemetry_cost(net, host) -> dict:
+    """The captured plain step three ways, in rounds off, registry, tracing,
+    tracing, registry, off (TT_TIMED steps each, synchronized at the end):
+    ``fit_batch`` alone (off), ``step_batch`` with tracing off (the registry
+    series, the flight recorder, the fault sites) and ``step_batch`` under an
+    enabled tracer (a span a step, waiting for the card)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.obs import tracing
+    from deeplearning4j_tpu_torch.train import Trainer
+    x, y = host[0]
+    batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    trainer = Trainer(net)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for _ in range(3):                       # the captured step, warm
+        trainer.fit_batch(batch, gen)
+    times: dict = {"off": [], "registry": [], "tracing": []}
+    for mode in ("off", "registry", "tracing", "tracing", "registry", "off"):
+        tracer = tracing.Tracer(enabled=mode == "tracing")
+        run = trainer.fit_batch if mode == "off" else trainer.step_batch
+        with tracing.use_tracer(tracer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TT_TIMED):
+                run(batch, gen)
+            torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) / TT_TIMED * 1e3)
+        if mode == "tracing" and len(tracer.find("step")) != TT_TIMED:
+            raise AssertionError(f"tracing recorded {len(tracer.find('step'))} step spans")
+    out = {m: float(np.mean(v)) for m, v in times.items()}
+    out["rounds"] = times
+    out["registry_over_off"] = out["registry"] / out["off"] - 1
+    out["tracing_over_off"] = out["tracing"] / out["off"] - 1
+    return out
+
+
+def tt_headline(card) -> dict:
+    """The seq-128 headline (phase 20's configuration) captured: its step
+    alone, each loss read (as ``fit`` reads it), then ``fit`` over
+    TT_HEADLINE_FIT batches with tracing off and on, in rounds off, on, on,
+    off (a fit's first step left out)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import BertForMaskedLM
+    from deeplearning4j_tpu_torch.obs import tracing
+    from deeplearning4j_tpu_torch.train import Adam
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        cfg = headline_config()
+        model = BertForMaskedLM(cfg, seed=0, device="cuda")
+        batch = headline_batch(cfg.vocab_size)
+        updater = Adam(HEADLINE_LR, mu_dtype="bf16")
+        model.fit([batch] * 3, updater=updater)          # two eager steps and the capture
+        args = [torch.as_tensor(batch[k], device="cuda").to(dt) for k, dt in
+                (("input_ids", torch.long), ("labels", torch.long),
+                 ("label_weights", torch.float32), ("attention_mask", torch.float32))]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TT_HEADLINE_FIT):
+            model.params, model.opt_state, loss = model._step(model.params, model.opt_state,
+                                                              *args, gen)
+            loss.item()
+        alone = (time.perf_counter() - t0) / TT_HEADLINE_FIT * 1e3
+        times: dict = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            watch = StepWatch()
+            with tracing.use_tracer(tracing.Tracer(enabled=mode == "on")) as tracer:
+                model.fit([batch] * TT_HEADLINE_FIT, updater=updater, listeners=[watch])
+            if mode == "on" and len(tracer.find("feed")) != TT_HEADLINE_FIT:
+                raise AssertionError(f"the headline's fit recorded {len(tracer.find('feed'))} "
+                                     f"feed spans")
+            times[mode].append(float(np.mean(watch.seconds[1:])) * 1e3)
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    out = {"step_alone_ms": alone, "fit_off_ms": float(np.mean(times["off"])),
+           "fit_on_ms": float(np.mean(times["on"])), "rounds": times}
+    out["on_over_off"] = out["fit_on_ms"] / out["fit_off_ms"] - 1
+    log(f"  the seq-128 headline on {card}, captured: the step alone, each loss read, "
+        f"{alone:.3f} ms; fit with tracing off {out['fit_off_ms']:.3f} ms a step, on "
+        f"{out['fit_on_ms']:.3f} ({out['on_over_off']:+.2%}); rounds {times}")
+    return out
+
+
+def tt_faults(net, start, host, tmp: Path) -> dict:
+    """(c)'s planted faults: ``trainer.step@k:nan`` caught by a HealthMonitor
+    as non_finite_loss at iteration k; ``nan_panic`` raising NonFiniteError
+    on a planted NaN param; a checkpoint truncated by
+    ``checkpoint.write@1:truncate:300`` counted corrupt and skipped."""
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.health import HealthMonitor
+    from deeplearning4j_tpu_torch.obs.profiler import NonFiniteError
+    from deeplearning4j_tpu_torch.obs.registry import get_registry, set_registry
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.train import Trainer
+    x, y = host[0]
+    batch = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    out = {}
+    prev = tt_registry()
+    try:
+        release()
+        tt_reset(net, start)
+        at = 3
+        monitor = HealthMonitor(frequency=TT_FREQUENCY)
+        trainer = Trainer(net, listeners=[monitor])
+        with faults.inject(f"trainer.step@{at}:nan"):
+            losses = [float(trainer.step_batch(batch)) for _ in range(at + 2)]
+        kinds = [(a["iteration"], a["kind"]) for a in monitor.anomalies]
+        out["nan"] = {"at": at, "losses": losses, "anomalies": kinds}
+        non_finite = [(it, kind) for it, kind in kinds if kind.startswith("non_finite")]
+        if non_finite[:1] != [(at, "non_finite_loss")] or not torch.isnan(torch.tensor(losses[at])):
+            raise AssertionError(f"trainer.step@{at}:nan: losses {losses}, anomalies {kinds}")
+        # nan_panic: a NaN planted in the output layer's weights
+        key = [k for k in net.params_ if "W" in net.params_[k]][-1]
+        net.params_[key]["W"].view(-1)[0] = float("nan")
+        config.set_config(nan_panic=True)
+        try:
+            trainer.step_batch(batch)
+            raise AssertionError("nan_panic let a NaN param through")
+        except NonFiniteError as e:
+            out["nan_panic"] = str(e)
+        finally:
+            config.set_config(nan_panic=False)
+        if not out["nan_panic"].startswith("NaN detected in params after step at"):
+            raise AssertionError(f"nan_panic raised {out['nan_panic']!r}")
+        # a truncated checkpoint, counted corrupt and skipped
+        release()
+        tt_reset(net, start)
+        ckpt = CheckpointListener(str(tmp / "ckpt"), save_every_n_iterations=1, keep_last=3)
+        trainer = Trainer(net, listeners=[ckpt])
+        t0 = time.perf_counter()
+        with faults.inject("checkpoint.write@1:truncate:300"):
+            for _ in range(3):
+                trainer.step_batch(batch)
+        write_s = time.perf_counter() - t0
+        reg = get_registry()
+        newest = sorted((tmp / "ckpt").glob("checkpoint_iter*.zip"))
+        found = CheckpointListener.last_checkpoint_in(str(tmp / "ckpt"))
+        out["checkpoint"] = {
+            "zips": [p.name for p in newest], "newest_intact": Path(found).name,
+            "writes": reg.counter("tpudl_resilience_checkpoint_writes_total").value,
+            "write_seconds": reg.histogram("tpudl_resilience_checkpoint_write_seconds").sum,
+            "corrupt": reg.counter("tpudl_resilience_corrupt_checkpoints_total").value,
+            "bytes": Path(found).stat().st_size, "three_steps_s": write_s}
+        c = out["checkpoint"]
+        if c["writes"] != 2 or c["corrupt"] != 1 or c["newest_intact"] != "checkpoint_iter1_epoch0.zip":
+            raise AssertionError(f"the truncated checkpoint: {c}")
+    finally:
+        set_registry(prev)
+    return out
+
+
+def tt_profiled_fit(net, start, host, tmp: Path) -> dict:
+    """(d): one fit of TT_CHECK_STEPS batches under ``config.profiling``
+    from a cleared step cache (two eager steps, the capture, a replay): the
+    trace's size, its kernel events, and the events of rows 1-2's kernels
+    (``chip_profile.category``) in the eager steps and in all."""
+    import torch
+    import chip_profile
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.data import DataSet
+    release()
+    tt_reset(net, start)
+    trace_dir = tmp / "profile"
+    config.set_config(profiling=True, trace_dir=str(trace_dir))
+    try:
+        kernel_counts(zero=True)
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator([DataSet(x, y) for x, y in host[:TT_CHECK_STEPS]]))
+        fit_s = time.perf_counter() - t0
+        counts = launched(kernel_counts(zero=True))
+    finally:
+        config.set_config(profiling=False, trace_dir="traces")
+    files = sorted(trace_dir.glob("*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profiling wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    rows = {"matmul_bn_act": 0, "matmul_bn_act_bwd": 0}
+    for e in kernels:
+        cat = chip_profile.category(e.get("name", ""))
+        if cat in rows:
+            rows[cat] += 1
+    graph_launches = sum(1 for e in events if GRAPH_LAUNCH_API in e.get("name", ""))
+    out = {"trace_bytes": files[0].stat().st_size, "events": len(events),
+           "kernel_events": len(kernels), "row_kernel_events": rows,
+           "graph_launch_events": graph_launches, "launches": counts, "fit_s": fit_s,
+           "steps": TT_CHECK_STEPS}
+    # two eager steps and the capture launch the kernels; the replay's
+    # kernels show only if the profiler sees inside a graph
+    if counts != {k: 3 * v for k, v in TT_LAUNCHES.items()} or not all(rows.values()):
+        raise AssertionError(f"the profiled fit: {out}")
+    return out
+
+
+def training_telemetry(card: str) -> dict:
+    """Phase 27: the training telemetry on full-width ResNet-50 f32 b32
+    (module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.obs import flight_recorder, stats, tracing
+    from deeplearning4j_tpu_torch.obs.health import HealthMonitor
+    from deeplearning4j_tpu_torch.obs.metrics import MetricsWriter
+    from deeplearning4j_tpu_torch.obs.metrics import StatsListener as MetricsListener
+    from deeplearning4j_tpu_torch.obs.registry import get_registry, set_registry
+    from deeplearning4j_tpu_torch.train import Nesterovs, step_cache
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_telemetry_"))
+    host = tt_batches()
+    net = build_net(Nesterovs(TRAIN_LR, 0.9))
+    start = [tree_map(lambda t: t.clone(), tree) for tree in (net.params_, net.state_)]
+    out: dict = {"card": card, "batch": BATCH, "steps": TT_BATCHES * TT_EPOCHS,
+                 "frequency": TT_FREQUENCY}
+    try:
+        # (b, c) the main path: ComputationGraph.fit with the three listeners
+        release()
+        prev = tt_registry()
+        flight_recorder.get_recorder().clear()
+        storage = stats.InMemoryStatsStorage()
+        monitor = HealthMonitor(frequency=TT_FREQUENCY)
+        writer = MetricsWriter(str(tmp / "metrics.jsonl"))
+        tracer = tracing.Tracer(enabled=True)
+        try:
+            kernel_counts(zero=True)
+            t0 = time.perf_counter()
+            with tracing.use_tracer(tracer), writer:
+                net.fit(ListDataSetIterator([DataSet(x, y) for x, y in host]), epochs=TT_EPOCHS,
+                        listeners=[stats.StatsListener(storage, frequency=TT_FREQUENCY), monitor,
+                                   MetricsListener(writer)])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = launched(kernel_counts(zero=True))
+            series = tt_series(get_registry())
+            steps_held = step_cache.cached_steps()
+        finally:
+            set_registry(prev)
+        steps = TT_BATCHES * TT_EPOCHS
+        sampled = [i for i in range(steps) if i % TT_FREQUENCY == 0]
+        # launching calls: each step's two eager calls and its capture
+        want_launches = {k: v * (min(len(sampled), 3) + min(steps - len(sampled), 3))
+                         for k, v in TT_LAUNCHES.items()}
+        records = storage.all()
+        spans = {n: len(tracer.find(n)) for n in ("fit", "epoch", "step", "feed")}
+        step_events = [e for e in flight_recorder.get_recorder().events() if e["kind"] == "step"]
+        out["fit"] = {"seconds": fit_s, "launches": counts, "series": series, "spans": spans,
+                      "stats_records": [r["type"] for r in records],
+                      "anomalies": [(a["iteration"], a["kind"]) for a in monitor.anomalies],
+                      "metrics_records": sum(1 for _ in open(tmp / "metrics.jsonl")),
+                      "compile_flags": [e["compile"] for e in step_events],
+                      "graphs": step_cache.captured_graphs(*steps_held),
+                      "switches": sum(step.switches for step in steps_held),
+                      "hbm_bytes_in_use": tracer.find("step")[-1].attributes.get(
+                          "hbm_bytes_in_use")}
+        want_series = {"tpudl_train_steps_total": steps,
+                       "tpudl_train_examples_total": steps * BATCH,
+                       "tpudl_train_epochs_total": TT_EPOCHS,
+                       "tpudl_train_recompiles_total": 2,            # the plain and the stats step
+                       "tpudl_train_step_cache_hits_total": 0,
+                       "tpudl_train_step_cache_misses_total": 2}
+        timed_steps = steps - 2 - 2     # less the first-seen calls and the captures
+        f = out["fit"]
+        problems = [k for k, v in want_series.items() if series[k] != v]
+        if series["tpudl_train_step_seconds"]["count"] != timed_steps \
+                or series["tpudl_data_etl_wait_seconds"]["count"] != steps \
+                or series["tpudl_train_epoch_seconds"]["count"] != TT_EPOCHS \
+                or not series["tpudl_train_compile_seconds"] > 0:
+            problems.append("histograms")
+        if counts != want_launches:
+            problems.append(f"launches {counts} (want {want_launches})")
+        if spans != {"fit": 1, "epoch": TT_EPOCHS, "step": steps, "feed": steps}:
+            problems.append(f"spans {spans}")
+        if f["stats_records"] != ["init"] + ["stats" if i in sampled else "score"
+                                             for i in range(steps)]:
+            problems.append(f"stats records {f['stats_records']}")
+        if f["metrics_records"] != steps + TT_EPOCHS or not f["hbm_bytes_in_use"]:
+            problems.append("metrics records or hbm attribute")
+        if f["compile_flags"] != [True, True] + [False] * (steps - 2):
+            problems.append(f"compile flags {f['compile_flags']}")
+        # the two steps share the net's trees as their graphs' buffers: no
+        # copy of the trees when the step switches
+        if f["graphs"] != 2 or f["switches"]:
+            problems.append(f"graphs {f['graphs']}, tree switches {f['switches']}")
+        if problems:
+            raise AssertionError(f"phase 27's fit: {problems}; {f}")
+        # (b) the sampled step against the plain step, both captured
+        from deeplearning4j_tpu_torch.train import Trainer
+        trainer = Trainer(net)
+        trainer._ensure_ready()
+        stats_trainer = Trainer(net, listeners=[stats.StatsListener(
+            stats.InMemoryStatsStorage(), frequency=1)])
+        batch = DataSet(torch.from_numpy(host[0][0]).cuda(), torch.from_numpy(host[0][1]).cuda())
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for _ in range(2):
+            stats_trainer.fit_batch(batch, gen)
+            trainer.fit_batch(batch, gen)
+        step_args = lambda: (net.params_, net.state_, net.opt_state, batch.features,  # noqa: E731
+                             batch.labels, None, None, gen)
+        times = {"plain": [], "stats": [], "sampled_fit_batch": []}
+        for mode in ("plain", "stats", "sampled_fit_batch") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TT_TIMED):
+                if mode == "plain":
+                    trainer._step(*step_args())
+                elif mode == "stats":
+                    stats_trainer._stats_step(*step_args())
+                else:
+                    stats_trainer.fit_batch(batch, gen)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) / TT_TIMED * 1e3)
+        out["sampled"] = {m: float(np.median(v)) for m, v in times.items()} | {"rounds": times}
+        out["sampled"]["stats_over_plain_ms"] = out["sampled"]["stats"] - out["sampled"]["plain"]
+        # stats_ready's host side on a finished sample: the one copy, the
+        # unpack and the two listeners
+        packed = stats_trainer._stats_step(*step_args())[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample = stats.unpack_stats(packed, stats.stats_keys(net.params_))
+        stats.StatsListener(stats.InMemoryStatsStorage()).stats_ready(net, 0, 0, 1.0, sample)
+        HealthMonitor().stats_ready(net, 0, 0, 1.0, sample)
+        out["stats_ready_host_ms"] = (time.perf_counter() - t0) * 1e3
+        out["stats_bytes"] = packed.numel() * packed.element_size()
+        # (a) the telemetry's cost on the captured step, and on the headline's
+        out["cost"] = tt_telemetry_cost(net, host)
+        release()
+        out["headline"] = tt_headline(card)
+        release()
+        # (b) bits, the CPU's statistics, the kernels against the plain versions
+        out["deterministic"] = tt_deterministic(net, start, host)
+        out["vs_plain"] = tt_vs_plain(net, start, host)
+        # (c) planted faults, (d) the profiled fit
+        out["faults"] = tt_faults(net, start, host, tmp)
+        out["profile"] = tt_profiled_fit(net, start, host, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        release()
+    s, c, d, p = out["sampled"], out["cost"], out["deterministic"], out["profile"]
+    log(f"training telemetry on {card}: full-width ResNet-50 f32 batch {BATCH}, "
+        f"ComputationGraph.fit {TT_EPOCHS} x {TT_BATCHES} steps with StatsListener, "
+        f"HealthMonitor (every {TT_FREQUENCY}th) and MetricsWriter, traced: "
+        f"{out['fit']['seconds']:.2f} s; series {out['fit']['series']}; launches "
+        f"{out['fit']['launches']}; graphs {out['fit']['graphs']}, tree switches "
+        f"{out['fit']['switches']}; anomalies {out['fit']['anomalies']}")
+    log(f"  captured step ms (mean of {TT_TIMED} x 2 rounds): fit_batch alone {c['off']:.3f}, "
+        f"step_batch with the registry {c['registry']:.3f} ({c['registry_over_off']:+.2%}), "
+        f"with tracing {c['tracing']:.3f} ({c['tracing_over_off']:+.2%}); the statistics step "
+        f"{s['stats']:.3f} against the plain step {s['plain']:.3f} (medians of 3 rounds) "
+        f"({s['stats_over_plain_ms']:+.3f} ms), a sampled fit_batch (the copy and "
+        f"stats_ready) {s['sampled_fit_batch']:.3f}; stats_ready's host side "
+        f"{out['stats_ready_host_ms']:.3f} ms for {out['stats_bytes']} bytes")
+    log(f"  deterministic, {d['steps']} steps: captured vs eager statistics step "
+        f"{d['captured_vs_eager_differ']} of {d['tensors']} tensors differ, statistics equal "
+        f"{d['statistics_equal']}; plain vs statistics step {d['plain_vs_stats_differ']} "
+        f"differ; params statistics vs the CPU over {d['vs_cpu']['layers']} layers: scalars "
+        f"within {d['vs_cpu']['scalar_err_max']:.2e}, counts moved "
+        f"{d['vs_cpu']['counts_moved']} ({d['vs_cpu']['near_edges']} entries near an edge); "
+        f"kernels vs plain on the first statistics step: launches {out['vs_plain']['launches']}, "
+        f"loss {out['vs_plain']['loss_rel_err']:.2e}, norms {out['vs_plain']['norm_rel_err_max']:.2e}"
+        f" ({out['vs_plain']['norm_rel_err_worst']})")
+    log(f"  faults: {out['faults']['nan']['anomalies']} for trainer.step@"
+        f"{out['faults']['nan']['at']}:nan; nan_panic {out['faults']['nan_panic']!r}; "
+        f"checkpoint {out['faults']['checkpoint']}; profiled fit ({p['steps']} steps, "
+        f"{p['fit_s']:.2f} s): trace {p['trace_bytes']} bytes, {p['kernel_events']} kernel "
+        f"events, rows 1-2 {p['row_kernel_events']}, graph launches {p['graph_launch_events']}")
+    out["launches"] = out["fit"]["launches"]
+    return out
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -6779,6 +7393,9 @@ def main() -> int:
     release()
     sharing = gradient_sharing(card)
     clock("phase 26")
+    release()
+    telemetry = training_telemetry(card)
+    clock("phase 27")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6813,6 +7430,7 @@ def main() -> int:
         | {"serve_launches": serving["launches"], "sass": hopper["matmul_bn_act"],
            "serving_stack_launches": stack_run["router"]["launches"],
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act"],
+           "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -6827,6 +7445,7 @@ def main() -> int:
               work.format("backward"))
         | {"sass": hopper["matmul_bn_act_bwd"],
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act_bwd"],
+           "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act_bwd"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
@@ -6884,6 +7503,7 @@ def main() -> int:
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
          "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
          "serving_stack": stack_run, "gradient_sharing": sharing,
+         "training_telemetry": telemetry,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -56,14 +56,23 @@ class Config:
     - ``tracing``: enable span-based tracing (``obs.tracing``); a traced
       span waits on the card's stream where it attributes device time,
       so it is off by default.
-    - ``trace_dir``: where span exports and flight-recorder dumps land
-      when no path is given."""
+    - ``trace_dir``: where span exports, flight-recorder dumps and
+      profiler traces land when no path is given.
+    - ``nan_panic``, ``inf_panic``: after every training step, check the
+      params for a NaN (an Inf) and raise ``obs.profiler.NonFiniteError``
+      naming the first offending leaf.  The check reads one pair of flags
+      from the device, so it waits for the step: off by default.
+    - ``profiling``: record a ``torch.profiler`` trace (Chrome-trace JSON)
+      around ``Trainer.fit`` into ``trace_dir`` (``obs.profiler.trace``)."""
 
     fused_conv: bool = True
     device_feed: bool = True
     prefetch_size: int = 2
     tracing: bool = False
     trace_dir: str = "traces"
+    nan_panic: bool = False
+    inf_panic: bool = False
+    profiling: bool = False
 
 
 _config = Config()

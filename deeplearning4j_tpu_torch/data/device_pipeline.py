@@ -31,9 +31,14 @@ Either way a yielded batch owns its memory: what the iterator or the
 producer does next never changes it.  The feeder never moves to the CPU
 on its own: its device is ``"cuda"`` unless the caller says otherwise.
 An iterator that raises stops the feed, and the consumer re-raises the
-same exception.  Not ported: the JAX package's transient-failure retries,
-its metrics and its ``feed`` spans (their ``resilience``/``obs`` modules
-are not ported yet).
+same exception.  A staging attempt fires the ``feeder.stage`` fault site
+and is retried on the producer's thread under the feeder's
+``retry_policy`` (a transient failure, such as an injected ``error``);
+one that persists, or an injected ``crash``, re-raises on the consumer.
+Metrics, as the JAX package's: ``tpudl_data_etl_wait_seconds`` (the
+consumer's wait for each batch), ``tpudl_data_prefetch_depth`` (the
+batches still ready after taking one) and a ``feed`` span per batch
+(``wait_ms``, ``n_examples``, and ``padded`` on a padded batch).
 """
 
 from __future__ import annotations
@@ -49,6 +54,10 @@ import torch
 
 from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.obs import tracing
+from deeplearning4j_tpu_torch.obs.registry import get_registry
+from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, with_retries
 
 # the JAX package's default queue depth (its ``prefetch_size``)
 DEFAULT_DEPTH = 2
@@ -218,13 +227,16 @@ class DeviceFeeder:
                  depth: int = DEFAULT_DEPTH,
                  bucketing: bool = True,
                  buckets: Optional[Sequence[int]] = None,
-                 device: Any = DEFAULT_DEVICE):
+                 device: Any = DEFAULT_DEVICE,
+                 retry_policy: Optional[RetryPolicy] = None):
         self.place_fn = place_fn if place_fn is not None else (lambda b: b)
         self.depth = max(1, depth)
         self.bucketing = bucketing
         self.buckets: tuple[int, ...] = tuple(sorted(int(b) for b in buckets)) if buckets else ()
         self.device = resolve_device(device)
         self.etl_wait_s = 0.0
+        self.retry_policy = retry_policy or RetryPolicy(
+            max_attempts=2, base_delay_s=0.02, max_delay_s=0.2)
         # the page-locked ring: a slot per staged batch that can be in the
         # queue, one for the batch being staged, at least 2
         self.slots = max(2, self.depth + 1)
@@ -281,13 +293,15 @@ class DeviceFeeder:
 
     def stage(self, batch):
         """Producer-side work for one batch: bucket padding, ``place_fn``
-        and the copy to the device.  Returns ``(FedBatch, event)``."""
+        and the copy to the device.  Returns ``(FedBatch, event)``.  The
+        ``feeder.stage`` fault site fires on each attempt."""
         padded, bucket = 0, None
         n = batch.num_examples() if hasattr(batch, "num_examples") else None
         if self.bucketing and isinstance(batch, DataSet):
             bucket = self._bucket_for(n)
             batch, n = pad_to_bucket(batch, bucket)
             padded = max(bucket - n, 0)
+        faults.fire("feeder.stage")
         placed, event = self._copy_to_device(self.place_fn(batch))
         if n is None:
             n = _leading_dim(placed)
@@ -321,7 +335,9 @@ class DeviceFeeder:
                 for item in iterator:
                     if stop.is_set():
                         return
-                    q.put(self.stage(item))   # blocking; the consumer drains on abandon
+                    staged = with_retries(lambda item=item: self.stage(item),
+                                          policy=self.retry_policy, site="feeder.stage")
+                    q.put(staged)   # blocking; the consumer drains on abandon
                     if stop.is_set():
                         return
             except BaseException as e:   # re-raised on the consumer's side
@@ -332,6 +348,9 @@ class DeviceFeeder:
 
         thread = threading.Thread(target=producer, daemon=True, name="tpudl-device-feeder")
         thread.start()
+        reg = get_registry()
+        wait_hist = reg.histogram("tpudl_data_etl_wait_seconds")
+        depth_gauge = reg.gauge("tpudl_data_prefetch_depth")
         try:
             while True:
                 t0 = time.perf_counter()
@@ -342,6 +361,15 @@ class DeviceFeeder:
                         raise error[0]
                     return
                 self.etl_wait_s += wait
+                wait_hist.observe(wait)
+                # batches still ready after taking this one: 0 means the
+                # consumer is waiting on the producer
+                depth_gauge.set(q.qsize())
+                fed = item[0]
+                with tracing.span("feed", wait_ms=round(wait * 1e3, 3),
+                                  n_examples=fed.n_examples) as sp:
+                    if fed.padded:
+                        sp.set_attribute("padded", fed.padded)
                 yield self._consume(*item)
         finally:
             stop.set()

@@ -28,6 +28,7 @@ import time
 from typing import Optional
 
 from deeplearning4j_tpu_torch.obs.listeners import TrainingListener
+from deeplearning4j_tpu_torch.obs.registry import get_registry
 from deeplearning4j_tpu_torch.resilience.checkpoint import (
     AsyncCheckpointer, atomic_write, is_valid_checkpoint, snapshot_net)
 
@@ -165,7 +166,8 @@ class CheckpointListener(TrainingListener):
         candidates are the index's (rebased onto ``directory`` when the
         directory was moved) and a scan's, ordered by the (iteration,
         epoch) of their names; with ``verify`` each is checked newest
-        first and a damaged one skipped."""
+        first and a damaged one skipped and counted
+        (``tpudl_resilience_corrupt_checkpoints_total``)."""
         index = os.path.join(directory, INDEX_NAME)
         saved: list[str] = []
         if os.path.exists(index):
@@ -193,6 +195,7 @@ class CheckpointListener(TrainingListener):
             if not os.path.exists(path):
                 continue
             if verify and not is_valid_checkpoint(path):
+                get_registry().counter("tpudl_resilience_corrupt_checkpoints_total").inc()
                 continue
             return path
         return None

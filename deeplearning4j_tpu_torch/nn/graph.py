@@ -327,6 +327,14 @@ class ComputationGraph:
         Trainer(self, listeners=listeners).fit(iterator, epochs, resume_from=resume_from)
         return self
 
+    def trace_attrs(self) -> dict:
+        """The model's identity on the trainer's ``fit`` span
+        (``obs.tracing``): what a trace viewer shows for the run."""
+        return {"model": "ComputationGraph",
+                "vertices": len(self._topo),
+                "layers": len(self.layers),
+                "params": self.num_params() if self.params_ is not None else 0}
+
     def save(self, path: str, save_updater: bool = True, iterator_state=None,
              normalizer=None) -> None:
         """The model zip (``io.model_serializer.write_model``), which the

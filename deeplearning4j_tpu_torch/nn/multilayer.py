@@ -188,6 +188,13 @@ class MultiLayerNetwork:
         Trainer(self, listeners=listeners).fit(iterator, epochs, resume_from=resume_from)
         return self
 
+    def trace_attrs(self) -> dict:
+        """The model's identity on the trainer's ``fit`` span
+        (``obs.tracing``): what a trace viewer shows for the run."""
+        return {"model": "MultiLayerNetwork",
+                "layers": len(self.layers),
+                "params": self.num_params() if self.params_ is not None else 0}
+
     # ---------------------------------------------------------- serde
     def save(self, path: str, save_updater: bool = True,
              iterator_state: Optional[dict] = None, normalizer=None) -> None:

@@ -20,9 +20,10 @@ Every checkpoint zip goes through:
 :func:`snapshot_net` copies a net's training state to the host on the
 caller's thread, at once: a captured step updates params and updater
 state in place, so a copy made later would save a later step's values.
-:class:`AsyncCheckpointer` then writes on a thread of its own.  The JAX
-package's fault-injection sites and its registry metrics are not ported
-(their ``resilience/faults.py`` and ``obs/registry.py`` are not).
+:class:`AsyncCheckpointer` then writes on a thread of its own.  A write
+fires the ``checkpoint.write`` fault site and counts itself in
+``tpudl_resilience_checkpoint_writes_total`` and
+``tpudl_resilience_checkpoint_write_seconds``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import os
 import queue
 import tempfile
 import threading
+import time
 import zipfile
 import zlib
 from typing import Any, Callable, Mapping, Optional, Union
@@ -86,7 +88,15 @@ def write_checkpoint_zip(path: str, entries: Mapping[str, Union[bytes, str, None
     """``entries`` (None values left out) as a zip with a sha256 manifest,
     written atomically.  The entries are stored, not deflated: float
     weights barely compress (ResNet-50's by a few percent) and deflating
-    them is the slowest part of a save; either package reads both."""
+    them is the slowest part of a save; either package reads both.
+
+    Fault sites: ``checkpoint.write`` fires inside the atomic region (an
+    injected crash is a torn write: the published file survives intact),
+    and its ``truncate`` rules damage the file after publication (disk
+    corruption, for the verify path)."""
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    from deeplearning4j_tpu_torch.resilience import faults
+    t0 = time.perf_counter()
     with atomic_write(path) as tmp:
         digests: dict[str, str] = {}
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
@@ -98,6 +108,11 @@ def write_checkpoint_zip(path: str, entries: Mapping[str, Union[bytes, str, None
                 digests[name] = hashlib.sha256(blob).hexdigest()
             zf.writestr(MANIFEST_NAME, json.dumps(
                 {"format": MANIFEST_FORMAT, "algorithm": "sha256", "entries": digests}))
+        faults.fire("checkpoint.write")
+    faults.corrupt("checkpoint.write", path)
+    reg = get_registry()
+    reg.counter("tpudl_resilience_checkpoint_writes_total").inc()
+    reg.histogram("tpudl_resilience_checkpoint_write_seconds").observe(time.perf_counter() - t0)
 
 
 def read_manifest(zf: zipfile.ZipFile) -> Optional[dict]:
@@ -106,15 +121,39 @@ def read_manifest(zf: zipfile.ZipFile) -> Optional[dict]:
     return json.loads(zf.read(MANIFEST_NAME).decode())
 
 
+# the end-of-central-directory record: its signature and fixed size
+_EOCD_SIGNATURE = b"PK\x05\x06"
+_EOCD_SIZE = 22
+
+
+def _ends_with_its_directory(path: str) -> bool:
+    """Whether the last end-of-central-directory record of the file (with
+    its comment) ends the file.  ``zipfile`` searches back from the end
+    for one, so a stored zip cut short can open as the archive stored
+    inside it (a params ``.npz`` is itself a zip) and pass as intact."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        f.seek(max(0, size - _EOCD_SIZE - 0xFFFF))
+        tail = f.read()
+    at = tail.rfind(_EOCD_SIGNATURE)
+    if at < 0 or len(tail) - at < _EOCD_SIZE:
+        return False
+    comment = int.from_bytes(tail[at + 20:at + 22], "little")
+    return at + _EOCD_SIZE + comment == len(tail)
+
+
 def verify_checkpoint(path: str, require_manifest: bool = False) -> list[str]:
-    """The findings of a checkpoint zip's check (empty: intact): a readable
-    zip, every entry's CRC, the manifest's presence and coverage, and
-    each entry's sha256.  A zip without a manifest passes unless
-    ``require_manifest``."""
+    """The findings of a checkpoint zip's check (empty: intact): a zip
+    whose directory ends the file, readable, every entry's CRC, the
+    manifest's presence and coverage, and each entry's sha256.  A zip
+    without a manifest passes unless ``require_manifest``."""
     problems: list[str] = []
     if not os.path.exists(path):
         return [f"missing file {path}"]
     try:
+        if not _ends_with_its_directory(path):
+            return ["unreadable zip: no end-of-central-directory record at the end of the "
+                    "file (truncated)"]
         with zipfile.ZipFile(path, "r") as zf:
             bad = zf.testzip()
             if bad is not None:

@@ -38,8 +38,10 @@ are ``None``):
 
 The graphs of one step share one memory pool.  A capture that fails
 raises :class:`CaptureError` naming the step and the signature; nothing
-runs eagerly in its place.  On the CPU, and inside :func:`eager`, the step
-runs as the plain function.  The kernels' launch counts go up when a
+runs eagerly in its place.  On the CPU, inside :func:`eager` and while
+autograd's anomaly mode is on, the step runs as the plain function.
+Every step counts the call signatures it has seen (``signature_count``),
+on the CPU too: the trainer's recompile count.  The kernels' launch counts go up when a
 step runs eagerly and once when it is captured, not on a replay.
 """
 
@@ -126,7 +128,8 @@ def _copy_into(buf, a) -> None:
 
 
 def _tree_signature(leaves) -> tuple:
-    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+    return tuple((tuple(t.shape), t.dtype, t.device) if torch.is_tensor(t) else type(t).__name__
+                 for t in leaves)
 
 
 @dataclasses.dataclass
@@ -157,6 +160,7 @@ class CapturedStep:
         self.name = name
         self._bindings: dict[tuple, _Binding] = {}
         self._warm: dict[tuple, int] = {}
+        self._seen: set = set()          # (tree signature, batch signature) pairs called
         self._pool = None
         self._side: Optional[torch.cuda.Stream] = None
         self._lock = threading.Lock()
@@ -168,19 +172,31 @@ class CapturedStep:
         """How many graphs this step has captured."""
         return sum(len(b.graphs) for b in self._bindings.values())
 
+    @property
+    def signature_count(self) -> int:
+        """How many distinct call signatures (the trees' shapes, dtypes and
+        devices with the batch signature) this step has seen: a new one is
+        the port's counterpart of a new ``jax.jit`` trace."""
+        return len(self._seen)
+
     def __call__(self, *args):
         self.calls += 1
         leaves = [leaf for tree in args[:self.n_trees] for leaf in tree_leaves(tree)]
-        if _eager_depth or not (leaves and torch.is_tensor(leaves[0])
-                                and leaves[0].device.type == "cuda"):
-            return self.fn(*args)
         rest = args[self.n_trees:]
         batch_sig = _batch_signature(rest)
+        # anomaly mode (obs.profiler.enable_debug_nans) reads values on the
+        # host, which a capture cannot
+        if _eager_depth or torch.is_anomaly_enabled() or not (
+                leaves and torch.is_tensor(leaves[0]) and leaves[0].device.type == "cuda"):
+            with self._lock:
+                self._seen.add((_tree_signature(leaves), batch_sig))
+            return self.fn(*args)
         with self._lock:
             binding = next((b for b in self._bindings.values() if _same(b.holder, leaves)), None)
             if binding is not None and batch_sig in binding.graphs:
                 return self._replay(binding.graphs[batch_sig], args)
             tree_sig = _tree_signature(leaves)
+            self._seen.add((tree_sig, batch_sig))
             binding = self._bindings.get(tree_sig)
             if binding is None or batch_sig not in binding.graphs:
                 warm = self._warm.get((tree_sig, batch_sig), 0)

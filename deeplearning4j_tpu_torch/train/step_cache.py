@@ -19,9 +19,10 @@ the key pins every config fact they read.  A ``None`` key (a conf that
 cannot be serialized) builds per caller, uncached.
 
 Hits and misses are counted under the JAX package's metric names
-(:data:`HITS`, :data:`MISSES`), as module counters until ``obs/registry.py``
-is ported (:func:`counters`).  Not ported yet: the cost-model tag of
-every cached step (``obs/costmodel.py``) and the artifact store's wrap
+(:data:`HITS`, :data:`MISSES`) in the metrics registry, and since the
+process started in :func:`counters` (which a swapped registry does not
+reset).  Not ported yet: the cost-model tag of every cached step
+(``obs/costmodel.py``) and the artifact store's wrap
 (``train/artifact_store.py``); the sharding signature of a parallel layout
 waits for ``parallel/``.
 """
@@ -35,6 +36,7 @@ from collections import OrderedDict
 from typing import Any, Callable, Optional
 
 from deeplearning4j_tpu_torch.config import dtype_policy
+from deeplearning4j_tpu_torch.obs.registry import get_registry
 from deeplearning4j_tpu_torch.train import updaters as updater_mod
 
 # Bounded so that a process that churns through many configs (a sweep)
@@ -100,19 +102,24 @@ def get_or_build(key: Optional[tuple], builder: Callable[[], Any]) -> Any:
         step = _CACHE.get(key)
         if step is not None:
             _CACHE.move_to_end(key)
-            _COUNTS[HITS] += 1
+            _count(HITS)
             return step
     step = builder()
     with _LOCK:
         existing = _CACHE.get(key)
         if existing is not None:
-            _COUNTS[HITS] += 1
+            _count(HITS)
             return existing
         _CACHE[key] = step
-        _COUNTS[MISSES] += 1
+        _count(MISSES)
         while len(_CACHE) > MAX_ENTRIES:
             _CACHE.popitem(last=False)
     return step
+
+
+def _count(name: str) -> None:
+    _COUNTS[name] += 1
+    get_registry().counter(name).inc()
 
 
 def counters() -> dict:
@@ -142,7 +149,15 @@ def clear_step_cache() -> None:
 
 def captured_graphs(*steps) -> int:
     """How many CUDA graphs the given steps hold in all (``None`` and
-    steps that capture nothing count zero): the counterpart of the JAX
-    package's ``jit_cache_entries``, whose delta across a call says that
-    a new program was made."""
+    steps that capture nothing count zero)."""
     return sum(getattr(step, "graph_count", 0) for step in steps if step is not None)
+
+
+def seen_signatures(*steps) -> int:
+    """How many distinct call signatures the given steps have seen in all
+    (``None`` counts zero): the counterpart of the JAX package's
+    ``jit_cache_entries``, whose delta across a call says that a new
+    program was traced.  A step of the port compiles nothing; its first
+    call of a signature runs eagerly where JAX traces and compiles, and on
+    the card a later call of it captures the graph."""
+    return sum(getattr(step, "signature_count", 0) for step in steps if step is not None)

@@ -37,24 +37,47 @@ through a ``DeviceFeeder`` and stamps on the net what a checkpoint needs
 for an exact resume, and ``fit(..., resume_from=...)`` (or
 :meth:`Trainer.resume_state`) continues a run from a checkpoint.
 
-Not ported yet: parallel layouts, the step statistics (``with_stats``),
-the artifact store, the registry counters, traces and profiling around
-``fit``, and the supervisor's resume pointer (``resilience/``).
+Telemetry, as the JAX package's: a listener that wants model statistics
+(``StatsListener``, ``HealthMonitor``) makes the trainer run the
+statistics step (``make_train_step(with_stats=True)``) on the iterations
+it samples and hand it the per-layer statistics (``stats_ready``); the
+``fit``, ``epoch`` and ``step`` spans and the ``tpudl_train_*`` series;
+the ``trainer.step`` fault site and its ``nan`` poison; the flight
+recorder's ``step`` and ``resume`` events; the resume counters; NaN/Inf
+panic (``config.nan_panic``, ``config.inf_panic``) and a profiler trace
+around ``fit`` (``config.profiling``).  A "recompile" is a call signature
+that a step has not seen before (``CapturedStep.signature_count``), the
+counterpart of a new ``jax.jit`` trace; on the card the call that
+captures a signature's graph is timed as a compile too
+(``tpudl_train_compile_seconds``), and neither is a
+``tpudl_train_step_seconds`` sample.  With tracing off a step waits for
+nothing on the card.
+
+Not ported yet: parallel layouts, the artifact store, the cost model's
+step hooks and the supervisor's resume pointer (``resilience/``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.config import resolve_device
+from deeplearning4j_tpu_torch.config import get_config, resolve_device
 from deeplearning4j_tpu_torch.data.device_pipeline import (
     DeviceFeeder, FedBatch, ensure_feature_mask, pad_segment)
 from deeplearning4j_tpu_torch.nn.losses import mean_score
+from deeplearning4j_tpu_torch.obs import flight_recorder, profiler, tracing
 from deeplearning4j_tpu_torch.obs.listeners import ListenerBus
+from deeplearning4j_tpu_torch.obs.registry import get_registry, record_device_memory
+from deeplearning4j_tpu_torch.obs.stats import (GROUPS, device_layer_stats, pack_stats,
+                                                stats_keys, unpack_stats)
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.train import step_cache
 from deeplearning4j_tpu_torch.train import updaters as updater_mod
 from deeplearning4j_tpu_torch.train.capture import CapturedStep, write_into
@@ -155,12 +178,13 @@ def net_optimizer(net) -> updater_mod.Optimizer:
 
 
 def _update(net, tx, loss_fn):
-    """``(params, state, opt_state, *args) -> (loss, aux)``: the loss and its
-    gradient in every param (zeros where the loss never reads one), the
-    optimizer's step (``tx``, :func:`net_optimizer`: normalization,
-    updater, frozen layers) added to the params and its new state written
-    into ``opt_state``, in place; ``aux`` is what ``loss_fn`` returned
-    beside the loss, for the caller to write."""
+    """``(params, state, opt_state, *args) -> (loss, aux, grads, updates)``:
+    the loss and its gradient in every param (zeros where the loss never
+    reads one), the optimizer's step (``tx``, :func:`net_optimizer`:
+    normalization, updater, frozen layers) added to the params and its new
+    state written into ``opt_state``, in place; ``aux`` is what
+    ``loss_fn`` returned beside the loss, for the caller to write, and
+    ``grads`` and ``updates`` the trees the statistics step reads."""
 
     def update(params, state, opt_state, *args):
         grad_params = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -174,26 +198,38 @@ def _update(net, tx, loss_fn):
             updates, new_opt_state = tx.update(grads, opt_state, params)
             tree_map(lambda p, u: p.add_(u), params, updates)
             write_into(opt_state, new_opt_state)
-        return loss.detach(), aux
+        return loss.detach(), aux, grads, updates
 
     return update
 
 
-def make_train_step(net, tx, name=""):
+def make_train_step(net, tx, with_stats: bool = False, name=""):
     """The training step, ``(params, state, opt_state, features, labels,
     features_mask, labels_mask, rng) -> (params, state, opt_state, loss)``:
     the params, the layers' state and the updater's state are updated in
     place and returned (the JAX package's donation); ``loss`` is a 0-dim
     tensor.  ``tx`` is the trainer's optimizer (:func:`net_optimizer`).
     A :class:`CapturedStep`: CUDA graphs on the card, the plain step on
-    the CPU; ``name`` labels its errors."""
+    the CPU; ``name`` labels its errors.
+
+    ``with_stats=True`` also returns the per-layer statistics of the new
+    params, the gradients and the updates (``obs.stats``: norms, mean,
+    stdev, 20-bin histograms), computed on the device in the same step
+    and packed into one tensor (``obs.stats.pack_stats``;
+    ``unpack_stats`` with ``stats_keys(params)`` reads it), so a sampled
+    iteration costs one copy of a few kB, never the tensors.  The update
+    is the plain step's, so it leaves the same params."""
     update = _update(net, tx, make_loss_fn(net, train=True))
 
     def step(params, state, opt_state, features, labels, features_mask, labels_mask, rng):
-        loss, new_state = update(params, state, opt_state, features, labels, features_mask,
-                                 labels_mask, rng)
+        loss, new_state, grads, updates = update(params, state, opt_state, features, labels,
+                                                 features_mask, labels_mask, rng)
         with torch.no_grad():
             write_into(state, new_state)
+            if with_stats:
+                stats = dict(zip(GROUPS, (device_layer_stats(t)
+                                          for t in (params, grads, updates))))
+                return params, state, opt_state, loss, pack_stats(stats)
         return params, state, opt_state, loss
 
     return CapturedStep(step, n_trees=3, name=name)
@@ -210,8 +246,8 @@ def make_tbptt_step(net, tx, name=""):
 
     def step(params, state, opt_state, carries, features, labels, features_mask, labels_mask,
              rng):
-        loss, (new_state, new_carries) = update(params, state, opt_state, carries, features,
-                                                labels, features_mask, labels_mask, rng)
+        loss, (new_state, new_carries), _, _ = update(
+            params, state, opt_state, carries, features, labels, features_mask, labels_mask, rng)
         with torch.no_grad():
             write_into(state, new_state)
             for carry, new in zip(carries, new_carries):
@@ -302,11 +338,17 @@ class Trainer:
             if net_sig is not None and tx_sig is not None:
                 self._cache_sig = net_sig + (tx_sig,)
         self._step = None
+        self._stats_step = None
         self._eval_step = None
         self._tbptt_step = None
         self._carries: Optional[list] = None      # tBPTT's carry buffers
         self._stream: Optional[torch.Generator] = None
         self._resume_skip = 0                      # batches of the resumed epoch already run
+        # the listeners that sample the statistics step (wants_stats_now)
+        self._stats_listeners = [l for l in self.bus.listeners
+                                 if getattr(l, "wants_model_stats", False)]
+        self._stats_keys: Optional[list] = None
+        self._compiled = False    # the first step through this trainer is its compile
 
     def _step_key(self, kind: str) -> Optional[tuple]:
         """Step-cache key of this trainer's config, or None (no cache)."""
@@ -343,6 +385,15 @@ class Trainer:
             net.init()
         if net.opt_state is None:
             net.opt_state = self.tx.init(net.params_)
+        if self._step is None:
+            key = self._step_key("train")
+            self._step = step_cache.get_or_build(
+                key, lambda: make_train_step(net, self.tx, name=key))
+
+    def _step_fns(self) -> tuple:
+        """Every step this trainer may call: the recompile count sums the
+        signatures they have seen around each step."""
+        return (self._step, self._stats_step, self._tbptt_step, self._eval_step)
 
     def _stream_or(self, rng: Optional[torch.Generator]) -> torch.Generator:
         """``rng``, checked, or the trainer's own stream when None: a
@@ -363,19 +414,36 @@ class Trainer:
     def fit_batch(self, batch, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """One optimization step on one batch; returns the loss as a 0-dim
         tensor on the device.  ``rng`` is the step's random stream, a
-        ``torch.Generator`` on the net's device (:meth:`_stream_or`)."""
+        ``torch.Generator`` on the net's device (:meth:`_stream_or`).  On
+        an iteration that a statistics listener samples
+        (``wants_stats_now``) the statistics step runs in the plain step's
+        place, its statistics come to the host in one copy and every such
+        listener gets ``stats_ready``.  Under ``config.nan_panic`` or
+        ``inf_panic`` the params are checked after the step."""
         net = self.net
         rng = self._stream_or(rng)
         batch = self._place(batch)
         self._ensure_ready()
-        if self._step is None:
-            key = self._step_key("train")
-            self._step = step_cache.get_or_build(
-                key, lambda: make_train_step(net, self.tx, key))
         fmask, lmask = _batch_masks(batch)
-        net.params_, net.state_, net.opt_state, loss = self._step(
-            net.params_, net.state_, net.opt_state, batch.features, batch.labels, fmask, lmask,
-            rng)
+        args = (net.params_, net.state_, net.opt_state, batch.features, batch.labels, fmask,
+                lmask, rng)
+        sampling = [l for l in self._stats_listeners if l.wants_stats_now(net.iteration)]
+        if sampling:
+            if self._stats_step is None:
+                key = self._step_key("train_stats")
+                self._stats_step = step_cache.get_or_build(
+                    key, lambda: make_train_step(net, self.tx, with_stats=True, name=key))
+            net.params_, net.state_, net.opt_state, loss, packed = self._stats_step(*args)
+            if self._stats_keys is None:
+                self._stats_keys = stats_keys(net.params_)
+            stats = unpack_stats(packed, self._stats_keys)
+            for listener in sampling:
+                listener.stats_ready(net, net.iteration, net.epoch, float(loss), stats)
+        else:
+            net.params_, net.state_, net.opt_state, loss = self._step(*args)
+        cfg = get_config()
+        if cfg.nan_panic or cfg.inf_panic:
+            profiler.check_finite(net.params_, "params after step")
         return loss
 
     def eval_loss(self, batch) -> torch.Tensor:
@@ -429,6 +497,9 @@ class Trainer:
             net.params_, net.state_, net.opt_state, carries, loss = self._tbptt_step(
                 net.params_, net.state_, net.opt_state, carries, seg.features, seg.labels,
                 seg.features_mask, seg.labels_mask, rng)
+        cfg = get_config()
+        if cfg.nan_panic or cfg.inf_panic:
+            profiler.check_finite(net.params_, "params after tBPTT step")
         return loss
 
     def step_batch(self, batch, rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -440,18 +511,68 @@ class Trainer:
         with the score read back as a float (only when a listener is
         there), and the net's iteration counter moves.  ``fit`` and
         ``EarlyStoppingTrainer`` drive it; ``batch`` may be a feeder's
-        ``FedBatch``."""
+        ``FedBatch``.
+
+        Telemetry: the ``trainer.step`` fault site before the step (a
+        ``nan`` rule poisons the returned loss after it, as a NaN tensor
+        on the net's device), the flight recorder's progress and ``step``
+        event, a ``step`` span (with tracing on: ``score``, ``compile`` on
+        the trainer's first step and ``hbm_bytes_in_use``, after waiting
+        for the card), and the ``tpudl_train_*`` series.  With tracing off
+        the step waits for nothing, and ``tpudl_train_step_seconds``
+        records the host's time to launch it."""
         net = self.net
+        # the clock starts before the fault site: an injected delay models
+        # a slow step, so it shows in the step time
+        t0 = time.perf_counter()
+        faults.fire("trainer.step", index=net.iteration)
+        flight_recorder.progress("trainer.step")
         fed = isinstance(batch, FedBatch)
         data = batch.batch if fed else batch
         features = data.features
         first = features[0] if isinstance(features, (list, tuple)) else features
         n_examples = batch.n_examples if fed else int(first.shape[0])
-        if (net.conf.backprop_type == "tbptt" and not isinstance(features, (list, tuple))
-                and np.ndim(first) == 3):
-            loss = self._fit_tbptt(data, self._stream_or(rng))
+        compile_step = not self._compiled
+        seen_before = step_cache.seen_signatures(*self._step_fns())
+        graphs_before = step_cache.captured_graphs(*self._step_fns())
+        with tracing.span("step", iteration=net.iteration, epoch=net.epoch) as sp:
+            if (net.conf.backprop_type == "tbptt" and not isinstance(features, (list, tuple))
+                    and np.ndim(first) == 3):
+                loss = self._fit_tbptt(data, self._stream_or(rng))
+            else:
+                loss = self.fit_batch(data, rng)
+            if tracing.get_tracer().enabled:
+                score = float(tracing.device_sync(loss))
+                sp.set_attribute("score", score)
+                if compile_step:
+                    sp.set_attribute("compile", True)
+                hbm = record_device_memory(device=net.device)
+                if hbm and "bytes_in_use" in hbm:
+                    sp.set_attribute("hbm_bytes_in_use", hbm["bytes_in_use"])
+                get_registry().gauge("tpudl_train_last_score").set(score)
+        dt = time.perf_counter() - t0
+        self._compiled = True
+        retraced = step_cache.seen_signatures(*self._step_fns()) - seen_before
+        captured = step_cache.captured_graphs(*self._step_fns()) - graphs_before
+        reg = get_registry()
+        if retraced > 0:
+            reg.counter("tpudl_train_recompiles_total").inc(retraced)
+            reg.gauge("tpudl_train_compile_seconds").set(dt)
+        elif captured > 0:
+            # capturing a signature's graph is the port's compile too
+            reg.gauge("tpudl_train_compile_seconds").set(dt)
         else:
-            loss = self.fit_batch(data, rng)
+            reg.histogram("tpudl_train_step_seconds").observe(dt)
+        reg.counter("tpudl_train_steps_total").inc()
+        reg.counter("tpudl_train_examples_total").inc(n_examples)
+        flight_recorder.record("step", iteration=net.iteration, epoch=net.epoch,
+                               duration_ms=round(dt * 1e3, 3), examples=n_examples,
+                               compile=bool(retraced))
+        flight_recorder.progress("trainer.step")
+        # a "nan" rule poisons the reported loss (a numeric blow-up's stand-in)
+        # so that the health monitor's detection runs end to end
+        if faults.poison("trainer.step", index=net.iteration):
+            loss = torch.full_like(loss, float("nan"))
         net._score = loss
         if self.bus.listeners:
             for listener in self.bus.listeners:
@@ -471,8 +592,6 @@ class Trainer:
         mid-epoch (a ``ResumableIterator``; another iterator raises
         ``ValueError`` there).  Returns the checkpoint's training-state
         dict, with ``checkpoint_path``."""
-        import os
-
         from deeplearning4j_tpu_torch.config import DTypePolicy, set_dtype_policy
         from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
         from deeplearning4j_tpu_torch.io.model_serializer import (
@@ -503,8 +622,16 @@ class Trainer:
             iterator.set_state(it_state)
         self._resume_skip = skip
         state["checkpoint_path"] = path
-        # the JAX package also counts the resume in its registry, its flight
-        # recorder and obs_remote; those wait for the port's obs/
+        # the resume point, for a dashboard and for steps replayed after a
+        # crash (the last iteration before it, less this); the JAX package
+        # also tells obs_remote, which is not ported
+        resumed_iter = int(state.get("iteration", 0) or 0)
+        reg = get_registry()
+        reg.counter("tpudl_resilience_resumes_total").inc()
+        reg.gauge("tpudl_resilience_resumed_iteration").set(resumed_iter)
+        flight_recorder.record("resume", iteration=resumed_iter,
+                               epoch=int(state.get("epoch", 0) or 0),
+                               checkpoint=os.path.basename(path))
         return state
 
     def fit(self, iterator, epochs: int = 1, resume_from=None):
@@ -520,10 +647,13 @@ class Trainer:
         counting the whole run, so an interrupted fit resumed here repeats
         the uninterrupted run's steps.  The net carries what a checkpoint
         taken now records (``_completed_iterations``, ``_completed_epochs``,
-        ``_epoch_batches`` and ``_stream``)."""
-        import time
+        ``_epoch_batches`` and ``_stream``).
 
-        from deeplearning4j_tpu_torch.config import get_config
+        Telemetry: a ``fit`` span with ``net.trace_attrs()``, an ``epoch``
+        span per epoch, ``tpudl_train_epoch_seconds`` and
+        ``tpudl_train_epochs_total``, and under ``config.profiling`` a
+        ``torch.profiler`` trace of the whole call written into
+        ``config.trace_dir`` (``obs.profiler.trace``)."""
         net = self.net
         epochs_to_run = epochs
         if resume_from is not None:
@@ -539,28 +669,34 @@ class Trainer:
         cfg = get_config()
         feeder = (DeviceFeeder(self._host_batch, depth=cfg.prefetch_size, device=net.device)
                   if cfg.device_feed else None)
-        self.bus.dispatch("on_fit_start", net)
-        for _ in range(epochs_to_run):
-            self.bus.dispatch("on_epoch_start", net, net.epoch)
-            t0 = time.perf_counter()
-            n_batches, self._resume_skip = self._resume_skip, 0
-            net._completed_epochs = net.epoch
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            for batch in (feeder.feed(iterator) if feeder is not None else iterator):
-                # what a checkpoint taken during this step records
-                net._completed_iterations = net.iteration + 1
-                net._epoch_batches = n_batches + 1
-                self.step_batch(batch, self._stream)
-                n_batches += 1
-            # a checkpoint from here on resumes at the next epoch's first batch
-            net._completed_epochs = net.epoch + 1
-            net._epoch_batches = 0
-            info = {"epoch_time_s": time.perf_counter() - t0, "batches": n_batches,
-                    "score": net._score}
-            self.bus.dispatch("on_epoch_end", net, net.epoch, info)
-            net.epoch += 1
-        self.bus.dispatch("on_fit_end", net, {"epochs": epochs})
+        reg = get_registry()
+        with (profiler.trace(cfg.trace_dir) if cfg.profiling else contextlib.nullcontext()), \
+                tracing.span("fit", epochs=epochs, **net.trace_attrs()):
+            self.bus.dispatch("on_fit_start", net)
+            for _ in range(epochs_to_run):
+                with tracing.span("epoch", epoch=net.epoch):
+                    self.bus.dispatch("on_epoch_start", net, net.epoch)
+                    t0 = time.perf_counter()
+                    n_batches, self._resume_skip = self._resume_skip, 0
+                    net._completed_epochs = net.epoch
+                    if hasattr(iterator, "reset"):
+                        iterator.reset()
+                    for batch in (feeder.feed(iterator) if feeder is not None else iterator):
+                        # what a checkpoint taken during this step records
+                        net._completed_iterations = net.iteration + 1
+                        net._epoch_batches = n_batches + 1
+                        self.step_batch(batch, self._stream)
+                        n_batches += 1
+                    # a checkpoint from here on resumes at the next epoch's first batch
+                    net._completed_epochs = net.epoch + 1
+                    net._epoch_batches = 0
+                    epoch_s = time.perf_counter() - t0
+                    reg.histogram("tpudl_train_epoch_seconds").observe(epoch_s)
+                    info = {"epoch_time_s": epoch_s, "batches": n_batches, "score": net._score}
+                    self.bus.dispatch("on_epoch_end", net, net.epoch, info)
+                reg.counter("tpudl_train_epochs_total").inc()
+                net.epoch += 1
+            self.bus.dispatch("on_fit_end", net, {"epochs": epochs})
         # a completed fit draws from the seed again next time; an
         # interrupted one leaves the stream for its checkpoints
         net._stream = None

@@ -55,3 +55,23 @@ def unflatten_param_vector(flat: torch.Tensor, like: Any) -> Any:
 def param_count(params: Any) -> int:
     """``Model.numParams()`` parity."""
     return sum(leaf.numel() for leaf in jax_leaves(params))
+
+
+def param_table(params: Any) -> dict[str, Any]:
+    """``Model.paramTable()`` parity: a flat dict of path → leaf, the path
+    each key or index along the way joined by ``/`` (``"0/W"``), in
+    ``jax_leaves`` order."""
+    table: dict[str, Any] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(child, path + (str(i),))
+        else:
+            table["/".join(path)] = node
+
+    walk(params, ())
+    return table

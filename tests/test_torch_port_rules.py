@@ -102,6 +102,38 @@ def test_no_jax_scan_covers_the_training_slice():
         assert f"deeplearning4j_tpu_torch/{module}" in names
 
 
+def test_no_jax_scan_covers_the_telemetry_slice():
+    """The statistics pipeline, the profiling hooks and the jsonl metrics
+    are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("obs/stats.py", "obs/profiler.py", "obs/metrics.py", "utils/pytree.py",
+                   "train/step_cache.py", "train/capture.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+def test_untraced_steps_read_nothing_back(monkeypatch):
+    """With tracing off and no listener, a training step waits for nothing:
+    no ``device_sync``, no ``item`` or ``tolist`` of a tensor."""
+    from deeplearning4j_tpu_torch.obs import tracing
+    from deeplearning4j_tpu_torch.train import trainer as trainer_mod
+    calls = []
+    monkeypatch.setattr(trainer_mod.tracing, "device_sync",
+                        lambda v: calls.append("device_sync") or v)
+    for name in ("item", "tolist"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, _real=real, _n=name: calls.append(_n) or _real(self))
+    net = mlp_mnist(device="cpu")
+    trainer = Trainer(net)
+    rng = np.random.default_rng(0)
+    batch = DataSet(rng.random((8, 784)).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)])
+    with tracing.use_tracer(tracing.Tracer(enabled=False)):
+        for i in range(3):
+            trainer.step_batch(batch, torch.Generator().manual_seed(i))
+    assert calls == []
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_port_module_reads_the_resume_pointer(path):
     """The JAX package's supervisor hands a respawned worker its checkpoint
