@@ -356,7 +356,27 @@ no result line:
    truncate:300`` counted corrupt and skipped; (d) a 4-step ``fit`` under
    ``config.profiling`` from a cleared step cache: the trace's size and
    its events of rows 1-2's kernels;
-28. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+28. dense data parallelism (``parallel/mesh.py``, ``parallel/
+   data_parallel.py``, ``Trainer(layout="dp2")``): two processes through
+   ``spawn_local_cluster`` sharing the card over gloo (NCCL refuses two
+   ranks on one card), one per data shard.  (a) full-width fused
+   ResNet-50 f32, ``Nesterovs(TRAIN_LR, 0.9)``, seeded weights, global
+   batch 32 (16 a rank), 3 steps: both ranks' params, layer state and
+   updater state byte-equal after every step, 36 + 36 ``matmul_bn_act``
+   launches per rank per step, step 0's loss and flat gradient against the
+   single-process step on the same 32 images in this process (the
+   gradient within ``DP_GRAD_TOL`` of its largest entry) and the params
+   after 3 steps (within ``DP_PARAM_TOL`` of each leaf's largest entry),
+   step 0 through the kernels against step 0 through both plain versions
+   (phase 6's limits); (b) ``ParallelWrapper`` on two fused bottlenecks:
+   the averaging mode every 2 steps (the ranks apart after a local step,
+   byte-equal after each average) and ZeRO-1 (params equal to the
+   unsharded dp2 run's, updater bytes per rank); (c) the dp2 step eager
+   (wall, and device time per rank), its gradient all-reduce ms, its
+   batch-statistics all-reduces per step and the bytes all-reduced against
+   ``MeshLayout.collective_bytes_per_step``, beside the single-process
+   batch-32 step (eager and captured) and phase 26's 2-slice step;
+29. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -6308,14 +6328,15 @@ def dcn_step0_vs_plain(card_dev, net, batch) -> dict:
             "encoded": runs["kernel"][3], "launches": runs["kernel"][1]}
 
 
-def dcn_process_net():
-    """(c)'s net: res2's first bottleneck and a res3-wide one (module comment)."""
+def dcn_process_net(updater=None):
+    """(c)'s net: res2's first bottleneck and a res3-wide one (module
+    comment), under ``Sgd(DCN_LR)`` or ``updater``."""
     from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers import (FusedBottleneck, GlobalPoolingLayer,
                                                     OutputLayer)
     from deeplearning4j_tpu_torch.train import Sgd
-    gb = (NeuralNetConfiguration.builder().seed(MP_SEED).updater(Sgd(DCN_LR))
+    gb = (NeuralNetConfiguration.builder().seed(MP_SEED).updater(updater or Sgd(DCN_LR))
           .weight_init("relu").graph().add_inputs("in")
           .set_input_types(InputType.convolutional(MP_HW, MP_HW, MP_CHANNELS)))
     gb.add_layer("b1", FusedBottleneck(filters=(64, 64, 256), project=True), "in")
@@ -7212,6 +7233,438 @@ def training_telemetry(card: str) -> dict:
     return out
 
 
+# ------------------------------ phase 28: dense data parallelism (parallel/mesh.py)
+# (a) full-width fused ResNet-50 under Trainer(layout="dp2"), one process
+# per data shard, the two sharing the card over gloo; (b) ParallelWrapper's
+# averaging mode and ZeRO-1 on (c) of phase 26's two fused bottlenecks
+DP_SEED = SEED + 110
+DP_BATCH, DP_STEPS = 32, 3          # global batch (16 a rank), checked steps
+DP_TIMED, DP_PROFILED = 4, 2        # timed eager steps, then profiled ones
+DP_SMALL_STEPS = 4                  # (b)'s steps, averaging every 2
+DP_GRAD_TOL = 1e-4                  # step 0's gradient against the single process, of its max
+DP_PARAM_TOL = 1e-5                 # params after DP_STEPS, of each leaf's largest entry
+# f32 train-mode ResNet-50 amplifies rounding: two f32 orders of the same
+# step differ by percents of a param (tests/test_torch_resnet50_train.py),
+# so dp2's f32 gradient is held to the f64 single-process step within the
+# larger of DP_GRAD_TOL and this many times the single process's own f32
+# distance from it; the limits above hold in f64 (the plain versions)
+DP_F32_BAND = 2.0
+DP_PORT = 12811
+DP_TIMEOUT = 480.0
+DP_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per rank per dp step
+
+
+def tree_digest(*trees) -> str:
+    """sha256 of every leaf's bytes on the host, in order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in host_copy(*trees):
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def ranks_equal(*trees) -> bool:
+    """Whether every rank of the default group holds the same bytes of
+    ``trees`` (their digests gathered)."""
+    import torch.distributed as dist
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, tree_digest(*trees))
+    return len(set(digests)) == 1
+
+
+def record_gradient(trainer, into: list):
+    """Wrap ``trainer.tx.update`` so that the first call's gradient tree
+    (the global one, after the all-reduce) lands in ``into`` as one flat
+    host vector in ``utils/pytree.py``'s order."""
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    update = trainer.tx.update
+
+    def recording(grads, state, params=None):
+        if not into:
+            into.append(flat_param_vector(grads).detach().to("cpu", copy=True).numpy())
+        return update(grads, state, params)
+    trainer.tx.update = recording
+
+
+@contextlib.contextmanager
+def f64_policy(on: bool):
+    """The f64 dtype policy while open (when ``on``): the wrappers then run
+    their plain versions."""
+    import torch
+    from deeplearning4j_tpu_torch.config import DTypePolicy, dtype_policy, set_dtype_policy
+    saved = dtype_policy()
+    if on:
+        set_dtype_policy(DTypePolicy(param_dtype=torch.float64, compute_dtype=torch.float64,
+                                     output_dtype=torch.float64))
+    try:
+        yield
+    finally:
+        set_dtype_policy(saved)
+
+
+def dp_net(dtype: str):
+    """(a)'s seeded ResNet-50 under ``Nesterovs(TRAIN_LR, 0.9)``; in f64 the
+    same weights widened (run it under :func:`f64_policy`)."""
+    from deeplearning4j_tpu_torch.train import Nesterovs
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    net = build_net(Nesterovs(TRAIN_LR, 0.9))
+    if dtype == "f64":
+        net.params_, net.state_ = tree_map(lambda t: t.double(), [net.params_, net.state_])
+    return net
+
+
+def dp_batch(dtype: str):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = dcn_batch(DP_BATCH, seed=DP_SEED)
+    if dtype == "f64":
+        x, y = x.astype(np.float64), y.astype(np.float64)
+    return DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def flat_order_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``utils/pytree.py``'s flat order."""
+    from deeplearning4j_tpu_torch.train.updaters import jax_leaves
+    return jax_leaves(tree)
+
+
+def dp_steps(trainer, batch, net) -> dict:
+    """DP_STEPS steps: the losses, step 0's flat gradient and the flat
+    params after them (host numpy), and each leaf's size."""
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    grads = []
+    record_gradient(trainer, grads)
+    losses = [trainer.fit_batch(batch).item() for _ in range(DP_STEPS)]
+    del trainer.tx.update
+    return {"losses": losses, "grad0": grads[0],
+            "params": flat_param_vector(net.params_).cpu().numpy(),
+            "leaf_sizes": [t.numel() for t in flat_order_leaves(net.params_)]}
+
+
+def dp_single() -> dict:
+    """(a)'s comparison in this process: the single-process step on the
+    whole batch, eager, in f32 through the kernels and in f64 (step 0's flat
+    gradient, the losses, the params after DP_STEPS), then the f32 step's
+    eager and captured times."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.train import Trainer, capture
+    out = {}
+    with capture.eager():
+        with f64_policy(True):
+            net = dp_net("f64")
+            out["f64"] = dp_steps(Trainer(net), dp_batch("f64"), net)
+        del net
+        release()
+        batch = dp_batch("f32")
+        net = dp_net("f32")
+        trainer = Trainer(net)
+        out["f32"] = dp_steps(trainer, batch, net)
+        ms = []
+        for _ in range(DP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit_batch(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["eager_ms"] = float(np.mean(ms))
+    release()
+    trainer = Trainer(net)
+    for _ in range(3):        # two eager calls and the capture
+        trainer.fit_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        trainer.fit_batch(batch)
+    torch.cuda.synchronize()
+    out["captured_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    del trainer, net
+    release()
+    return out
+
+
+def dp_resnet_rank(pid: int, workdir: str) -> dict:
+    """(a) in one rank: DP_STEPS checked steps, step 0 again through the
+    plain versions, then DP_TIMED timed and DP_PROFILED profiled steps."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    batch = dp_batch("f32")
+    net = dp_net("f32")
+    out = {"same_start": ranks_equal(net.params_, net.state_)}
+    trainer = Trainer(net, layout="dp2")
+    layout = trainer._layout
+    start = host_copy(net.params_, net.state_)
+    grads = []
+    record_gradient(trainer, grads)
+    out.update(losses=[], launches=[], ms=[], equal=[], collectives=[])
+    update0 = None
+    for step in range(DP_STEPS):
+        kernel_counts(zero=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(trainer.fit_batch(batch).item())
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(launched(kernel_counts(zero=True)))
+        out["collectives"].append({k: (c.calls, c.bytes, c.seconds)
+                                   for k, c in layout.reset_stats().items()})
+        out["equal"].append(ranks_equal(net.params_, net.state_, net.opt_state))
+        if step == 0:
+            it = iter(start)
+            update0 = {v: {k: t - next(it).cuda() for k, t in d.items()}
+                       for v, d in net.params_.items()}
+    if pid == 0:
+        np.save(os.path.join(workdir, "grad0.npy"), grads[0])
+        np.save(os.path.join(workdir, "params.npy"), flat_param_vector(net.params_).cpu().numpy())
+    del trainer.tx.update
+
+    def reset():
+        it = iter(start)
+        with torch.no_grad():
+            tree_map(lambda t: t.copy_(next(it)), [net.params_, net.state_])
+        net.opt_state = None
+
+    # step 0 again, through both plain versions (comparison only)
+    reset()
+    saved = fused_mod.matmul_bn_act
+    fused_mod.matmul_bn_act = _PlainMatmulBnAct()
+    try:
+        kernel_counts(zero=True)
+        plain_loss = trainer.fit_batch(batch).item()
+        plain_launches = launched(kernel_counts(zero=True))
+    finally:
+        fused_mod.matmul_bn_act = saved
+    it = iter(start)
+    plain_update = {v: {k: t - next(it).cuda() for k, t in d.items()}
+                    for v, d in net.params_.items()}
+    errs = update_errs(update0, plain_update)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    out["vs_plain"] = {"loss": plain_loss, "launches": plain_launches,
+                       "loss_rel_err": abs(out["losses"][0] - plain_loss) / abs(plain_loss),
+                       "update_rel_err_max": worst[0][1], "update_rel_err_worst": worst[:3]}
+    del update0, plain_update
+    layout.reset_stats()
+    ms = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit_batch(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    timed = layout.reset_stats()
+    out["timed_ms"] = ms
+    out["grad_allreduce_ms"] = timed["gradient"].seconds / DP_TIMED * 1e3
+    out["grad_allreduce_bytes"] = timed["gradient"].bytes // DP_TIMED
+    out["bn_allreduces_per_step"] = timed["batch_statistics"].calls / DP_TIMED
+    out["bn_allreduce_ms"] = timed["batch_statistics"].seconds / DP_TIMED * 1e3
+    out["bn_allreduce_bytes_per_step"] = timed["batch_statistics"].bytes // DP_TIMED
+    param_bytes = sum(t.numel() * t.element_size() for t in flat_order_leaves(net.params_))
+    out["param_bytes"] = param_bytes
+    out["collective_bytes_per_step"] = layout.collective_bytes_per_step(param_bytes)
+    out["device_ms"] = device_ms(lambda: trainer.fit_batch(batch), reps=DP_PROFILED)
+    out["eager_reason"] = trainer._step.eager_reason
+    out["step_key_layout"] = trainer._step_key("train")[-2]
+    del trainer, net
+    release()
+    # the layout's arithmetic alone: the same steps in f64 (plain versions)
+    with f64_policy(True):
+        net = dp_net("f64")
+        f64 = dp_steps(Trainer(net, layout="dp2"), dp_batch("f64"), net)
+        out["f64_losses"] = f64["losses"]
+        out["f64_equal"] = ranks_equal(net.params_, net.state_, net.opt_state)
+    if pid == 0:
+        np.save(os.path.join(workdir, "grad0_f64.npy"), f64["grad0"])
+        np.save(os.path.join(workdir, "params_f64.npy"), f64["params"])
+    return out
+
+
+def dp_small_net():
+    """(b)'s net: phase 26 (c)'s two fused bottlenecks, under Nesterovs."""
+    from deeplearning4j_tpu_torch.train import Nesterovs
+    return dcn_process_net(Nesterovs(TRAIN_LR, 0.9))
+
+
+def dp_wrapper_rank(pid: int) -> dict:
+    """(b) in one rank."""
+    import torch
+    import warnings
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    x, y = dcn_batch(DP_SMALL_STEPS * MP_BATCH, MP_HW, MP_CLASSES, DP_SEED + 1, MP_CHANNELS)
+    batches = [DataSet(torch.from_numpy(x[i:i + MP_BATCH]).cuda(),
+                       torch.from_numpy(y[i:i + MP_BATCH]).cuda())
+               for i in range(0, len(x), MP_BATCH)]
+    out = {}
+    net = dp_small_net()
+    pw = ParallelWrapper(net, averaging_frequency=2)
+    kernel_counts(zero=True)
+    out["averaging_equal"] = []
+    for b in batches:
+        pw.fit_batch(b)
+        out["averaging_equal"].append(ranks_equal(net.params_))
+    out["averaging_launches"] = launched(kernel_counts(zero=True))
+    runs = {}
+    # two runs of the same steps: the same bits only under deterministic
+    # algorithms (cuDNN's convolution backward sums in a varying order)
+    with deterministic_algorithms():
+        for mode in ("unsharded", "zero1"):
+            net = dp_small_net()
+            tr = (Trainer(net, layout="dp2") if mode == "unsharded"
+                  else ParallelWrapper(net, zero_optimizer_sharding=True))
+            losses = [tr.fit_batch(b).item() for b in batches]
+            runs[mode] = (losses, host_copy(net.params_),
+                          sum(t.numel() * t.element_size() for t in tree_leaves(net.opt_state)),
+                          ranks_equal(net.params_, net.state_))
+    (ul, up, ub, ue), (zl, zp, zb, ze) = runs["unsharded"], runs["zero1"]
+    out["zero"] = {"losses": zl, "unsharded_losses": ul, "opt_bytes": zb,
+                   "unsharded_opt_bytes": ub, "ranks_equal": ue and ze,
+                   "params_equal": all(same_bits(a, b) for a, b in zip(zp, up)),
+                   "owners": tr.tx.owners}
+    return out
+
+
+def dp_worker(pid: int, n: int, workdir: str) -> dict:
+    """One rank of phase 28: (a), then (b)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entered = time.time()
+    out = {"pid": pid, "world": n, "resnet": dp_resnet_rank(pid, workdir)}
+    release()
+    out["wrapper"] = dp_wrapper_rank(pid)
+    out["entered_at"], out["left_at"] = entered, time.time()
+    return out
+
+
+def dense_data_parallel(card: str, two_slice_ms: float) -> dict:
+    """Phase 28 (module comment); ``two_slice_ms``: phase 26's 2-slice step."""
+    import functools
+    import tempfile
+    import numpy as np
+    import chip_smoke as module     # the worker pickles by this name, for the children
+    from deeplearning4j_tpu_torch.parallel.launcher import spawn_local_cluster
+    single = dp_single()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.time()
+    ranks = spawn_local_cluster(functools.partial(module.dp_worker, workdir=wd),
+                                n_processes=2, port=DP_PORT, device="cuda",
+                                extra_env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                                timeout=DP_TIMEOUT)
+    gang_s = time.time() - t0
+    ranks = sorted(ranks, key=lambda r: r["pid"])
+    a = [r["resnet"] for r in ranks]
+
+    def grad_err(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def leaf_errs(got, want):
+        errs, offset = [], 0
+        for size in single["f64"]["leaf_sizes"]:
+            w = want[offset:offset + size]
+            errs.append(float(np.abs(got[offset:offset + size] - w).max()
+                              / max(np.abs(w).max(), 1e-30)))
+            offset += size
+        return errs
+
+    s32, s64 = single["f32"], single["f64"]
+    g32, g64 = (np.load(os.path.join(wd, f)) for f in ("grad0.npy", "grad0_f64.npy"))
+    p32, p64 = (np.load(os.path.join(wd, f)) for f in ("params.npy", "params_f64.npy"))
+    cmp = {"f32": {"grad_err": grad_err(g32, s32["grad0"]),
+                   "param_err_max": max(leaf_errs(p32, s32["params"])),
+                   "loss_rel_err": abs(a[0]["losses"][0] - s32["losses"][0]) / abs(s32["losses"][0]),
+                   "grad_err_vs_f64": grad_err(g32, s64["grad0"].astype(np.float32)),
+                   "single_band": grad_err(s32["grad0"], s64["grad0"].astype(np.float32))},
+           "f64": {"grad_err": grad_err(g64, s64["grad0"]),
+                   "param_err_max": max(leaf_errs(p64, s64["params"])),
+                   "loss_rel_err": abs(a[0]["f64_losses"][0] - s64["losses"][0])
+                   / abs(s64["losses"][0])}}
+    c32, c64 = cmp["f32"], cmp["f64"]
+    band = max(DP_GRAD_TOL, DP_F32_BAND * c32["single_band"])
+    problems = []
+    if not all(r["same_start"] and all(r["equal"]) and r["f64_equal"] for r in a):
+        problems.append(f"ranks not byte-equal: start {[r['same_start'] for r in a]}, after "
+                        f"each step {[r['equal'] for r in a]}, f64 {[r['f64_equal'] for r in a]}")
+    if any(r["launches"] != [DP_LAUNCHES] * DP_STEPS for r in a):
+        problems.append(f"launches per rank per step {[r['launches'] for r in a]} (want "
+                        f"{DP_LAUNCHES})")
+    if not (c64["grad_err"] <= DP_GRAD_TOL and c64["param_err_max"] <= DP_PARAM_TOL
+            and c64["loss_rel_err"] <= TRAIN_LOSS0_TOL):
+        problems.append(f"dp2 vs the single process in f64: {c64} (limits: gradient "
+                        f"{DP_GRAD_TOL}, params {DP_PARAM_TOL}, loss {TRAIN_LOSS0_TOL})")
+    if not (c32["loss_rel_err"] <= TRAIN_LOSS0_TOL and c32["grad_err_vs_f64"] <= band):
+        problems.append(f"dp2 vs the single process in f32: {c32} (limits: loss "
+                        f"{TRAIN_LOSS0_TOL}, gradient against f64 {band:.3e})")
+    for r in a:
+        vp = r["vs_plain"]
+        if vp["launches"] or not (vp["loss_rel_err"] <= TRAIN_LOSS0_TOL
+                                  and vp["update_rel_err_max"] <= TRAIN_UPDATE_TOL):
+            problems.append(f"dp2 step 0 through the kernels vs the plain versions: {vp} "
+                            f"(limits {TRAIN_LOSS0_TOL}, {TRAIN_UPDATE_TOL})")
+    b = [r["wrapper"] for r in ranks]
+    if any(w["averaging_equal"] != [False, True] * (DP_SMALL_STEPS // 2) for w in b):
+        problems.append(f"averaging mode: ranks equal after each step "
+                        f"{[w['averaging_equal'] for w in b]}")
+    zero = [w["zero"] for w in b]
+    if not all(z["params_equal"] and z["ranks_equal"] for z in zero) or \
+            sum(z["opt_bytes"] for z in zero) != zero[0]["unsharded_opt_bytes"]:
+        problems.append(f"ZeRO-1: {zero}")
+    r0 = a[0]
+    timed = float(np.mean(r0["timed_ms"]))
+    out = {"card": card, "gang_s": gang_s,
+           "single": {"f32_losses": s32["losses"], "f64_losses": s64["losses"],
+                      "eager_ms": single["eager_ms"], "captured_ms": single["captured_ms"]},
+           "ranks": a, "wrapper": b, "vs_single": cmp, "f32_band_limit": band,
+           "dp2_step_ms": timed, "two_slice_step_ms": two_slice_ms,
+           "launches": {k: sum(step.get(k, 0) for r in a for step in r["launches"])
+                        for k in DP_LAUNCHES}}
+    log(f"dense data parallelism on {card}: full-width fused ResNet-50 f32 under "
+        f"Trainer(layout='dp2'), 2 processes sharing the card over gloo, global batch "
+        f"{DP_BATCH} ({DP_BATCH // 2} a rank), Nesterovs({TRAIN_LR}, 0.9): losses rank 0 "
+        f"{[round(v, 5) for v in r0['losses']]}, rank 1 "
+        f"{[round(v, 5) for v in a[1]['losses']]}, single process "
+        f"{[round(v, 5) for v in s32['losses']]}; ranks byte-equal after every step "
+        f"{[r['equal'] for r in a]}; launches per rank per step {r0['launches'][0]}")
+    log(f"  dp2 vs the single process on the same {DP_BATCH} images, f32 through the kernels: "
+        f"step-0 loss {r0['losses'][0]:.7f} vs {s32['losses'][0]:.7f} "
+        f"({c32['loss_rel_err']:.2e} relative), step-0 gradient max |diff| "
+        f"{c32['grad_err']:.3e} of its largest entry, params after {DP_STEPS} steps "
+        f"{c32['param_err_max']:.3e} of a leaf's largest entry; against the f64 single step the "
+        f"dp2 gradient reads {c32['grad_err_vs_f64']:.3e} and the single process's own "
+        f"{c32['single_band']:.3e} (limit {band:.3e}); in f64 (plain versions): loss "
+        f"{c64['loss_rel_err']:.2e}, gradient {c64['grad_err']:.3e} (limit {DP_GRAD_TOL}), "
+        f"params {c64['param_err_max']:.3e} (limit {DP_PARAM_TOL}); step 0 kernels vs plain: "
+        f"loss {r0['vs_plain']['loss_rel_err']:.2e}, updates "
+        f"{r0['vs_plain']['update_rel_err_max']:.2e} ({r0['vs_plain']['update_rel_err_worst'][:2]})")
+    log(f"  on {card}, eager step ms (mean of {DP_TIMED}): dp2 {timed:.3f} (rank 0 wall; "
+        f"device {r0['device_ms']:.3f} a rank, profiled), the single process at batch "
+        f"{DP_BATCH} {single['eager_ms']:.3f} eager, {single['captured_ms']:.3f} captured, "
+        f"phase 26's 2-slice step {two_slice_ms:.3f} (sync, captured); gradient all-reduce "
+        f"{r0['grad_allreduce_ms']:.3f} ms a step ({r0['grad_allreduce_bytes']} bytes; "
+        f"collective_bytes_per_step {r0['collective_bytes_per_step']}), "
+        f"{r0['bn_allreduces_per_step']:.0f} batch-statistics all-reduces a step "
+        f"({r0['bn_allreduce_bytes_per_step']} bytes, {r0['bn_allreduce_ms']:.3f} host ms in "
+        f"all, each waiting for the card to reach it); the step runs eagerly "
+        f"({r0['step_key_layout']!r} in its key): {r0['eager_reason']}; gang {gang_s:.1f} s")
+    log(f"  ParallelWrapper on two fused bottlenecks: averaging every 2 steps, ranks equal "
+        f"after each step {b[0]['averaging_equal']} (launches {b[0]['averaging_launches']}); "
+        f"ZeRO-1 params equal to the unsharded dp2 run's {[z['params_equal'] for z in zero]}, "
+        f"updater bytes per rank {[z['opt_bytes'] for z in zero]} of "
+        f"{zero[0]['unsharded_opt_bytes']} (layer owners {zero[0]['owners']})")
+    if problems:
+        raise AssertionError("phase 28: " + "; ".join(problems))
+    return out
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -7396,6 +7849,9 @@ def main() -> int:
     release()
     telemetry = training_telemetry(card)
     clock("phase 27")
+    release()
+    dense = dense_data_parallel(card, sharing["sync"]["step_ms"])
+    clock("phase 28")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7431,6 +7887,7 @@ def main() -> int:
            "serving_stack_launches": stack_run["router"]["launches"],
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act"],
            "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act"],
+           "dense_dp2_launches": dense["launches"]["matmul_bn_act"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -7446,6 +7903,7 @@ def main() -> int:
         | {"sass": hopper["matmul_bn_act_bwd"],
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act_bwd"],
            "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act_bwd"],
+           "dense_dp2_launches": dense["launches"]["matmul_bn_act_bwd"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
@@ -7503,7 +7961,7 @@ def main() -> int:
          "small_nets": small, "bert_headline_seq128": headline128, "attention_stack": stack,
          "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
          "serving_stack": stack_run, "gradient_sharing": sharing,
-         "training_telemetry": telemetry,
+         "training_telemetry": telemetry, "dense_data_parallel": dense,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

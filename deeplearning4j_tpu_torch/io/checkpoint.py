@@ -140,14 +140,23 @@ class CheckpointListener(TrainingListener):
             self._async.close()
 
     # ---------------------------------------------------------- listener
+    @staticmethod
+    def _writer(model) -> bool:
+        """Whether this process writes the scheduled checkpoints: under a
+        data-parallel layout only rank 0 does (``Trainer`` marks the net),
+        so each checkpoint is written once."""
+        return getattr(model, "_writes_checkpoints", True)
+
     def iteration_done(self, model, iteration, epoch, score):
+        if not self._writer(model):
+            return
         if self.every_iter and iteration > 0 and iteration % self.every_iter == 0:
             self._save(model, iteration, epoch)
         elif self.every_seconds and time.time() - self._last_save_time >= self.every_seconds:
             self._save(model, iteration, epoch)
 
     def on_epoch_end(self, model, epoch, info):
-        if self.every_epoch and (epoch + 1) % self.every_epoch == 0:
+        if self.every_epoch and (epoch + 1) % self.every_epoch == 0 and self._writer(model):
             self._save(model, model.iteration, epoch)
 
     def on_fit_end(self, model, info=None):

@@ -24,8 +24,10 @@ frozen layer still runs in training mode: only its updates are zeroed);
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional
+import threading
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -33,6 +35,40 @@ from deeplearning4j_tpu_torch.nn import weights as weight_inits
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 
 _LAYER_REGISTRY: dict[str, type] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """This process's part of a data-parallel step: the ``rank``-th of
+    ``size`` equal row blocks of the global batch.  ``reduce`` is the
+    differentiable sum over the ranks (``parallel.mesh.MeshLayout.
+    all_reduce_sum``) through which batch statistics become the global
+    batch's; None keeps them per shard (``ParallelWrapper``'s averaging
+    mode, whose replicas keep their own)."""
+
+    rank: int
+    size: int
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def data_shard(shard: Optional[DataShard]):
+    """Run the layers of this thread as ``shard`` of a data-parallel step
+    (:func:`current_shard`); None is the single-process step."""
+    prev = getattr(_SHARD, "value", None)
+    _SHARD.value = shard
+    try:
+        yield
+    finally:
+        _SHARD.value = prev
+
+
+def current_shard() -> Optional[DataShard]:
+    """The :class:`DataShard` the layers of this thread run as, or None."""
+    return getattr(_SHARD, "value", None)
 
 
 def _keep_mask(shape: tuple, p: float, gen: torch.Generator, device) -> torch.Tensor:
@@ -151,9 +187,19 @@ class Layer:
                        rng: Optional[torch.Generator]) -> torch.Tensor:
         """Input dropout with DL4J's retain probability p: keep each entry
         with probability p and scale it by 1/p, zero the rest; x as is at
-        p >= 1, at inference or without a stream."""
+        p >= 1, at inference or without a stream.  As a :class:`DataShard`
+        the mask is the global batch's, cut to this shard's rows."""
         p = self.dropout
         if not train or p is None or p >= 1.0 or rng is None:
             return x
-        keep = _keep_mask(tuple(x.shape), p, rng, x.device)
+        shard = current_shard()
+        if shard is None or shard.size == 1:
+            keep = _keep_mask(tuple(x.shape), p, rng, x.device)
+        else:
+            # the global batch's mask from the shared stream, this shard's
+            # rows of it: the single-process step's mask, as GSPMD's global
+            # key gives the JAX package's sharded step
+            b = x.shape[0]
+            keep = _keep_mask((b * shard.size,) + tuple(x.shape[1:]), p, rng,
+                              x.device)[shard.rank * b:(shard.rank + 1) * b]
         return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype, device=x.device))

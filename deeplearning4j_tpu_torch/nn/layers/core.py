@@ -23,7 +23,7 @@ import torch
 from deeplearning4j_tpu_torch.config import dtype_policy
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.input_type import InputType
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, current_shard, register_layer
 from deeplearning4j_tpu_torch.ops.kernels import quant_matmul
 
 
@@ -194,7 +194,9 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
 @dataclasses.dataclass
 class BatchNormalization(Layer):
     """Batch normalization over the channel (last) axis.  Train mode uses
-    the batch's mean and biased variance (in at least f32) and returns the
+    the batch's mean and biased variance (in at least f32; in a
+    data-parallel step the global batch's, from its all-reduced sum, sum of
+    squares and count) and returns the
     running statistics moved by ``decay`` (detached, values only); eval
     mode uses the running statistics.  Mean/var fold into a per-channel
     scale/shift in at least f32 (f64 under an f64 policy), applied in x's
@@ -226,8 +228,18 @@ class BatchNormalization(Layer):
         if train:
             axes = tuple(range(x.ndim - 1))
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = x32.mean(dim=axes)
-            var = x32.var(dim=axes, unbiased=False)
+            shard = current_shard()
+            if shard is not None and shard.reduce is not None:
+                # data parallel: the global batch's per-channel sum, sum of
+                # squares and count, in one differentiable all-reduce
+                c = x32.shape[-1]
+                total = shard.reduce(torch.cat([x32.sum(dim=axes), (x32 * x32).sum(dim=axes),
+                                                x32.new_full((1,), x32.numel() // c)]))
+                mean = total[:c] / total[2 * c]
+                var = torch.clamp_min(total[c:2 * c] / total[2 * c] - mean * mean, 0.0)
+            else:
+                mean = x32.mean(dim=axes)
+                var = x32.var(dim=axes, unbiased=False)
             state = {"mean": (self.decay * state["mean"] + (1.0 - self.decay) * mean).detach(),
                      "var": (self.decay * state["var"] + (1.0 - self.decay) * var).detach()}
         else:

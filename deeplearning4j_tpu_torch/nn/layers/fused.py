@@ -16,8 +16,11 @@ statistics: the 1x1 convs' come from the kernel's s1/s2 epilogue (so
 gradients flow back through them into the kernel's backward), the 3x3's
 from one reduction of its output; the variance is the one-pass
 E[y^2] - E[y]^2 clamped at 0, and the running mean/var move by ``decay``
-(returned detached).  In
-eval mode BN uses the running statistics.  Param and state keys are the
+(returned detached).  In a data-parallel step
+(``nn.layers.base.DataShard``) the sums and the row count are the global
+batch's, summed over the ranks by one differentiable all-reduce per BN,
+so every rank folds the same statistics and moves the same running
+ones.  In eval mode BN uses the running statistics.  Param and state keys are the
 JAX layer's (``W_a``, ``gamma_a``, ``mean_a``, ...).
 """
 
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.config import dtype_policy
 from deeplearning4j_tpu_torch.nn.input_type import InputType
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, current_shard, register_layer
 from deeplearning4j_tpu_torch.ops.kernels.conv_bn import matmul_bn_act
 
 
@@ -108,6 +111,14 @@ class FusedBottleneck(Layer):
         running statistics in ``new_state``."""
         if not train:
             return state[f"mean_{name}"], state[f"var_{name}"]
+        shard = current_shard()
+        if shard is not None and shard.reduce is not None:
+            # data parallel: the global batch's sums and rows, in one
+            # all-reduce whose backward sums ds1, ds2 over the ranks before
+            # the backward kernel folds them into dy
+            c = s1.shape[0]
+            total = shard.reduce(torch.cat([s1, s2, s1.new_full((1,), m)]))
+            s1, s2, m = total[:c], total[c:2 * c], total[2 * c]
         mean = s1 / m
         # one-pass E[y^2] - E[y]^2 can go slightly negative from f32
         # cancellation on a near-constant channel; clamp before the rsqrt

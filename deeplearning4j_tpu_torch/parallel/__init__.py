@@ -1,8 +1,14 @@
 """Distributed training and parallelism (port of
 ``deeplearning4j_tpu/parallel/``), as far as it is ported:
 
-- ``mesh``        — the axis constants and ``MeshSpec`` (the layout flag's
-                    parse);
+- ``mesh``        — the axis constants, ``MeshSpec`` (the layout flag's
+                    parse), ``make_mesh``, ``MeshLayout`` and
+                    ``resolve_layout``: the data-parallel layouts behind
+                    ``Trainer(mesh=..., layout="dpN")``, one process per
+                    data shard over ``torch.distributed``;
+- ``data_parallel`` — ``ParallelWrapper`` (a deprecated shim, imported
+                    lazily: its module warns): the every-step mode, the
+                    parameter-averaging mode and ZeRO-1;
 - ``compression`` — the threshold and bitmap gradient codecs (numpy, and
                     their torch device twins), the residual accumulator and
                     the adaptive threshold;
@@ -13,11 +19,10 @@
                     multi-process gangs;
 - ``inference``   — ``ParallelInference``, a shim over the serving engine.
 
-Not ported yet: ``unified``, ``data_parallel`` (``ParallelWrapper``),
-``tensor_parallel``, ``pipeline``, ``pipeline_stages``,
-``context_parallel``, ``expert_parallel``, ``MeshLayout``,
-``resolve_layout`` and ``make_mesh``.  Their names raise an
-``AttributeError``, and their modules an ``ImportError``, that says so.
+Not ported yet: ``unified``, ``tensor_parallel``, ``pipeline``,
+``pipeline_stages``, ``context_parallel``, ``expert_parallel`` and
+``make_multislice_mesh``.  Their names raise an ``AttributeError``, and
+their modules an ``ImportError``, that says so.
 """
 
 from deeplearning4j_tpu_torch.parallel.compression import (
@@ -32,12 +37,14 @@ from deeplearning4j_tpu_torch.parallel.dcn_trainer import MultiSliceTrainer
 from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 from deeplearning4j_tpu_torch.parallel.launcher import initialize, spawn_local_cluster
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, DATA_AXES, MESH_AXES, MeshSpec,
+    AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, DATA_AXES, MESH_AXES, MeshLayout,
+    MeshSpec, make_mesh, resolve_layout,
 )
 
 __all__ = [
     "AXIS_DATA", "AXIS_EXPERT", "AXIS_MODEL", "AXIS_PIPE", "AXIS_SEQ", "MESH_AXES", "DATA_AXES",
-    "MeshSpec", "threshold_encode", "threshold_decode", "bitmap_encode", "bitmap_decode",
+    "MeshSpec", "MeshLayout", "make_mesh", "resolve_layout", "ParallelWrapper",
+    "threshold_encode", "threshold_decode", "bitmap_encode", "bitmap_decode",
     "threshold_encode_device", "threshold_decode_device", "bitmap_encode_device",
     "bitmap_decode_device", "EncodedGradientsAccumulator", "AdaptiveThresholdAlgorithm",
     "InProcessTransport", "SocketTransport", "CompressedAllReducer", "MultiSliceTrainer",
@@ -46,14 +53,13 @@ __all__ = [
 
 # the JAX package's parallel names that wait for a later slice
 NOT_PORTED = {
-    "ParallelWrapper": "data_parallel", "MeshLayout": "mesh", "resolve_layout": "mesh",
-    "make_mesh": "mesh", "make_multislice_mesh": "dcn", "moe_ffn": "unified",
+    "make_multislice_mesh": "dcn", "moe_ffn": "unified",
     "moe_ffn_dense": "unified", "init_moe_params": "unified", "shard_moe_params": "unified",
     "ring_attention": "unified", "ulysses_attention": "unified",
     "reference_attention": "unified",
 }
-NOT_PORTED_MODULES = ("unified", "data_parallel", "tensor_parallel", "pipeline",
-                      "pipeline_stages", "context_parallel", "expert_parallel")
+NOT_PORTED_MODULES = ("unified", "tensor_parallel", "pipeline", "pipeline_stages",
+                      "context_parallel", "expert_parallel")
 
 
 def not_ported(module: str) -> None:
@@ -65,6 +71,11 @@ def not_ported(module: str) -> None:
 
 
 def __getattr__(name):
+    # ParallelWrapper resolves lazily: its module is a deprecation shim that
+    # warns on import, which users who never touch it must not see
+    if name == "ParallelWrapper":
+        from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelWrapper
+        return ParallelWrapper
     if name in NOT_PORTED or name in NOT_PORTED_MODULES:
         where = NOT_PORTED.get(name, name)
         raise AttributeError(

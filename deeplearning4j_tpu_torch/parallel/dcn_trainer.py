@@ -76,8 +76,9 @@ from deeplearning4j_tpu_torch.train.trainer import (
 from deeplearning4j_tpu_torch.train.updaters import jax_leaves, tree_map
 from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector, unflatten_param_vector
 
-DENSE_LAYOUT_SLICE = ("the dense layouts over torch.distributed (Trainer(layout='dpN'), "
-                      "ParallelWrapper), which are not ported yet")
+DENSE_LAYOUT_SLICE = ("slices of several ranks (each a process subgroup running "
+                      "Trainer(layout='dpN')), which are not ported yet: ROADMAP.md queue A "
+                      "item 2.2")
 
 
 def _exchange_retryable(e: BaseException) -> bool:

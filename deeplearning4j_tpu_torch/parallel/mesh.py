@@ -1,7 +1,5 @@
-"""The mesh vocabulary (the part of ``deeplearning4j_tpu/parallel/mesh.py``
-that ``MultiSliceTrainer`` uses): the axis constants and
-:class:`MeshSpec`, the parse target of every layout flag (``"dp2"``,
-``"dp2xtp2xpp2"``).
+"""The mesh vocabulary and the dense data-parallel layout (port of
+``deeplearning4j_tpu/parallel/mesh.py``).
 
 Axis conventions, the JAX package's:
 
@@ -11,15 +9,48 @@ Axis conventions, the JAX package's:
 - ``pipe``   — pipeline stages;
 - ``expert`` — expert parallelism (MoE).
 
-Not ported yet: ``MeshLayout``, ``resolve_layout``, ``make_mesh``, the
-tensor-parallel rule tables and the placement helpers.  They come with
-the dense layouts over ``torch.distributed``.
+The JAX package lays its axes over one ``jax.sharding.Mesh`` of devices
+and lets GSPMD partition one program.  The port runs **one process per
+data shard** over a ``torch.distributed`` process group (started by
+``parallel.launcher.initialize`` or ``spawn_local_cluster``):
+
+- :func:`make_mesh` gives a :class:`ProcessMesh`: the group, each rank's
+  device and the axis sizes;
+- :class:`MeshSpec` parses a layout flag (``"dp2"``) and builds the mesh;
+- :class:`MeshLayout` is a resolved layout: this rank's rows of a batch
+  (:meth:`MeshLayout.shard_batch`), the broadcast that makes every rank
+  start from rank 0's trees (:meth:`MeshLayout.replicate`), the
+  collectives of a step on the layout's group (a differentiable
+  all-reduce for batch statistics, one flat all-reduce of the gradient in
+  ``utils/pytree.py``'s order), a stable cache signature, the analytic
+  collective bytes of a step and the ``tpudl_mesh_*`` gauges;
+- :func:`resolve_layout` is the one rule behind every ``mesh=`` /
+  ``layout=`` flag.
+
+The collectives are the library's (``torch.distributed``), not kernels:
+no TPU kernel stands behind them.  A gloo group takes CUDA tensors for
+``all_reduce`` and ``broadcast`` (it stages them through the host), the
+only two collectives a layout issues on the device; a step that holds
+gloo collectives cannot be captured in a CUDA graph, so it runs eagerly
+(:attr:`MeshLayout.captures`, and the step key says so).
+
+Only the ``data`` axis is ported.  A layout with ``model``, ``pipe``,
+``seq`` or ``expert`` > 1 raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it, and so does an elastic resize.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
+import threading
+import time
+from typing import Any, Optional, Sequence
+
+import torch
+
+from deeplearning4j_tpu_torch.train.updaters import jax_leaves, jax_unflatten, tree_leaves
 
 AXIS_PIPE = "pipe"
 AXIS_DATA = "data"
@@ -33,6 +64,10 @@ MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_SEQ, AXIS_EXPERT, AXIS_MODEL)
 # the axes that shard the batch
 DATA_AXES = (AXIS_DATA,)
 
+# the JAX package's tensor-parallel rule families, by name (their rules
+# come with the model-axis layouts)
+TP_RULE_FAMILIES = ("dense", "bert")
+
 # layout token → axis name for MeshSpec.parse ("dp2xtp2xpp2")
 _LAYOUT_TOKENS = {
     "dp": AXIS_DATA, "tp": AXIS_MODEL, "pp": AXIS_PIPE, "sp": AXIS_SEQ, "ep": AXIS_EXPERT,
@@ -41,6 +76,17 @@ _LAYOUT_TOKENS = {
 }
 
 _TOKEN_RE = re.compile(r"([a-z]+)(\d+)")
+
+# the ROADMAP.md item that ports each axis the port does not run yet
+_NOT_PORTED_AXES = {
+    AXIS_MODEL: "queue A item 2.5 (the model-axis layouts: tp and dp x tp, with the TP rule "
+                "families)",
+    AXIS_PIPE: "queue A item 2.4 (pipeline.py, pipeline_stages.py and unified.py's pipeline "
+               "helpers)",
+    AXIS_SEQ: "queue A item 2.4 (unified.py's ring and Ulysses attention)",
+    AXIS_EXPERT: "queue A item 2.4 (unified.py's MoE functions)",
+}
+_RESIZE_ITEM = "queue A item 2.3 (the supervisor, elastic.py and Trainer.resize_mesh)"
 
 
 @dataclasses.dataclass
@@ -92,6 +138,12 @@ class MeshSpec:
                              f"positive size)")
         return spec
 
+    @classmethod
+    def from_mesh(cls, mesh: "ProcessMesh") -> "MeshSpec":
+        shape = mesh.shape
+        return cls(data=shape[AXIS_DATA], model=shape[AXIS_MODEL], seq=shape[AXIS_SEQ],
+                   pipe=shape[AXIS_PIPE], expert=shape[AXIS_EXPERT])
+
     def describe(self) -> str:
         """The stable short form (``"dp2xtp2xpp2"``; ``"single"`` when
         trivial): the layout's label on metrics and cache keys."""
@@ -99,3 +151,358 @@ class MeshSpec:
                  (("dp", self.data), ("tp", self.model), ("pp", self.pipe), ("sp", self.seq),
                   ("ep", self.expert)) if size > 1]
         return "x".join(parts) if parts else "single"
+
+    def build(self, devices=None, group=None) -> "ProcessMesh":
+        """The mesh of these sizes over the process group (:func:`make_mesh`)."""
+        return make_mesh(data=self.data, model=self.model, seq=self.seq, pipe=self.pipe,
+                         expert=self.expert, devices=devices, group=group)
+
+
+def _refuse_unported(spec: MeshSpec) -> None:
+    for axis, size in spec.sizes().items():
+        if axis != AXIS_DATA and size > 1:
+            raise NotImplementedError(
+                f"layout {spec.describe()!r}: the {axis!r} axis is not ported yet; "
+                f"ROADMAP.md {_NOT_PORTED_AXES[axis]} ports it.  The port runs the data axis "
+                f"only (layout='dp<N>')")
+
+
+class ProcessMesh:
+    """The port's mesh: a ``torch.distributed`` process group whose ranks
+    are laid out over the axes (:data:`MESH_AXES` order, one process per
+    position), with each rank's device.  ``shape`` maps every axis to its
+    size, as a ``jax.sharding.Mesh``'s does."""
+
+    def __init__(self, shape: dict, devices: Sequence, group=None):
+        import torch.distributed as dist
+        self.shape = {axis: int(shape.get(axis, 1)) for axis in MESH_AXES}
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
+        self.devices = [torch.device(d) for d in devices]
+        if len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a group of {self.size} ranks")
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices[self.rank]
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.shape}, rank {self.rank} of {self.size}, {self.backend}, "
+                f"{[str(d) for d in self.devices]})")
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1, pipe: int = 1,
+              expert: int = 1, devices=None, group=None) -> ProcessMesh:
+    """The mesh over the initialized process group (``group``, or the
+    default one) with axes ('pipe', 'data', 'seq', 'expert', 'model'),
+    ``data`` defaulting to the ranks the other axes leave.  The group's
+    world size must equal the product of the sizes.  ``devices`` is each
+    rank's device: one for all of them (``"cuda"``: the ranks share the
+    card, or each its current card; ``"cpu"``) or one per rank; the card
+    by default."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh needs an initialized torch.distributed process group, one process per "
+            "data shard: start the processes with parallel.launcher.spawn_local_cluster, or "
+            "call parallel.launcher.initialize(address, num_processes, process_id) in each")
+    n = dist.get_world_size(group)
+    if data is None:
+        denom = model * seq * pipe * expert
+        if n % denom:
+            raise ValueError(f"{n} processes not divisible by model*seq*pipe*expert={denom}")
+        data = n // denom
+    spec = MeshSpec(data=data, model=model, seq=seq, pipe=pipe, expert=expert)
+    if spec.total() != n:
+        raise ValueError(
+            f"layout {spec.describe()!r} needs {spec.total()} processes, the process group has "
+            f"{n}: run one process per shard (parallel.launcher.initialize or "
+            f"spawn_local_cluster with n_processes={spec.total()})")
+    if devices is None:
+        devices = DEFAULT_DEVICE
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    for d in devices:
+        resolve_device(d)
+    return ProcessMesh(spec.sizes(), devices, group)
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """What a layout's collectives of one kind did: calls, bytes reduced
+    (the tensors' sizes) and the host seconds of the calls (for a CUDA
+    tensor on gloo, the wait for the card to reach the call included,
+    unless the call was timed: then the card caught up first)."""
+
+    calls: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce (sum) over the layout's group whose backward is the
+    all-reduce (sum) of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, layout, kind, t):
+        ctx.layout, ctx.kind = layout, kind
+        out = t.contiguous().clone()
+        layout.all_reduce_(out, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        ctx.layout.all_reduce_(g, ctx.kind)
+        return None, None, g
+
+
+class MeshLayout:
+    """A resolved data-parallel layout over one :class:`ProcessMesh`
+    (module docstring); construct it with :func:`resolve_layout`."""
+
+    def __init__(self, spec: MeshSpec, mesh: Optional[ProcessMesh] = None,
+                 tp_family: str = "dense", devices=None):
+        _refuse_unported(spec)
+        if tp_family not in TP_RULE_FAMILIES:
+            raise ValueError(f"unknown TP rule family {tp_family!r} (have "
+                             f"{sorted(TP_RULE_FAMILIES)})")
+        self.spec = spec
+        self.tp_family = tp_family
+        self.mesh = mesh if mesh is not None else spec.build(devices)
+        built = MeshSpec.from_mesh(self.mesh)
+        if built.sizes() != spec.sizes():
+            raise ValueError(f"mesh shape {self.mesh.shape} does not match layout spec "
+                             f"{spec.sizes()}")
+        self._stats_lock = threading.Lock()
+        self.stats: dict[str, CollectiveStats] = {}
+        self._shard = None
+
+    # ------------------------------------------------------------ facts
+    @property
+    def data(self) -> int:
+        return self.spec.data
+
+    @property
+    def rank(self) -> int:
+        """This process's position on the data axis."""
+        return self.mesh.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def captures(self) -> bool:
+        """Whether a step holding this layout's collectives can be captured
+        in a CUDA graph: NCCL's can, gloo's (host-staged) cannot."""
+        return self.mesh.backend == "nccl"
+
+    def describe(self) -> str:
+        return self.spec.describe()
+
+    def is_trivial(self) -> bool:
+        return self.spec.total() == 1
+
+    def cache_signature(self) -> str:
+        """Deterministic string for step-cache keys: axis sizes, TP family
+        and device kind, the JAX package's form; stable across processes."""
+        return (f"layout:{self.describe()}|tp:{self.tp_family}"
+                f"|devs:{self.spec.total()}:{self.mesh.device.type}")
+
+    def step_signature(self) -> str:
+        """:meth:`cache_signature`, plus ``|eager:<backend>`` where the
+        layout's steps cannot be captured."""
+        sig = self.cache_signature()
+        return sig if self.captures else f"{sig}|eager:{self.mesh.backend}"
+
+    def eager_reason(self) -> Optional[str]:
+        """Why a step holding this layout's collectives runs eagerly, or
+        None where it can be captured."""
+        if self.captures:
+            return None
+        return (f"{self.mesh.backend} collectives stage through the host and cannot be "
+                f"captured in a CUDA graph")
+
+    # -------------------------------------------------------- placement
+    def shard_batch(self, tree):
+        """This rank's rows of every array of ``tree`` (a tensor, a numpy
+        array, a list or tuple of them, None): the leading dim split into
+        ``data`` contiguous blocks, as GSPMD shards it; it must divide."""
+        def rows(a):
+            if a is None:
+                return None
+            if isinstance(a, (list, tuple)):
+                return type(a)(rows(v) for v in a)
+            n = a.shape[0]
+            if n % self.data:
+                raise ValueError(f"a batch of {n} does not split into {self.data} equal shards "
+                                 f"(layout {self.describe()!r})")
+            per = n // self.data
+            return a[self.rank * per:(self.rank + 1) * per]
+        return rows(tree)
+
+    def replicate(self, tree, src: int = 0):
+        """Every tensor of ``tree`` overwritten in place by rank ``src``'s
+        (its rank in the mesh's group; one broadcast per dtype); returns
+        ``tree``."""
+        import torch.distributed as dist
+        group = self.mesh.group
+        root = src if group is None else dist.get_global_rank(group, src)
+        leaves = [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+        for dtype in dict.fromkeys(t.dtype for t in leaves):
+            same = [t for t in leaves if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            t0 = time.perf_counter()
+            dist.broadcast(flat, src=root, group=group)
+            self._count("broadcast", flat, time.perf_counter() - t0)
+            offset = 0
+            with torch.no_grad():
+                for t in same:
+                    t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+                    offset += t.numel()
+        return tree
+
+    # ------------------------------------------------------ collectives
+    def _count(self, kind: str, t: torch.Tensor, seconds: float) -> None:
+        with self._stats_lock:
+            s = self.stats.setdefault(kind, CollectiveStats())
+            s.calls += 1
+            s.bytes += t.numel() * t.element_size()
+            s.seconds += seconds
+
+    def all_reduce_(self, t: torch.Tensor, kind: str = "other", timed: bool = False):
+        """Sum ``t`` over the group, in place (no autograd), counted under
+        ``kind`` with its host seconds; ``timed`` waits for the device first
+        (not while a CUDA graph is being captured), so that they are the
+        collective's alone."""
+        import torch.distributed as dist
+        if timed and t.is_cuda and not torch.cuda.is_current_stream_capturing():
+            torch.cuda.current_stream(t.device).synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=self.mesh.group)
+        self._count(kind, t, time.perf_counter() - t0)
+        return t
+
+    def all_reduce_sum(self, t: torch.Tensor, kind: str = "batch_statistics") -> torch.Tensor:
+        """The sum of ``t`` over the group, differentiable: its backward
+        sums the cotangent over the group."""
+        return _AllReduceSum.apply(self, kind, t)
+
+    def data_shard(self):
+        """This rank's ``nn.layers.base.DataShard``: batch statistics
+        summed over the group by :meth:`all_reduce_sum`."""
+        from deeplearning4j_tpu_torch.nn.layers.base import DataShard
+        if self._shard is None:
+            self._shard = DataShard(self.rank, self.data, self.all_reduce_sum)
+        return self._shard
+
+    def all_reduce_tree(self, tree, extra: Sequence[torch.Tensor] = (),
+                        kind: str = "gradient"):
+        """Every leaf of ``tree`` and every tensor of ``extra`` summed over
+        the group in ONE all-reduce of their concatenation (the leaves in
+        ``utils/pytree.py``'s flat order, then ``extra``), in the widest of
+        their dtypes; returns (the summed tree, the summed ``extra``), each
+        leaf in its own dtype."""
+        leaves = jax_leaves(tree)
+        parts = leaves + list(extra)
+        dtype = functools.reduce(torch.promote_types, [p.dtype for p in parts])
+        flat = torch.cat([p.reshape(-1).to(dtype) for p in parts])
+        self.all_reduce_(flat, kind, timed=True)
+        offset = 0
+
+        def take(like):
+            nonlocal offset
+            out = flat[offset:offset + like.numel()].view(like.shape).to(like.dtype)
+            offset += like.numel()
+            return out
+        summed = jax_unflatten(tree, take)
+        return summed, [take(e) for e in extra]
+
+    def reset_stats(self) -> dict:
+        """The collective counts so far (kind → :class:`CollectiveStats`),
+        then zeroed."""
+        with self._stats_lock:
+            out, self.stats = self.stats, {}
+        return out
+
+    # ------------------------------------------------------- cost model
+    def collective_bytes_per_step(self, param_bytes: int) -> int:
+        """Analytic per-step collective traffic (bytes) of this layout, the
+        JAX package's ring model: the gradient all-reduce moves
+        ``2·(n−1)/n · param_bytes`` on the data axis (the only axis
+        ported)."""
+        total = 0.0
+        if self.data > 1:
+            total += 2.0 * (self.data - 1) / self.data * param_bytes
+        return int(total)
+
+    # ---------------------------------------------------------- metrics
+    def publish_metrics(self, param_bytes: Optional[int] = None) -> None:
+        """Stamp the ``tpudl_mesh_*`` gauges for this layout: the active
+        layout, the axis sizes and the per-step collective-bytes
+        estimate."""
+        from deeplearning4j_tpu_torch.obs.registry import get_registry
+        reg = get_registry()
+        reg.gauge("tpudl_mesh_devices").set(self.spec.total())
+        axis_gauge = reg.labeled_gauge("tpudl_mesh_axis_size", label_names=("axis",))
+        for axis, size in self.spec.sizes().items():
+            axis_gauge.set(size, axis=axis)
+        reg.labeled_gauge("tpudl_mesh_layout_active", label_names=("layout",)).set(
+            1, layout=self.describe())
+        if param_bytes is not None:
+            reg.gauge("tpudl_mesh_collective_bytes").set(self.collective_bytes_per_step(param_bytes))
+
+
+def resize_spec(spec: MeshSpec, n_devices: int) -> MeshSpec:
+    """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
+    raise NotImplementedError(f"elastic resizing is not ported yet; ROADMAP.md {_RESIZE_ITEM} "
+                              f"ports it")
+
+
+def resize_layout(layout: MeshLayout, n_devices: int, devices=None) -> MeshLayout:
+    """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
+    return resize_spec(layout.spec, n_devices)
+
+
+def resolve_layout(mesh: Optional[ProcessMesh] = None, layout: Any = None,
+                   tp_family: str = "dense", devices=None) -> Optional[MeshLayout]:
+    """The ONE resolution rule behind every ``mesh=`` / ``layout=`` flag,
+    the JAX package's:
+
+    - ``layout``: a layout string (``"dp2"``), a :class:`MeshSpec`, or a
+      resolved :class:`MeshLayout` (returned as it is);
+    - ``mesh``: a :class:`ProcessMesh` (:func:`make_mesh`) whose axis
+      sizes define the layout; with ``layout`` too, they must agree;
+    - both ``None`` → ``None`` (the single-device path), and so does a
+      trivial layout (one process in all).
+
+    ``devices`` is each rank's device when the mesh is built here.  A
+    layout whose axes are not ported raises ``NotImplementedError`` (before
+    any process group is needed); one that the group's size does not
+    match raises ``ValueError``; with no group initialized, ``RuntimeError``."""
+    if layout is None and mesh is None:
+        return None
+    if isinstance(layout, MeshLayout):
+        if mesh is not None and layout.mesh is not mesh:
+            raise ValueError("pass mesh= or a resolved MeshLayout, not both")
+        return None if layout.is_trivial() else layout
+    spec: Optional[MeshSpec] = None
+    if layout is not None:
+        spec = layout if isinstance(layout, MeshSpec) else MeshSpec.parse(str(layout))
+    if mesh is not None:
+        mesh_spec = MeshSpec.from_mesh(mesh)
+        if spec is not None and mesh_spec.sizes() != spec.sizes():
+            raise ValueError(f"layout {spec.describe()!r} disagrees with the mesh's axis sizes "
+                             f"{mesh.shape}")
+        spec = mesh_spec
+    _refuse_unported(spec)
+    if spec.total() == 1:
+        return None
+    return MeshLayout(spec, mesh=mesh, tp_family=tp_family, devices=devices)
+

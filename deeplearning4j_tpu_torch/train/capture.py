@@ -36,6 +36,10 @@ are ``None``):
   and come back as fresh copies, so a loss kept by the caller does not
   change on the next replay.
 
+A step made with an ``eager_reason`` (a data-parallel step over a gloo
+group, whose collectives stage through the host) never captures: it runs
+as the plain function on every call and says why.
+
 The graphs of one step share one memory pool.  A capture that fails
 raises :class:`CaptureError` naming the step and the signature; nothing
 runs eagerly in its place.  On the CPU, inside :func:`eager` and while
@@ -152,12 +156,17 @@ class _Binding:
 
 class CapturedStep:
     """``fn`` run as CUDA graphs on the card (module docstring); ``name``
-    labels it in errors (the step cache passes its key)."""
+    labels it in errors (the step cache passes its key).  A step that
+    cannot be captured (its data-parallel collectives stage through the
+    host: ``parallel.mesh.MeshLayout.eager_reason``) says why in
+    ``eager_reason`` and always runs as its plain function."""
 
-    def __init__(self, fn: Callable, n_trees: int, name: Any = ""):
+    def __init__(self, fn: Callable, n_trees: int, name: Any = "",
+                 eager_reason: Optional[str] = None):
         self.fn = fn
         self.n_trees = n_trees
         self.name = name
+        self.eager_reason = eager_reason
         self._bindings: dict[tuple, _Binding] = {}
         self._warm: dict[tuple, int] = {}
         self._seen: set = set()          # (tree signature, batch signature) pairs called
@@ -186,7 +195,7 @@ class CapturedStep:
         batch_sig = _batch_signature(rest)
         # anomaly mode (obs.profiler.enable_debug_nans) reads values on the
         # host, which a capture cannot
-        if _eager_depth or torch.is_anomaly_enabled() or not (
+        if _eager_depth or self.eager_reason or torch.is_anomaly_enabled() or not (
                 leaves and torch.is_tensor(leaves[0]) and leaves[0].device.type == "cuda"):
             with self._lock:
                 self._seen.add((_tree_signature(leaves), batch_sig))

@@ -23,8 +23,7 @@ Hits and misses are counted under the JAX package's metric names
 process started in :func:`counters` (which a swapped registry does not
 reset).  Not ported yet: the cost-model tag of every cached step
 (``obs/costmodel.py``) and the artifact store's wrap
-(``train/artifact_store.py``); the sharding signature of a parallel layout
-waits for ``parallel/``.
+(``train/artifact_store.py``).
 """
 
 from __future__ import annotations
@@ -83,12 +82,19 @@ def updater_signature(conf) -> Optional[str]:
                       sort_keys=True, default=repr)
 
 
-def sharding_signature(shardings) -> str:
-    """The placement pinned into a sharded step; ``""`` for a single
-    device, the only layout ported (``parallel/`` is not)."""
-    if shardings is None:
+def sharding_signature(layout) -> str:
+    """The placement a step runs under: ``""`` for a single device, a
+    data-parallel layout's ``step_signature()`` (``parallel.mesh.
+    MeshLayout``: its axes and device kind, and ``|eager:gloo`` where its
+    steps cannot be captured).  Per-leaf shardings (the JAX package's
+    NamedSharding trees) belong to the model-axis layouts of
+    ``parallel/``, not ported yet."""
+    if layout is None:
         return ""
-    raise NotImplementedError("sharded steps wait for parallel/, which is not ported yet")
+    if hasattr(layout, "step_signature"):
+        return layout.step_signature()
+    raise NotImplementedError("per-leaf shardings wait for the model-axis layouts of "
+                              "parallel/, which are not ported yet")
 
 
 def get_or_build(key: Optional[tuple], builder: Callable[[], Any]) -> Any:

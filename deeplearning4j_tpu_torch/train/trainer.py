@@ -53,8 +53,24 @@ captures a signature's graph is timed as a compile too
 ``tpudl_train_step_seconds`` sample.  With tracing off a step waits for
 nothing on the card.
 
-Not ported yet: parallel layouts, the artifact store, the cost model's
-step hooks and the supervisor's resume pointer (``resilience/``).
+Data parallelism, as the JAX package's ``Trainer(mesh=..., layout=
+"dpN")``: one process per data shard over a ``torch.distributed`` group
+(``parallel.launcher``), each calling ``Trainer(net, layout="dp2")`` on
+the same config, weights and iterator.  Each rank takes its rows of every
+global batch (``MeshLayout.shard_batch``), runs its layers as that shard
+(``nn.layers.base.DataShard``: batch-norm statistics summed over the
+ranks, dropout masks the global batch's), scores against the global
+normalizer (a mask's count summed; the penalty counted once, on rank 0)
+and sums its gradient and loss with the others' in one all-reduce before
+the update, so the params, the layer state and the updater state stay
+the same on every rank, and equal to the single-process step on the
+whole batch.  Rank 0 writes the checkpoints.  A step over a gloo group
+runs eagerly (its collectives stage through the host; the step's key and
+``CapturedStep.eager_reason`` say so).
+
+Not ported yet: the model-axis and pipeline layouts, elastic resizing,
+the artifact store, the cost model's step hooks and the supervisor's
+resume pointer (``resilience/``).
 """
 
 from __future__ import annotations
@@ -71,6 +87,7 @@ import torch
 from deeplearning4j_tpu_torch.config import get_config, resolve_device
 from deeplearning4j_tpu_torch.data.device_pipeline import (
     DeviceFeeder, FedBatch, ensure_feature_mask, pad_segment)
+from deeplearning4j_tpu_torch.nn.layers.base import DataShard, data_shard
 from deeplearning4j_tpu_torch.nn.losses import mean_score
 from deeplearning4j_tpu_torch.obs import flight_recorder, profiler, tracing
 from deeplearning4j_tpu_torch.obs.listeners import ListenerBus
@@ -87,7 +104,8 @@ from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
 STREAM_SEED_OFFSET = 7919
 
 
-def make_loss_fn(net, train: bool = True, with_carries: bool = False):
+def make_loss_fn(net, train: bool = True, with_carries: bool = False,
+                 shard: Optional[DataShard] = None):
     """``(params, state, features, labels, features_mask, labels_mask, rng)
     -> (loss, new_state)``, ``rng`` the step's stream (the layers draw
     from it in order); ``train=False`` scores in inference mode (no
@@ -95,7 +113,16 @@ def make_loss_fn(net, train: bool = True, with_carries: bool = False):
     ``with_carries`` (tBPTT) the function takes the recurrent carries
     after ``state`` and returns ``(loss, (new_state, new_carries))``.  A
     per-timestep score array ``[B, T]`` without a labels mask is masked by
-    the features mask."""
+    the features mask.
+
+    ``shard``: the layers run as this rank's part of a data-parallel step
+    (``nn.layers.base.data_shard``).  Where it sums over the ranks
+    (``shard.reduce``), the loss is this rank's share of the global one:
+    its examples' scores over the global normalizer (the global example
+    count, or the mask's count summed over the ranks) and the penalty on
+    rank 0 only, so the shares, and their gradients, sum to the
+    single-process step's."""
+    synced = shard is not None and shard.reduce is not None
 
     def score(params, score_array, features_mask, labels_mask):
         if score_array is None:
@@ -104,12 +131,20 @@ def make_loss_fn(net, train: bool = True, with_carries: bool = False):
         mask = labels_mask
         if mask is None and score_array.ndim == 2 and features_mask is not None:
             mask = features_mask
-        if net.conf.mini_batch:
+        if net.conf.mini_batch and not synced:
             loss = mean_score(score_array, mask)
+        elif net.conf.mini_batch and mask is None:
+            loss = score_array.sum() / (score_array.numel() * shard.size)
+        elif net.conf.mini_batch:
+            mask = mask.reshape(score_array.shape).to(score_array.dtype)
+            count = shard.reduce(mask.sum().reshape(1))[0]
+            loss = (score_array * mask).sum() / count.clamp_min(1.0)
         else:   # minibatch(false): the sum, not the mean, over the examples
             if mask is not None:
                 score_array = score_array * mask.reshape(score_array.shape)
             loss = score_array.sum()
+        if synced and shard.rank != 0:
+            return loss
         layer_params = net.layer_params(params) if hasattr(net, "layer_params") else params
         for layer, p in zip(net.layers, layer_params):
             if p:
@@ -119,16 +154,18 @@ def make_loss_fn(net, train: bool = True, with_carries: bool = False):
     if with_carries:
         def loss_fn(params, state, carries, features, labels, features_mask, labels_mask,
                     rng=None):
-            _, new_state, score_array, new_carries = net._forward_impl(
-                params, state, features, carries, train=train, rng=rng, mask=features_mask,
-                labels=labels)
+            with data_shard(shard):
+                _, new_state, score_array, new_carries = net._forward_impl(
+                    params, state, features, carries, train=train, rng=rng,
+                    mask=features_mask, labels=labels)
             return (score(params, score_array, features_mask, labels_mask),
                     (new_state, new_carries))
     else:
         def loss_fn(params, state, features, labels, features_mask, labels_mask, rng=None):
-            _, new_state, score_array = net._forward(params, state, features, train=train,
-                                                     rng=rng, mask=features_mask,
-                                                     labels=labels)
+            with data_shard(shard):
+                _, new_state, score_array = net._forward(params, state, features, train=train,
+                                                         rng=rng, mask=features_mask,
+                                                         labels=labels)
             return score(params, score_array, features_mask, labels_mask), new_state
 
     return loss_fn
@@ -177,14 +214,17 @@ def net_optimizer(net) -> updater_mod.Optimizer:
         frozen=as_tree(frozen))
 
 
-def _update(net, tx, loss_fn):
+def _update(net, tx, loss_fn, layout=None):
     """``(params, state, opt_state, *args) -> (loss, aux, grads, updates)``:
     the loss and its gradient in every param (zeros where the loss never
     reads one), the optimizer's step (``tx``, :func:`net_optimizer`:
     normalization, updater, frozen layers) added to the params and its new
     state written into ``opt_state``, in place; ``aux`` is what
     ``loss_fn`` returned beside the loss, for the caller to write, and
-    ``grads`` and ``updates`` the trees the statistics step reads."""
+    ``grads`` and ``updates`` the trees the statistics step reads.  Under
+    a data-parallel ``layout`` (``parallel.mesh.MeshLayout``) the gradient
+    and the loss are summed over its ranks in one all-reduce before the
+    update: the global batch's."""
 
     def update(params, state, opt_state, *args):
         grad_params = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -194,16 +234,29 @@ def _update(net, tx, loss_fn):
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         flat = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, flat)])
         grads = tree_map(lambda _: next(flat), params)
+        loss = loss.detach()
+        if layout is not None:
+            grads, (loss,) = layout.all_reduce_tree(grads, extra=(loss,))
         with torch.no_grad():
             updates, new_opt_state = tx.update(grads, opt_state, params)
-            tree_map(lambda p, u: p.add_(u), params, updates)
+            tree_map(lambda u, p: p.add_(u), updates, params)
             write_into(opt_state, new_opt_state)
-        return loss.detach(), aux, grads, updates
+        return loss, aux, grads, updates
 
     return update
 
 
-def make_train_step(net, tx, with_stats: bool = False, name=""):
+def _step_shard(layout, shard):
+    """The :class:`DataShard` a step's layers run as: ``shard`` as given,
+    else the layout's (batch statistics summed over its ranks)."""
+    return shard if shard is not None or layout is None else layout.data_shard()
+
+
+def _eager_reason(layout):
+    return None if layout is None else layout.eager_reason()
+
+
+def make_train_step(net, tx, with_stats: bool = False, name="", layout=None, shard=None):
     """The training step, ``(params, state, opt_state, features, labels,
     features_mask, labels_mask, rng) -> (params, state, opt_state, loss)``:
     the params, the layers' state and the updater's state are updated in
@@ -218,8 +271,15 @@ def make_train_step(net, tx, with_stats: bool = False, name=""):
     and packed into one tensor (``obs.stats.pack_stats``;
     ``unpack_stats`` with ``stats_keys(params)`` reads it), so a sampled
     iteration costs one copy of a few kB, never the tensors.  The update
-    is the plain step's, so it leaves the same params."""
-    update = _update(net, tx, make_loss_fn(net, train=True))
+    is the plain step's, so it leaves the same params.
+
+    ``layout`` (``parallel.mesh.MeshLayout``): the data-parallel step of
+    the module docstring, run eagerly where the layout's collectives
+    cannot be captured.  ``shard`` without a layout runs the layers as a
+    :class:`DataShard` whose statistics stay its own (``ParallelWrapper``'s
+    averaging mode)."""
+    update = _update(net, tx, make_loss_fn(net, train=True, shard=_step_shard(layout, shard)),
+                     layout)
 
     def step(params, state, opt_state, features, labels, features_mask, labels_mask, rng):
         loss, new_state, grads, updates = update(params, state, opt_state, features, labels,
@@ -232,17 +292,20 @@ def make_train_step(net, tx, with_stats: bool = False, name=""):
                 return params, state, opt_state, loss, pack_stats(stats)
         return params, state, opt_state, loss
 
-    return CapturedStep(step, n_trees=3, name=name)
+    return CapturedStep(step, n_trees=3, name=name, eager_reason=_eager_reason(layout))
 
 
-def make_tbptt_step(net, tx, name=""):
+def make_tbptt_step(net, tx, name="", layout=None, shard=None):
     """One tBPTT segment, ``(params, state, opt_state, carries, features,
     labels, features_mask, labels_mask, rng) -> (params, state, opt_state,
     carries, loss)``: :func:`make_train_step` with the recurrent carries
     as a fourth tree.  The segment starts from the carries (detached, so
     gradients stop at its start) and writes the segment's final carries
-    into them after the backward, which reads the old ones."""
-    update = _update(net, tx, make_loss_fn(net, train=True, with_carries=True))
+    into them after the backward, which reads the old ones.  ``layout`` and
+    ``shard`` as :func:`make_train_step`'s; the carries are each rank's
+    own."""
+    update = _update(net, tx, make_loss_fn(net, train=True, with_carries=True,
+                                           shard=_step_shard(layout, shard)), layout)
 
     def step(params, state, opt_state, carries, features, labels, features_mask, labels_mask,
              rng):
@@ -255,7 +318,7 @@ def make_tbptt_step(net, tx, name=""):
                     write_into(carry, new)
         return params, state, opt_state, carries, loss
 
-    return CapturedStep(step, n_trees=4, name=name)
+    return CapturedStep(step, n_trees=4, name=name, eager_reason=_eager_reason(layout))
 
 
 def tbptt_segments(batch, length: int):
@@ -279,17 +342,21 @@ def tbptt_segments(batch, length: int):
         yield seg
 
 
-def make_eval_step(net, name=""):
+def make_eval_step(net, name="", layout=None):
     """Inference-mode loss, ``(params, state, features, labels,
     features_mask, labels_mask) -> loss`` (``MultiLayerNetwork.score
-    (DataSet)``), captured as :func:`make_train_step` is."""
-    loss_fn = make_loss_fn(net, train=False)
+    (DataSet)``), captured as :func:`make_train_step` is; under a
+    ``layout`` the global batch's, summed over its ranks."""
+    loss_fn = make_loss_fn(net, train=False, shard=_step_shard(layout, None))
 
     def step(params, state, features, labels, features_mask, labels_mask):
         with torch.no_grad():
-            return loss_fn(params, state, features, labels, features_mask, labels_mask)[0]
+            loss = loss_fn(params, state, features, labels, features_mask, labels_mask)[0]
+            if layout is not None:
+                loss = layout.all_reduce_(loss.reshape(1).clone(), "loss")[0]
+            return loss
 
-    return CapturedStep(step, n_trees=2, name=name)
+    return CapturedStep(step, n_trees=2, name=name, eager_reason=_eager_reason(layout))
 
 
 def _batch_masks(batch) -> tuple:
@@ -319,13 +386,42 @@ class Trainer:
     it; a CUDA net without a card raises here), with the JAX package's
     listener hooks (``listeners``: a list or a ``ListenerBus``).  Its
     steps come from the step cache, keyed as the JAX package keys them
-    (``_cache_sig`` plus the step's kind); a net with frozen layers or
-    per-layer updaters has no key, so each such trainer builds its own."""
+    (``_cache_sig`` plus the layout's signature and the step's kind); a net
+    with frozen layers or per-layer updaters has no key, so each such
+    trainer builds its own.
 
-    def __init__(self, net, listeners=None):
+    ``mesh=`` / ``layout=`` pick a data-parallel layout, the JAX package's
+    one flag: a layout string (``"dp2"``), a ``parallel.mesh.MeshSpec`` or
+    ``MeshLayout``, or a ``ProcessMesh`` from ``parallel.make_mesh``
+    (``parallel.mesh.resolve_layout``'s rules; the module docstring says
+    what the step does).  Each process of the group calls it with the same
+    net and batches.  Only the data axis is ported: a ``model``, ``pipe``,
+    ``seq`` or ``expert`` axis, and ``n_microbatches`` other than 1 (the
+    pipe axis's), raise ``NotImplementedError``."""
+
+    def __init__(self, net, listeners=None, mesh=None, layout=None, n_microbatches: int = 1):
         self.net = net
         self.bus = listeners if isinstance(listeners, ListenerBus) else ListenerBus(listeners)
         resolve_device(net.device)
+        self._layout = None
+        if mesh is not None or layout is not None:
+            # local import: parallel/ imports the trainer back
+            from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
+            self._layout = mesh_mod.resolve_layout(mesh=mesh, layout=layout, devices=net.device)
+            if self._layout is not None and self._layout.device.type != net.device.type:
+                raise ValueError(f"the mesh puts this rank on {self._layout.device}, the net is "
+                                 f"on {net.device}")
+        if int(n_microbatches) != 1:
+            raise NotImplementedError(
+                "n_microbatches splits a batch over the pipe axis, which is not ported yet; "
+                "ROADMAP.md queue A item 2.4 ports it")
+        # the rows of each batch this process takes, and the shard its
+        # layers run as (ParallelWrapper's averaging mode sets both alone)
+        self._batch_layout = self._layout
+        self._shard = None
+        self._layout_placed = False
+        # one checkpoint writer per group: rank 0
+        net._writes_checkpoints = self._layout is None or self._layout.rank == 0
         if net.params_ is None:
             net.init()
         self.tx = net_optimizer(net)   # an unknown updater or normalization raises here
@@ -354,21 +450,41 @@ class Trainer:
         """Step-cache key of this trainer's config, or None (no cache)."""
         if self._cache_sig is None:
             return None
-        return self._cache_sig + (step_cache.sharding_signature(None), kind)
+        return self._cache_sig + (step_cache.sharding_signature(self._layout), kind)
+
+    def request_resize(self, n_devices: int) -> None:
+        """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
+        from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
+        mesh_mod.resize_spec(None, n_devices)
+
+    def resize_mesh(self, n_devices: int) -> bool:
+        """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
+        self.request_resize(n_devices)
+        return False
 
     def _new_stream(self) -> torch.Generator:
         return torch.Generator(device=self.net.device).manual_seed(
             self.net.conf.seed + STREAM_SEED_OFFSET)
 
-    @staticmethod
-    def _host_batch(batch):
-        """A batch's numpy arrays as (host) tensors, tensors as they are:
-        the feeder's placement, which then stages them on the device."""
+    def _rows(self, batch):
+        """This process's rows of every array of ``batch`` under a
+        data-parallel layout; the batch itself otherwise."""
+        layout = self._batch_layout
+        if layout is None:
+            return batch
+        return dataclasses.replace(batch, **{f.name: layout.shard_batch(getattr(batch, f.name))
+                                             for f in dataclasses.fields(batch)})
+
+    def _host_batch(self, batch):
+        """A batch's numpy arrays as (host) tensors, tensors as they are, this
+        process's rows of them: the feeder's placement, which then stages
+        them on the device."""
         def as_tensor(v):
             return v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
 
-        return dataclasses.replace(batch, **{f.name: _map_arrays(as_tensor, getattr(batch, f.name))
-                                             for f in dataclasses.fields(batch)})
+        return self._rows(dataclasses.replace(
+            batch, **{f.name: _map_arrays(as_tensor, getattr(batch, f.name))
+                      for f in dataclasses.fields(batch)}))
 
     def _place(self, batch):
         dev = self.net.device
@@ -376,8 +492,25 @@ class Trainer:
         def put(v):
             return v.to(dev) if torch.is_tensor(v) else torch.as_tensor(np.asarray(v), device=dev)
 
+        batch = self._rows(batch)
         return dataclasses.replace(batch, **{f.name: _map_arrays(put, getattr(batch, f.name))
                                              for f in dataclasses.fields(batch)})
+
+    def _replicated(self) -> list:
+        """The trees every rank takes from rank 0 when a layout starts."""
+        return [self.net.params_, self.net.state_, self.net.opt_state]
+
+    def _place_layout(self) -> None:
+        """Once per trainer under a layout: every rank takes rank 0's params,
+        layer state and updater state (a broadcast each), and the
+        ``tpudl_mesh_*`` gauges and ``tpudl_parallel_mesh_devices`` describe
+        the layout."""
+        net, layout = self.net, self._layout
+        layout.replicate(self._replicated())
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(net.params_))
+        layout.publish_metrics(param_bytes=param_bytes)
+        get_registry().gauge("tpudl_parallel_mesh_devices").set(layout.data)
+        self._layout_placed = True
 
     def _ensure_ready(self) -> None:
         net = self.net
@@ -385,10 +518,12 @@ class Trainer:
             net.init()
         if net.opt_state is None:
             net.opt_state = self.tx.init(net.params_)
+        if self._layout is not None and not self._layout_placed:
+            self._place_layout()
         if self._step is None:
             key = self._step_key("train")
-            self._step = step_cache.get_or_build(
-                key, lambda: make_train_step(net, self.tx, name=key))
+            self._step = step_cache.get_or_build(key, lambda: make_train_step(
+                net, self.tx, name=key, layout=self._layout, shard=self._shard))
 
     def _step_fns(self) -> tuple:
         """Every step this trainer may call: the recompile count sums the
@@ -411,7 +546,8 @@ class Trainer:
                              f"on the net's device")
         return rng
 
-    def fit_batch(self, batch, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    def fit_batch(self, batch, rng: Optional[torch.Generator] = None,
+                  prepared: bool = False) -> torch.Tensor:
         """One optimization step on one batch; returns the loss as a 0-dim
         tensor on the device.  ``rng`` is the step's random stream, a
         ``torch.Generator`` on the net's device (:meth:`_stream_or`).  On
@@ -419,10 +555,14 @@ class Trainer:
         (``wants_stats_now``) the statistics step runs in the plain step's
         place, its statistics come to the host in one copy and every such
         listener gets ``stats_ready``.  Under ``config.nan_panic`` or
-        ``inf_panic`` the params are checked after the step."""
+        ``inf_panic`` the params are checked after the step.  Under a
+        layout ``batch`` is the global batch, and the loss the global
+        batch's; ``prepared`` marks a batch the feeder already cut to this
+        process's rows and staged."""
         net = self.net
         rng = self._stream_or(rng)
-        batch = self._place(batch)
+        if not prepared:
+            batch = self._place(batch)
         self._ensure_ready()
         fmask, lmask = _batch_masks(batch)
         args = (net.params_, net.state_, net.opt_state, batch.features, batch.labels, fmask,
@@ -432,7 +572,8 @@ class Trainer:
             if self._stats_step is None:
                 key = self._step_key("train_stats")
                 self._stats_step = step_cache.get_or_build(
-                    key, lambda: make_train_step(net, self.tx, with_stats=True, name=key))
+                    key, lambda: make_train_step(net, self.tx, with_stats=True, name=key,
+                                                 layout=self._layout, shard=self._shard))
             net.params_, net.state_, net.opt_state, loss, packed = self._stats_step(*args)
             if self._stats_keys is None:
                 self._stats_keys = stats_keys(net.params_)
@@ -450,9 +591,12 @@ class Trainer:
         """Inference-mode loss on one batch, no update."""
         net = self.net
         batch = self._place(batch)
+        if self._layout is not None and not self._layout_placed:
+            self._place_layout()
         if self._eval_step is None:
             key = self._step_key("eval")
-            self._eval_step = step_cache.get_or_build(key, lambda: make_eval_step(net, key))
+            self._eval_step = step_cache.get_or_build(
+                key, lambda: make_eval_step(net, key, layout=self._layout))
         fmask, lmask = _batch_masks(batch)
         return self._eval_step(net.params_, net.state_, batch.features, batch.labels, fmask,
                                lmask)
@@ -473,24 +617,27 @@ class Trainer:
             tree_map(lambda t: t.zero_(), self._carries)
         return self._carries
 
-    def _fit_tbptt(self, batch, rng: torch.Generator) -> torch.Tensor:
+    def _fit_tbptt(self, batch, rng: torch.Generator, prepared: bool = False) -> torch.Tensor:
         """Truncated BPTT over one batch of whole sequences: one step per
         segment of ``conf.tbptt_fwd_length``, the forward state carried
         from segment to segment (gradients cut at each boundary), the
         dropout masks drawn from ``rng`` in turn.  A T that is no multiple
         of the length gets an all-ones features mask, and the short tail is
         padded with masked steps, so every segment runs one captured step.
-        Returns the last segment's loss."""
+        Returns the last segment's loss; under a layout the carries hold
+        this process's rows."""
         net = self.net
         length = net.conf.tbptt_fwd_length
         if batch.features.shape[1] % length:
             batch = ensure_feature_mask(batch)
-        batch = self._place(batch)
+        if not prepared:
+            batch = self._place(batch)
         self._ensure_ready()
         if self._tbptt_step is None:
             key = self._step_key("tbptt")
             self._tbptt_step = step_cache.get_or_build(
-                key, lambda: make_tbptt_step(net, self.tx, key))
+                key, lambda: make_tbptt_step(net, self.tx, key, layout=self._layout,
+                                             shard=self._shard))
         carries = self._carry_buffers(batch.features)
         loss = None
         for seg in tbptt_segments(batch, length):
@@ -538,9 +685,9 @@ class Trainer:
         with tracing.span("step", iteration=net.iteration, epoch=net.epoch) as sp:
             if (net.conf.backprop_type == "tbptt" and not isinstance(features, (list, tuple))
                     and np.ndim(first) == 3):
-                loss = self._fit_tbptt(data, self._stream_or(rng))
+                loss = self._fit_tbptt(data, self._stream_or(rng), prepared=fed)
             else:
-                loss = self.fit_batch(data, rng)
+                loss = self.fit_batch(data, rng, prepared=fed)
             if tracing.get_tracer().enabled:
                 score = float(tracing.device_sync(loss))
                 sp.set_attribute("score", score)
