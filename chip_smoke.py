@@ -376,7 +376,29 @@ no result line:
    batch-statistics all-reduces per step and the bytes all-reduced against
    ``MeshLayout.collective_bytes_per_step``, beside the single-process
    batch-32 step (eager and captured) and phase 26's 2-slice step;
-29. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+29. multi-slice gangs (``parallel/dcn.py::make_multislice_mesh``,
+   ``MultiSliceTrainer(data_per_slice=2)``): full-width fused ResNet-50
+   f32 as 2 slices x dp2, four processes through ``spawn_local_cluster``
+   sharing the card over gloo, phase 26's 32 images (8 a rank), rate,
+   value-coded device codec, capacity and initial threshold, 3 steps: the
+   divergence 0.0 and a slice's ranks byte-equal after each step, 36 + 36
+   ``matmul_bn_act`` launches per rank per step, the wire under the dense
+   gradient; step 0's slice gradients in f64 (plain versions) against phase
+   26's 2 x dp1 form on the same images (``DP_GRAD_TOL``), step 0 through
+   the kernels against both plain versions (phase 6's limits); the step's
+   time and its parts (the slice's all-reduces, the gradient and encode,
+   the exchange with the slice's relay, the apply);
+30. supervised gangs (``resilience/supervisor.py``, ``elastic.py``,
+   ``obs/remote.py``, ``obs/ui_server.py``): (b) phase 28's dp2 run of
+   full-width ResNet-50 under ``ClusterSupervisor`` with a ``UIServer``
+   in this process, a checkpoint every step on rank 0, rank 1 SIGKILLed
+   by its generation-0 fault plan, a respawn from the verified
+   checkpoint: the healed losses and params bit-equal to phase 28's
+   (deterministic algorithms), MTTR, steps replayed, the checkpoint's
+   write and restore, ``/cluster.json``'s generations; (c) on phase 26
+   (c)'s two fused bottlenecks, a shrink by the ``shrink`` policy once
+   slot 1's budget is spent and a grow back to 2 by ``request_resize``;
+31. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -7404,21 +7426,24 @@ def dp_resnet_rank(pid: int, workdir: str) -> dict:
     record_gradient(trainer, grads)
     out.update(losses=[], launches=[], ms=[], equal=[], collectives=[])
     update0 = None
-    for step in range(DP_STEPS):
-        kernel_counts(zero=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out["losses"].append(trainer.fit_batch(batch).item())
-        torch.cuda.synchronize()
-        out["ms"].append((time.perf_counter() - t0) * 1e3)
-        out["launches"].append(launched(kernel_counts(zero=True)))
-        out["collectives"].append({k: (c.calls, c.bytes, c.seconds)
-                                   for k, c in layout.reset_stats().items()})
-        out["equal"].append(ranks_equal(net.params_, net.state_, net.opt_state))
-        if step == 0:
-            it = iter(start)
-            update0 = {v: {k: t - next(it).cuda() for k, t in d.items()}
-                       for v, d in net.params_.items()}
+    # under deterministic algorithms, so that phase 30's supervised run of
+    # the same steps repeats these bits
+    with deterministic_algorithms():
+        for step in range(DP_STEPS):
+            kernel_counts(zero=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["losses"].append(trainer.fit_batch(batch).item())
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(launched(kernel_counts(zero=True)))
+            out["collectives"].append({k: (c.calls, c.bytes, c.seconds)
+                                       for k, c in layout.reset_stats().items()})
+            out["equal"].append(ranks_equal(net.params_, net.state_, net.opt_state))
+            if step == 0:
+                it = iter(start)
+                update0 = {v: {k: t - next(it).cuda() for k, t in d.items()}
+                           for v, d in net.params_.items()}
     if pid == 0:
         np.save(os.path.join(workdir, "grad0.npy"), grads[0])
         np.save(os.path.join(workdir, "params.npy"), flat_param_vector(net.params_).cpu().numpy())
@@ -7620,7 +7645,7 @@ def dense_data_parallel(card: str, two_slice_ms: float) -> dict:
         problems.append(f"ZeRO-1: {zero}")
     r0 = a[0]
     timed = float(np.mean(r0["timed_ms"]))
-    out = {"card": card, "gang_s": gang_s,
+    out = {"card": card, "gang_s": gang_s, "workdir": wd,
            "single": {"f32_losses": s32["losses"], "f64_losses": s64["losses"],
                       "eager_ms": single["eager_ms"], "captured_ms": single["captured_ms"]},
            "ranks": a, "wrapper": b, "vs_single": cmp, "f32_band_limit": band,
@@ -7663,6 +7688,547 @@ def dense_data_parallel(card: str, two_slice_ms: float) -> dict:
     if problems:
         raise AssertionError("phase 28: " + "; ".join(problems))
     return out
+
+
+# ------------------------------ phase 29: multi-slice gangs (parallel/dcn.py, dcn_trainer.py)
+# full-width fused ResNet-50 f32 as 2 slices x dp2: four gloo processes
+# sharing the card, one per rank (make_multislice_mesh), phase 26's data,
+# rate, codec, capacity and initial threshold
+MS_SLICES, MS_DATA = 2, 2
+MS_STEPS = 3                         # checked steps (each timed)
+MS_PORT = 13011
+MS_TIMEOUT = 600.0
+MS_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per rank per step
+
+
+def rank_digests(*trees) -> list:
+    """Every rank's digest of ``trees``, in rank order (an all-gather)."""
+    import torch.distributed as dist
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, tree_digest(*trees))
+    return digests
+
+
+def ms_trainer(net, mesh, **kw):
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm, MultiSliceTrainer
+    kw.setdefault("algorithm", AdaptiveThresholdAlgorithm(initial_threshold=DCN_TAU0))
+    return MultiSliceTrainer(net, MS_SLICES, mesh=mesh, **kw)
+
+
+def ms_batch():
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = dcn_batch(DCN_SLICES * DCN_BATCH)        # phase 26's 32 images
+    return DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def ms_checked_steps(tr, batch) -> dict:
+    """MS_STEPS steps, each with the launch counts set to 0 just before it
+    and read just after, timed (synchronized) with its parts from the
+    trainer's spans (the gradient and encode up to the message on the host,
+    the exchange with the relay, the apply) and its slice's collectives;
+    then the divergence, every rank's digest and the wire."""
+    import torch
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.obs import tracing
+    layout = tr._layout
+    out = {"losses": [], "launches": [], "ms": [], "parts": [], "collectives": [],
+           "divergence": [], "digests": [], "wire": []}
+    config.set_config(tracing=True)
+    tracer = tracing.get_tracer()
+    try:
+        for _ in range(MS_STEPS):
+            tracer.clear()
+            layout.reset_stats()
+            kernel_counts(zero=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["losses"].append(tr.fit_batch(batch))
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(launched(kernel_counts(zero=True)))
+            out["parts"].append({name: sum(s.duration_s for s in tracer.find(name)) * 1e3
+                                 for name in ("encode", "exchange", "apply")})
+            out["collectives"].append({k: (c.calls, c.bytes, c.seconds * 1e3)
+                                       for k, c in layout.reset_stats().items()})
+            out["divergence"].append(tr.max_param_divergence())
+            out["digests"].append(rank_digests(tr.slice_params[0], tr.slice_state[0],
+                                               tr.slice_opt[0], tr.slice_residual[0]))
+            out["wire"].append(dict(tr.last_wire_stats[0]))
+    finally:
+        config.set_config(tracing=False)
+        tracer.clear()
+    return out
+
+
+def ms_step0_vs_plain(net, mesh, batch, start) -> dict:
+    """Step 0 of the 2 x dp2 gang through the kernels against step 0 through
+    both plain versions, eager, from ``start``, with every nonzero
+    coordinate on the wire (capacity = the param count, threshold 1e-30),
+    so that each param's update is its mean gradient's (phase 6's limits)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    from deeplearning4j_tpu_torch.utils.pytree import param_count
+    runs = {}
+    for name in ("kernel", "plain"):
+        it = iter(start)
+        with torch.no_grad():
+            tree_map(lambda t: t.copy_(next(it)), [net.params_, net.state_])
+        net.opt_state = None
+        saved = fused_mod.matmul_bn_act
+        if name == "plain":
+            fused_mod.matmul_bn_act = _PlainMatmulBnAct()   # comparison only
+        try:
+            tr = ms_trainer(net, mesh, capacity=param_count(net.params_),
+                            algorithm=AdaptiveThresholdAlgorithm(initial_threshold=1e-30))
+            try:
+                kernel_counts(zero=True)
+                loss = tr.fit_batch(batch)
+                launches = launched(kernel_counts(zero=True))
+                it = iter(start)
+                update = {v: {k: tr.slice_params[0][v][k] - next(it).cuda() for k in d}
+                          for v, d in net.params_.items()}
+                runs[name] = (loss, launches, update)
+            finally:
+                tr.close()
+        finally:
+            fused_mod.matmul_bn_act = saved
+    errs = update_errs(runs["kernel"][2], runs["plain"][2])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    return {"loss": runs["kernel"][0], "plain_loss": runs["plain"][0],
+            "loss_rel_err": abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0]),
+            "launches": runs["kernel"][1], "plain_launches": runs["plain"][1],
+            "update_rel_err_max": worst[0][1], "update_rel_err_worst": worst[:3]}
+
+
+def ms_slice_grad64(mesh, batch, layout=None) -> "np.ndarray":
+    """The slice's step-0 flat gradient in f64 through the plain versions:
+    this rank's rows of its slice's 16 images under the slice's layout, or,
+    with no layout (phase 26's 2-slice x dp1 form, in this process), the
+    gradient of ``batch`` alone; the trainer's own gradient function."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.dcn_trainer import _flat_grads
+    from deeplearning4j_tpu_torch.train import Sgd
+    from deeplearning4j_tpu_torch.train.trainer import make_loss_fn
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    with f64_policy(True):
+        net = build_net(Sgd(DCN_LR))
+        net.params_, net.state_ = tree_map(lambda t: t.double(), [net.params_, net.state_])
+        f, l = batch.features.double(), batch.labels.double()
+        if layout is not None:
+            per = f.shape[0] // MS_SLICES
+            rows = slice(mesh.slice_index * per, (mesh.slice_index + 1) * per)
+            f, l = layout.shard_batch([f[rows], l[rows]])
+        grads = _flat_grads(make_loss_fn(net, shard=None if layout is None
+                                         else layout.data_shard()), layout, dtype=None)
+        _, _, flat = grads(net.params_, net.state_, f, l, None, None,
+                           torch.Generator(device="cuda"))
+        out = flat.cpu().numpy()
+    del net
+    release()
+    return out
+
+
+def ms_rank(pid: int, workdir: str) -> dict:
+    """Phase 29 (a) in one rank."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.parallel import make_multislice_mesh
+    from deeplearning4j_tpu_torch.train import Sgd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entered = time.time()
+    mesh = make_multislice_mesh(MS_SLICES, MS_DATA, devices="cuda")
+    batch = ms_batch()
+    net = build_net(Sgd(DCN_LR))
+    start = host_copy(net.params_, net.state_)
+    out = {"pid": pid, "position": mesh.position(), "leader": mesh.is_leader,
+           "same_start": len(set(rank_digests(net.params_, net.state_))) == 1}
+    tr = ms_trainer(net, mesh)
+    try:
+        out["run"] = ms_checked_steps(tr, batch)
+        out["capacity"], out["grad_size"] = tr.capacity, tr.grad_size
+        out["eager_reason"] = tr._steps["dcn_grad_encode"].get(0).eager_reason
+        out["slice"] = tr.rank_offset
+    finally:
+        tr.close()
+    del tr
+    release()
+    out["vs_plain"] = ms_step0_vs_plain(net, mesh, batch, start)
+    del net
+    release()
+    grad64 = ms_slice_grad64(mesh, batch, mesh.layout())
+    if mesh.is_leader:
+        np.save(os.path.join(workdir, f"grad64_slice{mesh.slice_index}.npy"), grad64)
+    out["entered_at"], out["left_at"] = entered, time.time()
+    return out
+
+
+def ms_worker(pid: int, n: int, workdir: str) -> dict:
+    return ms_rank(pid, workdir)
+
+
+def multislice_dense(card: str, two_slice_ms: float, dp2_ms: float) -> dict:
+    """Phase 29 (module comment); ``two_slice_ms``: phase 26's 2-slice step,
+    ``dp2_ms``: phase 28's dp2 step."""
+    import functools
+    import tempfile
+    import numpy as np
+    import chip_smoke as module     # the worker pickles by this name, for the children
+    from deeplearning4j_tpu_torch.parallel.launcher import spawn_local_cluster
+    batch = ms_batch()
+    # phase 26's 2-slice x dp1 slice gradients of step 0, in f64 here
+    per = batch.features.shape[0] // MS_SLICES
+    from deeplearning4j_tpu_torch.data import DataSet
+    want64 = [ms_slice_grad64(None, DataSet(batch.features[s * per:(s + 1) * per],
+                                            batch.labels[s * per:(s + 1) * per]))
+              for s in range(MS_SLICES)]
+    del batch
+    release()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_ms_")
+    t0 = time.time()
+    ranks = spawn_local_cluster(functools.partial(module.ms_worker, workdir=wd),
+                                n_processes=MS_SLICES * MS_DATA, port=MS_PORT, device="cuda",
+                                timeout=MS_TIMEOUT)
+    gang_s = time.time() - t0
+    ranks = sorted(ranks, key=lambda r: r["pid"])
+    runs = [r["run"] for r in ranks]
+    got64 = [np.load(os.path.join(wd, f"grad64_slice{s}.npy")) for s in range(MS_SLICES)]
+    grad_err = [float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got64, want64)]
+    problems = []
+    if [r["position"] for r in ranks] != [(s, j, 0) for s in range(MS_SLICES)
+                                          for j in range(MS_DATA)]:
+        problems.append(f"rank positions {[r['position'] for r in ranks]}")
+    if not all(r["same_start"] for r in ranks):
+        problems.append("the ranks did not start from the same weights")
+    for step in range(MS_STEPS):
+        digests = runs[0]["digests"][step]
+        slices_equal = all(len(set(digests[s * MS_DATA:(s + 1) * MS_DATA])) == 1
+                           for s in range(MS_SLICES))
+        if not slices_equal or any(r["divergence"][step] != 0.0 for r in runs):
+            problems.append(f"step {step}: a slice's ranks not byte-equal or divergence "
+                            f"{[r['divergence'][step] for r in runs]}")
+        for r in runs:
+            ws = r["wire"][step]
+            if not (ws["wire_bytes"] < ws["dense_bytes"] and ws["d2h_bytes"] < ws["dense_bytes"]):
+                problems.append(f"step {step}: the wire is not under the dense gradient: {ws}")
+    if any(r["launches"] != [MS_LAUNCHES] * MS_STEPS for r in runs):
+        problems.append(f"launches per rank per step {[r['launches'] for r in runs]} (want "
+                        f"{MS_LAUNCHES})")
+    if not all(np.isfinite(r["losses"]).all() for r in runs):
+        problems.append(f"non-finite losses {[r['losses'] for r in runs]}")
+    if max(grad_err) > DP_GRAD_TOL:
+        problems.append(f"the 2 x dp2 slice gradients in f64 against the 2 x dp1 ones: {grad_err} "
+                        f"of their largest entries (limit {DP_GRAD_TOL})")
+    for r in ranks:
+        vp = r["vs_plain"]
+        if vp["launches"] != MS_LAUNCHES or vp["plain_launches"] or not (
+                vp["loss_rel_err"] <= TRAIN_LOSS0_TOL and vp["update_rel_err_max"] <= TRAIN_UPDATE_TOL):
+            problems.append(f"rank {r['pid']} step 0 through the kernels vs the plain versions: "
+                            f"{vp} (limits {TRAIN_LOSS0_TOL}, {TRAIN_UPDATE_TOL})")
+    r0 = runs[0]
+    timed = list(range(1, MS_STEPS))       # step 0 pays the first calls
+
+    def mean(key, sub=None):
+        vals = [r0[key][i] if sub is None else r0[key][i][sub] for i in timed]
+        return float(np.mean(vals))
+
+    coll = {kind: float(np.mean([r0["collectives"][i].get(kind, (0, 0, 0.0))[2] for i in timed]))
+            for kind in ("batch_statistics", "gradient")}
+    out = {"card": card, "gang_s": gang_s, "ranks": ranks, "grad64_err": grad_err,
+           "step_ms": mean("ms"), "encode_ms": mean("parts", "encode"),
+           "exchange_ms": mean("parts", "exchange"), "apply_launch_ms": mean("parts", "apply"),
+           "bn_allreduce_ms": coll["batch_statistics"], "grad_allreduce_ms": coll["gradient"],
+           "bn_allreduces_per_step": r0["collectives"][1].get("batch_statistics", (0,))[0],
+           "grad_allreduce_bytes": r0["collectives"][1].get("gradient", (0, 0))[1],
+           "two_slice_step_ms": two_slice_ms, "dp2_step_ms": dp2_ms,
+           "launches": {k: sum(step.get(k, 0) for r in runs for step in r["launches"])
+                        for k in MS_LAUNCHES}}
+    ws = r0["wire"][-1]
+    log(f"multi-slice gangs on {card}: full-width fused ResNet-50 f32 as {MS_SLICES} slices x "
+        f"dp{MS_DATA}, {MS_SLICES * MS_DATA} gloo processes sharing the card "
+        f"(make_multislice_mesh), global batch {DCN_SLICES * DCN_BATCH} (8 a rank), "
+        f"Sgd({DCN_LR}), value-coded device codec, capacity {ranks[0]['capacity']}, initial "
+        f"threshold {DCN_TAU0}: losses by slice {[[round(v, 5) for v in r['losses']] for r in runs[::MS_DATA]]}; "
+        f"divergence {r0['divergence']}, a slice's ranks byte-equal after every step; launches "
+        f"per rank per step {r0['launches'][0]}; wire {ws['wire_bytes']} of {ws['dense_bytes']} "
+        f"dense bytes a slice step (D2H {ws['d2h_bytes']})")
+    vp = ranks[0]["vs_plain"]
+    log(f"  step 0's slice gradients in f64 (plain versions) against phase 26's 2 x dp1 form "
+        f"on the same 32 images: {grad_err} of their largest entries (limit {DP_GRAD_TOL}); "
+        f"step 0 kernels vs plain (every coordinate on the wire): loss {vp['loss_rel_err']:.2e}, "
+        f"updates {vp['update_rel_err_max']:.2e} ({vp['update_rel_err_worst'][:2]})")
+    log(f"  on {card}, eager 2 x dp2 step ms (rank 0, mean of steps 1-{MS_STEPS - 1}): "
+        f"{out['step_ms']:.3f}; of it the gradient and encode to the message on the host "
+        f"{out['encode_ms']:.3f} (its {out['bn_allreduces_per_step']} batch-statistics "
+        f"all-reduces {out['bn_allreduce_ms']:.3f} host ms, the gradient all-reduce over the "
+        f"slice {out['grad_allreduce_ms']:.3f} ms for {out['grad_allreduce_bytes']} bytes), the "
+        f"exchange with the slice's relay {out['exchange_ms']:.3f}, the apply's launch "
+        f"{out['apply_launch_ms']:.3f}; beside phase 26's captured 2-slice step "
+        f"{two_slice_ms:.3f} and phase 28's eager dp2 step {dp2_ms:.3f}; the step runs eagerly: "
+        f"{ranks[0]['eager_reason']}; gang {gang_s:.1f} s")
+    if problems:
+        raise AssertionError("phase 29: " + "; ".join(problems))
+    return out
+
+
+# ------------------------------ phase 30: supervised gangs (resilience/supervisor.py, elastic.py)
+# (b) phase 28's dp2 run of full-width ResNet-50 (Nesterovs, 3 steps of
+# its 32 images, deterministic algorithms) under ClusterSupervisor with a
+# UIServer here: a checkpoint every step on rank 0, rank 1 killed before
+# step SUP_KILL in generation 0, a respawn from the verified checkpoint;
+# the healed run against phase 28's own (no third gang); (c) phase 26
+# (c)'s two fused bottlenecks: a shrink by the shrink policy once slot 1's
+# budget is spent, then a grow back to 2 by request_resize
+SUP_KILL = 2
+SUP_PORT, RESIZE_PORT = 13211, 13411
+SUP_TIMEOUT = 420.0
+RESIZE_EPOCHS, RESIZE_BATCHES = 2, 6
+RESIZE_KILL = 2                      # slot 1 dies before this step in generation 0
+RESIZE_DELAY = 0.5                   # seconds a step sleeps in generation 1 (the request's window)
+
+
+def sup_worker(pid: int, n: int, workdir: str) -> dict:
+    """(b)'s worker: phase 28's dp2 run as a fit with a checkpoint every
+    step (rank 0), resuming from the supervisor's pointer when it has one."""
+    import torch
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator, ResumableIterator
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    from deeplearning4j_tpu_torch.parallel.launcher import child_context
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entered = time.time()
+    ctx = child_context()
+    batch = dp_batch("f32")
+    net = dp_net("f32")
+    iterator = ResumableIterator(ListDataSetIterator([batch] * DP_STEPS))
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    scores = CollectScoresListener()
+    listeners = [scores]
+    if pid == 0:
+        listeners.append(CheckpointListener(ckpt_dir, save_every_n_iterations=1, keep_last=2,
+                                            iterator=iterator))
+    elif ctx.fault_plan:
+        # the planted death comes after rank 0's last checkpoint before it
+        # has landed (a teardown mid-write leaves that zip unpublished, and
+        # the respawn would start over: exact, but no resume to show)
+        class AfterCheckpoint:
+            def iteration_done(self, net, iteration, epoch, score):
+                deadline = time.monotonic() + 120.0
+                while iteration == SUP_KILL - 1 and time.monotonic() < deadline and \
+                        CheckpointListener.last_checkpoint_in(ckpt_dir) is None:
+                    time.sleep(0.05)
+        listeners.append(AfterCheckpoint())
+    trainer = Trainer(net, listeners, layout="dp2")
+    restore = []
+    resume_state = trainer.resume_state
+
+    def timed_resume(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = resume_state(*args, **kw)
+        torch.cuda.synchronize()
+        restore.append(time.perf_counter() - t0)
+        return state
+    trainer.resume_state = timed_resume
+    kernel_counts(zero=True)
+    with deterministic_algorithms():
+        trainer.fit(iterator, epochs=1, resume_from=ckpt_dir if ctx.resume_from else None)
+    writes = get_registry().histogram("tpudl_resilience_checkpoint_write_seconds")
+    out = {"pid": pid, "generation": ctx.generation, "worker": ctx.worker,
+           "losses": scores.scores, "end_iteration": net.iteration,
+           "params": flat_param_vector(net.params_).cpu().numpy(),
+           "launches": launched(kernel_counts(zero=True)), "restore_s": restore,
+           "checkpoint_writes": writes.count, "checkpoint_write_s": writes.sum,
+           "entered_at": entered, "left_at": time.time()}
+    return out
+
+
+def resize_worker(pid: int, n: int, workdir: str) -> dict:
+    """(c)'s worker: the two fused bottlenecks under Trainer(layout="dp<width>"),
+    the width from the launcher context, slot w0 checkpointing every step
+    into a shared directory; generation 1 sleeps RESIZE_DELAY a step."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator, ResumableIterator
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.parallel.launcher import child_context
+    from deeplearning4j_tpu_torch.resilience import elastic
+    from deeplearning4j_tpu_torch.train import Nesterovs, Trainer
+    ctx = child_context()
+    width = elastic.configured_width(default=n)
+    x, y = dcn_batch(RESIZE_BATCHES * MP_BATCH, MP_HW, MP_CLASSES, DP_SEED + 2, MP_CHANNELS)
+    batches = [DataSet(torch.from_numpy(x[i:i + MP_BATCH]).cuda(),
+                       torch.from_numpy(y[i:i + MP_BATCH]).cuda())
+               for i in range(0, len(x), MP_BATCH)]
+    iterator = ResumableIterator(ListDataSetIterator(batches))
+    net = dcn_process_net(Nesterovs(TRAIN_LR, 0.9))
+    scores = CollectScoresListener()
+    listeners = [scores]
+    ckpt_dir = os.path.join(workdir, "shared")
+    if ctx.worker in (None, "w0"):
+        listeners.append(CheckpointListener(ckpt_dir, save_every_n_iterations=1, keep_last=3,
+                                            iterator=iterator))
+
+    class Slow:
+        def iteration_done(self, net, iteration, epoch, score):
+            time.sleep(RESIZE_DELAY)
+    if ctx.generation == 1:
+        listeners.append(Slow())
+    kernel_counts(zero=True)
+    Trainer(net, listeners, layout=f"dp{width}").fit(
+        iterator, epochs=RESIZE_EPOCHS, resume_from=ckpt_dir if ctx.resume_from else None)
+    return {"pid": pid, "worker": ctx.worker, "generation": ctx.generation, "width": width,
+            "grown": elastic.is_grown_child(), "losses": scores.scores,
+            "end_iteration": net.iteration, "launches": launched(kernel_counts(zero=True)),
+            "equal": ranks_equal(net.params_, net.state_) if width > 1 else True}
+
+
+def supervised_gang(card: str, dp_workdir: str, dp_losses: list) -> dict:
+    """Phase 30 (module comment); ``dp_workdir`` and ``dp_losses``: phase
+    28's run (its rank 0's params after DP_STEPS steps, its losses)."""
+    import functools
+    import tempfile
+    import threading
+    import numpy as np
+    import chip_smoke as module     # the workers pickle by this name, for the children
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    from deeplearning4j_tpu_torch.obs.ui_server import UIServer
+    from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy
+    from deeplearning4j_tpu_torch.resilience.supervisor import ClusterSupervisor
+    prev = set_registry(MetricsRegistry())
+    server = UIServer(port=0)
+    no_wait = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    problems = []
+    try:
+        # (b) kill and heal, at full width
+        wd = tempfile.mkdtemp(prefix="chip_smoke_sup_")
+        sup = ClusterSupervisor(functools.partial(module.sup_worker, workdir=wd), n_processes=2,
+                                checkpoint_dir=os.path.join(wd, "ckpt"), max_restarts=1,
+                                port=SUP_PORT, device="cuda", timeout=SUP_TIMEOUT,
+                                extra_env=env, remote_ui=server.url, cluster_store=server.cluster,
+                                fault_plan={1: f"trainer.step@{SUP_KILL}:kill"}, backoff=no_wait)
+        t0 = time.time()
+        run = sup.run()
+        heal_s = time.time() - t0
+        cluster = json.loads(json.dumps(server.cluster.summary()))
+        results = sorted(run.results, key=lambda r: r["pid"])
+        want_params = np.load(os.path.join(dp_workdir, "params.npy"))
+        inc = run.incidents[0] if run.incidents else None
+        healed = {"generations": run.generations, "incidents": len(run.incidents),
+                  "reason": inc and inc.reason, "mttr_s": inc and inc.mttr_s,
+                  "steps_replayed": inc and inc.steps_replayed,
+                  "losses": [r["losses"] for r in results],
+                  "start": [r["end_iteration"] - len(r["losses"]) for r in results],
+                  "params_equal": [bool(np.array_equal(r["params"].view(np.int32),
+                                                       want_params.view(np.int32)))
+                                   for r in results],
+                  "params_max_abs": [float(np.abs(r["params"] - want_params).max())
+                                     for r in results],
+                  "restore_s": [r["restore_s"] for r in results],
+                  "launches": [r["launches"] for r in results],
+                  "cluster_generations": {w: v["generation"] for w, v in cluster["workers"].items()},
+                  "cluster_restarts": len(cluster["restarts"]),
+                  "flight_dumps": len(inc.flight_dumps) if inc else 0, "seconds": heal_s}
+        heal_launches = {k: sum(r["launches"].get(k, 0) for r in results) for k in DP_LAUNCHES}
+        ckpt_writes = [(r["checkpoint_writes"], r["checkpoint_write_s"]) for r in results]
+        healed["checkpoint_write_s"] = ckpt_writes[0][1] / max(1, ckpt_writes[0][0])
+        if not (inc and inc.reason == "killed" and len(run.incidents) == 1
+                and run.generations == 2 and any(s == 1 for s, _ in inc.exits)):
+            problems.append(f"(b) the kill was not healed once: {[i.summary() for i in run.incidents]}")
+        for r, start in zip(results, healed["start"]):
+            if r["generation"] != 1 or not (0 < start < DP_STEPS):
+                problems.append(f"(b) rank {r['pid']}: generation {r['generation']}, resumed at "
+                                f"step {start}")
+            elif r["losses"] != dp_losses[start:]:
+                problems.append(f"(b) rank {r['pid']}'s healed losses {r['losses']} against phase "
+                                f"28's {dp_losses[start:]}")
+            if r["launches"] != {k: v * len(r["losses"]) for k, v in DP_LAUNCHES.items()}:
+                problems.append(f"(b) rank {r['pid']} launches {r['launches']} for "
+                                f"{len(r['losses'])} steps")
+        if not all(healed["params_equal"]):
+            problems.append(f"(b) the healed params are not phase 28's: max |diff| "
+                            f"{healed['params_max_abs']}")
+        if healed["cluster_generations"] != {"w0": 1, "w1": 1} or not healed["cluster_restarts"]:
+            problems.append(f"(b) /cluster.json: generations {healed['cluster_generations']}, "
+                            f"restarts {cluster['restarts']}")
+        # (c) a shrink by the policy, then a grow by request_resize
+        wd = tempfile.mkdtemp(prefix="chip_smoke_resize_")
+        sup = ClusterSupervisor(functools.partial(module.resize_worker, workdir=wd),
+                                n_processes=2, checkpoint_dir=os.path.join(wd, "shared"),
+                                max_restarts=0, degradation="shrink", min_workers=1,
+                                port=RESIZE_PORT, device="cuda", timeout=SUP_TIMEOUT,
+                                extra_env=env, fault_plan={1: f"trainer.step@{RESIZE_KILL}:kill"},
+                                backoff=no_wait)
+        result = {}
+
+        def drive():
+            try:
+                result["run"] = sup.run()
+            except BaseException as e:
+                result["error"] = e
+        t0 = time.time()
+        thread = threading.Thread(target=drive)
+        thread.start()
+        # once the shrunk gang (generation 1, width 1) has written a checkpoint
+        # of its own, ask for the grow
+        deadline = time.monotonic() + SUP_TIMEOUT
+        while thread.is_alive() and time.monotonic() < deadline and not (
+                sup.width == 1 and any(f.startswith("checkpoint_iter") and int(f.split("_")[1][4:]) > RESIZE_KILL
+                        for f in os.listdir(os.path.join(wd, "shared"))
+                        if f.endswith(".zip"))):
+            time.sleep(0.05)
+        if thread.is_alive():
+            sup.request_resize(2, reason="grow back")
+        thread.join(timeout=SUP_TIMEOUT)
+        if "error" in result or "run" not in result:
+            raise AssertionError(f"phase 30 (c): {result.get('error')!r}")
+        run = result["run"]
+        resize_s = time.time() - t0
+        results = sorted(run.results, key=lambda r: r["pid"])
+        history = [d.summary() for d in sup._resize.history]
+        resized = {"generations": run.generations, "slots": run.slots, "width": sup.width,
+                   "incidents": [i.summary() for i in run.incidents], "history": history,
+                   "final": [{k: r[k] for k in ("worker", "generation", "width", "grown",
+                                                "end_iteration", "equal", "launches")}
+                             | {"steps": len(r["losses"])} for r in results],
+                   "seconds": resize_s}
+        kinds = [d.kind for d in sup._resize.history]
+        if not (run.generations == 3 and run.slots == [0, 1] and sup.width == 2
+                and len(run.incidents) == 1 and run.incidents[0].degraded_to == [0]
+                and kinds == ["shrink", "grow"]
+                and all(r["grown"] and r["width"] == 2 and r["equal"] for r in results)
+                and all(r["end_iteration"] == RESIZE_EPOCHS * RESIZE_BATCHES for r in results)
+                and all(np.isfinite(r["losses"]).all() and 0 < len(r["losses"]) for r in results)):
+            problems.append(f"(c) shrink then grow: {resized}")
+    finally:
+        server.stop()
+        set_registry(prev)
+    log(f"supervised gangs on {card}: (b) phase 28's dp2 run of full-width ResNet-50 f32 under "
+        f"ClusterSupervisor, rank 1 killed before step {SUP_KILL} (generation 0's fault plan): "
+        f"incidents {healed['incidents']} ({healed['reason']}), generations "
+        f"{healed['generations']}, MTTR {healed['mttr_s']} s (detection to the respawned gang's "
+        f"first federated step), steps replayed {healed['steps_replayed']}, healed from step "
+        f"{healed['start']}; losses {healed['losses']} against phase 28's "
+        f"{[round(v, 7) for v in dp_losses]}; params bit-equal to phase 28's "
+        f"{healed['params_equal']} (max |diff| {healed['params_max_abs']}); checkpoint write "
+        f"{healed['checkpoint_write_s']:.3f} s a step (rank 0), restore {healed['restore_s']} s; "
+        f"/cluster.json generations {healed['cluster_generations']}, {healed['cluster_restarts']} "
+        f"restart annotations; {healed['flight_dumps']} flight dump(s); {heal_s:.1f} s")
+    log(f"  (c) two fused bottlenecks: slot 1 killed with max_restarts=0 → shrink to "
+        f"{run.incidents[0].degraded_to if run.incidents else None}, then request_resize(2): "
+        f"{history}; generations {resized['generations']}, final ranks {resized['final']}; "
+        f"{resize_s:.1f} s")
+    if problems:
+        raise AssertionError("phase 30: " + "; ".join(problems))
+    return {"card": card, "healed": healed, "resized": resized, "launches": heal_launches}
 
 
 def release() -> None:
@@ -7852,6 +8418,12 @@ def main() -> int:
     release()
     dense = dense_data_parallel(card, sharing["sync"]["step_ms"])
     clock("phase 28")
+    release()
+    multislice = multislice_dense(card, sharing["sync"]["step_ms"], dense["dp2_step_ms"])
+    clock("phase 29")
+    release()
+    supervised = supervised_gang(card, dense["workdir"], dense["ranks"][0]["losses"])
+    clock("phase 30")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7888,6 +8460,8 @@ def main() -> int:
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act"],
            "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act"],
            "dense_dp2_launches": dense["launches"]["matmul_bn_act"],
+           "multislice_dp_launches": multislice["launches"]["matmul_bn_act"],
+           "supervised_launches": supervised["launches"]["matmul_bn_act"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -7904,6 +8478,8 @@ def main() -> int:
            "gradient_sharing_launches": sharing["launches"]["matmul_bn_act_bwd"],
            "telemetry_fit_launches": telemetry["launches"]["matmul_bn_act_bwd"],
            "dense_dp2_launches": dense["launches"]["matmul_bn_act_bwd"],
+           "multislice_dp_launches": multislice["launches"]["matmul_bn_act_bwd"],
+           "supervised_launches": supervised["launches"]["matmul_bn_act_bwd"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
@@ -7962,6 +8538,7 @@ def main() -> int:
          "captured_steps": captured, "recurrent_nets": recurrent, "finetune": tuned,
          "serving_stack": stack_run, "gradient_sharing": sharing,
          "training_telemetry": telemetry, "dense_data_parallel": dense,
+         "multislice_dense": multislice, "supervised_gang": supervised,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -12,16 +12,16 @@
 - ``compression`` — the threshold and bitmap gradient codecs (numpy, and
                     their torch device twins), the residual accumulator and
                     the adaptive threshold;
-- ``dcn``         — the in-process and socket ring transports and the
-                    compressed allreduce;
+- ``dcn``         — ``make_multislice_mesh`` (slices of several ranks as
+                    process subgroups), the in-process, socket ring and
+                    process-group transports and the compressed allreduce;
 - ``dcn_trainer`` — ``MultiSliceTrainer``, the gradient-sharing path;
 - ``launcher``    — ``torch.distributed`` initialisation and local
                     multi-process gangs;
 - ``inference``   — ``ParallelInference``, a shim over the serving engine.
 
 Not ported yet: ``unified``, ``tensor_parallel``, ``pipeline``,
-``pipeline_stages``, ``context_parallel``, ``expert_parallel`` and
-``make_multislice_mesh``.  Their names raise an ``AttributeError``, and
+``pipeline_stages``, ``context_parallel`` and ``expert_parallel``.  Their names raise an ``AttributeError``, and
 their modules an ``ImportError``, that says so.
 """
 
@@ -31,14 +31,15 @@ from deeplearning4j_tpu_torch.parallel.compression import (
     threshold_decode_device, threshold_encode, threshold_encode_device,
 )
 from deeplearning4j_tpu_torch.parallel.dcn import (
-    CompressedAllReducer, InProcessTransport, SocketTransport,
+    CompressedAllReducer, GroupTransport, InProcessTransport, MultiSliceMesh, SliceRelay,
+    SocketTransport, make_multislice_mesh,
 )
 from deeplearning4j_tpu_torch.parallel.dcn_trainer import MultiSliceTrainer
 from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 from deeplearning4j_tpu_torch.parallel.launcher import initialize, spawn_local_cluster
 from deeplearning4j_tpu_torch.parallel.mesh import (
     AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, DATA_AXES, MESH_AXES, MeshLayout,
-    MeshSpec, make_mesh, resolve_layout,
+    LayoutResizeError, MeshSpec, make_mesh, resize_layout, resize_spec, resolve_layout,
 )
 
 __all__ = [
@@ -48,12 +49,14 @@ __all__ = [
     "threshold_encode_device", "threshold_decode_device", "bitmap_encode_device",
     "bitmap_decode_device", "EncodedGradientsAccumulator", "AdaptiveThresholdAlgorithm",
     "InProcessTransport", "SocketTransport", "CompressedAllReducer", "MultiSliceTrainer",
-    "ParallelInference", "initialize", "spawn_local_cluster",
+    "ParallelInference", "initialize", "spawn_local_cluster", "make_multislice_mesh",
+    "MultiSliceMesh", "GroupTransport", "SliceRelay", "resize_spec", "resize_layout",
+    "LayoutResizeError",
 ]
 
 # the JAX package's parallel names that wait for a later slice
 NOT_PORTED = {
-    "make_multislice_mesh": "dcn", "moe_ffn": "unified",
+    "moe_ffn": "unified",
     "moe_ffn_dense": "unified", "init_moe_params": "unified", "shard_moe_params": "unified",
     "ring_attention": "unified", "ulysses_attention": "unified",
     "reference_attention": "unified",

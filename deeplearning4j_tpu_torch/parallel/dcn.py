@@ -18,8 +18,13 @@ a stale payload, and a dead peer shows as a socket timeout at its
 neighbours.  The framing and the ``bytes_sent`` accounting are the JAX
 package's, so its byte bounds hold here.
 
-Not ported yet: ``make_multislice_mesh`` (it comes with the mesh
-layouts).
+:func:`make_multislice_mesh` lays a ``torch.distributed`` group of
+``n_slices × data_per_slice`` processes out as the reference's
+``('dcn', 'data', 'model')`` mesh: each slice is a process subgroup that
+runs the dense layout (``parallel.mesh``), and its leader (data rank 0)
+exchanges with the other slices' leaders (:class:`GroupTransport` over
+the leaders' subgroup by default) and hands the peers' messages to the
+rest of its slice (:class:`SliceRelay`).
 """
 
 from __future__ import annotations
@@ -28,12 +33,192 @@ import socket
 import struct
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.parallel.compression import (
     AdaptiveThresholdAlgorithm, EncodedGradientsAccumulator, threshold_decode)
+
+
+# the ROADMAP.md item that ports a model axis inside a slice
+_MODEL_AXIS_ITEM = ("queue A item 2.5 (the model-axis layouts: tp and dp x tp, with the TP rule "
+                    "families)")
+
+
+class MultiSliceMesh:
+    """The port's multi-slice mesh (:func:`make_multislice_mesh`): the
+    global group's ranks laid out as ``(n_slices, data_per_slice, model)``
+    in the reference's reshape order, so that rank ``s·d + j`` is data rank
+    ``j`` of slice ``s``.  Every rank holds every slice's subgroup handle
+    (made collectively, in one order); this rank's are its slice's
+    ``group`` (the dense layout's collectives), its ``relay_group`` (the
+    leader's hand-out of the peers' messages, a group of its own so that
+    an overlapped exchange never interleaves with the step's collectives)
+    and, for every rank, the leaders' ``leader_group``."""
+
+    axis_names = ("dcn", "data", "model")
+
+    def __init__(self, n_slices: int, data_per_slice: int, devices, groups: list,
+                 relay_groups: list, leader_group):
+        import torch.distributed as dist
+
+        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+        self.n_slices = int(n_slices)
+        self.data_per_slice = int(data_per_slice)
+        self.shape = {"dcn": self.n_slices, "data": self.data_per_slice, "model": 1}
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.slice_index, self.data_rank = divmod(self.rank, self.data_per_slice)
+        self.is_leader = self.data_rank == 0
+        self.groups = groups
+        self.relay_groups = relay_groups
+        self.leader_group = leader_group
+        self.group = groups[self.slice_index]
+        self.relay_group = relay_groups[self.slice_index]
+        mine = self.slice_ranks(self.slice_index)
+        self.devices = list(devices)
+        # this slice's ProcessMesh: the dense layout's mesh over the slice
+        self.slice_mesh = make_mesh(data=self.data_per_slice, group=self.group,
+                                    devices=[self.devices[r] for r in mine])
+
+    @property
+    def device(self):
+        return self.slice_mesh.device
+
+    def slice_ranks(self, s: int) -> list[int]:
+        """The global ranks of slice ``s``, data rank 0 first."""
+        d = self.data_per_slice
+        return list(range(s * d, (s + 1) * d))
+
+    def leader(self, s: Optional[int] = None) -> int:
+        """The global rank of slice ``s``'s leader (this rank's slice)."""
+        return (self.slice_index if s is None else s) * self.data_per_slice
+
+    def position(self, rank: Optional[int] = None) -> tuple[int, int, int]:
+        """``(slice, data rank, model rank)`` of a global rank (this one):
+        its index in the reference's ``mesh.devices``."""
+        s, j = divmod(self.rank if rank is None else rank, self.data_per_slice)
+        return s, j, 0
+
+    def layout(self):
+        """This slice's dense data-parallel ``MeshLayout``."""
+        from deeplearning4j_tpu_torch.parallel.mesh import MeshLayout, MeshSpec
+        return MeshLayout(MeshSpec(data=self.data_per_slice), mesh=self.slice_mesh)
+
+    def transport(self) -> "GroupTransport":
+        """The leaders' exchange over ``leader_group`` (a leader's; the
+        other ranks take part through :class:`SliceRelay`)."""
+        return GroupTransport(self.slice_index, self.n_slices, self.leader_group)
+
+    def __repr__(self) -> str:
+        return (f"MultiSliceMesh({self.shape}, rank {self.rank}: slice {self.slice_index}, data "
+                f"rank {self.data_rank}{', leader' if self.is_leader else ''})")
+
+
+def make_multislice_mesh(n_slices: int, data_per_slice: int, model: int = 1,
+                         devices: Optional[Sequence] = None) -> MultiSliceMesh:
+    """The mesh with a leading ``dcn`` axis across slices and the dense
+    axes within one, ``('dcn', 'data', 'model')``, over the initialized
+    global ``torch.distributed`` group of ``n_slices × data_per_slice``
+    processes (:class:`MultiSliceMesh`; ``parallel.launcher`` starts them).
+    Every rank must call it, in the same order as the others.  ``devices``
+    is each rank's device: one for all (``"cuda"``: the ranks share the
+    card) or one per rank; the card by default.  Fewer ranks than the mesh
+    needs raise the reference's ``ValueError``; ``model > 1``
+    ``NotImplementedError``."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+    if model > 1:
+        raise NotImplementedError(
+            f"make_multislice_mesh(model={model}): a model axis inside a slice is not ported "
+            f"yet; ROADMAP.md {_MODEL_AXIS_ITEM} ports it")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "a multi-slice mesh needs an initialized torch.distributed process group of "
+            "n_slices x data_per_slice processes: start them with "
+            "parallel.launcher.spawn_local_cluster, or call "
+            "parallel.launcher.initialize(address, num_processes, process_id) in each")
+    need = n_slices * data_per_slice * model
+    have = dist.get_world_size()
+    if have < need:
+        raise ValueError(f"need {need} devices, have {have} (the ranks of the process group)")
+    if have > need:
+        raise ValueError(f"the process group has {have} ranks, the mesh ({n_slices} slices x "
+                         f"{data_per_slice}) takes {need}: run one process per rank")
+    if devices is None:
+        devices = DEFAULT_DEVICE
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * need
+    devices = [resolve_device(d) for d in devices]
+    if len(devices) != need:
+        raise ValueError(f"{len(devices)} devices for a mesh of {need} ranks")
+    d = data_per_slice
+    # collective: every rank makes every subgroup, in this order
+    groups = [dist.new_group(ranks=list(range(s * d, (s + 1) * d))) for s in range(n_slices)]
+    relay_groups = [dist.new_group(ranks=list(range(s * d, (s + 1) * d)))
+                    for s in range(n_slices)]
+    leader_group = dist.new_group(ranks=[s * d for s in range(n_slices)])
+    return MultiSliceMesh(n_slices, data_per_slice, devices, groups, relay_groups, leader_group)
+
+
+class GroupTransport:
+    """The ring transports' ``exchange`` contract over a
+    ``torch.distributed`` group (the slice leaders', gloo over TCP): one
+    ``all_gather_object`` of the wire messages a round."""
+
+    def __init__(self, rank: int, n_ranks: int, group=None):
+        self.rank = rank
+        self.n_ranks = n_ranks
+        self.group = group
+
+    def exchange(self, rank: int, message: np.ndarray) -> list[np.ndarray]:
+        import torch.distributed as dist
+        if rank != self.rank:
+            raise ValueError(f"transport bound to rank {self.rank}, got {rank}")
+        out: list[Any] = [None] * self.n_ranks
+        dist.all_gather_object(out, np.ascontiguousarray(message), group=self.group)
+        return [out[r] for r in range(self.n_ranks) if r != rank]
+
+
+class _RelayedError(RuntimeError):
+    """The slice leader's exchange failed: what its slice's other ranks
+    raise."""
+
+
+class SliceRelay:
+    """The cross-slice transport as the ranks of one slice see it: the
+    leader exchanges over ``transport`` and broadcasts the peers'
+    messages (or its failure) to its slice over the mesh's
+    ``relay_group``; the other ranks never touch the transport and
+    receive them.  Every rank of the slice then decodes the same bytes."""
+
+    def __init__(self, mesh: MultiSliceMesh, transport=None):
+        if mesh.is_leader and transport is None:
+            raise ValueError("a slice leader needs a transport")
+        self.mesh = mesh
+        self.transport = transport if mesh.is_leader else None
+
+    def exchange(self, rank: int, message: np.ndarray) -> list[np.ndarray]:
+        import torch.distributed as dist
+        mesh = self.mesh
+        box: list[Any] = [None]
+        if mesh.is_leader:
+            try:
+                box[0] = self.transport.exchange(rank, message)
+            except BaseException as e:
+                if mesh.data_per_slice > 1:
+                    fail = [_RelayedError(f"slice {mesh.slice_index}'s leader failed its "
+                                          f"exchange: {e!r}")]
+                    dist.broadcast_object_list(fail, src=mesh.leader(), group=mesh.relay_group)
+                raise
+        if mesh.data_per_slice > 1:
+            dist.broadcast_object_list(box, src=mesh.leader(), group=mesh.relay_group)
+        if isinstance(box[0], BaseException):
+            raise box[0]
+        return box[0]
 
 
 class InProcessTransport:

@@ -38,10 +38,22 @@ own copy of the params, state, updater state and residual, and its own
 captured steps (one graph each, so no slice's trees are copied into
 another's buffers), and the slices' steps on one device take turns.
 
-Not ported yet: intra-slice dense data parallelism (``data_per_slice >
-1``, which waits for the dense layouts over ``torch.distributed``),
-``obs_remote.notify_step`` (``obs/remote``) and the cost model's analysis
-of the slice step.
+Slices of several ranks (``data_per_slice > 1``, or ``layout="dpN"``):
+one process per rank over ``torch.distributed``, laid out by
+``parallel.dcn.make_multislice_mesh`` (rank ``s·d + j`` is data rank
+``j`` of slice ``s``).  Each process runs its slice's dense step
+(``parallel.mesh.MeshLayout`` on the slice's subgroup): its rows of the
+slice's share of the global batch, batch statistics summed over the
+slice by the differentiable all-reduce, dropout masks of the slice's
+batch, and the flat gradient and loss all-reduced over the slice.  Every
+rank of a slice then holds the same gradient, residual and τ, and
+encodes the same message; only the slice's leader exchanges it with the
+other leaders, and hands the peers' messages to the rest of its slice
+(``parallel.dcn.SliceRelay``), so every rank decodes and applies the same
+bytes.  A slice step on gloo runs eagerly.  Each trainer step stamps the
+cluster telemetry (``obs.remote.notify_step``).
+
+Not ported yet: the cost model's analysis of the slice step.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ import torch
 
 from deeplearning4j_tpu_torch.config import resolve_device
 from deeplearning4j_tpu_torch.obs import flight_recorder, tracing
+from deeplearning4j_tpu_torch.obs import remote as obs_remote
 from deeplearning4j_tpu_torch.obs.listeners import ListenerBus
 from deeplearning4j_tpu_torch.obs.registry import get_registry
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
@@ -65,7 +78,9 @@ from deeplearning4j_tpu_torch.parallel.compression import (
     AdaptiveThresholdAlgorithm, compact_device_message, decode_sum_device, pad_to_device_layout,
     threshold_decode_device, threshold_decode_values_device, threshold_encode_device,
     threshold_encode_values_device)
-from deeplearning4j_tpu_torch.parallel.dcn import CompressedAllReducer, InProcessTransport
+from deeplearning4j_tpu_torch.parallel.dcn import (CompressedAllReducer, InProcessTransport,
+                                                   MultiSliceMesh, SliceRelay,
+                                                   make_multislice_mesh)
 from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.faults import InjectedCrash, InjectedFault
 from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, TransientError, with_retries
@@ -76,9 +91,32 @@ from deeplearning4j_tpu_torch.train.trainer import (
 from deeplearning4j_tpu_torch.train.updaters import jax_leaves, tree_map
 from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector, unflatten_param_vector
 
-DENSE_LAYOUT_SLICE = ("slices of several ranks (each a process subgroup running "
-                      "Trainer(layout='dpN')), which are not ported yet: ROADMAP.md queue A "
-                      "item 2.2")
+
+def _slice_mesh(net, n_slices: int, data_per_slice: int, devices, mesh):
+    """The multi-slice mesh of a trainer whose slices have several ranks:
+    ``mesh`` as given (its shape checked), else made over the initialized
+    group, which must hold ``n_slices × data_per_slice`` processes."""
+    import torch.distributed as dist
+    if mesh is not None:
+        if not isinstance(mesh, MultiSliceMesh):
+            raise TypeError(f"mesh must be a MultiSliceMesh (make_multislice_mesh), got "
+                            f"{type(mesh).__name__}")
+        # the mesh's own width when the trainer was not given one
+        data_per_slice = mesh.data_per_slice if data_per_slice == 1 else data_per_slice
+        if (mesh.n_slices, mesh.data_per_slice) != (n_slices, data_per_slice):
+            raise ValueError(f"the mesh has {mesh.n_slices} slices x {mesh.data_per_slice}, the "
+                             f"trainer was asked for {n_slices} x {data_per_slice}")
+        return mesh
+    need = n_slices * data_per_slice
+    how = (f"{n_slices} slices x data_per_slice={data_per_slice} run one process per rank: "
+           f"start {need} with parallel.launcher.spawn_local_cluster (or initialize in each) "
+           f"and lay them out with parallel.make_multislice_mesh (or pass mesh=)")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(f"no torch.distributed process group is initialized; {how}")
+    if dist.get_world_size() != need:
+        raise ValueError(f"the process group has {dist.get_world_size()} ranks; {how}")
+    return make_multislice_mesh(n_slices, data_per_slice,
+                                devices=net.device if devices is None else devices)
 
 
 def _exchange_retryable(e: BaseException) -> bool:
@@ -142,10 +180,13 @@ class _SliceSteps:
             return sum(s.switches for s in self._steps.values())
 
 
-def _flat_grads(loss_fn):
+def _flat_grads(loss_fn, layout=None, dtype=torch.float32):
     """``(params, state, *args) -> (loss, new_state, flat)``: the loss, the
     layers' new state, and the gradient in every param (zeros where the
-    loss never reads one) raveled in ``flat_param_vector`` order, f32."""
+    loss never reads one) raveled in ``flat_param_vector`` order, in
+    ``dtype`` (None: the params').  Under a slice's ``layout`` the loss is
+    this rank's share and the gradient and loss are summed over the
+    slice's ranks in one all-reduce: the slice's."""
 
     def grads(params, state, *args):
         grad_params = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -154,8 +195,13 @@ def _flat_grads(loss_fn):
             loss, new_state = loss_fn(grad_params, state, *args)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
-                          .to(torch.float32) for p, g in zip(leaves, flat)])
-        return loss.detach(), new_state, flat
+                          .to(dtype or p.dtype) for p, g in zip(leaves, flat)])
+        loss = loss.detach()
+        if layout is not None:
+            both = torch.cat([flat, loss.reshape(1).to(flat.dtype)])
+            layout.all_reduce_(both, "gradient", timed=True)
+            flat, loss = both[:-1], both[-1].to(loss.dtype)
+        return loss, new_state, flat
 
     return grads
 
@@ -169,7 +215,19 @@ class MultiSliceTrainer:
     process owns its local slice(s) and a ring transport, ``world_size``
     is the global slice count and ``rank_offset`` this process's first
     global rank.  ``fit``/``fit_batch`` mirror the Trainer; the process's
-    batch splits evenly across its local slices."""
+    batch splits evenly across its local slices.
+
+    With ``data_per_slice > 1`` (or ``layout="dpN"``, or a ``mesh`` from
+    ``make_multislice_mesh``) each process is one rank of one slice (the
+    module docstring): ``n_slices`` is the GLOBAL slice count, every rank
+    calls the trainer with the same net and the same global batches, this
+    process's slice takes its share of each and its rank its rows of
+    that, and ``fit_batch`` returns the slice's loss.  ``transports``
+    (optional) is the leader's cross-slice transport, ``[t]``; by default
+    the leaders exchange over their subgroup.  Without an initialized
+    group of ``n_slices × data_per_slice`` processes it raises.
+    ``max_param_divergence`` is then collective: every rank calls it, and
+    it reads the largest distance between any two ranks' params."""
 
     def __init__(self, net, n_slices: int, data_per_slice: int = 1,
                  devices: Optional[Sequence] = None, transports: Optional[Sequence] = None,
@@ -177,7 +235,8 @@ class MultiSliceTrainer:
                  use_native: bool = True, value_coded: bool = True,
                  device_encode: bool = True, capacity: Optional[int] = None,
                  overlap: bool = False, world_size: Optional[int] = None, rank_offset: int = 0,
-                 listeners=None, retry_policy: Optional[RetryPolicy] = None, layout=None):
+                 listeners=None, retry_policy: Optional[RetryPolicy] = None, layout=None,
+                 mesh: Optional[MultiSliceMesh] = None):
         if layout is not None:
             # the per-slice layout in Trainer's vocabulary: "dp2" = 2
             # data-parallel devices per slice; other axes ride one slice
@@ -189,10 +248,21 @@ class MultiSliceTrainer:
                     f"{spec.describe()!r}); run model/pipe/seq/expert axes through "
                     f"Trainer(layout=...) on one slice")
             data_per_slice = spec.data
-        if data_per_slice > 1:
-            raise NotImplementedError(
-                f"data_per_slice={data_per_slice}: dense data parallelism inside a slice "
-                f"waits for {DENSE_LAYOUT_SLICE}; use one device per slice")
+        self._mesh: Optional[MultiSliceMesh] = None
+        self._layout = None
+        if data_per_slice > 1 or mesh is not None:
+            self._mesh = mesh = _slice_mesh(net, n_slices, data_per_slice, devices, mesh)
+            self._layout = mesh.layout()
+            transport = None
+            if mesh.is_leader:
+                transport = (transports[0] if transports is not None and transports[0] is not None
+                             else mesh.transport())
+            transports = [SliceRelay(mesh, transport)]
+            world_size, rank_offset = n_slices, mesh.slice_index
+            n_slices, data_per_slice, devices = 1, 1, [mesh.device]
+        # this process's wire messages go out (a slice's other ranks hand
+        # theirs to no transport)
+        self._sends = self._mesh is None or self._mesh.is_leader
         self.net = net
         self.n_slices = n_slices                      # local slices
         self.world_size = world_size or n_slices      # global slices
@@ -213,6 +283,7 @@ class MultiSliceTrainer:
         if net.opt_state is None:
             net.opt_state = self.tx.init(net.params_)
         self.grad_size = sum(leaf.numel() for leaf in jax_leaves(net.params_))
+        self._placed = self._mesh is None
         if transports is None:
             if self.world_size != n_slices:
                 # an InProcessTransport(world_size) with fewer local slices
@@ -278,8 +349,14 @@ class MultiSliceTrainer:
         if self._steps is not None:
             return
         net = self.net
-        loss_fn = make_loss_fn(net)
-        grads = _flat_grads(loss_fn)
+        layout = self._layout
+        if not self._placed:
+            # every rank starts from global rank 0's trees
+            mesh_mod.broadcast_tree([self.slice_params[0], self.slice_state[0],
+                                     self.slice_opt[0]])
+            self._placed = True
+        loss_fn = make_loss_fn(net, shard=None if layout is None else layout.data_shard())
+        grads = _flat_grads(loss_fn, layout)
         tx = self.tx
         size, cap, world = self.grad_size, self.capacity, self.world_size
         value_coded = self.value_coded
@@ -288,8 +365,10 @@ class MultiSliceTrainer:
         base_key = None
         net_sig = step_cache.net_signature(net)
         tx_sig = step_cache.updater_signature(net.conf)
+        # a slice of several ranks builds its own: its steps close over
+        # its layout's subgroups
         if net_sig is not None and tx_sig is not None and tx.labels is None \
-                and tx.frozen is None:
+                and tx.frozen is None and layout is None:
             base_key = net_sig + (tx_sig, step_cache.sharding_signature(None), size, cap, world,
                                   value_coded)
 
@@ -342,7 +421,9 @@ class MultiSliceTrainer:
             key = None if base_key is None else base_key + (kind,)
 
             def build(fn=fn, n_trees=n_trees, key=key, kind=kind):
-                return _SliceSteps(lambda i: CapturedStep(fn, n_trees, (key or kind, i)))
+                return _SliceSteps(lambda i: CapturedStep(
+                    fn, n_trees, (key or kind, i),
+                    eager_reason=None if layout is None else layout.eager_reason()))
             self._steps[kind] = step_cache.get_or_build(key, build)
 
     def _step(self, kind: str, rank: int, *args):
@@ -384,6 +465,8 @@ class MultiSliceTrainer:
         return out
 
     def _place(self, rank, parts):
+        if self._layout is not None:
+            parts = self._layout.shard_batch(list(parts))   # this rank's rows of the slice's
         return [_as_tensor(v, self.devices[rank]) for v in parts]
 
     def _slice_step_device(self, rank, features, labels, fmask, lmask):
@@ -434,7 +517,8 @@ class MultiSliceTrainer:
             "residual_linf": res_linf,
         }
         reg = get_registry()
-        reg.counter("tpudl_dcn_wire_bytes_total").inc(int(compact.size) * 4)
+        if self._sends:
+            reg.counter("tpudl_dcn_wire_bytes_total").inc(int(compact.size) * 4)
         reg.counter("tpudl_dcn_d2h_bytes_total").inc(int(msg_np.size) * 4)
         reg.counter("tpudl_dcn_steps_total").inc()
 
@@ -454,7 +538,8 @@ class MultiSliceTrainer:
                      **r.wire_stats(r.last_message)}
             self._wire_tmp[rank] = stats
             reg = get_registry()
-            reg.counter("tpudl_dcn_wire_bytes_total").inc(stats["wire_bytes"])
+            if self._sends:
+                reg.counter("tpudl_dcn_wire_bytes_total").inc(stats["wire_bytes"])
             reg.counter("tpudl_dcn_steps_total").inc()
             return float(loss)
 
@@ -482,18 +567,22 @@ class MultiSliceTrainer:
         flight_recorder.progress("trainer.step")
         n = self.n_slices
         feats, labels = batch.features, batch.labels
-        if feats.shape[0] % n:
-            raise ValueError(f"batch {feats.shape[0]} not divisible by {n} slices")
-        per = feats.shape[0] // n
+        # a slice of several ranks takes its share of the global batch
+        shares = n if self._mesh is None else self.world_size
+        first = 0 if self._mesh is None else self.rank_offset
+        if feats.shape[0] % shares:
+            raise ValueError(f"batch {feats.shape[0]} not divisible by {shares} slices")
+        per = feats.shape[0] // shares
         fmask, lmask = _batch_masks(batch)
 
         def sub(v, i):
-            return None if v is None else v[i * per:(i + 1) * per]
+            return None if v is None else v[(first + i) * per:(first + i + 1) * per]
 
         if rng is not None:
             self._seed_streams(rng)
         step = self._slice_step_device if self.device_encode else self._slice_step
         self._wire_tmp = [None] * n
+        step_t0 = time.perf_counter()
         with tracing.span("step", iteration=self.iteration, slices=n) as sp:
             # slice spans run on pool threads, where the ambient context does
             # not reach: they get this step span's context explicitly
@@ -506,6 +595,10 @@ class MultiSliceTrainer:
         self.last_wire_stats = list(self._wire_tmp)
         flight_recorder.progress("trainer.step")
         flight_recorder.record("step", iteration=self.iteration, slices=n, score=mean_loss)
+        # this worker's progress onto the coordinator's dashboard (a buffer
+        # append; no network on this path)
+        obs_remote.notify_step(self.iteration, duration_s=time.perf_counter() - step_t0,
+                               score=mean_loss, slices=n)
         self.bus.dispatch("iteration_done", self.net, self.iteration, 0, mean_loss)
         self.iteration += 1
         return mean_loss
@@ -591,9 +684,18 @@ class MultiSliceTrainer:
 
     def max_param_divergence(self) -> float:
         """L∞ distance between slice replicas (0.0: byte-synchronized),
-        computed on the first slice's device."""
+        computed on the first slice's device.  With slices of several
+        ranks, collective: every rank's params against global rank 0's
+        (a broadcast and a max all-reduce over the group)."""
         dev = self.devices[0]
         flats = [flat_param_vector(p).to(dev) for p in self.slice_params]
+        if self._mesh is not None:
+            import torch.distributed as dist
+            ref = flats[0].clone()
+            dist.broadcast(ref, src=0)
+            gap = (flats[0] - ref).abs().max().reshape(1).to(torch.float64)
+            dist.all_reduce(gap, op=dist.ReduceOp.MAX)
+            return float(gap.item())
         return float(max(((f - flats[0]).abs().max().item() for f in flats[1:]),
                          default=0.0))
 

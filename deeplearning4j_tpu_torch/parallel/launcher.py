@@ -11,14 +11,17 @@ loopback and runs a function in each under a real process group, on the
 CPU or on a card.  Each child gets everything it needs in a pickled call
 from the parent: its rank, the world size, the coordinator's port, its
 device, its flight-recorder dump path and watchdog deadline, the
-launcher's trace context and any environment the caller asks for.
-Nothing is read from the parent's environment.  A child on a card loads
-the CUDA kernels that the parent built before spawning it (one build,
-not N racing ones).
+launcher's trace context, any environment the caller asks for, and its
+:class:`ChildContext` (worker id, restart generation, resume pointer,
+gang width, the grown flag, the telemetry endpoint, a fault plan), which
+:func:`child_context` reads inside the child.  Nothing is read from the
+parent's environment.  A child on a card loads the CUDA kernels that the
+parent built before spawning it (one build, not N racing ones).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -28,6 +31,62 @@ import sys
 import tempfile
 import time
 from typing import Callable, Optional, Sequence, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class ChildContext:
+    """What a gang child knows of its gang beyond its rank: the JAX
+    package hands each of these to a child in an environment variable,
+    the port in the child's pickled call.
+
+    - ``worker``: its stable worker id (``w<slot>``), across restarts;
+    - ``generation``: the supervisor's restart generation (0 first);
+    - ``resume_from``: the checkpoint directory a respawned child resumes
+      from (set only when a verified checkpoint exists under it;
+      ``Trainer.fit`` takes it when given no ``resume_from``);
+    - ``gang_width``: the gang's current width
+      (``resilience.elastic.configured_width``);
+    - ``grown``: set only in the generation that a grow spawned
+      (``Trainer.resume_state`` then fires the ``gang.grow`` site);
+    - ``remote_ui``: the coordinator ``UIServer``'s URL, where the child's
+      ``obs.remote`` router pushes;
+    - ``fault_plan``: a ``resilience.faults`` spec the child installs
+      first (the supervisor leaves it out of restarted generations)."""
+
+    worker: Optional[str] = None
+    generation: int = 0
+    resume_from: Optional[str] = None
+    gang_width: Optional[int] = None
+    grown: bool = False
+    remote_ui: Optional[str] = None
+    fault_plan: Optional[str] = None
+
+
+_CONTEXT = ChildContext()
+_CONTEXT_FIELDS = frozenset(f.name for f in dataclasses.fields(ChildContext))
+
+
+def child_context() -> ChildContext:
+    """This process's :class:`ChildContext` (all defaults outside a gang)."""
+    return _CONTEXT
+
+
+def set_child_context(ctx: Optional[ChildContext]) -> ChildContext:
+    """Install ``ctx`` (None: the defaults) as this process's context;
+    returns the one it replaces.  A child's bootstrap calls it."""
+    global _CONTEXT
+    prev, _CONTEXT = _CONTEXT, ctx or ChildContext()
+    return prev
+
+
+def context_fields(values: dict) -> dict:
+    """``values`` checked as :class:`ChildContext` fields (plain values,
+    for a pickled call); an unknown name raises ``ValueError``."""
+    unknown = set(values) - _CONTEXT_FIELDS
+    if unknown:
+        raise ValueError(f"unknown child context fields {sorted(unknown)} (have "
+                         f"{sorted(_CONTEXT_FIELDS)})")
+    return dict(values)
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -56,8 +115,9 @@ def initialize(coordinator_address: Optional[str] = None,
 
 # The child's bootstrap.  Its one argument is the path of its pickled call
 # (a dict of plain values); the caller's function is unpickled after the
-# search path, the environment it asked for, the black box and the
-# process group are set up.
+# search path, the environment it asked for, the child context (its fault
+# plan and telemetry router), the black box and the process group are set
+# up.  The router drains before the child exits.
 _WORKER_TEMPLATE = r"""
 import os, pickle, sys
 with open(sys.argv[1], "rb") as f:
@@ -66,8 +126,14 @@ sys.path[:0] = call["path"]
 os.environ.update(call["env"])
 import torch
 from deeplearning4j_tpu_torch import config
-from deeplearning4j_tpu_torch.obs import flight_recorder, tracing
+from deeplearning4j_tpu_torch.obs import flight_recorder, remote, tracing
 from deeplearning4j_tpu_torch.parallel import launcher
+from deeplearning4j_tpu_torch.resilience import faults
+ctx = launcher.ChildContext(**call["context"])
+launcher.set_child_context(ctx)
+if ctx.fault_plan:
+    faults.install_fault_plan(faults.FaultPlan.parse(ctx.fault_plan))
+remote.install_from_context()
 flight_recorder.install_handlers(call["dump"])
 if call["tracing"]:
     config.set_config(tracing=True)
@@ -90,6 +156,7 @@ try:
         pickle.dump(result, f)
 finally:
     flight_recorder.stop_watchdog()
+    remote.close_router(timeout=5.0)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 """
@@ -213,12 +280,18 @@ class GangHandle:
 
     ``device`` is each child's device: one for all (``"cuda:0"``: every
     child shares the card) or one per process; None leaves the children
-    on the CPU."""
+    on the CPU.  ``remote_ui`` (a coordinator ``UIServer``'s URL) makes
+    every child push its telemetry there as worker ``w<pid>``;
+    ``child_env`` is the per-child hook, ``pid -> dict`` of
+    :class:`ChildContext` fields, applied last, so that a supervisor
+    stamps each child's worker id, generation, resume pointer and fault
+    plan over the defaults."""
 
     def __init__(self, fn: Callable, n_processes: int, port: int,
                  device: Union[None, str, Sequence] = None, timeout: float = 120.0,
                  extra_env: Optional[dict] = None, gang_deadline: Optional[float] = None,
-                 gang_fires: int = 1):
+                 gang_fires: int = 1, remote_ui: Optional[str] = None,
+                 child_env: Optional[Callable[[int], dict]] = None):
         from deeplearning4j_tpu_torch.obs import tracing
         from deeplearning4j_tpu_torch.resilience import faults
         faults.fire("launcher.spawn")
@@ -235,6 +308,9 @@ class GangHandle:
         for pid in range(n_processes):
             out_path = os.path.join(self.workdir, f"out_{pid}.pkl")
             self.out_paths.append(out_path)
+            context = {"worker": f"w{pid}", "remote_ui": remote_ui} if remote_ui else {}
+            if child_env is not None:
+                context.update(context_fields(child_env(pid)))
             call = {"path": [p for p in sys.path if p],
                     "env": {k: str(v) for k, v in (extra_env or {}).items()}, "fn": fn_path,
                     "out": out_path, "rank": pid, "world": n_processes, "port": port,
@@ -245,7 +321,7 @@ class GangHandle:
                     "dump": os.path.join(self.workdir, f"flight_{pid}.jsonl"),
                     "deadline": None if gang_deadline is None else float(gang_deadline),
                     "fires": int(gang_fires), "tracing": gang_deadline is not None,
-                    "trace_parent": trace_parent}
+                    "trace_parent": trace_parent, "context": context}
             call_path = os.path.join(self.workdir, f"call_{pid}.pkl")
             with open(call_path, "wb") as f:
                 pickle.dump(call, f)
@@ -395,10 +471,26 @@ class GangHandle:
         return results
 
 
+def prepare_devices(device: Union[None, str, Sequence]) -> None:
+    """Before children start on a card: check it is there (``device``
+    as ``GangHandle`` takes it) and build the CUDA kernels once, in this
+    process, for the children to load."""
+    import torch
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    if any(d is not None and torch.device(d).type == "cuda" for d in devices):
+        from deeplearning4j_tpu_torch.config import resolve_device
+        from deeplearning4j_tpu_torch.ops.kernels import _build
+        for d in devices:
+            if d is not None:
+                resolve_device(d)
+        _build.build()
+
+
 def spawn_local_cluster(fn: Callable, n_processes: int = 2, port: int = 12655,
                         device: Union[None, str, Sequence] = None, timeout: float = 120.0,
                         extra_env: Optional[dict] = None, startup_retries: int = 2,
-                        gang_deadline: Optional[float] = None) -> list:
+                        gang_deadline: Optional[float] = None,
+                        remote_ui: Optional[str] = None) -> list:
     """Run ``fn(process_index, process_count)`` in N fresh local processes
     under a ``torch.distributed`` process group (gloo, loopback); returns
     each process's pickled return value.  ``fn`` must be picklable (a
@@ -423,19 +515,12 @@ def spawn_local_cluster(fn: Callable, n_processes: int = 2, port: int = 12655,
     watchdog arms on a child's FIRST progress stamp.
 
     When tracing is on in the parent, its span context goes to every
-    child, so the children's spans parent under the launcher's.  Not
-    ported yet: ``remote_ui`` (the telemetry federation of ``obs/remote``)."""
-    import torch
-
+    child, so the children's spans parent under the launcher's.
+    ``remote_ui`` (a coordinator ``UIServer``'s URL) federates the gang's
+    telemetry: every child pushes its steps and heartbeats there as worker
+    ``w<pid>`` (``obs.remote``)."""
     from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, with_retries
-    devices = device if isinstance(device, (list, tuple)) else [device]
-    if any(d is not None and torch.device(d).type == "cuda" for d in devices):
-        from deeplearning4j_tpu_torch.config import resolve_device
-        from deeplearning4j_tpu_torch.ops.kernels import _build
-        for d in devices:
-            if d is not None:
-                resolve_device(d)
-        _build.build()
+    prepare_devices(device)
     gang_fires = 1
     if gang_deadline is None:
         # half the wall budget with ONE grace fire, so that a slow start
@@ -454,7 +539,7 @@ def spawn_local_cluster(fn: Callable, n_processes: int = 2, port: int = 12655,
         # coordinator socket lingering in TIME_WAIT
         return GangHandle(fn, n_processes, port + i * 97, device=device, timeout=timeout,
                           extra_env=extra_env, gang_deadline=gang_deadline,
-                          gang_fires=gang_fires).wait()
+                          gang_fires=gang_fires, remote_ui=remote_ui).wait()
 
     policy = RetryPolicy(max_attempts=1 + max(0, startup_retries), base_delay_s=0.2, jitter=0.0,
                          retryable=_is_startup_flake)

@@ -36,7 +36,9 @@ gloo collectives cannot be captured in a CUDA graph, so it runs eagerly
 
 Only the ``data`` axis is ported.  A layout with ``model``, ``pipe``,
 ``seq`` or ``expert`` > 1 raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it, and so does an elastic resize.
+``ROADMAP.md`` item that ports it.  :func:`resize_spec` and
+:func:`resize_layout` derive a layout at a new width (the supervisor's
+gang-level resize relaunches the gang at it).
 """
 
 from __future__ import annotations
@@ -86,7 +88,6 @@ _NOT_PORTED_AXES = {
     AXIS_SEQ: "queue A item 2.4 (unified.py's ring and Ulysses attention)",
     AXIS_EXPERT: "queue A item 2.4 (unified.py's MoE functions)",
 }
-_RESIZE_ITEM = "queue A item 2.3 (the supervisor, elastic.py and Trainer.resize_mesh)"
 
 
 @dataclasses.dataclass
@@ -262,6 +263,29 @@ class _AllReduceSum(torch.autograd.Function):
         return None, None, g
 
 
+def broadcast_tree(tree, src: int = 0, group=None, count=None):
+    """Every tensor of ``tree`` overwritten in place by rank ``src``'s (its
+    rank in ``group``, the default group when None), one broadcast per
+    dtype; ``count(kind, flat, seconds)`` is told of each.  Returns
+    ``tree``."""
+    import torch.distributed as dist
+    root = src if group is None else dist.get_global_rank(group, src)
+    leaves = [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        same = [t for t in leaves if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        t0 = time.perf_counter()
+        dist.broadcast(flat, src=root, group=group)
+        if count is not None:
+            count("broadcast", flat, time.perf_counter() - t0)
+        offset = 0
+        with torch.no_grad():
+            for t in same:
+                t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+                offset += t.numel()
+    return tree
+
+
 class MeshLayout:
     """A resolved data-parallel layout over one :class:`ProcessMesh`
     (module docstring); construct it with :func:`resolve_layout`."""
@@ -351,22 +375,7 @@ class MeshLayout:
         """Every tensor of ``tree`` overwritten in place by rank ``src``'s
         (its rank in the mesh's group; one broadcast per dtype); returns
         ``tree``."""
-        import torch.distributed as dist
-        group = self.mesh.group
-        root = src if group is None else dist.get_global_rank(group, src)
-        leaves = [t for t in tree_leaves(tree) if torch.is_tensor(t)]
-        for dtype in dict.fromkeys(t.dtype for t in leaves):
-            same = [t for t in leaves if t.dtype == dtype]
-            flat = torch.cat([t.reshape(-1) for t in same])
-            t0 = time.perf_counter()
-            dist.broadcast(flat, src=root, group=group)
-            self._count("broadcast", flat, time.perf_counter() - t0)
-            offset = 0
-            with torch.no_grad():
-                for t in same:
-                    t.copy_(flat[offset:offset + t.numel()].view(t.shape))
-                    offset += t.numel()
-        return tree
+        return broadcast_tree(tree, src, self.mesh.group, count=self._count)
 
     # ------------------------------------------------------ collectives
     def _count(self, kind: str, t: torch.Tensor, seconds: float) -> None:
@@ -459,15 +468,38 @@ class MeshLayout:
             reg.gauge("tpudl_mesh_collective_bytes").set(self.collective_bytes_per_step(param_bytes))
 
 
+class LayoutResizeError(ValueError):
+    """A device width that a layout's fixed axes do not allow: raised by
+    :func:`resize_spec` and :func:`resize_layout` when the width is not a
+    positive multiple of the layout's non-data degree
+    (``model·seq·expert·pipe``).  Typed, so that an elastic caller (the
+    supervisor's resize) refuses the resize and keeps the width it has."""
+
+
 def resize_spec(spec: MeshSpec, n_devices: int) -> MeshSpec:
-    """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
-    raise NotImplementedError(f"elastic resizing is not ported yet; ROADMAP.md {_RESIZE_ITEM} "
-                              f"ports it")
+    """The ``MeshSpec`` of the same layout at a new width: only the
+    ``data`` axis scales (the other axes cut the model and survive a grow
+    or shrink, so ``dp2xpp2`` grown to 8 becomes ``dp4xpp2``).  A width
+    that is no positive multiple of the non-data degree raises
+    :class:`LayoutResizeError`."""
+    fixed = spec.model * spec.seq * spec.expert * spec.pipe
+    if n_devices < fixed or n_devices % fixed:
+        detail = (f"pipeline layouts keep their {spec.pipe} stages across a resize"
+                  if spec.pipe > 1 else "model/seq/expert axes are fixed across a resize")
+        raise LayoutResizeError(
+            f"cannot resize layout {spec.describe()!r} to {n_devices} device(s): width must be "
+            f"a positive multiple of its non-data degree {fixed} ({detail})")
+    return dataclasses.replace(spec, data=n_devices // fixed)
 
 
 def resize_layout(layout: MeshLayout, n_devices: int, devices=None) -> MeshLayout:
-    """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
-    return resize_spec(layout.spec, n_devices)
+    """The :class:`MeshLayout` of ``layout`` at a new width, over the
+    process group of the gang relaunched at that width (the port's resize
+    is the supervisor's relaunch, ``resilience.supervisor``): a width the
+    layout's axes do not allow raises :class:`LayoutResizeError` before any
+    mesh is built; the group's size must be the new width."""
+    spec = resize_spec(layout.spec, n_devices)
+    return MeshLayout(spec, tp_family=layout.tp_family, devices=devices)
 
 
 def resolve_layout(mesh: Optional[ProcessMesh] = None, layout: Any = None,

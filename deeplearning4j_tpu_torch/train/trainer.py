@@ -68,9 +68,17 @@ whole batch.  Rank 0 writes the checkpoints.  A step over a gloo group
 runs eagerly (its collectives stage through the host; the step's key and
 ``CapturedStep.eager_reason`` say so).
 
-Not ported yet: the model-axis and pipeline layouts, elastic resizing,
-the artifact store, the cost model's step hooks and the supervisor's
-resume pointer (``resilience/``).
+Supervised gangs (``resilience.supervisor``): a respawned child's
+``fit`` with no ``resume_from`` resumes from its launcher context's
+resume pointer (``parallel.launcher.child_context``), ``resume_state``
+fires the ``gang.grow`` site in a child that a grow spawned and sends the
+``resume`` event to the cluster telemetry, and ``step_batch`` stamps each
+step on it (``obs.remote.notify_step``).  A worker sizes its layout from
+``resilience.elastic.configured_width``.
+
+Not ported yet: the model-axis and pipeline layouts, the in-process
+resize (``request_resize``, ``resize_mesh``), the artifact store and the
+cost model's step hooks.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ from deeplearning4j_tpu_torch.data.device_pipeline import (
 from deeplearning4j_tpu_torch.nn.layers.base import DataShard, data_shard
 from deeplearning4j_tpu_torch.nn.losses import mean_score
 from deeplearning4j_tpu_torch.obs import flight_recorder, profiler, tracing
+from deeplearning4j_tpu_torch.obs import remote as obs_remote
 from deeplearning4j_tpu_torch.obs.listeners import ListenerBus
 from deeplearning4j_tpu_torch.obs.registry import get_registry, record_device_memory
 from deeplearning4j_tpu_torch.obs.stats import (GROUPS, device_layer_stats, pack_stats,
@@ -453,12 +462,18 @@ class Trainer:
         return self._cache_sig + (step_cache.sharding_signature(self._layout), kind)
 
     def request_resize(self, n_devices: int) -> None:
-        """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
-        from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
-        mesh_mod.resize_spec(None, n_devices)
+        """Not ported yet: the in-process resize (raises
+        ``NotImplementedError``).  A supervised gang resizes by relaunching
+        at the new width (``ClusterSupervisor.request_resize``)."""
+        raise NotImplementedError(
+            f"Trainer.request_resize({n_devices}): the in-process resize over a re-formed "
+            f"process group is not ported yet; ROADMAP.md queue A item 2.3a ports it.  A "
+            f"supervised gang resizes by relaunching: "
+            f"resilience.supervisor.ClusterSupervisor.request_resize")
 
     def resize_mesh(self, n_devices: int) -> bool:
-        """Not ported yet: elastic resizing (raises ``NotImplementedError``)."""
+        """Not ported yet: the in-process resize (raises
+        ``NotImplementedError``)."""
         self.request_resize(n_devices)
         return False
 
@@ -720,6 +735,10 @@ class Trainer:
         # so that the health monitor's detection runs end to end
         if faults.poison("trainer.step", index=net.iteration):
             loss = torch.full_like(loss, float("nan"))
+        # this worker's progress onto the coordinator's dashboard (a buffer
+        # append: the router's thread reads the loss and sends it)
+        obs_remote.notify_step(net.iteration, epoch=net.epoch, duration_s=dt, score=loss,
+                               examples=n_examples, compile=bool(retraced))
         net._score = loss
         if self.bus.listeners:
             for listener in self.bus.listeners:
@@ -753,6 +772,12 @@ class Trainer:
             raise FileNotFoundError(f"resume_from path does not exist: {source}")
         self._ensure_ready()
         state = restore_into(self.net, path, tx=self.tx, verify=not verified)
+        # a child respawned by a grow announces the reshard here: a kill
+        # planted at this site leaves the checkpoint intact and recovers
+        # by the supervisor's respawn
+        from deeplearning4j_tpu_torch.resilience import elastic
+        if elastic.is_grown_child():
+            faults.fire("gang.grow")
         policy = state.get("dtype_policy")
         if policy:
             set_dtype_policy(DTypePolicy(**{k: getattr(torch, v) for k, v in policy.items()}))
@@ -769,9 +794,8 @@ class Trainer:
             iterator.set_state(it_state)
         self._resume_skip = skip
         state["checkpoint_path"] = path
-        # the resume point, for a dashboard and for steps replayed after a
-        # crash (the last iteration before it, less this); the JAX package
-        # also tells obs_remote, which is not ported
+        # the resume point, for the dashboard and the supervisor's steps
+        # replayed after a crash (the last iteration before it, less this)
         resumed_iter = int(state.get("iteration", 0) or 0)
         reg = get_registry()
         reg.counter("tpudl_resilience_resumes_total").inc()
@@ -779,6 +803,9 @@ class Trainer:
         flight_recorder.record("resume", iteration=resumed_iter,
                                epoch=int(state.get("epoch", 0) or 0),
                                checkpoint=os.path.basename(path))
+        obs_remote.notify_event("resume", iteration=resumed_iter,
+                                epoch=int(state.get("epoch", 0) or 0),
+                                checkpoint=os.path.basename(path))
         return state
 
     def fit(self, iterator, epochs: int = 1, resume_from=None):
@@ -792,7 +819,9 @@ class Trainer:
         state: with ``resume_from`` (a checkpoint zip or a directory of
         them) the run continues from it (:meth:`resume_state`), ``epochs``
         counting the whole run, so an interrupted fit resumed here repeats
-        the uninterrupted run's steps.  The net carries what a checkpoint
+        the uninterrupted run's steps.  Without ``resume_from``, a gang
+        child that its supervisor respawned resumes from the pointer in
+        its launcher context.  The net carries what a checkpoint
         taken now records (``_completed_iterations``, ``_completed_epochs``,
         ``_epoch_batches`` and ``_stream``).
 
@@ -803,6 +832,9 @@ class Trainer:
         ``config.trace_dir`` (``obs.profiler.trace``)."""
         net = self.net
         epochs_to_run = epochs
+        if resume_from is None:
+            from deeplearning4j_tpu_torch.parallel.launcher import child_context
+            resume_from = child_context().resume_from
         if resume_from is not None:
             self.resume_state(resume_from, iterator)
             epochs_to_run = max(0, epochs - net.epoch)

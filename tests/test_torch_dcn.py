@@ -376,7 +376,7 @@ def test_layouts_devices_and_refusals(runs):
     tr.close()
     with pytest.raises(NotImplementedError, match="DCN × data"):
         MultiSliceTrainer(net(), 2, devices=["cpu"] * 2, layout="dp2xtp2")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(RuntimeError, match="spawn_local_cluster.*make_multislice_mesh"):
         MultiSliceTrainer(net(), 2, devices=["cpu"] * 4, data_per_slice=2)
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         MultiSliceTrainer(net(), 2)              # a CPU net: one device unless asked
@@ -519,7 +519,7 @@ def test_parallel_inference_shim_and_the_names_not_ported(runs):
     with parallel.ParallelInference(net, batch_limit=8) as pi:
         got = pi.output(r["x"][:3])
     np.testing.assert_allclose(got, net.output(torch.from_numpy(r["x"][:3])).numpy(), rtol=1e-6)
-    for name in ("moe_ffn", "ulysses_attention", "ring_attention", "make_multislice_mesh"):
+    for name in ("moe_ffn", "ulysses_attention", "ring_attention"):
         with pytest.raises(AttributeError, match="not ported yet"):
             getattr(parallel, name)
     with pytest.raises(ImportError, match="not ported yet"):

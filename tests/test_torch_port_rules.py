@@ -898,6 +898,11 @@ GRADIENT_SHARING = ("parallel/__init__.py", "parallel/mesh.py", "parallel/compre
                     "parallel/dcn.py", "parallel/dcn_trainer.py", "parallel/launcher.py",
                     "parallel/inference.py", "resilience/retry.py", "utils/__init__.py",
                     "utils/pytree.py")
+# the multi-slice gangs' modules: the supervisor, the elastic state machine,
+# the telemetry federation and its coordinator
+SUPERVISED_GANGS = ("resilience/__init__.py", "resilience/supervisor.py",
+                    "resilience/elastic.py", "obs/__init__.py", "obs/remote.py",
+                    "obs/ui_server.py", "train/trainer.py")
 
 
 @pytest.mark.parametrize("module", GRADIENT_SHARING)
@@ -917,6 +922,36 @@ def test_gradient_sharing_modules_are_scanned_and_read_no_environment(module):
         reads_env = (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
                      or isinstance(node, ast.Name) and node.id in ("environ", "getenv"))
         assert not reads_env, (module, node.lineno)
+
+
+@pytest.mark.parametrize("module", SUPERVISED_GANGS)
+def test_supervised_gang_modules_are_scanned_and_read_no_environment(module):
+    """What the JAX package reads from the environment in these modules
+    (worker id, generation, resume pointer, gang width, the grown flag,
+    the telemetry endpoint, the fault plan, the dashboard's host) the port
+    takes from a child's pickled call (``parallel.launcher.ChildContext``)
+    or as arguments: the modules are scanned for JAX imports and for
+    ``DL4J_TPU_``, and read no environment."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert f"deeplearning4j_tpu_torch/{module}" in names
+    path = ROOT / "deeplearning4j_tpu_torch" / module
+    text = path.read_text()
+    assert "DL4J_TPU_" not in text and "_ENV" not in text
+    for node in ast.walk(ast.parse(text, filename=str(path))):
+        reads_env = (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
+                     or isinstance(node, ast.Name) and node.id in ("environ", "getenv"))
+        assert not reads_env, (module, node.lineno)
+
+
+def test_launched_children_take_their_context_from_the_pickled_call():
+    """The child's bootstrap installs the context, its fault plan and its
+    telemetry router from the call, and drains the router at exit."""
+    from deeplearning4j_tpu_torch.parallel import launcher
+    template = launcher._WORKER_TEMPLATE
+    for piece in ('launcher.ChildContext(**call["context"])', "faults.install_fault_plan",
+                  "remote.install_from_context()", "remote.close_router"):
+        assert piece in template, piece
+    assert "DL4J_TPU_" not in template
 
 
 def test_gradient_sharing_defaults_to_the_card_and_raises_without_one(no_card):

@@ -250,3 +250,315 @@ def data_parallel_worker(pid, n, spec_path, wait_s=120.0):
     out["unsharded"] = res
     out["stats"] = {k: (s.calls, s.bytes) for k, s in tr._layout.stats.items()}
     return out
+
+
+# ------------------------------------------------------ multi-slice gangs
+# tests/test_torch_multislice.py's rank: MultiSliceTrainer(n_slices=2,
+# data_per_slice=2) in a gang of 4, from the JAX package's weights.
+
+def _wait_for_spec(spec_path, wait_s=120.0):
+    import os
+    import pickle
+    import time
+    deadline = time.monotonic() + wait_s
+    while not os.path.exists(spec_path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no spec at {spec_path} after {wait_s} s")
+        time.sleep(0.05)
+    with open(spec_path, "rb") as f:
+        return pickle.load(f)
+
+
+def _slice_digests(*trees):
+    """Every rank's sha256 of ``trees`` (an all-gather of digests)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(list(trees)):
+        if torch.is_tensor(t):
+            h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, h.hexdigest())
+    return out
+
+
+def _multislice_case(case, mesh, steps, **kw):
+    """``steps`` steps of ``case``'s net under MultiSliceTrainer(2, 2): the
+    slice's losses, the divergence and every rank's digest after each step,
+    the wire stats and compact messages of each step, and the trees after."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import AdaptiveThresholdAlgorithm, MultiSliceTrainer
+    from deeplearning4j_tpu_torch.parallel import dcn_trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    net = _dp_net(case)
+    sent = []
+    compact = dcn_trainer.compact_device_message
+
+    def recording(msg, capacity):
+        out = compact(msg, capacity)
+        sent.append(np.array(out))
+        return out
+
+    dcn_trainer.compact_device_message = recording
+    tr = MultiSliceTrainer(net, 2, algorithm=AdaptiveThresholdAlgorithm(
+        initial_threshold=case["tau"]), mesh=mesh, **kw)
+    out = {"losses": [], "divergence": [], "digests": [], "wire": []}
+
+    def watch():
+        out["divergence"].append(tr.max_param_divergence())
+        out["digests"].append(_slice_digests(tr.slice_params[0], tr.slice_state[0],
+                                             tr.slice_opt[0]))
+
+    try:
+        batch = DataSet(case["x"], case["y"])
+        for _ in range(steps):
+            out["losses"].append(tr.fit_batch(batch))
+            watch()
+            out["wire"].append([dict(w) for w in tr.last_wire_stats])
+        tr.finish()      # overlap: the last exchange lands
+        watch()
+        state = tr.codec_state()[0]
+    finally:
+        dcn_trainer.compact_device_message = compact
+        tr.close()
+    kind = "dcn_grad_encode" if kw.get("device_encode", True) else "dcn_grad"
+    out.update(messages=sent, params=flat_param_vector(tr.slice_params[0]).numpy(),
+               state=_np(tr.slice_state[0]), residual=np.asarray(state["residual"]),
+               threshold=state["threshold"], capacity=tr.capacity, slice=tr.rank_offset,
+               world=tr.world_size, stats={k: (c.calls, c.bytes)
+                                           for k, c in tr._layout.stats.items()},
+               eager=tr._steps[kind].get(0).eager_reason)
+    return out
+
+
+def multislice_worker(pid, n, spec_path):
+    """One rank of the 4-rank gang: the mesh cases, then each trainer case
+    of ``spec`` (written by the parent once the JAX package has made the
+    weights)."""
+    spec = _wait_for_spec(spec_path)
+    from deeplearning4j_tpu_torch.parallel import make_multislice_mesh
+    out = {"pid": pid}
+    meshes = {}
+    for shape in ((2, 2), (4, 1), (1, 4)):
+        m = make_multislice_mesh(*shape, devices="cpu")
+        meshes[shape] = m
+        out[f"mesh_{shape}"] = {"axes": m.axis_names, "shape": m.shape,
+                                "position": m.position(), "leader": m.is_leader,
+                                "slice_ranks": m.slice_ranks(m.slice_index),
+                                "layout": m.layout().describe()}
+    out["errors"] = {}
+    for args in ((2, 4), (2, 2, 2), (1, 2)):
+        try:
+            make_multislice_mesh(*args, devices="cpu")
+        except (ValueError, NotImplementedError) as e:
+            out["errors"][args] = (type(e).__name__, str(e))
+    mesh = meshes[(2, 2)]
+    steps = spec["steps"]
+    out["device"] = _multislice_case(spec["dense"], mesh, steps)
+    out["host"] = _multislice_case(spec["dense"], None, steps, data_per_slice=2,
+                                   device_encode=False, devices="cpu")
+    out["overlap"] = _multislice_case(spec["dense"], mesh, steps, overlap=True)
+    out["layout"] = _multislice_case(spec["dense"], None, 2, layout="dp2", devices="cpu")
+    out["fused"] = _multislice_case(spec["fused"], mesh, spec["fused_steps"])
+    return out
+
+
+# ----------------------------------------------------- supervised gangs
+# tests/test_torch_supervisor.py's and tests/test_torch_elastic.py's
+# workers: the port's counterparts of tests/cluster_workers.py's
+# _supervised_conf, supervised_batches, run_reference_fit and
+# supervised_train_worker.  ``spec`` carries each net's configuration (the
+# JAX package's, as JSON) and its initial weights (``interop.load_jax_params``).
+
+def supervised_batches(pid, n_batches=6, batch=16):
+    """tests/cluster_workers.py's supervised_batches, as the port's DataSets."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    rng = np.random.default_rng(11 + pid)
+    x = rng.normal(size=(n_batches * batch, 6)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n_batches * batch)]
+    return [DataSet(x[i:i + batch], y[i:i + batch]) for i in range(0, n_batches * batch, batch)]
+
+
+def supervised_net(spec, key):
+    """The port's net ``spec[key]`` (conf JSON and the JAX package's
+    initial weights), on the CPU."""
+    from deeplearning4j_tpu_torch.interop import load_jax_params
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    case = spec[key]
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(case["conf"]), device="cpu")
+    return load_jax_params(net, case["p0"], case["s0"])
+
+
+def _resumable(pid):
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator, ResumableIterator
+    return ResumableIterator(ListDataSetIterator(supervised_batches(pid)))
+
+
+class _Sleep:
+    """Slows a fit down (a sleep after each step), so that a test can act
+    while it runs."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def iteration_done(self, net, iteration, epoch, score):
+        import time
+        time.sleep(self.seconds)
+
+
+def run_reference_fit(spec, pid, epochs=2):
+    """The uninterrupted single-process run that the supervised gang must
+    match to 1e-6: the same net, data and seed as
+    :func:`supervised_train_worker`."""
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    net = supervised_net(spec, pid)
+    scores = CollectScoresListener()
+    Trainer(net, listeners=[scores]).fit(_resumable(pid), epochs=epochs)
+    return scores.scores, flat_param_vector(net.params_).numpy()
+
+
+def supervised_train_worker(pid, n, workdir=None, spec=None, epochs=2):
+    """The kill-and-heal worker: a fit (dropout active) with a checkpoint
+    every iteration into ``workdir/w<pid>``; a respawned worker resumes
+    from its own newest verified checkpoint when its launcher context says
+    there is one.  The supervisor hands the fault plan (generation 0 only).
+    Returns the losses it ran, the iteration it ended at and its params."""
+    import os
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.parallel.launcher import child_context
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    ctx = child_context()
+    net = supervised_net(spec, pid)
+    iterator = _resumable(pid)
+    ckpt_dir = os.path.join(workdir, f"w{pid}")
+    ckpt = CheckpointListener(ckpt_dir, save_every_n_iterations=1, keep_last=3,
+                              iterator=iterator)
+    scores = CollectScoresListener()
+    Trainer(net, listeners=[scores, ckpt]).fit(
+        iterator, epochs=epochs, resume_from=ckpt_dir if ctx.resume_from else None)
+    return {"pid": pid, "generation": ctx.generation, "worker": ctx.worker,
+            "losses": list(scores.scores), "end_iteration": net.iteration,
+            "params": flat_param_vector(net.params_).numpy()}
+
+
+def repeatedly_dying_worker(pid, n, spec=None, die_pid=None, kill_at=2, steps=60):
+    """Budget exhaustion: ``die_pid`` SIGKILLs itself in EVERY generation
+    (its plan installed here, which the supervisor cannot clear); the
+    others train slowly, so that the teardown finds them mid-fit and their
+    flight recorders write the black boxes that the error carries."""
+    import time
+    import torch
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.train import Trainer
+    if pid == die_pid:
+        faults.install_fault_plan(faults.FaultPlan.parse(f"trainer.step@{kill_at}:kill"))
+    net = supervised_net(spec, pid)
+    batch = supervised_batches(pid)[0]
+    trainer = Trainer(net)
+    gen = torch.Generator().manual_seed(pid)
+    for _ in range(steps):
+        trainer.step_batch(batch, gen)
+        time.sleep(0.1)      # alive until the supervisor's teardown
+    return {"pid": pid, "steps": steps}
+
+
+def trivial_worker(pid, n):
+    return {"pid": pid}
+
+
+def elastic_train_worker(pid, n, workdir=None, spec=None, epochs=4, kill_on_grow=False,
+                         step_delay=0.0):
+    """The elastic gang's worker: one fit (dropout active) under
+    ``Trainer(layout="dp<width>")``, the width from the launcher context
+    (``elastic.configured_width``), never hard-coded; every worker runs the
+    same trajectory, and slot w0 checkpoints every iteration into a SHARED
+    directory, so that a gang relaunched at a new width resumes from its
+    newest verified checkpoint.  ``kill_on_grow``: in a grow's generation,
+    slot w1 installs ``gang.grow@0:kill`` (``Trainer.resume_state`` fires
+    that site after the restore).  ``step_delay``: seconds to sleep after
+    each step of generation 0."""
+    import os
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.obs.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.parallel.launcher import child_context
+    from deeplearning4j_tpu_torch.resilience import elastic, faults
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    ctx = child_context()
+    width = elastic.configured_width(default=n)
+    slot = ctx.worker or f"w{pid}"
+    if kill_on_grow and elastic.is_grown_child() and slot == "w1":
+        faults.install_fault_plan(faults.FaultPlan.parse("gang.grow@0:kill"))
+    net = supervised_net(spec, "elastic")
+    iterator = _resumable(0)
+    scores = CollectScoresListener()
+    listeners = [scores]
+    ckpt_dir = os.path.join(workdir, "shared")
+    if slot == "w0":
+        listeners.append(CheckpointListener(ckpt_dir, save_every_n_iterations=1, keep_last=3,
+                                            iterator=iterator))
+    if step_delay and ctx.generation == 0:
+        listeners.append(_Sleep(step_delay))
+    Trainer(net, listeners, layout=f"dp{width}").fit(
+        iterator, epochs=epochs, resume_from=ckpt_dir if ctx.resume_from else None)
+    return {"pid": pid, "slot": slot, "width": width, "generation": ctx.generation,
+            "grown": elastic.is_grown_child(), "losses": list(scores.scores),
+            "end_iteration": net.iteration, "params": flat_param_vector(net.params_).numpy()}
+
+
+def telemetry_train_worker(pid, n, steps=6, straggler_pid=None, delay_s=0.25):
+    """A few steps of the dense net with the launcher's telemetry router
+    installed by the child's bootstrap; ``straggler_pid`` sleeps
+    ``delay_s`` inside each step (a ``trainer.step`` delay rule)."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.obs import remote
+    from deeplearning4j_tpu_torch.parallel.launcher import child_context
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.train import Trainer
+    if pid == straggler_pid:
+        faults.install_fault_plan(faults.FaultPlan.parse(
+            f"trainer.step@0:delay:{delay_s}:{steps}"))
+    trainer = Trainer(dense_net())
+    x, y = global_batches()[0]
+    gen = torch.Generator().manual_seed(pid)
+    for _ in range(steps):
+        trainer.step_batch(DataSet(x, y), gen)
+    return {"pid": pid, "worker": child_context().worker,
+            "router": remote.get_router() is not None}
+
+
+def mesh_worker(pid, n, shapes):
+    """Each multi-slice mesh of ``shapes`` over the gang: this rank's
+    position, and the sums over its slice's groups and the leaders' group
+    of every rank's id (which show who is in each)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import make_multislice_mesh
+    out = {"pid": pid}
+    for shape in shapes:
+        m = make_multislice_mesh(*shape, devices="cpu")
+        mine = torch.tensor([float(pid)])
+        sums = {}
+        for name, group in (("slice", m.group), ("relay", m.relay_group)):
+            t = mine.clone()
+            dist.all_reduce(t, group=group)
+            sums[name] = t.item()
+        if m.is_leader:
+            t = mine.clone()
+            dist.all_reduce(t, group=m.leader_group)
+            sums["leaders"] = t.item()
+        box = [pid]
+        dist.broadcast_object_list(box, src=m.leader(), group=m.relay_group)
+        sums["relayed_from"] = box[0]
+        out[shape] = {"position": m.position(), "leader": m.is_leader, "sums": sums,
+                      "layout": m.layout().describe(), "shape": m.shape}
+    return out
