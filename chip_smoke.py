@@ -87,7 +87,13 @@ no result line:
    and 2500; causal at offsets (1024, 512); Tq = 1000 against Tk = 4096; a
    batch row whose mask is all zeros (dead rows); tails of both the query
    and the key tiles (Tq = 1000, Tk = 2999) under causal at offsets (300,
-   0) with a key mask of valid lengths 2999 and 2000.  Both kernels and the
+   0) with a key mask of valid lengths 2999 and 2000; and the two blocks
+   that phase 31's causal ring (2 ranks of 4096 tokens) gives the kernel
+   off the diagonal: queries at offset 4096 against keys at 0 (every pair
+   visible) and queries at 0 against keys at 4096 (every row dead, so o,
+   l and every gradient must be exactly 0 and m NEG_INF: no planted fault
+   can move a result that sees no key, so those are not gated there).
+   Both kernels and the
    two-kernel backward (``merged=False``) are held to their plain versions
    (o, m, l; the normalized output and lse; dq, dk, dv with O(1)
    cotangents), the two backward forms to each other, planted faults (the
@@ -398,7 +404,29 @@ no result line:
    write and restore, ``/cluster.json``'s generations; (c) on phase 26
    (c)'s two fused bottlenecks, a shrink by the ``shrink`` policy once
    slot 1's budget is spent and a grow back to 2 by ``request_resize``;
-31. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+31. devices that move between serving and training, and sequence-parallel
+   attention, in one 2-rank gloo gang sharing the card: (a) full-width
+   fused ResNet-50 f32 under ``Trainer(layout="dp2")``, 3 epochs of 2
+   batches of 32 with ``request_resize(1)`` after epoch 1 and
+   ``request_resize(2)`` after epoch 2 (rank 1 parked through the dp1
+   epoch): 36 + 36 launches per stepping rank per step, the ranks
+   byte-equal after the grow, the flips' seconds, step 0 against the plain
+   versions (phase 6's limits), ``gang.grow@0:crash`` leaving both ranks at
+   dp1 and trainable before the grow lands; the same run in f64 (plain
+   versions) against the fixed-width dp2 run at phase 28's limits, every
+   step's gradient and the params; (b) phase 25's ResNet-50 behind a
+   ``ReplicaRouter`` (2 replicas, max 2) in rank 0 with three clients of 8
+   images (each answer held to output() of its request at ``SERVE_TOL``)
+   and ``DevicePoolArbiter`` over ``TrainerGang``: a crashed borrow leaves
+   the inventory, a borrow shrinks the gang to dp1 and raises the router to
+   3 replicas, a return grows it back, no client error, images/s and
+   p50/p99 by epoch, the flips and the MTTR of each; (c) ``ring_attention``
+   at (2, 12, 8192, 64) over a seq axis of 2, f32 and bf16, causal and not:
+   the flash kernel at the ring's offsets (2 launches a rank a call) against
+   the normalized kernel over the whole sequence, the einsum ring and
+   ``ulysses_attention``, their times (CUDA events) and the exchanges'
+   bytes and host ms;
+32. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -1678,7 +1706,12 @@ FLASH_CASES = (
     ("cross", 2, 12, 1000, 4096, False, None, 0, 0),
     ("dead_rows", 2, 12, 4096, 4096, False, (4096, 0), 0, 0),
     ("ragged", 2, 12, 1000, 2999, True, (2999, 2000), 300, 0),
+    # the causal ring's off-diagonal blocks at 2 ranks of 4096 tokens
+    # (phase 31): every pair visible, and every row dead
+    ("ring_past", 2, 12, 4096, 4096, True, None, 4096, 0),
+    ("ring_future", 2, 12, 4096, 4096, True, None, 0, 4096),
 )
+FLASH_RING_CASES = ("ring_past", "ring_future")
 # flash kernel vs plain on the same inputs, max |diff| over the largest
 # |plain| of each output (m and lse over live rows); dead rows must be
 # exactly o = 0, m = NEG_INF, l = 0.  f32: sum order and the three TF32
@@ -1785,6 +1818,10 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                 case = (*case[:2], heads, *case[3:])
             name, b, h, tq, tk = case[:5]
             q, k, v, dout, mask, kw = flash_inputs(case, dtype, gen, d)
+            # a block that sees no key (the ring's future block): its results
+            # must be exactly 0 (m NEG_INF), and no planted fault moves them
+            blind = not bool(fa._visible(b, tq, tk, q.device, kw["causal"], mask, kw["q_offset"],
+                                         kw["k_offset"]).any())
             o, m, l = fa.flash_attention_block(q, k, v, **kw)
             torch.cuda.synchronize()
             oe, me, le = fa.flash_attention_block_plain(q, k, v, **kw)
@@ -1832,7 +1869,13 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                 del moved
             gated = [v for key, v in faults.items() if key.startswith("lse")
                      or (dname == "float32" and key[-2:] in ("dq", "dk"))]
-            if not min(gated) >= FLASH_FAULT_MARGIN:
+            if blind:
+                zero = all(bool((t == 0).all()) for t in (out, *got, *split))
+                if not zero:
+                    raise AssertionError(f"flash {dname} {name} D={d}: a block with no visible "
+                                         f"key gave a nonzero output or gradient")
+                gated, cut, one_pass = [], None, {}
+            if gated and not min(gated) >= FLASH_FAULT_MARGIN:
                 raise AssertionError(f"flash {dname} {name}: a planted fault moves the check "
                                      f"by only {faults} times its limit")
             if cut is not None:
@@ -1877,7 +1920,8 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                    "causal": kw["causal"], "q_offset": kw["q_offset"],
                    "k_offset": kw["k_offset"], "visible_pairs": pairs, "rel_err": errs,
                    "split_vs_merged": vs_merged,
-                   "fault_over_limit": faults, "fault_over_limit_min": min(gated),
+                   "fault_over_limit": faults, "fault_over_limit_min": min(gated, default=None),
+                   "no_visible_key": blind,
                    "one_pass_tf32_over_limit": one_pass,
                    "second_run_bits_checked": name == "base",
                    "max_abs_err": (out.float() - oute.float()).abs().max().item(),
@@ -1922,7 +1966,8 @@ def check_flash(dtypes, d: int = 64, heads: int | None = None,
                 f"{row['split_algo_ops_ms']:.3f}); rel err "
                 + " ".join(f"{key} {e:.1e}" for key, e in errs.items())
                 + "; split vs merged " + " ".join(f"{key} {e:.1e}" for key, e in vs_merged.items())
-                + f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit"
+                + ("; no key visible: o, l, out and every gradient exactly 0" if blind else
+                   f"; a planted fault reads >= {row['fault_over_limit_min']:.0f}x the limit")
                 + ("; one TF32 pass reads " + " ".join(f"{k} {v:.0f}x" for k, v in one_pass.items()
                                                        if not k.startswith("split_"))
                    + " (either backward form)" if one_pass else ""))
@@ -3883,8 +3928,9 @@ def attention_stack(card: str) -> dict:
 # each path is run twice from the same start, eager (capture.eager()) and
 # through the step cache (CUDA graphs): CAPTURE_STEPS steps that must give
 # the same bits (losses or outputs, params, state, updater state), then
-# CAPTURE_TIMED timed steps and CAPTURE_PROFILED traced ones
-CAPTURE_STEPS, CAPTURE_TIMED, CAPTURE_PROFILED = 5, 20, 3
+# CAPTURE_TIMED timed steps and CAPTURE_PROFILED traced ones (20 timed
+# steps until phase 31 joined the run; cut to keep the whole under its limit)
+CAPTURE_STEPS, CAPTURE_TIMED, CAPTURE_PROFILED = 5, 8, 3
 CAPTURE_DROPOUT = 0.8     # the dropout MLP's retain probability
 CAPTURE_SEED = SEED + 50
 # the host-side launch calls of the CUDA runtime and driver, as the profiler
@@ -4562,10 +4608,11 @@ CHAR_VOCAB, CHAR_BATCH, CHAR_T, CHAR_SEGMENT = 77, 32, 1000, 50
 CHAR_SEGMENTS = CHAR_T // CHAR_SEGMENT
 CHAR_BRANCH, CHAR_SEED = 3, SEED + 60
 CHAR_FITS = 4            # net.fit calls, one batch each
-# phase 22 holds the tBPTT fit eager against captured on sequences of 250 (5
+# phase 22 holds the tBPTT fit eager against captured on sequences of 100 (2
 # segments a batch: an eager batch of 1000 takes ~3.6 s on the H100, and the
-# path runs 19 of them eagerly), with CHAR_TIMED timed fit calls per mode
-CHAR_CAPTURE_T, CHAR_TIMED = 250, 3
+# path runs 19 of them eagerly; 250 until phase 31 joined the run), with
+# CHAR_TIMED timed fit calls per mode
+CHAR_CAPTURE_T, CHAR_TIMED = 100, 3
 CHAR_SAMPLE = 200        # characters sampled through rnn_time_step
 # rnn_time_step one step at a time against output of the whole sequence, max
 # |diff| of the probabilities: the cells run the same arithmetic; only the
@@ -5266,8 +5313,9 @@ def vgg_transfer(card: str, tmp: Path) -> dict:
 # ------------------------------------------------------------- phase 25
 SS_SEED = SEED + 40
 SS_HW = 224                  # the served images' side
-# (b): client threads, requests, images a request (1 to this many)
-SS_CLIENTS, SS_REQUESTS, SS_MAX_IMAGES = 8, 64, 4
+# (b): client threads, requests, images a request (1 to this many; 64
+# requests until phase 31 joined the run)
+SS_CLIENTS, SS_REQUESTS, SS_MAX_IMAGES = 8, 32, 4
 # (c): the captured rounds send one request of this many images at a time (one
 # bucket), this many times a version (two eager calls and the capture)
 SS_WARM_IMAGES, SS_WARM_CALLS = 4, 3
@@ -8231,6 +8279,542 @@ def supervised_gang(card: str, dp_workdir: str, dp_losses: list) -> dict:
     return {"card": card, "healed": healed, "resized": resized, "launches": heal_launches}
 
 
+# ---------------- phase 31: devices that move between serving and training, and
+# ---------------- sequence-parallel attention (resilience/arbiter.py, Trainer's
+# ---------------- in-process resize, parallel/unified.py)
+# one 2-rank gloo gang sharing the card (one child start-up for the three parts)
+EL_SEED = SEED + 120
+EL_EPOCHS, EL_EPOCH_BATCHES = 3, 2   # (a): 3 epochs of 2 global batches of DP_BATCH
+EL_WIDTHS = (2, 1, 2)                # (a): the width of each epoch (resizes after 1 and 2)
+EL_PORT = 13611
+EL_TIMEOUT = 600.0
+EL_LAUNCHES = {"matmul_bn_act": 36, "matmul_bn_act_bwd": 36}   # per stepping rank per step
+AR_CLIENTS, AR_IMAGES, AR_REQUESTS = 3, 8, 6   # (b): client threads, images a request, distinct
+AR_EPOCH_BATCHES = 4                           # (b): global batches an epoch
+SP_B, SP_HEADS, SP_D, SP_T = 2, 12, 64, 8192   # (c): BERT-base width, 4096 tokens a rank
+SP_TIMED = 3
+# (c): f32 against the normalized kernel over the whole sequence, the einsum
+# ring and Ulysses: phase 10's limit for the normalized output (max |diff|
+# over the largest |entry|); bf16: the reference's own tolerance for its
+# bf16 ring (tests/test_pallas.py:262-277), since the carries round to bf16
+SP_F32_TOL = FLASH_TOL["float32"]["out"]
+SP_BF16_RTOL, SP_BF16_ATOL = 0.1, 0.05
+
+
+def el_batches(dtype: str) -> list:
+    """(a)'s EL_EPOCH_BATCHES global batches of DP_BATCH seeded images."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = dcn_batch(DP_BATCH * EL_EPOCH_BATCHES, seed=EL_SEED)
+    if dtype == "f64":
+        x, y = x.astype(np.float64), y.astype(np.float64)
+    return [DataSet(torch.from_numpy(x[i:i + DP_BATCH]).cuda(),
+                    torch.from_numpy(y[i:i + DP_BATCH]).cuda())
+            for i in range(0, len(x), DP_BATCH)]
+
+
+class _ElasticWatch:
+    """(a)'s listener: the resizes after epochs 1 and 2 (EL_WIDTHS), each
+    step's loss, launches and wall ms (host clock from the epoch's start or
+    the step before; the loss is read back, so the step is done), every
+    step's flat gradient (``grads``, on the card; f64) or step 0's update
+    (``start``: the params before it)."""
+
+    def __init__(self, trainer, start=None, grads=None):
+        from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+        self.trainer, self.start, self.grads = trainer, start, grads
+        self.losses, self.launches, self.widths, self.update0 = [], [], [], None
+        self.step_ms, self.equal_after_grow, self.t = [], None, None
+        if grads is not None:
+            update = trainer.tx.update
+
+            def recording(g, state, params=None):
+                grads.append(flat_param_vector(g).detach().clone())
+                return update(g, state, params)
+            trainer.tx.update = recording
+
+    def on_epoch_start(self, net, epoch):
+        self.widths.append(self.trainer._layout.spec.total())
+        if epoch == EL_EPOCHS - 1:
+            self.equal_after_grow = ranks_equal(net.params_, net.state_, net.opt_state)
+        kernel_counts(zero=True)
+        self.t = time.perf_counter()
+
+    def iteration_done(self, net, iteration, epoch, score):
+        t = time.perf_counter()
+        self.step_ms.append((self.trainer._layout.spec.total(), (t - self.t) * 1e3))
+        self.t = t
+        self.losses.append(float(score))
+        self.launches.append(launched(kernel_counts(zero=True)))
+        if self.start is not None and self.update0 is None:
+            it = iter(self.start)
+            self.update0 = {v: {k: t - next(it).cuda() for k, t in d.items()}
+                            for v, d in net.params_.items()}
+
+    def on_epoch_end(self, net, epoch, info):
+        if epoch + 1 < EL_EPOCHS:
+            self.trainer.request_resize(EL_WIDTHS[epoch + 1])
+
+
+def resize_events(since: float) -> list:
+    """The flight recorder's ``elastic_resize`` events stamped at or after
+    ``since`` (``time.monotonic()``), in order."""
+    from deeplearning4j_tpu_torch.obs import flight_recorder
+    return [e for e in flight_recorder.get_recorder().events()
+            if e.get("kind") == "elastic_resize" and e["mono"] >= since]
+
+
+def el_resize_run(dtype: str, resize: bool, start=None) -> tuple:
+    """(a)'s run in this rank: ``Trainer(layout="dp2")`` fits EL_EPOCHS
+    epochs of el_batches, resized to EL_WIDTHS when ``resize``; returns
+    (the trainer, its watch, the flip events)."""
+    from deeplearning4j_tpu_torch.train import Trainer, step_cache
+    # a cached step closes over its first trainer's optimizer, which the
+    # gradient recorder wraps
+    step_cache.clear_step_cache()
+    net = dp_net(dtype)
+    trainer = Trainer(net, layout="dp2")
+    watch = _ElasticWatch(trainer, start=start, grads=[] if dtype == "f64" else None)
+    if not resize:
+        watch.on_epoch_end = lambda *a: None
+    trainer.bus.listeners.append(watch)
+    since = time.monotonic()
+    trainer.fit(el_batches(dtype), epochs=EL_EPOCHS)
+    trainer.bus.listeners.remove(watch)
+    events = resize_events(since)
+    return trainer, watch, [{k: e[k] for k in ("direction", "from_width", "to_width", "flip_s")}
+                            for e in events]
+
+
+def el_resize_rank(pid: int, workdir: str) -> tuple:
+    """(a) in one rank: the f32 run through the kernels, step 0 again through
+    the plain versions, the crash at gang.grow; then the same run in f64
+    (plain versions) beside the fixed-width dp2 run.  Returns (its results,
+    the f32 trainer for (b))."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import fused as fused_mod
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    out = {}
+    net0 = dp_net("f32")
+    start = host_copy(net0.params_, net0.state_)
+    start_params = host_copy(net0.params_)
+    del net0
+    trainer, watch, flips = el_resize_run("f32", True, start=start_params)
+    net = trainer.net
+    out["f32"] = {"losses": watch.losses, "launches": watch.launches, "widths": watch.widths,
+                  "step_ms": watch.step_ms,
+                  "flips": flips, "equal_after_grow": watch.equal_after_grow,
+                  "equal_end": ranks_equal(net.params_, net.state_, net.opt_state)}
+    update0 = watch.update0
+    # the crash at gang.grow: both ranks stay on dp1 and train; the grow lands after
+    crash = {"shrunk": trainer.resize_mesh(1)}
+    with faults.inject("gang.grow@0:crash"):
+        try:
+            trainer.resize_mesh(2)
+        except faults.InjectedCrash as e:
+            crash["raised"] = type(e).__name__
+    crash["width_after"] = trainer._layout.spec.total()
+    crash["parked"] = trainer.parked
+    losses = []
+
+    class Rec:
+        def iteration_done(self, net, iteration, epoch, score):
+            losses.append(float(score))
+    trainer.bus.listeners.append(Rec())
+    trainer.fit(el_batches("f32")[:1], epochs=1)
+    trainer.bus.listeners.pop()
+    crash["steps_at_dp1"] = losses
+    crash["landed"] = trainer.resize_mesh(2)
+    crash["width_final"] = trainer._layout.spec.total()
+    crash["equal"] = ranks_equal(net.params_, net.state_, net.opt_state)
+    out["crash"] = crash
+    # step 0 again, from the start, through both plain versions (comparison only)
+    it = iter(start)
+    with torch.no_grad():
+        tree_map(lambda t: t.copy_(next(it)), [net.params_, net.state_])
+    net.opt_state = None
+    saved = fused_mod.matmul_bn_act
+    fused_mod.matmul_bn_act = _PlainMatmulBnAct()
+    try:
+        kernel_counts(zero=True)
+        plain_loss = trainer.fit_batch(el_batches("f32")[0]).item()
+        plain_launches = launched(kernel_counts(zero=True))
+    finally:
+        fused_mod.matmul_bn_act = saved
+    it = iter(start)
+    plain_update = {v: {k: t - next(it).cuda() for k, t in d.items()}
+                    for v, d in net.params_.items()}
+    errs = update_errs(update0, plain_update)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    out["vs_plain"] = {"loss_rel_err": abs(out["f32"]["losses"][0] - plain_loss) / abs(plain_loss),
+                       "launches": plain_launches, "update_rel_err_max": worst[0][1],
+                       "update_rel_err_worst": worst[:3]}
+    del update0, plain_update
+    # the f64 runs: fixed dp2 against resized, every step's gradient
+    release()
+    with f64_policy(True):
+        runs = {}
+        for resize in (False, True):
+            tr64, w64, _ = el_resize_run("f64", resize)
+            runs[resize] = (w64, tr64.net.params_)
+            del tr64
+        (wf, pf), (wr, pr) = runs[False], runs[True]
+        if pid == 0:
+            grad_errs = [float((g - h).abs().max() / h.abs().max())
+                         for g, h in zip(wr.grads, wf.grads)]
+            leaf_errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                         for a, b in zip(flat_order_leaves(pr), flat_order_leaves(pf))]
+            out["f64"] = {"grad_errs": grad_errs, "param_err_max": max(leaf_errs),
+                          "losses": wr.losses, "fixed_losses": wf.losses,
+                          "loss_rel_errs": [abs(a - b) / abs(b)
+                                            for a, b in zip(wr.losses, wf.losses)],
+                          "widths": wr.widths, "steps": len(wr.grads)}
+        del runs, wf, wr, pf, pr
+    release()
+    return out, trainer
+
+
+def ar_serving_rank(trainer, tmp: str) -> dict:
+    """(b) on rank 0: the router, the clients, the arbiter over TrainerGang,
+    one epoch before the borrow, one after it, one after the return."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    from deeplearning4j_tpu_torch.obs.remote import ClusterStore
+    from deeplearning4j_tpu_torch.resilience import DevicePoolArbiter, TrainerGang, faults
+    from deeplearning4j_tpu_torch.serve import ModelRegistry, ReplicaRouter
+    reg = get_registry()
+    net = serving_resnet50()
+    path = os.path.join(tmp, "resnet50.zip")
+    net.save(path, save_updater=False)
+    rng = np.random.default_rng(EL_SEED + 1)
+    requests = [rng.normal(size=(AR_IMAGES, SS_HW, SS_HW, 3)).astype(np.float32)
+                for _ in range(AR_REQUESTS)]
+    expected = [net.output(x).cpu().numpy() for x in requests]
+    del net
+    models = ModelRegistry(max_batch=BATCH, max_latency_ms=5.0)
+    models.deploy("resnet50", path)
+    router = ReplicaRouter(models, "resnet50", replicas=2, max_replicas=2)
+    store = ClusterStore()
+    arb = DevicePoolArbiter(router, TrainerGang(trainer), min_train=1, chips_per_flip=1,
+                            cooldown_s=0.0, serve_chips=2, cluster_store=store)
+    for x in requests[:2]:                       # warm the replicas
+        router.predict(x, timeout_s=300)
+    stop, errors, done, lock = threading.Event(), [], [], threading.Lock()
+
+    def client(j):
+        i = j
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                got = router.predict(requests[i % AR_REQUESTS], timeout_s=300)
+                err = float(np.abs(got - expected[i % AR_REQUESTS]).max())
+                if not err <= SERVE_TOL:
+                    raise AssertionError(f"answer off by {err} (SERVE_TOL {SERVE_TOL})")
+            except Exception as e:  # noqa: BLE001 — counted, and the phase fails on it
+                errors.append(repr(e)[:300])
+                return
+            with lock:
+                done.append((time.perf_counter(), time.perf_counter() - t0))
+            i += AR_CLIENTS
+
+    out = {"before": arb.snapshot()}
+    with faults.inject("arbiter.borrow@0:crash"):
+        out["crashed_borrow"] = arb.borrow()
+    out["after_crash"] = arb.snapshot()
+    out["replicas_after_crash"] = router.replicas
+    batches = el_batches("f32") * (AR_EPOCH_BATCHES // EL_EPOCH_BATCHES)
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(AR_CLIENTS)]
+    for t in threads:
+        t.start()
+    epochs, flips = [], {}
+
+    def epoch(label):
+        t0 = time.perf_counter()
+        trainer.fit(batches, epochs=1)
+        torch.cuda.synchronize()
+        epochs.append((label, t0, time.perf_counter(), trainer._layout.spec.total(),
+                       router.replicas))
+
+    try:
+        epoch("dp2, 2 replicas")
+        t_borrow = time.monotonic()
+        out["borrowed"] = arb.borrow()
+        epoch("dp1, 3 replicas (borrowed)")
+        shrink = resize_events(t_borrow)
+        flips["borrow_mttr_s"] = shrink[0]["mono"] - t_borrow
+        flips["shrink_flip_s"] = shrink[0]["flip_s"]
+        t_return = time.monotonic()
+        out["returned"] = arb.return_chips()
+        epoch("dp2, 2 replicas (returned)")
+        grow = resize_events(t_return)
+        flips["return_mttr_s"] = grow[0]["mono"] - t_return
+        flips["grow_flip_s"] = grow[0]["flip_s"]
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    notes = [a for a in store.summary()["annotations"] if a.get("event") in ("borrow", "return")]
+    flips["arbiter_flip_s"] = {e["event"]: e["flip_s"] for e in notes}
+    per_epoch = []
+    for label, t0, t1, width, replicas in epochs:
+        lat = [l for t, l in done if t0 <= t <= t1]
+        row = {"epoch": label, "width": width, "replicas": replicas, "seconds": t1 - t0,
+               "requests": len(lat), "images_per_s": len(lat) * AR_IMAGES / (t1 - t0)}
+        if lat:
+            row |= percentiles(lat)
+        per_epoch.append(row)
+    out.update(errors=errors, answered=len(done), snapshot=arb.snapshot(),
+               replicas=(router.replicas, router.max_replicas), per_epoch=per_epoch,
+               flips=flips, series={"borrows": reg.counter("tpudl_elastic_borrows_total").value,
+                                    "returns": reg.counter("tpudl_elastic_returns_total").value})
+    models.close()
+    return out
+
+
+def sp_rank() -> dict:
+    """(c) in one rank: ring attention (the flash kernel at the ring's
+    offsets; the einsum path) and Ulysses on this rank's 4096 tokens of
+    2 x 8192 at BERT-base width, against the normalized flash kernel over
+    the whole sequence, f32 and bf16, causal and not."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import make_mesh, ring_attention, ulysses_attention
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    mesh = make_mesh(seq=2, devices="cuda")
+    n, idx = mesh.shape["seq"], mesh.seq_index
+    t_local = SP_T // n
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        gen = torch.Generator(device="cuda").manual_seed(EL_SEED + 2)
+        q, k, v = (torch.randn(SP_B, SP_T, SP_HEADS * SP_D, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+        mine = [t[:, idx * t_local:(idx + 1) * t_local].contiguous() for t in (q, k, v)]
+        for causal in (False, True):
+            kw = dict(n_heads=SP_HEADS, causal=causal)
+            with torch.no_grad():
+                full = fa.flash_attention(q, k, v, **kw)[:, idx * t_local:(idx + 1) * t_local]
+                torch.cuda.synchronize()
+                kernel_counts(zero=True)
+                ring = ring_attention(*mine, mesh, use_flash=True, **kw)
+                torch.cuda.synchronize()
+                launches = launched(kernel_counts(zero=True))
+                einsum = ring_attention(*mine, mesh, use_flash=False, **kw)
+                uly = ulysses_attention(*mine, mesh, **kw)
+                torch.cuda.synchronize()
+                errs = {"ring_vs_full": rel_max(ring, full), "einsum_vs_full": rel_max(einsum, full),
+                        "ulysses_vs_full": rel_max(uly, full), "ring_vs_einsum": rel_max(ring, einsum)}
+                bf16_ok = None
+                if dtype == torch.bfloat16:
+                    bf16_ok = all(bool(((x.float() - full.float()).abs()
+                                        <= SP_BF16_ATOL + SP_BF16_RTOL * full.float().abs()).all())
+                                  for x in (ring, einsum, uly))
+                del full, einsum, uly
+                row = {"dtype": dname, "causal": causal, "errs": errs, "bf16_within": bf16_ok,
+                       "ring_dtype": str(ring.dtype).split(".")[1], "launches": launches,
+                       "finite": bool(torch.isfinite(ring.float()).all())}
+                del ring
+
+                def exchange(kind):
+                    # a call's share of the exchanges of the timed calls (and their warm-up)
+                    st = reset_exchange_stats()[kind]
+                    calls = SP_TIMED + 1
+                    return {"calls": st.calls / calls, "bytes": st.bytes // calls,
+                            "staged_bytes": st.staged_bytes // calls,
+                            "host_ms": st.seconds * 1e3 / calls}
+
+                # times (CUDA events), the same calls on both ranks
+                reset_exchange_stats()
+                row["ring_ms"] = cuda_ms(lambda: ring_attention(*mine, mesh, use_flash=True, **kw),
+                                         reps=SP_TIMED, warmup=1)
+                row["ring_exchange"] = exchange("ring")
+                row["einsum_ring_ms"] = cuda_ms(
+                    lambda: ring_attention(*mine, mesh, use_flash=False, **kw), reps=SP_TIMED,
+                    warmup=1)
+                reset_exchange_stats()
+                row["ulysses_ms"] = cuda_ms(lambda: ulysses_attention(*mine, mesh, **kw),
+                                            reps=SP_TIMED, warmup=1)
+                row["ulysses_exchange"] = exchange("all_to_all")
+                # one rank alone on the card (the other waits)
+                if idx == 0:
+                    row["full_flash_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                                                   reps=SP_TIMED, warmup=1)
+                dist.barrier()
+                reset_exchange_stats()
+                kernel_counts(zero=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del q, k, v, mine
+    return {"rows": rows, "seq_index": idx}
+
+
+def el_worker(pid: int, n: int, workdir: str) -> dict:
+    """One rank of phase 31: (a), (b) (rank 0 serves), (c)."""
+    import torch
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    from deeplearning4j_tpu_torch.train import capture
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_registry(MetricsRegistry())
+    t0 = time.perf_counter()
+    out = {"pid": pid}
+    out["resize"], trainer = el_resize_rank(pid, workdir)
+    out["resize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if pid == 0:
+        # the replicas serve eagerly: capturing a replica's graph while this
+        # process trains on other threads fails (PERF.md §7)
+        with capture.eager():
+            out["arbiter"] = ar_serving_rank(trainer, workdir)
+    else:
+        widths = []
+        for _ in range(3):          # rank 0's three epochs (b)
+            trainer.fit(el_batches("f32") * (AR_EPOCH_BATCHES // EL_EPOCH_BATCHES), epochs=1)
+            widths.append((trainer._layout.spec.total(), trainer.parked))
+        out["arbiter"] = {"widths": widths}
+    out["arbiter_s"] = time.perf_counter() - t0
+    del trainer
+    release()
+    t0 = time.perf_counter()
+    out["sp"] = sp_rank()
+    out["sp_s"] = time.perf_counter() - t0
+    return out
+
+
+def elastic_and_sequence(card: str) -> dict:
+    """Phase 31 (module comment)."""
+    import functools
+    import tempfile
+    import chip_smoke as module     # the worker pickles by this name, for the children
+    from deeplearning4j_tpu_torch.parallel.launcher import spawn_local_cluster
+    wd = tempfile.mkdtemp(prefix="chip_smoke_el_")
+    t0 = time.time()
+    ranks = spawn_local_cluster(functools.partial(module.el_worker, workdir=wd), n_processes=2,
+                                port=EL_PORT, device="cuda", timeout=EL_TIMEOUT)
+    gang_s = time.time() - t0
+    r0, r1 = sorted(ranks, key=lambda r: r["pid"])
+    problems = []
+    # (a)
+    a0, a1 = r0["resize"], r1["resize"]
+    if a0["f32"]["widths"] != list(EL_WIDTHS) or a1["f32"]["widths"] != [2, 2]:
+        problems.append(f"(a) widths by epoch: rank 0 {a0['f32']['widths']}, rank 1 "
+                        f"{a1['f32']['widths']} (rank 1 sits out the dp1 epoch)")
+    steps = [EL_EPOCH_BATCHES * len(EL_WIDTHS), EL_EPOCH_BATCHES * (len(EL_WIDTHS) - 1)]
+    for a, want in ((a0, steps[0]), (a1, steps[1])):
+        if a["f32"]["launches"] != [EL_LAUNCHES] * want:
+            problems.append(f"(a) launches per step {a['f32']['launches']} (want {EL_LAUNCHES} "
+                            f"on each of {want} steps)")
+    if not all(a["f32"]["equal_after_grow"] and a["f32"]["equal_end"] for a in (a0, a1)):
+        problems.append("(a) ranks not byte-equal after the grow or at the end")
+    if [f["direction"] for f in a0["f32"]["flips"]] != ["shrink", "grow"]:
+        problems.append(f"(a) flips {a0['f32']['flips']}")
+    vp = a0["vs_plain"]
+    if vp["launches"] or not (vp["loss_rel_err"] <= TRAIN_LOSS0_TOL
+                              and vp["update_rel_err_max"] <= TRAIN_UPDATE_TOL):
+        problems.append(f"(a) step 0 through the kernels vs the plain versions: {vp} (limits "
+                        f"{TRAIN_LOSS0_TOL}, {TRAIN_UPDATE_TOL})")
+    for a in (a0, a1):
+        c = a["crash"]
+        if not (c.get("raised") == "InjectedCrash" and c["width_after"] == 1 and c["landed"]
+                and c["width_final"] == 2 and c["equal"] and c["shrunk"]):
+            problems.append(f"(a) the crash at gang.grow: {c}")
+    if len(a0["crash"]["steps_at_dp1"]) != 1 or a1["crash"]["steps_at_dp1"]:
+        problems.append(f"(a) steps at dp1 after the crash: {a0['crash']['steps_at_dp1']}, "
+                        f"{a1['crash']['steps_at_dp1']}")
+    f64 = a0["f64"]
+    if not (f64["steps"] == steps[0] and max(f64["grad_errs"]) <= DP_GRAD_TOL
+            and f64["param_err_max"] <= DP_PARAM_TOL
+            and max(f64["loss_rel_errs"]) <= TRAIN_LOSS0_TOL):
+        problems.append(f"(a) f64 resized vs fixed dp2: {f64} (limits: gradient {DP_GRAD_TOL}, "
+                        f"params {DP_PARAM_TOL}, loss {TRAIN_LOSS0_TOL})")
+    # (b)
+    b = r0["arbiter"]
+    if b["errors"] or not b["answered"]:
+        problems.append(f"(b) client errors {b['errors'][:3]} ({b['answered']} answered)")
+    if not (b["crashed_borrow"] is False and b["after_crash"] == b["before"]
+            and b["replicas_after_crash"] == 2):
+        problems.append(f"(b) arbiter.borrow@0:crash: {b['before']} -> {b['after_crash']}, "
+                        f"replicas {b['replicas_after_crash']}")
+    if not (b["borrowed"] and b["returned"]
+            and [(e["width"], e["replicas"]) for e in b["per_epoch"]] == [(2, 2), (1, 3), (2, 2)]
+            and b["snapshot"] == {"serve": 2, "train": 2, "borrowed": 0, "total": 4}
+            and b["replicas"] == (2, 2)):
+        problems.append(f"(b) borrow/return: {b['per_epoch']}, {b['snapshot']}, {b['replicas']}")
+    if r1["arbiter"]["widths"] != [(2, False), (1, True), (2, False)]:
+        problems.append(f"(b) rank 1's widths {r1['arbiter']['widths']}")
+    # (c)
+    for r in (r0, r1):
+        for row in r["sp"]["rows"]:
+            e = row["errs"]
+            ok = row["finite"] and row["launches"] == {"flash_attention": 2}
+            if row["dtype"] == "float32":
+                ok = ok and max(e.values()) <= SP_F32_TOL
+            else:
+                ok = ok and row["bf16_within"] and row["ring_dtype"] == "bfloat16"
+            if not ok:
+                problems.append(f"(c) rank {r['pid']} {row['dtype']} causal={row['causal']}: "
+                                f"{e}, launches {row['launches']}, bf16 within "
+                                f"{row['bf16_within']}")
+    launches = {k: sum(s.get(k, 0) for r in (a0, a1) for s in r["f32"]["launches"])
+                for k in EL_LAUNCHES}
+    launches["flash_attention"] = sum(row["launches"].get("flash_attention", 0)
+                                      for r in (r0, r1) for row in r["sp"]["rows"])
+    out = {"card": card, "gang_s": gang_s, "ranks": [r0, r1], "launches": launches,
+           "seconds": {"resize": r0["resize_s"], "arbiter": r0["arbiter_s"], "sp": r0["sp_s"]}}
+    f = a0["f32"]
+    log(f"phase 31 on {card}: one 2-rank gloo gang sharing the card ({gang_s:.1f} s; (a) "
+        f"{r0['resize_s']:.1f} s, (b) {r0['arbiter_s']:.1f} s, (c) {r0['sp_s']:.1f} s)")
+    log(f"  (a) full-width fused ResNet-50 f32 under Trainer(layout='dp2'), {EL_EPOCHS} epochs "
+        f"of {EL_EPOCH_BATCHES} x {DP_BATCH} images, request_resize(1) after epoch 1 and (2) "
+        f"after epoch 2: widths {f['widths']}, rank 0's losses "
+        f"{[round(v, 5) for v in f['losses']]}, launches per step {f['launches'][0]} "
+        f"({len(f['launches'])} steps on rank 0, {len(a1['f32']['launches'])} on rank 1); "
+        f"flips " + ", ".join(f"{x['direction']} {x['from_width']}->{x['to_width']} "
+                              f"{x['flip_s']:.3f} s" for x in f["flips"])
+        + f"; ranks byte-equal after the grow and at the end; step 0 kernels vs plain: loss "
+        f"{vp['loss_rel_err']:.2e}, updates {vp['update_rel_err_max']:.2e}; rank 0's step ms "
+        f"(width, wall) {[(w, round(ms, 1)) for w, ms in f['step_ms']]}")
+    log(f"  (a) f64 (plain versions), resized vs fixed dp2 over {f64['steps']} steps: gradient "
+        f"max {max(f64['grad_errs']):.3e} of its largest entry (limit {DP_GRAD_TOL}; by step "
+        f"{[f'{x:.1e}' for x in f64['grad_errs']]}), params {f64['param_err_max']:.3e} of a "
+        f"leaf's largest entry (limit {DP_PARAM_TOL}), losses {max(f64['loss_rel_errs']):.2e}; "
+        f"gang.grow@0:crash: {a0['crash']['raised']} on both ranks, both stayed at dp1, rank 0 "
+        f"stepped (rank 1 parked), the grow landed after it")
+    log(f"  (b) ResNet-50 f32 behind a ReplicaRouter (2 replicas, max 2) on rank 0, "
+        f"{AR_CLIENTS} clients x {AR_IMAGES} images, DevicePoolArbiter(min_train=1, "
+        f"chips_per_flip=1, serve_chips=2) over TrainerGang: arbiter.borrow@0:crash -> "
+        f"{b['crashed_borrow']}, inventory {b['after_crash']}; {b['answered']} answers, "
+        f"{len(b['errors'])} errors (each within SERVE_TOL {SERVE_TOL} of the engine alone); "
+        f"end {b['snapshot']}, replicas {b['replicas']}")
+    for e in b["per_epoch"]:
+        log(f"      {e['epoch']}: {e['images_per_s']:.1f} images/s, {e['requests']} requests, "
+            f"p50 {e.get('p50_ms', float('nan')):.1f} ms, p99 {e.get('p99_ms', float('nan')):.1f} "
+            f"ms, epoch {e['seconds']:.2f} s")
+    fl = b["flips"]
+    log(f"      borrow: MTTR {fl['borrow_mttr_s']:.3f} s (the call to the shrink's landing), the "
+        f"shrink's flip {fl['shrink_flip_s']:.3f} s; return: MTTR {fl['return_mttr_s']:.3f} s, "
+        f"the grow's flip {fl['grow_flip_s']:.3f} s; the arbiter's flips {fl['arbiter_flip_s']}")
+    for row in r0["sp"]["rows"]:
+        x, u = row["ring_exchange"], row["ulysses_exchange"]
+        log(f"  (c) {row['dtype']:8s} causal={row['causal']!s:5s} (2, 12, 8192, 64) over seq 2: "
+            f"ring (flash) {row['ring_ms']:.3f} ms, einsum ring {row['einsum_ring_ms']:.3f}, "
+            f"Ulysses {row['ulysses_ms']:.3f}, one rank's flash over 8192 "
+            f"{row['full_flash_ms']:.3f}; errors "
+            + " ".join(f"{k} {v:.1e}" for k, v in row["errs"].items())
+            + f"; launches {row['launches']}; a call's exchange: ring {x['calls']:.0f} hop, "
+            f"{x['bytes']} bytes sent, {x['staged_bytes']} staged, {x['host_ms']:.2f} host ms; "
+            f"Ulysses {u['calls']:.0f} all-to-alls, {u['bytes']} bytes sent, "
+            f"{u['staged_bytes']} staged, {u['host_ms']:.2f} host ms")
+    if problems:
+        raise AssertionError("phase 31: " + "; ".join(problems))
+    return out
+
+
 def release() -> None:
     """Drop the cached steps (the nets and graphs they hold) and return the
     allocator's free memory to the card, between phases."""
@@ -8369,7 +8953,8 @@ def main() -> int:
         clock("phase 10")
         flash_dim_rows = []
         for d, heads, names in FLASH_HEAD_DIMS:
-            cases = tuple(c for c in FLASH_CASES if names is None or c[0] in names)
+            cases = tuple(c for c in FLASH_CASES if c[0] in names) if names else \
+                tuple(c for c in FLASH_CASES if c[0] not in FLASH_RING_CASES)
             log(f"flash attention at head dim {d}: {len(cases)} cases at (B, H) = ({BERT_BATCH}, "
                 f"{heads}), f32 and bf16")
             flash_dim_rows += check_flash((torch.float32, torch.bfloat16), d, heads, cases)
@@ -8424,6 +9009,9 @@ def main() -> int:
     release()
     supervised = supervised_gang(card, dense["workdir"], dense["ranks"][0]["losses"])
     clock("phase 30")
+    release()
+    elastic = elastic_and_sequence(card)
+    clock("phase 31")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8462,6 +9050,7 @@ def main() -> int:
            "dense_dp2_launches": dense["launches"]["matmul_bn_act"],
            "multislice_dp_launches": multislice["launches"]["matmul_bn_act"],
            "supervised_launches": supervised["launches"]["matmul_bn_act"],
+           "elastic_launches": elastic["launches"]["matmul_bn_act"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act"],
            "design": "persistent blocks on the GEMM core (gemm_sm90.cuh), each keeping a "
@@ -8480,6 +9069,7 @@ def main() -> int:
            "dense_dp2_launches": dense["launches"]["matmul_bn_act_bwd"],
            "multislice_dp_launches": multislice["launches"]["matmul_bn_act_bwd"],
            "supervised_launches": supervised["launches"]["matmul_bn_act_bwd"],
+           "elastic_launches": elastic["launches"]["matmul_bn_act_bwd"],
            "finetune_launches_per_step": tuned["capture"]["eager_launches_per_step"][0][
                "matmul_bn_act_bwd"]},
         flash_entry("flash_attention",
@@ -8488,6 +9078,7 @@ def main() -> int:
                     flash_launches[0], flash_work)
         | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16")),
            "config_first_launches_per_forward": stack["bf16_output_launches"][0],
+           "ring_launches": elastic["launches"]["flash_attention"],
            "sass": hopper["flash_attention_fwd"]},
         flash_entry("flash_attention_bwd",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
@@ -8539,6 +9130,7 @@ def main() -> int:
          "serving_stack": stack_run, "gradient_sharing": sharing,
          "training_telemetry": telemetry, "dense_data_parallel": dense,
          "multislice_dense": multislice, "supervised_gang": supervised,
+         "elastic_and_sequence": elastic,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

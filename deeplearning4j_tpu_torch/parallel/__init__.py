@@ -18,11 +18,17 @@
 - ``dcn_trainer`` — ``MultiSliceTrainer``, the gradient-sharing path;
 - ``launcher``    — ``torch.distributed`` initialisation and local
                     multi-process gangs;
-- ``inference``   — ``ParallelInference``, a shim over the serving engine.
+- ``inference``   — ``ParallelInference``, a shim over the serving engine;
+- ``unified``     — sequence-parallel attention over the ``seq`` axis
+                    (``ring_attention``, ``ulysses_attention``,
+                    ``reference_attention``), on each rank's shard;
+                    ``context_parallel`` is its deprecation shim, as in the
+                    JAX package.
 
-Not ported yet: ``unified``, ``tensor_parallel``, ``pipeline``,
-``pipeline_stages``, ``context_parallel`` and ``expert_parallel``.  Their names raise an ``AttributeError``, and
-their modules an ``ImportError``, that says so.
+Not ported yet: the rest of ``unified`` (MoE, ``tp_jit``, the pipeline
+helpers), ``tensor_parallel``, ``pipeline``, ``pipeline_stages`` and
+``expert_parallel``.  Their names raise an ``AttributeError``, and their
+modules an ``ImportError``, that says so.
 """
 
 from deeplearning4j_tpu_torch.parallel.compression import (
@@ -41,6 +47,9 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, DATA_AXES, MESH_AXES, MeshLayout,
     LayoutResizeError, MeshSpec, make_mesh, resize_layout, resize_spec, resolve_layout,
 )
+from deeplearning4j_tpu_torch.parallel.unified import (
+    reference_attention, ring_attention, ulysses_attention,
+)
 
 __all__ = [
     "AXIS_DATA", "AXIS_EXPERT", "AXIS_MODEL", "AXIS_PIPE", "AXIS_SEQ", "MESH_AXES", "DATA_AXES",
@@ -51,18 +60,15 @@ __all__ = [
     "InProcessTransport", "SocketTransport", "CompressedAllReducer", "MultiSliceTrainer",
     "ParallelInference", "initialize", "spawn_local_cluster", "make_multislice_mesh",
     "MultiSliceMesh", "GroupTransport", "SliceRelay", "resize_spec", "resize_layout",
-    "LayoutResizeError",
+    "LayoutResizeError", "ring_attention", "ulysses_attention", "reference_attention",
 ]
 
 # the JAX package's parallel names that wait for a later slice
 NOT_PORTED = {
     "moe_ffn": "unified",
     "moe_ffn_dense": "unified", "init_moe_params": "unified", "shard_moe_params": "unified",
-    "ring_attention": "unified", "ulysses_attention": "unified",
-    "reference_attention": "unified",
 }
-NOT_PORTED_MODULES = ("unified", "tensor_parallel", "pipeline", "pipeline_stages",
-                      "context_parallel", "expert_parallel")
+NOT_PORTED_MODULES = ("tensor_parallel", "pipeline", "pipeline_stages", "expert_parallel")
 
 
 def not_ported(module: str) -> None:

@@ -34,17 +34,33 @@ only two collectives a layout issues on the device; a step that holds
 gloo collectives cannot be captured in a CUDA graph, so it runs eagerly
 (:attr:`MeshLayout.captures`, and the step key says so).
 
-Only the ``data`` axis is ported.  A layout with ``model``, ``pipe``,
-``seq`` or ``expert`` > 1 raises ``NotImplementedError`` naming the
+The ``data`` and ``seq`` axes are ported.  A mesh lays its ranks out in
+:data:`MESH_AXES` order (the ``seq`` position varies fastest of the two),
+and every rank makes the subgroups of each axis (:attr:`ProcessMesh.
+data_group`, :attr:`ProcessMesh.seq_group`) in one order, since
+``dist.new_group`` is collective over the whole default group; a group is
+made once per set of ranks (:func:`subgroup`), so a resize that returns to
+a width reuses the groups made on the way.  A trainer's collectives run on
+the data subgroup: the ``seq`` ranks of one data position are replicas of
+its step (``parallel.unified``'s attention shards the sequence over them).
+A layout narrower than the world (``"dp2"`` in a gang of 4) takes the
+world's leading ranks, as the JAX package's ``MeshSpec.build`` takes the
+leading devices; the other ranks are parked (:attr:`ProcessMesh.member`
+is False) until a resize takes them back.  A layout with ``model``,
+``pipe`` or ``expert`` > 1 raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports it.  :func:`resize_spec` and
-:func:`resize_layout` derive a layout at a new width (the supervisor's
-gang-level resize relaunches the gang at it).
+:func:`resize_layout` derive a layout at a new width, over the same world
+(``Trainer.resize_mesh``) or a gang relaunched at it (the supervisor's
+resize).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
+import itertools
+import math
 import re
 import threading
 import time
@@ -85,7 +101,6 @@ _NOT_PORTED_AXES = {
                 "families)",
     AXIS_PIPE: "queue A item 2.4 (pipeline.py, pipeline_stages.py and unified.py's pipeline "
                "helpers)",
-    AXIS_SEQ: "queue A item 2.4 (unified.py's ring and Ulysses attention)",
     AXIS_EXPERT: "queue A item 2.4 (unified.py's MoE functions)",
 }
 
@@ -161,49 +176,166 @@ class MeshSpec:
 
 def _refuse_unported(spec: MeshSpec) -> None:
     for axis, size in spec.sizes().items():
-        if axis != AXIS_DATA and size > 1:
+        if axis in _NOT_PORTED_AXES and size > 1:
             raise NotImplementedError(
                 f"layout {spec.describe()!r}: the {axis!r} axis is not ported yet; "
-                f"ROADMAP.md {_NOT_PORTED_AXES[axis]} ports it.  The port runs the data axis "
-                f"only (layout='dp<N>')")
+                f"ROADMAP.md {_NOT_PORTED_AXES[axis]} ports it.  The port runs the data and "
+                f"seq axes (layout='dp<N>', 'dp<N>xsp<M>')")
+
+
+# a parked rank waits at its trainer's next epoch boundary for as long as
+# the ranks inside the layout train an epoch: the boundary's broadcast runs
+# on a group of the world with this timeout (the world's own is the
+# launcher's, minutes)
+PARK_TIMEOUT_S = 6 * 3600.0
+
+# every subgroup this process made, by its global ranks and timeout:
+# dist.new_group is collective over the whole default group, so each is made
+# once, by every rank, in the same order
+_SUBGROUPS: dict = {}
+
+
+def subgroup(ranks: Sequence[int], timeout_s: Optional[float] = None):
+    """The process group of the default group's ``ranks`` (global ranks),
+    made on the first call and cached; every rank of the default group must
+    make the same calls in the same order, member or not."""
+    import torch.distributed as dist
+    key = (tuple(int(r) for r in ranks), timeout_s)
+    group = _SUBGROUPS.get(key)
+    if group is None:
+        kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+        group = _SUBGROUPS[key] = dist.new_group(ranks=list(key[0]), **kw)
+    return group
+
+
+def park_group(world=None):
+    """The group a trainer's epoch boundary broadcasts on: the whole
+    ``world`` (the default group, or a group given to :func:`make_mesh`),
+    over the default group with :data:`PARK_TIMEOUT_S` as its timeout, so
+    that a parked rank outwaits an epoch of the others."""
+    import torch.distributed as dist
+    if world is not None:
+        return world
+    return subgroup(range(dist.get_world_size()), PARK_TIMEOUT_S)
+
+
+def _coords(flat: int, shape: dict) -> list:
+    """A mesh position's coordinates, in :data:`MESH_AXES` order (the last
+    axis varies fastest)."""
+    coords = []
+    for axis in reversed(MESH_AXES):
+        flat, c = divmod(flat, shape[axis])
+        coords.append(c)
+    return coords[::-1]
+
+
+def _flat(coords, shape: dict) -> int:
+    flat = 0
+    for c, axis in zip(coords, MESH_AXES):
+        flat = flat * shape[axis] + c
+    return flat
+
+
+def _axis_groups(ranks: list, shape: dict, axis: str) -> list:
+    """The rank lists of ``axis``'s groups over the mesh's ``ranks``: the
+    ranks that differ in that axis's position alone, in order of their
+    first rank."""
+    at = MESH_AXES.index(axis)
+    others = [range(shape[a]) if a != axis else range(1) for a in MESH_AXES]
+    return [[ranks[_flat(pos[:at] + (k,) + pos[at + 1:], shape)] for k in range(shape[axis])]
+            for pos in itertools.product(*others)]
 
 
 class ProcessMesh:
-    """The port's mesh: a ``torch.distributed`` process group whose ranks
-    are laid out over the axes (:data:`MESH_AXES` order, one process per
-    position), with each rank's device.  ``shape`` maps every axis to its
-    size, as a ``jax.sharding.Mesh``'s does."""
+    """The port's mesh: ranks of a ``torch.distributed`` world (the default
+    group, or ``world``) laid out over the axes (:data:`MESH_AXES` order,
+    one process per position), with each rank's device.  ``shape`` maps
+    every axis to its size, as a ``jax.sharding.Mesh``'s does.
 
-    def __init__(self, shape: dict, devices: Sequence, group=None):
+    The mesh takes the world's leading ``size`` ranks; a rank past them is
+    parked (``member`` False, ``rank`` -1).  ``group`` is the mesh's group
+    (the world itself when the mesh is as wide), ``data_group`` and
+    ``seq_group`` this rank's groups along those axes (the mesh's group
+    where the axis spans it; None where the axis is 1 or the rank is
+    parked), ``data_index`` and ``seq_index`` its positions on them."""
+
+    def __init__(self, shape: dict, world_devices: Sequence, world=None):
         import torch.distributed as dist
         self.shape = {axis: int(shape.get(axis, 1)) for axis in MESH_AXES}
-        self.group = group
-        self.rank = dist.get_rank(group)
-        self.size = dist.get_world_size(group)
-        self.backend = str(dist.get_backend(group))
-        self.devices = [torch.device(d) for d in devices]
-        if len(self.devices) != self.size:
-            raise ValueError(f"{len(self.devices)} devices for a group of {self.size} ranks")
+        self.world = world
+        self.world_rank = dist.get_rank(world)
+        self.world_size = dist.get_world_size(world)
+        self.backend = str(dist.get_backend(world))
+        self.world_devices = [torch.device(d) for d in world_devices]
+        if len(self.world_devices) != self.world_size:
+            raise ValueError(f"{len(self.world_devices)} devices for a group of "
+                             f"{self.world_size} ranks")
+        self.size = math.prod(self.shape.values())
+        if self.size > self.world_size:
+            raise ValueError(f"a mesh of {self.size} ranks over a group of {self.world_size}")
+        self.member = self.world_rank < self.size
+        self.rank = self.world_rank if self.member else -1
+        self.devices = self.world_devices[:self.size]
+        # global ranks of the mesh's positions
+        if world is None:
+            ranks = list(range(self.size))
+        else:
+            ranks = [dist.get_global_rank(world, r) for r in range(self.size)]
+        self.ranks = ranks
+        narrow = self.size < self.world_size
+        needs = narrow or any(1 < self.shape[a] < self.size for a in (AXIS_DATA, AXIS_SEQ))
+        if needs and world is not None:
+            raise ValueError("a mesh narrower than its group, or with data and seq axes both "
+                             "above 1, needs subgroups of the default group: build it over the "
+                             "default group (group=None)")
+        # collective: every rank makes every group, in this order
+        self.group = subgroup(ranks) if narrow else world
+        axis_groups = {}
+        for axis in (AXIS_SEQ, AXIS_DATA):
+            n = self.shape[axis]
+            mine = None
+            if n == self.size:
+                mine = self.group
+            elif n > 1:
+                for members in _axis_groups(ranks, self.shape, axis):
+                    g = subgroup(members)
+                    if self.member and ranks[self.rank] in members:
+                        mine = g
+            axis_groups[axis] = mine if self.member else None
+        self.seq_group, self.data_group = axis_groups[AXIS_SEQ], axis_groups[AXIS_DATA]
+        coords = _coords(self.rank, self.shape) if self.member else [-1] * len(MESH_AXES)
+        self.data_index = coords[MESH_AXES.index(AXIS_DATA)]
+        self.seq_index = coords[MESH_AXES.index(AXIS_SEQ)]
+
+    def global_rank(self, axis: str, index: int) -> int:
+        """The global rank of the process at ``index`` along ``axis`` from
+        this rank (its other coordinates this rank's)."""
+        coords = _coords(self.rank, self.shape)
+        coords[MESH_AXES.index(axis)] = index
+        return self.ranks[_flat(coords, self.shape)]
 
     @property
     def device(self) -> torch.device:
         """This rank's device."""
-        return self.devices[self.rank]
+        return self.world_devices[self.world_rank]
 
     def __repr__(self) -> str:
-        return (f"ProcessMesh({self.shape}, rank {self.rank} of {self.size}, {self.backend}, "
-                f"{[str(d) for d in self.devices]})")
+        where = f"rank {self.rank} of {self.size}" if self.member else "parked"
+        return (f"ProcessMesh({self.shape}, {where}, world {self.world_rank} of "
+                f"{self.world_size}, {self.backend}, {[str(d) for d in self.devices]})")
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1, pipe: int = 1,
               expert: int = 1, devices=None, group=None) -> ProcessMesh:
     """The mesh over the initialized process group (``group``, or the
     default one) with axes ('pipe', 'data', 'seq', 'expert', 'model'),
-    ``data`` defaulting to the ranks the other axes leave.  The group's
-    world size must equal the product of the sizes.  ``devices`` is each
-    rank's device: one for all of them (``"cuda"``: the ranks share the
-    card, or each its current card; ``"cpu"``) or one per rank; the card
-    by default."""
+    ``data`` defaulting to the ranks the other axes leave.  The mesh takes
+    the group's leading ``data·seq·…`` ranks (the others are parked), so
+    the group must have at least as many; every rank of the group calls
+    it, in the same order as the others (it makes the axes' subgroups).
+    ``devices`` is each rank's device: one for all of them (``"cuda"``: the
+    ranks share the card, or each its current card; ``"cpu"``) or one per
+    rank of the group; the card by default."""
     import torch.distributed as dist
 
     from deeplearning4j_tpu_torch.config import DEFAULT_DEVICE, resolve_device
@@ -219,7 +351,7 @@ def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1, pipe: in
             raise ValueError(f"{n} processes not divisible by model*seq*pipe*expert={denom}")
         data = n // denom
     spec = MeshSpec(data=data, model=model, seq=seq, pipe=pipe, expert=expert)
-    if spec.total() != n:
+    if spec.total() > n:
         raise ValueError(
             f"layout {spec.describe()!r} needs {spec.total()} processes, the process group has "
             f"{n}: run one process per shard (parallel.launcher.initialize or "
@@ -238,11 +370,14 @@ class CollectiveStats:
     """What a layout's collectives of one kind did: calls, bytes reduced
     (the tensors' sizes) and the host seconds of the calls (for a CUDA
     tensor on gloo, the wait for the card to reach the call included,
-    unless the call was timed: then the card caught up first)."""
+    unless the call was timed: then the card caught up first); and, for an
+    exchange that stages a CUDA tensor through the host itself
+    (``parallel.unified``), the bytes copied to the host and back."""
 
     calls: int = 0
     bytes: int = 0
     seconds: float = 0.0
+    staged_bytes: int = 0
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -314,8 +449,13 @@ class MeshLayout:
 
     @property
     def rank(self) -> int:
-        """This process's position on the data axis."""
-        return self.mesh.rank
+        """This process's position on the data axis (-1 when parked)."""
+        return self.mesh.data_index
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is inside the layout (False: parked)."""
+        return self.mesh.member
 
     @property
     def device(self) -> torch.device:
@@ -364,6 +504,9 @@ class MeshLayout:
             if isinstance(a, (list, tuple)):
                 return type(a)(rows(v) for v in a)
             n = a.shape[0]
+            if not self.member:
+                raise RuntimeError(f"this rank is parked outside layout {self.describe()!r}: it "
+                                   f"takes no rows until a resize takes it back")
             if n % self.data:
                 raise ValueError(f"a batch of {n} does not split into {self.data} equal shards "
                                  f"(layout {self.describe()!r})")
@@ -374,7 +517,9 @@ class MeshLayout:
     def replicate(self, tree, src: int = 0):
         """Every tensor of ``tree`` overwritten in place by rank ``src``'s
         (its rank in the mesh's group; one broadcast per dtype); returns
-        ``tree``."""
+        ``tree``.  A mesh of one rank has nothing to take."""
+        if self.mesh.size == 1:
+            return tree
         return broadcast_tree(tree, src, self.mesh.group, count=self._count)
 
     # ------------------------------------------------------ collectives
@@ -386,15 +531,19 @@ class MeshLayout:
             s.seconds += seconds
 
     def all_reduce_(self, t: torch.Tensor, kind: str = "other", timed: bool = False):
-        """Sum ``t`` over the group, in place (no autograd), counted under
-        ``kind`` with its host seconds; ``timed`` waits for the device first
-        (not while a CUDA graph is being captured), so that they are the
-        collective's alone."""
+        """Sum ``t`` over the data axis's group, in place (no autograd),
+        counted under ``kind`` with its host seconds; ``timed`` waits for the
+        device first (not while a CUDA graph is being captured), so that they
+        are the collective's alone.  Over one data position the sum is ``t``
+        itself, and nothing is sent."""
         import torch.distributed as dist
+        if self.data == 1:
+            self._count(kind, t, 0.0)
+            return t
         if timed and t.is_cuda and not torch.cuda.is_current_stream_capturing():
             torch.cuda.current_stream(t.device).synchronize()
         t0 = time.perf_counter()
-        dist.all_reduce(t, group=self.mesh.group)
+        dist.all_reduce(t, group=self.mesh.data_group)
         self._count(kind, t, time.perf_counter() - t0)
         return t
 
@@ -493,13 +642,21 @@ def resize_spec(spec: MeshSpec, n_devices: int) -> MeshSpec:
 
 
 def resize_layout(layout: MeshLayout, n_devices: int, devices=None) -> MeshLayout:
-    """The :class:`MeshLayout` of ``layout`` at a new width, over the
-    process group of the gang relaunched at that width (the port's resize
-    is the supervisor's relaunch, ``resilience.supervisor``): a width the
-    layout's axes do not allow raises :class:`LayoutResizeError` before any
-    mesh is built; the group's size must be the new width."""
+    """The :class:`MeshLayout` of ``layout`` at a new width, over the same
+    world as ``layout``'s mesh (the default group when it has none): a
+    width the layout's axes do not allow raises :class:`LayoutResizeError`
+    before any mesh is built; the world needs at least the new width's
+    ranks (the mesh takes the leading ones, :func:`make_mesh`), which a
+    gang relaunched at that width has (``resilience.supervisor``).  Every
+    rank of the world calls it, as :func:`make_mesh`.  A width of 1 keeps
+    its layout (:func:`resolve_layout` would give None), so that it can
+    grow back."""
     spec = resize_spec(layout.spec, n_devices)
-    return MeshLayout(spec, tp_family=layout.tp_family, devices=devices)
+    mesh = getattr(layout, "mesh", None)
+    world = None if mesh is None else mesh.world
+    if devices is None and mesh is not None:
+        devices = mesh.world_devices
+    return MeshLayout(spec, mesh=spec.build(devices, group=world), tp_family=layout.tp_family)
 
 
 def resolve_layout(mesh: Optional[ProcessMesh] = None, layout: Any = None,
@@ -516,8 +673,9 @@ def resolve_layout(mesh: Optional[ProcessMesh] = None, layout: Any = None,
 
     ``devices`` is each rank's device when the mesh is built here.  A
     layout whose axes are not ported raises ``NotImplementedError`` (before
-    any process group is needed); one that the group's size does not
-    match raises ``ValueError``; with no group initialized, ``RuntimeError``."""
+    any process group is needed); one wider than the group raises
+    ``ValueError`` (a narrower one takes the group's leading ranks and parks
+    the rest); with no group initialized, ``RuntimeError``."""
     if layout is None and mesh is None:
         return None
     if isinstance(layout, MeshLayout):

@@ -16,12 +16,13 @@ of ``deeplearning4j_tpu/resilience/elastic.py``).
   package reads both from the environment; the port reads the launcher's
   child context (``parallel.launcher.child_context``).
 
-A resize tears the gang down at a round boundary and the gang at the new
-width resumes from the newest verified checkpoint
-(``resilience.supervisor``); the data-parallel layout at the new width
-is ``parallel.mesh.resize_layout``'s.  The in-process resize
-(``Trainer.request_resize``) and the device-pool arbiter are not ported
-yet (``ROADMAP.md`` queue A).
+A supervised resize tears the gang down at a round boundary and the gang
+at the new width resumes from the newest verified checkpoint
+(``resilience.supervisor``); the in-process resize
+(``Trainer.request_resize``) re-forms the layout inside the running gang
+at its next epoch boundary; either way the data-parallel layout at the new
+width is ``parallel.mesh.resize_layout``'s.  ``resilience.arbiter`` moves
+devices between serving and training through either.
 """
 
 from __future__ import annotations

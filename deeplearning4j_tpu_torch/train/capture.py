@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 from typing import Any, Callable, Optional
 
@@ -83,6 +84,22 @@ def eager():
     finally:
         with _eager_lock:
             _eager_depth -= 1
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector run once, then held off, while a graph is
+    captured: a collection inside the capture can destroy another step's
+    dead CUDA graph from the capturing thread, which CUDA refuses there and
+    which invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CaptureError(RuntimeError):
@@ -256,7 +273,7 @@ class CapturedStep:
             graph.register_generator_state(gen)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with _capture_lock:
+        with _capture_lock, _collector_paused():
             try:
                 with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                     out = self.fn(*trees, *static)

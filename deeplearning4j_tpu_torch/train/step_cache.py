@@ -146,6 +146,16 @@ def cache_size() -> int:
         return len(_CACHE)
 
 
+def drop_sharding(signature: str) -> int:
+    """Drop every step built under the placement ``signature``
+    (:func:`sharding_signature`; a resize's old width); returns how many."""
+    with _LOCK:
+        keys = [k for k in _CACHE if len(k) >= 2 and k[-2] == signature]
+        for k in keys:
+            del _CACHE[k]
+    return len(keys)
+
+
 def clear_step_cache() -> None:
     """Drop every cached step, and with them the nets they close over and
     the graphs (and memory pools) they captured."""

@@ -68,6 +68,17 @@ whole batch.  Rank 0 writes the checkpoints.  A step over a gloo group
 runs eagerly (its collectives stage through the host; the step's key and
 ``CapturedStep.eager_reason`` say so).
 
+The in-process resize, as the JAX package's: :meth:`Trainer.request_resize`
+parks a width (validated at the call: a width past the gang's processes
+raises, since only a relaunch grows a gang past them), and at each epoch
+boundary of ``fit`` rank 0 broadcasts its pending width to the whole
+gang, which then runs :meth:`Trainer.resize_mesh` together: the layout at
+the new width takes the world's leading ranks, rank 0's trees, counters
+and random stream go to the ranks that join, and every artifact of the old
+width goes.  A rank outside the layout is parked: it runs no step and
+waits at the next boundary.  The arbiter (``resilience.arbiter``) and any
+caller of ``request_resize`` live in rank 0's process.
+
 Supervised gangs (``resilience.supervisor``): a respawned child's
 ``fit`` with no ``resume_from`` resumes from its launcher context's
 resume pointer (``parallel.launcher.child_context``), ``resume_state``
@@ -76,9 +87,8 @@ fires the ``gang.grow`` site in a child that a grow spawned and sends the
 step on it (``obs.remote.notify_step``).  A worker sizes its layout from
 ``resilience.elastic.configured_width``.
 
-Not ported yet: the model-axis and pipeline layouts, the in-process
-resize (``request_resize``, ``resize_mesh``), the artifact store and the
-cost model's step hooks.
+Not ported yet: the model-axis and pipeline layouts, the artifact store
+and the cost model's step hooks.
 """
 
 from __future__ import annotations
@@ -404,9 +414,11 @@ class Trainer:
     ``MeshLayout``, or a ``ProcessMesh`` from ``parallel.make_mesh``
     (``parallel.mesh.resolve_layout``'s rules; the module docstring says
     what the step does).  Each process of the group calls it with the same
-    net and batches.  Only the data axis is ported: a ``model``, ``pipe``,
-    ``seq`` or ``expert`` axis, and ``n_microbatches`` other than 1 (the
-    pipe axis's), raise ``NotImplementedError``."""
+    net and batches.  The data and seq axes are ported (the seq ranks of a
+    data position are replicas of its step): a ``model``, ``pipe`` or
+    ``expert`` axis, and ``n_microbatches`` other than 1 (the pipe axis's),
+    raise ``NotImplementedError``.  A layout narrower than the gang parks
+    the ranks past it (module docstring)."""
 
     def __init__(self, net, listeners=None, mesh=None, layout=None, n_microbatches: int = 1):
         self.net = net
@@ -430,7 +442,9 @@ class Trainer:
         self._shard = None
         self._layout_placed = False
         # one checkpoint writer per group: rank 0
-        net._writes_checkpoints = self._layout is None or self._layout.rank == 0
+        net._writes_checkpoints = self._layout is None or self._layout.mesh.world_rank == 0
+        # a width asked for by request_resize, applied at the next epoch boundary
+        self._pending_resize: Optional[int] = None
         if net.params_ is None:
             net.init()
         self.tx = net_optimizer(net)   # an unknown updater or normalization raises here
@@ -461,21 +475,136 @@ class Trainer:
             return None
         return self._cache_sig + (step_cache.sharding_signature(self._layout), kind)
 
+    # ------------------------------------------------------------- elastic
     def request_resize(self, n_devices: int) -> None:
-        """Not ported yet: the in-process resize (raises
-        ``NotImplementedError``).  A supervised gang resizes by relaunching
-        at the new width (``ClusterSupervisor.request_resize``)."""
-        raise NotImplementedError(
-            f"Trainer.request_resize({n_devices}): the in-process resize over a re-formed "
-            f"process group is not ported yet; ROADMAP.md queue A item 2.3a ports it.  A "
-            f"supervised gang resizes by relaunching: "
-            f"resilience.supervisor.ClusterSupervisor.request_resize")
+        """Ask for an elastic resize at the next epoch (round) boundary of
+        ``fit``.  Validates here, at the decision site: no layout raises
+        ``ValueError``; a width the layout's fixed axes refuse, or one past
+        the gang's processes (a gang grows past them only by a relaunch,
+        ``resilience.supervisor.ClusterSupervisor.request_resize``), raises
+        ``parallel.mesh.LayoutResizeError``.  The latest request wins.  Only
+        rank 0's request counts: it broadcasts it at the boundary."""
+        from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
+        if self._layout is None:
+            raise ValueError("request_resize needs a mesh/layout-configured Trainer (the "
+                             "single-device path has no width to change)")
+        n = int(n_devices)
+        mesh_mod.resize_spec(self._layout.spec, n)   # validate
+        world = self._layout.mesh.world_size
+        if n > world:
+            raise mesh_mod.LayoutResizeError(
+                f"cannot resize layout {self._layout.describe()!r} to {n} devices in place: the "
+                f"gang has {world} processes; a gang grows past them by a relaunch at the new "
+                f"width (resilience.supervisor.ClusterSupervisor.request_resize)")
+        self._pending_resize = n
 
-    def resize_mesh(self, n_devices: int) -> bool:
-        """Not ported yet: the in-process resize (raises
-        ``NotImplementedError``)."""
-        self.request_resize(n_devices)
-        return False
+    def _agree_resize(self, n_devices: Optional[int]) -> Optional[int]:
+        """Rank 0's width and its checks, in one broadcast over the gang
+        (``parallel.mesh.park_group``): rank 0 derives the new layout's
+        spec and, on a grow, fires ``gang.grow`` before anything changes,
+        so that every rank sees the same outcome.  Returns the width (None:
+        no resize); a failure on rank 0 raises there, and on every other
+        rank as the same type with rank 0's message."""
+        import torch.distributed as dist
+
+        from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
+        mesh = self._layout.mesh
+        error: Optional[BaseException] = None
+        decision = [None, None, ""]
+        if mesh.world_rank == 0:
+            decision[0] = n_devices
+            if n_devices is not None and int(n_devices) != self._layout.spec.total():
+                try:
+                    self.request_resize(n_devices)      # the same checks, here
+                    self._pending_resize = None
+                    if int(n_devices) > self._layout.spec.total():
+                        faults.fire("gang.grow")
+                except BaseException as e:  # noqa: BLE001 — every rank raises it below
+                    error = e
+                    decision[1:] = [type(e).__name__, str(e)]
+        if mesh.world_size > 1:
+            group = mesh_mod.park_group(mesh.world)
+            root = 0 if mesh.world is None else dist.get_global_rank(mesh.world, 0)
+            dist.broadcast_object_list(decision, src=root, group=group)
+        if error is not None:
+            raise error
+        if decision[1] is not None:
+            kinds = {"InjectedCrash": faults.InjectedCrash, "InjectedFault": faults.InjectedFault,
+                     "LayoutResizeError": mesh_mod.LayoutResizeError}
+            raise kinds.get(decision[1], RuntimeError)(
+                f"rank 0 refused the resize ({decision[1]}): {decision[2]}")
+        return None if decision[0] is None else int(decision[0])
+
+    def resize_mesh(self, n_devices: Optional[int]) -> bool:
+        """Move this trainer's layout to ``n_devices`` (grow or shrink), in
+        every rank of the gang at once (each calls it; rank 0's width
+        counts, None: rank 0's pending request or nothing).  In order: the
+        new width agreed (:meth:`_agree_resize`: a refused width raises
+        ``LayoutResizeError`` and a crash at ``gang.grow`` raises, on every
+        rank, before anything changes); the layout at the new width over the
+        world's leading ranks (``parallel.mesh.resize_layout``; the groups
+        of a width are made once and reused); on a grow, rank 0's params,
+        layer state, updater state, counters and random stream broadcast to
+        the ranks in the new layout; every artifact of the old width dropped
+        (steps, step-cache entries under its signature, the rows each rank
+        takes); the step rebuilt, so that the flip's cost lands in
+        ``tpudl_elastic_flip_seconds``; the ``tpudl_elastic_*`` series, the
+        ``elastic_resize`` flight event and the cluster telemetry's event.
+        Returns False when the width is already current."""
+        from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
+        if self._layout is None:
+            raise ValueError("resize_mesh needs a mesh/layout-configured Trainer")
+        pending, self._pending_resize = self._pending_resize, None
+        width = self._agree_resize(n_devices if n_devices is not None else pending)
+        old_layout = self._layout
+        old_width = old_layout.spec.total()
+        if width is None or width == old_width:
+            return False
+        grow = width > old_width
+        t0 = time.perf_counter()
+        new_layout = mesh_mod.resize_layout(old_layout, width, devices=old_layout.mesh.world_devices)
+        self._layout = new_layout
+        if self._batch_layout is old_layout:
+            self._batch_layout = new_layout
+        self._layout_placed = False
+        self._step = self._stats_step = self._eval_step = self._tbptt_step = None
+        step_cache.drop_sharding(step_cache.sharding_signature(old_layout))
+        if new_layout.member:
+            if grow:
+                self._join(new_layout)
+            self._place_layout(replicate=grow)
+        self._ensure_ready()
+        flip_s = time.perf_counter() - t0
+        reg = get_registry()
+        direction = "grow" if grow else "shrink"
+        reg.counter(f"tpudl_elastic_{direction}s_total").inc()
+        reg.gauge("tpudl_elastic_gang_width").set(width)
+        reg.histogram("tpudl_elastic_flip_seconds").observe(flip_s)
+        flight_recorder.record("elastic_resize", direction=direction, from_width=old_width,
+                               to_width=width, layout=new_layout.spec.describe(), flip_s=flip_s)
+        obs_remote.notify_event("elastic_resize", direction=direction, from_width=old_width,
+                                to_width=width)
+        return True
+
+    def _join(self, layout) -> None:
+        """A grow's hand-over inside ``layout``: rank 0's counters and random
+        stream (one object broadcast), then its trees (``_place_layout``)."""
+        import torch.distributed as dist
+        net = self.net
+        box = [(net.iteration, net.epoch,
+                None if self._stream is None else self._stream.get_state())]
+        mesh = layout.mesh
+        dist.broadcast_object_list(box, src=mesh.ranks[0], group=mesh.group)
+        net.iteration, net.epoch, stream = box[0]
+        if stream is not None:
+            if self._stream is None:
+                self._stream = self._new_stream()
+            self._stream.set_state(stream)
+
+    @property
+    def parked(self) -> bool:
+        """Whether this rank sits outside its layout (it runs no step)."""
+        return self._layout is not None and not self._layout.member
 
     def _new_stream(self) -> torch.Generator:
         return torch.Generator(device=self.net.device).manual_seed(
@@ -515,13 +644,14 @@ class Trainer:
         """The trees every rank takes from rank 0 when a layout starts."""
         return [self.net.params_, self.net.state_, self.net.opt_state]
 
-    def _place_layout(self) -> None:
-        """Once per trainer under a layout: every rank takes rank 0's params,
-        layer state and updater state (a broadcast each), and the
-        ``tpudl_mesh_*`` gauges and ``tpudl_parallel_mesh_devices`` describe
-        the layout."""
+    def _place_layout(self, replicate: bool = True) -> None:
+        """Once per layout: every rank takes rank 0's params, layer state and
+        updater state (a broadcast each; not after a shrink, whose ranks
+        hold them already), and the ``tpudl_mesh_*`` gauges and
+        ``tpudl_parallel_mesh_devices`` describe the layout."""
         net, layout = self.net, self._layout
-        layout.replicate(self._replicated())
+        if replicate:
+            layout.replicate(self._replicated())
         param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(net.params_))
         layout.publish_metrics(param_bytes=param_bytes)
         get_registry().gauge("tpudl_parallel_mesh_devices").set(layout.data)
@@ -533,7 +663,7 @@ class Trainer:
             net.init()
         if net.opt_state is None:
             net.opt_state = self.tx.init(net.params_)
-        if self._layout is not None and not self._layout_placed:
+        if self._layout is not None and not self._layout_placed and self._layout.member:
             self._place_layout()
         if self._step is None:
             key = self._step_key("train")
@@ -575,6 +705,9 @@ class Trainer:
         batch's; ``prepared`` marks a batch the feeder already cut to this
         process's rows and staged."""
         net = self.net
+        if self.parked:
+            raise RuntimeError(f"this rank is parked outside layout {self._layout.describe()!r}; "
+                               f"it steps again once a resize takes it back")
         rng = self._stream_or(rng)
         if not prepared:
             batch = self._place(batch)
@@ -606,7 +739,7 @@ class Trainer:
         """Inference-mode loss on one batch, no update."""
         net = self.net
         batch = self._place(batch)
-        if self._layout is not None and not self._layout_placed:
+        if self._layout is not None and not self._layout_placed and self._layout.member:
             self._place_layout()
         if self._eval_step is None:
             key = self._step_key("eval")
@@ -825,6 +958,12 @@ class Trainer:
         taken now records (``_completed_iterations``, ``_completed_epochs``,
         ``_epoch_batches`` and ``_stream``).
 
+        Under a layout, each epoch starts at a boundary where the gang
+        agrees on rank 0's pending resize (:meth:`request_resize`) and
+        applies it (:meth:`resize_mesh`); a parked rank sits the epoch out
+        and waits at the next boundary.  Every rank of the gang calls ``fit``
+        with the same epochs.
+
         Telemetry: a ``fit`` span with ``net.trace_attrs()``, an ``epoch``
         span per epoch, ``tpudl_train_epoch_seconds`` and
         ``tpudl_train_epochs_total``, and under ``config.profiling`` a
@@ -853,6 +992,13 @@ class Trainer:
                 tracing.span("fit", epochs=epochs, **net.trace_attrs()):
             self.bus.dispatch("on_fit_start", net)
             for _ in range(epochs_to_run):
+                if self._layout is not None:
+                    # the round boundary: a feeder restarts each epoch, so no
+                    # batch cut for the old width reaches the new step
+                    self.resize_mesh(None)
+                if self.parked:
+                    net.epoch += 1
+                    continue
                 with tracing.span("epoch", epoch=net.epoch):
                     self.bus.dispatch("on_epoch_start", net, net.epoch)
                     t0 = time.perf_counter()

@@ -562,3 +562,249 @@ def mesh_worker(pid, n, shapes):
         out[shape] = {"position": m.position(), "leader": m.is_leader, "sums": sums,
                       "layout": m.layout().describe(), "shape": m.shape}
     return out
+
+
+# ------------------------------------------------- in-process resize (gangs of 4)
+# tests/test_torch_elastic_inprocess.py's rank: Trainer(layout="dp<w>") in a
+# gang of 4 that grows and shrinks inside one fit, from the JAX package's
+# weights.
+
+def _elastic_fit(spec, start, resize_to=None, boundary=2, epochs=4, masks=None):
+    """tests/test_elastic.py's _elastic_run: one fit of the dropout MLP under
+    ``start``, ``request_resize(resize_to)`` at the end of epoch
+    ``boundary`` - 1; with ``masks`` every dropout draw is the given mask of
+    its shape.  Returns (losses, flat params, trainer)."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.layers import base
+    from deeplearning4j_tpu_torch.train import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import flat_param_vector
+    net = supervised_net(spec, "mlp")
+    trainer = Trainer(net, layout=start)
+    losses = []
+
+    class Rec:
+        def iteration_done(self, net, iteration, epoch, score):
+            losses.append(float(score))
+
+        def on_epoch_end(self, net, epoch, info):
+            if resize_to is not None and epoch + 1 == boundary:
+                trainer.request_resize(resize_to)
+
+    trainer.bus.listeners.append(Rec())
+    x, y = spec["x"], spec["y"]
+    it = ListDataSetIterator([DataSet(x[i:i + 16], y[i:i + 16]) for i in range(0, len(x), 16)])
+    draw = base._keep_mask
+    if masks is not None:
+        base._keep_mask = lambda shape, p, gen, device: torch.as_tensor(masks[tuple(shape)])
+    try:
+        trainer.fit(it, epochs=epochs)
+    finally:
+        base._keep_mask = draw
+    return losses, flat_param_vector(net.params_).detach().numpy(), trainer
+
+
+def inprocess_elastic_worker(pid, n, spec_path):
+    """Every run of tests/test_torch_elastic_inprocess.py in one rank: the
+    fixed dp4 and dp2 runs, the grow dp2 -> dp4 and the shrink dp4 -> dp2
+    inside one fit (the port's own dropout stream, then the reference's
+    masks), the crash at ``gang.grow``, and the refusals."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.obs import flight_recorder
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    from deeplearning4j_tpu_torch.parallel.mesh import LayoutResizeError
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.train import Trainer
+    spec = _wait_for_spec(spec_path)
+    out = {"pid": pid}
+
+    def series(reg):
+        return {"grows": reg.counter("tpudl_elastic_grows_total").value,
+                "shrinks": reg.counter("tpudl_elastic_shrinks_total").value,
+                "width": reg.gauge("tpudl_elastic_gang_width").value,
+                "flips": reg.histogram("tpudl_elastic_flip_seconds").count}
+
+    for name, start, to in (("fixed4", "dp4", None), ("grow", "dp2", 4), ("fixed2", "dp2", None),
+                            ("shrink", "dp4", 2)):
+        for masks in (None, spec["masks"]):
+            reg = MetricsRegistry()
+            set_registry(reg)
+            losses, params, tr = _elastic_fit(spec, start, to, masks=masks)
+            key = name if masks is None else f"{name}_shared"
+            events = [e for e in flight_recorder.get_recorder().events()
+                      if e.get("kind") == "elastic_resize"]
+            out[key] = {"losses": losses, "params": params, "width": tr._layout.spec.total(),
+                        "parked": tr.parked, "equal": _all_equal(tr.net.params_),
+                        "series": series(reg),
+                        "event": {k: events[-1].get(k) for k in
+                                  ("direction", "from_width", "to_width", "layout")}
+                        if events else None}
+
+    # the crash at gang.grow: every rank stays on dp2, trainable, no deadlock
+    reg = MetricsRegistry()
+    set_registry(reg)
+    x, y = spec["x"], spec["y"]
+    batches = [DataSet(x[i:i + 16], y[i:i + 16]) for i in range(0, len(x), 16)]
+    trainer = Trainer(supervised_net(spec, "mlp"), layout="dp2")
+    trainer.fit(batches, epochs=1)
+    crash = {}
+    with faults.inject("gang.grow@0:crash"):
+        try:
+            trainer.resize_mesh(4)
+        except faults.InjectedCrash as e:
+            crash["raised"] = type(e).__name__
+    crash["width_after"] = trainer._layout.spec.total()
+    crash["placed"] = trainer._layout_placed
+    crash["parked"] = trainer.parked
+    trainer.fit(batches, epochs=1)
+    crash["width_after_fit"] = trainer._layout.spec.total()
+    crash["landed"] = trainer.resize_mesh(4)
+    crash["width_final"] = trainer._layout.spec.total()
+    crash["equal"] = _all_equal(trainer.net.params_)
+    crash["series"] = series(reg)
+    out["crash"] = crash
+    refusals = {}
+    for width in (8, 0):
+        try:
+            trainer.request_resize(width)
+        except LayoutResizeError as e:
+            refusals[width] = str(e)
+    try:
+        Trainer(supervised_net(spec, "mlp")).request_resize(2)
+    except ValueError as e:
+        refusals["no_layout"] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
+# ------------------------------------------------- the arbiter under live serving
+# tests/test_torch_arbiter.py's rank: a dp4 gang; rank 0 also hosts the
+# serving router, the clients and the arbiter (tests/test_elastic.py's
+# test_borrow_return_under_live_serve_load).
+
+def arbiter_live_worker(pid, n, spec_path):
+    import os
+    import threading
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    from deeplearning4j_tpu_torch.resilience import DevicePoolArbiter, TrainerGang
+    from deeplearning4j_tpu_torch.serve import ModelRegistry, ReplicaRouter
+    from deeplearning4j_tpu_torch.train import Trainer
+    spec = _wait_for_spec(spec_path)
+    reg = MetricsRegistry()
+    set_registry(reg)
+    x, y = spec["x"], spec["y"]
+    batches = [DataSet(x[i:i + 16], y[i:i + 16]) for i in range(0, len(x), 16)]
+    trainer = Trainer(supervised_net(spec, "train"), layout="dp4")
+    trainer.fit(batches, epochs=1)
+    out = {"pid": pid, "widths": [trainer._layout.spec.total()]}
+    if pid != 0:
+        for _ in range(2):
+            trainer.fit(batches, epochs=1)
+            out["widths"].append(trainer._layout.spec.total())
+            out.setdefault("parked", []).append(trainer.parked)
+        return out
+    snet = supervised_net(spec, "serve")
+    path = os.path.join(os.path.dirname(spec_path), "serve.zip")
+    snet.save(path)
+    models = ModelRegistry(device="cpu", max_batch=8, max_latency_ms=2, queue_limit=64)
+    models.deploy("m", path)
+    router = ReplicaRouter(models, "m", replicas=2, max_replicas=4)
+    arb = DevicePoolArbiter(router, TrainerGang(trainer), min_train=2, chips_per_flip=2,
+                            cooldown_s=0.0, serve_chips=2)
+    xs = x[:8]
+    expected = snet.output(xs).numpy()
+    stop, errors, served = threading.Event(), [], [0]
+
+    def client():
+        while not stop.is_set():
+            try:
+                got, _ = models.predict_versioned("m", xs, timeout_s=30)
+                np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-6)
+                served[0] += 1
+            except Exception as e:  # noqa: BLE001 — the assertion
+                errors.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=client) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        out["borrowed"] = arb.borrow()
+        out["replicas_after_borrow"] = (router.replicas, router.max_replicas)
+        out["gang_width_after_borrow"] = arb.gang.width
+        trainer.fit(batches, epochs=1)            # the shrink lands at the boundary
+        out["widths"].append(trainer._layout.spec.total())
+        out["returned"] = arb.return_chips()
+        trainer.fit(batches, epochs=1)            # and the grow back
+        out["widths"].append(trainer._layout.spec.total())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    replicas = (router.replicas, router.max_replicas)
+    models.close()
+    out.update(errors=errors, served=served[0], snapshot=arb.snapshot(), replicas=replicas,
+               series={"borrows": reg.counter("tpudl_elastic_borrows_total").value,
+                       "returns": reg.counter("tpudl_elastic_returns_total").value,
+                       "flips": reg.histogram("tpudl_elastic_flip_seconds").count,
+                       "pool": {o: reg.labeled_gauge("tpudl_elastic_pool_devices",
+                                                     label_names=("owner",)).labeled_value(owner=o)
+                                for o in ("serve", "train")}})
+    return out
+
+
+# ------------------------------------------------ sequence-parallel attention
+# tests/test_torch_sequence_parallel.py's rank: ring and Ulysses attention on
+# this rank's shard of the global arrays, over a seq-4 mesh and a dp2 x sp2
+# mesh of the gang of 4.
+
+def _shard(mesh, x, data: int, seq: int):
+    """This rank's [B/data, T/seq, ...] of the global numpy array ``x``."""
+    import torch
+    b, t = x.shape[0] // data, x.shape[1] // seq
+    i, j = max(mesh.data_index, 0), mesh.seq_index
+    return torch.from_numpy(np.ascontiguousarray(x[i * b:(i + 1) * b, j * t:(j + 1) * t]))
+
+
+def sequence_parallel_worker(pid, n, cases):
+    """Each case of ``cases`` (name -> dict: ``mesh`` (data, seq), q/k/v
+    global arrays, the call's keyword arguments, ``dtype``, ``grad``):
+    this rank's output shard and, with ``grad``, its q/k/v gradients of
+    the global loss mean(y * y)."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import make_mesh, ring_attention, ulysses_attention
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    meshes = {shape: make_mesh(data=shape[0], seq=shape[1], devices="cpu")
+              for shape in sorted({c["mesh"] for c in cases.values()})}
+    out = {"pid": pid}
+    for name, case in cases.items():
+        d, s = case["mesh"]
+        mesh = meshes[case["mesh"]]
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        q, k, v = (_shard(mesh, case[key], d, s).to(dtype).requires_grad_(case["grad"])
+                   for key in ("q", "k", "v"))
+        fn = ring_attention if case["fn"] == "ring" else ulysses_attention
+        reset_exchange_stats()
+        y = fn(q, k, v, mesh, **case["kw"])
+        res = {"y": y.detach().float().numpy(), "index": (mesh.data_index, mesh.seq_index),
+               "dtype": str(y.dtype).split(".")[1]}
+        if case["grad"]:
+            (y.float().pow(2).sum() / case["q"].size).backward()
+            res["grads"] = [t.grad.numpy() for t in (q, k, v)]
+        res["exchange"] = {kind: (st.calls, st.bytes)
+                           for kind, st in reset_exchange_stats().items()}
+        out[name] = res
+    errors = {}
+    try:
+        ulysses_attention(*(torch.zeros(2, 4, 24) for _ in range(3)), meshes[(1, 4)],
+                          n_heads=6)
+    except ValueError as e:
+        errors["heads"] = str(e)
+    try:
+        ring_attention(*(torch.zeros(2, 4, 24) for _ in range(3)), meshes[(1, 4)],
+                       n_heads=6, head_axis="model")
+    except NotImplementedError as e:
+        errors["head_axis"] = str(e)
+    out["errors"] = errors
+    return out
