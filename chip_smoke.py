@@ -415,9 +415,11 @@ no result line:
    dp1 and trainable before the grow lands; the same run in f64 (plain
    versions) against the fixed-width dp2 run at phase 28's limits, every
    step's gradient and the params; (b) phase 25's ResNet-50 behind a
-   ``ReplicaRouter`` (2 replicas, max 2) in rank 0 with three clients of 8
-   images (each answer held to output() of its request at ``SERVE_TOL``)
-   and ``DevicePoolArbiter`` over ``TrainerGang``: a crashed borrow leaves
+   ``ReplicaRouter`` (2 replicas, max 2, capturing their forward's graphs
+   while the gang trains on another thread) in rank 0 with three clients
+   of 8 images (each answer held to output() of its request at
+   ``SERVE_TOL``; no ``CaptureError``, the graphs counted) and
+   ``DevicePoolArbiter`` over ``TrainerGang``: a crashed borrow leaves
    the inventory, a borrow shrinks the gang to dp1 and raises the router to
    3 replicas, a return grows it back, no client error, images/s and
    p50/p99 by epoch, the flips and the MTTR of each; (c) ``ring_attention``
@@ -426,7 +428,29 @@ no result line:
    the normalized kernel over the whole sequence, the einsum ring and
    ``ulysses_attention``, their times (CUDA events) and the exchanges'
    bytes and host ms;
-32. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+32. pipeline and expert parallelism, in one 2-rank gloo gang sharing the
+   card: (a) BERT-base MLM (12 layers, seq 1024, 8 sequences in 4
+   microbatches, f32, seeded weights) over 2 stages of 6 layers through
+   ``pipeline_train_step``: one 1F1B step against the single-process
+   autograd of the same loss on rank 0 (loss 1e-5 relative, each
+   gradient leaf 1e-4 of its largest entry, the tied embedding
+   gradients merged), the flash kernels' launches on each rank equal to
+   what the schedule implies (a forward per layer in each forward tick
+   below the last stage, a forward and a merged backward in each
+   backward tick), a GPipe step and its peak memory beside 1F1B's, a
+   bf16 step timed, the hops' bytes and host ms; two steps of
+   ``pipeline_fit_step_local`` with Adam against ``pipeline_train_step``
+   and the same Adam on the whole gradient; (b) full-width VGG-16 under
+   ``Trainer(layout="pp2", n_microbatches=2)`` at batch 16: two f64 steps
+   against the single process (losses and params 1e-10 relative), then
+   two f32 steps timed beside the single process's eager step, the
+   stages ``split_stages`` chose and the bytes a step moves; (c)
+   ``moe_ffn`` over an expert axis of 2 at d 768, hidden 3072, 8 experts,
+   top-2, capacity factor 2.0 and 4096 tokens, each rank's 2048 against
+   ``moe_ffn_dense`` of all of them (output 1e-5 of its largest entry;
+   gradients rtol 2e-4, atol 1e-5), bf16 timed, the all-to-alls and the
+   dropped tokens;
+33. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The A/B call (``--ab PARENT_TREE``, the directory of another checkout,
 e.g. the parent commit unpacked with ``git archive``) runs none of the
@@ -463,6 +487,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1710,6 +1735,8 @@ FLASH_CASES = (
     # (phase 31): every pair visible, and every row dead
     ("ring_past", 2, 12, 4096, 4096, True, None, 4096, 0),
     ("ring_future", 2, 12, 4096, 4096, True, None, 0, 4096),
+    # a BERT-base pipeline stage's attention at seq 1024 (phase 32)
+    ("pp_stage", 2, 12, 1024, 1024, False, None, 0, 0),
 )
 FLASH_RING_CASES = ("ring_past", "ring_future")
 # flash kernel vs plain on the same inputs, max |diff| over the largest
@@ -8481,11 +8508,11 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
     """(b) on rank 0: the router, the clients, the arbiter over TrainerGang,
     one epoch before the borrow, one after it, one after the return."""
     import numpy as np
-    import torch
     from deeplearning4j_tpu_torch.obs.registry import get_registry
     from deeplearning4j_tpu_torch.obs.remote import ClusterStore
     from deeplearning4j_tpu_torch.resilience import DevicePoolArbiter, TrainerGang, faults
     from deeplearning4j_tpu_torch.serve import ModelRegistry, ReplicaRouter
+    from deeplearning4j_tpu_torch.train import capture
     reg = get_registry()
     net = serving_resnet50()
     path = os.path.join(tmp, "resnet50.zip")
@@ -8503,7 +8530,7 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
                             cooldown_s=0.0, serve_chips=2, cluster_store=store)
     for x in requests[:2]:                       # warm the replicas
         router.predict(x, timeout_s=300)
-    stop, errors, done, lock = threading.Event(), [], [], threading.Lock()
+    stop, errors, traces, done, lock = threading.Event(), [], [], [], threading.Lock()
 
     def client(j):
         i = j
@@ -8516,6 +8543,8 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
                     raise AssertionError(f"answer off by {err} (SERVE_TOL {SERVE_TOL})")
             except Exception as e:  # noqa: BLE001 — counted, and the phase fails on it
                 errors.append(repr(e)[:300])
+                if len(traces) < 3:
+                    traces.append("".join(traceback.format_exception(e))[-3000:])
                 return
             with lock:
                 done.append((time.perf_counter(), time.perf_counter() - t0))
@@ -8530,12 +8559,25 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
     threads = [threading.Thread(target=client, args=(j,)) for j in range(AR_CLIENTS)]
     for t in threads:
         t.start()
-    epochs, flips = [], {}
+    epochs, flips, flip_events = [], {}, []
+
+    class _FlipWatch:
+        """Each epoch's resize events, read as it starts (the resize lands
+        just before): the flight ring's 512 events turn over in an epoch of
+        captured serving."""
+
+        def on_epoch_start(self, net, epoch):
+            flip_events.extend(resize_events(flip_events[-1]["mono"] + 1e-9
+                                             if flip_events else 0.0))
+
+    watch = _FlipWatch()
+    trainer.bus.listeners.append(watch)
 
     def epoch(label):
         t0 = time.perf_counter()
         trainer.fit(batches, epochs=1)
-        torch.cuda.synchronize()
+        # the replicas may be capturing: a device-wide wait waits for that
+        capture.device_synchronize()
         epochs.append((label, t0, time.perf_counter(), trainer._layout.spec.total(),
                        router.replicas))
 
@@ -8544,16 +8586,17 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
         t_borrow = time.monotonic()
         out["borrowed"] = arb.borrow()
         epoch("dp1, 3 replicas (borrowed)")
-        shrink = resize_events(t_borrow)
+        shrink = [e for e in flip_events if e["mono"] >= t_borrow]
         flips["borrow_mttr_s"] = shrink[0]["mono"] - t_borrow
         flips["shrink_flip_s"] = shrink[0]["flip_s"]
         t_return = time.monotonic()
         out["returned"] = arb.return_chips()
         epoch("dp2, 2 replicas (returned)")
-        grow = resize_events(t_return)
+        grow = [e for e in flip_events if e["mono"] >= t_return]
         flips["return_mttr_s"] = grow[0]["mono"] - t_return
         flips["grow_flip_s"] = grow[0]["flip_s"]
     finally:
+        trainer.bus.listeners.remove(watch)
         stop.set()
         for t in threads:
             t.join(timeout=300)
@@ -8567,7 +8610,9 @@ def ar_serving_rank(trainer, tmp: str) -> dict:
         if lat:
             row |= percentiles(lat)
         per_epoch.append(row)
-    out.update(errors=errors, answered=len(done), snapshot=arb.snapshot(),
+    out["capture_errors"] = sum("CaptureError" in e for e in errors)
+    out["graphs"] = router._replicas[0].engine.compiled_programs
+    out.update(errors=errors, error_traces=traces, answered=len(done), snapshot=arb.snapshot(),
                replicas=(router.replicas, router.max_replicas), per_epoch=per_epoch,
                flips=flips, series={"borrows": reg.counter("tpudl_elastic_borrows_total").value,
                                     "returns": reg.counter("tpudl_elastic_returns_total").value})
@@ -8657,7 +8702,6 @@ def el_worker(pid: int, n: int, workdir: str) -> dict:
     """One rank of phase 31: (a), (b) (rank 0 serves), (c)."""
     import torch
     from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
-    from deeplearning4j_tpu_torch.train import capture
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     set_registry(MetricsRegistry())
@@ -8667,10 +8711,7 @@ def el_worker(pid: int, n: int, workdir: str) -> dict:
     out["resize_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if pid == 0:
-        # the replicas serve eagerly: capturing a replica's graph while this
-        # process trains on other threads fails (PERF.md §7)
-        with capture.eager():
-            out["arbiter"] = ar_serving_rank(trainer, workdir)
+        out["arbiter"] = ar_serving_rank(trainer, workdir)
     else:
         widths = []
         for _ in range(3):          # rank 0's three epochs (b)
@@ -8787,10 +8828,14 @@ def elastic_and_sequence(card: str) -> dict:
         f"stepped (rank 1 parked), the grow landed after it")
     log(f"  (b) ResNet-50 f32 behind a ReplicaRouter (2 replicas, max 2) on rank 0, "
         f"{AR_CLIENTS} clients x {AR_IMAGES} images, DevicePoolArbiter(min_train=1, "
-        f"chips_per_flip=1, serve_chips=2) over TrainerGang: arbiter.borrow@0:crash -> "
+        f"chips_per_flip=1, serve_chips=2) over TrainerGang, the replicas captured beside the "
+        f"training thread: arbiter.borrow@0:crash -> "
         f"{b['crashed_borrow']}, inventory {b['after_crash']}; {b['answered']} answers, "
-        f"{len(b['errors'])} errors (each within SERVE_TOL {SERVE_TOL} of the engine alone); "
-        f"end {b['snapshot']}, replicas {b['replicas']}")
+        f"{len(b['errors'])} errors ({b['capture_errors']} CaptureError; each answer within "
+        f"SERVE_TOL {SERVE_TOL} of the engine alone); {b['graphs']} graphs behind the replicas' "
+        f"forward; end {b['snapshot']}, replicas {b['replicas']}")
+    for trace in b["error_traces"]:
+        log(f"      an error's traceback: {trace}")
     for e in b["per_epoch"]:
         log(f"      {e['epoch']}: {e['images_per_s']:.1f} images/s, {e['requests']} requests, "
             f"p50 {e.get('p50_ms', float('nan')):.1f} ms, p99 {e.get('p99_ms', float('nan')):.1f} "
@@ -8812,6 +8857,427 @@ def elastic_and_sequence(card: str) -> dict:
             f"{u['staged_bytes']} staged, {u['host_ms']:.2f} host ms")
     if problems:
         raise AssertionError("phase 31: " + "; ".join(problems))
+    return out
+
+
+# ---------------- phase 32: pipeline and expert parallelism (parallel/pipeline_stages.py,
+# ---------------- parallel/unified.py's MoE FFN and pipe-layout step, Trainer(layout="pp2"))
+# one 2-rank gloo gang sharing the card (one child start-up for the three parts)
+PP_SEED = SEED + 140
+PP_PORT = 13811
+PP_TIMEOUT = 600.0
+# (a): BERT-base MLM at seq 1024 over 2 stages of 6 layers, 8 sequences in 4 microbatches
+PP_SEQ, PP_BATCH, PP_MICRO = 1024, 8, 4
+# tests/test_pipeline_stages.py:103-108: the loss relative, each gradient leaf over its largest
+# entry; pipeline_fit_step_local against pipeline_train_step + the same Adam (:250-278)
+PP_LOSS_TOL, PP_GRAD_TOL = 1e-5, 1e-4
+PP_ROW_RTOL, PP_ROW_ATOL = 1e-4, 1e-6
+PP_ADAM_LR = 1e-4
+# (b): VGG-16 under Trainer(layout="pp2"), f64 steps against the single process
+VGG_PP_BATCH, VGG_PP_MICRO, VGG_PP_STEPS = 16, 2, 2
+VGG_PP_TOL = 1e-10
+# (c): moe_ffn over ep2 at BERT-base's FFN widths, the reference's defaults (top-2, capacity
+# factor 2.0); tests/test_expert_parallel.py:114-128's limits for the gradients
+MOE_D, MOE_H, MOE_E, MOE_TOKENS, MOE_TOP_K, MOE_CF = 768, 3072, 8, 4096, 2, 2.0
+MOE_OUT_TOL, MOE_RTOL, MOE_ATOL = 1e-5, 2e-4, 1e-5
+MOE_TIMED = 5
+
+
+def pp_expected_launches(F, B, s: int, layers: int) -> dict:
+    """The flash kernels one rank's step launches, from the schedule: a
+    forward per layer in each forward tick below the last stage, and in
+    each backward tick the recompute's forward and the merged backward."""
+    f_ticks = int((F[:, s] >= 0).sum()) if s < F.shape[1] - 1 else 0
+    b_ticks = int((B[:, s] >= 0).sum())
+    return {"flash_attention": layers * (f_ticks + b_ticks), "flash_attention_bwd": layers * b_ticks}
+
+
+def pp_bert_rank(pid: int) -> dict:
+    """(a) in one rank: BERT-base's stage ``pid`` under pipeline_train_step
+    (1F1B, GPipe, bf16), rank 0 holding the step against the single-process
+    autograd; then pipeline_fit_step_local against pipeline_train_step and
+    the same Adam."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch import config
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel import pipeline_stages as ps
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import jax_leaves, tree_map
+    mesh = make_mesh(pipe=2, devices="cuda")
+    s = mesh.pipe_index
+    cfg = dataclasses.replace(bert.BertConfig.base(), max_position=PP_SEQ)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(PP_SEED), device="cuda")
+    rng = np.random.default_rng(PP_SEED + 1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PP_BATCH, PP_SEQ))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PP_BATCH, PP_SEQ))).cuda()
+    weights = torch.from_numpy((rng.random((PP_BATCH, PP_SEQ)) < 0.15).astype(np.float32)).cuda()
+    x = ids.to(torch.float32)
+    packed = torch.stack([labels.to(torch.float32), weights], dim=-1)
+    fns, sp = bert.pipeline_stages(cfg, params, 2)
+    per_stage = cfg.num_layers // 2
+    out = {"stage": s, "layers": per_stage}
+
+    def step(schedule, tag):
+        torch.cuda.synchronize()
+        dist.barrier()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_exchange_stats()
+        kernel_counts(zero=True)
+        t0 = time.perf_counter()
+        loss, grads = ps.pipeline_train_step(fns, sp, x, packed, bert.mlm_loss_from_logits, mesh,
+                                             PP_MICRO, schedule=schedule)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launched(kernel_counts(zero=True))
+        ex = reset_exchange_stats()
+        F, B = ps._schedule(schedule, 2, PP_MICRO)
+        out[tag] = {"loss": float(loss), "ms": ms, "launches": launches,
+                    "expected": pp_expected_launches(F, B, s, per_stage),
+                    "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                    "hops": {k: {"calls": v.calls, "bytes": v.bytes, "staged": v.staged_bytes,
+                                 "host_ms": v.seconds * 1e3} for k, v in ex.items()},
+                    "stash_bound": int(np.cumsum((F[:, s] >= 0).astype(int)
+                                                 - (B[:, s] >= 0).astype(int)).max())}
+        return loss, grads
+
+    loss, grads = step("1f1b", "1f1b")
+    merged = bert.merge_tied_embedding_grads(grads)
+    out["tied"] = bool(torch.equal(merged[0]["embeddings"]["word_embeddings"],
+                                   merged[-1]["decode_embeddings"]))
+    dist.barrier()
+    if s == 0:
+        # the single-process MLM loss over the same microbatches, autograd on the card
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        bm = PP_BATCH // PP_MICRO
+        total = 0.0
+        for m in range(PP_MICRO):
+            rows = slice(m * bm, (m + 1) * bm)
+            loss_m = bert.mlm_loss(live, cfg, ids[rows].to(torch.int32), labels[rows],
+                                   weights[rows], train=False) / PP_MICRO
+            loss_m.backward()
+            total += float(loss_m)
+        ref = {"embeddings": live["embeddings"], "mlm": live["mlm"],
+               "layers": live["encoder"]}
+        got = {"embeddings": merged[0]["embeddings"], "mlm": merged[-1]["mlm"],
+               "layers": {**merged[0]["layers"], **merged[1]["layers"]}}
+        errs = [float((g - r.grad).abs().max() / r.grad.abs().max().clamp_min(1e-30))
+                for g, r in zip(jax_leaves(got), jax_leaves(ref))]
+        out["vs_single"] = {"loss_rel_err": abs(float(loss) - total) / abs(total),
+                            "grad_err_max": max(errs), "leaves": len(errs),
+                            "finite": all(bool(torch.isfinite(g).all()) for g in jax_leaves(got))}
+        del live, ref, got
+    del grads, merged
+    dist.barrier()
+    # the step before paid the first calls: time and weigh 1F1B again, beside GPipe
+    step("gpipe", "gpipe")
+    step("1f1b", "1f1b_timed")
+    config.set_dtype_policy(config.DTypePolicy.bf16())
+    try:
+        step("1f1b", "bf16")
+        step("1f1b", "bf16_timed")
+    finally:
+        config.set_dtype_policy(config.DTypePolicy.f32())
+    # two steps of the stage-local form against the replicated step + the same Adam
+    tx = Adam(learning_rate=PP_ADAM_LR)
+    flat, unravels, sizes = ps.flatten_stage_params(sp)
+    row = ps.stage_row(flat, mesh).clone()
+    opt = ps.init_stage_local_opt(tx, flat, mesh)
+    ref_flat, ref_opt = flat, tx.init(flat)
+    losses = []
+    for _ in range(2):
+        loss_l, row, opt = ps.pipeline_fit_step_local(fns, row, opt, tx, unravels, sizes, x,
+                                                      packed, bert.mlm_loss_from_logits, mesh,
+                                                      PP_MICRO)
+        loss_r, g = ps.pipeline_train_step(fns, ps.unflatten_stage_params(ref_flat, unravels,
+                                                                          sizes),
+                                           x, packed, bert.mlm_loss_from_logits, mesh, PP_MICRO)
+        with torch.no_grad():
+            upd, ref_opt = tx.update(ps.flatten_stage_params(g)[0], ref_opt, ref_flat)
+            ref_flat = ref_flat + upd
+        losses.append((float(loss_l), float(loss_r)))
+        del g
+    want = ref_flat[s]
+    diff = (row[0] - want).abs()
+    out["fit_local"] = {"losses": losses, "row_err": float(diff.max() / want.abs().max()),
+                        "within": bool((diff <= PP_ROW_ATOL + PP_ROW_RTOL * want.abs()).all()),
+                        "row_params": sizes[s], "pmax": int(flat.shape[1])}
+    return out
+
+
+def pp_vgg_rank(pid: int) -> dict:
+    """(b) in one rank: full-width VGG-16 under Trainer(layout="pp2",
+    n_microbatches=2), f64 against the single process (rank 0), then f32
+    timed beside the single process's eager step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.parallel import unified
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    from deeplearning4j_tpu_torch.train import Trainer, capture, step_cache
+    from deeplearning4j_tpu_torch.train.updaters import jax_leaves, tree_map
+    xs, ys = dcn_batch(VGG_PP_BATCH, seed=PP_SEED + 2)
+    out = {}
+
+    def run(dtype, layout):
+        step_cache.clear_step_cache()
+        net = vgg16(seed=PP_SEED, device="cuda").init()
+        wide = dtype == torch.float64
+        if wide:
+            net.params_ = tree_map(lambda t: t.double(), net.params_)
+        batch = DataSet(torch.from_numpy(xs).to("cuda", dtype), torch.from_numpy(ys).to("cuda", dtype))
+        trainer = Trainer(net, layout=layout, n_microbatches=VGG_PP_MICRO) if layout else \
+            Trainer(net)
+        losses, step_ms, moved = [], [], []
+        for _ in range(VGG_PP_STEPS):
+            torch.cuda.synchronize()
+            reset_exchange_stats()
+            t0 = time.perf_counter()
+            with capture.eager():
+                losses.append(trainer.fit_batch(batch).item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            ex = reset_exchange_stats()
+            moved.append({k: v.bytes for k, v in ex.items()})
+        return net, trainer, {"losses": losses, "step_ms": step_ms, "bytes": moved}
+
+    with f64_policy(True):
+        net, trainer, res = run(torch.float64, "pp2")
+        out["groups"] = unified.split_stages(net, 2)
+        out["f64_pp2"] = res
+        dist.barrier()
+        if pid == 0:
+            pp_leaves = [t.detach().clone() for t in jax_leaves(net.params_)]
+            del net, trainer
+            single, _, res1 = run(torch.float64, None)
+            out["f64_single"] = res1
+            out["f64_param_err"] = max(
+                float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                for a, b in zip(pp_leaves, jax_leaves(single.params_)))
+            del single, pp_leaves
+        else:
+            del net, trainer
+        dist.barrier()
+    torch.cuda.empty_cache()
+    net, trainer, out["f32_pp2"] = run(torch.float32, "pp2")
+    del net, trainer
+    dist.barrier()
+    if pid == 0:
+        _, _, out["f32_single"] = run(torch.float32, None)
+    dist.barrier()
+    step_cache.clear_step_cache()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_moe_rank(pid: int) -> dict:
+    """(c) in one rank: moe_ffn over ep2 on this rank's 2048 tokens against
+    moe_ffn_dense of all 4096 (every rank computes it), f32 forward and
+    gradients, bf16 timed; the exchanges and the dropped tokens."""
+    import math
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import make_mesh, moe_ffn, moe_ffn_dense, shard_moe_params
+    from deeplearning4j_tpu_torch.parallel.unified import (_dispatch_tensors, _top_k_gates,
+                                                           reset_exchange_stats)
+    mesh = make_mesh(expert=2, devices="cuda")
+    e = mesh.expert_index
+    rng = np.random.default_rng(PP_SEED + 3)
+    whole = {"gate": rng.normal(size=(MOE_D, MOE_E)) / math.sqrt(MOE_D),
+             "w_in": rng.normal(size=(MOE_E, MOE_D, MOE_H)) / math.sqrt(MOE_D),
+             "b_in": np.zeros((MOE_E, MOE_H)),
+             "w_out": rng.normal(size=(MOE_E, MOE_H, MOE_D)) / math.sqrt(MOE_H),
+             "b_out": np.zeros((MOE_E, MOE_D))}
+    whole = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in whole.items()}
+    x_all = torch.tensor(rng.normal(size=(MOE_TOKENS, MOE_D)), dtype=torch.float32, device="cuda")
+    n = MOE_TOKENS // 2
+    rows = slice(e * n, (e + 1) * n)
+    per = MOE_E // 2
+    kw = {"top_k": MOE_TOP_K, "capacity_factor": MOE_CF}
+    out = {"expert_index": e}
+    # f32: this rank's shard through both all-to-alls, and its gradients of mean(y * y)
+    sp = {k: v.detach().clone().requires_grad_(True)
+          for k, v in shard_moe_params(whole, mesh).items()}
+    xs = x_all[rows].clone().requires_grad_(True)
+    reset_exchange_stats()
+    y = moe_ffn(sp, xs, mesh, **kw)
+    fwd = reset_exchange_stats()["all_to_all"]
+    (y.pow(2).sum() / y.new_tensor(MOE_TOKENS * MOE_D)).backward()
+    bwd = reset_exchange_stats()["all_to_all"]
+    gate = sp["gate"].grad.clone()
+    dist.all_reduce(gate)
+    dense_p = {k: v.detach().clone().requires_grad_(True) for k, v in whole.items()}
+    xd = x_all.clone().requires_grad_(True)
+    yd = moe_ffn_dense(dense_p, xd, **kw)
+    yd.pow(2).mean().backward()
+    ok = {}
+    errs = {"out": float((y.detach() - yd.detach()[rows]).abs().max() / yd.detach().abs().max())}
+    pairs = [("x", xs.grad, xd.grad[rows]), ("gate", gate, dense_p["gate"].grad)] + [
+        (k, sp[k].grad, dense_p[k].grad[e * per:(e + 1) * per]) for k in ("w_in", "b_in",
+                                                                           "w_out", "b_out")]
+    for name, got, want in pairs:
+        errs[name] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        ok[name] = bool(((got - want).abs() <= MOE_ATOL + MOE_RTOL * want.abs()).all())
+    out.update(errs=errs, within=ok, finite=bool(torch.isfinite(y).all()),
+               exchange={"forward": {"calls": fwd.calls, "bytes": fwd.bytes,
+                                     "staged": fwd.staged_bytes, "host_ms": fwd.seconds * 1e3},
+                         "backward": {"calls": bwd.calls, "bytes": bwd.bytes,
+                                      "staged": bwd.staged_bytes, "host_ms": bwd.seconds * 1e3}})
+    with torch.no_grad():
+        def dropped(x):
+            cap = max(1, math.ceil(x.shape[0] * MOE_TOP_K / MOE_E * MOE_CF))
+            _, dispatch = _dispatch_tensors(*_top_k_gates(x @ whole["gate"], MOE_TOP_K), MOE_E,
+                                            cap)
+            return int(x.shape[0] * MOE_TOP_K - dispatch.sum().item())
+        out["dropped"] = {"dense": dropped(x_all), "shard": dropped(x_all[rows])}
+        # bf16: error against the f32 dense output, and the times (CUDA events, both ranks)
+        sp16 = {k: v.detach().to(torch.bfloat16) for k, v in sp.items()}
+        x16 = x_all[rows].to(torch.bfloat16)
+        y16 = moe_ffn(sp16, x16, mesh, **kw)
+        out["bf16_err"] = float((y16.float() - yd.detach()[rows]).abs().max()
+                                / yd.detach().abs().max())
+        # the same bf16 tokens and params through the dense oracle: bf16 gating moves tokens
+        # between experts, so the f32 distance is the dtype's, this one the path's
+        yd16 = moe_ffn_dense({k: v.detach().to(torch.bfloat16) for k, v in whole.items()},
+                             x_all.to(torch.bfloat16), **kw)[rows].float()
+        out["bf16_vs_dense_bf16"] = float((y16.float() - yd16).abs().max() / yd16.abs().max())
+        del yd16
+        sp32 = {k: v.detach() for k, v in sp.items()}
+        dist.barrier()
+        out["f32_ms"] = cuda_ms(lambda: moe_ffn(sp32, x_all[rows], mesh, **kw), reps=MOE_TIMED,
+                                warmup=1)
+        out["bf16_ms"] = cuda_ms(lambda: moe_ffn(sp16, x16, mesh, **kw), reps=MOE_TIMED, warmup=1)
+        reset_exchange_stats()
+        dist.barrier()
+        if e == 0:
+            out["dense_f32_ms"] = cuda_ms(lambda: moe_ffn_dense(whole, x_all, **kw),
+                                          reps=MOE_TIMED, warmup=1)
+        dist.barrier()
+    return out
+
+
+def pp_worker(pid: int, n: int) -> dict:
+    """One rank of phase 32: (a), (b), (c)."""
+    import torch
+    from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, set_registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_registry(MetricsRegistry())
+    out = {"pid": pid}
+    for part, fn in (("bert", pp_bert_rank), ("vgg", pp_vgg_rank), ("moe", pp_moe_rank)):
+        t0 = time.perf_counter()
+        out[part] = fn(pid)
+        out[f"{part}_s"] = time.perf_counter() - t0
+        release()
+    return out
+
+
+def pipeline_and_experts(card: str) -> dict:
+    """Phase 32 (module comment)."""
+    import chip_smoke as module     # the worker pickles by this name, for the children
+    from deeplearning4j_tpu_torch.parallel.launcher import spawn_local_cluster
+    t0 = time.time()
+    ranks = spawn_local_cluster(module.pp_worker, n_processes=2, port=PP_PORT, device="cuda",
+                                timeout=PP_TIMEOUT)
+    gang_s = time.time() - t0
+    r0, r1 = sorted(ranks, key=lambda r: r["pid"])
+    problems = []
+    # (a)
+    a0, a1 = r0["bert"], r1["bert"]
+    for a in (a0, a1):
+        for tag in ("1f1b", "gpipe", "1f1b_timed", "bf16"):
+            if a[tag]["launches"] != a[tag]["expected"]:
+                problems.append(f"(a) stage {a['stage']} {tag}: launches {a[tag]['launches']}, "
+                                f"the schedule's {a[tag]['expected']}")
+        if not a["tied"]:
+            problems.append(f"(a) stage {a['stage']}: merged embedding gradients not tied")
+        fl = a["fit_local"]
+        if not fl["within"] or max(abs(p - q) / abs(q) for p, q in fl["losses"]) > PP_LOSS_TOL:
+            problems.append(f"(a) stage {a['stage']} pipeline_fit_step_local vs pipeline_train_step"
+                            f" + Adam: {fl} (limits rtol {PP_ROW_RTOL}, atol {PP_ROW_ATOL})")
+    vs = a0["vs_single"]
+    if not (vs["finite"] and vs["loss_rel_err"] <= PP_LOSS_TOL and vs["grad_err_max"] <= PP_GRAD_TOL):
+        problems.append(f"(a) 1F1B vs the single process: {vs} (limits {PP_LOSS_TOL}, "
+                        f"{PP_GRAD_TOL})")
+    if abs(a0["gpipe"]["loss"] - a0["1f1b"]["loss"]) > PP_LOSS_TOL * abs(a0["1f1b"]["loss"]):
+        problems.append(f"(a) GPipe's loss {a0['gpipe']['loss']} vs 1F1B's {a0['1f1b']['loss']}")
+    # (b)
+    b0, b1 = r0["vgg"], r1["vgg"]
+    l_pp, l_1 = b0["f64_pp2"]["losses"], b0["f64_single"]["losses"]
+    loss_err = max(abs(p - q) / abs(q) for p, q in zip(l_pp, l_1))
+    if not (loss_err <= VGG_PP_TOL and b0["f64_param_err"] <= VGG_PP_TOL
+            and b1["f64_pp2"]["losses"] == l_pp):
+        problems.append(f"(b) f64 pp2 vs single: losses {l_pp} vs {l_1} ({loss_err:.2e}), params "
+                        f"{b0['f64_param_err']:.2e} (limit {VGG_PP_TOL}); rank 1's losses "
+                        f"{b1['f64_pp2']['losses']}")
+    # (c)
+    for r in (r0, r1):
+        c = r["moe"]
+        if not (c["finite"] and c["errs"]["out"] <= MOE_OUT_TOL and all(c["within"].values())):
+            problems.append(f"(c) rank {r['pid']} moe_ffn ep2 vs dense: {c['errs']}, within "
+                            f"{c['within']} (limits {MOE_OUT_TOL}; rtol {MOE_RTOL}, atol {MOE_ATOL})")
+        if c["exchange"]["forward"]["calls"] != 2 or c["exchange"]["backward"]["calls"] != 2:
+            problems.append(f"(c) rank {r['pid']} exchanges {c['exchange']}")
+    launches = {k: sum(a[tag]["launches"].get(k, 0) for a in (a0, a1)
+                       for tag in ("1f1b", "gpipe", "1f1b_timed", "bf16", "bf16_timed"))
+                for k in ("flash_attention", "flash_attention_bwd")}
+    per_step = {k: sum(a["1f1b"]["launches"].get(k, 0) for a in (a0, a1)) for k in launches}
+    out = {"card": card, "gang_s": gang_s, "ranks": [r0, r1], "launches": launches,
+           "launches_per_step": per_step,
+           "seconds": {p: r0[f"{p}_s"] for p in ("bert", "vgg", "moe")}}
+    log(f"phase 32 on {card}: one 2-rank gloo gang sharing the card ({gang_s:.1f} s; (a) "
+        f"{r0['bert_s']:.1f} s, (b) {r0['vgg_s']:.1f} s, (c) {r0['moe_s']:.1f} s)")
+    hop = a0["1f1b_timed"]["hops"].get("pipe", {})
+    log(f"  (a) BERT-base MLM, seq {PP_SEQ}, batch {PP_BATCH} in {PP_MICRO} microbatches, 2 "
+        f"stages of {a0['layers']} layers (f32): 1F1B loss {a0['1f1b']['loss']:.6f}; vs the single-process "
+        f"autograd: loss {vs['loss_rel_err']:.2e} relative, gradients {vs['grad_err_max']:.2e} of "
+        f"a leaf's largest entry over {vs['leaves']} leaves (limits {PP_LOSS_TOL}, {PP_GRAD_TOL}); "
+        f"flash launches per step (stage 0 + stage 1) {per_step} (the schedule's); tied "
+        f"embedding gradients equal")
+    for a in (a0, a1):
+        log(f"      stage {a['stage']}: step ms 1F1B {a['1f1b_timed']['ms']:.1f} (the first "
+            f"{a['1f1b']['ms']:.1f}), GPipe {a['gpipe']['ms']:.1f}, bf16 "
+            f"{a['bf16_timed']['ms']:.1f}; peak memory over the params (max_memory_allocated) "
+            f"1F1B {a['1f1b_timed']['peak_mb']:.0f} MiB (stash bound "
+            f"{a['1f1b']['stash_bound']}), GPipe {a['gpipe']['peak_mb']:.0f} MiB (stash bound "
+            f"{a['gpipe']['stash_bound']}); exchanges {a['1f1b_timed']['hops']}")
+    log(f"      hops of stage 0 (1F1B): {hop.get('calls')} ticks sending, {hop.get('bytes')} "
+        f"bytes sent ({PP_BATCH // PP_MICRO * PP_SEQ * 768 * 4} an activation), "
+        f"{hop.get('staged')} staged, {hop.get('host_ms', 0):.1f} host ms")
+    fl0, fl1 = a0["fit_local"], a1["fit_local"]
+    log(f"      pipeline_fit_step_local, Adam({PP_ADAM_LR}), 2 steps vs pipeline_train_step + "
+        f"Adam: losses {fl0['losses']}, rows {fl0['row_err']:.2e} / {fl1['row_err']:.2e} of "
+        f"their largest entry ({fl0['row_params']} / {fl1['row_params']} params a row, Pmax "
+        f"{fl0['pmax']})")
+    log(f"  (b) VGG-16 (224x224, 1000 classes) under Trainer(layout='pp2', n_microbatches="
+        f"{VGG_PP_MICRO}), batch {VGG_PP_BATCH}: split_stages {[(g[0], g[-1]) for g in b0['groups']]}"
+        f"; f64 losses {l_pp} vs the single process {l_1}: {loss_err:.2e} relative, params "
+        f"{b0['f64_param_err']:.2e} (limit {VGG_PP_TOL}); f32 step ms rank 0 "
+        f"{[round(v, 1) for v in b0['f32_pp2']['step_ms']]}, rank 1 "
+        f"{[round(v, 1) for v in b1['f32_pp2']['step_ms']]}, single process eager "
+        f"{[round(v, 1) for v in b0['f32_single']['step_ms']]}; bytes a step across the pipe "
+        f"group (rank 0) {b0['f32_pp2']['bytes'][-1]}")
+    for r in (r0, r1):
+        c = r["moe"]
+        log(f"  (c) rank {r['pid']}: moe_ffn over ep2, d {MOE_D}, hidden {MOE_H}, {MOE_E} experts,"
+            f" top-{MOE_TOP_K}, capacity factor {MOE_CF}, {MOE_TOKENS // 2} of {MOE_TOKENS} tokens:"
+            f" f32 vs moe_ffn_dense " + " ".join(f"{k} {v:.1e}" for k, v in c["errs"].items())
+            + f"; bf16 output {c['bf16_err']:.2e} of the f32 dense's largest entry (bf16 gating "
+            f"reroutes tokens), {c['bf16_vs_dense_bf16']:.2e} of the bf16 dense's; ms f32 "
+            f"{c['f32_ms']:.3f}, "
+            f"bf16 {c['bf16_ms']:.3f}" + (f", dense over all tokens on one rank "
+                                          f"{c['dense_f32_ms']:.3f}" if "dense_f32_ms" in c else "")
+            + f"; all-to-alls {c['exchange']}; dropped (token, slot) pairs: shard "
+            f"{c['dropped']['shard']}, dense {c['dropped']['dense']}")
+    if problems:
+        raise AssertionError("phase 32: " + "; ".join(problems))
     return out
 
 
@@ -9012,6 +9478,9 @@ def main() -> int:
     release()
     elastic = elastic_and_sequence(card)
     clock("phase 31")
+    release()
+    piped = pipeline_and_experts(card)
+    clock("phase 32")
 
     def entry(name, source, replaces, tot, tot16, head16, launches, work):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -9079,12 +9548,16 @@ def main() -> int:
         | {"serve_launches": sum(bert_served[p]["launches"] for p in ("f32", "bf16")),
            "config_first_launches_per_forward": stack["bf16_output_launches"][0],
            "ring_launches": elastic["launches"]["flash_attention"],
+           "pipeline_launches": piped["launches"]["flash_attention"],
+           "pipeline_launches_per_step": piped["launches_per_step"]["flash_attention"],
            "sass": hopper["flash_attention_fwd"]},
         flash_entry("flash_attention_bwd",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
                     "deeplearning4j_tpu/ops/pallas/flash_attention.py:380", flash_rows, "bwd_",
                     flash_launches[1], flash_work)
         | {"sass": hopper["flash_attention_bwd"], "merged_scratch_bytes": scratch,
+           "pipeline_launches": piped["launches"]["flash_attention_bwd"],
+           "pipeline_launches_per_step": piped["launches_per_step"]["flash_attention_bwd"],
            "config_first_launches_per_step": stack["bf16_step_launches"][-1][1]},
         flash_entry("flash_attention_bwd_split",
                     "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attention_bwd_split.cu",
@@ -9130,7 +9603,7 @@ def main() -> int:
          "serving_stack": stack_run, "gradient_sharing": sharing,
          "training_telemetry": telemetry, "dense_data_parallel": dense,
          "multislice_dense": multislice, "supervised_gang": supervised,
-         "elastic_and_sequence": elastic,
+         "elastic_and_sequence": elastic, "pipeline_and_experts": piped,
          "kernels": kernels, "log": LOG_LINES,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

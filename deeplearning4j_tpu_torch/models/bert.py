@@ -21,8 +21,8 @@ and updater state in place and, on the card, replays a CUDA graph after
 two eager steps (``train/capture.py``).  :func:`pipeline_stages` splits
 the model into stage functions for a pipeline-parallel step, with
 :func:`merge_tied_embedding_grads` and :func:`mlm_loss_from_logits`
-beside them; the pipeline schedule itself (``parallel/``) is not ported
-yet.
+beside them; ``parallel.pipeline_stages.pipeline_train_step`` runs them
+on the 1F1B or GPipe schedule, one process per stage.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ listener that has the hook runs it.
 
 A listener that reads the clock (``PerformanceListener``,
 ``TimeIterationListener``) first waits for the model's CUDA device
-(``torch.cuda.synchronize``), so that the time it reads covers the work
+(``train.capture.device_synchronize``: ``torch.cuda.synchronize``, after
+any capture another thread runs), so that the time it reads covers the work
 queued on the card and not only its launch.
 """
 
@@ -29,7 +30,8 @@ def synchronized_time(model: Any) -> float:
     model on the CPU or without a device."""
     device = getattr(model, "device", None)
     if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        from deeplearning4j_tpu_torch.train.capture import device_synchronize
+        device_synchronize(device)
     return time.perf_counter()
 
 

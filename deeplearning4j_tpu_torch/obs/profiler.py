@@ -161,6 +161,7 @@ def trace(logdir: str):
         yield result
     finally:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+            from deeplearning4j_tpu_torch.train.capture import device_synchronize
+            device_synchronize()
         result.profile.stop()
         result.profile.export_chrome_trace(result.path)

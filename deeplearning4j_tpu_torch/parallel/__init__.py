@@ -3,9 +3,10 @@
 
 - ``mesh``        — the axis constants, ``MeshSpec`` (the layout flag's
                     parse), ``make_mesh``, ``MeshLayout`` and
-                    ``resolve_layout``: the data-parallel layouts behind
-                    ``Trainer(mesh=..., layout="dpN")``, one process per
-                    data shard over ``torch.distributed``;
+                    ``resolve_layout``: the layouts behind
+                    ``Trainer(mesh=..., layout="dpN" | "ppS" | "dpNxppS")``,
+                    one process per mesh position over
+                    ``torch.distributed``;
 - ``data_parallel`` — ``ParallelWrapper`` (a deprecated shim, imported
                     lazily: its module warns): the every-step mode, the
                     parameter-averaging mode and ZeRO-1;
@@ -21,14 +22,20 @@
 - ``inference``   — ``ParallelInference``, a shim over the serving engine;
 - ``unified``     — sequence-parallel attention over the ``seq`` axis
                     (``ring_attention``, ``ulysses_attention``,
-                    ``reference_attention``), on each rank's shard;
-                    ``context_parallel`` is its deprecation shim, as in the
-                    JAX package.
+                    ``reference_attention``) and the MoE FFN over the
+                    ``expert`` axis (``moe_ffn``, ``moe_ffn_dense``,
+                    ``init_moe_params``, ``shard_moe_params``), on each
+                    rank's shard, and the pipe layout's step builder;
+                    ``context_parallel`` and ``expert_parallel`` are its
+                    deprecation shims, as in the JAX package;
+- ``pipeline`` / ``pipeline_stages`` — microbatched stage parallelism over
+                    the ``pipe`` axis, one process per stage (GPipe's
+                    ``pipeline_apply``, the heterogeneous 1F1B
+                    ``pipeline_train_step`` and its stage-local form).
 
-Not ported yet: the rest of ``unified`` (MoE, ``tp_jit``, the pipeline
-helpers), ``tensor_parallel``, ``pipeline``, ``pipeline_stages`` and
-``expert_parallel``.  Their names raise an ``AttributeError``, and their
-modules an ``ImportError``, that says so.
+Not ported yet: the model axis (``ROADMAP.md`` queue A item 2.5):
+``unified.tp_jit`` and the ``tensor_parallel`` shim.  The name raises an
+``AttributeError``, and the module an ``ImportError``, that says so.
 """
 
 from deeplearning4j_tpu_torch.parallel.compression import (
@@ -48,7 +55,8 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     LayoutResizeError, MeshSpec, make_mesh, resize_layout, resize_spec, resolve_layout,
 )
 from deeplearning4j_tpu_torch.parallel.unified import (
-    reference_attention, ring_attention, ulysses_attention,
+    init_moe_params, moe_ffn, moe_ffn_dense, reference_attention, ring_attention,
+    shard_moe_params, ulysses_attention,
 )
 
 __all__ = [
@@ -61,22 +69,22 @@ __all__ = [
     "ParallelInference", "initialize", "spawn_local_cluster", "make_multislice_mesh",
     "MultiSliceMesh", "GroupTransport", "SliceRelay", "resize_spec", "resize_layout",
     "LayoutResizeError", "ring_attention", "ulysses_attention", "reference_attention",
+    "moe_ffn", "moe_ffn_dense", "init_moe_params", "shard_moe_params",
 ]
 
-# the JAX package's parallel names that wait for a later slice
-NOT_PORTED = {
-    "moe_ffn": "unified",
-    "moe_ffn_dense": "unified", "init_moe_params": "unified", "shard_moe_params": "unified",
-}
-NOT_PORTED_MODULES = ("tensor_parallel", "pipeline", "pipeline_stages", "expert_parallel")
+# the JAX package's parallel names that wait for the model axis
+NOT_PORTED = {"tp_jit": "unified"}
+NOT_PORTED_MODULES = ("tensor_parallel",)
+NOT_PORTED_ITEM = "ROADMAP.md queue A item 2.5 (the model axis)"
 
 
 def not_ported(module: str) -> None:
     """Raise the ``ImportError`` of a parallel module that waits for a
     later slice (each such module calls this at import)."""
     name = module.rsplit(".", 1)[-1]
-    raise ImportError(f"{module} is not ported yet (the JAX package's parallel/{name}.py); "
-                      f"the port's parallel package has {', '.join(__all__)}")
+    raise ImportError(f"{module} is not ported yet (the JAX package's parallel/{name}.py; "
+                      f"{NOT_PORTED_ITEM} ports it); the port's parallel package has "
+                      f"{', '.join(__all__)}")
 
 
 def __getattr__(name):
@@ -89,5 +97,6 @@ def __getattr__(name):
         where = NOT_PORTED.get(name, name)
         raise AttributeError(
             f"deeplearning4j_tpu_torch.parallel.{name} is not ported yet (the JAX package's "
-            f"parallel/{where}.py); the port's parallel package has {', '.join(__all__)}")
+            f"parallel/{where}.py; {NOT_PORTED_ITEM} ports it); the port's parallel package has "
+            f"{', '.join(__all__)}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

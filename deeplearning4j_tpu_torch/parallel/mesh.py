@@ -1,4 +1,4 @@
-"""The mesh vocabulary and the dense data-parallel layout (port of
+"""The mesh vocabulary and the layouts over it (port of
 ``deeplearning4j_tpu/parallel/mesh.py``).
 
 Axis conventions, the JAX package's:
@@ -34,24 +34,28 @@ only two collectives a layout issues on the device; a step that holds
 gloo collectives cannot be captured in a CUDA graph, so it runs eagerly
 (:attr:`MeshLayout.captures`, and the step key says so).
 
-The ``data`` and ``seq`` axes are ported.  A mesh lays its ranks out in
-:data:`MESH_AXES` order (the ``seq`` position varies fastest of the two),
-and every rank makes the subgroups of each axis (:attr:`ProcessMesh.
-data_group`, :attr:`ProcessMesh.seq_group`) in one order, since
-``dist.new_group`` is collective over the whole default group; a group is
-made once per set of ranks (:func:`subgroup`), so a resize that returns to
-a width reuses the groups made on the way.  A trainer's collectives run on
-the data subgroup: the ``seq`` ranks of one data position are replicas of
-its step (``parallel.unified``'s attention shards the sequence over them).
-A layout narrower than the world (``"dp2"`` in a gang of 4) takes the
-world's leading ranks, as the JAX package's ``MeshSpec.build`` takes the
-leading devices; the other ranks are parked (:attr:`ProcessMesh.member`
-is False) until a resize takes them back.  A layout with ``model``,
-``pipe`` or ``expert`` > 1 raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it.  :func:`resize_spec` and
-:func:`resize_layout` derive a layout at a new width, over the same world
-(``Trainer.resize_mesh``) or a gang relaunched at it (the supervisor's
-resize).
+The ``pipe``, ``data``, ``seq`` and ``expert`` axes are ported.  A mesh
+lays its ranks out in :data:`MESH_AXES` order (``pipe`` outermost, the
+last axis varying fastest), and every rank makes the subgroups of each
+axis (:attr:`ProcessMesh.axis_groups`: ``seq``, ``data``, ``pipe``,
+``expert``, in that order) in one order, since ``dist.new_group`` is
+collective over the whole default group; a group is made once per set of
+ranks (:func:`subgroup`), so a resize that returns to a width reuses the
+groups made on the way.  A trainer's gradient collectives run on the data
+subgroup: the ``seq`` ranks of one data position are replicas of its step
+(``parallel.unified``'s attention shards the sequence over them), the
+``pipe`` ranks of one data position its stages
+(``parallel.pipeline_stages``), the ``expert`` ranks the shards of a MoE
+layer's tokens and experts (``parallel.unified.moe_ffn``).  A layout
+narrower than the world (``"dp2"`` in a gang of 4) takes the world's
+leading ranks, as the JAX package's ``MeshSpec.build`` takes the leading
+devices; the other ranks are parked (:attr:`ProcessMesh.member` is False)
+until a resize takes them back.  A layout with ``model`` > 1 raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+:func:`resize_spec` and :func:`resize_layout` derive a layout at a new
+width (the ``data`` axis scales; ``pipe``, ``seq`` and ``expert`` stay),
+over the same world (``Trainer.resize_mesh``) or a gang relaunched at it
+(the supervisor's resize).
 """
 
 from __future__ import annotations
@@ -97,12 +101,12 @@ _TOKEN_RE = re.compile(r"([a-z]+)(\d+)")
 
 # the ROADMAP.md item that ports each axis the port does not run yet
 _NOT_PORTED_AXES = {
-    AXIS_MODEL: "queue A item 2.5 (the model-axis layouts: tp and dp x tp, with the TP rule "
-                "families)",
-    AXIS_PIPE: "queue A item 2.4 (pipeline.py, pipeline_stages.py and unified.py's pipeline "
-               "helpers)",
-    AXIS_EXPERT: "queue A item 2.4 (unified.py's MoE functions)",
+    AXIS_MODEL: "queue A item 2.5 (the model-axis layouts: tp, dp x tp and pipe x model, with "
+                "the TP rule families)",
 }
+
+# the axes a process mesh makes subgroups for, in the order every rank makes them
+_GROUP_AXES = (AXIS_SEQ, AXIS_DATA, AXIS_PIPE, AXIS_EXPERT)
 
 
 @dataclasses.dataclass
@@ -179,8 +183,9 @@ def _refuse_unported(spec: MeshSpec) -> None:
         if axis in _NOT_PORTED_AXES and size > 1:
             raise NotImplementedError(
                 f"layout {spec.describe()!r}: the {axis!r} axis is not ported yet; "
-                f"ROADMAP.md {_NOT_PORTED_AXES[axis]} ports it.  The port runs the data and "
-                f"seq axes (layout='dp<N>', 'dp<N>xsp<M>')")
+                f"ROADMAP.md {_NOT_PORTED_AXES[axis]} ports it.  The port runs the data, seq, "
+                f"pipe and expert axes (layout='dp<N>', 'dp<N>xsp<M>', 'pp<S>', 'dp<N>xpp<S>', "
+                f"'ep<E>')")
 
 
 # a parked rank waits at its trainer's next epoch boundary for as long as
@@ -254,10 +259,13 @@ class ProcessMesh:
 
     The mesh takes the world's leading ``size`` ranks; a rank past them is
     parked (``member`` False, ``rank`` -1).  ``group`` is the mesh's group
-    (the world itself when the mesh is as wide), ``data_group`` and
-    ``seq_group`` this rank's groups along those axes (the mesh's group
-    where the axis spans it; None where the axis is 1 or the rank is
-    parked), ``data_index`` and ``seq_index`` its positions on them."""
+    (the world itself when the mesh is as wide); ``axis_groups[axis]`` is
+    this rank's group along an axis (the mesh's group where the axis spans
+    it; None where the axis is 1 or the rank is parked) and
+    ``axis_index[axis]`` its position on it (-1 when parked), for the
+    ``seq``, ``data``, ``pipe`` and ``expert`` axes; ``data_group``,
+    ``seq_group``, ``pipe_group``, ``expert_group`` and the ``*_index``
+    attributes name them."""
 
     def __init__(self, shape: dict, world_devices: Sequence, world=None):
         import torch.distributed as dist
@@ -283,15 +291,15 @@ class ProcessMesh:
             ranks = [dist.get_global_rank(world, r) for r in range(self.size)]
         self.ranks = ranks
         narrow = self.size < self.world_size
-        needs = narrow or any(1 < self.shape[a] < self.size for a in (AXIS_DATA, AXIS_SEQ))
+        needs = narrow or any(1 < self.shape[a] < self.size for a in _GROUP_AXES)
         if needs and world is not None:
-            raise ValueError("a mesh narrower than its group, or with data and seq axes both "
-                             "above 1, needs subgroups of the default group: build it over the "
-                             "default group (group=None)")
+            raise ValueError("a mesh narrower than its group, or with two axes above 1, needs "
+                             "subgroups of the default group: build it over the default group "
+                             "(group=None)")
         # collective: every rank makes every group, in this order
         self.group = subgroup(ranks) if narrow else world
-        axis_groups = {}
-        for axis in (AXIS_SEQ, AXIS_DATA):
+        self.axis_groups = {}
+        for axis in _GROUP_AXES:
             n = self.shape[axis]
             mine = None
             if n == self.size:
@@ -301,11 +309,13 @@ class ProcessMesh:
                     g = subgroup(members)
                     if self.member and ranks[self.rank] in members:
                         mine = g
-            axis_groups[axis] = mine if self.member else None
-        self.seq_group, self.data_group = axis_groups[AXIS_SEQ], axis_groups[AXIS_DATA]
+            self.axis_groups[axis] = mine if self.member else None
         coords = _coords(self.rank, self.shape) if self.member else [-1] * len(MESH_AXES)
-        self.data_index = coords[MESH_AXES.index(AXIS_DATA)]
-        self.seq_index = coords[MESH_AXES.index(AXIS_SEQ)]
+        self.axis_index = dict(zip(MESH_AXES, coords))
+        self.seq_group, self.data_group, self.pipe_group, self.expert_group = (
+            self.axis_groups[a] for a in (AXIS_SEQ, AXIS_DATA, AXIS_PIPE, AXIS_EXPERT))
+        self.seq_index, self.data_index, self.pipe_index, self.expert_index = (
+            self.axis_index[a] for a in (AXIS_SEQ, AXIS_DATA, AXIS_PIPE, AXIS_EXPERT))
 
     def global_rank(self, axis: str, index: int) -> int:
         """The global rank of the process at ``index`` along ``axis`` from
@@ -422,8 +432,10 @@ def broadcast_tree(tree, src: int = 0, group=None, count=None):
 
 
 class MeshLayout:
-    """A resolved data-parallel layout over one :class:`ProcessMesh`
-    (module docstring); construct it with :func:`resolve_layout`."""
+    """A resolved layout over one :class:`ProcessMesh` (module docstring);
+    construct it with :func:`resolve_layout`.  Its collectives
+    (:meth:`all_reduce_`, :meth:`all_reduce_tree`) run on the data axis's
+    group; a pipe layout's exchanges are ``parallel.pipeline_stages``'."""
 
     def __init__(self, spec: MeshSpec, mesh: Optional[ProcessMesh] = None,
                  tp_family: str = "dense", devices=None):
@@ -446,6 +458,18 @@ class MeshLayout:
     @property
     def data(self) -> int:
         return self.spec.data
+
+    @property
+    def pipe(self) -> int:
+        return self.spec.pipe
+
+    @property
+    def expert(self) -> int:
+        return self.spec.expert
+
+    @property
+    def model(self) -> int:
+        return self.spec.model
 
     @property
     def rank(self) -> int:
@@ -590,18 +614,26 @@ class MeshLayout:
         return out
 
     # ------------------------------------------------------- cost model
-    def collective_bytes_per_step(self, param_bytes: int) -> int:
+    def collective_bytes_per_step(self, param_bytes: int, activation_bytes: int = 0) -> int:
         """Analytic per-step collective traffic (bytes) of this layout, the
         JAX package's ring model: the gradient all-reduce moves
-        ``2·(n−1)/n · param_bytes`` on the data axis (the only axis
-        ported)."""
+        ``2·(n−1)/n · param_bytes`` on the data axis; on the pipe axis the
+        boundary activations ride the ring forward and back (``2 ·
+        activation_bytes``) and the gradients of every stage reach every
+        rank (``2·(S−1)/S · param_bytes``).  An estimate: the exchanges'
+        own counts are ``parallel.unified.reset_exchange_stats`` and
+        :meth:`reset_stats`."""
         total = 0.0
         if self.data > 1:
             total += 2.0 * (self.data - 1) / self.data * param_bytes
+        if self.pipe > 1:
+            total += 2.0 * max(activation_bytes, 0)
+            total += 2.0 * (self.pipe - 1) / self.pipe * param_bytes
         return int(total)
 
     # ---------------------------------------------------------- metrics
-    def publish_metrics(self, param_bytes: Optional[int] = None) -> None:
+    def publish_metrics(self, param_bytes: Optional[int] = None,
+                        activation_bytes: int = 0) -> None:
         """Stamp the ``tpudl_mesh_*`` gauges for this layout: the active
         layout, the axis sizes and the per-step collective-bytes
         estimate."""
@@ -614,7 +646,8 @@ class MeshLayout:
         reg.labeled_gauge("tpudl_mesh_layout_active", label_names=("layout",)).set(
             1, layout=self.describe())
         if param_bytes is not None:
-            reg.gauge("tpudl_mesh_collective_bytes").set(self.collective_bytes_per_step(param_bytes))
+            reg.gauge("tpudl_mesh_collective_bytes").set(
+                self.collective_bytes_per_step(param_bytes, activation_bytes))
 
 
 class LayoutResizeError(ValueError):

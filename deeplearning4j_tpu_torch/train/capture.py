@@ -42,7 +42,14 @@ as the plain function on every call and says why.
 
 The graphs of one step share one memory pool.  A capture that fails
 raises :class:`CaptureError` naming the step and the signature; nothing
-runs eagerly in its place.  On the CPU, inside :func:`eager` and while
+runs eagerly in its place; the pool's recording and the generators'
+capture are closed, so that the next call captures again into a new
+pool and random numbers keep working.  Before its first capture a thread
+makes its cuBLAS, cuBLASLt and cuDNN handles (:func:`_ready_thread`):
+making one inside a capture breaks it, and a serving replica's thread
+can reach its first capture before it ever ran a step.  A device-wide
+synchronize from another thread breaks a capture too:
+:func:`device_synchronize` waits for the capture's end.  On the CPU, inside :func:`eager` and while
 autograd's anomaly mode is on, the step runs as the plain function.
 Every step counts the call signatures it has seen (``signature_count``),
 on the CPU too: the trainer's recompile count.  The kernels' launch counts go up when a
@@ -55,6 +62,7 @@ import contextlib
 import dataclasses
 import gc
 import threading
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
@@ -66,8 +74,9 @@ WARMUP_CALLS = 2
 
 _eager_depth = 0
 _eager_lock = threading.Lock()
-# one capture at a time in the process (CUDA graphs' own rule)
-_capture_lock = threading.Lock()
+# one capture at a time in the process (CUDA graphs' own rule); a
+# device-wide synchronize waits for it (device_synchronize)
+_capture_lock = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -100,6 +109,35 @@ def _collector_paused():
     finally:
         if enabled:
             gc.enable()
+
+
+_thread = threading.local()
+
+
+def _ready_thread(device) -> None:
+    """Make this thread's cuBLAS, cuBLASLt and cuDNN handles before its
+    first capture.  A thread's first call into each library creates its
+    handle, and creating one makes calls that a capture forbids; a worker
+    thread can reach its first capture before it ever ran a step (a
+    serving replica whose batches the other replicas warmed)."""
+    if getattr(_thread, "ready", False):
+        return
+    with torch.no_grad():
+        a = torch.ones((8, 8), device=device)
+        torch.mm(a, a)
+        torch.addmm(a, a, a)
+        torch.nn.functional.conv2d(torch.ones((1, 1, 4, 4), device=device),
+                                   torch.ones((1, 1, 3, 3), device=device))
+    _thread.ready = True
+
+
+def device_synchronize(device=None) -> None:
+    """``torch.cuda.synchronize(device)``, but never while another thread
+    of the process captures a CUDA graph: a device-wide synchronize during
+    a capture, from any thread, breaks the capture, so this waits for the
+    capture to end."""
+    with _capture_lock:
+        torch.cuda.synchronize(device)
 
 
 class CaptureError(RuntimeError):
@@ -274,10 +312,21 @@ class CapturedStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         with _capture_lock, _collector_paused():
+            # under the lock: making the handles must not overlap another
+            # thread's capture either
+            _ready_thread(torch.cuda.current_device())
+            stream = torch.cuda.current_stream()
             try:
                 with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                     out = self.fn(*trees, *static)
             except Exception as e:
+                # a capture_end that raises leaves the capture stream current
+                torch.cuda.set_stream(stream)
+                self._close_pool()
+                try:
+                    _end_generator_capture(generators)
+                except RuntimeError as cleanup:
+                    e.add_note(f"ending the generators' capture failed too: {cleanup}")
                 raise CaptureError(f"capturing step {self.name!r} for batch signature "
                                    f"{batch_sig} failed: {type(e).__name__}: {e}") from e
         is_tuple = isinstance(out, tuple)
@@ -289,6 +338,19 @@ class CapturedStep:
                                    f"captured step returns tensors and its own trees")
             outputs.append(o if index is None else index)
         return _Graph(graph, static, outputs, generators, is_tuple)
+
+    def _close_pool(self) -> None:
+        """After a failed capture: end the allocator's recording into this
+        step's pool, which the graph's ``capture_end`` leaves open when it
+        raises (the next capture into the pool would read "already
+        recording"), and give the next capture a pool of its own.  The
+        graphs captured before keep the old pool."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            try:
+                torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), pool)
+            except RuntimeError:
+                pass        # the capture had ended its recording itself
 
     def _copy_in(self, static: list, rest) -> None:
         """The batch into the graph's static input buffers, on the
@@ -312,6 +374,23 @@ class CapturedStep:
             registered.set_state(own)
         outs = tuple(args[o] if isinstance(o, int) else o.clone() for o in g.outputs)
         return outs if g.is_tuple else outs[0]
+
+
+def _end_generator_capture(generators) -> None:
+    """After a failed capture: the card's default generator and ``generators``
+    (those the capture registered) left capturing, which the graph's
+    ``capture_end`` does last and skips when it raises; a random op outside
+    a capture then raises ("Offset increment outside graph capture").  An
+    empty capture with the same generators ends theirs; their state objects
+    stay the ones the graphs captured before hold."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)     # "The CUDA Graph is empty"
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
+                              capture_error_mode="thread_local"):
+            pass
 
 
 def _same(a: list, b: list) -> bool:

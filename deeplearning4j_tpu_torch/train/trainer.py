@@ -79,6 +79,16 @@ width goes.  A rank outside the layout is parked: it runs no step and
 waits at the next boundary.  The arbiter (``resilience.arbiter``) and any
 caller of ``request_resize`` live in rank 0's process.
 
+Pipeline parallelism, as the JAX package's ``Trainer(layout="pp2",
+n_microbatches=M)`` (or ``"dp2xpp2"``): each rank of a pipe group runs
+its stage's layers over M microbatches on the 1F1B schedule
+(``parallel.unified.make_pp_train_step``, ``parallel.pipeline_stages``),
+every rank holds and updates the whole net (the JAX package's replicated
+placement: every stage's gradients reach every rank), so ``params()``,
+``score()`` and rank 0's checkpoints are the whole net's.  The step runs
+eagerly (its exchanges go through the host each tick); a
+``features_mask`` and tBPTT are refused, as the JAX package refuses them.
+
 Supervised gangs (``resilience.supervisor``): a respawned child's
 ``fit`` with no ``resume_from`` resumes from its launcher context's
 resume pointer (``parallel.launcher.child_context``), ``resume_state``
@@ -87,8 +97,8 @@ fires the ``gang.grow`` site in a child that a grow spawned and sends the
 step on it (``obs.remote.notify_step``).  A worker sizes its layout from
 ``resilience.elastic.configured_width``.
 
-Not ported yet: the model-axis and pipeline layouts, the artifact store
-and the cost model's step hooks.
+Not ported yet: the model-axis layouts (``ROADMAP.md`` queue A item
+2.5), the artifact store and the cost model's step hooks.
 """
 
 from __future__ import annotations
@@ -409,16 +419,18 @@ class Trainer:
     with frozen layers or per-layer updaters has no key, so each such
     trainer builds its own.
 
-    ``mesh=`` / ``layout=`` pick a data-parallel layout, the JAX package's
-    one flag: a layout string (``"dp2"``), a ``parallel.mesh.MeshSpec`` or
-    ``MeshLayout``, or a ``ProcessMesh`` from ``parallel.make_mesh``
-    (``parallel.mesh.resolve_layout``'s rules; the module docstring says
-    what the step does).  Each process of the group calls it with the same
-    net and batches.  The data and seq axes are ported (the seq ranks of a
-    data position are replicas of its step): a ``model``, ``pipe`` or
-    ``expert`` axis, and ``n_microbatches`` other than 1 (the pipe axis's),
-    raise ``NotImplementedError``.  A layout narrower than the gang parks
-    the ranks past it (module docstring)."""
+    ``mesh=`` / ``layout=`` pick a layout, the JAX package's one flag: a
+    layout string (``"dp2"``, ``"pp2"``, ``"dp2xpp2"``), a
+    ``parallel.mesh.MeshSpec`` or ``MeshLayout``, or a ``ProcessMesh`` from
+    ``parallel.make_mesh`` (``parallel.mesh.resolve_layout``'s rules; the
+    module docstring says what the step does).  Each process of the group
+    calls it with the same net and batches.  The data, seq, expert and
+    pipe axes are ported (the seq and expert ranks of a data position are
+    replicas of its step; a pipe layout splits each batch into
+    ``n_microbatches``, which other layouts ignore); a ``model`` axis
+    raises ``NotImplementedError`` naming ``ROADMAP.md`` queue A item 2.5.
+    A layout narrower than the gang parks the ranks past it (module
+    docstring)."""
 
     def __init__(self, net, listeners=None, mesh=None, layout=None, n_microbatches: int = 1):
         self.net = net
@@ -432,10 +444,9 @@ class Trainer:
             if self._layout is not None and self._layout.device.type != net.device.type:
                 raise ValueError(f"the mesh puts this rank on {self._layout.device}, the net is "
                                  f"on {net.device}")
-        if int(n_microbatches) != 1:
-            raise NotImplementedError(
-                "n_microbatches splits a batch over the pipe axis, which is not ported yet; "
-                "ROADMAP.md queue A item 2.4 ports it")
+        if int(n_microbatches) < 1:
+            raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
+        self._n_microbatches = int(n_microbatches)
         # the rows of each batch this process takes, and the shard its
         # layers run as (ParallelWrapper's averaging mode sets both alone)
         self._batch_layout = self._layout
@@ -469,11 +480,18 @@ class Trainer:
         self._stats_keys: Optional[list] = None
         self._compiled = False    # the first step through this trainer is its compile
 
+    def _pipelined(self) -> bool:
+        return self._layout is not None and self._layout.pipe > 1
+
     def _step_key(self, kind: str) -> Optional[tuple]:
-        """Step-cache key of this trainer's config, or None (no cache)."""
+        """Step-cache key of this trainer's config, or None (no cache); a
+        pipe layout's names its microbatch count (``|mb:M``)."""
         if self._cache_sig is None:
             return None
-        return self._cache_sig + (step_cache.sharding_signature(self._layout), kind)
+        sig = step_cache.sharding_signature(self._layout)
+        if self._pipelined():
+            sig += f"|mb:{self._n_microbatches}"
+        return self._cache_sig + (sig, kind)
 
     # ------------------------------------------------------------- elastic
     def request_resize(self, n_devices: int) -> None:
@@ -667,8 +685,14 @@ class Trainer:
             self._place_layout()
         if self._step is None:
             key = self._step_key("train")
-            self._step = step_cache.get_or_build(key, lambda: make_train_step(
-                net, self.tx, name=key, layout=self._layout, shard=self._shard))
+            if self._pipelined():
+                from deeplearning4j_tpu_torch.parallel import unified
+                layout, mb = self._layout, self._n_microbatches
+                self._step = step_cache.get_or_build(key, lambda: unified.make_pp_train_step(
+                    net, self.tx, layout, mb))
+            else:
+                self._step = step_cache.get_or_build(key, lambda: make_train_step(
+                    net, self.tx, name=key, layout=self._layout, shard=self._shard))
 
     def _step_fns(self) -> tuple:
         """Every step this trainer may call: the recompile count sums the
@@ -713,6 +737,10 @@ class Trainer:
             batch = self._place(batch)
         self._ensure_ready()
         fmask, lmask = _batch_masks(batch)
+        if self._pipelined() and fmask is not None:
+            raise ValueError("pipe-axis layouts do not support features_mask (per-timestep "
+                             "masking) — use a data/model layout; labels_mask (bucket padding) "
+                             "rides the packed labels")
         args = (net.params_, net.state_, net.opt_state, batch.features, batch.labels, fmask,
                 lmask, rng)
         sampling = [l for l in self._stats_listeners if l.wants_stats_now(net.iteration)]
@@ -774,6 +802,10 @@ class Trainer:
         padded with masked steps, so every segment runs one captured step.
         Returns the last segment's loss; under a layout the carries hold
         this process's rows."""
+        if self._pipelined():
+            raise NotImplementedError("tBPTT is not supported on pipe-axis layouts (recurrent "
+                                      "carries cannot ride the 1F1B ring); use a data/model "
+                                      "layout")
         net = self.net
         length = net.conf.tbptt_fwd_length
         if batch.features.shape[1] % length:

@@ -408,8 +408,9 @@ def test_layouts_that_the_group_does_not_fit_raise(port):
 def test_unported_axes_raise_naming_their_roadmap_item(layout, item):
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(_zero_conf().to_json()),
                             device="cpu").init()
-    if item is None:
-        # the seq axis is ported: with no process group it asks for one
+    if item != "2.5":
+        # the seq axis, and since item 2.4 the pipe and expert axes, are ported: with
+        # no process group they ask for one
         with pytest.raises(RuntimeError, match="spawn_local_cluster.*initialize"):
             Trainer(net, layout=layout)
         with pytest.raises(RuntimeError, match="spawn_local_cluster"):
@@ -434,8 +435,10 @@ def test_layout_rules_without_a_group_follow_the_reference():
         jmesh.resolve_layout(layout="dp64")
     with pytest.raises(RuntimeError):
         mesh.resolve_layout(layout="dp64")
-    with pytest.raises(NotImplementedError, match="item 2.4"):
-        Trainer(net, n_microbatches=2)
+    # the pipe axis's microbatch count is taken, and only a pipe layout splits a batch
+    assert Trainer(net, n_microbatches=2)._n_microbatches == 2
+    with pytest.raises(ValueError, match="n_microbatches"):
+        Trainer(net, n_microbatches=0)
     with pytest.raises(ValueError, match="layout"):
         Trainer(net).request_resize(4)
     assert mesh.resize_spec(mesh.MeshSpec(data=2), 4).sizes() == \

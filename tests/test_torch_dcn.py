@@ -519,12 +519,15 @@ def test_parallel_inference_shim_and_the_names_not_ported(runs):
     with parallel.ParallelInference(net, batch_limit=8) as pi:
         got = pi.output(r["x"][:3])
     np.testing.assert_allclose(got, net.output(torch.from_numpy(r["x"][:3])).numpy(), rtol=1e-6)
-    # the sequence-parallel attention is ported; MoE waits for item 2.4's remainder
-    for name in ("ulysses_attention", "ring_attention"):
+    # the sequence-parallel attention and the MoE FFN are ported; the model axis
+    # (tp_jit, tensor_parallel) waits for item 2.5
+    for name in ("ulysses_attention", "ring_attention", "moe_ffn", "moe_ffn_dense",
+                 "init_moe_params", "shard_moe_params"):
         assert name in parallel.__all__ and callable(getattr(parallel, name))
-    with pytest.raises(AttributeError, match="not ported yet"):
-        getattr(parallel, "moe_ffn")
+    with pytest.raises(AttributeError, match="not ported yet.*item 2.5"):
+        getattr(parallel, "tp_jit")
     from deeplearning4j_tpu_torch.parallel import unified
     assert unified.ring_attention is parallel.ring_attention
-    with pytest.raises(ImportError, match="not ported yet"):
+    assert unified.moe_ffn is parallel.moe_ffn
+    with pytest.raises(ImportError, match="not ported yet.*item 2.5"):
         import deeplearning4j_tpu_torch.parallel.tensor_parallel  # noqa: F401

@@ -2,6 +2,8 @@
 ``deeplearning4j_tpu_torch.parallel.launcher.spawn_local_cluster``
 (module-level, so that they pickle by name; they import nothing of JAX)."""
 
+import functools
+
 import numpy as np
 
 STEPS, GLOBAL_BATCH, TAU0 = 4, 16, 2e-2
@@ -807,4 +809,252 @@ def sequence_parallel_worker(pid, n, cases):
     except NotImplementedError as e:
         errors["head_axis"] = str(e)
     out["errors"] = errors
+    return out
+
+
+# ------------------------------------------------------ expert parallelism
+# tests/test_torch_expert_parallel.py's rank: moe_ffn on this rank's token
+# shard over an ep2 mesh (ranks 0-1), an ep4 mesh and a dp2 x ep2 mesh of
+# the gang of 4.
+
+def expert_parallel_worker(pid, n, cases):
+    """Each case of ``cases`` (name -> dict: ``mesh`` (data, expert), the
+    MoE tree and the global tokens as numpy, the call's keyword
+    arguments): this rank's output shard, its gradients of the global
+    loss mean(y * y) in its params (the gate whole, its experts' rows)
+    and its tokens, its shard's index, and the exchange counts of the
+    forward and of the backward."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import make_mesh, moe_ffn, shard_moe_params
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    meshes = {shape: make_mesh(data=shape[0], expert=shape[1], devices="cpu")
+              for shape in sorted({c["mesh"] for c in cases.values()})}
+    out = {"pid": pid}
+    for name, case in cases.items():
+        mesh = meshes[case["mesh"]]
+        if not mesh.member:
+            continue
+        d, e = case["mesh"]
+        shard = mesh.data_index * e + mesh.expert_index
+        per = case["x"].shape[0] // (d * e)
+        x = torch.from_numpy(case["x"][shard * per:(shard + 1) * per]).requires_grad_(True)
+        params = {k: v.requires_grad_(True)
+                  for k, v in shard_moe_params(
+                      {k: torch.from_numpy(v) for k, v in case["params"].items()}, mesh).items()}
+        reset_exchange_stats()
+        y = moe_ffn(params, x, mesh, **case["kw"])
+        fwd = reset_exchange_stats()
+        (y.pow(2).sum() / (case["x"].shape[0] * case["x"].shape[1])).backward()
+        bwd = reset_exchange_stats()
+        out[name] = {"y": y.detach().numpy(), "shard": shard, "expert_index": mesh.expert_index,
+                     "grads": {k: v.grad.numpy() for k, v in params.items()},
+                     "gx": x.grad.numpy(),
+                     "exchange": [{kind: (st.calls, st.bytes) for kind, st in s.items()}
+                                  for s in (fwd, bwd)]}
+    errors = {}
+    mesh = meshes[(1, 2)]
+    if mesh.member:
+        three = {k: torch.from_numpy(v) for k, v in cases["ep2"]["params"].items()}
+        three = {k: v[..., :3] if k == "gate" else v[:3] for k, v in three.items()}
+        try:
+            moe_ffn(three, torch.zeros(8, three["gate"].shape[0]), mesh)
+        except ValueError as e:
+            errors["experts"] = str(e)
+        whole = {k: torch.from_numpy(v) for k, v in cases["ep2"]["params"].items()}
+        x = torch.from_numpy(cases["ep2"]["x"][:cases["ep2"]["x"].shape[0] // 2])
+        errors["whole_tree_equal"] = bool(torch.equal(
+            moe_ffn(whole, x, mesh, **cases["ep2"]["kw"]),
+            moe_ffn(shard_moe_params(whole, mesh), x, mesh, **cases["ep2"]["kw"])))
+        try:
+            moe_ffn({**whole, "w_in": whole["w_in"][:1]}, x, mesh)
+        except ValueError as e:
+            errors["rows"] = str(e)
+    out["errors"] = errors
+    return out
+
+
+# ------------------------------------------------------------- pipelines
+# tests/test_torch_pipeline.py's rank: the pipeline functions on this rank's
+# stage over pipe-4, pipe-2 (ranks 0-1) and pipe-2 x data-2 meshes of the
+# gang of 4.
+
+def _mlp_stage(p, h):
+    import torch
+    return torch.tanh(h @ p["W"] + p["b"])
+
+
+def _mse(out, lab):
+    return ((out - lab) ** 2).mean()
+
+
+def _rows(mesh, a, data: int):
+    """This rank's data position's rows of the global numpy array ``a``."""
+    import torch
+    per = a.shape[0] // data
+    i = max(mesh.data_index, 0)
+    return torch.from_numpy(np.ascontiguousarray(a[i * per:(i + 1) * per]))
+
+
+def _pipe_case(case, mesh):
+    import torch
+    from deeplearning4j_tpu_torch import interop
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.parallel import pipeline, pipeline_stages as ps
+    from deeplearning4j_tpu_torch.parallel.unified import reset_exchange_stats
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+    kind, (S, d) = case["kind"], case["mesh"]
+    x = _rows(mesh, case["x"], d)
+    to_torch = functools.partial(tree_map, lambda a: torch.from_numpy(np.array(a)))
+    if kind == "apply":
+        from deeplearning4j_tpu_torch.obs.registry import get_registry
+        calls = get_registry().counter("tpudl_parallel_pipeline_calls_total")
+        before = calls.value
+        y = pipeline.pipeline_apply(_mlp_stage, to_torch(case["params"]), x, mesh, case["M"],
+                                    data_axis="data" if d > 1 else None)
+        return {"y": y.numpy(), "calls": calls.value - before}
+    if kind == "apply_stages":
+        return {"y": ps.pipeline_apply_stages([_mlp_stage] * S, to_torch(case["params"]), x,
+                                              mesh, case["M"]).numpy()}
+    y = _rows(mesh, case["y"], d)
+    if kind == "train":
+        out = {}
+        for schedule in ("1f1b", "gpipe"):
+            reset_exchange_stats()
+            loss, grads = ps.pipeline_train_step(
+                [_mlp_stage] * S, to_torch(case["params"]), x, y, _mse, mesh, case["M"],
+                schedule=schedule, data_axis="data" if d > 1 else None)
+            hops = reset_exchange_stats().get("pipe")
+            out[schedule] = {"loss": float(loss),
+                             "grads": tree_map(lambda t: t.numpy(), list(grads)),
+                             "hops": None if hops is None else (hops.calls, hops.bytes)}
+        return out
+    if kind == "bert":
+        config = bert.BertConfig.from_dict(case["config"])
+        model = interop.load_jax_bert_params(bert.BertForMaskedLM(config, device="cpu"),
+                                             case["params"])
+        fns, sp = bert.pipeline_stages(config, model.params, S)
+        loss, grads = ps.pipeline_train_step(fns, sp, x, y, bert.mlm_loss_from_logits, mesh,
+                                             case["M"])
+        merged = bert.merge_tied_embedding_grads(grads)
+        return {"loss": float(loss), "grads": tree_map(lambda t: t.numpy(), list(merged))}
+    if kind == "fit_local":
+        tx = Adam(learning_rate=1e-2)
+        flat, unravels, sizes = ps.flatten_stage_params(to_torch(case["params"]))
+        row = ps.stage_row(flat, mesh)
+        opt = ps.init_stage_local_opt(tx, flat, mesh)
+        losses = []
+        for _ in range(2):
+            loss, row, opt = ps.pipeline_fit_step_local([_mlp_stage] * S, row, opt, tx,
+                                                        unravels, sizes, x, y, _mse, mesh,
+                                                        case["M"])
+            losses.append(float(loss))
+        back = ps.unflatten_stage_params(flat, unravels, sizes)
+        return {"losses": losses, "row": row.numpy(), "sizes": sizes,
+                "round_trip": [tree_map(lambda t: t.numpy(), b) for b in back]}
+    raise ValueError(kind)
+
+
+def pipeline_worker(pid, n, cases):
+    """Each case of ``cases`` (name -> dict: ``kind``, ``mesh`` (pipe,
+    data), the global numpy arrays and params): this rank's results, its
+    pipe index; then the refusals' messages."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel import pipeline_stages as ps
+    meshes = {shape: make_mesh(pipe=shape[0], data=shape[1], devices="cpu")
+              for shape in sorted({c["mesh"] for c in cases.values()})}
+    out = {"pid": pid}
+    for name, case in cases.items():
+        mesh = meshes[case["mesh"]]
+        if mesh.member:
+            out[name] = _pipe_case(case, mesh)
+            out[name]["stage"] = mesh.pipe_index
+    errors = {}
+    mesh = meshes[(4, 1)]
+    x = torch.zeros(16, 12)
+    params = [{"W": torch.zeros(12, 12), "b": torch.zeros(12)}] * 4
+    for key, call in {
+            "model_axis": lambda: ps.pipeline_train_step([_mlp_stage] * 4, params, x, x, _mse,
+                                                         mesh, 4, model_axis="model"),
+            "uneven": lambda: ps.pipeline_train_step([_mlp_stage] * 4, params, x, x, _mse, mesh,
+                                                     5),
+            "fns": lambda: ps.pipeline_train_step([_mlp_stage] * 3, params, x, x, _mse, mesh, 4),
+            "schedule": lambda: ps.pipeline_train_step([_mlp_stage] * 4, params, x, x, _mse,
+                                                       mesh, 4, schedule="zb")}.items():
+        try:
+            call()
+        except (ValueError, NotImplementedError) as e:
+            errors[key] = f"{type(e).__name__}: {e}"
+    out["errors"] = errors
+    return out
+
+
+# ------------------------------------------------------------ pipe layouts
+# tests/test_torch_pipe_layout.py's rank: Trainer(layout="pp2") (ranks 0-1;
+# 2-3 parked) and Trainer(layout="dp2xpp2") in the gang of 4.
+
+def _pipe_fit(case, layout, mb=1, masks=None, listeners=()):
+    """``_dp_fit`` under ``layout`` with ``mb`` microbatches, every dropout
+    draw ``masks``' mask of its shape when given; the results and the
+    trainer."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import base
+    from deeplearning4j_tpu_torch.train import Trainer, step_cache
+    step_cache.clear_step_cache()
+    draw = base._keep_mask
+    if masks is not None:
+        base._keep_mask = lambda shape, p, gen, device: torch.as_tensor(masks[tuple(shape)])
+    try:
+        return _dp_fit(case, lambda net, ls: Trainer(net, ls, layout=layout, n_microbatches=mb),
+                       listeners)
+    finally:
+        base._keep_mask = draw
+
+
+def pipe_layout_worker(pid, n, spec_path):
+    import os
+
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.io.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    spec = _wait_for_spec(spec_path)
+    drop, plain = spec["dropout"], spec["plain"]
+    out = {"pid": pid}
+    out["pp2_shared"], tr = _pipe_fit(drop, "pp2", masks=drop["masks"])
+    out["parked"] = tr.parked
+    out["step_key"] = tr._step_key("train")[-2] if tr._step_key("train") else None
+    out["eager_reason"] = getattr(tr._step, "eager_reason", None)
+    if not tr.parked:
+        reg = get_registry()
+        gauge = reg.labeled_gauge("tpudl_mesh_axis_size", label_names=("axis",))
+        out["gauges"] = {"pipe": gauge.labeled_value(axis="pipe"),
+                         "bytes": reg.gauge("tpudl_mesh_collective_bytes").value,
+                         "param_bytes": sum(t.numel() * t.element_size()
+                                            for t in tree_leaves(tr.net.params_))}
+        batch = DataSet(drop["x"][:16], drop["y"][:16], np.ones((16, 8), np.float32))
+        try:
+            tr.fit_batch(batch)
+        except ValueError as e:
+            out["fmask_error"] = str(e)
+        try:
+            tr._fit_tbptt(batch, torch.Generator())
+        except NotImplementedError as e:
+            out["tbptt_error"] = str(e)
+    out["pp2_own"], _ = _pipe_fit(drop, "pp2")
+    out["single_own"], _ = _pipe_fit(drop, None)
+    out["dp2xpp2"], tr = _pipe_fit(plain, "dp2xpp2", mb=2)
+    out["dp2xpp2_key"] = tr._step_key("train")[-2]
+    ckpt = os.path.join(spec["workdir"], f"ckpt_{pid}")
+    got, tr = _pipe_fit(plain, "pp2", mb=2,
+                        listeners=[CheckpointListener(ckpt, save_every_n_iterations=1)])
+    out["pp2_mb2"] = got
+    files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    out["checkpoints"] = len([f for f in files if f.endswith(".zip")])
+    if out["checkpoints"]:
+        last = CheckpointListener.last_checkpoint_in(ckpt)
+        out["checkpoint_params"] = _np(MultiLayerNetwork.load(last, device="cpu").params_)
     return out
